@@ -1,0 +1,103 @@
+"""Fused catalog scoring + segment max (serving stage 1).
+
+Port of ``fashionvisualexpl_tpu/ops/segmax.py::_kernel`` (behind
+``segmax_scores``), as the hand-written CUDA kernel ``csrc/segmax.cu``:
+
+    out[b, s] = max over items j of segment s of (uf[b] . iv[j] + ib_cand[j])
+
+with f32 accumulation from bf16 or f32 operands (a bf16 x bf16 product is
+exact in f32).  ``ib_cand`` carries the item bias and the validity mask (pad
+items hold -1e30), so the kernel has no branch on validity.  The output is
+always [B, S]; the TPU kernel's transposed layout, its user-tile
+divisibility rule and its lane-multiple item tile are Mosaic matters that
+stay behind.
+
+Bound on an H100 SXM at the serving shapes: B=4096, Ip=1,048,576 (1M items
+padded to the 65536 block), D=128 is 1.10 TFLOP, ~1.11 ms at 989 TFLOP/s
+bf16, against ~0.81 GB of traffic (iv 268 MB + out 537 MB), ~0.24 ms at
+3.35 TB/s.  At B=8 the 268 MB item read alone bounds it: ~0.08 ms.  The
+kernel runs on the CUDA cores and is far from that bound; its measured
+times are in PERF.md.
+
+``segmax_scores`` launches the kernel for a CUDA tensor (or raises) and takes
+the plain version ``segmax_scores_reference`` for a CPU tensor only.
+``segmax_scores.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_DTYPES = {torch.bfloat16: "fvx_segmax_bf16", torch.float32: "fvx_segmax_f32"}
+
+
+def segmax_scores_reference(
+    uf: torch.Tensor, iv: torch.Tensor, ib_cand: torch.Tensor, seg: int
+) -> torch.Tensor:
+    """Plain PyTorch version: [B, Ip // seg] f32 segment maxima."""
+    B = uf.shape[0]
+    s = uf.float() @ iv.float().T + ib_cand
+    return s.view(B, -1, seg).amax(-1)
+
+
+def _check(uf, iv, ib_cand, seg):
+    if uf.dim() != 2 or iv.dim() != 2 or ib_cand.dim() != 1:
+        raise ValueError(
+            f"expected uf [B, D], iv [Ip, D], ib_cand [Ip]; got "
+            f"{tuple(uf.shape)}, {tuple(iv.shape)}, {tuple(ib_cand.shape)}"
+        )
+    B, D = uf.shape
+    Ip = iv.shape[0]
+    if iv.shape[1] != D or ib_cand.shape[0] != Ip:
+        raise ValueError(
+            f"shape mismatch: uf {tuple(uf.shape)} iv {tuple(iv.shape)} "
+            f"ib_cand {tuple(ib_cand.shape)}"
+        )
+    if uf.dtype != iv.dtype or uf.dtype not in _DTYPES:
+        raise ValueError(
+            f"uf and iv must share dtype bf16 or f32; got {uf.dtype}, {iv.dtype}"
+        )
+    if ib_cand.dtype != torch.float32:
+        raise ValueError(f"ib_cand must be float32, got {ib_cand.dtype}")
+    if seg < 1 or Ip % seg:
+        raise ValueError(f"geometry: Ip={Ip} not a multiple of seg={seg}")
+    if not (uf.device == iv.device == ib_cand.device):
+        raise ValueError("uf, iv and ib_cand must be on one device")
+
+
+def segmax_scores(
+    uf: torch.Tensor,  # [B, D] bf16 (or f32)
+    iv: torch.Tensor,  # [Ip, D] same dtype
+    ib_cand: torch.Tensor,  # [Ip] f32: bias + validity penalty for pad items
+    seg: int,
+) -> torch.Tensor:
+    """[B, Ip // seg] f32 segment maxima of the full score matrix."""
+    _check(uf, iv, ib_cand, seg)
+    if uf.device.type == "cpu":
+        return segmax_scores_reference(uf, iv, ib_cand, seg)
+    if uf.device.type != "cuda":
+        raise ValueError(f"segmax_scores: unsupported device {uf.device}")
+    for name, t in (("uf", uf), ("iv", iv), ("ib_cand", ib_cand)):
+        if not t.is_contiguous():
+            raise ValueError(f"segmax_scores: {name} must be contiguous")
+    from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
+
+    fn = getattr(load_library("segmax"), _DTYPES[uf.dtype])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, D = uf.shape
+    Ip = iv.shape[0]
+    out = torch.empty((B, Ip // seg), dtype=torch.float32, device=uf.device)
+    with torch.cuda.device(uf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(uf.data_ptr(), iv.data_ptr(), ib_cand.data_ptr(),
+                out.data_ptr(), B, Ip, D, seg, stream)
+    if rc != 0:
+        raise RuntimeError(f"segmax kernel launch failed: cudaError {rc}")
+    segmax_scores.launches += 1
+    return out
+
+
+segmax_scores.launches = 0
