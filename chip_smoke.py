@@ -23,7 +23,22 @@ Phases, each of which raises on a failure (nothing is swallowed):
    users checked against a full-catalog fp32 oracle on the card, p50 ms
    and QPS per bucket, peak memory;
 5. options: the fp32 and int8 stage-1 block scans on the same index size,
-   checked against the same oracle.
+   checked against the same oracle;
+6. train kernels: the fused BPR loss (K1, forward and backward kernels) and
+   the fused Adam sweep (K6) against their plain PyTorch versions over many
+   shapes, then their times, the plain versions' times, the library call
+   (K6 only: ``torch._fused_adam_`` with a zero gradient, which reads one
+   more array) and the bounds at the training step's shapes;
+7. train: the fast BPRMF path (``make_fast_epoch_fn``, ``pallas_bpr=True``,
+   ``fused_adam=True``) at the JAX package's scaled training configuration,
+   K=128, 1M users x 500k items, 20 positives per user, batch 8192, 200
+   steps per epoch, user_perm sampling.  5 steps by the kernel route against
+   5 by the plain route from one state; 3 epochs through the kernels (the
+   launch counts must show 2 K1 and 3 K6 launches per step) with triples/s,
+   ms per step and peak memory; one ``torch.profiler`` pass of 10 steps;
+8. fit: the generic ``fit`` at the reference workload (10k x 10k, 20
+   interactions per user, K=64, batch 256, 2 epochs), whose epoch losses
+   must be finite and falling.
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -56,6 +71,25 @@ BUCKETS = (8, 64, 1024, 4096)
 # kernel vs plain version: the kernel sums D products sequentially in f32
 # FMAs, cuBLAS in another order, on scores of magnitude up to ~20
 K_ATOL, K_RTOL = 1e-4, 1e-5
+
+# training configuration (the JAX package's scripts/scaled_bench.py)
+TRAIN_U, TRAIN_I, TRAIN_POS = 1_000_000, 500_000, 20
+TRAIN_B, TRAIN_STEPS, TRAIN_EPOCHS, TRAIN_LR, TRAIN_REG = 8192, 200, 3, 0.001, 0.001
+ROUTE_STEPS, PROFILE_STEPS = 5, 10
+# the reference workload (bench.py) for the generic fit
+REF_U = REF_I = 10_000
+REF_K, REF_B, REF_PER_USER, REF_EPOCHS = 64, 256, 20, 2
+# K1 kernel vs plain version: the loss sums in another order (rtol 1e-5).
+# sigma follows diff, whose K products the kernel sums with FMAs in lane
+# order and torch in its own: the rounding grows with the products, which
+# scale as the inputs squared, so sigma's atol is BPR_ATOL * scale**2.  The
+# backward is compared on the kernel's own sigma (rtol 1e-4, atol 1e-5).
+BPR_LOSS_RTOL = 1e-5
+BPR_RTOL, BPR_ATOL = 1e-4, 1e-5
+# K6 kernel vs plain version: the same f32 operations in the same order
+ADAM_RTOL_MV, ADAM_RTOL_P = 1e-6, 1e-5
+# kernel route vs plain route over 5 full-width steps
+ROUTE_RTOL, ROUTE_ATOL = 2e-4, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -248,6 +282,395 @@ def serve_phase(torch, np, segmax):
     return results, launches
 
 
+def bound_ms(bytes_: float, ops: float, peak: float):
+    """(ms, "bytes"|"operations"): the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bpr_bounds(B: int, K: int):
+    """Forward and backward bounds of K1 at [B, K] f32 (4 bytes each).
+    Forward: reads gu, gp, gn and bp, bn, writes sigma and the loss; about
+    3 operations per element (sub, mul, add) and 20 per triple (clip,
+    softplus, sigmoid).  Backward: reads sigma, gu, gp, gn and g, writes
+    three [B, K] and two [B] gradients; 7 operations per element."""
+    fwd = bound_ms(4 * (3 * B * K + 2 * B + B + 1), 3 * B * K + 20 * B, PEAK_F32_FLOPS)
+    bwd = bound_ms(4 * (B + 3 * B * K + 1 + 3 * B * K + 2 * B), 7 * B * K + 2 * B,
+                   PEAK_F32_FLOPS)
+    return fwd, bwd
+
+
+def adam_bound(n: int):
+    """K6 on n f32 elements: p, m, v read once and written once; 8
+    operations per element (two decays, v scale, sqrt, eps add, lr mul,
+    divide, subtract)."""
+    return bound_ms(4 * 6 * n + 8, 8 * n, PEAK_F32_FLOPS)
+
+
+def dev_us(ev) -> float:
+    """Self device time (us) of a torch.profiler event average."""
+    return (getattr(ev, "self_device_time_total", 0)
+            or getattr(ev, "self_cuda_time_total", 0))
+
+
+def kernel_times(torch, fn, iters: int, flush=None):
+    """(ms, call_ms, source) per call of fn.  ``ms``: the durations of fn's
+    kernels from torch.profiler, launch gaps left out ("profiler"; CUDA
+    events when the profiler saw no device time, "events").  ``call_ms``:
+    CUDA events around each call, which also holds the host's launch cost
+    when the kernels are shorter than it.  With ``flush`` (a buffer larger
+    than the 50 MB L2) the cache is emptied before each call by a fill
+    kernel that neither time counts."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush.fill_(1.0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            marks.append((start, end))
+        torch.cuda.synchronize()
+    call_ms = sum(s.elapsed_time(e) for s, e in marks) / iters
+    us = sum(dev_us(ev) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and not (flush is not None and "FillFunctor" in ev.key))
+    if not us:
+        return call_ms, call_ms, "events"
+    return us / 1e3 / iters, call_ms, "profiler"
+
+
+def worst(torch, label, got, want, rtol, atol):
+    """Max |got - want|, after failing if any element is beyond atol +
+    rtol * |want|."""
+    err = (got - want).abs()
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        fail(f"{label}: kernel disagrees with its plain version "
+             f"(max_abs_err={float(err.max())!r})")
+    return float(err.max())
+
+
+def make_scaled_arrays(num_users, num_items, pos_per_user, seed=0):
+    """The JAX package's scaled training arrays (scripts/scaled_bench.py):
+    row u gets pos_per_user distinct pseudo-random items (affine spread),
+    sorted ascending; the pair list is user-major."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, num_items, size=(num_users, 1), dtype=np.int64)
+    stride = (num_items // (pos_per_user + 1)) - 1
+    items = (base + np.arange(pos_per_user, dtype=np.int64) * stride) % num_items
+    items = np.sort(items, axis=1).astype(np.int32)
+    counts = np.full((num_users,), pos_per_user, dtype=np.int32)
+    users = np.repeat(np.arange(num_users, dtype=np.int32), pos_per_user)
+    pairs = np.stack([users, items.reshape(-1)], axis=1)
+    return pairs, items, counts
+
+
+def train_kernel_phase(torch, bpr, adam):
+    """K1 and K6 against their plain versions, then timed at the step's
+    shapes.  Returns the kernels' rows (launches filled in later)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    one = torch.ones((), device=dev)
+    errs = {"bpr_fwd": 0.0, "bpr_bwd": 0.0, "adam_sweep": 0.0}
+    loss_rel = 0.0
+
+    def bpr_inputs(B, K, scale):
+        rows = [torch.randn(B, K, device=dev, generator=g) * scale for _ in range(3)]
+        return rows + [torch.randn(B, device=dev, generator=g) for _ in range(2)]
+
+    for B in (1, 100, TRAIN_B):
+        for K in (8, 64, EMBED_K):
+            for scale in (1.0, 20.0):  # scale 20 pushes diff past the clip
+                args = bpr_inputs(B, K, scale)
+                loss, sigma = bpr.bpr_forward(*args)
+                grads = bpr.bpr_backward(sigma, *args[:3], one)
+                torch.cuda.synchronize()
+                want_loss, want_sigma = bpr.bpr_forward_reference(*args)
+                want_grads = bpr.bpr_backward_reference(sigma, *args[:3], one)
+                label = f"B={B} K={K} scale={scale:g}"
+                rel = abs(float(loss) - float(want_loss)) / max(abs(float(want_loss)), 1e-30)
+                if rel > BPR_LOSS_RTOL:
+                    fail(f"bpr_fwd {label}: loss {float(loss)!r} vs plain "
+                         f"{float(want_loss)!r}")
+                e_f = worst(torch, f"bpr_fwd {label} sigma", sigma, want_sigma,
+                            BPR_RTOL, BPR_ATOL * scale**2)
+                e_b = max(worst(torch, f"bpr_bwd {label}", a, w, BPR_RTOL, BPR_ATOL)
+                          for a, w in zip(grads, want_grads))
+                clipped = int((sigma == 0).sum())
+                print(f"kernel check bpr {label}: loss_rel_err={rel!r} "
+                      f"sigma_max_abs_err={e_f!r} grads_max_abs_err={e_b!r} "
+                      f"clipped={clipped}/{B} ok")
+                loss_rel = max(loss_rel, rel)
+                errs["bpr_fwd"] = max(errs["bpr_fwd"], e_f)
+                errs["bpr_bwd"] = max(errs["bpr_bwd"], e_b)
+
+    def adam_state(shape):
+        p = torch.randn(shape, device=dev, generator=g)
+        m = torch.randn(shape, device=dev, generator=g) * 0.1
+        v = torch.randn(shape, device=dev, generator=g).abs() * 0.01
+        return p, m, v
+
+    t = torch.tensor(7.0, device=dev)
+    scal = adam.adam_scalars(TRAIN_LR, t)
+
+    def adam_check(label, p, m, v):
+        pk, mk, vk = (x.clone() for x in (p, m, v))
+        adam.fused_adam_sweep(pk, mk, vk, TRAIN_LR, t)
+        torch.cuda.synchronize()
+        adam.fused_adam_sweep_reference(p, m, v, scal)
+        e = max(worst(torch, f"adam_sweep {label} m", mk, m, ADAM_RTOL_MV, 0.0),
+                worst(torch, f"adam_sweep {label} v", vk, v, ADAM_RTOL_MV, 0.0),
+                worst(torch, f"adam_sweep {label} p", pk, p, ADAM_RTOL_P, 0.0))
+        print(f"kernel check adam_sweep {label}: max_abs_err={e!r} ok")
+        errs["adam_sweep"] = max(errs["adam_sweep"], e)
+
+    for shape in ((1001, 7), (4099,), (3,), (257, EMBED_K)):
+        adam_check(f"shape={shape}", *adam_state(shape))
+    # a table whose data is not 16-byte aligned takes the scalar loop
+    base = [x for x in adam_state((10_004,))]
+    adam_check("shape=(10003,) unaligned", *(x[1:] for x in base))
+
+    # times at the step's shapes: K1 on the gathered [8192, 128] rows (the
+    # gathers that precede it leave them in L2), K6 on each table, cold
+    fwd_b, bwd_b = bpr_bounds(TRAIN_B, EMBED_K)
+    args = bpr_inputs(TRAIN_B, EMBED_K, 1.0)
+    _, sigma = bpr.bpr_forward(*args)
+    shape = f"B={TRAIN_B} K={EMBED_K} f32"
+    rows = {}
+    for name, run, plain, (b, by) in (
+        ("bpr_fwd", lambda: bpr.bpr_forward(*args),
+         lambda: bpr.bpr_forward_reference(*args), fwd_b),
+        ("bpr_bwd", lambda: bpr.bpr_backward(sigma, *args[:3], one),
+         lambda: bpr.bpr_backward_reference(sigma, *args[:3], one), bwd_b),
+    ):
+        ms, call_ms, src = kernel_times(torch, run, 200)
+        plain_ms, plain_call_ms, _ = kernel_times(torch, plain, 200)
+        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=b, bound_by=by, library_ms=None,
+                          call_ms=call_ms, plain_call_ms=plain_call_ms,
+                          timed_by=src, shape=shape)
+        print(f"kernel time {name} {shape}: ms={ms!r} ({src}) call_ms={call_ms!r} "
+              f"plain_ms={plain_ms!r} plain_call_ms={plain_call_ms!r} "
+              f"bound_ms={b!r} ({by}) library_ms=None (no single PyTorch call "
+              f"computes it)")
+    rows["bpr_fwd"]["loss_max_rel_err"] = loss_rel
+    del args, sigma
+
+    flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
+    tables = {}
+    for name, shape in (("Gu", (TRAIN_U, EMBED_K)), ("Gi", (TRAIN_I, EMBED_K)),
+                        ("Bi", (TRAIN_I,))):
+        p, m, v = adam_state(shape)
+        adam_check(f"{name} shape={shape}", p, m, v)
+        gz = torch.zeros_like(p)
+        step = torch.tensor(7.0, device=dev)
+        b, by = adam_bound(p.numel())
+        ms, call_ms, src = kernel_times(torch, lambda: adam.fused_adam_sweep(
+            p, m, v, TRAIN_LR, t, scal=scal), 20, flush)
+        plain_ms, plain_call_ms, _ = kernel_times(
+            torch, lambda: adam.fused_adam_sweep_reference(p, m, v, scal), 10, flush)
+        lib_ms, lib_call_ms, _ = kernel_times(torch, lambda: torch._fused_adam_(
+            [p], [gz], [m], [v], [], [step], lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+            weight_decay=0.0, eps=1e-7, amsgrad=False, maximize=False), 20, flush)
+        tables[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                            bound_by=by, call_ms=call_ms, plain_call_ms=plain_call_ms,
+                            library_call_ms=lib_call_ms, timed_by=src, shape=str(shape))
+        print(f"kernel time adam_sweep {name} {shape}: ms={ms!r} ({src}) "
+              f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(_fused_adam_, "
+              f"reads a zero grad too)={lib_ms!r} bound_ms={b!r} ({by})")
+        del p, m, v, gz
+    torch.cuda.empty_cache()
+    rows["adam_sweep"] = dict(
+        max_abs_err=errs["adam_sweep"],
+        **{k: sum(r[k] for r in tables.values())
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "call_ms")},
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in tables.values())
+        else "operations",
+        timed_by=tables["Gu"]["timed_by"],
+        shape="per step: Gu 1000000x128 + Gi 500000x128 + Bi 500000 f32, cold L2",
+        library="torch._fused_adam_ with a zero gradient (reads one more array)",
+        tables=tables,
+    )
+    return rows
+
+
+def train_phase(torch, np, bpr, adam):
+    """The fast path at full width: route check, the 3-epoch main path
+    through K1 and K6, one profiler pass.  Returns (main-path launch
+    counts, summary)."""
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+    from fashionvisualexpl_tpu_torch.train.fast import (
+        init_fast_state,
+        make_fast_bprmf_step,
+        make_fast_epoch_fn,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    tabs = [torch.from_numpy(a).to(dev)
+            for a in make_scaled_arrays(TRAIN_U, TRAIN_I, TRAIN_POS, seed=0)]
+    model = BPRMF(TRAIN_U, TRAIN_I, embed_k=EMBED_K,
+                  generator=torch.Generator(device=dev).manual_seed(2))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    torch.cuda.synchronize()
+    print(f"train setup (arrays + model): {time.perf_counter() - t0!r} s")
+
+    # the kernel route against the plain route, 5 steps from one state
+    kern = init_fast_state({k: v.clone() for k, v in params.items()})
+    plain = init_fast_state({k: v.clone() for k, v in params.items()})
+    triples = sample_triplets(1, *tabs, TRAIN_I, ROUTE_STEPS, TRAIN_B)
+    step_k = make_fast_bprmf_step(model, TRAIN_LR, TRAIN_REG, fused_adam=True,
+                                  pallas_bpr=True)
+    step_p = make_fast_bprmf_step(model, TRAIN_LR, TRAIN_REG)
+    for s in range(ROUTE_STEPS):
+        batch = tuple(t[s] for t in triples)
+        kern, lk = step_k(kern, batch)
+        plain, lp = step_p(plain, batch)
+        lk, lp = float(lk), float(lp)
+        if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+            fail(f"route check step {s}: loss {lk!r} (kernels) vs {lp!r} (plain)")
+    route_err, amplified = 0.0, 0
+    bc2 = 1.0 - 0.999**ROUTE_STEPS
+    for k in params:
+        for field in ("mu", "nu"):
+            e = worst(torch, f"route check {field}[{k}]", getattr(kern, field)[k],
+                      getattr(plain, field)[k], ROUTE_RTOL, ROUTE_ATOL)
+            route_err = max(route_err, e)
+        # p: where the gradient history is tiny (sqrt(v_hat) < 10 eps), the
+        # update m_hat / (sqrt(v_hat) + eps) turns the last bits of a
+        # near-cancelled gradient sum into a share of lr; such elements are
+        # counted.  Every other element must agree.
+        err = (kern.params[k] - plain.params[k]).abs()
+        beyond = err > ROUTE_ATOL + ROUTE_RTOL * plain.params[k].abs()
+        tiny = torch.sqrt(plain.nu[k] / bc2) < 10 * 1e-7
+        if bool((beyond & ~tiny).any()):
+            fail(f"route check params[{k}]: kernel route disagrees with the plain "
+                 f"route (max_abs_err={float(err[~tiny].max())!r})")
+        amplified += int(beyond.sum())
+        route_err = max(route_err, float(err.max()))
+    print(f"route check: {ROUTE_STEPS} full-width steps, kernel route vs plain "
+          f"route, params/m/v max_abs_err={route_err!r}; {amplified} params beyond "
+          f"rtol {ROUTE_RTOL} atol {ROUTE_ATOL}, all with sqrt(v_hat) < 1e-6 ok "
+          f"(last loss {lk!r})")
+    del kern, plain, triples
+    torch.cuda.empty_cache()
+
+    # main path: 3 epochs through both kernels
+    state = init_fast_state(params)
+    epoch_fn = make_fast_epoch_fn(model, TRAIN_LR, TRAIN_REG, TRAIN_I, TRAIN_STEPS,
+                                  TRAIN_B, fused_adam=True, pallas_bpr=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bpr.bpr_forward.launches = bpr.bpr_backward.launches = 0
+    adam.fused_adam_sweep.launches = 0  # main path starts here
+    epochs = []
+    for e in range(TRAIN_EPOCHS):
+        t0 = time.perf_counter()
+        state, loss = epoch_fn(state, 100 + e, *tabs)
+        loss = float(loss)  # one read per epoch; it waits for the epoch
+        dt = time.perf_counter() - t0
+        epochs.append(dict(loss=loss, s=dt, triples_per_s=TRAIN_STEPS * TRAIN_B / dt,
+                           ms_per_step=1e3 * dt / TRAIN_STEPS))
+        print(f"train epoch {e + 1}: loss={loss!r} s={dt!r} "
+              f"triples_per_s={epochs[-1]['triples_per_s']!r} "
+              f"ms_per_step={epochs[-1]['ms_per_step']!r}")
+    launches = {"bpr_fwd": bpr.bpr_forward.launches,
+                "bpr_bwd": bpr.bpr_backward.launches,
+                "adam_sweep": adam.fused_adam_sweep.launches}  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    print(f"train main path: {launches} over {steps} steps; peak device memory "
+          f"{peak / 2**30!r} GiB")
+    want = {"bpr_fwd": steps, "bpr_bwd": steps, "adam_sweep": 3 * steps}
+    if launches != want:
+        fail(f"train main path launched {launches}, expected {want}")
+    # the scaled arrays plant no structure that carries to the next epoch's
+    # fresh users, so only finiteness is asked of these losses; the route
+    # check above and the fit phase below check what is learnt
+    if not np.isfinite([r["loss"] for r in epochs]).all():
+        fail(f"train epoch losses not finite: {epochs}")
+
+    # one profiler pass of 10 steps: device time by kernel, idle share
+    triples = sample_triplets(200, *tabs, TRAIN_I, PROFILE_STEPS, TRAIN_B)
+    step = make_fast_bprmf_step(model, TRAIN_LR, TRAIN_REG, fused_adam=True,
+                                pallas_bpr=True)
+    state, _ = step(state, tuple(t[0] for t in triples))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for s in range(PROFILE_STEPS):
+            state, _ = step(state, tuple(t[s] for t in triples))
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    from torch.autograd import DeviceType
+
+    ops = sorted(((dev_us(ev), ev.key, ev.count) for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0),
+                 reverse=True)
+    busy = sum(us for us, _, _ in ops)
+    profile = dict(steps=PROFILE_STEPS, wall_ms_per_step=wall_us / 1e3 / PROFILE_STEPS,
+                   device_ms_per_step=busy / 1e3 / PROFILE_STEPS,
+                   device_ops_per_step=sum(c for _, _, c in ops) / PROFILE_STEPS,
+                   idle_share=(1.0 - busy / wall_us) if busy else None)
+    print(f"profile {PROFILE_STEPS} steps: wall_ms_per_step="
+          f"{profile['wall_ms_per_step']!r} device_ms_per_step="
+          f"{profile['device_ms_per_step']!r} device_ops_per_step="
+          f"{profile['device_ops_per_step']!r} idle_share={profile['idle_share']!r}")
+    if not ops:
+        print("profile: no device time recorded; kernel times above are from "
+              "CUDA events")
+    for us, name, count in ops[:15]:
+        print(f"  {us / 1e3 / PROFILE_STEPS:10.4f} ms/step  {count / PROFILE_STEPS:6.1f}"
+              f" launches/step  {100.0 * us / busy:5.1f}%  {name[:90]}")
+    del state, tabs, model, params, triples
+    torch.cuda.empty_cache()
+    return launches, dict(epochs=epochs, peak_gib=peak / 2**30, profile=profile,
+                          route_max_abs_err=route_err, route_amplified=amplified)
+
+
+def fit_phase(torch, np, bpr, adam):
+    """The generic fit at the reference workload; it runs no kernel."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.interactions import synthetic_interactions
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+    from fashionvisualexpl_tpu_torch.train.trainer import fit
+
+    data = synthetic_interactions(REF_U, REF_I, interactions_per_user=REF_PER_USER,
+                                  seed=0)
+    model = BPRMF(REF_U, REF_I, embed_k=REF_K,
+                  generator=torch.Generator(device="cuda").manual_seed(3))
+    cfg = TrainConfig(batch_size=REF_B, epochs=REF_EPOCHS, lr=0.001, reg=0.001)
+    before = (bpr.bpr_forward.launches, bpr.bpr_backward.launches,
+              adam.fused_adam_sweep.launches)
+    logs = []
+    fit(model, data, cfg, log=logs.append)
+    torch.cuda.synchronize()
+    steps = data.steps_per_epoch(REF_B)
+    for r in logs:
+        print(f"fit epoch {r['epoch']}: loss={r['loss']!r} train_s={r['train_time_s']!r} "
+              f"triples_per_s={steps * REF_B / r['train_time_s']!r}")
+    losses = [r["loss"] for r in logs]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"fit epoch losses not finite and falling: {losses}")
+    if (bpr.bpr_forward.launches, bpr.bpr_backward.launches,
+            adam.fused_adam_sweep.launches) != before:
+        fail("the generic fit launched a fast-path kernel")
+    return [dict(loss=r["loss"], triples_per_s=steps * REF_B / r["train_time_s"])
+            for r in logs]
+
+
 def main() -> int:
     if not (PKG / "ops" / "csrc" / "segmax.cu").is_file():
         print("chip_smoke: run from a checkout of the repository "
@@ -261,7 +684,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from fashionvisualexpl_tpu_torch.ops import cuda_build, segmax
+    from fashionvisualexpl_tpu_torch.ops import adam, bpr, cuda_build, segmax
 
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -278,6 +701,9 @@ def main() -> int:
 
     rows = kernel_phase(torch, segmax)
     serve, launches = serve_phase(torch, np, segmax)
+    train_rows = train_kernel_phase(torch, bpr, adam)
+    train_launches, train = train_phase(torch, np, bpr, adam)
+    fitted = fit_phase(torch, np, bpr, adam)
 
     main_row = rows[4096]
     kernels = [{
@@ -290,7 +716,19 @@ def main() -> int:
         "shape": f"B=4096 Ip={16 * ITEM_BLOCK} D={EMBED_K} seg={SEG} bf16",
         "at_B8": rows[8],
     }]
+    for name, source, replaces in (
+        ("bpr_fwd", "bpr.cu", "fashionvisualexpl_tpu/ops/bpr.py:36"),
+        ("bpr_bwd", "bpr.cu", "fashionvisualexpl_tpu/ops/bpr.py:53"),
+        ("adam_sweep", "adam.cu", "fashionvisualexpl_tpu/ops/adam.py:28"),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fashionvisualexpl_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": train_launches[name],
+            **train_rows[name],
+        })
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
+    print(json.dumps({"train": train, "fit": fitted}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,7 @@ takes an explicit ``torch.Generator``; JAX's threefry draws cannot be
 reproduced, so parity tests carry JAX's params across with
 ``models/convert.py`` instead.
 
-Not ported yet: ``l2_loss``, ``bpr_pairwise_loss`` and ``PackedSpec`` — they
-come with training.
+Not ported yet: ``PackedSpec`` — it comes with the packed engine.
 """
 
 from __future__ import annotations
@@ -18,6 +17,24 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+
+def l2_loss(x: torch.Tensor) -> torch.Tensor:
+    """tf.nn.l2_loss parity: 0.5 * sum(x**2)."""
+    return 0.5 * torch.sum(torch.square(x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
+    with logaddexp's gradient exp(x - softplus(x))."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def bpr_pairwise_loss(x_pos: torch.Tensor, x_neg: torch.Tensor) -> torch.Tensor:
+    """Summed BPR triplet loss with the reference's clip quirk
+    (BPRMF.py:104-106): softplus(-clip(x_pos - x_neg, -80, 1e8))."""
+    diff = torch.clamp(x_pos - x_neg, -80.0, 1e8)
+    return torch.sum(softplus(-diff))
 
 
 def glorot_uniform(

@@ -1,9 +1,11 @@
 """BPR-MF: matrix factorization with item bias (port of
 ``fashionvisualexpl_tpu/models/bprmf.py``).
 
-Scoring x_ui = b_i + <gamma_u, gamma_i>, full matrix Bi + Gu @ Gi^T.
-Not ported yet: ``loss``, ``packed_spec`` and ``packed_loss`` — they come
-with training.
+Scoring x_ui = b_i + <gamma_u, gamma_i>, full matrix Bi + Gu @ Gi^T, and
+the BPR loss with its reference quirks (BPRMF.py:104-112): clip(-80, 1e8) on
+the score difference and the negative item bias regularised at reg/10.
+Not ported yet: ``packed_spec`` and ``packed_loss`` — they come with the
+packed engine.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from torch import nn
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 from fashionvisualexpl_tpu_torch.models.base import (
     RecommenderModel,
+    bpr_pairwise_loss,
     glorot_uniform,
+    l2_loss,
 )
 
 
@@ -49,8 +53,42 @@ class BPRMF(RecommenderModel):
             glorot_uniform((num_items, embed_k), generator, dev)
         )
 
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw the init anew in place, in ``__init__``'s order (Gu, Gi)."""
+        dev = self.device
+        self.Bi.zero_()
+        self.Gu.copy_(glorot_uniform(tuple(self.Gu.shape), generator, dev))
+        self.Gi.copy_(glorot_uniform(tuple(self.Gi.shape), generator, dev))
+
     def score(self, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
         return self.Bi[items] + (self.Gu[users] * self.Gi[items]).sum(dim=1)
+
+    def loss(
+        self,
+        users: torch.Tensor,
+        pos: torch.Tensor,
+        neg: torch.Tensor,
+        reg: float,
+    ) -> torch.Tensor:
+        """Summed BPR loss over the triples plus the reference's L2 terms
+        (BPRMF.py:108-112): embeddings and positive bias at ``reg``,
+        negative bias at ``reg / 10``, every term times 2."""
+        gamma_u = self.Gu[users]
+        beta_pos = self.Bi[pos]
+        gamma_pos = self.Gi[pos]
+        beta_neg = self.Bi[neg]
+        gamma_neg = self.Gi[neg]
+
+        x_pos = beta_pos + torch.sum(gamma_u * gamma_pos, dim=1)
+        x_neg = beta_neg + torch.sum(gamma_u * gamma_neg, dim=1)
+        loss = bpr_pairwise_loss(x_pos, x_neg)
+        reg_loss = (
+            reg * (l2_loss(gamma_u) + l2_loss(gamma_pos) + l2_loss(gamma_neg)) * 2.0
+            + reg * l2_loss(beta_pos) * 2.0
+            + reg * l2_loss(beta_neg) * 2.0 / 10.0
+        )
+        return loss + reg_loss
 
     def factored_eval(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Factored scores for the serving index (serve/engine.py)."""

@@ -8,9 +8,13 @@ import sys
 import pytest
 import torch
 
+from fashionvisualexpl_tpu_torch.core.config import TrainConfig
 from fashionvisualexpl_tpu_torch.data.interactions import synthetic_interactions
+from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 from fashionvisualexpl_tpu_torch.serve import RecServer
+from fashionvisualexpl_tpu_torch.train.fast import make_fast_epoch_fn
+from fashionvisualexpl_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 12  # every submodule of the slice was imported
+    assert n_modules >= 22  # every submodule of both slices was imported
 
 
 @pytest.fixture
@@ -63,3 +67,26 @@ def test_recserver_without_device_raises_when_no_cuda(no_cuda):
         RecServer(model, data, k=3)
     srv = RecServer(model, data, k=3, device="cpu")
     assert srv.device.type == "cpu"
+
+
+def test_training_entry_points_raise_when_no_cuda(no_cuda):
+    data = synthetic_interactions(6, 12, interactions_per_user=4, seed=0)
+    tabs = [torch.as_tensor(a) for a in (data.train_pairs, data.padded_pos,
+                                         data.pos_counts)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sample_triplets(0, *tabs, 12, 2, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_fast_epoch_fn(None, 0.01, 0.0, 12, 2, 4, pallas_bpr=True,
+                           fused_adam=True)
+    cfg = TrainConfig(batch_size=4, epochs=1)
+
+    class OnCard(torch.nn.Module):  # a model whose parameters claim the card
+        device = torch.device("cuda")
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(OnCard(), data, cfg)
+    # device="cpu" (the model's own, for the Trainer) runs
+    sample_triplets(0, *tabs, 12, 2, 4, device="cpu")
+    make_fast_epoch_fn(None, 0.01, 0.0, 12, 2, 4, device="cpu")
+    trainer = Trainer(BPRMF(6, 12, embed_k=2, device="cpu"), data, cfg)
+    assert trainer.device.type == "cpu"
