@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from fashionvisualexpl_tpu_torch.train.fast import B1, B2, EPS, pad_safe_ids
+from fashionvisualexpl_tpu_torch.train.fast import B1, B2, EPS, prescaled_scatter
 
 
 def adam_scalars(lr: float, t: torch.Tensor) -> torch.Tensor:
@@ -61,28 +61,27 @@ def _library() -> ctypes.CDLL:
 
 
 @torch.no_grad()
-def fused_adam_sweep(p, m, v, lr: float, t: torch.Tensor, scal=None):
+def fused_adam_sweep(p, m, v, scal):
     """In-place decay + update sweep.  p/m/v same shape (1-D or 2-D),
-    float32, contiguous; t = the new step count (0-d float32 tensor).
-    ``scal`` = ``adam_scalars(lr, t)`` when the caller already has it."""
+    float32, contiguous; ``scal`` = ``adam_scalars(lr, t)`` for the new
+    step count t, on their device."""
     if not (p.shape == m.shape == v.shape):
         raise ValueError(
             f"p, m, v shapes differ: {tuple(p.shape)}, {tuple(m.shape)}, "
             f"{tuple(v.shape)}"
         )
-    for t_ in (p, m, v):
+    for t_ in (p, m, v, scal):
         if t_.dtype != torch.float32 or t_.device != p.device:
-            raise ValueError("p, m, v must be float32 on one device")
-    if scal is None:
-        scal = adam_scalars(lr, t)
+            raise ValueError("p, m, v and scal must be float32 on one device")
+    if scal.shape != (2,):
+        raise ValueError(f"scal must be [2], got {tuple(scal.shape)}")
     if p.device.type == "cpu":
         return fused_adam_sweep_reference(p, m, v, scal)
     if p.device.type != "cuda":
         raise ValueError(f"fused_adam_sweep: unsupported device {p.device}")
-    for name, t_ in (("p", p), ("m", m), ("v", v)):
+    for name, t_ in (("p", p), ("m", m), ("v", v), ("scal", scal)):
         if not t_.is_contiguous():
             raise ValueError(f"fused_adam_sweep: {name} must be contiguous")
-    scal = scal.to(device=p.device, dtype=torch.float32).contiguous()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().fvx_adam_sweep(p.data_ptr(), m.data_ptr(), v.data_ptr(),
@@ -97,14 +96,11 @@ fused_adam_sweep.launches = 0
 
 
 @torch.no_grad()
-def sparse_adam_table_fused(p, m, v, uids, g, lr, t, scal=None):
+def sparse_adam_table_fused(p, m, v, uids, g, scal):
     """``train/fast.py::sparse_adam_table`` with the fused sweep: the
     pre-scaled scatter of (1-b)/b * g and (1-b)/b * g^2 into m and v on the
     touched rows, then one sweep.  ``uids`` may hold out-of-range pads
-    (``compact_row_grads``) whose ``g`` rows are zero."""
-    if g.dim() < m.dim():
-        g = g[..., None] if m.dim() == 2 and g.dim() == 1 else g
-    rows = pad_safe_ids(uids, m.shape[0])
-    m.index_add_(0, rows, (1.0 - B1) / B1 * g)
-    v.index_add_(0, rows, (1.0 - B2) / B2 * torch.square(g))
-    return fused_adam_sweep(p, m, v, lr, t, scal=scal)
+    (``compact_row_grads``) whose ``g`` rows are zero; ``scal`` =
+    ``adam_scalars(lr, t)``."""
+    prescaled_scatter(m, v, uids, g)
+    return fused_adam_sweep(p, m, v, scal)

@@ -31,6 +31,8 @@ from fashionvisualexpl_tpu_torch.models.base import bpr_pairwise_loss, softplus
 
 CLIP_LO = -80.0
 CLIP_HI = 1e8
+# the forward kernel's most blocks (8 per SM of an H100), one loss partial each
+FWD_PARTIALS = 132 * 8
 
 
 def bpr_triplet_loss_reference(gu, gi_pos, gi_neg, b_pos, b_neg):
@@ -82,10 +84,9 @@ def _library() -> ctypes.CDLL:
     lib = load_library("bpr")
     if not getattr(lib, "_fvx_typed", False):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.fvx_bpr_fwd_scratch.argtypes = [i64]
-        lib.fvx_bpr_fwd.argtypes = [ptr] * 8 + [i64] * 2 + [ptr]
+        lib.fvx_bpr_fwd.argtypes = [ptr] * 7 + [i64, ptr] + [i64] * 2 + [ptr]
         lib.fvx_bpr_bwd.argtypes = [ptr] * 10 + [i64] * 2 + [ptr]
-        for fn in (lib.fvx_bpr_fwd_scratch, lib.fvx_bpr_fwd, lib.fvx_bpr_bwd):
+        for fn in (lib.fvx_bpr_fwd, lib.fvx_bpr_bwd):
             fn.restype = ctypes.c_int
         lib._fvx_typed = True
     return lib
@@ -105,15 +106,14 @@ def bpr_forward(gu, gp, gn, bp, bn) -> Tuple[torch.Tensor, torch.Tensor]:
     _contig(("gu", gu), ("gp", gp), ("gn", gn), ("bp", bp), ("bn", bn))
     B, K = gu.shape
     with torch.cuda.device(gu.device):
-        lib = _library()
-        n_part = lib.fvx_bpr_fwd_scratch(B)
         sigma = torch.empty(B, dtype=torch.float32, device=gu.device)
-        partial = torch.empty(n_part, dtype=torch.float32, device=gu.device)
+        partial = torch.empty(FWD_PARTIALS, dtype=torch.float32, device=gu.device)
         loss = torch.empty((), dtype=torch.float32, device=gu.device)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fvx_bpr_fwd(gu.data_ptr(), gp.data_ptr(), gn.data_ptr(), bp.data_ptr(),
-                bn.data_ptr(), sigma.data_ptr(), partial.data_ptr(),
-                loss.data_ptr(), B, K, stream)
+        rc = _library().fvx_bpr_fwd(
+            gu.data_ptr(), gp.data_ptr(), gn.data_ptr(), bp.data_ptr(),
+            bn.data_ptr(), sigma.data_ptr(), partial.data_ptr(), FWD_PARTIALS,
+            loss.data_ptr(), B, K, stream)
     if rc != 0:
         raise RuntimeError(f"BPR forward kernel launch failed: cudaError {rc}")
     bpr_forward.launches += 1

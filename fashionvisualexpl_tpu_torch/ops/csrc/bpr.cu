@@ -39,7 +39,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxFwdBlocks = 132 * 8;
 constexpr int kMaxBwdBlocks = 132 * 16;
 constexpr float kClipLo = -80.0f;
 constexpr float kClipHi = 1e8f;
@@ -123,27 +122,22 @@ bpr_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ gu,
   }
 }
 
-int fwd_blocks(long long B) {
-  const long long want = (B + kWarps - 1) / kWarps;
-  return static_cast<int>(want < kMaxFwdBlocks ? want : kMaxFwdBlocks);
-}
-
 }  // namespace
 
 // Plain C interface for ctypes.  All arrays f32, contiguous, on the current
 // device: gu/gp/gn [B, K], bp/bn/sigma [B], loss [1], gout [1], the d* the
-// shapes of their inputs.  `partial` is scratch of fvx_bpr_fwd_scratch(B)
-// floats.  Each returns the cudaError_t of its launches (0 = launched).
-extern "C" int fvx_bpr_fwd_scratch(long long B) { return fwd_blocks(B); }
-
+// shapes of their inputs.  `partial` is scratch of n_partial floats; the
+// forward runs at most n_partial blocks (one warp per triple, grid-stride
+// beyond).  Each returns the cudaError_t of its launches (0 = launched).
 extern "C" int fvx_bpr_fwd(const void* gu, const void* gp, const void* gn,
                            const void* bp, const void* bn, void* sigma,
-                           void* partial, void* loss, long long B,
-                           long long K, void* stream) {
-  if (B < 1 || K < 1 || K > (1LL << 30))
+                           void* partial, long long n_partial, void* loss,
+                           long long B, long long K, void* stream) {
+  if (B < 1 || K < 1 || K > (1LL << 30) || n_partial < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = fwd_blocks(B);
+  const long long want = (B + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(want < n_partial ? want : n_partial);
   bpr_fwd_kernel<<<blocks, kThreads, 0, st>>>(
       static_cast<const float*>(gu), static_cast<const float*>(gp),
       static_cast<const float*>(gn), static_cast<const float*>(bp),

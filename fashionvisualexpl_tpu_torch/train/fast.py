@@ -115,17 +115,25 @@ def _bias_corrections(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 @torch.no_grad()
-def sparse_adam_table(p, m, v, uids, g, lr: float, t: torch.Tensor):
-    """One Adam step where the gradient is zero outside ``uids`` rows, in
-    place.  Equivalent to optax.adam's dense update with the dense-scatter
-    gradient: the scatter runs FIRST with pre-scaled contributions
-    ((1-b)/b * g), so the uniform decay that follows produces b*m + (1-b)*g
-    on touched rows."""
+def prescaled_scatter(m, v, uids, g) -> None:
+    """Add (1-B1)/B1 * g and (1-B2)/B2 * g^2 into the ``uids`` rows of m and
+    v, in place, so that the uniform decay that follows produces
+    b*m + (1-b)*g on touched rows, rounded as the JAX package rounds it.
+    ``uids`` may hold the out-of-range pads of ``compact_row_grads``."""
     if g.dim() < m.dim():
         g = g[..., None] if m.dim() == 2 and g.dim() == 1 else g
     rows = pad_safe_ids(uids, m.shape[0])
     m.index_add_(0, rows, (1.0 - B1) / B1 * g)
     v.index_add_(0, rows, (1.0 - B2) / B2 * torch.square(g))
+
+
+@torch.no_grad()
+def sparse_adam_table(p, m, v, uids, g, lr: float, t: torch.Tensor):
+    """One Adam step where the gradient is zero outside ``uids`` rows, in
+    place.  Equivalent to optax.adam's dense update with the dense-scatter
+    gradient: the scatter runs FIRST with pre-scaled contributions
+    (``prescaled_scatter``), then the uniform decay."""
+    prescaled_scatter(m, v, uids, g)
     m.mul_(B1)
     v.mul_(B2)
     bc1, bc2 = _bias_corrections(t)
@@ -249,8 +257,7 @@ def make_fast_bprmf_step(model, lr: float, reg: float,
                                     state.tau[name], uids, cg, lr, t)
                 elif fused_adam:
                     sparse_adam_table_fused(P[name], state.mu[name],
-                                            state.nu[name], uids, cg, lr, t,
-                                            scal=scal)
+                                            state.nu[name], uids, cg, scal)
                 else:
                     sparse_adam_table(P[name], state.mu[name], state.nu[name],
                                       uids, cg, lr, t)

@@ -49,7 +49,7 @@ def test_sweep_matches_jax_interpret(shape, t):
     )
     tp, tm, tv = _torch(p, m, v)
     before = tadam.fused_adam_sweep.launches
-    out = tadam.fused_adam_sweep(tp, tm, tv, lr, torch.tensor(t))
+    out = tadam.fused_adam_sweep(tp, tm, tv, tadam.adam_scalars(lr, torch.tensor(t)))
     assert tadam.fused_adam_sweep.launches == before  # CPU: plain version
     assert all(a is b for a, b in zip(out, (tp, tm, tv)))  # in place
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-6)
@@ -74,7 +74,8 @@ def test_sparse_fused_matches_jax_sparse_table(shape):
     fused = jadam.sparse_adam_table_fused(*jargs, lr, jnp.float32(t), interpret=True)
     tp, tm, tv = _torch(p, m, v)
     tadam.sparse_adam_table_fused(tp, tm, tv, torch.from_numpy(uids),
-                                  torch.from_numpy(g), lr, torch.tensor(t))
+                                  torch.from_numpy(g),
+                                  tadam.adam_scalars(lr, torch.tensor(t)))
     for want in (plain, fused):
         for name, got, w in zip("pmv", (tp, tm, tv), want):
             np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=2e-5,
@@ -83,7 +84,12 @@ def test_sparse_fused_matches_jax_sparse_table(shape):
 
 def test_sweep_rejects_mismatched_state():
     p, m, v = _torch(*_state((8, 3), seed=0))
+    scal = tadam.adam_scalars(0.01, torch.tensor(1.0))
     with pytest.raises(ValueError, match="shapes differ"):
-        tadam.fused_adam_sweep(p, m[:4], v, 0.01, torch.tensor(1.0))
+        tadam.fused_adam_sweep(p, m[:4], v, scal)
     with pytest.raises(ValueError, match="float32"):
-        tadam.fused_adam_sweep(p, m.double(), v, 0.01, torch.tensor(1.0))
+        tadam.fused_adam_sweep(p, m.double(), v, scal)
+    with pytest.raises(ValueError, match="float32"):
+        tadam.fused_adam_sweep(p, m, v, scal.double())
+    with pytest.raises(ValueError, match=r"scal must be \[2\]"):
+        tadam.fused_adam_sweep(p, m, v, scal[:1])

@@ -133,12 +133,12 @@ def test_adam_sweep_matches_plain_version_on_card(cuda_device, shape, offset):
 
     p, m, v = table(1.0), table(0.1), table(0.1).abs()
     want = [x.clone() for x in (p, m, v)]
-    t = torch.tensor(5.0, device=cuda_device)
+    scal = A.adam_scalars(0.01, torch.tensor(5.0, device=cuda_device))
     before = A.fused_adam_sweep.launches
-    A.fused_adam_sweep(p, m, v, 0.01, t)
+    A.fused_adam_sweep(p, m, v, scal)
     torch.cuda.synchronize()
     assert A.fused_adam_sweep.launches == before + 1
-    A.fused_adam_sweep_reference(*want, A.adam_scalars(0.01, t))
+    A.fused_adam_sweep_reference(*want, scal)
     torch.testing.assert_close(m, want[1], rtol=1e-6, atol=0.0)
     torch.testing.assert_close(v, want[2], rtol=1e-6, atol=0.0)
     torch.testing.assert_close(p, want[0], rtol=1e-5, atol=0.0)
@@ -177,5 +177,5 @@ def test_training_kernels_reject_non_contiguous_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         K1.bpr_forward(x[:, :4], x[:, :4], x[:, :4], vec, vec)
     with pytest.raises(ValueError, match="contiguous"):
-        A.fused_adam_sweep(x.T, x.T.contiguous(), x.T.contiguous(), 0.01,
-                           torch.tensor(1.0, device=cuda_device))
+        A.fused_adam_sweep(x.T, x.T.contiguous(), x.T.contiguous(),
+                           A.adam_scalars(0.01, torch.tensor(1.0, device=cuda_device)))
