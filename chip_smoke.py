@@ -39,7 +39,30 @@ Phases, each of which raises on a failure (nothing is swallowed):
    ms per step and peak memory; one ``torch.profiler`` pass of 10 steps;
 8. fit: the generic ``fit`` at the reference workload (10k x 10k, 20
    interactions per user, K=64, batch 256, 2 epochs), whose epoch losses
-   must be finite and falling.
+   must be finite and falling;
+9. eval kernel: the fused scoring + counts kernel (K2) against its plain
+   PyTorch version (full fp32: no TF32) over many geometries on quantized
+   data, where every score is exact in f32 and the counts must be
+   bit-equal (users and items not tile multiples, T = 1 and 3, W = 1 and
+   4 or more, -1 pads, duplicate ids, pad users and pad items); then its
+   time, the plain version's time, one fp32 ``torch.matmul`` of the same
+   product (a yardstick the port never calls) and the bound at the
+   evaluator's shapes (B=4096, 500k items padded to 501,760, D=128, W from
+   the evaluation data's banned sets); and, on Gaussian data, the size of
+   the tie band: the items whose fp64 score lies within f32 rounding of
+   the reference, the only ones where kernel and plain may differ;
+10. eval: ``FactoredEvaluator(counts_impl="kernel").evaluate`` at the
+   scaled evaluation configuration (BPRMF K=128, 1M users x 500k items, 20
+   train + 1 validation + 1 test item per user, k=20, user_block 4096,
+   quantized random weights), both splits: ms per split, user-item scores
+   per second, peak memory; K2 must launch 2 * ceil(U / 4096) times; the
+   first two user blocks of each split also run through the "bucketed"
+   engine, and the per-user metrics must be equal;
+11. cli: ``train_rec.train`` in process (``--rec bprmf --streaming_eval
+   --embed_k 128 --epochs 2 --verbose 1``) on a reference-layout dataset
+   written here (20k users x 20k items, 20 interactions per user), then
+   ``serve_rec.serve`` from its checkpoint for 64 users: K2 and K3 must
+   launch, the dumps hold U x k rows, the metrics are finite and in [0, 1].
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -96,6 +119,14 @@ ADAM_RTOL_MV, ADAM_RTOL_P = 1e-6, 1e-5
 ROUTE_RTOL, ROUTE_ATOL = 2e-4, 1e-6
 ROUTE_EXEMPT_CAP = 1e-6
 ROUTE_DRIFT = 2 * TRAIN_LR * ROUTE_STEPS
+# evaluation configuration (the JAX package's scaled configuration with a
+# leave-one-out split: 20 train + 1 validation + 1 test item per user)
+EVAL_U, EVAL_I, EVAL_TRAIN, EVAL_K = 1_000_000, 500_000, 20, 20
+EVAL_BLOCK, EVAL_TILE, EVAL_CHECK_BLOCKS = 4096, 2048, 2
+# the CLI phase: a reference-layout dataset written by this script
+CLI_U = CLI_I = 20_000
+CLI_PER_USER, CLI_K, CLI_SERVE_USERS = 20, 20, 64
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 
 
 def fail(msg: str) -> None:
@@ -700,6 +731,316 @@ def fit_phase(torch, np, bpr, adam):
             for r in logs]
 
 
+def make_eval_items(np, num_users, num_items, per_user, seed):
+    """[U, per_user] int32: distinct uniform random items per user (rows
+    with a repeat are drawn again)."""
+    rng = np.random.default_rng(seed)
+    items = rng.integers(0, num_items, (num_users, per_user))
+    while True:
+        s = np.sort(items, axis=1)
+        dup = (s[:, 1:] == s[:, :-1]).any(axis=1)
+        if not dup.any():
+            return items.astype(np.int32)
+        items[dup] = rng.integers(0, num_items, (int(dup.sum()), per_user))
+
+
+def q64(x):
+    """Onto the 1/64 grid within [-1, 1]: a product of two such values is a
+    multiple of 2^-12 of magnitude <= 1, so a sum of up to 2^12 of them
+    plus a bias is exact in f32 (24-bit significand) in any order."""
+    return (x * 64).round().clamp(-64, 64) / 64
+
+
+def counts_bound_ms(B: int, Ip: int, D: int, T: int, n_tiles: int, W: int):
+    """K2 at [B, D] x [Ip, D]: each input read once (uf, iv, ib, ref, the
+    banned offsets), the counts written once; 2*B*Ip*D f32 operations for
+    the product (the compares are left out)."""
+    bytes_ = 4 * (B * D + Ip * D + Ip + B * T + n_tiles * B * W + B * T)
+    return bound_ms(bytes_, 2.0 * B * Ip * D, PEAK_F32_FLOPS)
+
+
+def eval_kernel_phase(torch, np, counts, topk, eval_items):
+    """K2 against its plain version, then timed at the evaluator's shapes
+    and its tie band measured on Gaussian data.  Returns the kernel row."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("fp32 matmuls are not full fp32 (TF32 enabled): the plain version "
+             "must compute as the kernel does")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def qrand(*shape, scale=0.25):
+        return q64(torch.randn(*shape, device=dev, generator=g) * scale)
+
+    def banned_ids(B, I, Pb, tile, wide):
+        n_tiles = -(-I // tile)
+        b = rng.integers(0, I, (B, Pb))
+        if wide:  # four distinct ids of one tile, then -1 pads and duplicates
+            t = rng.integers(0, n_tiles, B)
+            span = np.minimum(tile, I - t * tile)
+            start = (rng.random(B) * span).astype(int)
+            b[:, :4] = t[:, None] * tile + (start[:, None] + np.arange(4)) % span[:, None]
+            b[1::3, 5:] = -1
+            b[2::3, 6] = b[2::3, 4]
+        b[0] = -1
+        return torch.from_numpy(b.astype(np.int32)).to(dev)
+
+    def padded(uf, iv, ib, ref, banned, I, tile, W=None):
+        W = W or topk.banned_bucket_width(banned.cpu().numpy(), I, tile)
+        loc, msk = topk.bucket_banned_ids_device(banned, I, tile, W)
+        *args, item_tile, ut = counts.pad_counts_inputs(uf, iv, ib, ref, loc, msk, tile)
+        return args, item_tile, ut, W
+
+    def check(label, args, item_tile, ut):
+        got = counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut)
+        torch.cuda.synchronize()
+        want = counts.counts_kernel_reference(*args, item_tile)
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            fail(f"counts kernel disagrees with its plain version at {label} "
+                 f"({bad} users)")
+        print(f"kernel check counts {label}: bit-equal ok "
+              f"(counted {int(got.sum())})")
+        return got
+
+    seen_w = set()
+    for B, I, D in ((100, 5000, 128), (300, 70_001, 33), (4096, 20_000, 128)):
+        for T in (1, 3):
+            for wide in (False, True):
+                tile = 2048 if I > 5000 else 256
+                banned = banned_ids(B, I, 8 if wide else 1, tile, wide)
+                uf, iv, ib = qrand(B, D), qrand(I, D), qrand(I)
+                ref = qrand(B, T, scale=1.0)
+                args, item_tile, ut, W = padded(uf, iv, ib, ref, banned, I, tile)
+                seen_w.add(W)
+                check(f"B={B} I={I} D={D} T={T} W={W} tile={tile} "
+                      f"(pads: users {args[0].shape[0] - B}, items {args[1].shape[0] - I})",
+                      args, item_tile, ut)
+    if 1 not in seen_w or max(seen_w) < 4:
+        fail(f"counts checks covered W={sorted(seen_w)}, not 1 and 4 or more")
+
+    # the evaluator's shapes: one 4096-user block of the test split, W the
+    # probe's over every user's banned set (train + test item)
+    I, D, B = EVAL_I, EMBED_K, EVAL_BLOCK
+    shape = f"B={B} I={I} D={D} T=1 W={{}} f32, cold L2"
+    test_banned = np.concatenate([eval_items[:, :EVAL_TRAIN], eval_items[:, -1:]], axis=1)
+    W = topk.banned_bucket_width(test_banned, I, EVAL_TILE)
+    shape = shape.format(W)
+    banned = torch.from_numpy(test_banned[:B]).to(dev)
+    uf, iv, ib = qrand(B, D), qrand(I, D), qrand(I)
+    ref = torch.einsum("bd,bwd->bw", uf, iv[banned[:, -1:].long()]) + ib[banned[:, -1:].long()]
+    args, item_tile, ut, _ = padded(uf, iv, ib, ref, banned, I, EVAL_TILE, W)
+    check(f"evaluator shape B={B} I={I} D={D} T=1 W={W}", args, item_tile, ut)
+    flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
+    ms, call_ms = kernel_times(torch, "counts", lambda: counts.counts_kernel(
+        *args, item_tile=item_tile, user_tile=ut), 10, flush)
+    plain_ms, _ = kernel_times(torch, "counts plain", lambda: counts.counts_kernel_reference(
+        *args, item_tile), 2, flush)
+    uf_p, iv_p = args[0], args[1]
+    lib_ms, _ = kernel_times(torch, "counts library", lambda: torch.matmul(uf_p, iv_p.T),
+                             3, flush)
+    Ip = iv_p.shape[0]
+    b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
+    check_bound("counts", ms, b)
+    print(f"kernel time counts B={B} Ip={Ip} D={D} T=1 W={W} f32: ms={ms!r} "
+          f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(matmul f32, product "
+          f"only)={lib_ms!r} bound_ms={b!r} ({by})")
+    del args, uf, iv, ib, ref, uf_p, iv_p
+    torch.cuda.empty_cache()
+
+    # Gaussian data: kernel and plain may differ only inside the tie band
+    B, I, D = 1024, 65_536, EMBED_K
+    uf = torch.randn(B, D, device=dev, generator=g) * 0.3
+    iv = torch.randn(I, D, device=dev, generator=g) * 0.3
+    ib = torch.randn(I, device=dev, generator=g) * 0.1
+    j = torch.from_numpy(rng.integers(0, I, B)).to(dev)
+    ref = torch.einsum("bd,bd->b", uf, iv[j])[:, None] + ib[j][:, None]
+    args, item_tile, ut, _ = padded(uf, iv, ib, ref, j[:, None].to(torch.int32), I, EVAL_TILE)
+    got = counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut)[:B, 0]
+    want = counts.counts_kernel_reference(*args, item_tile)[:B, 0]
+    s64 = uf.double() @ iv.double().T + ib.double()
+    # f32 rounding of a D-term dot plus a bias, either summation order
+    tol = 2 * D * 2.0**-24 * (uf.abs().double() @ iv.abs().double().T + ib.abs().double())
+    gap = s64 - ref.double()
+    rows = torch.arange(B, device=dev)
+    band = gap.abs() <= tol
+    band[rows, j] = False
+    above = gap >= 0
+    above[rows, j] = False
+    band_u = band.sum(dim=1)
+    d_plain = (got - want).abs()
+    d_exact = (got - above.sum(dim=1)).abs()
+    if bool((d_plain > band_u).any()) or bool((d_exact > band_u).any()):
+        fail("counts kernel differs from the plain version or the fp64 count "
+             "beyond the tie band on Gaussian data")
+    tie = dict(users=B, items=I, band_items=int(band_u.sum()),
+               band_users=int((band_u > 0).sum()),
+               kernel_vs_plain=int(d_plain.sum()), kernel_vs_fp64=int(d_exact.sum()))
+    print(f"tie band (Gaussian, B={B} I={I} D={D}): {tie}")
+    del s64, tol, gap, band, above, args
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms, call_ms=call_ms, tie_band=tie, shape=shape)
+
+
+def quantized_bprmf(torch, num_users, num_items, seed):
+    """BPRMF K=128 on the card with every weight on the 1/64 grid, so that
+    every score is exact in f32 and the counts engines agree to the bit."""
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    model = BPRMF(num_users, num_items, embed_k=EMBED_K, generator=g)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(q64(torch.randn(p.shape, device="cuda", generator=g) * 0.25))
+    return model
+
+
+def eval_phase(torch, np, counts, eval_items):
+    """The streaming evaluator through K2 at the scaled configuration."""
+    from fashionvisualexpl_tpu_torch.data.interactions import Interactions
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+
+    t0 = time.perf_counter()
+    data = Interactions.from_lists(eval_items[:, :EVAL_TRAIN].tolist(),
+                                   eval_items[:, -1:].tolist(), EVAL_I,
+                                   eval_items[:, EVAL_TRAIN:-1].tolist())
+    host_s = time.perf_counter() - t0
+    model = quantized_bprmf(torch, EVAL_U, EVAL_I, seed=10)
+    t0 = time.perf_counter()
+    ev = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK,
+                           counts_impl="kernel")
+    setup_s = time.perf_counter() - t0
+    print(f"eval setup: Interactions {host_s!r} s, FactoredEvaluator {setup_s!r} s "
+          f"(bucket widths {ev._bucket_w})")
+
+    split_s = {}
+    inner = ev._eval_split
+
+    def timed(split, *a):  # per-split wall time, ended by reading the mean
+        t = time.perf_counter()
+        out = inner(split, *a)
+        float(out.hr)
+        split_s[split] = time.perf_counter() - t
+        return out
+
+    ev._eval_split = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.counts_kernel.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(None, None)
+    total_s = time.perf_counter() - t0
+    launches = counts.counts_kernel.launches  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * -(-EVAL_U // EVAL_BLOCK)
+    if launches != want:
+        fail(f"evaluate launched the counts kernel {launches} times, expected {want}")
+    vals = np.array(list(metrics.values()))
+    if not (np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"eval metrics not finite in [0, 1]: {metrics}")
+    per_split = {s: dict(ms=1e3 * t, scores_per_s=EVAL_U * EVAL_I / t)
+                 for s, t in split_s.items()}
+    print(f"eval main path: {launches} counts launches; evaluate {total_s!r} s; "
+          f"per split {per_split}; peak device memory {peak / 2**30!r} GiB")
+    print(f"eval metrics: {metrics}")
+
+    # the first user blocks again through the bucketed engine: equal metrics
+    evb = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK,
+                            counts_impl="bucketed")
+    uf, iv, ib = ev._factors(None)
+    for split in ("val", "test"):
+        for blk in range(EVAL_CHECK_BLOCKS):
+            ids = torch.arange(blk * EVAL_BLOCK, (blk + 1) * EVAL_BLOCK, device="cuda")
+            mk = ev._eval_block(split, uf[ids], iv, ib, ids)
+            mb = evb._eval_block(split, uf[ids], iv, ib, ids)
+            if not all(torch.equal(a, b) for a, b in zip(mk, mb)):
+                fail(f"eval {split} block {blk}: kernel and bucketed metrics differ")
+    print(f"eval check: the first {EVAL_CHECK_BLOCKS} user blocks of each split "
+          f"give equal per-user metrics through the kernel and the bucketed engine")
+    del ev, evb, model, data, uf, iv, ib
+    torch.cuda.empty_cache()
+    return launches, dict(metrics=metrics, per_split=per_split, evaluate_s=total_s,
+                          peak_gib=peak / 2**30, host_s=host_s, setup_s=setup_s)
+
+
+def write_reference_dataset(np, d: Path):
+    """Split TSVs (``user\\titem\\t0\\t1.0``) and the stats file in the
+    reference's layout: per user CLI_PER_USER distinct random items, the
+    last one the test item, the one before it the validation item."""
+    items = make_eval_items(np, CLI_U, CLI_I, CLI_PER_USER, seed=11)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "stats_after_downloading").write_text(
+        f"dataset stats\n----\nusers: {CLI_U}\nitems: {CLI_I}\n")
+    for fname, cols in (("trainingset.tsv", slice(0, -2)),
+                        ("validationset.tsv", slice(-2, -1)),
+                        ("testset.tsv", slice(-1, None))):
+        part = items[:, cols]
+        users = np.repeat(np.arange(CLI_U), part.shape[1])
+        (d / fname).write_text("".join(
+            f"{u}\t{i}\t0\t1.0\n" for u, i in zip(users, part.reshape(-1))))
+
+
+def cli_phase(torch, np, counts, segmax):
+    """train_rec --rec bprmf --streaming_eval, then serve_rec from its
+    checkpoint, in process."""
+    import glob
+    import pickle
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_reference_dataset(np, CLI_DIR / "cli")
+    write_s = time.perf_counter() - t0
+    results = CLI_DIR / "results"
+    common = ["--rec", "bprmf", "--dataset", "cli", "--data_root", str(CLI_DIR),
+              "--results_root", str(results), "--embed_k", str(EMBED_K),
+              "--top_k", str(CLI_K)]
+    served = CLI_DIR / "served.tsv"
+    users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    counts.counts_kernel.launches = 0
+    segmax.segmax_scores.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    train(common + ["--streaming_eval", "--epochs", "2", "--verbose", "1"])
+    train_s = time.perf_counter() - t0
+    (ckpt,) = glob.glob(str(results / "rec_model_weights" / "cli" / "bprmf" / "ckpt-*"))
+    t0 = time.perf_counter()
+    serve(common + ["--ckpt", ckpt, "--users", users, "--output", str(served)])
+    serve_s = time.perf_counter() - t0
+    launches = {"counts": counts.counts_kernel.launches,
+                "segmax_scores": segmax.segmax_scores.launches}  # main path ends here
+    if not all(launches.values()):
+        fail(f"the CLI did not launch every kernel of its path: {launches}")
+    rdir = results / "rec_results" / "cli" / "bprmf"
+    rows = {}
+    for pattern in ("recs-2-*.tsv", "best-recs-*.tsv"):
+        (path,) = glob.glob(str(rdir / pattern))
+        with open(path) as f:
+            rows[pattern] = sum(1 for _ in f)
+        if rows[pattern] != CLI_U * CLI_K:
+            fail(f"{pattern}: {rows[pattern]} rows, expected {CLI_U * CLI_K}")
+    with open(served) as f:
+        n_served = sum(1 for _ in f)
+    if n_served != CLI_SERVE_USERS * CLI_K:
+        fail(f"serve_rec wrote {n_served} rows, expected {CLI_SERVE_USERS * CLI_K}")
+    (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+    with open(pkl, "rb") as f:
+        per_epoch = pickle.load(f)
+    vals = np.array([v for m in per_epoch.values() for v in m.values()])
+    if sorted(per_epoch) != [1, 2] or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"CLI metrics not finite in [0, 1] for epochs 1, 2: {per_epoch}")
+    print(f"cli: dataset write {write_s!r} s, train_rec {train_s!r} s, serve_rec "
+          f"{serve_s!r} s; launches {launches}; rows {rows}, served {n_served}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches, dict(write_s=write_s, train_s=train_s, serve_s=serve_s,
+                          metrics=per_epoch[2])
+
+
 def main() -> int:
     if not (PKG / "ops" / "csrc" / "segmax.cu").is_file():
         print("chip_smoke: run from a checkout of the repository "
@@ -713,7 +1054,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from fashionvisualexpl_tpu_torch.ops import adam, bpr, cuda_build, segmax
+    from fashionvisualexpl_tpu_torch.ops import adam, bpr, counts, cuda_build, segmax, topk
 
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -733,6 +1074,11 @@ def main() -> int:
     train_rows = train_kernel_phase(torch, bpr, adam)
     train_launches, train = train_phase(torch, np, bpr, adam)
     fitted = fit_phase(torch, np, bpr, adam)
+    eval_items = make_eval_items(np, EVAL_U, EVAL_I, EVAL_TRAIN + 2, seed=0)
+    counts_row = eval_kernel_phase(torch, np, counts, topk, eval_items)
+    eval_launches, evaluated = eval_phase(torch, np, counts, eval_items)
+    del eval_items
+    cli_launches, cli = cli_phase(torch, np, counts, segmax)
 
     main_row = rows[4096]
     kernels = [{
@@ -744,6 +1090,7 @@ def main() -> int:
         **main_row,
         "shape": f"B=4096 Ip={16 * ITEM_BLOCK} D={EMBED_K} seg={SEG} bf16",
         "at_B8": rows[8],
+        "cli_launches": cli_launches["segmax_scores"],
     }]
     for name, source, replaces in (
         ("bpr_fwd", "bpr.cu", "fashionvisualexpl_tpu/ops/bpr.py:36"),
@@ -756,8 +1103,16 @@ def main() -> int:
             "replaces": replaces, "launches": train_launches[name],
             **train_rows[name],
         })
+    kernels.append({
+        "name": "counts", "route": "cuda",
+        "source": "fashionvisualexpl_tpu_torch/ops/csrc/counts.cu",
+        "replaces": "fashionvisualexpl_tpu/ops/counts.py:31",
+        "launches": eval_launches, **counts_row,
+        "cli_launches": cli_launches["counts"],
+    })
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
     print(json.dumps({"train": train, "fit": fitted}))
+    print(json.dumps({"eval": evaluated, "cli": cli}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,363 @@
+"""Training CLI (port of ``fashionvisualexpl_tpu/cli/train_rec.py``) — the
+reference's train_rec.py surface (src/train_rec.py:17-93).
+
+Same flags with the same names and defaults, plus ``--device`` (default the
+CUDA card, which the run needs unless ``--device cpu`` is given); the same
+regularization-sweep outer loop re-creating data and model per reg value
+(train_rec.py:60-89); the same results and weights layout and file names:
+``log-<tag>.jsonl``, ``recs-<E>-<tag>.tsv``, ``best-recs-<best>-<tag>.tsv``,
+``results-metrics-<tag>.pkl`` and the checkpoint directory ``ckpt-<tag>``.
+The checkpoints are the port's own (``core/checkpoint.py``), not Orbax.
+
+Registered here: ``bprmf``.  Every other ``--rec``, ``--train_path packed``,
+``--streamed`` and a mesh raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+Usage:
+  python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
+      --dataset amazon_baby --epochs 200 --streaming_eval
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+# models of later slices, by the ROADMAP item that ports them
+_LATER_MODELS = {
+    "vbpr": 8,
+    "grad_fashion": 8,
+    "acf": 9,
+    "attentive_fashion": 10,
+    "comp_vbpr": 10,
+}
+
+
+def _bool_flag(s: str) -> bool:
+    """Strict 0/1/true/false parser — a typo like 'no' or 'off' must be a
+    loud argparse error, not a silent True."""
+    low = s.lower()
+    if low in ("1", "true"):
+        return True
+    if low in ("0", "false"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected 0/1/true/false, got {s!r}")
+
+
+def build_parser(description="Run train of the Recommender Model."):
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--best_metric", type=str, default="ndcg")
+    p.add_argument("--dataset", nargs="?", default="amazon_baby")
+    p.add_argument("--rec", nargs="?", default="attentive_fashion")
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--top_k", type=int, default=20)
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--verbose", type=int, default=-1,
+                   help="checkpoint every N epochs (-1 disables)")
+    p.add_argument("--batch_eval", type=int, default=128,
+                   help="eval-time item-image encoding batch for "
+                        "attentive_fashion (the reference consumes it at "
+                        "AttentiveFashion.py:338-343)")
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--validation", type=lambda s: s not in ("0", "False", "false"),
+                   default=True)
+    p.add_argument("--restore_epochs", type=int, default=1)
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint (works, unlike "
+                        "the reference's --restore_epochs)")
+    p.add_argument("--list_of_regs", nargs="+", type=float, default=[0.0])
+    p.add_argument("--layers_component", nargs="+", type=int, default=[64, 1])
+    p.add_argument("--layers_item", nargs="+", type=int, default=[64, 1])
+    p.add_argument("--attention_layers", nargs="+", type=int, default=[64, 1])
+    p.add_argument("--cnn_model", nargs="?", default="vgg19")
+    p.add_argument("--edge_hw", nargs=2, type=int, default=[224, 224],
+                   help="edge-image size fed to the trainable towers "
+                        "(attentive_fashion / comp_vbpr); the reference "
+                        "hardcodes 224x224 (dataset.py:199)")
+    p.add_argument("--output_layer", nargs="?", default="fc2")
+    p.add_argument("--embed_k", type=int, default=128)
+    p.add_argument("--embed_d", type=int, default=20)
+    p.add_argument("--embed_color", type=int, default=32)
+    p.add_argument("--embed_edges", type=int, default=32)
+    p.add_argument("--reg", type=float, default=0.0)
+    p.add_argument("--activated_components", nargs="+", type=int,
+                   default=[1, 1, 1, 1],
+                   help="comp_vbpr family toggles: semantic color edges "
+                        "texture (reference CompVBPR.py:33)")
+    p.add_argument("--weight_components", nargs="+", type=float,
+                   default=[0.25, 0.25, 0.25, 0.25],
+                   help="comp_vbpr family mix weights (CompVBPR.py:34)")
+    p.add_argument("--data_root", type=str, default="data")
+    p.add_argument("--results_root", type=str, default="results")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval_user_block", type=int, default=2048)
+    p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="compute dtype for the trainable encoder towers "
+                        "(attentive_fashion / comp_vbpr): bfloat16 rides "
+                        "the MXU at full rate; params/loss stay fp32")
+    p.add_argument("--edge_tower", choices=["auto", "fused", "xla", "s2d"],
+                   default="auto",
+                   help="attentive_fashion conv->pool->GAP tower impl: "
+                        "fused = the Pallas VMEM-resident kernel "
+                        "(ops/edge_tower.py), s2d = the 2x2 space-to-depth "
+                        "conv+pool re-expression (ops/s2d_conv.py), xla = "
+                        "inline ops, auto = fused on TPU for even image "
+                        "sizes")
+    p.add_argument("--streaming_eval", action="store_true",
+                   help="use the blocked streaming evaluator (factored models)")
+    p.add_argument("--streamed", action="store_true",
+                   help="attentive_fashion only: keep the modality tensors "
+                        "on HOST (memmap) and stream per-batch feature "
+                        "gathers through a double-buffered prefetcher "
+                        "(train/streamed.py) — for catalogs whose edge "
+                        "stack exceeds HBM.  Builds/loads the single-file "
+                        "edges_stack.npy next to the edge tiffs")
+    p.add_argument("--fused_frozen", type=_bool_flag, default=True,
+                   help="packed path: fold frozen per-item feature columns "
+                        "into the packed item rows (halves row gathers per "
+                        "step; costs one extra HBM copy of those tables — "
+                        "pass 0 when the feature matrix doesn't fit twice)")
+    p.add_argument("--train_path", choices=["generic", "packed"],
+                   default="generic",
+                   help="packed = packed-state rows + LazyAdam "
+                        "(train/packed_generic.py; all six registered "
+                        "models, single-device and over the mesh) — "
+                        "~2.5x throughput at large table counts")
+    p.add_argument("--moment_dtype",
+                   choices=["float32", "bfloat16", "float8"],
+                   default="float32",
+                   help="packed path: Adam moment storage.  bfloat16 packs "
+                        "m,v as two bf16 halves of one fp32 column — rows "
+                        "shrink 3W+1 -> 2W+1 (1/3 less scatter traffic, "
+                        "~8-bit moment mantissas); works single-device AND "
+                        "over the mesh.  float8 packs m and sqrt(v) as four "
+                        "e5m2 codes per column — rows shrink to ~1.5W+1 "
+                        "(~2-bit moment mantissas); single-device only")
+    p.add_argument("--row_align", type=int, default=1,
+                   help="packed path capacity mode: pad packed-row widths "
+                        "to this multiple (128 = TPU lane tile).  Trades "
+                        "resident dead columns for eliminating XLA's "
+                        "1.5x padded transient table copies at the epoch "
+                        "scan boundary — peak HBM drops from ~2.5x to "
+                        "~1.5x of the logical table (use for catalogs "
+                        "near the HBM ceiling; 1 = off)")
+    p.add_argument("--lazy_catchup", type=_bool_flag, default=True,
+                   help="packed path: apply the closed-form momentum tail "
+                        "of skipped steps on touch (dense-Adam-like "
+                        "convergence at touched-rows-only cost; "
+                        "throughput-free).  Pass 0 for plain LazyAdam")
+    p.add_argument("--bootstrap", action="store_true",
+                   help="with-replacement triple sampling (original-BPR "
+                        "bootstrap) instead of the epoch permutation")
+    p.add_argument("--sampling", choices=["user_perm", "pair_perm"],
+                   default="user_perm",
+                   help="no-replacement epoch ordering: user_perm = the "
+                        "reference's exact scheme (shuffle users, visit "
+                        "positives in stored order); pair_perm = permute "
+                        "the full interaction list")
+    p.add_argument("--max_user_pos", type=int, default=64,
+                   help="acf: training-time cap on per-user positives "
+                        "(subsampled beyond it; the reference attends over "
+                        "all, ACF.py:169-179)")
+    p.add_argument("--acf_exact_eval", action="store_true",
+                   help="acf: attend over EVERY positive at evaluation "
+                        "(chunked online-softmax scan; reference-exact "
+                        "eval profiles regardless of --max_user_pos)")
+    p.add_argument("--acf_exact_train", action="store_true",
+                   help="acf: attend over EVERY positive during TRAINING "
+                        "too (reference ACF.py:169-179,201-207 semantics; "
+                        "gradients through the chunked scan).  Generic "
+                        "train path only")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel mesh axis size")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="table-row-sharding mesh axis size")
+    p.add_argument("--device", type=str, default=None,
+                   help="where the run computes: default the CUDA card "
+                        "(raises without one); 'cpu' runs the plain PyTorch "
+                        "versions of the kernels (tests)")
+    return p
+
+
+def parse_args(argv=None):
+    return build_parser().parse_args(argv)
+
+
+def validate_args(args):
+    """Reject invalid flag COMBINATIONS before any data loads.
+
+    Without this, e.g. `--acf_exact_train --train_path packed` survives
+    argument parsing, loads the dataset, and only then dies inside
+    ACF.packed_spec() (round-3 verdict: validate combos up front)."""
+    errors = []
+    if args.rec == "acf" and args.acf_exact_train and args.train_path == "packed":
+        errors.append(
+            "--acf_exact_train requires --train_path generic: the packed "
+            "engine's extra-item-rows path is built on the per-user "
+            "positive cap that exact training removes"
+        )
+    if args.streamed:
+        if args.rec != "attentive_fashion":
+            errors.append(
+                "--streamed supports attentive_fashion only (the one model "
+                "whose modality stack can exceed HBM)"
+            )
+        if args.train_path != "generic":
+            errors.append(
+                "--streamed uses its own host-prefetch train loop "
+                "(train/streamed.py); --train_path packed cannot be honored"
+            )
+        if args.mesh_data * args.mesh_model > 1:
+            errors.append(
+                "--streamed is single-device (the host prefetcher feeds one "
+                "chip); drop --mesh_data/--mesh_model"
+            )
+    if args.moment_dtype == "float8" and args.mesh_data * args.mesh_model > 1:
+        errors.append(
+            "--moment_dtype float8 is single-device only (the sharded "
+            "packed engine's column groups assume a uniform per-column "
+            "moment width) — use bfloat16 over the mesh"
+        )
+    if args.rec == "comp_vbpr":
+        if len(args.activated_components) != 4:
+            errors.append(
+                "--activated_components takes exactly 4 toggles "
+                "(semantic color edges texture, reference CompVBPR.py:33)"
+            )
+        if len(args.weight_components) != 4:
+            errors.append(
+                "--weight_components takes exactly 4 weights "
+                "(reference CompVBPR.py:34)"
+            )
+    if args.rec == "acf":
+        if args.layers_component and args.layers_component[-1] != 1:
+            errors.append("last --layers_component width must be 1")
+        if args.layers_item and args.layers_item[-1] != 1:
+            errors.append("last --layers_item width must be 1")
+    if errors:
+        raise SystemExit("invalid flags:\n  - " + "\n  - ".join(errors))
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError for the options of later slices, before any
+    data loads."""
+    if args.rec in _LATER_MODELS:
+        raise NotImplementedError(
+            f"--rec {args.rec} is not ported yet "
+            f"(ROADMAP item {_LATER_MODELS[args.rec]})"
+        )
+    if args.train_path == "packed":
+        raise NotImplementedError(
+            "--train_path packed is not ported yet (ROADMAP item 4)"
+        )
+    if args.streamed:
+        raise NotImplementedError("--streamed is not ported yet (ROADMAP item 12)")
+    if args.mesh_data * args.mesh_model > 1:
+        raise NotImplementedError(
+            "--mesh_data / --mesh_model are not ported yet (ROADMAP item 13)"
+        )
+
+
+def build_model(args, data, cfg):
+    """Model registry (reference train_rec.py:75-86): ``bprmf`` on
+    ``args.device``; ``check_ported`` names the ROADMAP items of the rest."""
+    del cfg
+    if args.rec == "bprmf":
+        from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+
+        return BPRMF(data.num_users, data.num_items, embed_k=args.embed_k,
+                     device=args.device)
+    raise NotImplementedError("Not implemented or unknown Recommender Model.")
+
+
+def train(argv=None):
+    args = parse_args(argv)
+    validate_args(args)
+    check_ported(args)
+
+    from fashionvisualexpl_tpu_torch.core.config import (
+        MeshConfig,
+        Paths,
+        TrainConfig,
+    )
+    from fashionvisualexpl_tpu_torch.data.interactions import Interactions
+    from fashionvisualexpl_tpu_torch.eval.evaluator import Evaluator
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+    from fashionvisualexpl_tpu_torch.train.trainer import fit
+    from fashionvisualexpl_tpu_torch.utils.io import JsonlLogger, ensure_dir, save_obj
+
+    paths = Paths(root=args.data_root, results_root=args.results_root)
+    results_dir = ensure_dir(paths.results_dir(args.dataset, args.rec))
+    weight_dir = ensure_dir(paths.weight_dir(args.dataset, args.rec))
+
+    for it, current_reg in enumerate(args.list_of_regs):
+        print("-" * 68)
+        print(
+            "ITERATION %d/%d WITH REGULARIZATION: %f"
+            % (it + 1, len(args.list_of_regs), current_reg)
+        )
+        cfg = TrainConfig(
+            dataset=args.dataset, rec=args.rec, batch_size=args.batch_size,
+            top_k=args.top_k, epochs=args.epochs, verbose=args.verbose,
+            batch_eval=args.batch_eval, lr=args.lr,
+            validation=args.validation, reg=current_reg,
+            best_metric=args.best_metric, seed=args.seed, paths=paths,
+            mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
+            train_path=args.train_path, bootstrap=args.bootstrap,
+            sampling=args.sampling, fused_frozen=args.fused_frozen,
+            moment_dtype=args.moment_dtype, lazy_catchup=args.lazy_catchup,
+            row_align=args.row_align,
+        )
+        data = Interactions.load(cfg)
+
+        print(f"Training {args.rec} on {args.dataset}")
+        print("Parameters:")
+        for k, v in sorted(vars(args).items()):
+            print(f"\t- {k} = {v}")
+        print()
+
+        model = build_model(args, data, cfg)
+        if args.streaming_eval and hasattr(model, "factored_eval"):
+            # the streaming evaluator also writes the recommendation dumps:
+            # the dense Evaluator would allocate the [U, I] train mask the
+            # streaming path exists to avoid
+            evaluator = FactoredEvaluator(
+                model, data, k=cfg.top_k, user_block=args.eval_user_block
+            )
+        else:
+            evaluator = Evaluator(
+                model, data, k=cfg.top_k, user_block=args.eval_user_block
+            )
+
+        run_tag = (
+            f"batch_{cfg.batch_size}-K_{args.embed_k}-lr_{cfg.lr}-reg_{cfg.reg}"
+        )
+        logger = JsonlLogger(os.path.join(results_dir, f"log-{run_tag}.jsonl"))
+        state, frozen, results, extra = fit(
+            model, data, cfg, evaluator=evaluator, log=logger.log,
+            ckpt_dir=os.path.join(weight_dir, f"ckpt-{run_tag}"),
+            resume=args.resume,
+        )
+        logger.close()
+
+        # dumps in the reference layout (BPRMF.py:167-184); the best params
+        # are a copy, scored without writing them into the model
+        last_epoch = cfg.epochs
+        evaluator.store_recommendation(
+            state.params, frozen,
+            os.path.join(results_dir, f"recs-{last_epoch}-{run_tag}.tsv"),
+        )
+        save_obj(results, os.path.join(results_dir, f"results-metrics-{run_tag}"))
+        best_epoch = extra["best_epoch"]
+        print(f"Store Best Model at Epoch {best_epoch}")
+        evaluator.store_recommendation(
+            extra["best_params"], frozen,
+            os.path.join(results_dir, f"best-recs-{best_epoch}-{run_tag}.tsv"),
+        )
+        print("END REGULARIZATION")
+        print("-" * 68)
+
+
+if __name__ == "__main__":
+    train()

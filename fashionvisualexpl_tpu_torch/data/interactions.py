@@ -83,6 +83,15 @@ def pad_sorted_positives(
     return padded, counts
 
 
+def multi_hot(user_lists: Sequence[Sequence[int]], num_items: int) -> np.ndarray:
+    """Dense [U, I] bool membership matrix (train-mask / test-mask for eval)."""
+    m = np.zeros((len(user_lists), num_items), dtype=bool)
+    for u, row in enumerate(user_lists):
+        if row:
+            m[u, list(row)] = True
+    return m
+
+
 def pad_lists(
     user_lists: Sequence[Sequence[int]], pad_value: int, width: Optional[int] = None
 ) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,7 +2,10 @@
 
 In the JAX package a model is a stateless object over explicit ``(params,
 frozen)`` pytrees.  In the port a model is an ``nn.Module`` that owns its
-parameters, and the scoring methods read them from ``self``.  Random init
+parameters, and the scoring methods read them from ``self`` unless they are
+given a parameter mapping (``params=``, name -> tensor): the evaluators score
+``fit``'s ``best_params`` copy that way without writing it into the model.
+Random init
 takes an explicit ``torch.Generator``; JAX's threefry draws cannot be
 reproduced, so parity tests carry JAX's params across with
 ``models/convert.py`` instead.
@@ -13,7 +16,7 @@ Not ported yet: ``PackedSpec`` — it comes with the packed engine.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,9 +58,13 @@ class RecommenderModel(nn.Module):
 
     - score(users, items) -> [B] pointwise scores
     - predict_all() -> [U, I] full score matrix
-    - predict_user_block(user_ids) -> [B_u, I] score rows
-    - factored_eval() -> (user [U, D], item [I, D], item bias [I] or None),
-      for models whose scores factor (the serving index path)
+    - predict_user_block(user_ids, ctx, params) -> [B_u, I] score rows
+    - factored_eval(params) -> (user [U, D], item [I, D], item bias [I] or
+      None), for models whose scores factor (the serving index path)
+    - precompute_eval(params) -> ctx for predict_user_block (None here)
+
+    ``params`` is a mapping name -> tensor that takes the place of the
+    model's own parameters; ``None`` reads the model's.
     """
 
     name: str = "base"
@@ -77,7 +84,20 @@ class RecommenderModel(nn.Module):
     def predict_all(self) -> torch.Tensor:
         raise NotImplementedError
 
+    def params_or_own(
+        self, params: Optional[Mapping[str, torch.Tensor]]
+    ) -> Mapping[str, torch.Tensor]:
+        return dict(self.named_parameters()) if params is None else params
+
+    def precompute_eval(self, params: Optional[Mapping[str, torch.Tensor]] = None):
+        """Optional once-per-evaluation precomputation, passed to
+        ``predict_user_block`` as ``ctx``."""
+        return None
+
     def predict_user_block(
-        self, user_ids: torch.Tensor, ctx: Optional[object] = None
+        self,
+        user_ids: torch.Tensor,
+        ctx: Optional[object] = None,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         raise NotImplementedError

@@ -10,7 +10,7 @@ packed engine.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -90,15 +90,23 @@ class BPRMF(RecommenderModel):
         )
         return loss + reg_loss
 
-    def factored_eval(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Factored scores for the serving index (serve/engine.py)."""
-        return self.Gu, self.Gi, self.Bi
+    def factored_eval(
+        self, params: Optional[Mapping[str, torch.Tensor]] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Factored scores for the serving index and the streaming
+        evaluator, from ``params`` (name -> tensor) or the model's own."""
+        p = self.params_or_own(params)
+        return p["Gu"], p["Gi"], p["Bi"]
 
     def predict_all(self) -> torch.Tensor:
         return self.Bi[None, :] + self.Gu @ self.Gi.T
 
     def predict_user_block(
-        self, user_ids: torch.Tensor, ctx: Optional[object] = None
+        self,
+        user_ids: torch.Tensor,
+        ctx: Optional[object] = None,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         del ctx
-        return self.Bi[None, :] + self.Gu[user_ids] @ self.Gi.T
+        p = self.params_or_own(params)
+        return p["Bi"][None, :] + p["Gu"][user_ids] @ p["Gi"].T

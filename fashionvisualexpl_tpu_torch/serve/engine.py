@@ -1,8 +1,10 @@
 """Low-latency recommendation serving (port of
 ``fashionvisualexpl_tpu/serve/engine.py``).
 
-- **refresh()** builds the device-resident index once per model publish from
-  the model's factored user/item matrices (``model.factored_eval()``).
+- **refresh(params=None, frozen=None)** builds the device-resident index once
+  per model publish from the factored user/item matrices
+  (``model.factored_eval(params)``): a given parameter mapping, or the
+  model's own parameters when ``params`` is None.
 - **query(user_ids)** answers a batch in three stages:
   1. *segment-max candidate generation*: catalog scores max-pooled over
      ``seg``-item segments, then an exact top-k over the seg-times smaller
@@ -163,14 +165,17 @@ class RecServer:
     # --- index build -----------------------------------------------------
 
     @torch.no_grad()
-    def refresh(self) -> None:
-        """(Re)build the serving index from the model's current weights —
-        once per model publish, off the query path.  The index is a copy:
-        later training steps do not change what is served until the next
-        refresh."""
+    def refresh(self, params=None, frozen=None) -> None:
+        """(Re)build the serving index once per model publish, off the query
+        path, from ``params`` (name -> tensor, e.g. ``fit``'s
+        ``best_params``; JAX's ``refresh(params, frozen)``) or, when None,
+        the model's current weights.  ``frozen`` is unused (BPRMF has
+        none).  The index is a copy: later training steps do not change
+        what is served until the next refresh."""
+        del frozen
         U, I = self.data.num_users, self.data.num_items
         dev = self.device
-        uf, iv, ib = self.model.factored_eval()
+        uf, iv, ib = self.model.factored_eval(params)
         uf = uf[:U].detach().to(dev, torch.float32).clone()
         iv = iv[:I].detach().to(dev, torch.float32)
         ib = None if ib is None else ib[:I].detach().to(dev, torch.float32)

@@ -13,9 +13,13 @@ draw, epoch), best-params tracking takes the later epoch on a tie, and
 ``log`` gets one JSONL-ready record per epoch.  Seeds are ints (the port's
 keys); they feed ``torch.Generator``s on the model's device.
 
-Not ported yet: ``train_path="packed"`` (ROADMAP item 4), the ``mesh``
-paths (item 13) and checkpoints (``ckpt_dir`` / ``resume``, item 5); each
-raises ``NotImplementedError``.
+With ``ckpt_dir``, ``fit`` checkpoints the train state every ``cfg.verbose``
+epochs and at epoch 1 and the best params at the end
+(``core/checkpoint.py``); ``resume=True`` restores the latest checkpoint
+and continues from the next epoch.
+
+Not ported yet: ``train_path="packed"`` (ROADMAP item 4) and the ``mesh``
+paths (item 13); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -177,15 +181,28 @@ def fit(
     follows the reference (BPRMF.py:150-156): argmax of the validation
     ``best_metric``, ties resolved to the LATEST epoch.  ``evaluator`` is
     duck-typed: ``evaluate(params, frozen) -> metrics`` and
-    ``print_epoch(epoch, epochs, mean_loss, record)``."""
-    if ckpt_dir is not None or resume:
-        raise NotImplementedError(
-            "checkpoints (ckpt_dir / resume) are not ported yet (ROADMAP item 5)"
-        )
+    ``print_epoch(epoch, epochs, mean_loss, record)``.
+
+    With ``ckpt_dir``, the train state is checkpointed every ``cfg.verbose``
+    epochs and at epoch 1 (reference BPRMF.py:158-160 cadence; verbose <= 0
+    disables) and the best params at the end; ``resume=True`` restores the
+    latest checkpoint and continues from the next epoch.  The epoch seeds
+    depend only on (seed, epoch), so a resumed run continues exactly as the
+    uninterrupted one would."""
     trainer = Trainer(model, data, cfg)
     seed = cfg.seed if seed is None else seed
     init_seed, epoch_seed = split_seed(seed)
     state, frozen = trainer.init_state(init_seed)
+
+    ckpt = None
+    start_epoch = 1
+    if ckpt_dir is not None:
+        from fashionvisualexpl_tpu_torch.core.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(ckpt_dir)
+        if resume and ckpt.latest_step() is not None:
+            state = ckpt.restore(state)  # in place: the model's own params
+            start_epoch = int(ckpt.latest_step()) + 1
 
     results: Dict[int, Dict[str, float]] = {}
     history: List[EpochResult] = []
@@ -195,7 +212,7 @@ def fit(
     best_value = -float("inf")
     metric_key = cfg.best_metric + "_v"
 
-    for epoch in range(1, cfg.epochs + 1):
+    for epoch in range(start_epoch, cfg.epochs + 1):
         t0 = time.time()
         state, loss = trainer.run_epoch(state, frozen, fold_in(epoch_seed, epoch))
         loss = float(loss)
@@ -217,6 +234,10 @@ def fit(
                 best_params = {k: v.detach().clone()
                                for k, v in state.params.items()}
         history.append(rec)
+        if ckpt is not None and cfg.verbose > 0 and (
+            epoch % cfg.verbose == 0 or epoch == 1
+        ):
+            ckpt.save(epoch, state)
         if log is not None:
             log(
                 {
@@ -227,6 +248,10 @@ def fit(
                     **(rec.metrics or {}),
                 }
             )
+
+    if ckpt is not None:
+        ckpt.save_best(best_params)
+        ckpt.close()
 
     return state, frozen, results, {
         "history": history,

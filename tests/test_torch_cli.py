@@ -1,0 +1,177 @@
+"""Port CLI (``cli/train_rec.py``, ``cli/serve_rec.py``) on a synthetic
+dataset in the reference's on-disk layout, with ``--device cpu``.
+
+The port's run writes the file set of one JAX CLI run on the same dataset:
+the same names (the best epoch in ``best-recs-<E>`` is each run's own: the
+two packages draw different inits), the same TSV format and row counts, the
+same JSONL and results-pickle keys, and the checkpoint directory of the
+same name.  Resume, the regularization sweep and serving from the
+checkpoint run end to end; ``validate_args`` gives the JAX parser's
+messages; the options of later slices raise; without ``--device`` and
+without a card the CLI raises."""
+
+import glob
+import json
+import os
+import pickle
+import re
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from fashionvisualexpl_tpu.cli import train_rec as jcli
+from fashionvisualexpl_tpu.data.synthetic_dataset import make_synthetic_dataset_on_disk
+from fashionvisualexpl_tpu_torch.cli import train_rec as pcli
+from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+
+U, K_TOP = 20, 5
+
+
+@pytest.fixture(scope="module")
+def dataset_dir(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("data"))
+    make_synthetic_dataset_on_disk(root, num_users=U, num_items=24, interactions_per_user=6,
+                                   cnn_dim=16, with_images=False)
+    return root
+
+
+def _argv(root, results, extra=(), device=True):
+    return ["--rec", "bprmf", "--dataset", "synthetic", "--data_root", root,
+            "--results_root", os.path.join(root, results), "--epochs", "2",
+            "--batch_size", "16", "--top_k", str(K_TOP), "--embed_k", "8",
+            "--eval_user_block", "8", "--verbose", "1", *extra,
+            *(["--device", "cpu"] if device else [])]
+
+
+def _files(root, results):
+    """{normalized relative name: path} of a run's results and weights."""
+    out = {}
+    base = os.path.join(root, results)
+    for path in glob.glob(os.path.join(base, "rec_results", "**", "*"), recursive=True) + \
+            glob.glob(os.path.join(base, "rec_model_weights", "*", "*", "*")):
+        rel = os.path.relpath(path, base)
+        if os.path.isfile(path) or "rec_model_weights" in rel:
+            out[re.sub(r"best-recs-\d+-", "best-recs-E-", rel)] = path
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_run(dataset_dir):
+    jcli.train(_argv(dataset_dir, "jax", ("--streaming_eval",), device=False))
+    return _files(dataset_dir, "jax")
+
+
+def _check_tsv(path, rows):
+    lines = open(path).read().strip().split("\n")
+    assert len(lines) == rows
+    for line in lines:
+        u, i, s = line.split("\t")
+        int(u), int(i), float(s)
+    return lines
+
+
+@pytest.mark.parametrize("streaming", [False, True], ids=["dense", "streaming"])
+def test_cli_writes_the_jax_file_set(dataset_dir, jax_run, streaming):
+    results = f"port-{int(streaming)}"
+    pcli.train(_argv(dataset_dir, results, ("--streaming_eval",) if streaming else ()))
+    port = _files(dataset_dir, results)
+    assert sorted(port) == sorted(jax_run)
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            _check_tsv(path, U * K_TOP)
+            _check_tsv(jax_run[name], U * K_TOP)
+        elif name.endswith(".jsonl"):
+            got = [json.loads(line) for line in open(path)]
+            want = [json.loads(line) for line in open(jax_run[name])]
+            assert [sorted(r) for r in got] == [sorted(r) for r in want]
+            assert all(0.0 <= r[m] <= 1.0 for r in got for m in r if m[-2:] in ("_v", "_t"))
+        elif name.endswith(".pkl"):
+            got, want = (pickle.load(open(p, "rb")) for p in (path, jax_run[name]))
+            assert sorted(got) == sorted(want) == [1, 2]
+            assert all(sorted(got[e]) == sorted(want[e]) for e in got)
+    ckpt = [p for n, p in port.items() if "ckpt-" in n]
+    assert len(ckpt) == 1 and sorted(os.listdir(ckpt[0])) == ["1", "2", "best-state"]
+
+
+def test_cli_reg_sweep(dataset_dir):
+    pcli.train(_argv(dataset_dir, "sweep", ("--list_of_regs", "0.0", "0.01")))
+    rdir = os.path.join(dataset_dir, "sweep", "rec_results", "synthetic", "bprmf")
+    assert len(glob.glob(os.path.join(rdir, "results-metrics-*reg_0.0.pkl"))) == 1
+    assert len(glob.glob(os.path.join(rdir, "results-metrics-*reg_0.01.pkl"))) == 1
+    assert len(glob.glob(os.path.join(rdir, "recs-2-*.tsv"))) == 2
+
+
+def test_cli_resume_matches_uninterrupted(dataset_dir):
+    """Interrupted at epoch 2 and resumed to 4 (``--verbose 2`` puts a
+    checkpoint at the cut): the final dump is byte-identical to an
+    uninterrupted 4-epoch run's."""
+    common = ("--verbose", "2", "--streaming_eval")
+    rdir = os.path.join(dataset_dir, "resume", "rec_results", "synthetic", "bprmf")
+    pcli.train(_argv(dataset_dir, "resume", common) + ["--epochs", "4"])
+    full = open(glob.glob(os.path.join(rdir, "recs-4-*.tsv"))[0]).read()
+    shutil.rmtree(os.path.join(dataset_dir, "resume"))
+    pcli.train(_argv(dataset_dir, "resume", common))
+    pcli.train(_argv(dataset_dir, "resume", common) + ["--epochs", "4", "--resume"])
+    assert open(glob.glob(os.path.join(rdir, "recs-4-*.tsv"))[0]).read() == full
+
+
+def test_cli_serve_from_checkpoint(dataset_dir):
+    pcli.train(_argv(dataset_dir, "serve"))
+    base = os.path.join(dataset_dir, "serve")
+    (ckpt,) = glob.glob(os.path.join(base, "rec_model_weights", "synthetic", "bprmf", "ckpt-*"))
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "bprmf", "best-recs-*"))
+    common = ["--rec", "bprmf", "--dataset", "synthetic", "--data_root", dataset_dir,
+              "--results_root", base, "--embed_k", "8", "--top_k", str(K_TOP),
+              "--ckpt", ckpt, "--device", "cpu"]
+    out = os.path.join(base, "served.tsv")
+    serve(common + ["--users", "0,3,5", "--output", out])
+    lines = _check_tsv(out, 3 * K_TOP)
+    assert sorted({int(line.split("\t")[0]) for line in lines}) == [0, 3, 5]
+    # the best params' recommendations: the dense best-recs dump's rows
+    dumped = {(int(r[0]), int(r[1])): float(r[2]) for r in
+              (line.split("\t") for line in open(best).read().strip().split("\n"))}
+    for line in lines:
+        u, i, s = line.split("\t")
+        np.testing.assert_allclose(float(s), dumped[(int(u), int(i))], rtol=1e-5)
+    out_q = os.path.join(base, "served_q.tsv")
+    serve(common + ["--users", "0,3,5", "--output", out_q, "--quantized"])
+    assert [line.split("\t")[:2] for line in _check_tsv(out_q, 3 * K_TOP)] == [
+        line.split("\t")[:2] for line in lines]
+    out_all = os.path.join(base, "served_all.tsv")
+    serve(common + ["--users", "all", "--output", out_all])
+    _check_tsv(out_all, U * K_TOP)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--rec", "acf", "--acf_exact_train", "--train_path", "packed"],
+    ["--rec", "bprmf", "--streamed"],
+    ["--rec", "attentive_fashion", "--streamed", "--mesh_data", "2"],
+    ["--rec", "comp_vbpr", "--activated_components", "1", "1"],
+    ["--rec", "acf", "--layers_component", "4", "2"],
+    ["--moment_dtype", "float8", "--mesh_model", "2"],
+])
+def test_validate_args_gives_the_jax_messages(argv):
+    with pytest.raises(SystemExit) as jerr:
+        jcli.validate_args(jcli.parse_args(argv))
+    with pytest.raises(SystemExit) as perr:
+        pcli.validate_args(pcli.parse_args(argv))
+    assert str(perr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("extra,item", [
+    (("--rec", "vbpr"), 8), (("--rec", "acf"), 9), (("--rec", "attentive_fashion"), 10),
+    (("--train_path", "packed"), 4), (("--rec", "attentive_fashion", "--streamed"), 10),
+    (("--mesh_data", "2"), 13),
+])
+def test_options_of_later_slices_raise(dataset_dir, extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        pcli.train(_argv(dataset_dir, "never", ()) + list(extra))
+    assert not os.path.exists(os.path.join(dataset_dir, "never"))
+
+
+def test_no_device_without_a_card_raises(dataset_dir, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pcli.train(_argv(dataset_dir, "nocard", device=False))

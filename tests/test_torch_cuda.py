@@ -1,6 +1,7 @@
 """Port on the CUDA card: the segmax kernel against its plain version,
-RecServer's on-card stage-1 paths against a full-catalog oracle, and the
-training kernels (fused BPR loss K1, fused Adam sweep K6) against theirs.
+RecServer's on-card stage-1 paths against a full-catalog oracle, the
+training kernels (fused BPR loss K1, fused Adam sweep K6) and the
+streaming-eval counts kernel K2 against theirs.
 
 Imports no jax, so it runs where JAX is absent:
 ``python -m pytest tests/test_torch_cuda.py --noconftest``.  Without a card
@@ -10,7 +11,8 @@ of magnitude up to ~20.  K1: loss rtol 1e-5 (another summation order),
 sigma rtol 1e-4, atol 1e-5 * scale**2 (diff's K products are summed with
 FMAs in lane order, and their rounding grows with the products); the
 gradients, from the same sigma, rtol 1e-4, atol 1e-5.  K6: the same f32 operations in the same order, m and v
-rtol 1e-6, p rtol 1e-5."""
+rtol 1e-6, p rtol 1e-5.  K2: counts bit-equal on quantized data (every
+score exact in f32, so any summation order gives the same bits)."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from fashionvisualexpl_tpu_torch.data.interactions import synthetic_interactions
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 from fashionvisualexpl_tpu_torch.ops import adam as A
 from fashionvisualexpl_tpu_torch.ops import bpr as K1
+from fashionvisualexpl_tpu_torch.ops import counts as K2
 from fashionvisualexpl_tpu_torch.ops import segmax as S
 from fashionvisualexpl_tpu_torch.serve import RecServer
 from fashionvisualexpl_tpu_torch.train.fast import (
@@ -179,3 +182,54 @@ def test_training_kernels_reject_non_contiguous_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         A.fused_adam_sweep(x.T, x.T.contiguous(), x.T.contiguous(),
                            A.adam_scalars(0.01, torch.tensor(1.0, device=cuda_device)))
+
+
+def _counts_inputs(dev, B, I, D, T, Pb, seed):
+    """Quantized inputs (multiples of 1/64, |x| <= 1: every score is exact
+    in f32) with -1 pads, duplicate ids, pad users and pad items."""
+    rng = np.random.default_rng(seed)
+    q = lambda a: torch.tensor(np.clip(np.round(a * 64) / 64, -1, 1),
+                               dtype=torch.float32, device=dev)
+    uf, iv = q(rng.normal(size=(B, D)) * 0.5), q(rng.normal(size=(I, D)) * 0.5)
+    ib, ref = q(rng.normal(size=I)), q(rng.normal(size=(B, T)) * 2)
+    banned = rng.integers(-1, I, size=(B, Pb)).astype(np.int32)
+    banned[0, :] = -1
+    if B > 1 and Pb > 1:
+        banned[1, 1] = banned[1, 0]
+    return uf, iv, ib, ref, torch.from_numpy(banned).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,D,T,Pb,item_tile", [
+    (8, 300, 16, 1, 4, 128), (100, 5000, 128, 3, 9, 2048),
+    (257, 4099, 33, 2, 21, 256), (1, 17, 8, 1, 1, 2048),
+])
+def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb,
+                                                     item_tile):
+    from fashionvisualexpl_tpu_torch.ops.topk import (
+        banned_bucket_width,
+        bucket_banned_ids_device,
+    )
+
+    uf, iv, ib, ref, banned = _counts_inputs(cuda_device, B, I, D, T, Pb, seed=B)
+    W = banned_bucket_width(banned.cpu().numpy(), I, item_tile)
+    loc, msk = bucket_banned_ids_device(banned, I, item_tile, W)
+    before = K2.counts_kernel.launches
+    got = K2.streaming_counts_kernel(uf, iv, ib, ref, loc, msk, item_block=item_tile)
+    torch.cuda.synchronize()
+    assert K2.counts_kernel.launches == before + 1
+    want = K2.streaming_counts_kernel(uf.cpu(), iv.cpu(), ib.cpu(), ref.cpu(),
+                                      loc.cpu(), msk.cpu(), item_block=item_tile)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_counts_kernel_rejects_what_it_does_not_take_on_card(cuda_device):
+    z = lambda *s: torch.zeros(*s, device=cuda_device)
+    loc = torch.full((1, 8, 1), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="T <= 4"):
+        K2.counts_kernel(z(8, 4), z(256, 4), z(256), z(8, 5), loc, 256, 8)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K2.counts_kernel(z(8, 4), z(200, 4), z(200), z(8, 1), loc, 200, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        K2.counts_kernel(z(4, 8).T, z(256, 4), z(256), z(8, 1), loc, 256, 8)

@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: no jax, no JAX package, and its entry
-points refuse to fall back to the CPU silently."""
+"""The PyTorch port stands alone: no jax, no JAX package (neither in the
+package nor in ``chip_smoke.py``), and its entry points refuse to fall back
+to the CPU silently."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -45,7 +47,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 22  # every submodule of both slices was imported
+    assert n_modules >= 33  # every submodule of the three slices was imported
+
+
+def _is_jax(name):
+    return name.split(".")[0] in ("jax", "jaxlib", "fashionvisualexpl_tpu")
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    """Every import statement of chip_smoke.py, also those inside its
+    phases, names neither; importing it loads neither."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert any(n.startswith("fashionvisualexpl_tpu_torch") for n in names)
+    assert not [n for n in names if _is_jax(n)]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    check = ("import sys, chip_smoke; "
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'fashionvisualexpl_tpu')]; print(bad); sys.exit(bool(bad))")
+    proc = subprocess.run([sys.executable, "-c", check], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.fixture

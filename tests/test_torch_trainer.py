@@ -8,7 +8,7 @@ the JAX package.
   in another order, compounded over the steps);
 - ``fit``'s run structure: best-params tracking with ties to the later
   epoch, the copy of ``best_params``, the JSONL records, and the options
-  that wait for later slices."""
+  that wait for later slices (checkpoints: ``test_torch_checkpoint.py``)."""
 
 import dataclasses
 
@@ -157,13 +157,12 @@ def test_fit_keeps_the_run_structure():
     assert extra2["best_epoch"] == 0
 
 
-@pytest.mark.parametrize("what", ["packed", "mesh", "ckpt_dir"])
-def test_options_of_later_slices_raise(what, tmp_path):
+@pytest.mark.parametrize("what", ["packed", "mesh"])
+def test_options_of_later_slices_raise(what):
     model, data, cfg = _small_run()
     if what == "packed":
         cfg = dataclasses.replace(cfg, train_path="packed")
-    elif what == "mesh":
+    else:
         cfg = dataclasses.replace(cfg, mesh=MeshConfig(data=2, model=1))
-    kw = {"ckpt_dir": str(tmp_path)} if what == "ckpt_dir" else {}
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        fit(model, data, cfg, **kw)
+        fit(model, data, cfg)
