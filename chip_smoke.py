@@ -127,6 +127,31 @@ EVAL_BLOCK, EVAL_TILE, EVAL_CHECK_BLOCKS = 4096, 2048, 2
 CLI_U = CLI_I = 20_000
 CLI_PER_USER, CLI_K, CLI_SERVE_USERS = 20, 20, 64
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+# the edge-tower kernel K7: the JAX test geometries, two groups of
+# channels, the training step's shape and the reference resolution (B, H,
+# W, C; the last two are timed); constant images tie every pool window
+# (0.5) and every ReLU boundary too (0.0)
+TOWER_TIMED = ((8192, 32, 32, 64), (256, 224, 224, 64))
+TOWER_GEOMS = ((5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8), (4, 10, 12, 300)) + TOWER_TIMED
+TOWER_TIES = ((4, 8, 12, 4, 0.5), (16, 32, 32, 64, 0.5), (16, 32, 32, 64, 0.0))
+# kernel vs plain version: the forward sums 25 taps and (H/2)(W/2) pooled
+# values in another order (rtol 1e-5, atol 1e-6).  A gradient sums g * x
+# over every image and pooled pixel: its rounding grows with the sum of
+# |terms| S (the plain backward of |dout|; the images are >= 0), so
+# atol = 1e-5 + 1e-6 * S (about 8 f32 ulps of S), rtol 1e-4
+TOWER_RTOL, TOWER_ATOL = 1e-5, 1e-6
+TOWER_GRAD_RTOL, TOWER_GRAD_ATOL, TOWER_SUM_ATOL = 1e-4, 1e-5, 1e-6
+# AttentiveFashion training: the JAX package's scaled configuration for the
+# model (scripts/scaled_bench.py:158-176): 1M users x 200k items, 20
+# positives a user, 32x32 edges, K=128, hidden 256, 64 filters, attention
+# (64, 1), dropout 0.5, batch 8192, f32; cut only in depth (steps)
+AF_U, AF_I, AF_POS, AF_HW, AF_B = 1_000_000, 200_000, 20, 32, 8192
+AF_ROUTE_STEPS, AF_STEPS, AF_PROFILE_STEPS = 3, 50, 5
+AF_LR, AF_REG = 0.001, 0.001
+AF_ROUTE_DRIFT = 2 * AF_LR * AF_ROUTE_STEPS
+# the AttentiveFashion path through the CLI: the CLI phase's dataset with
+# color histograms, class one-hots and 32x32 edge tiffs
+AF_CLI_CLASSES, AF_CLI_BATCH_EVAL, AF_SERVE_BUCKETS = 10, 128, (8, 64, 1024)
 
 
 def fail(msg: str) -> None:
@@ -352,36 +377,108 @@ def dev_us(ev) -> float:
             or getattr(ev, "self_cuda_time_total", 0))
 
 
-def kernel_times(torch, label, fn, iters: int, flush):
-    """(ms, call_ms) per call of fn, with the L2 emptied before each call
-    by a fill of ``flush`` (a buffer larger than the 50 MB L2) that neither
-    time counts, so that fn's inputs come from device memory.  ``ms``: the
-    durations of fn's kernels from torch.profiler, launch gaps left out;
-    fails if the profiler saw none.  ``call_ms``: CUDA events around each
-    call, which also holds the host's launch cost when the kernels are
-    shorter than it."""
+PROFILE_ATTEMPTS = 5
+LEAD_KERNELS = 1024
+_FLUSH_NAMES: set = set()
+
+
+def lead_in(torch, flush, gen) -> None:
+    """LEAD_KERNELS small flushes (the same kernel as a flush) at the start
+    of a profile.  Profiles on an H100 lost the records of their first
+    kernels (7 in each profile of the tower phase, up to 260 in others,
+    whatever the idle time before them); these take that loss."""
+    for _ in range(LEAD_KERNELS):
+        flush[:1].uniform_(generator=gen)
+    torch.cuda.synchronize()
+
+
+def device_events(torch, prof):
+    """The profile's device kernels as (name, us), in the order they ran."""
     from torch.autograd import DeviceType
 
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in evs]
+
+
+def flush_names(torch, flush, gen):
+    """The kernels that ``flush.uniform_`` launches, read from a profile of
+    it alone.  No timed function draws random numbers, so these names mark
+    the flushes in a profile."""
+    for _ in range(PROFILE_ATTEMPTS):
+        if _FLUSH_NAMES:
+            break
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lead_in(torch, flush, gen)
+            flush.uniform_(generator=gen)
+            torch.cuda.synchronize()
+        _FLUSH_NAMES.update(name for name, _ in device_events(torch, prof))
+    if not _FLUSH_NAMES:
+        fail("torch.profiler recorded no kernel of the L2 flush")
+    return _FLUSH_NAMES
+
+
+def kernel_times(torch, label, fn, iters: int, flush):
+    """(ms, call_ms) per call of fn, with the L2 emptied before each call
+    by a random fill of ``flush`` (a buffer larger than the 50 MB L2) that
+    neither time counts, so that fn's inputs come from device memory.
+
+    ``ms``: the summed durations of one call's kernels from torch.profiler,
+    launch gaps left out, averaged over the calls recorded whole.  The
+    profiler can lose kernel records (see ``lead_in``).  So the profile is
+    cut at the flushes into calls, and only the calls whose kernels (names
+    and numbers) match those of most calls count; a profile where fewer
+    than a majority of the calls match is taken again,
+    at most PROFILE_ATTEMPTS times.  ``call_ms``: CUDA events around each
+    call, which also holds the host's launch cost when the kernels are
+    shorter than it."""
+    from collections import Counter
+
+    gen = torch.Generator(device=flush.device).manual_seed(0)
+    marker = flush_names(torch, flush, gen)
     fn()
     torch.cuda.synchronize()
-    marks = []
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            flush.fill_(1.0)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            marks.append((start, end))
-        torch.cuda.synchronize()
-    call_ms = sum(s.elapsed_time(e) for s, e in marks) / iters
-    us = sum(dev_us(ev) for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and "FillFunctor" not in ev.key)
-    if not us:
-        fail(f"{label}: torch.profiler recorded no device time")
-    return us / 1e3 / iters, call_ms
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        marks = []
+        with torch.profiler.profile(activities=acts) as prof:
+            lead_in(torch, flush, gen)
+            for _ in range(iters):
+                flush.uniform_(generator=gen)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                marks.append((start, end))
+            torch.cuda.synchronize()
+        call_ms = sum(s.elapsed_time(e) for s, e in marks) / iters
+        calls, cur = [], []
+        events = device_events(torch, prof)
+        for name, us in events:
+            if name not in marker:
+                cur.append((name, us))
+            elif cur:
+                calls.append(cur)
+                cur = []
+        if cur:
+            calls.append(cur)
+        kinds = [tuple(sorted(Counter(n for n, _ in c).items())) for c in calls]
+        kind, whole = Counter(kinds).most_common(1)[0] if kinds else ((), 0)
+        if whole < iters:
+            lost = LEAD_KERNELS + iters * (1 + sum(n for _, n in kind)) - len(events)
+            letters = {}
+            order = "".join("|" if n in marker else letters.setdefault(
+                n, chr(ord("a") + len(letters) % 26)) for n, _ in events[-80:])
+            print(f"{label}: profile {attempt} recorded {whole} of {iters} calls "
+                  f"whole, {lost} records missing (flushes |, the last kernels in "
+                  f"the order they ran: {order}; "
+                  f"{ {c: n[:48] for n, c in letters.items()} })")
+        if 2 * whole > iters:
+            return sum(sum(us for _, us in c) for c, k in zip(calls, kinds)
+                       if k == kind) / whole / 1e3, call_ms
+    fail(f"{label}: torch.profiler lost kernel records in {PROFILE_ATTEMPTS} profiles")
 
 
 def check_bound(label, ms: float, bound: float) -> None:
@@ -836,10 +933,10 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
     ms, call_ms = kernel_times(torch, "counts", lambda: counts.counts_kernel(
         *args, item_tile=item_tile, user_tile=ut), 10, flush)
     plain_ms, _ = kernel_times(torch, "counts plain", lambda: counts.counts_kernel_reference(
-        *args, item_tile), 2, flush)
+        *args, item_tile), 5, flush)
     uf_p, iv_p = args[0], args[1]
     lib_ms, _ = kernel_times(torch, "counts library", lambda: torch.matmul(uf_p, iv_p.T),
-                             3, flush)
+                             5, flush)
     Ip = iv_p.shape[0]
     b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
     check_bound("counts", ms, b)
@@ -1041,6 +1138,443 @@ def cli_phase(torch, np, counts, segmax):
                           metrics=per_epoch[2])
 
 
+def tower_taps(torch, n: int, device):
+    """[n]: the taps of a 5-wide SAME window that fall inside a line of n
+    pixels, at each position (5n - 6 in all for n >= 4)."""
+    pos = torch.arange(n, device=device)
+    return sum(((pos + k - 2 >= 0) & (pos + k - 2 < n)).long() for k in range(5))
+
+
+def tower_bounds(torch, E, x, w, b):
+    """K7's forward and backward bounds on this run's inputs: images x
+    [B, H, W, 1], filters w [5, 5, 1, C], bias b [C].  Operations: one FMA
+    (2 operations) for each tap inside the image at every conv output,
+    (5H-6)(5W-6) per channel and image; the backward adds one FMA for each
+    tap inside the image of each pooled pixel's winning conv output where
+    its pre-activation is > 0 (dW), and one add there (db).  The winners
+    are found by the kernel's tie rule on the plain conv's values.  Bytes:
+    the images, weights and bias read once, [B, C] written (forward) or
+    read (backward), dW and db written."""
+    B, H, W, _ = x.shape
+    C = w.shape[3]
+    th, tw = tower_taps(torch, H, x.device), tower_taps(torch, W, x.device)
+    conv = 2.0 * B * C * int(th.sum()) * int(tw.sum())
+    with E.fp32_convs():
+        z = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                                       padding=2)  # [B, C, H, W], pre-bias
+    even = z[..., 0::2] >= z[..., 1::2]  # the even column wins ties
+    zh = torch.where(even, z[..., 0::2], z[..., 1::2])
+    del z
+    bias = b[None, :, None, None]
+    top = torch.relu(zh[:, :, 0::2] + bias) >= torch.relu(zh[:, :, 1::2] + bias)
+    live = torch.where(top, zh[:, :, 0::2], zh[:, :, 1::2]) + bias > 0
+    col_even = torch.where(top, even[:, :, 0::2], even[:, :, 1::2])
+    del zh, even
+    taps = (torch.where(top, th[0::2, None], th[1::2, None])
+            * torch.where(col_even, tw[0::2], tw[1::2]))
+    dw = 2.0 * int(torch.where(live, taps, 0).sum()) + int(live.sum())
+    del top, live, col_even, taps
+    params = 4 * 26 * C
+    fwd = bound_ms(4 * B * H * W + params + 4 * B * C, conv, PEAK_F32_FLOPS)
+    bwd = bound_ms(4 * B * H * W + params + 4 * B * C + params, conv + dw, PEAK_F32_FLOPS)
+    return fwd, bwd
+
+
+def tower_kernel_phase(torch, E):
+    """K7 forward and backward against their plain versions over the
+    geometries and ties, two backward runs bit-equal, then timed at the
+    training step's shape and the reference resolution."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    errs = {"edge_tower_fwd": 0.0, "edge_tower_bwd": 0.0}
+
+    def inputs(B, H, W, C, value=None):
+        x = (torch.full((B, H, W, 1), value, device=dev) if value is not None
+             else torch.rand(B, H, W, 1, device=dev, generator=g))
+        w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
+        b = torch.randn(C, device=dev, generator=g) * 0.1
+        dout = torch.randn(B, C, device=dev, generator=g)
+        return x, w, b, dout
+
+    def check(label, x, w, b, dout):
+        out = E.edge_tower_fwd(x, w, b)
+        dw, db = E.edge_tower_bwd(x, w, b, dout)
+        dw2, db2 = E.edge_tower_bwd(x, w, b, dout)
+        torch.cuda.synchronize()
+        e_f = worst(torch, f"edge_tower_fwd {label}", out, E.edge_tower_gap_plain(x, w, b),
+                    TOWER_RTOL, TOWER_ATOL)
+        want = E.edge_tower_gap_plain_backward(x, w, b, dout)
+        sums = E.edge_tower_gap_plain_backward(x, w, b, dout.abs())
+        e_b = 0.0
+        for name, got, ref, s in zip(("dconv_w", "dconv_b"), (dw, db), want, sums):
+            e_b = max(e_b, worst(torch, f"edge_tower_bwd {label} {name}", got, ref,
+                                 TOWER_GRAD_RTOL, TOWER_GRAD_ATOL + TOWER_SUM_ATOL * s))
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"edge_tower_bwd {label}: two runs differ")
+        print(f"kernel check edge_tower {label}: fwd max_abs_err={e_f!r} bwd max_abs_err="
+              f"{e_b!r} (max |dW| {float(want[0].abs().max())!r}); two backward runs "
+              f"bit-equal ok")
+        errs["edge_tower_fwd"] = max(errs["edge_tower_fwd"], e_f)
+        errs["edge_tower_bwd"] = max(errs["edge_tower_bwd"], e_b)
+
+    for B, H, W, C in TOWER_GEOMS:
+        check(f"B={B} H={H} W={W} C={C}", *inputs(B, H, W, C))
+        torch.cuda.empty_cache()
+    for B, H, W, C, v in TOWER_TIES:
+        check(f"B={B} H={H} W={W} C={C} constant {v}", *inputs(B, H, W, C, v))
+
+    flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
+    conv = torch.nn.functional.conv2d
+    rows = {}
+    for B, H, W, C in TOWER_TIMED:
+        x, w, b, dout = inputs(B, H, W, C)
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        with E.fp32_convs():
+            lib_ms, _ = kernel_times(torch, "conv2d", lambda: conv(xc, wc, padding=2), 5,
+                                     flush)
+        bounds = tower_bounds(torch, E, x, w, b)
+        torch.cuda.empty_cache()
+        shape = f"B={B} H={H} W={W} C={C} f32, cold L2"
+        for name, run, plain, (bnd, by) in (
+            ("edge_tower_fwd", lambda: E.edge_tower_fwd(x, w, b),
+             lambda: E.edge_tower_gap_plain(x, w, b), bounds[0]),
+            ("edge_tower_bwd", lambda: E.edge_tower_bwd(x, w, b, dout),
+             lambda: E.edge_tower_gap_plain_backward(x, w, b, dout), bounds[1]),
+        ):
+            ms, call_ms = kernel_times(torch, name, run, 10, flush)
+            plain_ms, _ = kernel_times(torch, f"{name} plain", plain, 5, flush)
+            check_bound(f"{name} {shape}", ms, bnd)
+            rows.setdefault(name, {})[(H, W)] = dict(
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms, shape=shape)
+            print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
+                  f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}) library_ms(conv2d f32, "
+                  f"no TF32, conv only)={lib_ms!r}")
+        del x, w, b, dout, xc, wc
+        torch.cuda.empty_cache()
+    out = {}
+    for name, by_shape in rows.items():
+        main, ref = by_shape[(AF_HW, AF_HW)], by_shape[(224, 224)]
+        out[name] = dict(max_abs_err=errs[name], **main, at_224=ref,
+                         library="torch.nn.functional.conv2d f32, no TF32 (conv only)")
+    return out
+
+
+def route_check(torch, label, kern, plain, steps, drift):
+    """Params, m and v of two train states after the same steps: within
+    rtol/atol of train_phase's route check, except where Adam's tiny
+    sqrt(v_hat) amplifies a near-cancelled gradient's last bits (at most a
+    ROUTE_EXEMPT_CAP share, each within ``drift``).  Returns (max err,
+    number of exempt elements)."""
+    err_max, amplified, n = 0.0, 0, 0
+    bc2 = 1.0 - 0.999**steps
+    for k, pk in kern.params.items():
+        pk, pp = pk.detach(), plain.params[k].detach()
+        for field in ("mu", "nu"):
+            err_max = max(err_max, worst(torch, f"{label} {field}[{k}]",
+                                         getattr(kern.opt_state, field)[k],
+                                         getattr(plain.opt_state, field)[k],
+                                         ROUTE_RTOL, ROUTE_ATOL))
+        err = (pk - pp).abs()
+        beyond = ~(err <= ROUTE_ATOL + ROUTE_RTOL * pp.abs())
+        tiny = torch.sqrt(plain.opt_state.nu[k] / bc2) < 10 * 1e-7
+        if bool((beyond & ~tiny).any()) or bool((beyond & ~(err <= drift)).any()):
+            fail(f"{label} params[{k}]: kernel route disagrees with the plain route "
+                 f"(max_abs_err={float(err.max())!r})")
+        amplified += int(beyond.sum())
+        n += pk.numel()
+        err_max = max(err_max, float(err.max()))
+    if amplified > ROUTE_EXEMPT_CAP * n:
+        fail(f"{label}: {amplified} of {n} params beyond tolerance")
+    return err_max, amplified
+
+
+def af_model(torch, np, edge_tower, seed):
+    """AttentiveFashion at the scaled configuration on the card, random
+    weights from ``seed``; its inputs from numpy seeds 1, 2, 3."""
+    from fashionvisualexpl_tpu_torch.data.features import synthetic_features
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+
+    edges = np.random.default_rng(2).random((AF_I, AF_HW, AF_HW, 1), dtype=np.float32)
+    return AttentiveFashion(
+        AF_U, AF_I, synthetic_features(AF_I, 512, seed=1), edges,
+        synthetic_features(AF_I, 100, seed=3), embed_k=EMBED_K, attention_layers=(64, 1),
+        encoder_hidden=256, dropout_rate=0.5, conv_filters=64, edge_tower=edge_tower,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+
+
+def af_train_phase(torch, np, E):
+    """AttentiveFashion through the generic Trainer at the scaled
+    configuration: the kernel route against the plain route, then the main
+    path through K7 and a profiler pass."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    pairs, items, counts = make_scaled_arrays(AF_U, AF_I, AF_POS, seed=0)
+    # the Trainer reads these fields of an Interactions; the sorted uniform
+    # rows are their own padded positives (no pads)
+    data = types.SimpleNamespace(
+        num_items=AF_I, num_train=len(pairs), train_pairs=pairs, padded_pos=items,
+        pos_counts=counts, steps_per_epoch=lambda b: len(pairs) // b)
+    cfg = TrainConfig(batch_size=AF_B, lr=AF_LR, reg=AF_REG)
+    kern_model = af_model(torch, np, "auto", seed=4)
+    if kern_model.tower_route != "kernel":
+        fail(f"AttentiveFashion(edge_tower='auto') on the card took {kern_model.tower_route}")
+    trainer = Trainer(kern_model, data, cfg)
+    torch.cuda.synchronize()
+    print(f"af train setup (arrays, features, model): {time.perf_counter() - t0!r} s")
+
+    plain_model = af_model(torch, np, "xla", seed=4)
+    plain_trainer = Trainer(plain_model, data, cfg)
+    tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+    triples = sample_triplets(1, *tabs, AF_I, AF_ROUTE_STEPS, AF_B)
+    states = []
+    for tr in (trainer, plain_trainer):
+        state, frozen = tr.init_state()
+        losses = []
+        for s in range(AF_ROUTE_STEPS):
+            state, loss = tr.run_steps(state, frozen, tuple(t[s:s + 1] for t in triples),
+                                       step_key=100 + s)
+            losses.append(float(loss))
+        states.append((state, losses))
+    (kern, lk), (plain, lp) = states
+    for s, (a, b) in enumerate(zip(lk, lp)):
+        if not (np.isfinite(a) and abs(a - b) <= 1e-5 * abs(b)):
+            fail(f"af route check step {s}: loss {a!r} (kernel) vs {b!r} (plain)")
+    route_err, amplified = route_check(torch, "af route check", kern, plain,
+                                       AF_ROUTE_STEPS, AF_ROUTE_DRIFT)
+    print(f"af route check: {AF_ROUTE_STEPS} full-width steps, K7 route vs plain tower, "
+          f"same triples and dropout draws: losses {lk} vs {lp}; params/m/v "
+          f"max_abs_err={route_err!r}, {amplified} params exempt (tiny sqrt(v_hat))")
+    del plain_trainer, plain_model, plain, states
+    torch.cuda.empty_cache()
+
+    triples = sample_triplets(2, *tabs, AF_I, AF_STEPS, AF_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    kern, loss = trainer.run_steps(kern, None, triples, step_key=200)
+    loss = float(loss)  # waits for the steps
+    dt = time.perf_counter() - t0
+    launches = {"edge_tower_fwd": E.edge_tower_fwd.launches,
+                "edge_tower_bwd": E.edge_tower_bwd.launches}  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {"edge_tower_fwd": 2 * AF_STEPS, "edge_tower_bwd": 2 * AF_STEPS}
+    if launches != want:
+        fail(f"af main path launched {launches}, expected {want}")
+    if not np.isfinite(loss):
+        fail(f"af main path loss {loss!r}")
+    summary = dict(steps=AF_STEPS, s=dt, triples_per_s=AF_STEPS * AF_B / dt,
+                   ms_per_step=1e3 * dt / AF_STEPS, peak_gib=peak / 2**30,
+                   mean_loss=loss / AF_STEPS, route_max_abs_err=route_err,
+                   route_exempt=amplified)
+    print(f"af train main path: {AF_STEPS} steps in {dt!r} s, triples_per_s="
+          f"{summary['triples_per_s']!r} ms_per_step={summary['ms_per_step']!r}, "
+          f"peak {peak / 2**30!r} GiB, launches {launches}, mean loss {loss / AF_STEPS!r}")
+
+    from torch.autograd import DeviceType
+
+    triples = sample_triplets(3, *tabs, AF_I, AF_PROFILE_STEPS, AF_B)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        kern, _ = trainer.run_steps(kern, None, triples, step_key=300)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    ops = sorted(((dev_us(ev), ev.key, ev.count) for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0), reverse=True)
+    if not ops:
+        fail("af profile: torch.profiler recorded no device time")
+    busy = sum(us for us, _, _ in ops)
+    summary["profile"] = dict(
+        steps=AF_PROFILE_STEPS, wall_ms_per_step=wall_us / 1e3 / AF_PROFILE_STEPS,
+        device_ms_per_step=busy / 1e3 / AF_PROFILE_STEPS, idle_share=1.0 - busy / wall_us,
+        edge_tower_ms_per_step=sum(us for us, k, _ in ops if "edge_" in k)
+        / 1e3 / AF_PROFILE_STEPS)
+    print(f"af profile {AF_PROFILE_STEPS} steps: {summary['profile']}")
+    for us, name, count in ops[:12]:
+        print(f"  {us / 1e3 / AF_PROFILE_STEPS:10.4f} ms/step  {count / AF_PROFILE_STEPS:6.1f}"
+              f" launches/step  {100.0 * us / busy:5.1f}%  {name[:90]}")
+    del trainer, kern_model, kern, triples, tabs
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def write_af_features(np, d: Path):
+    """The AttentiveFashion inputs in the reference's layout under data
+    directory ``d``: color histograms, class one-hots and 32x32 edge
+    tiffs (L mode).  Returns the edge stack as ``load_edge_image_stack``
+    reads it back ([I, H, W, 1], the 8-bit values / 255)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    feats = d / "original" / "features"
+    (feats / "edges").mkdir(parents=True, exist_ok=True)
+    np.save(feats / "histograms.npy", rng.integers(0, 100, (CLI_I, 512)).astype(np.int32))
+    np.save(feats / "one_hot_enc.npy", np.eye(AF_CLI_CLASSES, dtype=np.float32)[
+        rng.integers(0, AF_CLI_CLASSES, CLI_I)])
+    imgs = (rng.random((CLI_I, AF_HW, AF_HW)) * 255).astype(np.uint8)
+    for i in range(CLI_I):
+        Image.fromarray(imgs[i], mode="L").save(feats / "edges" / f"{i}.tiff")
+    return (imgs.astype(np.float32) / 255.0)[..., None]
+
+
+def read_tsv(np, path, cols: int):
+    """[rows, cols] float64 of a numeric TSV dump."""
+    with open(path) as f:
+        return np.array(f.read().split(), dtype=np.float64).reshape(-1, cols)
+
+
+class launch_deltas:
+    """Record K7 forward launches of every call of ``cls.method`` while
+    active (an instrument of this script, not of the port)."""
+
+    def __init__(self, cls, method, E):
+        self.cls, self.method, self.E, self.deltas = cls, method, E, []
+
+    def __enter__(self):
+        inner = getattr(self.cls, self.method)
+
+        def counted(obj, *a, **kw):
+            before = self.E.edge_tower_fwd.launches
+            out = inner(obj, *a, **kw)
+            self.deltas.append(self.E.edge_tower_fwd.launches - before)
+            return out
+
+        self.inner = inner
+        setattr(self.cls, self.method, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.inner)
+
+
+def af_path_phase(torch, np, E):
+    """train_rec --rec attentive_fashion then serve_rec, in process, on the
+    CLI phase's dataset with edge tiffs; then direct serving timed per
+    bucket and checked against an oracle on the card."""
+    import glob
+    import pickle
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli import train_rec as cli
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+    from fashionvisualexpl_tpu_torch.core.checkpoint import CheckpointManager
+    from fashionvisualexpl_tpu_torch.core.config import Paths, TrainConfig
+    from fashionvisualexpl_tpu_torch.data.features import (
+        load_class_onehot,
+        load_color_histograms,
+    )
+    from fashionvisualexpl_tpu_torch.data.interactions import Interactions
+    from fashionvisualexpl_tpu_torch.eval.evaluator import Evaluator
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+    from fashionvisualexpl_tpu_torch.serve import RecServer
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_reference_dataset(np, CLI_DIR / "cli")
+    edges = write_af_features(np, CLI_DIR / "cli")
+    write_s = time.perf_counter() - t0
+    results = CLI_DIR / "results"
+    common = ["--rec", "attentive_fashion", "--dataset", "cli", "--data_root", str(CLI_DIR),
+              "--results_root", str(results), "--embed_k", str(EMBED_K), "--top_k",
+              str(CLI_K), "--edge_hw", str(AF_HW), str(AF_HW), "--batch_eval",
+              str(AF_CLI_BATCH_EVAL)]
+    served = CLI_DIR / "served.tsv"
+    users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    per_pass = -(-CLI_I // AF_CLI_BATCH_EVAL)
+    E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0
+    with launch_deltas(Evaluator, "evaluate", E) as evals, \
+            launch_deltas(RecServer, "refresh", E) as refreshes:
+        t0 = time.perf_counter()
+        cli.train(common + ["--batch_size", "1024", "--epochs", "2", "--verbose", "1"])
+        train_s = time.perf_counter() - t0
+        (ckpt,) = glob.glob(str(results / "rec_model_weights" / "cli" / "attentive_fashion"
+                                / "ckpt-*"))
+        t0 = time.perf_counter()
+        serve(common + ["--ckpt", ckpt, "--users", users, "--output", str(served)])
+        serve_s = time.perf_counter() - t0
+    launches = {"edge_tower_fwd": E.edge_tower_fwd.launches,
+                "edge_tower_bwd": E.edge_tower_bwd.launches}
+    if evals.deltas != [per_pass, per_pass] or refreshes.deltas != [per_pass]:
+        fail(f"K7 forward launches per evaluate {evals.deltas} and per refresh "
+             f"{refreshes.deltas}, expected {per_pass} each")
+    rdir = results / "rec_results" / "cli" / "attentive_fashion"
+    rows = {}
+    for pattern in ("recs-2-*.tsv", "best-recs-*.tsv", "att-recs-2-*.tsv",
+                    "best-att-recs-*.tsv"):
+        (path,) = glob.glob(str(rdir / pattern))
+        table = read_tsv(np, path, 6 if "att" in pattern else 3)
+        rows[pattern] = len(table)
+        if len(table) != CLI_U * CLI_K:
+            fail(f"{pattern}: {len(table)} rows, expected {CLI_U * CLI_K}")
+        if "att" in pattern and not np.allclose(table[:, 3:].sum(1), 1.0, rtol=0, atol=1e-5):
+            fail(f"{pattern}: attention weights do not sum to 1 within 1e-5")
+    n_served = len(read_tsv(np, served, 3))
+    if n_served != CLI_SERVE_USERS * CLI_K:
+        fail(f"serve_rec wrote {n_served} rows, expected {CLI_SERVE_USERS * CLI_K}")
+    (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+    with open(pkl, "rb") as f:
+        per_epoch = pickle.load(f)
+    vals = np.array([v for m in per_epoch.values() for v in m.values()])
+    if sorted(per_epoch) != [1, 2] or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"af CLI metrics not finite in [0, 1] for epochs 1, 2: {per_epoch}")
+    print(f"af cli: dataset write {write_s!r} s, train_rec {train_s!r} s, serve_rec "
+          f"{serve_s!r} s; K7 launches {launches} (forward {evals.deltas} per evaluate, "
+          f"{refreshes.deltas} per refresh); rows {rows}, served {n_served}")
+
+    # direct serving of the best params, timed per bucket; the model as
+    # build_model makes it, from the edge stack in memory (the tiffs hold
+    # the same values; reading 20k of them again costs seconds of host time)
+    paths = Paths(root=str(CLI_DIR), results_root=str(results))
+    data = Interactions.load(TrainConfig(dataset="cli", paths=paths))
+    model = AttentiveFashion(
+        CLI_U, CLI_I, load_color_histograms(paths, "cli"), edges,
+        load_class_onehot(paths, "cli"), embed_k=EMBED_K, attention_layers=(64, 1),
+        batch_eval=AF_CLI_BATCH_EVAL)
+    params = CheckpointManager(ckpt).restore_best(dict(model.named_parameters()))
+    srv = RecServer(model, data, k=CLI_K)
+    t0 = time.perf_counter()
+    srv.refresh(params)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    rng = np.random.default_rng(14)
+    serving = {}
+    for B in AF_SERVE_BUCKETS:
+        batch = rng.choice(CLI_U, B, replace=False)
+        ids, vals = srv.query(batch)
+        times = []
+        for _ in range(10 if B < 1024 else 5):
+            t0 = time.perf_counter()
+            ids, vals = srv.query(batch)
+            times.append(time.perf_counter() - t0)
+        if ids.shape != (B, CLI_K) or not np.isfinite(vals).all():
+            fail(f"af direct serving B={B}: bad result shape {ids.shape} or values")
+        serving[B] = dict(p50_ms=1e3 * statistics.median(times),
+                          qps=B / statistics.median(times))
+        if B == 64:
+            with torch.no_grad():
+                u = torch.as_tensor(batch, device="cuda")
+                s = model.predict_user_block(u, srv._index["ctx"], params=params)
+                for row, uid in enumerate(batch):
+                    s[row, torch.as_tensor(data.training_list[uid], device="cuda")] = \
+                        float("-inf")
+                want_vals, want_ids = torch.topk(s, CLI_K, dim=1)
+            check_served(np, "af direct serving B=64", ids, vals, want_ids.cpu().numpy(),
+                         want_vals.cpu().numpy())
+        print(f"af serve B={B}: p50_ms={serving[B]['p50_ms']!r} qps={serving[B]['qps']!r}")
+    del srv, model, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches, dict(write_s=write_s, train_s=train_s, serve_s=serve_s,
+                          refresh_s=refresh_s, serving=serving, metrics=per_epoch[2],
+                          eval_launches=evals.deltas)
+
+
 def main() -> int:
     if not (PKG / "ops" / "csrc" / "segmax.cu").is_file():
         print("chip_smoke: run from a checkout of the repository "
@@ -1054,7 +1588,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from fashionvisualexpl_tpu_torch.ops import adam, bpr, counts, cuda_build, segmax, topk
+    from fashionvisualexpl_tpu_torch.ops import (
+        adam,
+        bpr,
+        counts,
+        cuda_build,
+        segmax,
+        topk,
+    )
+    from fashionvisualexpl_tpu_torch.ops import edge_tower as E
 
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1079,6 +1621,9 @@ def main() -> int:
     eval_launches, evaluated = eval_phase(torch, np, counts, eval_items)
     del eval_items
     cli_launches, cli = cli_phase(torch, np, counts, segmax)
+    tower_rows = tower_kernel_phase(torch, E)
+    af_launches, af_train = af_train_phase(torch, np, E)
+    af_cli_launches, af_cli = af_path_phase(torch, np, E)
 
     main_row = rows[4096]
     kernels = [{
@@ -1110,9 +1655,18 @@ def main() -> int:
         "launches": eval_launches, **counts_row,
         "cli_launches": cli_launches["counts"],
     })
+    for name, line in (("edge_tower_fwd", 114), ("edge_tower_bwd", 127)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fashionvisualexpl_tpu_torch/ops/csrc/edge_tower.cu",
+            "replaces": f"fashionvisualexpl_tpu/ops/edge_tower.py:{line}",
+            "launches": af_launches[name], **tower_rows[name],
+            "cli_launches": af_cli_launches[name],
+        })
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
     print(json.dumps({"train": train, "fit": fitted}))
     print(json.dumps({"eval": evaluated, "cli": cli}))
+    print(json.dumps({"af_train": af_train, "af_cli": af_cli}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

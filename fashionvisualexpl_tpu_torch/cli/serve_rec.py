@@ -1,6 +1,8 @@
 """Serving CLI (port of ``fashionvisualexpl_tpu/cli/serve_rec.py``): load the
 best params of a ``train_rec`` checkpoint and answer top-k queries with the
-port's ``RecServer`` (stage 1 through the segmax kernel K3 on the card).
+port's ``RecServer``: BPRMF through its three stages (stage 1 by the segmax
+kernel K3 on the card), AttentiveFashion through the direct path (the items
+encoded once at refresh, by the edge-tower kernel K7 on the card).
 
 Build the index once, then answer user queries: from a file of user ids,
 for the whole user base, or interactively from stdin.  Takes every
@@ -87,9 +89,10 @@ def serve(argv=None):
     )
     t0 = time.time()
     srv.refresh(params)
+    route = ("direct" if not hasattr(model, "factored_eval")
+             else "int8+rescore" if args.quantized else "exact")
     print(f"index built in {time.time() - t0:.2f}s "
-          f"({data.num_users} users x {data.num_items} items, "
-          f"{'int8+rescore' if args.quantized else 'exact'} path)",
+          f"({data.num_users} users x {data.num_items} items, {route} path)",
           file=sys.stderr)
 
     out = sys.stdout if args.output == "-" else open(args.output, "w")

@@ -9,9 +9,15 @@ regularization-sweep outer loop re-creating data and model per reg value
 ``results-metrics-<tag>.pkl`` and the checkpoint directory ``ckpt-<tag>``.
 The checkpoints are the port's own (``core/checkpoint.py``), not Orbax.
 
-Registered here: ``bprmf``.  Every other ``--rec``, ``--train_path packed``,
-``--streamed`` and a mesh raise ``NotImplementedError`` naming their ROADMAP
-item.
+Registered here: ``bprmf`` and ``attentive_fashion`` (color histograms,
+class one-hots and the edge tiffs at ``--edge_hw``; the edge tower K7 on the
+card; after the plain dumps the attention dumps ``att-recs-<E>-<tag>.tsv``
+and ``best-att-recs-<best>-<tag>.tsv``).  A model without
+``factored_eval`` is evaluated by the dense ``Evaluator`` even with
+``--streaming_eval``, as in the JAX package.  Every other ``--rec``,
+``--train_path packed``, ``--streamed``, ``--compute_dtype bfloat16`` for
+attentive_fashion and a mesh raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Usage:
   python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
@@ -28,7 +34,6 @@ _LATER_MODELS = {
     "vbpr": 8,
     "grad_fashion": 8,
     "acf": 9,
-    "attentive_fashion": 10,
     "comp_vbpr": 10,
 }
 
@@ -94,16 +99,15 @@ def build_parser(description="Run train of the Recommender Model."):
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="compute dtype for the trainable encoder towers "
-                        "(attentive_fashion / comp_vbpr): bfloat16 rides "
-                        "the MXU at full rate; params/loss stay fp32")
+                        "(attentive_fashion / comp_vbpr); only float32 "
+                        "runs so far (bfloat16: ROADMAP item 16)")
     p.add_argument("--edge_tower", choices=["auto", "fused", "xla", "s2d"],
                    default="auto",
                    help="attentive_fashion conv->pool->GAP tower impl: "
-                        "fused = the Pallas VMEM-resident kernel "
-                        "(ops/edge_tower.py), s2d = the 2x2 space-to-depth "
-                        "conv+pool re-expression (ops/s2d_conv.py), xla = "
-                        "inline ops, auto = fused on TPU for even image "
-                        "sizes")
+                        "fused = the CUDA edge-tower kernel "
+                        "(ops/edge_tower.py), xla and s2d = the plain "
+                        "PyTorch tower, auto = the kernel on the card for "
+                        "even image sizes")
     p.add_argument("--streaming_eval", action="store_true",
                    help="use the blocked streaming evaluator (factored models)")
     p.add_argument("--streamed", action="store_true",
@@ -253,6 +257,11 @@ def check_ported(args) -> None:
         )
     if args.streamed:
         raise NotImplementedError("--streamed is not ported yet (ROADMAP item 12)")
+    if args.rec == "attentive_fashion" and args.compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "--compute_dtype bfloat16 (bf16 towers and a bf16 edge-tower "
+            "kernel) is not ported yet (ROADMAP item 16)"
+        )
     if args.mesh_data * args.mesh_model > 1:
         raise NotImplementedError(
             "--mesh_data / --mesh_model are not ported yet (ROADMAP item 13)"
@@ -260,14 +269,35 @@ def check_ported(args) -> None:
 
 
 def build_model(args, data, cfg):
-    """Model registry (reference train_rec.py:75-86): ``bprmf`` on
-    ``args.device``; ``check_ported`` names the ROADMAP items of the rest."""
-    del cfg
+    """Model registry (reference train_rec.py:75-86): ``bprmf`` and
+    ``attentive_fashion`` on ``args.device``; ``check_ported`` names the
+    ROADMAP items of the rest."""
     if args.rec == "bprmf":
         from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 
         return BPRMF(data.num_users, data.num_items, embed_k=args.embed_k,
                      device=args.device)
+    if args.rec == "attentive_fashion":
+        from fashionvisualexpl_tpu_torch.data import features as F
+        from fashionvisualexpl_tpu_torch.data.pipeline import load_edge_image_stack
+        from fashionvisualexpl_tpu_torch.models.attentive_fashion import (
+            AttentiveFashion,
+        )
+
+        paths, ds = cfg.paths, args.dataset
+        edges = load_edge_image_stack(
+            paths.edges_dir(ds), data.num_items, hw=tuple(args.edge_hw)
+        )
+        return AttentiveFashion(
+            data.num_users, data.num_items, F.load_color_histograms(paths, ds),
+            edges, F.load_class_onehot(paths, ds), embed_k=args.embed_k,
+            attention_layers=tuple(args.attention_layers),
+            compute_dtype=args.compute_dtype,
+            # --batch_eval: eval-time item-image encoding batch (the
+            # reference consumes it at AttentiveFashion.py:338-343)
+            batch_eval=args.batch_eval, edge_tower=args.edge_tower,
+            device=args.device,
+        )
     raise NotImplementedError("Not implemented or unknown Recommender Model.")
 
 
@@ -355,6 +385,21 @@ def train(argv=None):
             extra["best_params"], frozen,
             os.path.join(results_dir, f"best-recs-{best_epoch}-{run_tag}.tsv"),
         )
+        if args.rec == "attentive_fashion":
+            # the reference dumps attention-augmented recs for both the final
+            # epoch (AttentiveFashion.py:308) and the best model (:320); here
+            # each dump has its own name, as in the JAX package
+            def attention_fn(p, f, ids, ctx):
+                return model.attention_weights(ids, ctx, params=p)
+
+            for params, name in (
+                (state.params, f"att-recs-{last_epoch}-{run_tag}.tsv"),
+                (extra["best_params"], f"best-att-recs-{best_epoch}-{run_tag}.tsv"),
+            ):
+                evaluator.store_recommendation_attention(
+                    params, frozen, os.path.join(results_dir, name),
+                    attention_fn=attention_fn,
+                )
         print("END REGULARIZATION")
         print("-" * 68)
 

@@ -12,9 +12,11 @@ Also the recommendation dump with the reference's TSV format
 records test AUC from the validation value ('auc_t': auc_v,
 Evaluator.py:220); here auc_t is the test AUC, as in the JAX package.
 
-Not ported yet: ``store_recommendation_attention`` (AttentiveFashion,
-ROADMAP item 10) and ``store_recommendation_grads`` (``explain/grads.py``,
-item 8); each raises ``NotImplementedError``.
+``evaluate`` and every dump encode the model's items once
+(``precompute_eval``), shared by both splits or by every user block.
+
+Not ported yet: ``store_recommendation_grads`` (``explain/grads.py``,
+ROADMAP item 8); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -155,36 +157,44 @@ class Evaluator:
     # --- recommendation dumps (Evaluator.py:225-275 formats) ---
 
     @torch.no_grad()
-    def store_recommendation(self, params, frozen, path: str) -> None:
-        """Plain top-k TSV: `user\\titem\\tscore` rows, train items masked
-        (Evaluator.py:225-239).  ``params`` as for ``evaluate``; the model's
-        own parameters are not touched."""
-        del frozen
+    def _dump(self, params, path: str, columns=None) -> None:
+        """Top-k rows `user\\titem\\tscore` per user block, train items
+        masked; ``columns(ids, ctx, top_idx) -> [B, k, c]`` appends c more
+        values to each row.  The items are encoded once (``ctx``)."""
         U = self.data.num_users
         ctx = self.model.precompute_eval(params)
         with open(path, "w") as out:
             for start in _block_starts(U, self.user_block):
                 idx, _ = block_ids(start, self.user_block, U)
                 ids = torch.as_tensor(idx, device=self.device)
-                scores = self._scores(params, ids, ctx)
                 top_idx, top_scores = topk_recommendations(
-                    scores, self._train_mask[ids], self.k
+                    self._scores(params, ids, ctx), self._train_mask[ids], self.k
                 )
+                extra = None if columns is None else columns(ids, ctx, top_idx).cpu().numpy()
                 top_idx = top_idx.to(torch.int32).cpu().numpy()
                 top_scores = top_scores.cpu().numpy()
-                for row in range(self.user_block):
-                    u = start + row
-                    if u >= U:
-                        break
+                for row in range(min(self.user_block, U - start)):
                     for j in range(self.k):
-                        out.write(f"{u}\t{top_idx[row, j]}\t{top_scores[row, j]}\n")
+                        tail = "" if extra is None else "".join(f"\t{a}" for a in extra[row, j])
+                        out.write(f"{start + row}\t{top_idx[row, j]}\t"
+                                  f"{top_scores[row, j]}{tail}\n")
+
+    def store_recommendation(self, params, frozen, path: str) -> None:
+        """Plain top-k TSV: `user\\titem\\tscore` rows, train items masked
+        (Evaluator.py:225-239).  ``params`` as for ``evaluate``; the model's
+        own parameters are not touched."""
+        del frozen
+        self._dump(params, path)
 
     def store_recommendation_attention(self, params, frozen, path: str,
                                        attention_fn) -> None:
-        raise NotImplementedError(
-            "attention-augmented dumps come with AttentiveFashion "
-            "(ROADMAP item 10)"
-        )
+        """Attention-augmented top-k TSV (Evaluator.py:241-259):
+        `user\\titem\\tscore\\talpha_color\\talpha_edges\\talpha_class`.
+
+        ``attention_fn(params, frozen, user_ids, ctx) -> [B, I, 3]`` weights,
+        ``ctx`` the model's ``precompute_eval`` (computed once per dump)."""
+        self._dump(params, path, lambda ids, ctx, top_idx: torch.take_along_dim(
+            attention_fn(params, frozen, ids, ctx), top_idx[:, :, None], dim=1))
 
     def store_recommendation_grads(self, params, frozen, path: str,
                                    grads_fn=None, batch_grads_fn=None) -> None:

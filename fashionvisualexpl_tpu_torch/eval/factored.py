@@ -267,8 +267,9 @@ class FactoredEvaluator:
     def store_recommendation_attention(self, params, frozen, path: str,
                                        attention_fn) -> None:
         raise NotImplementedError(
-            "attention-augmented dumps come with AttentiveFashion "
-            "(ROADMAP item 10)"
+            "the factored attention dump is not ported: AttentiveFashion, the "
+            "one model with attention dumps, has no factored_eval and dumps "
+            "through the dense Evaluator"
         )
 
     def store_recommendation_grads(self, params, frozen, path: str,

@@ -41,14 +41,16 @@ def bpr_pairwise_loss(x_pos: torch.Tensor, x_neg: torch.Tensor) -> torch.Tensor:
 
 
 def glorot_uniform(
-    shape: Tuple[int, int],
+    shape: Tuple[int, ...],
     generator: torch.Generator,
     device: torch.device,
 ) -> torch.Tensor:
     """GlorotUniform (tf.initializers.GlorotUniform / jax glorot_uniform):
-    U(-l, l) with l = sqrt(6 / (fan_in + fan_out)), fan_in = shape[-2],
-    fan_out = shape[-1]."""
-    limit = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+    U(-l, l) with l = sqrt(6 / (fan_in + fan_out)), fan_in = shape[-2] * r,
+    fan_out = shape[-1] * r, r the receptive field (the product of the other
+    dims, e.g. 25 for a [5, 5, 1, C] conv kernel)."""
+    receptive = math.prod(shape[:-2])
+    limit = math.sqrt(6.0 / ((shape[-2] + shape[-1]) * receptive))
     out = torch.empty(shape, dtype=torch.float32, device=device)
     return out.uniform_(-limit, limit, generator=generator)
 
@@ -68,6 +70,9 @@ class RecommenderModel(nn.Module):
     """
 
     name: str = "base"
+    # divides whole-matrix regularization under data parallelism (JAX
+    # models/base.py:99-110); 1.0 on a single device
+    global_reg_scale: float = 1.0
 
     def __init__(self, num_users: int, num_items: int):
         super().__init__()

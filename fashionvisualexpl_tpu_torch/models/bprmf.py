@@ -70,10 +70,14 @@ class BPRMF(RecommenderModel):
         pos: torch.Tensor,
         neg: torch.Tensor,
         reg: float,
+        rng=None,
     ) -> torch.Tensor:
         """Summed BPR loss over the triples plus the reference's L2 terms
         (BPRMF.py:108-112): embeddings and positive bias at ``reg``,
-        negative bias at ``reg / 10``, every term times 2."""
+        negative bias at ``reg / 10``, every term times 2.  ``rng`` (the
+        trainer's per-step dropout generator) is unused: BPRMF has no
+        stochastic layer."""
+        del rng
         gamma_u = self.Gu[users]
         beta_pos = self.Bi[pos]
         gamma_pos = self.Gi[pos]

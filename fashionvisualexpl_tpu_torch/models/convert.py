@@ -1,9 +1,11 @@
 """Carry the JAX package's parameters and train states into the port, bit
 for bit.
 
-The JAX package's params are a dict of arrays; hand them over as numpy
-(``{k: np.asarray(v) for k, v in params.items()}``) so this module needs no
-JAX.  The copy is exact, so both packages then compute on the same weights,
+The JAX package's params are a dict of arrays (nested for the encoder
+models); hand them over as numpy (``{k: np.asarray(v) for k, v in
+params.items()}``, or ``jax.tree.map(np.asarray, params)``) so this module
+needs no JAX.  Nested groups become the port's dotted parameter names
+(``params["color_enc"]["W1"]`` -> ``"color_enc.W1"``).  The copy is exact, so both packages then compute on the same weights,
 and a mid-run optimizer state (step, moments, last-touch steps) carries
 across as well.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
+from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 
 
@@ -43,6 +46,46 @@ def bprmf_from_jax(
     with torch.no_grad():
         for p, arr in ((model.Gu, gu), (model.Gi, gi), (model.Bi, bi)):
             p.copy_(torch.from_numpy(arr))
+    return model
+
+
+def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested JAX params -> {dotted name: array}."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in params.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_params(v, name + "."))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def attentive_fashion_from_jax(
+    jax_model, params, frozen, device: DeviceLike = None
+) -> AttentiveFashion:
+    """An ``AttentiveFashion`` holding exactly a JAX AttentiveFashion's
+    params and modality inputs.  ``jax_model`` is the JAX model object
+    (its configuration is read from its attributes, nothing is imported);
+    ``params`` its nested params and ``frozen`` its ``Fc``, ``Fe_img``,
+    ``Fcls``, all as numpy.  ``conv_W`` keeps JAX's HWIO [5, 5, 1, C]."""
+    frozen = {k: np.asarray(frozen[k], np.float32) for k in ("Fc", "Fe_img", "Fcls")}
+    model = AttentiveFashion(
+        jax_model.num_users, jax_model.num_items,
+        frozen["Fc"], frozen["Fe_img"], frozen["Fcls"],
+        embed_k=jax_model.embed_k, attention_layers=jax_model.attention_layers,
+        encoder_hidden=jax_model.encoder_hidden, dropout_rate=jax_model.dropout_rate,
+        conv_filters=jax_model.conv_filters, item_block=jax_model.item_block,
+        batch_eval=jax_model.batch_eval, edge_tower=jax_model.edge_tower,
+        device=device,
+    )
+    flat = flatten_params(params)
+    own = dict(model.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(f"JAX params {sorted(flat)} != the port's {sorted(own)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            p.copy_(torch.from_numpy(_f32(flat, name, p.dim())))
     return model
 
 
@@ -80,7 +123,7 @@ def fast_state_from_jax(
 
 
 def train_state_from_jax(
-    model: BPRMF,
+    model,
     step,
     params: Dict[str, np.ndarray],
     count,
@@ -90,10 +133,12 @@ def train_state_from_jax(
     """The port's ``TrainState`` for the generic trainer from a JAX
     ``TrainState`` handed over as numpy: ``params`` are copied into
     ``model``'s own parameters (which the state then holds); ``count``,
-    ``mu`` and ``nu`` are optax's ``ScaleByAdamState`` fields."""
+    ``mu`` and ``nu`` are optax's ``ScaleByAdamState`` fields.  Nested
+    dicts are flattened to the port's dotted names."""
     from fashionvisualexpl_tpu_torch.core.train_state import AdamState, TrainState
 
     dev = model.device
+    params, mu, nu = (flatten_params(t) for t in (params, mu, nu))
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(_f32(params, name, p.dim())))

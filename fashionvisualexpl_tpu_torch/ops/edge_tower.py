@@ -1,0 +1,236 @@
+"""Fused edge-encoder tower (port of ``fashionvisualexpl_tpu/ops/edge_tower.py``, K7).
+
+GAP(MaxPool2x2(ReLU(Conv5x5_SAME(images) + b))) -> [B, C] f32, for
+single-channel images [B, H, W, 1] (H, W even), filters ``conv_w`` in JAX's
+HWIO layout [5, 5, 1, C] and bias ``conv_b`` [C], as the hand-written CUDA
+kernels of ``csrc/edge_tower.cu``: a direct convolution on the CUDA cores
+that never writes the [B, H, W, C] activation (design and bound in the
+source).  The TPU kernel's banded matmuls, batch tiles and VMEM budget
+(``auto_batch_tile``, ``kernel_vmem_bytes``) are Mosaic matters that stay
+behind: the CUDA kernel stages strips of image rows in shared memory, so it
+also runs at 224x224.
+
+- ``edge_tower_fwd`` / ``edge_tower_bwd`` launch the forward and backward
+  kernels for CUDA tensors and raise for any other; ``.launches`` counts
+  their launches.  The backward recomputes the forward and routes each
+  pooled gradient with the TPU kernel's tie rule (even column on the
+  pre-bias value, top row on the ReLU'd value, only where pre > 0).
+- ``edge_tower_gap`` binds the two in a ``torch.autograd.Function``
+  (gradients for ``conv_w`` and ``conv_b``; the images are frozen features
+  and get none, JAX's zero-gradient contract).  For CPU tensors it computes
+  the plain version.
+- ``edge_tower_gap_plain`` is the plain version (``edge_tower_gap_xla``'s
+  counterpart) and ``edge_tower_gap_plain_backward`` its gradient by
+  autograd; PyTorch's max-pool backward takes the first maximum of each
+  window, as XLA's select-and-scatter does.  Its conv runs in f32 both ways
+  (``fp32_convs``: cuDNN may round f32 convs to TF32 by default), as the
+  kernels do; nothing outside it changes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from contextlib import contextmanager
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+K = 5  # kernel size of the reference tower (AttentiveFashion.py:57)
+STAGE_BYTES = 48 * 1024  # shared memory for one staged strip of image rows
+MAX_STRIP_ROWS = 16  # pooled rows per strip
+BWD_BLOCKS = 132 * 8  # the backward's grid at most: 8 blocks per SM of an H100
+
+
+def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
+    """(B, H, W, C) of the tower's inputs; raises ValueError unless images
+    are [B, H, W, 1] with B >= 1 and H, W even, conv_w [5, 5, 1, C], conv_b
+    [C], all float32 on one device."""
+    if images.dim() != 4 or images.shape[3] != 1:
+        raise ValueError(
+            f"edge tower: images must be [B, H, W, 1], got {tuple(images.shape)}"
+        )
+    B, H, W, _ = images.shape
+    if conv_w.dim() != 4 or tuple(conv_w.shape[:3]) != (K, K, 1):
+        raise ValueError(
+            f"edge tower: conv_w must be [5, 5, 1, C], got {tuple(conv_w.shape)}"
+        )
+    C = conv_w.shape[3]
+    if tuple(conv_b.shape) != (C,):
+        raise ValueError(f"edge tower: conv_b must be [{C}], got {tuple(conv_b.shape)}")
+    if B < 1 or C < 1:
+        raise ValueError("edge tower: needs at least one image and one filter")
+    if H % 2 or W % 2:
+        raise ValueError(f"edge tower: H and W must be even, got {H}x{W}")
+    for name, t in (("images", images), ("conv_w", conv_w), ("conv_b", conv_b)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"edge tower takes float32, {name} is {t.dtype}")
+        if t.device != images.device:
+            raise ValueError("edge tower inputs must be on one device")
+    return B, H, W, C
+
+
+def strip_rows(h: int, w: int) -> int:
+    """Pooled rows per strip: at most MAX_STRIP_ROWS, and the strip's 2R+4
+    staged rows of W+4 floats within STAGE_BYTES where W allows."""
+    fit = (STAGE_BYTES // (4 * (w + 4)) - 4) // 2
+    return max(1, min(h // 2, MAX_STRIP_ROWS, fit))
+
+
+@contextmanager
+def fp32_convs():
+    """cuDNN convolutions within run in full f32 (no TF32)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _Conv5x5(torch.autograd.Function):
+    """SAME 5x5 conv [B, 1, H, W] x [C, 1, 5, 5] -> [B, C, H, W], forward
+    and backward under ``fp32_convs``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with fp32_convs():
+            return F.conv2d(x, w, padding=2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        with fp32_convs():
+            dx = (torch.nn.grad.conv2d_input(x.shape, w, dy, padding=2)
+                  if ctx.needs_input_grad[0] else None)
+            dw = (torch.nn.grad.conv2d_weight(x, w.shape, dy, padding=2)
+                  if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def edge_tower_gap_plain(images, conv_w, conv_b) -> torch.Tensor:
+    """Plain PyTorch tower, ``edge_tower_gap_xla``'s counterpart: SAME conv
+    (padding 2, f32), + b, ReLU, SAME 2x2 max-pool (``ceil_mode`` pads odd
+    sizes at the end, where -inf never wins), mean over H, W in f32.  Any
+    H, W."""
+    x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
+    y = _Conv5x5.apply(x, conv_w.permute(3, 2, 0, 1))  # [B, C, H, W]
+    y = torch.relu(y + conv_b[None, :, None, None])
+    y = F.max_pool2d(y, 2, 2, ceil_mode=True)
+    return y.to(torch.float32).mean(dim=(2, 3))
+
+
+def edge_tower_gap_plain_backward(images, conv_w, conv_b, dout):
+    """(dconv_w [5, 5, 1, C], dconv_b [C]) of the plain tower for upstream
+    gradient ``dout`` [B, C]."""
+    with torch.enable_grad():
+        w = conv_w.detach().requires_grad_(True)
+        b = conv_b.detach().requires_grad_(True)
+        out = edge_tower_gap_plain(images.detach(), w, b)
+        dw, db = torch.autograd.grad(out, (w, b), dout)
+    return dw, db
+
+
+def _library() -> ctypes.CDLL:
+    from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library("edge_tower")
+    if not getattr(lib, "_fvx_typed", False):
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+        lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 5 + [ptr]
+        for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd):
+            fn.restype = ctypes.c_int
+        lib._fvx_typed = True
+    return lib
+
+
+def _kernel_inputs(images, conv_w, conv_b):
+    B, H, W, C = check_geometry(images, conv_w, conv_b)
+    if images.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA edge tower takes CUDA tensors, got {images.device}: "
+            "edge_tower_gap_plain computes it elsewhere"
+        )
+    for name, t in (("images", images), ("conv_w", conv_w), ("conv_b", conv_b)):
+        if not t.is_contiguous():
+            raise ValueError(f"edge tower kernel: {name} must be contiguous")
+    R = strip_rows(H, W)
+    return B, H, W, C, R, -(-(H // 2) // R)
+
+
+def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
+    """[B, C] f32 tower output by the forward kernel (CUDA tensors only)."""
+    B, H, W, C, R, S = _kernel_inputs(images, conv_w, conv_b)
+    dev = images.device
+    with torch.cuda.device(dev):
+        partial = torch.empty(B * S * C, dtype=torch.float32, device=dev)
+        out = torch.empty(B, C, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _library().fvx_edge_tower_fwd(
+            images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, H, W, C, R, stream)
+    if rc != 0:
+        raise RuntimeError(f"edge tower forward kernel launch failed: cudaError {rc}")
+    edge_tower_fwd.launches += 1
+    return out
+
+
+def edge_tower_bwd(images, conv_w, conv_b, dout):
+    """(dconv_w [5, 5, 1, C], dconv_b [C]) by the backward kernel for
+    upstream gradient ``dout`` [B, C] (CUDA tensors only)."""
+    B, H, W, C, R, S = _kernel_inputs(images, conv_w, conv_b)
+    if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
+            or dout.device != images.device:
+        raise ValueError(
+            f"edge tower backward: dout must be [{B}, {C}] float32 on "
+            f"{images.device}, got {dout.dtype}{tuple(dout.shape)} on {dout.device}"
+        )
+    if not dout.is_contiguous():
+        raise ValueError("edge tower kernel: dout must be contiguous")
+    dev = images.device
+    n_blocks = min(B * S, BWD_BLOCKS)
+    with torch.cuda.device(dev):
+        partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
+        dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _library().fvx_edge_tower_bwd(
+            images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dout.data_ptr(),
+            partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, R, stream)
+    if rc != 0:
+        raise RuntimeError(f"edge tower backward kernel launch failed: cudaError {rc}")
+    edge_tower_bwd.launches += 1
+    return dwb[: K * K].view(K, K, 1, C), dwb[K * K]
+
+
+edge_tower_fwd.launches = 0
+edge_tower_bwd.launches = 0
+
+
+class EdgeTowerGap(torch.autograd.Function):
+    """Forward kernel; backward kernel from the saved inputs (it recomputes
+    the forward).  The images get no gradient."""
+
+    @staticmethod
+    def forward(ctx, images, conv_w, conv_b):
+        ctx.save_for_backward(images, conv_w, conv_b)
+        return edge_tower_fwd(images, conv_w, conv_b)
+
+    @staticmethod
+    def backward(ctx, dout):
+        images, conv_w, conv_b = ctx.saved_tensors
+        dw, db = edge_tower_bwd(images, conv_w, conv_b, dout.contiguous())
+        return None, dw, db
+
+
+def edge_tower_gap(images, conv_w, conv_b) -> torch.Tensor:
+    """GAP(MaxPool2x2(ReLU(Conv5x5_SAME(images) + b))) -> [B, C] f32.
+
+    images [B, H, W, 1] (H, W even); conv_w [5, 5, 1, C]; conv_b [C].
+    Differentiable in conv_w and conv_b only.  CUDA tensors go through the
+    kernels; CPU tensors through the plain version."""
+    check_geometry(images, conv_w, conv_b)
+    if images.device.type == "cpu":
+        return edge_tower_gap_plain(images.detach(), conv_w, conv_b)
+    return EdgeTowerGap.apply(images, conv_w, conv_b)

@@ -19,13 +19,18 @@
   3. the per-user history filter (by id: no [U, I] mask is built) and the
      final top-k.
 
+Models without ``factored_eval`` (AttentiveFashion) take the direct path:
+``refresh`` keeps a copy of the params and the model's ``precompute_eval``
+context, and ``query`` scores the whole catalog with ``predict_user_block``,
+bans the history ids by a scatter to -inf (pad slots dropped) and takes
+the top-k (JAX ``_direct_query``).
+
 Batches pad to power-of-two buckets from 8, as in the JAX package, so both
 serve the same shapes.  ``approx_max_k(recall_target=1.0)`` there is exact,
 and is ``torch.topk`` here.
 
-Not ported yet: the ``mesh`` (sharded) path, the direct path for models
-without ``factored_eval``, and the TPU-only ``segmax_kernel`` /
-``segmax_transposed`` knobs (Mosaic layout matters).
+Not ported yet: the ``mesh`` (sharded) path and the TPU-only
+``segmax_kernel`` / ``segmax_transposed`` knobs (Mosaic layout matters).
 """
 
 from __future__ import annotations
@@ -73,11 +78,14 @@ def _int8_scores(qu: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
 
 
 class RecServer:
-    """Index-and-query recommendation server for factored models.
+    """Index-and-query recommendation server.
 
     Parameters
     ----------
-    model : a model with ``factored_eval()`` (e.g. ``BPRMF``).
+    model : a model with ``factored_eval()`` (e.g. ``BPRMF``), served by
+        the three stages above, or with ``predict_user_block`` and
+        ``precompute_eval`` (e.g. ``AttentiveFashion``), served directly;
+        the stage options below apply to the first kind only.
     data : Interactions — supplies each user's train history for exclusion
         (train items are never served); with ``history`` given, only its
         ``num_users`` and ``num_items`` are read.
@@ -118,9 +126,11 @@ class RecServer:
         self.device = resolve_device(device)
         if stage1_dtype not in ("bf16", "fp32"):
             raise ValueError(f"stage1_dtype must be bf16|fp32, got {stage1_dtype}")
-        if not hasattr(model, "factored_eval"):
+        self._factored = hasattr(model, "factored_eval")
+        if not (self._factored or hasattr(model, "predict_user_block")):
             raise NotImplementedError(
-                "RecServer serves factored models (factored_eval) only"
+                "RecServer serves factored models (factored_eval) or models "
+                "with predict_user_block"
             )
         self._stage1_dtype = (
             torch.bfloat16 if stage1_dtype == "bf16" else torch.float32
@@ -169,12 +179,22 @@ class RecServer:
         """(Re)build the serving index once per model publish, off the query
         path, from ``params`` (name -> tensor, e.g. ``fit``'s
         ``best_params``; JAX's ``refresh(params, frozen)``) or, when None,
-        the model's current weights.  ``frozen`` is unused (BPRMF has
-        none).  The index is a copy: later training steps do not change
-        what is served until the next refresh."""
+        the model's current weights.  ``frozen`` is unused (models hold
+        their own).  The index is a copy: later training steps do not
+        change what is served until the next refresh.  A model without
+        ``factored_eval`` keeps the params and its ``precompute_eval``
+        context."""
         del frozen
         U, I = self.data.num_users, self.data.num_items
         dev = self.device
+        if not self._factored:
+            params = {k: v.detach().clone() for k, v in
+                      self.model.params_or_own(params).items()}
+            self._index = {"banned": self._train_items,
+                           "banned_counts": self._train_counts,
+                           "params": params,
+                           "ctx": self.model.precompute_eval(params)}
+            return
         uf, iv, ib = self.model.factored_eval(params)
         uf = uf[:U].detach().to(dev, torch.float32).clone()
         iv = iv[:I].detach().to(dev, torch.float32)
@@ -319,10 +339,27 @@ class RecServer:
             ids = F.pad(ids, (0, self.k - kk), value=OUT_OF_RANGE_ID)
         return vals, ids
 
+    def _direct_query(self, index, dev_ids):
+        """Scores of the whole catalog by ``predict_user_block``; history
+        ids set to -inf by a scatter whose pad slots go to an extra column
+        I that is dropped; the exact top-k."""
+        I = self.data.num_items
+        scores = self.model.predict_user_block(
+            dev_ids, index["ctx"], params=index["params"])[:, :I]
+        banned = index["banned"][dev_ids]
+        counts = index["banned_counts"][dev_ids]
+        P = banned.shape[1]
+        valid = torch.arange(P, device=banned.device)[None, :] < counts[:, None]
+        drop = torch.where(valid, banned, I).long()
+        scores = F.pad(scores, (0, 1)).scatter_(1, drop, _NEG_INF)[:, :I]
+        return torch.topk(scores, self.k, dim=1)
+
     @torch.inference_mode()
     def _run_query(self, dev_ids):
         """(vals, ids) device tensors for one padded id bucket."""
         index = self._index
+        if not self._factored:
+            return self._direct_query(index, dev_ids)
         uf = index["uf"][dev_ids]
         ti, seg_ids = self._candidates(index, uf)
         s = self._rescore(index, uf, ti, seg_ids)

@@ -2,10 +2,13 @@
 
 One trainer for every model.  An epoch samples its BPR triples on the
 device (``data/sampler.py``), then runs the optimizer steps: autograd of
-``model.loss`` over the model's parameters, then TF-parity Adam
-(``core/train_state.py``).  The JAX package runs an epoch as one jitted
-``lax.scan``; here it is a Python loop of eager steps whose losses stay on
-the device and are summed once per epoch.
+``model.loss`` over the model's parameters (dotted names for nested groups,
+e.g. ``"color_enc.W1"``), then TF-parity Adam (``core/train_state.py``).
+The JAX package runs an epoch as one jitted ``lax.scan``; here it is a
+Python loop of eager steps whose losses stay on the device and are summed
+once per epoch.  Step s of an epoch draws its dropout from a generator
+seeded with ``fold_in(step_key, s)``, the role of JAX's ``split(step_key,
+steps)``; models without stochastic layers ignore it.
 
 ``fit`` keeps the JAX package's run structure: the seed splits into an init
 draw and an epoch draw, each epoch's sampler seed is derived from (epoch
@@ -69,8 +72,8 @@ class EpochResult:
 
 class Trainer:
     """Generic trainer over ``model`` (an ``nn.Module`` with ``loss(users,
-    pos, neg, reg)``).  The device is the model's; the sampler tables move
-    there once, here."""
+    pos, neg, reg, rng=None)``).  The device is the model's; the sampler
+    tables move there once, here."""
 
     def __init__(self, model, data: Interactions, cfg: TrainConfig, tx=None):
         self.model = model
@@ -116,20 +119,22 @@ class Trainer:
 
         def epoch_fn(state: TrainState, frozen, key: int,
                      train_pairs, padded_pos, pos_counts):
-            sample_key, _step_key = split_seed(key)  # step keys: dropout models
+            sample_key, step_key = split_seed(key)
             triples = sample_triplets(
                 sample_key, train_pairs, padded_pos, pos_counts,
                 num_items, steps, batch,
                 with_replacement=cfg.sampling_scheme, device=self.device,
             )
-            return self.run_steps(state, frozen, triples)
+            return self.run_steps(state, frozen, triples, step_key)
 
         return epoch_fn
 
-    def run_steps(self, state: TrainState, frozen, triples):
+    def run_steps(self, state: TrainState, frozen, triples, step_key: int):
         """The optimizer steps over one epoch's triples ([steps, batch]
-        each); returns (state, summed loss as a 0-d device tensor)."""
-        del frozen  # BPRMF has none
+        each); returns (state, summed loss as a 0-d device tensor).  Step
+        s passes ``model.loss`` a generator on the device seeded with
+        ``fold_in(step_key, s)``."""
+        del frozen  # the model reads its own buffers
         users, pos, neg = (t.long() for t in triples)
         reg = self.cfg.reg
         names = list(state.params)
@@ -137,8 +142,9 @@ class Trainer:
         losses = torch.empty(users.shape[0], dtype=torch.float32,
                              device=self.device)
         for s in range(users.shape[0]):
+            rng = torch.Generator(device=self.device).manual_seed(fold_in(step_key, s))
             with torch.enable_grad():
-                loss = self.model.loss(users[s], pos[s], neg[s], reg)
+                loss = self.model.loss(users[s], pos[s], neg[s], reg, rng=rng)
                 grads = torch.autograd.grad(loss, leaves)
             state = apply_gradients(state, dict(zip(names, grads)), self.tx)
             losses[s] = loss.detach()

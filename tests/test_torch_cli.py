@@ -161,8 +161,8 @@ def test_validate_args_gives_the_jax_messages(argv):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--rec", "vbpr"), 8), (("--rec", "acf"), 9), (("--rec", "attentive_fashion"), 10),
-    (("--train_path", "packed"), 4), (("--rec", "attentive_fashion", "--streamed"), 10),
+    (("--rec", "vbpr"), 8), (("--rec", "acf"), 9), (("--rec", "comp_vbpr"), 10),
+    (("--train_path", "packed"), 4), (("--rec", "attentive_fashion", "--streamed"), 12),
     (("--mesh_data", "2"), 13),
 ])
 def test_options_of_later_slices_raise(dataset_dir, extra, item):

@@ -12,7 +12,11 @@ sigma rtol 1e-4, atol 1e-5 * scale**2 (diff's K products are summed with
 FMAs in lane order, and their rounding grows with the products); the
 gradients, from the same sigma, rtol 1e-4, atol 1e-5.  K6: the same f32 operations in the same order, m and v
 rtol 1e-6, p rtol 1e-5.  K2: counts bit-equal on quantized data (every
-score exact in f32, so any summation order gives the same bits)."""
+score exact in f32, so any summation order gives the same bits).  K7 (the
+edge tower): forward rtol 1e-5, atol 1e-6 (25 taps and the pooled values
+summed in another order); gradients rtol 1e-4, atol 1e-5 + 1e-6 * S, S the
+sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
+backward runs bit-equal (no float atomics)."""
 
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 from fashionvisualexpl_tpu_torch.ops import adam as A
 from fashionvisualexpl_tpu_torch.ops import bpr as K1
 from fashionvisualexpl_tpu_torch.ops import counts as K2
+from fashionvisualexpl_tpu_torch.ops import edge_tower as K7
 from fashionvisualexpl_tpu_torch.ops import segmax as S
 from fashionvisualexpl_tpu_torch.serve import RecServer
 from fashionvisualexpl_tpu_torch.train.fast import (
@@ -233,3 +238,115 @@ def test_counts_kernel_rejects_what_it_does_not_take_on_card(cuda_device):
         K2.counts_kernel(z(8, 4), z(200, 4), z(200), z(8, 1), loc, 200, 8)
     with pytest.raises(ValueError, match="contiguous"):
         K2.counts_kernel(z(4, 8).T, z(256, 4), z(256), z(8, 1), loc, 256, 8)
+
+
+def _tower_inputs(dev, B, H, W, C, value=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.full((B, H, W, 1), value, device=dev) if value is not None
+         else torch.rand(B, H, W, 1, device=dev, generator=g))
+    w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
+    b = torch.randn(C, device=dev, generator=g) * 0.1
+    return x, w, b, torch.randn(B, C, device=dev, generator=g)
+
+
+def _check_tower(x, w, b, dout):
+    before = (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches)
+    out = K7.edge_tower_fwd(x, w, b)
+    dw, db = K7.edge_tower_bwd(x, w, b, dout)
+    dw2, db2 = K7.edge_tower_bwd(x, w, b, dout)
+    torch.cuda.synchronize()
+    assert (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(out, K7.edge_tower_gap_plain(x, w, b), rtol=1e-5, atol=1e-6)
+    want = K7.edge_tower_gap_plain_backward(x, w, b, dout)
+    sums = K7.edge_tower_gap_plain_backward(x, w, b, dout.abs())
+    for got, ref, s in zip((dw, db), want, sums):
+        assert bool(((got - ref).abs() <= 1e-5 + 1e-6 * s + 1e-4 * ref.abs()).all())
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [
+    (5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8),  # the JAX test geometries
+    (64, 32, 32, 64), (2, 224, 224, 64),  # the training step's and the reference's
+    (4, 10, 12, 40), (3, 14, 14, 256), (2, 64, 4092, 8),  # part warps, 8 warps, 1-row strips
+    (3, 12, 8, 257), (2, 32, 32, 600),  # more than one group of 256 channels
+])
+def test_edge_tower_kernels_match_plain_version_on_card(cuda_device, B, H, W, C):
+    _check_tower(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [0.5, 0.0])
+def test_edge_tower_kernels_route_ties_like_the_plain_version_on_card(cuda_device, value):
+    """Constant images tie every pool window (and, at 0, the ReLU boundary)."""
+    _check_tower(*_tower_inputs(cuda_device, 16, 32, 32, 64, value=value))
+
+
+@pytest.mark.cuda
+def test_edge_tower_kernels_reject_what_they_do_not_take_on_card(cuda_device):
+    x, w, b, dout = _tower_inputs(cuda_device, 2, 8, 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        K7.edge_tower_fwd(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        K7.edge_tower_bwd(x, w, b, dout.T.contiguous().T)
+    with pytest.raises(ValueError, match="even"):
+        K7.edge_tower_gap(x[:, :7], w, b)
+
+
+@pytest.mark.cuda
+def test_attentive_fashion_kernel_route_matches_plain_route_on_card(cuda_device):
+    """edge_tower='auto' on the card runs K7 (one forward and one backward
+    per encoded batch); its loss and gradients equal the plain tower's."""
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+
+    U, I = 40, 30
+    rng = np.random.default_rng(0)
+    inputs = (rng.random((I, 12)).astype(np.float32),
+              rng.random((I, 16, 16, 1)).astype(np.float32),
+              np.eye(5, dtype=np.float32)[rng.integers(0, 5, I)])
+    models = [AttentiveFashion(U, I, *inputs, embed_k=16, attention_layers=(8, 1),
+                               encoder_hidden=32, conv_filters=64, edge_tower=t,
+                               device=cuda_device) for t in ("auto", "xla")]
+    assert [m.tower_route for m in models] == ["kernel", "plain"]
+    u, p, n = (torch.as_tensor(rng.integers(0, hi, 64), device=cuda_device)
+               for hi in (U, I, I))
+    before = (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches)
+    results = []
+    for m in models:
+        loss = m.loss(u, p, n, 0.01, rng=torch.Generator(device=cuda_device).manual_seed(3))
+        results.append((loss, torch.autograd.grad(loss, list(m.parameters()))))
+    torch.cuda.synchronize()
+    assert (K7.edge_tower_fwd.launches - before[0],
+            K7.edge_tower_bwd.launches - before[1]) == (2, 2)
+    (lk, gk), (lp, gp) = results
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-6)
+    for a, b in zip(gk, gp):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    before = K7.edge_tower_fwd.launches
+    models[0].batch_eval = 8
+    torch.testing.assert_close(models[0].precompute_eval(), models[1].precompute_eval(),
+                               rtol=1e-5, atol=1e-6)
+    assert K7.edge_tower_fwd.launches - before == 4  # ceil(30 / 8) blocks
+
+
+@pytest.mark.cuda
+def test_attentive_fashion_auto_takes_the_kernel_at_any_filter_count_on_card(cuda_device):
+    """edge_tower='auto' on the card at even H, W is K7 whatever the
+    filter count (257: two channel groups); its encodings equal the plain
+    tower's."""
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+
+    U, I = 6, 10
+    rng = np.random.default_rng(1)
+    inputs = (rng.random((I, 12)).astype(np.float32),
+              rng.random((I, 8, 8, 1)).astype(np.float32),
+              np.eye(5, dtype=np.float32)[rng.integers(0, 5, I)])
+    models = [AttentiveFashion(U, I, *inputs, embed_k=16, attention_layers=(8, 1),
+                               encoder_hidden=32, conv_filters=257, edge_tower=t,
+                               device=cuda_device) for t in ("auto", "xla")]
+    assert [m.tower_route for m in models] == ["kernel", "plain"]
+    before = K7.edge_tower_fwd.launches
+    got = models[0].encode_items()
+    assert K7.edge_tower_fwd.launches - before == 1
+    torch.testing.assert_close(got, models[1].encode_items(), rtol=1e-5, atol=1e-6)

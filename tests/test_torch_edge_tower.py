@@ -1,0 +1,142 @@
+"""Port edge tower (``ops/edge_tower.py``, K7) vs the JAX package's.
+
+On the CPU the port computes the tower by its plain version; it is held
+against JAX's fused kernel (Pallas, interpret mode) and ``edge_tower_gap_xla``
+at the JAX test geometries (``tests/test_edge_tower.py``): forward rtol
+1e-5, atol 1e-6; gradients of a sum(sin(.)) loss, and for a given upstream
+gradient, rtol 1e-4, atol 1e-5 (f32 sums in another order).  Constant images
+tie every pool window and the ReLU boundary: the tie winners must agree
+with both JAX versions.  The kernel entry points raise for CPU tensors; the
+kernels themselves are checked on the card (``tests/test_torch_cuda.py``)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fashionvisualexpl_tpu.ops.edge_tower import edge_tower_gap as jgap
+from fashionvisualexpl_tpu.ops.edge_tower import edge_tower_gap_xla as jxla
+from fashionvisualexpl_tpu_torch.ops import edge_tower as E
+
+FWD = dict(rtol=1e-5, atol=1e-6)
+GRAD = dict(rtol=1e-4, atol=1e-5)
+GEOMETRIES = [(5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8)]
+
+
+def _inputs(B=5, H=8, W=16, C=4, seed=0):
+    rng = np.random.default_rng(seed)
+    imgs = rng.random((B, H, W, 1)).astype(np.float32)
+    cw = (0.1 * rng.standard_normal((5, 5, 1, C))).astype(np.float32)
+    cb = (0.1 * rng.standard_normal((C,))).astype(np.float32)
+    return imgs, cw, cb
+
+
+def _jax_versions(imgs, cw, cb):
+    """{name: f(w, b)} of JAX's two towers on fixed images."""
+    x = jnp.asarray(imgs)
+    return {"fused": lambda w, b: jgap(x, w, b, 4, True),
+            "xla": lambda w, b: jxla(x, w, b)}
+
+
+@pytest.mark.parametrize("B,H,W,C", GEOMETRIES)
+def test_forward_matches_jax(B, H, W, C):
+    imgs, cw, cb = _inputs(B, H, W, C, seed=B + C)
+    got = E.edge_tower_gap(*(torch.from_numpy(a) for a in (imgs, cw, cb))).numpy()
+    np.testing.assert_allclose(
+        got, E.edge_tower_gap_plain(*(torch.from_numpy(a) for a in (imgs, cw, cb))).numpy(),
+        rtol=0, atol=0)  # on the CPU the wrapper is the plain version
+    for name, f in _jax_versions(imgs, cw, cb).items():
+        np.testing.assert_allclose(got, np.asarray(f(jnp.asarray(cw), jnp.asarray(cb))),
+                                   err_msg=name, **FWD)
+
+
+@pytest.mark.parametrize("B,H,W,C", GEOMETRIES)
+def test_gradients_match_jax(B, H, W, C):
+    imgs, cw, cb = _inputs(B, H, W, C, seed=2 * B + C)
+    w = torch.from_numpy(cw).requires_grad_(True)
+    b = torch.from_numpy(cb).requires_grad_(True)
+    x = torch.from_numpy(imgs).requires_grad_(True)
+    torch.sin(E.edge_tower_gap(x, w, b)).sum().backward()
+    assert x.grad is None  # frozen features: no image gradient
+    for name, f in _jax_versions(imgs, cw, cb).items():
+        gw, gb = jax.grad(lambda w_, b_: jnp.sum(jnp.sin(f(w_, b_))), argnums=(0, 1))(
+            jnp.asarray(cw), jnp.asarray(cb))
+        np.testing.assert_allclose(w.grad.numpy(), np.asarray(gw), err_msg=name, **GRAD)
+        np.testing.assert_allclose(b.grad.numpy(), np.asarray(gb), err_msg=name, **GRAD)
+
+
+def test_plain_backward_matches_jax_vjp():
+    imgs, cw, cb = _inputs(7, 10, 12, 6, seed=3)
+    dout = np.random.default_rng(4).standard_normal((7, 6)).astype(np.float32)
+    dw, db = E.edge_tower_gap_plain_backward(
+        *(torch.from_numpy(a) for a in (imgs, cw, cb, dout)))
+    assert dw.shape == (5, 5, 1, 6) and db.shape == (6,)
+    for name, f in _jax_versions(imgs, cw, cb).items():
+        _, vjp = jax.vjp(f, jnp.asarray(cw), jnp.asarray(cb))
+        jw, jb = vjp(jnp.asarray(dout))
+        np.testing.assert_allclose(dw.numpy(), np.asarray(jw), err_msg=name, **GRAD)
+        np.testing.assert_allclose(db.numpy(), np.asarray(jb), err_msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("value", [0.5, 0.0])
+def test_tie_routing_matches_both_jax_towers(value):
+    """Constant images tie every pool window (and, at 0, every ReLU
+    boundary): the first-match winners (even column, top row) agree."""
+    _, cw, cb = _inputs(C=4)
+    imgs = np.full((4, 8, 12, 1), value, np.float32)
+    w = torch.from_numpy(cw).requires_grad_(True)
+    b = torch.from_numpy(cb).requires_grad_(True)
+    E.edge_tower_gap(torch.from_numpy(imgs), w, b).sum().backward()
+    for name, f in _jax_versions(imgs, cw, cb).items():
+        gw, gb = jax.grad(lambda w_, b_: jnp.sum(f(w_, b_)), argnums=(0, 1))(
+            jnp.asarray(cw), jnp.asarray(cb))
+        np.testing.assert_allclose(w.grad.numpy(), np.asarray(gw), err_msg=name, **FWD)
+        np.testing.assert_allclose(b.grad.numpy(), np.asarray(gb), err_msg=name, **FWD)
+
+
+def test_plain_tower_takes_odd_sizes_like_xla():
+    """The plain tower is SAME at odd H, W too (the pool pads at the end);
+    the kernel and its wrapper need even sizes."""
+    imgs, cw, cb = _inputs(3, 7, 9, 5, seed=6)
+    t = [torch.from_numpy(a) for a in (imgs, cw, cb)]
+    np.testing.assert_allclose(E.edge_tower_gap_plain(*t).numpy(),
+                               np.asarray(jxla(*map(jnp.asarray, (imgs, cw, cb)))), **FWD)
+    with pytest.raises(ValueError, match="even"):
+        E.edge_tower_gap(*t)
+
+
+def test_kernel_entry_points_raise_on_cpu_tensors():
+    t = [torch.from_numpy(a) for a in _inputs()]
+    before = (E.edge_tower_fwd.launches, E.edge_tower_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.edge_tower_fwd(*t)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.edge_tower_bwd(*t, torch.zeros(5, 4))
+    assert (E.edge_tower_fwd.launches, E.edge_tower_bwd.launches) == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(images=torch.zeros(2, 8, 8)), r"\[B, H, W, 1\]"),
+    (dict(images=torch.zeros(2, 8, 8, 2)), r"\[B, H, W, 1\]"),
+    (dict(conv_w=torch.zeros(3, 3, 1, 4)), r"\[5, 5, 1, C\]"),
+    (dict(conv_b=torch.zeros(5)), r"conv_b must be \[4\]"),
+    (dict(images=torch.zeros(0, 8, 8, 1)), "at least one"),
+    (dict(images=torch.zeros(2, 8, 8, 1, dtype=torch.float64)), "float32"),
+])
+def test_geometry_errors(bad, match):
+    args = dict(images=torch.zeros(2, 8, 8, 1), conv_w=torch.zeros(5, 5, 1, 4),
+                conv_b=torch.zeros(4))
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        E.edge_tower_gap(**args)
+
+
+def test_strip_rows():
+    # whole images at 32x32 (16 pooled rows), 7 strips of 16 at 224x224
+    assert E.strip_rows(32, 32) == 16
+    assert E.strip_rows(224, 224) == 16
+    assert E.strip_rows(6, 10) == 3
+    # very wide rows: the strip shrinks to keep the staged rows in 48 KB
+    assert E.strip_rows(64, 4092) == 1
+    assert 4 * (2 * E.strip_rows(64, 1000) + 4) * 1004 <= E.STAGE_BYTES

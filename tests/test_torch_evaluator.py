@@ -115,9 +115,9 @@ def test_counts_impl_choice_and_errors():
         FactoredEvaluator(model, data, counts_impl="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         FactoredEvaluator(model, data, mesh=object())
+    with pytest.raises(NotImplementedError, match="factored attention dump"):
+        FactoredEvaluator(model, data).store_recommendation_attention(None, None, "x", None)
     for ev in (Evaluator(model, data), FactoredEvaluator(model, data)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            ev.store_recommendation_attention(None, None, "x", None)
         with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
             ev.store_recommendation_grads(None, None, "x")
 

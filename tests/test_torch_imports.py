@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -47,7 +48,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 33  # every submodule of the three slices was imported
+    assert n_modules >= 38  # every submodule of the four slices was imported
 
 
 def _is_jax(name):
@@ -86,6 +87,18 @@ def test_bprmf_without_device_raises_when_no_cuda(no_cuda):
         BPRMF(4, 6, embed_k=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BPRMF(4, 6, embed_k=2, device="cuda")
+
+
+def test_attentive_fashion_without_device_raises_when_no_cuda(no_cuda):
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+
+    inputs = (np.ones((6, 4), np.float32), np.ones((6, 8, 8, 1), np.float32),
+              np.eye(6, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AttentiveFashion(4, 6, *inputs, embed_k=2, attention_layers=(2, 1))
+    model = AttentiveFashion(4, 6, *inputs, embed_k=2, attention_layers=(2, 1),
+                             device="cpu")
+    assert model.tower_route == "plain"  # edge_tower="auto" off the card
 
 
 def test_recserver_without_device_raises_when_no_cuda(no_cuda):

@@ -100,7 +100,8 @@ def test_trainer_epochs_match_jax_from_carried_init_and_draws(carry_mid_run):
             state = train_state_from_jax(model, jstate.step, _np(jstate.params),
                                          adam.count, _np(adam.mu), _np(adam.nu))
         state, loss = trainer.run_steps(
-            state, frozen, tuple(torch.from_numpy(np.array(t)) for t in triples))
+            state, frozen, tuple(torch.from_numpy(np.array(t)) for t in triples),
+            step_key=epoch)
         jstate, jloss = jtrainer.run_epoch(jstate, jfrozen, key)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     assert int(state.step) == int(jstate.step)
