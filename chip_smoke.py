@@ -64,6 +64,28 @@ Phases, each of which raises on a failure (nothing is swallowed):
    ``serve_rec.serve`` from its checkpoint for 64 users: K2 and K3 must
    launch, the dumps hold U x k rows, the metrics are finite and in [0, 1].
 
+12. tower kernel, AttentiveFashion training and path (K7): see PERF.md;
+13. row kernels: the row gather (K4) and the row scatter-set (K5) against
+   their plain versions, bit for bit (compared as int32), at the JAX test
+   geometries (out-of-range, negative and internally padded ids) and at the
+   packed rows' widths (385, 388, 257, 259, 193, 195, 512) for 8192 and
+   16384 rows of a 1M-row table of random bit patterns; then timed at the
+   JAX benches' shapes beside their bounds, plain versions and
+   ``torch.index_select`` / ``Tensor.index_copy_``; ``bench_gather`` and
+   ``bench_scatter`` once;
+14. packed training: ``Trainer(train_path="packed")`` for BPRMF at the fast
+   path's configuration (1M x 500k, K=128, batch 8192; fp32 moments,
+   lazy_catchup).  3 steps on the card against the same 3 steps on CPU
+   copies (the plain route), and again without catch-up and with bf16 and
+   fp8 moments; one epoch of 200 steps (4 K4 + 2 K5 launches a step) with
+   triples/s, ms per step and peak memory; a profile of 10 steps (K4's and
+   K5's share of device time, the idle share).  AttentiveFashion at its
+   training configuration (1M x 200k): 2 steps against the CPU route at
+   batch 1024 (the CPU's plain tower at 8192 would take minutes), then 20
+   steps at batch 8192 through K4, K5 and K7;
+15. packed CLI: ``train_rec --train_path packed`` on the CLI dataset, then
+   ``serve_rec`` from its checkpoint.
+
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -152,6 +174,35 @@ AF_ROUTE_DRIFT = 2 * AF_LR * AF_ROUTE_STEPS
 # the AttentiveFashion path through the CLI: the CLI phase's dataset with
 # color histograms, class one-hots and 32x32 edge tiffs
 AF_CLI_CLASSES, AF_CLI_BATCH_EVAL, AF_SERVE_BUCKETS = 10, 128, (8, 64, 1024)
+# the row kernels K4 and K5: the packed rows' widths (fp32 / bf16 / fp8
+# moments at K=128, users then items; 512 a 128-aligned row) at the packed
+# step's unique-row counts over a 1M-row table; timed at the JAX benches'
+# shapes (rows, width, batch)
+ROW_WIDTHS, ROW_TABLE, ROW_BATCHES = (385, 388, 257, 259, 193, 195, 512), 1_000_000, (8192, 16384)
+GATHER_SHAPE, SCATTER_SHAPE = (1_000_000, 128, 24576), (1_000_000, 384, 24576)
+# packed training: the fast path's BPRMF configuration (scripts/scaled_bench.py
+# --packed --packed_engine generic), one epoch cut to 200 steps; the
+# AttentiveFashion configuration above.  Route checks: 3 (BPRMF) and 2
+# (AttentiveFashion, batch 1024) steps on the card against CPU copies
+PACKED_ROUTE_STEPS, PACKED_STEPS, PACKED_PROFILE_STEPS = 3, 200, 10
+AF_PACKED_ROUTE_STEPS, AF_PACKED_ROUTE_B, AF_PACKED_STEPS = 2, 1024, 20
+# the packed route: the card sums the forward's dot products and a row's
+# gradients in another order than the CPU.  So a stored bf16 or e5m2
+# moment at a rounding boundary may land one code apart (2**-7 of the
+# value for bf16, 2**-2 for e5m2, whose v is stored as sqrt(v)), and a
+# param whose gradient nearly cancels (an item drawn as a positive and as
+# a negative in one batch: its bias gradient is a difference of two
+# sigmoids) may take a visibly different Adam step: at most a 1e-3 share
+# of the touched values may do either, moments within one code, params
+# within the drift of 2 lr a step.  Below that, the route tolerances
+# (rtol 2e-4, atol 1e-6) and, for stored moments, those of
+# tests/test_moment_dtype.py: rtol 1/256 (bf16), 0.13 (fp8) on m, sqrt(v)
+PACKED_FLIP_CAP = 1e-3
+# the packed CLI run: the CLI dataset at batch 1024 (the packed step is
+# host-bound at ~13 ms; at the default 256 the run would take ~40 s)
+PACKED_CLI_B = 1024
+MOMENT_RTOL = {"float32": ROUTE_RTOL, "bfloat16": 1 / 256, "float8": 0.13}
+MOMENT_CODE = {"float32": 0.0, "bfloat16": 2.0**-7, "float8": 2.0**-2}
 
 
 def fail(msg: str) -> None:
@@ -1575,6 +1626,481 @@ def af_path_phase(torch, np, E):
                           eval_launches=evals.deltas)
 
 
+def rows_bound(B: int, W: int):
+    """K4 / K5 on B rows of W float32: each row read once and written once,
+    the B int32 ids read once; no arithmetic."""
+    return bound_ms(4 * (2 * B * W + B), 0, PEAK_F32_FLOPS)
+
+
+def row_kernel_phase(torch, G, S):
+    """K4 and K5 against their plain versions, bit for bit, then timed at
+    the JAX benches' shapes; bench_gather / bench_scatter once."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def bits(R, W):
+        return torch.randint(-2**31, 2**31 - 1, (R, W), device=dev, generator=g,
+                             dtype=torch.int32).view(torch.float32)
+
+    def ids32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def check(label, table, gather_ids, scatter_ids, vals):
+        got = G.gather_rows(table, gather_ids)
+        kern = S.scatter_rows_set(table.clone(), scatter_ids, vals)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32),
+                           G.gather_rows_reference(table, gather_ids).view(torch.int32)):
+            fail(f"gather kernel disagrees with its plain version at {label}")
+        plain = S.scatter_rows_set_reference(table.clone(), scatter_ids, vals)
+        if not torch.equal(kern.view(torch.int32), plain.view(torch.int32)):
+            fail(f"scatter kernel disagrees with its plain version at {label}")
+        print(f"kernel check rows {label}: gather and scatter bit-equal ok")
+
+    # the JAX tests' geometries (tests/test_gather_kernel.py,
+    # tests/test_row_scatter.py): random, duplicates, out of range and
+    # negative, a batch that is no multiple of the TPU's rows_per_step
+    for label, (R, W), gids, sids in (
+        ("64x16 random", (64, 16), torch.randint(0, 64, (40,), device=dev, generator=g,
+                                                 dtype=torch.int32),
+         torch.randperm(64, device=dev, generator=g)[:40].to(torch.int32)),
+        ("8x4 duplicates / drops", (8, 4), ids32([3, 3, 0, 7, 3]), ids32([3, 8, 100, -1, 0])),
+        ("6x3 out of range", (6, 3), ids32([1, 2**30, -1, 5, 7, -2, -6, -7, -100, 6,
+                                           2**31 - 1, -2**31, 12]),
+         ids32([1, 2**30, -1, 5, 7, -2, -6, -7, -100, 6, 2**31 - 1, -2**31, 12])),
+        ("16x8 internal pad", (16, 8), ids32([5, 2, 11]), ids32([5, 2, 11])),
+    ):
+        check(label, bits(R, W), gids, sids, bits(len(sids), W))
+    for W in ROW_WIDTHS:
+        table = bits(ROW_TABLE, W)
+        for B in ROW_BATCHES:
+            gids = torch.randint(0, ROW_TABLE, (B,), device=dev, generator=g,
+                                 dtype=torch.int32)
+            sids = torch.randperm(ROW_TABLE, device=dev, generator=g)[:B].to(torch.int32)
+            gids[-B // 4:] = sids[-B // 4:] = 2**30  # the dedupe's pads
+            check(f"R={ROW_TABLE} W={W} B={B}", table, gids, sids, bits(B, W))
+        del table
+        torch.cuda.empty_cache()
+
+    flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
+    rows = {}
+    R, W, B = GATHER_SHAPE
+    table = torch.randn(R, W, device=dev, generator=g)
+    ids = torch.randint(0, R, (B,), device=dev, generator=g, dtype=torch.int32)
+    err = float((G.gather_rows(table, ids) - G.gather_rows_reference(table, ids)).abs().max())
+    runs = (lambda: G.gather_rows(table, ids), lambda: G.gather_rows_reference(table, ids),
+            lambda: torch.index_select(table, 0, ids))
+    rows["gather_rows"] = (err, runs, rows_bound(B, W), f"R={R} W={W} B={B} f32, cold L2",
+                           "torch.index_select")
+    R, W, B = SCATTER_SHAPE
+    stable = torch.randn(R, W, device=dev, generator=g)
+    sids64 = torch.randperm(R, device=dev, generator=g)[:B]
+    sids = sids64.to(torch.int32)
+    vals = torch.randn(B, W, device=dev, generator=g)
+    err = float((S.scatter_rows_set(stable.clone(), sids, vals)
+                 - S.scatter_rows_set_reference(stable.clone(), sids, vals)).abs().max())
+    runs = (lambda: S.scatter_rows_set(stable, sids, vals),
+            lambda: S.scatter_rows_set_reference(stable, sids, vals),
+            lambda: stable.index_copy_(0, sids64, vals))
+    rows["scatter_rows_set"] = (err, runs, rows_bound(B, W), f"R={R} W={W} B={B} f32, cold L2",
+                                "Tensor.index_copy_ (int64 ids)")
+    out = {}
+    for name, (err, (run, plain, lib), (b, by), shape, library) in rows.items():
+        ms, call_ms = kernel_times(torch, name, run, 20, flush)
+        plain_ms, _ = kernel_times(torch, f"{name} plain", plain, 10, flush)
+        lib_ms, _ = kernel_times(torch, f"{name} library", lib, 20, flush)
+        check_bound(name, ms, b)
+        out[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=lib_ms, shape=shape,
+                         library=library)
+        print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
+              f"plain_ms={plain_ms!r} library_ms({library})={lib_ms!r} bound_ms={b!r} ({by})")
+    del table, stable, vals, flush
+    torch.cuda.empty_cache()
+    for name, bench in (("bench_gather", G.bench_gather), ("bench_scatter", S.bench_scatter)):
+        kernel_ms, torch_ms = bench()
+        out[name] = dict(kernel_ms=kernel_ms, torch_ms=torch_ms)
+        print(f"{name}(): kernel_ms={kernel_ms!r} torch_ms={torch_ms!r} "
+              f"speedup={torch_ms / kernel_ms!r}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def capped_close(label, got, want, rtol, atol, cap, slack, allowed=None):
+    """(max |got - want|, number beyond tolerance): fails unless every
+    element is within atol + rtol |want|, but for at most cap * n of them,
+    each within ``slack`` and, where ``allowed`` is given, only where it
+    holds.  A NaN fails."""
+    err = (got - want).abs()
+    beyond = ~(err <= atol + rtol * want.abs())
+    n = int(beyond.sum())
+    if n > cap * want.numel():
+        fail(f"{label}: {n} of {want.numel()} values beyond rtol {rtol} atol {atol} "
+             f"(max_abs_err={float(err.max())!r}), more than a {cap!r} share")
+    if n and (bool((beyond & ~(err <= slack)).any())
+              or (allowed is not None and bool((beyond & ~allowed).any()))):
+        fail(f"{label}: a value beyond tolerance is further apart than allowed "
+             f"(max_abs_err={float(err.max())!r})")
+    return float(err.max()), n
+
+
+def packed_groups(PG, spec, md):
+    """(table, [(label, param column, width, moment columns, kind)], tau
+    column) of the packed user and item rows."""
+    (_, Wu), (_, Wi) = spec.user_tables[0], spec.item_tables[0]
+    gs, mw_u, mw_i = PG._scalar_group(md), PG._mom_width(md, Wu), PG._mom_width(md, Wi)
+    items = [("Gi", 0, Wi, (Wi, Wi + mw_i), md)]
+    for j, sname in enumerate(spec.item_scalars):
+        c = Wi + mw_i + gs * j  # scalars: [p | m | v], or [p | bf16 pair]
+        items.append((sname, c, 1, (c + 1, c + gs), "float32" if gs == 3 else "bfloat16"))
+    return (("user_pmv", [("Gu", 0, Wu, (Wu, Wu + mw_u), md)], Wu + mw_u),
+            ("item_pmv", items, Wi + mw_i + gs * len(spec.item_scalars)))
+
+
+def decode_moments(PG, cols, w, kind):
+    if kind == "float32":
+        return cols[:, :w], cols[:, w:]
+    if kind == "bfloat16":
+        return PG._mv_unpack(cols)
+    return PG._mv_unpack_fp8(cols, w)
+
+
+def packed_route_check(torch, PG, label, kern, plain, spec, md, steps, lr):
+    """The packed states after the same steps by the kernel route (card)
+    and the plain route (CPU copies): tau and row_align pad columns
+    bit-equal, untouched rows bit-equal, touched rows' params and decoded
+    moments within the route tolerances (see PACKED_FLIP_CAP); dense m, v
+    within them, dense params too but where sqrt(v_hat) is tiny (within
+    the drift there).  Returns (max err, values beyond)."""
+    err_max, beyond = 0.0, 0
+    bc2 = 1.0 - 0.999**steps
+    for name, groups, tau in packed_groups(PG, spec, md):
+        a = getattr(kern, name)
+        b = getattr(plain, name).to(a.device)  # compared on the card
+        ai, bi = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(ai[:, tau:], bi[:, tau:]):
+            fail(f"{label} {name}: tau or pad columns differ between routes")
+        touched = b[:, tau] > 0
+        if not torch.equal(ai[~touched], bi[~touched]):
+            fail(f"{label} {name}: untouched rows differ between routes")
+        a, b = a[touched], b[touched]
+        for g_name, c0, w, (m0, m1), kind in groups:
+            (am, av), (bm, bv) = (decode_moments(PG, t[:, m0:m1], w, kind) for t in (a, b))
+            code = MOMENT_CODE[kind]
+            cap = PACKED_FLIP_CAP if code else 0.0
+            if kind == "float8":  # e5m2 holds sqrt(v)
+                av, bv = torch.sqrt(av), torch.sqrt(bv)
+            for f, x, y in (("m", am, bm), ("v", av, bv)):
+                e, n = capped_close(f"{label} {name} {g_name} {f}", x, y, MOMENT_RTOL[kind],
+                                    ROUTE_ATOL, cap, code * y.abs() + ROUTE_ATOL)
+                err_max, beyond = max(err_max, e), beyond + n
+            e, n = capped_close(f"{label} {name} {g_name} p", a[:, c0:c0 + w],
+                                b[:, c0:c0 + w], ROUTE_RTOL, ROUTE_ATOL, PACKED_FLIP_CAP,
+                                2 * lr * steps)
+            err_max, beyond = max(err_max, e), beyond + n
+    for name, (p, m, v) in plain.dense.items():
+        kp, km, kv = kern.dense[name]
+        for k in p:
+            for f, x, y in (("m", km[k], m[k]), ("v", kv[k], v[k])):
+                err_max = max(err_max, worst(torch, f"{label} {name}.{k} {f}", x.cpu(), y,
+                                             ROUTE_RTOL, ROUTE_ATOL))
+            tiny = torch.sqrt(v[k] / bc2) < 10 * 1e-7
+            e, n = capped_close(f"{label} {name}.{k} p", kp[k].cpu(), p[k], ROUTE_RTOL,
+                                ROUTE_ATOL, 1.0, 2 * lr * steps, tiny)
+            err_max, beyond = max(err_max, e), beyond + n
+    return err_max, beyond
+
+
+def to_cpu_state(torch, PG, state):
+    """A CPU copy of a packed state (the plain route's start)."""
+    def copy(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else {k: v.cpu() for k, v in x.items()}
+
+    dense = {n: tuple(copy(x) for x in pmv) for n, pmv in state.dense.items()}
+    return PG.GenericPackedState(state.step.cpu(), state.user_pmv.cpu(),
+                                 state.item_pmv.cpu(), dense)
+
+
+def step_profile(torch, label, run, triples, n: int):
+    """One torch.profiler pass over ``run(triples)`` (n steps): wall and
+    device ms a step, device operations a step, the idle share and the
+    shares of device time of K4, K5 and K7."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run(triples)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    ops = sorted(((dev_us(ev), ev.key, ev.count) for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0), reverse=True)
+    if not ops:
+        fail(f"{label} profile: torch.profiler recorded no device time")
+    busy = sum(us for us, _, _ in ops)
+    share = {k: sum(us for us, key, _ in ops if tag in key) / busy
+             for k, tag in (("k4", "gather_rows_kernel"), ("k5", "scatter_rows_kernel"),
+                            ("k7", "edge_"))}
+    out = dict(steps=n, wall_ms_per_step=wall_us / 1e3 / n, device_ms_per_step=busy / 1e3 / n,
+               device_ops_per_step=sum(c for _, _, c in ops) / n,
+               idle_share=1.0 - busy / wall_us, **{f"{k}_share": v for k, v in share.items()})
+    print(f"{label} profile {n} steps: {out}")
+    for us, name, count in ops[:15]:
+        print(f"  {us / 1e3 / n:10.4f} ms/step  {count / n:6.1f} launches/step  "
+              f"{100.0 * us / busy:5.1f}%  {name[:90]}")
+    return out
+
+
+def packed_train_phase(torch, np, G, S):
+    """BPRMF through Trainer(train_path="packed") at full width: route
+    checks, one 200-step epoch through K4 and K5, a profile."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+    from fashionvisualexpl_tpu_torch.train import packed_generic as PG
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    pairs, items, counts = make_scaled_arrays(TRAIN_U, TRAIN_I, TRAIN_POS, seed=0)
+    data = types.SimpleNamespace(
+        num_items=TRAIN_I, num_train=len(pairs), train_pairs=pairs, padded_pos=items,
+        pos_counts=counts, steps_per_epoch=lambda b: len(pairs) // b)
+    model = BPRMF(TRAIN_U, TRAIN_I, embed_k=EMBED_K,
+                  generator=torch.Generator(device=dev).manual_seed(16))
+    cfg = TrainConfig(batch_size=TRAIN_B, lr=TRAIN_LR, reg=TRAIN_REG, train_path="packed")
+    trainer = Trainer(model, data, cfg)
+    tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+    torch.cuda.synchronize()
+    print(f"packed train setup (arrays + model): {time.perf_counter() - t0!r} s")
+
+    triples = sample_triplets(1, *tabs, TRAIN_I, PACKED_ROUTE_STEPS, TRAIN_B)
+    route = {}
+    for md, catchup in (("float32", True), ("float32", False), ("bfloat16", True),
+                        ("float8", True)):
+        label = f"packed route {md}{'' if catchup else ' no catch-up'}"
+        t0 = time.perf_counter()
+        kern = PG.pack_generic_state(model, dict(model.named_parameters()), moment_dtype=md)
+        plain = to_cpu_state(torch, PG, kern)
+        step = PG.make_generic_packed_step(model, TRAIN_LR, TRAIN_REG, moment_dtype=md,
+                                           lazy_catchup=catchup)
+        losses = []
+        for s in range(PACKED_ROUTE_STEPS):
+            batch = tuple(t[s] for t in triples)
+            kern, lk = step(kern, (None, batch, None))
+            plain, lp = step(plain, (None, tuple(t.cpu() for t in batch), None))
+            lk, lp = float(lk), float(lp)
+            if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+                fail(f"{label} step {s}: loss {lk!r} (kernels) vs {lp!r} (plain)")
+            losses.append((lk, lp))
+        err, beyond = packed_route_check(torch, PG, label, kern, plain, model.packed_spec(),
+                                         md, PACKED_ROUTE_STEPS, TRAIN_LR)
+        route[label] = dict(max_abs_err=err, beyond=beyond, s=time.perf_counter() - t0)
+        print(f"{label}: {PACKED_ROUTE_STEPS} full-width steps, card vs CPU copies, losses "
+              f"{losses}; max_abs_err={err!r}, {beyond} values one code or drift apart; tau, "
+              f"pads and untouched rows bit-equal ok")
+        del kern, plain
+        torch.cuda.empty_cache()
+
+    # main path: one epoch of 200 steps through K4 and K5
+    state, frozen = trainer.init_state()
+    epoch_fn = PG.make_generic_packed_epoch_fn(
+        model, TRAIN_LR, TRAIN_REG, TRAIN_I, PACKED_STEPS, TRAIN_B,
+        with_replacement=cfg.sampling_scheme, moment_dtype=cfg.moment_dtype,
+        lazy_catchup=cfg.lazy_catchup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the state, the tables, earlier phases' leftovers
+    G.gather_rows.launches = S.scatter_rows_set.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    inner, loss = epoch_fn(state.inner, frozen, 100, *tabs)
+    loss = float(loss)  # waits for the epoch
+    dt = time.perf_counter() - t0
+    launches = {"gather_rows": G.gather_rows.launches,
+                "scatter_rows_set": S.scatter_rows_set.launches}  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {"gather_rows": 4 * PACKED_STEPS, "scatter_rows_set": 2 * PACKED_STEPS}
+    if launches != want:
+        fail(f"packed main path launched {launches}, expected {want}")
+    if not np.isfinite(loss) or int(inner.step) != PACKED_STEPS:
+        fail(f"packed epoch: loss {loss!r}, step {int(inner.step)}")
+    summary = dict(steps=PACKED_STEPS, s=dt, triples_per_s=PACKED_STEPS * TRAIN_B / dt,
+                   ms_per_step=1e3 * dt / PACKED_STEPS, peak_gib=peak / 2**30,
+                   base_gib=base / 2**30, mean_loss=loss / PACKED_STEPS, route=route)
+    print(f"packed train main path: {PACKED_STEPS} steps in {dt!r} s (sampling included), "
+          f"triples_per_s={summary['triples_per_s']!r} ms_per_step={summary['ms_per_step']!r}"
+          f", peak {peak / 2**30!r} GiB (allocated at the start {base / 2**30!r}), "
+          f"launches {launches}")
+
+    state = state.with_inner(inner)
+    summary["profile"] = step_profile(
+        torch, "packed", lambda tr: trainer.run_steps(state, frozen, tr, step_key=300),
+        sample_triplets(200, *tabs, TRAIN_I, PACKED_PROFILE_STEPS, TRAIN_B),
+        PACKED_PROFILE_STEPS)
+    del trainer, model, state, inner, tabs
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def af_packed_phase(torch, np, G, S, E):
+    """AttentiveFashion through Trainer(train_path="packed") at its training
+    configuration: 2 steps (batch 1024) on the card against CPU copies with
+    the plain tower, then 20 steps at batch 8192 through K4, K5 and K7."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+    from fashionvisualexpl_tpu_torch.train import packed_generic as PG
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    pairs, items, counts = make_scaled_arrays(AF_U, AF_I, AF_POS, seed=0)
+    data = types.SimpleNamespace(
+        num_items=AF_I, num_train=len(pairs), train_pairs=pairs, padded_pos=items,
+        pos_counts=counts, steps_per_epoch=lambda b: len(pairs) // b)
+    model = af_model(torch, np, "auto", seed=17)
+    cfg = TrainConfig(batch_size=AF_B, lr=AF_LR, reg=AF_REG, train_path="packed")
+    trainer = Trainer(model, data, cfg)
+    if model.tower_route != "kernel":
+        fail(f"AttentiveFashion(edge_tower='auto') on the card took {model.tower_route}")
+    tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+    state, frozen = trainer.init_state()
+    # the plain route's model: the same weights and inputs on the CPU
+    cpu_model = AttentiveFashion(
+        AF_U, AF_I, model.Fc.cpu().numpy(), model.Fe_img.cpu().numpy(),
+        model.Fcls.cpu().numpy(), embed_k=EMBED_K, attention_layers=(64, 1),
+        encoder_hidden=256, dropout_rate=0.5, conv_filters=64, device="cpu")
+    torch.cuda.synchronize()
+    print(f"af packed setup (arrays, features, models): {time.perf_counter() - t0!r} s")
+
+    t0 = time.perf_counter()
+    plain = to_cpu_state(torch, PG, state.inner)
+    kern = state.inner
+    steps = [PG.make_generic_packed_step(m, AF_LR, AF_REG, lazy_catchup=True)
+             for m in (model, cpu_model)]
+    triples = sample_triplets(1, *tabs, AF_I, AF_PACKED_ROUTE_STEPS, AF_PACKED_ROUTE_B)
+    gen = torch.Generator().manual_seed(18)
+    losses = []
+    for s in range(AF_PACKED_ROUTE_STEPS):
+        batch = tuple(t[s] for t in triples)
+        masks = [torch.rand(AF_PACKED_ROUTE_B, w, generator=gen) < 0.5
+                 for w in (256, 64, 256) * 2]
+        kern, lk = steps[0](kern, (None, batch, [m.cuda() for m in masks]))
+        plain, lp = steps[1](plain, (None, tuple(t.cpu() for t in batch), masks))
+        lk, lp = float(lk), float(lp)
+        if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+            fail(f"af packed route step {s}: loss {lk!r} (kernels) vs {lp!r} (plain)")
+        losses.append((lk, lp))
+    err, beyond = packed_route_check(torch, PG, "af packed route", kern, plain,
+                                     model.packed_spec(), "float32", AF_PACKED_ROUTE_STEPS,
+                                     AF_LR)
+    route_s = time.perf_counter() - t0
+    print(f"af packed route: {AF_PACKED_ROUTE_STEPS} steps at batch {AF_PACKED_ROUTE_B} "
+          f"(full tables), card (K4, K5, K7) vs CPU copies (plain rows, plain tower), the "
+          f"same masks: losses {losses}; max_abs_err={err!r}, {beyond} params exempt "
+          f"(tiny sqrt(v_hat)); {route_s!r} s")
+    del plain, cpu_model, kern
+    torch.cuda.empty_cache()
+
+    state, frozen = trainer.init_state()
+    triples = sample_triplets(2, *tabs, AF_I, AF_PACKED_STEPS + 1, AF_B)
+    # one step first at batch 8192 (allocations, library handles), untimed
+    state, _ = trainer.run_steps(state, frozen, tuple(t[:1] for t in triples), step_key=199)
+    triples = tuple(t[1:] for t in triples)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    state, loss = trainer.run_steps(state, frozen, triples, step_key=200)
+    loss = float(loss)
+    dt = time.perf_counter() - t0
+    launches = {"gather_rows": G.gather_rows.launches,
+                "scatter_rows_set": S.scatter_rows_set.launches,
+                "edge_tower_fwd": E.edge_tower_fwd.launches,
+                "edge_tower_bwd": E.edge_tower_bwd.launches}  # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    n = AF_PACKED_STEPS
+    want = {"gather_rows": 4 * n, "scatter_rows_set": 2 * n, "edge_tower_fwd": 2 * n,
+            "edge_tower_bwd": 2 * n}
+    if launches != want:
+        fail(f"af packed main path launched {launches}, expected {want}")
+    if not np.isfinite(loss):
+        fail(f"af packed main path loss {loss!r}")
+    summary = dict(steps=n, s=dt, ms_per_step=1e3 * dt / n, triples_per_s=n * AF_B / dt,
+                   peak_gib=peak / 2**30, base_gib=base / 2**30, mean_loss=loss / n,
+                   route_max_abs_err=err,
+                   route_exempt=beyond, route_losses=losses)
+    print(f"af packed main path: {n} steps in {dt!r} s, ms_per_step={summary['ms_per_step']!r}"
+          f" triples_per_s={summary['triples_per_s']!r}, peak {peak / 2**30!r} GiB "
+          f"(allocated at the start {base / 2**30!r}), launches {launches}")
+    summary["profile"] = step_profile(
+        torch, "af packed", lambda tr: trainer.run_steps(state, frozen, tr, step_key=300),
+        sample_triplets(3, *tabs, AF_I, AF_PROFILE_STEPS, AF_B), AF_PROFILE_STEPS)
+    del trainer, model, state, triples, tabs
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def packed_cli_phase(torch, np, counts, segmax, G, S):
+    """train_rec --rec bprmf --train_path packed --streaming_eval, then
+    serve_rec from its checkpoint, in process, on the CLI dataset."""
+    import glob
+    import pickle
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    write_reference_dataset(np, CLI_DIR / "cli")
+    results = CLI_DIR / "results"
+    common = ["--rec", "bprmf", "--dataset", "cli", "--data_root", str(CLI_DIR),
+              "--results_root", str(results), "--embed_k", str(EMBED_K),
+              "--top_k", str(CLI_K)]
+    served = CLI_DIR / "served.tsv"
+    users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
+    G.gather_rows.launches = S.scatter_rows_set.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    train(common + ["--train_path", "packed", "--streaming_eval", "--epochs", "2",
+                    "--verbose", "1", "--batch_size", str(PACKED_CLI_B)])
+    train_s = time.perf_counter() - t0
+    (ckpt,) = glob.glob(str(results / "rec_model_weights" / "cli" / "bprmf" / "ckpt-*"))
+    t0 = time.perf_counter()
+    serve(common + ["--ckpt", ckpt, "--users", users, "--output", str(served)])
+    serve_s = time.perf_counter() - t0
+    launches = {"gather_rows": G.gather_rows.launches,
+                "scatter_rows_set": S.scatter_rows_set.launches,
+                "counts": counts.counts_kernel.launches,
+                "segmax_scores": segmax.segmax_scores.launches}  # main path ends here
+    steps = 2 * (CLI_U * (CLI_PER_USER - 2) // PACKED_CLI_B)
+    if (launches["gather_rows"], launches["scatter_rows_set"]) != (4 * steps, 2 * steps) \
+            or not all(launches.values()):
+        fail(f"the packed CLI launched {launches}, expected {4 * steps} K4 and {2 * steps} "
+             f"K5 and the evaluation and serving kernels")
+    rdir = results / "rec_results" / "cli" / "bprmf"
+    for pattern in ("recs-2-*.tsv", "best-recs-*.tsv"):
+        (path,) = glob.glob(str(rdir / pattern))
+        with open(path) as f:
+            n_rows = sum(1 for _ in f)
+        if n_rows != CLI_U * CLI_K:
+            fail(f"packed CLI {pattern}: {n_rows} rows, expected {CLI_U * CLI_K}")
+    with open(served) as f:
+        n_served = sum(1 for _ in f)
+    (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+    with open(pkl, "rb") as f:
+        per_epoch = pickle.load(f)
+    vals = np.array([v for m in per_epoch.values() for v in m.values()])
+    if n_served != CLI_SERVE_USERS * CLI_K or sorted(per_epoch) != [1, 2] or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"packed CLI: served {n_served} rows, metrics {per_epoch}")
+    print(f"packed cli: train_rec {train_s!r} s, serve_rec {serve_s!r} s; launches {launches}"
+          f"; metrics epoch 2 {per_epoch[2]}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches, dict(train_s=train_s, serve_s=serve_s, metrics=per_epoch[2])
+
+
 def main() -> int:
     if not (PKG / "ops" / "csrc" / "segmax.cu").is_file():
         print("chip_smoke: run from a checkout of the repository "
@@ -1597,6 +2123,8 @@ def main() -> int:
         topk,
     )
     from fashionvisualexpl_tpu_torch.ops import edge_tower as E
+    from fashionvisualexpl_tpu_torch.ops import gather as G
+    from fashionvisualexpl_tpu_torch.ops import row_scatter as S
 
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1624,6 +2152,10 @@ def main() -> int:
     tower_rows = tower_kernel_phase(torch, E)
     af_launches, af_train = af_train_phase(torch, np, E)
     af_cli_launches, af_cli = af_path_phase(torch, np, E)
+    row_rows = row_kernel_phase(torch, G, S)
+    packed_launches, packed = packed_train_phase(torch, np, G, S)
+    af_packed_launches, af_packed = af_packed_phase(torch, np, G, S, E)
+    packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
 
     main_row = rows[4096]
     kernels = [{
@@ -1663,10 +2195,21 @@ def main() -> int:
             "launches": af_launches[name], **tower_rows[name],
             "cli_launches": af_cli_launches[name],
         })
+    for name, source, line in (("gather_rows", "gather.cu", "gather.py:22"),
+                               ("scatter_rows_set", "row_scatter.cu", "row_scatter.py:29")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fashionvisualexpl_tpu_torch/ops/csrc/{source}",
+            "replaces": f"fashionvisualexpl_tpu/ops/{line}",
+            "launches": packed_launches[name], **row_rows[name],
+            "af_launches": af_packed_launches[name], "cli_launches": packed_cli_launches[name],
+            "bench": row_rows["bench_" + name.split("_")[0]],
+        })
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
     print(json.dumps({"train": train, "fit": fitted}))
     print(json.dumps({"eval": evaluated, "cli": cli}))
     print(json.dumps({"af_train": af_train, "af_cli": af_cli}))
+    print(json.dumps({"packed": packed, "af_packed": af_packed, "packed_cli": packed_cli}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

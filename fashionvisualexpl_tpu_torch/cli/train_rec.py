@@ -14,10 +14,11 @@ class one-hots and the edge tiffs at ``--edge_hw``; the edge tower K7 on the
 card; after the plain dumps the attention dumps ``att-recs-<E>-<tag>.tsv``
 and ``best-att-recs-<best>-<tag>.tsv``).  A model without
 ``factored_eval`` is evaluated by the dense ``Evaluator`` even with
-``--streaming_eval``, as in the JAX package.  Every other ``--rec``,
-``--train_path packed``, ``--streamed``, ``--compute_dtype bfloat16`` for
-attentive_fashion and a mesh raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--streaming_eval``, as in the JAX package.  ``--train_path packed``
+trains either model on the packed LazyAdam engine (``--moment_dtype``,
+``--row_align`` and ``--lazy_catchup`` honoured).  Every other ``--rec``,
+``--streamed``, ``--compute_dtype bfloat16`` for attentive_fashion and a
+mesh raise ``NotImplementedError`` naming their ROADMAP item.
 
 Usage:
   python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
@@ -250,10 +251,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"--rec {args.rec} is not ported yet "
             f"(ROADMAP item {_LATER_MODELS[args.rec]})"
-        )
-    if args.train_path == "packed":
-        raise NotImplementedError(
-            "--train_path packed is not ported yet (ROADMAP item 4)"
         )
     if args.streamed:
         raise NotImplementedError("--streamed is not ported yet (ROADMAP item 12)")

@@ -16,14 +16,18 @@ these.
 ``restore(template)`` copies the saved values INTO the template's tensors
 (in place, keeping their devices) and returns the template: the generic
 trainer's state holds the model's own parameters, so a restored state is
-the model's state too.
+the model's state too.  The packed engine's ``GenericPackedTrainState``
+saves its step, packed user and item rows and dense (p, m, v), bit for
+bit, and its ``moment_dtype`` as a string leaf, which a restore must find
+equal to the template's (a row_align-padded layout cannot be read under
+another moment layout).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -32,11 +36,16 @@ BEST_DIR = "best-state"
 BEST_FILE = "params.pt"
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Path -> tensor over nested NamedTuples, dicts, lists and tuples."""
-    if isinstance(tree, torch.Tensor):
+Leaf = Union[torch.Tensor, str]
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Leaf]:
+    """Path -> tensor (or string) over nested NamedTuples, dicts, lists and
+    tuples; an object with ``_fields`` (a NamedTuple, or a state naming what
+    it checkpoints) by those fields."""
+    if isinstance(tree, (torch.Tensor, str)):
         return {prefix: tree}
-    if hasattr(tree, "_fields"):  # NamedTuple
+    if hasattr(tree, "_fields"):
         items = ((f, getattr(tree, f)) for f in tree._fields)
     elif isinstance(tree, dict):
         items = tree.items()
@@ -44,14 +53,15 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
         items = enumerate(tree)
     else:
         raise TypeError(f"cannot checkpoint a {type(tree).__name__} at {prefix!r}")
-    out: Dict[str, torch.Tensor] = {}
+    out: Dict[str, Leaf] = {}
     for key, sub in items:
         out.update(_flatten(sub, f"{prefix}/{key}" if prefix else str(key)))
     return out
 
 
 def _save(tree: Any, path: str) -> None:
-    flat = {k: v.detach().cpu() for k, v in _flatten(tree).items()}
+    flat = {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in _flatten(tree).items()}
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(flat, tmp)
     os.replace(tmp, path)  # a crash never leaves a half-written checkpoint
@@ -68,6 +78,10 @@ def _restore_into(template: Any, path: str) -> Any:
         )
     for key, dst in flat.items():
         src = saved[key]
+        if isinstance(dst, str) or isinstance(src, str):
+            if src != dst:
+                raise ValueError(f"checkpoint {path}: {key} is {src!r}, the template {dst!r}")
+            continue
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(
                 f"checkpoint {path}: {key} is {src.dtype}{tuple(src.shape)}, "

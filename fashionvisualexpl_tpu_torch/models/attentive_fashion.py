@@ -32,10 +32,13 @@ sequence of bool tensors consumed in a fixed order: positives then
 negatives, each color [B, hidden], edges [B, filters], class [B, hidden]),
 which is how the parity tests feed in JAX's draws.
 
+``packed_spec`` / ``packed_loss`` put the model on the packed LazyAdam
+engine (Gu and Gi in the packed rows, the encoders and the attention as
+dense groups).
+
 Not ported yet: ``compute_dtype="bfloat16"`` (bf16 towers and a bf16 K7,
 ROADMAP item 16), ``host_features`` with ``loss_streamed`` (the streamed
-trainer, item 12), ``packed_spec`` / ``packed_loss`` (the packed engine,
-item 4); each raises ``NotImplementedError``.
+trainer, item 12); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from fashionvisualexpl_tpu_torch.core.precision import (
     resolve_compute_dtype,
 )
 from fashionvisualexpl_tpu_torch.models.base import (
+    PackedSpec,
     RecommenderModel,
     bpr_pairwise_loss,
     glorot_uniform,
@@ -314,9 +318,13 @@ class AttentiveFashion(RecommenderModel):
         encoder outputs after dropout, attention matrices; each times 2).
         ``rng``: a generator or the six keep-masks (module docstring)."""
         p = dict(self.named_parameters())
-        gamma_u = self.Gu[users]
-        gamma_pos = self.Gi[pos]
-        gamma_neg = self.Gi[neg]
+        return self._bpr_loss(p, self.Gu[users], self.Gi[pos], self.Gi[neg],
+                              pos, neg, reg, rng)
+
+    def _bpr_loss(self, p, gamma_u, gamma_pos, gamma_neg, pos, neg, reg,
+                  rng: Dropout) -> torch.Tensor:
+        """The loss from the batch rows and the encoder / attention params
+        ``p`` (dotted names); shared by ``loss`` and ``packed_loss``."""
         draw = self._draw(rng)
         e_pos = self._encode_ids(p, pos, draw)  # [B, 3, K]
         e_neg = self._encode_ids(p, neg, draw)
@@ -337,6 +345,28 @@ class AttentiveFashion(RecommenderModel):
             + self.global_reg_scale * reg * sum(l2_loss(v) for v in att.values()) * 2.0
         )
         return loss + reg_loss
+
+    # --- packed LazyAdam engine (train/packed_generic.py) ---
+
+    def packed_spec(self) -> PackedSpec:
+        """Gu and Gi in the packed rows, the encoders and the attention as
+        dense groups."""
+        return PackedSpec(
+            user_tables=(("Gu", self.embed_k),),
+            item_tables=(("Gi", self.embed_k),),
+            item_scalars=(),
+            dense=("color_enc", "class_enc", "edges_enc", "attention"),
+        )
+
+    def packed_loss(self, user_vw, pos_vw, neg_vw, dense, frozen, ids,
+                    reg, rng: Dropout = None) -> torch.Tensor:
+        """``loss`` over the gathered rows: ``dense`` holds the encoder and
+        attention params by their dotted names; dropout is drawn as
+        ``loss`` draws it (positives, then negatives); ``frozen`` is unused
+        (the model reads its own buffers)."""
+        _, pos, neg = ids
+        return self._bpr_loss(dense, user_vw["Gu"], pos_vw["Gi"], neg_vw["Gi"],
+                              pos, neg, reg, rng)
 
     # --- inference ---
 

@@ -10,16 +10,38 @@ takes an explicit ``torch.Generator``; JAX's threefry draws cannot be
 reproduced, so parity tests carry JAX's params across with
 ``models/convert.py`` instead.
 
-Not ported yet: ``PackedSpec`` — it comes with the packed engine.
+A model opts into the packed LazyAdam engine (``train/packed_generic.py``)
+with ``packed_spec`` and ``packed_loss``; the base versions raise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+
+class PackedSpec(NamedTuple):
+    """How a model's params map onto the packed-row engine
+    (``train/packed_generic.py``): user/item row tables (name, width), item
+    scalars folded into the item rows, and dense-Adam params (a parameter
+    name, or a group prefix such as ``"color_enc"`` for all of
+    ``"color_enc.*"``).
+
+    ``extra_items`` > 0 declares that the loss reads E more item rows per
+    batch element (ACF's profile over each user's positives);
+    ``frozen_item_tables`` names per-item frozen feature tables (name,
+    flattened width) that the engine may fold into the packed item rows.
+    Neither is set by a model the port has yet (ROADMAP items 8-9)."""
+
+    user_tables: Tuple[Tuple[str, int], ...]
+    item_tables: Tuple[Tuple[str, int], ...]
+    item_scalars: Tuple[str, ...]
+    dense: Tuple[str, ...]
+    extra_items: int = 0
+    frozen_item_tables: Tuple[Tuple[str, int], ...] = ()
 
 
 def l2_loss(x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +115,36 @@ class RecommenderModel(nn.Module):
         self, params: Optional[Mapping[str, torch.Tensor]]
     ) -> Mapping[str, torch.Tensor]:
         return dict(self.named_parameters()) if params is None else params
+
+    # --- packed LazyAdam engine (train/packed_generic.py), optional ---
+
+    def packed_spec(self) -> PackedSpec:
+        """Row/dense layout for the packed engine; models that support
+        ``train_path='packed'`` override this together with
+        ``packed_loss``."""
+        raise NotImplementedError(
+            f"{self.name} does not implement the packed fast path"
+        )
+
+    def packed_loss(self, user_vw, pos_vw, neg_vw, dense, frozen, ids,
+                    reg, rng=None, extra_vw=None):
+        """``loss`` over gathered row views: ``user_vw`` / ``pos_vw`` /
+        ``neg_vw`` map table names to [B, width] (scalars to [B]) slices of
+        the packed rows; ``dense`` maps the dense params' names (dotted, as
+        ``params=`` of the scoring methods takes them) to tensors;
+        ``frozen`` is the model's buffers; ``ids = (users, pos, neg)``
+        (int64) lets the model gather its own inputs; ``rng`` the step's
+        dropout generator.  Must mirror ``loss`` exactly."""
+        raise NotImplementedError(
+            f"{self.name} does not implement the packed fast path"
+        )
+
+    def packed_extra_item_ids(self, frozen, ids):
+        """[B, extra_items] int32 item ids the loss reads beyond pos/neg
+        (only when ``packed_spec().extra_items > 0``: ACF)."""
+        raise NotImplementedError(
+            f"{self.name} does not implement the packed fast path"
+        )
 
     def precompute_eval(self, params: Optional[Mapping[str, torch.Tensor]] = None):
         """Optional once-per-evaluation precomputation, passed to

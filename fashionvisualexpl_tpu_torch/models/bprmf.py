@@ -3,9 +3,9 @@
 
 Scoring x_ui = b_i + <gamma_u, gamma_i>, full matrix Bi + Gu @ Gi^T, and
 the BPR loss with its reference quirks (BPRMF.py:104-112): clip(-80, 1e8) on
-the score difference and the negative item bias regularised at reg/10.
-Not ported yet: ``packed_spec`` and ``packed_loss`` — they come with the
-packed engine.
+the score difference and the negative item bias regularised at reg/10.  ``packed_spec`` /
+``packed_loss`` put it on the packed LazyAdam engine: Gu in the user rows,
+Gi with Bi folded into the item rows.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from torch import nn
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 from fashionvisualexpl_tpu_torch.models.base import (
+    PackedSpec,
     RecommenderModel,
     bpr_pairwise_loss,
     glorot_uniform,
@@ -93,6 +94,32 @@ class BPRMF(RecommenderModel):
             + reg * l2_loss(beta_neg) * 2.0 / 10.0
         )
         return loss + reg_loss
+
+    # --- packed LazyAdam engine (train/packed_generic.py) ---
+
+    def packed_spec(self) -> PackedSpec:
+        return PackedSpec(
+            user_tables=(("Gu", self.embed_k),),
+            item_tables=(("Gi", self.embed_k),),
+            item_scalars=("Bi",),
+            dense=(),
+        )
+
+    def packed_loss(self, user_vw, pos_vw, neg_vw, dense, frozen, ids,
+                    reg, rng=None):
+        """``loss`` over the gathered rows (the same terms, the same
+        order)."""
+        gu = user_vw["Gu"]
+        gp, gn = pos_vw["Gi"], neg_vw["Gi"]
+        bp, bn = pos_vw["Bi"], neg_vw["Bi"]
+        x_pos = bp + torch.sum(gu * gp, dim=1)
+        x_neg = bn + torch.sum(gu * gn, dim=1)
+        loss = bpr_pairwise_loss(x_pos, x_neg)
+        return loss + (
+            reg * (l2_loss(gu) + l2_loss(gp) + l2_loss(gn)) * 2.0
+            + reg * l2_loss(bp) * 2.0
+            + reg * l2_loss(bn) * 2.0 / 10.0
+        )
 
     def factored_eval(
         self, params: Optional[Mapping[str, torch.Tensor]] = None

@@ -5,9 +5,10 @@ The JAX package's params are a dict of arrays (nested for the encoder
 models); hand them over as numpy (``{k: np.asarray(v) for k, v in
 params.items()}``, or ``jax.tree.map(np.asarray, params)``) so this module
 needs no JAX.  Nested groups become the port's dotted parameter names
-(``params["color_enc"]["W1"]`` -> ``"color_enc.W1"``).  The copy is exact, so both packages then compute on the same weights,
-and a mid-run optimizer state (step, moments, last-touch steps) carries
-across as well.
+(``params["color_enc"]["W1"]`` -> ``"color_enc.W1"``).  The copy is exact,
+so both packages then compute on the same weights, and a mid-run optimizer
+state (step, moments, last-touch steps, packed rows with their bit-packed
+moment columns) carries across as well.
 """
 
 from __future__ import annotations
@@ -146,3 +147,26 @@ def train_state_from_jax(
         _count(step, dev), dict(model.named_parameters()),
         AdamState(_count(count, dev), _tensors(mu, dev), _tensors(nu, dev)),
     )
+
+
+def generic_packed_state_from_jax(jax_state, spec, device: DeviceLike = None):
+    """The port's ``GenericPackedState`` holding exactly a JAX
+    ``GenericPackedState`` (``jax.tree.map(np.asarray, state)``): the step,
+    the packed user and item rows bit for bit (bf16 and fp8 moment columns
+    included) and, for each of ``spec.dense``, (p, m, v) as a tensor or, for
+    a nested group, ``{member: tensor}`` with dotted member names."""
+    from fashionvisualexpl_tpu_torch.train.packed_generic import GenericPackedState
+
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.require(np.asarray(a), requirements=["C", "W"])).to(dev)
+
+    def entry(x):
+        if isinstance(x, dict):
+            return {k: tensor(v) for k, v in flatten_params(x).items()}
+        return tensor(x)
+
+    dense = {name: tuple(entry(x) for x in jax_state.dense[name]) for name in spec.dense}
+    return GenericPackedState(_count(jax_state.step, dev), tensor(jax_state.user_pmv),
+                              tensor(jax_state.item_pmv), dense)

@@ -21,7 +21,8 @@ Each flag off is the JAX package's own XLA route, in plain torch.
 The state is updated IN PLACE (JAX donates it): a step returns the same
 tensors.  Ids are int32 at the boundary; ``compact_row_grads`` pads unused
 segments with an out-of-range id, and every scatter here redirects those
-pads (``pad_safe_ids``) so torch indexing never sees them.
+pads (``pad_safe_ids``) so torch indexing never sees them (the packed
+engine drops them instead).
 
 Not ported yet: ``make_fast_vbpr_step`` — it comes with VBPR.
 """
@@ -102,9 +103,15 @@ def compact_row_grads(
 def pad_safe_ids(uids: torch.Tensor, n_rows: int) -> torch.Tensor:
     """int64 row ids for torch indexing: the out-of-range pads of
     ``compact_row_grads`` are redirected to the first segment's id, which
-    is always a real row.  JAX drops those scatter updates and clamps those
-    gathers; here a pad adds a zero gradient to a real row, or (lazy path)
-    writes the same value as that row's own segment."""
+    is always a real row.  JAX drops those scatter updates, and its
+    ``take`` returns NaN rows for those gathers (it does not clamp them);
+    here a pad adds a zero gradient to a real row, or (lazy path) writes
+    the same value as that row's own segment, whose result it masks in.
+
+    The packed engine (``train/packed_generic.py``) must not use it: its
+    row scatter (K5) takes unique ids and drops out-of-range ones, and a
+    redirected pad would be a duplicate id writing a different row (the
+    pad's own update on a zero gradient, with its own tau) in a race."""
     uids = uids.long()
     return torch.where(uids < n_rows, uids, uids[:1])
 

@@ -10,6 +10,11 @@ once per epoch.  Step s of an epoch draws its dropout from a generator
 seeded with ``fold_in(step_key, s)``, the role of JAX's ``split(step_key,
 steps)``; models without stochastic layers ignore it.
 
+``train_path="packed"`` runs the packed LazyAdam engine
+(``train/packed_generic.py``) instead: the same epoch sampling and per-step
+dropout generators, the state a ``GenericPackedTrainState`` whose
+``.params`` materialises the standard mapping for ``fit``.
+
 ``fit`` keeps the JAX package's run structure: the seed splits into an init
 draw and an epoch draw, each epoch's sampler seed is derived from (epoch
 draw, epoch), best-params tracking takes the later epoch on a tie, and
@@ -21,8 +26,8 @@ epochs and at epoch 1 and the best params at the end
 (``core/checkpoint.py``); ``resume=True`` restores the latest checkpoint
 and continues from the next epoch.
 
-Not ported yet: ``train_path="packed"`` (ROADMAP item 4) and the ``mesh``
-paths (item 13); each raises ``NotImplementedError``.
+Not ported yet: the ``mesh`` paths (ROADMAP item 13), generic or packed;
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -89,13 +94,12 @@ class Trainer:
             raise NotImplementedError(
                 "multi-device training is not ported yet (ROADMAP item 13)"
             )
-        if cfg.train_path == "packed":
-            raise NotImplementedError(
-                "train_path='packed' is not ported yet (ROADMAP item 4)"
-            )
-        if cfg.train_path != "generic":
+        if cfg.train_path not in ("generic", "packed"):
             raise ValueError(f"unknown train_path {cfg.train_path!r}")
         self.device = resolve_device(model.device)
+        self._packed_step = None  # the packed engine's step when it is on
+        if cfg.train_path == "packed":
+            self._packed_step = self._build_packed_step()
 
         # device-resident sampler tables.  When the pair list is exactly the
         # row-major flattening of padded_pos (uniform counts, sorted stored
@@ -129,11 +133,37 @@ class Trainer:
 
         return epoch_fn
 
+    def _build_packed_step(self) -> Callable:
+        """The packed engine's step for this model and config."""
+        from fashionvisualexpl_tpu_torch.train.packed_generic import (
+            make_generic_packed_step,
+        )
+
+        model, cfg = self.model, self.cfg
+        try:
+            model.packed_spec()
+        except NotImplementedError as e:
+            raise NotImplementedError(
+                f"train_path='packed' requires packed_spec/packed_loss; "
+                f"{model.name} does not implement them"
+            ) from e
+        # a model declaring frozen item tables raises there (items 8-9)
+        return make_generic_packed_step(
+            model, cfg.lr, cfg.reg, fused_frozen=cfg.fused_frozen,
+            moment_dtype=cfg.moment_dtype, lazy_catchup=cfg.lazy_catchup,
+        )
+
     def run_steps(self, state: TrainState, frozen, triples, step_key: int):
         """The optimizer steps over one epoch's triples ([steps, batch]
         each); returns (state, summed loss as a 0-d device tensor).  Step
-        s passes ``model.loss`` a generator on the device seeded with
-        ``fold_in(step_key, s)``."""
+        s passes ``model.loss`` (or ``packed_loss``) a generator on the
+        device seeded with ``fold_in(step_key, s)``."""
+        if self._packed_step is not None:
+            from fashionvisualexpl_tpu_torch.train.packed_generic import run_packed_steps
+
+            inner, loss = run_packed_steps(self._packed_step, state.inner, frozen,
+                                           triples, step_key)
+            return state.with_inner(inner), loss
         del frozen  # the model reads its own buffers
         users, pos, neg = (t.long() for t in triples)
         reg = self.cfg.reg
@@ -153,12 +183,25 @@ class Trainer:
     def init_state(self, seed: Optional[int] = None):
         """(TrainState, frozen).  With a ``seed`` the model's parameters are
         drawn anew from it (JAX's ``model.init(rng)``); without one they are
-        kept as they are (e.g. carried over by ``models/convert.py``)."""
+        kept as they are (e.g. carried over by ``models/convert.py``).  On
+        the packed path the state is a ``GenericPackedTrainState`` packed
+        from copies of them (``cfg.moment_dtype``, ``cfg.row_align``)."""
         if seed is not None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.model.reset_parameters(gen)
         params = dict(self.model.named_parameters())
         frozen = dict(self.model.named_buffers())
+        if self._packed_step is not None:
+            from fashionvisualexpl_tpu_torch.train.packed_generic import (
+                GenericPackedTrainState,
+                pack_generic_state,
+            )
+
+            packed = pack_generic_state(self.model, params,
+                                        moment_dtype=self.cfg.moment_dtype,
+                                        row_align=self.cfg.row_align)
+            return GenericPackedTrainState(packed, self.model.packed_spec(),
+                                           self.cfg.moment_dtype), frozen
         return create_train_state(params, self.tx), frozen
 
     def run_epoch(self, state: TrainState, frozen, key: int):
@@ -207,7 +250,7 @@ def fit(
 
         ckpt = CheckpointManager(ckpt_dir)
         if resume and ckpt.latest_step() is not None:
-            state = ckpt.restore(state)  # in place: the model's own params
+            state = ckpt.restore(state)  # in place (generic: the model's own params)
             start_epoch = int(ckpt.latest_step()) + 1
 
     results: Dict[int, Dict[str, float]] = {}

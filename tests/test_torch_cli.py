@@ -6,9 +6,10 @@ the same names (the best epoch in ``best-recs-<E>`` is each run's own: the
 two packages draw different inits), the same TSV format and row counts, the
 same JSONL and results-pickle keys, and the checkpoint directory of the
 same name.  Resume, the regularization sweep and serving from the
-checkpoint run end to end; ``validate_args`` gives the JAX parser's
-messages; the options of later slices raise; without ``--device`` and
-without a card the CLI raises."""
+checkpoint run end to end; so do ``--train_path packed`` runs (the same
+file set, resume byte-identical, the moment and row flags honoured);
+``validate_args`` gives the JAX parser's messages; the options of later
+slices raise; without ``--device`` and without a card the CLI raises."""
 
 import glob
 import json
@@ -103,18 +104,60 @@ def test_cli_reg_sweep(dataset_dir):
     assert len(glob.glob(os.path.join(rdir, "recs-2-*.tsv"))) == 2
 
 
+def _resume_matches_uninterrupted(dataset_dir, results, packed=()):
+    common = ("--verbose", "2", "--streaming_eval", *packed)
+    rdir = os.path.join(dataset_dir, results, "rec_results", "synthetic", "bprmf")
+    pcli.train(_argv(dataset_dir, results, common) + ["--epochs", "4"])
+    full = open(glob.glob(os.path.join(rdir, "recs-4-*.tsv"))[0]).read()
+    shutil.rmtree(os.path.join(dataset_dir, results))
+    pcli.train(_argv(dataset_dir, results, common))
+    pcli.train(_argv(dataset_dir, results, common) + ["--epochs", "4", "--resume"])
+    assert open(glob.glob(os.path.join(rdir, "recs-4-*.tsv"))[0]).read() == full
+
+
 def test_cli_resume_matches_uninterrupted(dataset_dir):
     """Interrupted at epoch 2 and resumed to 4 (``--verbose 2`` puts a
     checkpoint at the cut): the final dump is byte-identical to an
     uninterrupted 4-epoch run's."""
-    common = ("--verbose", "2", "--streaming_eval")
-    rdir = os.path.join(dataset_dir, "resume", "rec_results", "synthetic", "bprmf")
-    pcli.train(_argv(dataset_dir, "resume", common) + ["--epochs", "4"])
-    full = open(glob.glob(os.path.join(rdir, "recs-4-*.tsv"))[0]).read()
-    shutil.rmtree(os.path.join(dataset_dir, "resume"))
-    pcli.train(_argv(dataset_dir, "resume", common))
-    pcli.train(_argv(dataset_dir, "resume", common) + ["--epochs", "4", "--resume"])
-    assert open(glob.glob(os.path.join(rdir, "recs-4-*.tsv"))[0]).read() == full
+    _resume_matches_uninterrupted(dataset_dir, "resume")
+
+
+def test_cli_packed_resume_matches_uninterrupted(dataset_dir):
+    """The same on the packed path, with bf16 moments in 128-aligned rows."""
+    _resume_matches_uninterrupted(dataset_dir, "resume-packed", (
+        "--train_path", "packed", "--moment_dtype", "bfloat16", "--row_align", "128"))
+
+
+@pytest.mark.parametrize("flags", [
+    ("--moment_dtype", "float32"),
+    ("--moment_dtype", "float8", "--row_align", "128", "--lazy_catchup", "0"),
+], ids=["fp32", "fp8-aligned-no-catchup"])
+def test_cli_packed_path_writes_the_jax_file_set(dataset_dir, jax_run, flags):
+    """``--train_path packed``: the JAX run's file set, the flags reaching
+    the packed state, and ``serve_rec`` from its checkpoint gives the best
+    dump's recommendations."""
+    from fashionvisualexpl_tpu_torch.core.checkpoint import STATE_FILE
+
+    results = "packed-" + flags[1]
+    pcli.train(_argv(dataset_dir, results, ("--streaming_eval", "--train_path", "packed",
+                                            *flags)))
+    port = _files(dataset_dir, results)
+    assert sorted(port) == sorted(jax_run)
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            _check_tsv(path, U * K_TOP)
+    (ckpt,) = [p for n, p in port.items() if "ckpt-" in n]
+    saved = torch.load(os.path.join(ckpt, "2", STATE_FILE), weights_only=True)
+    assert saved["moment_dtype"] == flags[1]
+    assert saved["inner/user_pmv"].shape[1] == (128 if "128" in flags else 8 + 16 + 1)
+    base = os.path.join(dataset_dir, results)
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "bprmf", "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(["--rec", "bprmf", "--dataset", "synthetic", "--data_root", dataset_dir,
+           "--results_root", base, "--embed_k", "8", "--top_k", str(K_TOP), "--ckpt", ckpt,
+           "--device", "cpu", "--users", "all", "--output", out])
+    served, dumped = _check_tsv(out, U * K_TOP), _check_tsv(best, U * K_TOP)
+    assert [r.split("\t")[:2] for r in served] == [r.split("\t")[:2] for r in dumped]
 
 
 def test_cli_serve_from_checkpoint(dataset_dir):
@@ -162,7 +205,8 @@ def test_validate_args_gives_the_jax_messages(argv):
 
 @pytest.mark.parametrize("extra,item", [
     (("--rec", "vbpr"), 8), (("--rec", "acf"), 9), (("--rec", "comp_vbpr"), 10),
-    (("--train_path", "packed"), 4), (("--rec", "attentive_fashion", "--streamed"), 12),
+    (("--train_path", "packed", "--mesh_data", "2"), 13),
+    (("--rec", "attentive_fashion", "--streamed"), 12),
     (("--mesh_data", "2"), 13),
 ])
 def test_options_of_later_slices_raise(dataset_dir, extra, item):

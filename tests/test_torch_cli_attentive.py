@@ -6,7 +6,8 @@ The port's run writes the file set of the JAX CLI's run (both attention
 dumps included, U x k rows each, six columns whose weights sum to 1);
 ``--batch_eval 7`` blocks the item encoding without changing the metrics
 (``tests/test_cli.py::test_cli_batch_eval_honored``); ``serve_rec`` serves
-the best params through the direct path, with the best dump's scores;
+the best params through the direct path, with the best dump's scores
+(also after ``--train_path packed``, whose run writes the same file set);
 ``--compute_dtype bfloat16`` and ``--streamed`` raise naming their ROADMAP
 items."""
 
@@ -123,3 +124,35 @@ def test_options_of_later_slices_raise(dataset_dir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         pcli.train(_argv(dataset_dir, "never", extra))
     assert not os.path.exists(os.path.join(dataset_dir, "never"))
+
+
+def test_cli_packed_path_writes_the_file_set_and_serves(dataset_dir):
+    """``--train_path packed`` (float8 moments, rows padded to 128): the
+    file set of the generic run, both attention dumps, and ``serve_rec``
+    from its checkpoint gives the best dump's recommendations."""
+    extra = ("--train_path", "packed", "--moment_dtype", "float8", "--row_align", "128")
+    pcli.train(_argv(dataset_dir, "packed", extra))
+    pcli.train(_argv(dataset_dir, "generic"))
+    port = _files(dataset_dir, "packed")
+    assert sorted(port) == sorted(_files(dataset_dir, "generic"))
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            rows = _rows(path, 6 if "att-recs" in name else 3)
+            if "att-recs" in name:
+                alphas = np.asarray([[float(x) for x in r[3:]] for r in rows])
+                np.testing.assert_allclose(alphas.sum(1), 1.0, rtol=1e-5)
+    metrics = _metrics(dataset_dir, "packed")
+    assert sorted(metrics) == [1, 2]
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for m in metrics.values()
+               for v in m.values())
+    base = os.path.join(dataset_dir, "packed")
+    (ckpt,) = glob.glob(os.path.join(base, "rec_model_weights", "synthetic",
+                                     "attentive_fashion", "ckpt-*"))
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "attentive_fashion",
+                                     "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(_argv(dataset_dir, "packed") + ["--ckpt", ckpt, "--users", "all", "--output", out])
+    served, dumped = _rows(out, 3), _rows(best, 3)
+    assert [r[:2] for r in served] == [r[:2] for r in dumped]
+    np.testing.assert_allclose([float(r[2]) for r in served],
+                               [float(r[2]) for r in dumped], rtol=1e-5, atol=1e-7)

@@ -16,7 +16,15 @@ score exact in f32, so any summation order gives the same bits).  K7 (the
 edge tower): forward rtol 1e-5, atol 1e-6 (25 taps and the pooled values
 summed in another order); gradients rtol 1e-4, atol 1e-5 + 1e-6 * S, S the
 sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
-backward runs bit-equal (no float atomics)."""
+backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
+scatter-set): bit-equal to their plain versions (compared as int32) at the
+packed rows' widths, aligned and not, with out-of-range, negative and pad
+ids.  The packed step on the card against the same step on CPU copies: 4
+K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
+rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
+the values may sit one stored moment code apart (``index_add_`` sums a
+row's duplicate gradients with atomics, in no fixed order, so a value at a
+bf16 or e5m2 rounding boundary may round the other way)."""
 
 import numpy as np
 import pytest
@@ -28,8 +36,11 @@ from fashionvisualexpl_tpu_torch.ops import adam as A
 from fashionvisualexpl_tpu_torch.ops import bpr as K1
 from fashionvisualexpl_tpu_torch.ops import counts as K2
 from fashionvisualexpl_tpu_torch.ops import edge_tower as K7
+from fashionvisualexpl_tpu_torch.ops import gather as K4
+from fashionvisualexpl_tpu_torch.ops import row_scatter as K5
 from fashionvisualexpl_tpu_torch.ops import segmax as S
 from fashionvisualexpl_tpu_torch.serve import RecServer
+from fashionvisualexpl_tpu_torch.train import packed_generic as PG
 from fashionvisualexpl_tpu_torch.train.fast import (
     init_fast_state,
     make_fast_bprmf_step,
@@ -350,3 +361,165 @@ def test_attentive_fashion_auto_takes_the_kernel_at_any_filter_count_on_card(cud
     got = models[0].encode_items()
     assert K7.edge_tower_fwd.launches - before == 1
     torch.testing.assert_close(got, models[1].encode_items(), rtol=1e-5, atol=1e-6)
+
+
+def _bit_table(dev, R, W, seed, offset=0):
+    """[R, W] float32 of random 32-bit patterns (NaNs and denormals among
+    them), its data ``offset`` words into a buffer (offset 1: not 16-byte
+    aligned)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randint(-2**31, 2**31 - 1, (R * W + offset,), device=dev, generator=g,
+                        dtype=torch.int32)
+    return buf[offset:].view(R, W).view(torch.float32)
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("width", [385, 388, 257, 259, 193, 195, 512, 2, 1])
+def test_row_kernels_copy_bits_like_their_plain_versions_on_card(cuda_device, width,
+                                                                   offset):
+    R, B = 1000, 300
+    table = _bit_table(cuda_device, R, width, seed=width, offset=offset)
+    g = torch.Generator(device=cuda_device).manual_seed(width + 1)
+    ids = torch.randint(0, R, (B,), device=cuda_device, generator=g, dtype=torch.int32)
+    ids[:6] = torch.tensor([2**30, -1, R, -R - 1, R - 1, 0], dtype=torch.int32)
+    before = (K4.gather_rows.launches, K5.scatter_rows_set.launches)
+    got = K4.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(K4.gather_rows_reference(table, ids)))
+
+    uids = torch.randperm(R, device=cuda_device, generator=g)[:B].to(torch.int32)
+    uids[:4] = torch.tensor([2**30, -1, R, -5], dtype=torch.int32)  # all dropped
+    vals = _bit_table(cuda_device, B, width, seed=width + 2, offset=offset)
+    kern, plain = table.clone(), table.clone()
+    assert K5.scatter_rows_set(kern, uids, vals) is kern
+    torch.cuda.synchronize()
+    K5.scatter_rows_set_reference(plain, uids, vals)
+    assert torch.equal(_bits(kern), _bits(plain))
+    assert (K4.gather_rows.launches - before[0], K5.scatter_rows_set.launches - before[1]) \
+        == (1, 1)
+
+
+@pytest.mark.cuda
+def test_row_kernels_reject_non_contiguous_and_bench_on_card(cuda_device):
+    """Strided tensors raise; the benches run at a small size."""
+    table = torch.zeros(8, 6, device=cuda_device)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.gather_rows(table[:, :4], ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.scatter_rows_set(table, ids, torch.zeros(6, 4, device=cuda_device).T)
+    k, t = K4.bench_gather(table_rows=1000, dim=16, batch=256, reps=3)
+    assert k > 0 and t > 0
+    k, t = K5.bench_scatter(table_rows=1000, dim=16, batch=256, reps=3)
+    assert k > 0 and t > 0
+
+
+def _decoded(table, W, md, tau):
+    """p, m, v (decoded), tau of a packed table, on the CPU."""
+    t = table.cpu()
+    mw = PG._mom_width(md, W)
+    cols = t[:, W:W + mw]
+    if md == "float32":
+        m, v = cols[:, :W], cols[:, W:]
+    elif md == "bfloat16":
+        m, v = PG._mv_unpack(cols)
+    else:
+        m, v = PG._mv_unpack_fp8(cols, W)
+    return t[:, :W], m, v, t[:, tau]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16", "float8"])
+def test_packed_step_kernel_route_matches_plain_route_on_card(cuda_device, moment_dtype):
+    U, I, K, B, lr, steps = 500, 300, 32, 256, 0.01, 4
+    model = BPRMF(U, I, embed_k=K, device="cpu", generator=torch.Generator().manual_seed(3))
+    plain = PG.pack_generic_state(model, dict(model.named_parameters()),
+                                  moment_dtype=moment_dtype, row_align=128)
+    kern = PG.GenericPackedState(*(t.to(cuda_device) for t in plain[:3]), {})
+    step = PG.make_generic_packed_step(model, lr, 0.01, moment_dtype=moment_dtype,
+                                       lazy_catchup=True)
+    g = torch.Generator().manual_seed(4)
+    before = (K4.gather_rows.launches, K5.scatter_rows_set.launches)
+    for _ in range(steps):
+        batch = tuple(torch.randint(0, hi, (B,), generator=g, dtype=torch.int32)
+                      for hi in (U, I, I))
+        kern, lk = step(kern, (None, tuple(b.to(cuda_device) for b in batch), None))
+        plain, lp = step(plain, (None, batch, None))
+        torch.testing.assert_close(lk.cpu(), lp, rtol=1e-5, atol=0.0)
+    torch.cuda.synchronize()
+    assert (K4.gather_rows.launches - before[0],
+            K5.scatter_rows_set.launches - before[1]) == (4 * steps, 2 * steps)
+    for name, W, tau in (("user_pmv", K, K + PG._mom_width(moment_dtype, K)),
+                         ("item_pmv", K, K + PG._mom_width(moment_dtype, K)
+                          + PG._scalar_group(moment_dtype))):
+        a, b = getattr(kern, name).cpu(), getattr(plain, name)
+        untouched = b[:, tau] == 0
+        assert torch.equal(_bits(a[:, tau]), _bits(b[:, tau]))
+        assert torch.equal(_bits(a[untouched]), _bits(b[untouched]))
+        assert torch.equal(_bits(a[:, tau + 1:]), _bits(b[:, tau + 1:]))  # pads
+        code = {"float32": 0.0, "bfloat16": 2.0**-7, "float8": 0.25}[moment_dtype]
+        for x, y, drift in zip(_decoded(a, W, moment_dtype, tau)[:3],
+                               _decoded(b, W, moment_dtype, tau)[:3],
+                               (2 * lr * steps, 0.0, 0.0)):
+            err = (x - y).abs()
+            beyond = ~(err <= 1e-6 + 2e-4 * y.abs())
+            assert int(beyond.sum()) <= 1e-3 * y.numel(), name
+            assert bool((err[beyond] <= drift + code * y.abs()[beyond] + 1e-6).all()), name
+
+
+@pytest.mark.cuda
+def test_attentive_fashion_packed_step_on_card(cuda_device):
+    """The packed AttentiveFashion step on the card runs K4 x4, K5 x2 and
+    K7 2 + 2 a step, and matches the same step on the CPU (plain tower,
+    plain row ops) from one state with the same dropout masks."""
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+
+    U, I, B = 40, 30, 64
+    rng = np.random.default_rng(2)
+    inputs = (rng.random((I, 12)).astype(np.float32),
+              rng.random((I, 16, 16, 1)).astype(np.float32),
+              np.eye(5, dtype=np.float32)[rng.integers(0, 5, I)])
+    models = [AttentiveFashion(U, I, *inputs, embed_k=16, attention_layers=(8, 1),
+                               encoder_hidden=32, conv_filters=64, device=d,
+                               generator=torch.Generator(device=d).manual_seed(5))
+              for d in (cuda_device, "cpu")]
+    assert [m.tower_route for m in models] == ["kernel", "plain"]
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        with torch.no_grad():
+            b.copy_(a.cpu())
+    states = [PG.pack_generic_state(m, dict(m.named_parameters())) for m in models]
+    steps = [PG.make_generic_packed_step(m, 0.01, 0.01, lazy_catchup=True) for m in models]
+    before = (K4.gather_rows.launches, K5.scatter_rows_set.launches,
+              K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches)
+    for s in range(2):
+        ids = tuple(torch.as_tensor(rng.integers(0, hi, B), dtype=torch.int32)
+                    for hi in (U, I, I))
+        masks = [torch.as_tensor(rng.random((B, w)) < 0.5) for w in (32, 64, 32) * 2]
+        losses = []
+        for i, dev in enumerate((cuda_device, "cpu")):
+            states[i], loss = steps[i](states[i], (None, tuple(x.to(dev) for x in ids),
+                                                   [m_.to(dev) for m_ in masks]))
+            losses.append(loss.cpu())
+        torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert (K4.gather_rows.launches - before[0], K5.scatter_rows_set.launches - before[1],
+            K7.edge_tower_fwd.launches - before[2],
+            K7.edge_tower_bwd.launches - before[3]) == (8, 4, 4, 4)
+    got = PG.unpack_generic_params(states[0], models[0].packed_spec())
+    want = PG.unpack_generic_params(states[1], models[1].packed_spec())
+    for k in ("Gu", "Gi"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=2e-4, atol=1e-5)
+    # dense params: where Adam's sqrt(v_hat) is tiny (e.g. the last
+    # attention bias, to which the softmax is blind) the update's sign
+    # follows rounding noise; everywhere else they agree
+    bc2 = 1.0 - 0.999**2
+    for name, (p_, _, v_) in states[1].dense.items():
+        for k, v in PG._flat_dense(name, v_).items():
+            live = torch.sqrt(v / bc2) >= 10 * 1e-7
+            torch.testing.assert_close(got[k].cpu()[live], want[k][live], rtol=2e-4,
+                                       atol=1e-5)

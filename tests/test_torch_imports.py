@@ -48,7 +48,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 38  # every submodule of the four slices was imported
+    assert n_modules >= 42  # every submodule of the five slices was imported
 
 
 def _is_jax(name):
@@ -131,3 +131,22 @@ def test_training_entry_points_raise_when_no_cuda(no_cuda):
     make_fast_epoch_fn(None, 0.01, 0.0, 12, 2, 4, device="cpu")
     trainer = Trainer(BPRMF(6, 12, embed_k=2, device="cpu"), data, cfg)
     assert trainer.device.type == "cpu"
+
+
+def test_packed_engine_and_row_kernels_raise_when_no_cuda(no_cuda):
+    from fashionvisualexpl_tpu_torch.ops.gather import bench_gather
+    from fashionvisualexpl_tpu_torch.ops.row_scatter import bench_scatter
+    from fashionvisualexpl_tpu_torch.train.packed_generic import (
+        make_generic_packed_epoch_fn,
+    )
+
+    model = BPRMF(6, 12, embed_k=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_generic_packed_epoch_fn(model, 0.01, 0.0, 12, 2, 4)
+    for bench in (bench_gather, bench_scatter):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench(table_rows=8, dim=4, batch=4, reps=1)
+    make_generic_packed_epoch_fn(model, 0.01, 0.0, 12, 2, 4, device="cpu")
+    cfg = TrainConfig(batch_size=4, epochs=1, train_path="packed")
+    data = synthetic_interactions(6, 12, interactions_per_user=4, seed=0)
+    assert Trainer(model, data, cfg).device.type == "cpu"
