@@ -12,8 +12,10 @@ Phases, each of which raises on a failure (nothing is swallowed):
 2. build: every kernel source under ``fashionvisualexpl_tpu_torch/ops/csrc``
    compiled with ``nvcc`` for sm_90a, one process per source, all started
    together;
-3. kernel: ``segmax_scores`` (the CUDA kernel) against its plain PyTorch
-   version on the card over many geometries, then its time, the plain
+3. kernel: ``segmax_scores`` (the CUDA kernel: tensor cores for bf16)
+   against its plain PyTorch version on the card over many geometries
+   (seg 8 ... 1024, B not a multiple of 8 or 16, D = 16, 33, 64, 128, both
+   dtypes), then its time, the plain
    version's time, one ``torch.matmul`` of the same bf16 operands (a
    yardstick the port never calls) and the bound, at the serving shapes;
 4. serve: ``RecServer`` over BPRMF K=128, 1M users x 1M items, random
@@ -48,9 +50,14 @@ Phases, each of which raises on a failure (nothing is swallowed):
    time, the plain version's time, one fp32 ``torch.matmul`` of the same
    product (a yardstick the port never calls) and the bound at the
    evaluator's shapes (B=4096, 500k items padded to 501,760, D=128, W from
-   the evaluation data's banned sets); and, on Gaussian data, the size of
-   the tie band: the items whose fp64 score lies within f32 rounding of
-   the reference, the only ones where kernel and plain may differ;
+   the evaluation data's banned sets); on Gaussian data, the size of the
+   tie band: the items whose fp64 score lies within f32 rounding of the
+   reference, the only ones where kernel and plain may differ; and the
+   kernel's recheck band: its default counts bit-equal to those with
+   ``_band_scale=inf`` (every pair through the exact f32 chain) on that
+   Gaussian data and on cancelling rows, with the number of pairs the band
+   sent to the exact chain, and equal to the exact counts on rows whose
+   every coordinate is a worst case of the bf16 split (D = 1, 6, 16, 128);
 10. eval: ``FactoredEvaluator(counts_impl="kernel").evaluate`` at the
    scaled evaluation configuration (BPRMF K=128, 1M users x 500k items, 20
    train + 1 validation + 1 test item per user, k=20, user_block 4096,
@@ -263,8 +270,11 @@ def kernel_phase(torch, segmax):
         print(f"kernel check {label}: max_abs_err={worst!r} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"segmax kernel disagrees with its plain version at {label}")
+        checked.append(label)
         return worst
 
+    checked = []
+    t0 = time.perf_counter()
     names = {torch.bfloat16: "bf16", torch.float32: "f32"}
     for seg in (8, 32):
         for D in (16, 128):
@@ -276,11 +286,27 @@ def kernel_phase(torch, segmax):
             Ip = seg * 1001  # ragged catalog, trailing pad items at -1e30
             check(f"seg={seg} D=128 B=100 {names[dtype]} Ip={Ip} pads=500",
                   *inputs(100, Ip, 128, dtype, n_pad=500), seg)
+    # the tensor-core kernel's other paths: seg a multiple of 16 only, seg
+    # at and above the block's item tile up to the whole catalog (as
+    # RecServer may pass), for B <= 64 (register kernel) and B > 64
+    # (warpgroup kernel), B not a multiple of 8 or 16, D = 64 (registers,
+    # zero-padded to 128) and D not a multiple of 8 (shared memory, 2-byte
+    # staging)
+    for dtype in (torch.bfloat16, torch.float32):
+        for seg in (16, 64, 128, 1024, 65536):
+            for B in (8, 100):
+                check(f"seg={seg} D=128 B={B} {names[dtype]} Ip=65536",
+                      *inputs(B, 65536, 128, dtype), seg)
+        for B, D in ((4097, 128), (4097, 64), (100, 64), (100, 33)):
+            Ip = 32 * 1001
+            check(f"seg=32 D={D} B={B} {names[dtype]} Ip={Ip} pads=500",
+                  *inputs(B, Ip, D, dtype, n_pad=500), 32)
+    print(f"segmax checks: {len(checked)} geometries in {time.perf_counter() - t0!r} s")
 
     # times at the serving shapes: 1M items padded to the 65536 block
     Ip, D = 16 * ITEM_BLOCK, EMBED_K
     rows = {}
-    for B, iters in ((8, 50), (4096, 5)):
+    for B, iters in ((8, 200), (4096, 20)):
         uf, iv, ib = inputs(B, Ip, D, torch.bfloat16, n_pad=Ip - I_FULL)
         err = check(f"serving shape seg={SEG} D={D} B={B} bf16 Ip={Ip}", uf, iv, ib, SEG)
         ms = cuda_ms(torch, lambda: segmax.segmax_scores(uf, iv, ib, SEG), iters)
@@ -901,10 +927,13 @@ def q64(x):
 
 def counts_bound_ms(B: int, Ip: int, D: int, T: int, n_tiles: int, W: int):
     """K2 at [B, D] x [Ip, D]: each input read once (uf, iv, ib, ref, the
-    banned offsets), the counts written once; 2*B*Ip*D f32 operations for
-    the product (the compares are left out)."""
+    banned offsets), the counts written once; 2*B*Ip*D operations for the
+    product at the bf16 tensor-core rate, the least time the card needs for
+    a product on its tensor cores, as for K3 (the kernel computes it in
+    bf16x3 on the tensor cores; the compares are left out).  Until the
+    kernel ran on the tensor cores the bound took the f32 CUDA-core rate."""
     bytes_ = 4 * (B * D + Ip * D + Ip + B * T + n_tiles * B * W + B * T)
-    return bound_ms(bytes_, 2.0 * B * Ip * D, PEAK_F32_FLOPS)
+    return bound_ms(bytes_, 2.0 * B * Ip * D, PEAK_BF16_FLOPS)
 
 
 def eval_kernel_phase(torch, np, counts, topk, eval_items):
@@ -980,6 +1009,11 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
     ref = torch.einsum("bd,bwd->bw", uf, iv[banned[:, -1:].long()]) + ib[banned[:, -1:].long()]
     args, item_tile, ut, _ = padded(uf, iv, ib, ref, banned, I, EVAL_TILE, W)
     check(f"evaluator shape B={B} I={I} D={D} T=1 W={W}", args, item_tile, ut)
+    n_re = torch.zeros(1, dtype=torch.int64, device=dev)
+    counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut, _rechecked=n_re)
+    rechecked = int(n_re)
+    print(f"counts evaluator shape: {rechecked} of {B * args[1].shape[0]} pairs scored "
+          f"again exactly (the band)")
     flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
     ms, call_ms = kernel_times(torch, "counts", lambda: counts.counts_kernel(
         *args, item_tile=item_tile, user_tile=ut), 10, flush)
@@ -993,7 +1027,7 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
     check_bound("counts", ms, b)
     print(f"kernel time counts B={B} Ip={Ip} D={D} T=1 W={W} f32: ms={ms!r} "
           f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(matmul f32, product "
-          f"only)={lib_ms!r} bound_ms={b!r} ({by})")
+          f"only)={lib_ms!r} bound_ms={b!r} ({by}, bf16 tensor-core rate)")
     del args, uf, iv, ib, ref, uf_p, iv_p
     torch.cuda.empty_cache()
 
@@ -1026,10 +1060,61 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
                band_users=int((band_u > 0).sum()),
                kernel_vs_plain=int(d_plain.sum()), kernel_vs_fp64=int(d_exact.sum()))
     print(f"tie band (Gaussian, B={B} I={I} D={D}): {tie}")
-    del s64, tol, gap, band, above, args
+    del s64, tol, gap, band, above
+    torch.cuda.empty_cache()
+
+    # the recheck band: the default kernel and _band_scale=inf (every pair
+    # through the exact fmaf chain) bit-equal on the Gaussian data above and
+    # on cancelling rows (large +- terms, dot products near 0, refs on them)
+    t0 = time.perf_counter()
+    sign = torch.randint(0, 2, (B, 1), device=dev, generator=g) * 2.0 - 1
+    big = torch.randn(I, 1, device=dev, generator=g) * 30
+    uc = uf.clone()
+    uc[:, : D // 2] += sign
+    uc[:, D // 2:] -= sign
+    vc = iv + big
+    rc = torch.einsum("bd,bd->b", uc, vc[j])[:, None] + ib[j][:, None]
+    cancel, _, _, _ = padded(uc, vc, ib, rc, j[:, None].to(torch.int32), I, EVAL_TILE)
+    band_check = {}
+    for label, a in (("gaussian", args), ("cancelling", cancel)):
+        n_band = torch.zeros(1, dtype=torch.int64, device=dev)
+        n_all = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = counts.counts_kernel(*a, item_tile=item_tile, user_tile=ut, _rechecked=n_band)
+        every = counts.counts_kernel(*a, item_tile=item_tile, user_tile=ut,
+                                     _band_scale=float("inf"), _rechecked=n_all)
+        torch.cuda.synchronize()
+        if not torch.equal(got, every):
+            bad = int((got != every).any(dim=1).sum())
+            fail(f"counts kernel with its band differs from the exact chain on {label} data "
+                 f"({bad} users)")
+        band_check[label] = dict(rechecked=int(n_band), exact_pairs=int(n_all),
+                                 counted=int(got.sum()))
+        print(f"counts band check ({label}, B={B} I={I} D={D}): default band and "
+              f"_band_scale=inf bit-equal ok; {int(n_band)} of {int(n_all)} pairs "
+              f"rechecked with the band")
+    # rows whose every coordinate is a worst case of the bf16 split, refs
+    # between the bf16x3 and the exact scores: the band must hold the miss
+    for Dw in (1, 6, 16, 128):
+        uw, vw, bw, rw, want = (x.to(dev) for x in counts.band_worst_case(Dw, seed=Dw))
+        lw = torch.full((1, uw.shape[0], 1), -1, dtype=torch.int32, device=dev)
+        n_band = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = counts.counts_kernel(uw, vw, bw, rw, lw, 128, 8, _rechecked=n_band)
+        every = counts.counts_kernel(uw, vw, bw, rw, lw, 128, 8, _band_scale=float("inf"))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, every) and torch.equal(got, want)):
+            fail(f"counts kernel miscounts the worst-case split rows at D={Dw}")
+        band_check[f"worst_split_D{Dw}"] = dict(rechecked=int(n_band),
+                                                exact_pairs=int(uw.shape[0] * vw.shape[0]),
+                                                counted=int(got.sum()))
+        print(f"counts band check (worst-case split, B={uw.shape[0]} I={vw.shape[0]} D={Dw}): "
+              f"default band, _band_scale=inf and the exact counts equal ok; "
+              f"{int(n_band)} pairs rechecked")
+    print(f"counts band checks: {time.perf_counter() - t0!r} s")
+    del args, cancel, uc, vc, uf, iv
     torch.cuda.empty_cache()
     return dict(max_abs_err=float(max(errs)), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms, call_ms=call_ms, tie_band=tie, shape=shape)
+                library_ms=lib_ms, call_ms=call_ms,
+                rechecked=rechecked, tie_band=tie, band_check=band_check, shape=shape)
 
 
 def quantized_bprmf(torch, num_users, num_items, seed):
@@ -1851,6 +1936,18 @@ def step_profile(torch, label, run, triples, n: int):
     return out
 
 
+def phase_start(torch) -> int:
+    """Bytes still allocated when a phase begins, after the earlier phases'
+    tensors are collected and the cache is emptied: a phase's own peak is
+    its max_memory_allocated() less this."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
 def packed_train_phase(torch, np, G, S):
     """BPRMF through Trainer(train_path="packed") at full width: route
     checks, one 200-step epoch through K4 and K5, a profile."""
@@ -1861,6 +1958,7 @@ def packed_train_phase(torch, np, G, S):
     from fashionvisualexpl_tpu_torch.train.trainer import Trainer
 
     dev = torch.device("cuda")
+    start = phase_start(torch)  # what earlier phases left allocated
     t0 = time.perf_counter()
     pairs, items, counts = make_scaled_arrays(TRAIN_U, TRAIN_I, TRAIN_POS, seed=0)
     data = types.SimpleNamespace(
@@ -1910,7 +2008,6 @@ def packed_train_phase(torch, np, G, S):
         lazy_catchup=cfg.lazy_catchup)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()  # the state, the tables, earlier phases' leftovers
     G.gather_rows.launches = S.scatter_rows_set.launches = 0  # main path starts here
     t0 = time.perf_counter()
     inner, loss = epoch_fn(state.inner, frozen, 100, *tabs)
@@ -1918,7 +2015,7 @@ def packed_train_phase(torch, np, G, S):
     dt = time.perf_counter() - t0
     launches = {"gather_rows": G.gather_rows.launches,
                 "scatter_rows_set": S.scatter_rows_set.launches}  # main path ends here
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - start  # the phase's own peak
     want = {"gather_rows": 4 * PACKED_STEPS, "scatter_rows_set": 2 * PACKED_STEPS}
     if launches != want:
         fail(f"packed main path launched {launches}, expected {want}")
@@ -1926,11 +2023,11 @@ def packed_train_phase(torch, np, G, S):
         fail(f"packed epoch: loss {loss!r}, step {int(inner.step)}")
     summary = dict(steps=PACKED_STEPS, s=dt, triples_per_s=PACKED_STEPS * TRAIN_B / dt,
                    ms_per_step=1e3 * dt / PACKED_STEPS, peak_gib=peak / 2**30,
-                   base_gib=base / 2**30, mean_loss=loss / PACKED_STEPS, route=route)
+                   start_gib=start / 2**30, mean_loss=loss / PACKED_STEPS, route=route)
     print(f"packed train main path: {PACKED_STEPS} steps in {dt!r} s (sampling included), "
           f"triples_per_s={summary['triples_per_s']!r} ms_per_step={summary['ms_per_step']!r}"
-          f", peak {peak / 2**30!r} GiB (allocated at the start {base / 2**30!r}), "
-          f"launches {launches}")
+          f", the phase's own peak {peak / 2**30!r} GiB (allocated when it began "
+          f"{start / 2**30!r}), launches {launches}")
 
     state = state.with_inner(inner)
     summary["profile"] = step_profile(
@@ -1952,6 +2049,7 @@ def af_packed_phase(torch, np, G, S, E):
     from fashionvisualexpl_tpu_torch.train import packed_generic as PG
     from fashionvisualexpl_tpu_torch.train.trainer import Trainer
 
+    start = phase_start(torch)  # what earlier phases left allocated
     t0 = time.perf_counter()
     pairs, items, counts = make_scaled_arrays(AF_U, AF_I, AF_POS, seed=0)
     data = types.SimpleNamespace(
@@ -2008,7 +2106,6 @@ def af_packed_phase(torch, np, G, S, E):
     triples = tuple(t[1:] for t in triples)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
     G.gather_rows.launches = S.scatter_rows_set.launches = 0
     E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0  # main path starts here
     t0 = time.perf_counter()
@@ -2019,7 +2116,7 @@ def af_packed_phase(torch, np, G, S, E):
                 "scatter_rows_set": S.scatter_rows_set.launches,
                 "edge_tower_fwd": E.edge_tower_fwd.launches,
                 "edge_tower_bwd": E.edge_tower_bwd.launches}  # main path ends here
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - start  # the phase's own peak
     n = AF_PACKED_STEPS
     want = {"gather_rows": 4 * n, "scatter_rows_set": 2 * n, "edge_tower_fwd": 2 * n,
             "edge_tower_bwd": 2 * n}
@@ -2028,12 +2125,13 @@ def af_packed_phase(torch, np, G, S, E):
     if not np.isfinite(loss):
         fail(f"af packed main path loss {loss!r}")
     summary = dict(steps=n, s=dt, ms_per_step=1e3 * dt / n, triples_per_s=n * AF_B / dt,
-                   peak_gib=peak / 2**30, base_gib=base / 2**30, mean_loss=loss / n,
+                   peak_gib=peak / 2**30, start_gib=start / 2**30, mean_loss=loss / n,
                    route_max_abs_err=err,
                    route_exempt=beyond, route_losses=losses)
     print(f"af packed main path: {n} steps in {dt!r} s, ms_per_step={summary['ms_per_step']!r}"
-          f" triples_per_s={summary['triples_per_s']!r}, peak {peak / 2**30!r} GiB "
-          f"(allocated at the start {base / 2**30!r}), launches {launches}")
+          f" triples_per_s={summary['triples_per_s']!r}, the phase's own peak "
+          f"{peak / 2**30!r} GiB (allocated when it began {start / 2**30!r}), "
+          f"launches {launches}")
     summary["profile"] = step_profile(
         torch, "af packed", lambda tr: trainer.run_steps(state, frozen, tr, step_key=300),
         sample_triplets(3, *tabs, AF_I, AF_PROFILE_STEPS, AF_B), AF_PROFILE_STEPS)

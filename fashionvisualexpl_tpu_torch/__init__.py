@@ -5,9 +5,50 @@ mirrors the path of its JAX counterpart.  It imports ``torch`` and never
 ``jax`` or ``fashionvisualexpl_tpu``.  Entry points run on the CUDA card
 unless the caller passes ``device="cpu"`` (``core/device.py``).
 
-Ported so far: the serving slice — host data (``data/interactions.py``),
-BPRMF (``models/bprmf.py``), the fused scoring + segment-max CUDA kernel
-(``ops/segmax.py``, ``ops/csrc/segmax.cu``) and ``serve/engine.py::RecServer``.
+Ported: serving (``serve/engine.py::RecServer``), BPRMF and AttentiveFashion
+with the generic ``Trainer`` / ``fit``, the fast BPRMF step and the packed
+LazyAdam engine, dense and streaming evaluation with the dumps, checkpoints
+and the ``train_rec`` / ``serve_rec`` CLI, on one device.  Every Pallas
+kernel of the JAX package has a hand-written CUDA C++ counterpart under
+``ops/csrc/``.  The top-level names below resolve lazily, as in the JAX
+package; the models not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 __version__ = "0.1.0"
+
+_SURFACE = {
+    "TrainConfig": "fashionvisualexpl_tpu_torch.core.config",
+    "Paths": "fashionvisualexpl_tpu_torch.core.config",
+    "MeshConfig": "fashionvisualexpl_tpu_torch.core.config",
+    "Interactions": "fashionvisualexpl_tpu_torch.data.interactions",
+    "synthetic_interactions": "fashionvisualexpl_tpu_torch.data.interactions",
+    "BPRMF": "fashionvisualexpl_tpu_torch.models.bprmf",
+    "AttentiveFashion": "fashionvisualexpl_tpu_torch.models.attentive_fashion",
+    "Trainer": "fashionvisualexpl_tpu_torch.train.trainer",
+    "fit": "fashionvisualexpl_tpu_torch.train.trainer",
+    "Evaluator": "fashionvisualexpl_tpu_torch.eval.evaluator",
+    "FactoredEvaluator": "fashionvisualexpl_tpu_torch.eval.factored",
+    "CheckpointManager": "fashionvisualexpl_tpu_torch.core.checkpoint",
+}
+# models of later slices, by the heading of their ROADMAP item
+_LATER = {
+    "VBPR": "VBPR",
+    "GradFashion": "GradFashion and explanations",
+    "ACF": "ACF",
+    "CompVBPR": "CNN and CompVBPR",
+}
+
+
+def __getattr__(name):
+    """Lazy top-level API (keeps ``import fashionvisualexpl_tpu_torch``
+    light: no module of the package loads until a name is asked for)."""
+    if name in _SURFACE:
+        import importlib
+
+        return getattr(importlib.import_module(_SURFACE[name]), name)
+    if name in _LATER:
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP: {_LATER[name]})"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -18,7 +18,7 @@ and ``best-att-recs-<best>-<tag>.tsv``).  A model without
 trains either model on the packed LazyAdam engine (``--moment_dtype``,
 ``--row_align`` and ``--lazy_catchup`` honoured).  Every other ``--rec``,
 ``--streamed``, ``--compute_dtype bfloat16`` for attentive_fashion and a
-mesh raise ``NotImplementedError`` naming their ROADMAP item.
+mesh raise ``NotImplementedError`` naming their ROADMAP item by heading.
 
 Usage:
   python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
@@ -30,12 +30,12 @@ from __future__ import annotations
 import argparse
 import os
 
-# models of later slices, by the ROADMAP item that ports them
+# models of later slices, by the heading of the ROADMAP item that ports them
 _LATER_MODELS = {
-    "vbpr": 8,
-    "grad_fashion": 8,
-    "acf": 9,
-    "comp_vbpr": 10,
+    "vbpr": "VBPR",
+    "grad_fashion": "GradFashion and explanations",
+    "acf": "ACF",
+    "comp_vbpr": "CNN and CompVBPR",
 }
 
 
@@ -101,7 +101,7 @@ def build_parser(description="Run train of the Recommender Model."):
                    default="float32",
                    help="compute dtype for the trainable encoder towers "
                         "(attentive_fashion / comp_vbpr); only float32 "
-                        "runs so far (bfloat16: ROADMAP item 16)")
+                        "runs so far (bfloat16: ROADMAP: bf16 encoder towers)")
     p.add_argument("--edge_tower", choices=["auto", "fused", "xla", "s2d"],
                    default="auto",
                    help="attentive_fashion conv->pool->GAP tower impl: "
@@ -126,27 +126,27 @@ def build_parser(description="Run train of the Recommender Model."):
     p.add_argument("--train_path", choices=["generic", "packed"],
                    default="generic",
                    help="packed = packed-state rows + LazyAdam "
-                        "(train/packed_generic.py; all six registered "
-                        "models, single-device and over the mesh) — "
-                        "~2.5x throughput at large table counts")
+                        "(train/packed_generic.py): BPRMF and "
+                        "attentive_fashion on one device; the port has no "
+                        "mesh.  Not faster on the port so far: on an NVIDIA "
+                        "H100 80GB HBM3 at 700 W a packed attentive_fashion "
+                        "step took 27.1 ms against 14.8 ms generic "
+                        "(PERF.md)")
     p.add_argument("--moment_dtype",
                    choices=["float32", "bfloat16", "float8"],
                    default="float32",
                    help="packed path: Adam moment storage.  bfloat16 packs "
                         "m,v as two bf16 halves of one fp32 column — rows "
                         "shrink 3W+1 -> 2W+1 (1/3 less scatter traffic, "
-                        "~8-bit moment mantissas); works single-device AND "
-                        "over the mesh.  float8 packs m and sqrt(v) as four "
-                        "e5m2 codes per column — rows shrink to ~1.5W+1 "
-                        "(~2-bit moment mantissas); single-device only")
+                        "~8-bit moment mantissas).  float8 packs m and "
+                        "sqrt(v) as four e5m2 codes per column — rows "
+                        "shrink to ~1.5W+1 (~2-bit moment mantissas).  "
+                        "Both on one device (the port has no mesh)")
     p.add_argument("--row_align", type=int, default=1,
                    help="packed path capacity mode: pad packed-row widths "
-                        "to this multiple (128 = TPU lane tile).  Trades "
-                        "resident dead columns for eliminating XLA's "
-                        "1.5x padded transient table copies at the epoch "
-                        "scan boundary — peak HBM drops from ~2.5x to "
-                        "~1.5x of the logical table (use for catalogs "
-                        "near the HBM ceiling; 1 = off)")
+                        "to this multiple (the JAX package's capacity "
+                        "mode; on the port it only adds dead columns, "
+                        "which the step carries untouched; 1 = off)")
     p.add_argument("--lazy_catchup", type=_bool_flag, default=True,
                    help="packed path: apply the closed-form momentum tail "
                         "of skipped steps on touch (dense-Adam-like "
@@ -250,18 +250,18 @@ def check_ported(args) -> None:
     if args.rec in _LATER_MODELS:
         raise NotImplementedError(
             f"--rec {args.rec} is not ported yet "
-            f"(ROADMAP item {_LATER_MODELS[args.rec]})"
+            f"(ROADMAP: {_LATER_MODELS[args.rec]})"
         )
     if args.streamed:
-        raise NotImplementedError("--streamed is not ported yet (ROADMAP item 12)")
+        raise NotImplementedError("--streamed is not ported yet (ROADMAP: The streamed trainer)")
     if args.rec == "attentive_fashion" and args.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "--compute_dtype bfloat16 (bf16 towers and a bf16 edge-tower "
-            "kernel) is not ported yet (ROADMAP item 16)"
+            "kernel) is not ported yet (ROADMAP: bf16 encoder towers)"
         )
     if args.mesh_data * args.mesh_model > 1:
         raise NotImplementedError(
-            "--mesh_data / --mesh_model are not ported yet (ROADMAP item 13)"
+            "--mesh_data / --mesh_model are not ported yet (ROADMAP: Multi-device)"
         )
 
 

@@ -6,7 +6,7 @@ compute (``compute_dtype``) while params, loss and long reductions stay
 float32.  The port names the same two dtypes and keeps the same casts; only
 float32 runs so far: a bfloat16 tower needs a bfloat16 edge-tower kernel,
 and ``AttentiveFashion(compute_dtype="bfloat16")`` raises naming its
-ROADMAP item (16).
+ROADMAP item (bf16 encoder towers).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ tf.data (src/dataset/dataset.py:124-157, :160-208).  Here modality inputs
 are dense arrays loaded once: the edge tiffs become one [I, H, W, 1] stack.
 
 Not ported yet: ``build_edge_stack_npy`` and ``HostPrefetcher`` (the
-streamed trainer, ROADMAP item 12) and ``load_spatial_feature_stack``
-(ACF, item 9).
+streamed trainer, ROADMAP: The streamed trainer) and
+``load_spatial_feature_stack`` (ROADMAP: ACF).
 """
 
 from __future__ import annotations

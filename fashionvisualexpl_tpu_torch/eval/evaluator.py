@@ -16,7 +16,7 @@ Evaluator.py:220); here auc_t is the test AUC, as in the JAX package.
 (``precompute_eval``), shared by both splits or by every user block.
 
 Not ported yet: ``store_recommendation_grads`` (``explain/grads.py``,
-ROADMAP item 8); it raises ``NotImplementedError``.
+ROADMAP: GradFashion and explanations); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ class Evaluator:
                                    grads_fn=None, batch_grads_fn=None) -> None:
         raise NotImplementedError(
             "gradient-attribution dumps come with explain/grads.py "
-            "(ROADMAP item 8)"
+            "(ROADMAP: GradFashion and explanations)"
         )
 
 

@@ -13,7 +13,7 @@ Models opt in by implementing ``factored_eval(params) -> (user_factors
 [U, D], item_factors [I, D], item_bias [I] | None)``.
 
 Not ported yet: the ``mesh`` (sharded) path with ``sharded_streaming_counts``
-and ``sharded_streaming_topk_and_counts`` (ROADMAP item 13), and the native
+and ``sharded_streaming_topk_and_counts`` (ROADMAP: Multi-device), and the native
 TSV writer of ``data/native.py`` (dumps use the JAX package's Python
 writer's format).
 """
@@ -78,11 +78,11 @@ class FactoredEvaluator:
           CUDA and the catalog has 16,384 items or more, else "bucketed".
 
         All produce identical counts on data whose scores are exact in
-        f32.  ``mesh`` is not ported yet (ROADMAP item 13)."""
+        f32.  ``mesh`` is not ported yet (ROADMAP: Multi-device)."""
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded streaming evaluator (mesh) is not ported yet "
-                "(ROADMAP item 13)"
+                "(ROADMAP: Multi-device)"
             )
         if counts_impl not in COUNTS_IMPLS:
             raise ValueError(
@@ -276,5 +276,5 @@ class FactoredEvaluator:
                                    grads_fn=None, batch_grads_fn=None) -> None:
         raise NotImplementedError(
             "gradient-attribution dumps come with explain/grads.py "
-            "(ROADMAP item 8)"
+            "(ROADMAP: GradFashion and explanations)"
         )

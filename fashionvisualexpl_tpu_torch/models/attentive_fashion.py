@@ -37,8 +37,8 @@ engine (Gu and Gi in the packed rows, the encoders and the attention as
 dense groups).
 
 Not ported yet: ``compute_dtype="bfloat16"`` (bf16 towers and a bf16 K7,
-ROADMAP item 16), ``host_features`` with ``loss_streamed`` (the streamed
-trainer, item 12); each raises ``NotImplementedError``.
+ROADMAP: bf16 encoder towers), ``host_features`` with ``loss_streamed``
+(ROADMAP: The streamed trainer); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -163,13 +163,13 @@ class AttentiveFashion(RecommenderModel):
         if host_features:
             raise NotImplementedError(
                 "host_features (the streamed trainer) is not ported yet "
-                "(ROADMAP item 12)"
+                "(ROADMAP: The streamed trainer)"
             )
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if self.compute_dtype != torch.float32:
             raise NotImplementedError(
                 "compute_dtype='bfloat16' (bf16 towers and a bf16 edge-tower "
-                "kernel) is not ported yet (ROADMAP item 16)"
+                "kernel) is not ported yet (ROADMAP: bf16 encoder towers)"
             )
         self.batch_eval = None if batch_eval is None else int(batch_eval)
         if edge_tower not in EDGE_TOWERS:

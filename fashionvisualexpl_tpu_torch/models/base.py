@@ -34,7 +34,7 @@ class PackedSpec(NamedTuple):
     batch element (ACF's profile over each user's positives);
     ``frozen_item_tables`` names per-item frozen feature tables (name,
     flattened width) that the engine may fold into the packed item rows.
-    Neither is set by a model the port has yet (ROADMAP items 8-9)."""
+    Neither is set by a model the port has yet (ROADMAP: VBPR, ACF)."""
 
     user_tables: Tuple[Tuple[str, int], ...]
     item_tables: Tuple[Tuple[str, int], ...]

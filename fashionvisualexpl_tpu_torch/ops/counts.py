@@ -14,8 +14,15 @@ tile-LOCAL offsets with -1 sentinels.  Replaces the TPU kernel
 ``fashionvisualexpl_tpu/ops/counts.py::_kernel``.
 
 Bound on an H100 SXM at the evaluator's shapes (B=4096, Ip=501,760, D=128):
-2*B*Ip*D = 526 GFLOP, 7.85 ms at 67 TFLOP/s f32; compute-bound (0.26 GB of
-inputs).  The kernel and the plain version compute in f32 only; measured
+2*B*Ip*D = 526 GFLOP, 0.53 ms at the 989 TFLOP/s bf16 tensor-core rate
+(7.85 ms at 67 TFLOP/s on the CUDA cores); compute-bound (0.26 GB of
+inputs).  The counts are those of one f32 score per pair: the ``fmaf``
+chain in ascending d, then ``+ ib``, then ``>=``.  The kernel takes the
+product on the tensor cores in bf16x3 and scores exactly again every pair
+whose approximate score lies within ``band_eps`` of a reference, so its
+counts equal that f32 computation on any data (``csrc/counts.cu`` derives
+the bound).  The plain version is one f32 matmul per item tile: equal
+counts wherever both compute exact scores (quantized data).  Measured
 times are in PERF.md.
 
 ``counts_kernel`` launches the kernel for CUDA tensors (or raises) and takes
@@ -50,6 +57,55 @@ def counts_kernel_reference(uf, iv, ib_pad, ref_scores, banned_local, item_tile)
                 dim=1, dtype=torch.int32
             )
     return out
+
+
+def band_eps(uf, iv, ib, band_scale: float = 1.0):
+    """[B, I] float64: the kernel's recheck band, the bound on |bf16x3
+    score - f32 fmaf-chain score| that ``csrc/counts.cu`` derives and
+    applies (there in f32, from f32 norms):
+    1.001 * ((4D + 300) * 2^-22 * |u|_2 |v|_2 + 2^-22 |b|) + 2^-100, |b| taken
+    as 0 where b is infinite.  Plain torch; the tests hold the emulated
+    arithmetic to it."""
+    D = uf.shape[1]
+    nu = torch.linalg.vector_norm(uf.double(), dim=1)
+    nv = torch.linalg.vector_norm(iv.double(), dim=1)
+    b = ib.double().abs()
+    b = torch.where(torch.isinf(b), torch.zeros_like(b), b)
+    eps = 1.001 * ((4 * D + 300) * 2.0**-22 * nu[:, None] * nv[None, :]
+                   + 2.0**-22 * b[None, :])
+    return eps * band_scale + 2.0**-100
+
+
+def band_worst_case(D: int, B: int = 8, I: int = 128, seed: int = 0):
+    """Rows on which bf16x3 misses the f32 score by about the most its split
+    can: every coordinate is +-(1 + k 2^-7 + 2^-8 - 2^-17 - 2^-23), k in
+    {0, 1}, whose bf16 rounding hi drops just under half a bf16 ulp and
+    whose lo = rn_bf16(x - hi) drops just under half of its own.  Users and
+    items share those coordinates (so every product errs the same way) and
+    differ by powers of two, 2^a_b and 2^c_j with a, c in [-3, 3]; the bias
+    is 0.  ref[b] lies halfway between the bf16x3 product of the pair
+    (b, j_b) without rounding and its exact product, which the f32 score
+    exceeds: item j counts for user b exactly when c_j >= c_{j_b}, and a
+    band that does not hold the miss counts the pairs of j_b's scale wrong.
+    Plain torch, for the tests.  Returns (uf [B, D], iv [I, D], ib [I],
+    ref [B, 1]) f32 CPU tensors and the exact counts [B, 1] int32."""
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randint(0, 2, (D,), generator=g).double()
+    sign = torch.randint(0, 2, (D,), generator=g).double() * 2 - 1
+    x = (sign * (1 + k * 2.0**-7 + 2.0**-8 - 2.0**-17 - 2.0**-23)).float()
+    hi = x.bfloat16().float()
+    lo = (x - hi).bfloat16().float()
+    x, hi, lo = x.double(), hi.double(), lo.double()
+    exact = (x * x).sum()
+    approx = (hi * hi + 2 * hi * lo).sum()
+    a = torch.randint(-3, 4, (B,), generator=g)
+    c = torch.randint(-3, 4, (I,), generator=g)
+    jb = torch.randint(0, I, (B,), generator=g)
+    uf = (2.0 ** a.double())[:, None] * x[None, :]
+    iv = (2.0 ** c.double())[:, None] * x[None, :]
+    ref = 2.0 ** (a + c[jb]).double()[:, None] * (exact + approx) / 2
+    want = (c[None, :] >= c[jb][:, None]).sum(dim=1, keepdim=True).to(torch.int32)
+    return uf.float(), iv.float(), torch.zeros(I), ref.float(), want
 
 
 def _check(uf, iv, ib_pad, ref_scores, banned_local, item_tile, user_tile):
@@ -95,7 +151,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library("counts")
     if not getattr(lib, "_fvx_typed", False):
         lib.fvx_counts.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6 + [ctypes.c_double]
+            + [ctypes.c_void_p] * 2
         )
         lib.fvx_counts.restype = ctypes.c_int
         lib._fvx_typed = True
@@ -111,9 +168,18 @@ def counts_kernel(
     banned_local: torch.Tensor,  # [Ip // item_tile, B, W] int32, -1 = none
     item_tile: int = 2048,
     user_tile: int = 256,
+    _band_scale: float = 1.0,
+    _rechecked=None,
 ) -> torch.Tensor:
-    """[B, T] int32 counts of allowed items scoring >= each ref score."""
+    """[B, T] int32 counts of allowed items scoring >= each ref score.
+
+    ``_band_scale`` (a test hook, >= 1) multiplies the kernel's recheck
+    band: ``float('inf')`` scores every pair through the exact chain.
+    ``_rechecked``, an int64 [1] tensor on the card, gains the number of
+    pairs the kernel scored exactly.  Neither changes the counts."""
     _check(uf, iv, ib_pad, ref_scores, banned_local, item_tile, user_tile)
+    if not _band_scale >= 1.0:
+        raise ValueError(f"counts_kernel: _band_scale must be >= 1, got {_band_scale}")
     if uf.device.type == "cpu":
         return counts_kernel_reference(uf, iv, ib_pad, ref_scores, banned_local,
                                        item_tile)
@@ -132,12 +198,23 @@ def counts_kernel(
                     ("ref_scores", ref_scores), ("banned_local", banned_local)):
         if not t.is_contiguous():
             raise ValueError(f"counts_kernel: {name} must be contiguous")
+    if _rechecked is not None and (
+            _rechecked.dtype != torch.int64 or _rechecked.numel() != 1
+            or _rechecked.device != uf.device):
+        raise ValueError("counts_kernel: _rechecked must be an int64 [1] tensor "
+                         "on the inputs' device")
     out = torch.zeros((B, T), dtype=torch.int32, device=uf.device)
+    # the band's factors: f32 row norms (the kernel's 1.001 covers their
+    # rounding)
+    nu = torch.linalg.vector_norm(uf, dim=1)
+    nv = torch.linalg.vector_norm(iv, dim=1)
     with torch.cuda.device(uf.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().fvx_counts(
             uf.data_ptr(), iv.data_ptr(), ib_pad.data_ptr(), ref_scores.data_ptr(),
-            banned_local.data_ptr(), out.data_ptr(), B, Ip, D, T, W, item_tile,
+            banned_local.data_ptr(), nu.data_ptr(), nv.data_ptr(), out.data_ptr(),
+            B, Ip, D, T, W, item_tile,
+            float(_band_scale), None if _rechecked is None else _rechecked.data_ptr(),
             stream)
     if rc != 0:
         raise RuntimeError(f"counts kernel launch failed: cudaError {rc}")

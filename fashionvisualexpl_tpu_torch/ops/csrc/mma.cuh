@@ -1,0 +1,142 @@
+// Inline-PTX helpers for the tensor-core kernels (segmax.cu, counts.cu) on
+// Hopper, sm_90a: asynchronous 16-byte copies into shared memory, ldmatrix
+// fragment loads, the warp-level bf16 mma.sync product and the bf16x3 split
+// of f32 values.  Fragment layouts are those of the PTX ISA's
+// "Matrix Fragments for mma.m16n8k16" section: with
+// g = lane / 4 and t = lane % 4, an accumulator holds rows g and g + 8 of
+// the 16-row tile, columns 2t and 2t + 1 of the 8-column tile (c[0], c[1]
+// row g; c[2], c[3] row g + 8).
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace fvx {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing L1; the bytes past
+// src_bytes (0..16) are zero-filled, so a masked row costs no branch
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+// the same for 4 bytes (through L1: .cg takes only 16)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The products are register-only and not volatile, so the compiler may
+// interleave independent ones.
+// c += a . b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The bf16x3 split of two f32 values x (k and k + 1 of a fragment): hi =
+// x rounded to nearest (even) onto bf16 (8 significant bits),
+// |x - hi| <= 2^-8 |x|, and x - hi exact in f32; lo = x - hi rounded to
+// nearest onto bf16, |x - hi - lo| <= 2^-17 |x| (x - hi lies under half an
+// ulp of hi, unless it is a power of two that lo holds exactly).  Each
+// packed as a bf16x2 fragment register,
+// the lower k in the low half.  A value that overflows bf16 gives inf or
+// NaN, which the callers treat as not finite.
+__device__ __forceinline__ void split_bf16x2(float2 x, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(x.x, hf.x), __fsub_rn(x.y, hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ---------------------------------------------------------------------------
+// Warpgroup products (wgmma, sm_90a only): four warps issue one product of a
+// 64-row tile asynchronously, A from registers, B read from shared memory
+// by the tensor cores through a matrix descriptor.
+
+// The descriptor of a K-major bf16 B tile with no swizzle: 8x8 "core
+// matrices" of 128 contiguous bytes (8 rows of 16 bytes); lbo is the byte
+// distance between core matrices adjacent along K, sbo along N.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);  // base offset 0, no swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of the generic proxy (cp.async, stores) made visible
+// to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses to v across the asynchronous
+// product that owns it
+__device__ __forceinline__ void reg_fence(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+// d += a . b over a 64 x 64 x 16 tile: a the warp's 16 rows x 16 k of A in
+// the mma.m16n8k16 A layout, b the K-major B tile's descriptor, d the
+// 64 x 64 f32 accumulator (per 8 columns i: d[4i..4i+3] as an m16n8
+// accumulator of the warp's 16 rows)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+}  // namespace fvx

@@ -7,34 +7,67 @@
 // wrapper, its plain PyTorch version and the launch count are in
 // fashionvisualexpl_tpu_torch/ops/segmax.py.
 //
-// What bounds it: at the serving shapes (B=4096 users, Ip=1,048,576 items,
-// D=128) the product is 1.10 TFLOP, ~1.11 ms at the H100 SXM's 989 TFLOP/s
-// bf16 tensor-core rate, while the bytes that must move (iv 268 MB + out
-// 537 MB) take ~0.24 ms at 3.35 TB/s: operations bound.  At B=8 the 268 MB
-// item read alone bounds it, ~0.08 ms.  This first design runs on the CUDA
-// cores (f32 FMA), so it sits far above the tensor-core bound; mma/wgmma and
-// TMA are later work.
+// What bounds it, on an H100 SXM: at B=8 users (Ip=1,048,576 items, D=128)
+// the 268 MB item read, ~0.08 ms at 3.35 TB/s; at B=4096 the 1.10 TFLOP
+// product, ~1.11 ms at the 989 TFLOP/s bf16 tensor-core rate (the bytes,
+// iv 268 MB + out 537 MB, take ~0.24 ms).
 //
-// Design: one block of 256 threads per (16-user tile, item tile).  The block
-// walks D in chunks of 32: it stages the item tile and the user tile in
-// shared memory as f32 (the item rows at a padded stride of 33 words, so the
-// 32 threads of a warp reading 32 different rows hit 32 different banks),
-// then each thread takes its own item's chunk into registers and
-// accumulates its dot with all 16 users, reading the user values as
-// broadcast float4s.  Scores never reach device memory: each thread keeps
-// the running max of its item(s) per user, writes it to shared memory, and
-// one pass over shared memory takes the max over each segment and stores
-// out[b, s].  Any segment width works: an item tile holds floor(256/seg)
-// whole segments (seg <= 256), or one segment walked in 256-item sub-tiles
-// (seg > 256), so no segment straddles two blocks.  Blocks are numbered
-// user tile fastest, so the blocks that share an item tile run together and
-// read it from L2.  Ragged users, items and D are masked.
+// The bf16 path runs on the tensor cores, items as the M dimension and
+// users as N, so that iv [Ip, D] row-major is the row-major A operand and
+// uf [B, D] row-major the "col" (K-major) B operand: no transpose.  Every
+// block owns a tile of items for all of D and walks every user tile of 64
+// users past it through a cp.async ring (16-byte copies), so every item
+// row is read from device memory once at any B, and uf (1 MB at B=4096)
+// from L2.  Three kernels share that shape:
+// * D a multiple of 8 up to 128 (the serving width; zero-padded to 128),
+//   B > 64: segmax_wgmma_kernel.  Warpgroup products, wgmma.m64n64k16
+//   with A (items) in registers and B (users) read by the tensor cores
+//   from shared memory: the operations bound.  256 items a block, 2
+//   blocks an SM.
+// * The same D, B <= 64: segmax_mma_regs_kernel, mma.sync.m16n8k16 with
+//   the items' fragments in registers, taken with one 16-byte load per row
+//   and 32-wide slice of D (slices past D skipped): the bytes bound (at
+//   B=8 the block multiplies one 8-user fragment column and streams its
+//   64 KB of items).
+// * A D not a multiple of 8 or above 128, or an operand not 16-byte
+//   aligned: segmax_mma_kernel, mma.sync.m16n8k16 with a 128-item tile in
+//   shared memory and both operands through ldmatrix (8 warps, each 32
+//   items x 32 users a step); D zero-padded to a multiple of 16; staged
+//   with 2-byte loads where 16-byte cp.async cannot be.  Shared rows are
+//   padded by 16 bytes (an odd multiple of 16 bytes a row), so the 8 row
+//   addresses of each ldmatrix phase fall in 8 different bank groups.
+//
+// Epilogue: the bias is added to (or starts) the accumulators in registers
+// (ib_cand is -1e30 for pad items; rows past the catalog or the block's
+// segments get -inf), then each thread takes the max over the rows it
+// holds that share a segment (rows g and g + 8, and its two 16-row
+// fragments), and 3 butterfly shuffles (xor 4, 8, 16) over the 8 lanes
+// that hold the other rows finish the max over 8-, 16- or 32-row groups
+// (group_max).  The group maxima go to shared memory, and the threads then
+// take each segment's max over its groups and store out[b, s] with
+// consecutive threads on consecutive segments of one user's row
+// (store_segments).  The three kernels share both.  Segments: a block
+// holds floor(tile / seg) whole segments (seg <= tile), or one segment
+// walked in sub-tiles (seg > tile, the maxima of a later sub-tile merged
+// into out by the same thread that stored them).  seg < tile not a
+// multiple of 8 takes a slower epilogue through a full f32 score tile in
+// shared memory.
+//
+// The f32 entry (fvx_segmax_f32, on no main path), and the bf16 entry when
+// D is so wide that the tiles outgrow shared memory (D > ~300), keep the
+// first design on the CUDA cores (segmax_simt_kernel): a block of 16
+// users x 256 items, D staged 32 at a time, one f32 fmaf per product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "mma.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// CUDA-core kernel (f32 operands; bf16 at very wide D)
 
 constexpr int kThreads = 256;      // items per sub-tile, one per thread
 constexpr int kTB = 16;            // users per block
@@ -49,10 +82,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-segmax_kernel(const T* __restrict__ uf, const T* __restrict__ iv,
-              const float* __restrict__ ib, float* __restrict__ out,
-              int B, long long Ip, int D, int seg, long long S,
-              int span, int sub_tiles, int nseg, long long n_ut) {
+segmax_simt_kernel(const T* __restrict__ uf, const T* __restrict__ iv,
+                   const float* __restrict__ ib, float* __restrict__ out,
+                   int B, long long Ip, int D, int seg, long long S,
+                   int span, int sub_tiles, int nseg, long long n_ut) {
   // item tile staging area; reused for the segment reduction at the end
   __shared__ float item_s[kThreads * kIStride];
   __shared__ __align__(16) float user_s[kTB * kDC];
@@ -141,12 +174,9 @@ segmax_kernel(const T* __restrict__ uf, const T* __restrict__ iv,
 }
 
 template <typename T>
-int launch(const void* uf, const void* iv, const void* ib, void* out,
-           long long B, long long Ip, long long D, long long seg,
-           void* stream) {
-  if (B < 1 || Ip < 1 || D < 1 || seg < 1 || Ip % seg != 0 ||
-      B > (1LL << 30) || D > (1LL << 30) || seg > (1LL << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
+int launch_simt(const void* uf, const void* iv, const void* ib, void* out,
+                long long B, long long Ip, long long D, long long seg,
+                cudaStream_t stream) {
   const long long S = Ip / seg;
   // an item tile holds whole segments: floor(256/seg) of them, or one
   // segment walked in 256-item sub-tiles when seg > 256
@@ -158,13 +188,622 @@ int launch(const void* uf, const void* iv, const void* ib, void* out,
   const long long n_it = (S + nseg - 1) / nseg;
   const long long blocks = n_ut * n_it;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  segmax_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  segmax_simt_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(uf), static_cast<const T*>(iv),
       static_cast<const float*>(ib), static_cast<float*>(out),
       static_cast<int>(B), Ip, static_cast<int>(D), static_cast<int>(seg), S,
       span, sub_tiles, nseg, n_ut);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (bf16 operands)
+
+constexpr int kMT = 128;     // items per block tile
+constexpr int kNT = 64;      // users per streamed tile
+constexpr int kWarps = 8;    // 4 along items x 2 along users
+constexpr int kMmaThreads = kWarps * 32;
+constexpr int kStages = 3;   // user-tile ring depth
+constexpr int kScoreLD = kNT + 1;  // row stride of the slow path's score tile
+
+struct MmaArgs {
+  const __nv_bfloat16* uf;
+  const __nv_bfloat16* iv;
+  const float* ib;
+  float* out;
+  int B, D, Dp, ld;  // ld: shared row stride in bf16 (Dp + 8)
+  long long Ip, S;
+  int seg, span, nseg, sub_tiles, n_ut;
+};
+
+// rows [row0, row0 + rows) of src (row-major [n_rows, D]) into dst rows of
+// stride ld, zero past n_valid rows and past D; 16-byte cp.async when kVec
+template <bool kVec>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long row0, int rows,
+                                           long long n_valid, int D, int Dp,
+                                           int ld, int tid) {
+  if (kVec) {
+    const int chunks = Dp / 8;
+    for (int idx = tid; idx < rows * chunks; idx += kMmaThreads) {
+      const int r = idx / chunks, c = idx - r * chunks;
+      const long long g = row0 + r;
+      const bool ok = g < n_valid && c * 8 < D;
+      const __nv_bfloat16* p = ok ? src + g * D + c * 8 : src;
+      fvx::cp_async16(fvx::smem_u32(dst + r * ld + c * 8), p, ok ? 16 : 0);
+    }
+  } else {
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    for (int idx = tid; idx < rows * Dp; idx += kMmaThreads) {
+      const int r = idx / Dp, c = idx - r * Dp;
+      const long long g = row0 + r;
+      dst[r * ld + c] = (g < n_valid && c < D) ? src[g * D + c] : zero;
+    }
+  }
+}
+
+// The rows a lane holds of one user column col, v[f][h] = row
+// row0 + 16 f + 8 h + g of kF 16-row fragments.  kG > 0: the max over each
+// kG-row group, in registers and then over the lanes that hold the group's
+// other rows, into red[group][kNT]; kG = 0: every row into the score tile
+// red[row][kScoreLD].
+template <int kG, int kF>
+__device__ __forceinline__ void group_max(float (&v)[kF][2], int row0, int col,
+                                          float* red, int g) {
+  static_assert(kG != 32 || kF == 2, "a 32-row group takes two fragments");
+  if constexpr (kG == 0) {
+#pragma unroll
+    for (int f = 0; f < kF; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        red[(row0 + 16 * f + 8 * h + g) * kScoreLD + col] = v[f][h];
+  } else {
+    if constexpr (kG >= 16) {
+#pragma unroll
+      for (int f = 0; f < kF; ++f) v[f][0] = fmaxf(v[f][0], v[f][1]);
+    }
+    if constexpr (kG == 32) v[0][0] = fmaxf(v[0][0], v[1][0]);
+#pragma unroll
+    for (int f = 0; f < (kG == 32 ? 1 : kF); ++f)
+#pragma unroll
+      for (int h = 0; h < (kG >= 16 ? 1 : 2); ++h) {
+        float m = v[f][h];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+        if (g == 0) red[((row0 + 16 * f + 8 * h) / kG) * kNT + col] = m;
+      }
+  }
+}
+
+// out[b, s] for the kNT users b0 + u of a tile and the block's segments
+// s0 + ls, from group_max's rows of a kTile-item sub-tile: consecutive
+// threads (kThr of them) on consecutive segments of one user's row.  A
+// segment walked in sub-tiles (r > 0) merges with what this thread stored
+// at r - 1.
+template <int kG, int kTile, int kThr>
+__device__ __forceinline__ void store_segments(const MmaArgs& a, const float* red,
+                                               long long b0, long long s0, int r,
+                                               int tid) {
+  const int nseg = a.nseg;
+  for (int idx = tid; idx < kNT * nseg; idx += kThr) {
+    const int u = idx / nseg, ls = idx - u * nseg;
+    const long long b = b0 + u;
+    const long long s = s0 + ls;
+    if (b >= a.B || s >= a.S) continue;
+    float m = -CUDART_INF_F;
+    if constexpr (kG > 0) {
+      // seg > kTile: one segment spans every group of the sub-tile
+      const int per = a.seg > kTile ? kTile / kG : a.seg / kG;
+      const float* col = red + (ls * per) * kNT + u;
+      for (int q = 0; q < per; ++q) m = fmaxf(m, col[q * kNT]);
+    } else {
+      const float* col = red + (ls * a.seg) * kScoreLD + u;
+      for (int q = 0; q < a.seg; ++q) m = fmaxf(m, col[q * kScoreLD]);
+    }
+    float* o = a.out + b * a.S + s;
+    if (r > 0) m = fmaxf(m, *o);
+    *o = m;
+  }
+}
+
+// kVec: 16-byte copies (D % 8 == 0, aligned operands).  kG: rows a thread
+// and its shuffles reduce before the shared-memory pass (8, 16 or 32; the
+// segment width is a multiple of it, or one segment spans the tile), or 0
+// for the slow path through a full score tile (seg < 128, seg % 8 != 0).
+template <bool kVec, int kG>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+segmax_mma_kernel(const MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* items = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* users = items + kMT * a.ld;
+  const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
+  float* red = reinterpret_cast<float*>(users + n_buf * kNT * a.ld);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // item / user quarter and half
+  const int g = lane >> 2, t = lane & 3;
+  const long long it = blockIdx.x;
+  const long long j0 = it * a.span;  // first item of this block
+  const long long j_end = min(a.Ip, j0 + a.span);
+  const int ksteps = a.Dp / 16;
+
+  // ldmatrix row addresses (bytes, shared space), k offset added per step
+  const uint32_t a_addr0 = fvx::smem_u32(
+      items + (wm * 32 + (lane & 15)) * a.ld + (lane >> 4) * 8);
+  const int b_row = wn * 32 + (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+
+  for (int r = 0; r < a.sub_tiles; ++r) {
+    const long long i0 = j0 + static_cast<long long>(r) * kMT;
+    __syncthreads();  // the previous sub-tile's readers are done
+    stage_rows<kVec>(items, a.iv, i0, kMT, j_end, a.D, a.Dp, a.ld, tid);
+    stage_rows<kVec>(users, a.uf, 0, kNT, a.B, a.D, a.Dp, a.ld, tid);
+    fvx::cp_async_commit();
+    if (a.n_ut > 1)
+      stage_rows<kVec>(users + kNT * a.ld, a.uf, kNT, kNT, a.B, a.D, a.Dp,
+                       a.ld, tid);
+    fvx::cp_async_commit();
+
+    // bias of the rows this thread holds: rows past the block's items -inf
+    float bias[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long j = i0 + wm * 32 + mi * 16 + h * 8 + g;
+        bias[mi][h] = j < j_end ? a.ib[j] : -CUDART_INF_F;
+      }
+
+    for (int ut = 0; ut < a.n_ut; ++ut) {
+      fvx::cp_async_wait<kStages - 2>();
+      __syncthreads();  // tile ut landed; tile ut - 1's readers are done
+      if (ut + kStages - 1 < a.n_ut) {
+        const int nb = (ut + kStages - 1) % kStages;
+        stage_rows<kVec>(users + nb * kNT * a.ld, a.uf,
+                         static_cast<long long>(ut + kStages - 1) * kNT, kNT,
+                         a.B, a.D, a.Dp, a.ld, tid);
+      }
+      fvx::cp_async_commit();
+
+      const int u0 = ut * kNT + wn * 32;  // this warp's first user
+      const int n_act = min(4, max(0, (a.B - u0 + 7) / 8));  // fragments with users
+      float acc[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+      if (n_act > 0) {
+        const uint32_t b_addr0 = fvx::smem_u32(
+            users + (ut % kStages) * kNT * a.ld + b_row * a.ld + b_col);
+        for (int ks = 0; ks < ksteps; ++ks) {
+          uint32_t af[2][4], bf[4][2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            fvx::ldmatrix_x4(af[mi], a_addr0 + (mi * 16 * a.ld + ks * 16) * 2);
+#pragma unroll
+          for (int nj = 0; nj < 2; ++nj) {
+            if (2 * nj < n_act) {
+              uint32_t q[4];
+              fvx::ldmatrix_x4(q, b_addr0 + (nj * 16 * a.ld + ks * 16) * 2);
+              bf[2 * nj][0] = q[0];
+              bf[2 * nj][1] = q[1];
+              bf[2 * nj + 1][0] = q[2];
+              bf[2 * nj + 1][1] = q[3];
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            if (ni < n_act)
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+                fvx::mma_bf16_16816(acc[mi][ni], af[mi], bf[ni]);
+        }
+      }
+
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v[2][2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) v[mi][h] = acc[mi][ni][h * 2 + e] + bias[mi][h];
+          group_max<kG>(v, wm * 32, wn * 32 + ni * 8 + 2 * t + e, red, g);
+        }
+      __syncthreads();
+      store_segments<kG, kMT, kMmaThreads>(a, red, static_cast<long long>(ut) * kNT,
+                                           it * a.nseg, r, tid);
+    }
+    fvx::cp_async_wait<0>();
+  }
+}
+
+// D a multiple of 8 up to 128 (the serving width), zero-padded to 128, and
+// 16-byte aligned operands: each warp
+// keeps the A fragments of its 32 items over the whole D in registers (64
+// of them), loaded once from device memory, so a block of 8 warps holds 256
+// items with no shared memory for them.  The users stream through the same
+// 3-stage ring; a warp multiplies them 16 at a time, which halves the
+// shared-memory bytes a product of the kernel above, and the 256-item tile
+// halves its L2 reads of uf.  The k order inside each 32-wide slice of D is
+// permuted, the same way for both operands (a dot product does not depend
+// on it): the lane with t = lane % 4 holds, for the slice's two 16-deep
+// steps, the fragment columns {2t, 2t+1, 2t+8, 2t+9} of the first and then
+// of the second step, and those are the slice's elements 8t .. 8t+7.  So
+// each lane takes its A fragments with one 16-byte load per row and slice,
+// and its B fragments with one 16-byte shared load per 8-user fragment and
+// slice (rows 320 bytes apart: conflict-free).  The accumulators start at
+// the items' bias.
+constexpr int kRegMT = 256;  // items per block (8 warps x 32)
+constexpr int kRegKS = 8;    // 16-deep steps held in registers: D <= 128
+
+template <int kG>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+segmax_mma_regs_kernel(const MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* users = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
+  float* red = reinterpret_cast<float*>(users + n_buf * kNT * a.ld);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long j0 = static_cast<long long>(blockIdx.x) * a.span;
+  const long long j_end = min(a.Ip, j0 + a.span);
+
+  for (int r = 0; r < a.sub_tiles; ++r) {
+    const long long i0 = j0 + static_cast<long long>(r) * kRegMT;
+    __syncthreads();  // the previous sub-tile's readers are done
+    stage_rows<true>(users, a.uf, 0, kNT, a.B, a.D, a.Dp, a.ld, tid);
+    fvx::cp_async_commit();
+    if (a.n_ut > 1)
+      stage_rows<true>(users + kNT * a.ld, a.uf, kNT, kNT, a.B, a.D, a.Dp,
+                       a.ld, tid);
+    fvx::cp_async_commit();
+
+    // this warp's items: A fragments over all of D (permuted k), and bias
+    uint32_t af[2][kRegKS][4];
+    float bias[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long j = i0 + warp * 32 + mi * 16 + h * 8 + g;
+        const bool ok = j < j_end;
+        bias[mi][h] = ok ? a.ib[j] : -CUDART_INF_F;
+        const __nv_bfloat16* row = a.iv + (ok ? j : 0) * a.D + 8 * t;
+#pragma unroll
+        for (int c = 0; c < kRegKS / 2; ++c) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (ok && 32 * c + 8 * t < a.D)
+            v = __ldg(reinterpret_cast<const uint4*>(row + 32 * c));
+          af[mi][2 * c][h] = v.x;
+          af[mi][2 * c][h + 2] = v.y;
+          af[mi][2 * c + 1][h] = v.z;
+          af[mi][2 * c + 1][h + 2] = v.w;
+        }
+      }
+    }
+
+    for (int ut = 0; ut < a.n_ut; ++ut) {
+      fvx::cp_async_wait<kStages - 2>();
+      __syncthreads();  // tile ut landed; tile ut - 1's readers are done
+      if (ut + kStages - 1 < a.n_ut) {
+        const int nb = (ut + kStages - 1) % kStages;
+        stage_rows<true>(users + nb * kNT * a.ld, a.uf,
+                         static_cast<long long>(ut + kStages - 1) * kNT, kNT,
+                         a.B, a.D, a.Dp, a.ld, tid);
+      }
+      fvx::cp_async_commit();
+      const __nv_bfloat16* ubuf = users + (ut % kStages) * kNT * a.ld;
+
+      for (int pass = 0; pass < kNT / 16; ++pass) {
+        if (ut * kNT + pass * 16 >= a.B) break;
+        float acc[2][2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = bias[mi][e >> 1];
+        const uint4* brow = reinterpret_cast<const uint4*>(
+            ubuf + (pass * 16 + g) * a.ld + 8 * t);
+#pragma unroll
+        for (int c = 0; c < kRegKS / 2; ++c) {
+          if (32 * c >= a.D) break;  // zero past D
+          uint4 w[2];
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni) w[ni] = brow[(ni * 8 * a.ld + 32 * c) / 8];
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int ni = 0; ni < 2; ++ni) {
+              const uint32_t b[2] = {s ? w[ni].z : w[ni].x, s ? w[ni].w : w[ni].y};
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+                fvx::mma_bf16_16816(acc[mi][ni], af[mi][2 * c + s], b);
+            }
+        }
+
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          const int col = pass * 16 + ni * 8 + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v[2][2];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) v[mi][h] = acc[mi][ni][h * 2 + e];
+            group_max<kG>(v, warp * 32, col + e, red, g);
+          }
+        }
+      }
+      __syncthreads();
+      store_segments<kG, kRegMT, kMmaThreads>(
+          a, red, static_cast<long long>(ut) * kNT,
+          static_cast<long long>(blockIdx.x) * a.nseg, r, tid);
+    }
+    fvx::cp_async_wait<0>();
+  }
+}
+
+template <int kG>
+int launch_regs_as(const MmaArgs& a, long long blocks, size_t smem,
+                   cudaStream_t stream) {
+  static size_t granted = 0;  // per instantiation
+  if (smem > 48 * 1024 && smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segmax_mma_regs_kernel<kG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  segmax_mma_regs_kernel<kG><<<static_cast<unsigned>(blocks), kMmaThreads,
+                               smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same D and more than 64 users: the warpgroup products.  A block
+// of 2 warpgroups owns 256 items; each warp keeps the A fragments of its 2
+// x 16 items over all of D in registers (64 of them; warp w of a
+// warpgroup holds rows 16w .. 16w+15 of each of its two 64-item tiles).
+// The users stream through the 3-stage ring in the K-major no-swizzle
+// layout the tensor cores read (8x8 core matrices of 128 bytes: a user
+// tile is [8 user groups][16 k groups][8 users][8 k]), and a warpgroup
+// multiplies its 64-item tile by all 64 users of the tile with 8
+// wgmma.m64n64k16, reading the users from shared memory itself: no
+// fragment loads for B.  The accumulators start at the items' bias; the
+// epilogue reduces 8- or 16-row groups in registers and shuffles.
+constexpr int kWgGroups = 2;                 // warpgroups per block
+constexpr int kWgThreads = kWgGroups * 128;
+constexpr int kWgMT = kWgGroups * 128;       // items per block
+
+template <int kG>
+__global__ void __launch_bounds__(kWgThreads, 2)
+segmax_wgmma_kernel(const MmaArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* users = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
+  float* red = reinterpret_cast<float*>(users + n_buf * kNT * 128);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, warp in it
+  const int g = lane >> 2, t = lane & 3;
+  const long long j0 = static_cast<long long>(blockIdx.x) * a.span;
+  const long long j_end = min(a.Ip, j0 + a.span);
+
+  // user tile ut into ring slot ut % kStages, as core matrices
+  auto stage_users = [&](int ut) {
+    __nv_bfloat16* buf = users + (ut % kStages) * kNT * 128;
+    for (int idx = tid; idx < kNT * 16; idx += kWgThreads) {
+      const int u = idx >> 4, c = idx & 15;
+      const long long b = static_cast<long long>(ut) * kNT + u;
+      const bool ok = b < a.B && c * 8 < a.D;
+      fvx::cp_async16(fvx::smem_u32(buf + ((u >> 3) * 16 + c) * 64 + (u & 7) * 8),
+                      ok ? a.uf + b * a.D + c * 8 : a.uf, ok ? 16 : 0);
+    }
+  };
+
+  for (int r = 0; r < a.sub_tiles; ++r) {
+    const long long i0 = j0 + static_cast<long long>(r) * kWgMT;
+    __syncthreads();  // the previous sub-tile's readers are done
+    stage_users(0);
+    fvx::cp_async_commit();
+    if (a.n_ut > 1) stage_users(1);
+    fvx::cp_async_commit();
+
+    // this warp's items: A fragments over all of D, and their bias
+    uint32_t af[2][kRegKS][4];
+    float bias[2][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long j = i0 + wg * 128 + p * 64 + wq * 16 + h * 8 + g;
+        const bool ok = j < j_end;
+        bias[p][h] = ok ? a.ib[j] : -CUDART_INF_F;
+        const uint32_t* row =
+            reinterpret_cast<const uint32_t*>(a.iv + (ok ? j : 0) * a.D);
+#pragma unroll
+        for (int ks = 0; ks < kRegKS; ++ks)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int k = ks * 16 + q * 8 + 2 * t;
+            af[p][ks][h + 2 * q] = (ok && k < a.D) ? __ldg(row + k / 2) : 0u;
+          }
+      }
+    }
+
+    for (int ut = 0; ut < a.n_ut; ++ut) {
+      fvx::cp_async_wait<kStages - 2>();
+      fvx::fence_proxy_async();
+      __syncthreads();  // tile ut landed; tile ut - 1's readers are done
+      if (ut + kStages - 1 < a.n_ut) stage_users(ut + kStages - 1);
+      fvx::cp_async_commit();
+      const uint32_t base = fvx::smem_u32(users + (ut % kStages) * kNT * 128);
+
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float d[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          d[i] = bias[p][(i >> 1) & 1];
+          fvx::reg_fence(d[i]);
+        }
+        fvx::wgmma_fence();
+        // all 8 steps, zeros past D: a product under a branch makes ptxas
+        // put a warpgroup.arrive before each one
+#pragma unroll
+        for (int ks = 0; ks < kRegKS; ++ks)
+          fvx::wgmma_m64n64k16_bf16(d, af[p][ks],
+                                    fvx::wgmma_desc(base + ks * 256, 128, 2048));
+        fvx::wgmma_commit();
+        fvx::wgmma_wait0();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fvx::reg_fence(d[i]);
+
+        const int row0 = wg * 128 + p * 64 + wq * 16;  // the warp's first item
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v[1][2] = {{d[4 * i + e], d[4 * i + 2 + e]}};  // rows g, g + 8
+            group_max<kG>(v, row0, i * 8 + 2 * t + e, red, g);
+          }
+      }
+      __syncthreads();
+      store_segments<kG, kWgMT, kWgThreads>(
+          a, red, static_cast<long long>(ut) * kNT,
+          static_cast<long long>(blockIdx.x) * a.nseg, r, tid);
+    }
+    fvx::cp_async_wait<0>();
+  }
+}
+
+template <int kG>
+int launch_wgmma_as(const MmaArgs& a, long long blocks, size_t smem,
+                    cudaStream_t stream) {
+  static size_t granted = 0;  // per instantiation
+  if (smem > 48 * 1024 && smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segmax_wgmma_kernel<kG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  segmax_wgmma_kernel<kG><<<static_cast<unsigned>(blocks), kWgThreads,
+                            smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec, int kG>
+int launch_mma_as(const MmaArgs& a, long long blocks, size_t smem,
+                  cudaStream_t stream) {
+  static size_t granted = 0;  // per instantiation
+  if (smem > 48 * 1024 && smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segmax_mma_kernel<kVec, kG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  segmax_mma_kernel<kVec, kG><<<static_cast<unsigned>(blocks), kMmaThreads,
+                                smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_mma_vec(const MmaArgs& a, int kg, long long blocks, size_t smem,
+                   cudaStream_t stream) {
+  switch (kg) {
+    case 32: return launch_mma_as<kVec, 32>(a, blocks, smem, stream);
+    case 16: return launch_mma_as<kVec, 16>(a, blocks, smem, stream);
+    case 8: return launch_mma_as<kVec, 8>(a, blocks, smem, stream);
+    default: return launch_mma_as<kVec, 0>(a, blocks, smem, stream);
+  }
+}
+
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block on the H100
+
+// the bf16 tensor-core launch, or -1 when its tiles outgrow shared memory
+int launch_mma(const void* uf, const void* iv, const void* ib, void* out,
+               long long B, long long Ip, long long D, long long seg,
+               cudaStream_t stream) {
+  MmaArgs a;
+  a.uf = static_cast<const __nv_bfloat16*>(uf);
+  a.iv = static_cast<const __nv_bfloat16*>(iv);
+  a.ib = static_cast<const float*>(ib);
+  a.out = static_cast<float*>(out);
+  a.B = static_cast<int>(B);
+  a.D = static_cast<int>(D);
+  a.Dp = static_cast<int>((D + 15) / 16 * 16);
+  a.Ip = Ip;
+  a.S = Ip / seg;
+  a.seg = static_cast<int>(seg);
+  const long long n_ut = (B + kNT - 1) / kNT;
+  if (n_ut > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.n_ut = static_cast<int>(n_ut);
+  const bool vec = D % 8 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(uf) |
+                     reinterpret_cast<uintptr_t>(iv)) & 15) == 0;
+  // items a block holds: 256 with their fragments in registers (D <= 128,
+  // the users staged zero-padded to 128), else 128 in shared memory
+  const bool regs = vec && D <= kRegKS * 16;
+  const bool wg = regs && a.n_ut > 1;
+  const int mt = wg ? kWgMT : regs ? kRegMT : kMT;
+  if (regs) a.Dp = kRegKS * 16;
+  // shared row stride: 16 bytes of pad for ldmatrix, 64 for the register
+  // kernel's 16-byte loads (rows 64 bytes apart mod 128)
+  a.ld = a.Dp + (regs ? 32 : 8);
+  a.nseg = seg <= mt ? static_cast<int>(mt / seg) : 1;
+  a.span = seg <= mt ? static_cast<int>(a.nseg * seg) : static_cast<int>(seg);
+  a.sub_tiles = (a.span + mt - 1) / mt;
+  // rows reduced in registers: a multiple of 8 that divides the segment
+  // (the warpgroup kernel's warps hold 16 rows of a 64-row tile)
+  int kg = 0;
+  if (seg > mt || seg % 32 == 0) kg = wg ? 16 : 32;
+  else if (seg % 16 == 0) kg = 16;
+  else if (seg % 8 == 0) kg = 8;
+  const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
+  const size_t tiles = wg ? static_cast<size_t>(n_buf) * kNT * 128 * 2
+      : static_cast<size_t>((regs ? 0 : kMT) + n_buf * kNT) * a.ld * 2;
+  const size_t reduce = kg ? static_cast<size_t>(mt / kg) * kNT * 4
+                           : static_cast<size_t>(mt) * kScoreLD * 4;
+  const size_t smem = tiles + reduce;
+  if (smem > kMaxSmem) return -1;
+  const long long blocks = (a.S + a.nseg - 1) / a.nseg;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (wg) {
+    switch (kg) {
+      case 16: return launch_wgmma_as<16>(a, blocks, smem, stream);
+      case 8: return launch_wgmma_as<8>(a, blocks, smem, stream);
+      default: return launch_wgmma_as<0>(a, blocks, smem, stream);
+    }
+  }
+  if (regs) {
+    switch (kg) {
+      case 32: return launch_regs_as<32>(a, blocks, smem, stream);
+      case 16: return launch_regs_as<16>(a, blocks, smem, stream);
+      case 8: return launch_regs_as<8>(a, blocks, smem, stream);
+      default: return launch_regs_as<0>(a, blocks, smem, stream);
+    }
+  }
+  return vec ? launch_mma_vec<true>(a, kg, blocks, smem, stream)
+             : launch_mma_vec<false>(a, kg, blocks, smem, stream);
+}
+
+bool bad_geometry(long long B, long long Ip, long long D, long long seg) {
+  return B < 1 || Ip < 1 || D < 1 || seg < 1 || Ip % seg != 0 ||
+         B > (1LL << 30) || D > (1LL << 30) || seg > (1LL << 30);
 }
 
 }  // namespace
@@ -175,11 +814,19 @@ int launch(const void* uf, const void* iv, const void* ib, void* out,
 extern "C" int fvx_segmax_bf16(const void* uf, const void* iv, const void* ib,
                                void* out, long long B, long long Ip,
                                long long D, long long seg, void* stream) {
-  return launch<__nv_bfloat16>(uf, iv, ib, out, B, Ip, D, seg, stream);
+  if (bad_geometry(B, Ip, D, seg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = launch_mma(uf, iv, ib, out, B, Ip, D, seg, s);
+  return rc >= 0 ? rc
+                 : launch_simt<__nv_bfloat16>(uf, iv, ib, out, B, Ip, D, seg, s);
 }
 
 extern "C" int fvx_segmax_f32(const void* uf, const void* iv, const void* ib,
                               void* out, long long B, long long Ip,
                               long long D, long long seg, void* stream) {
-  return launch<float>(uf, iv, ib, out, B, Ip, D, seg, stream);
+  if (bad_geometry(B, Ip, D, seg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_simt<float>(uf, iv, ib, out, B, Ip, D, seg,
+                            static_cast<cudaStream_t>(stream));
 }

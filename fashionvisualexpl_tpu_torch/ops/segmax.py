@@ -16,8 +16,13 @@ Bound on an H100 SXM at the serving shapes: B=4096, Ip=1,048,576 (1M items
 padded to the 65536 block), D=128 is 1.10 TFLOP, ~1.11 ms at 989 TFLOP/s
 bf16, against ~0.81 GB of traffic (iv 268 MB + out 537 MB), ~0.24 ms at
 3.35 TB/s.  At B=8 the 268 MB item read alone bounds it: ~0.08 ms.  The
-kernel runs on the CUDA cores and is far from that bound; its measured
-times are in PERF.md.
+bf16 kernel runs on the tensor cores, each block holding a tile of items
+while the users stream past it: for D a multiple of 8 up to the serving
+width (D=128) ``wgmma`` warpgroup products for B > 64 and ``mma.sync`` with
+the items in registers for B <= 64, ``mma.sync`` from shared memory at any
+other D; the f32 entry,
+on no main path, keeps the first CUDA-core design.  Measured times are in
+PERF.md.
 
 ``segmax_scores`` launches the kernel for a CUDA tensor (or raises) and takes
 the plain version ``segmax_scores_reference`` for a CPU tensor only.

@@ -13,7 +13,8 @@ Not ported: the specialized per-model steps and their states
 (``PackedLazyState``, ``make_packed_bprmf_step``, the VBPR and GradFashion
 steps, ``PackedTrainState``); the JAX package reaches them only from
 ``scripts/scaled_bench.py --packed_engine specialized`` and pins them equal
-to the generic engine.  They wait in ROADMAP queue 1, item 4.
+to the generic engine.  They wait in ROADMAP queue 1 (The specialized
+packed steps).
 """
 
 from __future__ import annotations

@@ -33,10 +33,10 @@ and returns a new ``GenericPackedState`` holding them, the new step and the
 new dense params.
 
 Not ported here (each raises ``NotImplementedError`` naming its ROADMAP
-item): the extra item rows of a spec with ``extra_items`` (ACF, item 9) and
-fused frozen item columns (VBPR, GradFashion, ACF, items 8-9; the models
-the port has declare none, so ``fused_frozen=True`` is a no-op for them).
-``_moment_cols`` and the sharded engine wait for item 13.
+item by heading): the extra item rows of a spec with ``extra_items`` (ACF)
+and fused frozen item columns (VBPR; the models the port has declare none,
+so ``fused_frozen=True`` is a no-op for them).  ``_moment_cols`` and the
+sharded engine wait for Multi-device.
 """
 
 from __future__ import annotations
@@ -260,7 +260,7 @@ def pack_generic_state(model, params: Mapping[str, torch.Tensor], frozen=None,
     if frozen is not None and spec.frozen_item_tables:
         raise NotImplementedError(
             "fused frozen item columns (VBPR, GradFashion, ACF) are not ported "
-            "yet (ROADMAP items 8-9)"
+            "yet (ROADMAP: VBPR)"
         )
     md = moment_dtype_name(moment_dtype)
     u_offs, Wu = _offsets(spec.user_tables)
@@ -360,12 +360,12 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
     if spec.extra_items:
         raise NotImplementedError(
             "packed extra item rows (ACF's profile over the user's positives) "
-            "are not ported yet (ROADMAP item 9)"
+            "are not ported yet (ROADMAP: ACF)"
         )
     if fused_frozen and spec.frozen_item_tables:
         raise NotImplementedError(
             "fused frozen item columns (VBPR, GradFashion, ACF) are not ported "
-            "yet (ROADMAP items 8-9)"
+            "yet (ROADMAP: VBPR)"
         )
     md = moment_dtype_name(moment_dtype)
     u_offs, Wu = _offsets(spec.user_tables)

@@ -26,7 +26,7 @@ epochs and at epoch 1 and the best params at the end
 (``core/checkpoint.py``); ``resume=True`` restores the latest checkpoint
 and continues from the next epoch.
 
-Not ported yet: the ``mesh`` paths (ROADMAP item 13), generic or packed;
+Not ported yet: the ``mesh`` paths (ROADMAP: Multi-device), generic or packed;
 they raise ``NotImplementedError``.
 """
 
@@ -92,7 +92,7 @@ class Trainer:
             )
         if cfg.mesh.num_devices > 1:
             raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP item 13)"
+                "multi-device training is not ported yet (ROADMAP: Multi-device)"
             )
         if cfg.train_path not in ("generic", "packed"):
             raise ValueError(f"unknown train_path {cfg.train_path!r}")
@@ -147,7 +147,7 @@ class Trainer:
                 f"train_path='packed' requires packed_spec/packed_loss; "
                 f"{model.name} does not implement them"
             ) from e
-        # a model declaring frozen item tables raises there (items 8-9)
+        # a model declaring frozen item tables raises there (ROADMAP: VBPR)
         return make_generic_packed_step(
             model, cfg.lr, cfg.reg, fused_frozen=cfg.fused_frozen,
             moment_dtype=cfg.moment_dtype, lazy_catchup=cfg.lazy_catchup,

@@ -188,9 +188,9 @@ def test_construction_rules():
                          device="cpu")
     with pytest.raises(ValueError, match="rows != num_items"):
         AttentiveFashion(U, I + 1, color, edges, cls, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
         AttentiveFashion(U, I, color, edges, cls, compute_dtype="bfloat16", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: The streamed trainer"):
         AttentiveFashion(U, I, color, edges, cls, host_features=True, **kw)
 
 

@@ -203,14 +203,28 @@ def test_validate_args_gives_the_jax_messages(argv):
     assert str(perr.value) == str(jerr.value)
 
 
+def test_packed_help_says_what_the_port_runs():
+    """The packed flags' help names the port's one-device packed path and
+    none of the JAX package's mesh or speed-up claims."""
+    actions = {a.dest: a.help for a in pcli.build_parser()._actions}
+    for dest in ("train_path", "moment_dtype", "row_align"):
+        text = " ".join(actions[dest].split())
+        assert "over the mesh" not in text and "2.5x" not in text, (dest, text)
+        assert "TPU" not in text and "XLA" not in text, (dest, text)
+    train_path = " ".join(actions["train_path"].split())
+    assert "BPRMF and attentive_fashion on one device" in train_path
+    assert "27.1 ms against 14.8 ms" in train_path
+
+
 @pytest.mark.parametrize("extra,item", [
-    (("--rec", "vbpr"), 8), (("--rec", "acf"), 9), (("--rec", "comp_vbpr"), 10),
-    (("--train_path", "packed", "--mesh_data", "2"), 13),
-    (("--rec", "attentive_fashion", "--streamed"), 12),
-    (("--mesh_data", "2"), 13),
+    (("--rec", "vbpr"), "VBPR"), (("--rec", "acf"), "ACF"),
+    (("--rec", "comp_vbpr"), "CNN and CompVBPR"),
+    (("--train_path", "packed", "--mesh_data", "2"), "Multi-device"),
+    (("--rec", "attentive_fashion", "--streamed"), "The streamed trainer"),
+    (("--mesh_data", "2"), "Multi-device"),
 ])
 def test_options_of_later_slices_raise(dataset_dir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
         pcli.train(_argv(dataset_dir, "never", ()) + list(extra))
     assert not os.path.exists(os.path.join(dataset_dir, "never"))
 

@@ -73,6 +73,34 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, seg):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,D,seg,n_seg", [
+    (100, 128, 16, 300), (100, 128, 64, 90), (100, 128, 128, 40), (100, 128, 1024, 5),
+    (4097, 64, 32, 70), (4097, 128, 32, 70), (8, 128, 8, 500), (37, 33, 32, 50),
+    (100, 33, 24, 40), (20, 600, 32, 10), (8, 128, 16, 300), (64, 128, 64, 90),
+    (8, 128, 24, 40), (64, 128, 1024, 5), (8, 128, 4096, 1),
+    (8, 64, 32, 70), (100, 16, 32, 70), (100, 72, 16, 90), (8, 72, 8, 90),
+    (8, 200, 32, 10),
+])
+def test_kernel_geometries_match_plain_version_on_card(cuda_device, dtype, B, D, seg, n_seg):
+    """The tensor-core kernels' paths (D a multiple of 8 up to 128 with
+    the items' fragments in registers, D not a multiple of 8 or above 128
+    from shared memory, seg a multiple of 32, 16 or 8 or none, seg above
+    the block's item tile, B not a multiple of 8 or 16) and the CUDA-core
+    body (f32, D = 600)."""
+    g = torch.Generator(device=cuda_device).manual_seed(B + D + seg)
+    Ip = seg * n_seg
+    uf = (torch.randn(B, D, device=cuda_device, generator=g) * (3 / D**0.5)).to(dtype)
+    iv = torch.randn(Ip, D, device=cuda_device, generator=g).to(dtype)
+    ib = torch.randn(Ip, device=cuda_device, generator=g) * 0.1
+    ib[-seg - 3:] = -1e30
+    got = S.segmax_scores(uf, iv, ib, seg)
+    torch.cuda.synchronize()
+    want = S.segmax_scores_reference(uf, iv, ib, seg)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_non_contiguous_on_card(cuda_device):
     uf = torch.zeros(4, 8, device=cuda_device).T  # [8, 4], column-major
     iv = torch.zeros(64, 8, device=cuda_device)[:, :4]  # [64, 4], strided
@@ -237,6 +265,80 @@ def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb
     want = K2.streaming_counts_kernel(uf.cpu(), iv.cpu(), ib.cpu(), ref.cpu(),
                                       loc.cpu(), msk.cpu(), item_block=item_tile)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_counts_kernel_quantized_wide_bans_on_card(cuda_device):
+    """D = 33 (staged with 4-byte loads), T = 3, and four banned ids of one
+    item tile per user (W >= 4): bit-equal to the plain version."""
+    from fashionvisualexpl_tpu_torch.ops.topk import (
+        banned_bucket_width,
+        bucket_banned_ids_device,
+    )
+
+    B, I, D, T, tile = 300, 5000, 33, 3, 256
+    uf, iv, ib, ref, banned = _counts_inputs(cuda_device, B, I, D, T, 8, seed=33)
+    rng = np.random.default_rng(33)
+    start = rng.integers(0, I - 4, B)
+    start -= start % tile - np.minimum(start % tile, tile - 4)  # 4 ids in one tile
+    banned[:, :4] = torch.from_numpy((start[:, None] + np.arange(4)).astype(np.int32)).to(
+        cuda_device)
+    W = banned_bucket_width(banned.cpu().numpy(), I, tile)
+    assert W >= 4
+    loc, msk = bucket_banned_ids_device(banned, I, tile, W)
+    got = K2.streaming_counts_kernel(uf, iv, ib, ref, loc, msk, item_block=tile)
+    want = K2.streaming_counts_kernel(uf.cpu(), iv.cpu(), ib.cpu(), ref.cpu(), loc.cpu(),
+                                      msk.cpu(), item_block=tile)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "cancelling"])
+def test_counts_kernel_band_equals_exact_chain_on_card(cuda_device, kind):
+    """The default band and _band_scale=inf (every pair through the exact
+    fmaf chain) give bit-equal counts on data whose scores are not exact in
+    f32: Gaussian rows, and rows of large +- terms whose dot products are
+    near 0, with the refs placed on such scores."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, I, D, tile = 256, 16384, 128, 2048
+    uf = torch.randn(B, D, device=cuda_device, generator=g) * 0.3
+    iv = torch.randn(I, D, device=cuda_device, generator=g) * 0.3
+    if kind == "cancelling":
+        big = torch.randn(I, 1, device=cuda_device, generator=g) * 30
+        sign = torch.randint(0, 2, (B, 1), device=cuda_device, generator=g) * 2.0 - 1
+        iv += big
+        uf[:, : D // 2] += sign
+        uf[:, D // 2:] -= sign
+    ib = torch.randn(I, device=cuda_device, generator=g) * 0.1
+    j = torch.randint(0, I, (B, 2), device=cuda_device, generator=g)
+    ref = torch.einsum("bd,bwd->bw", uf, iv[j]) + ib[j]
+    loc = torch.full((I // tile, B, 1), -1, dtype=torch.int32, device=cuda_device)
+    n_re = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    n_all = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    band = K2.counts_kernel(uf, iv, ib, ref, loc, tile, 256, _rechecked=n_re)
+    exact = K2.counts_kernel(uf, iv, ib, ref, loc, tile, 256, _band_scale=float("inf"),
+                             _rechecked=n_all)
+    torch.cuda.synchronize()
+    assert torch.equal(band, exact)
+    assert int(n_all) == B * I and 0 < int(n_re) < B * I
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 6, 16, 128])
+def test_counts_kernel_band_holds_the_worst_split_on_card(cuda_device, D):
+    """Rows whose every coordinate is a worst case of the bf16 split, refs
+    between the bf16x3 and the exact scores (ops/counts.py::band_worst_case):
+    the default band sends those pairs to the exact chain, and the counts
+    equal _band_scale=inf's and the exact ones."""
+    uf, iv, ib, ref, want = (t.to(cuda_device) for t in K2.band_worst_case(D, seed=D))
+    loc = torch.full((1, uf.shape[0], 1), -1, dtype=torch.int32, device=cuda_device)
+    n_re = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    band = K2.counts_kernel(uf, iv, ib, ref, loc, 128, 8, _rechecked=n_re)
+    exact = K2.counts_kernel(uf, iv, ib, ref, loc, 128, 8, _band_scale=float("inf"))
+    torch.cuda.synchronize()
+    assert torch.equal(band, exact)
+    assert torch.equal(band, want)
+    assert int(n_re) > 0
 
 
 @pytest.mark.cuda

@@ -113,12 +113,12 @@ def test_counts_impl_choice_and_errors():
     assert FactoredEvaluator(model, data).counts_impl == "bucketed"  # CPU: auto
     with pytest.raises(ValueError, match="counts_impl"):
         FactoredEvaluator(model, data, counts_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: Multi-device"):
         FactoredEvaluator(model, data, mesh=object())
     with pytest.raises(NotImplementedError, match="factored attention dump"):
         FactoredEvaluator(model, data).store_recommendation_attention(None, None, "x", None)
     for ev in (Evaluator(model, data), FactoredEvaluator(model, data)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP: GradFashion and explanations"):
             ev.store_recommendation_grads(None, None, "x")
 
 

@@ -150,3 +150,50 @@ def test_packed_engine_and_row_kernels_raise_when_no_cuda(no_cuda):
     cfg = TrainConfig(batch_size=4, epochs=1, train_path="packed")
     data = synthetic_interactions(6, 12, interactions_per_user=4, seed=0)
     assert Trainer(model, data, cfg).device.type == "cpu"
+
+
+# the lazy top-level surface, in a fresh interpreter without jax
+_SURFACE_CHECK = """
+import importlib, sys
+import fashionvisualexpl_tpu_torch as fvx
+loaded = sorted(m for m in sys.modules if m.startswith("fashionvisualexpl_tpu_torch."))
+assert not loaded, loaded  # importing the package loads none of its modules
+ported = {
+    "TrainConfig": "core.config", "Paths": "core.config", "MeshConfig": "core.config",
+    "Interactions": "data.interactions", "synthetic_interactions": "data.interactions",
+    "BPRMF": "models.bprmf", "AttentiveFashion": "models.attentive_fashion",
+    "Trainer": "train.trainer", "fit": "train.trainer", "Evaluator": "eval.evaluator",
+    "FactoredEvaluator": "eval.factored", "CheckpointManager": "core.checkpoint",
+}
+for name, mod in ported.items():
+    obj = getattr(fvx, name)
+    assert obj is getattr(importlib.import_module("fashionvisualexpl_tpu_torch." + mod), name)
+    assert obj.__module__ == "fashionvisualexpl_tpu_torch." + mod, (name, obj.__module__)
+assert fvx.TrainConfig().batch_size == 256 and callable(fvx.fit)
+for name, heading in (("VBPR", "VBPR"), ("GradFashion", "GradFashion and explanations"),
+                      ("ACF", "ACF"), ("CompVBPR", "CNN and CompVBPR")):
+    try:
+        getattr(fvx, name)
+    except NotImplementedError as e:
+        assert f"(ROADMAP: {heading})" in str(e), str(e)
+    else:
+        raise AssertionError(name + " resolved")
+try:
+    fvx.not_a_thing
+except AttributeError:
+    pass
+else:
+    raise AssertionError("not_a_thing resolved")
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fashionvisualexpl_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_lazy_api_surface():
+    """Mirrors tests/test_api_surface.py::test_lazy_api_surface for the port."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _SURFACE_CHECK], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr

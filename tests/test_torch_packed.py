@@ -581,19 +581,19 @@ def test_unported_branches_raise_naming_their_items():
     data = synthetic_interactions(4, 4, interactions_per_user=2, seed=0)
     with pytest.raises(NotImplementedError, match="does not implement"):
         Trainer(_NoPacked(), data, TrainConfig(batch_size=2, train_path="packed"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: ACF"):
         tpg.make_generic_packed_step(_WithExtras(extra_items=3), 0.01, 0.0)
     frozen_model = _WithExtras(frozen_tables=(("F", 4),))
-    with pytest.raises(NotImplementedError, match="ROADMAP items 8-9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: VBPR"):
         tpg.make_generic_packed_step(frozen_model, 0.01, 0.0, fused_frozen=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP items 8-9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: VBPR"):
         tpg.pack_generic_state(frozen_model, dict(frozen_model.named_parameters()),
                                frozen={"F": torch.zeros(8, 4)})
     # BPRMF declares no frozen tables: fused_frozen=True is a no-op
     tpg.make_generic_packed_step(BPRMF(4, 4, embed_k=2, device="cpu"), 0.01, 0.0,
                                  fused_frozen=True)
     assert isinstance(BPRMF(4, 4, embed_k=2, device="cpu").packed_spec(), PackedSpec)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: Multi-device"):
         Trainer(BPRMF(4, 4, embed_k=2, device="cpu"), data,
                 TrainConfig(batch_size=2, train_path="packed",
                             mesh=TrainConfig().mesh.__class__(data=2)))

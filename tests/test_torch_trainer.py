@@ -165,5 +165,5 @@ def test_options_of_later_slices_raise(what):
     cfg = dataclasses.replace(cfg, mesh=MeshConfig(data=2, model=1))
     if what == "packed":
         cfg = dataclasses.replace(cfg, train_path="packed")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: Multi-device"):
         fit(model, data, cfg)
