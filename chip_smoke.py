@@ -163,6 +163,9 @@ CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 TOWER_TIMED = ((8192, 32, 32, 64), (256, 224, 224, 64))
 TOWER_GEOMS = ((5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8), (4, 10, 12, 300)) + TOWER_TIMED
 TOWER_TIES = ((4, 8, 12, 4, 0.5), (16, 32, 32, 64, 0.5), (16, 32, 32, 64, 0.0))
+# edge maps as the model's stack holds them (data/pipeline.py: tiff / 255):
+# k/255, mostly zero, so zero regions tie every window at pre = bias
+TOWER_EDGES = ((64, 32, 32, 64), (2, 224, 224, 64))
 # kernel vs plain version: the forward sums 25 taps and (H/2)(W/2) pooled
 # values in another order (rtol 1e-5, atol 1e-6).  A gradient sums g * x
 # over every image and pooled pixel: its rounding grows with the sum of
@@ -1285,12 +1288,19 @@ def tower_bounds(torch, E, x, w, b):
     """K7's forward and backward bounds on this run's inputs: images x
     [B, H, W, 1], filters w [5, 5, 1, C], bias b [C].  Operations: one FMA
     (2 operations) for each tap inside the image at every conv output,
-    (5H-6)(5W-6) per channel and image; the backward adds one FMA for each
-    tap inside the image of each pooled pixel's winning conv output where
-    its pre-activation is > 0 (dW), and one add there (db).  The winners
-    are found by the kernel's tie rule on the plain conv's values.  Bytes:
-    the images, weights and bias read once, [B, C] written (forward) or
-    read (backward), dW and db written."""
+    (5H-6)(5W-6) per channel and image, at the f32 CUDA-core rate (the
+    backward recomputes the conv there too).  The backward's tap sums run
+    on the tensor cores: one FMA for each tap inside the image of each
+    pooled pixel's winning conv output where its pre-activation is > 0
+    (dW), and one there (db), each as three bf16 products (the image's
+    exact split), at the bf16 tensor-core rate; the two units run side by
+    side, so the backward's bound is the larger of the two times (K2's
+    convention since the tensor cores took its product).  ``f32``: the
+    backward's bound with every operation at the f32 rate (one FMA per dW
+    tap, one add per db), the convention before.  The winners are found by
+    the kernel's tie rule on the plain conv's values.  Bytes: the images,
+    weights and bias read once, [B, C] written (forward) or read
+    (backward), dW and db written.  Returns (fwd, bwd, bwd at f32)."""
     B, H, W, _ = x.shape
     C = w.shape[3]
     th, tw = tower_taps(torch, H, x.device), tower_taps(torch, W, x.device)
@@ -1308,12 +1318,17 @@ def tower_bounds(torch, E, x, w, b):
     del zh, even
     taps = (torch.where(top, th[0::2, None], th[1::2, None])
             * torch.where(col_even, tw[0::2], tw[1::2]))
-    dw = 2.0 * int(torch.where(live, taps, 0).sum()) + int(live.sum())
+    dw_fmas = int(torch.where(live, taps, 0).sum())
+    n_live = int(live.sum())
     del top, live, col_even, taps
     params = 4 * 26 * C
     fwd = bound_ms(4 * B * H * W + params + 4 * B * C, conv, PEAK_F32_FLOPS)
-    bwd = bound_ms(4 * B * H * W + params + 4 * B * C + params, conv + dw, PEAK_F32_FLOPS)
-    return fwd, bwd
+    bwd_bytes = 4 * B * H * W + params + 4 * B * C + params
+    tc = bound_ms(bwd_bytes, 3 * 2.0 * (dw_fmas + n_live), PEAK_BF16_FLOPS)
+    cuda_cores = bound_ms(bwd_bytes, conv, PEAK_F32_FLOPS)
+    bwd = max(tc, cuda_cores)
+    f32 = bound_ms(bwd_bytes, conv + 2.0 * dw_fmas + n_live, PEAK_F32_FLOPS)
+    return fwd, bwd, f32
 
 
 def tower_kernel_phase(torch, E):
@@ -1324,9 +1339,15 @@ def tower_kernel_phase(torch, E):
     g = torch.Generator(device=dev).manual_seed(12)
     errs = {"edge_tower_fwd": 0.0, "edge_tower_bwd": 0.0}
 
-    def inputs(B, H, W, C, value=None):
-        x = (torch.full((B, H, W, 1), value, device=dev) if value is not None
-             else torch.rand(B, H, W, 1, device=dev, generator=g))
+    def inputs(B, H, W, C, value=None, edges=False):
+        if value is not None:
+            x = torch.full((B, H, W, 1), value, device=dev)
+        elif edges:
+            k = torch.randint(1, 256, (B, H, W, 1), device=dev, generator=g)
+            keep = torch.rand(B, H, W, 1, device=dev, generator=g) < 0.15
+            x = torch.where(keep, k, 0).float() / 255
+        else:
+            x = torch.rand(B, H, W, 1, device=dev, generator=g)
         w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
         b = torch.randn(C, device=dev, generator=g) * 0.1
         dout = torch.randn(B, C, device=dev, generator=g)
@@ -1358,6 +1379,8 @@ def tower_kernel_phase(torch, E):
         torch.cuda.empty_cache()
     for B, H, W, C, v in TOWER_TIES:
         check(f"B={B} H={H} W={W} C={C} constant {v}", *inputs(B, H, W, C, v))
+    for B, H, W, C in TOWER_EDGES:
+        check(f"B={B} H={H} W={W} C={C} edge maps k/255", *inputs(B, H, W, C, edges=True))
 
     flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
     conv = torch.nn.functional.conv2d
@@ -1369,6 +1392,7 @@ def tower_kernel_phase(torch, E):
             lib_ms, _ = kernel_times(torch, "conv2d", lambda: conv(xc, wc, padding=2), 5,
                                      flush)
         bounds = tower_bounds(torch, E, x, w, b)
+        f32_bound = {"edge_tower_fwd": bounds[0][0], "edge_tower_bwd": bounds[2][0]}
         torch.cuda.empty_cache()
         shape = f"B={B} H={H} W={W} C={C} f32, cold L2"
         for name, run, plain, (bnd, by) in (
@@ -1382,10 +1406,10 @@ def tower_kernel_phase(torch, E):
             check_bound(f"{name} {shape}", ms, bnd)
             rows.setdefault(name, {})[(H, W)] = dict(
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms, shape=shape)
+                f32_bound_ms=f32_bound[name], library_ms=lib_ms, shape=shape)
             print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
-                  f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}) library_ms(conv2d f32, "
-                  f"no TF32, conv only)={lib_ms!r}")
+                  f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}; all at the f32 rate "
+                  f"{f32_bound[name]!r}) library_ms(conv2d f32, no TF32, conv only)={lib_ms!r}")
         del x, w, b, dout, xc, wc
         torch.cuda.empty_cache()
     out = {}

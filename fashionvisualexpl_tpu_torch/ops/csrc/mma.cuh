@@ -1,7 +1,7 @@
-// Inline-PTX helpers for the tensor-core kernels (segmax.cu, counts.cu) on
-// Hopper, sm_90a: asynchronous 16-byte copies into shared memory, ldmatrix
-// fragment loads, the warp-level bf16 mma.sync product and the bf16x3 split
-// of f32 values.  Fragment layouts are those of the PTX ISA's
+// Inline-PTX helpers for the tensor-core kernels (segmax.cu, counts.cu,
+// edge_tower.cu) on Hopper, sm_90a: asynchronous 16-byte copies into shared
+// memory, ldmatrix fragment loads, the warp-level bf16 mma.sync product and
+// the bf16x2 and bf16x3 splits of f32 values.  Fragment layouts are those of the PTX ISA's
 // "Matrix Fragments for mma.m16n8k16" section: with
 // g = lane / 4 and t = lane % 4, an accumulator holds rows g and g + 8 of
 // the 16-row tile, columns 2t and 2t + 1 of the 8-column tile (c[0], c[1]
@@ -79,6 +79,20 @@ __device__ __forceinline__ void split_bf16x2(float2 x, uint32_t& hi,
   const __nv_bfloat162 l =
       __floats2bfloat162_rn(__fsub_rn(x.x, hf.x), __fsub_rn(x.y, hf.y));
   hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The exact three-piece split of two f32 values: hi and mid as above, lo =
+// x - hi - mid rounded onto bf16.  x - hi has at most 16 significant bits
+// and x - hi - mid at most 8, so lo holds it exactly and x = hi + mid + lo
+// wherever the pieces stay normal (|x| above about 2^-110).
+__device__ __forceinline__ void split3_bf16x2(float2 x, uint32_t& hi, uint32_t& mid,
+                                              uint32_t& lo) {
+  split_bf16x2(x, hi, mid);
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  const float2 m = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&mid));
+  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(__fsub_rn(x.x, h.x), m.x),
+                                                 __fsub_rn(__fsub_rn(x.y, h.y), m.y));
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 

@@ -3,18 +3,22 @@
 GAP(MaxPool2x2(ReLU(Conv5x5_SAME(images) + b))) -> [B, C] f32, for
 single-channel images [B, H, W, 1] (H, W even), filters ``conv_w`` in JAX's
 HWIO layout [5, 5, 1, C] and bias ``conv_b`` [C], as the hand-written CUDA
-kernels of ``csrc/edge_tower.cu``: a direct convolution on the CUDA cores
-that never writes the [B, H, W, C] activation (design and bound in the
-source).  The TPU kernel's banded matmuls, batch tiles and VMEM budget
-(``auto_batch_tile``, ``kernel_vmem_bytes``) are Mosaic matters that stay
-behind: the CUDA kernel stages strips of image rows in shared memory, so it
-also runs at 224x224.
+kernels of ``csrc/edge_tower.cu``: a direct convolution that never writes
+the [B, H, W, C] activation, the backward's tap sums on the tensor cores
+(design and bound in the source).  The TPU kernel's banded matmuls, batch
+tiles and VMEM budget (``auto_batch_tile``, ``kernel_vmem_bytes``) are
+Mosaic matters that stay behind: the CUDA kernels stage tiles of image rows
+in shared memory, so they also run at 224x224.
 
 - ``edge_tower_fwd`` / ``edge_tower_bwd`` launch the forward and backward
   kernels for CUDA tensors and raise for any other; ``.launches`` counts
-  their launches.  The backward recomputes the forward and routes each
-  pooled gradient with the TPU kernel's tie rule (even column on the
-  pre-bias value, top row on the ReLU'd value, only where pre > 0).
+  their launches.  The backward recomputes the conv from the images and
+  routes each pooled gradient with the TPU kernel's tie rule (even column
+  on the pre-bias value, top row on the ReLU'd value, only where pre > 0).
+- ``edge_tower_gap_factored_backward`` and ``split_bf16x3`` are the
+  backward kernel's algebra in plain PyTorch (0/1 winner masks times the
+  image's exact three-piece bf16 split), held against JAX on the CPU;
+  nothing on the main path calls them.
 - ``edge_tower_gap`` binds the two in a ``torch.autograd.Function``
   (gradients for ``conv_w`` and ``conv_b``; the images are frozen features
   and get none, JAX's zero-gradient contract).  For CPU tensors it computes
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 K = 5  # kernel size of the reference tower (AttentiveFashion.py:57)
 STAGE_BYTES = 48 * 1024  # shared memory for one staged strip of image rows
 MAX_STRIP_ROWS = 16  # pooled rows per strip
-BWD_BLOCKS = 132 * 8  # the backward's grid at most: 8 blocks per SM of an H100
+BWD_TILE_COLS = 64  # the backward's tile: pooled columns at most
 
 
 def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
@@ -68,6 +72,17 @@ def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
         if t.device != images.device:
             raise ValueError("edge tower inputs must be on one device")
     return B, H, W, C
+
+
+def bwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
+    """(Rp, Cw, S) of the backward kernel: tiles of Rp pooled rows (a
+    multiple of 4, at most MAX_STRIP_ROWS) by Cw pooled columns (at most
+    BWD_TILE_COLS, the columns shared evenly), S tiles an image."""
+    hp, wp = h // 2, w // 2
+    rp = min(MAX_STRIP_ROWS, -(-hp // 4) * 4)
+    nc = -(-wp // BWD_TILE_COLS)
+    cw = -(-wp // nc)
+    return rp, cw, -(-hp // rp) * -(-wp // cw)
 
 
 def strip_rows(h: int, w: int) -> int:
@@ -132,6 +147,51 @@ def edge_tower_gap_plain_backward(images, conv_w, conv_b, dout):
     return dw, db
 
 
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's split of f32 ``x`` into three bf16 pieces
+    (returned as f32): hi = x rounded to nearest onto bf16, mid = x - hi
+    rounded, lo = x - hi - mid rounded.  Each difference is exact in f32
+    and lo holds the last one exactly, so x == hi + mid + lo wherever the
+    pieces stay normal (``mma.cuh::split3_bf16x2``)."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    lo = (r - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
+    """(dconv_w [5, 5, 1, C], dconv_b [C]) as the backward kernel factors
+    them, in plain PyTorch: the 0/1 mask M_b[c, p] of the winning conv
+    pixels with pre > 0 (the kernel's tie rule on the plain conv's values),
+    the tap sums T_b[c, j] = sum_p M_b[c, p] X_b[p, j] over the image's
+    5x5 windows (``unfold``) and a column of ones, each as three products
+    with the bf16 pieces of X, then dW, db = sum_b g[b, c] T_b[c, :] with
+    g = dout / ((H/2)(W/2)).  Even H, W."""
+    B, H, W, C = check_geometry(images, conv_w, conv_b)
+    x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
+    with fp32_convs():
+        z = F.conv2d(x, conv_w.permute(3, 2, 0, 1), padding=2)  # [B, C, H, W], pre-bias
+    even = z[..., 0::2] >= z[..., 1::2]  # the even column wins ties
+    zh = torch.where(even, z[..., 0::2], z[..., 1::2])
+    bias = conv_b[None, :, None, None]
+    pre_t, pre_b = zh[:, :, 0::2] + bias, zh[:, :, 1::2] + bias
+    top = torch.relu(pre_t) >= torch.relu(pre_b)  # the top row wins ties
+    live = torch.where(top, pre_t, pre_b) > 0
+    m = torch.zeros_like(z)
+    for dy, row in ((0, top), (1, ~top)):
+        win_even = even[:, :, dy::2]
+        m[:, :, dy::2, 0::2] = (live & row & win_even).float()
+        m[:, :, dy::2, 1::2] = (live & row & ~win_even).float()
+    cols = F.unfold(x, K, padding=2)  # [B, 25, H*W], tap ky*5+kx
+    cols = torch.cat([cols, torch.ones_like(cols[:, :1])], dim=1)  # [B, 26, H*W]
+    m = m.reshape(B, C, H * W)
+    taps = sum(torch.bmm(m, piece.transpose(1, 2)) for piece in split_bf16x3(cols))
+    g = dout / float((H // 2) * (W // 2))
+    dwb = torch.einsum("bc,bcj->jc", g, taps)
+    return dwb[: K * K].reshape(K, K, 1, C), dwb[K * K]
+
+
 def _library() -> ctypes.CDLL:
     from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
 
@@ -139,8 +199,10 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_fvx_typed", False):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
-        lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 5 + [ptr]
-        for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd):
+        lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
+        lib.fvx_edge_tower_bwd_blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
+        for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd,
+                   lib.fvx_edge_tower_bwd_blocks):
             fn.restype = ctypes.c_int
         lib._fvx_typed = True
     return lib
@@ -180,7 +242,7 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
 def edge_tower_bwd(images, conv_w, conv_b, dout):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) by the backward kernel for
     upstream gradient ``dout`` [B, C] (CUDA tensors only)."""
-    B, H, W, C, R, S = _kernel_inputs(images, conv_w, conv_b)
+    B, H, W, C, _, _ = _kernel_inputs(images, conv_w, conv_b)
     if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
             or dout.device != images.device:
         raise ValueError(
@@ -190,14 +252,20 @@ def edge_tower_bwd(images, conv_w, conv_b, dout):
     if not dout.is_contiguous():
         raise ValueError("edge tower kernel: dout must be contiguous")
     dev = images.device
-    n_blocks = min(B * S, BWD_BLOCKS)
+    rp, cw, tiles = bwd_tiles(H, W)
+    lib = _library()
     with torch.cuda.device(dev):
+        resident = ctypes.c_longlong(0)
+        rc = lib.fvx_edge_tower_bwd_blocks(C, rp, cw, ctypes.byref(resident))
+        if rc != 0:
+            raise RuntimeError(f"edge tower backward kernel setup failed: cudaError {rc}")
+        n_blocks = min(B * tiles, resident.value)
         partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
         dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().fvx_edge_tower_bwd(
+        rc = lib.fvx_edge_tower_bwd(
             images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dout.data_ptr(),
-            partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, R, stream)
+            partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, rp, cw, stream)
     if rc != 0:
         raise RuntimeError(f"edge tower backward kernel launch failed: cudaError {rc}")
     edge_tower_bwd.launches += 1

@@ -353,10 +353,18 @@ def test_counts_kernel_rejects_what_it_does_not_take_on_card(cuda_device):
         K2.counts_kernel(z(4, 8).T, z(256, 4), z(256), z(8, 1), loc, 256, 8)
 
 
-def _tower_inputs(dev, B, H, W, C, value=None, seed=0):
+def _tower_inputs(dev, B, H, W, C, value=None, seed=0, edges=False):
+    """Uniform images, constant ones (``value``), or with ``edges`` edge maps
+    as the model's stack holds them: k/255, mostly zero."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.full((B, H, W, 1), value, device=dev) if value is not None
-         else torch.rand(B, H, W, 1, device=dev, generator=g))
+    if value is not None:
+        x = torch.full((B, H, W, 1), value, device=dev)
+    elif edges:
+        k = torch.randint(1, 256, (B, H, W, 1), device=dev, generator=g)
+        keep = torch.rand(B, H, W, 1, device=dev, generator=g) < 0.15
+        x = torch.where(keep, k, 0).float() / 255
+    else:
+        x = torch.rand(B, H, W, 1, device=dev, generator=g)
     w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
     b = torch.randn(C, device=dev, generator=g) * 0.1
     return x, w, b, torch.randn(B, C, device=dev, generator=g)
@@ -394,6 +402,14 @@ def test_edge_tower_kernels_match_plain_version_on_card(cuda_device, B, H, W, C)
 def test_edge_tower_kernels_route_ties_like_the_plain_version_on_card(cuda_device, value):
     """Constant images tie every pool window (and, at 0, the ReLU boundary)."""
     _check_tower(*_tower_inputs(cuda_device, 16, 32, 32, 64, value=value))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [(64, 32, 32, 64), (2, 224, 224, 64)])
+def test_edge_tower_kernels_match_plain_version_on_edge_maps_on_card(cuda_device, B, H, W, C):
+    """k/255 edge maps, mostly zero: zero regions tie every pool window at
+    pre = bias."""
+    _check_tower(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C, edges=True))
 
 
 @pytest.mark.cuda

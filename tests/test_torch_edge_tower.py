@@ -140,3 +140,55 @@ def test_strip_rows():
     # very wide rows: the strip shrinks to keep the staged rows in 48 KB
     assert E.strip_rows(64, 4092) == 1
     assert 4 * (2 * E.strip_rows(64, 1000) + 4) * 1004 <= E.STAGE_BYTES
+
+
+def _edge_images(B, H, W, seed):
+    """Edge maps as the model's stack holds them (``data/pipeline.py``: L-mode
+    tiffs / 255): values k/255, mostly zero."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(1, 256, (B, H, W, 1)) * (rng.random((B, H, W, 1)) < 0.15)
+    return (k / 255.0).astype(np.float32)
+
+
+def _factored_cases():
+    for B, H, W, C in GEOMETRIES:
+        yield f"random-{B}x{H}x{W}x{C}", (*_inputs(B, H, W, C, seed=3 * B + C),)
+    _, cw, cb = _inputs(C=4, seed=8)
+    for v in (0.5, 0.0):
+        yield f"constant-{v}", (np.full((4, 8, 12, 1), v, np.float32), cw, cb)
+    _, cw, cb = _inputs(C=6, seed=9)
+    yield "edges-k/255", (_edge_images(6, 12, 16, seed=10), cw, cb)
+
+
+@pytest.mark.parametrize("case", list(_factored_cases()), ids=lambda c: c[0])
+def test_factored_backward_matches_jax_vjp(case):
+    """The kernel's algebra on the CPU: masks by the tie rule, tap sums by
+    unfold over the three bf16 pieces, dW = sum_b g T_b, against the VJP of
+    JAX's fused tower (interpret mode) and of its XLA tower."""
+    _, (imgs, cw, cb) = case
+    dout = np.random.default_rng(imgs.shape[0]).standard_normal(
+        (imgs.shape[0], cw.shape[3])).astype(np.float32)
+    dw, db = E.edge_tower_gap_factored_backward(
+        *(torch.from_numpy(a) for a in (imgs, cw, cb, dout)))
+    assert dw.shape == (5, 5, 1, cw.shape[3]) and db.shape == (cw.shape[3],)
+    for name, f in _jax_versions(imgs, cw, cb).items():
+        _, vjp = jax.vjp(f, jnp.asarray(cw), jnp.asarray(cb))
+        jw, jb = vjp(jnp.asarray(dout))
+        np.testing.assert_allclose(dw.numpy(), np.asarray(jw), err_msg=name, **GRAD)
+        np.testing.assert_allclose(db.numpy(), np.asarray(jb), err_msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("kind", ["random", "k/255", "small-normals"])
+def test_bf16x3_split_is_exact(kind):
+    rng = np.random.default_rng(11)
+    if kind == "random":
+        x = rng.standard_normal(100_000) * np.exp2(rng.integers(-60, 60, 100_000))
+    elif kind == "k/255":
+        x = np.arange(256) / 255.0
+    else:  # the smallest values whose pieces all stay normal, and ulp-sized tails
+        x = rng.uniform(1, 2, 100_000) * np.exp2(rng.integers(-100, -80, 100_000))
+    x = torch.from_numpy(x.astype(np.float32))
+    hi, mid, lo = E.split_bf16x3(x)
+    for piece in (hi, mid, lo):  # each piece is a bf16 value
+        assert torch.equal(piece, piece.to(torch.bfloat16).float())
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
