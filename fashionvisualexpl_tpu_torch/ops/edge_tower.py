@@ -195,15 +195,22 @@ def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
 def _library() -> ctypes.CDLL:
     from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library("edge_tower")
+    return typed_library(load_library("edge_tower"))
+
+
+def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument types of ``csrc/edge_tower.cu``'s C interface
+    (or of the part that ``csrc/variants/edge_tower_tc_conv.cu`` has)."""
     if not getattr(lib, "_fvx_typed", False):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
-        lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
-        lib.fvx_edge_tower_bwd_blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
-        for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd,
-                   lib.fvx_edge_tower_bwd_blocks):
-            fn.restype = ctypes.c_int
+        for name, argtypes in (
+            ("fvx_edge_tower_fwd", [ptr] * 5 + [i64] * 5 + [ptr]),
+            ("fvx_edge_tower_bwd", [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]),
+            ("fvx_edge_tower_bwd_blocks", [i64] * 3 + [ctypes.POINTER(i64)]),
+        ):
+            if hasattr(lib, name):  # the variants build the backward only
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib._fvx_typed = True
     return lib
 
@@ -239,9 +246,10 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
     return out
 
 
-def edge_tower_bwd(images, conv_w, conv_b, dout):
+def edge_tower_bwd(images, conv_w, conv_b, dout, _lib=None):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) by the backward kernel for
-    upstream gradient ``dout`` [B, C] (CUDA tensors only)."""
+    upstream gradient ``dout`` [B, C] (CUDA tensors only).  ``_lib``: another
+    build of the C interface (``edge_tower_variants``), else the kernel's."""
     B, H, W, C, _, _ = _kernel_inputs(images, conv_w, conv_b)
     if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
             or dout.device != images.device:
@@ -253,7 +261,7 @@ def edge_tower_bwd(images, conv_w, conv_b, dout):
         raise ValueError("edge tower kernel: dout must be contiguous")
     dev = images.device
     rp, cw, tiles = bwd_tiles(H, W)
-    lib = _library()
+    lib = _lib or _library()
     with torch.cuda.device(dev):
         resident = ctypes.c_longlong(0)
         rc = lib.fvx_edge_tower_bwd_blocks(C, rp, cw, ctypes.byref(resident))

@@ -192,3 +192,29 @@ def test_bf16x3_split_is_exact(kind):
     for piece in (hi, mid, lo):  # each piece is a bf16 value
         assert torch.equal(piece, piece.to(torch.bfloat16).float())
     assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+
+
+def test_bwd_tiles_fit_the_blocks_shared_memory():
+    """The backward's tiles: whole 32x32 images, 7 x 2 tiles at 224x224,
+    rows in multiples of 4 (a slab's windows), and the staged tile of
+    16-byte entries within a block's shared memory at any width."""
+    assert E.bwd_tiles(32, 32) == (16, 16, 1)
+    assert E.bwd_tiles(224, 224) == (16, 56, 14)
+    assert E.bwd_tiles(6, 10) == (4, 5, 1)
+    assert E.bwd_tiles(64, 4092) == (16, 64, 64)
+    for h, w in ((8, 16), (12, 8), (224, 224), (64, 4092), (2, 130)):
+        rp, cw, tiles = E.bwd_tiles(h, w)
+        assert rp % 4 == 0 and cw <= E.BWD_TILE_COLS
+        assert tiles == -(-(h // 2) // rp) * -(-(w // 2) // cw)
+        ws = next(s for s in range(2 * cw + 4, 2 * cw + 8) if s % 4 == 1)
+        assert 16 * (2 * rp + 4) * ws <= 232448
+
+
+def test_variants_script_needs_a_card():
+    from fashionvisualexpl_tpu_torch.ops import edge_tower_variants as V
+
+    assert V.VARIANT.is_file()
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script runs there")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        V.main()
