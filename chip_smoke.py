@@ -166,6 +166,10 @@ TOWER_TIES = ((4, 8, 12, 4, 0.5), (16, 32, 32, 64, 0.5), (16, 32, 32, 64, 0.0))
 # edge maps as the model's stack holds them (data/pipeline.py: tiff / 255):
 # k/255, mostly zero, so zero regions tie every window at pre = bias
 TOWER_EDGES = ((64, 32, 32, 64), (2, 224, 224, 64))
+# the float64 witness: edge maps at the training step's batch, where the
+# backward and its plain version (cuDNN's f32 conv) may decide near ties
+# differently; a float64 conv decides them (seeds of the edge maps)
+TOWER_WITNESS, TOWER_WITNESS_SEEDS, TOWER_WITNESS_CHUNK = (8192, 32, 32, 64), (0, 1), 1024
 # kernel vs plain version: the forward sums 25 taps and (H/2)(W/2) pooled
 # values in another order (rtol 1e-5, atol 1e-6).  A gradient sums g * x
 # over every image and pooled pixel: its rounding grows with the sum of
@@ -1331,6 +1335,100 @@ def tower_bounds(torch, E, x, w, b):
     return fwd, bwd, f32
 
 
+def tower_winners(torch, z, b):
+    """[B, C, H, W] bool from pre-bias conv values z [B, C, H, W]: the
+    winning pixel of each 2x2 window whose pre-activation is > 0, by the
+    kernel's tie rule (even column on z, top row on ReLU(z + b))."""
+    even = z[..., 0::2] >= z[..., 1::2]
+    zh = torch.where(even, z[..., 0::2], z[..., 1::2])
+    bias = b[None, :, None, None]
+    pre_t, pre_b = zh[:, :, 0::2] + bias, zh[:, :, 1::2] + bias
+    top = torch.relu(pre_t) >= torch.relu(pre_b)
+    live = torch.where(top, pre_t, pre_b) > 0
+    m = torch.zeros_like(z, dtype=torch.bool)
+    for dy, row in ((0, top), (1, ~top)):
+        win_even = even[:, :, dy::2]
+        m[:, :, dy::2, 0::2] = live & row & win_even
+        m[:, :, dy::2, 1::2] = live & row & ~win_even
+    return m
+
+
+def tower_f64_witness(torch, E, seed):
+    """Edge maps at TOWER_WITNESS: which pool windows' winners the kernel's
+    f32 chain and cuDNN's f32 conv decide unlike a float64 conv, and each
+    gradient's excess over the check's tolerance against the gradient of the
+    float64 decisions (summed in float64).  The kernel's decisions come from
+    its conv2x2 chain replayed here: fmaf(w, x, z) over the taps in its
+    order, each product exact in float64 and the sum rounded to f32.  Prints
+    the readings; fails if a gradient is not finite or if the kernel's
+    leaves the tolerance against the gradient of its replayed decisions."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    B, H, W, C = TOWER_WITNESS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randint(1, 256, (B, H, W, 1), device=dev, generator=g)
+    keep = torch.rand(B, H, W, 1, device=dev, generator=g) < 0.15
+    x = torch.where(keep, k, 0).float() / 255
+    w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
+    b = torch.randn(C, device=dev, generator=g) * 0.1
+    dout = torch.randn(B, C, device=dev, generator=g)
+    got = E.edge_tower_bwd(x, w, b, dout)
+    plain = E.edge_tower_gap_plain_backward(x, w, b, dout)
+    wt = w.reshape(25, C)
+    flips = {"kernel/f64": 0, "cudnn/f64": 0, "kernel/cudnn": 0}
+    sums = {key: torch.zeros(26, C, dtype=torch.float64, device=dev)
+            for key in ("f64", "f64_abs", "kernel_replay")}
+    for lo in range(0, B, TOWER_WITNESS_CHUNK):
+        xs = x[lo:lo + TOWER_WITNESS_CHUNK].permute(0, 3, 1, 2)  # [n, 1, H, W]
+        n = xs.shape[0]
+        cols = F.unfold(xs.double(), 5, padding=2)  # [n, 25, H*W], exact
+        z64 = torch.einsum("jc,njp->ncp", wt.double(), cols).reshape(n, C, H, W)
+        with E.fp32_convs():
+            z_cudnn = F.conv2d(xs, w.permute(3, 2, 0, 1), padding=2)
+        xp = F.pad(xs, (2, 2, 2, 2))
+        z_k = torch.zeros(n, C, H, W, device=dev)
+        for j in range(25):
+            ky, kx = divmod(j, 5)
+            prod = wt[j].double()[None, :, None, None] * xp[:, :, ky:ky + H, kx:kx + W].double()
+            z_k = (prod + z_k.double()).float()
+        masks = {"f64": tower_winners(torch, z64, b.double()),
+                 "cudnn": tower_winners(torch, z_cudnn, b),
+                 "kernel": tower_winners(torch, z_k, b)}
+        del z64, z_cudnn, z_k, prod, xp
+        windows = {key: m.reshape(n, C, H // 2, 2, W // 2, 2) for key, m in masks.items()}
+        for pair in flips:
+            u, v = pair.split("/")
+            flips[pair] += int((windows[u] != windows[v]).any(dim=(3, 5)).sum())
+        cols = torch.cat([cols, torch.ones_like(cols[:, :1])], dim=1).transpose(1, 2)
+        gs = dout[lo:lo + n].double() / ((H // 2) * (W // 2))
+        for key, m, gg in (("f64", masks["f64"], gs), ("f64_abs", masks["f64"], gs.abs()),
+                           ("kernel_replay", masks["kernel"], gs)):
+            taps = torch.bmm(m.reshape(n, C, H * W).double(), cols)  # [n, C, 26]
+            sums[key] += torch.einsum("nc,ncj->jc", gg, taps)
+        del masks, windows, cols, taps
+    ref, s = sums["f64"], sums["f64_abs"]
+    tol = TOWER_GRAD_RTOL * ref.abs() + TOWER_GRAD_ATOL + TOWER_SUM_ATOL * s
+
+    def flat(dw, db):
+        return torch.cat([dw.reshape(25, C), db[None]]).double()
+
+    kernel, cudnn = flat(*got), flat(*plain)
+    if not bool(torch.isfinite(kernel).all() and torch.isfinite(cudnn).all()):
+        fail(f"tower witness seed {seed}: non-finite gradient")
+    readings = {name: float(((v - r).abs() - tol).max()) for name, v, r in (
+        ("kernel-f64", kernel, ref), ("cudnn-f64", cudnn, ref), ("kernel-cudnn", kernel, cudnn),
+        ("kernel-replay", kernel, sums["kernel_replay"]))}
+    print(f"tower witness B={B} H={H} W={W} C={C} edge maps seed {seed}: windows whose "
+          f"winner differs {flips} of {B * C * (H // 2) * (W // 2)}; max excess of "
+          f"|a - b| over the check's tolerance (<= 0 passes) {readings}; "
+          f"{time.perf_counter() - t0!r} s")
+    if readings["kernel-replay"] > 0:
+        fail(f"tower witness seed {seed}: the backward leaves the tolerance against "
+             f"its own replayed decisions ({readings['kernel-replay']!r})")
+    return flips, readings
+
+
 def tower_kernel_phase(torch, E):
     """K7 forward and backward against their plain versions over the
     geometries and ties, two backward runs bit-equal, then timed at the
@@ -1381,6 +1479,9 @@ def tower_kernel_phase(torch, E):
         check(f"B={B} H={H} W={W} C={C} constant {v}", *inputs(B, H, W, C, v))
     for B, H, W, C in TOWER_EDGES:
         check(f"B={B} H={H} W={W} C={C} edge maps k/255", *inputs(B, H, W, C, edges=True))
+    for seed in TOWER_WITNESS_SEEDS:
+        tower_f64_witness(torch, E, seed)
+        torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
     conv = torch.nn.functional.conv2d
@@ -1406,7 +1507,7 @@ def tower_kernel_phase(torch, E):
             check_bound(f"{name} {shape}", ms, bnd)
             rows.setdefault(name, {})[(H, W)] = dict(
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                f32_bound_ms=f32_bound[name], library_ms=lib_ms, shape=shape)
+                library_ms=lib_ms, shape=shape)
             print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
                   f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}; all at the f32 rate "
                   f"{f32_bound[name]!r}) library_ms(conv2d f32, no TF32, conv only)={lib_ms!r}")

@@ -34,6 +34,7 @@ in shared memory, so they also run at 224x224.
 from __future__ import annotations
 
 import ctypes
+import functools
 from contextlib import contextmanager
 from typing import Tuple
 
@@ -195,24 +196,29 @@ def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
 def _library() -> ctypes.CDLL:
     from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
 
-    return typed_library(load_library("edge_tower"))
-
-
-def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with the argument types of ``csrc/edge_tower.cu``'s C interface
-    (or of the part that ``csrc/variants/edge_tower_tc_conv.cu`` has)."""
+    lib = load_library("edge_tower")
     if not getattr(lib, "_fvx_typed", False):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        for name, argtypes in (
-            ("fvx_edge_tower_fwd", [ptr] * 5 + [i64] * 5 + [ptr]),
-            ("fvx_edge_tower_bwd", [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]),
-            ("fvx_edge_tower_bwd_blocks", [i64] * 3 + [ctypes.POINTER(i64)]),
-        ):
-            if hasattr(lib, name):  # the variants build the backward only
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+        lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
+        lib.fvx_edge_tower_bwd_blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
+        for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd,
+                   lib.fvx_edge_tower_bwd_blocks):
+            fn.restype = ctypes.c_int
         lib._fvx_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: int, c: int, rp: int, cw: int) -> int:
+    """Blocks of the backward kernel that the card ``device`` holds at once
+    for C = ``c`` and tiles of ``rp`` x ``cw`` pooled pixels (its grid)."""
+    resident = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = _library().fvx_edge_tower_bwd_blocks(c, rp, cw, ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"edge tower backward kernel setup failed: cudaError {rc}")
+    return resident.value
 
 
 def _kernel_inputs(images, conv_w, conv_b):
@@ -246,10 +252,9 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
     return out
 
 
-def edge_tower_bwd(images, conv_w, conv_b, dout, _lib=None):
+def edge_tower_bwd(images, conv_w, conv_b, dout):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) by the backward kernel for
-    upstream gradient ``dout`` [B, C] (CUDA tensors only).  ``_lib``: another
-    build of the C interface (``edge_tower_variants``), else the kernel's."""
+    upstream gradient ``dout`` [B, C] (CUDA tensors only)."""
     B, H, W, C, _, _ = _kernel_inputs(images, conv_w, conv_b)
     if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
             or dout.device != images.device:
@@ -261,17 +266,12 @@ def edge_tower_bwd(images, conv_w, conv_b, dout, _lib=None):
         raise ValueError("edge tower kernel: dout must be contiguous")
     dev = images.device
     rp, cw, tiles = bwd_tiles(H, W)
-    lib = _lib or _library()
+    n_blocks = min(B * tiles, _resident_blocks(dev.index, C, rp, cw))
     with torch.cuda.device(dev):
-        resident = ctypes.c_longlong(0)
-        rc = lib.fvx_edge_tower_bwd_blocks(C, rp, cw, ctypes.byref(resident))
-        if rc != 0:
-            raise RuntimeError(f"edge tower backward kernel setup failed: cudaError {rc}")
-        n_blocks = min(B * tiles, resident.value)
         partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
         dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fvx_edge_tower_bwd(
+        rc = _library().fvx_edge_tower_bwd(
             images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dout.data_ptr(),
             partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, rp, cw, stream)
     if rc != 0:

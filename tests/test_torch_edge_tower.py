@@ -209,12 +209,3 @@ def test_bwd_tiles_fit_the_blocks_shared_memory():
         ws = next(s for s in range(2 * cw + 4, 2 * cw + 8) if s % 4 == 1)
         assert 16 * (2 * rp + 4) * ws <= 232448
 
-
-def test_variants_script_needs_a_card():
-    from fashionvisualexpl_tpu_torch.ops import edge_tower_variants as V
-
-    assert V.VARIANT.is_file()
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the script runs there")
-    with pytest.raises(SystemExit, match="needs a CUDA card"):
-        V.main()
