@@ -166,6 +166,12 @@ TOWER_TIES = ((4, 8, 12, 4, 0.5), (16, 32, 32, 64, 0.5), (16, 32, 32, 64, 0.0))
 # edge maps as the model's stack holds them (data/pipeline.py: tiff / 255):
 # k/255, mostly zero, so zero regions tie every window at pre = bias
 TOWER_EDGES = ((64, 32, 32, 64), (2, 224, 224, 64))
+# the forward on worst-case splits (every pixel and weight drops about the
+# most its bf16 pieces can, all terms of one sign) at the training shape
+TOWER_WORST = (8192, 32, 32, 64)
+# the forward kernel's wgmma k16 steps per 64 channels and 64 conv pixels
+# (csrc/edge_tower.cu: hi x hi in 2, the five cross products in 10)
+FWD_K16_STEPS = 12
 # the float64 witness: edge maps at the training step's batch, where the
 # backward and its plain version (cuDNN's f32 conv) may decide near ties
 # differently; a float64 conv decides them (seeds of the edge maps)
@@ -1288,23 +1294,36 @@ def tower_taps(torch, n: int, device):
     return sum(((pos + k - 2 >= 0) & (pos + k - 2 < n)).long() for k in range(5))
 
 
+def tower_fwd_issued(E, B, H, W, C):
+    """Tensor-core operations the forward kernel issues: FWD_K16_STEPS
+    products of 64 channels x 64 conv pixels x 16 a step, for every group
+    of 64 channels and every N tile of 16 pooled columns of a pooled row
+    (``E.fwd_tiles``: a tile's ragged last N tile counts whole)."""
+    _, cw, _ = E.fwd_tiles(H, W)
+    wp = W // 2
+    chunks = sum(-(-min(cw, wp - q) // E.FWD_CHUNK) for q in range(0, wp, cw))
+    n_tiles = B * (H // 2) * chunks
+    return 2.0 * 64 * -(-C // 64) * 64 * 16 * FWD_K16_STEPS * n_tiles
+
+
 def tower_bounds(torch, E, x, w, b):
     """K7's forward and backward bounds on this run's inputs: images x
-    [B, H, W, 1], filters w [5, 5, 1, C], bias b [C].  Operations: one FMA
-    (2 operations) for each tap inside the image at every conv output,
-    (5H-6)(5W-6) per channel and image, at the f32 CUDA-core rate (the
-    backward recomputes the conv there too).  The backward's tap sums run
-    on the tensor cores: one FMA for each tap inside the image of each
-    pooled pixel's winning conv output where its pre-activation is > 0
-    (dW), and one there (db), each as three bf16 products (the image's
-    exact split), at the bf16 tensor-core rate; the two units run side by
-    side, so the backward's bound is the larger of the two times (K2's
-    convention since the tensor cores took its product).  ``f32``: the
-    backward's bound with every operation at the f32 rate (one FMA per dW
-    tap, one add per db), the convention before.  The winners are found by
-    the kernel's tie rule on the plain conv's values.  Bytes: the images,
-    weights and bias read once, [B, C] written (forward) or read
-    (backward), dW and db written.  Returns (fwd, bwd, bwd at f32)."""
+    [B, H, W, 1], filters w [5, 5, 1, C], bias b [C].  The conv: one FMA (2
+    operations) for each tap inside the image at every conv output,
+    (5H-6)(5W-6) per channel and image.  The forward runs it on the tensor
+    cores, at the bf16 rate (K2's convention since the tensor cores took
+    its product).  The backward recomputes it at the f32 CUDA-core rate;
+    its tap sums run on the tensor cores: one FMA for each tap inside the
+    image of each pooled pixel's winning conv output where its
+    pre-activation is > 0 (dW), and one there (db), each as three bf16
+    products (the image's exact split), at the bf16 rate; the two units
+    run side by side, so the backward's bound is the larger of the two
+    times.  ``f32``: each bound with every operation at the f32 rate (the
+    backward: one FMA per dW tap, one add per db), the convention before.
+    The winners are found by the kernel's tie rule on the plain conv's
+    values.  Bytes: the images, weights and bias read once, [B, C] written
+    (forward) or read (backward), dW and db written.  Returns (fwd, bwd,
+    fwd at f32, bwd at f32)."""
     B, H, W, _ = x.shape
     C = w.shape[3]
     th, tw = tower_taps(torch, H, x.device), tower_taps(torch, W, x.device)
@@ -1326,13 +1345,15 @@ def tower_bounds(torch, E, x, w, b):
     n_live = int(live.sum())
     del top, live, col_even, taps
     params = 4 * 26 * C
-    fwd = bound_ms(4 * B * H * W + params + 4 * B * C, conv, PEAK_F32_FLOPS)
+    fwd_bytes = 4 * B * H * W + params + 4 * B * C
+    fwd = bound_ms(fwd_bytes, conv, PEAK_BF16_FLOPS)
+    fwd_f32 = bound_ms(fwd_bytes, conv, PEAK_F32_FLOPS)
     bwd_bytes = 4 * B * H * W + params + 4 * B * C + params
     tc = bound_ms(bwd_bytes, 3 * 2.0 * (dw_fmas + n_live), PEAK_BF16_FLOPS)
     cuda_cores = bound_ms(bwd_bytes, conv, PEAK_F32_FLOPS)
     bwd = max(tc, cuda_cores)
-    f32 = bound_ms(bwd_bytes, conv + 2.0 * dw_fmas + n_live, PEAK_F32_FLOPS)
-    return fwd, bwd, f32
+    bwd_f32 = bound_ms(bwd_bytes, conv + 2.0 * dw_fmas + n_live, PEAK_F32_FLOPS)
+    return fwd, bwd, fwd_f32, bwd_f32
 
 
 def tower_winners(torch, z, b):
@@ -1451,13 +1472,22 @@ def tower_kernel_phase(torch, E):
         dout = torch.randn(B, C, device=dev, generator=g)
         return x, w, b, dout
 
-    def check(label, x, w, b, dout):
+    def check_fwd(label, x, w, b):
         out = E.edge_tower_fwd(x, w, b)
-        dw, db = E.edge_tower_bwd(x, w, b, dout)
-        dw2, db2 = E.edge_tower_bwd(x, w, b, dout)
+        out2 = E.edge_tower_fwd(x, w, b)
         torch.cuda.synchronize()
         e_f = worst(torch, f"edge_tower_fwd {label}", out, E.edge_tower_gap_plain(x, w, b),
                     TOWER_RTOL, TOWER_ATOL)
+        if not torch.equal(out, out2):
+            fail(f"edge_tower_fwd {label}: two runs differ")
+        errs["edge_tower_fwd"] = max(errs["edge_tower_fwd"], e_f)
+        return e_f
+
+    def check(label, x, w, b, dout):
+        e_f = check_fwd(label, x, w, b)
+        dw, db = E.edge_tower_bwd(x, w, b, dout)
+        dw2, db2 = E.edge_tower_bwd(x, w, b, dout)
+        torch.cuda.synchronize()
         want = E.edge_tower_gap_plain_backward(x, w, b, dout)
         sums = E.edge_tower_gap_plain_backward(x, w, b, dout.abs())
         e_b = 0.0
@@ -1467,9 +1497,8 @@ def tower_kernel_phase(torch, E):
         if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
             fail(f"edge_tower_bwd {label}: two runs differ")
         print(f"kernel check edge_tower {label}: fwd max_abs_err={e_f!r} bwd max_abs_err="
-              f"{e_b!r} (max |dW| {float(want[0].abs().max())!r}); two backward runs "
-              f"bit-equal ok")
-        errs["edge_tower_fwd"] = max(errs["edge_tower_fwd"], e_f)
+              f"{e_b!r} (max |dW| {float(want[0].abs().max())!r}); two forward and two "
+              f"backward runs bit-equal ok")
         errs["edge_tower_bwd"] = max(errs["edge_tower_bwd"], e_b)
 
     for B, H, W, C in TOWER_GEOMS:
@@ -1479,6 +1508,13 @@ def tower_kernel_phase(torch, E):
         check(f"B={B} H={H} W={W} C={C} constant {v}", *inputs(B, H, W, C, v))
     for B, H, W, C in TOWER_EDGES:
         check(f"B={B} H={H} W={W} C={C} edge maps k/255", *inputs(B, H, W, C, edges=True))
+    B, H, W, C = TOWER_WORST
+    x, w, b = E.split_worst_case(B, H, W, C, seed=13, device=dev)
+    e_f = check_fwd(f"B={B} H={H} W={W} C={C} worst-case split", x, w, b)
+    print(f"kernel check edge_tower_fwd B={B} H={H} W={W} C={C} worst-case split: "
+          f"max_abs_err={e_f!r} (max |out| {float(E.edge_tower_gap_plain(x, w, b).max())!r}); "
+          f"two forward runs bit-equal ok")
+    del x, w, b
     for seed in TOWER_WITNESS_SEEDS:
         tower_f64_witness(torch, E, seed)
         torch.cuda.empty_cache()
@@ -1493,7 +1529,11 @@ def tower_kernel_phase(torch, E):
             lib_ms, _ = kernel_times(torch, "conv2d", lambda: conv(xc, wc, padding=2), 5,
                                      flush)
         bounds = tower_bounds(torch, E, x, w, b)
-        f32_bound = {"edge_tower_fwd": bounds[0][0], "edge_tower_bwd": bounds[2][0]}
+        f32_bound = {"edge_tower_fwd": bounds[2][0], "edge_tower_bwd": bounds[3][0]}
+        issued = tower_fwd_issued(E, B, H, W, C)
+        extra = {"edge_tower_fwd": f"; issued on the tensor cores {issued!r} operations, "
+                                   f"{issued / PEAK_BF16_FLOPS * 1e3!r} ms at peak",
+                 "edge_tower_bwd": ""}
         torch.cuda.empty_cache()
         shape = f"B={B} H={H} W={W} C={C} f32, cold L2"
         for name, run, plain, (bnd, by) in (
@@ -1510,7 +1550,8 @@ def tower_kernel_phase(torch, E):
                 library_ms=lib_ms, shape=shape)
             print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
                   f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}; all at the f32 rate "
-                  f"{f32_bound[name]!r}) library_ms(conv2d f32, no TF32, conv only)={lib_ms!r}")
+                  f"{f32_bound[name]!r}{extra[name]}) library_ms(conv2d f32, no TF32, "
+                  f"conv only)={lib_ms!r}")
         del x, w, b, dout, xc, wc
         torch.cuda.empty_cache()
     out = {}
@@ -2359,7 +2400,7 @@ def main() -> int:
     print(f"kernel build ({', '.join(sources)}): {time.perf_counter() - t0!r} s")
     for name, log in cuda_build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("registers", "smem", "spill", "wgmma", "warning")):
                 print(f"  nvcc {name}: {line.strip()}")
 
     rows = kernel_phase(torch, segmax)

@@ -6,8 +6,8 @@
 //                   (5x5 SAME cross-correlation, zero padding 2)
 //   out[b, c]     = mean_{i < H/2, j < W/2}
 //                   relu(max_{dy,dx in {0,1}} z[b, 2i+dy, 2j+dx, c] + bias[c])
-// The [B, H, W, C] activation is never written: each thread keeps its conv
-// outputs in registers and adds the pooled value to its channel's sum.
+// The [B, H, W, C] activation is never written: the forward pools its
+// conv outputs in registers and adds the pooled values to per-channel sums.
 // The backward recomputes the conv from the images and sends dout[b, c] /
 // ((H/2)(W/2)) of each pooled pixel to one conv output, with the TPU kernel's tie rule:
 // horizontally on the pre-bias conv value the even column wins ties
@@ -21,27 +21,91 @@
 // fashionvisualexpl_tpu_torch/ops/edge_tower.py.
 //
 // What bounds it: operations.  A conv output needs one FMA per tap inside
-// the image, (5H-6)(5W-6) per channel and image: 2*154^2*C*B f32
-// operations, 24.9 GFLOP at B=8192, 32x32, C=64 (0.37 ms at 67 TFLOP/s),
-// against ~34 MB of images (0.01 ms).  The backward adds one FMA per valid
-// tap of each winning conv output whose pre-activation is > 0 (dW), which
-// it runs on the tensor cores as three exact bf16 products (0.014 ms at
-// 989 TFLOP/s at that shape): the recomputed conv bounds it too.  The
-// kernels themselves run all 25 taps on the zero halo.
+// the image, (5H-6)(5W-6) per channel and image: 2*154^2*C*B operations,
+// 24.9 GFLOP at B=8192, 32x32, C=64, against ~36 MB of images and outputs
+// (0.011 ms at 3.35 TB/s).  The forward runs them on the tensor cores:
+// 0.025 ms at 989 TFLOP/s bf16 (0.37 ms at the 67 TFLOP/s f32 rate of the
+// CUDA cores, which bounded the first design); it issues 12 k16 steps per
+// 64 channels and 64 conv pixels, 206 GFLOP at that shape (0.21 ms at
+// peak).  The backward recomputes the conv in f32 FMAs on the CUDA cores
+// (0.37 ms) and adds one FMA per valid tap of each winning conv output
+// whose pre-activation is > 0 (dW), which it runs on the tensor cores as
+// three exact bf16 products (0.014 ms at that shape): the recomputed conv
+// bounds it.  The kernels themselves run all 25 taps on the zero halo.
 //
-// Forward (direct convolution on the CUDA cores, f32 FMAs, no TF32, no fast
-// math).  The TPU kernel turned the conv into banded matmuls for the MXU and
-// kept whole images in VMEM; neither is needed here.  A block takes one
-// strip of R pooled rows of one image and stages its 2R+4 input rows, with
-// a zero halo of 2 on every side, in shared memory; blockIdx.y picks a group
-// of at most 256 channels (8 warps of 32), so any C runs.  Thread (c, rg)
-// owns channel c (its 25 weights and bias in registers) and every nrg-th pooled
-// row of the strip; it walks the row keeping a 6x6 input window in
-// registers (two new columns per pooled pixel, float2 loads that every lane
-// of the warp shares), computes the 2x2 conv outputs of the pooled pixel and
-// pools them.  The forward sums each channel's pooled values per strip in a
-// fixed order (thread, then row groups) into per-strip partials; a second
-// kernel sums the strips of an image in order and divides by (H/2)(W/2).
+// Forward (the conv as wgmma products; f32-accurate from exact bf16
+// pieces).  The TPU kernel turned the conv into banded matmuls for the MXU
+// and kept whole images in VMEM; here it is an implicit GEMM: M = the 64
+// channels of a block (blockIdx.y picks the group; rows past C are zero
+// weights), N = 64 conv pixels, K = the taps.
+// * Arithmetic.  Weights and pixels split into their exact three bf16
+//   pieces (mma.cuh::split3_bf16x2): w = wh + wm + wl, x = xh + xm + xl.
+//   The six products whose piece orders sum to at most 2 are kept, each
+//   exact on the tensor cores: wh.xh into one accumulator (2 k16 steps:
+//   the 25 taps zero-padded to 32) and wm.xh, wl.xh, wh.xm, wm.xm, wh.xl
+//   into another (10 steps), added in f32 in the epilogue, so that only
+//   the large sum's own additions round at its scale.
+// * Layout (the segmax arrangement).  A is the weights, in registers for
+//   the block's life: each warp's 16 channels, three pieces x 2 steps, 24
+//   registers a thread.  B is an im2col tile in shared memory, K-major
+//   without swizzle: 8x8 core matrices, k-group kg (taps 8 (kg % 4) .. of
+//   piece kg / 4: hi, mid, lo) 1024 bytes apart (LBO), pixel groups of 8
+//   128 bytes apart (SBO).  K is piece-major (each image piece's 25 taps
+//   padded to 32) rather than the 125 cross products packed into 128:
+//   the three products that read xh and the two that read xm share its
+//   columns, so the tile is 12 KB and not 20 and the weights take 24
+//   registers and not 40, for 12 k16 steps instead of 10.
+// * Tiles.  A block (one warpgroup) takes an item: one image's tile of up
+//   to 16 pooled rows by Cw pooled columns (a multiple of 16, at most 64),
+//   so any even W runs.  It stages the tile's input rows with a halo of 2
+//   (zero outside the image) as three bf16 planes, rows padded to 16..48
+//   mod 64 entries so a warp's reads fall on distinct banks, then walks its
+//   N tiles of 16 pooled columns of one pooled row: pixel n = 16j + 8r +
+//   2t + e is column 2t + e of pool window 4j + t in its top (r = 0) or
+//   bottom row.  Each thread writes one pixel's row of six k-groups (2-byte
+//   reads of the planes, one 16-byte store each), double-buffered: the
+//   warpgroup writes tile n + 1 while the tensor cores read tile n, then
+//   waits for them.
+// * Pooling in registers.  wgmma's accumulator gives thread (g, t) of a
+//   warp columns 8i + 2t, 8i + 2t + 1 of rows g and g + 8: with that pixel
+//   order, blocks 2j and 2j + 1 hold window 4j + t's top and bottom pairs,
+//   so the epilogue is 3 fmaxf, + bias and a ReLU per window and channel
+//   (max and the monotone f32 rounding of + bias commute), added to the
+//   thread's two channel sums; windows past W/2 add 0.  At the item's end
+//   two shuffles sum the 4 lanes of a channel and lane t = 0 writes the
+//   item's partial; a second kernel sums the items of an image in order
+//   and divides by (H/2)(W/2).  No float atomics: two runs give the same
+//   bits.  No product sits under a branch (ptxas would put a
+//   warpgroup.arrive before each).
+// * Error bound (ops/edge_tower.py::edge_tower_fwd_error_bound, checked on
+//   the CPU against edge_tower_gap_split_forward, this arithmetic in plain
+//   PyTorch).  With |x - xh| <= 2^-8 |x|, |xm| <= 2^-8 (1 + 2^-8) |x|, |xl|
+//   <= 2^-16 |x| (the same for w), A = sum_j |w_j x_j| and A0 its part over
+//   taps 0..15, a conv output errs by at most
+//     dropped wm.xl + wl.xm + wl.xl                <= 1.005 * 2^-23 A
+//     wh.xh summed, every addition truncating      <= 1.01 * 2^-23 (16 A0 + 9 A)
+//       (counts.cu's assumption: the rounding of the tensor cores' f32
+//       sums is not documented; each addition within a k16 step errs by
+//       under an ulp of a partial sum of at most A0, or A in step 2)
+//     the cross sum (125 additions of <= 1.01 * 2^-7 A) <= 0.99 * 2^-23 A
+//     dh + dx, then + bias (round to nearest)      <= 2^-24 (2.02 A + |b|)
+//   so e_z <= 2^-23 (1.01 (16 A0 + 9 A) + 3.01 A) + 2^-24 |b|, at most
+//   about 28.3 * 2^-23 A.  Max and ReLU are 1-Lipschitz: a pooled value
+//   errs by at most the largest e_z of its window, whichever wins.  The
+//   mean adds (L + 1) 2^-24 |out| for the L f32 additions of the longest
+//   summation chain (4 windows an N tile, two shuffles, the items of an
+//   image: 67 at 32x32, 272 at 224x224), as the first design's sums did.
+//   Against the unchanged tolerance (1e-6 + 1e-5 |out|) this worst case
+//   holds on k/255 edge maps, the model's data, and on worst-case splits,
+//   whose terms share one sign (the CPU tests assert both), but not on
+//   uniform images with N(0, 0.1) weights (A ~ 1, |out| ~ 0.2), where 25
+//   truncations of a sum of size A would all have to err the same way.
+//   If the tensor cores truncate once per k16 step rather than per
+//   addition, the hh term falls to 2.02 * 2^-23 A.  What decides is the
+//   card: chip_smoke.py holds the kernel to the plain version at that
+//   tolerance on uniform, constant, k/255 and worst-case-split data.
+//   The forward makes no decision that anything reads: the backward
+//   decides winners itself with the f32 conv2x2 chain.
 //
 // Backward (the tap sums on the tensor cores).  With g[b, c] = dout[b, c] /
 // ((H/2)(W/2)), constant over an image, and M_b[c, p] = 1 where conv pixel
@@ -58,9 +122,11 @@
 // of a warp takes window t for channels g and g + 8, and K is ordered so
 // that k = 2t, 2t + 1 are the window's top pair and 2t + 8, 2t + 9 its
 // bottom pair, which is exactly where the A fragment holds them: the lane
-// recomputes its window's four conv values with the forward's conv2x2
-// (its decisions are the forward's bit for bit), applies the tie rule and
-// writes the mask straight into its A registers.  The B fragments are the
+// recomputes its window's four conv values with the f32 conv2x2 chain
+// (decisions on f32 conv values, as the plain version's and JAX's kernel's
+// are; cuDNN's f32 conv decided every window alike in chip_smoke.py's
+// float64 witness), applies the tie rule and writes the mask straight
+// into its A registers.  The B fragments are the
 // same pixel pairs at each tap's offset, read as 16-byte entries (the three
 // pieces of a pair) from the staged tile, whose rows are padded to 1 mod 4
 // entries so a warp's reads fall on distinct banks.  Every 8 slabs and at an
@@ -82,25 +148,14 @@ namespace {
 
 constexpr int kTaps = 25;
 constexpr int kAcc = kTaps + 1;  // dW taps, then db
-constexpr int kThreads = 256;
-constexpr int kMaxChannelWarps = kThreads / 32;
-constexpr int kGroupChannels = 32 * kMaxChannelWarps;  // channels of one block
 constexpr int kReduceThreads = 256;
 constexpr int kStageBytesMax = 232448;  // an H100 block's dynamic shared memory
 
-struct Layout {
-  int cw;   // warps across the block's channels (32 channels each)
-  int nrg;  // row groups
-  int threads;
-};
-
-__host__ __device__ inline Layout layout(int C) {
-  Layout l;
-  l.cw = ((C < kGroupChannels ? C : kGroupChannels) + 31) / 32;
-  l.nrg = kMaxChannelWarps / l.cw;
-  l.threads = 32 * l.cw * l.nrg;
-  return l;
-}
+constexpr int kFwdThreads = 128;  // one warpgroup
+constexpr int kFwdChannels = 64;  // channels of one forward block: the wgmma M tile
+constexpr int kFwdChunk = 16;     // pooled columns of one N tile: 64 conv pixels
+constexpr int kPieceK = 32;       // K of one image piece: taps 0..24, zero to 32
+constexpr int kTileBytes = 64 * 3 * kPieceK * 2;  // one im2col tile: 64 pixels x 96 bf16
 
 constexpr int kBwdWarps = 4;
 constexpr int kBwdGroupChannels = 16 * kBwdWarps;  // channels of one backward block
@@ -130,21 +185,6 @@ __host__ __device__ inline int tile_stride(int Cw) {
   return ws;
 }
 
-// rows 2*r0-2 .. 2*r1+1 of image `img`, columns -2 .. W+1, zero outside
-__device__ __forceinline__ void stage_strip(float* s, const float* __restrict__ img,
-                                            int H, int W, int r0, int r1) {
-  const int ws = W + 4;
-  const int y0 = 2 * r0 - 2;
-  const int n = (2 * (r1 - r0) + 4) * ws;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int ry = i / ws;
-    const int y = y0 + ry;
-    const int x = i - ry * ws - 2;
-    s[i] = (y >= 0 && y < H && x >= 0 && x < W)
-               ? img[static_cast<long long>(y) * W + x] : 0.0f;
-  }
-}
-
 // the 2x2 conv outputs of one pooled pixel from its 6x6 input window
 __device__ __forceinline__ void conv2x2(const float (&win)[6][6], const float (&wr)[kTaps],
                                         float& z00, float& z01, float& z10, float& z11) {
@@ -162,16 +202,6 @@ __device__ __forceinline__ void conv2x2(const float (&win)[6][6], const float (&
   }
 }
 
-__device__ __forceinline__ void load_cols(float (&win)[6][6], const float* rows, int ws,
-                                          int col, int slot) {
-#pragma unroll
-  for (int r = 0; r < 6; ++r) {
-    const float2 v = *reinterpret_cast<const float2*>(rows + r * ws + col);
-    win[r][slot] = v.x;
-    win[r][slot + 1] = v.y;
-  }
-}
-
 __device__ __forceinline__ void shift_window(float (&win)[6][6]) {
 #pragma unroll
   for (int r = 0; r < 6; ++r) {
@@ -180,59 +210,193 @@ __device__ __forceinline__ void shift_window(float (&win)[6][6]) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ partial,
-                int H, int W, int C, int R, int S) {
-  extern __shared__ float smem[];
-  const Layout l = layout(C);
-  const int warp = threadIdx.x / 32;
-  const int rg = warp / l.cw;
-  const int cl = (warp % l.cw) * 32 + threadIdx.x % 32;  // channel in the group
-  const int c = blockIdx.y * kGroupChannels + cl;
-  const bool active = c < C;
-  float wr[kTaps];
+// Row stride, in bf16, of the forward's staged image planes: 2 Cw + 4 or
+// more, = 16..48 mod 64, so that the two conv rows a warp's lanes read
+// (16 pixels of each) fall on distinct banks.
+__host__ __device__ inline int plane_stride(int Cw) {
+  int ps = 2 * Cw + 4;
+  while (ps % 64 < 16 || ps % 64 > 48) ps += 2;
+  return ps;
+}
+
+// The kH-th half (k-groups 6 kH .. 6 kH + 5 of the 12) of one pixel's row
+// of the im2col tile: k-group kg holds taps 8 (kg % 4) .. + 7 of piece kg / 4
+// (hi, mid, lo), zero past tap 24.  `win` is the pixel's 5x5 window (its
+// top-left entry) in the hi plane; `n` the pixel's row of the tile.
+template <int kH>
+__device__ __forceinline__ void write_im2col(uint4* tile, const uint16_t* win, int plane,
+                                             int ps, int n) {
 #pragma unroll
-  for (int t = 0; t < kTaps; ++t) wr[t] = active ? w[t * C + c] : 0.0f;
-  const float bc = active ? bias[c] : 0.0f;
-
-  const int Hp = H / 2, Wp = W / 2, ws = W + 4;
-  const long long item = blockIdx.x;
-  const long long b = item / S;
-  const int r0 = static_cast<int>(item % S) * R;
-  const int r1 = min(r0 + R, Hp);
-  stage_strip(smem, x + b * H * W, H, W, r0, r1);
-  __syncthreads();
-
-  float acc = 0.0f;
-  for (int pr = r0 + rg; pr < r1; pr += l.nrg) {
-    const float* rows = smem + 2 * (pr - r0) * ws;
-    float win[6][6];
-    load_cols(win, rows, ws, 0, 0);
-    load_cols(win, rows, ws, 2, 2);
-    for (int pc = 0; pc < Wp; ++pc) {
-      load_cols(win, rows, ws, 2 * pc + 4, 4);
-      float z00, z01, z10, z11;
-      conv2x2(win, wr, z00, z01, z10, z11);
-      const float top = fmaxf(fmaxf(z00, z01) + bc, 0.0f);
-      const float bot = fmaxf(fmaxf(z10, z11) + bc, 0.0f);
-      acc += fmaxf(top, bot);
-      shift_window(win);
+  for (int q = 0; q < 6; ++q) {
+    const int kg = 6 * kH + q;
+    const uint16_t* p = win + (kg / 4) * plane;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j0 = 8 * (kg % 4) + 2 * e;
+      const int j1 = j0 + 1;
+      const uint32_t lo = j0 < kTaps ? p[(j0 / 5) * ps + j0 % 5] : 0u;
+      const uint32_t hi = j1 < kTaps ? p[(j1 / 5) * ps + j1 % 5] : 0u;
+      v[e] = lo | hi << 16;
     }
-  }
-
-  __syncthreads();  // the strip is read; its memory now holds the row sums
-  const int cpad = 32 * l.cw;
-  smem[rg * cpad + cl] = acc;
-  __syncthreads();
-  if (rg == 0 && active) {
-    float s = 0.0f;
-    for (int g = 0; g < l.nrg; ++g) s += smem[g * cpad + cl];
-    partial[item * C + c] = s;
+    tile[kg * 64 + n] = make_uint4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// out[b, c] = sum_s partial[b, s, c] / n, strips in order
+// the descriptor of k16 step s of piece `piece` of an im2col tile at `base`
+__device__ __forceinline__ uint64_t im2col_desc(uint32_t base, int piece, int s) {
+  return fvx::wgmma_desc(base + (4 * piece + 2 * s) * 1024, 1024, 128);
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 3)
+edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ partial,
+                int H, int W, int C, int Rp, int Cw, int Sr, int Sc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint4* tiles = reinterpret_cast<uint4*>(smem);  // two im2col tiles
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 2 * kTileBytes);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int Hp = H / 2, Wp = W / 2;
+  const long long item = blockIdx.x;
+  const long long b = item / (Sr * Sc);
+  const int s = static_cast<int>(item % (Sr * Sc));
+  const int r0 = (s / Sc) * Rp, q0 = (s % Sc) * Cw;
+  const int nrows = min(Rp, Hp - r0);
+  const int nchunks = (min(Cw, Wp - q0) + kFwdChunk - 1) / kFwdChunk;
+  const int n_tiles = nrows * nchunks;
+  const int ps = plane_stride(Cw);
+  const int plane = (2 * Rp + 4) * ps;  // bf16 of one piece's plane
+
+  // the weights as the A operand, in registers for the block's life: rows
+  // g and g + 8 of the warp's 16 channels, taps 16 s + 2t (+1) and + 8
+  uint32_t ah[2][4], am[2][4], al[2][4];
+  const int cw0 = blockIdx.y * kFwdChannels + warp * 16 + g;
+  float bc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = cw0 + 8 * h;
+    bc[h] = c < C ? bias[c] : 0.0f;
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = 16 * st + 8 * q + 2 * t;
+        float2 v = make_float2(0.0f, 0.0f);
+        if (c < C && k < kTaps) v.x = w[k * C + c];
+        if (c < C && k + 1 < kTaps) v.y = w[(k + 1) * C + c];
+        fvx::split3_bf16x2(v, ah[st][h + 2 * q], am[st][h + 2 * q], al[st][h + 2 * q]);
+      }
+    }
+  }
+
+  // the tile's input rows 2 r0 - 2 .. and columns 2 q0 - 2 .., zero
+  // outside the image, as three planes of bf16 pieces
+  {
+    const float* img = x + b * H * W;
+    const int half = ps / 2;
+    const int n = (2 * Rp + 4) * half;
+    for (int i = tid; i < n; i += kFwdThreads) {
+      const int ry = i / half;
+      const int cx = 2 * (i - ry * half);
+      const int y = 2 * r0 - 2 + ry;
+      const int xx = 2 * q0 - 2 + cx;  // even, as W is: both columns in or out
+      float2 v = make_float2(0.0f, 0.0f);
+      if (y >= 0 && y < H && xx >= 0 && xx < W) {
+        const float* row = img + static_cast<long long>(y) * W + xx;
+        v = make_float2(row[0], row[1]);
+      }
+      uint32_t hi, mid, lo;
+      fvx::split3_bf16x2(v, hi, mid, lo);
+      const int o = ry * half + cx / 2;
+      planes[o] = hi;
+      planes[plane / 2 + o] = mid;
+      planes[plane + o] = lo;
+    }
+  }
+
+  // this thread writes row n of each im2col tile: pixel n = 16 j + 8 r + 2 t'
+  // + e is column 2 t' + e of pool window 4 j + t' (of the N tile's 16), in
+  // its top (r = 0) or bottom row; half kH of its k-groups
+  const int n = tid % 64;
+  const int wrow = (n / 8) % 2;
+  const int wcol = 8 * (n / 16) + n % 8;  // conv column in the N tile's 32
+  const uint16_t* hi_plane = reinterpret_cast<const uint16_t*>(planes);
+  auto write_tile = [&](int nt) {
+    const int prl = nt / nchunks, ch = nt % nchunks;
+    const uint16_t* win = hi_plane + (2 * prl + wrow) * ps + 2 * kFwdChunk * ch + wcol;
+    uint4* tile = tiles + (nt % 2) * (kTileBytes / 16);
+    if (tid < 64) write_im2col<0>(tile, win, plane, ps, n);
+    else write_im2col<1>(tile, win, plane, ps, n);
+  };
+
+  __syncthreads();  // the planes are staged
+  write_tile(0);
+  fvx::fence_proxy_async();
+  __syncthreads();
+
+  float sum[2] = {0.0f, 0.0f};
+  for (int nt = 0; nt < n_tiles; ++nt) {
+    const uint32_t base = fvx::smem_u32(tiles + (nt % 2) * (kTileBytes / 16));
+    float dh[32], dx[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      dh[i] = dx[i] = 0.0f;
+      fvx::reg_fence(dh[i]);
+      fvx::reg_fence(dx[i]);
+    }
+    fvx::wgmma_fence();
+    // every product unconditional: a product under a branch makes ptxas
+    // put a warpgroup.arrive before each one
+#pragma unroll
+    for (int st = 0; st < 2; ++st) fvx::wgmma_m64n64k16_bf16(dh, ah[st], im2col_desc(base, 0, st));
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 0, st));
+      fvx::wgmma_m64n64k16_bf16(dx, al[st], im2col_desc(base, 0, st));
+      fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 1, st));
+      fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 1, st));
+      fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 2, st));
+    }
+    fvx::wgmma_commit();
+    // the next tile on the CUDA cores while the tensor cores take this one
+    if (nt + 1 < n_tiles) write_tile(nt + 1);
+    fvx::wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      fvx::reg_fence(dh[i]);
+      fvx::reg_fence(dx[i]);
+    }
+
+    // pool in registers: columns 16 j + 2t (+1) of the top row and 16 j + 8
+    // + 2t (+1) of the bottom row are window 4 j + t's four conv outputs
+    const int ch = nt % nchunks;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool ok = q0 + kFwdChunk * ch + 4 * j + t < Wp;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = 8 * j + 2 * h;
+        const float z00 = dh[o] + dx[o], z01 = dh[o + 1] + dx[o + 1];
+        const float z10 = dh[o + 4] + dx[o + 4], z11 = dh[o + 5] + dx[o + 5];
+        const float v = fmaxf(fmaxf(fmaxf(z00, z01), fmaxf(z10, z11)) + bc[h], 0.0f);
+        sum[h] += ok ? v : 0.0f;
+      }
+    }
+    fvx::fence_proxy_async();  // tile nt + 1 written; tile nt read
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    const int c = cw0 + 8 * h;
+    if (t == 0 && c < C) partial[item * C + c] = sum[h];
+  }
+}
+
+// out[b, c] = sum_s partial[b, s, c] / n, tiles in order
 __global__ void __launch_bounds__(kReduceThreads)
 edge_fwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
                        long long B, int C, int S, float n) {
@@ -282,7 +446,7 @@ __device__ __forceinline__ void load_cols_w(float (&win)[6][6], const uint4* row
   }
 }
 
-// The winner of one pool window for one channel, by the forward's conv2x2
+// The winner of one pool window for one channel, by the f32 conv2x2 chain
 // and the tie rule, as the window's two rows of the 0/1 mask operand: a
 // bf16x2 of (left, right) for the top row and for the bottom row.
 __device__ __forceinline__ void winner_mask(const float (&win)[6][6], const float (&wr)[kTaps],
@@ -452,14 +616,16 @@ int check_geometry(long long B, long long H, long long W, long long C, long long
   return 0;
 }
 
-long long groups(long long C) { return (C + kGroupChannels - 1) / kGroupChannels; }
+int check_fwd_tile(long long Rp, long long Cw) {
+  if (Rp < 1 || Rp > 64 || Cw < kFwdChunk || Cw % kFwdChunk || Cw > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
 
-// bytes of dynamic shared memory: the staged strip, or the row-group sums
-size_t smem_bytes(long long W, long long C, long long R) {
-  const Layout l = layout(static_cast<int>(C));
-  const size_t stage = static_cast<size_t>(2 * R + 4) * static_cast<size_t>(W + 4);
-  const size_t red = static_cast<size_t>(l.nrg) * 32 * l.cw;
-  return 4 * (stage > red ? stage : red);
+// the forward's bytes: two im2col tiles and three staged planes
+size_t fwd_smem_bytes(long long Rp, long long Cw) {
+  return 2 * static_cast<size_t>(kTileBytes) +
+         3 * 2 * static_cast<size_t>(2 * Rp + 4) * plane_stride(static_cast<int>(Cw));
 }
 
 int check_bwd_tile(long long Rp, long long Cw) {
@@ -490,33 +656,41 @@ int allow_smem(Kernel kernel, size_t bytes) {
 
 // Plain C interface for ctypes.  All arrays f32, contiguous, on the current
 // device: x [B, H, W], w [25, C] (HWIO [5, 5, 1, C]), bias [C], out [B, C],
-// dout [B, C], dwb [26, C] (dW rows 0..24, db row 25).  R is the number of
-// pooled rows per strip (S = ceil((H/2) / R) strips an image).  `partial` is
-// scratch: B*S*C floats for the forward, n_blocks*26*C for the backward,
-// whose grid is n_blocks (1 <= n_blocks <= B*S) by the channel groups.  Each
-// returns the cudaError_t of its launches (0 = launched).
+// dout [B, C], dwb [26, C] (dW rows 0..24, db row 25).  Each returns the
+// cudaError_t of its launches (0 = launched).
+//
+// The forward over tiles of Rp pooled rows (1..64) by Cw pooled columns (a
+// multiple of 16 up to 256): S = ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles an
+// image, grid B*S by the groups of 64 channels; `partial` is scratch of
+// B*S*C floats.
 extern "C" int fvx_edge_tower_fwd(const void* x, const void* w, const void* bias,
                                   void* partial, void* out, long long B, long long H,
-                                  long long W, long long C, long long R, void* stream) {
-  int err = check_geometry(B, H, W, C, R);
+                                  long long W, long long C, long long Rp, long long Cw,
+                                  void* stream) {
+  int err = check_geometry(B, H, W, C, Rp);
+  if (!err) err = check_fwd_tile(Rp, Cw);
   if (err) return err;
-  const long long S = (H / 2 + R - 1) / R;
-  const size_t bytes = smem_bytes(W, C, R);
+  const long long Sr = (H / 2 + Rp - 1) / Rp;
+  const long long Sc = (W / 2 + Cw - 1) / Cw;
+  if (B * Sr * Sc > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = fwd_smem_bytes(Rp, Cw);
   err = allow_smem(edge_fwd_kernel, bytes);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(B * S), static_cast<unsigned>(groups(C)));
-  edge_fwd_kernel<<<grid, layout(static_cast<int>(C)).threads, bytes, st>>>(
+  const dim3 grid(static_cast<unsigned>(B * Sr * Sc),
+                  static_cast<unsigned>((C + kFwdChannels - 1) / kFwdChannels));
+  edge_fwd_kernel<<<grid, kFwdThreads, bytes, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(partial), static_cast<int>(H),
-      static_cast<int>(W), static_cast<int>(C), static_cast<int>(R), static_cast<int>(S));
+      static_cast<int>(W), static_cast<int>(C), static_cast<int>(Rp), static_cast<int>(Cw),
+      static_cast<int>(Sr), static_cast<int>(Sc));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long n_out = B * C;
   edge_fwd_reduce_kernel<<<static_cast<unsigned>((n_out + kReduceThreads - 1) / kReduceThreads),
                            kReduceThreads, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), B, static_cast<int>(C),
-      static_cast<int>(S), static_cast<float>((H / 2) * (W / 2)));
+      static_cast<int>(Sr * Sc), static_cast<float>((H / 2) * (W / 2)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,7 +718,8 @@ extern "C" int fvx_edge_tower_bwd_blocks(long long C, long long Rp, long long Cw
 
 // The backward over tiles of Rp pooled rows (a multiple of 4) by Cw pooled
 // columns: n_items = B * ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles, grid
-// n_blocks (1 <= n_blocks <= n_items) by the groups of 64 channels.
+// n_blocks (1 <= n_blocks <= n_items) by the groups of 64 channels;
+// `partial` is scratch of n_blocks*26*C floats.
 extern "C" int fvx_edge_tower_bwd(const void* x, const void* w, const void* bias,
                                   const void* dout, void* partial, long long n_blocks,
                                   void* dwb, long long B, long long H, long long W,

@@ -3,22 +3,28 @@
 GAP(MaxPool2x2(ReLU(Conv5x5_SAME(images) + b))) -> [B, C] f32, for
 single-channel images [B, H, W, 1] (H, W even), filters ``conv_w`` in JAX's
 HWIO layout [5, 5, 1, C] and bias ``conv_b`` [C], as the hand-written CUDA
-kernels of ``csrc/edge_tower.cu``: a direct convolution that never writes
-the [B, H, W, C] activation, the backward's tap sums on the tensor cores
-(design and bound in the source).  The TPU kernel's banded matmuls, batch
-tiles and VMEM budget (``auto_batch_tile``, ``kernel_vmem_bytes``) are
-Mosaic matters that stay behind: the CUDA kernels stage tiles of image rows
-in shared memory, so they also run at 224x224.
+kernels of ``csrc/edge_tower.cu``: the forward's conv as ``wgmma`` products
+of the weights' and the image's exact bf16 pieces over an im2col tile,
+pooled in registers, never writing the [B, H, W, C] activation; the
+backward's tap sums on the tensor cores, its conv recomputed in f32 (design
+and bounds in the source).  The TPU kernel's banded matmuls, batch tiles
+and VMEM budget (``auto_batch_tile``, ``kernel_vmem_bytes``) are Mosaic
+matters that stay behind: the CUDA kernels stage tiles of image rows and
+columns in shared memory (``fwd_tiles``, ``bwd_tiles``), so any even H, W
+runs.
 
 - ``edge_tower_fwd`` / ``edge_tower_bwd`` launch the forward and backward
   kernels for CUDA tensors and raise for any other; ``.launches`` counts
   their launches.  The backward recomputes the conv from the images and
   routes each pooled gradient with the TPU kernel's tie rule (even column
   on the pre-bias value, top row on the ReLU'd value, only where pre > 0).
-- ``edge_tower_gap_factored_backward`` and ``split_bf16x3`` are the
-  backward kernel's algebra in plain PyTorch (0/1 winner masks times the
-  image's exact three-piece bf16 split), held against JAX on the CPU;
-  nothing on the main path calls them.
+- ``edge_tower_gap_split_forward`` and ``edge_tower_fwd_error_bound`` are
+  the forward kernel's arithmetic in plain PyTorch and its error bound;
+  ``edge_tower_gap_factored_backward`` and ``split_bf16x3`` the backward
+  kernel's algebra (0/1 winner masks times the image's exact three-piece
+  bf16 split); ``split_worst_case`` makes inputs whose pieces err the most.
+  They are held against JAX on the CPU; nothing on the main path calls
+  them.
 - ``edge_tower_gap`` binds the two in a ``torch.autograd.Function``
   (gradients for ``conv_w`` and ``conv_b``; the images are frozen features
   and get none, JAX's zero-gradient contract).  For CPU tensors it computes
@@ -42,8 +48,9 @@ import torch
 import torch.nn.functional as F
 
 K = 5  # kernel size of the reference tower (AttentiveFashion.py:57)
-STAGE_BYTES = 48 * 1024  # shared memory for one staged strip of image rows
-MAX_STRIP_ROWS = 16  # pooled rows per strip
+TILE_ROWS = 16  # pooled rows of a tile, both kernels
+FWD_CHUNK = 16  # pooled columns of one of the forward's N tiles (64 conv pixels)
+FWD_TILE_COLS = 64  # the forward's tile: pooled columns at most
 BWD_TILE_COLS = 64  # the backward's tile: pooled columns at most
 
 
@@ -75,22 +82,27 @@ def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
     return B, H, W, C
 
 
-def bwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
-    """(Rp, Cw, S) of the backward kernel: tiles of Rp pooled rows (a
-    multiple of 4, at most MAX_STRIP_ROWS) by Cw pooled columns (at most
-    BWD_TILE_COLS, the columns shared evenly), S tiles an image."""
+def fwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
+    """(Rp, Cw, S) of the forward kernel: tiles of Rp pooled rows (at most
+    TILE_ROWS) by Cw pooled columns (a multiple of FWD_CHUNK, at most
+    FWD_TILE_COLS, the chunks shared evenly), S tiles an image."""
     hp, wp = h // 2, w // 2
-    rp = min(MAX_STRIP_ROWS, -(-hp // 4) * 4)
-    nc = -(-wp // BWD_TILE_COLS)
-    cw = -(-wp // nc)
+    rp = min(TILE_ROWS, hp)
+    chunks = -(-wp // FWD_CHUNK)
+    nc = -(-chunks // (FWD_TILE_COLS // FWD_CHUNK))
+    cw = FWD_CHUNK * -(-chunks // nc)
     return rp, cw, -(-hp // rp) * -(-wp // cw)
 
 
-def strip_rows(h: int, w: int) -> int:
-    """Pooled rows per strip: at most MAX_STRIP_ROWS, and the strip's 2R+4
-    staged rows of W+4 floats within STAGE_BYTES where W allows."""
-    fit = (STAGE_BYTES // (4 * (w + 4)) - 4) // 2
-    return max(1, min(h // 2, MAX_STRIP_ROWS, fit))
+def bwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
+    """(Rp, Cw, S) of the backward kernel: tiles of Rp pooled rows (a
+    multiple of 4, at most TILE_ROWS) by Cw pooled columns (at most
+    BWD_TILE_COLS, the columns shared evenly), S tiles an image."""
+    hp, wp = h // 2, w // 2
+    rp = min(TILE_ROWS, -(-hp // 4) * 4)
+    nc = -(-wp // BWD_TILE_COLS)
+    cw = -(-wp // nc)
+    return rp, cw, -(-hp // rp) * -(-wp // cw)
 
 
 @contextmanager
@@ -161,6 +173,102 @@ def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     return hi, mid, lo
 
 
+def split_worst_case(B: int, H: int, W: int, C: int, seed: int = 0, device="cpu"):
+    """(images [B, H, W, 1], conv_w [5, 5, 1, C], conv_b [C]) f32 on which
+    the forward's split drops about the most it can: every pixel and weight
+    is (1 + k 2^-7 + 2^-8 - 2^-17 - 2^-23) 2^e, k in {0, 1}, whose bf16
+    rounding hi drops just under half a bf16 ulp and whose mid drops just
+    under half of its own, so |mid| ~ 2^-8 and |lo| ~ 2^-17 of the value
+    (``counts.py::band_worst_case``'s values); all positive, so every term
+    of a conv has one sign; pixels 2^e with e in [-3, 0], weights in [-7,
+    -4], bias 0.  Made from ``seed`` on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def values(shape, lo, hi):
+        k = torch.randint(0, 2, shape, generator=g, device=device).double()
+        e = torch.randint(lo, hi + 1, shape, generator=g, device=device).double()
+        return ((1 + k * 2.0**-7 + 2.0**-8 - 2.0**-17 - 2.0**-23) * 2.0**e).float()
+
+    images = values((B, H, W, 1), -3, 0)
+    conv_w = values((K, K, 1, C), -7, -4)
+    return images, conv_w, torch.zeros(C, device=device)
+
+
+def _trunc_f32(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _windows(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """[B, C, H*W] -> [B, C, H/2, W/2, 4]: the four conv pixels of each pool
+    window."""
+    B, C = t.shape[:2]
+    return t.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(
+        B, C, H // 2, W // 2, 4)
+
+
+def edge_tower_gap_split_forward(images, conv_w, conv_b) -> torch.Tensor:
+    """[B, C] f32: the forward kernel's arithmetic in plain PyTorch.  Both
+    operands split into their exact three bf16 pieces (``split_bf16x3``);
+    the six products whose piece orders sum to at most 2, each exact; hi x hi
+    summed into one f32 accumulator and the five cross products (w_mid x_hi,
+    w_lo x_hi, w_hi x_mid, w_mid x_mid, w_hi x_lo) into another, in the
+    kernel's order of k16 steps, every addition truncated toward zero (the
+    model of the tensor cores' accumulation that ``counts.cu`` assumes);
+    z = the two accumulators added in f32, then relu(max of each 2x2
+    window + b) and the mean (in float64, rounded once).  Even H, W."""
+    B, H, W, C = check_geometry(images, conv_w, conv_b)
+    cols = F.unfold(images.permute(0, 3, 1, 2), K, padding=2)  # [B, 25, H*W]
+    xs = [p.double() for p in split_bf16x3(cols)]
+    ws = [p.double() for p in split_bf16x3(conv_w.reshape(K * K, C))]
+
+    def accumulate(pairs):
+        acc = torch.zeros(B, C, H * W, dtype=torch.float32)
+        for step in (range(16), range(16, K * K)):  # the two k16 steps of a piece
+            for wi, xi in pairs:
+                for j in step:
+                    prod = ws[wi][j][None, :, None] * xs[xi][:, j][:, None, :]  # exact
+                    acc = _trunc_f32(acc.double() + prod)
+        return acc
+
+    hh = accumulate([(0, 0)])
+    cross = accumulate([(1, 0), (2, 0), (0, 1), (1, 1), (0, 2)])
+    z = _windows(hh + cross, H, W).amax(dim=-1)
+    pooled = torch.relu(z + conv_b[None, :, None, None])
+    return pooled.double().mean(dim=(2, 3)).float()
+
+
+def edge_tower_fwd_error_bound(images, conv_w, conv_b) -> torch.Tensor:
+    """[B, C] float64: the bound on |forward kernel - exact tower| that
+    ``csrc/edge_tower.cu`` derives.  For a conv output with A = sum_j
+    |w_j x_j| and A0 the same over the taps of the first k16 step (j < 16):
+      e_z = 2^-23 (1.01 (16 A0 + 9 A) + 3.01 A) + 2^-24 |b|
+    (hi x hi summed with every addition truncated, the dropped pieces, the
+    cross products' sum, the two f32 adds of the epilogue); a pooled value
+    errs by at most the largest e_z of its window (max and ReLU are
+    1-Lipschitz); the mean adds L 2^-24 mean|pooled| + 2^-24 |out| for the
+    L f32 additions of the kernel's longest summation chain (4 windows an N
+    tile over a tile's N tiles, two shuffles, the tiles of an image)."""
+    B, H, W, C = check_geometry(images, conv_w, conv_b)
+    cols = F.unfold(images.permute(0, 3, 1, 2).double().abs(), K, padding=2)
+    wa = conv_w.reshape(K * K, C).double().abs()
+    terms = wa[None, :, :, None] * cols[:, :, None, :]  # [B, 25, C, H*W]
+    a = terms.sum(dim=1)
+    a0 = terms[:, :16].sum(dim=1)
+    ez = 2.0**-23 * (1.01 * (16 * a0 + 9 * a) + 3.01 * a)
+    bias = conv_b.double()[None, :, None, None]
+    epool = _windows(ez, H, W).amax(dim=-1) + 2.0**-24 * bias.abs()
+    z = F.conv2d(images.permute(0, 3, 1, 2).double(), conv_w.double().permute(3, 2, 0, 1),
+                 padding=2)
+    pooled = torch.relu(_windows(z.reshape(B, C, H * W), H, W).amax(dim=-1) + bias)
+    rp, cw, tiles = fwd_tiles(H, W)
+    chain = 4 * rp * (cw // FWD_CHUNK) + 2 + tiles
+    out = pooled.mean(dim=(2, 3))  # >= 0
+    return epool.mean(dim=(2, 3)) + (chain + 1) * 2.0**-24 * out
+
+
 def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) as the backward kernel factors
     them, in plain PyTorch: the 0/1 mask M_b[c, p] of the winning conv
@@ -199,7 +307,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("edge_tower")
     if not getattr(lib, "_fvx_typed", False):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 5 + [ptr]
+        lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 6 + [ptr]
         lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
         lib.fvx_edge_tower_bwd_blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
         for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd,
@@ -231,21 +339,21 @@ def _kernel_inputs(images, conv_w, conv_b):
     for name, t in (("images", images), ("conv_w", conv_w), ("conv_b", conv_b)):
         if not t.is_contiguous():
             raise ValueError(f"edge tower kernel: {name} must be contiguous")
-    R = strip_rows(H, W)
-    return B, H, W, C, R, -(-(H // 2) // R)
+    return B, H, W, C
 
 
 def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
     """[B, C] f32 tower output by the forward kernel (CUDA tensors only)."""
-    B, H, W, C, R, S = _kernel_inputs(images, conv_w, conv_b)
+    B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
+    rp, cw, tiles = fwd_tiles(H, W)
     dev = images.device
     with torch.cuda.device(dev):
-        partial = torch.empty(B * S * C, dtype=torch.float32, device=dev)
+        partial = torch.empty(B * tiles * C, dtype=torch.float32, device=dev)
         out = torch.empty(B, C, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         rc = _library().fvx_edge_tower_fwd(
             images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, H, W, C, R, stream)
+            partial.data_ptr(), out.data_ptr(), B, H, W, C, rp, cw, stream)
     if rc != 0:
         raise RuntimeError(f"edge tower forward kernel launch failed: cudaError {rc}")
     edge_tower_fwd.launches += 1
@@ -255,7 +363,7 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
 def edge_tower_bwd(images, conv_w, conv_b, dout):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) by the backward kernel for
     upstream gradient ``dout`` [B, C] (CUDA tensors only)."""
-    B, H, W, C, _, _ = _kernel_inputs(images, conv_w, conv_b)
+    B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
     if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
             or dout.device != images.device:
         raise ValueError(

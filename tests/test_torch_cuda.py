@@ -14,7 +14,8 @@ gradients, from the same sigma, rtol 1e-4, atol 1e-5.  K6: the same f32 operatio
 rtol 1e-6, p rtol 1e-5.  K2: counts bit-equal on quantized data (every
 score exact in f32, so any summation order gives the same bits).  K7 (the
 edge tower): forward rtol 1e-5, atol 1e-6 (25 taps and the pooled values
-summed in another order); gradients rtol 1e-4, atol 1e-5 + 1e-6 * S, S the
+summed in another order; the forward's exact bf16 pieces on the tensor
+cores, also on worst-case splits), two forward runs bit-equal; gradients rtol 1e-4, atol 1e-5 + 1e-6 * S, S the
 sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
 backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
 scatter-set): bit-equal to their plain versions (compared as int32) at the
@@ -373,12 +374,14 @@ def _tower_inputs(dev, B, H, W, C, value=None, seed=0, edges=False):
 def _check_tower(x, w, b, dout):
     before = (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches)
     out = K7.edge_tower_fwd(x, w, b)
+    out2 = K7.edge_tower_fwd(x, w, b)
     dw, db = K7.edge_tower_bwd(x, w, b, dout)
     dw2, db2 = K7.edge_tower_bwd(x, w, b, dout)
     torch.cuda.synchronize()
     assert (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 2, before[1] + 2)
     torch.testing.assert_close(out, K7.edge_tower_gap_plain(x, w, b), rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, out2)
     want = K7.edge_tower_gap_plain_backward(x, w, b, dout)
     sums = K7.edge_tower_gap_plain_backward(x, w, b, dout.abs())
     for got, ref, s in zip((dw, db), want, sums):
@@ -390,8 +393,9 @@ def _check_tower(x, w, b, dout):
 @pytest.mark.parametrize("B,H,W,C", [
     (5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8),  # the JAX test geometries
     (64, 32, 32, 64), (2, 224, 224, 64),  # the training step's and the reference's
-    (4, 10, 12, 40), (3, 14, 14, 256), (2, 64, 4092, 8),  # part warps, 8 warps, 1-row strips
+    (4, 10, 12, 40), (3, 14, 14, 256), (2, 64, 4092, 8),  # part warps, 4 groups, W >> 64
     (3, 12, 8, 257), (2, 32, 32, 600),  # more than one group of 256 channels
+    (3, 18, 200, 100), (2, 2, 2, 1), (5, 34, 36, 130),  # C not a multiple of 64, ragged tiles
 ])
 def test_edge_tower_kernels_match_plain_version_on_card(cuda_device, B, H, W, C):
     _check_tower(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C))
@@ -410,6 +414,19 @@ def test_edge_tower_kernels_match_plain_version_on_edge_maps_on_card(cuda_device
     """k/255 edge maps, mostly zero: zero regions tie every pool window at
     pre = bias."""
     _check_tower(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C, edges=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [(64, 32, 32, 64), (2, 224, 224, 64), (3, 12, 200, 70)])
+def test_edge_tower_forward_holds_the_worst_case_split_on_card(cuda_device, B, H, W, C):
+    """Every pixel and weight drops about the most its bf16 pieces can, and
+    every conv term has one sign: the forward stays within its tolerance of
+    the plain version, and two runs give the same bits."""
+    x, w, b = K7.split_worst_case(B, H, W, C, seed=B + C, device=cuda_device)
+    out = K7.edge_tower_fwd(x, w, b)
+    out2 = K7.edge_tower_fwd(x, w, b)
+    torch.testing.assert_close(out, K7.edge_tower_gap_plain(x, w, b), rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, out2)
 
 
 @pytest.mark.cuda

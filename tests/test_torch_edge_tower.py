@@ -6,8 +6,13 @@ at the JAX test geometries (``tests/test_edge_tower.py``): forward rtol
 1e-5, atol 1e-6; gradients of a sum(sin(.)) loss, and for a given upstream
 gradient, rtol 1e-4, atol 1e-5 (f32 sums in another order).  Constant images
 tie every pool window and the ReLU boundary: the tie winners must agree
-with both JAX versions.  The kernel entry points raise for CPU tensors; the
-kernels themselves are checked on the card (``tests/test_torch_cuda.py``)."""
+with both JAX versions.  The kernels' arithmetic is held against JAX in
+plain PyTorch: the backward's factored tap sums, and the forward's exact
+bf16 pieces with truncating accumulation (``edge_tower_gap_split_forward``)
+at the forward tolerance, also on worst-case splits, and within its derived
+bound of a float64 tower.  The kernel entry points raise for CPU tensors;
+the kernels themselves are checked on the card
+(``tests/test_torch_cuda.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -132,14 +137,21 @@ def test_geometry_errors(bad, match):
         E.edge_tower_gap(**args)
 
 
-def test_strip_rows():
-    # whole images at 32x32 (16 pooled rows), 7 strips of 16 at 224x224
-    assert E.strip_rows(32, 32) == 16
-    assert E.strip_rows(224, 224) == 16
-    assert E.strip_rows(6, 10) == 3
-    # very wide rows: the strip shrinks to keep the staged rows in 48 KB
-    assert E.strip_rows(64, 4092) == 1
-    assert 4 * (2 * E.strip_rows(64, 1000) + 4) * 1004 <= E.STAGE_BYTES
+def test_fwd_tiles_fit_the_blocks_shared_memory():
+    """The forward's tiles: whole 32x32 images, 7 x 2 tiles at 224x224,
+    columns in N tiles of 16 pooled pixels (at most 4 a tile, shared evenly,
+    so very wide rows run), and the two im2col tiles plus the three staged
+    bf16 planes within a block's shared memory at any width."""
+    assert E.fwd_tiles(32, 32) == (16, 16, 1)
+    assert E.fwd_tiles(224, 224) == (16, 64, 14)
+    assert E.fwd_tiles(6, 10) == (3, 16, 1)
+    assert E.fwd_tiles(64, 4092) == (16, 64, 64)
+    for h, w in ((8, 16), (12, 8), (2, 2), (224, 224), (64, 4092), (2, 130), (34, 36)):
+        rp, cw, tiles = E.fwd_tiles(h, w)
+        assert 1 <= rp <= E.TILE_ROWS and cw % E.FWD_CHUNK == 0 and cw <= E.FWD_TILE_COLS
+        assert tiles == -(-(h // 2) // rp) * -(-(w // 2) // cw)
+        ps = next(s for s in range(2 * cw + 4, 2 * cw + 70, 2) if 16 <= s % 64 <= 48)
+        assert 2 * 64 * 96 * 2 + 3 * 2 * (2 * rp + 4) * ps <= 232448
 
 
 def _edge_images(B, H, W, seed):
@@ -209,3 +221,52 @@ def test_bwd_tiles_fit_the_blocks_shared_memory():
         ws = next(s for s in range(2 * cw + 4, 2 * cw + 8) if s % 4 == 1)
         assert 16 * (2 * rp + 4) * ws <= 232448
 
+
+
+def _split_forward_cases():
+    for B, H, W, C in GEOMETRIES:
+        yield f"random-{B}x{H}x{W}x{C}", (*_inputs(B, H, W, C, seed=5 * B + C),)
+    _, cw, cb = _inputs(C=4, seed=12)
+    for v in (0.5, 0.0):
+        yield f"constant-{v}", (np.full((4, 8, 12, 1), v, np.float32), cw, cb)
+    _, cw, cb = _inputs(C=6, seed=13)
+    yield "edges-k/255", (_edge_images(6, 12, 16, seed=14), cw, cb)
+    yield "worst-case-split", tuple(t.numpy() for t in E.split_worst_case(3, 10, 12, 5, seed=15))
+
+
+@pytest.mark.parametrize("case", list(_split_forward_cases()), ids=lambda c: c[0])
+def test_split_forward_matches_jax_within_its_bound(case):
+    """The forward kernel's arithmetic on the CPU (the exact bf16 pieces,
+    six products, two accumulators, every addition truncated) against JAX's
+    fused tower (interpret mode) and its XLA tower at the forward
+    tolerance, and against a float64 tower within the derived bound.  On
+    edge maps and worst-case splits the bound itself fits the tolerance."""
+    name, (imgs, cw, cb) = case
+    t = [torch.from_numpy(a) for a in (imgs, cw, cb)]
+    got = E.edge_tower_gap_split_forward(*t)
+    assert got.dtype == torch.float32 and got.shape == (imgs.shape[0], cw.shape[3])
+    for jname, f in _jax_versions(imgs, cw, cb).items():
+        np.testing.assert_allclose(got.numpy(), np.asarray(f(jnp.asarray(cw), jnp.asarray(cb))),
+                                   err_msg=jname, **FWD)
+    z = torch.nn.functional.conv2d(t[0].permute(0, 3, 1, 2).double(),
+                                   t[1].double().permute(3, 2, 0, 1), padding=2)
+    exact = torch.nn.functional.max_pool2d(
+        torch.relu(z + t[2].double()[None, :, None, None]), 2).mean(dim=(2, 3))
+    bound = E.edge_tower_fwd_error_bound(*t)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    if name in ("edges-k/255", "worst-case-split"):
+        assert bool((bound <= FWD["atol"] + FWD["rtol"] * exact.abs()).all())
+
+
+def test_split_worst_case_maximises_the_dropped_pieces():
+    """Every value's mid piece is about 2^-8 of it and its lo piece about
+    2^-17, all positive; the pieces sum back exactly."""
+    x, w, b = E.split_worst_case(2, 6, 8, 3, seed=1)
+    assert x.shape == (2, 6, 8, 1) and w.shape == (5, 5, 1, 3) and b.shape == (3,)
+    assert bool((b == 0).all())
+    for v in (x, w):
+        hi, mid, lo = E.split_bf16x3(v)
+        assert bool((v > 0).all())
+        assert torch.equal(hi.double() + mid.double() + lo.double(), v.double())
+        assert bool(((mid / v - 2.0**-8).abs() < 2.0**-14).all())
+        assert bool(((lo / v - 2.0**-17).abs() < 2.0**-22).all())
