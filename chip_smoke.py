@@ -28,7 +28,10 @@ Phases, each of which raises on a failure (nothing is swallowed):
    checked against the same oracle;
 6. train kernels: the fused BPR loss (K1, forward and backward kernels) and
    the fused Adam sweep (K6) against their plain PyTorch versions over many
-   shapes, then their times, the plain versions' times, the library call
+   shapes (K1's forward on both of its routes, bulk copies and plain loads
+   of misaligned rows, two runs bit-equal, one kernel a call, with the
+   route and tile it took, other tiles and a 12.6 MB ``copy_`` timed beside
+   it), then their times, the plain versions' times, the library call
    (K6 only: ``torch._fused_adam_`` with a zero gradient, which reads one
    more array) and the bounds at the training step's shapes, each call
    timed with the L2 flushed and no kernel allowed under its bound;
@@ -510,7 +513,7 @@ def flush_names(torch, flush, gen):
 
 
 def kernel_times(torch, label, fn, iters: int, flush):
-    """(ms, call_ms) per call of fn, with the L2 emptied before each call
+    """(ms, call_ms, kernels) per call of fn, with the L2 emptied before each call
     by a random fill of ``flush`` (a buffer larger than the 50 MB L2) that
     neither time counts, so that fn's inputs come from device memory.
 
@@ -522,7 +525,8 @@ def kernel_times(torch, label, fn, iters: int, flush):
     than a majority of the calls match is taken again,
     at most PROFILE_ATTEMPTS times.  ``call_ms``: CUDA events around each
     call, which also holds the host's launch cost when the kernels are
-    shorter than it."""
+    shorter than it.  ``kernels``: each kernel a whole call launched, by
+    name, as (launches a call, mean ms a call)."""
     from collections import Counter
 
     gen = torch.Generator(device=flush.device).manual_seed(0)
@@ -566,8 +570,13 @@ def kernel_times(torch, label, fn, iters: int, flush):
                   f"the order they ran: {order}; "
                   f"{ {c: n[:48] for n, c in letters.items()} })")
         if 2 * whole > iters:
-            return sum(sum(us for _, us in c) for c, k in zip(calls, kinds)
-                       if k == kind) / whole / 1e3, call_ms
+            per_name = Counter()
+            for c, k in zip(calls, kinds):
+                if k == kind:
+                    for name, us in c:
+                        per_name[name] += us
+            kernels = {n: (dict(kind)[n], us / whole / 1e3) for n, us in per_name.items()}
+            return sum(per_name.values()) / whole / 1e3, call_ms, kernels
     fail(f"{label}: torch.profiler lost kernel records in {PROFILE_ATTEMPTS} profiles")
 
 
@@ -614,35 +623,54 @@ def train_kernel_phase(torch, bpr, adam):
     errs = {"bpr_fwd": 0.0, "bpr_bwd": 0.0, "adam_sweep": 0.0}
     loss_rel = 0.0
 
-    def bpr_inputs(B, K, scale):
-        rows = [torch.randn(B, K, device=dev, generator=g) * scale for _ in range(3)]
-        return rows + [torch.randn(B, device=dev, generator=g) for _ in range(2)]
+    def bpr_inputs(B, K, scale, offset=0):
+        # offset 1 starts each tensor one float into its storage: off the 16
+        # bytes a bulk copy needs, so the forward takes its plain route
+        def t(shape, s):
+            n = B * (K if len(shape) == 2 else 1)
+            return (torch.randn(n + offset, device=dev, generator=g) * s)[offset:].view(shape)
+        return [t((B, K), scale) for _ in range(3)] + [t((B,), 1.0) for _ in range(2)]
 
-    for B in (1, 100, TRAIN_B):
-        for K in (8, 64, EMBED_K):
-            for scale in (1.0, 20.0):  # scale 20 pushes diff past the clip
-                args = bpr_inputs(B, K, scale)
-                loss, sigma = bpr.bpr_forward(*args)
-                grads = bpr.bpr_backward(sigma, *args[:3], one)
-                torch.cuda.synchronize()
-                want_loss, want_sigma = bpr.bpr_forward_reference(*args)
-                want_grads = bpr.bpr_backward_reference(sigma, *args[:3], one)
-                label = f"B={B} K={K} scale={scale:g}"
-                rel = abs(float(loss) - float(want_loss)) / max(abs(float(want_loss)), 1e-30)
-                if rel > BPR_LOSS_RTOL:
-                    fail(f"bpr_fwd {label}: loss {float(loss)!r} vs plain "
-                         f"{float(want_loss)!r}")
-                e_f = worst(torch, f"bpr_fwd {label} sigma", sigma, want_sigma,
-                            BPR_RTOL, BPR_ATOL * scale**2)
-                e_b = max(worst(torch, f"bpr_bwd {label}", a, w, BPR_RTOL, BPR_ATOL)
-                          for a, w in zip(grads, want_grads))
-                clipped = int((sigma == 0).sum())
-                print(f"kernel check bpr {label}: loss_rel_err={rel!r} "
-                      f"sigma_max_abs_err={e_f!r} grads_max_abs_err={e_b!r} "
-                      f"clipped={clipped}/{B} ok")
-                loss_rel = max(loss_rel, rel)
-                errs["bpr_fwd"] = max(errs["bpr_fwd"], e_f)
-                errs["bpr_bwd"] = max(errs["bpr_bwd"], e_b)
+    def route_of(args):
+        aligned = all(x.data_ptr() % 16 == 0 for x in args[:3])
+        return bpr.fwd_tiles(*args[0].shape, aligned)
+
+    # the step's geometries, the forward's edges (B around its 32-triple
+    # tile, K off the bulk copies' 16 bytes, a wide K) and misaligned rows
+    geoms = [(B, K, 0) for B in (1, 100, TRAIN_B) for K in (8, 64, EMBED_K)]
+    geoms += [(33, 129, 0), (8193, 7, 0), (65537, 512, 0), (100, 64, 1),
+              (TRAIN_B, EMBED_K, 1)]
+    for B, K, offset in geoms:
+        for scale in (1.0, 20.0):  # scale 20 pushes diff past the clip
+            args = bpr_inputs(B, K, scale, offset)
+            loss, sigma = bpr.bpr_forward(*args)
+            grads = bpr.bpr_backward(sigma, *args[:3], one)
+            loss2, sigma2 = bpr.bpr_forward(*args)
+            torch.cuda.synchronize()
+            want_loss, want_sigma = bpr.bpr_forward_reference(*args)
+            want_grads = bpr.bpr_backward_reference(sigma, *args[:3], one)
+            route, tile, _, blocks = route_of(args)
+            label = f"B={B} K={K} scale={scale:g}{' misaligned' if offset else ''}"
+            if not (torch.equal(loss.view(torch.int32), loss2.view(torch.int32))
+                    and torch.equal(sigma.view(torch.int32), sigma2.view(torch.int32))):
+                fail(f"bpr_fwd {label}: two runs differ in their bits")
+            rel = abs(float(loss) - float(want_loss)) / max(abs(float(want_loss)), 1e-30)
+            if rel > BPR_LOSS_RTOL:
+                fail(f"bpr_fwd {label}: loss {float(loss)!r} vs plain "
+                     f"{float(want_loss)!r}")
+            e_f = worst(torch, f"bpr_fwd {label} sigma", sigma, want_sigma,
+                        BPR_RTOL, BPR_ATOL * scale**2)
+            e_b = max(worst(torch, f"bpr_bwd {label}", a, w, BPR_RTOL, BPR_ATOL)
+                      for a, w in zip(grads, want_grads))
+            clipped = int((sigma == 0).sum())
+            print(f"kernel check bpr {label}: route={route} tile={tile} "
+                  f"blocks={blocks} loss_rel_err={rel!r} "
+                  f"sigma_max_abs_err={e_f!r} grads_max_abs_err={e_b!r} "
+                  f"clipped={clipped}/{B} repeat bit-equal ok")
+            loss_rel = max(loss_rel, rel)
+            errs["bpr_fwd"] = max(errs["bpr_fwd"], e_f)
+            errs["bpr_bwd"] = max(errs["bpr_bwd"], e_b)
+            del args, grads, want_grads
 
     def adam_state(shape):
         p = torch.randn(shape, device=dev, generator=g)
@@ -684,9 +712,14 @@ def train_kernel_phase(torch, bpr, adam):
         ("bpr_bwd", lambda: bpr.bpr_backward(sigma, *args[:3], one),
          lambda: bpr.bpr_backward_reference(sigma, *args[:3], one), bwd_b),
     ):
-        ms, call_ms = kernel_times(torch, name, run, 200, flush)
-        plain_ms, plain_call_ms = kernel_times(torch, f"{name} plain", plain, 200, flush)
+        ms, call_ms, kernels = kernel_times(torch, name, run, 200, flush)
+        plain_ms, plain_call_ms, _ = kernel_times(torch, f"{name} plain", plain, 200, flush)
         check_bound(name, ms, b)
+        n_kernels = sum(n for n, _ in kernels.values())
+        if n_kernels != 1:
+            fail(f"{name}: one call launched {n_kernels} kernels: {kernels}")
+        print(f"kernel launches {name}: one kernel a call "
+              f"({next(iter(kernels))[:72]})")
         rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                           bound_ms=b, bound_by=by, library_ms=None,
                           call_ms=call_ms, plain_call_ms=plain_call_ms, shape=shape)
@@ -695,7 +728,36 @@ def train_kernel_phase(torch, bpr, adam):
               f"bound_ms={b!r} ({by}) library_ms=None (no single PyTorch call "
               f"computes it)")
     rows["bpr_fwd"]["loss_max_rel_err"] = loss_rel
-    del args, sigma
+    route, tile, smem, blocks = route_of(args)
+    rows["bpr_fwd"].update(load_route=route, tile=tile)
+    print(f"kernel route bpr_fwd {shape}: {route}, tile {tile} triples, "
+          f"{smem} bytes of rows a block, {blocks} blocks")
+    # other tiles, gn by bulk copy too, and the plain route at the same
+    # shape (timed, not taken)
+    for t, c in ((8, 2), (16, 2), (64, 2), (128, 2), (bpr.TILE_ROWS, 3)):
+        t_ms, t_call, _ = kernel_times(torch, f"bpr_fwd tile={t} copies={c}",
+                                    lambda: bpr.bpr_forward(*args, _tile=t, _copies=c),
+                                    100, flush)
+        print(f"kernel time bpr_fwd tile={t} copies={c} {shape}: ms={t_ms!r} "
+              f"call_ms={t_call!r}")
+        got = bpr.bpr_forward(*args, _tile=t, _copies=c)
+        if c == 3 and not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                              for x, y in zip(got, bpr.bpr_forward(*args))):
+            fail("bpr_fwd copies=3: not the bits of the bulk route")
+    mis = bpr_inputs(TRAIN_B, EMBED_K, 1.0, offset=1)
+    p_ms, p_call, _ = kernel_times(torch, "bpr_fwd plain route",
+                                lambda: bpr.bpr_forward(*mis), 100, flush)
+    print(f"kernel time bpr_fwd plain route (misaligned rows) {shape}: "
+          f"ms={p_ms!r} call_ms={p_call!r} bound_ms={fwd_b[0]!r}")
+    # a yardstick for reading the forward's bytes after the flush: one
+    # copy_ of the three row blocks' 12.6 MB (read once, written once)
+    src = torch.cat([x.reshape(-1) for x in args[:3]])
+    dst = torch.empty_like(src)
+    copy_ms, _, _ = kernel_times(torch, "bpr_fwd copy floor", lambda: dst.copy_(src), 100, flush)
+    rows["bpr_fwd"]["copy_ms"] = copy_ms
+    print(f"kernel yardstick bpr_fwd {shape}: Tensor.copy_ of the {src.numel() * 4} bytes "
+          f"of gu, gp, gn ms={copy_ms!r} (bound_ms={fwd_b[0]!r})")
+    del args, sigma, mis, src, dst
 
     tables = {}
     for name, shape in (("Gu", (TRAIN_U, EMBED_K)), ("Gi", (TRAIN_I, EMBED_K)),
@@ -706,12 +768,12 @@ def train_kernel_phase(torch, bpr, adam):
         step = torch.tensor(7.0, device=dev)
         b, by = adam_bound(p.numel())
         label = f"adam_sweep {name}"
-        ms, call_ms = kernel_times(torch, label, lambda: adam.fused_adam_sweep(
+        ms, call_ms, _ = kernel_times(torch, label, lambda: adam.fused_adam_sweep(
             p, m, v, scal), 20, flush)
-        plain_ms, plain_call_ms = kernel_times(
+        plain_ms, plain_call_ms, _ = kernel_times(
             torch, f"{label} plain", lambda: adam.fused_adam_sweep_reference(p, m, v, scal),
             10, flush)
-        lib_ms, lib_call_ms = kernel_times(
+        lib_ms, lib_call_ms, _ = kernel_times(
             torch, f"{label} library", lambda: torch._fused_adam_(
                 [p], [gz], [m], [v], [], [step], lr=TRAIN_LR, beta1=0.9, beta2=0.999,
                 weight_decay=0.0, eps=1e-7, amsgrad=False, maximize=False), 20, flush)
@@ -1028,12 +1090,12 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
     print(f"counts evaluator shape: {rechecked} of {B * args[1].shape[0]} pairs scored "
           f"again exactly (the band)")
     flush = torch.empty(64 * 2**20 // 4, device=dev)  # 64 MB > the 50 MB L2
-    ms, call_ms = kernel_times(torch, "counts", lambda: counts.counts_kernel(
+    ms, call_ms, _ = kernel_times(torch, "counts", lambda: counts.counts_kernel(
         *args, item_tile=item_tile, user_tile=ut), 10, flush)
-    plain_ms, _ = kernel_times(torch, "counts plain", lambda: counts.counts_kernel_reference(
+    plain_ms, _, _ = kernel_times(torch, "counts plain", lambda: counts.counts_kernel_reference(
         *args, item_tile), 5, flush)
     uf_p, iv_p = args[0], args[1]
-    lib_ms, _ = kernel_times(torch, "counts library", lambda: torch.matmul(uf_p, iv_p.T),
+    lib_ms, _, _ = kernel_times(torch, "counts library", lambda: torch.matmul(uf_p, iv_p.T),
                              5, flush)
     Ip = iv_p.shape[0]
     b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
@@ -1526,7 +1588,7 @@ def tower_kernel_phase(torch, E):
         x, w, b, dout = inputs(B, H, W, C)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
         with E.fp32_convs():
-            lib_ms, _ = kernel_times(torch, "conv2d", lambda: conv(xc, wc, padding=2), 5,
+            lib_ms, _, _ = kernel_times(torch, "conv2d", lambda: conv(xc, wc, padding=2), 5,
                                      flush)
         bounds = tower_bounds(torch, E, x, w, b)
         f32_bound = {"edge_tower_fwd": bounds[2][0], "edge_tower_bwd": bounds[3][0]}
@@ -1542,8 +1604,8 @@ def tower_kernel_phase(torch, E):
             ("edge_tower_bwd", lambda: E.edge_tower_bwd(x, w, b, dout),
              lambda: E.edge_tower_gap_plain_backward(x, w, b, dout), bounds[1]),
         ):
-            ms, call_ms = kernel_times(torch, name, run, 10, flush)
-            plain_ms, _ = kernel_times(torch, f"{name} plain", plain, 5, flush)
+            ms, call_ms, _ = kernel_times(torch, name, run, 10, flush)
+            plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, 5, flush)
             check_bound(f"{name} {shape}", ms, bnd)
             rows.setdefault(name, {})[(H, W)] = dict(
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
@@ -1957,9 +2019,9 @@ def row_kernel_phase(torch, G, S):
                                 "Tensor.index_copy_ (int64 ids)")
     out = {}
     for name, (err, (run, plain, lib), (b, by), shape, library) in rows.items():
-        ms, call_ms = kernel_times(torch, name, run, 20, flush)
-        plain_ms, _ = kernel_times(torch, f"{name} plain", plain, 10, flush)
-        lib_ms, _ = kernel_times(torch, f"{name} library", lib, 20, flush)
+        ms, call_ms, _ = kernel_times(torch, name, run, 20, flush)
+        plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, 10, flush)
+        lib_ms, _, _ = kernel_times(torch, f"{name} library", lib, 20, flush)
         check_bound(name, ms, b)
         out[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=b, bound_by=by, library_ms=lib_ms, shape=shape,

@@ -10,8 +10,10 @@ the D products sequentially in f32 FMAs, cuBLAS in another order, on scores
 of magnitude up to ~20.  K1: loss rtol 1e-5 (another summation order),
 sigma rtol 1e-4, atol 1e-5 * scale**2 (diff's K products are summed with
 FMAs in lane order, and their rounding grows with the products); the
-gradients, from the same sigma, rtol 1e-4, atol 1e-5.  K6: the same f32 operations in the same order, m and v
-rtol 1e-6, p rtol 1e-5.  K2: counts bit-equal on quantized data (every
+gradients, from the same sigma, rtol 1e-4, atol 1e-5; the forward on both
+of its routes (bulk copies, plain loads) is bit-equal from run to run.
+K6: the same f32 operations in the same order, m and v rtol 1e-6, p rtol
+1e-5.  K2: counts bit-equal on quantized data (every
 score exact in f32, so any summation order gives the same bits).  K7 (the
 edge tower): forward rtol 1e-5, atol 1e-6 (25 taps and the pooled values
 summed in another order; the forward's exact bf16 pieces on the tensor
@@ -166,6 +168,71 @@ def test_bpr_kernels_match_plain_versions_on_card(cuda_device, B, K, scale):
         torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
     if scale > 1:
         assert bool((sigma == 0).any())  # the clip was reached
+
+
+def _bpr_args(dev, B, K, scale, seed, offset=0):
+    """gu, gp, gn [B, K] (times scale) and bp, bn [B]; offset 1 starts each
+    tensor one float into its storage, off the 16 bytes a bulk copy needs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(shape, s):
+        n = int(np.prod(shape))
+        return (torch.randn(n + offset, device=dev, generator=g) * s)[offset:].view(shape)
+
+    return [t((B, K), scale) for _ in range(3)] + [t((B,), 1.0) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 7, 8, 128, 129, 512])
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 8191, 8193, 65537])
+def test_bpr_forward_routes_match_plain_version_on_card(cuda_device, B, K):
+    for offset in (0, 1):  # 1: misaligned, the plain-load route
+        for scale in (1.0, 20.0):  # scale 20 pushes diff past the clip
+            args = _bpr_args(cuda_device, B, K, scale, seed=B * K + offset, offset=offset)
+            route = K1.fwd_tiles(B, K, offset == 0)[0]
+            assert route == ("bulk" if offset == 0 and K % 4 == 0 else "plain")
+            before = K1.bpr_forward.launches
+            loss, sigma = K1.bpr_forward(*args)
+            want_loss, want_sigma = K1.bpr_forward_reference(*args)
+            torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0.0)
+            torch.testing.assert_close(sigma, want_sigma, rtol=1e-4,
+                                       atol=1e-5 * scale**2)
+            again, sigma2 = K1.bpr_forward(*args)
+            torch.cuda.synchronize()
+            assert K1.bpr_forward.launches == before + 2  # one launch a call
+            # the last block sums the partials in a fixed order: same bits
+            assert loss.view(torch.int32).item() == again.view(torch.int32).item()
+            assert torch.equal(sigma.view(torch.int32), sigma2.view(torch.int32))
+            if route == "bulk":  # gn by bulk copy too: the same sums, the same bits
+                loss3, sigma3 = K1.bpr_forward(*args, _copies=3)
+                assert loss.view(torch.int32).item() == loss3.view(torch.int32).item()
+                assert torch.equal(sigma.view(torch.int32), sigma3.view(torch.int32))
+            if scale > 1 and B > 1000:
+                assert bool((sigma == 0).any())  # the clip was reached
+
+
+@pytest.mark.cuda
+def test_bpr_forward_workspace_across_calls_and_streams_on_card(cuda_device):
+    # back-to-back calls with other grids on one stream (each must find the
+    # ticket reset by the last), interleaved with calls on a second stream
+    # that may run beside them (its own ticket and partials)
+    sizes = (8193, 33, 1, 65537, 32, 8192)
+    args = [_bpr_args(cuda_device, B, 128, 1.0, seed=B) for B in sizes]
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(main)
+    got, got_side = [], []
+    for a in args:
+        got.append(K1.bpr_forward(*a))
+        with torch.cuda.stream(side):
+            got_side.append(K1.bpr_forward(*a))
+    torch.cuda.synchronize()
+    assert (args[0][0].device.index, side.cuda_stream) in K1._workspaces
+    for a, (loss, sigma), (loss_s, sigma_s) in zip(args, got, got_side):
+        want_loss, want_sigma = K1.bpr_forward_reference(*a)
+        torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(sigma, want_sigma, rtol=1e-4, atol=1e-5)
+        assert loss.view(torch.int32).item() == loss_s.view(torch.int32).item()
+        assert torch.equal(sigma.view(torch.int32), sigma_s.view(torch.int32))
 
 
 @pytest.mark.cuda
