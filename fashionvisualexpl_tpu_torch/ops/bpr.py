@@ -92,7 +92,9 @@ def fwd_tiles(B: int, K: int, aligned: bool, tile: int = TILE_ROWS, copies: int 
     """(route, T, smem_bytes, blocks) of the forward kernel at [B, K].
 
     Block i takes triples [i*T, min((i+1)*T, B)).  ``copies`` = 0 asks for
-    the plain route (timed, not taken).  The "bulk" route copies
+    the plain route, -1 and -2 the lanes kernel's two routes, "vec" (float4
+    columns, where K and the pointers allow them) and "lanes" (timed, not
+    taken).  The "bulk" route copies
     the tile's gu and gp rows (``copies`` = 3: gn's too, a variant that is
     timed, not taken) into shared memory, copies*T*K*4 bytes, by bulk
     asynchronous copies, which need 16-byte aligned addresses and sizes:
@@ -101,6 +103,9 @@ def fwd_tiles(B: int, K: int, aligned: bool, tile: int = TILE_ROWS, copies: int 
     the rows from device memory and takes no dynamic shared memory."""
     if not 1 <= tile <= MAX_TILE:
         raise ValueError(f"BPR forward tile must be in [1, {MAX_TILE}], got {tile}")
+    if copies in (-1, -2):  # the lanes kernel: float4 columns / a warp a triple
+        vec = copies == -1 and aligned and K % 4 == 0
+        return ("vec" if vec else "lanes"), 32, 0, -(-B // 32)
     if copies not in (0, 2, 3):
         raise ValueError(f"BPR forward copies must be 0, 2 or 3, got {copies}")
     fit = MAX_ROW_BYTES // (4 * max(copies, 1) * K)
@@ -171,7 +176,7 @@ def bpr_forward(gu, gp, gn, bp, bn, _tile: int = TILE_ROWS,
             gu.data_ptr(), gp.data_ptr(), gn.data_ptr(), bp.data_ptr(),
             bn.data_ptr(), sigma.data_ptr(), partial.data_ptr(),
             ticket.data_ptr(), loss.data_ptr(), B, K, T,
-            _copies if route == "bulk" else 0, stream)
+            {"bulk": _copies, "plain": 0, "vec": -1, "lanes": -2}[route], stream)
     if rc != 0:
         raise RuntimeError(f"BPR forward kernel launch failed: cudaError {rc}")
     bpr_forward.launches += 1

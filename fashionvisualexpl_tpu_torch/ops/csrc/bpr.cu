@@ -227,6 +227,101 @@ bpr_fwd_kernel(const float* __restrict__ gu, const float* __restrict__ gp,
   }
 }
 
+// The same forward with every row read by the lanes (no copies): a warp
+// owns kTileWarp consecutive triples of the block's 32; kVec: a quarter-warp
+// a triple reading float4 columns, else a warp a triple in turn, the loads
+// of the warp's triples interleaved so that all are in flight together.
+constexpr int kTileWarp = 4;
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+bpr_fwd_lanes_kernel(const float* __restrict__ gu, const float* __restrict__ gp,
+                     const float* __restrict__ gn, const float* __restrict__ bp,
+                     const float* __restrict__ bn, float* __restrict__ sigma,
+                     float* __restrict__ partial, unsigned int* __restrict__ ticket,
+                     float* __restrict__ loss, long long B, int K) {
+  constexpr int T = kWarps * kTileWarp;
+  constexpr int kLanes = kVec ? 8 : 32;         // lanes a triple
+  constexpr int kPass = kTileWarp * kLanes / 32;  // triples a lane takes in turn
+  __shared__ float dot[T];
+  __shared__ float warp_sums[kWarps];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const long long r0 = static_cast<long long>(blockIdx.x) * T;
+  const int n = static_cast<int>(B - r0 < T ? B - r0 : T);
+  const float bias = tid < n ? bp[r0 + tid] - bn[r0 + tid] : 0.0f;
+  const int j = lane % kLanes;
+  // lane's triples: warp*kTileWarp + lane/kLanes + r*(32/kLanes), r < kPass
+  int row[kPass];
+  float d[kPass];
+#pragma unroll
+  for (int r = 0; r < kPass; ++r) {
+    row[r] = warp * kTileWarp + lane / kLanes + r * (32 / kLanes);
+    d[r] = 0.0f;
+  }
+  if constexpr (kVec) {
+    const int k4 = K / 4;
+    if (row[0] < n) {
+      const long long o = (r0 + row[0]) * k4;
+      const float4* u = reinterpret_cast<const float4*>(gu) + o;
+      const float4* p = reinterpret_cast<const float4*>(gp) + o;
+      const float4* q = reinterpret_cast<const float4*>(gn) + o;
+#pragma unroll 4
+      for (int k = j; k < k4; k += kLanes) {
+        const float4 a = u[k], x = p[k], y = q[k];
+        d[0] = fmaf(a.x, x.x - y.x, d[0]);
+        d[0] = fmaf(a.y, x.y - y.y, d[0]);
+        d[0] = fmaf(a.z, x.z - y.z, d[0]);
+        d[0] = fmaf(a.w, x.w - y.w, d[0]);
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int k = j; k < K; k += kLanes) {
+#pragma unroll
+      for (int r = 0; r < kPass; ++r) {
+        if (row[r] < n) {
+          const long long o = (r0 + row[r]) * K + k;
+          d[r] = fmaf(gu[o], gp[o] - gn[o], d[r]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kPass; ++r) {
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
+    if (j == 0 && row[r] < n) dot[row[r]] = d[r];
+  }
+  __syncthreads();
+
+  float term = 0.0f;
+  if (tid < n) {
+    const float diff = bias + dot[tid];
+    const float clipped = fminf(fmaxf(diff, kClipLo), kClipHi);
+    term = softplus(-clipped);
+    const bool in_range = diff > kClipLo && diff < kClipHi;
+    sigma[r0 + tid] = in_range ? 1.0f / (1.0f + expf(diff)) : 0.0f;
+  }
+  const float tile_loss = block_sum(term, warp_sums);
+  if (tid == 0) {
+    partial[blockIdx.x] = tile_loss;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float s = 0.0f;
+  for (int i = tid; i < static_cast<int>(gridDim.x); i += kThreads)
+    s += __ldcg(partial + i);
+  s = block_sum(s, warp_sums);
+  if (tid == 0) {
+    loss[0] = s;
+    *ticket = 0u;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 bpr_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ gu,
                const float* __restrict__ gp, const float* __restrict__ gn,
@@ -268,8 +363,21 @@ extern "C" int fvx_bpr_fwd(const void* gu, const void* gp, const void* gn,
                            void* partial, void* ticket, void* loss, long long B,
                            long long K, long long T, int copies, void* stream) {
   if (B < 1 || K < 1 || K > (1LL << 30) || T < 1 || T > kThreads ||
-      (B + T - 1) / T > 0x7fffffffLL || (copies != 0 && copies != 2 && copies != 3))
+      (B + T - 1) / T > 0x7fffffffLL || copies < -2 || copies == 1 || copies > 3)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (copies < 0) {  // the lanes kernel: -1 float4 columns, -2 a warp a triple
+    if (T != kWarps * kTileWarp || (copies == -1 && K % 4))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = static_cast<int>((B + T - 1) / T);
+    auto* lk = copies == -1 ? bpr_fwd_lanes_kernel<true> : bpr_fwd_lanes_kernel<false>;
+    lk<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(gu), static_cast<const float*>(gp),
+        static_cast<const float*>(gn), static_cast<const float*>(bp),
+        static_cast<const float*>(bn), static_cast<float*>(sigma),
+        static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
+        static_cast<float*>(loss), B, static_cast<int>(K));
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long smem = copies * T * K * 4;
   if (copies && (K % 4 || smem > kMaxRowBytes))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -8,8 +8,8 @@ filled by a random fill of a 64 MB buffer before each call).
 OTHER_CHECKOUT is another tree of the repository (for example the parent
 commit unpacked by ``git archive`` into a directory ``.gitignore`` lists);
 this script's own checkout is the other side, where each variant of the
-forward (``fwd_tiles``: the bulk route, the plain route at tiles of 8, 16,
-32 triples) is timed.  Each side runs in its own process, so each imports
+forward (``fwd_tiles``: the bulk route, the plain route at a tile of 16
+triples, the lanes kernel's float4 and warp-a-triple routes) is timed.  Each side runs in its own process, so each imports
 and builds its own kernels.  At B=8192, K=128 (the fast step's shape),
 three states of the L2 before a call:
 
@@ -51,8 +51,9 @@ def run_side(root: str, label: str) -> None:
     flush = torch.empty(64 * 2**20 // 4, device=dev)
     big = torch.randn(96 * 2**20 // 4, device=dev, generator=g)
     if hasattr(bpr, "fwd_tiles"):
-        cases = [("bulk T=32", dict(_tile=32, _copies=2))]
-        cases += [(f"plain T={t}", dict(_tile=t, _copies=0)) for t in (8, 16, 32)]
+        cases = [("bulk T=32", dict(_tile=32, _copies=2)),
+                 ("plain T=16", dict(_tile=16, _copies=0)),
+                 ("vec T=32", dict(_copies=-1)), ("lanes T=32", dict(_copies=-2))]
     else:
         cases = [("parent", {})]
 
@@ -99,8 +100,8 @@ def run_side(root: str, label: str) -> None:
         more = inputs(B, offset)
         want = bpr.bpr_forward_reference(*more)[0]
         for case, kw in cases:
-            if offset and kw.get("_copies"):
-                continue  # misaligned rows take the plain route
+            if offset and kw.get("_copies") not in (0, -2):
+                continue  # misaligned rows take the plain or lanes route
             rel = abs(float(bpr.bpr_forward(*more, **kw)[0] - want)) / abs(float(want))
             k1_ms, call_ms, own = timed(f"{case} B={B}",
                                         lambda: bpr.bpr_forward(*more, **kw), set())
