@@ -28,10 +28,10 @@ Phases, each of which raises on a failure (nothing is swallowed):
    checked against the same oracle;
 6. train kernels: the fused BPR loss (K1, forward and backward kernels) and
    the fused Adam sweep (K6) against their plain PyTorch versions over many
-   shapes (K1's forward on both of its routes, bulk copies and plain loads
-   of misaligned rows, two runs bit-equal, one kernel a call, with the
-   route and tile it took, other tiles and a 12.6 MB ``copy_`` timed beside
-   it), then their times, the plain versions' times, the library call
+   shapes (K1's forward on both of its routes, float4 loads and scalar
+   loads of misaligned rows, two runs bit-equal, one kernel a call, with
+   the route and tile it took), then their times, the plain versions'
+   times, the library call
    (K6 only: ``torch._fused_adam_`` with a zero gradient, which reads one
    more array) and the bounds at the training step's shapes, each call
    timed with the L2 flushed and no kernel allowed under its bound;
@@ -625,7 +625,7 @@ def train_kernel_phase(torch, bpr, adam):
 
     def bpr_inputs(B, K, scale, offset=0):
         # offset 1 starts each tensor one float into its storage: off the 16
-        # bytes a bulk copy needs, so the forward takes its plain route
+        # bytes a float4 load needs, so the forward takes its plain route
         def t(shape, s):
             n = B * (K if len(shape) == 2 else 1)
             return (torch.randn(n + offset, device=dev, generator=g) * s)[offset:].view(shape)
@@ -635,8 +635,8 @@ def train_kernel_phase(torch, bpr, adam):
         aligned = all(x.data_ptr() % 16 == 0 for x in args[:3])
         return bpr.fwd_tiles(*args[0].shape, aligned)
 
-    # the step's geometries, the forward's edges (B around its 32-triple
-    # tile, K off the bulk copies' 16 bytes, a wide K) and misaligned rows
+    # the step's geometries, the forward's edges (B around its tiles, K off
+    # the float4 loads' 16 bytes, a wide K) and misaligned rows
     geoms = [(B, K, 0) for B in (1, 100, TRAIN_B) for K in (8, 64, EMBED_K)]
     geoms += [(33, 129, 0), (8193, 7, 0), (65537, 512, 0), (100, 64, 1),
               (TRAIN_B, EMBED_K, 1)]
@@ -649,7 +649,7 @@ def train_kernel_phase(torch, bpr, adam):
             torch.cuda.synchronize()
             want_loss, want_sigma = bpr.bpr_forward_reference(*args)
             want_grads = bpr.bpr_backward_reference(sigma, *args[:3], one)
-            route, tile, _, blocks = route_of(args)
+            route, tile, blocks = route_of(args)
             label = f"B={B} K={K} scale={scale:g}{' misaligned' if offset else ''}"
             if not (torch.equal(loss.view(torch.int32), loss2.view(torch.int32))
                     and torch.equal(sigma.view(torch.int32), sigma2.view(torch.int32))):
@@ -728,36 +728,11 @@ def train_kernel_phase(torch, bpr, adam):
               f"bound_ms={b!r} ({by}) library_ms=None (no single PyTorch call "
               f"computes it)")
     rows["bpr_fwd"]["loss_max_rel_err"] = loss_rel
-    route, tile, smem, blocks = route_of(args)
+    route, tile, blocks = route_of(args)
     rows["bpr_fwd"].update(load_route=route, tile=tile)
     print(f"kernel route bpr_fwd {shape}: {route}, tile {tile} triples, "
-          f"{smem} bytes of rows a block, {blocks} blocks")
-    # other tiles, gn by bulk copy too, and the plain route at the same
-    # shape (timed, not taken)
-    for t, c in ((8, 2), (16, 2), (64, 2), (128, 2), (bpr.TILE_ROWS, 3)):
-        t_ms, t_call, _ = kernel_times(torch, f"bpr_fwd tile={t} copies={c}",
-                                    lambda: bpr.bpr_forward(*args, _tile=t, _copies=c),
-                                    100, flush)
-        print(f"kernel time bpr_fwd tile={t} copies={c} {shape}: ms={t_ms!r} "
-              f"call_ms={t_call!r}")
-        got = bpr.bpr_forward(*args, _tile=t, _copies=c)
-        if c == 3 and not all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                              for x, y in zip(got, bpr.bpr_forward(*args))):
-            fail("bpr_fwd copies=3: not the bits of the bulk route")
-    mis = bpr_inputs(TRAIN_B, EMBED_K, 1.0, offset=1)
-    p_ms, p_call, _ = kernel_times(torch, "bpr_fwd plain route",
-                                lambda: bpr.bpr_forward(*mis), 100, flush)
-    print(f"kernel time bpr_fwd plain route (misaligned rows) {shape}: "
-          f"ms={p_ms!r} call_ms={p_call!r} bound_ms={fwd_b[0]!r}")
-    # a yardstick for reading the forward's bytes after the flush: one
-    # copy_ of the three row blocks' 12.6 MB (read once, written once)
-    src = torch.cat([x.reshape(-1) for x in args[:3]])
-    dst = torch.empty_like(src)
-    copy_ms, _, _ = kernel_times(torch, "bpr_fwd copy floor", lambda: dst.copy_(src), 100, flush)
-    rows["bpr_fwd"]["copy_ms"] = copy_ms
-    print(f"kernel yardstick bpr_fwd {shape}: Tensor.copy_ of the {src.numel() * 4} bytes "
-          f"of gu, gp, gn ms={copy_ms!r} (bound_ms={fwd_b[0]!r})")
-    del args, sigma, mis, src, dst
+          f"{blocks} blocks")
+    del args, sigma
 
     tables = {}
     for name, shape in (("Gu", (TRAIN_U, EMBED_K)), ("Gi", (TRAIN_I, EMBED_K)),

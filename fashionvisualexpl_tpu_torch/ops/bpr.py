@@ -19,11 +19,11 @@ CPU tensors only; ``.launches`` counts kernel launches.  The TPU kernel's
 ``tile``/``interpret`` arguments and its pad-then-subtract-n·log 2 are
 Mosaic matters that stay behind: the CUDA grid masks the ragged edge.
 
-The forward is one launch: ``fwd_tiles`` picks its tile of triples and its
-route (bulk asynchronous copies of the tile's rows, or plain loads where
-K or a pointer does not allow them), and the block that finishes last
-sums the blocks' partial losses in a fixed order, through a ticket and
-partials kept per (device, stream) (``csrc/bpr.cu``'s note).
+The forward is one launch: ``fwd_tiles`` picks its route (float4 loads,
+or scalar loads where K or a pointer does not allow them) and its tile of
+triples, and the block that finishes last sums the blocks' partial losses
+in a fixed order, through a ticket and partials kept per (device, stream)
+(``csrc/bpr.cu``'s note).
 """
 
 from __future__ import annotations
@@ -37,12 +37,9 @@ from fashionvisualexpl_tpu_torch.models.base import bpr_pairwise_loss, softplus
 
 CLIP_LO = -80.0
 CLIP_HI = 1e8
-# the forward kernel: triples a block (at most its 256 threads), and the most
-# dynamic shared memory the bulk route's rows may take (csrc/bpr.cu's
-# kMaxRowBytes, of the 227 KB a block may have)
-TILE_ROWS = 32
-MAX_TILE = 256
-MAX_ROW_BYTES = 200 * 1024
+# the forward kernel's triples a block on its two routes (csrc/bpr.cu's
+# kVecTile, kPlainTile)
+FWD_TILES = {"vec": 32, "plain": 16}
 
 
 def bpr_triplet_loss_reference(gu, gi_pos, gi_neg, b_pos, b_neg):
@@ -88,32 +85,14 @@ def _check(gu, gp, gn, vecs):
         raise ValueError("BPR kernel needs at least one triple")
 
 
-def fwd_tiles(B: int, K: int, aligned: bool, tile: int = TILE_ROWS, copies: int = 2):
-    """(route, T, smem_bytes, blocks) of the forward kernel at [B, K].
-
-    Block i takes triples [i*T, min((i+1)*T, B)).  ``copies`` = 0 asks for
-    the plain route, -1 and -2 the lanes kernel's two routes, "vec" (float4
-    columns, where K and the pointers allow them) and "lanes" (timed, not
-    taken).  The "bulk" route copies
-    the tile's gu and gp rows (``copies`` = 3: gn's too, a variant that is
-    timed, not taken) into shared memory, copies*T*K*4 bytes, by bulk
-    asynchronous copies, which need 16-byte aligned addresses and sizes:
-    K a multiple of 4, the three row pointers ``aligned`` to 16 bytes, and
-    a row of each within MAX_ROW_BYTES.  Otherwise the "plain" route reads
-    the rows from device memory and takes no dynamic shared memory."""
-    if not 1 <= tile <= MAX_TILE:
-        raise ValueError(f"BPR forward tile must be in [1, {MAX_TILE}], got {tile}")
-    if copies in (-1, -2):  # the lanes kernel: float4 columns / a warp a triple
-        vec = copies == -1 and aligned and K % 4 == 0
-        return ("vec" if vec else "lanes"), 32, 0, -(-B // 32)
-    if copies not in (0, 2, 3):
-        raise ValueError(f"BPR forward copies must be 0, 2 or 3, got {copies}")
-    fit = MAX_ROW_BYTES // (4 * max(copies, 1) * K)
-    if copies and aligned and K % 4 == 0 and fit >= 1:
-        t = min(tile, fit, B)
-        return "bulk", t, 4 * copies * t * K, -(-B // t)
-    t = min(tile, B)
-    return "plain", t, 0, -(-B // t)
+def fwd_tiles(B: int, K: int, aligned: bool) -> Tuple[str, int, int]:
+    """(route, T, blocks) of the forward kernel at [B, K]: block i takes
+    triples [i*T, min((i+1)*T, B)).  The "vec" route reads float4 columns,
+    which needs K a multiple of 4 and the three row pointers ``aligned`` to
+    16 bytes; otherwise the "plain" route reads scalars."""
+    route = "vec" if aligned and K % 4 == 0 else "plain"
+    T = FWD_TILES[route]
+    return route, T, -(-B // T)
 
 
 # (device index, stream) -> (ticket int32 [1], partials f32 [>= blocks])
@@ -155,18 +134,15 @@ def _contig(*named):
             raise ValueError(f"BPR kernel: {name} must be contiguous")
 
 
-def bpr_forward(gu, gp, gn, bp, bn, _tile: int = TILE_ROWS,
-                _copies: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss 0-d f32, sigma [B] f32) of the clipped BPR loss.  ``_tile``
-    (triples a block) and ``_copies`` (``fwd_tiles``) are hooks for timing
-    the kernel's alternatives."""
+def bpr_forward(gu, gp, gn, bp, bn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss 0-d f32, sigma [B] f32) of the clipped BPR loss."""
     _check(gu, gp, gn, (("bp", bp), ("bn", bn)))
     if gu.device.type == "cpu":
         return bpr_forward_reference(gu, gp, gn, bp, bn)
     _contig(("gu", gu), ("gp", gp), ("gn", gn), ("bp", bp), ("bn", bn))
     B, K = gu.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (gu, gp, gn))
-    route, T, _, blocks = fwd_tiles(B, K, aligned, _tile, _copies)
+    route, T, blocks = fwd_tiles(B, K, aligned)
     with torch.cuda.device(gu.device):
         sigma = torch.empty(B, dtype=torch.float32, device=gu.device)
         loss = torch.empty((), dtype=torch.float32, device=gu.device)
@@ -175,8 +151,7 @@ def bpr_forward(gu, gp, gn, bp, bn, _tile: int = TILE_ROWS,
         rc = _library().fvx_bpr_fwd(
             gu.data_ptr(), gp.data_ptr(), gn.data_ptr(), bp.data_ptr(),
             bn.data_ptr(), sigma.data_ptr(), partial.data_ptr(),
-            ticket.data_ptr(), loss.data_ptr(), B, K, T,
-            {"bulk": _copies, "plain": 0, "vec": -1, "lanes": -2}[route], stream)
+            ticket.data_ptr(), loss.data_ptr(), B, K, T, int(route == "vec"), stream)
     if rc != 0:
         raise RuntimeError(f"BPR forward kernel launch failed: cudaError {rc}")
     bpr_forward.launches += 1

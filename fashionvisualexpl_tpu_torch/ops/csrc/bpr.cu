@@ -18,43 +18,36 @@
 // sigma (~12.7 MB, ~3.8 us at 3.35 TB/s) for ~3 FLOP per 12 bytes, far
 // below the ~295 FLOP a byte where the tensor cores would matter; the
 // backward reads sigma and three [B, K] blocks and writes three [B, K]
-// blocks and two [B] vectors (~25.2 MB, ~7.5 us).  At that size what a
-// call pays is the time to get every byte in flight and the first ones
-// back, not the memory rate: on an H100 (80GB HBM3, 700 W) a 12.6 MB
-// Tensor.copy_ after chip_smoke.py's L2 flush takes ~11 us.
+// blocks and two [B] vectors (~25.2 MB, ~7.5 us).  At that size a call
+// pays mostly for getting every byte in flight and the first ones back,
+// and for its launch; so the forward asks for all of its bytes at once
+// and is one launch.
 //
-// Forward design: one launch.  Block i owns the contiguous tile of T
-// triples [i*T, min((i+1)*T, B)); the ragged last tile is masked, never
-// padded.  Two routes (the kCopies template):
-// - bulk (kCopies = 2; K*4 a multiple of 16, gu, gp, gn 16-byte aligned):
-//   the tile's gu and gp rows are each one contiguous n*K*4-byte range,
-//   so one thread issues two 1-D bulk asynchronous copies (cp.async.bulk
-//   ... mbarrier::complete_tx, no tensor map) into shared memory on one
-//   mbarrier that expects their bytes, as the TPU kernel's BlockSpecs
-//   brought a block in; every block asks for all of its bytes at once.
-//   gn's rows are read by the lanes themselves, as float4, while the
-//   copies are in flight: the whole tile by copies (kCopies = 3, timed
-//   beside it in chip_smoke.py, never taken) was slower on an H100.  The
-//   copy engine and the SM's load path are two roads to memory; sharing
-//   the tile between them is what is measured to pay, not why.  A
-//   quarter-warp owns a triple and reads float4
-//   columns (8 lanes cover 128 consecutive bytes: no bank conflict, and
-//   128 bytes of gn a load), then sums its lanes with an xor-shuffle
-//   tree.  T=32 at K=128 is 32 KB of dynamic shared memory a block and
-//   256 blocks, about two a SM: the grid is one wave.  Smaller tiles add
-//   blocks, partials and ticket atomics; larger ones idle SMs
-//   (chip_smoke.py times 8 ... 128).
-// - plain (kCopies = 0: K*4 not a multiple of 16, a storage offset, or a
-//   row too wide for shared memory): a warp owns a triple and reads its
-//   rows straight from device memory, each load instruction of the warp
-//   on consecutive addresses.
-// The tile's dot products meet in shared memory; then thread t runs the
-// clip, softplus and sigmoid of triple t, so the epilogue is spread over
-// all lanes and sigma leaves as one coalesced store of the tile.
+// Forward design: block i owns the contiguous tile of T triples
+// [i*T, min((i+1)*T, B)); the ragged last tile is masked, never padded.
+// The lanes read the rows straight from device memory, every load of a
+// lane issued before its first FMA.  Two routes (the kVec template):
+// - vec (K*4 a multiple of 16, gu, gp, gn 16-byte aligned): a quarter-warp
+//   owns a triple and reads float4 columns (8 lanes cover 128 consecutive
+//   bytes of a row), T = 32: a warp holds 4 triples, the block's 8 warps
+//   all 32, each lane K/32 float4 of each row (12 loads in flight at
+//   K=128), and the B=8192 grid is 256 blocks, one wave on 132 SMs.
+// - plain (K*4 not a multiple of 16, or a storage offset): a warp owns a
+//   triple and reads scalars, each load instruction of the warp on 32
+//   consecutive floats; T = 16, two triples a warp in turn.
+// Bringing a tile's rows into shared memory by bulk asynchronous copies
+// (cp.async.bulk on an mbarrier, as the TPU kernel's BlockSpecs did) was
+// measured on an H100 against this: no faster with the rows in device
+// memory, and slower with the rows in L2, where the training step's
+// gathers leave them: the copies land in shared memory later than the
+// lanes' own loads come back.  The tile's dot products meet in shared
+// memory; then thread t runs the clip, softplus and sigmoid of triple t,
+// so the epilogue is spread over the lanes and sigma leaves as one
+// coalesced store of the tile.
 //
-// The loss without a second launch and without float atomics: each block
-// sums its tile's softplus terms in a fixed tree (an xor-shuffle tree in
-// each warp, then warp 0 over the warp sums), writes that partial,
+// The loss in the same launch, without float atomics: each block sums its
+// tile's softplus terms in a fixed tree (an xor-shuffle tree in each
+// warp, then warp 0 over the warp sums), writes that partial,
 // __threadfence()s and takes a ticket with one integer atomicAdd.  The
 // block that draws the last ticket reads every partial from L2 and sums
 // them in index order through the same fixed tree (thread t takes
@@ -62,7 +55,9 @@
 // to 0 for the next launch on the stream.  Which block is last changes
 // from run to run; the order of the additions does not, so the loss has
 // the same bits.  The partials and the ticket are a workspace the wrapper
-// keeps per (device, stream), zeroed once when made.
+// keeps per (device, stream), zeroed once when made.  Tiles of 32 keep
+// the tickets to 256 at B=8192: tickets on one address serialize, and a
+// one-wave grid draws them all at its end.
 //
 // Backward: one thread per [B, K] element, elementwise.  softplus(x) is
 // written as jax.nn.softplus (logaddexp(x, 0)) computes it, max(x, 0) +
@@ -71,27 +66,18 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBulkLanes = 8;    // lanes a triple on the bulk route
-constexpr int kPlainLanes = 32;  // lanes a triple on the plain route
+constexpr int kVecTile = 32;    // triples a block on the vec route
+constexpr int kPlainTile = 16;  // triples a block on the plain route
 constexpr int kMaxBwdBlocks = 132 * 16;
-// the bulk route's rows: at most this much dynamic shared memory a block
-// (of the 227 KB a block may take; the static arrays need ~1.1 KB)
-constexpr int kMaxRowBytes = 200 * 1024;
 constexpr float kClipLo = -80.0f;
 constexpr float kClipHi = 1e8f;
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // The sum over the block of each thread's v in a fixed tree; the result is
@@ -112,73 +98,38 @@ __device__ __forceinline__ float block_sum(float v, float* warp_sums) {
   return v;
 }
 
-// grid: one block a tile of T <= kThreads triples.  kCopies of gu, gp, gn
-// (in that order) arrive by bulk copies into dynamic shared memory, T*K
-// floats each; the others are read from device memory (0: the plain route).
-template <int kCopies>
+// grid: one block a tile of T triples (kVecTile or kPlainTile)
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 bpr_fwd_kernel(const float* __restrict__ gu, const float* __restrict__ gp,
                const float* __restrict__ gn, const float* __restrict__ bp,
                const float* __restrict__ bn, float* __restrict__ sigma,
                float* __restrict__ partial, unsigned int* __restrict__ ticket,
-               float* __restrict__ loss, long long B, int K, int T) {
-  extern __shared__ __align__(16) float rows[];
-  __shared__ float dot[kThreads];
+               float* __restrict__ loss, long long B, int K) {
+  constexpr int T = kVec ? kVecTile : kPlainTile;
+  constexpr int kLanes = kVec ? 8 : 32;  // lanes a triple
+  __shared__ float dot[T];
   __shared__ float warp_sums[kWarps];
-  __shared__ __align__(8) unsigned long long bar;
   __shared__ bool last;
-  constexpr bool kBulk = kCopies > 0;
   const int tid = threadIdx.x;
   const long long r0 = static_cast<long long>(blockIdx.x) * T;
   const int n = static_cast<int>(B - r0 < T ? B - r0 : T);
-
-  if constexpr (kBulk) {
-    const uint32_t b = smem_u32(&bar);
-    if (tid == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-    if (tid == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(n) * K * 4;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   ::"r"(b), "r"(kCopies * bytes) : "memory");
-      const float* src[3] = {gu, gp, gn};
-#pragma unroll
-      for (int a = 0; a < kCopies; ++a)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];\n"
-            ::"r"(smem_u32(rows + static_cast<long long>(a) * T * K)),
-              "l"(src[a] + r0 * K), "r"(bytes), "r"(b) : "memory");
-    }
-  }
-  // bp - bn of this thread's triple, read while the rows are in flight
   const float bias = tid < n ? bp[r0 + tid] - bn[r0 + tid] : 0.0f;
-  if constexpr (kBulk) {
-    uint32_t done = 0;
-    while (!done)
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-          " selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done) : "r"(smem_u32(&bar)) : "memory");
-  }
 
   // lane j of a triple's group takes columns j, j + kLanes, ... (float4
-  // columns on the bulk route)
-  constexpr int kLanes = kBulk ? kBulkLanes : kPlainLanes;
+  // columns on the vec route)
   const int j = tid % kLanes;
   for (int base = 0; base < n; base += kThreads / kLanes) {
     const int row = base + tid / kLanes;
     float d = 0.0f;
     if (row < n) {
-      if constexpr (kBulk) {
+      if constexpr (kVec) {
         const int k4 = K / 4;
-        const float4* u = reinterpret_cast<const float4*>(rows) + row * k4;
-        const float4* p = u + T * k4;
-        const float4* q = kCopies == 3
-            ? p + T * k4 : reinterpret_cast<const float4*>(gn + (r0 + row) * K);
+        const long long o = (r0 + row) * k4;
+        const float4* u = reinterpret_cast<const float4*>(gu) + o;
+        const float4* p = reinterpret_cast<const float4*>(gp) + o;
+        const float4* q = reinterpret_cast<const float4*>(gn) + o;
+#pragma unroll 4
         for (int k = j; k < k4; k += kLanes) {
           const float4 a = u[k], x = p[k], y = q[k];
           d = fmaf(a.x, x.x - y.x, d);
@@ -197,101 +148,6 @@ bpr_fwd_kernel(const float* __restrict__ gu, const float* __restrict__ gp,
     for (int off = kLanes / 2; off > 0; off >>= 1)
       d += __shfl_xor_sync(0xffffffffu, d, off);
     if (j == 0 && row < n) dot[row] = d;
-  }
-  __syncthreads();
-
-  float term = 0.0f;
-  if (tid < n) {
-    const float diff = bias + dot[tid];
-    const float clipped = fminf(fmaxf(diff, kClipLo), kClipHi);
-    term = softplus(-clipped);
-    const bool in_range = diff > kClipLo && diff < kClipHi;
-    sigma[r0 + tid] = in_range ? 1.0f / (1.0f + expf(diff)) : 0.0f;
-  }
-  const float tile_loss = block_sum(term, warp_sums);
-  if (tid == 0) {
-    partial[blockIdx.x] = tile_loss;
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float s = 0.0f;
-  for (int i = tid; i < static_cast<int>(gridDim.x); i += kThreads)
-    s += __ldcg(partial + i);
-  s = block_sum(s, warp_sums);
-  if (tid == 0) {
-    loss[0] = s;
-    *ticket = 0u;
-  }
-}
-
-// The same forward with every row read by the lanes (no copies): a warp
-// owns kTileWarp consecutive triples of the block's 32; kVec: a quarter-warp
-// a triple reading float4 columns, else a warp a triple in turn, the loads
-// of the warp's triples interleaved so that all are in flight together.
-constexpr int kTileWarp = 4;
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-bpr_fwd_lanes_kernel(const float* __restrict__ gu, const float* __restrict__ gp,
-                     const float* __restrict__ gn, const float* __restrict__ bp,
-                     const float* __restrict__ bn, float* __restrict__ sigma,
-                     float* __restrict__ partial, unsigned int* __restrict__ ticket,
-                     float* __restrict__ loss, long long B, int K) {
-  constexpr int T = kWarps * kTileWarp;
-  constexpr int kLanes = kVec ? 8 : 32;         // lanes a triple
-  constexpr int kPass = kTileWarp * kLanes / 32;  // triples a lane takes in turn
-  __shared__ float dot[T];
-  __shared__ float warp_sums[kWarps];
-  __shared__ bool last;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const long long r0 = static_cast<long long>(blockIdx.x) * T;
-  const int n = static_cast<int>(B - r0 < T ? B - r0 : T);
-  const float bias = tid < n ? bp[r0 + tid] - bn[r0 + tid] : 0.0f;
-  const int j = lane % kLanes;
-  // lane's triples: warp*kTileWarp + lane/kLanes + r*(32/kLanes), r < kPass
-  int row[kPass];
-  float d[kPass];
-#pragma unroll
-  for (int r = 0; r < kPass; ++r) {
-    row[r] = warp * kTileWarp + lane / kLanes + r * (32 / kLanes);
-    d[r] = 0.0f;
-  }
-  if constexpr (kVec) {
-    const int k4 = K / 4;
-    if (row[0] < n) {
-      const long long o = (r0 + row[0]) * k4;
-      const float4* u = reinterpret_cast<const float4*>(gu) + o;
-      const float4* p = reinterpret_cast<const float4*>(gp) + o;
-      const float4* q = reinterpret_cast<const float4*>(gn) + o;
-#pragma unroll 4
-      for (int k = j; k < k4; k += kLanes) {
-        const float4 a = u[k], x = p[k], y = q[k];
-        d[0] = fmaf(a.x, x.x - y.x, d[0]);
-        d[0] = fmaf(a.y, x.y - y.y, d[0]);
-        d[0] = fmaf(a.z, x.z - y.z, d[0]);
-        d[0] = fmaf(a.w, x.w - y.w, d[0]);
-      }
-    }
-  } else {
-#pragma unroll 2
-    for (int k = j; k < K; k += kLanes) {
-#pragma unroll
-      for (int r = 0; r < kPass; ++r) {
-        if (row[r] < n) {
-          const long long o = (r0 + row[r]) * K + k;
-          d[r] = fmaf(gu[o], gp[o] - gn[o], d[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kPass; ++r) {
-#pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1)
-      d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
-    if (j == 0 && row[r] < n) dot[row[r]] = d[r];
   }
   __syncthreads();
 
@@ -350,52 +206,28 @@ bpr_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ gu,
 
 // Plain C interface for ctypes.  All arrays f32, contiguous, on the current
 // device: gu/gp/gn [B, K], bp/bn/sigma [B], loss [1], gout [1], the d* the
-// shapes of their inputs.  The forward runs ceil(B / T) blocks of T <= 256
-// triples; `partial` holds a float for each and `ticket` an unsigned int
-// that is 0 between launches (the last block resets it).  `copies` is the
-// number of gu, gp, gn brought in by bulk copies: 2 the bulk route, 0 the
-// plain route, 3 the whole tile by copies (timed, not taken).  For 2 and 3
-// the caller has checked that K*4 is a multiple of 16, that gu, gp, gn are
-// 16-byte aligned and that copies*T*K*4 bytes fit (ops/bpr.py::fwd_tiles).
-// Each returns the cudaError_t of its launch (0 = launched).
+// shapes of their inputs.  The forward runs ceil(B / T) blocks, T =
+// kVecTile if `vec` else kPlainTile (the caller passes it, as
+// ops/bpr.py::fwd_tiles chose it); `partial` holds a float for each block
+// and `ticket` an unsigned int that is 0 between launches (the last block
+// resets it).  For `vec` the caller has checked that K*4 is a multiple of
+// 16 and that gu, gp, gn are 16-byte aligned.  Each returns the
+// cudaError_t of its launch (0 = launched).
 extern "C" int fvx_bpr_fwd(const void* gu, const void* gp, const void* gn,
                            const void* bp, const void* bn, void* sigma,
                            void* partial, void* ticket, void* loss, long long B,
-                           long long K, long long T, int copies, void* stream) {
-  if (B < 1 || K < 1 || K > (1LL << 30) || T < 1 || T > kThreads ||
-      (B + T - 1) / T > 0x7fffffffLL || copies < -2 || copies == 1 || copies > 3)
+                           long long K, long long T, int vec, void* stream) {
+  if (B < 1 || K < 1 || K > (1LL << 30) || T != (vec ? kVecTile : kPlainTile) ||
+      (B + T - 1) / T > 0x7fffffffLL || (vec && K % 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (copies < 0) {  // the lanes kernel: -1 float4 columns, -2 a warp a triple
-    if (T != kWarps * kTileWarp || (copies == -1 && K % 4))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int blocks = static_cast<int>((B + T - 1) / T);
-    auto* lk = copies == -1 ? bpr_fwd_lanes_kernel<true> : bpr_fwd_lanes_kernel<false>;
-    lk<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(gu), static_cast<const float*>(gp),
-        static_cast<const float*>(gn), static_cast<const float*>(bp),
-        static_cast<const float*>(bn), static_cast<float*>(sigma),
-        static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
-        static_cast<float*>(loss), B, static_cast<int>(K));
-    return static_cast<int>(cudaGetLastError());
-  }
-  const long long smem = copies * T * K * 4;
-  if (copies && (K % 4 || smem > kMaxRowBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = static_cast<int>((B + T - 1) / T);
-  auto* kernel = copies == 0 ? bpr_fwd_kernel<0>
-                 : copies == 2 ? bpr_fwd_kernel<2> : bpr_fwd_kernel<3>;
-  if (copies) {  // above 48 KB a block needs the opt-in (on the current device)
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxRowBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<blocks, kThreads, static_cast<size_t>(smem), st>>>(
+  auto* kernel = vec ? bpr_fwd_kernel<true> : bpr_fwd_kernel<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(gu), static_cast<const float*>(gp),
       static_cast<const float*>(gn), static_cast<const float*>(bp),
       static_cast<const float*>(bn), static_cast<float*>(sigma),
       static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
-      static_cast<float*>(loss), B, static_cast<int>(K), static_cast<int>(T));
+      static_cast<float*>(loss), B, static_cast<int>(K));
   return static_cast<int>(cudaGetLastError());
 }
 

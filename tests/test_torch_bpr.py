@@ -92,34 +92,25 @@ def test_wrappers_reject_bad_inputs():
 @pytest.mark.parametrize("B,K", [(1, 128), (31, 8), (32, 8), (33, 128), (8191, 128),
                                  (8193, 129), (65537, 512), (100, 7), (5, 60000)])
 @pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("copies", [2, 3])
-def test_forward_tiles_cover_every_triple_once(B, K, aligned, copies):
-    route, T, smem, blocks = tbpr.fwd_tiles(B, K, aligned, copies=copies)
-    assert 1 <= T <= tbpr.MAX_TILE and blocks == -(-B // T)
+def test_forward_tiles_cover_every_triple_once(B, K, aligned):
+    route, T, blocks = tbpr.fwd_tiles(B, K, aligned)
+    assert T == tbpr.FWD_TILES[route] and blocks == -(-B // T)
     covered = np.zeros(B, dtype=np.int64)
     for i in range(blocks):  # block i's tile, the last one ragged
         covered[i * T:min((i + 1) * T, B)] += 1
     assert (covered == 1).all()
     assert (blocks - 1) * T < B <= blocks * T
-    # a block's dynamic shared memory stays under the 227 KB it may take
-    assert smem <= tbpr.MAX_ROW_BYTES < 227 * 1024
-    assert smem == (copies * T * K * 4 if route == "bulk" else 0)
 
 
-def test_forward_takes_bulk_copies_only_where_they_are_legal():
-    # the training shape: 32 triples a block, 32 KB of gu and gp rows, 256 blocks
-    assert tbpr.fwd_tiles(8192, 128, True) == ("bulk", 32, 32768, 256)
-    assert tbpr.fwd_tiles(8192, 128, True, copies=3) == ("bulk", 32, 49152, 256)
-    # K*4 not a multiple of 16, or a pointer off 16 bytes: plain loads
+def test_forward_reads_float4_columns_only_where_they_are_legal():
+    # the training shape: 32 triples a block, 256 blocks (one wave)
+    assert tbpr.fwd_tiles(8192, 128, True) == ("vec", 32, 256)
+    # K*4 not a multiple of 16, or a pointer off 16 bytes: scalar loads
     for K in (1, 7, 129, 130):
-        assert tbpr.fwd_tiles(8192, K, True)[0] == "plain"
-    assert tbpr.fwd_tiles(8192, 128, False) == ("plain", 32, 0, 256)
-    # wide rows shrink the tile; a row too wide for shared memory goes plain
-    assert tbpr.fwd_tiles(4096, 1024, True)[:2] == ("bulk", 25)
-    assert tbpr.fwd_tiles(4096, 60000, True)[0] == "plain"
-    # B below the tile: one block of B triples
-    assert tbpr.fwd_tiles(1, 128, True) == ("bulk", 1, 1024, 1)
-    with pytest.raises(ValueError, match="tile"):
-        tbpr.fwd_tiles(8, 8, True, tile=257)
-    with pytest.raises(ValueError, match="copies"):
-        tbpr.fwd_tiles(8, 8, True, copies=1)
+        assert tbpr.fwd_tiles(8192, K, True) == ("plain", 16, 512)
+    assert tbpr.fwd_tiles(8192, 128, False) == ("plain", 16, 512)
+    # any width takes the vec route when aligned (no shared memory for rows)
+    assert tbpr.fwd_tiles(4096, 60000, True) == ("vec", 32, 128)
+    # B below the tile: one block, masked to B triples
+    assert tbpr.fwd_tiles(1, 128, True) == ("vec", 32, 1)
+    assert tbpr.fwd_tiles(15, 7, True) == ("plain", 16, 1)

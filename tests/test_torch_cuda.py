@@ -11,7 +11,7 @@ of magnitude up to ~20.  K1: loss rtol 1e-5 (another summation order),
 sigma rtol 1e-4, atol 1e-5 * scale**2 (diff's K products are summed with
 FMAs in lane order, and their rounding grows with the products); the
 gradients, from the same sigma, rtol 1e-4, atol 1e-5; the forward on both
-of its routes (bulk copies, plain loads) is bit-equal from run to run.
+of its routes (float4 and scalar loads) is bit-equal from run to run.
 K6: the same f32 operations in the same order, m and v rtol 1e-6, p rtol
 1e-5.  K2: counts bit-equal on quantized data (every
 score exact in f32, so any summation order gives the same bits).  K7 (the
@@ -172,7 +172,7 @@ def test_bpr_kernels_match_plain_versions_on_card(cuda_device, B, K, scale):
 
 def _bpr_args(dev, B, K, scale, seed, offset=0):
     """gu, gp, gn [B, K] (times scale) and bp, bn [B]; offset 1 starts each
-    tensor one float into its storage, off the 16 bytes a bulk copy needs."""
+    tensor one float into its storage, off the 16 bytes a float4 load needs."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def t(shape, s):
@@ -186,11 +186,11 @@ def _bpr_args(dev, B, K, scale, seed, offset=0):
 @pytest.mark.parametrize("K", [1, 7, 8, 128, 129, 512])
 @pytest.mark.parametrize("B", [1, 31, 32, 33, 8191, 8193, 65537])
 def test_bpr_forward_routes_match_plain_version_on_card(cuda_device, B, K):
-    for offset in (0, 1):  # 1: misaligned, the plain-load route
+    for offset in (0, 1):  # 1: misaligned, the scalar-load route
         for scale in (1.0, 20.0):  # scale 20 pushes diff past the clip
             args = _bpr_args(cuda_device, B, K, scale, seed=B * K + offset, offset=offset)
             route = K1.fwd_tiles(B, K, offset == 0)[0]
-            assert route == ("bulk" if offset == 0 and K % 4 == 0 else "plain")
+            assert route == ("vec" if offset == 0 and K % 4 == 0 else "plain")
             before = K1.bpr_forward.launches
             loss, sigma = K1.bpr_forward(*args)
             want_loss, want_sigma = K1.bpr_forward_reference(*args)
@@ -203,10 +203,6 @@ def test_bpr_forward_routes_match_plain_version_on_card(cuda_device, B, K):
             # the last block sums the partials in a fixed order: same bits
             assert loss.view(torch.int32).item() == again.view(torch.int32).item()
             assert torch.equal(sigma.view(torch.int32), sigma2.view(torch.int32))
-            if route == "bulk":  # gn by bulk copy too: the same sums, the same bits
-                loss3, sigma3 = K1.bpr_forward(*args, _copies=3)
-                assert loss.view(torch.int32).item() == loss3.view(torch.int32).item()
-                assert torch.equal(sigma.view(torch.int32), sigma3.view(torch.int32))
             if scale > 1 and B > 1000:
                 assert bool((sigma == 0).any())  # the clip was reached
 
