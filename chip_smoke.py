@@ -732,7 +732,19 @@ def train_kernel_phase(torch, bpr, adam):
     rows["bpr_fwd"].update(load_route=route, tile=tile)
     print(f"kernel route bpr_fwd {shape}: {route}, tile {tile} triples, "
           f"{blocks} blocks")
-    del args, sigma
+    # the forward as the step runs it: its rows just written (by the
+    # gathers there, by copy_ here, whose kernels are not counted), so read
+    # from the L2
+    srcs = [x.clone() for x in args[:3]]
+    _, _, kernels = kernel_times(
+        torch, "bpr_fwd resident",
+        lambda: ([x.copy_(s) for x, s in zip(args[:3], srcs)], bpr.bpr_forward(*args)),
+        200, flush)
+    resident_ms = sum(t for n, (_, t) in kernels.items() if "bpr_fwd" in n)
+    rows["bpr_fwd"]["resident_ms"] = resident_ms
+    print(f"kernel time bpr_fwd B={TRAIN_B} K={EMBED_K} f32, rows in L2: "
+          f"ms={resident_ms!r}")
+    del args, sigma, srcs
 
     tables = {}
     for name, shape in (("Gu", (TRAIN_U, EMBED_K)), ("Gi", (TRAIN_I, EMBED_K)),
