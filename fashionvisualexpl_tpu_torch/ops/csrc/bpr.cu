@@ -117,9 +117,11 @@ bpr_fwd_kernel(const float* __restrict__ gu, const float* __restrict__ gp,
   const float bias = tid < n ? bp[r0 + tid] - bn[r0 + tid] : 0.0f;
 
   // lane j of a triple's group takes columns j, j + kLanes, ... (float4
-  // columns on the vec route)
+  // columns on the vec route); the passes over the tile are a constant
+  // count (1 on the vec route, 2 on the plain), unrolled
   const int j = tid % kLanes;
-  for (int base = 0; base < n; base += kThreads / kLanes) {
+#pragma unroll
+  for (int base = 0; base < T; base += kThreads / kLanes) {
     const int row = base + tid / kLanes;
     float d = 0.0f;
     if (row < n) {
