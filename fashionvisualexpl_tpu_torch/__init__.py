@@ -5,10 +5,12 @@ mirrors the path of its JAX counterpart.  It imports ``torch`` and never
 ``jax`` or ``fashionvisualexpl_tpu``.  Entry points run on the CUDA card
 unless the caller passes ``device="cpu"`` (``core/device.py``).
 
-Ported: serving (``serve/engine.py::RecServer``), BPRMF and AttentiveFashion
-with the generic ``Trainer`` / ``fit``, the fast BPRMF step and the packed
-LazyAdam engine, dense and streaming evaluation with the dumps, checkpoints
-and the ``train_rec`` / ``serve_rec`` CLI, on one device.  Every Pallas
+Ported: serving (``serve/engine.py::RecServer``), BPRMF, VBPR, GradFashion
+and AttentiveFashion with the generic ``Trainer`` / ``fit``, the fast BPRMF
+and VBPR steps and the packed LazyAdam engine (frozen feature columns
+fused into the item rows), dense and streaming evaluation with the dumps,
+GradFashion's explanations (``explain/grads.py``), checkpoints and the
+``train_rec`` / ``serve_rec`` / ``get_explanations`` CLI, on one device.  Every Pallas
 kernel of the JAX package has a hand-written CUDA C++ counterpart under
 ``ops/csrc/``.  The top-level names below resolve lazily, as in the JAX
 package; the models not ported yet raise ``NotImplementedError`` naming
@@ -24,6 +26,8 @@ _SURFACE = {
     "Interactions": "fashionvisualexpl_tpu_torch.data.interactions",
     "synthetic_interactions": "fashionvisualexpl_tpu_torch.data.interactions",
     "BPRMF": "fashionvisualexpl_tpu_torch.models.bprmf",
+    "VBPR": "fashionvisualexpl_tpu_torch.models.vbpr",
+    "GradFashion": "fashionvisualexpl_tpu_torch.models.grad_fashion",
     "AttentiveFashion": "fashionvisualexpl_tpu_torch.models.attentive_fashion",
     "Trainer": "fashionvisualexpl_tpu_torch.train.trainer",
     "fit": "fashionvisualexpl_tpu_torch.train.trainer",
@@ -33,8 +37,6 @@ _SURFACE = {
 }
 # models of later slices, by the heading of their ROADMAP item
 _LATER = {
-    "VBPR": "VBPR",
-    "GradFashion": "GradFashion and explanations",
     "ACF": "ACF",
     "CompVBPR": "CNN and CompVBPR",
 }

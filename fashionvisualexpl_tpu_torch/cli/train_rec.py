@@ -9,14 +9,19 @@ regularization-sweep outer loop re-creating data and model per reg value
 ``results-metrics-<tag>.pkl`` and the checkpoint directory ``ckpt-<tag>``.
 The checkpoints are the port's own (``core/checkpoint.py``), not Orbax.
 
-Registered here: ``bprmf`` and ``attentive_fashion`` (color histograms,
-class one-hots and the edge tiffs at ``--edge_hw``; the edge tower K7 on the
-card; after the plain dumps the attention dumps ``att-recs-<E>-<tag>.tsv``
-and ``best-att-recs-<best>-<tag>.tsv``).  A model without
-``factored_eval`` is evaluated by the dense ``Evaluator`` even with
-``--streaming_eval``, as in the JAX package.  ``--train_path packed``
-trains either model on the packed LazyAdam engine (``--moment_dtype``,
-``--row_align`` and ``--lazy_catchup`` honoured).  Every other ``--rec``,
+Registered here: ``bprmf``; ``vbpr`` (the CNN features of ``--cnn_model``
+/ ``--output_layer``); ``grad_fashion`` (color histograms and the edge
+features; after the plain dumps the gradient-attribution dumps
+``grads-<E>-<tag>.tsv`` and ``best-grads-<best>-<tag>.tsv``); and
+``attentive_fashion`` (color histograms, class one-hots and the edge tiffs
+at ``--edge_hw``; the edge tower K7 on the card; after the plain dumps the
+attention dumps ``att-recs-<E>-<tag>.tsv`` and
+``best-att-recs-<best>-<tag>.tsv``).  A model without ``factored_eval`` is
+evaluated by the dense ``Evaluator`` even with ``--streaming_eval``, as in
+the JAX package.  ``--train_path packed`` trains every one of them on the
+packed LazyAdam engine (``--moment_dtype``, ``--row_align``,
+``--lazy_catchup`` and, for vbpr and grad_fashion, ``--fused_frozen``
+honoured).  ``--rec acf`` and ``comp_vbpr``,
 ``--streamed``, ``--compute_dtype bfloat16`` for attentive_fashion and a
 mesh raise ``NotImplementedError`` naming their ROADMAP item by heading.
 
@@ -32,8 +37,6 @@ import os
 
 # models of later slices, by the heading of the ROADMAP item that ports them
 _LATER_MODELS = {
-    "vbpr": "VBPR",
-    "grad_fashion": "GradFashion and explanations",
     "acf": "ACF",
     "comp_vbpr": "CNN and CompVBPR",
 }
@@ -127,8 +130,9 @@ def build_parser(description="Run train of the Recommender Model."):
                    default="generic",
                    help="packed = packed-state rows + LazyAdam "
                         "(train/packed_generic.py): BPRMF and "
-                        "attentive_fashion on one device; the port has no "
-                        "mesh.  Not faster on the port so far: on an NVIDIA "
+                        "attentive_fashion on one device, and vbpr and "
+                        "grad_fashion with their frozen features in the item "
+                        "rows (--fused_frozen); the port has no mesh.  Not faster on the port so far: on an NVIDIA "
                         "H100 80GB HBM3 at 700 W a packed attentive_fashion "
                         "step took 27.1 ms against 14.8 ms generic "
                         "(PERF.md)")
@@ -266,22 +270,38 @@ def check_ported(args) -> None:
 
 
 def build_model(args, data, cfg):
-    """Model registry (reference train_rec.py:75-86): ``bprmf`` and
-    ``attentive_fashion`` on ``args.device``; ``check_ported`` names the
-    ROADMAP items of the rest."""
+    """Model registry (reference train_rec.py:75-86): ``bprmf``, ``vbpr``,
+    ``grad_fashion`` and ``attentive_fashion`` on ``args.device``;
+    ``check_ported`` names the ROADMAP items of the rest."""
+    from fashionvisualexpl_tpu_torch.data import features as F
+
+    paths, ds = cfg.paths, args.dataset
     if args.rec == "bprmf":
         from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 
         return BPRMF(data.num_users, data.num_items, embed_k=args.embed_k,
                      device=args.device)
+    if args.rec == "vbpr":
+        from fashionvisualexpl_tpu_torch.models.vbpr import VBPR
+
+        feats = F.load_cnn_features(paths, ds, args.cnn_model, args.output_layer)
+        return VBPR(data.num_users, data.num_items, feats, embed_k=args.embed_k,
+                    embed_d=args.embed_d, device=args.device)
+    if args.rec == "grad_fashion":
+        from fashionvisualexpl_tpu_torch.models.grad_fashion import GradFashion
+
+        return GradFashion(
+            data.num_users, data.num_items, F.load_color_histograms(paths, ds),
+            F.load_edge_features(paths, ds, args.cnn_model, args.output_layer),
+            embed_k=args.embed_k, embed_d=args.embed_d, embed_color=args.embed_color,
+            embed_edges=args.embed_edges, device=args.device,
+        )
     if args.rec == "attentive_fashion":
-        from fashionvisualexpl_tpu_torch.data import features as F
         from fashionvisualexpl_tpu_torch.data.pipeline import load_edge_image_stack
         from fashionvisualexpl_tpu_torch.models.attentive_fashion import (
             AttentiveFashion,
         )
 
-        paths, ds = cfg.paths, args.dataset
         edges = load_edge_image_stack(
             paths.edges_dir(ds), data.num_items, hw=tuple(args.edge_hw)
         )
@@ -382,6 +402,21 @@ def train(argv=None):
             extra["best_params"], frozen,
             os.path.join(results_dir, f"best-recs-{best_epoch}-{run_tag}.tsv"),
         )
+        if args.rec == "grad_fashion":
+            # the reference dumps grads for both the last epoch
+            # (GradFashion.py:236-240) and the best model (:255-258); here
+            # each dump has its own name, as in the JAX package
+            def grads_fn(p, f, users, items):
+                return model.feature_attributions_block(users, items, params=p)
+
+            for params, name in (
+                (state.params, f"grads-{last_epoch}-{run_tag}.tsv"),
+                (extra["best_params"], f"best-grads-{best_epoch}-{run_tag}.tsv"),
+            ):
+                evaluator.store_recommendation_grads(
+                    params, frozen, os.path.join(results_dir, name),
+                    batch_grads_fn=grads_fn,
+                )
         if args.rec == "attentive_fashion":
             # the reference dumps attention-augmented recs for both the final
             # epoch (AttentiveFashion.py:308) and the best model (:320); here

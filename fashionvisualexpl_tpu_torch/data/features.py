@@ -42,6 +42,15 @@ def load_class_onehot(paths: Paths, dataset: str) -> np.ndarray:
     return np.load(paths.class_features(dataset)).astype(np.float32)
 
 
+def load_edge_features(
+    paths: Paths, dataset: str, cnn_model: str, output_layer: str
+) -> np.ndarray:
+    """[num_items, dim] edge feature matrix (mixin:60-69)."""
+    return maxabs_normalize(
+        np.load(paths.edge_features(dataset, cnn_model, output_layer))
+    )
+
+
 def synthetic_features(
     num_items: int, dim: int, seed: int = 0, normalize: bool = True
 ) -> np.ndarray:

@@ -15,8 +15,8 @@ Evaluator.py:220); here auc_t is the test AUC, as in the JAX package.
 ``evaluate`` and every dump encode the model's items once
 (``precompute_eval``), shared by both splits or by every user block.
 
-Not ported yet: ``store_recommendation_grads`` (``explain/grads.py``,
-ROADMAP: GradFashion and explanations); it raises ``NotImplementedError``.
+``store_recommendation_grads`` writes the gradient-attribution dump
+(``explain/grads.py``).
 """
 
 from __future__ import annotations
@@ -198,10 +198,18 @@ class Evaluator:
 
     def store_recommendation_grads(self, params, frozen, path: str,
                                    grads_fn=None, batch_grads_fn=None) -> None:
-        raise NotImplementedError(
-            "gradient-attribution dumps come with explain/grads.py "
-            "(ROADMAP: GradFashion and explanations)"
-        )
+        """Gradient-attribution TSV (Evaluator.py:261-275):
+        ``user\\titem\\tcolor_attr\\tedges_attr`` for every positive (train +
+        validation + test) item of each user, through
+        ``explain/grads.py::write_grads_tsv``: ``batch_grads_fn(params,
+        frozen, users [B], items [B, W]) -> [B, W, 2]`` runs the bucketed
+        engine, ``grads_fn(params, frozen, user, items) -> [len(items), 2]``
+        the per-user loop.  The dump never needs scores, so both
+        evaluators write it alike."""
+        from fashionvisualexpl_tpu_torch.explain.grads import write_grads_tsv
+
+        write_grads_tsv(path, self.data, params, frozen, grads_fn=grads_fn,
+                        batch_grads_fn=batch_grads_fn, device=self.device)
 
 
 def print_epoch_block(k, epoch, total_epochs, mean_loss, rec) -> None:

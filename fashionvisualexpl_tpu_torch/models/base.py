@@ -33,8 +33,9 @@ class PackedSpec(NamedTuple):
     ``extra_items`` > 0 declares that the loss reads E more item rows per
     batch element (ACF's profile over each user's positives);
     ``frozen_item_tables`` names per-item frozen feature tables (name,
-    flattened width) that the engine may fold into the packed item rows.
-    Neither is set by a model the port has yet (ROADMAP: VBPR, ACF)."""
+    flattened width) that the engine may fold into the packed item rows
+    (VBPR's F, GradFashion's Fc and Fe).  No model the port has sets
+    ``extra_items`` yet (ROADMAP: ACF)."""
 
     user_tables: Tuple[Tuple[str, int], ...]
     item_tables: Tuple[Tuple[str, int], ...]
@@ -134,7 +135,10 @@ class RecommenderModel(nn.Module):
         ``params=`` of the scoring methods takes them) to tensors;
         ``frozen`` is the model's buffers; ``ids = (users, pos, neg)``
         (int64) lets the model gather its own inputs; ``rng`` the step's
-        dropout generator.  Must mirror ``loss`` exactly."""
+        dropout generator.  A model with ``frozen_item_tables`` also takes
+        ``frozen_vw`` ({"pos" | "neg": {table: [B, width]}}, the frozen
+        rows out of the packed item rows, when the step fuses them).  Must
+        mirror ``loss`` exactly."""
         raise NotImplementedError(
             f"{self.name} does not implement the packed fast path"
         )

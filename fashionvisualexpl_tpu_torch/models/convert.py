@@ -21,6 +21,8 @@ import torch
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+from fashionvisualexpl_tpu_torch.models.grad_fashion import GradFashion
+from fashionvisualexpl_tpu_torch.models.vbpr import VBPR, Features
 
 
 def _f32(params: Dict[str, np.ndarray], name: str, ndim: int) -> np.ndarray:
@@ -62,6 +64,20 @@ def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _copy_into(model, params: Dict[str, np.ndarray]) -> None:
+    """Copy the JAX params (flat names) into ``model``'s parameters, which
+    must be exactly the same set."""
+    own = dict(model.named_parameters())
+    if set(params) != set(own):
+        raise ValueError(f"JAX params {sorted(params)} != the port's {sorted(own)}")
+    with torch.no_grad():
+        for name, p in own.items():
+            arr = _f32(params, name, p.dim())
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != the port's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arr))
+
+
 def attentive_fashion_from_jax(
     jax_model, params, frozen, device: DeviceLike = None
 ) -> AttentiveFashion:
@@ -80,13 +96,33 @@ def attentive_fashion_from_jax(
         batch_eval=jax_model.batch_eval, edge_tower=jax_model.edge_tower,
         device=device,
     )
-    flat = flatten_params(params)
-    own = dict(model.named_parameters())
-    if set(flat) != set(own):
-        raise ValueError(f"JAX params {sorted(flat)} != the port's {sorted(own)}")
-    with torch.no_grad():
-        for name, p in own.items():
-            p.copy_(torch.from_numpy(_f32(flat, name, p.dim())))
+    _copy_into(model, flatten_params(params))
+    return model
+
+
+def vbpr_from_jax(params: Dict[str, np.ndarray], features: Features,
+                  device: DeviceLike = None) -> VBPR:
+    """A ``VBPR`` holding exactly the JAX VBPR's params (numpy) over the
+    frozen ``features`` [I, dim_f], taken as given (the JAX model's
+    ``frozen["F"]``, or the array it was built from)."""
+    gu, tu = _f32(params, "Gu", 2), _f32(params, "Tu", 2)
+    model = VBPR(gu.shape[0], features.shape[0], features, embed_k=gu.shape[1],
+                 embed_d=tu.shape[1], device=device)
+    _copy_into(model, params)
+    return model
+
+
+def grad_fashion_from_jax(params: Dict[str, np.ndarray], color_features: Features,
+                          edge_features: Features, device: DeviceLike = None) -> GradFashion:
+    """A ``GradFashion`` holding exactly the JAX GradFashion's params
+    (numpy) over the frozen color and edge features, taken as given; the
+    widths are read from the params' shapes."""
+    gu, tu = _f32(params, "Gu", 2), _f32(params, "Tu", 2)
+    ec, ee = _f32(params, "Ec", 2), _f32(params, "Ee", 2)
+    model = GradFashion(gu.shape[0], color_features.shape[0], color_features,
+                        edge_features, embed_k=gu.shape[1], embed_d=tu.shape[1],
+                        embed_color=ec.shape[1], embed_edges=ee.shape[1], device=device)
+    _copy_into(model, params)
     return model
 
 
@@ -154,7 +190,9 @@ def generic_packed_state_from_jax(jax_state, spec, device: DeviceLike = None):
     ``GenericPackedState`` (``jax.tree.map(np.asarray, state)``): the step,
     the packed user and item rows bit for bit (bf16 and fp8 moment columns
     included) and, for each of ``spec.dense``, (p, m, v) as a tensor or, for
-    a nested group, ``{member: tensor}`` with dotted member names."""
+    a nested group, ``{member: tensor}`` with dotted member names.  A state
+    packed with fused frozen columns carries them in its item rows as
+    they are."""
     from fashionvisualexpl_tpu_torch.train.packed_generic import GenericPackedState
 
     dev = resolve_device(device)

@@ -24,7 +24,9 @@ segments with an out-of-range id, and every scatter here redirects those
 pads (``pad_safe_ids``) so torch indexing never sees them (the packed
 engine drops them instead).
 
-Not ported yet: ``make_fast_vbpr_step`` — it comes with VBPR.
+``make_fast_vbpr_step`` is the same path for VBPR: its row tables (Gu, Tu,
+Gi, Bi) take the sparse or lazy row update, the small dense E and Bp
+ordinary Adam; as in the JAX package it launches no custom kernel.
 """
 
 from __future__ import annotations
@@ -298,6 +300,90 @@ def make_fast_epoch_fn(model, lr: float, reg: float, num_items: int,
         losses = torch.empty(steps, dtype=torch.float32, device=dev)
         for s in range(steps):
             state, losses[s] = step_fn(state, (users[s], pos[s], neg[s]))
+        return state, torch.sum(losses)
+
+    return epoch
+
+
+def make_fast_vbpr_step(model, lr: float, reg: float, lazy: bool = False) -> Callable:
+    """Fast train step for VBPR (reference loss semantics, VBPR.py:99-143):
+    ``step(state, (F, (u, p, n))) -> (state, loss)``, ``F`` the frozen
+    feature matrix.  The row tables (Gu, Tu, Gi, Bi) get the sparse-apply
+    path (``lazy_adam_table`` when ``lazy=True``; the state is then a
+    ``LazyFastState``), E and Bp dense Adam, in place.  ``model`` is
+    unused, as in the JAX package."""
+    from fashionvisualexpl_tpu_torch.models.base import bpr_pairwise_loss, l2_loss
+
+    del model
+
+    def step(state, batch):
+        frozen_F, ids = batch
+        u, p_ids, n_ids = (x.long() for x in ids)
+        P = state.params
+        with torch.no_grad():
+            rows = (P["Gu"][u], P["Tu"][u], P["Gi"][p_ids], P["Gi"][n_ids],
+                    P["Bi"][p_ids], P["Bi"][n_ids], P["E"], P["Bp"])
+            fp, fn = frozen_F[p_ids], frozen_F[n_ids]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in rows]
+            gu, tu, gp, gn, bp, bn, E, Bp = leaves
+            x_pos = (bp + torch.sum(gu * gp, dim=1)
+                     + torch.sum(tu * (fp @ E), dim=1) + (fp @ Bp)[:, 0])
+            x_neg = (bn + torch.sum(gu * gn, dim=1)
+                     + torch.sum(tu * (fn @ E), dim=1) + (fn @ Bp)[:, 0])
+            loss = bpr_pairwise_loss(x_pos, x_neg) + (
+                reg * (l2_loss(gu) + l2_loss(gp) + l2_loss(gn) + l2_loss(tu)) * 2.0
+                + reg * l2_loss(bp) * 2.0
+                + reg * l2_loss(bn) * 2.0 / 10.0
+                + reg * (l2_loss(E) + l2_loss(Bp)) * 2.0
+            )
+            dgu, dtu, dgp, dgn, dbp, dbn, dE, dBp = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            t = (state.step + 1).to(torch.float32)
+            B = u.shape[0]
+            ii = torch.cat([p_ids, n_ids])
+            for name, ids_, g, ns in (
+                ("Gu", u, dgu, B),
+                ("Tu", u, dtu, B),
+                ("Gi", ii, torch.cat([dgp, dgn]), 2 * B),
+                ("Bi", ii, torch.cat([dbp, dbn]), 2 * B),
+            ):
+                uids, cg = compact_row_grads(ids_, g, ns)
+                if lazy:
+                    lazy_adam_table(P[name], state.mu[name], state.nu[name],
+                                    state.tau[name], uids, cg, lr, t)
+                else:
+                    sparse_adam_table(P[name], state.mu[name], state.nu[name],
+                                      uids, cg, lr, t)
+            for name, g in (("E", dE), ("Bp", dBp)):
+                new = dense_adam(P[name], state.mu[name], state.nu[name], g, lr, t)
+                for table, val in zip((P[name], state.mu[name], state.nu[name]), new):
+                    table.copy_(val)
+        return state._replace(step=state.step + 1), loss.detach()
+
+    return step
+
+
+def make_fast_vbpr_epoch_fn(model, lr: float, reg: float, num_items: int,
+                            steps: int, batch: int, lazy: bool = False,
+                            device: DeviceLike = None) -> Callable:
+    """``epoch(state, F, key, train_pairs, padded_pos, pos_counts) ->
+    (state, summed loss)``: ``steps`` batches sampled on ``device`` (``None``
+    = the CUDA card) from the int ``key`` with the sampler's default
+    scheme, as the JAX epoch samples, then ``make_fast_vbpr_step``'s steps.
+    The JAX function also takes ``frozen`` after ``model`` and ignores it
+    (its epoch takes F); the port drops it."""
+    dev = resolve_device(device)
+    step_fn = make_fast_vbpr_step(model, lr, reg, lazy=lazy)
+
+    def epoch(state, frozen_F: torch.Tensor, key: int,
+              train_pairs: Optional[torch.Tensor], padded_pos: torch.Tensor,
+              pos_counts: torch.Tensor):
+        users, pos, neg = sample_triplets(key, train_pairs, padded_pos, pos_counts,
+                                          num_items, steps, batch, device=dev)
+        losses = torch.empty(steps, dtype=torch.float32, device=dev)
+        for s in range(steps):
+            state, losses[s] = step_fn(state, (frozen_F, (users[s], pos[s], neg[s])))
         return state, torch.sum(losses)
 
     return epoch

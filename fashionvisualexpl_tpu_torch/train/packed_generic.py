@@ -7,10 +7,11 @@ updated by ordinary Adam) and ``packed_loss`` (its ``loss`` over the
 gathered row views).  The engine owns the rest:
 
 - row packing: a user row is [p | moments | tau (| row_align pads)], an
-  item row [p | moments | scalar groups | tau (| pads)].  The moments are
-  [m | v] in float32, one bf16 pair per column (``moment_dtype=
-  "bfloat16"``) or four e5m2 codes per column (``"float8"``), bit-cast to
-  float32; tau, the row's last-touch step, is float32 (exact below 2**24);
+  item row [p | moments | scalar groups (| frozen columns) | tau (|
+  pads)].  The moments are [m | v] in float32, one bf16 pair per column
+  (``moment_dtype="bfloat16"``) or four e5m2 codes per column
+  (``"float8"``), bit-cast to float32; tau, the row's last-touch step, is
+  float32 (exact below 2**24);
 - per step four row gathers (the forward user and item rows, then the
   deduped user and item rows) through K4 (``ops/gather.py::gather_rows``)
   and two row writes through K5 (``ops/row_scatter.py::scatter_rows_set``).
@@ -21,7 +22,13 @@ gathered row views).  The engine owns the rest:
   grad), not through the gather; one dedupe per table
   (``compact_row_grads``); LazyAdam on the touched rows only, with the
   closed-form momentum tail when ``lazy_catchup``; dense Adam on the dense
-  params.
+  params;
+- fused frozen columns (``pack_generic_state(frozen=...)`` with a
+  ``fused_frozen=True`` step): a spec's ``frozen_item_tables`` (VBPR's F,
+  GradFashion's Fc and Fe) ride the item rows, so the loss reads them out
+  of the forward item gathers (``frozen_vw``) and the item scatter writes
+  them back unchanged.  A VBPR item row at K=128, dim_f=4096 and float32
+  moments is 4,484 columns, of which 388 change.
 
 The dedupe pads unused segments with the id 2**30.  The unique-row gather
 reads some row for them (K4 clamps, JAX's ``take`` gives NaN rows) and the
@@ -32,11 +39,9 @@ The step updates ``user_pmv`` and ``item_pmv`` in place (JAX donates them)
 and returns a new ``GenericPackedState`` holding them, the new step and the
 new dense params.
 
-Not ported here (each raises ``NotImplementedError`` naming its ROADMAP
-item by heading): the extra item rows of a spec with ``extra_items`` (ACF)
-and fused frozen item columns (VBPR; the models the port has declare none,
-so ``fused_frozen=True`` is a no-op for them).  ``_moment_cols`` and the
-sharded engine wait for Multi-device.
+Not ported here: the extra item rows of a spec with ``extra_items`` (ACF;
+raises ``NotImplementedError`` naming its ROADMAP heading).
+``_moment_cols`` and the sharded engine wait for Multi-device.
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ MOMENT_DTYPES = ("float32", "bfloat16", "float8")
 class GenericPackedState(NamedTuple):
     step: torch.Tensor  # 0-d int32
     user_pmv: torch.Tensor  # [U, Wu + mom(Wu) + 1 (+ pad)]
-    item_pmv: torch.Tensor  # [I, Wi + mom(Wi) + gs * nS + 1 (+ pad)]
+    item_pmv: torch.Tensor  # [I, Wi + mom(Wi) + gs * nS (+ frozen) + 1 (+ pad)]
     dense: Dict[str, Tuple[Dense, Dense, Dense]]  # name -> (p, m, v)
 
 
@@ -254,14 +259,12 @@ def pack_generic_state(model, params: Mapping[str, torch.Tensor], frozen=None,
     """Pack ``params`` (the model's parameters by name, e.g.
     ``dict(model.named_parameters())``) into fresh rows with zero moments
     and tau; the dense entries are copied with zero moments.  Nothing
-    shares storage with ``params``.  ``moment_dtype``: see the module
+    shares storage with ``params``.  With ``frozen`` (name -> tensor, e.g.
+    ``dict(model.named_buffers())``) the spec's ``frozen_item_tables`` are
+    copied into the item rows after the scalar groups, for a
+    ``fused_frozen=True`` step.  ``moment_dtype``: see the module
     docstring; ``row_align`` pads each row width to a multiple of it."""
     spec: PackedSpec = model.packed_spec()
-    if frozen is not None and spec.frozen_item_tables:
-        raise NotImplementedError(
-            "fused frozen item columns (VBPR, GradFashion, ACF) are not ported "
-            "yet (ROADMAP: VBPR)"
-        )
     md = moment_dtype_name(moment_dtype)
     u_offs, Wu = _offsets(spec.user_tables)
     i_offs, Wi = _offsets(spec.item_tables)
@@ -282,6 +285,13 @@ def pack_generic_state(model, params: Mapping[str, torch.Tensor], frozen=None,
     for s in spec.item_scalars:
         parts += [params[s].detach()[:, None],
                   torch.zeros(I, gs - 1, dtype=dtype, device=dev)]
+    if frozen is not None:
+        for name, w in spec.frozen_item_tables:
+            col = frozen[name].detach().reshape(I, -1).to(dtype)
+            if col.shape[1] != w:
+                raise ValueError(f"frozen table {name!r}: declared width {w} != "
+                                 f"flattened width {col.shape[1]}")
+            parts.append(col)
     i_base = 1 + sum(int(p.shape[1]) for p in parts)  # + tau
     parts.append(torch.zeros(I, 1 + _row_pad(i_base, row_align), dtype=dtype,
                              device=dev))  # tau (+ alignment pad)
@@ -351,7 +361,10 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
                              moment_dtype: str = "float32",
                              lazy_catchup: bool = False) -> Callable:
     """``step(state, (frozen, (users, pos, neg), rng)) -> (state, loss)``:
-    one packed LazyAdam step (module docstring).  ``moment_dtype`` must be
+    one packed LazyAdam step (module docstring).  ``fused_frozen=True``
+    needs a state packed with ``frozen`` (for a spec without frozen tables
+    it changes nothing); the loss then gets the frozen rows as
+    ``frozen_vw``.  ``moment_dtype`` must be
     the one the state was packed with; ``lazy_catchup=True`` applies the
     closed-form momentum tail of the skipped steps on touch
     (``train/packed.py::_momentum_catchup``).  ``rng`` goes to
@@ -362,15 +375,12 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
             "packed extra item rows (ACF's profile over the user's positives) "
             "are not ported yet (ROADMAP: ACF)"
         )
-    if fused_frozen and spec.frozen_item_tables:
-        raise NotImplementedError(
-            "fused frozen item columns (VBPR, GradFashion, ACF) are not ported "
-            "yet (ROADMAP: VBPR)"
-        )
     md = moment_dtype_name(moment_dtype)
     u_offs, Wu = _offsets(spec.user_tables)
     i_offs, Wi = _offsets(spec.item_tables)
     nS = len(spec.item_scalars)
+    f_offs, frozen_w = _offsets(spec.frozen_item_tables)
+    fused_frozen = bool(fused_frozen and spec.frozen_item_tables)
     rows_fn = {"float32": _lazy_rows, "bfloat16": _lazy_rows_bf16,
                "float8": _lazy_rows_fp8}[md]
     lazy_rows = functools.partial(rows_fn, catchup=lazy_catchup)
@@ -380,7 +390,8 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
     gs = _scalar_group(md)
     sc0 = Wi + _mom_width(md, Wi)  # scalar groups start here
     tau_u = Wu + _mom_width(md, Wu)  # row_align pads trail after tau
-    tau_i = sc0 + gs * nS
+    F0 = sc0 + gs * nS  # frozen columns start here, when fused
+    tau_i = F0 + (frozen_w if fused_frozen else 0)
 
     def stamp(rows, t):
         """The new rows' tau column: the step t."""
@@ -405,6 +416,11 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
         dense_p = {}
         for name in spec.dense:
             dense_p.update(_flat_dense(name, state.dense[name][0]))
+        kw = {}
+        if fused_frozen:  # constants of the loss, out of the same gathers
+            kw["frozen_vw"] = {
+                side: {n: rows[:, F0 + off:F0 + off + w] for n, off, w in f_offs}
+                for side, rows in (("pos", IR[:B]), ("neg", IR[B:]))}
 
         # differentiate with respect to the gathered views (leaves), not
         # through the gathers: no table-shaped gradient exists
@@ -414,7 +430,8 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
             for i, k in keys:
                 groups[i][k] = groups[i][k].detach().requires_grad_()
             loss = model.packed_loss(user_vw, pos_vw, neg_vw, dense_p, frozen,
-                                     (u.long(), p_ids.long(), n_ids.long()), reg, rng)
+                                     (u.long(), p_ids.long(), n_ids.long()), reg, rng,
+                                     **kw)
             grads = torch.autograd.grad(loss, [groups[i][k] for i, k in keys],
                                         allow_unused=True)
         gU, gP, gN, gD = ({}, {}, {}, {})
@@ -440,11 +457,12 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
         parts = [lazy_rows(rows[:, :sc0], cgi[:, :Wi], dt, t, lr)]
         if nS:
             S = rows.shape[0]
-            sc_rows = rows[:, sc0:tau_i].reshape(S * nS, gs)
+            sc_rows = rows[:, sc0:F0].reshape(S * nS, gs)
             sc_g = cgi[:, Wi:].reshape(S * nS, 1)
             sc_dt = dt.expand(S, nS).reshape(S * nS, 1)
             parts.append(lazy_scalar_rows(sc_rows, sc_g, sc_dt, t, lr).reshape(S, gs * nS))
-        parts += [stamp(rows, t), rows[:, tau_i + 1:]]  # alignment pads pass through
+        # frozen columns and alignment pads pass through
+        parts += [rows[:, F0:tau_i], stamp(rows, t), rows[:, tau_i + 1:]]
         scatter_rows_set(state.item_pmv, iids, torch.cat(parts, dim=1))
 
         # dense params (tensors or groups): ordinary Adam, out of place

@@ -147,7 +147,6 @@ class Trainer:
                 f"train_path='packed' requires packed_spec/packed_loss; "
                 f"{model.name} does not implement them"
             ) from e
-        # a model declaring frozen item tables raises there (ROADMAP: VBPR)
         return make_generic_packed_step(
             model, cfg.lr, cfg.reg, fused_frozen=cfg.fused_frozen,
             moment_dtype=cfg.moment_dtype, lazy_catchup=cfg.lazy_catchup,
@@ -185,7 +184,8 @@ class Trainer:
         drawn anew from it (JAX's ``model.init(rng)``); without one they are
         kept as they are (e.g. carried over by ``models/convert.py``).  On
         the packed path the state is a ``GenericPackedTrainState`` packed
-        from copies of them (``cfg.moment_dtype``, ``cfg.row_align``)."""
+        from copies of them (``cfg.moment_dtype``, ``cfg.row_align``; the
+        model's frozen buffers in the item rows when ``cfg.fused_frozen``)."""
         if seed is not None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.model.reset_parameters(gen)
@@ -197,7 +197,9 @@ class Trainer:
                 pack_generic_state,
             )
 
+            # the frozen columns ride the item rows iff the step reads them
             packed = pack_generic_state(self.model, params,
+                                        frozen=frozen if self.cfg.fused_frozen else None,
                                         moment_dtype=self.cfg.moment_dtype,
                                         row_align=self.cfg.row_align)
             return GenericPackedTrainState(packed, self.model.packed_spec(),

@@ -1,5 +1,6 @@
-"""Port CLI (``cli/train_rec.py``, ``cli/serve_rec.py``) on a synthetic
-dataset in the reference's on-disk layout, with ``--device cpu``.
+"""Port CLI (``cli/train_rec.py``, ``cli/serve_rec.py``,
+``cli/get_explanations.py``) on a synthetic dataset in the reference's
+on-disk layout, with ``--device cpu``.
 
 The port's run writes the file set of one JAX CLI run on the same dataset:
 the same names (the best epoch in ``best-recs-<E>`` is each run's own: the
@@ -8,8 +9,13 @@ same JSONL and results-pickle keys, and the checkpoint directory of the
 same name.  Resume, the regularization sweep and serving from the
 checkpoint run end to end; so do ``--train_path packed`` runs (the same
 file set, resume byte-identical, the moment and row flags honoured);
-``validate_args`` gives the JAX parser's messages; the options of later
-slices raise; without ``--device`` and without a card the CLI raises."""
+so do ``--rec vbpr`` and ``--rec grad_fashion``, generic and packed with
+fused frozen columns (the JAX run's file set, GradFashion's two grads
+dumps with one row of two finite attributions per positive, ``serve_rec``
+giving the best dump's recommendations), and ``get_explanations`` on a
+GradFashion dump (the JAX CLI's rows); ``validate_args`` gives the JAX
+parser's messages; the options of later slices raise; without
+``--device`` and without a card the CLI raises."""
 
 import glob
 import json
@@ -54,7 +60,7 @@ def _files(root, results):
             glob.glob(os.path.join(base, "rec_model_weights", "*", "*", "*")):
         rel = os.path.relpath(path, base)
         if os.path.isfile(path) or "rec_model_weights" in rel:
-            out[re.sub(r"best-recs-\d+-", "best-recs-E-", rel)] = path
+            out[re.sub(r"best-(recs|grads)-\d+-", r"best-\1-E-", rel)] = path
     return out
 
 
@@ -217,7 +223,7 @@ def test_packed_help_says_what_the_port_runs():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--rec", "vbpr"), "VBPR"), (("--rec", "acf"), "ACF"),
+    (("--rec", "acf"), "ACF"),
     (("--rec", "comp_vbpr"), "CNN and CompVBPR"),
     (("--train_path", "packed", "--mesh_data", "2"), "Multi-device"),
     (("--rec", "attentive_fashion", "--streamed"), "The streamed trainer"),
@@ -233,3 +239,113 @@ def test_no_device_without_a_card_raises(dataset_dir, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pcli.train(_argv(dataset_dir, "nocard", device=False))
+
+
+# --- VBPR and GradFashion ---------------------------------------------------
+
+VISUAL = {"vbpr": ("--embed_d", "3"),
+          "grad_fashion": ("--embed_d", "3", "--embed_color", "4", "--embed_edges", "5")}
+
+
+def _visual_argv(root, results, rec, extra=(), device=True):
+    return _argv(root, results, ("--streaming_eval", *extra), device) + [
+        "--rec", rec, *VISUAL[rec]]
+
+
+@pytest.fixture(scope="module")
+def jax_visual_runs(dataset_dir):
+    for rec in VISUAL:
+        jcli.train(_visual_argv(dataset_dir, f"jax-{rec}", rec, device=False))
+    return {rec: _files(dataset_dir, f"jax-{rec}") for rec in VISUAL}
+
+
+def _positives(root):
+    """[(user, item)] of every train, validation and test row, in the
+    grads dump's order (user, then train, validation, test)."""
+    from fashionvisualexpl_tpu_torch.core.config import Paths
+
+    paths, rows = Paths(root=root), {}
+    for split in (paths.training_set, paths.validation_set, paths.test_set):
+        for line in open(split("synthetic")).read().strip().split("\n"):
+            u, i = line.split("\t")[:2]
+            rows.setdefault(int(u), []).append(int(i))
+    return [(u, i) for u in sorted(rows) for i in rows[u]]
+
+
+def _check_grads(path, pairs):
+    lines = open(path).read().strip().split("\n")
+    assert [tuple(map(int, line.split("\t")[:2])) for line in lines] == pairs
+    vals = np.array([[float(x) for x in line.split("\t")[2:]] for line in lines])
+    assert vals.shape == (len(pairs), 2) and np.isfinite(vals).all()
+
+
+@pytest.mark.parametrize("train_path", ["generic", "packed"])
+@pytest.mark.parametrize("rec", list(VISUAL))
+def test_cli_visual_models_write_the_jax_file_set(dataset_dir, jax_visual_runs, rec,
+                                                  train_path):
+    """``--rec vbpr`` / ``grad_fashion`` (packed: fused frozen columns,
+    the default): the JAX run's file set, dumps of U x k rows, the grads
+    dumps, metrics in [0, 1]; ``serve_rec`` from the checkpoint gives the
+    best dump's recommendations."""
+    results = f"{rec}-{train_path}"
+    pcli.train(_visual_argv(dataset_dir, results, rec, ("--train_path", train_path)))
+    port = _files(dataset_dir, results)
+    assert sorted(port) == sorted(jax_visual_runs[rec])
+    pairs = _positives(dataset_dir)
+    for name, path in port.items():
+        if "grads-" in name:
+            _check_grads(path, pairs)
+        elif name.endswith(".tsv"):
+            _check_tsv(path, U * K_TOP)
+        elif name.endswith(".jsonl"):
+            got = [json.loads(line) for line in open(path)]
+            assert all(0.0 <= r[m] <= 1.0 for r in got for m in r if m[-2:] in ("_v", "_t"))
+    if rec == "grad_fashion":
+        assert sum("grads-" in name for name in port) == 2
+    base = os.path.join(dataset_dir, results)
+    (ckpt,) = [p for n, p in port.items() if "ckpt-" in n]
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", rec, "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(_visual_argv(dataset_dir, results, rec)
+          + ["--ckpt", ckpt, "--users", "all", "--output", out])
+    served, dumped = _check_tsv(out, U * K_TOP), _check_tsv(best, U * K_TOP)
+    assert [r.split("\t")[:2] for r in served] == [r.split("\t")[:2] for r in dumped]
+
+
+def test_cli_get_explanations_on_a_grad_fashion_dump(dataset_dir, jax_visual_runs):
+    """The port's best grads dump joined with a review table by both
+    CLIs: the same rows in the same order."""
+    import pandas as pd
+
+    from fashionvisualexpl_tpu.cli.get_explanations import main as jmain
+    from fashionvisualexpl_tpu_torch.cli.get_explanations import main
+
+    pcli.train(_visual_argv(dataset_dir, "explain", "grad_fashion"))
+    pairs = _positives(dataset_dir)
+    reviews = os.path.join(dataset_dir, "synthetic", "all_final.tsv")
+    with open(reviews, "w") as f:
+        f.write("USER_ID\tITEM_ID\tREVIEW\tTIME\n")
+        for n, (u, i) in enumerate(pairs[::2]):
+            f.write(f"{u}\t{i}\treview {n}\t{n}\n")
+    rdir = os.path.join(dataset_dir, "explain", "rec_results", "synthetic", "grad_fashion")
+    (dump,) = glob.glob(os.path.join(rdir, "best-grads-*"))
+    outs = {}
+    for name, fn in (("jax", jmain), ("port", main)):
+        root = os.path.join(dataset_dir, f"explain-{name}")
+        odir = os.path.join(root, "rec_results", "synthetic", "grad_fashion")
+        os.makedirs(odir, exist_ok=True)
+        shutil.copy(dump, odir)
+        fn(["--dataset", "synthetic", "--file", os.path.basename(dump), "--top_n", "7",
+            "--data_root", dataset_dir, "--results_root", root])
+        outs[name] = odir
+    for fname in ("color_reviews.tsv", "edges_reviews.tsv"):
+        got = pd.read_csv(os.path.join(outs["port"], fname), sep="\t")
+        want = pd.read_csv(os.path.join(outs["jax"], fname), sep="\t")
+        assert list(got.columns) == list(want.columns) == [
+            "USER_ID", "ITEM_ID", "COLOR", "EDGES", "REVIEW", "DIFF"]
+        assert len(got) == 7
+        for col in ("USER_ID", "ITEM_ID", "REVIEW"):
+            assert got[col].tolist() == want[col].tolist(), (fname, col)
+        for col in ("COLOR", "EDGES", "DIFF"):
+            np.testing.assert_allclose(got[col], want[col], rtol=1e-12, atol=1e-15)
+    os.remove(reviews)

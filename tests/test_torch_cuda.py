@@ -21,8 +21,9 @@ cores, also on worst-case splits), two forward runs bit-equal; gradients rtol 1e
 sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
 backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
 scatter-set): bit-equal to their plain versions (compared as int32) at the
-packed rows' widths, aligned and not, with out-of-range, negative and pad
-ids.  The packed step on the card against the same step on CPU copies: 4
+packed rows' widths (VBPR's and GradFashion's with their frozen columns
+fused too), aligned and not, with out-of-range, negative and pad ids.
+K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150).  The packed step on the card against the same step on CPU copies: 4
 K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
 rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
@@ -83,14 +84,16 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, seg):
     (100, 33, 24, 40), (20, 600, 32, 10), (8, 128, 16, 300), (64, 128, 64, 90),
     (8, 128, 24, 40), (64, 128, 1024, 5), (8, 128, 4096, 1),
     (8, 64, 32, 70), (100, 16, 32, 70), (100, 72, 16, 90), (8, 72, 8, 90),
-    (8, 200, 32, 10),
+    (8, 200, 32, 10), (8, 148, 32, 70), (100, 148, 32, 70), (4097, 148, 32, 20),
+    (8, 150, 32, 50), (100, 150, 16, 40),
 ])
 def test_kernel_geometries_match_plain_version_on_card(cuda_device, dtype, B, D, seg, n_seg):
     """The tensor-core kernels' paths (D a multiple of 8 up to 128 with
     the items' fragments in registers, D not a multiple of 8 or above 128
     from shared memory, seg a multiple of 32, 16 or 8 or none, seg above
     the block's item tile, B not a multiple of 8 or 16) and the CUDA-core
-    body (f32, D = 600)."""
+    body (f32, D = 600); VBPR's and GradFashion's D = 148 and D = 150, on
+    the shared-memory route with 2-byte staging."""
     g = torch.Generator(device=cuda_device).manual_seed(B + D + seg)
     Ip = seg * n_seg
     uf = (torch.randn(B, D, device=cuda_device, generator=g) * (3 / D**0.5)).to(dtype)
@@ -311,6 +314,7 @@ def _counts_inputs(dev, B, I, D, T, Pb, seed):
 @pytest.mark.parametrize("B,I,D,T,Pb,item_tile", [
     (8, 300, 16, 1, 4, 128), (100, 5000, 128, 3, 9, 2048),
     (257, 4099, 33, 2, 21, 256), (1, 17, 8, 1, 1, 2048),
+    (100, 5000, 148, 3, 9, 2048), (257, 4099, 148, 1, 21, 256), (4100, 3000, 148, 1, 2, 2048),
 ])
 def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb,
                                                      item_tile):
@@ -328,6 +332,29 @@ def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb
     assert K2.counts_kernel.launches == before + 1
     want = K2.streaming_counts_kernel(uf.cpu(), iv.cpu(), ib.cpu(), ref.cpu(),
                                       loc.cpu(), msk.cpu(), item_block=item_tile)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_counts_kernel_at_d148_wide_bans_on_card(cuda_device):
+    """VBPR's and GradFashion's D = 148 (the CUDA-core route, D > 128), T =
+    3, four banned ids of one item tile per user (W >= 4), users and items
+    off the tiles: bit-equal to the plain version."""
+    from fashionvisualexpl_tpu_torch.ops.topk import (
+        banned_bucket_width,
+        bucket_banned_ids_device,
+    )
+
+    B, I, D, T, tile = 301, 5003, 148, 3, 256
+    uf, iv, ib, ref, banned = _counts_inputs(cuda_device, B, I, D, T, 8, seed=148)
+    first = torch.arange(B, device=cuda_device) % (I // tile) * tile
+    banned[:, :4] = (first[:, None] + torch.arange(4, device=cuda_device)).to(torch.int32)
+    W = banned_bucket_width(banned.cpu().numpy(), I, tile)
+    assert W >= 4
+    loc, msk = bucket_banned_ids_device(banned, I, tile, W)
+    got = K2.streaming_counts_kernel(uf, iv, ib, ref, loc, msk, item_block=tile)
+    want = K2.streaming_counts_kernel(uf.cpu(), iv.cpu(), ib.cpu(), ref.cpu(), loc.cpu(),
+                                      msk.cpu(), item_block=tile)
     assert torch.equal(got.cpu(), want)
 
 
@@ -600,6 +627,54 @@ def test_row_kernels_copy_bits_like_their_plain_versions_on_card(cuda_device, wi
     assert torch.equal(_bits(kern), _bits(plain))
     assert (K4.gather_rows.launches - before[0], K5.scatter_rows_set.launches - before[1]) \
         == (1, 1)
+
+
+def _fused_widths():
+    """The packed row widths of VBPR and GradFashion at the CLI's default
+    widths (K=128, d=20, 4096-wide CNN / edge features, 512-wide color
+    histograms), fp32 and bf16 moments, from ``packed_spec``."""
+    from fashionvisualexpl_tpu_torch.models.grad_fashion import GradFashion
+    from fashionvisualexpl_tpu_torch.models.vbpr import VBPR
+
+    z = np.zeros
+    models = (VBPR(2, 2, z((2, 4096), np.float32), device="cpu"),
+              GradFashion(2, 2, z((2, 512), np.float32), z((2, 4096), np.float32), device="cpu"))
+    widths = set()
+    for model in models:
+        for md in ("float32", "bfloat16"):
+            st = PG.pack_generic_state(model, dict(model.named_parameters()),
+                                       frozen=dict(model.named_buffers()), moment_dtype=md)
+            widths |= {st.user_pmv.shape[1], st.item_pmv.shape[1]}
+    return sorted(widths)
+
+
+def test_fused_widths_are_the_packed_specs():
+    """VBPR items [128 | 256 | 3 | 4096 | 1] = 4484 (bf16 moments 4355),
+    GradFashion items 4996 (4867), users 445 (297)."""
+    assert _fused_widths() == [297, 445, 4355, 4484, 4867, 4996]
+
+
+@pytest.mark.cuda
+def test_row_kernels_at_fused_widths_on_card(cuda_device):
+    """K4 and K5 at VBPR's and GradFashion's packed row widths, frozen
+    columns fused: bit-equal to their plain versions, pads dropped."""
+    R, B = 1000, 300
+    for width in _fused_widths():
+        table = _bit_table(cuda_device, R, width, seed=width, offset=0)
+        g = torch.Generator(device=cuda_device).manual_seed(width)
+        ids = torch.randint(0, R, (B,), device=cuda_device, generator=g, dtype=torch.int32)
+        ids[-50:] = 2**30
+        got = K4.gather_rows(table, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(K4.gather_rows_reference(table, ids))), width
+        uids = torch.randperm(R, device=cuda_device, generator=g)[:B].to(torch.int32)
+        uids[-50:] = 2**30
+        vals = _bit_table(cuda_device, B, width, seed=width + 1, offset=0)
+        kern, plain = table.clone(), table.clone()
+        K5.scatter_rows_set(kern, uids, vals)
+        torch.cuda.synchronize()
+        K5.scatter_rows_set_reference(plain, uids, vals)
+        assert torch.equal(_bits(kern), _bits(plain)), width
 
 
 @pytest.mark.cuda

@@ -117,9 +117,6 @@ def test_counts_impl_choice_and_errors():
         FactoredEvaluator(model, data, mesh=object())
     with pytest.raises(NotImplementedError, match="factored attention dump"):
         FactoredEvaluator(model, data).store_recommendation_attention(None, None, "x", None)
-    for ev in (Evaluator(model, data), FactoredEvaluator(model, data)):
-        with pytest.raises(NotImplementedError, match="ROADMAP: GradFashion and explanations"):
-            ev.store_recommendation_grads(None, None, "x")
 
 
 def test_print_epoch_text_equals_jax(capsys):

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no jax, no JAX package (neither in the
-package nor in ``chip_smoke.py``), and its entry points refuse to fall back
-to the CPU silently."""
+"""The PyTorch port stands alone: no jax, no JAX package and no pandas (the
+card's machine has none; neither in the package nor in ``chip_smoke.py``),
+and its entry points refuse to fall back to the CPU silently."""
 
 import ast
 import os
@@ -31,8 +31,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(
     m for m in sys.modules
-    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-    or m == "fashionvisualexpl_tpu" or m.startswith("fashionvisualexpl_tpu.")
+    if m.split(".")[0] in ("jax", "jaxlib", "fashionvisualexpl_tpu", "pandas")
 )
 print(len(names), bad)
 sys.exit(1 if bad else 0)
@@ -48,16 +47,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 42  # every submodule of the five slices was imported
+    assert n_modules >= 47  # every submodule of the slices so far was imported
 
 
 def _is_jax(name):
-    return name.split(".")[0] in ("jax", "jaxlib", "fashionvisualexpl_tpu")
+    return name.split(".")[0] in ("jax", "jaxlib", "fashionvisualexpl_tpu", "pandas")
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     """Every import statement of chip_smoke.py, also those inside its
-    phases, names neither; importing it loads neither."""
+    phases, names neither (nor pandas); importing it loads neither."""
     path = os.path.join(REPO, "chip_smoke.py")
     names = []
     for node in ast.walk(ast.parse(open(path).read())):
@@ -71,7 +70,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     env["PYTHONPATH"] = REPO
     check = ("import sys, chip_smoke; "
              "bad = [m for m in sys.modules if m.split('.')[0] in "
-             "('jax', 'jaxlib', 'fashionvisualexpl_tpu')]; print(bad); sys.exit(bool(bad))")
+             "('jax', 'jaxlib', 'fashionvisualexpl_tpu', 'pandas')]; print(bad); "
+             "sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", check], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -162,6 +162,7 @@ ported = {
     "TrainConfig": "core.config", "Paths": "core.config", "MeshConfig": "core.config",
     "Interactions": "data.interactions", "synthetic_interactions": "data.interactions",
     "BPRMF": "models.bprmf", "AttentiveFashion": "models.attentive_fashion",
+    "VBPR": "models.vbpr", "GradFashion": "models.grad_fashion",
     "Trainer": "train.trainer", "fit": "train.trainer", "Evaluator": "eval.evaluator",
     "FactoredEvaluator": "eval.factored", "CheckpointManager": "core.checkpoint",
 }
@@ -170,8 +171,7 @@ for name, mod in ported.items():
     assert obj is getattr(importlib.import_module("fashionvisualexpl_tpu_torch." + mod), name)
     assert obj.__module__ == "fashionvisualexpl_tpu_torch." + mod, (name, obj.__module__)
 assert fvx.TrainConfig().batch_size == 256 and callable(fvx.fit)
-for name, heading in (("VBPR", "VBPR"), ("GradFashion", "GradFashion and explanations"),
-                      ("ACF", "ACF"), ("CompVBPR", "CNN and CompVBPR")):
+for name, heading in (("ACF", "ACF"), ("CompVBPR", "CNN and CompVBPR")):
     try:
         getattr(fvx, name)
     except NotImplementedError as e:

@@ -577,18 +577,45 @@ class _WithExtras(BPRMF):
                                               frozen_item_tables=self._extras[1])
 
 
+class _WithFrozen(_WithExtras):
+    """BPRMF declaring a frozen F [8, 4] whose rows its packed loss reads
+    out of ``frozen_vw`` (and records the shapes of)."""
+
+    def __init__(self):
+        super().__init__(frozen_tables=(("F", 4),))
+        self.seen = []
+
+    def packed_loss(self, user_vw, pos_vw, neg_vw, dense, frozen, ids, reg, rng=None,
+                    frozen_vw=None):
+        self.seen += [tuple(frozen_vw[side]["F"].shape) for side in ("pos", "neg")]
+        return (super().packed_loss(user_vw, pos_vw, neg_vw, dense, frozen, ids, reg, rng)
+                + frozen_vw["pos"]["F"].sum() * 0)
+
+
 def test_unported_branches_raise_naming_their_items():
     data = synthetic_interactions(4, 4, interactions_per_user=2, seed=0)
     with pytest.raises(NotImplementedError, match="does not implement"):
         Trainer(_NoPacked(), data, TrainConfig(batch_size=2, train_path="packed"))
     with pytest.raises(NotImplementedError, match="ROADMAP: ACF"):
         tpg.make_generic_packed_step(_WithExtras(extra_items=3), 0.01, 0.0)
-    frozen_model = _WithExtras(frozen_tables=(("F", 4),))
-    with pytest.raises(NotImplementedError, match="ROADMAP: VBPR"):
-        tpg.make_generic_packed_step(frozen_model, 0.01, 0.0, fused_frozen=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP: VBPR"):
+    # a model declaring frozen item tables packs them and steps (VBPR's and
+    # GradFashion's parity: test_torch_vbpr.py, test_torch_grad_fashion.py)
+    frozen_model = _WithFrozen()
+    fr = {"F": torch.arange(32.0).reshape(8, 4)}
+    state = tpg.pack_generic_state(frozen_model, dict(frozen_model.named_parameters()),
+                                   frozen=fr)
+    assert state.item_pmv.shape[1] == 2 + 4 + 3 + 4 + 1  # Gi, m, v, Bi group, F, tau
+    step = tpg.make_generic_packed_step(frozen_model, 0.01, 0.0, fused_frozen=True)
+    ids = (_t(np.array([0, 5], np.int32)), _t(np.array([1, 7], np.int32)),
+           _t(np.array([2, 2], np.int32)))
+    state, loss = step(state, (fr, ids, None))
+    assert np.isfinite(float(loss)) and int(state.step) == 1
+    assert frozen_model.seen == [(2, 4)] * 2  # the F rows of pos and neg
+    assert torch.equal(state.item_pmv[:, 9:13], fr["F"])  # passed through
+    assert torch.equal(state.item_pmv[[1, 2, 7], 13], torch.ones(3))  # tau
+    with pytest.raises(ValueError, match="declared width 4"):
         tpg.pack_generic_state(frozen_model, dict(frozen_model.named_parameters()),
-                               frozen={"F": torch.zeros(8, 4)})
+                               frozen={"F": torch.zeros(8, 5)})
     # BPRMF declares no frozen tables: fused_frozen=True is a no-op
     tpg.make_generic_packed_step(BPRMF(4, 4, embed_k=2, device="cpu"), 0.01, 0.0,
                                  fused_frozen=True)
