@@ -254,8 +254,9 @@ MOMENT_CODE = {"float32": 0.0, "bfloat16": 2.0**-7, "float8": 2.0**-2}
 # (fashionvisualexpl_tpu/cli/train_rec.py:57-66): K=128, embed_d=20, vgg19
 # fc2 features 4096 wide (CNN and edges), 8x8x8 color histograms,
 # embed_color = embed_edges = 32.  Factored, D = K + embed_d = 148, which
-# sends K2 to its CUDA-core route (D > 128) and K3 to its mma.sync route
-# with 2-byte staging (D % 8 != 0); K3 is also checked at 150.  The full
+# sends K2 to its chunked route (D > 128: D in two chunks of 80) and K3 to
+# its mma.sync route with 2-byte staging (D % 8 != 0); both are also
+# checked at 150, K2 at 1024 too (the user tile staged).  The full
 # width phase runs over the evaluation phase's 1M users x 500k items and
 # data: packed training 3 steps against CPU copies on a 20k x 20k catalog,
 # then a 200-step epoch; 50 generic steps; a 200-step fast epoch; both
@@ -1117,7 +1118,8 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
 
     seen_w, errs = set(), []
     for B, I, D in ((100, 5000, 128), (300, 70_001, 33), (4096, 20_000, 128),
-                    (100, 5000, VIS_D), (300, 70_001, VIS_D)):
+                    (100, 5000, VIS_D), (300, 70_001, VIS_D), (300, 70_001, VIS_D_OTHER),
+                    (100, 5000, 1024)):
         for T in (1, 3):
             for wide in (False, True):
                 tile = 2048 if I > 5000 else 256
@@ -1153,9 +1155,25 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
         counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut, _rechecked=n_re)
         rechecked = int(n_re)
         print(f"counts evaluator shape D={D}: {rechecked} of {B * args[1].shape[0]} pairs "
-              f"scored again exactly (the band; none on the CUDA-core route, D > 128)")
+              f"scored again exactly (the band)")
+        if D > 128 and rechecked == 0:
+            fail(f"counts at D={D} rechecked no pair: the tensor-core route did not run")
         ms, call_ms, _ = kernel_times(torch, f"counts D={D}", lambda: counts.counts_kernel(
             *args, item_tile=item_tile, user_tile=ut), 10, flush)
+        extra = {}
+        if D > 128:  # the user tile whole (the route) against staged with each chunk
+            got = counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut,
+                                       _stage_users=True)
+            if not torch.equal(got, counts.counts_kernel_reference(*args, item_tile)):
+                fail(f"counts with the user tile staged disagrees at D={D}")
+            extra["staged_users_ms"], _, _ = kernel_times(
+                torch, f"counts D={D} staged users", lambda: counts.counts_kernel(
+                    *args, item_tile=item_tile, user_tile=ut, _stage_users=True), 10, flush)
+            extra["ms_again"], _, _ = kernel_times(
+                torch, f"counts D={D} again", lambda: counts.counts_kernel(
+                    *args, item_tile=item_tile, user_tile=ut), 10, flush)
+            print(f"counts D={D}: user tile whole {ms!r} / {extra['ms_again']!r} ms, "
+                  f"staged with each chunk {extra['staged_users_ms']!r} ms")
         plain_ms, _, _ = kernel_times(torch, f"counts plain D={D}",
                                       lambda: counts.counts_kernel_reference(*args, item_tile),
                                       5, flush)
@@ -1166,7 +1184,7 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
         b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
         check_bound(f"counts D={D}", ms, b)
         timed[D] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                        library_ms=lib_ms, rechecked=rechecked, shape=shape)
+                        library_ms=lib_ms, rechecked=rechecked, shape=shape, **extra)
         print(f"kernel time counts B={B} Ip={Ip} D={D} T=1 W={W} f32: ms={ms!r} "
               f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(matmul f32, product "
               f"only)={lib_ms!r} bound_ms={b!r} ({by}, bf16 tensor-core rate); "
@@ -1207,37 +1225,51 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
     torch.cuda.empty_cache()
 
     # the recheck band: the default kernel and _band_scale=inf (every pair
-    # through the exact fmaf chain) bit-equal on the Gaussian data above and
-    # on cancelling rows (large +- terms, dot products near 0, refs on them)
+    # through the exact fmaf chain) bit-equal on Gaussian rows and on
+    # cancelling rows (large +- terms, dot products near 0, refs on them), at
+    # D=128 (rows whole in shared memory) and VBPR's 148 (D in chunks)
     t0 = time.perf_counter()
-    sign = torch.randint(0, 2, (B, 1), device=dev, generator=g) * 2.0 - 1
-    big = torch.randn(I, 1, device=dev, generator=g) * 30
-    uc = uf.clone()
-    uc[:, : D // 2] += sign
-    uc[:, D // 2:] -= sign
-    vc = iv + big
-    rc = torch.einsum("bd,bd->b", uc, vc[j])[:, None] + ib[j][:, None]
-    cancel, _, _, _ = padded(uc, vc, ib, rc, j[:, None].to(torch.int32), I, EVAL_TILE)
     band_check = {}
-    for label, a in (("gaussian", args), ("cancelling", cancel)):
-        n_band = torch.zeros(1, dtype=torch.int64, device=dev)
-        n_all = torch.zeros(1, dtype=torch.int64, device=dev)
-        got = counts.counts_kernel(*a, item_tile=item_tile, user_tile=ut, _rechecked=n_band)
-        every = counts.counts_kernel(*a, item_tile=item_tile, user_tile=ut,
-                                     _band_scale=float("inf"), _rechecked=n_all)
-        torch.cuda.synchronize()
-        if not torch.equal(got, every):
-            bad = int((got != every).any(dim=1).sum())
-            fail(f"counts kernel with its band differs from the exact chain on {label} data "
-                 f"({bad} users)")
-        band_check[label] = dict(rechecked=int(n_band), exact_pairs=int(n_all),
-                                 counted=int(got.sum()))
-        print(f"counts band check ({label}, B={B} I={I} D={D}): default band and "
-              f"_band_scale=inf bit-equal ok; {int(n_band)} of {int(n_all)} pairs "
-              f"rechecked with the band")
+    gauss = args
+    del args
+    for D in (EMBED_K, VIS_D):
+        if D != EMBED_K:  # at D=128 the tie band's rows above
+            uf = torch.randn(B, D, device=dev, generator=g) * 0.3
+            iv = torch.randn(I, D, device=dev, generator=g) * 0.3
+            ref = torch.einsum("bd,bd->b", uf, iv[j])[:, None] + ib[j][:, None]
+            gauss, item_tile, ut, _ = padded(uf, iv, ib, ref, j[:, None].to(torch.int32), I,
+                                             EVAL_TILE)
+        sign = torch.randint(0, 2, (B, 1), device=dev, generator=g) * 2.0 - 1
+        big = torch.randn(I, 1, device=dev, generator=g) * 30
+        uc = uf.clone()
+        uc[:, : D // 2] += sign
+        uc[:, D // 2:] -= sign
+        vc = iv + big
+        rc = torch.einsum("bd,bd->b", uc, vc[j])[:, None] + ib[j][:, None]
+        cancel, _, _, _ = padded(uc, vc, ib, rc, j[:, None].to(torch.int32), I, EVAL_TILE)
+        for label, a in (("gaussian", gauss), ("cancelling", cancel)):
+            n_band = torch.zeros(1, dtype=torch.int64, device=dev)
+            n_all = torch.zeros(1, dtype=torch.int64, device=dev)
+            got = counts.counts_kernel(*a, item_tile=item_tile, user_tile=ut,
+                                       _rechecked=n_band)
+            every = counts.counts_kernel(*a, item_tile=item_tile, user_tile=ut,
+                                         _band_scale=float("inf"), _rechecked=n_all)
+            torch.cuda.synchronize()
+            if not torch.equal(got, every):
+                bad = int((got != every).any(dim=1).sum())
+                fail(f"counts kernel with its band differs from the exact chain on {label} "
+                     f"data at D={D} ({bad} users)")
+            if int(n_band) == 0:
+                fail(f"counts band check ({label}, D={D}): no pair rechecked")
+            band_check[f"{label}_D{D}"] = dict(rechecked=int(n_band), exact_pairs=int(n_all),
+                                               counted=int(got.sum()))
+            print(f"counts band check ({label}, B={B} I={I} D={D}): default band and "
+                  f"_band_scale=inf bit-equal ok; {int(n_band)} of {int(n_all)} pairs "
+                  f"rechecked with the band")
+        del gauss, cancel, uc, vc, uf, iv
     # rows whose every coordinate is a worst case of the bf16 split, refs
     # between the bf16x3 and the exact scores: the band must hold the miss
-    for Dw in (1, 6, 16, 128):
+    for Dw in (1, 6, 16, 128, VIS_D, 1024):
         uw, vw, bw, rw, want = (x.to(dev) for x in counts.band_worst_case(Dw, seed=Dw))
         lw = torch.full((1, uw.shape[0], 1), -1, dtype=torch.int32, device=dev)
         n_band = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -1253,7 +1285,6 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
               f"default band, _band_scale=inf and the exact counts equal ok; "
               f"{int(n_band)} pairs rechecked")
     print(f"counts band checks: {time.perf_counter() - t0!r} s")
-    del args, cancel, uc, vc, uf, iv
     torch.cuda.empty_cache()
     return dict(max_abs_err=float(max(errs)), **timed[EMBED_K], tie_band=tie,
                 band_check=band_check, d148=timed[VIS_D])
@@ -2833,12 +2864,21 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
         return out
 
     ev._eval_split = timed
+    # every K2 call of the run adds its rechecked pairs into n_re
+    kernel, n_re = counts.counts_kernel, torch.zeros(1, dtype=torch.int64, device=dev)
+    counts.counts_kernel = lambda *a, **k: kernel(*a, _rechecked=n_re, **k)
     torch.cuda.synchronize()
-    counts.counts_kernel.launches = 0  # VBPR evaluation path starts here
+    kernel.launches = 0  # VBPR evaluation path starts here
     t0 = time.perf_counter()
-    metrics = ev.evaluate(None, None)
+    try:
+        metrics = ev.evaluate(None, None)
+    finally:
+        counts.counts_kernel = kernel
     total_s = time.perf_counter() - t0
     eval_launches = counts.counts_kernel.launches  # ... and ends here
+    rechecked = int(n_re)
+    if rechecked == 0:
+        fail("vbpr evaluate rechecked no pair: K2's tensor-core route did not run")
     if eval_launches != 2 * -(-U // EVAL_BLOCK):
         fail(f"vbpr evaluate launched K2 {eval_launches} times, expected "
              f"{2 * -(-U // EVAL_BLOCK)}")
@@ -2855,12 +2895,13 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
             mb = evb._eval_block(split, uf[ids], iv, ib, ids)
             if not all(torch.equal(a, b) for a, b in zip(mk, mb)):
                 fail(f"vbpr eval {split} block {blk}: kernel and bucketed metrics differ")
-    summary["eval"] = dict(metrics=metrics, evaluate_s=total_s,
+    summary["eval"] = dict(metrics=metrics, evaluate_s=total_s, rechecked=rechecked,
                            per_split={k: dict(ms=1e3 * v, scores_per_s=U * I / v)
                                       for k, v in split_s.items()})
     print(f"vbpr evaluation at D={VIS_D}: {eval_launches} K2 launches, evaluate {total_s!r} s, "
-          f"per split {summary['eval']['per_split']}; the first {EVAL_CHECK_BLOCKS} blocks "
-          f"equal through the bucketed engine; metrics {metrics}")
+          f"per split {summary['eval']['per_split']}, {rechecked} pairs rechecked; the "
+          f"first {EVAL_CHECK_BLOCKS} blocks equal through the bucketed engine; metrics "
+          f"{metrics}")
     summary["peak_gib"] = (torch.cuda.max_memory_allocated() - start) / 2**30
     summary["s"] = time.perf_counter() - phase_t0
     print(f"vbpr phase: {summary['s']!r} s")

@@ -18,12 +18,13 @@ Bound on an H100 SXM at the evaluator's shapes (B=4096, Ip=501,760, D=128):
 (7.85 ms at 67 TFLOP/s on the CUDA cores); compute-bound (0.26 GB of
 inputs).  The counts are those of one f32 score per pair: the ``fmaf``
 chain in ascending d, then ``+ ib``, then ``>=``.  The kernel takes the
-product on the tensor cores in bf16x3 and scores exactly again every pair
-whose approximate score lies within ``band_eps`` of a reference, so its
-counts equal that f32 computation on any data (``csrc/counts.cu`` derives
-the bound).  The plain version is one f32 matmul per item tile: equal
-counts wherever both compute exact scores (quantized data).  Measured
-times are in PERF.md.
+product on the tensor cores in bf16x3 at any D (above D=128 the rows
+arrive in chunks of D, VBPR's and GradFashion's D=148 in two) and scores
+exactly again every pair whose approximate score lies within ``band_eps``
+of a reference, so its counts equal that f32 computation on any data
+(``csrc/counts.cu`` derives the bound).  The plain version is one f32
+matmul per item tile: equal counts wherever both compute exact scores
+(quantized data).  Measured times are in PERF.md.
 
 ``counts_kernel`` launches the kernel for CUDA tensors (or raises) and takes
 the plain version ``counts_kernel_reference`` for CPU tensors only;
@@ -151,7 +152,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("counts")
     if not getattr(lib, "_fvx_typed", False):
         lib.fvx_counts.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6 + [ctypes.c_double]
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 7 + [ctypes.c_double]
             + [ctypes.c_void_p] * 2
         )
         lib.fvx_counts.restype = ctypes.c_int
@@ -170,16 +171,21 @@ def counts_kernel(
     user_tile: int = 256,
     _band_scale: float = 1.0,
     _rechecked=None,
+    _stage_users: bool = False,
 ) -> torch.Tensor:
     """[B, T] int32 counts of allowed items scoring >= each ref score.
 
     ``_band_scale`` (a test hook, >= 1) multiplies the kernel's recheck
     band: ``float('inf')`` scores every pair through the exact chain.
     ``_rechecked``, an int64 [1] tensor on the card, gains the number of
-    pairs the kernel scored exactly.  Neither changes the counts."""
+    pairs the kernel scored exactly.  ``_stage_users`` (a measurement hook,
+    D > 128 only) stages the user tile with each chunk of D even where it
+    fits whole in shared memory.  None of them changes the counts."""
     _check(uf, iv, ib_pad, ref_scores, banned_local, item_tile, user_tile)
     if not _band_scale >= 1.0:
         raise ValueError(f"counts_kernel: _band_scale must be >= 1, got {_band_scale}")
+    if _stage_users and uf.shape[1] <= 128:
+        raise ValueError("counts_kernel: _stage_users needs D > 128 (the chunked route)")
     if uf.device.type == "cpu":
         return counts_kernel_reference(uf, iv, ib_pad, ref_scores, banned_local,
                                        item_tile)
@@ -213,7 +219,7 @@ def counts_kernel(
         rc = _library().fvx_counts(
             uf.data_ptr(), iv.data_ptr(), ib_pad.data_ptr(), ref_scores.data_ptr(),
             banned_local.data_ptr(), nu.data_ptr(), nv.data_ptr(), out.data_ptr(),
-            B, Ip, D, T, W, item_tile,
+            B, Ip, D, T, W, item_tile, int(_stage_users),
             float(_band_scale), None if _rechecked is None else _rechecked.data_ptr(),
             stream)
     if rc != 0:

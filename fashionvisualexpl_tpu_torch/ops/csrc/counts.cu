@@ -32,23 +32,42 @@
 //   3xTF32 on m16n8k8 for the same products.
 //   Users are the M dimension and items N: a lane takes its fragment
 //   columns k, k + 1 of uf [B, D] (A, row-major) and iv [Ip, D] (B, "col")
-//   as one 8-byte shared-memory load and splits them in registers.
-// * Tiles.  A block of 16 warps owns 128 users, whose f32 rows stay in
-//   shared memory (copied once with cp.async), and a chunk of the catalog,
-//   walked in 128-item sub-tiles, double-buffered: the next sub-tile's rows
+//   as one 8-byte shared-memory load and splits them in registers (D <=
+//   128), or finds them split already (D > 128: each thread splits the
+//   pairs it staged, once, where they land, so the four warps that read
+//   an element no longer split it four times).
+// * Tiles.  A block of 16 warps owns 128 users and a range of the catalog
+//   (subs_per_chunk), walked in 128-item sub-tiles.  The pipeline's unit is
+//   a (sub-tile, D-chunk) pair, double-buffered: the next unit's rows
 //   arrive by cp.async (16-byte copies) while the tensor cores work on this
-//   one, and this one's rows stay until its epilogue has rechecked its
-//   pairs.  Each warp owns 32 users x 32 items (2 x 4 fragments).  Shared
-//   rows are D + 8 words apart (8 mod 32), so the 8-byte loads are
-//   conflict-free.  The catalog is cut into chunks so that about eight
-//   blocks per SM are launched in turn (4096 users make only 32 user
-//   tiles).
+//   one.  Each warp owns 32 users x 32 items (2 x 4 fragments), whose
+//   accumulators stay in registers across a sub-tile's chunks; the chunks,
+//   and the k16 steps within each, run in ascending order, so the
+//   accumulation is the one the band below was derived for, at the whole D.
+//   Shared rows are Dp + 8 or DK + 8 words apart (8 or 24 mod 32), so the
+//   8-byte loads of a half-warp are conflict-free.  The catalog is cut into
+//   ranges so that about eight blocks per SM are launched in turn (4096
+//   users make only 32 user tiles).
+//   - D <= 128: one chunk.  The users' f32 rows stay in shared memory
+//     (copied once) beside two whole item sub-tiles, and a sub-tile's rows
+//     stay until its epilogue has rechecked its pairs from them.
+//   - D > 128 (the user tile and two whole sub-tiles outgrow the 227 KB):
+//     D arrives in nk chunks of DK columns, the fewest whose two stages fit.
+//     The user tile stays whole beside them where it fits with chunks of 64
+//     columns (D <= 256: at VBPR's D = 148, two chunks of 80), else its
+//     chunk is staged beside the items' in each unit.  A sub-tile's bias,
+//     norms and banned bits arrive with its first chunk, its epilogue runs
+//     after its last.  Its marked pairs join a queue of the block (1024
+//     pairs); when the queue is full, and after the block's last unit, each
+//     thread rescores one queued pair, so the chains' latency is paid once
+//     for many pairs.  Both rows come from device memory (through L2: they
+//     were just streamed; shared memory holds their split pieces).
 // * The band.  For each pair the epilogue forms s~ = acc + ib[i] and, for
 //   each reference r, decides directly where s~ - r > eps or s~ - r < -eps;
 //   otherwise (and wherever s~, r or eps is not finite) it marks the pair,
-//   and the marked pairs are scored again, one a lane at a time with every
-//   lane of the warp in step, from both rows in shared memory: the fmaf
-//   chain in ascending d, + ib[i], >= r.  With
+//   and the marked pairs are scored again, one a thread at a time, from
+//   the whole rows (see Tiles): the fmaf chain in ascending d, + ib[i],
+//   >= r.  With
 //   A = sum_d |u_d v_d| <= |u|_2 |v|_2 and |b| = |ib[i]| (0 when infinite:
 //   then both scores are the same infinity).  bf16 keeps 8 significant
 //   bits, so with x = hi + lo + r (mma.cuh::split_bf16x2) |lo| <= 2^-8 |x|
@@ -87,10 +106,8 @@
 //   A D not a multiple of 4 (or an operand not 16-byte aligned) is staged
 //   with 4-byte loads instead of cp.async, in the same kernel.
 //
-// A D so wide that the user tile and two item sub-tiles outgrow shared
-// memory (D > 128) takes the first design instead (counts_simt_kernel): the
-// classic register-blocked SGEMM on the CUDA cores, 128 x 128 tiles, D
-// staged 8 at a time, one fmaf per product in ascending d: the same counts.
+// Every D takes this kernel (no CUDA-core route is left); the plain version
+// in ops/counts.py is the reference.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -103,143 +120,11 @@ namespace {
 constexpr int kMaxT = 4;
 constexpr int kMaxW = 48;
 constexpr int kBlocksPerSM = 8;
-
-// ---------------------------------------------------------------------------
-// CUDA-core kernel (very wide D)
-
-constexpr int kThreads = 256;
-constexpr int kTU = 128;           // users per block
-constexpr int kTI = 128;           // items per sub-tile
-constexpr int kBK = 8;             // D chunk staged in shared memory
-constexpr int kStride = kTU + 4;   // padded shared row (kTU == kTI)
-
-__global__ void __launch_bounds__(kThreads, 2)
-counts_simt_kernel(const float* __restrict__ uf, const float* __restrict__ iv,
-                   const float* __restrict__ ib, const float* __restrict__ ref,
-                   const int* __restrict__ loc, int* __restrict__ out,
-                   int B, long long Ip, int D, int T, int W, long long item_tile,
-                   long long n_sub, long long subs_per_chunk) {
-  __shared__ __align__(16) float us[kBK * kStride];
-  __shared__ __align__(16) float is[kBK * kStride];
-  __shared__ int ban_s[kTU * kMaxW];
-  __shared__ float ref_s[kTU * kMaxT];
-  __shared__ int tot_s[kTU * kMaxT];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // item column group (lane bits 0-3)
-  const int ty = tid >> 4;  // user row group
-  const long long u0 = static_cast<long long>(blockIdx.x) * kTU;
-  const long long sub_lo = static_cast<long long>(blockIdx.y) * subs_per_chunk;
-  const long long sub_hi = min(n_sub, sub_lo + subs_per_chunk);
-
-  for (int idx = tid; idx < kTU * kMaxT; idx += kThreads) {
-    const int ul = idx / kMaxT, t = idx % kMaxT;
-    const long long b = u0 + ul;
-    ref_s[idx] = (b < B && t < T) ? ref[b * T + t] : CUDART_INF_F;
-    tot_s[idx] = 0;
-  }
-  long long cur_tile = -1;
-
-  for (long long sub = sub_lo; sub < sub_hi; ++sub) {
-    const long long n0 = sub * kTI;
-    const long long tile = n0 / item_tile;  // the sub-tile lies in one tile
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += kBK) {
-      __syncthreads();  // the previous readers of us, is and ban_s are done
-      if (d0 == 0 && tile != cur_tile) {
-        for (int idx = tid; idx < kTU * W; idx += kThreads) {
-          const int ul = idx / W, w = idx % W;
-          const long long b = u0 + ul;
-          ban_s[ul * kMaxW + w] =
-              b < B ? loc[(tile * B + b) * W + w] : -1;
-        }
-        cur_tile = tile;
-      }
-#pragma unroll
-      for (int r = 0; r < (kTU * kBK) / kThreads; ++r) {
-        const int idx = tid + r * kThreads;
-        const int row = idx / kBK, c = idx % kBK;
-        const int d = d0 + c;
-        const long long b = u0 + row;
-        const long long g = n0 + row;
-        us[c * kStride + row] = (b < B && d < D) ? uf[b * D + d] : 0.f;
-        is[c * kStride + row] = (g < Ip && d < D) ? iv[g * D + d] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(us + k * kStride + ty * 4);
-        const float4 a1 = *reinterpret_cast<const float4*>(us + k * kStride + 64 + ty * 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(is + k * kStride + tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(is + k * kStride + 64 + tx * 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-      }
-    }
-
-    // epilogue: bias, exclusion by id, compare, count
-    const int local0 = static_cast<int>(n0 - tile * item_tile);
-    float bias[8];
-    int lid[8];
-    unsigned in_range = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int il = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      const long long g = n0 + il;
-      lid[j] = local0 + il;
-      bias[j] = g < Ip ? ib[g] : 0.f;
-      in_range |= (g < Ip ? 1u : 0u) << j;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ul = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-      unsigned allowed = in_range;
-      for (int w = 0; w < W; ++w) {
-        const int o = ban_s[ul * kMaxW + w];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (o == lid[j]) allowed &= ~(1u << j);
-      }
-      for (int t = 0; t < T; ++t) {
-        const float r = ref_s[ul * kMaxT + t];
-        int c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          c += ((allowed >> j) & 1u) && (acc[i][j] + bias[j] >= r);
-        c += __shfl_xor_sync(0xffffffffu, c, 8);
-        c += __shfl_xor_sync(0xffffffffu, c, 4);
-        c += __shfl_xor_sync(0xffffffffu, c, 2);
-        c += __shfl_xor_sync(0xffffffffu, c, 1);
-        if (tx == 0) tot_s[ul * kMaxT + t] += c;
-      }
-    }
-  }
-
-  __syncthreads();
-  for (int idx = tid; idx < kTU * T; idx += kThreads) {
-    const int ul = idx / T, t = idx % T;
-    const long long b = u0 + ul;
-    const int c = tot_s[ul * kMaxT + t];
-    if (b < B && c) atomicAdd(out + b * T + t, c);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16x3 with the exact recheck)
-
 constexpr int kMU = 128;            // users per block (stationary)
 constexpr int kNI = 128;            // items per sub-tile
 constexpr int kMmaWarps = 16;       // 4 along users x 4 along items
 constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kQueue = 1024;        // marked pairs a chunked block holds
 constexpr float kBandD = 4.f;       // eps = 1.001 * ((kBandD * D + kBand0)
 constexpr float kBand0 = 300.f;     //   * 2^-22 * |u| |v| + 2^-22 |b|) + 2^-100
 constexpr float kBandAbs = 0x1p-100f;
@@ -255,49 +140,98 @@ struct CountsArgs {
   int* out;
   unsigned long long* rechecked;  // may be null
   float band_scale;
-  int B, D, Dp, ld, T, W;  // ld: shared row stride in floats (Dp + 4)
+  int B, D, Dp, T, W;
+  int DK, nk;      // columns of a chunk (a multiple of 16), chunks a sub-tile
+  int ldu, ldi;    // shared row strides (floats) of the user tile and of a chunk
+  bool users_resident;  // the user tile whole in shared memory, else staged per chunk
   long long Ip, item_tile, n_sub, subs_per_chunk;
 };
 
-// rows [row0, row0 + rows) of src ([n_valid, D] row-major) into dst rows of
-// stride ld, width Dp: 16-byte cp.async, or 4-byte loads when !kVec; rows
-// past n_valid and columns past D are zero
-template <bool kVec>
+// columns [c0, c0 + w) of rows [row0, row0 + rows) of src ([n_valid, D]
+// row-major) into dst rows of stride ld: 16-byte cp.async, or 4-byte loads
+// when !kVec; rows past n_valid and columns past D are zero.  kSplit && !kVec:
+// each column pair lands as its bf16x3 pieces {hi, lo} (split_pairs).
+template <bool kVec, bool kSplit = false>
 __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
                                           long long row0, int rows,
-                                          long long n_valid, int D, int Dp,
-                                          int tid) {
+                                          long long n_valid, int D, int c0,
+                                          int w, int tid) {
   if (kVec) {
-    const int pieces = Dp / 4;
+    const int pieces = w / 4;
     for (int idx = tid; idx < rows * pieces; idx += kMmaThreads) {
       const int r = idx / pieces, p = idx - r * pieces;
       const long long g = row0 + r;
-      const bool ok = g < n_valid && 4 * p < D;
+      const int c = c0 + 4 * p;
+      const bool ok = g < n_valid && c < D;
       fvx::cp_async16(fvx::smem_u32(dst + r * ld + 4 * p),
-                      ok ? src + g * D + 4 * p : src, ok ? 16 : 0);
+                      ok ? src + g * D + c : src, ok ? 16 : 0);
+    }
+  } else if (kSplit) {
+    const int pairs = w / 2;
+    for (int idx = tid; idx < rows * pairs; idx += kMmaThreads) {
+      const int r = idx / pairs, c = 2 * (idx - r * pairs);
+      const long long g = row0 + r;
+      const float* x = src + g * D + c0 + c;
+      const bool ok = g < n_valid;
+      const float2 v = make_float2(ok && c0 + c < D ? x[0] : 0.f,
+                                   ok && c0 + c + 1 < D ? x[1] : 0.f);
+      uint2 hl;
+      fvx::split_bf16x2(v, hl.x, hl.y);
+      *reinterpret_cast<uint2*>(dst + r * ld + c) = hl;
     }
   } else {
-    for (int idx = tid; idx < rows * Dp; idx += kMmaThreads) {
-      const int r = idx / Dp, c = idx - r * Dp;
+    for (int idx = tid; idx < rows * w; idx += kMmaThreads) {
+      const int r = idx / w, c = idx - r * w;
       const long long g = row0 + r;
-      dst[r * ld + c] = (g < n_valid && c < D) ? src[g * D + c] : 0.f;
+      dst[r * ld + c] = (g < n_valid && c0 + c < D) ? src[g * D + c0 + c] : 0.f;
     }
   }
 }
 
-// kT: the reference columns the epilogue compares (1, or up to kMaxT)
-template <bool kVec, int kT>
+// The pieces that this thread's cp.async of stage_f32<true>(dst, ld, ..,
+// rows, .., w, tid) copied, once they landed: each f32 column pair (k, k + 1)
+// becomes {hi, lo} (mma.cuh::split_bf16x2, two bf16 each) in its own 8
+// bytes, so that one 8-byte load gives a fragment's both pieces.  Each
+// element is split once, not once for each warp that reads it.
+__device__ __forceinline__ void split_pairs(float* dst, int ld, int rows, int w,
+                                            int tid) {
+  const int pieces = w / 4;
+  for (int idx = tid; idx < rows * pieces; idx += kMmaThreads) {
+    const int r = idx / pieces, p = idx - r * pieces;
+    float4* x = reinterpret_cast<float4*>(dst + r * ld + 4 * p);
+    const float4 v = *x;
+    uint4 hl;
+    fvx::split_bf16x2(make_float2(v.x, v.y), hl.x, hl.y);
+    fvx::split_bf16x2(make_float2(v.z, v.w), hl.z, hl.w);
+    *reinterpret_cast<uint4*>(x) = hl;
+  }
+}
+
+// kT: the reference columns the epilogue compares (1, or up to kMaxT).
+// kChunked: a sub-tile's rows arrive in nk chunks of D (D > 128), split
+// into their bf16 pieces where they land, and the marked pairs are queued
+// and rescored from the rows in device memory; otherwise (nk == 1) each warp
+// splits the f32 rows it reads, and the marked pairs are rescored from the
+// rows in shared memory.
+template <bool kVec, int kT, bool kChunked>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 counts_mma_kernel(const CountsArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* users = reinterpret_cast<float*>(smem);  // [kMU][ld]
-  float* items = users + kMU * a.ld;              // [2][kNI][ld]
-  float* ib_s = items + 2 * kNI * a.ld;           // [2][kNI] bias
+  // [kMU][ldu] resident, or [2][kMU][ldi] a chunk a stage
+  // one chunk: the users resident and one row stride, as compile-time facts
+  const bool resident = !kChunked || a.users_resident;
+  const int ldu = a.ldu, ldi = kChunked ? a.ldi : a.ldu;
+  float* users = reinterpret_cast<float*>(smem);
+  float* items = users + (resident ? kMU * ldu : 2 * kMU * ldi);  // [2][kNI][ldi]
+  float* ib_s = items + 2 * kNI * ldi;            // [2][kNI] bias
   float* nv_s = ib_s + 2 * kNI;                   // [2][kNI] norms
   uint32_t* bits = reinterpret_cast<uint32_t*>(nv_s + 2 * kNI);
   float* ref_s = reinterpret_cast<float*>(bits + 2 * kMU * (kNI / 32));
   int* tot_s = reinterpret_cast<int*>(ref_s + kMU * kMaxT);
   float* cu_s = reinterpret_cast<float*>(tot_s + kMU * kMaxT);
+  // kChunked: marked pairs, (item << 7) | user within the tile, and their count
+  unsigned long long* queue = reinterpret_cast<unsigned long long*>(cu_s + kMU);
+  int* q_n = reinterpret_cast<int*>(queue + kQueue);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -306,19 +240,10 @@ counts_mma_kernel(const CountsArgs a) {
   const long long u0 = static_cast<long long>(blockIdx.x) * kMU;
   const long long sub_lo = static_cast<long long>(blockIdx.y) * a.subs_per_chunk;
   const long long sub_hi = min(a.n_sub, sub_lo + a.subs_per_chunk);
+  // the pipeline's unit: chunk u % nk of sub-tile sub_lo + u / nk, in
+  // ascending order, so each pair's k16 steps run in ascending order
+  const long long n_units = (sub_hi - sub_lo) * (kChunked ? a.nk : 1);
 
-  // sub-tile `sub`: its rows, their bias and norms (past the catalog: 0)
-  auto stage_sub = [&](long long sub) {
-    const int buf = static_cast<int>((sub - sub_lo) & 1);
-    stage_f32<kVec>(items + buf * kNI * a.ld, a.ld, a.iv, sub * kNI, kNI, a.Ip,
-                    a.D, a.Dp, tid);
-    if (tid < 2 * kNI) {
-      const long long n = sub * kNI + (tid & (kNI - 1));
-      const float* src = tid < kNI ? a.ib : a.nv;
-      fvx::cp_async4(fvx::smem_u32((tid < kNI ? ib_s : nv_s) + buf * kNI + (tid & (kNI - 1))),
-                     n < a.Ip ? src + n : src, n < a.Ip ? 4 : 0);
-    }
-  };
   // banned offsets of sub-tile `sub` as bits: one (user, 32-item word) a
   // thread, into the buffer of the sub-tile's parity
   auto build_bits = [&](long long sub) {
@@ -337,10 +262,37 @@ counts_mma_kernel(const CountsArgs a) {
     }
     bits[((sub - sub_lo) & 1) * kMU * 4 + ul * 4 + k] = word;
   };
+  // unit u: its chunk of the item rows (and of the user rows when staged);
+  // with a sub-tile's first chunk its bias, norms and banned bits (past the
+  // catalog: 0)
+  auto stage_unit = [&](long long u) {
+    const long long sub = sub_lo + (kChunked ? u / a.nk : u);
+    const int kc = kChunked ? static_cast<int>(u % a.nk) : 0;
+    const int buf = static_cast<int>(u & 1);
+    const int c0 = kc * a.DK, w = kChunked ? min(a.DK, a.Dp - c0) : a.Dp;
+    stage_f32<kVec, kChunked>(items + buf * kNI * ldi, ldi, a.iv, sub * kNI, kNI,
+                              a.Ip, a.D, c0, w, tid);
+    if (!resident)
+      stage_f32<kVec, kChunked>(users + buf * kMU * ldi, ldi, a.uf, u0, kMU, a.B,
+                                a.D, c0, w, tid);
+    if (kc == 0) {
+      const int sb = static_cast<int>((sub - sub_lo) & 1);
+      if (tid < 2 * kNI) {
+        const long long n = sub * kNI + (tid & (kNI - 1));
+        const float* src = tid < kNI ? a.ib : a.nv;
+        fvx::cp_async4(
+            fvx::smem_u32((tid < kNI ? ib_s : nv_s) + sb * kNI + (tid & (kNI - 1))),
+            n < a.Ip ? src + n : src, n < a.Ip ? 4 : 0);
+      }
+      build_bits(sub);
+    }
+  };
 
-  // the user tile once, the first sub-tile, refs, eps's user factors, bits
-  stage_f32<kVec>(users, a.ld, a.uf, u0, kMU, a.B, a.D, a.Dp, tid);
-  stage_sub(sub_lo);
+  // the user tile once when resident, the first unit, refs, eps's user
+  // factors
+  if (resident)
+    stage_f32<kVec, kChunked>(users, ldu, a.uf, u0, kMU, a.B, a.D, 0, a.Dp, tid);
+  stage_unit(0);
   fvx::cp_async_commit();
   for (int idx = tid; idx < kMU * kMaxT; idx += kMmaThreads) {
     const int ul = idx / kMaxT, tt = idx % kMaxT;
@@ -351,51 +303,69 @@ counts_mma_kernel(const CountsArgs a) {
   if (tid < kMU)
     cu_s[tid] = u0 + tid < a.B
         ? 1.001f * (kBandD * a.D + kBand0) * 0x1p-22f * a.nu[u0 + tid] : 0.f;
-  build_bits(sub_lo);
+  if (kChunked && tid == 0) *q_n = 0;
 
   // this lane's rows: users (A) wu*32 + mi*16 + {g, g+8}, items (B)
   // wi*32 + ni*8 + g; columns k0 + 2t (+1) and k0 + 2t + 8 (+9)
-  const float* a_row = users + (wu * 32 + g) * a.ld + 2 * t;
-  const int b_row = (wi * 32 + g) * a.ld + 2 * t;
+  const int lda = resident ? ldu : ldi;
+  const float* a_base = users + (wu * 32 + g) * lda + 2 * t;
+  const int b_off = (wi * 32 + g) * ldi + 2 * t;
   unsigned long long n_re = 0;
+  float acc[2][4][4];
 
-  for (long long sub = sub_lo; sub < sub_hi; ++sub) {
+  for (long long u = 0; u < n_units; ++u) {
     fvx::cp_async_wait<0>();
-    __syncthreads();  // sub-tile sub landed; sub - 1's readers are done
-    const int buf = static_cast<int>((sub - sub_lo) & 1);
-    const float* cur = items + buf * kNI * a.ld;
-    if (sub + 1 < sub_hi) {
-      stage_sub(sub + 1);
-      build_bits(sub + 1);
+    const int buf = static_cast<int>(u & 1);
+    const long long sub = sub_lo + (kChunked ? u / a.nk : u);
+    const int kc = kChunked ? static_cast<int>(u % a.nk) : 0;
+    const int w = kChunked ? min(a.DK, a.Dp - kc * a.DK) : a.Dp;
+    if (kChunked && kVec) {  // this thread's copies of unit u landed: split them
+      if (resident && u == 0) split_pairs(users, ldu, kMU, a.Dp, tid);
+      if (!resident) split_pairs(users + buf * kMU * ldi, ldi, kMU, w, tid);
+      split_pairs(items + buf * kNI * ldi, ldi, kNI, w, tid);
     }
+    __syncthreads();  // unit u landed (and split); unit u - 1's readers are done
+    if (u + 1 < n_units) stage_unit(u + 1);
     fvx::cp_async_commit();
 
-    // bf16x3 product of the warp's 32 users x 32 items
-    float acc[2][4][4];
+    // bf16x3 product of the warp's 32 users x 32 items over this chunk
+    if (kc == 0) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    const float* b_base = cur + b_row;
-    for (int k0 = 0; k0 < a.Dp; k0 += 16) {
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    }
+    const float* a_row = resident ? a_base + kc * a.DK : a_base + buf * kMU * ldi;
+    const float* b_base = items + buf * kNI * ldi + b_off;
+    for (int k0 = 0; k0 < w; k0 += 16) {
       uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {  // rows g / g + 8, columns +0 / +8
-          const float2 x = *reinterpret_cast<const float2*>(
-              a_row + (mi * 16 + (q & 1) * 8) * a.ld + k0 + (q >> 1) * 8);
-          fvx::split_bf16x2(x, ah[mi][q], al[mi][q]);
+          const float* x = a_row + (mi * 16 + (q & 1) * 8) * lda + k0 + (q >> 1) * 8;
+          if (kChunked) {  // {hi, lo} already
+            const uint2 hl = *reinterpret_cast<const uint2*>(x);
+            ah[mi][q] = hl.x;
+            al[mi][q] = hl.y;
+          } else {
+            fvx::split_bf16x2(*reinterpret_cast<const float2*>(x), ah[mi][q], al[mi][q]);
+          }
         }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float2 x = *reinterpret_cast<const float2*>(
-              b_base + ni * 8 * a.ld + k0 + q * 8);
-          fvx::split_bf16x2(x, bh[ni][q], bl[ni][q]);
+          const float* x = b_base + ni * 8 * ldi + k0 + q * 8;
+          if (kChunked) {
+            const uint2 hl = *reinterpret_cast<const uint2*>(x);
+            bh[ni][q] = hl.x;
+            bl[ni][q] = hl.y;
+          } else {
+            fvx::split_bf16x2(*reinterpret_cast<const float2*>(x), bh[ni][q], bl[ni][q]);
+          }
         }
       // the small terms first; 8 independent products between dependent ones
 #pragma unroll
@@ -411,10 +381,12 @@ counts_mma_kernel(const CountsArgs a) {
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], ah[mi], bh[ni]);
     }
+    if (kc + 1 < a.nk) continue;  // the sub-tile's product is not whole yet
 
     // epilogue: bias, exclusion, band; pairs in the band are marked
     const long long n0 = sub * kNI;
-    const uint32_t* bw = bits + buf * kMU * 4;
+    const int sb = static_cast<int>((sub - sub_lo) & 1);
+    const uint32_t* bw = bits + sb * kMU * 4;
     float nv[4][2], bias[4][2], beps[4][2];
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
@@ -422,8 +394,8 @@ counts_mma_kernel(const CountsArgs a) {
       for (int e = 0; e < 2; ++e) {
         const int il = wi * 32 + ni * 8 + 2 * t + e;
         // an item past the catalog never counts: bias -inf, no recheck
-        const float b = n0 + il < a.Ip ? ib_s[buf * kNI + il] : -CUDART_INF_F;
-        nv[ni][e] = nv_s[buf * kNI + il] * a.band_scale;
+        const float b = n0 + il < a.Ip ? ib_s[sb * kNI + il] : -CUDART_INF_F;
+        nv[ni][e] = nv_s[sb * kNI + il] * a.band_scale;
         bias[ni][e] = b;
         beps[ni][e] = fmaf(1.001f * 0x1p-22f * (isinf(b) ? 0.f : fabsf(b)),
                            a.band_scale, kBandAbs);
@@ -478,26 +450,79 @@ counts_mma_kernel(const CountsArgs a) {
       }
     }
 
-    // the exact chain for the marked pairs, one a lane at a time, from the
-    // rows in shared memory: fmaf in ascending d, + bias, >= each ref
-    while (__any_sync(0xffffffffu, pend)) {
-      if (pend) {
-        const int p = __ffs(pend) - 1;
-        pend &= pend - 1;
-        const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
-        const int ul = wu * 32 + mi * 16 + h * 8 + g;
-        const int il = wi * 32 + ni * 8 + 2 * t + e;
-        const float* ur = users + ul * a.ld;
-        const float* vr = cur + il * a.ld;
-        float x = 0.f;
+    if (!kChunked) {
+      // the exact chain for the marked pairs, one a lane at a time, from the
+      // rows in shared memory: fmaf in ascending d, + bias, >= each ref
+      const float* cur = items + buf * kNI * ldi;
+      while (__any_sync(0xffffffffu, pend)) {
+        if (pend) {
+          const int p = __ffs(pend) - 1;
+          pend &= pend - 1;
+          const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
+          const int ul = wu * 32 + mi * 16 + h * 8 + g;
+          const int il = wi * 32 + ni * 8 + 2 * t + e;
+          const float* ur = users + ul * ldu;
+          const float* vr = cur + il * ldi;
+          float x = 0.f;
 #pragma unroll 4
-        for (int d = 0; d < a.D; ++d) x = fmaf(ur[d], vr[d], x);
-        const float se =
-            x + (n0 + il < a.Ip ? ib_s[buf * kNI + il] : -CUDART_INF_F);
+          for (int d = 0; d < a.D; ++d) x = fmaf(ur[d], vr[d], x);
+          const float se =
+              x + (n0 + il < a.Ip ? ib_s[sb * kNI + il] : -CUDART_INF_F);
+          for (int tt = 0; tt < a.T; ++tt)
+            if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
+          ++n_re;
+        }
+      }
+      continue;
+    }
+
+    // kChunked: the sub-tile's rows are no longer whole in shared memory.
+    // The marked pairs that can count (a user of the batch, an item of the
+    // catalog) join the block's queue; when it is full, and after the last
+    // unit, every thread rescores queued pairs from device memory (the rows
+    // were just streamed: L2), one pair a thread, so the chains' latency is
+    // paid once for up to kQueue pairs.
+    uint32_t rest = 0;
+    for (uint32_t m = pend; m; m &= m - 1) {
+      const int p = __ffs(m) - 1;
+      const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
+      if (u0 + wu * 32 + mi * 16 + h * 8 + g < a.B &&
+          n0 + wi * 32 + ni * 8 + 2 * t + e < a.Ip)
+        rest |= 1u << p;
+    }
+    const bool last = u + 1 == n_units;
+    for (;;) {
+      const int n = __popc(rest);
+      int slot = n ? atomicAdd(q_n, n) : kQueue;
+      for (; rest && slot < kQueue; ++slot) {  // what does not fit stays in rest
+        const int p = __ffs(rest) - 1;
+        rest &= rest - 1;
+        const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
+        const unsigned long long il = wi * 32 + ni * 8 + 2 * t + e;
+        queue[slot] = (static_cast<unsigned long long>(n0) + il) << 7 |
+                      static_cast<unsigned>(wu * 32 + mi * 16 + h * 8 + g);
+      }
+      __syncthreads();
+      const int filled = min(*q_n, kQueue);
+      if (*q_n < kQueue && !last) break;
+      // the exact chain: fmaf in ascending d, + bias, >= each ref
+      for (int k = tid; k < filled; k += kMmaThreads) {
+        const unsigned long long qe = queue[k];
+        const int ul = static_cast<int>(qe & (kMU - 1));
+        const long long i = static_cast<long long>(qe >> 7);
+        const float* ur = a.uf + (u0 + ul) * a.D;
+        const float* vr = a.iv + i * a.D;
+        float x = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < a.D; ++d) x = fmaf(__ldg(ur + d), __ldg(vr + d), x);
+        const float se = x + __ldg(a.ib + i);
         for (int tt = 0; tt < a.T; ++tt)
           if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
         ++n_re;
       }
+      __syncthreads();  // the queue's readers are done
+      if (tid == 0) *q_n = 0;
+      if (!__syncthreads_or(rest != 0)) break;
     }
   }
   fvx::cp_async_wait<0>();
@@ -533,26 +558,28 @@ bool chunking(long long n_ut, long long n_sub, long long& n_chunks,
   return true;
 }
 
-template <bool kVec, int kT>
-int launch_mma_as(const CountsArgs& a, dim3 grid, size_t smem,
-                  cudaStream_t stream) {
+template <bool kVec, int kT, bool kChunked>
+int launch_as(const CountsArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
   static size_t granted = 0;  // per instantiation
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        counts_mma_kernel<kVec, kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        counts_mma_kernel<kVec, kT, kChunked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = smem;
   }
-  counts_mma_kernel<kVec, kT><<<grid, kMmaThreads, smem, stream>>>(a);
+  counts_mma_kernel<kVec, kT, kChunked><<<grid, kMmaThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kVec>
-int launch_mma_t(const CountsArgs& a, dim3 grid, size_t smem,
-                 cudaStream_t stream) {
-  return a.T == 1 ? launch_mma_as<kVec, 1>(a, grid, smem, stream)
-                  : launch_mma_as<kVec, kMaxT>(a, grid, smem, stream);
+template <bool kChunked>
+int launch(const CountsArgs& a, bool vec, dim3 grid, size_t smem,
+           cudaStream_t stream) {
+  if (vec)
+    return a.T == 1 ? launch_as<true, 1, kChunked>(a, grid, smem, stream)
+                    : launch_as<true, kMaxT, kChunked>(a, grid, smem, stream);
+  return a.T == 1 ? launch_as<false, 1, kChunked>(a, grid, smem, stream)
+                  : launch_as<false, kMaxT, kChunked>(a, grid, smem, stream);
 }
 
 }  // namespace
@@ -563,18 +590,20 @@ int launch_mma_t(const CountsArgs& a, dim3 grid, size_t smem,
 // int32, zeroed by the caller; all contiguous on the current device.
 // T <= 4, W <= 48, item_tile a multiple of 128.  band_scale multiplies the
 // recheck band (1 = the proven bound; infinity = every pair exact);
-// rechecked, if not null, is a device uint64 that gains the number of
-// pairs scored exactly.  Returns the cudaError_t of the launch (0 =
-// launched).
+// stage_users (D > 128 only; 0 elsewhere) stages the user tile with each
+// chunk even where it fits whole; rechecked, if not null, is a device uint64
+// that gains the number of pairs scored exactly.  Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
                           const void* ref, const void* loc, const void* nu,
                           const void* nv, void* out,
                           long long B, long long Ip, long long D, long long T,
-                          long long W, long long item_tile, double band_scale,
-                          void* rechecked, void* stream) {
+                          long long W, long long item_tile, long long stage_users,
+                          double band_scale, void* rechecked, void* stream) {
   if (B < 1 || Ip < 1 || D < 1 || T < 1 || T > kMaxT || W < 1 ||
-      W > kMaxW || item_tile < kTI || item_tile % kTI != 0 ||
-      B > (1LL << 30) || D > (1LL << 30) || !(band_scale >= 1.0))
+      W > kMaxW || item_tile < kNI || item_tile % kNI != 0 ||
+      B > (1LL << 30) || D > (1LL << 30) || !(band_scale >= 1.0) ||
+      (stage_users && D <= 128))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_ut = (B + kMU - 1) / kMU;
@@ -600,28 +629,40 @@ extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
   a.B = static_cast<int>(B);
   a.D = static_cast<int>(D);
   a.Dp = static_cast<int>((D + 15) / 16 * 16);
-  a.ld = a.Dp + 8;  // 8 words mod 32: the 8-byte fragment loads are conflict-free
   a.T = static_cast<int>(T);
   a.W = static_cast<int>(W);
   a.Ip = Ip;
   a.item_tile = item_tile;
   a.n_sub = n_sub;
   a.subs_per_chunk = per_chunk;
-  // the user tile and two item sub-tiles, f32, in shared memory: D <= 128
-  const size_t smem = static_cast<size_t>(kMU + 2 * kNI) * a.ld * 4 + 4 * kNI * 4 +
-                      2 * kMU * (kNI / 32) * 4 + 2 * kMU * kMaxT * 4 + kMU * 4;
-  if (smem <= kMaxSmem) {
-    const bool vec = D % 4 == 0 &&
-                     ((reinterpret_cast<uintptr_t>(uf) |
-                       reinterpret_cast<uintptr_t>(iv)) & 15) == 0;
-    return vec ? launch_mma_t<true>(a, grid, smem, s)
-               : launch_mma_t<false>(a, grid, smem, s);
+  const bool vec = D % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(uf) |
+                     reinterpret_cast<uintptr_t>(iv)) & 15) == 0;
+  // Rows Dp + 8 (or DK + 8) words apart: 8 or 24 mod 32, so the 8-byte
+  // fragment loads of a half-warp are conflict-free.  Beside the rows: bias
+  // and norms, bits, refs, counts, the users' band factors.
+  const size_t small = 4 * kNI * 4 + 2 * kMU * (kNI / 32) * 4 + 2 * kMU * kMaxT * 4 +
+                       kMU * 4;
+  if (D <= 128) {  // the user tile and two whole item sub-tiles: one chunk
+    a.DK = a.Dp;
+    a.nk = 1;
+    a.ldu = a.ldi = a.Dp + 8;
+    a.users_resident = true;
+    return launch<false>(a, vec, grid, (kMU + 2 * kNI) * a.ldi * 4 + small, s);
   }
-  // the CUDA-core design at very wide D (exact scores: no band)
-  const long long simt_ut = (B + kTU - 1) / kTU;
-  const dim3 sgrid(static_cast<unsigned>(simt_ut), static_cast<unsigned>(n_chunks));
-  counts_simt_kernel<<<sgrid, kThreads, 0, s>>>(
-      a.uf, a.iv, a.ib, a.ref, a.loc, a.out, a.B, Ip, a.D, a.T, a.W,
-      item_tile, n_sub, per_chunk);
-  return static_cast<int>(cudaGetLastError());
+  // D in chunks of DK columns, two stages of them, and the queue; the user
+  // tile whole where it fits beside two chunks of 64 columns (D <= 256)
+  const size_t fixed = small + kQueue * 8 + 16;
+  const size_t resident = static_cast<size_t>(kMU) * (a.Dp + 8) * 4;
+  a.users_resident = !stage_users && fixed + resident + 2 * kNI * 72 * 4 <= kMaxSmem;
+  const size_t held = a.users_resident ? resident : 0;
+  const size_t per_word = (a.users_resident ? 2 * kNI : 2 * kNI + 2 * kMU) * 4;
+  for (a.nk = 1;; ++a.nk) {  // the fewest chunks whose stages fit
+    a.DK = (a.Dp / 16 + a.nk - 1) / a.nk * 16;
+    if (fixed + held + per_word * (a.DK + 8) <= kMaxSmem) break;
+  }
+  a.nk = (a.Dp + a.DK - 1) / a.DK;
+  a.ldi = a.DK + 8;
+  a.ldu = a.users_resident ? a.Dp + 8 : a.ldi;
+  return launch<true>(a, vec, grid, fixed + held + per_word * a.ldi, s);
 }

@@ -23,7 +23,8 @@ backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
 scatter-set): bit-equal to their plain versions (compared as int32) at the
 packed rows' widths (VBPR's and GradFashion's with their frozen columns
 fused too), aligned and not, with out-of-range, negative and pad ids.
-K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150).  The packed step on the card against the same step on CPU copies: 4
+K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150; K2 at 150,
+256, 272 and 1024 too, where D arrives in chunks).  The packed step on the card against the same step on CPU copies: 4
 K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
 rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
@@ -315,6 +316,8 @@ def _counts_inputs(dev, B, I, D, T, Pb, seed):
     (8, 300, 16, 1, 4, 128), (100, 5000, 128, 3, 9, 2048),
     (257, 4099, 33, 2, 21, 256), (1, 17, 8, 1, 1, 2048),
     (100, 5000, 148, 3, 9, 2048), (257, 4099, 148, 1, 21, 256), (4100, 3000, 148, 1, 2, 2048),
+    (257, 4099, 150, 2, 21, 256), (300, 5000, 256, 1, 4, 256), (64, 2000, 272, 3, 4, 256),
+    (100, 3000, 1024, 3, 9, 2048),
 ])
 def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb,
                                                      item_tile):
@@ -337,9 +340,10 @@ def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb
 
 @pytest.mark.cuda
 def test_counts_kernel_at_d148_wide_bans_on_card(cuda_device):
-    """VBPR's and GradFashion's D = 148 (the CUDA-core route, D > 128), T =
-    3, four banned ids of one item tile per user (W >= 4), users and items
-    off the tiles: bit-equal to the plain version."""
+    """VBPR's and GradFashion's D = 148 (the chunked tensor-core route, D >
+    128), T = 3, four banned ids of one item tile per user (W >= 4), users
+    and items off the tiles: bit-equal to the plain version, with the user
+    tile whole in shared memory and staged with each chunk."""
     from fashionvisualexpl_tpu_torch.ops.topk import (
         banned_bucket_width,
         bucket_banned_ids_device,
@@ -356,6 +360,9 @@ def test_counts_kernel_at_d148_wide_bans_on_card(cuda_device):
     want = K2.streaming_counts_kernel(uf.cpu(), iv.cpu(), ib.cpu(), ref.cpu(), loc.cpu(),
                                       msk.cpu(), item_block=tile)
     assert torch.equal(got.cpu(), want)
+    args = K2.pad_counts_inputs(uf, iv, ib, ref, loc, msk, tile)
+    staged = K2.counts_kernel(*args[:5], item_tile=tile, user_tile=args[6], _stage_users=True)
+    assert torch.equal(staged[:B].cpu(), want)
 
 
 @pytest.mark.cuda
@@ -384,14 +391,18 @@ def test_counts_kernel_quantized_wide_bans_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 148, 1024])
 @pytest.mark.parametrize("kind", ["gaussian", "cancelling"])
-def test_counts_kernel_band_equals_exact_chain_on_card(cuda_device, kind):
+def test_counts_kernel_band_equals_exact_chain_on_card(cuda_device, kind, D):
     """The default band and _band_scale=inf (every pair through the exact
     fmaf chain) give bit-equal counts on data whose scores are not exact in
     f32: Gaussian rows, and rows of large +- terms whose dot products are
-    near 0, with the refs placed on such scores."""
+    near 0, with the refs placed on such scores.  At D = 128 the rows are
+    whole in shared memory; at 148 and 1024 they arrive in chunks of D (the
+    user tile whole at 148, staged at 1024), and pairs were rechecked, so
+    the tensor-core route ran."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
-    B, I, D, tile = 256, 16384, 128, 2048
+    B, I, tile = 256, 16384, 2048
     uf = torch.randn(B, D, device=cuda_device, generator=g) * 0.3
     iv = torch.randn(I, D, device=cuda_device, generator=g) * 0.3
     if kind == "cancelling":
@@ -415,7 +426,7 @@ def test_counts_kernel_band_equals_exact_chain_on_card(cuda_device, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 6, 16, 128])
+@pytest.mark.parametrize("D", [1, 6, 16, 128, 148, 1024])
 def test_counts_kernel_band_holds_the_worst_split_on_card(cuda_device, D):
     """Rows whose every coordinate is a worst case of the bf16 split, refs
     between the bf16x3 and the exact scores (ops/counts.py::band_worst_case):
