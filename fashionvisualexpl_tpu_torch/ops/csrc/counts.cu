@@ -32,10 +32,7 @@
 //   3xTF32 on m16n8k8 for the same products.
 //   Users are the M dimension and items N: a lane takes its fragment
 //   columns k, k + 1 of uf [B, D] (A, row-major) and iv [Ip, D] (B, "col")
-//   as one 8-byte shared-memory load and splits them in registers (D <=
-//   128), or finds them split already (D > 128: each thread splits the
-//   pairs it staged, once, where they land, so the four warps that read
-//   an element no longer split it four times).
+//   as one 8-byte shared-memory load and splits them in registers.
 // * Tiles.  A block of 16 warps owns 128 users and a range of the catalog
 //   (subs_per_chunk), walked in 128-item sub-tiles.  The pipeline's unit is
 //   a (sub-tile, D-chunk) pair, double-buffered: the next unit's rows
@@ -58,10 +55,12 @@
 //     chunk is staged beside the items' in each unit.  A sub-tile's bias,
 //     norms and banned bits arrive with its first chunk, its epilogue runs
 //     after its last.  Its marked pairs join a queue of the block (1024
-//     pairs); when the queue is full, and after the block's last unit, each
-//     thread rescores one queued pair, so the chains' latency is paid once
-//     for many pairs.  Both rows come from device memory (through L2: they
-//     were just streamed; shared memory holds their split pieces).
+//     pairs); when the queue is full (seen at the next unit's barrier, so
+//     an empty queue costs no barrier), and after the block's last unit,
+//     each thread rescores one queued pair, so the chains' latency is paid
+//     once for many pairs.  The item's row comes from device memory (through
+//     L2: it was just streamed), the user's from shared memory where the
+//     tile is whole, else from device memory too.
 // * The band.  For each pair the epilogue forms s~ = acc + ib[i] and, for
 //   each reference r, decides directly where s~ - r > eps or s~ - r < -eps;
 //   otherwise (and wherever s~, r or eps is not finite) it marks the pair,
@@ -140,18 +139,17 @@ struct CountsArgs {
   int* out;
   unsigned long long* rechecked;  // may be null
   float band_scale;
-  int B, D, Dp, T, W;
-  int DK, nk;      // columns of a chunk (a multiple of 16), chunks a sub-tile
-  int ldu, ldi;    // shared row strides (floats) of the user tile and of a chunk
-  bool users_resident;  // the user tile whole in shared memory, else staged per chunk
+  int B, D, Dp, ld, T, W;  // ld: the whole rows' shared stride in floats (Dp + 8)
+  int DK, nk, ldc;         // D > 128: chunk columns (a multiple of 16), chunks a
+                           // sub-tile, their shared stride (DK + 8)
+  bool users_resident;     // D > 128: the user tile whole, else staged per chunk
   long long Ip, item_tile, n_sub, subs_per_chunk;
 };
 
 // columns [c0, c0 + w) of rows [row0, row0 + rows) of src ([n_valid, D]
 // row-major) into dst rows of stride ld: 16-byte cp.async, or 4-byte loads
-// when !kVec; rows past n_valid and columns past D are zero.  kSplit && !kVec:
-// each column pair lands as its bf16x3 pieces {hi, lo} (split_pairs).
-template <bool kVec, bool kSplit = false>
+// when !kVec; rows past n_valid and columns past D are zero
+template <bool kVec>
 __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
                                           long long row0, int rows,
                                           long long n_valid, int D, int c0,
@@ -166,19 +164,6 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
       fvx::cp_async16(fvx::smem_u32(dst + r * ld + 4 * p),
                       ok ? src + g * D + c : src, ok ? 16 : 0);
     }
-  } else if (kSplit) {
-    const int pairs = w / 2;
-    for (int idx = tid; idx < rows * pairs; idx += kMmaThreads) {
-      const int r = idx / pairs, c = 2 * (idx - r * pairs);
-      const long long g = row0 + r;
-      const float* x = src + g * D + c0 + c;
-      const bool ok = g < n_valid;
-      const float2 v = make_float2(ok && c0 + c < D ? x[0] : 0.f,
-                                   ok && c0 + c + 1 < D ? x[1] : 0.f);
-      uint2 hl;
-      fvx::split_bf16x2(v, hl.x, hl.y);
-      *reinterpret_cast<uint2*>(dst + r * ld + c) = hl;
-    }
   } else {
     for (int idx = tid; idx < rows * w; idx += kMmaThreads) {
       const int r = idx / w, c = idx - r * w;
@@ -188,48 +173,288 @@ __device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
   }
 }
 
-// The pieces that this thread's cp.async of stage_f32<true>(dst, ld, ..,
-// rows, .., w, tid) copied, once they landed: each f32 column pair (k, k + 1)
-// becomes {hi, lo} (mma.cuh::split_bf16x2, two bf16 each) in its own 8
-// bytes, so that one 8-byte load gives a fragment's both pieces.  Each
-// element is split once, not once for each warp that reads it.
-__device__ __forceinline__ void split_pairs(float* dst, int ld, int rows, int w,
-                                            int tid) {
-  const int pieces = w / 4;
-  for (int idx = tid; idx < rows * pieces; idx += kMmaThreads) {
-    const int r = idx / pieces, p = idx - r * pieces;
-    float4* x = reinterpret_cast<float4*>(dst + r * ld + 4 * p);
-    const float4 v = *x;
-    uint4 hl;
-    fvx::split_bf16x2(make_float2(v.x, v.y), hl.x, hl.y);
-    fvx::split_bf16x2(make_float2(v.z, v.w), hl.z, hl.w);
-    *reinterpret_cast<uint4*>(x) = hl;
+// banned offsets of sub-tile `sub` as bits: one (user, 32-item word) a
+// thread of the block, into the bits of the sub-tile's parity
+__device__ __forceinline__ void build_bits(const CountsArgs& a, uint32_t* bits,
+                                           long long u0, long long sub,
+                                           long long sub_lo, int tid) {
+  const int ul = tid >> 2, k = tid & 3;
+  const long long b = u0 + ul;
+  const long long n0 = sub * kNI;
+  const long long tile = n0 / a.item_tile;
+  const int base = static_cast<int>(n0 - tile * a.item_tile) + 32 * k;
+  uint32_t word = 0;
+  if (b < a.B) {
+    const int* l = a.loc + (tile * a.B + b) * a.W;
+    for (int w = 0; w < a.W; ++w) {
+      const int o = __ldg(l + w) - base;
+      if (o >= 0 && o < 32) word |= 1u << o;
+    }
+  }
+  bits[((sub - sub_lo) & 1) * kMU * 4 + ul * 4 + k] = word;
+}
+
+// one k16 step of the bf16x3 product of a warp's 32 users x 32 items: this
+// lane's A rows a_row + {0, 8, 16, 24} * lda, B rows b_row + {0, 8, 16, 24}
+// * ldb, columns k0 + 2t (+1) and k0 + 2t + 8 (+9)
+__device__ __forceinline__ void mma_step(float (&acc)[2][4][4], const float* a_row,
+                                         int lda, const float* b_row, int ldb,
+                                         int k0) {
+  uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // rows g / g + 8, columns +0 / +8
+      const float2 x = *reinterpret_cast<const float2*>(
+          a_row + (mi * 16 + (q & 1) * 8) * lda + k0 + (q >> 1) * 8);
+      fvx::split_bf16x2(x, ah[mi][q], al[mi][q]);
+    }
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float2 x = *reinterpret_cast<const float2*>(b_row + ni * 8 * ldb + k0 + q * 8);
+      fvx::split_bf16x2(x, bh[ni][q], bl[ni][q]);
+    }
+  // the small terms first; 8 independent products between dependent ones
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], al[mi], bh[ni]);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], ah[mi], bl[ni]);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], ah[mi], bh[ni]);
+}
+
+// The epilogue of a warp's 32 x 32 pairs of sub-tile n0 (bias, norms and
+// bits of its parity in ib_s, nv_s, bw): forms s~ = acc + bias, counts into
+// tot_s the pairs decided directly (|s~ - r| > eps for every reference) and
+// returns the others as bits (mi, h, ni, e): the pairs for the exact chain.
+template <int kT>
+__device__ __forceinline__ uint32_t count_decided(
+    const float (&acc)[2][4][4], const CountsArgs& a, long long n0,
+    const float* ib_s, const float* nv_s, const uint32_t* bw, const float* ref_s,
+    const float* cu_s, int* tot_s, int wu, int wi, int g, int t) {
+  float nv[4][2], bias[4][2], beps[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int il = wi * 32 + ni * 8 + 2 * t + e;
+      // an item past the catalog never counts: bias -inf, no recheck
+      const float b = n0 + il < a.Ip ? ib_s[il] : -CUDART_INF_F;
+      nv[ni][e] = nv_s[il] * a.band_scale;
+      bias[ni][e] = b;
+      beps[ni][e] = fmaf(1.001f * 0x1p-22f * (isinf(b) ? 0.f : fabsf(b)),
+                         a.band_scale, kBandAbs);
+    }
+  uint32_t pend = 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ul = wu * 32 + mi * 16 + h * 8 + g;
+      const float cu = cu_s[ul];
+      const uint32_t word = bw[ul * 4 + wi];
+      float r[kT];
+      int cnt[kT];
+#pragma unroll
+      for (int tt = 0; tt < kT; ++tt) {
+        r[tt] = ref_s[ul * kMaxT + tt];
+        cnt[tt] = 0;
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = ni * 8 + 2 * t + e;  // item within the warp's 32
+          if ((word >> j) & 1u) continue;    // banned
+          const float st = acc[mi][ni][h * 2 + e] + bias[ni][e];
+          // (cu * |v| + the bias term) * band_scale + 2^-100
+          const float eps = fmaf(cu, nv[ni][e], beps[ni][e]);
+          bool undecided = false;
+#pragma unroll
+          for (int tt = 0; tt < kT; ++tt) {
+            const float d = st - r[tt];
+            undecided |= !(fabsf(d) > eps) && (kT == 1 || tt < a.T);
+          }
+          if (undecided) {
+            pend |= 1u << (mi * 16 + h * 8 + ni * 2 + e);
+          } else {
+#pragma unroll
+            for (int tt = 0; tt < kT; ++tt) cnt[tt] += st - r[tt] > 0.f;
+          }
+        }
+      }
+      // the 4 lanes of the user row, then the 4 item warps, in shared memory
+#pragma unroll
+      for (int tt = 0; tt < kT; ++tt) {
+        int v = cnt[tt];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0 && (kT == 1 || tt < a.T) && v)
+          atomicAdd(tot_s + ul * kMaxT + tt, v);
+      }
+    }
+  }
+  return pend;
+}
+
+// the block's counts into out (integer atomics: exact, order-free), and
+// its rechecked pairs into a.rechecked
+__device__ __forceinline__ void finish(const CountsArgs& a, const int* tot_s,
+                                       unsigned long long n_re, long long u0,
+                                       int tid) {
+  if (a.rechecked) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) n_re += __shfl_xor_sync(0xffffffffu, n_re, o);
+    if ((tid & 31) == 0 && n_re) atomicAdd(a.rechecked, n_re);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kMU * a.T; idx += kMmaThreads) {
+    const int ul = idx / a.T, tt = idx % a.T;
+    const long long b = u0 + ul;
+    const int v = tot_s[ul * kMaxT + tt];
+    if (b < a.B && v) atomicAdd(a.out + b * a.T + tt, v);
   }
 }
 
+// refs, zeroed counts and eps's user factors of the block's users
+__device__ __forceinline__ void init_users(const CountsArgs& a, float* ref_s,
+                                           int* tot_s, float* cu_s, long long u0,
+                                           int tid) {
+  for (int idx = tid; idx < kMU * kMaxT; idx += kMmaThreads) {
+    const int ul = idx / kMaxT, tt = idx % kMaxT;
+    const long long b = u0 + ul;
+    ref_s[idx] = (b < a.B && tt < a.T) ? a.ref[b * a.T + tt] : CUDART_INF_F;
+    tot_s[idx] = 0;
+  }
+  if (tid < kMU)
+    cu_s[tid] = u0 + tid < a.B
+        ? 1.001f * (kBandD * a.D + kBand0) * 0x1p-22f * a.nu[u0 + tid] : 0.f;
+}
+
+// D <= 128: the user tile and two whole item sub-tiles in shared memory.
 // kT: the reference columns the epilogue compares (1, or up to kMaxT).
-// kChunked: a sub-tile's rows arrive in nk chunks of D (D > 128), split
-// into their bf16 pieces where they land, and the marked pairs are queued
-// and rescored from the rows in device memory; otherwise (nk == 1) each warp
-// splits the f32 rows it reads, and the marked pairs are rescored from the
-// rows in shared memory.
-template <bool kVec, int kT, bool kChunked>
+template <bool kVec, int kT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 counts_mma_kernel(const CountsArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // [kMU][ldu] resident, or [2][kMU][ldi] a chunk a stage
-  // one chunk: the users resident and one row stride, as compile-time facts
-  const bool resident = !kChunked || a.users_resident;
-  const int ldu = a.ldu, ldi = kChunked ? a.ldi : a.ldu;
-  float* users = reinterpret_cast<float*>(smem);
-  float* items = users + (resident ? kMU * ldu : 2 * kMU * ldi);  // [2][kNI][ldi]
-  float* ib_s = items + 2 * kNI * ldi;            // [2][kNI] bias
+  float* users = reinterpret_cast<float*>(smem);  // [kMU][ld]
+  float* items = users + kMU * a.ld;              // [2][kNI][ld]
+  float* ib_s = items + 2 * kNI * a.ld;           // [2][kNI] bias
   float* nv_s = ib_s + 2 * kNI;                   // [2][kNI] norms
   uint32_t* bits = reinterpret_cast<uint32_t*>(nv_s + 2 * kNI);
   float* ref_s = reinterpret_cast<float*>(bits + 2 * kMU * (kNI / 32));
   int* tot_s = reinterpret_cast<int*>(ref_s + kMU * kMaxT);
   float* cu_s = reinterpret_cast<float*>(tot_s + kMU * kMaxT);
-  // kChunked: marked pairs, (item << 7) | user within the tile, and their count
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wu = warp & 3, wi = warp >> 2;  // user / item quarter
+  const int g = lane >> 2, t = lane & 3;
+  const long long u0 = static_cast<long long>(blockIdx.x) * kMU;
+  const long long sub_lo = static_cast<long long>(blockIdx.y) * a.subs_per_chunk;
+  const long long sub_hi = min(a.n_sub, sub_lo + a.subs_per_chunk);
+
+  // sub-tile `sub`: its rows, their bias and norms (past the catalog: 0)
+  auto stage_sub = [&](long long sub) {
+    const int buf = static_cast<int>((sub - sub_lo) & 1);
+    stage_f32<kVec>(items + buf * kNI * a.ld, a.ld, a.iv, sub * kNI, kNI, a.Ip,
+                    a.D, 0, a.Dp, tid);
+    if (tid < 2 * kNI) {
+      const long long n = sub * kNI + (tid & (kNI - 1));
+      const float* src = tid < kNI ? a.ib : a.nv;
+      fvx::cp_async4(fvx::smem_u32((tid < kNI ? ib_s : nv_s) + buf * kNI + (tid & (kNI - 1))),
+                     n < a.Ip ? src + n : src, n < a.Ip ? 4 : 0);
+    }
+  };
+
+  // the user tile once, the first sub-tile, refs, eps's user factors, bits
+  stage_f32<kVec>(users, a.ld, a.uf, u0, kMU, a.B, a.D, 0, a.Dp, tid);
+  stage_sub(sub_lo);
+  fvx::cp_async_commit();
+  init_users(a, ref_s, tot_s, cu_s, u0, tid);
+  build_bits(a, bits, u0, sub_lo, sub_lo, tid);
+
+  const float* a_row = users + (wu * 32 + g) * a.ld + 2 * t;
+  const int b_row = (wi * 32 + g) * a.ld + 2 * t;
+  unsigned long long n_re = 0;
+
+  for (long long sub = sub_lo; sub < sub_hi; ++sub) {
+    fvx::cp_async_wait<0>();
+    __syncthreads();  // sub-tile sub landed; sub - 1's readers are done
+    const int buf = static_cast<int>((sub - sub_lo) & 1);
+    const float* cur = items + buf * kNI * a.ld;
+    if (sub + 1 < sub_hi) {
+      stage_sub(sub + 1);
+      build_bits(a, bits, u0, sub + 1, sub_lo, tid);
+    }
+    fvx::cp_async_commit();
+
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    for (int k0 = 0; k0 < a.Dp; k0 += 16) mma_step(acc, a_row, a.ld, cur + b_row, a.ld, k0);
+
+    const long long n0 = sub * kNI;
+    uint32_t pend = count_decided<kT>(acc, a, n0, ib_s + buf * kNI, nv_s + buf * kNI,
+                                      bits + buf * kMU * 4, ref_s, cu_s, tot_s, wu, wi,
+                                      g, t);
+    // the exact chain for the marked pairs, one a lane at a time, from the
+    // rows in shared memory: fmaf in ascending d, + bias, >= each ref
+    while (__any_sync(0xffffffffu, pend)) {
+      if (pend) {
+        const int p = __ffs(pend) - 1;
+        pend &= pend - 1;
+        const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
+        const int ul = wu * 32 + mi * 16 + h * 8 + g;
+        const int il = wi * 32 + ni * 8 + 2 * t + e;
+        const float* ur = users + ul * a.ld;
+        const float* vr = cur + il * a.ld;
+        float x = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < a.D; ++d) x = fmaf(ur[d], vr[d], x);
+        const float se =
+            x + (n0 + il < a.Ip ? ib_s[buf * kNI + il] : -CUDART_INF_F);
+        for (int tt = 0; tt < a.T; ++tt)
+          if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
+        ++n_re;
+      }
+    }
+  }
+  fvx::cp_async_wait<0>();
+  finish(a, tot_s, n_re, u0, tid);
+}
+
+// D > 128: D in nk chunks of DK columns.  The pipeline's unit is chunk kc
+// of sub-tile sub, in ascending order; the accumulators stay in registers
+// across a sub-tile's chunks, and its epilogue runs after the last.  The
+// marked pairs are queued and rescored: the item's row from device memory,
+// the user's from shared memory where the tile is whole.
+template <bool kVec, int kT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+counts_chunked_kernel(const CountsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [kMU][ld] whole, or [2][kMU][ldc] a chunk a stage
+  float* users = reinterpret_cast<float*>(smem);
+  float* items = users + (a.users_resident ? kMU * a.ld : 2 * kMU * a.ldc);  // [2][kNI][ldc]
+  float* ib_s = items + 2 * kNI * a.ldc;          // [2][kNI] bias
+  float* nv_s = ib_s + 2 * kNI;                   // [2][kNI] norms
+  uint32_t* bits = reinterpret_cast<uint32_t*>(nv_s + 2 * kNI);
+  float* ref_s = reinterpret_cast<float*>(bits + 2 * kMU * (kNI / 32));
+  int* tot_s = reinterpret_cast<int*>(ref_s + kMU * kMaxT);
+  float* cu_s = reinterpret_cast<float*>(tot_s + kMU * kMaxT);
+  // marked pairs, (item << 7) | user within the tile, and their count
   unsigned long long* queue = reinterpret_cast<unsigned long long*>(cu_s + kMU);
   int* q_n = reinterpret_cast<int*>(queue + kQueue);
 
@@ -240,41 +465,17 @@ counts_mma_kernel(const CountsArgs a) {
   const long long u0 = static_cast<long long>(blockIdx.x) * kMU;
   const long long sub_lo = static_cast<long long>(blockIdx.y) * a.subs_per_chunk;
   const long long sub_hi = min(a.n_sub, sub_lo + a.subs_per_chunk);
-  // the pipeline's unit: chunk u % nk of sub-tile sub_lo + u / nk, in
-  // ascending order, so each pair's k16 steps run in ascending order
-  const long long n_units = (sub_hi - sub_lo) * (kChunked ? a.nk : 1);
 
-  // banned offsets of sub-tile `sub` as bits: one (user, 32-item word) a
-  // thread, into the buffer of the sub-tile's parity
-  auto build_bits = [&](long long sub) {
-    const int ul = tid >> 2, k = tid & 3;
-    const long long b = u0 + ul;
-    const long long n0 = sub * kNI;
-    const long long tile = n0 / a.item_tile;
-    const int base = static_cast<int>(n0 - tile * a.item_tile) + 32 * k;
-    uint32_t word = 0;
-    if (b < a.B) {
-      const int* l = a.loc + (tile * a.B + b) * a.W;
-      for (int w = 0; w < a.W; ++w) {
-        const int o = __ldg(l + w) - base;
-        if (o >= 0 && o < 32) word |= 1u << o;
-      }
-    }
-    bits[((sub - sub_lo) & 1) * kMU * 4 + ul * 4 + k] = word;
-  };
-  // unit u: its chunk of the item rows (and of the user rows when staged);
-  // with a sub-tile's first chunk its bias, norms and banned bits (past the
-  // catalog: 0)
-  auto stage_unit = [&](long long u) {
-    const long long sub = sub_lo + (kChunked ? u / a.nk : u);
-    const int kc = kChunked ? static_cast<int>(u % a.nk) : 0;
-    const int buf = static_cast<int>(u & 1);
-    const int c0 = kc * a.DK, w = kChunked ? min(a.DK, a.Dp - c0) : a.Dp;
-    stage_f32<kVec, kChunked>(items + buf * kNI * ldi, ldi, a.iv, sub * kNI, kNI,
-                              a.Ip, a.D, c0, w, tid);
-    if (!resident)
-      stage_f32<kVec, kChunked>(users + buf * kMU * ldi, ldi, a.uf, u0, kMU, a.B,
-                                a.D, c0, w, tid);
+  // unit (sub, kc) into buffer buf: its chunk of the item rows (and of the
+  // user rows when staged); with a sub-tile's first chunk its bias, norms
+  // and banned bits (past the catalog: 0)
+  auto stage_unit = [&](long long sub, int kc, int buf) {
+    const int c0 = kc * a.DK, w = min(a.DK, a.Dp - c0);
+    stage_f32<kVec>(items + buf * kNI * a.ldc, a.ldc, a.iv, sub * kNI, kNI, a.Ip,
+                    a.D, c0, w, tid);
+    if (!a.users_resident)
+      stage_f32<kVec>(users + buf * kMU * a.ldc, a.ldc, a.uf, u0, kMU, a.B, a.D,
+                      c0, w, tid);
     if (kc == 0) {
       const int sb = static_cast<int>((sub - sub_lo) & 1);
       if (tid < 2 * kNI) {
@@ -284,51 +485,104 @@ counts_mma_kernel(const CountsArgs a) {
             fvx::smem_u32((tid < kNI ? ib_s : nv_s) + sb * kNI + (tid & (kNI - 1))),
             n < a.Ip ? src + n : src, n < a.Ip ? 4 : 0);
       }
-      build_bits(sub);
+      build_bits(a, bits, u0, sub, sub_lo, tid);
     }
   };
 
-  // the user tile once when resident, the first unit, refs, eps's user
-  // factors
-  if (resident)
-    stage_f32<kVec, kChunked>(users, ldu, a.uf, u0, kMU, a.B, a.D, 0, a.Dp, tid);
-  stage_unit(0);
-  fvx::cp_async_commit();
-  for (int idx = tid; idx < kMU * kMaxT; idx += kMmaThreads) {
-    const int ul = idx / kMaxT, tt = idx % kMaxT;
-    const long long b = u0 + ul;
-    ref_s[idx] = (b < a.B && tt < a.T) ? a.ref[b * a.T + tt] : CUDART_INF_F;
-    tot_s[idx] = 0;
-  }
-  if (tid < kMU)
-    cu_s[tid] = u0 + tid < a.B
-        ? 1.001f * (kBandD * a.D + kBand0) * 0x1p-22f * a.nu[u0 + tid] : 0.f;
-  if (kChunked && tid == 0) *q_n = 0;
-
-  // this lane's rows: users (A) wu*32 + mi*16 + {g, g+8}, items (B)
-  // wi*32 + ni*8 + g; columns k0 + 2t (+1) and k0 + 2t + 8 (+9)
-  const int lda = resident ? ldu : ldi;
-  const float* a_base = users + (wu * 32 + g) * lda + 2 * t;
-  const int b_off = (wi * 32 + g) * ldi + 2 * t;
-  unsigned long long n_re = 0;
-  float acc[2][4][4];
-
-  for (long long u = 0; u < n_units; ++u) {
-    fvx::cp_async_wait<0>();
-    const int buf = static_cast<int>(u & 1);
-    const long long sub = sub_lo + (kChunked ? u / a.nk : u);
-    const int kc = kChunked ? static_cast<int>(u % a.nk) : 0;
-    const int w = kChunked ? min(a.DK, a.Dp - kc * a.DK) : a.Dp;
-    if (kChunked && kVec) {  // this thread's copies of unit u landed: split them
-      if (resident && u == 0) split_pairs(users, ldu, kMU, a.Dp, tid);
-      if (!resident) split_pairs(users + buf * kMU * ldi, ldi, kMU, w, tid);
-      split_pairs(items + buf * kNI * ldi, ldi, kNI, w, tid);
+  // The marked pairs that can count (a user of the batch, an item of the
+  // catalog) of sub-tile rest_n0, as bits (mi, h, ni, e), join the block's
+  // queue as far as it has room; the rest stay in `rest`.  Returns whether
+  // this thread's append reached the queue's end.
+  uint32_t rest = 0;
+  long long rest_n0 = 0;
+  auto enqueue = [&]() {
+    const int n = __popc(rest);
+    if (n == 0) return false;
+    int slot = atomicAdd(q_n, n);
+    const bool full = slot + n >= kQueue;
+    for (; rest && slot < kQueue; ++slot) {
+      const int p = __ffs(rest) - 1;
+      rest &= rest - 1;
+      const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
+      const unsigned long long il = wi * 32 + ni * 8 + 2 * t + e;
+      queue[slot] = (static_cast<unsigned long long>(rest_n0) + il) << 7 |
+                    static_cast<unsigned>(wu * 32 + mi * 16 + h * 8 + g);
     }
-    __syncthreads();  // unit u landed (and split); unit u - 1's readers are done
-    if (u + 1 < n_units) stage_unit(u + 1);
+    return full;
+  };
+  // After a barrier: every thread rescores queued pairs, one a thread, so
+  // the chains' latency is paid once for up to kQueue pairs; the exact
+  // chain: fmaf in ascending d, + bias, >= each ref.  Then the queue is
+  // empty again and takes what did not fit.  Returns whether that filled it.
+  unsigned long long n_re = 0;
+  auto drain = [&]() {
+    const int filled = min(*q_n, kQueue);
+    for (int k = tid; k < filled; k += kMmaThreads) {
+      const unsigned long long qe = queue[k];
+      const int ul = static_cast<int>(qe & (kMU - 1));
+      const long long i = static_cast<long long>(qe >> 7);
+      const float* vr = a.iv + i * a.D;
+      const float* uw = users + ul * a.ld;               // the user tile whole
+      const float* ug = a.uf + (u0 + ul) * a.D;          // ... or staged
+      float x = 0.f;
+      // rows 16-byte aligned (kVec): four columns a load, in the same order
+      const float4* v4 = reinterpret_cast<const float4*>(vr);
+      if (kVec && a.users_resident) {
+#pragma unroll 4
+        for (int d = 0; d < a.D / 4; ++d) {
+          const float4 u = reinterpret_cast<const float4*>(uw)[d], v = __ldg(v4 + d);
+          x = fmaf(u.w, v.w, fmaf(u.z, v.z, fmaf(u.y, v.y, fmaf(u.x, v.x, x))));
+        }
+      } else if (kVec) {
+#pragma unroll 4
+        for (int d = 0; d < a.D / 4; ++d) {
+          const float4 u = __ldg(reinterpret_cast<const float4*>(ug) + d), v = __ldg(v4 + d);
+          x = fmaf(u.w, v.w, fmaf(u.z, v.z, fmaf(u.y, v.y, fmaf(u.x, v.x, x))));
+        }
+      } else if (a.users_resident) {
+#pragma unroll 8
+        for (int d = 0; d < a.D; ++d) x = fmaf(uw[d], __ldg(vr + d), x);
+      } else {
+#pragma unroll 8
+        for (int d = 0; d < a.D; ++d) x = fmaf(__ldg(ug + d), __ldg(vr + d), x);
+      }
+      const float se = x + __ldg(a.ib + i);
+      for (int tt = 0; tt < a.T; ++tt)
+        if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
+      ++n_re;
+    }
+    __syncthreads();  // the queue's readers are done
+    if (tid == 0) *q_n = 0;
+    __syncthreads();
+    return enqueue();
+  };
+
+  // the user tile once when whole, the first unit, refs, eps's user factors
+  if (a.users_resident)
+    stage_f32<kVec>(users, a.ld, a.uf, u0, kMU, a.B, a.D, 0, a.Dp, tid);
+  stage_unit(sub_lo, 0, 0);
+  fvx::cp_async_commit();
+  init_users(a, ref_s, tot_s, cu_s, u0, tid);
+  if (tid == 0) *q_n = 0;
+
+  const int lda = a.users_resident ? a.ld : a.ldc;
+  const float* a_base = users + (wu * 32 + g) * lda + 2 * t;
+  const int b_row = (wi * 32 + g) * a.ldc + 2 * t;
+  float acc[2][4][4];
+  bool q_full = false;  // this thread's last append filled the queue
+  int buf = 0, kc = 0;
+  for (long long sub = sub_lo; sub < sub_hi; buf ^= 1) {
+    fvx::cp_async_wait<0>();
+    // unit (sub, kc) landed; the previous unit's readers are done; a full
+    // queue is drained before the next sub-tile's pairs can join it
+    if (__syncthreads_or(q_full))
+      while (__syncthreads_or(drain())) {}
+    q_full = false;
+    const bool last_chunk = kc + 1 == a.nk;
+    if (!last_chunk || sub + 1 < sub_hi)
+      stage_unit(last_chunk ? sub + 1 : sub, last_chunk ? 0 : kc + 1, buf ^ 1);
     fvx::cp_async_commit();
 
-    // bf16x3 product of the warp's 32 users x 32 items over this chunk
     if (kc == 0) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -337,152 +591,20 @@ counts_mma_kernel(const CountsArgs a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
     }
-    const float* a_row = resident ? a_base + kc * a.DK : a_base + buf * kMU * ldi;
-    const float* b_base = items + buf * kNI * ldi + b_off;
-    for (int k0 = 0; k0 < w; k0 += 16) {
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {  // rows g / g + 8, columns +0 / +8
-          const float* x = a_row + (mi * 16 + (q & 1) * 8) * lda + k0 + (q >> 1) * 8;
-          if (kChunked) {  // {hi, lo} already
-            const uint2 hl = *reinterpret_cast<const uint2*>(x);
-            ah[mi][q] = hl.x;
-            al[mi][q] = hl.y;
-          } else {
-            fvx::split_bf16x2(*reinterpret_cast<const float2*>(x), ah[mi][q], al[mi][q]);
-          }
-        }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float* x = b_base + ni * 8 * ldi + k0 + q * 8;
-          if (kChunked) {
-            const uint2 hl = *reinterpret_cast<const uint2*>(x);
-            bh[ni][q] = hl.x;
-            bl[ni][q] = hl.y;
-          } else {
-            fvx::split_bf16x2(*reinterpret_cast<const float2*>(x), bh[ni][q], bl[ni][q]);
-          }
-        }
-      // the small terms first; 8 independent products between dependent ones
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], al[mi], bh[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], ah[mi], bl[ni]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) fvx::mma_bf16_16816(acc[mi][ni], ah[mi], bh[ni]);
-    }
-    if (kc + 1 < a.nk) continue;  // the sub-tile's product is not whole yet
-
-    // epilogue: bias, exclusion, band; pairs in the band are marked
-    const long long n0 = sub * kNI;
-    const int sb = static_cast<int>((sub - sub_lo) & 1);
-    const uint32_t* bw = bits + sb * kMU * 4;
-    float nv[4][2], bias[4][2], beps[4][2];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int il = wi * 32 + ni * 8 + 2 * t + e;
-        // an item past the catalog never counts: bias -inf, no recheck
-        const float b = n0 + il < a.Ip ? ib_s[sb * kNI + il] : -CUDART_INF_F;
-        nv[ni][e] = nv_s[sb * kNI + il] * a.band_scale;
-        bias[ni][e] = b;
-        beps[ni][e] = fmaf(1.001f * 0x1p-22f * (isinf(b) ? 0.f : fabsf(b)),
-                           a.band_scale, kBandAbs);
-      }
-    uint32_t pend = 0;  // bit (mi, h, ni, e): the pair goes to the exact chain
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ul = wu * 32 + mi * 16 + h * 8 + g;
-        const float cu = cu_s[ul];
-        const uint32_t word = bw[ul * 4 + wi];
-        float r[kT];
-        int cnt[kT];
-#pragma unroll
-        for (int tt = 0; tt < kT; ++tt) {
-          r[tt] = ref_s[ul * kMaxT + tt];
-          cnt[tt] = 0;
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = ni * 8 + 2 * t + e;  // item within the warp's 32
-            if ((word >> j) & 1u) continue;    // banned
-            const float st = acc[mi][ni][h * 2 + e] + bias[ni][e];
-            // (cu * |v| + the bias term) * band_scale + 2^-100
-            const float eps = fmaf(cu, nv[ni][e], beps[ni][e]);
-            bool undecided = false;
-#pragma unroll
-            for (int tt = 0; tt < kT; ++tt) {
-              const float d = st - r[tt];
-              undecided |= !(fabsf(d) > eps) && (kT == 1 || tt < a.T);
-            }
-            if (undecided) {
-              pend |= 1u << (mi * 16 + h * 8 + ni * 2 + e);
-            } else {
-#pragma unroll
-              for (int tt = 0; tt < kT; ++tt) cnt[tt] += st - r[tt] > 0.f;
-            }
-          }
-        }
-        // the 4 lanes of the user row, then the 4 item warps, in shared memory
-#pragma unroll
-        for (int tt = 0; tt < kT; ++tt) {
-          int v = cnt[tt];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          if (t == 0 && (kT == 1 || tt < a.T) && v)
-            atomicAdd(tot_s + ul * kMaxT + tt, v);
-        }
-      }
-    }
-
-    if (!kChunked) {
-      // the exact chain for the marked pairs, one a lane at a time, from the
-      // rows in shared memory: fmaf in ascending d, + bias, >= each ref
-      const float* cur = items + buf * kNI * ldi;
-      while (__any_sync(0xffffffffu, pend)) {
-        if (pend) {
-          const int p = __ffs(pend) - 1;
-          pend &= pend - 1;
-          const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
-          const int ul = wu * 32 + mi * 16 + h * 8 + g;
-          const int il = wi * 32 + ni * 8 + 2 * t + e;
-          const float* ur = users + ul * ldu;
-          const float* vr = cur + il * ldi;
-          float x = 0.f;
-#pragma unroll 4
-          for (int d = 0; d < a.D; ++d) x = fmaf(ur[d], vr[d], x);
-          const float se =
-              x + (n0 + il < a.Ip ? ib_s[sb * kNI + il] : -CUDART_INF_F);
-          for (int tt = 0; tt < a.T; ++tt)
-            if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
-          ++n_re;
-        }
-      }
+    const float* a_row = a.users_resident ? a_base + kc * a.DK : a_base + buf * kMU * a.ldc;
+    const float* b_base = items + buf * kNI * a.ldc + b_row;
+    const int w = min(a.DK, a.Dp - kc * a.DK);
+    for (int k0 = 0; k0 < w; k0 += 16) mma_step(acc, a_row, lda, b_base, a.ldc, k0);
+    if (!last_chunk) {  // the sub-tile's product is not whole yet
+      ++kc;
       continue;
     }
 
-    // kChunked: the sub-tile's rows are no longer whole in shared memory.
-    // The marked pairs that can count (a user of the batch, an item of the
-    // catalog) join the block's queue; when it is full, and after the last
-    // unit, every thread rescores queued pairs from device memory (the rows
-    // were just streamed: L2), one pair a thread, so the chains' latency is
-    // paid once for up to kQueue pairs.
-    uint32_t rest = 0;
+    const long long n0 = sub * kNI;
+    const int sb = static_cast<int>((sub - sub_lo) & 1);
+    const uint32_t pend = count_decided<kT>(acc, a, n0, ib_s + sb * kNI, nv_s + sb * kNI,
+                                            bits + sb * kMU * 4, ref_s, cu_s, tot_s, wu,
+                                            wi, g, t);
     for (uint32_t m = pend; m; m &= m - 1) {
       const int p = __ffs(m) - 1;
       const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
@@ -490,55 +612,20 @@ counts_mma_kernel(const CountsArgs a) {
           n0 + wi * 32 + ni * 8 + 2 * t + e < a.Ip)
         rest |= 1u << p;
     }
-    const bool last = u + 1 == n_units;
-    for (;;) {
-      const int n = __popc(rest);
-      int slot = n ? atomicAdd(q_n, n) : kQueue;
-      for (; rest && slot < kQueue; ++slot) {  // what does not fit stays in rest
-        const int p = __ffs(rest) - 1;
-        rest &= rest - 1;
-        const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
-        const unsigned long long il = wi * 32 + ni * 8 + 2 * t + e;
-        queue[slot] = (static_cast<unsigned long long>(n0) + il) << 7 |
-                      static_cast<unsigned>(wu * 32 + mi * 16 + h * 8 + g);
-      }
-      __syncthreads();
-      const int filled = min(*q_n, kQueue);
-      if (*q_n < kQueue && !last) break;
-      // the exact chain: fmaf in ascending d, + bias, >= each ref
-      for (int k = tid; k < filled; k += kMmaThreads) {
-        const unsigned long long qe = queue[k];
-        const int ul = static_cast<int>(qe & (kMU - 1));
-        const long long i = static_cast<long long>(qe >> 7);
-        const float* ur = a.uf + (u0 + ul) * a.D;
-        const float* vr = a.iv + i * a.D;
-        float x = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < a.D; ++d) x = fmaf(__ldg(ur + d), __ldg(vr + d), x);
-        const float se = x + __ldg(a.ib + i);
-        for (int tt = 0; tt < a.T; ++tt)
-          if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
-        ++n_re;
-      }
-      __syncthreads();  // the queue's readers are done
-      if (tid == 0) *q_n = 0;
-      if (!__syncthreads_or(rest != 0)) break;
-    }
+    rest_n0 = n0;
+    q_full = enqueue();
+    ++sub;
+    kc = 0;
   }
   fvx::cp_async_wait<0>();
-
-  if (a.rechecked) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) n_re += __shfl_xor_sync(0xffffffffu, n_re, o);
-    if (lane == 0 && n_re) atomicAdd(a.rechecked, n_re);
+  // what is left in the queue, and what did not fit (then the queue is not
+  // empty); *q_n is read between barriers
+  for (;;) {
+    __syncthreads();
+    if (*q_n == 0) break;
+    drain();
   }
-  __syncthreads();
-  for (int idx = tid; idx < kMU * a.T; idx += kMmaThreads) {
-    const int ul = idx / a.T, tt = idx % a.T;
-    const long long b = u0 + ul;
-    const int v = tot_s[ul * kMaxT + tt];
-    if (b < a.B && v) atomicAdd(a.out + b * a.T + tt, v);
-  }
+  finish(a, tot_s, n_re, u0, tid);
 }
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on the H100
@@ -558,28 +645,32 @@ bool chunking(long long n_ut, long long n_sub, long long& n_chunks,
   return true;
 }
 
-template <bool kVec, int kT, bool kChunked>
+template <bool kChunked, bool kVec, int kT>
 int launch_as(const CountsArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
   static size_t granted = 0;  // per instantiation
+  void (*kernel)(CountsArgs) =
+      kChunked ? counts_chunked_kernel<kVec, kT> : counts_mma_kernel<kVec, kT>;
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        counts_mma_kernel<kVec, kT, kChunked>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = smem;
   }
-  counts_mma_kernel<kVec, kT, kChunked><<<grid, kMmaThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  CountsArgs args = a;
+  void* params[] = {&args};
+  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid,
+                                           dim3(kMmaThreads), params, smem, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <bool kChunked>
 int launch(const CountsArgs& a, bool vec, dim3 grid, size_t smem,
            cudaStream_t stream) {
   if (vec)
-    return a.T == 1 ? launch_as<true, 1, kChunked>(a, grid, smem, stream)
-                    : launch_as<true, kMaxT, kChunked>(a, grid, smem, stream);
-  return a.T == 1 ? launch_as<false, 1, kChunked>(a, grid, smem, stream)
-                  : launch_as<false, kMaxT, kChunked>(a, grid, smem, stream);
+    return a.T == 1 ? launch_as<kChunked, true, 1>(a, grid, smem, stream)
+                    : launch_as<kChunked, true, kMaxT>(a, grid, smem, stream);
+  return a.T == 1 ? launch_as<kChunked, false, 1>(a, grid, smem, stream)
+                  : launch_as<kChunked, false, kMaxT>(a, grid, smem, stream);
 }
 
 }  // namespace
@@ -615,7 +706,7 @@ extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(n_ut), static_cast<unsigned>(n_chunks));
 
-  CountsArgs a;
+  CountsArgs a{};
   a.uf = static_cast<const float*>(uf);
   a.iv = static_cast<const float*>(iv);
   a.ib = static_cast<const float*>(ib);
@@ -643,26 +734,21 @@ extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
   // and norms, bits, refs, counts, the users' band factors.
   const size_t small = 4 * kNI * 4 + 2 * kMU * (kNI / 32) * 4 + 2 * kMU * kMaxT * 4 +
                        kMU * 4;
-  if (D <= 128) {  // the user tile and two whole item sub-tiles: one chunk
-    a.DK = a.Dp;
-    a.nk = 1;
-    a.ldu = a.ldi = a.Dp + 8;
-    a.users_resident = true;
-    return launch<false>(a, vec, grid, (kMU + 2 * kNI) * a.ldi * 4 + small, s);
-  }
+  a.ld = a.Dp + 8;
+  if (D <= 128)  // the user tile and two whole item sub-tiles
+    return launch<false>(a, vec, grid, (kMU + 2 * kNI) * a.ld * 4 + small, s);
   // D in chunks of DK columns, two stages of them, and the queue; the user
   // tile whole where it fits beside two chunks of 64 columns (D <= 256)
   const size_t fixed = small + kQueue * 8 + 16;
-  const size_t resident = static_cast<size_t>(kMU) * (a.Dp + 8) * 4;
-  a.users_resident = !stage_users && fixed + resident + 2 * kNI * 72 * 4 <= kMaxSmem;
-  const size_t held = a.users_resident ? resident : 0;
+  const size_t whole = static_cast<size_t>(kMU) * a.ld * 4;
+  a.users_resident = !stage_users && fixed + whole + 2 * kNI * 72 * 4 <= kMaxSmem;
+  const size_t held = a.users_resident ? whole : 0;
   const size_t per_word = (a.users_resident ? 2 * kNI : 2 * kNI + 2 * kMU) * 4;
   for (a.nk = 1;; ++a.nk) {  // the fewest chunks whose stages fit
     a.DK = (a.Dp / 16 + a.nk - 1) / a.nk * 16;
     if (fixed + held + per_word * (a.DK + 8) <= kMaxSmem) break;
   }
   a.nk = (a.Dp + a.DK - 1) / a.DK;
-  a.ldi = a.DK + 8;
-  a.ldu = a.users_resident ? a.Dp + 8 : a.ldi;
-  return launch<true>(a, vec, grid, fixed + held + per_word * a.ldi, s);
+  a.ldc = a.DK + 8;
+  return launch<true>(a, vec, grid, fixed + held + per_word * a.ldc, s);
 }

@@ -1,14 +1,14 @@
-"""Time K2 (``ops/csrc/counts.cu``) of this tree against K2 of another
-checkout, in turns in one process on one card: at the streaming evaluator's
+"""Time K2 (``ops/csrc/counts.cu``) of this tree against K2 of other
+checkouts, in turns in one process on one card: at the streaming evaluator's
 block (B=4096 users x Ip=501,760 items, T=1, W=6, f32, the L2 flushed before
 each call) on quantized data, at D=128 and VBPR's D=148, in the order
-other, this, this, other.  Both libraries must give bit-equal counts.
+others, this, this, others reversed.  All must give bit-equal counts.
 
     git archive <commit> | tar -x -C build/archive/parent
     python scripts_torch/k2_ab.py --other build/archive/parent
 
-``--other``'s ``fvx_counts`` may predate the ``stage_users`` argument; the
-script reads the source to call it either way.  Prints one line per timing
+An other checkout's ``fvx_counts`` may predate the ``stage_users``
+argument; the script reads its source to call it either way.  Prints one line per timing
 and a JSON summary last; the times are torch.profiler's kernel durations of
 ``chip_smoke.kernel_times`` (the wrapper's norms included)."""
 
@@ -29,11 +29,11 @@ import chip_smoke as C  # noqa: E402
 from fashionvisualexpl_tpu_torch.ops import counts, cuda_build, topk  # noqa: E402
 
 
-def other_library(checkout: Path):
-    """(``fvx_counts`` of the other checkout's counts.cu, built with this
-    tree's flags, whether it takes ``stage_users``)."""
+def other_library(checkout: Path, n: int):
+    """(``fvx_counts`` of a checkout's counts.cu, built with this tree's
+    flags, whether it takes ``stage_users``)."""
     src = checkout / "fashionvisualexpl_tpu_torch" / "ops" / "csrc" / "counts.cu"
-    out = ROOT / "build" / "k2_ab" / "libcounts_other.so"
+    out = ROOT / "build" / "k2_ab" / f"libcounts_other{n}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)],
                    check=True, capture_output=True)
@@ -47,14 +47,15 @@ def other_library(checkout: Path):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", type=Path, required=True, help="checkout to compare with")
+    ap.add_argument("--other", type=Path, nargs="+", required=True,
+                    help="checkouts to compare with")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k2_ab: no CUDA card", file=sys.stderr)
         return 2
     print(f"card: {C.card_line()}")
-    fn, staged = other_library(args.other)
+    others = [other_library(c, n) for n, c in enumerate(args.other)]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     I, B = C.EVAL_I, C.EVAL_BLOCK
@@ -75,7 +76,7 @@ def main() -> int:
                                                          C.EVAL_TILE)
         Bp, Ip = cargs[0].shape[0], cargs[1].shape[0]
 
-        def other():
+        def other(fn, staged):
             out = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
             nu = torch.linalg.vector_norm(cargs[0], dim=1)
             nv = torch.linalg.vector_norm(cargs[1], dim=1)
@@ -90,11 +91,15 @@ def main() -> int:
         def this():
             return counts.counts_kernel(*cargs, item_tile=item_tile, user_tile=ut)
 
-        if not torch.equal(other(), this()):
-            print(f"k2_ab: the two kernels' counts differ at D={D}", file=sys.stderr)
-            return 1
+        want = this()
+        runs = [(str(c), lambda o=o: other(*o)) for c, o in zip(args.other, others)]
+        for label, f in runs:
+            if not torch.equal(f(), want):
+                print(f"k2_ab: {label}'s counts differ from this tree's at D={D}",
+                      file=sys.stderr)
+                return 1
         times = {}
-        for label, f in (("other", other), ("this", this), ("this", this), ("other", other)):
+        for label, f in runs + [("this", this)] * 2 + runs[::-1]:
             ms, _, _ = C.kernel_times(torch, f"counts {label} D={D}", f, args.iters, flush)
             times.setdefault(label, []).append(ms)
             print(f"D={D} {label}: {ms!r} ms")

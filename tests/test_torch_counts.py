@@ -1,9 +1,9 @@
 """Port ``ops/counts.py`` (the plain version of kernel K2, which CPU tensors
 take) against the JAX package's Pallas kernel in interpret mode.
 
-Quantized data (multiples of 1/4, D=16: every score exact in f32), with
--1 pads, duplicate banned ids, out-of-range ids, pad users and pad items,
-and T > 1 reference columns: the counts must be bit-equal.  The geometry
+Quantized data (multiples of 1/4, D=16 and VBPR's D=148: every score exact
+in f32), with -1 pads, duplicate banned ids, out-of-range ids, pad users and
+pad items, and T > 1 reference columns: the counts must be bit-equal.  The geometry
 checks raise as the JAX package's do."""
 
 import jax.numpy as jnp
@@ -28,14 +28,16 @@ def _inputs(seed, Bu, I, D, T, Pb, with_bias=True):
     return uf, iv, ib, ref, banned
 
 
-@pytest.mark.parametrize("Bu,I,T,Pb,item_block,user_tile,with_bias", [
-    (48, 1000, 3, 9, 256, 16, True),  # ragged users and items: pads both
-    (5, 300, 1, 4, 128, 256, True),  # fewer users than a tile (ut = 8)
-    (33, 512, 2, 21, 256, 8, False),  # no bias (zeros), items a tile multiple
+@pytest.mark.parametrize("Bu,I,D,T,Pb,item_block,user_tile,with_bias", [
+    (48, 1000, 16, 3, 9, 256, 16, True),  # ragged users and items: pads both
+    (5, 300, 16, 1, 4, 128, 256, True),  # fewer users than a tile (ut = 8)
+    (33, 512, 16, 2, 21, 256, 8, False),  # no bias (zeros), items a tile multiple
+    (40, 700, 148, 3, 9, 256, 16, True),  # D in chunks on the card: pads, T = 3
+    (24, 512, 148, 1, 4, 128, 8, False),  # ... and no bias
 ])
-def test_streaming_counts_kernel_bit_equal_to_pallas(Bu, I, T, Pb, item_block, user_tile,
+def test_streaming_counts_kernel_bit_equal_to_pallas(Bu, I, D, T, Pb, item_block, user_tile,
                                                       with_bias):
-    uf, iv, ib, ref, banned = _inputs(Bu, Bu, I, 16, T, Pb, with_bias)
+    uf, iv, ib, ref, banned = _inputs(Bu, Bu, I, D, T, Pb, with_bias)
     loc, msk = bucket_banned_ids(banned, I, item_block)
     want = J.streaming_counts_pallas(
         jnp.asarray(uf), jnp.asarray(iv), None if ib is None else jnp.asarray(ib),
@@ -99,7 +101,10 @@ def test_geometry_errors_raise_as_jax(what):
 # mma.cuh::split_bf16x2, round to nearest even onto bf16 by bit masking,
 # and an f32 accumulation that truncates after every single product, the
 # order of counts.cu: per 16-deep step lo.hi', then hi.lo', then hi.hi')
-# must stay within band_eps of the fmaf-chain score on every pair.
+# must stay within band_eps of the fmaf-chain score on every pair.  Above
+# D = 128 the kernel stages D in chunks (of 80 columns at D = 148) but keeps
+# the accumulators across them and runs the k16 steps in ascending order:
+# the emulation's single ascending pass over the k16 steps is that order.
 
 def _bf16_rne(x):
     """Round f32 onto bf16 to nearest, ties to even (bit masking)."""
@@ -169,7 +174,7 @@ def _band_rows(kind, D, seed):
 
 
 @pytest.mark.parametrize("kind", ["gaussian", "heavy", "cancelling"])
-@pytest.mark.parametrize("D", [16, 33, 128])
+@pytest.mark.parametrize("D", [16, 33, 128, 148, 300])
 def test_emulated_bf16x3_stays_within_the_band(kind, D):
     uf, iv, ib = _band_rows(kind, D, seed=D)
     assert np.array_equal(_bf16_rne(uf), torch.from_numpy(uf).bfloat16().float().numpy())
@@ -191,7 +196,7 @@ def test_emulated_bf16x3_stays_within_the_band(kind, D):
         np.testing.assert_array_equal((d > 0)[direct], (exact >= ref)[direct])
 
 
-@pytest.mark.parametrize("D", [1, 6, 16, 128])
+@pytest.mark.parametrize("D", [1, 6, 16, 128, 148, 1024])
 def test_worst_case_split_stays_within_the_band(D):
     """Rows whose every coordinate is a worst case of the bf16 split
     (ops/counts.py::band_worst_case): the emulated score misses the exact
@@ -236,3 +241,18 @@ def test_band_eps_scale_and_infinite_bias():
     with pytest.raises(ValueError, match="_band_scale"):
         P.counts_kernel(uf, iv, ib, torch.zeros(1, 1), torch.full((1, 1, 1), -1, dtype=torch.int32),
                         item_tile=2, user_tile=1, _band_scale=0.5)
+
+
+def test_stage_users_needs_the_chunked_route():
+    """_stage_users (the user tile staged with each chunk of D) exists only
+    where D arrives in chunks, D > 128; it never changes the counts."""
+    uf, iv, ib, ref, banned = _inputs(3, 8, 256, 129, 1, 2)
+    loc, msk = bucket_banned_ids(banned, 256, 128)
+    loc = np.where(msk, loc, -1).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (uf, iv, ib, ref, loc)]
+    want = P.counts_kernel(*args, item_tile=128, user_tile=8)
+    got = P.counts_kernel(*args, item_tile=128, user_tile=8, _stage_users=True)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="_stage_users needs D > 128"):
+        P.counts_kernel(args[0][:, :128].contiguous(), args[1][:, :128].contiguous(),
+                        *args[2:], item_tile=128, user_tile=8, _stage_users=True)
