@@ -254,9 +254,9 @@ MOMENT_CODE = {"float32": 0.0, "bfloat16": 2.0**-7, "float8": 2.0**-2}
 # (fashionvisualexpl_tpu/cli/train_rec.py:57-66): K=128, embed_d=20, vgg19
 # fc2 features 4096 wide (CNN and edges), 8x8x8 color histograms,
 # embed_color = embed_edges = 32.  Factored, D = K + embed_d = 148, which
-# sends K2 to its chunked route (D > 128: D in two chunks of 80) and K3 to
-# its mma.sync route with 2-byte staging (D % 8 != 0); both are also
-# checked at 150, K2 at 1024 too (the user tile staged).  The full
+# K2 takes in two chunks of 80 columns and K3 on its mma.sync route with
+# 2-byte staging (D % 8 != 0); both are also checked at 150, K2 at 1024
+# too (the user tile staged).  The full
 # width phase runs over the evaluation phase's 1M users x 500k items and
 # data: packed training 3 steps against CPU copies on a 20k x 20k catalog,
 # then a 200-step epoch; 50 generic steps; a 200-step fast epoch; both
@@ -1156,8 +1156,8 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
         rechecked = int(n_re)
         print(f"counts evaluator shape D={D}: {rechecked} of {B * args[1].shape[0]} pairs "
               f"scored again exactly (the band)")
-        if D > 128 and rechecked == 0:
-            fail(f"counts at D={D} rechecked no pair: the tensor-core route did not run")
+        if rechecked == 0:
+            fail(f"counts at D={D} rechecked no pair on data with ties")
         ms, call_ms, _ = kernel_times(torch, f"counts D={D}", lambda: counts.counts_kernel(
             *args, item_tile=item_tile, user_tile=ut), 10, flush)
         extra = {}
@@ -1227,7 +1227,7 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
     # the recheck band: the default kernel and _band_scale=inf (every pair
     # through the exact fmaf chain) bit-equal on Gaussian rows and on
     # cancelling rows (large +- terms, dot products near 0, refs on them), at
-    # D=128 (rows whole in shared memory) and VBPR's 148 (D in chunks)
+    # D=128 (one chunk of D) and VBPR's 148 (two)
     t0 = time.perf_counter()
     band_check = {}
     gauss = args
@@ -2865,20 +2865,23 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
 
     ev._eval_split = timed
     # every K2 call of the run adds its rechecked pairs into n_re
-    kernel, n_re = counts.counts_kernel, torch.zeros(1, dtype=torch.int64, device=dev)
-    counts.counts_kernel = lambda *a, **k: kernel(*a, _rechecked=n_re, **k)
+    from fashionvisualexpl_tpu_torch.eval import factored
+
+    engine, n_re = factored.streaming_counts_kernel, torch.zeros(1, dtype=torch.int64,
+                                                                 device=dev)
+    factored.streaming_counts_kernel = lambda *a, **k: engine(*a, _rechecked=n_re, **k)
     torch.cuda.synchronize()
-    kernel.launches = 0  # VBPR evaluation path starts here
+    counts.counts_kernel.launches = 0  # VBPR evaluation path starts here
     t0 = time.perf_counter()
     try:
         metrics = ev.evaluate(None, None)
     finally:
-        counts.counts_kernel = kernel
+        factored.streaming_counts_kernel = engine
     total_s = time.perf_counter() - t0
     eval_launches = counts.counts_kernel.launches  # ... and ends here
     rechecked = int(n_re)
     if rechecked == 0:
-        fail("vbpr evaluate rechecked no pair: K2's tensor-core route did not run")
+        fail("vbpr evaluate rechecked no pair on quantized data (ties)")
     if eval_launches != 2 * -(-U // EVAL_BLOCK):
         fail(f"vbpr evaluate launched K2 {eval_launches} times, expected "
              f"{2 * -(-U // EVAL_BLOCK)}")

@@ -18,8 +18,8 @@ Bound on an H100 SXM at the evaluator's shapes (B=4096, Ip=501,760, D=128):
 (7.85 ms at 67 TFLOP/s on the CUDA cores); compute-bound (0.26 GB of
 inputs).  The counts are those of one f32 score per pair: the ``fmaf``
 chain in ascending d, then ``+ ib``, then ``>=``.  The kernel takes the
-product on the tensor cores in bf16x3 at any D (above D=128 the rows
-arrive in chunks of D, VBPR's and GradFashion's D=148 in two) and scores
+product on the tensor cores in bf16x3 at any D (the rows arrive in chunks
+of D: one up to D=128, two at VBPR's and GradFashion's D=148) and scores
 exactly again every pair whose approximate score lies within ``band_eps``
 of a reference, so its counts equal that f32 computation on any data
 (``csrc/counts.cu`` derives the bound).  The plain version is one f32
@@ -178,14 +178,12 @@ def counts_kernel(
     ``_band_scale`` (a test hook, >= 1) multiplies the kernel's recheck
     band: ``float('inf')`` scores every pair through the exact chain.
     ``_rechecked``, an int64 [1] tensor on the card, gains the number of
-    pairs the kernel scored exactly.  ``_stage_users`` (a measurement hook,
-    D > 128 only) stages the user tile with each chunk of D even where it
-    fits whole in shared memory.  None of them changes the counts."""
+    pairs the kernel scored exactly.  ``_stage_users`` (a measurement hook)
+    stages the user tile with each chunk of D even where it fits whole in
+    shared memory.  None of them changes the counts."""
     _check(uf, iv, ib_pad, ref_scores, banned_local, item_tile, user_tile)
     if not _band_scale >= 1.0:
         raise ValueError(f"counts_kernel: _band_scale must be >= 1, got {_band_scale}")
-    if _stage_users and uf.shape[1] <= 128:
-        raise ValueError("counts_kernel: _stage_users needs D > 128 (the chunked route)")
     if uf.device.type == "cpu":
         return counts_kernel_reference(uf, iv, ib_pad, ref_scores, banned_local,
                                        item_tile)
@@ -267,13 +265,14 @@ def streaming_counts_kernel(
     banned_valid: torch.Tensor,  # [n_tiles, Bu, W]
     item_block: int = 2048,
     user_tile: int = 256,
+    _rechecked=None,
 ) -> torch.Tensor:
     """Counterpart of the JAX package's ``streaming_counts_pallas``: a
     drop-in for ``ops.topk.streaming_counts`` with pre-bucketed banned ids,
     through ``counts_kernel`` on the padded inputs of
-    ``pad_counts_inputs``."""
+    ``pad_counts_inputs`` (``_rechecked`` as there)."""
     *args, item_tile, ut = pad_counts_inputs(
         user_vecs, item_vecs, item_bias, ref_scores, banned_local, banned_valid,
         item_block, user_tile)
-    out = counts_kernel(*args, item_tile=item_tile, user_tile=ut)
+    out = counts_kernel(*args, item_tile=item_tile, user_tile=ut, _rechecked=_rechecked)
     return out[: user_vecs.shape[0]]

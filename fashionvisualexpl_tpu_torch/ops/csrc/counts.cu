@@ -37,36 +37,34 @@
 //   (subs_per_chunk), walked in 128-item sub-tiles.  The pipeline's unit is
 //   a (sub-tile, D-chunk) pair, double-buffered: the next unit's rows
 //   arrive by cp.async (16-byte copies) while the tensor cores work on this
-//   one.  Each warp owns 32 users x 32 items (2 x 4 fragments), whose
-//   accumulators stay in registers across a sub-tile's chunks; the chunks,
-//   and the k16 steps within each, run in ascending order, so the
-//   accumulation is the one the band below was derived for, at the whole D.
-//   Shared rows are Dp + 8 or DK + 8 words apart (8 or 24 mod 32), so the
-//   8-byte loads of a half-warp are conflict-free.  The catalog is cut into
-//   ranges so that about eight blocks per SM are launched in turn (4096
-//   users make only 32 user tiles).
-//   - D <= 128: one chunk.  The users' f32 rows stay in shared memory
-//     (copied once) beside two whole item sub-tiles, and a sub-tile's rows
-//     stay until its epilogue has rechecked its pairs from them.
-//   - D > 128 (the user tile and two whole sub-tiles outgrow the 227 KB):
-//     D arrives in nk chunks of DK columns, the fewest whose two stages fit.
-//     The user tile stays whole beside them where it fits with chunks of 64
-//     columns (D <= 256: at VBPR's D = 148, two chunks of 80), else its
-//     chunk is staged beside the items' in each unit.  A sub-tile's bias,
-//     norms and banned bits arrive with its first chunk, its epilogue runs
-//     after its last.  Its marked pairs join a queue of the block (1024
-//     pairs); when the queue is full (seen at the next unit's barrier, so
-//     an empty queue costs no barrier), and after the block's last unit,
-//     each thread rescores one queued pair, so the chains' latency is paid
-//     once for many pairs.  The item's row comes from device memory (through
-//     L2: it was just streamed), the user's from shared memory where the
-//     tile is whole, else from device memory too.
+//   one.  D arrives in nk chunks of DK columns, the fewest whose two stages
+//   fit in the 227 KB (one chunk at D <= 128, two of 80 at VBPR's D = 148).
+//   The user tile stays whole in shared memory (copied once) where it fits
+//   beside two chunks of 64 columns (D <= 256), else its chunk is staged
+//   beside the items' in each unit.  Each warp owns 32 users x 32 items
+//   (2 x 4 fragments), whose accumulators stay in registers across a
+//   sub-tile's chunks; the chunks, and the k16 steps within each, run in
+//   ascending order, so the accumulation is the one the band below was
+//   derived for, at the whole D.  A sub-tile's bias, norms and banned bits
+//   arrive with its first chunk, its epilogue runs after its last.  Shared
+//   rows are Dp + 8 or DK + 8 words apart (8 or 24 mod 32), so the 8-byte
+//   loads of a half-warp are conflict-free.  The catalog is cut into ranges
+//   so that about eight blocks per SM are launched in turn (4096 users make
+//   only 32 user tiles).
+// * The recheck queue.  A sub-tile's marked pairs join a queue of the block
+//   (1024 pairs).  When the queue is full (seen at the next unit's barrier,
+//   so an empty queue costs no barrier), and after the block's last unit,
+//   each thread rescores one queued pair, so the chains' latency is paid
+//   once for many pairs and no warp holds the others at a barrier with a
+//   chain of its own.  The item's row comes from device memory (through L2:
+//   it was just streamed), the user's from shared memory where the tile is
+//   whole, else from device memory too; four columns a load where the rows
+//   are 16-byte aligned, the fmaf chain's order unchanged.
 // * The band.  For each pair the epilogue forms s~ = acc + ib[i] and, for
 //   each reference r, decides directly where s~ - r > eps or s~ - r < -eps;
 //   otherwise (and wherever s~, r or eps is not finite) it marks the pair,
-//   and the marked pairs are scored again, one a thread at a time, from
-//   the whole rows (see Tiles): the fmaf chain in ascending d, + ib[i],
-//   >= r.  With
+//   and the marked pairs are scored again (see the recheck queue): the
+//   fmaf chain in ascending d, + ib[i], >= r.  With
 //   A = sum_d |u_d v_d| <= |u|_2 |v|_2 and |b| = |ib[i]| (0 when infinite:
 //   then both scores are the same infinity).  bf16 keeps 8 significant
 //   bits, so with x = hi + lo + r (mma.cuh::split_bf16x2) |lo| <= 2^-8 |x|
@@ -105,8 +103,9 @@
 //   A D not a multiple of 4 (or an operand not 16-byte aligned) is staged
 //   with 4-byte loads instead of cp.async, in the same kernel.
 //
-// Every D takes this kernel (no CUDA-core route is left); the plain version
-// in ops/counts.py is the reference.
+// Every D takes this one kernel: no CUDA-core route and no whole-row
+// variant for D <= 128 is left; the plain version in ops/counts.py is the
+// reference.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -123,7 +122,7 @@ constexpr int kMU = 128;            // users per block (stationary)
 constexpr int kNI = 128;            // items per sub-tile
 constexpr int kMmaWarps = 16;       // 4 along users x 4 along items
 constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kQueue = 1024;        // marked pairs a chunked block holds
+constexpr int kQueue = 1024;        // marked pairs a block holds
 constexpr float kBandD = 4.f;       // eps = 1.001 * ((kBandD * D + kBand0)
 constexpr float kBand0 = 300.f;     //   * 2^-22 * |u| |v| + 2^-22 |b|) + 2^-100
 constexpr float kBandAbs = 0x1p-100f;
@@ -139,10 +138,10 @@ struct CountsArgs {
   int* out;
   unsigned long long* rechecked;  // may be null
   float band_scale;
-  int B, D, Dp, ld, T, W;  // ld: the whole rows' shared stride in floats (Dp + 8)
-  int DK, nk, ldc;         // D > 128: chunk columns (a multiple of 16), chunks a
-                           // sub-tile, their shared stride (DK + 8)
-  bool users_resident;     // D > 128: the user tile whole, else staged per chunk
+  int B, D, Dp, ld, T, W;  // ld: the whole user tile's shared stride (Dp + 8)
+  int DK, nk, ldc;         // chunk columns (a multiple of 16), chunks a sub-tile,
+                           // their shared stride (DK + 8)
+  bool users_resident;     // the user tile whole, else staged with each chunk
   long long Ip, item_tile, n_sub, subs_per_chunk;
 };
 
@@ -339,111 +338,15 @@ __device__ __forceinline__ void init_users(const CountsArgs& a, float* ref_s,
         ? 1.001f * (kBandD * a.D + kBand0) * 0x1p-22f * a.nu[u0 + tid] : 0.f;
 }
 
-// D <= 128: the user tile and two whole item sub-tiles in shared memory.
+// D in nk chunks of DK columns (one at D <= 128).  The pipeline's unit is
+// chunk kc of sub-tile sub, in ascending order; the accumulators stay in
+// registers across a sub-tile's chunks, and its epilogue runs after the
+// last.  The marked pairs are queued and rescored: the item's row from
+// device memory, the user's from shared memory where the tile is whole.
 // kT: the reference columns the epilogue compares (1, or up to kMaxT).
 template <bool kVec, int kT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 counts_mma_kernel(const CountsArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* users = reinterpret_cast<float*>(smem);  // [kMU][ld]
-  float* items = users + kMU * a.ld;              // [2][kNI][ld]
-  float* ib_s = items + 2 * kNI * a.ld;           // [2][kNI] bias
-  float* nv_s = ib_s + 2 * kNI;                   // [2][kNI] norms
-  uint32_t* bits = reinterpret_cast<uint32_t*>(nv_s + 2 * kNI);
-  float* ref_s = reinterpret_cast<float*>(bits + 2 * kMU * (kNI / 32));
-  int* tot_s = reinterpret_cast<int*>(ref_s + kMU * kMaxT);
-  float* cu_s = reinterpret_cast<float*>(tot_s + kMU * kMaxT);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wu = warp & 3, wi = warp >> 2;  // user / item quarter
-  const int g = lane >> 2, t = lane & 3;
-  const long long u0 = static_cast<long long>(blockIdx.x) * kMU;
-  const long long sub_lo = static_cast<long long>(blockIdx.y) * a.subs_per_chunk;
-  const long long sub_hi = min(a.n_sub, sub_lo + a.subs_per_chunk);
-
-  // sub-tile `sub`: its rows, their bias and norms (past the catalog: 0)
-  auto stage_sub = [&](long long sub) {
-    const int buf = static_cast<int>((sub - sub_lo) & 1);
-    stage_f32<kVec>(items + buf * kNI * a.ld, a.ld, a.iv, sub * kNI, kNI, a.Ip,
-                    a.D, 0, a.Dp, tid);
-    if (tid < 2 * kNI) {
-      const long long n = sub * kNI + (tid & (kNI - 1));
-      const float* src = tid < kNI ? a.ib : a.nv;
-      fvx::cp_async4(fvx::smem_u32((tid < kNI ? ib_s : nv_s) + buf * kNI + (tid & (kNI - 1))),
-                     n < a.Ip ? src + n : src, n < a.Ip ? 4 : 0);
-    }
-  };
-
-  // the user tile once, the first sub-tile, refs, eps's user factors, bits
-  stage_f32<kVec>(users, a.ld, a.uf, u0, kMU, a.B, a.D, 0, a.Dp, tid);
-  stage_sub(sub_lo);
-  fvx::cp_async_commit();
-  init_users(a, ref_s, tot_s, cu_s, u0, tid);
-  build_bits(a, bits, u0, sub_lo, sub_lo, tid);
-
-  const float* a_row = users + (wu * 32 + g) * a.ld + 2 * t;
-  const int b_row = (wi * 32 + g) * a.ld + 2 * t;
-  unsigned long long n_re = 0;
-
-  for (long long sub = sub_lo; sub < sub_hi; ++sub) {
-    fvx::cp_async_wait<0>();
-    __syncthreads();  // sub-tile sub landed; sub - 1's readers are done
-    const int buf = static_cast<int>((sub - sub_lo) & 1);
-    const float* cur = items + buf * kNI * a.ld;
-    if (sub + 1 < sub_hi) {
-      stage_sub(sub + 1);
-      build_bits(a, bits, u0, sub + 1, sub_lo, tid);
-    }
-    fvx::cp_async_commit();
-
-    float acc[2][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    for (int k0 = 0; k0 < a.Dp; k0 += 16) mma_step(acc, a_row, a.ld, cur + b_row, a.ld, k0);
-
-    const long long n0 = sub * kNI;
-    uint32_t pend = count_decided<kT>(acc, a, n0, ib_s + buf * kNI, nv_s + buf * kNI,
-                                      bits + buf * kMU * 4, ref_s, cu_s, tot_s, wu, wi,
-                                      g, t);
-    // the exact chain for the marked pairs, one a lane at a time, from the
-    // rows in shared memory: fmaf in ascending d, + bias, >= each ref
-    while (__any_sync(0xffffffffu, pend)) {
-      if (pend) {
-        const int p = __ffs(pend) - 1;
-        pend &= pend - 1;
-        const int mi = p >> 4, h = (p >> 3) & 1, ni = (p >> 1) & 3, e = p & 1;
-        const int ul = wu * 32 + mi * 16 + h * 8 + g;
-        const int il = wi * 32 + ni * 8 + 2 * t + e;
-        const float* ur = users + ul * a.ld;
-        const float* vr = cur + il * a.ld;
-        float x = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < a.D; ++d) x = fmaf(ur[d], vr[d], x);
-        const float se =
-            x + (n0 + il < a.Ip ? ib_s[buf * kNI + il] : -CUDART_INF_F);
-        for (int tt = 0; tt < a.T; ++tt)
-          if (se >= ref_s[ul * kMaxT + tt]) atomicAdd(tot_s + ul * kMaxT + tt, 1);
-        ++n_re;
-      }
-    }
-  }
-  fvx::cp_async_wait<0>();
-  finish(a, tot_s, n_re, u0, tid);
-}
-
-// D > 128: D in nk chunks of DK columns.  The pipeline's unit is chunk kc
-// of sub-tile sub, in ascending order; the accumulators stay in registers
-// across a sub-tile's chunks, and its epilogue runs after the last.  The
-// marked pairs are queued and rescored: the item's row from device memory,
-// the user's from shared memory where the tile is whole.
-template <bool kVec, int kT>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-counts_chunked_kernel(const CountsArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // [kMU][ld] whole, or [2][kMU][ldc] a chunk a stage
   float* users = reinterpret_cast<float*>(smem);
@@ -645,32 +548,18 @@ bool chunking(long long n_ut, long long n_sub, long long& n_chunks,
   return true;
 }
 
-template <bool kChunked, bool kVec, int kT>
+template <bool kVec, int kT>
 int launch_as(const CountsArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
   static size_t granted = 0;  // per instantiation
-  void (*kernel)(CountsArgs) =
-      kChunked ? counts_chunked_kernel<kVec, kT> : counts_mma_kernel<kVec, kT>;
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        counts_mma_kernel<kVec, kT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = smem;
   }
-  CountsArgs args = a;
-  void* params[] = {&args};
-  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), grid,
-                                           dim3(kMmaThreads), params, smem, stream);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-template <bool kChunked>
-int launch(const CountsArgs& a, bool vec, dim3 grid, size_t smem,
-           cudaStream_t stream) {
-  if (vec)
-    return a.T == 1 ? launch_as<kChunked, true, 1>(a, grid, smem, stream)
-                    : launch_as<kChunked, true, kMaxT>(a, grid, smem, stream);
-  return a.T == 1 ? launch_as<kChunked, false, 1>(a, grid, smem, stream)
-                  : launch_as<kChunked, false, kMaxT>(a, grid, smem, stream);
+  counts_mma_kernel<kVec, kT><<<grid, kMmaThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -681,8 +570,8 @@ int launch(const CountsArgs& a, bool vec, dim3 grid, size_t smem,
 // int32, zeroed by the caller; all contiguous on the current device.
 // T <= 4, W <= 48, item_tile a multiple of 128.  band_scale multiplies the
 // recheck band (1 = the proven bound; infinity = every pair exact);
-// stage_users (D > 128 only; 0 elsewhere) stages the user tile with each
-// chunk even where it fits whole; rechecked, if not null, is a device uint64
+// stage_users stages the user tile with each chunk even where it fits
+// whole (a measurement hook); rechecked, if not null, is a device uint64
 // that gains the number of pairs scored exactly.  Returns the cudaError_t of
 // the launch (0 = launched).
 extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
@@ -693,8 +582,7 @@ extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
                           double band_scale, void* rechecked, void* stream) {
   if (B < 1 || Ip < 1 || D < 1 || T < 1 || T > kMaxT || W < 1 ||
       W > kMaxW || item_tile < kNI || item_tile % kNI != 0 ||
-      B > (1LL << 30) || D > (1LL << 30) || !(band_scale >= 1.0) ||
-      (stage_users && D <= 128))
+      B > (1LL << 30) || D > (1LL << 30) || !(band_scale >= 1.0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_ut = (B + kMU - 1) / kMU;
@@ -726,29 +614,32 @@ extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
   a.item_tile = item_tile;
   a.n_sub = n_sub;
   a.subs_per_chunk = per_chunk;
-  const bool vec = D % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(uf) |
-                     reinterpret_cast<uintptr_t>(iv)) & 15) == 0;
-  // Rows Dp + 8 (or DK + 8) words apart: 8 or 24 mod 32, so the 8-byte
-  // fragment loads of a half-warp are conflict-free.  Beside the rows: bias
-  // and norms, bits, refs, counts, the users' band factors.
-  const size_t small = 4 * kNI * 4 + 2 * kMU * (kNI / 32) * 4 + 2 * kMU * kMaxT * 4 +
-                       kMU * 4;
+  // D in chunks of DK columns, two stages of them; the user tile whole
+  // where it fits beside two chunks of 64 columns (D <= 256); the fewest
+  // chunks whose stages fit (one at D <= 128).  Rows Dp + 8 or DK + 8 words
+  // apart: 8 or 24 mod 32, so the 8-byte fragment loads of a half-warp are
+  // conflict-free.  Beside the rows: bias and norms, bits, refs, counts, the
+  // users' band factors and the queue.
+  const size_t fixed = 4 * kNI * 4 + 2 * kMU * (kNI / 32) * 4 + 2 * kMU * kMaxT * 4 +
+                       kMU * 4 + kQueue * 8 + 16;
   a.ld = a.Dp + 8;
-  if (D <= 128)  // the user tile and two whole item sub-tiles
-    return launch<false>(a, vec, grid, (kMU + 2 * kNI) * a.ld * 4 + small, s);
-  // D in chunks of DK columns, two stages of them, and the queue; the user
-  // tile whole where it fits beside two chunks of 64 columns (D <= 256)
-  const size_t fixed = small + kQueue * 8 + 16;
   const size_t whole = static_cast<size_t>(kMU) * a.ld * 4;
   a.users_resident = !stage_users && fixed + whole + 2 * kNI * 72 * 4 <= kMaxSmem;
   const size_t held = a.users_resident ? whole : 0;
   const size_t per_word = (a.users_resident ? 2 * kNI : 2 * kNI + 2 * kMU) * 4;
-  for (a.nk = 1;; ++a.nk) {  // the fewest chunks whose stages fit
+  for (a.nk = 1;; ++a.nk) {
     a.DK = (a.Dp / 16 + a.nk - 1) / a.nk * 16;
     if (fixed + held + per_word * (a.DK + 8) <= kMaxSmem) break;
   }
   a.nk = (a.Dp + a.DK - 1) / a.DK;
   a.ldc = a.DK + 8;
-  return launch<true>(a, vec, grid, fixed + held + per_word * a.ldc, s);
+  const size_t smem = fixed + held + per_word * a.ldc;
+  const bool vec = D % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(uf) |
+                     reinterpret_cast<uintptr_t>(iv)) & 15) == 0;
+  if (vec)
+    return a.T == 1 ? launch_as<true, 1>(a, grid, smem, s)
+                    : launch_as<true, kMaxT>(a, grid, smem, s);
+  return a.T == 1 ? launch_as<false, 1>(a, grid, smem, s)
+                  : launch_as<false, kMaxT>(a, grid, smem, s);
 }

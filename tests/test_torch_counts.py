@@ -243,16 +243,16 @@ def test_band_eps_scale_and_infinite_bias():
                         item_tile=2, user_tile=1, _band_scale=0.5)
 
 
-def test_stage_users_needs_the_chunked_route():
-    """_stage_users (the user tile staged with each chunk of D) exists only
-    where D arrives in chunks, D > 128; it never changes the counts."""
-    uf, iv, ib, ref, banned = _inputs(3, 8, 256, 129, 1, 2)
+@pytest.mark.parametrize("D", [16, 148])
+def test_stage_users_keeps_the_counts(D):
+    """_stage_users (a measurement hook: the kernel stages the user tile
+    with each chunk of D) changes no count; CPU tensors take the plain
+    version, equal to the JAX kernel's counts."""
+    uf, iv, ib, ref, banned = _inputs(3, 8, 256, D, 2, 2)
     loc, msk = bucket_banned_ids(banned, 256, 128)
     loc = np.where(msk, loc, -1).astype(np.int32)
-    args = [torch.from_numpy(a) for a in (uf, iv, ib, ref, loc)]
-    want = P.counts_kernel(*args, item_tile=128, user_tile=8)
-    got = P.counts_kernel(*args, item_tile=128, user_tile=8, _stage_users=True)
-    assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="_stage_users needs D > 128"):
-        P.counts_kernel(args[0][:, :128].contiguous(), args[1][:, :128].contiguous(),
-                        *args[2:], item_tile=128, user_tile=8, _stage_users=True)
+    want = J.counts_kernel(*(jnp.asarray(a) for a in (uf, iv, ib, ref, loc)),
+                           item_tile=128, user_tile=8, interpret=True)
+    got = P.counts_kernel(*(torch.from_numpy(a) for a in (uf, iv, ib, ref, loc)),
+                          item_tile=128, user_tile=8, _stage_users=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

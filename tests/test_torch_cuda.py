@@ -24,7 +24,7 @@ scatter-set): bit-equal to their plain versions (compared as int32) at the
 packed rows' widths (VBPR's and GradFashion's with their frozen columns
 fused too), aligned and not, with out-of-range, negative and pad ids.
 K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150; K2 at 150,
-256, 272 and 1024 too, where D arrives in chunks).  The packed step on the card against the same step on CPU copies: 4
+256, 272 and 1024 too, in two to eleven chunks of D).  The packed step on the card against the same step on CPU copies: 4
 K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
 rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
@@ -340,10 +340,10 @@ def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb
 
 @pytest.mark.cuda
 def test_counts_kernel_at_d148_wide_bans_on_card(cuda_device):
-    """VBPR's and GradFashion's D = 148 (the chunked tensor-core route, D >
-    128), T = 3, four banned ids of one item tile per user (W >= 4), users
-    and items off the tiles: bit-equal to the plain version, with the user
-    tile whole in shared memory and staged with each chunk."""
+    """VBPR's and GradFashion's D = 148 (two chunks of D), T = 3, four
+    banned ids of one item tile per user (W >= 4), users and items off the
+    tiles: bit-equal to the plain version, with the user tile whole in
+    shared memory and staged with each chunk."""
     from fashionvisualexpl_tpu_torch.ops.topk import (
         banned_bucket_width,
         bucket_banned_ids_device,
@@ -397,10 +397,9 @@ def test_counts_kernel_band_equals_exact_chain_on_card(cuda_device, kind, D):
     """The default band and _band_scale=inf (every pair through the exact
     fmaf chain) give bit-equal counts on data whose scores are not exact in
     f32: Gaussian rows, and rows of large +- terms whose dot products are
-    near 0, with the refs placed on such scores.  At D = 128 the rows are
-    whole in shared memory; at 148 and 1024 they arrive in chunks of D (the
-    user tile whole at 148, staged at 1024), and pairs were rechecked, so
-    the tensor-core route ran."""
+    near 0, with the refs placed on such scores.  D arrives in one chunk at
+    128, two at 148 (the user tile whole) and eleven at 1024 (the user tile
+    staged with each), and pairs were rechecked."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
     B, I, tile = 256, 16384, 2048
     uf = torch.randn(B, D, device=cuda_device, generator=g) * 0.3
