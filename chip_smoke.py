@@ -1160,20 +1160,6 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
             fail(f"counts at D={D} rechecked no pair on data with ties")
         ms, call_ms, _ = kernel_times(torch, f"counts D={D}", lambda: counts.counts_kernel(
             *args, item_tile=item_tile, user_tile=ut), 10, flush)
-        extra = {}
-        if D > 128:  # the user tile whole (the route) against staged with each chunk
-            got = counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut,
-                                       _stage_users=True)
-            if not torch.equal(got, counts.counts_kernel_reference(*args, item_tile)):
-                fail(f"counts with the user tile staged disagrees at D={D}")
-            extra["staged_users_ms"], _, _ = kernel_times(
-                torch, f"counts D={D} staged users", lambda: counts.counts_kernel(
-                    *args, item_tile=item_tile, user_tile=ut, _stage_users=True), 10, flush)
-            extra["ms_again"], _, _ = kernel_times(
-                torch, f"counts D={D} again", lambda: counts.counts_kernel(
-                    *args, item_tile=item_tile, user_tile=ut), 10, flush)
-            print(f"counts D={D}: user tile whole {ms!r} / {extra['ms_again']!r} ms, "
-                  f"staged with each chunk {extra['staged_users_ms']!r} ms")
         plain_ms, _, _ = kernel_times(torch, f"counts plain D={D}",
                                       lambda: counts.counts_kernel_reference(*args, item_tile),
                                       5, flush)
@@ -1184,7 +1170,7 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
         b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
         check_bound(f"counts D={D}", ms, b)
         timed[D] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                        library_ms=lib_ms, rechecked=rechecked, shape=shape, **extra)
+                        library_ms=lib_ms, rechecked=rechecked, shape=shape)
         print(f"kernel time counts B={B} Ip={Ip} D={D} T=1 W={W} f32: ms={ms!r} "
               f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(matmul f32, product "
               f"only)={lib_ms!r} bound_ms={b!r} ({by}, bf16 tensor-core rate); "
@@ -2864,24 +2850,12 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
         return out
 
     ev._eval_split = timed
-    # every K2 call of the run adds its rechecked pairs into n_re
-    from fashionvisualexpl_tpu_torch.eval import factored
-
-    engine, n_re = factored.streaming_counts_kernel, torch.zeros(1, dtype=torch.int64,
-                                                                 device=dev)
-    factored.streaming_counts_kernel = lambda *a, **k: engine(*a, _rechecked=n_re, **k)
     torch.cuda.synchronize()
     counts.counts_kernel.launches = 0  # VBPR evaluation path starts here
     t0 = time.perf_counter()
-    try:
-        metrics = ev.evaluate(None, None)
-    finally:
-        factored.streaming_counts_kernel = engine
+    metrics = ev.evaluate(None, None)
     total_s = time.perf_counter() - t0
     eval_launches = counts.counts_kernel.launches  # ... and ends here
-    rechecked = int(n_re)
-    if rechecked == 0:
-        fail("vbpr evaluate rechecked no pair on quantized data (ties)")
     if eval_launches != 2 * -(-U // EVAL_BLOCK):
         fail(f"vbpr evaluate launched K2 {eval_launches} times, expected "
              f"{2 * -(-U // EVAL_BLOCK)}")
@@ -2891,19 +2865,34 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     evb = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK,
                             counts_impl="bucketed")
     uf, iv, ib = ev._factors(None)
-    for split in ("val", "test"):
-        for blk in range(EVAL_CHECK_BLOCKS):
-            ids = torch.arange(blk * EVAL_BLOCK, (blk + 1) * EVAL_BLOCK, device=dev)
-            mk = ev._eval_block(split, uf[ids], iv, ib, ids)
-            mb = evb._eval_block(split, uf[ids], iv, ib, ids)
-            if not all(torch.equal(a, b) for a, b in zip(mk, mb)):
-                fail(f"vbpr eval {split} block {blk}: kernel and bucketed metrics differ")
+    # the checked blocks' K2 calls, after the timed run, add their rechecked
+    # pairs into n_re
+    from fashionvisualexpl_tpu_torch.eval import factored
+
+    engine, n_re = factored.streaming_counts_kernel, torch.zeros(1, dtype=torch.int64,
+                                                                 device=dev)
+    factored.streaming_counts_kernel = lambda *a, **k: engine(*a, _rechecked=n_re, **k)
+    try:
+        for split in ("val", "test"):
+            for blk in range(EVAL_CHECK_BLOCKS):
+                ids = torch.arange(blk * EVAL_BLOCK, (blk + 1) * EVAL_BLOCK, device=dev)
+                mk = ev._eval_block(split, uf[ids], iv, ib, ids)
+                mb = evb._eval_block(split, uf[ids], iv, ib, ids)
+                if not all(torch.equal(a, b) for a, b in zip(mk, mb)):
+                    fail(f"vbpr eval {split} block {blk}: kernel and bucketed metrics "
+                         f"differ")
+    finally:
+        factored.streaming_counts_kernel = engine
+    rechecked = int(n_re)
+    if rechecked == 0:
+        fail("vbpr eval's checked blocks rechecked no pair on quantized data (ties)")
     summary["eval"] = dict(metrics=metrics, evaluate_s=total_s, rechecked=rechecked,
                            per_split={k: dict(ms=1e3 * v, scores_per_s=U * I / v)
                                       for k, v in split_s.items()})
     print(f"vbpr evaluation at D={VIS_D}: {eval_launches} K2 launches, evaluate {total_s!r} s, "
-          f"per split {summary['eval']['per_split']}, {rechecked} pairs rechecked; the "
-          f"first {EVAL_CHECK_BLOCKS} blocks equal through the bucketed engine; metrics "
+          f"per split {summary['eval']['per_split']}; the first {EVAL_CHECK_BLOCKS} "
+          f"blocks of each split equal through the bucketed engine, {rechecked} pairs "
+          f"rechecked in them; metrics "
           f"{metrics}")
     summary["peak_gib"] = (torch.cuda.max_memory_allocated() - start) / 2**30
     summary["s"] = time.perf_counter() - phase_t0

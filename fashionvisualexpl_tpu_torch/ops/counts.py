@@ -152,7 +152,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("counts")
     if not getattr(lib, "_fvx_typed", False):
         lib.fvx_counts.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 7 + [ctypes.c_double]
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6 + [ctypes.c_double]
             + [ctypes.c_void_p] * 2
         )
         lib.fvx_counts.restype = ctypes.c_int
@@ -171,16 +171,13 @@ def counts_kernel(
     user_tile: int = 256,
     _band_scale: float = 1.0,
     _rechecked=None,
-    _stage_users: bool = False,
 ) -> torch.Tensor:
     """[B, T] int32 counts of allowed items scoring >= each ref score.
 
     ``_band_scale`` (a test hook, >= 1) multiplies the kernel's recheck
     band: ``float('inf')`` scores every pair through the exact chain.
     ``_rechecked``, an int64 [1] tensor on the card, gains the number of
-    pairs the kernel scored exactly.  ``_stage_users`` (a measurement hook)
-    stages the user tile with each chunk of D even where it fits whole in
-    shared memory.  None of them changes the counts."""
+    pairs the kernel scored exactly.  Neither changes the counts."""
     _check(uf, iv, ib_pad, ref_scores, banned_local, item_tile, user_tile)
     if not _band_scale >= 1.0:
         raise ValueError(f"counts_kernel: _band_scale must be >= 1, got {_band_scale}")
@@ -217,7 +214,7 @@ def counts_kernel(
         rc = _library().fvx_counts(
             uf.data_ptr(), iv.data_ptr(), ib_pad.data_ptr(), ref_scores.data_ptr(),
             banned_local.data_ptr(), nu.data_ptr(), nv.data_ptr(), out.data_ptr(),
-            B, Ip, D, T, W, item_tile, int(_stage_users),
+            B, Ip, D, T, W, item_tile,
             float(_band_scale), None if _rechecked is None else _rechecked.data_ptr(),
             stream)
     if rc != 0:

@@ -570,15 +570,13 @@ int launch_as(const CountsArgs& a, dim3 grid, size_t smem, cudaStream_t stream) 
 // int32, zeroed by the caller; all contiguous on the current device.
 // T <= 4, W <= 48, item_tile a multiple of 128.  band_scale multiplies the
 // recheck band (1 = the proven bound; infinity = every pair exact);
-// stage_users stages the user tile with each chunk even where it fits
-// whole (a measurement hook); rechecked, if not null, is a device uint64
-// that gains the number of pairs scored exactly.  Returns the cudaError_t of
-// the launch (0 = launched).
+// rechecked, if not null, is a device uint64 that gains the number of pairs
+// scored exactly.  Returns the cudaError_t of the launch (0 = launched).
 extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
                           const void* ref, const void* loc, const void* nu,
                           const void* nv, void* out,
                           long long B, long long Ip, long long D, long long T,
-                          long long W, long long item_tile, long long stage_users,
+                          long long W, long long item_tile,
                           double band_scale, void* rechecked, void* stream) {
   if (B < 1 || Ip < 1 || D < 1 || T < 1 || T > kMaxT || W < 1 ||
       W > kMaxW || item_tile < kNI || item_tile % kNI != 0 ||
@@ -624,7 +622,7 @@ extern "C" int fvx_counts(const void* uf, const void* iv, const void* ib,
                        kMU * 4 + kQueue * 8 + 16;
   a.ld = a.Dp + 8;
   const size_t whole = static_cast<size_t>(kMU) * a.ld * 4;
-  a.users_resident = !stage_users && fixed + whole + 2 * kNI * 72 * 4 <= kMaxSmem;
+  a.users_resident = fixed + whole + 2 * kNI * 72 * 4 <= kMaxSmem;
   const size_t held = a.users_resident ? whole : 0;
   const size_t per_word = (a.users_resident ? 2 * kNI : 2 * kNI + 2 * kMU) * 4;
   for (a.nk = 1;; ++a.nk) {

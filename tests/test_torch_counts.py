@@ -241,18 +241,3 @@ def test_band_eps_scale_and_infinite_bias():
     with pytest.raises(ValueError, match="_band_scale"):
         P.counts_kernel(uf, iv, ib, torch.zeros(1, 1), torch.full((1, 1, 1), -1, dtype=torch.int32),
                         item_tile=2, user_tile=1, _band_scale=0.5)
-
-
-@pytest.mark.parametrize("D", [16, 148])
-def test_stage_users_keeps_the_counts(D):
-    """_stage_users (a measurement hook: the kernel stages the user tile
-    with each chunk of D) changes no count; CPU tensors take the plain
-    version, equal to the JAX kernel's counts."""
-    uf, iv, ib, ref, banned = _inputs(3, 8, 256, D, 2, 2)
-    loc, msk = bucket_banned_ids(banned, 256, 128)
-    loc = np.where(msk, loc, -1).astype(np.int32)
-    want = J.counts_kernel(*(jnp.asarray(a) for a in (uf, iv, ib, ref, loc)),
-                           item_tile=128, user_tile=8, interpret=True)
-    got = P.counts_kernel(*(torch.from_numpy(a) for a in (uf, iv, ib, ref, loc)),
-                          item_tile=128, user_tile=8, _stage_users=True)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
