@@ -15,7 +15,10 @@ Phases, each of which raises on a failure (nothing is swallowed):
 3. kernel: ``segmax_scores`` (the CUDA kernel: tensor cores for bf16)
    against its plain PyTorch version on the card over many geometries
    (seg 8 ... 1024, B not a multiple of 8 or 16, D = 16, 33, 64, 128, both
-   dtypes), then its time, the plain
+   dtypes; D = 148, 152, 160 on the register and warpgroup kernels, 150 and
+   164 on ``segmax_mma_kernel``, each launch's route asserted; each
+   kernel's ptxas registers and spills, and segmax.cu's build time, go
+   into the ``kernels`` line), then its time, the plain
    version's time, one ``torch.matmul`` of the same bf16 operands (a
    yardstick the port never calls) and the bound, at the serving shapes;
 4. serve: ``RecServer`` over BPRMF K=128, 1M users x 1M items, random
@@ -99,7 +102,8 @@ Phases, each of which raises on a failure (nothing is swallowed):
    embed_d=20, 4096-wide CNN and edge features, 512-wide color
    histograms; factored D=148): K3 checked at D=148 and 150 (B = 8, 100,
    4097, both dtypes) and timed at D=148 over a 500k catalog at the
-   serving buckets; K2 checked bit-equal at D=148 on quantized data (T = 1
+   serving buckets, the route of each bucket asserted (the register kernel
+   at B <= 64, the warpgroup kernel above); K2 checked bit-equal at D=148 on quantized data (T = 1
    and 3, W = 1 and 4 or more, users and items off the tiles) and timed at
    the evaluator's block (4096 x 500k); K4 and K5 bit-equal at the fused
    row widths (from ``packed_spec``, fp32 and bf16 moments) and timed at
@@ -109,14 +113,16 @@ Phases, each of which raises on a failure (nothing is swallowed):
    on the card against CPU copies, 20k x 20k), one packed epoch of 200
    steps (4 K4 + 2 K5 a step) and a 10-step profile, 50 generic
    ``Trainer`` steps, a 200-step fast epoch, ``RecServer`` at B = 8, 64,
-   1024, 4096 through K3 (64 users against a full-catalog fp32 oracle),
+   1024, 4096 through K3 (64 users against a full-catalog fp32 oracle;
+   its launches on the register and warpgroup kernels only),
    ``FactoredEvaluator``
    through K2 (2 * ceil(U / 4096) launches; weights on the 1/64 grid, the
    first user blocks equal through the bucketed engine);
 18. the visual CLI on the CLI dataset with 4096-wide features:
    ``train_rec --rec vbpr`` (generic, then ``--train_path packed``),
    ``--rec grad_fashion`` with both grads dumps (a row of two finite
-   attributions per positive), ``serve_rec`` for each, and
+   attributions per positive), ``serve_rec`` for each (no K3 launch on
+   ``segmax_mma_kernel``), and
    ``get_explanations`` on the best grads dump.  Phases 16-18 print their
    seconds.
 
@@ -254,9 +260,10 @@ MOMENT_CODE = {"float32": 0.0, "bfloat16": 2.0**-7, "float8": 2.0**-2}
 # (fashionvisualexpl_tpu/cli/train_rec.py:57-66): K=128, embed_d=20, vgg19
 # fc2 features 4096 wide (CNN and edges), 8x8x8 color histograms,
 # embed_color = embed_edges = 32.  Factored, D = K + embed_d = 148, which
-# K2 takes in two chunks of 80 columns and K3 on its mma.sync route with
-# 2-byte staging (D % 8 != 0); both are also checked at 150, K2 at 1024
-# too (the user tile staged).  The full
+# K2 takes in two chunks of 80 columns and K3 on its register (B <= 64)
+# and warpgroup kernels, D zero-padded to 160, rows staged 8 bytes at a
+# time (296-byte rows); both are also checked at 150, K2 at 1024 too (the
+# user tile staged).  The full
 # width phase runs over the evaluation phase's 1M users x 500k items and
 # data: packed training 3 steps against CPU copies on a 20k x 20k catalog,
 # then a 200-step epoch; 50 generic steps; a 200-step fast epoch; both
@@ -321,14 +328,19 @@ def kernel_phase(torch, segmax):
             ib[Ip - n_pad:] = -1e30
         return uf, iv, ib
 
-    def check(label, uf, iv, ib, seg):
+    def check(label, uf, iv, ib, seg, kernel=None):
+        """kernel: the route the launch must take (segmax.ROUTES)"""
+        before = segmax.segmax_scores.routes.copy()
         got = segmax.segmax_scores(uf, iv, ib, seg)
         torch.cuda.synchronize()
+        (route,) = segmax.segmax_scores.routes - before
         want = segmax.segmax_scores_reference(uf, iv, ib, seg)
         err = (got - want).abs()
         ok = bool((err <= K_ATOL + K_RTOL * want.abs()).all())
         worst = float(err.max())
-        print(f"kernel check {label}: max_abs_err={worst!r} {'ok' if ok else 'MISMATCH'}")
+        print(f"kernel check {label}: {route} max_abs_err={worst!r} {'ok' if ok else 'MISMATCH'}")
+        if kernel is not None and route != kernel:
+            fail(f"segmax at {label} took {route}, not {kernel}")
         if not ok:
             fail(f"segmax kernel disagrees with its plain version at {label}")
         checked.append(label)
@@ -363,6 +375,28 @@ def kernel_phase(torch, segmax):
             Ip = 32 * 1001
             check(f"seg=32 D={D} B={B} {names[dtype]} Ip={Ip} pads=500",
                   *inputs(B, Ip, D, dtype, n_pad=500), 32)
+    # D up to 160 in 8- or 16-byte rows (VBPR's and GradFashion's 148, 152,
+    # 160) on the register kernel (B <= 64) and the warpgroup kernel, at
+    # every epilogue (seg 12: the score tile; 1024: walked in sub-tiles),
+    # ragged catalogs with pads; D = 150 (4-byte rows) and 164 on
+    # segmax_mma_kernel; iv 8-byte aligned only (the view big[1:])
+    for D in (VIS_D, 152, 160):
+        for B in (8, 64, 65, 100, 4097):
+            kernel = "segmax_wgmma_kernel" if B > 64 else "segmax_mma_regs_kernel"
+            for seg in (8, 12, 16, 32, 64, 1024):
+                Ip = seg * (3 if seg > 256 else 2400 // seg + 1)
+                check(f"seg={seg} D={D} B={B} bf16 Ip={Ip} pads={seg + 3}",
+                      *inputs(B, Ip, D, torch.bfloat16, n_pad=seg + 3), seg, kernel)
+    for D in (VIS_D_OTHER, 164):
+        for B in (8, 100, 4097):
+            check(f"seg=32 D={D} B={B} bf16 Ip=2432 pads=35",
+                  *inputs(B, 2432, D, torch.bfloat16, n_pad=35), 32, "segmax_mma_kernel")
+    for B in (8, 100, 4097):
+        uf, big, ib = inputs(B, 2433, VIS_D, torch.bfloat16)
+        if segmax.operand_align(uf, big[1:]) != 8:
+            fail("the view big[1:] of a D=148 bf16 tensor is not 8-byte aligned only")
+        check(f"seg=32 D={VIS_D} B={B} bf16 Ip=2432 iv=big[1:]", uf, big[1:], ib[1:], 32,
+              "segmax_wgmma_kernel" if B > 64 else "segmax_mma_regs_kernel")
     print(f"segmax checks: {len(checked)} geometries in {time.perf_counter() - t0!r} s")
 
     # times at the serving shapes: 1M items padded to the 65536 block
@@ -394,9 +428,18 @@ def kernel_phase(torch, segmax):
     rows["d148"] = {}
     for B, iters in ((8, 50), (64, 50), (1024, 20), (4096, 10)):
         uf, iv, ib = inputs(B, Ip, D, torch.bfloat16, n_pad=Ip - EVAL_I)
-        err = check(f"VBPR serving shape seg={SEG} D={D} B={B} bf16 Ip={Ip}", uf, iv, ib, SEG)
+        kernel = "segmax_wgmma_kernel" if B > 64 else "segmax_mma_regs_kernel"
+        route = segmax.segmax_route(B, D, SEG, segmax.operand_align(uf, iv))
+        print(f"segmax route D={D} B={B}: {route}")
+        if route["kernel"] != kernel:
+            fail(f"segmax at D={D} B={B} plans {route['kernel']}, not {kernel}")
+        err = check(f"VBPR serving shape seg={SEG} D={D} B={B} bf16 Ip={Ip}", uf, iv, ib, SEG,
+                    kernel)
+        before = segmax.segmax_scores.routes.copy()
         ms, call_ms, _ = kernel_times(torch, f"segmax D={D} B={B}",
                                       lambda: segmax.segmax_scores(uf, iv, ib, SEG), iters, flush)
+        if set(segmax.segmax_scores.routes - before) != {kernel}:
+            fail(f"segmax timed at D={D} B={B} took {segmax.segmax_scores.routes - before}")
         plain, _, _ = kernel_times(torch, f"segmax plain D={D} B={B}",
                                    lambda: segmax.segmax_scores_reference(uf, iv, ib, SEG), 5,
                                    flush)
@@ -405,7 +448,8 @@ def kernel_phase(torch, segmax):
         bound, by = segmax_bound_ms(B, Ip, D, SEG, 2, PEAK_BF16_FLOPS)
         check_bound(f"segmax D={D} B={B}", ms, bound)
         rows["d148"][B] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain,
-                               bound_ms=bound, bound_by=by, library_ms=lib)
+                               bound_ms=bound, bound_by=by, library_ms=lib,
+                               kernel=route["kernel"], copy_bytes=route["copy_bytes"])
         print(f"kernel time segmax B={B} Ip={Ip} D={D} seg={SEG} bf16, cold L2: ms={ms!r} "
               f"call_ms={call_ms!r} plain_ms={plain!r} library_ms(matmul bf16)={lib!r} "
               f"bound_ms={bound!r} ({by})")
@@ -2808,6 +2852,7 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     reps = {8: 20, 64: 20, 1024: 5, 4096: 3}
     serving, served = {}, {}
     segmax.segmax_scores.launches = 0  # VBPR serving path starts here
+    segmax.segmax_scores.routes.clear()
     for B in BUCKETS:
         before = segmax.segmax_scores.launches
         ids, vals = srv.query(batches[B])  # warm-up
@@ -2824,6 +2869,11 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
                           launches=segmax.segmax_scores.launches - before)
         served[B] = (ids, vals)
     serve_launches = segmax.segmax_scores.launches  # ... and ends here
+    serve_routes = dict(segmax.segmax_scores.routes)
+    if set(serve_routes) != {"segmax_mma_regs_kernel", "segmax_wgmma_kernel"}:
+        fail(f"vbpr serving at D={VIS_D}: K3 took {serve_routes}, not the register kernel "
+             "(B <= 64) and the warpgroup kernel")
+    print(f"vbpr serving: {serve_launches} K3 launches by kernel {serve_routes}")
     want_ids, want_vals = oracle_topk(torch, model, batches[64], padded, hist_counts, K_TOP)
     check_served(np, f"vbpr serve check B=64 bf16 kernel D={VIS_D}", *served[64], want_ids,
                  want_vals)
@@ -2899,7 +2949,8 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     print(f"vbpr phase: {summary['s']!r} s")
     del ev, evb, model, uf, iv, ib, tabs
     torch.cuda.empty_cache()
-    return dict(launches, segmax_scores=serve_launches, counts=eval_launches), summary
+    return dict(launches, segmax_scores=serve_launches, segmax_routes=serve_routes,
+                counts=eval_launches), summary
 
 
 def write_visual_features(np, d: Path):
@@ -2961,6 +3012,7 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
                   "--results_root", str(results), "--embed_k", str(EMBED_K),
                   "--embed_d", str(VIS_EMBED_D), "--top_k", str(CLI_K)]
         counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
+        segmax.segmax_scores.routes.clear()
         G.gather_rows.launches = S.scatter_rows_set.launches = 0  # this run starts here
         t1 = time.perf_counter()
         train(common + ["--streaming_eval", "--epochs", "2", "--batch_size", str(VIS_CLI_B),
@@ -2974,7 +3026,10 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
         launches = {"gather_rows": G.gather_rows.launches,
                     "scatter_rows_set": S.scatter_rows_set.launches,
                     "counts": counts.counts_kernel.launches,
-                    "segmax_scores": segmax.segmax_scores.launches}  # ... and ends here
+                    "segmax_scores": segmax.segmax_scores.launches,
+                    "segmax_routes": dict(segmax.segmax_scores.routes)}  # ... and ends here
+        if "segmax_mma_kernel" in launches["segmax_routes"]:
+            fail(f"{label}: K3 at D={VIS_D} took segmax_mma_kernel: {launches['segmax_routes']}")
         packed = "packed" in extra
         if (launches["gather_rows"], launches["scatter_rows_set"]) != (
                 (4 * steps, 2 * steps) if packed else (0, 0)) \
@@ -3068,12 +3123,20 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build(sources)
     print(f"kernel build ({', '.join(sources)}): {time.perf_counter() - t0!r} s")
+    ptxas = {}
     for name, log in cuda_build.build_logs.items():
+        built = cuda_build.build_seconds.get(name)
+        print(f"  nvcc {name}: " + (f"{built!r} s" if built is not None else "built before"))
+        ptxas[name] = cuda_build.ptxas_report(log)
+        for row in ptxas[name]:
+            print(f"  nvcc {name}: {row}")
         for line in log.splitlines():
-            if any(k in line for k in ("registers", "smem", "spill", "wgmma", "warning")):
+            if "warning" in line:
                 print(f"  nvcc {name}: {line.strip()}")
 
     rows = kernel_phase(torch, segmax)
+    rows["build_s"] = cuda_build.build_seconds.get("segmax")
+    rows["ptxas"] = ptxas["segmax"]
     serve, launches = serve_phase(torch, np, segmax)
     train_rows = train_kernel_phase(torch, bpr, adam)
     train_launches, train = train_phase(torch, np, bpr, adam)
@@ -3108,7 +3171,11 @@ def main() -> int:
         "cli_launches": cli_launches["segmax_scores"],
         "d148": rows["d148"],
         "vbpr_launches": vbpr_launches["segmax_scores"],
+        "vbpr_routes": vbpr_launches["segmax_routes"],
         "visual_cli_launches": {k: v["segmax_scores"] for k, v in vis_cli_launches.items()},
+        "visual_cli_routes": {k: v["segmax_routes"] for k, v in vis_cli_launches.items()},
+        "build_s": rows["build_s"],
+        "ptxas": rows["ptxas"],
     }]
     for name, source, replaces in (
         ("bpr_fwd", "bpr.cu", "fashionvisualexpl_tpu/ops/bpr.py:36"),

@@ -1,8 +1,9 @@
 // Inline-PTX helpers for the tensor-core kernels (segmax.cu, counts.cu,
-// edge_tower.cu) on Hopper, sm_90a: asynchronous 16-byte copies into shared
-// memory, ldmatrix fragment loads, the warp-level bf16 mma.sync product and
-// the bf16x2 and bf16x3 splits of f32 values.  Fragment layouts are those of the PTX ISA's
-// "Matrix Fragments for mma.m16n8k16" section: with
+// edge_tower.cu) on Hopper, sm_90a: asynchronous 16-, 8- and 4-byte copies
+// into shared memory, ldmatrix fragment loads, the warp-level bf16 mma.sync
+// product, the warpgroup products and the bf16x2 and bf16x3 splits of f32
+// values.  Fragment layouts are those of the PTX ISA's "Matrix Fragments
+// for mma.m16n8k16" section: with
 // g = lane / 4 and t = lane % 4, an accumulator holds rows g and g + 8 of
 // the 16-row tile, columns 2t and 2t + 1 of the 8-column tile (c[0], c[1]
 // row g; c[2], c[3] row g + 8).
@@ -26,7 +27,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
-// the same for 4 bytes (through L1: .cg takes only 16)
+// the same for 8 and 4 bytes (through L1: .cg takes only 16)
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
@@ -151,6 +157,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// the same with A read by the tensor cores too, from a K-major tile in
+// shared memory (descriptor a, laid out as b's)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t a,
+                                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 }  // namespace fvx

@@ -10,30 +10,37 @@
 // What bounds it, on an H100 SXM: at B=8 users (Ip=1,048,576 items, D=128)
 // the 268 MB item read, ~0.08 ms at 3.35 TB/s; at B=4096 the 1.10 TFLOP
 // product, ~1.11 ms at the 989 TFLOP/s bf16 tensor-core rate (the bytes,
-// iv 268 MB + out 537 MB, take ~0.24 ms).
+// iv 268 MB + out 537 MB, take ~0.24 ms).  At VBPR's and GradFashion's
+// D=148 over 524,288 items: the 155 MB item read at B=8, ~0.047 ms, and
+// the 0.636 TFLOP product at B=4096, ~0.64 ms.
 //
 // The bf16 path runs on the tensor cores, items as the M dimension and
 // users as N, so that iv [Ip, D] row-major is the row-major A operand and
 // uf [B, D] row-major the "col" (K-major) B operand: no transpose.  Every
 // block owns a tile of items for all of D and walks every user tile of 64
-// users past it through a cp.async ring (16-byte copies), so every item
-// row is read from device memory once at any B, and uf (1 MB at B=4096)
-// from L2.  Three kernels share that shape:
-// * D a multiple of 8 up to 128 (the serving width; zero-padded to 128),
-//   B > 64: segmax_wgmma_kernel.  Warpgroup products, wgmma.m64n64k16
-//   with A (items) in registers and B (users) read by the tensor cores
-//   from shared memory: the operations bound.  256 items a block, 2
-//   blocks an SM.
+// users past it through a cp.async ring, so every item row is read from
+// device memory once at any B, and uf (1 MB at B=4096) from L2.  Copies
+// are as wide as the rows allow: 16 bytes (D a multiple of 8, operands
+// 16-byte aligned), 8 (D a multiple of 4, 8-byte aligned: VBPR's and
+// GradFashion's D=148, whose 296-byte rows are 16-byte aligned only every
+// other row), 4, or else 2-byte loads.  plan() picks one of three kernels
+// and their geometry (fvx_segmax_route reports it):
+// * D up to 160 with 8- or 16-byte copies, B > 64: segmax_wgmma_kernel.
+//   Warpgroup products, wgmma.m64n64k16 with A (items) in registers and B
+//   (users) read by the tensor cores from shared memory: the operations
+//   bound.  D zero-padded to 128 (8 16-deep steps; 16-byte rows only, so
+//   that those kernels compile no narrower copy) or else 160 (10; the
+//   items' columns 128 .. 159 are then read from shared memory too, which
+//   keeps the registers of 8 steps).  256 items a block, 2 blocks an SM.
 // * The same D, B <= 64: segmax_mma_regs_kernel, mma.sync.m16n8k16 with
-//   the items' fragments in registers, taken with one 16-byte load per row
-//   and 32-wide slice of D (slices past D skipped): the bytes bound (at
-//   B=8 the block multiplies one 8-user fragment column and streams its
-//   64 KB of items).
-// * A D not a multiple of 8 or above 128, or an operand not 16-byte
-//   aligned: segmax_mma_kernel, mma.sync.m16n8k16 with a 128-item tile in
-//   shared memory and both operands through ldmatrix (8 warps, each 32
-//   items x 32 users a step); D zero-padded to a multiple of 16; staged
-//   with 2-byte loads where 16-byte cp.async cannot be.  Shared rows are
+//   the items' fragments over all of D (128 or 160) in registers, taken
+//   with one 16-byte load (or two of 8) per row and 32-wide slice of D
+//   (slices past D skipped): the bytes bound (at B=8 the block multiplies
+//   one 8-user fragment column and streams its 64 or 76 KB of items).
+// * Any other D (above 160, or rows only 4- or 2-byte aligned, as D=150):
+//   segmax_mma_kernel, mma.sync.m16n8k16 with a 128-item tile in shared
+//   memory and both operands through ldmatrix (8 warps, each 32 items x 32
+//   users a step); D zero-padded to a multiple of 16.  Shared rows are
 //   padded by 16 bytes (an odd multiple of 16 bytes a row), so the 8 row
 //   addresses of each ldmatrix phase fall in 8 different bank groups.
 //
@@ -197,11 +204,11 @@ int launch_simt(const void* uf, const void* iv, const void* ib, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel (bf16 operands)
+// Tensor-core kernels (bf16 operands)
 
-constexpr int kMT = 128;     // items per block tile
+constexpr int kMT = 128;     // items per block tile (segmax_mma_kernel)
 constexpr int kNT = 64;      // users per streamed tile
-constexpr int kWarps = 8;    // 4 along items x 2 along users
+constexpr int kWarps = 8;    // segmax_mma_kernel: 4 along items x 2 along users
 constexpr int kMmaThreads = kWarps * 32;
 constexpr int kStages = 3;   // user-tile ring depth
 constexpr int kScoreLD = kNT + 1;  // row stride of the slow path's score tile
@@ -211,34 +218,59 @@ struct MmaArgs {
   const __nv_bfloat16* iv;
   const float* ib;
   float* out;
-  int B, D, Dp, ld;  // ld: shared row stride in bf16 (Dp + 8)
+  int B, D, Dp, ld;  // ld: shared row stride in bf16
   long long Ip, S;
   int seg, span, nseg, sub_tiles, n_ut;
+  int cw;  // bytes a copy moves: 16, 8, 4 or 2 (plan())
 };
 
 // rows [row0, row0 + rows) of src (row-major [n_rows, D]) into dst rows of
-// stride ld, zero past n_valid rows and past D; 16-byte cp.async when kVec
-template <bool kVec>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row0, int rows,
-                                           long long n_valid, int D, int Dp,
-                                           int ld, int tid) {
-  if (kVec) {
-    const int chunks = Dp / 8;
-    for (int idx = tid; idx < rows * chunks; idx += kMmaThreads) {
-      const int r = idx / chunks, c = idx - r * chunks;
-      const long long g = row0 + r;
-      const bool ok = g < n_valid && c * 8 < D;
-      const __nv_bfloat16* p = ok ? src + g * D + c * 8 : src;
-      fvx::cp_async16(fvx::smem_u32(dst + r * ld + c * 8), p, ok ? 16 : 0);
-    }
-  } else {
+// stride ld, zero past n_valid rows and past D: cp.async of kW bytes (D a
+// multiple of kW / 2 and the rows kW-byte aligned, so that a copy lies
+// wholly inside D or wholly past it; the bytes past src-size are
+// zero-filled), or 2-byte loads (kW = 2)
+template <int kW>
+__device__ __forceinline__ void stage_rows_w(__nv_bfloat16* dst,
+                                             const __nv_bfloat16* src,
+                                             long long row0, int rows,
+                                             long long n_valid, int D, int Dp,
+                                             int ld, int tid) {
+  if constexpr (kW == 2) {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
     for (int idx = tid; idx < rows * Dp; idx += kMmaThreads) {
       const int r = idx / Dp, c = idx - r * Dp;
       const long long g = row0 + r;
       dst[r * ld + c] = (g < n_valid && c < D) ? src[g * D + c] : zero;
+    }
+  } else {
+    constexpr int kE = kW / 2;  // bf16 a copy
+    const int chunks = Dp / kE;
+    for (int idx = tid; idx < rows * chunks; idx += kMmaThreads) {
+      const int r = idx / chunks, c = idx - r * chunks;
+      const long long g = row0 + r;
+      const bool ok = g < n_valid && c * kE < D;
+      const uint32_t d = fvx::smem_u32(dst + r * ld + c * kE);
+      const __nv_bfloat16* p = ok ? src + g * D + c * kE : src;
+      if constexpr (kW == 16) fvx::cp_async16(d, p, ok ? 16 : 0);
+      else if constexpr (kW == 8) fvx::cp_async8(d, p, ok ? 8 : 0);
+      else fvx::cp_async4(d, p, ok ? 4 : 0);
+    }
+  }
+}
+
+// stage_rows_w at the plan's copy width (kW16: 16 bytes, known at compile time)
+template <bool kW16 = false>
+__device__ __forceinline__ void stage_rows(const MmaArgs& a, __nv_bfloat16* dst,
+                                           const __nv_bfloat16* src, long long row0,
+                                           int rows, long long n_valid, int tid) {
+  if constexpr (kW16) {
+    stage_rows_w<16>(dst, src, row0, rows, n_valid, a.D, a.Dp, a.ld, tid);
+  } else {
+    switch (a.cw) {
+      case 16: stage_rows_w<16>(dst, src, row0, rows, n_valid, a.D, a.Dp, a.ld, tid); break;
+      case 8: stage_rows_w<8>(dst, src, row0, rows, n_valid, a.D, a.Dp, a.ld, tid); break;
+      case 4: stage_rows_w<4>(dst, src, row0, rows, n_valid, a.D, a.Dp, a.ld, tid); break;
+      default: stage_rows_w<2>(dst, src, row0, rows, n_valid, a.D, a.Dp, a.ld, tid);
     }
   }
 }
@@ -308,14 +340,14 @@ __device__ __forceinline__ void store_segments(const MmaArgs& a, const float* re
   }
 }
 
-// kVec: 16-byte copies (D % 8 == 0, aligned operands).  kG: rows a thread
-// and its shuffles reduce before the shared-memory pass (8, 16 or 32; the
-// segment width is a multiple of it, or one segment spans the tile), or 0
-// for the slow path through a full score tile (seg < 128, seg % 8 != 0).
-template <bool kVec, int kG>
+// Any D the two kernels below do not take.  kG: rows a thread and its
+// shuffles reduce before the shared-memory pass (8, 16 or 32; the segment
+// width is a multiple of it, or one segment spans the tile), or 0 for the
+// slow path through a full score tile (seg < 128, seg % 8 != 0).
+template <int kG>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 segmax_mma_kernel(const MmaArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* items = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* users = items + kMT * a.ld;
   const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
@@ -339,12 +371,10 @@ segmax_mma_kernel(const MmaArgs a) {
   for (int r = 0; r < a.sub_tiles; ++r) {
     const long long i0 = j0 + static_cast<long long>(r) * kMT;
     __syncthreads();  // the previous sub-tile's readers are done
-    stage_rows<kVec>(items, a.iv, i0, kMT, j_end, a.D, a.Dp, a.ld, tid);
-    stage_rows<kVec>(users, a.uf, 0, kNT, a.B, a.D, a.Dp, a.ld, tid);
+    stage_rows(a, items, a.iv, i0, kMT, j_end, tid);
+    stage_rows(a, users, a.uf, 0, kNT, a.B, tid);
     fvx::cp_async_commit();
-    if (a.n_ut > 1)
-      stage_rows<kVec>(users + kNT * a.ld, a.uf, kNT, kNT, a.B, a.D, a.Dp,
-                       a.ld, tid);
+    if (a.n_ut > 1) stage_rows(a, users + kNT * a.ld, a.uf, kNT, kNT, a.B, tid);
     fvx::cp_async_commit();
 
     // bias of the rows this thread holds: rows past the block's items -inf
@@ -362,9 +392,8 @@ segmax_mma_kernel(const MmaArgs a) {
       __syncthreads();  // tile ut landed; tile ut - 1's readers are done
       if (ut + kStages - 1 < a.n_ut) {
         const int nb = (ut + kStages - 1) % kStages;
-        stage_rows<kVec>(users + nb * kNT * a.ld, a.uf,
-                         static_cast<long long>(ut + kStages - 1) * kNT, kNT,
-                         a.B, a.D, a.Dp, a.ld, tid);
+        stage_rows(a, users + nb * kNT * a.ld, a.uf,
+                   static_cast<long long>(ut + kStages - 1) * kNT, kNT, a.B, tid);
       }
       fvx::cp_async_commit();
 
@@ -425,29 +454,74 @@ segmax_mma_kernel(const MmaArgs a) {
   }
 }
 
-// D a multiple of 8 up to 128 (the serving width), zero-padded to 128, and
-// 16-byte aligned operands: each warp
-// keeps the A fragments of its 32 items over the whole D in registers (64
-// of them), loaded once from device memory, so a block of 8 warps holds 256
-// items with no shared memory for them.  The users stream through the same
-// 3-stage ring; a warp multiplies them 16 at a time, which halves the
-// shared-memory bytes a product of the kernel above, and the 256-item tile
-// halves its L2 reads of uf.  The k order inside each 32-wide slice of D is
-// permuted, the same way for both operands (a dot product does not depend
-// on it): the lane with t = lane % 4 holds, for the slice's two 16-deep
-// steps, the fragment columns {2t, 2t+1, 2t+8, 2t+9} of the first and then
-// of the second step, and those are the slice's elements 8t .. 8t+7.  So
-// each lane takes its A fragments with one 16-byte load per row and slice,
-// and its B fragments with one 16-byte shared load per 8-user fragment and
-// slice (rows 320 bytes apart: conflict-free).  The accumulators start at
-// the items' bias.
+// D up to 160 in rows that take 8- or 16-byte copies (plan()): each warp
+// keeps the A fragments of its 32 items over the whole D, zero-padded to
+// Dp = 16 kKS (128 or 160), in registers (4 kKS of them), loaded once from
+// device memory, so a block of 8 warps holds 256 items with no shared
+// memory for them.  The users stream through the same 3-stage ring; a
+// warp multiplies them 16 at a time, which halves the shared-memory bytes
+// a product of the kernel above, and the 256-item tile halves its L2 reads
+// of uf.  The k order inside each 32-wide slice of D is permuted, the same
+// way for both operands (a dot product does not depend on it): the lane
+// with t = lane % 4 holds, for the slice's two 16-deep steps, the fragment
+// columns {2t, 2t+1, 2t+8, 2t+9} of the first and then of the second step,
+// and those are the slice's elements 8t .. 8t+7.  So each lane takes its A
+// fragments with one 16-byte load per row and slice (two of 8 bytes where
+// the rows are only 8-byte aligned, as VBPR's 296-byte rows at D=148), and
+// its B fragments with one 16-byte shared load per 8-user fragment and
+// slice.  The accumulators start at the items' bias.
 constexpr int kRegMT = 256;  // items per block (8 warps x 32)
-constexpr int kRegKS = 8;    // 16-deep steps held in registers: D <= 128
+constexpr int kMaxKS = 10;   // 16-deep steps of the two kernels: D <= 160
 
-template <int kG>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+// the A fragments of a warp's 32 items over kKS steps (zero past D and
+// past the block's items), read kW bytes at a time
+template <int kKS, int kW>
+__device__ __forceinline__ void regs_fragments(uint32_t (&af)[2][kKS][4],
+                                               const MmaArgs& a, long long i0,
+                                               long long j_end, int warp, int g,
+                                               int t) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long j = i0 + warp * 32 + mi * 16 + h * 8 + g;
+      const bool ok = j < j_end;
+      const __nv_bfloat16* row = a.iv + (ok ? j : 0) * a.D + 8 * t;
+#pragma unroll
+      for (int c = 0; c < kKS / 2; ++c) {
+        const int k = 32 * c + 8 * t;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (kW == 16) {
+          if (ok && k < a.D) v = __ldg(reinterpret_cast<const uint4*>(row + 32 * c));
+        } else {
+          if (ok && k < a.D) {
+            const uint2 lo = __ldg(reinterpret_cast<const uint2*>(row + 32 * c));
+            v.x = lo.x;
+            v.y = lo.y;
+          }
+          if (ok && k + 4 < a.D) {
+            const uint2 hi = __ldg(reinterpret_cast<const uint2*>(row + 32 * c + 4));
+            v.z = hi.x;
+            v.w = hi.y;
+          }
+        }
+        af[mi][2 * c][h] = v.x;
+        af[mi][2 * c][h + 2] = v.y;
+        af[mi][2 * c + 1][h] = v.z;
+        af[mi][2 * c + 1][h + 2] = v.w;
+      }
+    }
+  }
+}
+
+#ifndef FVX_REGS_MIN_BLOCKS  // blocks an SM the kKS = 10 register kernel is built for
+#define FVX_REGS_MIN_BLOCKS 2
+#endif
+
+template <int kKS, int kG>
+__global__ void __launch_bounds__(kMmaThreads, kKS > 8 ? FVX_REGS_MIN_BLOCKS : 2)
 segmax_mma_regs_kernel(const MmaArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* users = reinterpret_cast<__nv_bfloat16*>(smem);
   const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
   float* red = reinterpret_cast<float*>(users + n_buf * kNT * a.ld);
@@ -461,45 +535,34 @@ segmax_mma_regs_kernel(const MmaArgs a) {
   for (int r = 0; r < a.sub_tiles; ++r) {
     const long long i0 = j0 + static_cast<long long>(r) * kRegMT;
     __syncthreads();  // the previous sub-tile's readers are done
-    stage_rows<true>(users, a.uf, 0, kNT, a.B, a.D, a.Dp, a.ld, tid);
+    stage_rows<kKS == 8>(a, users, a.uf, 0, kNT, a.B, tid);
     fvx::cp_async_commit();
     if (a.n_ut > 1)
-      stage_rows<true>(users + kNT * a.ld, a.uf, kNT, kNT, a.B, a.D, a.Dp,
-                       a.ld, tid);
+      stage_rows<kKS == 8>(a, users + kNT * a.ld, a.uf, kNT, kNT, a.B, tid);
     fvx::cp_async_commit();
 
     // this warp's items: A fragments over all of D (permuted k), and bias
-    uint32_t af[2][kRegKS][4];
+    uint32_t af[2][kKS][4];
+    if (kKS == 8 || a.cw == 16)
+      regs_fragments<kKS, 16>(af, a, i0, j_end, warp, g, t);
+    else
+      regs_fragments<kKS, 8>(af, a, i0, j_end, warp, g, t);
     float bias[2][2];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long long j = i0 + warp * 32 + mi * 16 + h * 8 + g;
-        const bool ok = j < j_end;
-        bias[mi][h] = ok ? a.ib[j] : -CUDART_INF_F;
-        const __nv_bfloat16* row = a.iv + (ok ? j : 0) * a.D + 8 * t;
-#pragma unroll
-        for (int c = 0; c < kRegKS / 2; ++c) {
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (ok && 32 * c + 8 * t < a.D)
-            v = __ldg(reinterpret_cast<const uint4*>(row + 32 * c));
-          af[mi][2 * c][h] = v.x;
-          af[mi][2 * c][h + 2] = v.y;
-          af[mi][2 * c + 1][h] = v.z;
-          af[mi][2 * c + 1][h + 2] = v.w;
-        }
+        bias[mi][h] = j < j_end ? a.ib[j] : -CUDART_INF_F;
       }
-    }
 
     for (int ut = 0; ut < a.n_ut; ++ut) {
       fvx::cp_async_wait<kStages - 2>();
       __syncthreads();  // tile ut landed; tile ut - 1's readers are done
       if (ut + kStages - 1 < a.n_ut) {
         const int nb = (ut + kStages - 1) % kStages;
-        stage_rows<true>(users + nb * kNT * a.ld, a.uf,
-                         static_cast<long long>(ut + kStages - 1) * kNT, kNT,
-                         a.B, a.D, a.Dp, a.ld, tid);
+        stage_rows<kKS == 8>(a, users + nb * kNT * a.ld, a.uf,
+                   static_cast<long long>(ut + kStages - 1) * kNT, kNT, a.B, tid);
       }
       fvx::cp_async_commit();
       const __nv_bfloat16* ubuf = users + (ut % kStages) * kNT * a.ld;
@@ -516,7 +579,7 @@ segmax_mma_regs_kernel(const MmaArgs a) {
         const uint4* brow = reinterpret_cast<const uint4*>(
             ubuf + (pass * 16 + g) * a.ld + 8 * t);
 #pragma unroll
-        for (int c = 0; c < kRegKS / 2; ++c) {
+        for (int c = 0; c < kKS / 2; ++c) {
           if (32 * c >= a.D) break;  // zero past D
           uint4 w[2];
 #pragma unroll
@@ -555,44 +618,93 @@ segmax_mma_regs_kernel(const MmaArgs a) {
   }
 }
 
-template <int kG>
-int launch_regs_as(const MmaArgs& a, long long blocks, size_t smem,
-                   cudaStream_t stream) {
-  static size_t granted = 0;  // per instantiation
-  if (smem > 48 * 1024 && smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        segmax_mma_regs_kernel<kG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
-  }
-  segmax_mma_regs_kernel<kG><<<static_cast<unsigned>(blocks), kMmaThreads,
-                               smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The same D and more than 64 users: the warpgroup products.  A block
 // of 2 warpgroups owns 256 items; each warp keeps the A fragments of its 2
-// x 16 items over all of D in registers (64 of them; warp w of a
-// warpgroup holds rows 16w .. 16w+15 of each of its two 64-item tiles).
-// The users stream through the 3-stage ring in the K-major no-swizzle
-// layout the tensor cores read (8x8 core matrices of 128 bytes: a user
-// tile is [8 user groups][16 k groups][8 users][8 k]), and a warpgroup
-// multiplies its 64-item tile by all 64 users of the tile with 8
-// wgmma.m64n64k16, reading the users from shared memory itself: no
-// fragment loads for B.  The accumulators start at the items' bias; the
-// epilogue reduces 8- or 16-row groups in registers and shuffles.
+// x 16 items over the first 128 columns of D in registers (64 of them;
+// warp w of a warpgroup holds rows 16w .. 16w+15 of each of its two
+// 64-item tiles).  The users stream through the 3-stage ring in the
+// K-major no-swizzle layout the tensor cores read (8x8 core matrices of
+// 128 bytes: a user tile is [8 user groups][2 kKS k groups][8 users][8
+// k]), and a warpgroup multiplies its 64-item tile by all 64 users of the
+// tile with kKS wgmma.m64n64k16, reading the users from shared memory
+// itself: no fragment loads for B.  At kKS = 10 the items' columns 128 ..
+// 159 would cost 16 more registers a thread than the 128 that two blocks
+// an SM leave (the kKS = 8 kernel takes 124-128): they are staged into
+// shared memory once per sub-tile instead, in the same core-matrix layout
+// ([32 item groups][4 k groups][8 items][8 k], 16 KB), and the last two
+// products read A from there too.  The accumulators start at the items'
+// bias; the epilogue reduces 8- or 16-row groups in registers and
+// shuffles.
 constexpr int kWgGroups = 2;                 // warpgroups per block
 constexpr int kWgThreads = kWgGroups * 128;
 constexpr int kWgMT = kWgGroups * 128;       // items per block
+#ifndef FVX_WG_REG_KS  // 16-deep steps whose A fragments stay in registers
+#define FVX_WG_REG_KS 8
+#endif
+constexpr int kWgRegKS = FVX_WG_REG_KS;
 
-template <int kG>
-__global__ void __launch_bounds__(kWgThreads, 2)
+// columns k .. k + 7 of a bf16 row into one 16-byte row of a core matrix,
+// zero past D or when !ok: one copy of kW = 16 bytes, or two of 8
+template <int kW>
+__device__ __forceinline__ void stage_core(uint32_t dst, const __nv_bfloat16* row,
+                                           int k, int D, bool ok) {
+  if constexpr (kW == 16) {
+    const bool in = ok && k < D;
+    fvx::cp_async16(dst, in ? row + k : row, in ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = ok && k + 4 * h < D;
+      fvx::cp_async8(dst + 8 * h, in ? row + k + 4 * h : row, in ? 8 : 0);
+    }
+  }
+}
+
+// user tile ut into buf as core matrices ([8 user groups][2 kKS k
+// groups][8 users][8 k]), kW bytes a copy
+template <int kKS, int kW>
+__device__ __forceinline__ void stage_user_tile(const MmaArgs& a, __nv_bfloat16* buf,
+                                                int ut, int tid) {
+  constexpr unsigned kC = 2 * kKS;  // 8-wide k groups a row
+  for (int idx = tid; idx < kNT * 2 * kKS; idx += kWgThreads) {
+    const int u = static_cast<unsigned>(idx) / kC, c = static_cast<unsigned>(idx) % kC;
+    const long long b = static_cast<long long>(ut) * kNT + u;
+    const uint32_t dst = fvx::smem_u32(buf + ((u >> 3) * 2 * kKS + c) * 64 + (u & 7) * 8);
+    if constexpr (kW == 16) {
+      const bool ok = b < a.B && c * 8 < a.D;
+      fvx::cp_async16(dst, ok ? a.uf + b * a.D + c * 8 : a.uf, ok ? 16 : 0);
+    } else {
+      stage_core<kW>(dst, b < a.B ? a.uf + b * a.D : a.uf, c * 8, a.D, b < a.B);
+    }
+  }
+}
+
+// columns k0 .. k0 + 16 kTS - 1 of the block's items i0 .. i0 + 255 into
+// tail as core matrices ([32 item groups][2 kTS k groups][8 items][8 k])
+template <int kTS, int kW>
+__device__ __forceinline__ void stage_item_tail(const MmaArgs& a, __nv_bfloat16* tail,
+                                                long long i0, long long j_end, int k0,
+                                                int tid) {
+  for (int idx = tid; idx < kWgMT * 2 * kTS; idx += kWgThreads) {
+    const int r = idx / (2 * kTS), c = idx - r * (2 * kTS);
+    const long long j = i0 + r;
+    const bool ok = j < j_end;
+    stage_core<kW>(fvx::smem_u32(tail + ((r >> 3) * 2 * kTS + c) * 64 + (r & 7) * 8),
+                   ok ? a.iv + j * a.D : a.iv, k0 + c * 8, a.D, ok);
+  }
+}
+
+template <int kKS, int kG>
+__global__ void __launch_bounds__(kWgThreads, (kKS < kWgRegKS ? kKS : kWgRegKS) > 8 ? 1 : 2)
 segmax_wgmma_kernel(const MmaArgs a) {
+  constexpr int kRS = kKS < kWgRegKS ? kKS : kWgRegKS;  // steps, A in registers
+  constexpr int kTS = kKS - kRS;                        // steps, A in shared memory
+  constexpr int kSlot = kNT * kKS * 16;                 // a user tile, bf16
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* users = reinterpret_cast<__nv_bfloat16*>(smem);
   const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
-  float* red = reinterpret_cast<float*>(users + n_buf * kNT * 128);
+  __nv_bfloat16* tail = users + n_buf * kSlot;  // the items' last kTS steps
+  float* red = reinterpret_cast<float*>(tail + kWgMT * kTS * 16);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -601,28 +713,31 @@ segmax_wgmma_kernel(const MmaArgs a) {
   const long long j0 = static_cast<long long>(blockIdx.x) * a.span;
   const long long j_end = min(a.Ip, j0 + a.span);
 
-  // user tile ut into ring slot ut % kStages, as core matrices
+  // user tile ut into ring slot ut % kStages
   auto stage_users = [&](int ut) {
-    __nv_bfloat16* buf = users + (ut % kStages) * kNT * 128;
-    for (int idx = tid; idx < kNT * 16; idx += kWgThreads) {
-      const int u = idx >> 4, c = idx & 15;
-      const long long b = static_cast<long long>(ut) * kNT + u;
-      const bool ok = b < a.B && c * 8 < a.D;
-      fvx::cp_async16(fvx::smem_u32(buf + ((u >> 3) * 16 + c) * 64 + (u & 7) * 8),
-                      ok ? a.uf + b * a.D + c * 8 : a.uf, ok ? 16 : 0);
-    }
+    __nv_bfloat16* buf = users + (ut % kStages) * kSlot;
+    if (kKS == 8 || a.cw == 16)
+      stage_user_tile<kKS, 16>(a, buf, ut, tid);
+    else
+      stage_user_tile<kKS, 8>(a, buf, ut, tid);
   };
 
   for (int r = 0; r < a.sub_tiles; ++r) {
     const long long i0 = j0 + static_cast<long long>(r) * kWgMT;
     __syncthreads();  // the previous sub-tile's readers are done
+    if constexpr (kTS > 0) {  // lands with user tile 0
+      if (kKS == 8 || a.cw == 16)
+        stage_item_tail<kTS, 16>(a, tail, i0, j_end, kRS * 16, tid);
+      else
+        stage_item_tail<kTS, 8>(a, tail, i0, j_end, kRS * 16, tid);
+    }
     stage_users(0);
     fvx::cp_async_commit();
     if (a.n_ut > 1) stage_users(1);
     fvx::cp_async_commit();
 
-    // this warp's items: A fragments over all of D, and their bias
-    uint32_t af[2][kRegKS][4];
+    // this warp's items: A fragments over the first kRS steps, and bias
+    uint32_t af[2][kRS][4];
     float bias[2][2];
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
@@ -634,7 +749,7 @@ segmax_wgmma_kernel(const MmaArgs a) {
         const uint32_t* row =
             reinterpret_cast<const uint32_t*>(a.iv + (ok ? j : 0) * a.D);
 #pragma unroll
-        for (int ks = 0; ks < kRegKS; ++ks)
+        for (int ks = 0; ks < kRS; ++ks)
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             const int k = ks * 16 + q * 8 + 2 * t;
@@ -649,7 +764,7 @@ segmax_wgmma_kernel(const MmaArgs a) {
       __syncthreads();  // tile ut landed; tile ut - 1's readers are done
       if (ut + kStages - 1 < a.n_ut) stage_users(ut + kStages - 1);
       fvx::cp_async_commit();
-      const uint32_t base = fvx::smem_u32(users + (ut % kStages) * kNT * 128);
+      const uint32_t base = fvx::smem_u32(users + (ut % kStages) * kSlot);
 
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
@@ -660,12 +775,19 @@ segmax_wgmma_kernel(const MmaArgs a) {
           fvx::reg_fence(d[i]);
         }
         fvx::wgmma_fence();
-        // all 8 steps, zeros past D: a product under a branch makes ptxas
-        // put a warpgroup.arrive before each one
+        // all kKS steps, zeros past D: a product under a branch makes
+        // ptxas put a warpgroup.arrive before each one
 #pragma unroll
-        for (int ks = 0; ks < kRegKS; ++ks)
+        for (int ks = 0; ks < kRS; ++ks)
           fvx::wgmma_m64n64k16_bf16(d, af[p][ks],
-                                    fvx::wgmma_desc(base + ks * 256, 128, 2048));
+                                    fvx::wgmma_desc(base + ks * 256, 128, 256 * kKS));
+#pragma unroll
+        for (int s = 0; s < kTS; ++s)
+          fvx::wgmma_m64n64k16_bf16_ss(
+              d,
+              fvx::wgmma_desc(fvx::smem_u32(tail) + (wg * 16 + p * 8) * 256 * kTS + s * 256,
+                              128, 256 * kTS),
+              fvx::wgmma_desc(base + (kRS + s) * 256, 128, 256 * kKS));
         fvx::wgmma_commit();
         fvx::wgmma_wait0();
 #pragma unroll
@@ -689,54 +811,120 @@ segmax_wgmma_kernel(const MmaArgs a) {
   }
 }
 
-template <int kG>
-int launch_wgmma_as(const MmaArgs& a, long long blocks, size_t smem,
-                    cudaStream_t stream) {
-  static size_t granted = 0;  // per instantiation
-  if (smem > 48 * 1024 && smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        segmax_wgmma_kernel<kG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
-  }
-  segmax_wgmma_kernel<kG><<<static_cast<unsigned>(blocks), kWgThreads,
-                            smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kVec, int kG>
-int launch_mma_as(const MmaArgs& a, long long blocks, size_t smem,
-                  cudaStream_t stream) {
-  static size_t granted = 0;  // per instantiation
-  if (smem > 48 * 1024 && smem > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        segmax_mma_kernel<kVec, kG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = smem;
-  }
-  segmax_mma_kernel<kVec, kG><<<static_cast<unsigned>(blocks), kMmaThreads,
-                                smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kVec>
-int launch_mma_vec(const MmaArgs& a, int kg, long long blocks, size_t smem,
-                   cudaStream_t stream) {
-  switch (kg) {
-    case 32: return launch_mma_as<kVec, 32>(a, blocks, smem, stream);
-    case 16: return launch_mma_as<kVec, 16>(a, blocks, smem, stream);
-    case 8: return launch_mma_as<kVec, 8>(a, blocks, smem, stream);
-    default: return launch_mma_as<kVec, 0>(a, blocks, smem, stream);
-  }
-}
-
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block on the H100
 
-// the bf16 tensor-core launch, or -1 when its tiles outgrow shared memory
+// one launch, the kernel's dynamic shared memory raised past 48 KB the
+// first time it needs more (granted: the instantiation's own record)
+int launch_with(void (*kernel)(MmaArgs), size_t& granted, const MmaArgs& a,
+                long long blocks, int threads, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024 && smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kG>
+int launch_mma_as(const MmaArgs& a, long long blocks, size_t smem, cudaStream_t s) {
+  static size_t granted = 0;
+  return launch_with(segmax_mma_kernel<kG>, granted, a, blocks, kMmaThreads, smem, s);
+}
+
+template <int kKS, int kG>
+int launch_regs_as(const MmaArgs& a, long long blocks, size_t smem, cudaStream_t s) {
+  static size_t granted = 0;
+  return launch_with(segmax_mma_regs_kernel<kKS, kG>, granted, a, blocks, kMmaThreads,
+                     smem, s);
+}
+
+template <int kKS, int kG>
+int launch_wgmma_as(const MmaArgs& a, long long blocks, size_t smem, cudaStream_t s) {
+  static size_t granted = 0;
+  return launch_with(segmax_wgmma_kernel<kKS, kG>, granted, a, blocks, kWgThreads, smem,
+                     s);
+}
+
+template <int kKS>
+int launch_regs(const MmaArgs& a, int kg, long long blocks, size_t smem, cudaStream_t s) {
+  switch (kg) {
+    case 32: return launch_regs_as<kKS, 32>(a, blocks, smem, s);
+    case 16: return launch_regs_as<kKS, 16>(a, blocks, smem, s);
+    case 8: return launch_regs_as<kKS, 8>(a, blocks, smem, s);
+    default: return launch_regs_as<kKS, 0>(a, blocks, smem, s);
+  }
+}
+
+template <int kKS>
+int launch_wgmma(const MmaArgs& a, int kg, long long blocks, size_t smem, cudaStream_t s) {
+  switch (kg) {
+    case 16: return launch_wgmma_as<kKS, 16>(a, blocks, smem, s);
+    case 8: return launch_wgmma_as<kKS, 8>(a, blocks, smem, s);
+    default: return launch_wgmma_as<kKS, 0>(a, blocks, smem, s);
+  }
+}
+
+enum Route { kRouteSimt = 0, kRouteMma = 1, kRouteRegs = 2, kRouteWgmma = 3 };
+
+// what fvx_segmax_bf16 launches for a geometry
+struct Plan {
+  int route;
+  int ks;      // 16-deep steps: D zero-padded to Dp = 16 ks
+  int ld;      // shared row stride in bf16 (segmax_mma_kernel, register kernel)
+  int cw;      // bytes a copy moves
+  int kg;      // rows group_max reduces in registers; 0: the score tile
+  int mt;      // items a block tile holds
+  size_t smem; // dynamic shared memory a block
+};
+
+// B users x D columns at segment width seg, both operands aligned to
+// align bytes.  The copies are as wide as the rows allow: 16 bytes (D a
+// multiple of 8 and 16-byte aligned operands), 8 (D a multiple of 4, 8-byte
+// aligned: VBPR's and GradFashion's D=148, 296-byte rows), 4, else 2-byte
+// loads.  8- or 16-byte copies and D <= 160 take the register kernel (one
+// user tile, B <= 64) or the warpgroup kernel, D zero-padded to 128 (16-byte
+// rows) or 160;
+// anything else segmax_mma_kernel; and tiles that outgrow shared memory
+// (D above ~300) the CUDA cores.
+Plan plan(long long B, long long D, long long seg, int align) {
+  Plan p;
+  p.cw = D % 8 == 0 && align >= 16 ? 16
+       : D % 4 == 0 && align >= 8  ? 8
+       : D % 2 == 0 && align >= 4  ? 4
+                                   : 2;
+  const long long n_ut = (B + kNT - 1) / kNT;
+  const bool regs = p.cw >= 8 && D <= kMaxKS * 16;
+  const bool wg = regs && n_ut > 1;
+  p.route = wg ? kRouteWgmma : regs ? kRouteRegs : kRouteMma;
+  // 8 steps only for 16-byte rows: those kernels compile no narrower copy
+  p.ks = regs ? (D <= 128 && p.cw == 16 ? 8 : kMaxKS) : static_cast<int>((D + 15) / 16);
+  const int Dp = 16 * p.ks;
+  // shared row stride: 16 bytes of pad for ldmatrix; for the register
+  // kernel's 16-byte loads rows 64 bytes apart mod 128 (ld = 32 mod 64,
+  // 160 at Dp = 128 and 160), so that the 8 lanes of a load phase (2 rows
+  // x 4 lanes) hit 8 different bank groups
+  p.ld = regs ? Dp + (96 - Dp % 64) % 64 : Dp + 8;
+  p.mt = regs ? kRegMT : kMT;
+  if (seg > p.mt || seg % 32 == 0) p.kg = wg ? 16 : 32;  // a warpgroup's warp: 16 rows
+  else if (seg % 16 == 0) p.kg = 16;
+  else if (seg % 8 == 0) p.kg = 8;
+  else p.kg = 0;
+  const size_t n_buf = n_ut < kStages ? n_ut : kStages;
+  const size_t tiles =
+      wg ? (n_buf * kNT * Dp + (p.ks > kWgRegKS ? kWgMT * 16 * (p.ks - kWgRegKS) : 0)) * 2
+         : ((regs ? 0 : kMT) + n_buf * kNT) * static_cast<size_t>(p.ld) * 2;
+  const size_t reduce = p.kg ? static_cast<size_t>(p.mt / p.kg) * kNT * 4
+                             : static_cast<size_t>(p.mt) * kScoreLD * 4;
+  p.smem = tiles + reduce;
+  if (p.smem > kMaxSmem) p.route = kRouteSimt;
+  return p;
+}
+
+// the bf16 tensor-core launch of plan p (route other than kRouteSimt)
 int launch_mma(const void* uf, const void* iv, const void* ib, void* out,
-               long long B, long long Ip, long long D, long long seg,
+               long long B, long long Ip, long long D, long long seg, const Plan& p,
                cudaStream_t stream) {
   MmaArgs a;
   a.uf = static_cast<const __nv_bfloat16*>(uf);
@@ -745,60 +933,40 @@ int launch_mma(const void* uf, const void* iv, const void* ib, void* out,
   a.out = static_cast<float*>(out);
   a.B = static_cast<int>(B);
   a.D = static_cast<int>(D);
-  a.Dp = static_cast<int>((D + 15) / 16 * 16);
+  a.Dp = 16 * p.ks;
+  a.ld = p.ld;
+  a.cw = p.cw;
   a.Ip = Ip;
   a.S = Ip / seg;
   a.seg = static_cast<int>(seg);
-  const long long n_ut = (B + kNT - 1) / kNT;
-  if (n_ut > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  a.n_ut = static_cast<int>(n_ut);
-  const bool vec = D % 8 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(uf) |
-                     reinterpret_cast<uintptr_t>(iv)) & 15) == 0;
-  // items a block holds: 256 with their fragments in registers (D <= 128,
-  // the users staged zero-padded to 128), else 128 in shared memory
-  const bool regs = vec && D <= kRegKS * 16;
-  const bool wg = regs && a.n_ut > 1;
-  const int mt = wg ? kWgMT : regs ? kRegMT : kMT;
-  if (regs) a.Dp = kRegKS * 16;
-  // shared row stride: 16 bytes of pad for ldmatrix, 64 for the register
-  // kernel's 16-byte loads (rows 64 bytes apart mod 128)
-  a.ld = a.Dp + (regs ? 32 : 8);
-  a.nseg = seg <= mt ? static_cast<int>(mt / seg) : 1;
-  a.span = seg <= mt ? static_cast<int>(a.nseg * seg) : static_cast<int>(seg);
-  a.sub_tiles = (a.span + mt - 1) / mt;
-  // rows reduced in registers: a multiple of 8 that divides the segment
-  // (the warpgroup kernel's warps hold 16 rows of a 64-row tile)
-  int kg = 0;
-  if (seg > mt || seg % 32 == 0) kg = wg ? 16 : 32;
-  else if (seg % 16 == 0) kg = 16;
-  else if (seg % 8 == 0) kg = 8;
-  const int n_buf = a.n_ut < kStages ? a.n_ut : kStages;
-  const size_t tiles = wg ? static_cast<size_t>(n_buf) * kNT * 128 * 2
-      : static_cast<size_t>((regs ? 0 : kMT) + n_buf * kNT) * a.ld * 2;
-  const size_t reduce = kg ? static_cast<size_t>(mt / kg) * kNT * 4
-                           : static_cast<size_t>(mt) * kScoreLD * 4;
-  const size_t smem = tiles + reduce;
-  if (smem > kMaxSmem) return -1;
+  a.n_ut = static_cast<int>((B + kNT - 1) / kNT);
+  a.nseg = seg <= p.mt ? static_cast<int>(p.mt / seg) : 1;
+  a.span = seg <= p.mt ? static_cast<int>(a.nseg * seg) : static_cast<int>(seg);
+  a.sub_tiles = (a.span + p.mt - 1) / p.mt;
   const long long blocks = (a.S + a.nseg - 1) / a.nseg;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (wg) {
-    switch (kg) {
-      case 16: return launch_wgmma_as<16>(a, blocks, smem, stream);
-      case 8: return launch_wgmma_as<8>(a, blocks, smem, stream);
-      default: return launch_wgmma_as<0>(a, blocks, smem, stream);
-    }
+  switch (p.route) {
+    case kRouteWgmma:
+      return p.ks > 8 ? launch_wgmma<kMaxKS>(a, p.kg, blocks, p.smem, stream)
+                      : launch_wgmma<8>(a, p.kg, blocks, p.smem, stream);
+    case kRouteRegs:
+      return p.ks > 8 ? launch_regs<kMaxKS>(a, p.kg, blocks, p.smem, stream)
+                      : launch_regs<8>(a, p.kg, blocks, p.smem, stream);
+    default:
+      switch (p.kg) {
+        case 32: return launch_mma_as<32>(a, blocks, p.smem, stream);
+        case 16: return launch_mma_as<16>(a, blocks, p.smem, stream);
+        case 8: return launch_mma_as<8>(a, blocks, p.smem, stream);
+        default: return launch_mma_as<0>(a, blocks, p.smem, stream);
+      }
   }
-  if (regs) {
-    switch (kg) {
-      case 32: return launch_regs_as<32>(a, blocks, smem, stream);
-      case 16: return launch_regs_as<16>(a, blocks, smem, stream);
-      case 8: return launch_regs_as<8>(a, blocks, smem, stream);
-      default: return launch_regs_as<0>(a, blocks, smem, stream);
-    }
-  }
-  return vec ? launch_mma_vec<true>(a, kg, blocks, smem, stream)
-             : launch_mma_vec<false>(a, kg, blocks, smem, stream);
+}
+
+// the largest power of two up to 16 that divides both addresses
+int operand_align(const void* uf, const void* iv) {
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(uf) | reinterpret_cast<uintptr_t>(iv) | 16;
+  return static_cast<int>(bits & (~bits + 1));
 }
 
 bool bad_geometry(long long B, long long Ip, long long D, long long seg) {
@@ -810,23 +978,45 @@ bool bad_geometry(long long B, long long Ip, long long D, long long seg) {
 
 // Plain C interface for ctypes.  uf [B, D], iv [Ip, D] (row-major, same
 // dtype), ib [Ip] f32, out [B, Ip/seg] f32, all contiguous on the current
-// device.  Returns the cudaError_t of the launch (0 = launched).
+// device.  Returns the cudaError_t of the launch (0 = launched) and writes
+// the route it launched to *route (as fvx_segmax_route returns it).
 extern "C" int fvx_segmax_bf16(const void* uf, const void* iv, const void* ib,
                                void* out, long long B, long long Ip,
-                               long long D, long long seg, void* stream) {
+                               long long D, long long seg, void* stream,
+                               int* route) {
   if (bad_geometry(B, Ip, D, seg))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_mma(uf, iv, ib, out, B, Ip, D, seg, s);
-  return rc >= 0 ? rc
-                 : launch_simt<__nv_bfloat16>(uf, iv, ib, out, B, Ip, D, seg, s);
+  const Plan p = plan(B, D, seg, operand_align(uf, iv));
+  *route = p.route;
+  return p.route == kRouteSimt
+             ? launch_simt<__nv_bfloat16>(uf, iv, ib, out, B, Ip, D, seg, s)
+             : launch_mma(uf, iv, ib, out, B, Ip, D, seg, p, s);
 }
 
 extern "C" int fvx_segmax_f32(const void* uf, const void* iv, const void* ib,
                               void* out, long long B, long long Ip,
-                              long long D, long long seg, void* stream) {
+                              long long D, long long seg, void* stream,
+                              int* route) {
   if (bad_geometry(B, Ip, D, seg))
     return static_cast<int>(cudaErrorInvalidValue);
+  *route = kRouteSimt;
   return launch_simt<float>(uf, iv, ib, out, B, Ip, D, seg,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The route fvx_segmax_bf16 takes for B users x D at segment width seg
+// with both operands aligned to align bytes, launching nothing: 0
+// segmax_simt_kernel, 1 segmax_mma_kernel, 2 segmax_mma_regs_kernel, 3
+// segmax_wgmma_kernel, or -1 for a bad geometry.  info gets {16-deep steps,
+// shared row stride, copy bytes, rows reduced in registers, items a block
+// tile, shared memory bytes}.
+extern "C" int fvx_segmax_route(long long B, long long D, long long seg, int align,
+                                long long* info) {
+  if (bad_geometry(B, seg, D, seg) || align < 1) return -1;
+  const Plan p = plan(B, D, seg, align);
+  const long long fields[6] = {p.ks, p.ld, p.cw, p.kg, p.mt,
+                               static_cast<long long>(p.smem)};
+  for (int i = 0; i < 6; ++i) info[i] = fields[i];
+  return p.route;
 }

@@ -13,8 +13,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -28,6 +30,8 @@ NVCC_FLAGS = (
 _libs: Dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register / shared memory report) per built source
 build_logs: Dict[str, str] = {}
+# seconds each source's nvcc took, per source built by this process
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -64,14 +68,22 @@ def build(names: Iterable[str]) -> List[Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        out = tmp.with_suffix(".out")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((name, so, tmp, proc))
+        with open(out, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((name, so, tmp, out, proc, time.perf_counter()))
+    pending = list(jobs)
+    while pending:  # each job's own time, though all run together
+        for job in list(pending):
+            if job[4].poll() is not None:
+                build_seconds[job[0]] = time.perf_counter() - job[5]
+                pending.remove(job)
+        time.sleep(0.01)
     failed = []
-    for name, so, tmp, proc in jobs:
-        log, _ = proc.communicate()
+    for name, so, tmp, out, proc, _ in jobs:
+        log = out.read_text()
+        out.unlink()
         build_logs[name] = log
         if proc.returncode:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
@@ -81,6 +93,57 @@ def build(names: Iterable[str]) -> List[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return [library_path(n) for n in names]
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Each kernel's registers, spill bytes and static shared memory from
+    ``-Xptxas=-v`` output: dicts of kernel (name and template arguments,
+    from the mangled name), registers, spill_stores, spill_loads, smem."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = dict(kernel=_kernel_name(m.group(1)), registers=None,
+                       spill_stores=0, spill_loads=0, smem=0)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return rows
+
+
+def _kernel_name(mangled: str) -> str:
+    """``segmax_wgmma_kernel<10, 16>`` from an Itanium-mangled kernel name:
+    the last source name followed by template arguments (integers, bools,
+    ``float`` or a named type); otherwise the mangled name."""
+    for run in reversed(list(re.finditer(r"\d+", mangled))):
+        for k in range(run.start(), run.end()):
+            n, at = int(mangled[k:run.end()]), run.end()
+            if n and mangled[at + n:at + n + 1] == "I":
+                args, i = [], at + n + 1
+                while i < len(mangled) and mangled[i] != "E":
+                    lit = re.match(r"L[ib](\d+)E", mangled[i:])
+                    named = re.match(r"(\d+)", mangled[i:])
+                    if lit:
+                        args.append(lit.group(1))
+                        i += lit.end()
+                    elif named:
+                        j = i + named.end()
+                        args.append(mangled[j:j + int(named.group(1))])
+                        i = j + int(named.group(1))
+                    else:
+                        args.append({"f": "float"}.get(mangled[i], mangled[i]))
+                        i += 1
+                return f"{mangled[at:at + n]}<{', '.join(args)}>"
+    return mangled
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -17,25 +17,32 @@ padded to the 65536 block), D=128 is 1.10 TFLOP, ~1.11 ms at 989 TFLOP/s
 bf16, against ~0.81 GB of traffic (iv 268 MB + out 537 MB), ~0.24 ms at
 3.35 TB/s.  At B=8 the 268 MB item read alone bounds it: ~0.08 ms.  The
 bf16 kernel runs on the tensor cores, each block holding a tile of items
-while the users stream past it: for D a multiple of 8 up to the serving
-width (D=128) ``wgmma`` warpgroup products for B > 64 and ``mma.sync`` with
-the items in registers for B <= 64, ``mma.sync`` from shared memory at any
-other D; the f32 entry,
-on no main path, keeps the first CUDA-core design.  Measured times are in
-PERF.md.
+while the users stream past it.  For D up to 160 in rows that take 8- or
+16-byte copies (D a multiple of 4 and operands 8-byte aligned, as VBPR's
+and GradFashion's D=148) it runs ``wgmma`` warpgroup products for B > 64
+and ``mma.sync`` with the items in registers for B <= 64, D zero-padded to
+128 or 160; at any other D ``mma.sync`` from shared memory.
+``segmax_route`` says which for a geometry, without launching.  The f32
+entry, on no main path, keeps the first CUDA-core design.  Measured times
+are in PERF.md.
 
 ``segmax_scores`` launches the kernel for a CUDA tensor (or raises) and takes
 the plain version ``segmax_scores_reference`` for a CPU tensor only.
-``segmax_scores.launches`` counts kernel launches.
+``segmax_scores.launches`` counts kernel launches, and
+``segmax_scores.routes`` counts them by the kernel that ran (``ROUTES``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 _DTYPES = {torch.bfloat16: "fvx_segmax_bf16", torch.float32: "fvx_segmax_f32"}
+# the kernels of csrc/segmax.cu, by the route number its entries report
+ROUTES = ("segmax_simt_kernel", "segmax_mma_kernel", "segmax_mma_regs_kernel",
+          "segmax_wgmma_kernel")
 
 
 def segmax_scores_reference(
@@ -87,22 +94,60 @@ def segmax_scores(
     for name, t in (("uf", uf), ("iv", iv), ("ib_cand", ib_cand)):
         if not t.is_contiguous():
             raise ValueError(f"segmax_scores: {name} must be contiguous")
-    from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
-
-    fn = getattr(load_library("segmax"), _DTYPES[uf.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry(_DTYPES[uf.dtype])
     B, D = uf.shape
     Ip = iv.shape[0]
     out = torch.empty((B, Ip // seg), dtype=torch.float32, device=uf.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(uf.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(uf.data_ptr(), iv.data_ptr(), ib_cand.data_ptr(),
-                out.data_ptr(), B, Ip, D, seg, stream)
+                out.data_ptr(), B, Ip, D, seg, stream, ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"segmax kernel launch failed: cudaError {rc}")
     segmax_scores.launches += 1
+    segmax_scores.routes[ROUTES[route.value]] += 1
     return out
 
 
 segmax_scores.launches = 0
+segmax_scores.routes = Counter()
+
+
+def _entry(name: str):
+    from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
+
+    fn = getattr(load_library("segmax"), name)
+    if name == "fvx_segmax_route":
+        fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+                       + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def operand_align(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every tensor's
+    address: the alignment ``segmax_scores``' bf16 kernel plans with."""
+    bits = 16
+    for t in tensors:
+        bits |= t.data_ptr()
+    return bits & -bits
+
+
+def segmax_route(B: int, D: int, seg: int, align: int = 16) -> dict:
+    """The kernel and geometry ``segmax_scores`` launches for bf16 [B, D]
+    users over items of width D at segment width ``seg``, operands aligned
+    to ``align`` bytes (``operand_align``), without launching: ``kernel``
+    (one of ``ROUTES``), ``Dp`` (D zero-padded), ``ld`` (shared row stride,
+    bf16), ``copy_bytes``, ``group_rows`` (rows reduced in registers; 0:
+    through a score tile), ``item_tile`` and ``smem`` (bytes a block).
+    Needs the built library, so a card's toolkit."""
+    info = (ctypes.c_longlong * 6)()
+    route = _entry("fvx_segmax_route")(B, D, seg, align, info)
+    if route < 0:
+        raise ValueError(f"segmax_route: bad geometry B={B} D={D} seg={seg} align={align}")
+    ks, ld, cw, kg, mt, smem = info
+    return dict(kernel=ROUTES[route], Dp=16 * ks, ld=ld, copy_bytes=cw, group_rows=kg,
+                item_tile=mt, smem=smem)

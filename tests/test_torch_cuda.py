@@ -23,8 +23,9 @@ backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
 scatter-set): bit-equal to their plain versions (compared as int32) at the
 packed rows' widths (VBPR's and GradFashion's with their frozen columns
 fused too), aligned and not, with out-of-range, negative and pad ids.
-K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150; K2 at 150,
-256, 272 and 1024 too, in two to eleven chunks of D).  The packed step on the card against the same step on CPU copies: 4
+K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
+160 and 164 too, its iv 8-byte aligned only, and the route each geometry
+takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).  The packed step on the card against the same step on CPU copies: 4
 K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
 rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
@@ -77,6 +78,19 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, seg):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+# D in (128, 160] in rows of 8- or 16-byte copies (VBPR's and GradFashion's
+# 148, 152, 160) on the register (B <= 64) and warpgroup kernels, at every
+# epilogue: seg a multiple of 8, 16 or 32, none (12: the score tile), and
+# above the 256-item tile (one segment walked in sub-tiles); ragged
+# catalogs (seg x n_seg), trailing pads.  D = 150 (4-byte rows) and 164 on
+# segmax_mma_kernel.
+WIDE_SEGS = {8: 150, 12: 100, 16: 75, 32: 37, 64: 19, 1024: 3}
+WIDE_GEOMETRIES = [(B, D, seg, n) for D in (148, 152, 160) for B in (8, 64, 65, 100, 4097)
+                   for seg, n in WIDE_SEGS.items()]
+FALLBACK_GEOMETRIES = [(B, D, seg, n) for D in (150, 164)
+                       for B, seg, n in ((8, 32, 37), (100, 16, 75), (4097, 32, 37))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,D,seg,n_seg", [
@@ -87,14 +101,14 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, seg):
     (8, 64, 32, 70), (100, 16, 32, 70), (100, 72, 16, 90), (8, 72, 8, 90),
     (8, 200, 32, 10), (8, 148, 32, 70), (100, 148, 32, 70), (4097, 148, 32, 20),
     (8, 150, 32, 50), (100, 150, 16, 40),
-])
+] + WIDE_GEOMETRIES + FALLBACK_GEOMETRIES)
 def test_kernel_geometries_match_plain_version_on_card(cuda_device, dtype, B, D, seg, n_seg):
-    """The tensor-core kernels' paths (D a multiple of 8 up to 128 with
-    the items' fragments in registers, D not a multiple of 8 or above 128
-    from shared memory, seg a multiple of 32, 16 or 8 or none, seg above
-    the block's item tile, B not a multiple of 8 or 16) and the CUDA-core
-    body (f32, D = 600); VBPR's and GradFashion's D = 148 and D = 150, on
-    the shared-memory route with 2-byte staging."""
+    """The tensor-core kernels' paths (D up to 160 in 8- or 16-byte rows
+    with the items' fragments in registers, any other D from shared
+    memory, seg a multiple of 32, 16 or 8 or none, seg
+    above the block's item tile, B not a multiple of 8 or 16) and the
+    CUDA-core body (f32, D = 600); VBPR's and GradFashion's D = 148 and
+    its neighbours (WIDE_GEOMETRIES, FALLBACK_GEOMETRIES)."""
     g = torch.Generator(device=cuda_device).manual_seed(B + D + seg)
     Ip = seg * n_seg
     uf = (torch.randn(B, D, device=cuda_device, generator=g) * (3 / D**0.5)).to(dtype)
@@ -105,6 +119,55 @@ def test_kernel_geometries_match_plain_version_on_card(cuda_device, dtype, B, D,
     torch.cuda.synchronize()
     want = S.segmax_scores_reference(uf, iv, ib, seg)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 100, 4097])
+def test_kernel_takes_8_byte_aligned_rows_on_card(cuda_device, B):
+    """iv the view big[1:] of a contiguous D = 148 tensor: 8-byte aligned,
+    not 16.  The register and warpgroup kernels take it with 8-byte copies."""
+    seg, D, Ip = 32, 148, 32 * 37
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    uf = (torch.randn(B, D, device=cuda_device, generator=g) * (3 / D**0.5)).bfloat16()
+    big = torch.randn(Ip + 1, D, device=cuda_device, generator=g).bfloat16()
+    iv = big[1:]
+    assert iv.is_contiguous() and S.operand_align(uf, iv) == 8
+    ib = torch.randn(Ip, device=cuda_device, generator=g) * 0.1
+    ib[-seg - 3:] = -1e30
+    before = S.segmax_scores.routes.copy()
+    got = S.segmax_scores(uf, iv, ib, seg)
+    torch.cuda.synchronize()
+    kernel = "segmax_wgmma_kernel" if B > 64 else "segmax_mma_regs_kernel"
+    assert S.segmax_scores.routes - before == {kernel: 1}
+    torch.testing.assert_close(got, S.segmax_scores_reference(uf, iv, ib, seg),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,align,Dp,copy_bytes,wide", [
+    (148, 16, 160, 8, True), (148, 8, 160, 8, True), (152, 16, 160, 16, True),
+    (160, 16, 160, 16, True), (128, 16, 128, 16, True), (100, 8, 160, 8, True), (128, 8, 160, 8, True),
+    (150, 16, 160, 4, False), (164, 16, 176, 8, False), (152, 8, 160, 8, True),
+    (148, 4, 160, 4, False), (148, 2, 160, 2, False), (33, 16, 48, 2, False),
+])
+def test_route_takes_wide_rows_to_the_register_and_warpgroup_kernels_on_card(
+        cuda_device, D, align, Dp, copy_bytes, wide):
+    """fvx_segmax_route: D up to 160 in rows of 8- or 16-byte copies goes
+    to the register kernel at B <= 64 and to the warpgroup kernel above;
+    D = 150 (4-byte rows), 164 and rows aligned to 4 or 2 bytes go to
+    segmax_mma_kernel.  D is zero-padded to 128 for 16-byte rows up to
+    128, else to 160.  The register kernel's shared rows are 160 bf16
+    apart (64 bytes mod 128) at both Dp."""
+    for B, large in ((1, False), (64, False), (65, True), (4096, True)):
+        r = S.segmax_route(B, D, 32, align)
+        want = ("segmax_wgmma_kernel" if large else "segmax_mma_regs_kernel") if wide \
+            else "segmax_mma_kernel"
+        assert (r["kernel"], r["Dp"], r["copy_bytes"]) == (want, Dp, copy_bytes), (B, r)
+        if r["kernel"] == "segmax_mma_regs_kernel":
+            assert r["ld"] == 160
+        assert r["smem"] <= 232448
+    with pytest.raises(ValueError, match="bad geometry"):
+        S.segmax_route(0, D, 32)
 
 
 @pytest.mark.cuda
