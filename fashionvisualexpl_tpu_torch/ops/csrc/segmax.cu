@@ -514,12 +514,8 @@ __device__ __forceinline__ void regs_fragments(uint32_t (&af)[2][kKS][4],
   }
 }
 
-#ifndef FVX_REGS_MIN_BLOCKS  // blocks an SM the kKS = 10 register kernel is built for
-#define FVX_REGS_MIN_BLOCKS 2
-#endif
-
 template <int kKS, int kG>
-__global__ void __launch_bounds__(kMmaThreads, kKS > 8 ? FVX_REGS_MIN_BLOCKS : 2)
+__global__ void __launch_bounds__(kMmaThreads, 2)
 segmax_mma_regs_kernel(const MmaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* users = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -638,10 +634,7 @@ segmax_mma_regs_kernel(const MmaArgs a) {
 constexpr int kWgGroups = 2;                 // warpgroups per block
 constexpr int kWgThreads = kWgGroups * 128;
 constexpr int kWgMT = kWgGroups * 128;       // items per block
-#ifndef FVX_WG_REG_KS  // 16-deep steps whose A fragments stay in registers
-#define FVX_WG_REG_KS 8
-#endif
-constexpr int kWgRegKS = FVX_WG_REG_KS;
+constexpr int kWgRegKS = 8;                  // 16-deep steps, A in registers
 
 // columns k .. k + 7 of a bf16 row into one 16-byte row of a core matrix,
 // zero past D or when !ok: one copy of kW = 16 bytes, or two of 8
@@ -695,7 +688,7 @@ __device__ __forceinline__ void stage_item_tail(const MmaArgs& a, __nv_bfloat16*
 }
 
 template <int kKS, int kG>
-__global__ void __launch_bounds__(kWgThreads, (kKS < kWgRegKS ? kKS : kWgRegKS) > 8 ? 1 : 2)
+__global__ void __launch_bounds__(kWgThreads, 2)
 segmax_wgmma_kernel(const MmaArgs a) {
   constexpr int kRS = kKS < kWgRegKS ? kKS : kWgRegKS;  // steps, A in registers
   constexpr int kTS = kKS - kRS;                        // steps, A in shared memory

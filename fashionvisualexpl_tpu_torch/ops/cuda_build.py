@@ -121,28 +121,36 @@ def ptxas_report(log: str) -> List[dict]:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``segmax_wgmma_kernel<10, 16>`` from an Itanium-mangled kernel name:
-    the last source name followed by template arguments (integers, bools,
-    ``float`` or a named type); otherwise the mangled name."""
-    for run in reversed(list(re.finditer(r"\d+", mangled))):
-        for k in range(run.start(), run.end()):
-            n, at = int(mangled[k:run.end()]), run.end()
-            if n and mangled[at + n:at + n + 1] == "I":
-                args, i = [], at + n + 1
-                while i < len(mangled) and mangled[i] != "E":
-                    lit = re.match(r"L[ib](\d+)E", mangled[i:])
-                    named = re.match(r"(\d+)", mangled[i:])
-                    if lit:
-                        args.append(lit.group(1))
-                        i += lit.end()
-                    elif named:
-                        j = i + named.end()
-                        args.append(mangled[j:j + int(named.group(1))])
-                        i = j + int(named.group(1))
-                    else:
-                        args.append({"f": "float"}.get(mangled[i], mangled[i]))
-                        i += 1
-                return f"{mangled[at:at + n]}<{', '.join(args)}>"
+    """``segmax_wgmma_kernel<10, 16>`` or ``edge_bwd_kernel`` from an
+    Itanium-mangled kernel name (``_Z<n><name>`` or ``_ZN<n><name>...E``):
+    the innermost source name, with its template arguments (integers,
+    bools, ``float`` or a named type), if any; otherwise the mangled name."""
+    m = re.match(r"_ZN?", mangled)
+    i, name = (m.end(), None) if m else (len(mangled), None)
+    while i < len(mangled):
+        n = re.match(r"\d+", mangled[i:])
+        if not n:
+            break
+        i += n.end()
+        name, i = mangled[i:i + int(n.group())], i + int(n.group())
+        if mangled[i:i + 1] == "I":
+            args, i = [], i + 1
+            while i < len(mangled) and mangled[i] != "E":
+                lit = re.match(r"L[ib](\d+)E", mangled[i:])
+                named = re.match(r"(\d+)", mangled[i:])
+                if lit:
+                    args.append(lit.group(1))
+                    i += lit.end()
+                elif named:
+                    j = i + named.end()
+                    args.append(mangled[j:j + int(named.group(1))])
+                    i = j + int(named.group(1))
+                else:
+                    args.append({"f": "float"}.get(mangled[i], mangled[i]))
+                    i += 1
+            return f"{name}<{', '.join(args)}>"
+        if mangled[1:3] != "ZN" or mangled[i:i + 1] == "E":
+            return name
     return mangled
 
 

@@ -1,16 +1,15 @@
 """Time K3 (``ops/csrc/segmax.cu``) of this tree against K3 of other
-checkouts and against this tree's source built with extra ``-D`` defines,
-in turns in one process on one card, with the L2 flushed before each call:
+checkouts, in turns in one process on one card, with the L2 flushed
+before each call:
 at BPRMF's serving shape (Ip=1,048,576 items, D=128, B = 8 and 4096) and at
 VBPR's and GradFashion's (Ip=524,288, D=148, B = 8, 64, 1024 and 4096),
-seg 32, bf16, in the order others, variants, this, this, variants
-reversed, others reversed; ``torch.matmul`` of the same operands once.
+seg 32, bf16, in the order others, this, this, others reversed;
+``torch.matmul`` of the same operands once.
 Every library's output is first held against the plain version
 (``chip_smoke.K_ATOL`` / ``K_RTOL``).
 
     git archive <commit> | tar -x -C build/archive/parent
-    python scripts_torch/k3_ab.py --other build/archive/parent \\
-        --define FVX_WG_REG_KS=10,FVX_REGS_MIN_BLOCKS=1
+    python scripts_torch/k3_ab.py --other build/archive/parent
 
 Prints each build's ptxas registers and spills for the segmax kernels, one
 line per timing and a JSON summary last; the times are torch.profiler's
@@ -39,14 +38,13 @@ OUT = ROOT / "build" / "k3_ab"
 
 def build_all(jobs):
     """{label: (fvx_segmax_bf16, takes a route pointer, build seconds,
-    ptxas report)} for jobs of (label, source, defines), each built with
-    this tree's flags, all nvcc processes started together."""
+    ptxas report)} for jobs of (label, source), each built with this
+    tree's flags, all nvcc processes started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = []
-    for n, (label, src, defines) in enumerate(jobs):
+    for n, (label, src) in enumerate(jobs):
         out = OUT / f"libsegmax_{n}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
-               "-o", str(out), str(src)]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)]
         procs.append((label, src, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter()))
@@ -69,8 +67,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, nargs="*", default=[],
                     help="checkouts to compare with")
-    ap.add_argument("--define", nargs="*", default=[],
-                    help="variants of this tree's source: comma-separated NAME=VALUE")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -78,9 +74,7 @@ def main() -> int:
         return 2
     print(f"card: {C.card_line()}")
     rel = Path("fashionvisualexpl_tpu_torch") / "ops" / "csrc" / "segmax.cu"
-    libs = build_all([(str(c), c / rel, ()) for c in args.other]
-                     + [(d, ROOT / rel, d.split(",")) for d in args.define]
-                     + [("this", ROOT / rel, ())])
+    libs = build_all([(str(c), c / rel) for c in args.other] + [("this", ROOT / rel)])
     for label, (_, _, seconds, report) in libs.items():
         print(f"build {label}: {seconds!r} s")
         for row in report:
