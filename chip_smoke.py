@@ -103,8 +103,9 @@ Phases, each of which raises on a failure (nothing is swallowed):
    histograms; factored D=148): K3 checked at D=148 and 150 (B = 8, 100,
    4097, both dtypes) and timed at D=148 over a 500k catalog at the
    serving buckets, the route of each bucket asserted (the register kernel
-   at B <= 64, the warpgroup kernel above); K2 checked bit-equal at D=148 on quantized data (T = 1
-   and 3, W = 1 and 4 or more, users and items off the tiles) and timed at
+   at B <= 64, the warpgroup kernel above); K2 checked bit-equal at D=148
+   on quantized data (T = 1 and 3, W = 1 and 4 or more, users and items
+   off the tiles) and timed at
    the evaluator's block (4096 x 500k); K4 and K5 bit-equal at the fused
    row widths (from ``packed_spec``, fp32 and bf16 moments) and timed at
    24,576 rows of a 500k-row table; each timed phase with the L2 flushed;

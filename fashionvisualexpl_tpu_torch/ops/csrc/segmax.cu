@@ -877,10 +877,9 @@ struct Plan {
 // multiple of 8 and 16-byte aligned operands), 8 (D a multiple of 4, 8-byte
 // aligned: VBPR's and GradFashion's D=148, 296-byte rows), 4, else 2-byte
 // loads.  8- or 16-byte copies and D <= 160 take the register kernel (one
-// user tile, B <= 64) or the warpgroup kernel, D zero-padded to 128 (16-byte
-// rows) or 160;
-// anything else segmax_mma_kernel; and tiles that outgrow shared memory
-// (D above ~300) the CUDA cores.
+// user tile, B <= 64) or the warpgroup kernel, D zero-padded to 128
+// (16-byte rows) or 160; anything else segmax_mma_kernel; and tiles that
+// outgrow shared memory (D above ~300) the CUDA cores.
 Plan plan(long long B, long long D, long long seg, int align) {
   Plan p;
   p.cw = D % 8 == 0 && align >= 16 ? 16
@@ -1002,14 +1001,13 @@ extern "C" int fvx_segmax_f32(const void* uf, const void* iv, const void* ib,
 // with both operands aligned to align bytes, launching nothing: 0
 // segmax_simt_kernel, 1 segmax_mma_kernel, 2 segmax_mma_regs_kernel, 3
 // segmax_wgmma_kernel, or -1 for a bad geometry.  info gets {16-deep steps,
-// shared row stride, copy bytes, rows reduced in registers, items a block
-// tile, shared memory bytes}.
+// shared row stride, copy bytes, rows reduced in registers, shared memory
+// bytes}.
 extern "C" int fvx_segmax_route(long long B, long long D, long long seg, int align,
                                 long long* info) {
   if (bad_geometry(B, seg, D, seg) || align < 1) return -1;
   const Plan p = plan(B, D, seg, align);
-  const long long fields[6] = {p.ks, p.ld, p.cw, p.kg, p.mt,
-                               static_cast<long long>(p.smem)};
-  for (int i = 0; i < 6; ++i) info[i] = fields[i];
+  const long long fields[5] = {p.ks, p.ld, p.cw, p.kg, static_cast<long long>(p.smem)};
+  for (int i = 0; i < 5; ++i) info[i] = fields[i];
   return p.route;
 }

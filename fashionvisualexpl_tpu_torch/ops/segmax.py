@@ -40,6 +40,8 @@ from collections import Counter
 import torch
 
 _DTYPES = {torch.bfloat16: "fvx_segmax_bf16", torch.float32: "fvx_segmax_f32"}
+_LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2
+_ROUTE_ARGS = [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
 # the kernels of csrc/segmax.cu, by the route number its entries report
 ROUTES = ("segmax_simt_kernel", "segmax_mma_kernel", "segmax_mma_regs_kernel",
           "segmax_wgmma_kernel")
@@ -94,7 +96,7 @@ def segmax_scores(
     for name, t in (("uf", uf), ("iv", iv), ("ib_cand", ib_cand)):
         if not t.is_contiguous():
             raise ValueError(f"segmax_scores: {name} must be contiguous")
-    fn = _entry(_DTYPES[uf.dtype])
+    fn = _entry(_DTYPES[uf.dtype], _LAUNCH_ARGS)
     B, D = uf.shape
     Ip = iv.shape[0]
     out = torch.empty((B, Ip // seg), dtype=torch.float32, device=uf.device)
@@ -114,15 +116,11 @@ segmax_scores.launches = 0
 segmax_scores.routes = Counter()
 
 
-def _entry(name: str):
+def _entry(name: str, argtypes):
     from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
 
     fn = getattr(load_library("segmax"), name)
-    if name == "fvx_segmax_route":
-        fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_void_p] * 2)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -142,12 +140,12 @@ def segmax_route(B: int, D: int, seg: int, align: int = 16) -> dict:
     to ``align`` bytes (``operand_align``), without launching: ``kernel``
     (one of ``ROUTES``), ``Dp`` (D zero-padded), ``ld`` (shared row stride,
     bf16), ``copy_bytes``, ``group_rows`` (rows reduced in registers; 0:
-    through a score tile), ``item_tile`` and ``smem`` (bytes a block).
-    Needs the built library, so a card's toolkit."""
-    info = (ctypes.c_longlong * 6)()
-    route = _entry("fvx_segmax_route")(B, D, seg, align, info)
+    through a score tile) and ``smem`` (bytes a block).  Needs the built
+    library, so a card's toolkit."""
+    info = (ctypes.c_longlong * 5)()
+    route = _entry("fvx_segmax_route", _ROUTE_ARGS)(B, D, seg, align, info)
     if route < 0:
         raise ValueError(f"segmax_route: bad geometry B={B} D={D} seg={seg} align={align}")
-    ks, ld, cw, kg, mt, smem = info
+    ks, ld, cw, kg, smem = info
     return dict(kernel=ROUTES[route], Dp=16 * ks, ld=ld, copy_bytes=cw, group_rows=kg,
-                item_tile=mt, smem=smem)
+                smem=smem)

@@ -25,7 +25,8 @@ packed rows' widths (VBPR's and GradFashion's with their frozen columns
 fused too), aligned and not, with out-of-range, negative and pad ids.
 K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
 160 and 164 too, its iv 8-byte aligned only, and the route each geometry
-takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).  The packed step on the card against the same step on CPU copies: 4
+takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).
+The packed step on the card against the same step on CPU copies: 4
 K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
 rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
@@ -146,8 +147,9 @@ def test_kernel_takes_8_byte_aligned_rows_on_card(cuda_device, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,align,Dp,copy_bytes,wide", [
     (148, 16, 160, 8, True), (148, 8, 160, 8, True), (152, 16, 160, 16, True),
-    (160, 16, 160, 16, True), (128, 16, 128, 16, True), (100, 8, 160, 8, True), (128, 8, 160, 8, True),
-    (150, 16, 160, 4, False), (164, 16, 176, 8, False), (152, 8, 160, 8, True),
+    (160, 16, 160, 16, True), (128, 16, 128, 16, True), (100, 8, 160, 8, True),
+    (128, 8, 160, 8, True), (150, 16, 160, 4, False), (164, 16, 176, 8, False),
+    (152, 8, 160, 8, True),
     (148, 4, 160, 4, False), (148, 2, 160, 2, False), (33, 16, 48, 2, False),
 ])
 def test_route_takes_wide_rows_to_the_register_and_warpgroup_kernels_on_card(

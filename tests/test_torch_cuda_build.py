@@ -8,13 +8,15 @@ import pytest
 from fashionvisualexpl_tpu_torch.ops import cuda_build
 
 NS = "_ZN41_GLOBAL__N__c08ccf65_9_segmax_cu_8c212886"
+WG = f"{NS}19segmax_wgmma_kernelILi10ELi16EEEvNS_7MmaArgsE"
+SIMT = f"{NS}18segmax_simt_kernelI13__nv_bfloat16EEvPKT_S4_PKfPfixiixiiix"
 LOG = f"""ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '{NS}19segmax_wgmma_kernelILi10ELi16EEEvNS_7MmaArgsE' for 'sm_90a'
-ptxas info    : Function properties for {NS}19segmax_wgmma_kernelILi10ELi16EEEvNS_7MmaArgsE
+ptxas info    : Compiling entry function '{WG}' for 'sm_90a'
+ptxas info    : Function properties for {WG}
     8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
-ptxas info    : Compiling entry function '{NS}18segmax_simt_kernelI13__nv_bfloat16EEvPKT_S4_PKfPfixiixiiix' for 'sm_90a'
-ptxas info    : Function properties for {NS}18segmax_simt_kernelI13__nv_bfloat16EEvPKT_S4_PKfPfixiixiiix
+ptxas info    : Compiling entry function '{SIMT}' for 'sm_90a'
+ptxas info    : Function properties for {SIMT}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 64 registers, used 1 barriers, 35840 bytes smem
 """
@@ -37,8 +39,8 @@ def test_ptxas_report_reads_each_kernel():
     (f"{NS}17segmax_mma_kernelILi0EEEvNS_7MmaArgsE", "segmax_mma_kernel<0>"),
     (f"{NS}17segmax_mma_kernelILb1ELi8EEEvNS_7MmaArgsE", "segmax_mma_kernel<1, 8>"),
     (f"{NS}18segmax_simt_kernelIfEEvPKT_S2_PKfPfixiixiiix", "segmax_simt_kernel<float>"),
-    ("_ZN46_GLOBAL__N__9b4e7771_13_edge_tower_cu_6bdffb9515edge_bwd_kernelEPKfS1_S1_S1_"
-     "Pfiiiiiiixf", "edge_bwd_kernel"),
+    ("_ZN46_GLOBAL__N__9b4e7771_13_edge_tower_cu_6bdffb9515edge_bwd_kernelE"
+     "PKfS1_S1_S1_Pfiiiiiiixf", "edge_bwd_kernel"),
     ("_Z10adam_sweepPfS_S_PKfi", "adam_sweep"),
     ("not_mangled", "not_mangled"),
 ])
