@@ -84,7 +84,11 @@ Phases, each of which raises on a failure (nothing is swallowed):
    packed rows' widths (385, 388, 257, 259, 193, 195, 512) for 8192 and
    16384 rows of a 1M-row table of random bit patterns; then timed at the
    JAX benches' shapes beside their bounds, plain versions and
-   ``torch.index_select`` / ``Tensor.index_copy_``; ``bench_gather`` and
+   ``torch.index_select`` / ``Tensor.index_copy_``; K4 also at 16,384 rows
+   of every narrow width the packed paths gather (BPRMF's 385 ... 195,
+   VBPR's and GradFashion's user rows 445 and 297) over 1M-row tables,
+   cold and warm, each on the route its plan names (a lanes route),
+   bit-equal and beside ``index_select``; ``bench_gather`` and
    ``bench_scatter`` once;
 14. packed training: ``Trainer(train_path="packed")`` for BPRMF at the fast
    path's configuration (1M x 500k, K=128, batch 8192; fp32 moments,
@@ -108,11 +112,14 @@ Phases, each of which raises on a failure (nothing is swallowed):
    off the tiles) and timed at
    the evaluator's block (4096 x 500k); K4 and K5 bit-equal at the fused
    row widths (from ``packed_spec``, fp32 and bf16 moments) and timed at
-   24,576 rows of a 500k-row table; each timed phase with the L2 flushed;
+   24,576 rows of a 500k-row table, K4 also at 16,384 rows of the four
+   item widths (4355, 4867, 4484, 4996), each on its bulk route; each
+   timed phase with the L2 flushed;
 17. VBPR at full width over the evaluation phase's 1M users x 500k items
    and its data: the packed route with the frozen columns fused (3 steps
    on the card against CPU copies, 20k x 20k), one packed epoch of 200
-   steps (4 K4 + 2 K5 a step) and a 10-step profile, 50 generic
+   steps (4 K4 + 2 K5 a step, the two item-row gathers on a bulk route)
+   and a 10-step profile, 50 generic
    ``Trainer`` steps, a 200-step fast epoch, ``RecServer`` at B = 8, 64,
    1024, 4096 through K3 (64 users against a full-catalog fp32 oracle;
    its launches on the register and warpgroup kernels only),
@@ -234,6 +241,15 @@ AF_CLI_CLASSES, AF_CLI_BATCH_EVAL, AF_SERVE_BUCKETS = 10, 128, (8, 64, 1024)
 # shapes (rows, width, batch)
 ROW_WIDTHS, ROW_TABLE, ROW_BATCHES = (385, 388, 257, 259, 193, 195, 512), 1_000_000, (8192, 16384)
 GATHER_SHAPE, SCATTER_SHAPE = (1_000_000, 128, 24576), (1_000_000, 384, 24576)
+# K4 timed at every width the packed paths gather, at the packed step's
+# item batch: BPRMF rows (fp32 / bf16 / fp8 moments) and VBPR's and
+# GradFashion's user rows (445 fp32, 297 bf16) over 1M-row tables, their
+# item rows (4355 / 4867 bf16, 4484 / 4996 fp32) over the 500k-row catalog
+# (phase 16); the narrow ones also warm (their rows left in the L2 by the
+# call before, as the packed step's dedupe gather finds them)
+GATHER_B = 16_384
+GATHER_NARROW = (385, 388, 257, 259, 193, 195, 445, 297)
+GATHER_WIDE = (4355, 4867, 4484, 4996)
 # packed training: the fast path's BPRMF configuration (scripts/scaled_bench.py
 # --packed --packed_engine generic), one epoch cut to 200 steps; the
 # AttentiveFashion configuration above.  Route checks: 3 (BPRMF) and 2
@@ -2080,6 +2096,54 @@ def rows_bound(B: int, W: int):
     return bound_ms(4 * (2 * B * W + B), 0, PEAK_F32_FLOPS)
 
 
+def gather_timed(torch, G, label, table, ids, flush, warm=False):
+    """K4 at one shape: bit-equal to its plain version on the route its
+    plan names (a bulk route for rows of BULK_MIN_BYTES or more, a lanes
+    route below), then timed with the L2 flushed beside its plain version,
+    ``torch.index_select`` and its bound; with ``warm``, K4 and
+    ``index_select`` also timed with their rows left in the L2 by the call
+    before."""
+    R, W = table.shape
+    B = ids.shape[0]
+    before = dict(G.gather_rows.routes)
+    got = G.gather_rows(table, ids)
+    torch.cuda.synchronize()
+    routes = [k for k, v in G.gather_rows.routes.items() if v != before.get(k, 0)]
+    plan = G.gather_plan(W, table.data_ptr(), got.data_ptr())
+    bulk = 4 * W >= G.BULK_MIN_BYTES
+    if routes != [plan.route] or plan.route.startswith("bulk") != bulk:
+        fail(f"gather {label}: launched on {routes}, planned {plan}")
+    if not torch.equal(got.view(torch.int32),
+                       G.gather_rows_reference(table, ids).view(torch.int32)):
+        fail(f"gather kernel disagrees with its plain version at {label}")
+    del got
+    run = lambda: G.gather_rows(table, ids)  # noqa: E731
+    lib = lambda: torch.index_select(table, 0, ids)  # noqa: E731
+    ms, call_ms, _ = kernel_times(torch, f"gather_rows {label}", run, 20, flush)
+    plain_ms, _, _ = kernel_times(torch, f"gather_rows plain {label}",
+                                  lambda: G.gather_rows_reference(table, ids), 10, flush)
+    lib_ms, _, _ = kernel_times(torch, f"gather_rows library {label}", lib, 20, flush)
+    b, by = rows_bound(B, W)
+    check_bound(f"gather_rows {label}", ms, b)
+    row = dict(route=plan.route, param=plan.param, piece_bytes=plan.piece_bytes,
+               resident_blocks=G.gather_residency(W, plan)[0], max_abs_err=0.0, ms=ms,
+               call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=lib_ms, bound_share=b / ms, beats_library=ms < lib_ms,
+               shape=f"R={R} W={W} B={B} f32, cold L2", library="torch.index_select")
+    if warm:  # the flushes shrunk to one marker kernel of 256 floats
+        row["warm_ms"], _, _ = kernel_times(torch, f"gather_rows warm {label}", run, 20,
+                                            flush[:256])
+        row["warm_library_ms"], _, _ = kernel_times(
+            torch, f"gather_rows library warm {label}", lib, 20, flush[:256])
+    print(f"kernel time gather_rows {row['shape']} ({plan.route}, param {plan.param}, "
+          f"piece {plan.piece_bytes}, {row['resident_blocks']} blocks an SM): ms={ms!r} "
+          f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(torch.index_select)="
+          f"{lib_ms!r} bound_ms={b!r} ({by}, {100 * b / ms:.1f}%)"
+          + (f" warm_ms={row['warm_ms']!r} warm_library_ms={row['warm_library_ms']!r}"
+             if warm else ""))
+    return row
+
+
 def row_kernel_phase(torch, G, S):
     """K4 and K5 against their plain versions, bit for bit, then timed at
     the JAX benches' shapes; bench_gather / bench_scatter once."""
@@ -2135,7 +2199,10 @@ def row_kernel_phase(torch, G, S):
     R, W, B = GATHER_SHAPE
     table = torch.randn(R, W, device=dev, generator=g)
     ids = torch.randint(0, R, (B,), device=dev, generator=g, dtype=torch.int32)
+    before = G.gather_rows.routes["lanes"]
     err = float((G.gather_rows(table, ids) - G.gather_rows_reference(table, ids)).abs().max())
+    if G.gather_rows.routes["lanes"] != before + 1:
+        fail(f"gather at the JAX bench's shape left the lanes: {dict(G.gather_rows.routes)}")
     runs = (lambda: G.gather_rows(table, ids), lambda: G.gather_rows_reference(table, ids),
             lambda: torch.index_select(table, 0, ids))
     rows["gather_rows"] = (err, runs, rows_bound(B, W), f"R={R} W={W} B={B} f32, cold L2",
@@ -2163,9 +2230,22 @@ def row_kernel_phase(torch, G, S):
                          library=library)
         print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
               f"plain_ms={plain_ms!r} library_ms({library})={lib_ms!r} bound_ms={b!r} ({by})")
+    out["gather_rows"]["route"] = "lanes"
     del table, stable, vals
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid = {}
+    for W in GATHER_NARROW:  # K4 at the narrow widths, R=1M, B=16,384
+        table = torch.randn(ROW_TABLE, W, device=dev, generator=g)
+        ids = torch.randint(0, ROW_TABLE, (GATHER_B,), device=dev, generator=g,
+                            dtype=torch.int32)
+        grid[f"W={W} B={GATHER_B}"] = gather_timed(
+            torch, G, f"R={ROW_TABLE} W={W} B={GATHER_B}", table, ids, flush, warm=True)
+        del table
+        torch.cuda.empty_cache()
+    print(f"gather timing grid, narrow widths: {time.perf_counter() - t0!r} s")
     out["fused"] = fused_row_phase(torch, G, S, bits, flush)
+    out["gather_rows"]["grid"] = {**grid, **out["fused"].pop("gather_grid")}
     del flush
     torch.cuda.empty_cache()
     for name, bench in (("bench_gather", G.bench_gather), ("bench_scatter", S.bench_scatter)):
@@ -2256,7 +2336,10 @@ def fused_row_phase(torch, G, S, bits, flush):
              lambda: table.index_copy_(0, sids64, vals), "Tensor.index_copy_ (int64 ids)"),
         ):
             if name == "gather_rows":
+                before = dict(G.gather_rows.routes)
                 err = float((run() - plain()).abs().max())
+                if G.gather_rows.routes["bulk_store"] != before.get("bulk_store", 0) + 1:
+                    fail(f"gather at W={W} B={B} left bulk_store: {dict(G.gather_rows.routes)}")
             else:  # the scattered rows, read back, against the values
                 run()
                 err = float((table[sids64] - vals).abs().max())
@@ -2272,7 +2355,16 @@ def fused_row_phase(torch, G, S, bits, flush):
             print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
                   f"plain_ms={plain_ms!r} library_ms({library})={lib_ms!r} bound_ms={b!r} "
                   f"({by})")
+        out[label]["gather_rows"]["route"] = "bulk_store"
         del table, vals
+        torch.cuda.empty_cache()
+    out["gather_grid"] = {}
+    for W in GATHER_WIDE:  # K4 at the item rows, R=500k, B=16,384
+        table = torch.randn(R, W, device=dev, generator=g)
+        ids = torch.randint(0, R, (GATHER_B,), device=dev, generator=g, dtype=torch.int32)
+        out["gather_grid"][f"W={W} B={GATHER_B}"] = gather_timed(
+            torch, G, f"R={R} W={W} B={GATHER_B}", table, ids, flush)
+        del table
         torch.cuda.empty_cache()
     print(f"fused row widths phase: {time.perf_counter() - t0!r} s")
     return out
@@ -2424,9 +2516,9 @@ def step_profile(torch, label, run, triples, n: int):
     if not ops:
         fail(f"{label} profile: torch.profiler recorded no device time")
     busy = sum(us for us, _, _ in ops)
-    share = {k: sum(us for us, key, _ in ops if tag in key) / busy
-             for k, tag in (("k4", "gather_rows_kernel"), ("k5", "scatter_rows_kernel"),
-                            ("k7", "edge_"))}
+    share = {k: sum(us for us, key, _ in ops if any(t in key for t in tags)) / busy
+             for k, tags in (("k4", ("gather_lanes_kernel", "gather_bulk_kernel")),
+                             ("k5", ("scatter_rows_kernel",)), ("k7", ("edge_",)))}
     out = dict(steps=n, wall_ms_per_step=wall_us / 1e3 / n, device_ms_per_step=busy / 1e3 / n,
                device_ops_per_step=sum(c for _, _, c in ops) / n,
                idle_share=1.0 - busy / wall_us, **{f"{k}_share": v for k, v in share.items()})
@@ -2509,13 +2601,15 @@ def packed_train_phase(torch, np, G, S):
         lazy_catchup=cfg.lazy_catchup)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    G.gather_rows.launches = S.scatter_rows_set.launches = 0  # main path starts here
+    G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    G.gather_rows.routes.clear()  # main path starts here
     t0 = time.perf_counter()
     inner, loss = epoch_fn(state.inner, frozen, 100, *tabs)
     loss = float(loss)  # waits for the epoch
     dt = time.perf_counter() - t0
     launches = {"gather_rows": G.gather_rows.launches,
                 "scatter_rows_set": S.scatter_rows_set.launches}  # main path ends here
+    gather_routes = dict(G.gather_rows.routes)
     peak = torch.cuda.max_memory_allocated() - start  # the phase's own peak
     want = {"gather_rows": 4 * PACKED_STEPS, "scatter_rows_set": 2 * PACKED_STEPS}
     if launches != want:
@@ -2524,11 +2618,12 @@ def packed_train_phase(torch, np, G, S):
         fail(f"packed epoch: loss {loss!r}, step {int(inner.step)}")
     summary = dict(steps=PACKED_STEPS, s=dt, triples_per_s=PACKED_STEPS * TRAIN_B / dt,
                    ms_per_step=1e3 * dt / PACKED_STEPS, peak_gib=peak / 2**30,
-                   start_gib=start / 2**30, mean_loss=loss / PACKED_STEPS, route=route)
+                   start_gib=start / 2**30, mean_loss=loss / PACKED_STEPS, route=route,
+                   gather_routes=gather_routes)
     print(f"packed train main path: {PACKED_STEPS} steps in {dt!r} s (sampling included), "
           f"triples_per_s={summary['triples_per_s']!r} ms_per_step={summary['ms_per_step']!r}"
           f", the phase's own peak {peak / 2**30!r} GiB (allocated when it began "
-          f"{start / 2**30!r}), launches {launches}")
+          f"{start / 2**30!r}), launches {launches}, K4 routes {gather_routes}")
 
     state = state.with_inner(inner)
     summary["profile"] = step_profile(
@@ -2608,6 +2703,7 @@ def af_packed_phase(torch, np, G, S, E):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    G.gather_rows.routes.clear()
     E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0  # main path starts here
     t0 = time.perf_counter()
     state, loss = trainer.run_steps(state, frozen, triples, step_key=200)
@@ -2617,6 +2713,7 @@ def af_packed_phase(torch, np, G, S, E):
                 "scatter_rows_set": S.scatter_rows_set.launches,
                 "edge_tower_fwd": E.edge_tower_fwd.launches,
                 "edge_tower_bwd": E.edge_tower_bwd.launches}  # main path ends here
+    gather_routes = dict(G.gather_rows.routes)
     peak = torch.cuda.max_memory_allocated() - start  # the phase's own peak
     n = AF_PACKED_STEPS
     want = {"gather_rows": 4 * n, "scatter_rows_set": 2 * n, "edge_tower_fwd": 2 * n,
@@ -2628,11 +2725,11 @@ def af_packed_phase(torch, np, G, S, E):
     summary = dict(steps=n, s=dt, ms_per_step=1e3 * dt / n, triples_per_s=n * AF_B / dt,
                    peak_gib=peak / 2**30, start_gib=start / 2**30, mean_loss=loss / n,
                    route_max_abs_err=err,
-                   route_exempt=beyond, route_losses=losses)
+                   route_exempt=beyond, route_losses=losses, gather_routes=gather_routes)
     print(f"af packed main path: {n} steps in {dt!r} s, ms_per_step={summary['ms_per_step']!r}"
           f" triples_per_s={summary['triples_per_s']!r}, the phase's own peak "
           f"{peak / 2**30!r} GiB (allocated when it began {start / 2**30!r}), "
-          f"launches {launches}")
+          f"launches {launches}, K4 routes {gather_routes}")
     summary["profile"] = step_profile(
         torch, "af packed", lambda tr: trainer.run_steps(state, frozen, tr, step_key=300),
         sample_triplets(3, *tabs, AF_I, AF_PROFILE_STEPS, AF_B), AF_PROFILE_STEPS)
@@ -2660,7 +2757,8 @@ def packed_cli_phase(torch, np, counts, segmax, G, S):
     served = CLI_DIR / "served.tsv"
     users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
     counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
-    G.gather_rows.launches = S.scatter_rows_set.launches = 0  # main path starts here
+    G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    G.gather_rows.routes.clear()  # main path starts here
     t0 = time.perf_counter()
     train(common + ["--train_path", "packed", "--streaming_eval", "--epochs", "2",
                     "--verbose", "1", "--batch_size", str(PACKED_CLI_B)])
@@ -2673,6 +2771,7 @@ def packed_cli_phase(torch, np, counts, segmax, G, S):
                 "scatter_rows_set": S.scatter_rows_set.launches,
                 "counts": counts.counts_kernel.launches,
                 "segmax_scores": segmax.segmax_scores.launches}  # main path ends here
+    gather_routes = dict(G.gather_rows.routes)
     steps = 2 * (CLI_U * (CLI_PER_USER - 2) // PACKED_CLI_B)
     if (launches["gather_rows"], launches["scatter_rows_set"]) != (4 * steps, 2 * steps) \
             or not all(launches.values()):
@@ -2695,9 +2794,10 @@ def packed_cli_phase(torch, np, counts, segmax, G, S):
             np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
         fail(f"packed CLI: served {n_served} rows, metrics {per_epoch}")
     print(f"packed cli: train_rec {train_s!r} s, serve_rec {serve_s!r} s; launches {launches}"
-          f"; metrics epoch 2 {per_epoch[2]}")
+          f", K4 routes {gather_routes}; metrics epoch 2 {per_epoch[2]}")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
-    return launches, dict(train_s=train_s, serve_s=serve_s, metrics=per_epoch[2])
+    return launches, dict(train_s=train_s, serve_s=serve_s, metrics=per_epoch[2],
+                          gather_routes=gather_routes)
 
 
 def vbpr_phase(torch, np, counts, segmax, G, S, data):
@@ -2780,21 +2880,30 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
         lazy_catchup=cfg.lazy_catchup)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    G.gather_rows.launches = S.scatter_rows_set.launches = 0  # VBPR packed path starts here
+    G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    G.gather_rows.routes.clear()  # VBPR packed path starts here
     t0 = time.perf_counter()
     inner, loss = epoch_fn(state.inner, frozen, 101, *tabs)
     loss = float(loss)
     dt = time.perf_counter() - t0
     launches = {"gather_rows": G.gather_rows.launches,
                 "scatter_rows_set": S.scatter_rows_set.launches}  # ... and ends here
+    gather_routes = dict(G.gather_rows.routes)
     peak = torch.cuda.max_memory_allocated() - start
     want = {"gather_rows": 4 * VIS_STEPS, "scatter_rows_set": 2 * VIS_STEPS}
     if launches != want or not np.isfinite(loss) or int(inner.step) != VIS_STEPS:
         fail(f"vbpr packed epoch: launches {launches} (expected {want}), loss {loss!r}, "
              f"step {int(inner.step)}")
+    # two item-row gathers a step (the forward's and the deduped rows'), each
+    # on a bulk route; the user rows on a lanes route
+    bulk = sum(v for k, v in gather_routes.items() if k.startswith("bulk"))
+    if bulk != 2 * VIS_STEPS or sum(gather_routes.values()) != 4 * VIS_STEPS:
+        fail(f"vbpr packed epoch: K4 routes {gather_routes}, expected {2 * VIS_STEPS} "
+             f"item gathers on a bulk route")
     summary["packed"] = dict(steps=VIS_STEPS, s=dt, triples_per_s=VIS_STEPS * TRAIN_B / dt,
                              ms_per_step=1e3 * dt / VIS_STEPS, peak_gib=peak / 2**30,
-                             item_width=inner.item_pmv.shape[1], mean_loss=loss / VIS_STEPS)
+                             item_width=inner.item_pmv.shape[1], mean_loss=loss / VIS_STEPS,
+                             gather_routes=gather_routes)
     print(f"vbpr packed main path: {summary['packed']}, launches {launches}")
     state = state.with_inner(inner)
     summary["packed"]["profile"] = step_profile(
@@ -3014,7 +3123,8 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
                   "--embed_d", str(VIS_EMBED_D), "--top_k", str(CLI_K)]
         counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
         segmax.segmax_scores.routes.clear()
-        G.gather_rows.launches = S.scatter_rows_set.launches = 0  # this run starts here
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        G.gather_rows.routes.clear()  # this run starts here
         t1 = time.perf_counter()
         train(common + ["--streaming_eval", "--epochs", "2", "--batch_size", str(VIS_CLI_B),
                         *extra])
@@ -3028,7 +3138,8 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
                     "scatter_rows_set": S.scatter_rows_set.launches,
                     "counts": counts.counts_kernel.launches,
                     "segmax_scores": segmax.segmax_scores.launches,
-                    "segmax_routes": dict(segmax.segmax_scores.routes)}  # ... and ends here
+                    "segmax_routes": dict(segmax.segmax_scores.routes),
+                    "gather_routes": dict(G.gather_rows.routes)}  # ... and ends here
         if "segmax_mma_kernel" in launches["segmax_routes"]:
             fail(f"{label}: K3 at D={VIS_D} took segmax_mma_kernel: {launches['segmax_routes']}")
         packed = "packed" in extra
@@ -3219,6 +3330,12 @@ def main() -> int:
             "vbpr_launches": vbpr_launches[name],
             "visual_cli_launches": {k: v[name] for k, v in vis_cli_launches.items()},
         })
+    kernels[-2].update(
+        routes=packed["gather_routes"], af_routes=af_packed["gather_routes"],
+        cli_routes=packed_cli["gather_routes"], vbpr_routes=vbpr["packed"]["gather_routes"],
+        visual_cli_routes={k: v["gather_routes"] for k, v in vis_cli_launches.items()},
+        step_share={k: p["profile"]["k4_share"] for k, p in (
+            ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]))})
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
     print(json.dumps({"train": train, "fit": fitted}))
     print(json.dumps({"eval": evaluated, "cli": cli}))

@@ -120,11 +120,16 @@ def ptxas_report(log: str) -> List[dict]:
     return rows
 
 
+# Itanium codes of the builtin types the kernels take as template arguments
+_BUILTIN = {"f": "float", "j": "unsigned int", "i": "int"}
+
+
 def _kernel_name(mangled: str) -> str:
     """``segmax_wgmma_kernel<10, 16>`` or ``edge_bwd_kernel`` from an
     Itanium-mangled kernel name (``_Z<n><name>`` or ``_ZN<n><name>...E``):
     the innermost source name, with its template arguments (integers,
-    bools, ``float`` or a named type), if any; otherwise the mangled name."""
+    bools, ``float``, ``unsigned int``, ``int`` or a named type), if any;
+    otherwise the mangled name."""
     m = re.match(r"_ZN?", mangled)
     i, name = (m.end(), None) if m else (len(mangled), None)
     while i < len(mangled):
@@ -146,7 +151,7 @@ def _kernel_name(mangled: str) -> str:
                     args.append(mangled[j:j + int(named.group(1))])
                     i = j + int(named.group(1))
                 else:
-                    args.append({"f": "float"}.get(mangled[i], mangled[i]))
+                    args.append(_BUILTIN.get(mangled[i], mangled[i]))
                     i += 1
             return f"{name}<{', '.join(args)}>"
         if mangled[1:3] != "ZN" or mangled[i:i + 1] == "E":

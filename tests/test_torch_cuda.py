@@ -22,7 +22,13 @@ sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
 backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
 scatter-set): bit-equal to their plain versions (compared as int32) at the
 packed rows' widths (VBPR's and GradFashion's with their frozen columns
-fused too), aligned and not, with out-of-range, negative and pad ids.
+fused too), aligned and not, with out-of-range, negative and pad ids; K4
+on each of its routes, the route of every launch asserted (widths on both
+sides of the bulk threshold and at every W % 4, 8-byte and 4-byte bases,
+a table view with a storage offset, the last row of a table whose bytes
+end off a 16-byte boundary, B = 0, 1 and off the ring, NaN and denormal
+patterns, the lanes forced at wide rows and the bulk copies at narrow
+ones), and what its C entry refuses.
 K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
 160 and 164 too, its iv 8-byte aligned only, and the route each geometry
 takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).
@@ -746,6 +752,145 @@ def test_row_kernels_at_fused_widths_on_card(cuda_device):
         torch.cuda.synchronize()
         K5.scatter_rows_set_reference(plain, uids, vals)
         assert torch.equal(_bits(kern), _bits(plain)), width
+
+
+def _gather_checked(table, ids, route=None):
+    """K4 on (table, ids), bit-equal to its plain version, one launch on the
+    route its plan names (none for B = 0); returns the plan."""
+    before = (K4.gather_rows.launches, dict(K4.gather_rows.routes))
+    got = K4.gather_rows(table, ids, _route=route)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(K4.gather_rows_reference(table, ids)))
+    plan = K4.gather_plan(table.shape[1], table.data_ptr(), got.data_ptr(), route)
+    routes = {k: v - before[1].get(k, 0) for k, v in K4.gather_rows.routes.items()
+              if v != before[1].get(k, 0)}
+    n = int(ids.shape[0] > 0)
+    assert K4.gather_rows.launches - before[0] == n
+    assert routes == ({plan.route: 1} if n else {})
+    return plan
+
+
+def _gather_ids(dev, R, B, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, R, (B,), device=dev, generator=g, dtype=torch.int32)
+    special = torch.tensor([2**30, -1, R - 1, 0, R, -R - 1, -R, R - 1], dtype=torch.int32)
+    k = min(B, len(special))
+    ids[:k] = special[:k].to(dev)
+    return ids
+
+
+# widths on both sides of the bulk threshold (4096-byte rows) at every
+# W % 4, and every width the packed paths gather
+GATHER_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 127, 128, 129, 130, 193, 195, 257, 259, 297, 385, 388,
+                 445, 1020, 1021, 1022, 1023, 1024, 1025, 1026, 1027, 4355, 4484, 4867, 4996)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2], ids=["aligned16", "aligned4", "aligned8"])
+@pytest.mark.parametrize("width", GATHER_WIDTHS)
+def test_gather_routes_copy_bits_on_card(cuda_device, width, offset):
+    table = _bit_table(cuda_device, 1000, width, seed=width, offset=offset)
+    plan = _gather_checked(table, _gather_ids(cuda_device, 1000, 300, width))
+    vec = width % 4 == 0 and offset == 0
+    if 4 * width >= K4.BULK_MIN_BYTES:
+        assert plan.route == ("bulk_store" if vec else "bulk_lanes")
+    else:
+        assert plan.route == "lanes"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned16", "aligned4"])
+@pytest.mark.parametrize("route,width", [("lanes", w) for w in (1024, 4355, 4484, 4867, 4996)]
+                         + [("bulk", w) for w in (1, 2, 3, 4, 7, 128, 193, 385, 388, 1023)])
+def test_gather_forced_routes_on_card(cuda_device, route, width, offset):
+    """The lanes at wide rows (the route every width took before the bulk
+    copies) and the bulk copies at narrow ones, tiny rows included."""
+    table = _bit_table(cuda_device, 777, width, seed=width + 5, offset=offset)
+    plan = _gather_checked(table, _gather_ids(cuda_device, 777, 301, width), route)
+    assert plan.route.startswith(route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "bulk", "lanes"])
+@pytest.mark.parametrize("R,width", [(37, 4355), (37, 385), (5, 4867), (3, 1), (1, 4099)])
+def test_gather_table_edges_on_card(cuda_device, R, width, route):
+    """A view one float into its storage (base 4 bytes past a 16-byte
+    boundary) whose bytes end off a 16-byte boundary: its first and last
+    rows' aligned spans reach outside the table, so the bulk route copies
+    those pieces from the table directly."""
+    assert R * width * 4 % 16 != 0
+    table = _bit_table(cuda_device, R, width, seed=R + width, offset=1)
+    ids = torch.tensor([0, R - 1] * 40 + [2**30, -1, -R, 0], dtype=torch.int32,
+                       device=cuda_device)
+    plan = _gather_checked(table, ids, route)
+    assert plan.route == ("bulk_lanes" if route == "bulk" or (
+        route is None and 4 * width >= K4.BULK_MIN_BYTES) else "lanes")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [0, 1, 2, 3, 5, 13, 97, 4097])
+@pytest.mark.parametrize("width", [4484, 4355, 385, 388])
+def test_gather_batch_sizes_on_card(cuda_device, width, B):
+    """B = 0 (no launch), 1, and batches off the bulk rings (stages a warp
+    times 4 warps times the blocks)."""
+    table = _bit_table(cuda_device, 500, width, seed=B + width)
+    _gather_checked(table, _gather_ids(cuda_device, 500, B, B + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,width", [
+    ("lanes", 388), ("lanes", 385), ("lanes", 1023), ("bulk_store", 388),
+    ("bulk_store", 1024), ("bulk_lanes", 385), ("bulk_lanes", 1023), ("bulk_lanes", 1024)])
+def test_gather_nan_and_denormal_bits_on_card(cuda_device, route, width):
+    """NaN payloads, infinities, denormals and -0 travel as bits on every
+    route, 16-byte words assembled across two source words included."""
+    patterns = torch.tensor([0x7FC00001, -1, 1, -2139095041, 0x7F800000, -2**31, 0x7FBFFFFF,
+                             0x00400000], dtype=torch.int32)
+    R = 64
+    table = patterns.repeat(R * width // 8 + 1)[:R * width].view(R, width).to(cuda_device)
+    table = table.view(torch.float32)
+    ids = torch.randint(0, R, (200,), dtype=torch.int32).to(cuda_device)
+    assert _gather_checked(table, ids, route).route == route
+
+
+@pytest.mark.cuda
+def test_gather_refusals_on_card(cuda_device):
+    """A route the geometry does not allow raises before a launch; the C
+    entry refuses a bad route or geometry with cudaErrorInvalidValue (1)
+    and launches nothing, and the wrapper raises: no plain fallback."""
+    table = _bit_table(cuda_device, 64, 385, seed=1)
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    before = K4.gather_rows.launches
+    with pytest.raises(ValueError, match="bulk_store needs"):
+        K4.gather_rows(table, ids, _route="bulk_store")
+    for plan in (K4.GatherPlan("bulk_store", 4, 1552), K4.GatherPlan("bulk_lanes", 17, 1552),
+                 K4.GatherPlan("bulk_lanes", 4, 1544), K4.GatherPlan("lanes", 3, 0),
+                 K4.GatherPlan("bulk_lanes", 16, 16384)):
+        with pytest.raises(RuntimeError, match="cudaError 1"):
+            K4.gather_rows(table, ids, _route=plan)
+    assert K4.gather_rows.launches == before
+    fn = K4._entries[0] if K4._entries else K4._bind()[0]
+    out = torch.empty(8, 385, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 64, 385, 8, 9, 4, 0,
+              stream) == 1
+    assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, 385, 8, 0, 8, 0,
+              stream) == 1
+    assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8, 1, 4, 1552,
+              stream) == 1
+
+
+@pytest.mark.cuda
+def test_gather_residency_on_card(cuda_device):
+    """The persistent grids: two blocks of a bulk route share an SM, and the
+    lanes kernels keep several blocks an SM."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for width in (4484, 4996, 4355, 4867):
+        plan = K4.gather_plan(width, 0, 0)
+        assert K4.gather_residency(width, plan) == (2, sms)
+    for width in (128, 385, 388):
+        per_sm, n = K4.gather_residency(width, K4.gather_plan(width, 0, 0))
+        assert per_sm >= 2 and n == sms
 
 
 @pytest.mark.cuda

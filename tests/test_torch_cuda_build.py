@@ -33,7 +33,18 @@ def test_ptxas_report_reads_each_kernel():
     assert cuda_build.ptxas_report("") == []
 
 
+GNS = "_ZN41_GLOBAL__N__5d0c1e2f_9_gather_cu_7a3b9c1d"
+
+
 @pytest.mark.parametrize("mangled,name", [
+    (f"{GNS}19gather_lanes_kernelIjLi8EEEvPKT_PKiPS1_xix",
+     "gather_lanes_kernel<unsigned int, 8>"),
+    (f"{GNS}19gather_lanes_kernelI5uint2Li2EEEvPKT_PKiPS2_xix",
+     "gather_lanes_kernel<uint2, 2>"),
+    (f"{GNS}19gather_lanes_kernelI5uint4Li4EEEvPKT_PKiPS2_xix",
+     "gather_lanes_kernel<uint4, 4>"),
+    (f"{GNS}18gather_bulk_kernelILb1EEEvNS_8BulkArgsE", "gather_bulk_kernel<1>"),
+    (f"{GNS}18gather_bulk_kernelILb0EEEvNS_8BulkArgsE", "gather_bulk_kernel<0>"),
     (f"{NS}22segmax_mma_regs_kernelILi8ELi32EEEvNS_7MmaArgsE",
      "segmax_mma_regs_kernel<8, 32>"),
     (f"{NS}17segmax_mma_kernelILi0EEEvNS_7MmaArgsE", "segmax_mma_kernel<0>"),
@@ -46,6 +57,29 @@ def test_ptxas_report_reads_each_kernel():
 ])
 def test_kernel_names_are_demangled(mangled, name):
     assert cuda_build._kernel_name(mangled) == name
+
+
+def test_ptxas_report_reads_the_gather_kernels():
+    """The row gather's kernels by name, with their static shared memory
+    (the lanes kernels' staged row offsets; the bulk kernels' ring is
+    dynamic) and spills."""
+    lanes = f"{GNS}19gather_lanes_kernelIjLi8EEEvPKT_PKiPS1_xix"
+    bulk = f"{GNS}18gather_bulk_kernelILb0EEEvNS_8BulkArgsE"
+    log = f"""ptxas info    : Compiling entry function '{lanes}' for 'sm_90a'
+ptxas info    : Function properties for {lanes}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 2048 bytes smem
+ptxas info    : Compiling entry function '{bulk}' for 'sm_90a'
+ptxas info    : Function properties for {bulk}
+    16 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 38 registers
+"""
+    assert cuda_build.ptxas_report(log) == [
+        dict(kernel="gather_lanes_kernel<unsigned int, 8>", registers=40, spill_stores=0,
+             spill_loads=0, smem=2048),
+        dict(kernel="gather_bulk_kernel<0>", registers=38, spill_stores=4, spill_loads=4,
+             smem=0),
+    ]
 
 
 def test_library_path_follows_sources_and_flags(monkeypatch):

@@ -5,8 +5,10 @@ uint32, so NaN and denormal patterns count by their bits).
 Cases: the JAX test's random ids, duplicates, a batch that is not a
 multiple of ``rows_per_step`` (the TPU wrapper pads it internally), ids
 outside [0, R) (the kernel wraps a negative id once and clamps the rest),
-and the packed rows' odd widths holding random bit patterns.  The CUDA
-kernel is held against this plain version on the card
+and every width the packed paths gather holding random bit patterns.
+``gather_plan``'s route for each of those widths at both base alignments
+(a table view with a storage offset is only 4-byte aligned), and what it
+refuses.  The CUDA kernel is held against this plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import jax.numpy as jnp
@@ -88,3 +90,119 @@ def test_gather_rejects_what_it_does_not_take():
         G.gather_rows(torch.zeros(0, 3), torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA device"):
         G.bench_gather(table_rows=8, dim=4, batch=4, reps=1, device="cpu")
+
+
+# Every width the packed paths gather (floats): BPRMF rows with fp32 / bf16
+# / fp8 moments (385 / 388 at row_align 1 / 4, 257 / 259, 193 / 195), VBPR's
+# and GradFashion's user rows (445 fp32, 297 bf16) and item rows with their
+# frozen columns fused (4484 / 4996 fp32, 4355 / 4867 bf16), and the JAX
+# bench's 128; with the route each takes between 16-byte-aligned tensors
+# and from a table whose base is 4 bytes past a 16-byte boundary.
+MAIN_WIDTHS = {
+    385: ("lanes", "lanes"), 388: ("lanes", "lanes"),
+    257: ("lanes", "lanes"), 259: ("lanes", "lanes"),
+    193: ("lanes", "lanes"), 195: ("lanes", "lanes"),
+    445: ("lanes", "lanes"), 297: ("lanes", "lanes"),
+    4484: ("bulk_store", "bulk_lanes"), 4996: ("bulk_store", "bulk_lanes"),
+    4355: ("bulk_lanes", "bulk_lanes"), 4867: ("bulk_lanes", "bulk_lanes"),
+    128: ("lanes", "lanes"),
+}
+
+
+@pytest.mark.parametrize("width", sorted(MAIN_WIDTHS))
+def test_main_path_widths_match_jax_bit_for_bit(width):
+    """R=37, B=50 random bit patterns: the dedupe's 2**30 pads, negative ids
+    (wrapped once, then clamped), the first and the last row."""
+    rng = np.random.default_rng(width)
+    R = 37
+    table = _random_bits(rng, R, width)
+    ids = rng.integers(0, R, 50).astype(np.int32)
+    ids[:8] = [2**30, -1, -R, -R - 1, R - 1, 0, R, -5]
+    ids[-10:] = 2**30
+    _check(table, ids)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset4"])
+@pytest.mark.parametrize("width", sorted(MAIN_WIDTHS))
+def test_plan_routes_of_main_path_widths(width, aligned):
+    table_ptr = 0x7F0000000000 if aligned else 0x7F0000000004
+    plan = G.gather_plan(width, table_ptr, 0x7F0000100000)
+    assert plan.route == MAIN_WIDTHS[width][0 if aligned else 1]
+    if plan.route.startswith("bulk"):
+        assert plan.piece_bytes % 16 == 0 and 2 <= plan.param <= G.MAX_STAGES
+        assert -(-4 * width // plan.piece_bytes) >= 2  # wide rows go in pieces
+    else:
+        assert plan == G.GatherPlan("lanes", G.LANES_UNITS, 0)
+
+
+def test_plan_of_a_storage_offset_view():
+    """A table view one float into its storage: its base is 4 bytes past a
+    16-byte boundary, so no route may assume 16-byte rows; the plain version
+    on the view still matches JAX."""
+    rng = np.random.default_rng(3)
+    R = 37
+    for width, (_, offset_route) in MAIN_WIDTHS.items():
+        buf = torch.from_numpy(_random_bits(rng, 1, R * width + 1)[0])
+        view = buf[1:].view(R, width)
+        assert view.data_ptr() % 16 == (buf.data_ptr() + 4) % 16 == 4
+        out = torch.empty(50, width)
+        assert G.gather_plan(width, view.data_ptr(), out.data_ptr()).route == offset_route
+    ids = rng.integers(-R, R, 50).astype(np.int32)
+    _check(view.numpy().copy(), ids)
+    np.testing.assert_array_equal(
+        _bits(G.gather_rows(view, torch.from_numpy(ids)).numpy()),
+        _bits(jgather(jnp.asarray(view.numpy()), jnp.asarray(ids), interpret=True)))
+
+
+@pytest.mark.parametrize("width,low,route,want", [
+    (128, 8, None, "lanes"), (2, 8, None, "lanes"), (3, 0, None, "lanes"),
+    (385, 0, "bulk", "bulk_lanes"), (388, 0, "bulk", "bulk_store"),
+    (4484, 0, "lanes", "lanes"), (4484, 12, "bulk", "bulk_lanes"),
+    (4996, 0, "bulk_lanes", "bulk_lanes"), (1, 0, "bulk", "bulk_lanes"),
+    (1024, 0, None, "bulk_store"), (1023, 0, None, "lanes"), (1023, 0, "bulk", "bulk_lanes"),
+])
+def test_plan_forced_and_threshold_routes(width, low, route, want):
+    """A kind forced (``_route``: the card tests and the A/B script force the
+    lanes at wide rows and the bulk copies at narrow ones), bulk_lanes off
+    16-byte rows or bases, and the width threshold (4096-byte rows)."""
+    plan = G.gather_plan(width, 0x1000 + low, 0x2000, route)
+    assert plan.route == want
+    assert G.gather_plan(width, 0x5550 + low, 0x990, route) is plan  # cached by low bits
+
+
+@pytest.mark.parametrize("width,table_ptr,route,match", [
+    (0, 0, None, "width"), (2**28 + 1, 0, None, "width"),
+    (16, 2, None, "4-byte"), (4484, 6, None, "4-byte"), (16, 0, "bogus", "unknown route"),
+    (385, 0, "lanes16", "unknown route"), (385, 0, "bulk_store", "bulk_store needs"),
+    (388, 4, "bulk_store", "bulk_store needs"), (388, 8, "bulk_store", "bulk_store needs"),
+    (4355, 0, "bulk_store", "bulk_store needs"), (4484, 8, "bulk_store", "bulk_store needs"),
+    (2**22 + 1, 0, "lanes", "at most"),
+])
+def test_plan_refuses_what_the_kernel_cannot_take(width, table_ptr, route, match):
+    with pytest.raises(ValueError, match=match):
+        G.gather_plan(width, table_ptr, 0, route)
+
+
+def test_plan_geometry_fits_the_card():
+    """Every bulk plan: pieces of a multiple of 16 bytes that cover the row,
+    2-16 stages, and a block's shared memory small enough that two blocks
+    share an SM (228 KB, 1 KB reserved a block)."""
+    for width in list(range(1, 3000, 7)) + list(range(3000, 40000, 997)) + [2**20, 2**28]:
+        for low in (0, 4, 8, 12):
+            plan = G.gather_plan(width, low, 0, "bulk")
+            row = 4 * width
+            pieces = -(-row // plan.piece_bytes)
+            assert plan.piece_bytes % 16 == 0 and plan.piece_bytes <= G.BULK_PIECE
+            assert (pieces - 1) * plan.piece_bytes < row <= pieces * plan.piece_bytes
+            assert 2 <= plan.param <= G.MAX_STAGES
+            assert 2 * (G.bulk_smem(plan) + 1024) <= 233_472
+            assert plan.route == ("bulk_store" if width % 4 == 0 and low == 0 else "bulk_lanes")
+
+
+def test_cpu_path_counts_no_launch_and_no_route():
+    table = torch.from_numpy(_random_bits(np.random.default_rng(1), 9, 4484))
+    ids = torch.tensor([0, 8, 2**30, -1], dtype=torch.int32)
+    before = (G.gather_rows.launches, sum(G.gather_rows.routes.values()))
+    got = G.gather_rows(table, ids, _route="lanes")
+    assert (G.gather_rows.launches, sum(G.gather_rows.routes.values())) == before
+    assert torch.equal(got.view(torch.int32), table.view(torch.int32)[[0, 8, 8, 8]])
