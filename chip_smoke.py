@@ -2199,10 +2199,10 @@ def row_kernel_phase(torch, G, S):
     R, W, B = GATHER_SHAPE
     table = torch.randn(R, W, device=dev, generator=g)
     ids = torch.randint(0, R, (B,), device=dev, generator=g, dtype=torch.int32)
-    before = G.gather_rows.routes["lanes"]
+    before = G.gather_rows.routes["lanes16"]
     err = float((G.gather_rows(table, ids) - G.gather_rows_reference(table, ids)).abs().max())
-    if G.gather_rows.routes["lanes"] != before + 1:
-        fail(f"gather at the JAX bench's shape left the lanes: {dict(G.gather_rows.routes)}")
+    if G.gather_rows.routes["lanes16"] != before + 1:
+        fail(f"gather at the JAX bench's shape left lanes16: {dict(G.gather_rows.routes)}")
     runs = (lambda: G.gather_rows(table, ids), lambda: G.gather_rows_reference(table, ids),
             lambda: torch.index_select(table, 0, ids))
     rows["gather_rows"] = (err, runs, rows_bound(B, W), f"R={R} W={W} B={B} f32, cold L2",
@@ -2230,7 +2230,7 @@ def row_kernel_phase(torch, G, S):
                          library=library)
         print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
               f"plain_ms={plain_ms!r} library_ms({library})={lib_ms!r} bound_ms={b!r} ({by})")
-    out["gather_rows"]["route"] = "lanes"
+    out["gather_rows"]["route"] = "lanes16"
     del table, stable, vals
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -18,28 +18,31 @@
 // What bounds it: bytes.  Each output row reads one table row and writes
 // one row (B * W * 4 bytes each way, plus the ids); there is no
 // arithmetic.  At VBPR's packed item rows (16384 rows of 4484 floats) that
-// is 588 MB, 0.176 ms at 3.35 TB/s.  A copy at that rate needs some 30 KB
-// of reads in flight on each of the 132 SMs, and every SM busy to the end.
+// is 588 MB, 0.175 ms at 3.35 TB/s.  A copy at that rate needs some 30 KB
+// of reads in flight on each of the 132 SMs, all the way to the end.
 //
 // Design.  The grid is persistent: as many blocks as are resident at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), each walking its
 // share of the work, so there is no ragged second wave.  The caller picks
-// one of five routes (gather.py::gather_plan); the C entry checks that the
-// geometry allows it and returns cudaErrorInvalidValue if not.
+// one of five routes (gather.py::gather_plan: rows of 2 KB and more take a
+// bulk route, where the bulk copies beat the lanes with the L2 flushed);
+// the C entry checks that the geometry allows the route and returns
+// cudaErrorInvalidValue if not.
 //
-// - lanes4 / lanes8 / lanes16 (narrow rows): a block takes a contiguous
-//   share of the output rows, stages 256 of their ids at a time in shared
-//   memory (wrapped and clamped once), and its warps copy (row, 32-word
-//   chunk) units, U units a warp at a time: U independent loads a lane
-//   (U fixed at compile time: 2, 4 or 8) before its U stores.  Words of
-//   16 bytes need W % 4 == 0 and both base pointers 16-byte aligned, words
-//   of 8 bytes W % 2 == 0 and 8-byte bases; 4 bytes always do.
+// - lanes4 / lanes16 (narrow rows): warp w copies output rows w,
+//   w + warps, ...; each lane issues U independent loads (U fixed at
+//   compile time: 2, 4, 8 or 16, the fewest that take the row in one
+//   trip) before its U stores, and at U <= 8 also the next row's loads
+//   before this row's stores, so two rows are in flight; the id of the
+//   row after is read before the row is copied.  16-byte words need
+//   W % 4 == 0 and both base pointers 16-byte aligned; 4 bytes always do.
 // - bulk_store and bulk_lanes (wide rows): each warp of a 4-warp block runs
 //   its own ring of `stages` shared-memory stages (stage = piece + 32
 //   bytes).  A row is cut into pieces of at most piece_bytes (a multiple
-//   of 16); the warp's lane 0 keeps `stages` pieces in flight by 1-D bulk
-//   asynchronous copies (cp.async.bulk ... mbarrier::complete_tx::bytes,
-//   one mbarrier a stage).
+//   of 16); the warp's lanes issue the first `stages` pieces, then its lane
+//   0 keeps them in flight by 1-D bulk asynchronous copies (cp.async.bulk
+//   ... mbarrier::complete_tx::bytes, one mbarrier a stage): 8 pieces of
+//   about 4 KB a warp on bulk_store, one block an SM (128 KB in flight).
 //   - bulk_store needs W % 4 == 0 and both bases 16-byte aligned, so every
 //     source and destination offset and every piece is a multiple of 16:
 //     lane 0 stores each piece by cp.async.bulk.global.shared::cta, and
@@ -61,11 +64,10 @@
 
 namespace {
 
-enum Route { kLanes = 0, kBulkStore = 1, kBulkLanes = 2 };
+enum Route { kLanes4 = 0, kLanes16 = 1, kBulkStore = 2, kBulkLanes = 3 };
 
 constexpr int kLaneThreads = 256;
 constexpr int kLaneWarps = kLaneThreads / 32;
-constexpr int kTileRows = 256;  // ids staged a block at a time (lanes routes)
 constexpr int kBulkWarps = 4;
 constexpr int kBulkThreads = kBulkWarps * 32;
 constexpr int kMaxStages = 16;
@@ -81,119 +83,62 @@ __device__ __forceinline__ long long row_of(int id, long long num_rows) {
 
 // ---------------------------------------------------------------- lanes
 
-__device__ __forceinline__ uint4 ldg16(const unsigned char* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// The 16-byte word that starts sh words (4 bytes each) into x, running on
-// into y.
-__device__ __forceinline__ uint4 shifted(const uint4& x, const uint4& y, int sh) {
-  switch (sh) {
-    case 0: return x;
-    case 1: return make_uint4(x.y, x.z, x.w, y.x);
-    case 2: return make_uint4(x.z, x.w, y.x, y.y);
-    default: return make_uint4(x.w, y.x, y.y, y.z);
-  }
-}
-
-// Where a row's 16-byte destination words find their source: the row of
-// n bytes goes from src to dst (both 4-byte aligned); its first `head`
-// words (< 4) reach dst's first 16-byte boundary, then `m` 16-byte words,
-// then `tail` words.  Destination word q starts `sh` words into the aligned
-// source word at a + 16 q.  `edge`: that aligned span leaves the table.
-struct RowSpan {
-  const unsigned char* a;
-  int head, m, tail, sh;
-  bool edge;
-};
-
-__device__ __forceinline__ RowSpan row_span(const unsigned char* src, const unsigned char* dst,
-                                            int n, const unsigned char* table,
-                                            const unsigned char* table_end) {
-  RowSpan r;
-  int d = static_cast<int>((16 - (reinterpret_cast<std::uintptr_t>(dst) & 15)) & 15);
-  if (d > n) d = n;
-  r.head = d >> 2;
-  r.m = (n - d) >> 4;
-  r.tail = (n - d - 16 * r.m) >> 2;
-  const std::uintptr_t base = reinterpret_cast<std::uintptr_t>(src) + d;
-  r.sh = static_cast<int>((base & 15) >> 2);
-  r.a = src + d - 4 * r.sh;
-  r.edge = r.m > 0 && (r.a < table || r.a + 16 * (r.m + (r.sh ? 1 : 0)) > table_end);
-  return r;
-}
-
-// A block takes a contiguous share of the output rows and stages 256 of
-// their ids at a time, as table offsets; its warps copy (row, chunk of 32
-// 16-byte words) units, U at a time: 2 U independent 16-byte loads a lane
-// (the aligned source word and the next, which the neighbour lane also
-// reads) before its U stores.  Chunk 0 of a row also copies its head and
-// tail words (4 bytes each), and the whole row when its span is an edge.
-template <int U>
+// Warp w copies output rows w, w + warps, ... (the persistent grid's warps
+// in order), each lane U loads before its U stores, the id of the warp's
+// next row read before this row's words.  Where a row takes one trip
+// (words <= 32 U) and U <= 8, the lanes also issue the next row's loads
+// before this row's stores: two rows in flight (at U = 16 the second set
+// of registers would cost a block an SM).
+template <typename T, int U>
 __global__ void __launch_bounds__(kLaneThreads)
-gather_lanes_kernel(const unsigned char* __restrict__ table,
-                    const unsigned char* __restrict__ table_end,
-                    const int* __restrict__ ids, unsigned char* __restrict__ out,
-                    long long num_rows, int row_bytes, long long batch) {
-  __shared__ long long offset[kTileRows];  // byte offset of each staged row
+gather_lanes_kernel(const T* __restrict__ table, const int* __restrict__ ids,
+                    T* __restrict__ out, long long num_rows, int words, long long batch) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int quads = row_bytes >> 4;
-  const int chunks = quads > 32 ? (quads + 31) >> 5 : 1;
-  const long long per = batch / gridDim.x, extra = batch % gridDim.x;
-  const long long bid = blockIdx.x;
-  const long long b0 = bid * per + (bid < extra ? bid : extra);
-  const long long b1 = b0 + per + (bid < extra ? 1 : 0);
-  for (long long tb = b0; tb < b1; tb += kTileRows) {
-    const int n = static_cast<int>(b1 - tb < kTileRows ? b1 - tb : kTileRows);
-    __syncthreads();  // the previous tile's offsets are no longer read
-    for (int i = threadIdx.x; i < n; i += kLaneThreads)
-      offset[i] = row_of(ids[tb + i], num_rows) * row_bytes;
-    __syncthreads();
-    const int units = n * chunks;
-    for (int x0 = warp * U; x0 < units; x0 += kLaneWarps * U) {
-      const int b = x0 / chunks, ch = x0 - b * chunks;
-      uint4 x[U], y[U];
-      int rb = b, rc = ch;
+  const long long nw = static_cast<long long>(gridDim.x) * kLaneWarps;
+  long long b = static_cast<long long>(blockIdx.x) * kLaneWarps + (threadIdx.x >> 5);
+  if (b >= batch) return;
+  int id = __ldg(ids + b);
+  if (U > 8 || words > 32 * U) {
+    for (; b < batch; b += nw) {
+      const int next = b + nw < batch ? __ldg(ids + b + nw) : 0;
+      const T* src = table + row_of(id, num_rows) * words;
+      T* dst = out + b * words;
+      for (int c0 = lane; c0 < words; c0 += 32 * U) {
+        T v[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (x0 + u < units) {
-          const RowSpan r = row_span(table + offset[rb], out + (tb + rb) * row_bytes,
-                                     row_bytes, table, table_end);
-          const int q = (rc << 5) + lane;
-          if (!r.edge && q < r.m) {
-            x[u] = ldg16(r.a + 16 * q);
-            if (r.sh) y[u] = ldg16(r.a + 16 * q + 16);
-          }
-        }
-        if (++rc == chunks) { rc = 0; ++rb; }
-      }
-      rb = b;
-      rc = ch;
+        for (int u = 0; u < U; ++u)
+          if (c0 + 32 * u < words) v[u] = __ldg(src + c0 + 32 * u);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (x0 + u < units) {
-          const unsigned char* src = table + offset[rb];
-          unsigned char* dst = out + (tb + rb) * row_bytes;
-          const RowSpan r = row_span(src, dst, row_bytes, table, table_end);
-          const uint32_t* s32 = reinterpret_cast<const uint32_t*>(src);
-          uint32_t* d32 = reinterpret_cast<uint32_t*>(dst);
-          const int q = (rc << 5) + lane;
-          if (r.edge) {
-            if (rc == 0)
-              for (int c = lane; c < (row_bytes >> 2); c += 32) d32[c] = __ldg(s32 + c);
-          } else {
-            if (q < r.m)
-              reinterpret_cast<uint4*>(dst + 4 * r.head)[q] = shifted(x[u], y[u], r.sh);
-            if (rc == 0) {
-              if (lane < r.head) d32[lane] = __ldg(s32 + lane);
-              const int t = r.head + 4 * r.m + lane - 8;
-              if (lane >= 8 && lane < 8 + r.tail) d32[t] = __ldg(s32 + t);
-            }
-          }
-        }
-        if (++rc == chunks) { rc = 0; ++rb; }
+        for (int u = 0; u < U; ++u)
+          if (c0 + 32 * u < words) dst[c0 + 32 * u] = v[u];
       }
+      id = next;
+    }
+    return;
+  }
+  if constexpr (U <= 8) {
+    T v[U];
+    const T* src = table + row_of(id, num_rows) * words;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (lane + 32 * u < words) v[u] = __ldg(src + lane + 32 * u);
+    id = b + nw < batch ? __ldg(ids + b + nw) : 0;
+    for (; b < batch; b += nw) {
+      const long long nb = b + nw;
+      T w[U];
+      if (nb < batch) {
+        src = table + row_of(id, num_rows) * words;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (lane + 32 * u < words) w[u] = __ldg(src + lane + 32 * u);
+        id = nb + nw < batch ? __ldg(ids + nb + nw) : 0;
+      }
+      T* dst = out + b * words;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (lane + 32 * u < words) dst[lane + 32 * u] = v[u];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = w[u];
     }
   }
 }
@@ -388,10 +333,19 @@ __global__ void __launch_bounds__(kBulkThreads) gather_bulk_kernel(const BulkArg
 
 // ----------------------------------------------------------------- host
 
+template <typename T>
+const void* lanes_kernel(int u) {
+  if (u == 2) return reinterpret_cast<const void*>(gather_lanes_kernel<T, 2>);
+  if (u == 4) return reinterpret_cast<const void*>(gather_lanes_kernel<T, 4>);
+  if (u == 8) return reinterpret_cast<const void*>(gather_lanes_kernel<T, 8>);
+  if constexpr (sizeof(T) < 16)
+    if (u == 16) return reinterpret_cast<const void*>(gather_lanes_kernel<T, 16>);
+  return nullptr;
+}
+
 const void* kernel_of(int route, int param) {
-  if (route == kLanes && param == 2) return reinterpret_cast<const void*>(gather_lanes_kernel<2>);
-  if (route == kLanes && param == 4) return reinterpret_cast<const void*>(gather_lanes_kernel<4>);
-  if (route == kLanes && param == 8) return reinterpret_cast<const void*>(gather_lanes_kernel<8>);
+  if (route == kLanes4) return lanes_kernel<unsigned int>(param);
+  if (route == kLanes16) return lanes_kernel<uint4>(param);
   if (route == kBulkStore) return reinterpret_cast<const void*>(gather_bulk_kernel<true>);
   if (route == kBulkLanes) return reinterpret_cast<const void*>(gather_bulk_kernel<false>);
   return nullptr;
@@ -449,12 +403,13 @@ int check(const void* table, const void* out, long long width, int route, int pa
       reinterpret_cast<std::uintptr_t>(table) | reinterpret_cast<std::uintptr_t>(out);
   const bool ok =
       (bases & 3u) == 0 &&
-      (route == kLanes || route == kBulkLanes ||
+      (route == kLanes4 ||
+       (route == kLanes16 && width % 4 == 0 && (bases & 15u) == 0) || route == kBulkLanes ||
        (route == kBulkStore && width % 4 == 0 && (bases & 15u) == 0)) &&
       (route >= kBulkStore ? param >= 2 && param <= kMaxStages && piece_bytes >= 16 &&
                                  piece_bytes % 16 == 0 && piece_bytes <= kMaxSmem &&
                                  bulk_smem(param, piece_bytes) <= kMaxSmem
-                           : (param == 2 || param == 4 || param == 8) && width <= (1LL << 22));
+                           : kernel_of(route, param) != nullptr && width <= (1LL << 22));
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -481,13 +436,13 @@ extern "C" int fvx_gather_rows(const void* table, const void* ids, void* out,
   int per_sm = 0, sms = 0;
   const unsigned char* t = static_cast<const unsigned char*>(table);
   const unsigned char* t_end = t + num_rows * width * 4;
-  if (route == kLanes) {
+  if (route < kBulkStore) {
     cudaError_t e = residency(kernel, kLaneThreads, 0, &per_sm, &sms);
     if (e != cudaSuccess) return static_cast<int>(e);
     const long long resident = static_cast<long long>(per_sm) * sms;
     const int blocks = static_cast<int>(batch < resident ? batch : resident);
-    int row_bytes = static_cast<int>(width * 4);
-    void* args[] = {&t, &t_end, &id, &out, &num_rows, &row_bytes, &batch};
+    int words = static_cast<int>(route == kLanes16 ? width / 4 : width);
+    void* args[] = {&t, &id, &out, &num_rows, &words, &batch};
     e = cudaLaunchKernel(kernel, dim3(blocks), dim3(kLaneThreads), args, 0, st);
     return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
   }

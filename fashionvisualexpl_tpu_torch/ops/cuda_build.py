@@ -121,14 +121,14 @@ def ptxas_report(log: str) -> List[dict]:
 
 
 # Itanium codes of the builtin types the kernels take as template arguments
-_BUILTIN = {"f": "float", "j": "unsigned int", "i": "int"}
+_BUILTIN = {"f": "float", "j": "unsigned int"}
 
 
 def _kernel_name(mangled: str) -> str:
     """``segmax_wgmma_kernel<10, 16>`` or ``edge_bwd_kernel`` from an
     Itanium-mangled kernel name (``_Z<n><name>`` or ``_ZN<n><name>...E``):
     the innermost source name, with its template arguments (integers,
-    bools, ``float``, ``unsigned int``, ``int`` or a named type), if any;
+    bools, ``float``, ``unsigned int`` or a named type), if any;
     otherwise the mangled name."""
     m = re.match(r"_ZN?", mangled)
     i, name = (m.end(), None) if m else (len(mangled), None)

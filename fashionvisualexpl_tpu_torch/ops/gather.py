@@ -12,11 +12,10 @@ the dedupe's pad 2**30 reads row R - 1).  ``jnp.take`` would return NaN
 rows there instead; the packed step throws those rows away either way.
 
 Routes (``gather_plan``; the source note of ``csrc/gather.cu`` says how
-each runs): rows narrower than ``BULK_MIN_BYTES`` take the ``lanes``
-route, each lane keeping several 16-byte loads in flight (at any width
-and 4-byte alignment: a destination word is assembled from two aligned
-source words where source and destination differ mod 16); wider rows
-come into shared memory by bulk asynchronous copies and leave by bulk
+each runs): rows narrower than ``BULK_MIN_BYTES`` take a lanes route, each
+lane keeping several 16- or 4-byte loads in flight (``lanes16`` where the
+width and the base pointers allow 16-byte words, else ``lanes4``); wider
+rows come into shared memory by bulk asynchronous copies and leave by bulk
 copies where every offset is a multiple of 16 bytes (``bulk_store``), else
 by the lanes (``bulk_lanes``).
 
@@ -40,27 +39,29 @@ import torch
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 
 # csrc/gather.cu's routes, by the number fvx_gather_rows takes
-ROUTES = ("lanes", "bulk_store", "bulk_lanes")
+ROUTES = ("lanes4", "lanes16", "bulk_store", "bulk_lanes")
 _ROUTE_NUMBER = {name: i for i, name in enumerate(ROUTES)}
 # rows of at least this many bytes take a bulk route (PERF.md, PR 15)
-BULK_MIN_BYTES = 4096
-# the lanes route's units (row, 32 16-byte words) a warp at a time: 2, 4 or 8
-LANES_UNITS = 4
-# the bulk routes: the largest piece one copy moves, and the ring a block
-# may take (two blocks an SM: 228 KB less 1 KB reserved a block, less the
-# mbarriers); the geometry constants of csrc/gather.cu
-BULK_PIECE = 8192
-BULK_RING = 115_200
+BULK_MIN_BYTES = 2048
+# the lanes routes' loads in flight a lane (2, 4, 8 or 16; at most 8 of 16
+# bytes): the fewest that take a whole row in one trip
+LANE_UNROLL = (2, 4, 8, 16)
+# the bulk routes' largest piece (bytes one copy moves) and stages a warp
+# (PERF.md, PR 15): bulk_store keeps 8 pieces of at most 4 KB in flight a
+# warp, one 4-warp block an SM; bulk_lanes 4 pieces of at most 8 KB (two
+# blocks an SM at the bf16 item rows' 5.8 and 6.5 KB pieces, so 8 warps
+# of lanes store from shared memory)
+BULK_GEOMETRY = {"bulk_store": (4096, 8), "bulk_lanes": (8192, 4)}
+# csrc/gather.cu's geometry constants
 BULK_WARPS, MAX_STAGES, STAGE_SLACK, RING_OFFSET, MAX_SMEM = 4, 16, 32, 512, 232_448
 MAX_WIDTH, MAX_LANES_WIDTH = 1 << 28, 1 << 22
 
 
 class GatherPlan(NamedTuple):
     """The route ``gather_rows`` launches and its parameters: ``param`` is
-    the lanes route's units a warp at a time (a lane's 16-byte loads in
-    flight: one a unit, two where source and destination differ mod 16),
-    or the bulk routes' stages a warp; ``piece_bytes`` the bulk routes'
-    largest piece (0 on the lanes)."""
+    the lanes routes' loads a lane issues for a row, or the bulk routes'
+    stages a warp; ``piece_bytes`` the bulk routes' largest piece (0 on
+    the lanes)."""
 
     route: str
     param: int
@@ -110,22 +111,29 @@ def _plan(width: int, low_bits: int, route: Optional[str]) -> GatherPlan:
     row = 4 * width
     vec16 = width % 4 == 0 and not low_bits & 15
     kind = route or ("bulk" if row >= BULK_MIN_BYTES else "lanes")
-    if kind == "bulk":
+    if kind == "lanes":
+        kind = "lanes16" if vec16 else "lanes4"
+    elif kind == "bulk":
         kind = "bulk_store" if vec16 else "bulk_lanes"
     if kind not in _ROUTE_NUMBER:
         raise ValueError(f"gather_plan: unknown route {route!r}")
-    if kind == "lanes":
+    if kind.startswith("lanes"):
+        word = int(kind[len("lanes"):])
+        if kind == "lanes16" and not vec16:
+            raise ValueError(f"gather_plan: {kind} cannot take width {width} at "
+                             f"addresses {low_bits} mod 16")
         if width > MAX_LANES_WIDTH:
-            raise ValueError(f"gather_plan: the lanes route takes at most {MAX_LANES_WIDTH} "
+            raise ValueError(f"gather_plan: the lanes routes take at most {MAX_LANES_WIDTH} "
                              f"floats a row, not {width}")
-        return GatherPlan(kind, LANES_UNITS, 0)
+        words = row // word
+        unroll = next((u for u in LANE_UNROLL if 32 * u >= words), LANE_UNROLL[-1])
+        return GatherPlan(kind, min(unroll, 8) if word == 16 else unroll, 0)
     if kind == "bulk_store" and not vec16:
         raise ValueError(f"gather_plan: bulk_store needs W % 4 == 0 and 16-byte-aligned "
                          f"bases (width {width}, addresses {low_bits} mod 16)")
-    pieces = -(-row // BULK_PIECE)
-    piece = 16 * -(-row // (16 * pieces))
-    stages = min(MAX_STAGES, max(2, BULK_RING // (BULK_WARPS * (piece + STAGE_SLACK))))
-    return GatherPlan(kind, stages, piece)
+    largest, stages = BULK_GEOMETRY[kind]
+    pieces = -(-row // largest)
+    return GatherPlan(kind, stages, 16 * -(-row // (16 * pieces)))
 
 
 def bulk_smem(plan: GatherPlan) -> int:

@@ -11,7 +11,7 @@ call before), and each shape's bytes are also copied by one contiguous
 ``Tensor.copy_`` (the card's copy rate, a ceiling no gather passes).  Then
 the width threshold between the two kinds (rows of 1 ... 8 KB, 16-byte
 rows and rows one float wider, cold and warm), each kernel parameter in
-turn (units a warp; stages and piece bytes), the wrappers' host cost (host
+turn (loads a lane; stages and piece bytes), the wrappers' host cost (host
 microseconds a call over 2000 calls of 16 rows, ``call_ms`` at W=128) and
 ``bench_gather()`` of each tree.  Every output is first held bit for bit
 against the plain version.
@@ -179,20 +179,24 @@ def main() -> int:
                 times[kind] = timed(f"{key} {kind}", run, flush)[0]
                 times[f"{kind} warm"] = timed(f"{key} {kind}", run, flush, warm=True)[0]
             summary["threshold"][key] = times
-        for R, W in ((R_USERS, 385), (R_USERS, 388), (R_USERS, 128), (R_ITEMS, 4484),
-                     (R_ITEMS, 4355), (R_ITEMS, 4996)):
+        for R, W in ([(R_USERS, w) for w in C.GATHER_NARROW + (128,)]
+                     + [(R_ITEMS, 4484), (R_ITEMS, 4355), (R_ITEMS, 4996)]):
             B = C.GATHER_B
             del table
             torch.cuda.empty_cache()
             table = torch.randn(R, W, device=dev, generator=g)
             ids = torch.randint(0, R, (B,), device=dev, generator=g, dtype=torch.int32)
             base = G.gather_plan(W, table.data_ptr(), table.data_ptr())
-            if base.route.startswith("lanes"):
-                plans = [base._replace(param=u) for u in (2, 4, 8)]
+            if base.route.startswith("lanes"):  # loads a lane
+                top = 8 if base.route == "lanes16" else 16
+                plans = [base._replace(param=u) for u in (2, 4, 8, 16)
+                         if base.param // 2 <= u <= min(2 * base.param, top)]
+            elif base.route == "bulk_store":
+                plans = [base._replace(param=st) for st in (6, 10, 12)] + [
+                    G.GatherPlan(base.route, st, 4096) for st in (8, 12)]
             else:
-                plans = [G.GatherPlan(base.route, s, p) for p in (4096, 6016, 8192, 16384)
-                         for s in (2, 3, 4, 6, 8)
-                         if G.bulk_smem(G.GatherPlan(base.route, s, p)) <= G.MAX_SMEM]
+                plans = [G.GatherPlan(base.route, st, pc) for pc, st in (
+                    (4096, 6), (6016, 4), (8192, 4), (8192, 6))]
             key = f"R={R} W={W} B={B}"
             times = {}
             for plan in plans:
@@ -201,9 +205,11 @@ def main() -> int:
                     print(f"k4_ab: {plan} disagrees at {key}", file=sys.stderr)
                     return 1
                 per_sm = G.gather_residency(W, plan)[0]
-                ms = timed(f"{key} {tuple(plan)} ({per_sm} blocks an SM)", run, flush)[0]
-                times[f"{plan.route} param={plan.param} piece={plan.piece_bytes} "
-                      f"blocks={per_sm}"] = ms
+                name = (f"{plan.route} param={plan.param} piece={plan.piece_bytes} "
+                        f"blocks={per_sm}")
+                times[name] = timed(f"{key} {tuple(plan)} ({per_sm} blocks an SM)", run, flush)[0]
+                if base.route.startswith("lanes"):
+                    times[f"{name} warm"] = timed(f"{key} {tuple(plan)}", run, flush, warm=True)[0]
             run = lambda: G.gather_rows(table, ids)  # noqa: E731
             times[f"default {tuple(base)} again"] = timed(f"{key} default again", run, flush)[0]
             summary["params"][key] = times

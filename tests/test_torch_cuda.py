@@ -779,10 +779,12 @@ def _gather_ids(dev, R, B, seed):
     return ids
 
 
-# widths on both sides of the bulk threshold (4096-byte rows) at every
-# W % 4, and every width the packed paths gather
+# widths on both sides of the bulk threshold (2048-byte rows) at every
+# W % 4, rows of one trip and of several a lane, and every width the
+# packed paths gather
 GATHER_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 127, 128, 129, 130, 193, 195, 257, 259, 297, 385, 388,
-                 445, 1020, 1021, 1022, 1023, 1024, 1025, 1026, 1027, 4355, 4484, 4867, 4996)
+                 445, 508, 509, 510, 511, 512, 513, 514, 515, 1023, 1024, 4355, 4484, 4867,
+                 4996)
 
 
 @pytest.mark.cuda
@@ -795,16 +797,17 @@ def test_gather_routes_copy_bits_on_card(cuda_device, width, offset):
     if 4 * width >= K4.BULK_MIN_BYTES:
         assert plan.route == ("bulk_store" if vec else "bulk_lanes")
     else:
-        assert plan.route == "lanes"
+        assert plan.route == ("lanes16" if vec else "lanes4")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned16", "aligned4"])
-@pytest.mark.parametrize("route,width", [("lanes", w) for w in (1024, 4355, 4484, 4867, 4996)]
-                         + [("bulk", w) for w in (1, 2, 3, 4, 7, 128, 193, 385, 388, 1023)])
+@pytest.mark.parametrize("route,width", [("lanes", w) for w in (1024, 1025, 2050, 4355, 4484,
+                                                                  4867, 4996)]
+                         + [("bulk", w) for w in (1, 2, 3, 4, 7, 128, 193, 385, 388, 511)])
 def test_gather_forced_routes_on_card(cuda_device, route, width, offset):
-    """The lanes at wide rows (the route every width took before the bulk
-    copies) and the bulk copies at narrow ones, tiny rows included."""
+    """The lanes forced at wide rows and the bulk copies at narrow ones,
+    tiny rows included."""
     table = _bit_table(cuda_device, 777, width, seed=width + 5, offset=offset)
     plan = _gather_checked(table, _gather_ids(cuda_device, 777, 301, width), route)
     assert plan.route.startswith(route)
@@ -824,7 +827,7 @@ def test_gather_table_edges_on_card(cuda_device, R, width, route):
                        device=cuda_device)
     plan = _gather_checked(table, ids, route)
     assert plan.route == ("bulk_lanes" if route == "bulk" or (
-        route is None and 4 * width >= K4.BULK_MIN_BYTES) else "lanes")
+        route is None and 4 * width >= K4.BULK_MIN_BYTES) else "lanes4")
 
 
 @pytest.mark.cuda
@@ -839,7 +842,7 @@ def test_gather_batch_sizes_on_card(cuda_device, width, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route,width", [
-    ("lanes", 388), ("lanes", 385), ("lanes", 1023), ("bulk_store", 388),
+    ("lanes4", 385), ("lanes4", 386), ("lanes16", 388), ("bulk_store", 388),
     ("bulk_store", 1024), ("bulk_lanes", 385), ("bulk_lanes", 1023), ("bulk_lanes", 1024)])
 def test_gather_nan_and_denormal_bits_on_card(cuda_device, route, width):
     """NaN payloads, infinities, denormals and -0 travel as bits on every
@@ -861,10 +864,12 @@ def test_gather_refusals_on_card(cuda_device):
     table = _bit_table(cuda_device, 64, 385, seed=1)
     ids = torch.zeros(8, dtype=torch.int32, device=cuda_device)
     before = K4.gather_rows.launches
+    with pytest.raises(ValueError, match="lanes16 cannot"):
+        K4.gather_rows(table, ids, _route="lanes16")
     with pytest.raises(ValueError, match="bulk_store needs"):
         K4.gather_rows(table, ids, _route="bulk_store")
     for plan in (K4.GatherPlan("bulk_store", 4, 1552), K4.GatherPlan("bulk_lanes", 17, 1552),
-                 K4.GatherPlan("bulk_lanes", 4, 1544), K4.GatherPlan("lanes", 3, 0),
+                 K4.GatherPlan("bulk_lanes", 4, 1544), K4.GatherPlan("lanes4", 3, 0),
                  K4.GatherPlan("bulk_lanes", 16, 16384)):
         with pytest.raises(RuntimeError, match="cudaError 1"):
             K4.gather_rows(table, ids, _route=plan)
@@ -876,18 +881,21 @@ def test_gather_refusals_on_card(cuda_device):
               stream) == 1
     assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, 385, 8, 0, 8, 0,
               stream) == 1
-    assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8, 1, 4, 1552,
+    assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8, 3, 4, 1552,
+              stream) == 1
+    assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8, 2, 4, 0,
               stream) == 1
 
 
 @pytest.mark.cuda
 def test_gather_residency_on_card(cuda_device):
-    """The persistent grids: two blocks of a bulk route share an SM, and the
-    lanes kernels keep several blocks an SM."""
+    """The persistent grids: one block of bulk_store an SM, two of
+    bulk_lanes, and several of the lanes kernels."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     for width in (4484, 4996, 4355, 4867):
         plan = K4.gather_plan(width, 0, 0)
-        assert K4.gather_residency(width, plan) == (2, sms)
+        assert K4.gather_residency(width, plan) == (
+            1 if plan.route == "bulk_store" else 2, sms)
     for width in (128, 385, 388):
         per_sm, n = K4.gather_residency(width, K4.gather_plan(width, 0, 0))
         assert per_sm >= 2 and n == sms

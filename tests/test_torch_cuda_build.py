@@ -39,8 +39,8 @@ GNS = "_ZN41_GLOBAL__N__5d0c1e2f_9_gather_cu_7a3b9c1d"
 @pytest.mark.parametrize("mangled,name", [
     (f"{GNS}19gather_lanes_kernelIjLi8EEEvPKT_PKiPS1_xix",
      "gather_lanes_kernel<unsigned int, 8>"),
-    (f"{GNS}19gather_lanes_kernelI5uint2Li2EEEvPKT_PKiPS2_xix",
-     "gather_lanes_kernel<uint2, 2>"),
+    (f"{GNS}19gather_lanes_kernelIjLi16EEEvPKT_PKiPS1_xix",
+     "gather_lanes_kernel<unsigned int, 16>"),
     (f"{GNS}19gather_lanes_kernelI5uint4Li4EEEvPKT_PKiPS2_xix",
      "gather_lanes_kernel<uint4, 4>"),
     (f"{GNS}18gather_bulk_kernelILb1EEEvNS_8BulkArgsE", "gather_bulk_kernel<1>"),

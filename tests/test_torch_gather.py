@@ -99,13 +99,13 @@ def test_gather_rejects_what_it_does_not_take():
 # bench's 128; with the route each takes between 16-byte-aligned tensors
 # and from a table whose base is 4 bytes past a 16-byte boundary.
 MAIN_WIDTHS = {
-    385: ("lanes", "lanes"), 388: ("lanes", "lanes"),
-    257: ("lanes", "lanes"), 259: ("lanes", "lanes"),
-    193: ("lanes", "lanes"), 195: ("lanes", "lanes"),
-    445: ("lanes", "lanes"), 297: ("lanes", "lanes"),
+    385: ("lanes4", "lanes4"), 388: ("lanes16", "lanes4"),
+    257: ("lanes4", "lanes4"), 259: ("lanes4", "lanes4"),
+    193: ("lanes4", "lanes4"), 195: ("lanes4", "lanes4"),
+    445: ("lanes4", "lanes4"), 297: ("lanes4", "lanes4"),
     4484: ("bulk_store", "bulk_lanes"), 4996: ("bulk_store", "bulk_lanes"),
     4355: ("bulk_lanes", "bulk_lanes"), 4867: ("bulk_lanes", "bulk_lanes"),
-    128: ("lanes", "lanes"),
+    128: ("lanes16", "lanes4"),
 }
 
 
@@ -131,8 +131,10 @@ def test_plan_routes_of_main_path_widths(width, aligned):
     if plan.route.startswith("bulk"):
         assert plan.piece_bytes % 16 == 0 and 2 <= plan.param <= G.MAX_STAGES
         assert -(-4 * width // plan.piece_bytes) >= 2  # wide rows go in pieces
-    else:
-        assert plan == G.GatherPlan("lanes", G.LANES_UNITS, 0)
+    else:  # loads enough for the whole row in one trip
+        word = int(plan.route[len("lanes"):])
+        assert plan.piece_bytes == 0 and plan.param in (2, 4, 8, 16)
+        assert 32 * plan.param >= 4 * width // word > 32 * plan.param // 2 or plan.param == 2
 
 
 def test_plan_of_a_storage_offset_view():
@@ -155,16 +157,18 @@ def test_plan_of_a_storage_offset_view():
 
 
 @pytest.mark.parametrize("width,low,route,want", [
-    (128, 8, None, "lanes"), (2, 8, None, "lanes"), (3, 0, None, "lanes"),
+    (128, 8, None, "lanes4"), (2, 0, None, "lanes4"), (3, 0, None, "lanes4"),
     (385, 0, "bulk", "bulk_lanes"), (388, 0, "bulk", "bulk_store"),
-    (4484, 0, "lanes", "lanes"), (4484, 12, "bulk", "bulk_lanes"),
-    (4996, 0, "bulk_lanes", "bulk_lanes"), (1, 0, "bulk", "bulk_lanes"),
-    (1024, 0, None, "bulk_store"), (1023, 0, None, "lanes"), (1023, 0, "bulk", "bulk_lanes"),
+    (4484, 0, "lanes", "lanes16"), (4484, 12, "lanes", "lanes4"),
+    (4484, 12, "bulk", "bulk_lanes"), (4996, 0, "bulk_lanes", "bulk_lanes"),
+    (1, 0, "bulk", "bulk_lanes"), (512, 0, None, "bulk_store"), (511, 0, None, "lanes4"),
+    (513, 4, None, "bulk_lanes"), (510, 0, None, "lanes4"), (508, 0, None, "lanes16"),
 ])
 def test_plan_forced_and_threshold_routes(width, low, route, want):
     """A kind forced (``_route``: the card tests and the A/B script force the
-    lanes at wide rows and the bulk copies at narrow ones), bulk_lanes off
-    16-byte rows or bases, and the width threshold (4096-byte rows)."""
+    lanes at wide rows and the bulk copies at narrow ones), 4-byte words off
+    16-byte rows or bases, bulk_lanes likewise, and the width threshold
+    (2048-byte rows)."""
     plan = G.gather_plan(width, 0x1000 + low, 0x2000, route)
     assert plan.route == want
     assert G.gather_plan(width, 0x5550 + low, 0x990, route) is plan  # cached by low bits
@@ -173,7 +177,9 @@ def test_plan_forced_and_threshold_routes(width, low, route, want):
 @pytest.mark.parametrize("width,table_ptr,route,match", [
     (0, 0, None, "width"), (2**28 + 1, 0, None, "width"),
     (16, 2, None, "4-byte"), (4484, 6, None, "4-byte"), (16, 0, "bogus", "unknown route"),
-    (385, 0, "lanes16", "unknown route"), (385, 0, "bulk_store", "bulk_store needs"),
+    (385, 0, "lanes16", "lanes16 cannot"), (386, 0, "lanes8", "unknown route"),
+    (388, 4, "lanes16", "lanes16 cannot"), (388, 8, "lanes16", "lanes16 cannot"),
+    (385, 0, "bulk_store", "bulk_store needs"),
     (388, 4, "bulk_store", "bulk_store needs"), (388, 8, "bulk_store", "bulk_store needs"),
     (4355, 0, "bulk_store", "bulk_store needs"), (4484, 8, "bulk_store", "bulk_store needs"),
     (2**22 + 1, 0, "lanes", "at most"),
@@ -184,18 +190,20 @@ def test_plan_refuses_what_the_kernel_cannot_take(width, table_ptr, route, match
 
 
 def test_plan_geometry_fits_the_card():
-    """Every bulk plan: pieces of a multiple of 16 bytes that cover the row,
-    2-16 stages, and a block's shared memory small enough that two blocks
-    share an SM (228 KB, 1 KB reserved a block)."""
+    """Every bulk plan: pieces of a multiple of 16 bytes, of nearly equal
+    size, that cover the row, 2-16 stages, and a block's shared memory
+    within the 227 KB a block may take."""
     for width in list(range(1, 3000, 7)) + list(range(3000, 40000, 997)) + [2**20, 2**28]:
         for low in (0, 4, 8, 12):
             plan = G.gather_plan(width, low, 0, "bulk")
             row = 4 * width
+            largest, stages = G.BULK_GEOMETRY[plan.route]
             pieces = -(-row // plan.piece_bytes)
-            assert plan.piece_bytes % 16 == 0 and plan.piece_bytes <= G.BULK_PIECE
+            assert plan.piece_bytes % 16 == 0 and plan.piece_bytes <= largest
             assert (pieces - 1) * plan.piece_bytes < row <= pieces * plan.piece_bytes
-            assert 2 <= plan.param <= G.MAX_STAGES
-            assert 2 * (G.bulk_smem(plan) + 1024) <= 233_472
+            assert pieces == -(-row // largest)  # as few pieces as the largest allows
+            assert plan.param == stages and 2 <= stages <= G.MAX_STAGES
+            assert G.bulk_smem(plan) <= G.MAX_SMEM
             assert plan.route == ("bulk_store" if width % 4 == 0 and low == 0 else "bulk_lanes")
 
 
