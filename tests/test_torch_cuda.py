@@ -875,16 +875,16 @@ def test_gather_refusals_on_card(cuda_device):
             K4.gather_rows(table, ids, _route=plan)
     assert K4.gather_rows.launches == before
     fn = K4._entries[0] if K4._entries else K4._bind()[0]
-    out = torch.empty(8, 385, device=cuda_device)
+    out = torch.empty(8, 388, device=cuda_device)
     stream = torch.cuda.current_stream().cuda_stream
-    assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 64, 385, 8, 9, 4, 0,
-              stream) == 1
-    assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, 385, 8, 0, 8, 0,
-              stream) == 1
-    assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8, 3, 4, 1552,
-              stream) == 1
-    assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8, 2, 4, 0,
-              stream) == 1
+    number = {name: i for i, name in enumerate(K4.ROUTES)}
+    assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 64, 385, 8, len(K4.ROUTES), 4,
+              0, stream) == 1
+    assert fn(table.data_ptr(), ids.data_ptr(), out.data_ptr(), 0, 385, 8, number["lanes4"],
+              8, 0, stream) == 1
+    for route, param, piece in (("bulk_store", 4, 1552), ("lanes16", 4, 0)):
+        assert fn(table.data_ptr() + 4, ids.data_ptr(), out.data_ptr(), 63, 388, 8,
+                  number[route], param, piece, stream) == 1
 
 
 @pytest.mark.cuda
