@@ -41,16 +41,17 @@ from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 # csrc/gather.cu's routes, by the number fvx_gather_rows takes
 ROUTES = ("lanes4", "lanes16", "bulk_store", "bulk_lanes")
 _ROUTE_NUMBER = {name: i for i, name in enumerate(ROUTES)}
-# rows of at least this many bytes take a bulk route (PERF.md, PR 15)
+# rows of at least this many bytes take a bulk route (measured with the L2
+# flushed by scripts_torch/k4_ab.py; PERF.md)
 BULK_MIN_BYTES = 2048
 # the lanes routes' loads in flight a lane (2, 4, 8 or 16; at most 8 of 16
 # bytes): the fewest that take a whole row in one trip
 LANE_UNROLL = (2, 4, 8, 16)
 # the bulk routes' largest piece (bytes one copy moves) and stages a warp
-# (PERF.md, PR 15): bulk_store keeps 8 pieces of at most 4 KB in flight a
-# warp, one 4-warp block an SM; bulk_lanes 4 pieces of at most 8 KB (two
-# blocks an SM at the bf16 item rows' 5.8 and 6.5 KB pieces, so 8 warps
-# of lanes store from shared memory)
+# (swept by scripts_torch/k4_ab.py; PERF.md): bulk_store keeps 8 pieces
+# of at most 4 KB in flight a warp, one 4-warp block an SM; bulk_lanes 4
+# pieces of at most 8 KB (two blocks an SM at the bf16 item rows' 5.8 and
+# 6.5 KB pieces, so 8 warps of lanes store from shared memory)
 BULK_GEOMETRY = {"bulk_store": (4096, 8), "bulk_lanes": (8192, 4)}
 # csrc/gather.cu's geometry constants
 BULK_WARPS, MAX_STAGES, STAGE_SLACK, RING_OFFSET, MAX_SMEM = 4, 16, 32, 512, 232_448
