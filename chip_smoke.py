@@ -132,7 +132,26 @@ Phases, each of which raises on a failure (nothing is swallowed):
    attributions per positive), ``serve_rec`` for each (no K3 launch on
    ``segmax_mma_kernel``), and
    ``get_explanations`` on the best grads dump.  Phases 16-18 print their
-   seconds.
+   seconds;
+19. ACF at the JAX CLI's default widths (K=128, attention (64, 1)) over
+   7x7x512 spatial maps (S=49, C=512; 20.07 GB made on the card), 1M users
+   x 200k items, P=20: the packed route on a 4096 x 4096 catalog (fp32,
+   bf16, fp8 moments, the maps fused and read by id, 3 steps at batch 256,
+   each on the card and on the CPU from the CPU route's state: losses,
+   rows and moments within the route tolerances, the fused Fspat columns,
+   tau and untouched rows bit-equal, the last step's extra rows stamped)
+   and 3 generic ``Trainer`` steps likewise; the chunked profile (``pos_chunk`` 8) against the
+   one-shot one within 2e-6; a packed epoch of 50 steps at batch 8192 (the
+   maps read by id; 5 K4 + 2 K5 a step) and 20 fused steps at batch 2048
+   (cut for memory), each with a 10-step profile; 20 generic steps;
+   ``precompute_eval`` over 1M users and the test split through K2 (245
+   launches); ``RecServer`` through K3 at the buckets, 64 users against a
+   full-catalog fp32 oracle; ``train_rec --rec acf`` (generic, packed) and
+   ``serve_rec`` on a 2048 x 2048 dataset with 7x7x512 ``.npy`` maps
+   written here; K4 and K5 at ACF's item rows (769, 513, 25,857, 25,601,
+   25,473 floats over 200k rows, at 163,840 and 16,384 rows) and K5 at
+   every narrow packed width, beside ``index_select`` / ``index_copy_`` and
+   their bounds.
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -162,6 +181,11 @@ U_FULL = I_FULL = 1_000_000
 EMBED_K = 128
 K_TOP, SEG, OVERSAMPLE, ITEM_BLOCK, HIST_P = 20, 32, 2, 65536, 20
 BUCKETS = (8, 64, 1024, 4096)
+# the serving phases after the first: queries timed at each bucket, and the
+# K3 kernels their buckets take at D <= 160 (the register kernel at B <= 64,
+# the warpgroup kernel above)
+SERVE_REPS = {8: 20, 64: 20, 1024: 5, 4096: 3}
+K3_SERVE_ROUTES = {"segmax_mma_regs_kernel", "segmax_wgmma_kernel"}
 # kernel vs plain version: the kernel sums D products sequentially in f32
 # FMAs, cuBLAS in another order, on scores of magnitude up to ~20
 K_ATOL, K_RTOL = 1e-4, 1e-5
@@ -295,6 +319,29 @@ VIS_ROW_TABLE, VIS_ROW_TIMED = 100_000, 24_576
 # the visual CLI runs: the CLI dataset with 4096-wide CNN and edge
 # features, 512-wide color histograms and a review table; batch 1024
 VIS_CLI_B, VIS_CLI_REVIEWS, VIS_TOP_N = 1024, 5, 50
+# ACF at the JAX CLI's default widths (fashionvisualexpl_tpu/cli/train_rec.py:
+# 54-63: K=128, layers_component = layers_item = (64, 1)) over spatial maps
+# of the reference's 7x7 grid (S=49, SURVEY.md:205-208) by C=512, the
+# channels of VGG19's last conv block (vgg19 is the CLI's default
+# --cnn_model), at the JAX package's own ACF scale (SPEED.md:145): 1M users
+# x 200k items, P=20 positives a user (make_scaled_arrays, the array path);
+# Fspat [200k, 49, 512] (20.07 GB) made on the card from a seed on the 1/64
+# grid.  Cut in depth (50 packed and 20 generic steps) and, fused, in batch
+# (2048: at 8192 the fused item table, the extra rows and the deduped rows
+# do not fit beside Fspat).  Route checks on a 4096 x 4096 catalog at batch
+# 256 (the CPU route's attention over B x P x S x C), the chunked profile
+# over 4096 users, the CLI on a 2048 x 2048 dataset with 7x7x512 .npy maps
+ACF_U, ACF_I, ACF_P, ACF_S, ACF_C = 1_000_000, 200_000, 20, 49, 512
+ACF_B, ACF_STEPS, ACF_FUSED_B, ACF_FUSED_STEPS = 8192, 50, 2048, 20
+ACF_GENERIC_STEPS, ACF_PROFILE_STEPS, ACF_CHUNK, ACF_CHUNK_USERS = 20, 10, 8, 4096
+ACF_ROUTE_N, ACF_ROUTE_B, ACF_ROUTE_STEPS = 4096, 256, 3
+ACF_CLI_N, ACF_CLI_B = 2048, 1024
+# the chunked profile against the one-shot one (tests/test_acf.py:105)
+ACF_CHUNK_TOL = 2e-6
+# K4 and K5 timed at ACF's item rows over the 200k catalog: at the B*P =
+# 163,840 extra rows of a batch-8192 step and at the packed item batch
+ACF_ROW_B = (ACF_B * ACF_P, GATHER_B)
+ACF_DEV = "cuda"
 
 
 def fail(msg: str) -> None:
@@ -500,6 +547,40 @@ def check_served(np, label, ids, vals, want_ids, want_vals):
     print(f"{label}: ids equal to the fp32 oracle, max_abs_err={err!r}")
 
 
+def serve_buckets(np, segmax, srv, batches, reps, label, want_routes=None):
+    """``srv.query`` at each bucket of ``batches`` (B -> user ids): a
+    warm-up query, then ``reps[B]`` timed ones, each bucket launching K3 and
+    returning [B, K_TOP] finite scores; with ``want_routes``, the set of K3
+    kernels the buckets together must take.  K3's counts are set to 0 at the
+    start (the serving path) and read at the end.  Returns ({B: p50_ms, qps,
+    launches}, {B: (ids, vals)}, launches, routes)."""
+    serving, served = {}, {}
+    segmax.segmax_scores.launches = 0  # the serving path starts here
+    segmax.segmax_scores.routes.clear()
+    for B, users in batches.items():
+        before = segmax.segmax_scores.launches
+        ids, vals = srv.query(users)  # warm-up
+        times = []
+        for _ in range(reps[B]):
+            t0 = time.perf_counter()
+            ids, vals = srv.query(users)
+            times.append(time.perf_counter() - t0)
+        launched = segmax.segmax_scores.launches - before
+        if not launched or ids.shape != (B, K_TOP) or not np.isfinite(vals).all():
+            fail(f"{label} B={B}: {launched} K3 launches, result shape {ids.shape} or "
+                 "non-finite values")
+        p50 = statistics.median(times)
+        serving[B] = dict(p50_ms=1e3 * p50, qps=B / p50, launches=launched)
+        served[B] = (ids, vals)
+        print(f"{label} B={B}: p50_ms={1e3 * p50!r} qps={B / p50!r} "
+              f"min_ms={1e3 * min(times)!r} kernel_launches={launched}")
+    launches = segmax.segmax_scores.launches  # ... and ends here
+    routes = dict(segmax.segmax_scores.routes)
+    if want_routes is not None and set(routes) != want_routes:
+        fail(f"{label}: K3 took {routes}, not the kernels {sorted(want_routes)}")
+    return serving, served, launches, routes
+
+
 def serve_phase(torch, np, segmax):
     from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
     from fashionvisualexpl_tpu_torch.serve import RecServer
@@ -528,27 +609,7 @@ def serve_phase(torch, np, segmax):
 
     batches = {B: rng.choice(U_FULL, B, replace=False) for B in BUCKETS}
     reps = {8: 30, 64: 30, 1024: 10, 4096: 5}
-    results, served = {}, {}
-    segmax.segmax_scores.launches = 0  # main path starts here
-    for B in BUCKETS:
-        before = segmax.segmax_scores.launches
-        ids, vals = srv.query(batches[B])  # warm-up
-        times = []
-        for _ in range(reps[B]):
-            t0 = time.perf_counter()
-            ids, vals = srv.query(batches[B])
-            times.append(time.perf_counter() - t0)
-        launched = segmax.segmax_scores.launches - before
-        if launched < 1:
-            fail(f"bucket B={B} did not launch the segmax kernel")
-        if ids.shape != (B, K_TOP) or not np.isfinite(vals).all():
-            fail(f"bucket B={B}: bad result shape {ids.shape} or non-finite values")
-        p50 = statistics.median(times)
-        results[B] = dict(p50_ms=1e3 * p50, qps=B / p50, launches=launched)
-        served[B] = (ids, vals)
-        print(f"serve B={B}: p50_ms={1e3 * p50!r} qps={B / p50!r} "
-              f"min_ms={1e3 * min(times)!r} kernel_launches={launched}")
-    launches = segmax.segmax_scores.launches  # main path ends here
+    results, served, launches, _ = serve_buckets(np, segmax, srv, batches, reps, "serve")
     peak = torch.cuda.max_memory_allocated()
     print(f"serve peak device memory: {peak / 2**30!r} GiB")
     print(f"serve main path: {launches} segmax launches over "
@@ -1424,19 +1485,19 @@ def eval_phase(torch, np, counts, data, host_s):
                           peak_gib=peak / 2**30, host_s=host_s, setup_s=setup_s)
 
 
-def write_reference_dataset(np, d: Path):
+def write_reference_dataset(np, d: Path, num_users: int = CLI_U, num_items: int = CLI_I):
     """Split TSVs (``user\\titem\\t0\\t1.0``) and the stats file in the
     reference's layout: per user CLI_PER_USER distinct random items, the
     last one the test item, the one before it the validation item."""
-    items = make_eval_items(np, CLI_U, CLI_I, CLI_PER_USER, seed=11)
+    items = make_eval_items(np, num_users, num_items, CLI_PER_USER, seed=11)
     d.mkdir(parents=True, exist_ok=True)
     (d / "stats_after_downloading").write_text(
-        f"dataset stats\n----\nusers: {CLI_U}\nitems: {CLI_I}\n")
+        f"dataset stats\n----\nusers: {num_users}\nitems: {num_items}\n")
     for fname, cols in (("trainingset.tsv", slice(0, -2)),
                         ("validationset.tsv", slice(-2, -1)),
                         ("testset.tsv", slice(-1, None))):
         part = items[:, cols]
-        users = np.repeat(np.arange(CLI_U), part.shape[1])
+        users = np.repeat(np.arange(num_users), part.shape[1])
         (d / fname).write_text("".join(
             f"{u}\t{i}\t0\t1.0\n" for u, i in zip(users, part.reshape(-1))))
 
@@ -2415,7 +2476,7 @@ def decode_moments(PG, cols, w, kind):
 
 
 def packed_route_check(torch, PG, label, kern, plain, spec, md, steps, lr, fused=False,
-                       dense_slack=None):
+                       dense_slack=None, at_floor=False):
     """The packed states after the same steps by the kernel route (card)
     and the plain route (CPU copies): fused frozen, tau and row_align pad
     columns bit-equal, untouched rows bit-equal, touched rows' params and decoded
@@ -2424,7 +2485,9 @@ def packed_route_check(torch, PG, label, kern, plain, spec, md, steps, lr, fused
     the drift there).  ``dense_slack`` ({param: (m slack, v slack)}, see
     ``dense_sum_slack``) widens a dense param's m and v by its rounding
     slack, and lets its params drift where that slack passes the route
-    tolerance.  Returns (max err, values beyond)."""
+    tolerance.  ``at_floor`` lets a dense param drift where its m agrees
+    only within the absolute floor (see ``route_check``).  Returns (max
+    err, values beyond)."""
     err_max, beyond = 0.0, 0
     bc2 = 1.0 - 0.999**steps
     for name, groups, tau, keep in packed_groups(PG, spec, md, fused):
@@ -2467,6 +2530,8 @@ def packed_route_check(torch, PG, label, kern, plain, spec, md, steps, lr, fused
             tiny = torch.sqrt(v[k] / bc2) < 10 * 1e-7
             if slack is not None:  # a gradient summed below its rounding
                 tiny |= slack[0].cpu() > ROUTE_RTOL * m[k].abs()
+            if at_floor:
+                tiny |= (km[k].cpu() - m[k]).abs() > ROUTE_RTOL * m[k].abs()
             e, n = capped_close(f"{label} {k} p", kp[k].cpu(), p[k], ROUTE_RTOL,
                                 ROUTE_ATOL, 1.0, 2 * lr * steps, tiny)
             err_max, beyond = max(err_max, e), beyond + n
@@ -2489,14 +2554,26 @@ def dense_sum_slack(slack, S, n: int):
     return slack
 
 
-def to_cpu_state(torch, PG, state):
-    """A CPU copy of a packed state (the plain route's start)."""
+def state_on(torch, state, device="cpu", model=None):
+    """A copy of a train state, packed or generic (tuples and dicts of
+    tensors), on ``device`` (the CPU: the plain route's start); with
+    ``model``, a generic state's params are the model's own parameters
+    (which its ``loss`` reads), set to the state's values."""
     def copy(x):
-        return x.cpu() if isinstance(x, torch.Tensor) else {k: v.cpu() for k, v in x.items()}
+        if isinstance(x, torch.Tensor):
+            return x.to(device, copy=True)
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        return type(x)(*map(copy, x)) if hasattr(x, "_fields") else tuple(map(copy, x))
 
-    dense = {n: tuple(copy(x) for x in pmv) for n, pmv in state.dense.items()}
-    return PG.GenericPackedState(state.step.cpu(), state.user_pmv.cpu(),
-                                 state.item_pmv.cpu(), dense)
+    out = copy(state)
+    if model is not None:
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for k, v in params.items():
+                v.copy_(out.params[k])
+        out = out._replace(params=params)
+    return out
 
 
 def step_profile(torch, label, run, triples, n: int):
@@ -2572,7 +2649,7 @@ def packed_train_phase(torch, np, G, S):
         label = f"packed route {md}{'' if catchup else ' no catch-up'}"
         t0 = time.perf_counter()
         kern = PG.pack_generic_state(model, dict(model.named_parameters()), moment_dtype=md)
-        plain = to_cpu_state(torch, PG, kern)
+        plain = state_on(torch, kern)
         step = PG.make_generic_packed_step(model, TRAIN_LR, TRAIN_REG, moment_dtype=md,
                                            lazy_catchup=catchup)
         losses = []
@@ -2667,7 +2744,7 @@ def af_packed_phase(torch, np, G, S, E):
     print(f"af packed setup (arrays, features, models): {time.perf_counter() - t0!r} s")
 
     t0 = time.perf_counter()
-    plain = to_cpu_state(torch, PG, state.inner)
+    plain = state_on(torch, state.inner)
     kern = state.inner
     steps = [PG.make_generic_packed_step(m, AF_LR, AF_REG, lazy_catchup=True)
              for m in (model, cpu_model)]
@@ -2838,7 +2915,7 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
                  embed_d=VIS_EMBED_D, generator=g)
     kern = PG.pack_generic_state(small, dict(small.named_parameters()),
                                  frozen=dict(small.named_buffers()))
-    plain = to_cpu_state(torch, PG, kern)
+    plain = state_on(torch, kern)
     step = PG.make_generic_packed_step(small, TRAIN_LR, TRAIN_REG, fused_frozen=True,
                                        lazy_catchup=True)
     losses, slack = [], {}
@@ -2959,30 +3036,8 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     refresh_s = time.perf_counter() - t0
     rng = np.random.default_rng(23)
     batches = {B: rng.choice(U, B, replace=False) for B in BUCKETS}
-    reps = {8: 20, 64: 20, 1024: 5, 4096: 3}
-    serving, served = {}, {}
-    segmax.segmax_scores.launches = 0  # VBPR serving path starts here
-    segmax.segmax_scores.routes.clear()
-    for B in BUCKETS:
-        before = segmax.segmax_scores.launches
-        ids, vals = srv.query(batches[B])  # warm-up
-        times = []
-        for _ in range(reps[B]):
-            t1 = time.perf_counter()
-            ids, vals = srv.query(batches[B])
-            times.append(time.perf_counter() - t1)
-        if segmax.segmax_scores.launches == before or ids.shape != (B, K_TOP) \
-                or not np.isfinite(vals).all():
-            fail(f"vbpr serving B={B}: no K3 launch, shape {ids.shape} or non-finite values")
-        p50 = statistics.median(times)
-        serving[B] = dict(p50_ms=1e3 * p50, qps=B / p50,
-                          launches=segmax.segmax_scores.launches - before)
-        served[B] = (ids, vals)
-    serve_launches = segmax.segmax_scores.launches  # ... and ends here
-    serve_routes = dict(segmax.segmax_scores.routes)
-    if set(serve_routes) != {"segmax_mma_regs_kernel", "segmax_wgmma_kernel"}:
-        fail(f"vbpr serving at D={VIS_D}: K3 took {serve_routes}, not the register kernel "
-             "(B <= 64) and the warpgroup kernel")
+    serving, served, serve_launches, serve_routes = serve_buckets(
+        np, segmax, srv, batches, SERVE_REPS, f"vbpr serving D={VIS_D}", K3_SERVE_ROUTES)
     print(f"vbpr serving: {serve_launches} K3 launches by kernel {serve_routes}")
     want_ids, want_vals = oracle_topk(torch, model, batches[64], padded, hist_counts, K_TOP)
     check_served(np, f"vbpr serve check B=64 bf16 kernel D={VIS_D}", *served[64], want_ids,
@@ -3092,13 +3147,42 @@ def write_visual_features(np, d: Path):
                 f.write(f"{u}\t{i}\treview {n} of user {u}\n")
 
 
+def check_cli_run(np, label, results, rdir, n_users, launches, rows, must_launch):
+    """One ``train_rec`` + ``serve_rec`` run of the CLI phases: K4 and K5
+    launched ``rows`` = (K4, K5) times, each kernel of ``must_launch`` at
+    least once; the epoch-2 and best recs dumps ``n_users`` x CLI_K rows,
+    serve_rec's CLI_SERVE_USERS x CLI_K; metrics finite in [0, 1] for
+    epochs 1 and 2.  Returns epoch 2's metrics."""
+    import glob
+    import pickle
+
+    if (launches["gather_rows"], launches["scatter_rows_set"]) != rows \
+            or not all(launches[k] for k in must_launch):
+        fail(f"{label}: launched {launches}; expected {', '.join(must_launch)} and "
+             f"{rows[0]} K4, {rows[1]} K5")
+    for pattern in ("recs-2-*.tsv", "best-recs-*.tsv"):
+        (path,) = glob.glob(str(rdir / pattern))
+        n_rows = len(read_tsv(np, path, 3))
+        if n_rows != n_users * CLI_K:
+            fail(f"{label} {pattern}: {n_rows} rows, expected {n_users * CLI_K}")
+    if len(read_tsv(np, results / "served.tsv", 3)) != CLI_SERVE_USERS * CLI_K:
+        fail(f"{label}: serve_rec wrote a wrong number of rows")
+    (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+    with open(pkl, "rb") as f:
+        per_epoch = pickle.load(f)
+    vals = np.array([v for m in per_epoch.values() for v in m.values()])
+    if sorted(per_epoch) != [1, 2] or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"{label}: metrics not finite in [0, 1] for epochs 1, 2: {per_epoch}")
+    return per_epoch[2]
+
+
 def visual_cli_phase(torch, np, counts, segmax, G, S):
     """``train_rec --rec vbpr`` (generic, then ``--train_path packed`` with
     fused frozen columns) and ``--rec grad_fashion`` (both grads dumps),
     ``serve_rec`` for both, and ``get_explanations`` on the best grads
     dump, in process, on the CLI dataset with 4096-wide features."""
     import glob
-    import pickle
     import shutil
 
     from fashionvisualexpl_tpu_torch.cli.get_explanations import main as explain
@@ -3142,31 +3226,14 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
                     "gather_routes": dict(G.gather_rows.routes)}  # ... and ends here
         if "segmax_mma_kernel" in launches["segmax_routes"]:
             fail(f"{label}: K3 at D={VIS_D} took segmax_mma_kernel: {launches['segmax_routes']}")
-        packed = "packed" in extra
-        if (launches["gather_rows"], launches["scatter_rows_set"]) != (
-                (4 * steps, 2 * steps) if packed else (0, 0)) \
-                or not (launches["counts"] and launches["segmax_scores"]):
-            fail(f"{label}: launched {launches}; expected K2, K3 and "
-                 f"{'%d K4, %d K5' % (4 * steps, 2 * steps) if packed else 'no K4, K5'}")
         rdir = results / "rec_results" / "cli" / rec
-        for pattern in ("recs-2-*.tsv", "best-recs-*.tsv"):
-            (path,) = glob.glob(str(rdir / pattern))
-            n_rows = len(read_tsv(np, path, 3))
-            if n_rows != CLI_U * CLI_K:
-                fail(f"{label} {pattern}: {n_rows} rows, expected {CLI_U * CLI_K}")
-        if len(read_tsv(np, results / "served.tsv", 3)) != CLI_SERVE_USERS * CLI_K:
-            fail(f"{label}: serve_rec wrote a wrong number of rows")
-        (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
-        with open(pkl, "rb") as f:
-            per_epoch = pickle.load(f)
-        vals = np.array([v for m in per_epoch.values() for v in m.values()])
-        if sorted(per_epoch) != [1, 2] or not (
-                np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
-            fail(f"{label}: metrics not finite in [0, 1] for epochs 1, 2: {per_epoch}")
+        metrics = check_cli_run(np, label, results, rdir, CLI_U, launches,
+                                (4 * steps, 2 * steps) if "packed" in extra else (0, 0),
+                                ("counts", "segmax_scores"))
         all_launches[label] = launches
-        summary[label] = dict(train_s=train_s, serve_s=serve_s, metrics=per_epoch[2])
+        summary[label] = dict(train_s=train_s, serve_s=serve_s, metrics=metrics)
         print(f"{label}: train_rec {train_s!r} s, serve_rec {serve_s!r} s; launches "
-              f"{launches}; metrics epoch 2 {per_epoch[2]}")
+              f"{launches}; metrics epoch 2 {metrics}")
         return rdir
 
     run("vbpr", "vbpr", ())
@@ -3200,6 +3267,518 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
           f"get_explanations {summary['explain_s']!r} s; phase {summary['s']!r} s")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     return all_launches, summary
+
+
+def acf_model(torch, ACF, n_users, n_items, fspat, items, cnt, device, seed):
+    """ACF at the reference's widths over ``fspat`` and the padded
+    positives, random weights from ``seed`` (its own generator's draws)."""
+    return ACF(n_users, n_items, fspat, padded_positives=items, positive_counts=cnt,
+               embed_k=EMBED_K, layers_component=(64, 1), layers_item=(64, 1), device=device,
+               generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def acf_route_phase(torch, np, PG, ACF, fspat):
+    """ACF's packed step on the card against the same step on the CPU on a
+    4096 x 4096 catalog (the first rows of the full Fspat; counts 0-20,
+    user 0 with no positive): fp32 / bf16 / fp8 moments, the maps fused
+    into the item rows or read by id, catch-up on, 3 steps at batch 256;
+    then 3 generic Trainer steps likewise.  Each step starts both routes
+    from the CPU route's state: the extra rows' Gi take gradients only
+    through the item attention, some near Adam's eps, and the attention's
+    dense gradients sum B x P (x S) terms that nearly cancel in places;
+    there a normalised Adam step follows the gradient's last bits (such
+    params may drift, ``at_floor``), and after a step taken apart the next
+    steps' gradients would part by more than rounding.  The fused
+    Fspat columns, tau and untouched rows bit-equal between routes, the
+    maps bit-equal to Fspat, the last step's extra rows stamped."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    N, B, n = ACF_ROUTE_N, ACF_ROUTE_B, ACF_ROUTE_STEPS
+    pairs, items, _ = make_scaled_arrays(N, N, ACF_P, seed=1)
+    cnt = np.random.default_rng(26).integers(0, ACF_P + 1, N).astype(np.int32)
+    cnt[0] = 0
+    models = [acf_model(torch, ACF, N, N, f, items, cnt, d, 27)
+              for f, d in ((fspat[:N], ACF_DEV), (fspat[:N].cpu(), "cpu"))]
+    if models[0].Fspat.data_ptr() != fspat.data_ptr():
+        fail("ACF copied the card's spatial maps")
+    with torch.no_grad():
+        for a, b in zip(models[0].parameters(), models[1].parameters()):
+            b.copy_(a.cpu())
+    frozen = [dict(m.named_buffers()) for m in models]
+    spec = models[0].packed_spec()
+    maps = fspat[:N].reshape(N, -1).view(torch.int32)
+    g = torch.Generator(device=ACF_DEV).manual_seed(28)
+    out = {}
+    for md in ("float32", "bfloat16", "float8"):
+        for fused in (True, False):
+            label = f"acf packed route {md} {'fused' if fused else 'by id'}"
+            t1 = time.perf_counter()
+            plain = state_on(torch, PG.pack_generic_state(
+                models[0], dict(models[0].named_parameters()),
+                frozen=frozen[0] if fused else None, moment_dtype=md))
+            steps = [PG.make_generic_packed_step(m, TRAIN_LR, TRAIN_REG, fused_frozen=fused,
+                                                 moment_dtype=md, lazy_catchup=True)
+                     for m in models]
+            losses, err, beyond = [], 0.0, 0
+            for s in range(n):
+                kern = state_on(torch, plain, ACF_DEV)  # the CPU route's state
+                batch = tuple(torch.randint(0, N, (B,), device=ACF_DEV, generator=g,
+                                            dtype=torch.int32) for _ in range(3))
+                batch[0][0] = 0  # the user with no positive
+                kern, lk = steps[0](kern, (frozen[0], batch, None))
+                plain, lp = steps[1](plain, (frozen[1], tuple(x.cpu() for x in batch), None))
+                lk, lp = float(lk), float(lp)
+                if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+                    fail(f"{label} step {s}: loss {lk!r} (kernels) vs {lp!r} (plain)")
+                losses.append((lk, lp))
+                e, nb = packed_route_check(torch, PG, f"{label} step {s}", kern, plain, spec,
+                                           md, s + 1, TRAIN_LR, fused=fused, at_floor=True)
+                err, beyond = max(err, e), beyond + nb
+            F0 = 2 * EMBED_K + PG._mom_width(md, 2 * EMBED_K)
+            tau = kern.item_pmv[:, F0 + (ACF_S * ACF_C if fused else 0)]
+            xids = models[0].packed_extra_item_ids(frozen[0], tuple(x.long() for x in batch))
+            if not bool((tau[xids.long()] == n).all()):
+                fail(f"{label}: the last step's extra rows were not stamped with its step")
+            if fused and not torch.equal(kern.item_pmv[:, F0:F0 + ACF_S * ACF_C].view(
+                    torch.int32), maps):
+                fail(f"{label}: the fused Fspat columns left the maps' bits")
+            out[label] = dict(max_abs_err=err, beyond=beyond, losses=losses,
+                              item_width=kern.item_pmv.shape[1], s=time.perf_counter() - t1)
+            print(f"{label}: {n} steps at batch {B}, item rows {kern.item_pmv.shape[1]} wide, "
+                  f"each from the CPU route's state, card vs CPU: losses {losses}; "
+                  f"max_abs_err={err!r}, {beyond} values a code or drift apart; Fspat, tau, "
+                  f"pads and untouched rows bit-equal, the extra rows stamped ok")
+            del kern, plain
+    # 3 generic Trainer steps, each from the CPU route's state
+    data = types.SimpleNamespace(num_items=N, num_train=len(pairs), train_pairs=pairs,
+                                 padded_pos=items, pos_counts=cnt,
+                                 steps_per_epoch=lambda b: len(pairs) // b)
+    trainers = [Trainer(m, data, TrainConfig(batch_size=B, lr=TRAIN_LR, reg=TRAIN_REG))
+                for m in models]
+    plain = trainers[1].init_state()[0]
+    triples = sample_triplets(29, *(trainers[0]._train_pairs, trainers[0]._padded_pos,
+                                    trainers[0]._pos_counts), N, n, B, device=ACF_DEV)
+    losses, err, exempt = [], 0.0, 0
+    for s in range(n):
+        kern = state_on(torch, plain, ACF_DEV, models[0])
+        kern, lk = trainers[0].run_steps(kern, frozen[0], tuple(t[s:s + 1] for t in triples),
+                                         step_key=30 + s)
+        plain, lp = trainers[1].run_steps(plain, frozen[1],
+                                          tuple(t[s:s + 1].cpu() for t in triples),
+                                          step_key=30 + s)
+        lk, lp = float(lk), float(lp)
+        if not abs(lk - lp) <= 1e-5 * abs(lp):
+            fail(f"acf generic route step {s}: loss {lk!r} (card) vs {lp!r} (CPU)")
+        losses.append((lk, lp))
+        e, x = route_check(torch, f"acf generic route step {s}", kern,
+                           state_on(torch, plain, ACF_DEV), s + 1, 2 * TRAIN_LR)
+        err, exempt = max(err, e), exempt + x
+    out["generic"] = dict(losses=losses, max_abs_err=err, exempt=exempt)
+    out["s"] = time.perf_counter() - t0
+    print(f"acf generic route: {n} Trainer steps at batch {B}, each from the CPU route's "
+          f"state, card vs CPU: losses {losses}; max_abs_err={err!r}, {exempt} params "
+          f"exempt (tiny sqrt(v_hat)); route checks {out['s']!r} s")
+    del models, trainers, kern, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def acf_full_phase(torch, np, G, S, ACF, fspat, data, items, cnt, start):
+    """The chunked profile against the one-shot one; the packed epoch
+    (unfused, batch 8192) through K4 and K5 with a profile, 20 fused steps
+    at batch 2048 with a profile, and 20 generic Trainer steps, each with
+    its peak memory above ``start`` (the ACF phase's, Fspat not yet made)."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.base import param_group
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    model = acf_model(torch, ACF, ACF_U, ACF_I, fspat, items, cnt, ACF_DEV, 31)
+    out = {}
+
+    # the chunked profile (exact_eval's) against the one-shot profile, with
+    # a user of no positive and users whose last window has no valid slot
+    with torch.no_grad():
+        users = torch.arange(ACF_CHUNK_USERS, device=ACF_DEV)
+        pos, c = model.pos_eval[users], model.cnt_eval[users].clone()
+        c[:4] = torch.tensor([0, 5, 8, 17], dtype=c.dtype)
+        p = dict(model.named_parameters())
+        model.pos_chunk = ACF_CHUNK
+        chunked = model._attentive_profile_chunked(p, p["Gu"][users], pos, c)
+        pl = pos.long()
+        oneshot = model._attentive_profile(param_group(p, "comp"), param_group(p, "item"),
+                                           p["Gu"][users], model.Fspat[pl], p["Gi"][pl],
+                                           p["Pi"][pl], c)
+        err = worst(torch, "acf chunked profile", chunked, oneshot, ACF_CHUNK_TOL,
+                    ACF_CHUNK_TOL)
+        if not torch.equal(chunked[0], p["Gu"][0]):
+            fail("acf chunked profile: the user with no positive left its embedding")
+    out["chunked"] = dict(users=ACF_CHUNK_USERS, pos_chunk=ACF_CHUNK, max_abs_err=err)
+    print(f"acf chunked profile (pos_chunk {ACF_CHUNK}, P={ACF_P}) over {ACF_CHUNK_USERS} "
+          f"users against the one-shot profile: max_abs_err={err!r} (rtol = atol = "
+          f"{ACF_CHUNK_TOL})")
+    del chunked, oneshot, pos, pl
+
+    def packed_run(label, batch, steps, fused, key):
+        cfg = TrainConfig(batch_size=batch, lr=TRAIN_LR, reg=TRAIN_REG, train_path="packed",
+                          fused_frozen=fused)
+        trainer = Trainer(model, data, cfg)
+        tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+        state, frozen = trainer.init_state()
+        width = state.inner.item_pmv.shape[1]
+        triples = sample_triplets(key, *tabs, ACF_I, steps + 1, batch, device=ACF_DEV)
+        # one step first (allocations, library handles), untimed
+        state, _ = trainer.run_steps(state, frozen, tuple(t[:1] for t in triples),
+                                     step_key=key + 1)
+        triples = tuple(t[1:] for t in triples)
+        torch.cuda.synchronize()
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        G.gather_rows.routes.clear()  # this run's main path starts here
+        t0 = time.perf_counter()
+        state, loss = trainer.run_steps(state, frozen, triples, step_key=key + 2)
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        launches = {"gather_rows": G.gather_rows.launches,
+                    "scatter_rows_set": S.scatter_rows_set.launches}  # ... and ends here
+        routes = dict(G.gather_rows.routes)
+        peak = torch.cuda.max_memory_allocated() - start
+        want = {"gather_rows": 5 * steps, "scatter_rows_set": 2 * steps}
+        # the user rows (385 floats: lanes4) twice a step, the item rows (the
+        # forward's, the extra ones, the deduped ones; 769 or 25,857 floats:
+        # bulk_lanes) three times, each on the route its plan names
+        want_routes = {}
+        for table, k in ((state.inner.user_pmv, 2), (state.inner.item_pmv, 3)):
+            r = G.gather_plan(table.shape[1], table.data_ptr(), 0).route
+            want_routes[r] = want_routes.get(r, 0) + k * steps
+        if launches != want or routes != want_routes \
+                or not np.isfinite(loss) or int(state.step) != steps + 1:
+            fail(f"{label}: launches {launches} (expected {want}), K4 routes {routes} "
+                 f"(expected {want_routes}), loss {loss!r}, step {int(state.step)}")
+        row = dict(steps=steps, batch=batch, s=dt, ms_per_step=1e3 * dt / steps,
+                   triples_per_s=steps * batch / dt, peak_gib=peak / 2**30,
+                   item_width=width, mean_loss=loss / steps, launches=launches,
+                   gather_routes=routes)
+        print(f"{label}: {row}")
+        row["profile"] = step_profile(
+            torch, label, lambda tr: trainer.run_steps(state, frozen, tr, step_key=key + 3),
+            sample_triplets(key + 4, *tabs, ACF_I, ACF_PROFILE_STEPS, batch, device=ACF_DEV),
+            ACF_PROFILE_STEPS)
+        return row, tabs
+
+    torch.cuda.reset_peak_memory_stats()
+    out["packed"], tabs = packed_run("acf packed", ACF_B, ACF_STEPS, False, 120)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["fused"], _ = packed_run("acf packed fused", ACF_FUSED_B, ACF_FUSED_STEPS, True, 130)
+    torch.cuda.empty_cache()
+
+    # 20 generic Trainer steps (autograd, dense TF-parity Adam)
+    trainer = Trainer(model, data, TrainConfig(batch_size=ACF_B, lr=TRAIN_LR, reg=TRAIN_REG))
+    state, frozen = trainer.init_state()
+    triples = sample_triplets(140, *tabs, ACF_I, ACF_GENERIC_STEPS, ACF_B, device=ACF_DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss = trainer.run_steps(state, frozen, triples, step_key=141)
+    loss = float(loss)
+    dt = time.perf_counter() - t0
+    if not np.isfinite(loss) or int(state.step) != ACF_GENERIC_STEPS:
+        fail(f"acf generic steps: loss {loss!r}, step {int(state.step)}")
+    out["generic"] = dict(steps=ACF_GENERIC_STEPS, s=dt,
+                          ms_per_step=1e3 * dt / ACF_GENERIC_STEPS,
+                          triples_per_s=ACF_GENERIC_STEPS * ACF_B / dt,
+                          peak_gib=(torch.cuda.max_memory_allocated() - start) / 2**30,
+                          mean_loss=loss / ACF_GENERIC_STEPS)
+    print(f"acf generic Trainer: {out['generic']}")
+    del trainer, state, triples, tabs
+    torch.cuda.empty_cache()
+    return model, out
+
+
+def acf_eval_serve_phase(torch, np, counts, segmax, model, items, cnt):
+    """The trained model's profiles over 1M users (``precompute_eval``), one
+    split of ``FactoredEvaluator`` through K2 at D=128, then ``RecServer``
+    through K3 at the serving buckets, 64 users against a full-catalog fp32
+    oracle."""
+    from fashionvisualexpl_tpu_torch.eval.evaluator import concat_metrics, split_record
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+    from fashionvisualexpl_tpu_torch.ops.metrics import mean_metrics
+    from fashionvisualexpl_tpu_torch.serve import RecServer
+
+    out = {}
+    t0 = time.perf_counter()
+    # the evaluation split: the train positives, one test item per user
+    # outside them (their sorted spread leaves every gap wider than 1)
+    data = types.SimpleNamespace(num_users=ACF_U, num_items=ACF_I,
+                                 training_list=items.tolist(),
+                                 test_list=(items[:, :1] + 1).tolist(), validation_list=[],
+                                 has_validation=False)
+    ev = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK, counts_impl="kernel")
+    evb = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK,
+                            counts_impl="bucketed")
+    out["setup_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uf, iv, ib = ev._factors(None)  # precompute_eval: the profiles of every user
+    torch.cuda.synchronize()
+    out["precompute_eval_s"] = time.perf_counter() - t0
+    counts.counts_kernel.launches = 0  # ACF's evaluation path starts here
+    t0 = time.perf_counter()
+    metrics = {k: v for k, v in split_record(ev._eval_split("test", uf, iv, ib), None).items()
+               if k.endswith("_t")}
+    out["split_s"] = time.perf_counter() - t0
+    launches = counts.counts_kernel.launches  # ... and ends here
+    want = -(-ACF_U // EVAL_BLOCK)
+    vals = np.array(list(metrics.values()))
+    if launches != want or not (np.isfinite(vals).all() and (vals >= 0).all()
+                                and (vals <= 1).all()):
+        fail(f"acf evaluation: {launches} K2 launches (expected {want}), metrics {metrics}")
+    # the first user blocks again through the bucketed engine: Gaussian
+    # scores, so counts may part at f32 near-ties; the means agree
+    per = []
+    for e in (ev, evb):
+        blocks = []
+        for blk in range(EVAL_CHECK_BLOCKS):
+            ids = torch.arange(blk * EVAL_BLOCK, (blk + 1) * EVAL_BLOCK, device=ACF_DEV)
+            blocks.append(e._eval_block("test", uf[ids], iv, ib, ids))
+        per.append(mean_metrics(concat_metrics(blocks)))
+    for f in ("hr", "prec", "rec", "auc", "ndcg"):
+        a, b = float(getattr(per[0], f)), float(getattr(per[1], f))
+        if not abs(a - b) <= 2e-4 + 2e-3 * abs(b):
+            fail(f"acf evaluation: the first blocks' mean {f} {a!r} (K2) vs {b!r} (bucketed)")
+    out.update(metrics=metrics, launches=launches,
+               scores_per_s=ACF_U * ACF_I / out["split_s"])
+    print(f"acf evaluation at D={EMBED_K}: precompute_eval {out['precompute_eval_s']!r} s "
+          f"over {ACF_U} users, the test split {out['split_s']!r} s, {launches} K2 launches, "
+          f"evaluator setup {out['setup_s']!r} s; the first {EVAL_CHECK_BLOCKS} blocks' means "
+          f"equal through the bucketed engine within rtol 2e-3; metrics {metrics}")
+    del ev, evb, iv, ib
+
+    # serving
+    t0 = time.perf_counter()
+    srv = RecServer(model, data, k=K_TOP, seg=SEG, oversample=OVERSAMPLE,
+                    item_block=ITEM_BLOCK, history=(items, cnt), device=ACF_DEV)
+    srv.refresh()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    rng = np.random.default_rng(32)
+    batches = {B: rng.choice(ACF_U, B, replace=False) for B in BUCKETS}
+    serving, served, serve_launches, serve_routes = serve_buckets(
+        np, segmax, srv, batches, SERVE_REPS, f"acf serving D={EMBED_K}", K3_SERVE_ROUTES)
+    # the oracle: the 64 users' profiles computed anew (a 256-user block, the
+    # shape precompute_eval computes) against every item in fp32
+    with torch.no_grad():
+        u64 = batches[64]
+        block = np.concatenate([u64, np.setdiff1d(np.arange(256), u64)[:256 - 64]])
+        prof = model.user_profile(torch.as_tensor(block, device=ACF_DEV), False)[:64]
+        s = prof @ model.Gi.T
+        for row, uid in enumerate(u64):
+            s[row, torch.as_tensor(items[uid, :cnt[uid]], device=ACF_DEV).long()] = -np.inf
+        want_vals, want_ids = torch.topk(s, K_TOP, dim=1)
+    check_served(np, f"acf serve check B=64 bf16 kernel D={EMBED_K}", *served[64],
+                 want_ids.cpu().numpy(), want_vals.cpu().numpy())
+    out["serve"] = dict(refresh_s=refresh_s, buckets=serving, launches=serve_launches,
+                        routes=serve_routes)
+    print(f"acf serving: refresh {refresh_s!r} s, {serving}, K3 {serve_routes}")
+    del srv, uf
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_acf_maps(np, d: Path, num_items: int):
+    """Per-item 7x7x512 spatial maps ([H, W, C] float32 .npy, the
+    extractor's layout) under the CLI dataset's cnn_features_split_dir."""
+    sdir = d / "original" / "features" / "cnn_vgg19_fc2"
+    sdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(33)
+    for i in range(num_items):
+        np.save(sdir / f"{i}.npy", np.round(rng.random((7, 7, ACF_C), dtype=np.float32) * 64)
+                / np.float32(64))
+    return sdir
+
+
+def acf_cli_phase(torch, np, counts, segmax, G, S):
+    """``train_rec --rec acf`` (generic, then ``--train_path packed`` with the
+    maps fused) and ``serve_rec`` on a 2048 x 2048 dataset with per-item
+    7x7x512 .npy maps written here: the file set, row counts and metrics."""
+    import glob
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+
+    phase_t0 = t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    N = ACF_CLI_N
+    write_reference_dataset(np, CLI_DIR / "cli", N, N)
+    sdir = write_acf_maps(np, CLI_DIR / "cli", N)
+    out = dict(write_s=time.perf_counter() - t0)
+    users = ",".join(str(u * (N // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    steps = 2 * (N * (CLI_PER_USER - 2) // ACF_CLI_B)
+    launches = {}
+    for label, extra in (("acf", ()), ("acf-packed", ("--train_path", "packed"))):
+        results = CLI_DIR / label
+        common = ["--rec", "acf", "--dataset", "cli", "--data_root", str(CLI_DIR),
+                  "--results_root", str(results), "--embed_k", str(EMBED_K),
+                  "--top_k", str(CLI_K), "--max_user_pos", str(ACF_P), "--device", ACF_DEV,
+                  *extra]
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        counts.counts_kernel.launches = segmax.segmax_scores.launches = 0  # run starts
+        t1 = time.perf_counter()
+        train(common + ["--streaming_eval", "--epochs", "2", "--verbose", "1",
+                        "--batch_size", str(ACF_CLI_B)])
+        train_s = time.perf_counter() - t1
+        (ckpt,) = glob.glob(str(results / "rec_model_weights" / "cli" / "acf" / "ckpt-*"))
+        t1 = time.perf_counter()
+        serve(common + ["--ckpt", ckpt, "--users", users, "--output",
+                        str(results / "served.tsv")])
+        serve_s = time.perf_counter() - t1
+        run = {"gather_rows": G.gather_rows.launches,
+               "scatter_rows_set": S.scatter_rows_set.launches,
+               "counts": counts.counts_kernel.launches,
+               "segmax_scores": segmax.segmax_scores.launches}  # ... and ends here
+        rdir = results / "rec_results" / "cli" / "acf"
+        metrics = check_cli_run(np, f"{label} cli", results, rdir, N, run,
+                                (5 * steps, 2 * steps) if extra else (0, 0),
+                                ("segmax_scores",))
+        files = sorted(os.path.basename(p) for p in glob.glob(str(rdir / "*")))
+        kinds = sorted({f.split("-")[0] for f in files})
+        if kinds != ["best", "log", "recs", "results"] or len(files) != 4:
+            fail(f"{label} cli: wrote {files}")
+        ckpts = sorted(os.listdir(ckpt))
+        if ckpts != ["1", "2", "best-state"]:
+            fail(f"{label} cli: checkpoints {ckpts}")
+        launches[label] = run
+        out[label] = dict(train_s=train_s, serve_s=serve_s, metrics=metrics, files=files)
+        print(f"{label} cli: train_rec {train_s!r} s, serve_rec {serve_s!r} s; launches "
+              f"{run}; files {files}; metrics epoch 2 {metrics}")
+    out["s"] = time.perf_counter() - phase_t0
+    print(f"acf cli: {N} x {N} with {N} maps of 7x7x{ACF_C} under {sdir.name} "
+          f"(written in {out['write_s']!r} s); phase {out['s']!r} s")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches, out
+
+
+def scatter_timed(torch, S, label, table, sids64, vals, flush):
+    """K5 at one shape: the written rows bit-equal to ``vals`` and 4096
+    other rows unchanged, then timed with the L2 flushed beside its plain
+    version, ``Tensor.index_copy_`` and its bound."""
+    R, W = table.shape
+    B = sids64.shape[0]
+    sids = sids64.to(torch.int32)
+    keep = torch.ones(R, dtype=torch.bool, device=table.device)
+    keep[sids64] = False
+    others = keep.nonzero()[:4096, 0]
+    before = table[others].view(torch.int32).clone()
+    launched = S.scatter_rows_set.launches
+    S.scatter_rows_set(table, sids, vals)
+    torch.cuda.synchronize()
+    if S.scatter_rows_set.launches != launched + 1:
+        fail(f"scatter {label}: no launch")
+    if not torch.equal(table[sids64].view(torch.int32), vals.view(torch.int32)) \
+            or not torch.equal(table[others].view(torch.int32), before):
+        fail(f"scatter kernel wrote other bits than its values at {label}")
+    del before
+    ms, call_ms, _ = kernel_times(torch, f"scatter_rows_set {label}",
+                                  lambda: S.scatter_rows_set(table, sids, vals), 20, flush)
+    plain_ms, _, _ = kernel_times(torch, f"scatter_rows_set plain {label}",
+                                  lambda: S.scatter_rows_set_reference(table, sids, vals), 10,
+                                  flush)
+    lib_ms, _, _ = kernel_times(torch, f"scatter_rows_set library {label}",
+                                lambda: table.index_copy_(0, sids64, vals), 20, flush)
+    b, by = rows_bound(B, W)
+    check_bound(f"scatter_rows_set {label}", ms, b)
+    row = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib_ms, bound_share=b / ms,
+               beats_library=ms < lib_ms, shape=f"R={R} W={W} B={B} f32, cold L2",
+               library="Tensor.index_copy_ (int64 ids)")
+    print(f"kernel time scatter_rows_set {row['shape']}: ms={ms!r} call_ms={call_ms!r} "
+          f"plain_ms={plain_ms!r} library_ms(index_copy_)={lib_ms!r} bound_ms={b!r} ({by}, "
+          f"{100 * b / ms:.1f}%)")
+    return row
+
+
+def acf_row_phase(torch, G, S):
+    """K4 and K5 at ACF's item rows over the 200k catalog (769 / 513 floats,
+    25,857 / 25,601 / 25,473 with the maps fused) at 163,840 and 16,384
+    rows, K4 on the route its plan names; K5 also at every narrow width the
+    packed paths scatter (385 ... 297) at 16,384 unique rows of 1M-row
+    tables.  Each bit-equal, timed with the L2 flushed beside the library
+    call and its bound."""
+    dev = torch.device(ACF_DEV)
+    g = torch.Generator(device=dev).manual_seed(34)
+    t0 = time.perf_counter()
+    # 256 MB: after a 64 MB fill, 16,384 rows of 513 floats (33.6 MB, the
+    # same rows each call) were once read partly from the 50 MB L2, under
+    # their bound
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    out = {"gather_rows": {}, "scatter_rows_set": {}}
+    for W in (769, 513, 25857, 25601, 25473):
+        table = torch.randn(ACF_I, W, device=dev, generator=g)
+        for B in ACF_ROW_B:
+            ids = torch.randint(0, ACF_I, (B,), device=dev, generator=g, dtype=torch.int32)
+            key = f"W={W} B={B}"
+            out["gather_rows"][key] = gather_timed(
+                torch, G, f"R={ACF_I} W={W} B={B}", table, ids, flush)
+            del ids
+            sids64 = torch.randperm(ACF_I, device=dev, generator=g)[:B]
+            vals = torch.randn(B, W, device=dev, generator=g)
+            out["scatter_rows_set"][key] = scatter_timed(
+                torch, S, f"R={ACF_I} W={W} B={B}", table, sids64, vals, flush)
+            del sids64, vals
+            torch.cuda.empty_cache()
+        del table
+        torch.cuda.empty_cache()
+    for W in GATHER_NARROW:  # K5 at the narrow widths, R=1M, B=16,384
+        table = torch.randn(ROW_TABLE, W, device=dev, generator=g)
+        sids64 = torch.randperm(ROW_TABLE, device=dev, generator=g)[:GATHER_B]
+        vals = torch.randn(GATHER_B, W, device=dev, generator=g)
+        out["scatter_rows_set"][f"W={W} B={GATHER_B}"] = scatter_timed(
+            torch, S, f"R={ROW_TABLE} W={W} B={GATHER_B}", table, sids64, vals, flush)
+        del table, sids64, vals
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    losing = {k: r["ms"] / r["library_ms"] for k, r in out["scatter_rows_set"].items()
+              if r["ms"] >= r["library_ms"] or r["bound_share"] < 0.5}
+    print(f"acf row timing grid: {out['s']!r} s; K5 behind index_copy_ or under half its "
+          f"bound at {losing}")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def acf_phase(torch, np, counts, segmax, G, S):
+    """ACF at the reference's widths (module docstring, phase 19)."""
+    from fashionvisualexpl_tpu_torch.models.acf import ACF
+    from fashionvisualexpl_tpu_torch.train import packed_generic as PG
+
+    phase_t0 = time.perf_counter()
+    start = phase_start(torch)
+    g = torch.Generator(device=ACF_DEV).manual_seed(25)
+    # non-negative maps on the 1/64 grid (post-ReLU CNN activations), made
+    # on the card
+    fspat = torch.rand(ACF_I, ACF_S, ACF_C, device=ACF_DEV, generator=g)
+    fspat.mul_(64).round_().div_(64)
+    pairs, items, cnt = make_scaled_arrays(ACF_U, ACF_I, ACF_P, seed=0)
+    data = types.SimpleNamespace(num_items=ACF_I, num_train=len(pairs), train_pairs=pairs,
+                                 padded_pos=items, pos_counts=cnt,
+                                 steps_per_epoch=lambda b: len(pairs) // b)
+    summary = dict(setup_s=time.perf_counter() - phase_t0)
+    summary["route"] = acf_route_phase(torch, np, PG, ACF, fspat)
+    model, full = acf_full_phase(torch, np, G, S, ACF, fspat, data, items, cnt, start)
+    summary.update(full)
+    summary.update(acf_eval_serve_phase(torch, np, counts, segmax, model, items, cnt))
+    summary["peak_gib"] = (torch.cuda.max_memory_allocated() - start) / 2**30
+    del model, fspat
+    torch.cuda.empty_cache()
+    cli_launches, summary["cli"] = acf_cli_phase(torch, np, counts, segmax, G, S)
+    rows = acf_row_phase(torch, G, S)
+    summary["s"] = time.perf_counter() - phase_t0
+    print(f"acf phase: {summary['s']!r} s")
+    return cli_launches, summary, rows
 
 
 def main() -> int:
@@ -3269,6 +3848,7 @@ def main() -> int:
     packed_launches, packed = packed_train_phase(torch, np, G, S)
     af_packed_launches, af_packed = af_packed_phase(torch, np, G, S, E)
     packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
+    acf_cli_launches, acf, acf_rows = acf_phase(torch, np, counts, segmax, G, S)
 
     main_row = rows[4096]
     kernels = [{
@@ -3286,6 +3866,9 @@ def main() -> int:
         "vbpr_routes": vbpr_launches["segmax_routes"],
         "visual_cli_launches": {k: v["segmax_scores"] for k, v in vis_cli_launches.items()},
         "visual_cli_routes": {k: v["segmax_routes"] for k, v in vis_cli_launches.items()},
+        "acf_launches": acf["serve"]["launches"],
+        "acf_routes": acf["serve"]["routes"],
+        "acf_cli_launches": {k: v["segmax_scores"] for k, v in acf_cli_launches.items()},
         "build_s": rows["build_s"],
         "ptxas": rows["ptxas"],
     }]
@@ -3308,6 +3891,7 @@ def main() -> int:
         "cli_launches": cli_launches["counts"],
         "vbpr_launches": vbpr_launches["counts"],
         "visual_cli_launches": {k: v["counts"] for k, v in vis_cli_launches.items()},
+        "acf_launches": acf["launches"],
     })
     for name, line in (("edge_tower_fwd", 114), ("edge_tower_bwd", 127)):
         kernels.append({
@@ -3329,19 +3913,28 @@ def main() -> int:
             "fused": {label: r[name] for label, r in row_rows["fused"].items()},
             "vbpr_launches": vbpr_launches[name],
             "visual_cli_launches": {k: v[name] for k, v in vis_cli_launches.items()},
+            "acf_launches": acf["packed"]["launches"][name],
+            "acf_fused_launches": acf["fused"]["launches"][name],
+            "acf_cli_launches": {k: v[name] for k, v in acf_cli_launches.items()},
+            "acf_grid": acf_rows[name],
         })
     kernels[-2].update(
         routes=packed["gather_routes"], af_routes=af_packed["gather_routes"],
         cli_routes=packed_cli["gather_routes"], vbpr_routes=vbpr["packed"]["gather_routes"],
         visual_cli_routes={k: v["gather_routes"] for k, v in vis_cli_launches.items()},
+        acf_routes=acf["packed"]["gather_routes"], acf_fused_routes=acf["fused"]["gather_routes"],
         step_share={k: p["profile"]["k4_share"] for k, p in (
-            ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]))})
+            ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]),
+            ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]))})
+    kernels[-1].update(step_share={k: p["profile"]["k5_share"] for k, p in (
+        ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]))})
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
     print(json.dumps({"train": train, "fit": fitted}))
     print(json.dumps({"eval": evaluated, "cli": cli}))
     print(json.dumps({"af_train": af_train, "af_cli": af_cli}))
     print(json.dumps({"packed": packed, "af_packed": af_packed, "packed_cli": packed_cli}))
     print(json.dumps({"vbpr": vbpr, "visual_cli": vis_cli}))
+    print(json.dumps({"acf": acf}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@ mirrors the path of its JAX counterpart.  It imports ``torch`` and never
 ``jax`` or ``fashionvisualexpl_tpu``.  Entry points run on the CUDA card
 unless the caller passes ``device="cpu"`` (``core/device.py``).
 
-Ported: serving (``serve/engine.py::RecServer``), BPRMF, VBPR, GradFashion
-and AttentiveFashion with the generic ``Trainer`` / ``fit``, the fast BPRMF
-and VBPR steps and the packed LazyAdam engine (frozen feature columns
-fused into the item rows), dense and streaming evaluation with the dumps,
+Ported: serving (``serve/engine.py::RecServer``), BPRMF, VBPR, GradFashion,
+AttentiveFashion and ACF with the generic ``Trainer`` / ``fit``, the fast
+BPRMF and VBPR steps and the packed LazyAdam engine (frozen feature columns
+fused into the item rows, ACF's extra item rows), dense and streaming evaluation with the dumps,
 GradFashion's explanations (``explain/grads.py``), checkpoints and the
 ``train_rec`` / ``serve_rec`` / ``get_explanations`` CLI, on one device.  Every Pallas
 kernel of the JAX package has a hand-written CUDA C++ counterpart under
@@ -29,6 +29,7 @@ _SURFACE = {
     "VBPR": "fashionvisualexpl_tpu_torch.models.vbpr",
     "GradFashion": "fashionvisualexpl_tpu_torch.models.grad_fashion",
     "AttentiveFashion": "fashionvisualexpl_tpu_torch.models.attentive_fashion",
+    "ACF": "fashionvisualexpl_tpu_torch.models.acf",
     "Trainer": "fashionvisualexpl_tpu_torch.train.trainer",
     "fit": "fashionvisualexpl_tpu_torch.train.trainer",
     "Evaluator": "fashionvisualexpl_tpu_torch.eval.evaluator",
@@ -37,7 +38,6 @@ _SURFACE = {
 }
 # models of later slices, by the heading of their ROADMAP item
 _LATER = {
-    "ACF": "ACF",
     "CompVBPR": "CNN and CompVBPR",
 }
 

@@ -20,10 +20,13 @@ attention dumps ``att-recs-<E>-<tag>.tsv`` and
 evaluated by the dense ``Evaluator`` even with ``--streaming_eval``, as in
 the JAX package.  ``--train_path packed`` trains every one of them on the
 packed LazyAdam engine (``--moment_dtype``, ``--row_align``,
-``--lazy_catchup`` and, for vbpr and grad_fashion, ``--fused_frozen``
-honoured).  ``--rec acf`` and ``comp_vbpr``,
-``--streamed``, ``--compute_dtype bfloat16`` for attentive_fashion and a
-mesh raise ``NotImplementedError`` naming their ROADMAP item by heading.
+``--lazy_catchup`` and, for vbpr, grad_fashion and acf, ``--fused_frozen``
+honoured); ``acf`` (the per-item spatial CNN maps under
+``cnn_features_split_dir``, ``--max_user_pos``, ``--acf_exact_eval``,
+``--acf_exact_train`` on the generic path, ``--compute_dtype``; factored at
+D = embed_k).  ``--rec comp_vbpr``, ``--streamed``, ``--compute_dtype
+bfloat16`` for attentive_fashion and a mesh raise ``NotImplementedError``
+naming their ROADMAP item by heading.
 
 Usage:
   python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
@@ -37,7 +40,6 @@ import os
 
 # models of later slices, by the heading of the ROADMAP item that ports them
 _LATER_MODELS = {
-    "acf": "ACF",
     "comp_vbpr": "CNN and CompVBPR",
 }
 
@@ -103,8 +105,9 @@ def build_parser(description="Run train of the Recommender Model."):
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="compute dtype for the trainable encoder towers "
-                        "(attentive_fashion / comp_vbpr); only float32 "
-                        "runs so far (bfloat16: ROADMAP: bf16 encoder towers)")
+                        "(attentive_fashion / comp_vbpr: only float32 "
+                        "runs so far; bfloat16: ROADMAP: bf16 encoder towers) "
+                        "and acf's attention einsums (both run)")
     p.add_argument("--edge_tower", choices=["auto", "fused", "xla", "s2d"],
                    default="auto",
                    help="attentive_fashion conv->pool->GAP tower impl: "
@@ -130,9 +133,10 @@ def build_parser(description="Run train of the Recommender Model."):
                    default="generic",
                    help="packed = packed-state rows + LazyAdam "
                         "(train/packed_generic.py): BPRMF and "
-                        "attentive_fashion on one device, and vbpr and "
-                        "grad_fashion with their frozen features in the item "
-                        "rows (--fused_frozen); the port has no mesh.  Not faster on the port so far: on an NVIDIA "
+                        "attentive_fashion on one device, and vbpr, "
+                        "grad_fashion and acf with their frozen features in the "
+                        "item rows (--fused_frozen; acf's positive sets as "
+                        "extra item rows); the port has no mesh.  Not faster on the port so far: on an NVIDIA "
                         "H100 80GB HBM3 at 700 W a packed attentive_fashion "
                         "step took 27.1 ms against 14.8 ms generic "
                         "(PERF.md)")
@@ -271,7 +275,7 @@ def check_ported(args) -> None:
 
 def build_model(args, data, cfg):
     """Model registry (reference train_rec.py:75-86): ``bprmf``, ``vbpr``,
-    ``grad_fashion`` and ``attentive_fashion`` on ``args.device``;
+    ``grad_fashion``, ``attentive_fashion`` and ``acf`` on ``args.device``;
     ``check_ported`` names the ROADMAP items of the rest."""
     from fashionvisualexpl_tpu_torch.data import features as F
 
@@ -314,6 +318,21 @@ def build_model(args, data, cfg):
             # reference consumes it at AttentiveFashion.py:338-343)
             batch_eval=args.batch_eval, edge_tower=args.edge_tower,
             device=args.device,
+        )
+    if args.rec == "acf":
+        from fashionvisualexpl_tpu_torch.data.pipeline import load_spatial_feature_stack
+        from fashionvisualexpl_tpu_torch.models.acf import ACF
+
+        spat = load_spatial_feature_stack(
+            paths.cnn_features_split_dir(ds, args.cnn_model, args.output_layer),
+            data.num_items,
+        )
+        return ACF(
+            data.num_users, data.num_items, spat, data, embed_k=args.embed_k,
+            layers_component=tuple(args.layers_component),
+            layers_item=tuple(args.layers_item), max_user_pos=args.max_user_pos,
+            exact_eval=args.acf_exact_eval, exact_train=args.acf_exact_train,
+            compute_dtype=args.compute_dtype, device=args.device,
         )
     raise NotImplementedError("Not implemented or unknown Recommender Model.")
 

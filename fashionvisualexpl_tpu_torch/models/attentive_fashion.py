@@ -43,7 +43,7 @@ ROADMAP: bf16 encoder towers), ``host_features`` with ``loss_streamed``
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +61,7 @@ from fashionvisualexpl_tpu_torch.models.base import (
     bpr_pairwise_loss,
     glorot_uniform,
     l2_loss,
+    param_group,
 )
 from fashionvisualexpl_tpu_torch.ops.edge_tower import edge_tower_gap, edge_tower_gap_plain
 
@@ -95,12 +96,6 @@ def _dropout(x: torch.Tensor, rate: float, draw: Optional[MaskDraw]) -> torch.Te
         return x
     keep = 1.0 - rate
     return torch.where(draw(tuple(x.shape), x.device), x / keep, 0.0)
-
-
-def _sub(p: Mapping[str, torch.Tensor], prefix: str) -> dict:
-    """The entries of one parameter group, without the ``prefix.``."""
-    n = len(prefix) + 1
-    return {k[n:]: v for k, v in p.items() if k.startswith(prefix + ".")}
 
 
 class AttentiveFashion(RecommenderModel):
@@ -270,9 +265,9 @@ class AttentiveFashion(RecommenderModel):
     def _encode(self, p, col, img, cls, draw):
         """[N, 3, K] stacked (color, edges, class) embeddings, the
         reference's concat order (AttentiveFashion.py:195-198)."""
-        color_e = self._mlp_encode(_sub(p, "color_enc"), col, draw)
-        edges_e = self._edges_encode(_sub(p, "edges_enc"), img, draw)
-        class_e = self._mlp_encode(_sub(p, "class_enc"), cls, draw)
+        color_e = self._mlp_encode(param_group(p, "color_enc"), col, draw)
+        edges_e = self._edges_encode(param_group(p, "edges_enc"), img, draw)
+        class_e = self._mlp_encode(param_group(p, "class_enc"), cls, draw)
         return torch.stack([color_e, edges_e, class_e], dim=-2)
 
     def _encode_ids(self, p, item_ids, draw):
@@ -328,7 +323,7 @@ class AttentiveFashion(RecommenderModel):
         draw = self._draw(rng)
         e_pos = self._encode_ids(p, pos, draw)  # [B, 3, K]
         e_neg = self._encode_ids(p, neg, draw)
-        att = _sub(p, "attention")
+        att = param_group(p, "attention")
         x_pos = self._score_from_encoded(att, gamma_u, gamma_pos, e_pos)
         x_neg = self._score_from_encoded(att, gamma_u, gamma_neg, e_neg)
         loss = bpr_pairwise_loss(x_pos, x_neg)
@@ -373,7 +368,7 @@ class AttentiveFashion(RecommenderModel):
     def score(self, users, items, params=None) -> torch.Tensor:
         p = self.params_or_own(params)
         e_items = self._encode_ids(p, items, None)
-        return self._score_from_encoded(_sub(p, "attention"), p["Gu"][users],
+        return self._score_from_encoded(param_group(p, "attention"), p["Gu"][users],
                                         p["Gi"][items], e_items)
 
     @torch.no_grad()
@@ -414,7 +409,7 @@ class AttentiveFashion(RecommenderModel):
     def predict_user_block(self, user_ids, ctx=None, params=None) -> torch.Tensor:
         p = self.params_or_own(params)
         e_items = ctx if ctx is not None else self.precompute_eval(p)
-        return self._scores_against_all(_sub(p, "attention"), p["Gu"][user_ids],
+        return self._scores_against_all(param_group(p, "attention"), p["Gu"][user_ids],
                                         e_items, p["Gi"])
 
     def predict_all(self, params=None) -> torch.Tensor:
@@ -428,7 +423,7 @@ class AttentiveFashion(RecommenderModel):
         the scoring path."""
         p = self.params_or_own(params)
         e_items = ctx if ctx is not None else self.precompute_eval(p)
-        att = _sub(p, "attention")
+        att = param_group(p, "attention")
         gu = p["Gu"][user_ids][:, None, :]
         blk = min(self.item_block, e_items.shape[0])
         out = [self._attention(att, gu, e_items[None, s:s + blk])[..., 0]

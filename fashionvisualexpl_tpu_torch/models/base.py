@@ -17,10 +17,13 @@ with ``packed_spec`` and ``packed_loss``; the base versions raise.
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
+
+Features = Union[np.ndarray, torch.Tensor]
 
 
 class PackedSpec(NamedTuple):
@@ -34,8 +37,7 @@ class PackedSpec(NamedTuple):
     batch element (ACF's profile over each user's positives);
     ``frozen_item_tables`` names per-item frozen feature tables (name,
     flattened width) that the engine may fold into the packed item rows
-    (VBPR's F, GradFashion's Fc and Fe).  No model the port has sets
-    ``extra_items`` yet (ROADMAP: ACF)."""
+    (VBPR's F, GradFashion's Fc and Fe, ACF's spatial maps Fspat)."""
 
     user_tables: Tuple[Tuple[str, int], ...]
     item_tables: Tuple[Tuple[str, int], ...]
@@ -76,6 +78,32 @@ def glorot_uniform(
     limit = math.sqrt(6.0 / ((shape[-2] + shape[-1]) * receptive))
     out = torch.empty(shape, dtype=torch.float32, device=device)
     return out.uniform_(-limit, limit, generator=generator)
+
+
+def normal_init(
+    shape: Tuple[int, ...],
+    generator: torch.Generator,
+    device: torch.device,
+    stddev: float = 0.01,
+) -> torch.Tensor:
+    """RandomNormal(mean=0, stddev=0.01) (JAX ``normal_init``,
+    AttentiveFashion.py:24)."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    return out.normal_(0.0, stddev, generator=generator)
+
+
+def frozen_buffer(features: Features, device: torch.device) -> torch.Tensor:
+    """A float32 copy of ``features`` (numpy, or a tensor made on the card)
+    on ``device``."""
+    if isinstance(features, torch.Tensor):
+        return features.detach().to(device=device, dtype=torch.float32).contiguous()
+    return torch.from_numpy(np.require(features, np.float32, ["C", "W"])).to(device)
+
+
+def param_group(p: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    """The entries of one parameter group, without the ``prefix.``."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in p.items() if k.startswith(prefix + ".")}
 
 
 class RecommenderModel(nn.Module):
@@ -135,17 +163,20 @@ class RecommenderModel(nn.Module):
         ``params=`` of the scoring methods takes them) to tensors;
         ``frozen`` is the model's buffers; ``ids = (users, pos, neg)``
         (int64) lets the model gather its own inputs; ``rng`` the step's
-        dropout generator.  A model with ``frozen_item_tables`` also takes
-        ``frozen_vw`` ({"pos" | "neg": {table: [B, width]}}, the frozen
-        rows out of the packed item rows, when the step fuses them).  Must
-        mirror ``loss`` exactly."""
+        dropout generator.  A model with ``extra_items`` also takes
+        ``extra_vw`` (table -> [B, E, width], the rows of
+        ``packed_extra_item_ids``); one with ``frozen_item_tables`` takes
+        ``frozen_vw`` ({"pos" | "neg" (| "extra"): {table: [B (, E),
+        width]}}, the frozen rows out of the packed item rows, when the
+        step fuses them).  Must mirror ``loss`` exactly."""
         raise NotImplementedError(
             f"{self.name} does not implement the packed fast path"
         )
 
     def packed_extra_item_ids(self, frozen, ids):
         """[B, extra_items] int32 item ids the loss reads beyond pos/neg
-        (only when ``packed_spec().extra_items > 0``: ACF)."""
+        (only when ``packed_spec().extra_items > 0``: ACF); ``ids`` as
+        ``packed_loss`` gets them."""
         raise NotImplementedError(
             f"{self.name} does not implement the packed fast path"
         )

@@ -19,10 +19,12 @@ import numpy as np
 import torch
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
+from fashionvisualexpl_tpu_torch.models.acf import ACF
 from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+from fashionvisualexpl_tpu_torch.models.base import Features
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 from fashionvisualexpl_tpu_torch.models.grad_fashion import GradFashion
-from fashionvisualexpl_tpu_torch.models.vbpr import VBPR, Features
+from fashionvisualexpl_tpu_torch.models.vbpr import VBPR
 
 
 def _f32(params: Dict[str, np.ndarray], name: str, ndim: int) -> np.ndarray:
@@ -123,6 +125,31 @@ def grad_fashion_from_jax(params: Dict[str, np.ndarray], color_features: Feature
                         edge_features, embed_k=gu.shape[1], embed_d=tu.shape[1],
                         embed_color=ec.shape[1], embed_edges=ee.shape[1], device=device)
     _copy_into(model, params)
+    return model
+
+
+def acf_from_jax(params, spatial: Features, data=None, device: DeviceLike = None,
+                 **kw) -> ACF:
+    """An ``ACF`` holding exactly the JAX ACF's params (nested ``comp`` /
+    ``item`` groups, numpy) over the spatial maps ``spatial`` [I, S, C],
+    taken as given.  ``data`` and ``kw`` (``max_user_pos``, ``seed``,
+    ``padded_positives``, ``positive_counts``, ``exact_eval``,
+    ``exact_train``, ``pos_chunk``, ``compute_dtype``) are ``ACF``'s, as
+    the JAX model was built with them; the widths are read from the
+    params' shapes."""
+    flat = flatten_params(params)
+    gu = _f32(flat, "Gu", 2)
+
+    def layers(group):
+        widths = [flat[f"{group}.W0_u"].shape[1]]
+        while f"{group}.W{len(widths)}" in flat:
+            widths.append(flat[f"{group}.W{len(widths)}"].shape[0])
+        return tuple(widths)
+
+    model = ACF(gu.shape[0], spatial.shape[0], spatial, data, embed_k=gu.shape[1],
+                layers_component=layers("comp"), layers_item=layers("item"), device=device,
+                **kw)
+    _copy_into(model, flat)
     return model
 
 

@@ -27,17 +27,15 @@ from torch import nn
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 from fashionvisualexpl_tpu_torch.models.base import (
+    Features,
     PackedSpec,
     RecommenderModel,
     bpr_pairwise_loss,
+    frozen_buffer,
     glorot_uniform,
     l2_loss,
 )
-from fashionvisualexpl_tpu_torch.models.vbpr import (
-    Features,
-    ProjectedItemScores,
-    frozen_buffer,
-)
+from fashionvisualexpl_tpu_torch.models.vbpr import ProjectedItemScores
 
 
 class GradFashion(ProjectedItemScores, RecommenderModel):

@@ -17,30 +17,21 @@ D = embed_k + embed_d wide.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple, Union
+from typing import Mapping, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 from fashionvisualexpl_tpu_torch.models.base import (
+    Features,
     PackedSpec,
     RecommenderModel,
     bpr_pairwise_loss,
+    frozen_buffer,
     glorot_uniform,
     l2_loss,
 )
-
-Features = Union[np.ndarray, torch.Tensor]
-
-
-def frozen_buffer(features: Features, device: torch.device) -> torch.Tensor:
-    """A float32 copy of ``features`` (numpy, or a tensor made on the card)
-    on ``device``."""
-    if isinstance(features, torch.Tensor):
-        return features.detach().to(device=device, dtype=torch.float32).contiguous()
-    return torch.from_numpy(np.require(features, np.float32, ["C", "W"])).to(device)
 
 
 class ProjectedItemScores:

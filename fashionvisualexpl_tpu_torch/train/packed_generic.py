@@ -14,7 +14,11 @@ gathered row views).  The engine owns the rest:
   float32 (exact below 2**24);
 - per step four row gathers (the forward user and item rows, then the
   deduped user and item rows) through K4 (``ops/gather.py::gather_rows``)
-  and two row writes through K5 (``ops/row_scatter.py::scatter_rows_set``).
+  and two row writes through K5 (``ops/row_scatter.py::scatter_rows_set``);
+  a spec with ``extra_items`` E (ACF's profile over each user's positives)
+  adds a fifth gather, the B * E item rows of ``packed_extra_item_ids``,
+  whose gradients join the pos and neg rows' in the one item dedupe
+  (2B + B * E ids), so K5 writes them back with the rest.
   On CUDA tensors those are the hand-written kernels; on CPU tensors their
   plain versions.  The JAX package uses XLA's ``take`` and ``.at[].set``
   here; the functions are the same, gathers and sets being exact copies;
@@ -25,10 +29,12 @@ gathered row views).  The engine owns the rest:
   params;
 - fused frozen columns (``pack_generic_state(frozen=...)`` with a
   ``fused_frozen=True`` step): a spec's ``frozen_item_tables`` (VBPR's F,
-  GradFashion's Fc and Fe) ride the item rows, so the loss reads them out
-  of the forward item gathers (``frozen_vw``) and the item scatter writes
-  them back unchanged.  A VBPR item row at K=128, dim_f=4096 and float32
-  moments is 4,484 columns, of which 388 change.
+  GradFashion's Fc and Fe, ACF's Fspat) ride the item rows, so the loss
+  reads them out of the forward item gathers, the extra rows' included
+  (``frozen_vw``), and the item scatter writes them back unchanged.  A
+  VBPR item row at K=128, dim_f=4096 and float32 moments is 4,484 columns,
+  of which 388 change; an ACF row at K=128 over 7x7x512 maps 25,857, of
+  which 768 change.
 
 The dedupe pads unused segments with the id 2**30.  The unique-row gather
 reads some row for them (K4 clamps, JAX's ``take`` gives NaN rows) and the
@@ -39,9 +45,8 @@ The step updates ``user_pmv`` and ``item_pmv`` in place (JAX donates them)
 and returns a new ``GenericPackedState`` holding them, the new step and the
 new dense params.
 
-Not ported here: the extra item rows of a spec with ``extra_items`` (ACF;
-raises ``NotImplementedError`` naming its ROADMAP heading).
-``_moment_cols`` and the sharded engine wait for Multi-device.
+Not ported here: ``_moment_cols`` and the sharded engine wait for
+Multi-device.
 """
 
 from __future__ import annotations
@@ -364,17 +369,14 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
     one packed LazyAdam step (module docstring).  ``fused_frozen=True``
     needs a state packed with ``frozen`` (for a spec without frozen tables
     it changes nothing); the loss then gets the frozen rows as
-    ``frozen_vw``.  ``moment_dtype`` must be
+    ``frozen_vw``.  A spec with ``extra_items`` E also hands the loss
+    ``extra_vw`` (table -> [B, E, width]).  ``moment_dtype`` must be
     the one the state was packed with; ``lazy_catchup=True`` applies the
     closed-form momentum tail of the skipped steps on touch
     (``train/packed.py::_momentum_catchup``).  ``rng`` goes to
     ``model.packed_loss`` (a dropout generator, masks or None)."""
     spec: PackedSpec = model.packed_spec()
-    if spec.extra_items:
-        raise NotImplementedError(
-            "packed extra item rows (ACF's profile over the user's positives) "
-            "are not ported yet (ROADMAP: ACF)"
-        )
+    E = spec.extra_items
     md = moment_dtype_name(moment_dtype)
     u_offs, Wu = _offsets(spec.user_tables)
     i_offs, Wi = _offsets(spec.item_tables)
@@ -403,6 +405,7 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
         u, p_ids, n_ids = (x.to(torch.int32) for x in (u, p_ids, n_ids))
         B = u.shape[0]
         ii = torch.cat([p_ids, n_ids])
+        ids = (u.long(), p_ids.long(), n_ids.long())
 
         UR = gather_rows(state.user_pmv, u)  # [B, Wu_total]
         IR = gather_rows(state.item_pmv, ii)  # [2B, Wi_total]
@@ -413,30 +416,46 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
             col = sc0 + gs * j
             pos_vw[s] = IR[:B, col]
             neg_vw[s] = IR[B:, col]
+        # the extra item rows the loss reads (ACF's positive sets): gathered
+        # here, differentiated with pos and neg, written back through the
+        # same item dedupe below
+        extra_vw = {}
+        if E:
+            xids = model.packed_extra_item_ids(frozen, ids).reshape(-1).to(torch.int32)
+            XR = gather_rows(state.item_pmv, xids)  # [B * E, Wi_total]
+            extra_vw = {n: XR[:, off:off + w].reshape(B, E, w) for n, off, w in i_offs}
+            for j, s in enumerate(spec.item_scalars):
+                extra_vw[s] = XR[:, sc0 + gs * j].reshape(B, E)
+            ii = torch.cat([ii, xids])
         dense_p = {}
         for name in spec.dense:
             dense_p.update(_flat_dense(name, state.dense[name][0]))
         kw = {}
         if fused_frozen:  # constants of the loss, out of the same gathers
+            sides = [("pos", IR[:B], (B,)), ("neg", IR[B:], (B,))]
+            if E:
+                sides.append(("extra", XR, (B, E)))
             kw["frozen_vw"] = {
-                side: {n: rows[:, F0 + off:F0 + off + w] for n, off, w in f_offs}
-                for side, rows in (("pos", IR[:B]), ("neg", IR[B:]))}
+                side: {n: rows[:, F0 + off:F0 + off + w].reshape(*lead, w)
+                       for n, off, w in f_offs}
+                for side, rows, lead in sides}
 
         # differentiate with respect to the gathered views (leaves), not
         # through the gathers: no table-shaped gradient exists
-        groups = (user_vw, pos_vw, neg_vw, dense_p)
+        groups = (user_vw, pos_vw, neg_vw, extra_vw, dense_p)
         keys = [(i, k) for i, d in enumerate(groups) for k in d]
         with torch.enable_grad():
             for i, k in keys:
                 groups[i][k] = groups[i][k].detach().requires_grad_()
-            loss = model.packed_loss(user_vw, pos_vw, neg_vw, dense_p, frozen,
-                                     (u.long(), p_ids.long(), n_ids.long()), reg, rng,
-                                     **kw)
+            if E:
+                kw["extra_vw"] = extra_vw
+            loss = model.packed_loss(user_vw, pos_vw, neg_vw, dense_p, frozen, ids, reg,
+                                     rng, **kw)
             grads = torch.autograd.grad(loss, [groups[i][k] for i, k in keys],
                                         allow_unused=True)
-        gU, gP, gN, gD = ({}, {}, {}, {})
+        gU, gP, gN, gX, gD = ({}, {}, {}, {}, {})
         for (i, k), g in zip(keys, grads):
-            (gU, gP, gN, gD)[i][k] = g if g is not None else torch.zeros_like(groups[i][k])
+            (gU, gP, gN, gX, gD)[i][k] = g if g is not None else torch.zeros_like(groups[i][k])
         t = (state.step + 1).to(torch.float32)
 
         # users: all user tables share one packed row and one dedupe; the
@@ -448,10 +467,12 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
                               stamp(rows, t), rows[:, tau_u + 1:]], dim=1)
         scatter_rows_set(state.user_pmv, uids, new_rows)  # ... and are dropped
 
-        # items: vector tables and scalars share one dedupe
-        gi_parts = [torch.cat([gP[n], gN[n]]) for n, _, _ in i_offs]
-        gi_parts += [torch.cat([gP[s], gN[s]])[:, None] for s in spec.item_scalars]
-        iids, cgi = compact_row_grads(ii, torch.cat(gi_parts, dim=1), 2 * B)
+        # items: vector tables and scalars (and the extra rows) share one dedupe
+        gi_parts = [torch.cat([gP[n], gN[n]] + ([gX[n].reshape(B * E, w)] if E else []))
+                    for n, _, w in i_offs]
+        gi_parts += [torch.cat([gP[s], gN[s]] + ([gX[s].reshape(B * E)] if E else []))[:, None]
+                     for s in spec.item_scalars]
+        iids, cgi = compact_row_grads(ii, torch.cat(gi_parts, dim=1), 2 * B + B * E)
         rows = gather_rows(state.item_pmv, iids)
         dt = (t - rows[:, tau_i])[:, None]
         parts = [lazy_rows(rows[:, :sc0], cgi[:, :Wi], dt, t, lr)]

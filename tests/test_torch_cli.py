@@ -13,9 +13,12 @@ so do ``--rec vbpr`` and ``--rec grad_fashion``, generic and packed with
 fused frozen columns (the JAX run's file set, GradFashion's two grads
 dumps with one row of two finite attributions per positive, ``serve_rec``
 giving the best dump's recommendations), and ``get_explanations`` on a
-GradFashion dump (the JAX CLI's rows); ``validate_args`` gives the JAX
-parser's messages; the options of later slices raise; without
-``--device`` and without a card the CLI raises."""
+GradFashion dump (the JAX CLI's rows); so does ``--rec acf`` over
+per-item [H, W, C] spatial maps (generic with ``--acf_exact_eval
+--acf_exact_train``, packed with the maps fused or read by id; the JAX
+run's file set, ``serve_rec`` giving the best dump's recommendations);
+``validate_args`` gives the JAX parser's messages; the options of later
+slices raise; without ``--device`` and without a card the CLI raises."""
 
 import glob
 import json
@@ -223,7 +226,6 @@ def test_packed_help_says_what_the_port_runs():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--rec", "acf"), "ACF"),
     (("--rec", "comp_vbpr"), "CNN and CompVBPR"),
     (("--train_path", "packed", "--mesh_data", "2"), "Multi-device"),
     (("--rec", "attentive_fashion", "--streamed"), "The streamed trainer"),
@@ -349,3 +351,62 @@ def test_cli_get_explanations_on_a_grad_fashion_dump(dataset_dir, jax_visual_run
         for col in ("COLOR", "EDGES", "DIFF"):
             np.testing.assert_allclose(got[col], want[col], rtol=1e-12, atol=1e-15)
     os.remove(reviews)
+
+
+# --- ACF ------------------------------------------------------------------
+
+ACF_FLAGS = ("--rec", "acf", "--max_user_pos", "3", "--layers_component", "4", "1",
+             "--layers_item", "4", "1", "--streaming_eval")
+
+
+@pytest.fixture(scope="module")
+def acf_dataset(dataset_dir):
+    """The dataset with per-item 2x2x5 spatial maps ([H, W, C] .npy files,
+    the extractor's layout) under ``cnn_features_split_dir``."""
+    from fashionvisualexpl_tpu_torch.core.config import Paths
+
+    sdir = Paths(root=dataset_dir).cnn_features_split_dir("synthetic", "vgg19", "fc2")
+    os.makedirs(sdir, exist_ok=True)
+    rng = np.random.default_rng(11)
+    for i in range(24):
+        np.save(os.path.join(sdir, f"{i}.npy"), rng.normal(size=(2, 2, 5)).astype(np.float32))
+    return dataset_dir
+
+
+@pytest.fixture(scope="module")
+def jax_acf_run(acf_dataset):
+    jcli.train(_argv(acf_dataset, "jax-acf", device=False)
+               + [*ACF_FLAGS, "--acf_exact_eval", "--acf_exact_train"])
+    return _files(acf_dataset, "jax-acf")
+
+
+ACF_RUNS = {"exact": ("--acf_exact_eval", "--acf_exact_train"),
+            "packed-fused": ("--train_path", "packed"),
+            "packed-by-id": ("--train_path", "packed", "--fused_frozen", "0",
+                             "--moment_dtype", "bfloat16")}
+
+
+@pytest.mark.parametrize("run", list(ACF_RUNS))
+def test_cli_acf_writes_the_jax_file_set(acf_dataset, jax_acf_run, run):
+    """``--rec acf``: the JAX run's file set, dumps of U x k rows, metrics
+    in [0, 1]; ``serve_rec`` from the checkpoint gives the best dump's
+    recommendations."""
+    results = f"acf-{run}"
+    argv = _argv(acf_dataset, results) + [*ACF_FLAGS, *ACF_RUNS[run]]
+    pcli.train(argv)
+    port = _files(acf_dataset, results)
+    assert sorted(port) == sorted(jax_acf_run)
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            _check_tsv(path, U * K_TOP)
+        elif name.endswith(".jsonl"):
+            got = [json.loads(line) for line in open(path)]
+            assert len(got) == 2
+            assert all(0.0 <= r[m] <= 1.0 for r in got for m in r if m[-2:] in ("_v", "_t"))
+    base = os.path.join(acf_dataset, results)
+    (ckpt,) = [p for n, p in port.items() if "ckpt-" in n]
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "acf", "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(argv + ["--ckpt", ckpt, "--users", "all", "--output", out])
+    served, dumped = _check_tsv(out, U * K_TOP), _check_tsv(best, U * K_TOP)
+    assert [r.split("\t")[:2] for r in served] == [r.split("\t")[:2] for r in dumped]

@@ -32,9 +32,12 @@ ones), and what its C entry refuses.
 K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
 160 and 164 too, its iv 8-byte aligned only, and the route each geometry
 takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).
+ACF's packed rows (769 / 513 / 385 floats, 25857 / 25601 / 25473 with
+its 7x7x512 spatial maps fused) through K4 on the route each plan names
+and through K5, bit-equal.
 The packed step on the card against the same step on CPU copies: 4
-K4 + 2 K5 launches a step; losses rtol 1e-5; tau columns and untouched
-rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
+K4 + 2 K5 launches a step (ACF: 5 K4, the extra item rows among them);
+losses rtol 1e-5; tau columns and untouched rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
 row's duplicate gradients with atomics, in no fixed order, so a value at a
 bf16 or e5m2 rounding boundary may round the other way)."""
@@ -754,6 +757,63 @@ def test_row_kernels_at_fused_widths_on_card(cuda_device):
         assert torch.equal(_bits(kern), _bits(plain)), width
 
 
+def _acf_widths():
+    """{(side, moment dtype, fused): width} of ACF's packed rows at K=128
+    over 7x7x512 spatial maps, from ``packed_spec``."""
+    from fashionvisualexpl_tpu_torch.models.acf import ACF
+
+    model = ACF(2, 2, np.zeros((2, 49, 512), np.float32), device="cpu",
+                padded_positives=np.zeros((2, 20), np.int32),
+                positive_counts=np.zeros(2, np.int32))
+    widths = {}
+    for md in ("float32", "bfloat16", "float8"):
+        for fused in (False, True):
+            st = PG.pack_generic_state(model, dict(model.named_parameters()),
+                                       frozen=dict(model.named_buffers()) if fused else None,
+                                       moment_dtype=md)
+            widths[("users", md, fused)] = st.user_pmv.shape[1]
+            widths[("items", md, fused)] = st.item_pmv.shape[1]
+    return widths
+
+
+def test_acf_widths_are_the_packed_specs():
+    """Items [Gi | Pi | moments (| Fspat) | tau]: 769 / 513 / 385 at fp32 /
+    bf16 / fp8 moments, 25857 / 25601 / 25473 fused; users 385 / 257 /
+    193."""
+    w = _acf_widths()
+    assert [w[("items", md, False)] for md in ("float32", "bfloat16", "float8")] == [
+        769, 513, 385]
+    assert [w[("items", md, True)] for md in ("float32", "bfloat16", "float8")] == [
+        25857, 25601, 25473]
+    assert {w[("users", md, f)] for md in ("float32", "bfloat16", "float8")
+            for f in (False, True)} == {385, 257, 193}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned16", "aligned4"])
+@pytest.mark.parametrize("width", [769, 513, 25857, 25601, 25473])
+def test_row_kernels_at_acf_widths_on_card(cuda_device, width, offset):
+    """K4 on bulk_lanes (every ACF item width is 1 mod 4) and K5 at ACF's
+    item rows, bit-equal to their plain versions, pads and out-of-range
+    ids included."""
+    R, B = 300, 200
+    table = _bit_table(cuda_device, R, width, seed=width, offset=offset)
+    plan = _gather_checked(table, _gather_ids(cuda_device, R, B, width))
+    assert plan.route == "bulk_lanes"
+    g = torch.Generator(device=cuda_device).manual_seed(width + 3)
+    uids = torch.randperm(R, device=cuda_device, generator=g)[:B].to(torch.int32)
+    uids[-40:] = 2**30
+    uids[:2] = torch.tensor([-1, R], dtype=torch.int32)
+    vals = _bit_table(cuda_device, B, width, seed=width + 1, offset=offset)
+    kern, plain = table.clone(), table.clone()
+    before = K5.scatter_rows_set.launches
+    K5.scatter_rows_set(kern, uids, vals)
+    torch.cuda.synchronize()
+    K5.scatter_rows_set_reference(plain, uids, vals)
+    assert torch.equal(_bits(kern), _bits(plain))
+    assert K5.scatter_rows_set.launches == before + 1
+
+
 def _gather_checked(table, ids, route=None):
     """K4 on (table, ids), bit-equal to its plain version, one launch on the
     route its plan names (none for B = 0); returns the plan."""
@@ -1020,3 +1080,70 @@ def test_attentive_fashion_packed_step_on_card(cuda_device):
             live = torch.sqrt(v / bc2) >= 10 * 1e-7
             torch.testing.assert_close(got[k].cpu()[live], want[k][live], rtol=2e-4,
                                        atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "by-id"])
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_acf_packed_step_on_card(cuda_device, moment_dtype, fused):
+    """The packed ACF step on the card runs 5 K4 (the extra item rows
+    among them) and 2 K5 a step, and matches the same step on CPU copies:
+    losses rtol 1e-5, tau, Fspat and untouched rows bit-equal, touched
+    rows and the dense attention as the packed BPRMF card test holds
+    them."""
+    from fashionvisualexpl_tpu_torch.models.acf import ACF
+
+    U, I, B, lr, steps = 60, 50, 32, 0.01, 3
+    rng = np.random.default_rng(7)
+    pos = rng.integers(0, I, (U, 6)).astype(np.int32)
+    cnt = rng.integers(0, 7, U).astype(np.int32)
+    spat = rng.normal(size=(I, 9, 16)).astype(np.float32)
+    models = [ACF(U, I, spat, padded_positives=pos, positive_counts=cnt, embed_k=16,
+                  layers_component=(8, 1), layers_item=(8, 1), device=d,
+                  generator=torch.Generator(device=d).manual_seed(5))
+              for d in (cuda_device, "cpu")]
+    with torch.no_grad():
+        for a, b in zip(models[0].parameters(), models[1].parameters()):
+            b.copy_(a.cpu())
+    frozen = [dict(m.named_buffers()) for m in models]
+    states = [PG.pack_generic_state(m, dict(m.named_parameters()),
+                                    frozen=fr if fused else None, moment_dtype=moment_dtype)
+              for m, fr in zip(models, frozen)]
+    step = [PG.make_generic_packed_step(m, lr, 0.01, fused_frozen=fused,
+                                        moment_dtype=moment_dtype, lazy_catchup=True)
+            for m in models]
+    before = (K4.gather_rows.launches, K5.scatter_rows_set.launches)
+    for _ in range(steps):
+        ids = tuple(torch.as_tensor(rng.integers(0, hi, B), dtype=torch.int32)
+                    for hi in (U, I, I))
+        losses = []
+        for i, dev in enumerate((cuda_device, "cpu")):
+            states[i], loss = step[i](states[i], (frozen[i], tuple(x.to(dev) for x in ids),
+                                                  None))
+            losses.append(loss.cpu())
+        torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=0.0)
+    torch.cuda.synchronize()
+    assert (K4.gather_rows.launches - before[0],
+            K5.scatter_rows_set.launches - before[1]) == (5 * steps, 2 * steps)
+    for name, w in (("user_pmv", 16), ("item_pmv", 32)):  # Gu; Gi | Pi
+        a, b = getattr(states[0], name).cpu(), getattr(states[1], name)
+        keep = w + PG._mom_width(moment_dtype, w)  # the fused maps and tau follow
+        assert torch.equal(_bits(a[:, keep:]), _bits(b[:, keep:]))
+        untouched = b[:, -1] == 0  # tau, the last column
+        assert torch.equal(_bits(a[untouched]), _bits(b[untouched]))
+        code = {"float32": 0.0, "bfloat16": 2.0**-7}[moment_dtype]
+        for x, y, drift in zip(_decoded(a, w, moment_dtype, keep)[:3],
+                               _decoded(b, w, moment_dtype, keep)[:3],
+                               (2 * lr * steps, 0.0, 0.0)):
+            err = (x - y).abs()
+            beyond = ~(err <= 1e-6 + 2e-4 * y.abs())
+            assert int(beyond.sum()) <= 1e-3 * y.numel(), name
+            assert bool((err[beyond] <= drift + code * y.abs()[beyond] + 1e-6).all()), name
+    bc2 = 1.0 - 0.999**steps
+    for name in ("comp", "item"):
+        for (p_k, p_c), (_, v_c) in zip(zip(states[0].dense[name][0].values(),
+                                            states[1].dense[name][0].values()),
+                                        zip(states[0].dense[name][2].values(),
+                                            states[1].dense[name][2].values())):
+            live = torch.sqrt(v_c / bc2) >= 10 * 1e-7
+            torch.testing.assert_close(p_k.cpu()[live], p_c[live], rtol=2e-4, atol=1e-5)

@@ -95,9 +95,11 @@ def test_gather_rejects_what_it_does_not_take():
 # Every width the packed paths gather (floats): BPRMF rows with fp32 / bf16
 # / fp8 moments (385 / 388 at row_align 1 / 4, 257 / 259, 193 / 195), VBPR's
 # and GradFashion's user rows (445 fp32, 297 bf16) and item rows with their
-# frozen columns fused (4484 / 4996 fp32, 4355 / 4867 bf16), and the JAX
-# bench's 128; with the route each takes between 16-byte-aligned tensors
-# and from a table whose base is 4 bytes past a 16-byte boundary.
+# frozen columns fused (4484 / 4996 fp32, 4355 / 4867 bf16), ACF's item rows
+# at K=128 ([Gi | Pi | moments | tau]: 769 / 513 / 385 at fp32 / bf16 / fp8
+# moments; with its 7x7x512 spatial maps fused 25857 / 25601 / 25473), and
+# the JAX bench's 128; with the route each takes between 16-byte-aligned
+# tensors and from a table whose base is 4 bytes past a 16-byte boundary.
 MAIN_WIDTHS = {
     385: ("lanes4", "lanes4"), 388: ("lanes16", "lanes4"),
     257: ("lanes4", "lanes4"), 259: ("lanes4", "lanes4"),
@@ -105,6 +107,9 @@ MAIN_WIDTHS = {
     445: ("lanes4", "lanes4"), 297: ("lanes4", "lanes4"),
     4484: ("bulk_store", "bulk_lanes"), 4996: ("bulk_store", "bulk_lanes"),
     4355: ("bulk_lanes", "bulk_lanes"), 4867: ("bulk_lanes", "bulk_lanes"),
+    769: ("bulk_lanes", "bulk_lanes"), 513: ("bulk_lanes", "bulk_lanes"),
+    25857: ("bulk_lanes", "bulk_lanes"), 25601: ("bulk_lanes", "bulk_lanes"),
+    25473: ("bulk_lanes", "bulk_lanes"),
     128: ("lanes16", "lanes4"),
 }
 
@@ -130,7 +135,10 @@ def test_plan_routes_of_main_path_widths(width, aligned):
     assert plan.route == MAIN_WIDTHS[width][0 if aligned else 1]
     if plan.route.startswith("bulk"):
         assert plan.piece_bytes % 16 == 0 and 2 <= plan.param <= G.MAX_STAGES
-        assert -(-4 * width // plan.piece_bytes) >= 2  # wide rows go in pieces
+        largest = G.BULK_GEOMETRY[plan.route][0]
+        pieces = -(-4 * width // plan.piece_bytes)
+        assert pieces == -(-4 * width // largest)  # as few as the largest piece allows
+        assert (pieces >= 2) == (4 * width > largest)  # rows wider than it go in pieces
     else:  # loads enough for the whole row in one trip
         word = int(plan.route[len("lanes"):])
         assert plan.piece_bytes == 0 and plan.param in (2, 4, 8, 16)

@@ -19,6 +19,14 @@ packed checkpoints) vs the JAX package, on the CPU.
 - full coverage (``tests/test_packed_generic.py:158-231``): when every row
   is touched every step the packed step equals the port's generic Trainer
   (rtol 2e-5, atol 1e-5, the JAX test's);
+- ACF's extra item rows (``packed_extra_item_ids``: each user's padded
+  positives, padded slots on the batch element's own positive) over 3
+  steps against JAX's: fp32 / bf16 / fp8 moments x the spatial maps fused
+  into the item rows or read by id x catch-up on (row_align 128) / off
+  (row_align 1), a zero-positive user among them: losses rtol 1e-5,
+  states rtol 2e-4, atol 1e-6, the fused Fspat columns, tau and pads
+  bit-equal; the extra ids bit-equal; fused bit-equal to unfused; full
+  coverage as above; ``fit(train_path="packed")`` trains;
 - ``Trainer(train_path="packed")`` from JAX's packed init, fed JAX's sampler
   draws, against JAX's ``Trainer``: losses rtol 1e-5, params rtol 2e-4,
   atol 1e-6;
@@ -35,6 +43,7 @@ from fashionvisualexpl_tpu.core.config import TrainConfig as JTrainConfig
 from fashionvisualexpl_tpu.data import sampler as jsampler
 from fashionvisualexpl_tpu.data.features import synthetic_features
 from fashionvisualexpl_tpu.data.interactions import synthetic_interactions as jsynth
+from fashionvisualexpl_tpu.models.acf import ACF as JACF
 from fashionvisualexpl_tpu.models.attentive_fashion import AttentiveFashion as JAF
 from fashionvisualexpl_tpu.models.bprmf import BPRMF as JBPRMF
 from fashionvisualexpl_tpu.train import packed as jpacked
@@ -46,6 +55,7 @@ from fashionvisualexpl_tpu_torch.data.interactions import synthetic_interactions
 from fashionvisualexpl_tpu_torch.models.base import PackedSpec, RecommenderModel
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 from fashionvisualexpl_tpu_torch.models.convert import (
+    acf_from_jax,
     attentive_fashion_from_jax,
     bprmf_from_jax,
     flatten_params,
@@ -265,8 +275,9 @@ def _batches(rng, B, n, full_coverage=False, Un=U, In=I):
         yield tuple(np.asarray(a, np.int32) for a in (u, p, rng.integers(0, In, B)))
 
 
-def _decoded(table, W, md, tau):
-    """(p, m, v, tau, pads) of a packed table (numpy), decoded by the port."""
+def _decoded(table, W, md, tau, mid_end):
+    """(p, m, v, the scalar groups, the fused frozen columns, tau, pads) of
+    a packed table (numpy), decoded by the port."""
     t = torch.from_numpy(np.array(table))
     mw = tpg._mom_width(md, W)
     cols = t[:, W:W + mw]
@@ -278,21 +289,23 @@ def _decoded(table, W, md, tau):
         m, v = tpg._mv_unpack_fp8(cols, W)
     return {"p": t[:, :W].numpy(), "m": m.numpy(), "v": v.numpy(),
             "tau": t[:, tau].numpy(), "pads": t[:, tau + 1:].numpy(),
-            "mid": t[:, W + mw:tau].numpy()}
+            "mid": t[:, W + mw:mid_end].numpy(), "frozen": t[:, mid_end:tau].numpy()}
 
 
-def _assert_packed_close(got, want, spec, md):
-    (_, Wu), (_, Wi) = spec.user_tables[0], spec.item_tables[0]
+def _assert_packed_close(got, want, spec, md, fused=False):
+    Wu, Wi = (sum(w for _, w in tables) for tables in (spec.user_tables, spec.item_tables))
     nS = len(spec.item_scalars)
     tau_u = Wu + tpg._mom_width(md, Wu)
-    tau_i = Wi + tpg._mom_width(md, Wi) + tpg._scalar_group(md) * nS
-    for name, W, tau in (("user_pmv", Wu, tau_u), ("item_pmv", Wi, tau_i)):
-        a = _decoded(getattr(got, name).numpy(), W, md, tau)
-        b = _decoded(np.asarray(getattr(want, name)), W, md, tau)
+    F0 = Wi + tpg._mom_width(md, Wi) + tpg._scalar_group(md) * nS
+    tau_i = F0 + (sum(w for _, w in spec.frozen_item_tables) if fused else 0)
+    for name, W, tau, mid_end in (("user_pmv", Wu, tau_u, tau_u), ("item_pmv", Wi, tau_i, F0)):
+        a = _decoded(getattr(got, name).numpy(), W, md, tau, mid_end)
+        b = _decoded(np.asarray(getattr(want, name)), W, md, tau, mid_end)
         for key in ("p", "m", "v"):
             np.testing.assert_allclose(a[key], b[key], err_msg=f"{name} {key}", **STATE_TOL)
         _eq_bits(a["tau"], b["tau"], f"{name} tau")
         _eq_bits(a["pads"], b["pads"], f"{name} pads")
+        _eq_bits(a["frozen"], b["frozen"], f"{name} frozen columns")
         if md == "float32":  # the item scalar groups [p | m | v]
             np.testing.assert_allclose(a["mid"], b["mid"], err_msg=f"{name} scalars",
                                        **STATE_TOL)
@@ -403,6 +416,126 @@ def test_bprmf_packed_equals_generic_under_full_coverage():
 
 def test_attentive_fashion_packed_equals_generic_under_full_coverage():
     _full_coverage(_jax_af(False, U_=6, I_=8)[3], 16, 4, seed=13)
+
+
+# --- ACF: the extra item rows ---------------------------------------------
+
+UX, IX, SX, CX, KX, PX = 20, 24, 3, 5, 6, 6
+
+
+def _jax_acf(seed=0, U_=UX, I_=IX, blank=3):
+    """(JAX ACF, params, frozen, the port's ACF): 4 train positives a user
+    under a cap of 6 (two padded slots), user ``blank`` with none."""
+    spat = np.random.default_rng(9 + seed).normal(size=(I_, SX, CX)).astype(np.float32)
+    kw = dict(embed_k=KX, layers_component=(4, 1), layers_item=(4, 1), max_user_pos=PX)
+    jm = JACF(U_, I_, spat, jsynth(U_, I_, interactions_per_user=6, seed=seed), **kw)
+    params, frozen = jm.init(jax.random.PRNGKey(seed))
+    model = acf_from_jax(_np(params), spat,
+                         synthetic_interactions(U_, I_, interactions_per_user=6, seed=seed),
+                         max_user_pos=PX, device="cpu")
+    if blank is not None:
+        for k in ("pos_train", "cnt_train"):
+            frozen[k] = frozen[k].at[blank].set(0)
+            getattr(model, k)[blank] = 0
+    return jm, params, frozen, model
+
+
+def test_acf_extra_item_ids_are_bit_equal():
+    jm, _, frozen, model = _jax_acf()
+    rng = np.random.default_rng(1)
+    u = np.concatenate([[3], rng.integers(0, UX, 15)]).astype(np.int32)
+    p, n = (rng.integers(0, IX, 16).astype(np.int32) for _ in range(2))
+    want = np.asarray(jm.packed_extra_item_ids(frozen, tuple(map(jnp.asarray, (u, p, n)))))
+    got = model.packed_extra_item_ids(dict(model.named_buffers()), (_t(u), _t(p), _t(n)))
+    assert got.dtype == torch.int32 and got.shape == (16, PX)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[0] == p[0]).all() and (got[1:, 4:] == _t(p[1:, None])).all()
+
+
+ACF_CASES = [(md, fused, catchup) for md in ("float32", "bfloat16", "float8")
+             for fused in (True, False) for catchup in (True, False)]
+
+
+@pytest.mark.parametrize("moment_dtype,fused,catchup", ACF_CASES,
+                         ids=[f"{m}-{'fused' if f else 'by-id'}-{'catchup' if c else 'plain'}"
+                              for m, f, c in ACF_CASES])
+def test_acf_packed_step_matches_jax(moment_dtype, fused, catchup):
+    row_align = 128 if catchup else 1
+    jm, params, frozen, model = _jax_acf(seed=2)
+    fr = dict(model.named_buffers())
+    jstate = jpg.pack_generic_state(jm, params, frozen=frozen if fused else None,
+                                    moment_dtype=moment_dtype, row_align=row_align)
+    state = tpg.pack_generic_state(model, dict(model.named_parameters()),
+                                   frozen=fr if fused else None, moment_dtype=moment_dtype,
+                                   row_align=row_align)
+    _assert_tables_bit_equal(state, jstate)
+    assert state.item_pmv.shape[1] % row_align == 0
+    if fused:  # the maps ride the item rows, bit for bit
+        F0 = 2 * KX + tpg._mom_width(moment_dtype, 2 * KX)
+        _eq_bits(state.item_pmv[:, F0:F0 + SX * CX], fr["Fspat"].reshape(IX, -1).numpy())
+    jstep = jax.jit(jpg.make_generic_packed_step(jm, LR, 0.01, fused_frozen=fused,
+                                                 moment_dtype=moment_dtype,
+                                                 lazy_catchup=catchup))
+    step = tpg.make_generic_packed_step(model, LR, 0.01, fused_frozen=fused,
+                                        moment_dtype=moment_dtype, lazy_catchup=catchup)
+    rng = np.random.default_rng(3)
+    for s_, (u, p, n) in enumerate(_batches(rng, 16, 3, Un=UX, In=IX)):
+        u[0] = 3  # the zero-positive user
+        jstate, jl = jstep(jstate, (frozen, tuple(map(jnp.asarray, (u, p, n))), None))
+        state, tl = step(state, (fr, (_t(u), _t(p), _t(n)), None))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, err_msg=f"step {s_}")
+    _assert_packed_close(state, jstate, model.packed_spec(), moment_dtype, fused=fused)
+
+
+def test_acf_fused_frozen_equals_unfused():
+    """tests/test_packed_generic.py:429 on the port: the maps read out of
+    the extra rows give the bits of the maps read by id."""
+    _, _, _, model = _jax_acf(seed=4)
+    params, fr = dict(model.named_parameters()), dict(model.named_buffers())
+    fused = tpg.pack_generic_state(model, params, frozen=fr)
+    plain = tpg.pack_generic_state(model, params)
+    f_step, p_step = (tpg.make_generic_packed_step(model, 0.05, 0.01, fused_frozen=f)
+                      for f in (True, False))
+    for u, p, n in _batches(np.random.default_rng(5), 16, 4, Un=UX, In=IX):
+        fused, fl = f_step(fused, (fr, (_t(u), _t(p), _t(n)), None))
+        plain, pl = p_step(plain, (fr, (_t(u), _t(p), _t(n)), None))
+        assert float(fl) == float(pl)
+    F0, fw = plain.item_pmv.shape[1] - 1, SX * CX
+    _eq_bits(fused.user_pmv, plain.user_pmv.numpy())
+    _eq_bits(fused.item_pmv[:, :F0], plain.item_pmv[:, :F0].numpy())
+    _eq_bits(fused.item_pmv[:, F0 + fw:], plain.item_pmv[:, F0:].numpy())
+    _eq_bits(fused.item_pmv[:, F0:F0 + fw], fr["Fspat"].reshape(IX, -1).numpy())
+    for name in ("comp", "item"):
+        for x, y in zip(fused.dense[name], plain.dense[name]):
+            for k in x:
+                _eq_bits(x[k], y[k].numpy(), f"{name}.{k}")
+
+
+def test_acf_packed_equals_generic_under_full_coverage():
+    """tests/test_packed_generic.py:234 on the port."""
+    _full_coverage(_jax_acf(U_=6, I_=8, blank=None)[3], 16, 4, seed=17)
+
+
+def test_fit_packed_acf():
+    """tests/test_packed_generic.py:251 on the port."""
+    from fashionvisualexpl_tpu_torch.eval.evaluator import Evaluator
+    from fashionvisualexpl_tpu_torch.models.acf import ACF
+
+    data = synthetic_interactions(24, 30, interactions_per_user=6, seed=0)
+    spat = np.random.default_rng(4).normal(size=(30, 3, 6)).astype(np.float32)
+    model = ACF(24, 30, spat, data, embed_k=6, layers_component=(4, 1), layers_item=(4, 1),
+                max_user_pos=6, device="cpu")
+    cfg = TrainConfig(batch_size=24, epochs=4, lr=0.01, reg=0.001, top_k=5,
+                      train_path="packed", eval_every=4)
+    state, frozen, results, extra = fit(model, data, cfg,
+                                        evaluator=Evaluator(model, data, k=5, user_block=32))
+    history = extra["history"]
+    assert history[-1].loss < history[0].loss and results
+    assert isinstance(state, tpg.GenericPackedTrainState)
+    assert state.inner.item_pmv.shape[1] == 3 * 12 + 1 + 18  # Gi|Pi, m, v, tau, Fspat
+    with torch.no_grad():
+        s = model.score(torch.tensor([0, 1]), torch.tensor([2, 3]), params=state.params)
+    assert s.shape == (2,) and torch.isfinite(s).all()
 
 
 # --- the Trainer, fit and checkpoints ------------------------------------
@@ -592,12 +725,43 @@ class _WithFrozen(_WithExtras):
                 + frozen_vw["pos"]["F"].sum() * 0)
 
 
+class _WithExtraRows(_WithExtras):
+    """BPRMF declaring 3 extra item rows a batch element (the three items
+    after its positive) whose Gi its packed loss adds to the score."""
+
+    def __init__(self):
+        super().__init__(extra_items=3)
+        self.seen = []
+
+    def packed_extra_item_ids(self, frozen, ids):
+        return ((ids[1][:, None] + torch.arange(1, 4)) % 8).to(torch.int32)
+
+    def packed_loss(self, user_vw, pos_vw, neg_vw, dense, frozen, ids, reg, rng=None,
+                    extra_vw=None):
+        self.seen.append(tuple(extra_vw["Gi"].shape))
+        return (super().packed_loss(user_vw, pos_vw, neg_vw, dense, frozen, ids, reg, rng)
+                + (extra_vw["Gi"].sum(1) * user_vw["Gu"]).sum())
+
+
 def test_unported_branches_raise_naming_their_items():
     data = synthetic_interactions(4, 4, interactions_per_user=2, seed=0)
     with pytest.raises(NotImplementedError, match="does not implement"):
         Trainer(_NoPacked(), data, TrainConfig(batch_size=2, train_path="packed"))
-    with pytest.raises(NotImplementedError, match="ROADMAP: ACF"):
-        tpg.make_generic_packed_step(_WithExtras(extra_items=3), 0.01, 0.0)
+    # a spec with extra_items steps: the extra rows are read, differentiated
+    # and written back through the item dedupe (ACF's parity: the ACF tests
+    # above)
+    extra = _WithExtraRows()
+    state = tpg.pack_generic_state(extra, dict(extra.named_parameters()))
+    before = state.item_pmv.clone()
+    ids = (_t(np.array([0, 5], np.int32)), _t(np.array([1, 7], np.int32)),
+           _t(np.array([2, 2], np.int32)))
+    state, loss = tpg.make_generic_packed_step(extra, 0.01, 0.0)(state, (None, ids, None))
+    assert np.isfinite(float(loss)) and extra.seen == [(2, 3, 2)]
+    touched = torch.zeros(8, dtype=torch.bool)
+    touched[[0, 1, 2, 3, 4, 7]] = True  # pos, neg and the extra rows 2, 3, 4 / 0, 1, 2
+    assert torch.equal(state.item_pmv[:, -1], touched.float())  # tau
+    assert not torch.equal(state.item_pmv[3, :2], before[3, :2])  # an extra row only
+    assert torch.equal(state.item_pmv[~touched], before[~touched])
     # a model declaring frozen item tables packs them and steps (VBPR's and
     # GradFashion's parity: test_torch_vbpr.py, test_torch_grad_fashion.py)
     frozen_model = _WithFrozen()

@@ -5,7 +5,8 @@ ids routed out of range), bit for bit (tables compared as uint32).
 
 Cases: the four of ``tests/test_row_scatter.py`` (random unique ids, ids
 out of range and negative, a batch padded internally, the JAX wrapper's
-off-TPU path), the packed rows' odd widths with random bit patterns, and
+off-TPU path), the packed rows' widths (ACF's included) with random bit
+patterns, and
 the in-place contract (the table itself is written and returned).  The
 CUDA kernel is held against this plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
@@ -80,7 +81,11 @@ def test_scatter_matches_the_jax_off_tpu_path():
     np.testing.assert_array_equal(_bits(_port(table, ids, vals)), _bits(want))
 
 
-@pytest.mark.parametrize("width", [385, 388, 257, 259, 193, 195])
+# BPRMF's rows, VBPR's and GradFashion's user rows (445, 297) and ACF's
+# item rows (769 / 513 unfused at fp32 / bf16 moments, 25857 / 25601 /
+# 25473 with the 7x7x512 spatial maps fused)
+@pytest.mark.parametrize("width", [385, 388, 257, 259, 193, 195, 445, 297, 769, 513, 25857,
+                                   25601, 25473])
 def test_packed_row_widths_write_bits(width):
     rng = np.random.default_rng(width)
 
