@@ -84,7 +84,8 @@ Phases, each of which raises on a failure (nothing is swallowed):
    packed rows' widths (385, 388, 257, 259, 193, 195, 512) for 8192 and
    16384 rows of a 1M-row table of random bit patterns; then timed at the
    JAX benches' shapes beside their bounds, plain versions and
-   ``torch.index_select`` / ``Tensor.index_copy_``; K4 also at 16,384 rows
+   ``torch.index_select`` / ``Tensor.index_copy_``, each on the route its
+   plan names (``gather_plan`` / ``scatter_plan``); K4 also at 16,384 rows
    of every narrow width the packed paths gather (BPRMF's 385 ... 195,
    VBPR's and GradFashion's user rows 445 and 297) over 1M-row tables,
    cold and warm, each on the route its plan names (a lanes route),
@@ -95,11 +96,12 @@ Phases, each of which raises on a failure (nothing is swallowed):
    lazy_catchup).  3 steps on the card against the same 3 steps on CPU
    copies (the plain route), and again without catch-up and with bf16 and
    fp8 moments; one epoch of 200 steps (4 K4 + 2 K5 launches a step) with
-   triples/s, ms per step and peak memory; a profile of 10 steps (K4's and
-   K5's share of device time, the idle share).  AttentiveFashion at its
-   training configuration (1M x 200k): 2 steps against the CPU route at
-   batch 1024 (the CPU's plain tower at 8192 would take minutes), then 20
-   steps at batch 8192 through K4, K5 and K7;
+   triples/s, ms per step and peak memory, K4's and K5's launches by route
+   (K5's: each table's writes on the route its plan names); a profile of
+   10 steps (K4's and K5's share of device time, the idle share).
+   AttentiveFashion at its training configuration (1M x 200k): 2 steps
+   against the CPU route at batch 1024 (the CPU's plain tower at 8192
+   would take minutes), then 20 steps at batch 8192 through K4, K5 and K7;
 15. packed CLI: ``train_rec --train_path packed`` on the CLI dataset, then
    ``serve_rec`` from its checkpoint;
 16. VBPR's and GradFashion's shapes (the JAX CLI's default widths: K=128,
@@ -112,8 +114,8 @@ Phases, each of which raises on a failure (nothing is swallowed):
    off the tiles) and timed at
    the evaluator's block (4096 x 500k); K4 and K5 bit-equal at the fused
    row widths (from ``packed_spec``, fp32 and bf16 moments) and timed at
-   24,576 rows of a 500k-row table, K4 also at 16,384 rows of the four
-   item widths (4355, 4867, 4484, 4996), each on its bulk route; each
+   24,576 rows of a 500k-row table (both on a bulk route), K4 also at
+   16,384 rows of the four item widths (4355, 4867, 4484, 4996); each
    timed phase with the L2 flushed;
 17. VBPR at full width over the evaluation phase's 1M users x 500k items
    and its data: the packed route with the frozen columns fused (3 steps
@@ -150,8 +152,9 @@ Phases, each of which raises on a failure (nothing is swallowed):
    ``serve_rec`` on a 2048 x 2048 dataset with 7x7x512 ``.npy`` maps
    written here; K4 and K5 at ACF's item rows (769, 513, 25,857, 25,601,
    25,473 floats over 200k rows, at 163,840 and 16,384 rows) and K5 at
-   every narrow packed width, beside ``index_select`` / ``index_copy_`` and
-   their bounds.
+   every narrow packed width, each on the route its plan names, beside
+   ``index_select`` / ``index_copy_`` and their bounds; the rows where K5
+   trails ``index_copy_`` or reaches under half its bound are printed.
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -716,9 +719,11 @@ def kernel_times(torch, label, fn, iters: int, flush):
     launch gaps left out, averaged over the calls recorded whole.  The
     profiler can lose kernel records (see ``lead_in``).  So the profile is
     cut at the flushes into calls, and only the calls whose kernels (names
-    and numbers) match those of most calls count; a profile where fewer
-    than a majority of the calls match is taken again,
-    at most PROFILE_ATTEMPTS times.  ``call_ms``: CUDA events around each
+    and numbers) match those of most calls count, and of those only the
+    ones whose kernel records are each at least half that kernel's median
+    over the profile (the profiler has also cut records short: PERF.md
+    §6, PR 17); a profile where fewer than a majority of the calls count is
+    taken again, at most PROFILE_ATTEMPTS times.  ``call_ms``: CUDA events around each
     call, which also holds the host's launch cost when the kernels are
     shorter than it.  ``kernels``: each kernel a whole call launched, by
     name, as (launches a call, mean ms a call)."""
@@ -754,7 +759,22 @@ def kernel_times(torch, label, fn, iters: int, flush):
         if cur:
             calls.append(cur)
         kinds = [tuple(sorted(Counter(n for n, _ in c).items())) for c in calls]
-        kind, whole = Counter(kinds).most_common(1)[0] if kinds else ((), 0)
+        kind = Counter(kinds).most_common(1)[0][0] if kinds else ()
+        same = [c for c, k in zip(calls, kinds) if k == kind]
+        totals = [Counter() for _ in same]
+        for total, c in zip(totals, same):
+            for name, us in c:
+                total[name] += us
+        # a kernel record under half the same kernel's median over the
+        # profile's calls was cut short by the profiler, not run faster: a
+        # bulk-copy kernel read so had CUDA events at its usual time
+        median = {n: statistics.median(t[n] for t in totals) for n in dict(kind)} if same else {}
+        kept = [t for t in totals if all(t[n] >= median[n] / 2 for n in median)]
+        if len(kept) < len(same):
+            print(f"{label}: profile {attempt} recorded {len(same) - len(kept)} of {iters} calls "
+                  f"under half the median ({ {n: m / 1e3 for n, m in median.items()} } ms): "
+                  f"{[{n: t[n] / 1e3 for n in median} for t in totals if t not in kept]}")
+        whole = len(kept)
         if whole < iters:
             lost = LEAD_KERNELS + iters * (1 + sum(n for _, n in kind)) - len(events)
             letters = {}
@@ -765,11 +785,7 @@ def kernel_times(torch, label, fn, iters: int, flush):
                   f"the order they ran: {order}; "
                   f"{ {c: n[:48] for n, c in letters.items()} })")
         if 2 * whole > iters:
-            per_name = Counter()
-            for c, k in zip(calls, kinds):
-                if k == kind:
-                    for name, us in c:
-                        per_name[name] += us
+            per_name = sum(kept, Counter())
             kernels = {n: (dict(kind)[n], us / whole / 1e3) for n, us in per_name.items()}
             return sum(per_name.values()) / whole / 1e3, call_ms, kernels
     fail(f"{label}: torch.profiler lost kernel records in {PROFILE_ATTEMPTS} profiles")
@@ -2157,6 +2173,23 @@ def rows_bound(B: int, W: int):
     return bound_ms(4 * (2 * B * W + B), 0, PEAK_F32_FLOPS)
 
 
+def scatter_routes(S, label, launched, steps=0, tables=()):
+    """K5's launches by route since its counts were set to 0: they add up
+    to its ``launched`` launches, and with ``tables`` (a packed state's
+    user and item tables, each written once a step from rows the step has
+    just made, so 16-byte aligned) each table's ``steps`` writes take the
+    route its plan names.  Returns them."""
+    routes = dict(S.scatter_rows_set.routes)
+    want = {}
+    for table in tables:
+        r = S.scatter_plan(table.shape[1], table.data_ptr(), 0).route
+        want[r] = want.get(r, 0) + steps
+    if sum(routes.values()) != launched or (tables and routes != want):
+        fail(f"{label}: K5 launched {launched} times, by route {routes}"
+             + (f", expected {want}" if tables else ""))
+    return routes
+
+
 def gather_timed(torch, G, label, table, ids, flush, warm=False):
     """K4 at one shape: bit-equal to its plain version on the route its
     plan names (a bulk route for rows of BULK_MIN_BYTES or more, a lanes
@@ -2273,25 +2306,30 @@ def row_kernel_phase(torch, G, S):
     sids64 = torch.randperm(R, device=dev, generator=g)[:B]
     sids = sids64.to(torch.int32)
     vals = torch.randn(B, W, device=dev, generator=g)
+    splan = S.scatter_plan(W, stable.data_ptr(), vals.data_ptr())
+    before = S.scatter_rows_set.routes[splan.route]
     err = float((S.scatter_rows_set(stable.clone(), sids, vals)
                  - S.scatter_rows_set_reference(stable.clone(), sids, vals)).abs().max())
+    if S.scatter_rows_set.routes[splan.route] != before + 1:
+        fail(f"scatter at the JAX bench's shape left {splan.route}: "
+             f"{dict(S.scatter_rows_set.routes)}")
     runs = (lambda: S.scatter_rows_set(stable, sids, vals),
             lambda: S.scatter_rows_set_reference(stable, sids, vals),
             lambda: stable.index_copy_(0, sids64, vals))
     rows["scatter_rows_set"] = (err, runs, rows_bound(B, W), f"R={R} W={W} B={B} f32, cold L2",
                                 "Tensor.index_copy_ (int64 ids)")
     out = {}
+    route = {"gather_rows": "lanes16", "scatter_rows_set": splan.route}
     for name, (err, (run, plain, lib), (b, by), shape, library) in rows.items():
         ms, call_ms, _ = kernel_times(torch, name, run, 20, flush)
         plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, 10, flush)
         lib_ms, _, _ = kernel_times(torch, f"{name} library", lib, 20, flush)
         check_bound(name, ms, b)
-        out[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=lib_ms, shape=shape,
-                         library=library)
-        print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
+        out[name] = dict(route=route[name], max_abs_err=err, ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms,
+                         shape=shape, library=library)
+        print(f"kernel time {name} {shape} ({route[name]}): ms={ms!r} call_ms={call_ms!r} "
               f"plain_ms={plain_ms!r} library_ms({library})={lib_ms!r} bound_ms={b!r} ({by})")
-    out["gather_rows"]["route"] = "lanes16"
     del table, stable, vals
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2402,21 +2440,27 @@ def fused_row_phase(torch, G, S, bits, flush):
                 if G.gather_rows.routes["bulk_store"] != before.get("bulk_store", 0) + 1:
                     fail(f"gather at W={W} B={B} left bulk_store: {dict(G.gather_rows.routes)}")
             else:  # the scattered rows, read back, against the values
+                plan = S.scatter_plan(W, table.data_ptr(), vals.data_ptr())
+                before = S.scatter_rows_set.routes[plan.route]
                 run()
                 err = float((table[sids64] - vals).abs().max())
+                if S.scatter_rows_set.routes[plan.route] != before + 1 \
+                        or not plan.route.startswith("bulk"):
+                    fail(f"scatter at W={W} B={B} left {plan.route}: "
+                         f"{dict(S.scatter_rows_set.routes)}")
             ms, call_ms, _ = kernel_times(torch, f"{name} W={W}", run, 20, flush)
             plain_ms, _, _ = kernel_times(torch, f"{name} plain W={W}", plain, 10, flush)
             lib_ms, _, _ = kernel_times(torch, f"{name} library W={W}", lib, 20, flush)
             b, by = rows_bound(B, W)
             check_bound(f"{name} W={W}", ms, b)
             shape = f"R={R} W={W} ({label}) B={B} f32, cold L2"
-            out[label][name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                                    bound_ms=b, bound_by=by, library_ms=lib_ms, shape=shape,
-                                    library=library)
-            print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
+            route = "bulk_store" if name == "gather_rows" else plan.route
+            out[label][name] = dict(route=route, max_abs_err=err, ms=ms, call_ms=call_ms,
+                                    plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                    library_ms=lib_ms, shape=shape, library=library)
+            print(f"kernel time {name} {shape} ({route}): ms={ms!r} call_ms={call_ms!r} "
                   f"plain_ms={plain_ms!r} library_ms({library})={lib_ms!r} bound_ms={b!r} "
-                  f"({by})")
-        out[label]["gather_rows"]["route"] = "bulk_store"
+                  f"({by}, {100 * b / ms:.1f}%)")
         del table, vals
         torch.cuda.empty_cache()
     out["gather_grid"] = {}
@@ -2595,7 +2639,8 @@ def step_profile(torch, label, run, triples, n: int):
     busy = sum(us for us, _, _ in ops)
     share = {k: sum(us for us, key, _ in ops if any(t in key for t in tags)) / busy
              for k, tags in (("k4", ("gather_lanes_kernel", "gather_bulk_kernel")),
-                             ("k5", ("scatter_rows_kernel",)), ("k7", ("edge_",)))}
+                             ("k5", ("scatter_lanes_kernel", "scatter_bulk_kernel")),
+                             ("k7", ("edge_",)))}
     out = dict(steps=n, wall_ms_per_step=wall_us / 1e3 / n, device_ms_per_step=busy / 1e3 / n,
                device_ops_per_step=sum(c for _, _, c in ops) / n,
                idle_share=1.0 - busy / wall_us, **{f"{k}_share": v for k, v in share.items()})
@@ -2679,6 +2724,7 @@ def packed_train_phase(torch, np, G, S):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    S.scatter_rows_set.routes.clear()
     G.gather_rows.routes.clear()  # main path starts here
     t0 = time.perf_counter()
     inner, loss = epoch_fn(state.inner, frozen, 100, *tabs)
@@ -2689,6 +2735,8 @@ def packed_train_phase(torch, np, G, S):
     gather_routes = dict(G.gather_rows.routes)
     peak = torch.cuda.max_memory_allocated() - start  # the phase's own peak
     want = {"gather_rows": 4 * PACKED_STEPS, "scatter_rows_set": 2 * PACKED_STEPS}
+    scatter = scatter_routes(S, "packed main path", launches["scatter_rows_set"],
+                             PACKED_STEPS, (inner.user_pmv, inner.item_pmv))
     if launches != want:
         fail(f"packed main path launched {launches}, expected {want}")
     if not np.isfinite(loss) or int(inner.step) != PACKED_STEPS:
@@ -2696,11 +2744,12 @@ def packed_train_phase(torch, np, G, S):
     summary = dict(steps=PACKED_STEPS, s=dt, triples_per_s=PACKED_STEPS * TRAIN_B / dt,
                    ms_per_step=1e3 * dt / PACKED_STEPS, peak_gib=peak / 2**30,
                    start_gib=start / 2**30, mean_loss=loss / PACKED_STEPS, route=route,
-                   gather_routes=gather_routes)
+                   gather_routes=gather_routes, scatter_routes=scatter)
     print(f"packed train main path: {PACKED_STEPS} steps in {dt!r} s (sampling included), "
           f"triples_per_s={summary['triples_per_s']!r} ms_per_step={summary['ms_per_step']!r}"
           f", the phase's own peak {peak / 2**30!r} GiB (allocated when it began "
-          f"{start / 2**30!r}), launches {launches}, K4 routes {gather_routes}")
+          f"{start / 2**30!r}), launches {launches}, K4 routes {gather_routes}, K5 routes "
+          f"{scatter}")
 
     state = state.with_inner(inner)
     summary["profile"] = step_profile(
@@ -2780,6 +2829,7 @@ def af_packed_phase(torch, np, G, S, E):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    S.scatter_rows_set.routes.clear()
     G.gather_rows.routes.clear()
     E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0  # main path starts here
     t0 = time.perf_counter()
@@ -2791,6 +2841,8 @@ def af_packed_phase(torch, np, G, S, E):
                 "edge_tower_fwd": E.edge_tower_fwd.launches,
                 "edge_tower_bwd": E.edge_tower_bwd.launches}  # main path ends here
     gather_routes = dict(G.gather_rows.routes)
+    scatter = scatter_routes(S, "af packed main path", launches["scatter_rows_set"],
+                             AF_PACKED_STEPS, (state.inner.user_pmv, state.inner.item_pmv))
     peak = torch.cuda.max_memory_allocated() - start  # the phase's own peak
     n = AF_PACKED_STEPS
     want = {"gather_rows": 4 * n, "scatter_rows_set": 2 * n, "edge_tower_fwd": 2 * n,
@@ -2802,11 +2854,12 @@ def af_packed_phase(torch, np, G, S, E):
     summary = dict(steps=n, s=dt, ms_per_step=1e3 * dt / n, triples_per_s=n * AF_B / dt,
                    peak_gib=peak / 2**30, start_gib=start / 2**30, mean_loss=loss / n,
                    route_max_abs_err=err,
-                   route_exempt=beyond, route_losses=losses, gather_routes=gather_routes)
+                   route_exempt=beyond, route_losses=losses, gather_routes=gather_routes,
+                   scatter_routes=scatter)
     print(f"af packed main path: {n} steps in {dt!r} s, ms_per_step={summary['ms_per_step']!r}"
           f" triples_per_s={summary['triples_per_s']!r}, the phase's own peak "
           f"{peak / 2**30!r} GiB (allocated when it began {start / 2**30!r}), "
-          f"launches {launches}, K4 routes {gather_routes}")
+          f"launches {launches}, K4 routes {gather_routes}, K5 routes {scatter}")
     summary["profile"] = step_profile(
         torch, "af packed", lambda tr: trainer.run_steps(state, frozen, tr, step_key=300),
         sample_triplets(3, *tabs, AF_I, AF_PROFILE_STEPS, AF_B), AF_PROFILE_STEPS)
@@ -2835,6 +2888,7 @@ def packed_cli_phase(torch, np, counts, segmax, G, S):
     users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
     counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
     G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    S.scatter_rows_set.routes.clear()
     G.gather_rows.routes.clear()  # main path starts here
     t0 = time.perf_counter()
     train(common + ["--train_path", "packed", "--streaming_eval", "--epochs", "2",
@@ -2849,6 +2903,7 @@ def packed_cli_phase(torch, np, counts, segmax, G, S):
                 "counts": counts.counts_kernel.launches,
                 "segmax_scores": segmax.segmax_scores.launches}  # main path ends here
     gather_routes = dict(G.gather_rows.routes)
+    scatter = scatter_routes(S, "packed cli", launches["scatter_rows_set"])
     steps = 2 * (CLI_U * (CLI_PER_USER - 2) // PACKED_CLI_B)
     if (launches["gather_rows"], launches["scatter_rows_set"]) != (4 * steps, 2 * steps) \
             or not all(launches.values()):
@@ -2871,10 +2926,10 @@ def packed_cli_phase(torch, np, counts, segmax, G, S):
             np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
         fail(f"packed CLI: served {n_served} rows, metrics {per_epoch}")
     print(f"packed cli: train_rec {train_s!r} s, serve_rec {serve_s!r} s; launches {launches}"
-          f", K4 routes {gather_routes}; metrics epoch 2 {per_epoch[2]}")
+          f", K4 routes {gather_routes}, K5 routes {scatter}; metrics epoch 2 {per_epoch[2]}")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     return launches, dict(train_s=train_s, serve_s=serve_s, metrics=per_epoch[2],
-                          gather_routes=gather_routes)
+                          gather_routes=gather_routes, scatter_routes=scatter)
 
 
 def vbpr_phase(torch, np, counts, segmax, G, S, data):
@@ -2958,6 +3013,7 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     G.gather_rows.launches = S.scatter_rows_set.launches = 0
+    S.scatter_rows_set.routes.clear()
     G.gather_rows.routes.clear()  # VBPR packed path starts here
     t0 = time.perf_counter()
     inner, loss = epoch_fn(state.inner, frozen, 101, *tabs)
@@ -2966,6 +3022,9 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     launches = {"gather_rows": G.gather_rows.launches,
                 "scatter_rows_set": S.scatter_rows_set.launches}  # ... and ends here
     gather_routes = dict(G.gather_rows.routes)
+    # the user rows on a lanes route, the fused item rows on a bulk route
+    scatter = scatter_routes(S, "vbpr packed epoch", launches["scatter_rows_set"], VIS_STEPS,
+                             (inner.user_pmv, inner.item_pmv))
     peak = torch.cuda.max_memory_allocated() - start
     want = {"gather_rows": 4 * VIS_STEPS, "scatter_rows_set": 2 * VIS_STEPS}
     if launches != want or not np.isfinite(loss) or int(inner.step) != VIS_STEPS:
@@ -2980,7 +3039,7 @@ def vbpr_phase(torch, np, counts, segmax, G, S, data):
     summary["packed"] = dict(steps=VIS_STEPS, s=dt, triples_per_s=VIS_STEPS * TRAIN_B / dt,
                              ms_per_step=1e3 * dt / VIS_STEPS, peak_gib=peak / 2**30,
                              item_width=inner.item_pmv.shape[1], mean_loss=loss / VIS_STEPS,
-                             gather_routes=gather_routes)
+                             gather_routes=gather_routes, scatter_routes=scatter)
     print(f"vbpr packed main path: {summary['packed']}, launches {launches}")
     state = state.with_inner(inner)
     summary["packed"]["profile"] = step_profile(
@@ -3208,6 +3267,7 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
         counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
         segmax.segmax_scores.routes.clear()
         G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        S.scatter_rows_set.routes.clear()
         G.gather_rows.routes.clear()  # this run starts here
         t1 = time.perf_counter()
         train(common + ["--streaming_eval", "--epochs", "2", "--batch_size", str(VIS_CLI_B),
@@ -3223,7 +3283,9 @@ def visual_cli_phase(torch, np, counts, segmax, G, S):
                     "counts": counts.counts_kernel.launches,
                     "segmax_scores": segmax.segmax_scores.launches,
                     "segmax_routes": dict(segmax.segmax_scores.routes),
-                    "gather_routes": dict(G.gather_rows.routes)}  # ... and ends here
+                    "gather_routes": dict(G.gather_rows.routes),
+                    "scatter_routes": dict(S.scatter_rows_set.routes)}  # ... and ends here
+        scatter_routes(S, label, launches["scatter_rows_set"])
         if "segmax_mma_kernel" in launches["segmax_routes"]:
             fail(f"{label}: K3 at D={VIS_D} took segmax_mma_kernel: {launches['segmax_routes']}")
         rdir = results / "rec_results" / "cli" / rec
@@ -3436,6 +3498,7 @@ def acf_full_phase(torch, np, G, S, ACF, fspat, data, items, cnt, start):
         triples = tuple(t[1:] for t in triples)
         torch.cuda.synchronize()
         G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        S.scatter_rows_set.routes.clear()
         G.gather_rows.routes.clear()  # this run's main path starts here
         t0 = time.perf_counter()
         state, loss = trainer.run_steps(state, frozen, triples, step_key=key + 2)
@@ -3444,6 +3507,10 @@ def acf_full_phase(torch, np, G, S, ACF, fspat, data, items, cnt, start):
         launches = {"gather_rows": G.gather_rows.launches,
                     "scatter_rows_set": S.scatter_rows_set.launches}  # ... and ends here
         routes = dict(G.gather_rows.routes)
+        # the user rows (385 floats) and the item rows (769 or 25,857
+        # floats), once a step each, all on bulk_lanes
+        scatter = scatter_routes(S, label, launches["scatter_rows_set"], steps,
+                                 (state.inner.user_pmv, state.inner.item_pmv))
         peak = torch.cuda.max_memory_allocated() - start
         want = {"gather_rows": 5 * steps, "scatter_rows_set": 2 * steps}
         # the user rows (385 floats: lanes4) twice a step, the item rows (the
@@ -3460,7 +3527,7 @@ def acf_full_phase(torch, np, G, S, ACF, fspat, data, items, cnt, start):
         row = dict(steps=steps, batch=batch, s=dt, ms_per_step=1e3 * dt / steps,
                    triples_per_s=steps * batch / dt, peak_gib=peak / 2**30,
                    item_width=width, mean_loss=loss / steps, launches=launches,
-                   gather_routes=routes)
+                   gather_routes=routes, scatter_routes=scatter)
         print(f"{label}: {row}")
         row["profile"] = step_profile(
             torch, label, lambda tr: trainer.run_steps(state, frozen, tr, step_key=key + 3),
@@ -3626,6 +3693,7 @@ def acf_cli_phase(torch, np, counts, segmax, G, S):
                   "--top_k", str(CLI_K), "--max_user_pos", str(ACF_P), "--device", ACF_DEV,
                   *extra]
         G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        S.scatter_rows_set.routes.clear()
         counts.counts_kernel.launches = segmax.segmax_scores.launches = 0  # run starts
         t1 = time.perf_counter()
         train(common + ["--streaming_eval", "--epochs", "2", "--verbose", "1",
@@ -3640,6 +3708,7 @@ def acf_cli_phase(torch, np, counts, segmax, G, S):
                "scatter_rows_set": S.scatter_rows_set.launches,
                "counts": counts.counts_kernel.launches,
                "segmax_scores": segmax.segmax_scores.launches}  # ... and ends here
+        run["scatter_routes"] = scatter_routes(S, f"{label} cli", run["scatter_rows_set"])
         rdir = results / "rec_results" / "cli" / "acf"
         metrics = check_cli_run(np, f"{label} cli", results, rdir, N, run,
                                 (5 * steps, 2 * steps) if extra else (0, 0),
@@ -3663,8 +3732,10 @@ def acf_cli_phase(torch, np, counts, segmax, G, S):
 
 
 def scatter_timed(torch, S, label, table, sids64, vals, flush):
-    """K5 at one shape: the written rows bit-equal to ``vals`` and 4096
-    other rows unchanged, then timed with the L2 flushed beside its plain
+    """K5 at one shape: on the route its plan names (``scatter_plan``: a
+    lanes route for rows that one trip of 8 loads a lane holds, a bulk
+    route above), the written rows bit-equal to ``vals`` and 4096 other
+    rows unchanged, then timed with the L2 flushed beside its plain
     version, ``Tensor.index_copy_`` and its bound."""
     R, W = table.shape
     B = sids64.shape[0]
@@ -3673,11 +3744,13 @@ def scatter_timed(torch, S, label, table, sids64, vals, flush):
     keep[sids64] = False
     others = keep.nonzero()[:4096, 0]
     before = table[others].view(torch.int32).clone()
-    launched = S.scatter_rows_set.launches
+    launched, by_route = S.scatter_rows_set.launches, dict(S.scatter_rows_set.routes)
     S.scatter_rows_set(table, sids, vals)
     torch.cuda.synchronize()
-    if S.scatter_rows_set.launches != launched + 1:
-        fail(f"scatter {label}: no launch")
+    routes = [k for k, v in S.scatter_rows_set.routes.items() if v != by_route.get(k, 0)]
+    plan = S.scatter_plan(W, table.data_ptr(), vals.data_ptr())
+    if S.scatter_rows_set.launches != launched + 1 or routes != [plan.route]:
+        fail(f"scatter {label}: launched on {routes}, planned {plan}")
     if not torch.equal(table[sids64].view(torch.int32), vals.view(torch.int32)) \
             or not torch.equal(table[others].view(torch.int32), before):
         fail(f"scatter kernel wrote other bits than its values at {label}")
@@ -3690,14 +3763,17 @@ def scatter_timed(torch, S, label, table, sids64, vals, flush):
     lib_ms, _, _ = kernel_times(torch, f"scatter_rows_set library {label}",
                                 lambda: table.index_copy_(0, sids64, vals), 20, flush)
     b, by = rows_bound(B, W)
-    check_bound(f"scatter_rows_set {label}", ms, b)
-    row = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b,
-               bound_by=by, library_ms=lib_ms, bound_share=b / ms,
-               beats_library=ms < lib_ms, shape=f"R={R} W={W} B={B} f32, cold L2",
+    row = dict(route=plan.route, param=plan.param, piece_bytes=plan.piece_bytes,
+               resident_blocks=S.scatter_residency(W, plan)[0], max_abs_err=0.0, ms=ms,
+               call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=lib_ms, bound_share=b / ms, beats_library=ms < lib_ms,
+               shape=f"R={R} W={W} B={B} f32, cold L2",
                library="Tensor.index_copy_ (int64 ids)")
-    print(f"kernel time scatter_rows_set {row['shape']}: ms={ms!r} call_ms={call_ms!r} "
-          f"plain_ms={plain_ms!r} library_ms(index_copy_)={lib_ms!r} bound_ms={b!r} ({by}, "
-          f"{100 * b / ms:.1f}%)")
+    print(f"kernel time scatter_rows_set {row['shape']} ({plan.route}, param {plan.param}, "
+          f"piece {plan.piece_bytes}, {row['resident_blocks']} blocks an SM): ms={ms!r} "
+          f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(index_copy_)={lib_ms!r} "
+          f"bound_ms={b!r} ({by}, {100 * b / ms:.1f}%)")
+    check_bound(f"scatter_rows_set {label}", ms, b)  # after the line, which keeps call_ms
     return row
 
 
@@ -3918,16 +3994,20 @@ def main() -> int:
             "acf_cli_launches": {k: v[name] for k, v in acf_cli_launches.items()},
             "acf_grid": acf_rows[name],
         })
-    kernels[-2].update(
-        routes=packed["gather_routes"], af_routes=af_packed["gather_routes"],
-        cli_routes=packed_cli["gather_routes"], vbpr_routes=vbpr["packed"]["gather_routes"],
-        visual_cli_routes={k: v["gather_routes"] for k, v in vis_cli_launches.items()},
-        acf_routes=acf["packed"]["gather_routes"], acf_fused_routes=acf["fused"]["gather_routes"],
-        step_share={k: p["profile"]["k4_share"] for k, p in (
-            ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]),
-            ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]))})
-    kernels[-1].update(step_share={k: p["profile"]["k5_share"] for k, p in (
-        ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]))})
+    for kernel, kind, tag in ((kernels[-2], "gather", "k4"), (kernels[-1], "scatter", "k5")):
+        kernel.update(
+            routes=packed[f"{kind}_routes"], af_routes=af_packed[f"{kind}_routes"],
+            cli_routes=packed_cli[f"{kind}_routes"],
+            vbpr_routes=vbpr["packed"][f"{kind}_routes"],
+            visual_cli_routes={k: v[f"{kind}_routes"] for k, v in vis_cli_launches.items()},
+            acf_routes=acf["packed"][f"{kind}_routes"],
+            acf_fused_routes=acf["fused"][f"{kind}_routes"],
+            step_share={k: p["profile"][f"{tag}_share"] for k, p in (
+                ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]),
+                ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]))})
+        if not all(kernel["step_share"].values()):
+            fail(f"{kernel['name']}: no share of a packed step's device time "
+                 f"{kernel['step_share']}: the profile's kernel names are out of date")
     print(json.dumps({"serve": {str(b): r for b, r in serve.items()}}))
     print(json.dumps({"train": train, "fit": fitted}))
     print(json.dumps({"eval": evaluated, "cli": cli}))

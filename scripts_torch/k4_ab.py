@@ -50,29 +50,31 @@ THRESHOLD_WIDTHS = (256, 384, 512, 768, 1024, 1536, 2048)
 ITERS = 20
 
 
-def build_other(jobs):
-    """{label: (gather module, build seconds, ptxas report)} for jobs of
-    (label, checkout): each checkout's gather.cu built with this tree's
-    flags, all nvcc processes started together; its gather.py loaded
-    under its own name and bound to that library."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_other(jobs, name="gather", out_dir=OUT):
+    """{label: (module, build seconds, ptxas report)} for jobs of (label,
+    checkout): each checkout's ops/csrc/<name>.cu built with this tree's
+    flags into ``out_dir`` (this tree's own by ``cuda_build``), all nvcc
+    processes started together; its ops/<name>.py loaded under its own name
+    and bound to that library."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     rel = Path("fashionvisualexpl_tpu_torch") / "ops"
     procs = []
     for n, (label, root) in enumerate(jobs):
-        so = OUT / f"libgather_{n}.so"
+        so = out_dir / f"lib{name}_{n}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
-               str(root / rel / "csrc" / "gather.cu")]
+               str(root / rel / "csrc" / f"{name}.cu")]
         procs.append((n, label, root, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter()))
-    cuda_build.build(["gather"])
+    cuda_build.build([name])
     out = {}
     for n, label, root, so, proc, t0 in procs:
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0  # an upper bound: waited in order
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
-        spec = importlib.util.spec_from_file_location(f"k4_other_{n}", root / rel / "gather.py")
+        spec = importlib.util.spec_from_file_location(f"{name}_other_{n}",
+                                                      root / rel / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         lib = ctypes.CDLL(str(so))

@@ -28,7 +28,13 @@ sides of the bulk threshold and at every W % 4, 8-byte and 4-byte bases,
 a table view with a storage offset, the last row of a table whose bytes
 end off a 16-byte boundary, B = 0, 1 and off the ring, NaN and denormal
 patterns, the lanes forced at wide rows and the bulk copies at narrow
-ones), and what its C entry refuses.
+ones), and what its C entry refuses.  K5 likewise: each of its routes
+forced where the geometry allows it (refused by name where not) at every
+packed width, widths 1-5 and either side of the bulk threshold, table and
+vals aligned and not, pads (2**30, -1, R, -5) dropped, every unwritten row
+and the first and last words of each written row's neighbours unchanged,
+a vals view whose first and last rows' 16-byte spans leave its buffer,
+the A/B script's plans, batches off its rings, and its refusals.
 K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
 160 and 164 too, its iv 8-byte aligned only, and the route each geometry
 takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).
@@ -961,6 +967,248 @@ def test_gather_residency_on_card(cuda_device):
         assert per_sm >= 2 and n == sms
 
 
+def _scatter_checked(table, ids, vals, route=None):
+    """K5 on a clone of ``table``: bit-equal to its plain version on a
+    clone (the written rows equal to vals, every other row unchanged), the
+    first and last words of each written row's neighbours unchanged, one
+    launch on the route its plan names (none for B = 0); returns the
+    plan."""
+    before = (K5.scatter_rows_set.launches, dict(K5.scatter_rows_set.routes))
+    off = table.data_ptr() % 16 // 4  # the copy at the table's address mod 16
+    kern = torch.empty(table.numel() + off, device=table.device)[off:].view_as(table)
+    kern.copy_(table)
+    plain = table.clone()
+    assert K5.scatter_rows_set(kern, ids, vals, _route=route) is kern
+    torch.cuda.synchronize()
+    K5.scatter_rows_set_reference(plain, ids, vals)
+    assert torch.equal(_bits(kern), _bits(plain))
+    R = table.shape[0]
+    kept = ids[(ids >= 0) & (ids < R)].long()
+    assert torch.equal(_bits(kern[kept]), _bits(vals[(ids >= 0) & (ids < R)]))
+    near = torch.cat([kept - 1, kept + 1]).clamp(0, R - 1)
+    near = near[~torch.isin(near, kept)]
+    for col in (0, -1):  # what a misaligned 16-byte store would break
+        assert torch.equal(_bits(kern[near, col]), _bits(table[near, col]))
+    plan = (route if isinstance(route, K5.ScatterPlan) else
+            K5.scatter_plan(table.shape[1], kern.data_ptr(), vals.data_ptr(), route))
+    routes = {k: v - before[1].get(k, 0) for k, v in K5.scatter_rows_set.routes.items()
+              if v != before[1].get(k, 0)}
+    n = int(ids.shape[0] > 0)
+    assert K5.scatter_rows_set.launches - before[0] == n
+    assert routes == ({plan.route: 1} if n else {})
+    return plan
+
+
+def _scatter_ids(dev, R, B, seed):
+    """B ids: the last row, the first, then unique random rows, every
+    seventh slot from the third on a pad (2**30, -1, R, -5 in turn, all
+    dropped)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(R, device=dev, generator=g)
+    ids = torch.cat([torch.tensor([R - 1, 0], device=dev),
+                     perm[(perm != 0) & (perm != R - 1)]])[:B].to(torch.int32)
+    pads = torch.tensor([2**30, -1, R, -5], dtype=torch.int32, device=dev)
+    n = ids[2::7].shape[0]
+    ids[2::7] = pads.repeat(n // 4 + 1)[:n]
+    return ids
+
+
+# every width the packed paths write, tiny rows and both sides of the
+# lanes / bulk thresholds (LANES_MAX_BYTES: 256 words of 4 or 16 bytes)
+SCATTER_WIDTHS = (1, 2, 3, 4, 5, 193, 195, 255, 256, 257, 259, 297, 384, 385, 388, 445, 513,
+                  769, 1023, 1024, 1025, 1028, 4355, 4484, 4867, 4996, 25473, 25601, 25857)
+
+
+def _scatter_route(width, vec):
+    """The route a plan names by default: a lanes route while 256 of its
+    words hold the row."""
+    lanes = "lanes16" if vec else "lanes4"
+    if 4 * width <= K5.LANES_MAX_BYTES[lanes]:
+        return lanes
+    return "bulk_store" if vec else "bulk_lanes"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned16", "aligned4"])
+@pytest.mark.parametrize("width", SCATTER_WIDTHS)
+def test_scatter_routes_copy_bits_on_card(cuda_device, width, offset):
+    """Every route forced where the geometry allows it (the lanes and the
+    bulk copies at every width, the 16-byte routes at W % 4 == 0 between
+    aligned bases), refused by name where it does not, and the planned
+    route, each bit-equal with the pads dropped; table and vals off a
+    16-byte boundary together (aligned4)."""
+    R, B = 97, 61
+    table = _bit_table(cuda_device, R, width, seed=width, offset=offset)
+    vals = _bit_table(cuda_device, B, width, seed=width + 1, offset=offset)
+    ids = _scatter_ids(cuda_device, R, B, width)
+    plan = _scatter_checked(table, ids, vals)
+    vec = width % 4 == 0 and offset == 0
+    assert plan.route == _scatter_route(width, vec)
+    for route in K5.ROUTES:
+        if route.endswith(("16", "store")) and not vec:
+            with pytest.raises(ValueError, match=f"{route} (cannot|needs)"):
+                K5.scatter_rows_set(table.clone(), ids, vals, _route=route)
+        elif route.startswith("bulk") or width <= K5.MAX_LANES_WIDTH:
+            assert _scatter_checked(table, ids, vals, route).route == route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "lanes", "bulk"])
+@pytest.mark.parametrize("B,width", [(38, 4355), (37, 385), (6, 4867), (4, 1), (1, 4098),
+                                     (8, 25857), (9, 513)])
+def test_scatter_vals_edges_on_card(cuda_device, B, width, route):
+    """vals a view one float into its buffer, which ends with its last
+    row: its first and last rows' 16-byte spans reach outside the buffer
+    (B * W * 4 is no multiple of 16), so the bulk routes copy those pieces
+    from vals directly."""
+    assert (B * width + 1) * 4 % 16 != 0
+    R = 3 * B + 2
+    table = _bit_table(cuda_device, R, width, seed=R + width)
+    vals = _bit_table(cuda_device, B, width, seed=B + width, offset=1)
+    perm = torch.randperm(R - 1, generator=torch.Generator().manual_seed(B))[:B - 1]
+    ids = torch.cat([perm[:B // 2], torch.tensor([R - 1]), perm[B // 2:]]).to(torch.int32)
+    plan = _scatter_checked(table, ids.to(cuda_device), vals, route)
+    assert plan.route == ("bulk_lanes" if route == "bulk" else
+                          "lanes4" if route == "lanes" else _scatter_route(width, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kept-first", "scattered"])
+@pytest.mark.parametrize("width", [193, 385, 388, 4355, 4484, 25857])
+def test_scatter_mostly_pads_on_card(cuda_device, width, layout):
+    """The dedupe's layout, most slots pads: 150 kept rows of 3000 slots,
+    first (as the sorted dedupe leaves them) or scattered among the pads
+    (2**30 and -1): every route skips the pads and writes the kept rows."""
+    R, B, K = 400, 3000, 150
+    table = _bit_table(cuda_device, R, width, seed=width)
+    vals = _bit_table(cuda_device, B, width, seed=width + 2)
+    g = torch.Generator().manual_seed(width)
+    ids = torch.full((B,), 2**30, dtype=torch.int32)
+    ids[1::2] = -1
+    at = torch.arange(K) if layout == "kept-first" else torch.randperm(B, generator=g)[:K]
+    ids[at] = torch.randperm(R, generator=g)[:K].to(torch.int32)
+    ids = ids.to(cuda_device)
+    for route in (None, "lanes", "bulk"):
+        _scatter_checked(table, ids, vals, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [193, 385, 388, 769, 4484, 25473])
+def test_scatter_repeats_write_every_row_on_card(cuda_device, width):
+    """16,384 rows, as the timing phases write them, 12 times over: before
+    each launch the written rows are set to the complement of vals, so a
+    launch that skipped a piece would leave it showing (a run of launches
+    over the same rows cannot)."""
+    R, B = 20_000, 16_384
+    g = torch.Generator(device=cuda_device).manual_seed(width)
+    table = _bit_table(cuda_device, R, width, seed=width)
+    vals = _bit_table(cuda_device, B, width, seed=width + 1)
+    rows = torch.randperm(R, device=cuda_device, generator=g)[:B]
+    ids = rows.to(torch.int32)
+    t32, v32 = _bits(table), _bits(vals)
+    before = K5.scatter_rows_set.launches
+    for _ in range(12):
+        t32[rows] = ~v32
+        K5.scatter_rows_set(table, ids, vals)
+        torch.cuda.synchronize()
+        assert torch.equal(t32[rows], v32)
+    assert K5.scatter_rows_set.launches == before + 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [0, 1, 2, 3, 5, 13, 97, 4097])
+@pytest.mark.parametrize("width", [4484, 4355, 385, 388])
+def test_scatter_batch_sizes_on_card(cuda_device, width, B):
+    """B = 0 (no launch), 1, and batches off the bulk rings (stages a warp
+    times 4 warps times the blocks) and off the lanes' warps."""
+    R = max(2 * B, 8)
+    table = _bit_table(cuda_device, R, width, seed=B + width)
+    vals = _bit_table(cuda_device, B, width, seed=B + width + 1)
+    _scatter_checked(table, _scatter_ids(cuda_device, R, B, B + 1), vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,plans", [
+    (193, [("lanes4", u, 0) for u in (2, 4, 8, 16)]),
+    (195, [("lanes4", u, 0) for u in (4, 8, 16)]),
+    (388, [("lanes16", u, 0) for u in (2, 4, 8)] + [("lanes4", 16, 0)]),
+    (4484, [("bulk_store", st, pc) for st, pc in ((6, 3600), (12, 3600), (8, 4096), (2, 16))]
+     + [("bulk_lanes", st, pc) for st, pc in ((4, 8192), (6, 4096), (16, 1024))]),
+    (4355, [("bulk_lanes", st, pc) for st, pc in ((4, 5808), (4, 8192), (8, 2048), (3, 17424))]),
+    (25857, [("bulk_lanes", 4, 7392), ("bulk_lanes", 2, 16), ("lanes4", 2, 0)]),
+])
+def test_scatter_plans_of_the_sweep_on_card(cuda_device, width, plans):
+    """Whole plans as the A/B script sweeps them (loads a lane; stages and
+    piece bytes, pieces down to 16 bytes), each bit-equal on its route."""
+    R, B = 80, 41
+    table = _bit_table(cuda_device, R, width, seed=width)
+    vals = _bit_table(cuda_device, B, width, seed=width + 9)
+    ids = _scatter_ids(cuda_device, R, B, width)
+    for plan in plans:
+        assert _scatter_checked(table, ids, vals, K5.ScatterPlan(*plan)).route == plan[0]
+
+
+@pytest.mark.cuda
+def test_scatter_refusals_on_card(cuda_device):
+    """A route the geometry does not allow raises before a launch; the C
+    entry refuses a bad route or geometry with cudaErrorInvalidValue (1)
+    and launches nothing, and the wrapper raises naming the route: no
+    plain fallback."""
+    table = _bit_table(cuda_device, 64, 385, seed=1)
+    ids = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    vals = _bit_table(cuda_device, 8, 385, seed=2)
+    before = (K5.scatter_rows_set.launches, sum(K5.scatter_rows_set.routes.values()))
+    want = table.clone()
+    with pytest.raises(ValueError, match="lanes16 cannot"):
+        K5.scatter_rows_set(table, ids, vals, _route="lanes16")
+    with pytest.raises(ValueError, match="bulk_store needs"):
+        K5.scatter_rows_set(table, ids, vals, _route="bulk_store")
+    for plan in (K5.ScatterPlan("bulk_store", 4, 1552), K5.ScatterPlan("bulk_lanes", 17, 1552),
+                 K5.ScatterPlan("bulk_lanes", 4, 1544), K5.ScatterPlan("lanes4", 3, 0),
+                 K5.ScatterPlan("lanes16", 16, 0), K5.ScatterPlan("bulk_lanes", 16, 16384)):
+        with pytest.raises(RuntimeError, match=f"\\({plan.route}\\): cudaError 1"):
+            K5.scatter_rows_set(table, ids, vals, _route=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(table), _bits(want))  # nothing written
+    assert (K5.scatter_rows_set.launches,
+            sum(K5.scatter_rows_set.routes.values())) == before
+    fn = K5._entries[0] if K5._entries else K5._bind()[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    number = {name: i for i, name in enumerate(K5.ROUTES)}
+    args = (table.data_ptr(), ids.data_ptr(), vals.data_ptr())
+    assert fn(*args, 64, 385, 8, len(K5.ROUTES), 4, 0, stream) == 1
+    assert fn(*args, -1, 385, 8, number["lanes4"], 8, 0, stream) == 1
+    assert fn(*args, 64, 0, 8, number["lanes4"], 8, 0, stream) == 1
+    wide = _bit_table(cuda_device, 64, 388, seed=3)
+    wvals = _bit_table(cuda_device, 8, 388, seed=4)
+    for route, param, piece in (("bulk_store", 4, 1552), ("lanes16", 4, 0)):
+        assert fn(wide.data_ptr() + 4, ids.data_ptr(), wvals.data_ptr(), 63, 388, 8,
+                  number[route], param, piece, stream) == 1
+        assert fn(wide.data_ptr(), ids.data_ptr(), wvals.data_ptr() + 8, 64, 388, 7,
+                  number[route], param, piece, stream) == 1
+    assert fn(wide.data_ptr() + 2, ids.data_ptr(), wvals.data_ptr(), 63, 388, 8,
+              number["lanes4"], 4, 0, stream) == 1
+    assert fn(wide.data_ptr(), ids.data_ptr(), wvals.data_ptr(), 64, 388, 8,
+              number["lanes16"], 16, 0, stream) == 1  # 16 loads of 16 bytes: no kernel
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_scatter_residency_on_card(cuda_device):
+    """The persistent grids: the bulk kernels at least one block an SM and
+    no more than their rings fit in its 228 KB of shared memory, the lanes
+    kernels several."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for width in (4484, 4996, 4355, 4867, 769, 25857):
+        plan = K5.scatter_plan(width, 0, 0)
+        per_sm, n = K5.scatter_residency(width, plan)
+        smem = K5.bulk_smem(plan) + 1024  # the runtime's own KB a block
+        assert n == sms and 1 <= per_sm <= 233_472 // smem, (width, plan, per_sm)
+    for width in (193, 195, 388):
+        per_sm, n = K5.scatter_residency(width, K5.scatter_plan(width, 0, 0))
+        assert per_sm >= 2 and n == sms
+
+
 @pytest.mark.cuda
 def test_row_kernels_reject_non_contiguous_and_bench_on_card(cuda_device):
     """Strided tensors raise; the benches run at a small size."""
@@ -1002,6 +1250,7 @@ def test_packed_step_kernel_route_matches_plain_route_on_card(cuda_device, momen
                                        lazy_catchup=True)
     g = torch.Generator().manual_seed(4)
     before = (K4.gather_rows.launches, K5.scatter_rows_set.launches)
+    routes = K5.scatter_rows_set.routes.copy()
     for _ in range(steps):
         batch = tuple(torch.randint(0, hi, (B,), generator=g, dtype=torch.int32)
                       for hi in (U, I, I))
@@ -1011,6 +1260,8 @@ def test_packed_step_kernel_route_matches_plain_route_on_card(cuda_device, momen
     torch.cuda.synchronize()
     assert (K4.gather_rows.launches - before[0],
             K5.scatter_rows_set.launches - before[1]) == (4 * steps, 2 * steps)
+    # row_align=128: 16-byte rows between aligned tensors, on lanes16
+    assert K5.scatter_rows_set.routes - routes == {"lanes16": 2 * steps}
     for name, W, tau in (("user_pmv", K, K + PG._mom_width(moment_dtype, K)),
                          ("item_pmv", K, K + PG._mom_width(moment_dtype, K)
                           + PG._scalar_group(moment_dtype))):
