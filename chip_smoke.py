@@ -154,7 +154,27 @@ Phases, each of which raises on a failure (nothing is swallowed):
    25,473 floats over 200k rows, at 163,840 and 16,384 rows) and K5 at
    every narrow packed width, each on the route its plan names, beside
    ``index_select`` / ``index_copy_`` and their bounds; the rows where K5
-   trails ``index_copy_`` or reaches under half its bound are printed.
+   trails ``index_copy_`` or reaches under half its bound are printed;
+20. CompVBPR at the JAX CLI's default widths (K=128, d=20, semantic 4096,
+   color 512, texture 1024, 32x32 edge images through the trainable CNN,
+   every family at weight 0.25; factored D=208), 1M users x 200k items,
+   P=20: the packed step (fp32 and fp8 moments) and the generic Trainer
+   step on the card against the CPU on a 4096 x 4096 catalog (2 steps at
+   batch 256, each from the CPU route's state, dropout masks shared); a
+   packed epoch of 50 steps at batch 8192 (4 K4 + 2 K5 a step, the user
+   rows 625 floats) and 20 generic steps, each with a 5-step profile (the
+   idle share, K4's, K5's, the convolutions' and the GEMMs' shares, no
+   TF32 kernel); ``FactoredEvaluator(counts_impl="kernel").evaluate``
+   through K2 at D=208 (245 launches); ``RecServer`` through K3 at the
+   buckets, every launch on ``segmax_mma_kernel``, 64 users against a
+   full-catalog fp32 oracle; K3 and K2 alone at D=208 and K4 and K5 at the
+   user rows (625 / 417 / 313, 640 / 512 / 384 floats over 1M rows, batch
+   8192), each checked against its plain version and timed beside its
+   bound and the library call; the CNN at 224x224 (B=256) against float64
+   and timed forward and backward beside the f32 bound; ``train_rec --rec
+   comp_vbpr`` at ``--edge_hw 224 224``: generic with the streaming
+   evaluator on 1024 users x 16,384 items, packed with the dense one and
+   ``serve_rec`` from its checkpoint on 1024 x 1024, both written here.
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -162,6 +182,7 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import statistics
@@ -345,6 +366,36 @@ ACF_CHUNK_TOL = 2e-6
 # 163,840 extra rows of a batch-8192 step and at the packed item batch
 ACF_ROW_B = (ACF_B * ACF_P, GATHER_B)
 ACF_DEV = "cuda"
+# CompVBPR at the JAX CLI's default widths (fashionvisualexpl_tpu/cli/
+# train_rec.py:57-74: K=128, d=20, every family on at weight 0.25): semantic
+# = vgg19 fc2 (4096), color = the 8x8x8 histogram (512), texture = one
+# layer of the 32x32 gram grid (1024, vision/extractors.py:204), the edge
+# images through the trainable CNN at 32x32x1; factored D = K + 4 d = 208.
+# The JAX package's own CompVBPR scale (scripts/scaled_bench.py:189-202,
+# SPEED.md:89): 1M users x 200k items, P=20, batch 8192.  Cut only in depth
+# (50 packed and 20 generic steps, 5-step profiles).  Route checks on a
+# 4096 x 4096 catalog at batch 256, 2 steps each (the CPU route runs the
+# CNN on 512 images a step).  The CNN also at the reference's 224x224 (B =
+# 256), and the CLI at its default --edge_hw 224 224, generic on 1024 users
+# x 16,384 items (the smallest catalog FactoredEvaluator sends to K2 by
+# default), packed and serve_rec on 1024 x 1024, at batch 1024 (the
+# default 256 would take four times the steps)
+COMP_U, COMP_I, COMP_P, COMP_B, COMP_HW = 1_000_000, 200_000, 20, 8192, 32
+COMP_EMBED_D, COMP_DIM_S, COMP_DIM_C, COMP_DIM_T = 20, 4096, 512, 1024
+COMP_D = EMBED_K + 4 * COMP_EMBED_D
+COMP_STEPS, COMP_GENERIC_STEPS, COMP_PROFILE_STEPS = 50, 20, 5
+COMP_ROUTE_N, COMP_ROUTE_B, COMP_ROUTE_STEPS = 4096, 256, 2
+COMP_CNN_B, COMP_CLI_U, COMP_CLI_I, COMP_CLI_B = 256, 1024, 16_384, 1024
+# the packed user rows (Gu and the four Tu*, 208 floats): fp32 / bf16 / fp8
+# moments, then at row_align 128
+COMP_USER_WIDTHS = (625, 417, 313, 640, 512, 384)
+# the CNN's f32 forward on the card against float64, relative to its
+# largest output: f32 rounding accumulates to ~1e-6, TF32 to ~1e-3
+COMP_F64_RTOL = 1e-4
+# the route checks of the CNN (``cnn_route_check``): the routes' moments
+# within this share of their norm (a ReLU at its rounding moves a few
+# terms of the gradient sums)
+COMP_CNN_NORM = 0.05
 
 
 def fail(msg: str) -> None:
@@ -503,8 +554,10 @@ def kernel_phase(torch, segmax):
         err = check(f"VBPR serving shape seg={SEG} D={D} B={B} bf16 Ip={Ip}", uf, iv, ib, SEG,
                     kernel)
         before = segmax.segmax_scores.routes.copy()
+        bound, by = segmax_bound_ms(B, Ip, D, SEG, 2, PEAK_BF16_FLOPS)
         ms, call_ms, _ = kernel_times(torch, f"segmax D={D} B={B}",
-                                      lambda: segmax.segmax_scores(uf, iv, ib, SEG), iters, flush)
+                                      lambda: segmax.segmax_scores(uf, iv, ib, SEG), iters, flush,
+                                      bound)
         if set(segmax.segmax_scores.routes - before) != {kernel}:
             fail(f"segmax timed at D={D} B={B} took {segmax.segmax_scores.routes - before}")
         plain, _, _ = kernel_times(torch, f"segmax plain D={D} B={B}",
@@ -512,7 +565,6 @@ def kernel_phase(torch, segmax):
                                    flush)
         lib, _, _ = kernel_times(torch, f"segmax library D={D} B={B}",
                                  lambda: torch.matmul(uf, iv.T), iters, flush)
-        bound, by = segmax_bound_ms(B, Ip, D, SEG, 2, PEAK_BF16_FLOPS)
         check_bound(f"segmax D={D} B={B}", ms, bound)
         rows["d148"][B] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain,
                                bound_ms=bound, bound_by=by, library_ms=lib,
@@ -710,7 +762,7 @@ def flush_names(torch, flush, gen):
     return _FLUSH_NAMES
 
 
-def kernel_times(torch, label, fn, iters: int, flush):
+def kernel_times(torch, label, fn, iters: int, flush, bound=None):
     """(ms, call_ms, kernels) per call of fn, with the L2 emptied before each call
     by a random fill of ``flush`` (a buffer larger than the 50 MB L2) that
     neither time counts, so that fn's inputs come from device memory.
@@ -723,7 +775,13 @@ def kernel_times(torch, label, fn, iters: int, flush):
     ones whose kernel records are each at least half that kernel's median
     over the profile (the profiler has also cut records short: PERF.md
     §6, PR 17); a profile where fewer than a majority of the calls count is
-    taken again, at most PROFILE_ATTEMPTS times.  ``call_ms``: CUDA events around each
+    taken again, at most PROFILE_ATTEMPTS times.  With ``bound`` (the least
+    time in ms the card could take for fn's work), a profile that reads fn
+    under it is taken again too: no kernel outruns the memory and the
+    arithmetic, so all of that profile's records were cut short (one run read
+    K4 at W=384, B=8192 at 0.00545 ms where four others read 0.0115-0.0117);
+    the last profile's reading is returned whatever it is, for
+    ``check_bound`` to judge.  ``call_ms``: CUDA events around each
     call, which also holds the host's launch cost when the kernels are
     shorter than it.  ``kernels``: each kernel a whole call launched, by
     name, as (launches a call, mean ms a call)."""
@@ -786,8 +844,13 @@ def kernel_times(torch, label, fn, iters: int, flush):
                   f"{ {c: n[:48] for n, c in letters.items()} })")
         if 2 * whole > iters:
             per_name = sum(kept, Counter())
+            ms = sum(per_name.values()) / whole / 1e3
+            if bound is not None and ms < bound and attempt < PROFILE_ATTEMPTS:
+                print(f"{label}: profile {attempt} read {ms!r} ms a call, under the bound "
+                      f"{bound!r} ms (CUDA events {call_ms!r} ms): taken again")
+                continue
             kernels = {n: (dict(kind)[n], us / whole / 1e3) for n, us in per_name.items()}
-            return sum(per_name.values()) / whole / 1e3, call_ms, kernels
+            return ms, call_ms, kernels
     fail(f"{label}: torch.profiler lost kernel records in {PROFILE_ATTEMPTS} profiles")
 
 
@@ -923,7 +986,7 @@ def train_kernel_phase(torch, bpr, adam):
         ("bpr_bwd", lambda: bpr.bpr_backward(sigma, *args[:3], one),
          lambda: bpr.bpr_backward_reference(sigma, *args[:3], one), bwd_b),
     ):
-        ms, call_ms, kernels = kernel_times(torch, name, run, 200, flush)
+        ms, call_ms, kernels = kernel_times(torch, name, run, 200, flush, b)
         plain_ms, plain_call_ms, _ = kernel_times(torch, f"{name} plain", plain, 200, flush)
         check_bound(name, ms, b)
         n_kernels = sum(n for n, _ in kernels.values())
@@ -967,7 +1030,7 @@ def train_kernel_phase(torch, bpr, adam):
         b, by = adam_bound(p.numel())
         label = f"adam_sweep {name}"
         ms, call_ms, _ = kernel_times(torch, label, lambda: adam.fused_adam_sweep(
-            p, m, v, scal), 20, flush)
+            p, m, v, scal), 20, flush, b)
         plain_ms, plain_call_ms, _ = kernel_times(
             torch, f"{label} plain", lambda: adam.fused_adam_sweep_reference(p, m, v, scal),
             10, flush)
@@ -1296,16 +1359,16 @@ def eval_kernel_phase(torch, np, counts, topk, eval_items):
               f"scored again exactly (the band)")
         if rechecked == 0:
             fail(f"counts at D={D} rechecked no pair on data with ties")
+        uf_p, iv_p = args[0], args[1]
+        Ip = iv_p.shape[0]
+        b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
         ms, call_ms, _ = kernel_times(torch, f"counts D={D}", lambda: counts.counts_kernel(
-            *args, item_tile=item_tile, user_tile=ut), 10, flush)
+            *args, item_tile=item_tile, user_tile=ut), 10, flush, b)
         plain_ms, _, _ = kernel_times(torch, f"counts plain D={D}",
                                       lambda: counts.counts_kernel_reference(*args, item_tile),
                                       5, flush)
-        uf_p, iv_p = args[0], args[1]
         lib_ms, _, _ = kernel_times(torch, f"counts library D={D}",
                                     lambda: torch.matmul(uf_p, iv_p.T), 5, flush)
-        Ip = iv_p.shape[0]
-        b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
         check_bound(f"counts D={D}", ms, b)
         timed[D] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                         library_ms=lib_ms, rechecked=rechecked, shape=shape)
@@ -1614,11 +1677,13 @@ def tower_bounds(torch, E, x, w, b):
     values.  Bytes: the images, weights and bias read once, [B, C] written
     (forward) or read (backward), dW and db written.  Returns (fwd, bwd,
     fwd at f32, bwd at f32)."""
+    from fashionvisualexpl_tpu_torch.core.precision import fp32_math
+
     B, H, W, _ = x.shape
     C = w.shape[3]
     th, tw = tower_taps(torch, H, x.device), tower_taps(torch, W, x.device)
     conv = 2.0 * B * C * int(th.sum()) * int(tw.sum())
-    with E.fp32_convs():
+    with fp32_math():
         z = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                                        padding=2)  # [B, C, H, W], pre-bias
     even = z[..., 0::2] >= z[..., 1::2]  # the even column wins ties
@@ -1673,6 +1738,8 @@ def tower_f64_witness(torch, E, seed):
     order, each product exact in float64 and the sum rounded to f32.  Prints
     the readings; fails if a gradient is not finite or if the kernel's
     leaves the tolerance against the gradient of its replayed decisions."""
+    from fashionvisualexpl_tpu_torch.core.precision import fp32_math
+
     F = torch.nn.functional
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1695,7 +1762,7 @@ def tower_f64_witness(torch, E, seed):
         n = xs.shape[0]
         cols = F.unfold(xs.double(), 5, padding=2)  # [n, 25, H*W], exact
         z64 = torch.einsum("jc,njp->ncp", wt.double(), cols).reshape(n, C, H, W)
-        with E.fp32_convs():
+        with fp32_math():
             z_cudnn = F.conv2d(xs, w.permute(3, 2, 0, 1), padding=2)
         xp = F.pad(xs, (2, 2, 2, 2))
         z_k = torch.zeros(n, C, H, W, device=dev)
@@ -1744,6 +1811,8 @@ def tower_kernel_phase(torch, E):
     """K7 forward and backward against their plain versions over the
     geometries and ties, two backward runs bit-equal, then timed at the
     training step's shape and the reference resolution."""
+    from fashionvisualexpl_tpu_torch.core.precision import fp32_math
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
     errs = {"edge_tower_fwd": 0.0, "edge_tower_bwd": 0.0}
@@ -1815,7 +1884,7 @@ def tower_kernel_phase(torch, E):
     for B, H, W, C in TOWER_TIMED:
         x, w, b, dout = inputs(B, H, W, C)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-        with E.fp32_convs():
+        with fp32_math():
             lib_ms, _, _ = kernel_times(torch, "conv2d", lambda: conv(xc, wc, padding=2), 5,
                                      flush)
         bounds = tower_bounds(torch, E, x, w, b)
@@ -1832,7 +1901,7 @@ def tower_kernel_phase(torch, E):
             ("edge_tower_bwd", lambda: E.edge_tower_bwd(x, w, b, dout),
              lambda: E.edge_tower_gap_plain_backward(x, w, b, dout), bounds[1]),
         ):
-            ms, call_ms, _ = kernel_times(torch, name, run, 10, flush)
+            ms, call_ms, _ = kernel_times(torch, name, run, 10, flush, bnd)
             plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, 5, flush)
             check_bound(f"{name} {shape}", ms, bnd)
             rows.setdefault(name, {})[(H, W)] = dict(
@@ -2213,11 +2282,11 @@ def gather_timed(torch, G, label, table, ids, flush, warm=False):
     del got
     run = lambda: G.gather_rows(table, ids)  # noqa: E731
     lib = lambda: torch.index_select(table, 0, ids)  # noqa: E731
-    ms, call_ms, _ = kernel_times(torch, f"gather_rows {label}", run, 20, flush)
+    b, by = rows_bound(B, W)
+    ms, call_ms, _ = kernel_times(torch, f"gather_rows {label}", run, 20, flush, b)
     plain_ms, _, _ = kernel_times(torch, f"gather_rows plain {label}",
                                   lambda: G.gather_rows_reference(table, ids), 10, flush)
     lib_ms, _, _ = kernel_times(torch, f"gather_rows library {label}", lib, 20, flush)
-    b, by = rows_bound(B, W)
     check_bound(f"gather_rows {label}", ms, b)
     row = dict(route=plan.route, param=plan.param, piece_bytes=plan.piece_bytes,
                resident_blocks=G.gather_residency(W, plan)[0], max_abs_err=0.0, ms=ms,
@@ -2321,7 +2390,7 @@ def row_kernel_phase(torch, G, S):
     out = {}
     route = {"gather_rows": "lanes16", "scatter_rows_set": splan.route}
     for name, (err, (run, plain, lib), (b, by), shape, library) in rows.items():
-        ms, call_ms, _ = kernel_times(torch, name, run, 20, flush)
+        ms, call_ms, _ = kernel_times(torch, name, run, 20, flush, b)
         plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, 10, flush)
         lib_ms, _, _ = kernel_times(torch, f"{name} library", lib, 20, flush)
         check_bound(name, ms, b)
@@ -2448,10 +2517,10 @@ def fused_row_phase(torch, G, S, bits, flush):
                         or not plan.route.startswith("bulk"):
                     fail(f"scatter at W={W} B={B} left {plan.route}: "
                          f"{dict(S.scatter_rows_set.routes)}")
-            ms, call_ms, _ = kernel_times(torch, f"{name} W={W}", run, 20, flush)
+            b, by = rows_bound(B, W)
+            ms, call_ms, _ = kernel_times(torch, f"{name} W={W}", run, 20, flush, b)
             plain_ms, _, _ = kernel_times(torch, f"{name} plain W={W}", plain, 10, flush)
             lib_ms, _, _ = kernel_times(torch, f"{name} library W={W}", lib, 20, flush)
-            b, by = rows_bound(B, W)
             check_bound(f"{name} W={W}", ms, b)
             shape = f"R={R} W={W} ({label}) B={B} f32, cold L2"
             route = "bulk_store" if name == "gather_rows" else plan.route
@@ -2620,10 +2689,14 @@ def state_on(torch, state, device="cpu", model=None):
     return out
 
 
+CONV_TAGS = ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit")
+
+
 def step_profile(torch, label, run, triples, n: int):
     """One torch.profiler pass over ``run(triples)`` (n steps): wall and
     device ms a step, device operations a step, the idle share and the
-    shares of device time of K4, K5 and K7."""
+    shares of device time of K4, K5, K7, the convolutions, the GEMMs and of
+    kernels named for TF32."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -2640,7 +2713,13 @@ def step_profile(torch, label, run, triples, n: int):
     share = {k: sum(us for us, key, _ in ops if any(t in key for t in tags)) / busy
              for k, tags in (("k4", ("gather_lanes_kernel", "gather_bulk_kernel")),
                              ("k5", ("scatter_lanes_kernel", "scatter_bulk_kernel")),
-                             ("k7", ("edge_",)))}
+                             ("k7", ("edge_",)), ("tf32", ("tf32",)))}
+    # cuDNN's convolutions (forward, data and weight gradients) and the
+    # GEMMs (cuBLAS; the CNN's FCs and the families' projections)
+    conv = [any(t in key.lower() for t in CONV_TAGS) for _, key, _ in ops]
+    share["conv"] = sum(us for (us, _, _), c in zip(ops, conv) if c) / busy
+    share["gemm"] = sum(us for (us, key, _), c in zip(ops, conv)
+                        if not c and "gemm" in key.lower()) / busy
     out = dict(steps=n, wall_ms_per_step=wall_us / 1e3 / n, device_ms_per_step=busy / 1e3 / n,
                device_ops_per_step=sum(c for _, _, c in ops) / n,
                idle_share=1.0 - busy / wall_us, **{f"{k}_share": v for k, v in share.items()})
@@ -3206,12 +3285,13 @@ def write_visual_features(np, d: Path):
                 f.write(f"{u}\t{i}\treview {n} of user {u}\n")
 
 
-def check_cli_run(np, label, results, rdir, n_users, launches, rows, must_launch):
-    """One ``train_rec`` + ``serve_rec`` run of the CLI phases: K4 and K5
-    launched ``rows`` = (K4, K5) times, each kernel of ``must_launch`` at
-    least once; the epoch-2 and best recs dumps ``n_users`` x CLI_K rows,
-    serve_rec's CLI_SERVE_USERS x CLI_K; metrics finite in [0, 1] for
-    epochs 1 and 2.  Returns epoch 2's metrics."""
+def check_cli_run(np, label, results, rdir, n_users, launches, rows, must_launch,
+                  served=True):
+    """One ``train_rec`` (+ ``serve_rec`` when ``served``) run of the CLI
+    phases: K4 and K5 launched ``rows`` = (K4, K5) times, each kernel of
+    ``must_launch`` at least once; the epoch-2 and best recs dumps
+    ``n_users`` x CLI_K rows, serve_rec's CLI_SERVE_USERS x CLI_K; metrics
+    finite in [0, 1] for epochs 1 and 2.  Returns epoch 2's metrics."""
     import glob
     import pickle
 
@@ -3224,7 +3304,7 @@ def check_cli_run(np, label, results, rdir, n_users, launches, rows, must_launch
         n_rows = len(read_tsv(np, path, 3))
         if n_rows != n_users * CLI_K:
             fail(f"{label} {pattern}: {n_rows} rows, expected {n_users * CLI_K}")
-    if len(read_tsv(np, results / "served.tsv", 3)) != CLI_SERVE_USERS * CLI_K:
+    if served and len(read_tsv(np, results / "served.tsv", 3)) != CLI_SERVE_USERS * CLI_K:
         fail(f"{label}: serve_rec wrote a wrong number of rows")
     (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
     with open(pkl, "rb") as f:
@@ -3755,14 +3835,14 @@ def scatter_timed(torch, S, label, table, sids64, vals, flush):
             or not torch.equal(table[others].view(torch.int32), before):
         fail(f"scatter kernel wrote other bits than its values at {label}")
     del before
+    b, by = rows_bound(B, W)
     ms, call_ms, _ = kernel_times(torch, f"scatter_rows_set {label}",
-                                  lambda: S.scatter_rows_set(table, sids, vals), 20, flush)
+                                  lambda: S.scatter_rows_set(table, sids, vals), 20, flush, b)
     plain_ms, _, _ = kernel_times(torch, f"scatter_rows_set plain {label}",
                                   lambda: S.scatter_rows_set_reference(table, sids, vals), 10,
                                   flush)
     lib_ms, _, _ = kernel_times(torch, f"scatter_rows_set library {label}",
                                 lambda: table.index_copy_(0, sids64, vals), 20, flush)
-    b, by = rows_bound(B, W)
     row = dict(route=plan.route, param=plan.param, piece_bytes=plan.piece_bytes,
                resident_blocks=S.scatter_residency(W, plan)[0], max_abs_err=0.0, ms=ms,
                call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
@@ -3857,6 +3937,663 @@ def acf_phase(torch, np, counts, segmax, G, S):
     return cli_launches, summary, rows
 
 
+def comp_features(torch, n_items, g):
+    """CompVBPR's frozen inputs made on the card from ``g``: semantic (vgg19
+    fc2, 4096), color (8x8x8 histograms, 512) and texture (one layer of the
+    32x32 gram grid, 1024) maxabs-normalized non-negative features on the
+    1/64 grid, and edge images [I, 32, 32, 1] in [0, 1]."""
+    dev = g.device
+    feats = [torch.rand(n_items, dim, device=dev, generator=g).mul_(64).round_().div_(64)
+             for dim in (COMP_DIM_S, COMP_DIM_C, COMP_DIM_T)]
+    edges = torch.rand(n_items, COMP_HW, COMP_HW, 1, device=dev, generator=g)
+    return feats[0], feats[1], edges, feats[2]
+
+
+def comp_model(torch, CompVBPR, n_users, n_items, feats, device, seed):
+    """CompVBPR at the JAX CLI's widths (K=128, d=20, every family at
+    weight 0.25) over ``feats``, random weights from ``seed``."""
+    return CompVBPR(n_users, n_items, *feats, embed_k=EMBED_K, embed_d=COMP_EMBED_D,
+                    device=device, generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def comp_masks(torch, B, g):
+    """The CNN's four dropout keep-masks of one step (the positives' fc6,
+    fc7, then the negatives'), drawn on the card: both routes take them."""
+    return [torch.rand(B, 4096, device=g.device, generator=g) < 0.5 for _ in range(4)]
+
+
+def comp_generic_step(torch, model, tx, state, batch, masks):
+    """One generic Trainer step (autograd of ``loss``, TF-parity Adam) with
+    the given dropout masks, as ``Trainer.run_steps`` takes it."""
+    from fashionvisualexpl_tpu_torch.core.train_state import apply_gradients
+
+    names = list(state.params)
+    with torch.enable_grad():
+        loss = model.loss(*(x.long() for x in batch), TRAIN_REG, rng=masks)
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+    return apply_gradients(state, dict(zip(names, grads)), tx), float(loss.detach())
+
+
+def comp_route_phase(torch, np, PG, CompVBPR, feats):
+    """CompVBPR's packed step (fp32 and fp8 moments) and generic Trainer
+    step on the card against the same steps on the CPU, on a 4096 x 4096
+    catalog (the first rows of the full inputs) at batch 256, each step
+    from the CPU route's state with dropout masks drawn once and shared.
+    The rows and the other dense params by ``packed_route_check`` and the
+    route tolerances, the CNN by ``cnn_route_check`` (its ReLUs part the
+    routes' gradients beyond rounding)."""
+    from fashionvisualexpl_tpu_torch.core.train_state import create_train_state, tf_parity_adam
+
+    t0 = time.perf_counter()
+    N, B, n = COMP_ROUTE_N, COMP_ROUTE_B, COMP_ROUTE_STEPS
+    models = [comp_model(torch, CompVBPR, N, N, [f[:N].to(d) for f in feats], d, 40)
+              for d in ("cuda", "cpu")]
+    with torch.no_grad():
+        for a, b in zip(models[0].parameters(), models[1].parameters()):
+            b.copy_(a.cpu())
+    spec = models[0].packed_spec()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    batches = [tuple(torch.randint(0, N, (B,), device="cuda", generator=g, dtype=torch.int32)
+                     for _ in range(3)) for _ in range(n)]
+    masks = [comp_masks(torch, B, g) for _ in range(n)]
+    out = {}
+    for md in ("float32", "float8"):
+        label = f"comp_vbpr packed route {md}"
+        plain = state_on(torch, PG.pack_generic_state(
+            models[0], dict(models[0].named_parameters()), moment_dtype=md))
+        steps = [PG.make_generic_packed_step(m, TRAIN_LR, TRAIN_REG, moment_dtype=md,
+                                             lazy_catchup=True) for m in models]
+        losses, err, beyond, cnn_gap, cnn_apart = [], 0.0, 0, 0.0, 0
+        for s in range(n):
+            kern = state_on(torch, plain, "cuda")  # the CPU route's state
+            kern, lk = steps[0](kern, (None, batches[s], masks[s]))
+            plain, lp = steps[1](plain, (None, tuple(x.cpu() for x in batches[s]),
+                                         [m.cpu() for m in masks[s]]))
+            lk, lp = float(lk), float(lp)
+            if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+                fail(f"{label} step {s}: loss {lk!r} (kernels) vs {lp!r} (plain)")
+            losses.append((lk, lp))
+            rest = {k: v for k, v in plain.dense.items() if k != "cnn"}
+            e, nb = packed_route_check(torch, PG, f"{label} step {s}", kern,
+                                       plain._replace(dense=rest), spec, md, s + 1, TRAIN_LR)
+            cnn_norm, apart = cnn_route_check(torch, f"{label} step {s}", kern.dense["cnn"],
+                                              plain.dense["cnn"], s + 1)
+            err, beyond = max(err, e), beyond + nb
+            cnn_gap, cnn_apart = max(cnn_gap, cnn_norm), cnn_apart + apart
+        out[md] = dict(max_abs_err=err, beyond=beyond, cnn_norm_gap=cnn_gap,
+                       cnn_params_apart=cnn_apart, losses=losses,
+                       user_width=kern.user_pmv.shape[1], item_width=kern.item_pmv.shape[1])
+        print(f"{label}: {n} steps at batch {B}, user rows {kern.user_pmv.shape[1]} and item "
+              f"rows {kern.item_pmv.shape[1]} wide, each from the CPU route's state, shared "
+              f"dropout masks, card vs CPU: losses {losses}; rows and other dense params "
+              f"max_abs_err={err!r}, {beyond} values a code or drift apart; the CNN's moments "
+              f"within {cnn_gap!r} of their norm, {cnn_apart} of its params apart; tau, pads "
+              f"and untouched rows bit-equal ok")
+        del kern, plain
+    # the generic Trainer's step, each from the CPU route's state
+    tx = tf_parity_adam(TRAIN_LR)
+    plain = create_train_state({k: v.detach().clone()
+                                for k, v in models[1].named_parameters()}, tx)
+    losses, err, cnn_gap, cnn_apart = [], 0.0, 0.0, 0
+    for s in range(n):
+        kern = state_on(torch, plain, "cuda", models[0])
+        cpu = state_on(torch, plain, "cpu", models[1])
+        kern, lk = comp_generic_step(torch, models[0], tx, kern, batches[s], masks[s])
+        plain, lp = comp_generic_step(torch, models[1], tx, cpu,
+                                      tuple(x.cpu() for x in batches[s]),
+                                      [m.cpu() for m in masks[s]])
+        if not abs(lk - lp) <= 1e-5 * abs(lp):
+            fail(f"comp_vbpr generic route step {s}: loss {lk!r} (card) vs {lp!r} (CPU)")
+        losses.append((lk, lp))
+        e, gap, apart = comp_generic_check(torch, f"comp_vbpr generic route step {s}", kern,
+                                           plain, s + 1)
+        err, cnn_gap, cnn_apart = max(err, e), max(cnn_gap, gap), cnn_apart + apart
+    out["generic"] = dict(losses=losses, max_abs_err=err, cnn_norm_gap=cnn_gap,
+                          cnn_params_apart=cnn_apart)
+    out["s"] = time.perf_counter() - t0
+    print(f"comp_vbpr generic route: {n} Trainer steps at batch {B}, each from the CPU "
+          f"route's state, shared dropout masks, card vs CPU: losses {losses}; other params "
+          f"max_abs_err={err!r}; the CNN's moments within {cnn_gap!r} of their norm, "
+          f"{cnn_apart} of its params apart; route checks {out['s']!r} s")
+    del models, kern, plain, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def cnn_route_check(torch, label, kern, plain, steps):
+    """The CNN's params and moments ({member: tensor} triples (p, m, v), the
+    kernel route's on the card, the plain route's on the CPU) after the same
+    step from one state.  These are plain PyTorch on both routes (cuDNN and
+    cuBLAS against the CPU), not a kernel of ours, and they part beyond
+    rounding: where a pre-activation lies within the two routes' rounding
+    of 0, one route's ReLU passes its term and the other's stops it, which
+    moves whole columns of that layer's gradient and, through the row it
+    sits in, every gradient below it, while the forward and the loss agree
+    to rounding.  So m and v within COMP_CNN_NORM of the plain route's, as
+    the norm of the difference over the norm (this check prints each); the
+    params within the route tolerances where m agrees entry by entry within
+    rtol, elsewhere within Adam's 2 lr a step.  Returns (the largest
+    relative norm, params apart)."""
+    worst_norm, apart_n = 0.0, 0
+    p, m, v = plain
+    kp, km, kv = (({k: t.cpu() for k, t in x.items()}) for x in kern)
+    norms = {}
+    for k in p:
+        for f, x, y in (("m", km[k], m[k]), ("v", kv[k], v[k])):
+            ref = float(torch.linalg.vector_norm(y))
+            rel = float(torch.linalg.vector_norm(x - y)) / ref if ref else 0.0
+            if not rel <= COMP_CNN_NORM:
+                fail(f"{label} cnn.{k} {f}: the routes part by {rel!r} of its norm")
+            norms[f"{k} {f}"] = rel
+            worst_norm = max(worst_norm, rel)
+        # m apart beyond its own rounding (below the absolute floor too: a
+        # tiny m may change sign, and Adam's step with it)
+        apart = (km[k] - m[k]).abs() > ROUTE_RTOL * m[k].abs()
+        capped_close(f"{label} cnn.{k} p", kp[k], p[k], ROUTE_RTOL, ROUTE_ATOL, 1.0,
+                     2 * TRAIN_LR * steps, apart)
+        apart_n += int(apart.sum())
+    print(f"{label} CNN m and v, the routes' gap over the norm: "
+          + ", ".join(f"{k} {r:.2g}" for k, r in norms.items()))
+    return worst_norm, apart_n
+
+
+def comp_generic_check(torch, label, kern, plain, steps):
+    """Two generic train states after the same step (the kernel route's on
+    the card, the plain route's on the CPU): the CNN's by
+    ``cnn_route_check``, every other param, m and v within the route
+    tolerances.  Returns (max err, the CNN's largest relative norm, its
+    params apart)."""
+    err_max = 0.0
+    cnn = [k for k in plain.params if k.startswith("cnn.")]
+    for k, pk in kern.params.items():
+        if k in cnn:
+            continue
+        for a, b in ((pk.detach(), plain.params[k].detach()),
+                     (kern.opt_state.mu[k], plain.opt_state.mu[k]),
+                     (kern.opt_state.nu[k], plain.opt_state.nu[k])):
+            err_max = max(err_max, worst(torch, f"{label} {k}", a.cpu(), b, ROUTE_RTOL,
+                                         ROUTE_ATOL))
+
+    def group(st):
+        return tuple({k[4:]: t[k].detach() for k in cnn}
+                     for t in (st.params, st.opt_state.mu, st.opt_state.nu))
+
+    return (err_max, *cnn_route_check(torch, label, group(kern), group(plain), steps))
+
+
+def comp_full_phase(torch, np, G, S, CompVBPR, feats, data, start):
+    """The packed epoch (50 steps at batch 8192, fp32 moments) through K4
+    and K5 and 20 generic Trainer steps, each timed with its peak memory
+    above ``start`` and profiled (5 steps): the idle share and the shares
+    of K4, K5, the convs and the GEMMs."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    model = comp_model(torch, CompVBPR, COMP_U, COMP_I, feats, "cuda", 42)
+    out = {}
+    for path, steps, key in (("packed", COMP_STEPS, 150), ("generic", COMP_GENERIC_STEPS, 160)):
+        label = f"comp_vbpr {path}"
+        trainer = Trainer(model, data, TrainConfig(batch_size=COMP_B, lr=TRAIN_LR,
+                                                   reg=TRAIN_REG, train_path=path))
+        tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+        state, frozen = trainer.init_state()
+        triples = sample_triplets(key, *tabs, COMP_I, steps + 1, COMP_B, device="cuda")
+        # one step first (allocations, library handles), untimed
+        state, _ = trainer.run_steps(state, frozen, tuple(t[:1] for t in triples),
+                                     step_key=key + 1)
+        triples = tuple(t[1:] for t in triples)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        S.scatter_rows_set.routes.clear()
+        G.gather_rows.routes.clear()  # this path starts here
+        t0 = time.perf_counter()
+        state, loss = trainer.run_steps(state, frozen, triples, step_key=key + 2)
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        launches = {"gather_rows": G.gather_rows.launches,
+                    "scatter_rows_set": S.scatter_rows_set.launches}  # ... and ends here
+        routes = dict(G.gather_rows.routes)
+        row = dict(steps=steps, batch=COMP_B, s=dt, ms_per_step=1e3 * dt / steps,
+                   triples_per_s=steps * COMP_B / dt,
+                   peak_gib=(torch.cuda.max_memory_allocated() - start) / 2**30,
+                   mean_loss=loss / steps, launches=launches)
+        if path == "packed":
+            inner = state.inner
+            # the user rows (625 floats) and the item rows (388), each
+            # gathered twice and written once a step, on the routes their
+            # plans name
+            row["scatter_routes"] = scatter_routes(S, label, launches["scatter_rows_set"],
+                                                   steps, (inner.user_pmv, inner.item_pmv))
+            want = {"gather_rows": 4 * steps, "scatter_rows_set": 2 * steps}
+            want_routes = {}
+            for table in (inner.user_pmv, inner.item_pmv):
+                r = G.gather_plan(table.shape[1], table.data_ptr(), 0).route
+                want_routes[r] = want_routes.get(r, 0) + 2 * steps
+            if launches != want or routes != want_routes:
+                fail(f"{label}: launches {launches} (expected {want}), K4 routes {routes} "
+                     f"(expected {want_routes})")
+            row.update(gather_routes=routes, user_width=inner.user_pmv.shape[1],
+                       item_width=inner.item_pmv.shape[1])
+        elif any(launches.values()):
+            fail(f"{label}: the generic path launched the row kernels {launches}")
+        if not np.isfinite(loss) or int(state.step) != steps + 1:
+            fail(f"{label}: loss {loss!r}, step {int(state.step)}")
+        print(f"{label}: {row}")
+        row["profile"] = step_profile(
+            torch, label, lambda tr: trainer.run_steps(state, frozen, tr, step_key=key + 3),
+            sample_triplets(key + 4, *tabs, COMP_I, COMP_PROFILE_STEPS, COMP_B, device="cuda"),
+            COMP_PROFILE_STEPS)
+        if row["profile"]["tf32_share"] or not row["profile"]["conv_share"]:
+            fail(f"{label}: TF32 kernels in the step, or no convolution: {row['profile']}")
+        out[path] = row
+        del trainer, state, triples
+        torch.cuda.empty_cache()
+    return model, out
+
+
+def comp_eval_serve_phase(torch, np, counts, segmax, model, items, cnt):
+    """The trained model through ``FactoredEvaluator(counts_impl="kernel")``
+    at D=208 (the test split over 1M users: one item per user outside its
+    20 positives), the first user blocks again through the bucketed engine;
+    then ``RecServer`` through K3 at the serving buckets (every launch on
+    ``segmax_mma_kernel``), 64 users against a full-catalog fp32 oracle
+    (the evaluator's factors, so the CNN encodes the catalog three times,
+    not four)."""
+    from fashionvisualexpl_tpu_torch.eval.evaluator import concat_metrics
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+    from fashionvisualexpl_tpu_torch.ops.metrics import mean_metrics
+    from fashionvisualexpl_tpu_torch.serve import RecServer
+
+    out = {}
+    t0 = time.perf_counter()
+    data = types.SimpleNamespace(num_users=COMP_U, num_items=COMP_I,
+                                 training_list=items.tolist(),
+                                 test_list=(items[:, :1] + 1).tolist(), validation_list=[],
+                                 has_validation=False)
+    ev = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK, counts_impl="kernel")
+    evb = FactoredEvaluator(model, data, k=EVAL_K, user_block=EVAL_BLOCK,
+                            counts_impl="bucketed")
+    out["setup_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts.counts_kernel.launches = 0  # CompVBPR's evaluation path starts here
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(None, None)
+    out["evaluate_s"] = time.perf_counter() - t0
+    launches = counts.counts_kernel.launches  # ... and ends here
+    t0 = time.perf_counter()
+    uf, iv, ib = ev._factors(None)  # factored_eval: every item's edge image encoded
+    torch.cuda.synchronize()
+    out["factored_eval_s"] = time.perf_counter() - t0
+    want = -(-COMP_U // EVAL_BLOCK)
+    vals = np.array(list(metrics.values()))
+    if launches != want or uf.shape[1] != COMP_D or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"comp_vbpr evaluation: {launches} K2 launches (expected {want}), D "
+             f"{uf.shape[1]}, metrics {metrics}")
+    per = []
+    for e in (ev, evb):
+        blocks = []
+        for blk in range(EVAL_CHECK_BLOCKS):
+            ids = torch.arange(blk * EVAL_BLOCK, (blk + 1) * EVAL_BLOCK, device="cuda")
+            blocks.append(e._eval_block("test", uf[ids], iv, ib, ids))
+        per.append(mean_metrics(concat_metrics(blocks)))
+    for f in ("hr", "prec", "rec", "auc", "ndcg"):
+        a, b = float(getattr(per[0], f)), float(getattr(per[1], f))
+        if not abs(a - b) <= 2e-4 + 2e-3 * abs(b):
+            fail(f"comp_vbpr evaluation: the first blocks' mean {f} {a!r} (K2) vs {b!r} "
+                 f"(bucketed)")
+    out.update(metrics=metrics, launches=launches,
+               split_ms=1e3 * (out["evaluate_s"] - out["factored_eval_s"]),
+               scores_per_s=COMP_U * COMP_I / (out["evaluate_s"] - out["factored_eval_s"]))
+    print(f"comp_vbpr evaluation at D={COMP_D}: evaluate {out['evaluate_s']!r} s (of which "
+          f"factored_eval, the CNN over every item, {out['factored_eval_s']!r} s), test split "
+          f"{out['split_ms']!r} ms, {launches} K2 launches, evaluator setup "
+          f"{out['setup_s']!r} s; the first {EVAL_CHECK_BLOCKS} blocks' means equal through "
+          f"the bucketed engine within rtol 2e-3; metrics {metrics}")
+    del ev, evb
+
+    t0 = time.perf_counter()
+    srv = RecServer(model, data, k=K_TOP, seg=SEG, oversample=OVERSAMPLE,
+                    item_block=ITEM_BLOCK, history=(items, cnt))
+    srv.refresh()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    rng = np.random.default_rng(43)
+    batches = {B: rng.choice(COMP_U, B, replace=False) for B in BUCKETS}
+    serving, served, serve_launches, serve_routes = serve_buckets(
+        np, segmax, srv, batches, SERVE_REPS, f"comp_vbpr serving D={COMP_D}",
+        {"segmax_mma_kernel"})
+    with torch.no_grad():  # the oracle: full-catalog fp32 scores of the factors
+        u64 = torch.as_tensor(batches[64], device="cuda").long()
+        s = uf[u64] @ iv.T + ib
+        for row, uid in enumerate(batches[64]):
+            s[row, torch.as_tensor(items[uid, :cnt[uid]], device="cuda").long()] = -np.inf
+        want_vals, want_ids = torch.topk(s, K_TOP, dim=1)
+    check_served(np, f"comp_vbpr serve check B=64 bf16 kernel D={COMP_D}", *served[64],
+                 want_ids.cpu().numpy(), want_vals.cpu().numpy())
+    out["serve"] = dict(refresh_s=refresh_s, buckets=serving, launches=serve_launches,
+                        routes=serve_routes)
+    print(f"comp_vbpr serving: refresh {refresh_s!r} s, {serving}, K3 {serve_routes}")
+    del srv, uf, iv, ib
+    torch.cuda.empty_cache()
+    return out
+
+
+def comp_kernel_phase(torch, np, counts, segmax, topk, G, S, items):
+    """K3 and K2 alone at D=208 and K4 and K5 at CompVBPR's user rows, each
+    checked against its plain version (K3 within its tolerance on its
+    asserted route, K2 bit-equal on 1/64-grid data, K4 and K5 bit-equal)
+    and timed with the L2 flushed beside its bound and the library call."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(44)
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    out = {"segmax_scores": {}, "gather_rows": {}, "scatter_rows_set": {}}
+    t0 = time.perf_counter()
+    # K3 over the 200k catalog padded to the serving block, at the buckets
+    Ip, D = -(-COMP_I // ITEM_BLOCK) * ITEM_BLOCK, COMP_D
+    iv = torch.randn(Ip, D, device=dev, generator=g).bfloat16()
+    ib = torch.randn(Ip, device=dev, generator=g) * 0.1
+    ib[COMP_I:] = -1e30
+    for B, iters in ((8, 50), (64, 50), (1024, 20), (4096, 10)):
+        uf = (torch.randn(B, D, device=dev, generator=g) * (3.0 / D**0.5)).bfloat16()
+        route = segmax.segmax_route(B, D, SEG, segmax.operand_align(uf, iv))
+        before = segmax.segmax_scores.routes.copy()
+        got = segmax.segmax_scores(uf, iv, ib, SEG)
+        torch.cuda.synchronize()
+        took = segmax.segmax_scores.routes - before
+        want = segmax.segmax_scores_reference(uf, iv, ib, SEG)
+        err = float((got - want).abs().max())
+        if route["kernel"] != "segmax_mma_kernel" or set(took) != {"segmax_mma_kernel"} or \
+                not bool(((got - want).abs() <= K_ATOL + K_RTOL * want.abs()).all()):
+            fail(f"segmax at D={D} B={B}: planned {route}, took {dict(took)}, "
+                 f"max_abs_err={err!r}")
+        bound, by = segmax_bound_ms(B, Ip, D, SEG, 2, PEAK_BF16_FLOPS)
+        ms, call_ms, _ = kernel_times(torch, f"segmax D={D} B={B}",
+                                      lambda: segmax.segmax_scores(uf, iv, ib, SEG), iters, flush,
+                                      bound)
+        plain, _, _ = kernel_times(torch, f"segmax plain D={D} B={B}",
+                                   lambda: segmax.segmax_scores_reference(uf, iv, ib, SEG), 5,
+                                   flush)
+        lib, _, _ = kernel_times(torch, f"segmax library D={D} B={B}",
+                                 lambda: torch.matmul(uf, iv.T), iters, flush)
+        check_bound(f"segmax D={D} B={B}", ms, bound)
+        out["segmax_scores"][B] = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain,
+                                       bound_ms=bound, bound_by=by, library_ms=lib,
+                                       kernel=route["kernel"], Dp=route["Dp"],
+                                       copy_bytes=route["copy_bytes"],
+                                       vs_library=ms / lib, shape=f"B={B} Ip={Ip} D={D} "
+                                       f"seg={SEG} bf16, cold L2")
+        print(f"kernel time segmax B={B} Ip={Ip} D={D} seg={SEG} bf16, cold L2 "
+              f"({route['kernel']}, Dp {route['Dp']}, {route['copy_bytes']}-byte copies): "
+              f"ms={ms!r} call_ms={call_ms!r} plain_ms={plain!r} library_ms(matmul bf16)="
+              f"{lib!r} ({ms / lib:.2f}x) bound_ms={bound!r} ({by})")
+        del uf, got, want
+    del iv, ib
+    torch.cuda.empty_cache()
+
+    # K2 at the evaluator's block: 4096 users of the test split x the
+    # catalog, D=208, the banned sets of the evaluation data, 1/64 grid
+    I, B = COMP_I, EVAL_BLOCK
+    banned_np = np.concatenate([items[:B], items[:B, :1] + 1], axis=1)
+    W = topk.banned_bucket_width(banned_np, I, EVAL_TILE)
+    banned = torch.from_numpy(banned_np).to(dev)
+    uf, iv, ib = (q64(torch.randn(*shape, device=dev, generator=g) * 0.25)
+                  for shape in ((B, D), (I, D), (I,)))
+    ref = torch.einsum("bd,bwd->bw", uf, iv[banned[:, -1:].long()]) + ib[banned[:, -1:].long()]
+    loc, msk = topk.bucket_banned_ids_device(banned, I, EVAL_TILE, W)
+    *args, item_tile, ut = counts.pad_counts_inputs(uf, iv, ib, ref, loc, msk, EVAL_TILE)
+    got = counts.counts_kernel(*args, item_tile=item_tile, user_tile=ut)
+    torch.cuda.synchronize()
+    if not torch.equal(got, counts.counts_kernel_reference(*args, item_tile)):
+        fail(f"counts kernel disagrees with its plain version at D={D}")
+    uf_p, iv_p = args[0], args[1]
+    Ip = iv_p.shape[0]
+    b, by = counts_bound_ms(B, Ip, D, 1, Ip // EVAL_TILE, W)
+    ms, call_ms, _ = kernel_times(torch, f"counts D={D}", lambda: counts.counts_kernel(
+        *args, item_tile=item_tile, user_tile=ut), 10, flush, b)
+    plain_ms, _, _ = kernel_times(torch, f"counts plain D={D}",
+                                  lambda: counts.counts_kernel_reference(*args, item_tile), 5,
+                                  flush)
+    lib_ms, _, _ = kernel_times(torch, f"counts library D={D}",
+                                lambda: torch.matmul(uf_p, iv_p.T), 5, flush)
+    check_bound(f"counts D={D}", ms, b)
+    out["counts"] = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=lib_ms, vs_library=ms / lib_ms,
+                         shape=f"B={B} Ip={Ip} D={D} T=1 W={W} f32, cold L2")
+    print(f"kernel time counts B={B} Ip={Ip} D={D} T=1 W={W} f32, cold L2: bit-equal ok, "
+          f"ms={ms!r} call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(matmul f32, product "
+          f"only)={lib_ms!r} ({ms / lib_ms:.2f}x) bound_ms={b!r} ({by})")
+    del args, uf, iv, ib, ref, uf_p, iv_p, got
+    torch.cuda.empty_cache()
+
+    # K4 and K5 at the packed user rows over a 1M-row table, batch 8192
+    for W in COMP_USER_WIDTHS:
+        table = torch.randn(COMP_U, W, device=dev, generator=g)
+        ids = torch.randint(0, COMP_U, (COMP_B,), device=dev, generator=g, dtype=torch.int32)
+        out["gather_rows"][W] = gather_timed(torch, G, f"R={COMP_U} W={W} B={COMP_B}",
+                                             table, ids, flush)
+        sids64 = torch.randperm(COMP_U, device=dev, generator=g)[:COMP_B]
+        vals = torch.randn(COMP_B, W, device=dev, generator=g)
+        out["scatter_rows_set"][W] = scatter_timed(torch, S, f"R={COMP_U} W={W} B={COMP_B}",
+                                                   table, sids64, vals, flush)
+        del table, ids, sids64, vals
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"comp_vbpr kernel grid: {out['s']!r} s; K4 routes "
+          f"{ {W: r['route'] for W, r in out['gather_rows'].items()} }, K5 routes "
+          f"{ {W: r['route'] for W, r in out['scatter_rows_set'].items()} }")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def cnn_flops(B: int, h: int, w: int) -> tuple:
+    """(forward, backward) operations of the CNN at [B, h, w, 1] images
+    (2 a multiply-add): the convs at their SAME output sizes and the FCs;
+    the backward twice the forward but for conv1's input gradient (the
+    images are frozen)."""
+    from fashionvisualexpl_tpu_torch.models.cnn import CONVS, POOL_AFTER
+
+    fwd, cin, first = 0.0, 1, 0.0
+    for name, k, cout, stride in CONVS:
+        h, w = -(-h // stride), -(-w // stride)
+        fwd += 2.0 * B * h * w * cout * k * k * cin
+        if name == "conv1":
+            first = fwd
+        if name in POOL_AFTER:
+            h, w = -(-h // 2), -(-w // 2)
+        cin = cout
+    for fan_in, fan_out in ((h * w * 256, 4096), (4096, 4096), (4096, COMP_EMBED_D)):
+        fwd += 2.0 * B * fan_in * fan_out
+    return fwd, 2 * fwd - first
+
+
+def comp_cnn_phase(torch):
+    """The CNN at the reference's 224x224 (B=256): TF32 off (the card's
+    forward within COMP_F64_RTOL of a float64 forward on the CPU, relative
+    to its largest output; TF32 rounds at ~1e-3), then forward and forward +
+    backward timed with CUDA events beside the f32 operations bound."""
+    from fashionvisualexpl_tpu_torch.models.cnn import CNN
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(45)
+    cnn = CNN(COMP_EMBED_D, in_channels=1, input_hw=(224, 224), device=dev, generator=g)
+    x = torch.rand(COMP_CNN_B, 224, 224, 1, device=dev, generator=g)
+    ref = CNN(COMP_EMBED_D, in_channels=1, input_hw=(224, 224), device="cpu").double()
+    with torch.no_grad():
+        for a, b in zip(cnn.parameters(), ref.parameters()):
+            b.copy_(a.double().cpu())
+        got = cnn.encode(x[:2]).double().cpu()
+        want = ref.encode(x[:2].double().cpu())
+    rel = float((got - want).abs().max() / want.abs().max())
+    if rel > COMP_F64_RTOL:
+        fail(f"CNN at 224x224 on the card: {rel!r} relative to float64 (TF32 left on?)")
+    w = torch.randn(COMP_CNN_B, COMP_EMBED_D, device=dev, generator=g)
+    params = list(cnn.parameters())
+
+    def fwd():
+        with torch.no_grad():
+            cnn.encode(x)
+
+    def fwd_bwd():
+        torch.autograd.grad(torch.sum(cnn.encode(x) * w), params)
+
+    fwd_ms, step_ms = cuda_ms(torch, fwd, 5), cuda_ms(torch, fwd_bwd, 5)
+    f_ops, b_ops = cnn_flops(COMP_CNN_B, 224, 224)
+    f_bound, b_bound = (bound_ms(0, ops, PEAK_F32_FLOPS)[0] for ops in (f_ops, f_ops + b_ops))
+    out = dict(batch=COMP_CNN_B, f64_rel_err=rel, fwd_ms=fwd_ms, fwd_bwd_ms=step_ms,
+               fwd_bound_ms=f_bound, fwd_bwd_bound_ms=b_bound, fwd_tflops=f_ops / fwd_ms / 1e9,
+               fwd_bwd_tflops=(f_ops + b_ops) / step_ms / 1e9)
+    print(f"CNN 224x224 B={COMP_CNN_B} f32 (TF32 off: {rel!r} relative to float64): forward "
+          f"{fwd_ms!r} ms (bound {f_bound!r} ms at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+          f"{out['fwd_tflops']!r} TFLOP/s), forward + backward {step_ms!r} ms (bound "
+          f"{b_bound!r} ms, {out['fwd_bwd_tflops']!r} TFLOP/s)")
+    del cnn, ref, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_comp_features(np, d: Path, n: int):
+    """CompVBPR's inputs in the reference's layout under data directory
+    ``d``: 4096-wide vgg19 fc2 features, 8x8x8 color histograms, 1024-wide
+    texture features and 224x224 edge tiffs (L mode: sparse white edges on
+    black, as edge maps are; item i's is the (i mod 64)-th of 64 drawn
+    maps, encoded once: writing 16,384 encoded anew took 25 s)."""
+    from PIL import Image
+
+    from fashionvisualexpl_tpu_torch.core.config import Paths
+
+    rng = np.random.default_rng(46)
+    paths = Paths(root=str(d.parent))
+    for path, arr in (
+        (paths.cnn_features(d.name, "vgg19", "fc2"),
+         np.abs(rng.standard_normal((n, COMP_DIM_S), np.float32))),
+        (paths.hist_color_features(d.name),
+         rng.integers(0, 100, (n, COMP_DIM_C)).astype(np.int32)),
+        (paths.texture_features(d.name, "vgg19"),
+         np.abs(rng.standard_normal((n, COMP_DIM_T), np.float32))),
+    ):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, arr)
+    edir = Path(paths.edges_dir(d.name))
+    edir.mkdir(parents=True, exist_ok=True)
+    tiffs = []
+    for _ in range(64):
+        buf = io.BytesIO()
+        Image.fromarray(((rng.random((224, 224)) < 0.1) * 255).astype(np.uint8),
+                        mode="L").save(buf, format="TIFF")
+        tiffs.append(buf.getvalue())
+    for i in range(n):
+        (edir / f"{i}.tiff").write_bytes(tiffs[i % 64])
+
+
+def comp_cli_phase(torch, np, counts, segmax, G, S):
+    """``train_rec --rec comp_vbpr`` at its default ``--edge_hw 224 224``:
+    generic with ``--streaming_eval`` on 1024 users x 16,384 items (the
+    smallest catalog the streaming evaluator sends to K2 by default; K3 in
+    its dumps), then ``--train_path packed`` with the dense evaluator (K4,
+    K5) and ``serve_rec`` from its checkpoint (K3) on 1024 x 1024; both
+    datasets written here.  The file sets, row counts, metrics and each
+    run's launches.  Each run reads its catalog's tiffs anew (16,384: ~25 s
+    on the card's host), so only the generic run takes the large one."""
+    import glob
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+
+    phase_t0 = t0 = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    N = COMP_CLI_U
+    for name, n_items in (("cli", COMP_CLI_I), ("cli_small", N)):
+        write_reference_dataset(np, CLI_DIR / name, N, n_items)
+        write_comp_features(np, CLI_DIR / name, n_items)
+    out = dict(write_s=time.perf_counter() - t0)
+    users = ",".join(str(u * (N // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    steps = 2 * (N * (CLI_PER_USER - 2) // COMP_CLI_B)
+    launches = {}
+    for label, dataset, extra in (("comp_vbpr", "cli", ("--streaming_eval",)),
+                                  ("comp_vbpr-packed", "cli_small", ("--train_path", "packed"))):
+        packed = "packed" in label
+        results = CLI_DIR / label
+        common = ["--rec", "comp_vbpr", "--dataset", dataset, "--data_root", str(CLI_DIR),
+                  "--results_root", str(results), "--embed_k", str(EMBED_K),
+                  "--embed_d", str(COMP_EMBED_D), "--top_k", str(CLI_K), *extra]
+        counts.counts_kernel.launches = segmax.segmax_scores.launches = 0
+        segmax.segmax_scores.routes.clear()
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0
+        S.scatter_rows_set.routes.clear()  # this run starts here
+        t1 = time.perf_counter()
+        train(common + ["--epochs", "2", "--batch_size", str(COMP_CLI_B)])
+        train_s = time.perf_counter() - t1
+        (ckpt,) = glob.glob(str(results / "rec_model_weights" / dataset / "comp_vbpr" /
+                                "ckpt-*"))
+        serve_s = None
+        if packed:
+            t1 = time.perf_counter()
+            serve(common + ["--ckpt", ckpt, "--users", users, "--output",
+                            str(results / "served.tsv")])
+            serve_s = time.perf_counter() - t1
+        run = {"gather_rows": G.gather_rows.launches,
+               "scatter_rows_set": S.scatter_rows_set.launches,
+               "counts": counts.counts_kernel.launches,
+               "segmax_scores": segmax.segmax_scores.launches,
+               "segmax_routes": dict(segmax.segmax_scores.routes)}  # ... and ends here
+        run["scatter_routes"] = scatter_routes(S, f"{label} cli", run["scatter_rows_set"])
+        rdir = results / "rec_results" / dataset / "comp_vbpr"
+        metrics = check_cli_run(np, f"{label} cli", results, rdir, N, run,
+                                (4 * steps, 2 * steps) if packed else (0, 0),
+                                ("segmax_scores",) if packed else ("counts", "segmax_scores"),
+                                served=packed)
+        files = sorted(os.path.basename(p) for p in glob.glob(str(rdir / "*")))
+        kinds = sorted({f.split("-")[0] for f in files})
+        ckpts = sorted(os.listdir(ckpt))
+        if kinds != ["best", "log", "recs", "results"] or len(files) != 4 \
+                or ckpts != ["best-state"] or set(run["segmax_routes"]) != {"segmax_mma_kernel"}:
+            fail(f"{label} cli: wrote {files}, checkpoints {ckpts}, K3 {run['segmax_routes']}")
+        launches[label] = run
+        out[label] = dict(dataset=dataset, train_s=train_s, serve_s=serve_s, metrics=metrics,
+                          files=files)
+        print(f"{label} cli ({dataset}): train_rec {train_s!r} s"
+              + (f", serve_rec {serve_s!r} s" if packed else "")
+              + f"; launches {run}; files {files}; metrics epoch 2 {metrics}")
+    out["s"] = time.perf_counter() - phase_t0
+    print(f"comp_vbpr cli: {N} x {COMP_CLI_I} and {N} x {N} with 224x224 edge tiffs "
+          f"(written in {out['write_s']!r} s); phase {out['s']!r} s")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches, out
+
+
+def comp_vbpr_phase(torch, np, counts, segmax, topk, G, S):
+    """CompVBPR at the JAX CLI's widths (module docstring, phase 20)."""
+    from fashionvisualexpl_tpu_torch.models.comp_vbpr import CompVBPR
+    from fashionvisualexpl_tpu_torch.train import packed_generic as PG
+
+    phase_t0 = time.perf_counter()
+    start = phase_start(torch)
+    feats = comp_features(torch, COMP_I, torch.Generator(device="cuda").manual_seed(47))
+    pairs, items, cnt = make_scaled_arrays(COMP_U, COMP_I, COMP_P, seed=0)
+    data = types.SimpleNamespace(num_items=COMP_I, num_train=len(pairs), train_pairs=pairs,
+                                 padded_pos=items, pos_counts=cnt,
+                                 steps_per_epoch=lambda b: len(pairs) // b)
+    summary = dict(setup_s=time.perf_counter() - phase_t0)
+    summary["route"] = comp_route_phase(torch, np, PG, CompVBPR, feats)
+    model, full = comp_full_phase(torch, np, G, S, CompVBPR, feats, data, start)
+    summary.update(full)
+    summary.update(comp_eval_serve_phase(torch, np, counts, segmax, model, items, cnt))
+    summary["peak_gib"] = (torch.cuda.max_memory_allocated() - start) / 2**30
+    del model, feats
+    torch.cuda.empty_cache()
+    summary["kernels"] = comp_kernel_phase(torch, np, counts, segmax, topk, G, S, items)
+    summary["cnn_224"] = comp_cnn_phase(torch)
+    cli_launches, summary["cli"] = comp_cli_phase(torch, np, counts, segmax, G, S)
+    summary["s"] = time.perf_counter() - phase_t0
+    print(f"comp_vbpr phase: {summary['s']!r} s")
+    return cli_launches, summary
+
+
 def main() -> int:
     if not (PKG / "ops" / "csrc" / "segmax.cu").is_file():
         print("chip_smoke: run from a checkout of the repository "
@@ -3925,6 +4662,7 @@ def main() -> int:
     af_packed_launches, af_packed = af_packed_phase(torch, np, G, S, E)
     packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
     acf_cli_launches, acf, acf_rows = acf_phase(torch, np, counts, segmax, G, S)
+    comp_cli_launches, comp = comp_vbpr_phase(torch, np, counts, segmax, topk, G, S)
 
     main_row = rows[4096]
     kernels = [{
@@ -3945,6 +4683,10 @@ def main() -> int:
         "acf_launches": acf["serve"]["launches"],
         "acf_routes": acf["serve"]["routes"],
         "acf_cli_launches": {k: v["segmax_scores"] for k, v in acf_cli_launches.items()},
+        "d208": comp["kernels"]["segmax_scores"],
+        "comp_vbpr_launches": comp["serve"]["launches"],
+        "comp_vbpr_routes": comp["serve"]["routes"],
+        "comp_vbpr_cli_launches": {k: v["segmax_scores"] for k, v in comp_cli_launches.items()},
         "build_s": rows["build_s"],
         "ptxas": rows["ptxas"],
     }]
@@ -3968,6 +4710,9 @@ def main() -> int:
         "vbpr_launches": vbpr_launches["counts"],
         "visual_cli_launches": {k: v["counts"] for k, v in vis_cli_launches.items()},
         "acf_launches": acf["launches"],
+        "d208": comp["kernels"]["counts"],
+        "comp_vbpr_launches": comp["launches"],
+        "comp_vbpr_cli_launches": {k: v["counts"] for k, v in comp_cli_launches.items()},
     })
     for name, line in (("edge_tower_fwd", 114), ("edge_tower_bwd", 127)):
         kernels.append({
@@ -3993,6 +4738,9 @@ def main() -> int:
             "acf_fused_launches": acf["fused"]["launches"][name],
             "acf_cli_launches": {k: v[name] for k, v in acf_cli_launches.items()},
             "acf_grid": acf_rows[name],
+            "comp_vbpr_launches": comp["packed"]["launches"][name],
+            "comp_vbpr_grid": comp["kernels"][name],
+            "comp_vbpr_cli_launches": {k: v[name] for k, v in comp_cli_launches.items()},
         })
     for kernel, kind, tag in ((kernels[-2], "gather", "k4"), (kernels[-1], "scatter", "k5")):
         kernel.update(
@@ -4002,9 +4750,11 @@ def main() -> int:
             visual_cli_routes={k: v[f"{kind}_routes"] for k, v in vis_cli_launches.items()},
             acf_routes=acf["packed"][f"{kind}_routes"],
             acf_fused_routes=acf["fused"][f"{kind}_routes"],
+            comp_vbpr_routes=comp["packed"][f"{kind}_routes"],
             step_share={k: p["profile"][f"{tag}_share"] for k, p in (
                 ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]),
-                ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]))})
+                ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]),
+                ("comp_vbpr_packed", comp["packed"]))})
         if not all(kernel["step_share"].values()):
             fail(f"{kernel['name']}: no share of a packed step's device time "
                  f"{kernel['step_share']}: the profile's kernel names are out of date")
@@ -4015,6 +4765,7 @@ def main() -> int:
     print(json.dumps({"packed": packed, "af_packed": af_packed, "packed_cli": packed_cli}))
     print(json.dumps({"vbpr": vbpr, "visual_cli": vis_cli}))
     print(json.dumps({"acf": acf}))
+    print(json.dumps({"comp_vbpr": comp}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

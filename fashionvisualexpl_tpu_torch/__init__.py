@@ -6,15 +6,14 @@ mirrors the path of its JAX counterpart.  It imports ``torch`` and never
 unless the caller passes ``device="cpu"`` (``core/device.py``).
 
 Ported: serving (``serve/engine.py::RecServer``), BPRMF, VBPR, GradFashion,
-AttentiveFashion and ACF with the generic ``Trainer`` / ``fit``, the fast
+AttentiveFashion, CompVBPR and ACF with the generic ``Trainer`` / ``fit``, the fast
 BPRMF and VBPR steps and the packed LazyAdam engine (frozen feature columns
 fused into the item rows, ACF's extra item rows), dense and streaming evaluation with the dumps,
 GradFashion's explanations (``explain/grads.py``), checkpoints and the
 ``train_rec`` / ``serve_rec`` / ``get_explanations`` CLI, on one device.  Every Pallas
 kernel of the JAX package has a hand-written CUDA C++ counterpart under
 ``ops/csrc/``.  The top-level names below resolve lazily, as in the JAX
-package; the models not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+package.
 """
 
 __version__ = "0.1.0"
@@ -30,15 +29,12 @@ _SURFACE = {
     "GradFashion": "fashionvisualexpl_tpu_torch.models.grad_fashion",
     "AttentiveFashion": "fashionvisualexpl_tpu_torch.models.attentive_fashion",
     "ACF": "fashionvisualexpl_tpu_torch.models.acf",
+    "CompVBPR": "fashionvisualexpl_tpu_torch.models.comp_vbpr",
     "Trainer": "fashionvisualexpl_tpu_torch.train.trainer",
     "fit": "fashionvisualexpl_tpu_torch.train.trainer",
     "Evaluator": "fashionvisualexpl_tpu_torch.eval.evaluator",
     "FactoredEvaluator": "fashionvisualexpl_tpu_torch.eval.factored",
     "CheckpointManager": "fashionvisualexpl_tpu_torch.core.checkpoint",
-}
-# models of later slices, by the heading of their ROADMAP item
-_LATER = {
-    "CompVBPR": "CNN and CompVBPR",
 }
 
 
@@ -49,8 +45,4 @@ def __getattr__(name):
         import importlib
 
         return getattr(importlib.import_module(_SURFACE[name]), name)
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP: {_LATER[name]})"
-        )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

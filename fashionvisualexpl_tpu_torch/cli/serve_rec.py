@@ -1,10 +1,11 @@
 """Serving CLI (port of ``fashionvisualexpl_tpu/cli/serve_rec.py``): load the
 best params of a ``train_rec`` checkpoint and answer top-k queries with the
-port's ``RecServer``: BPRMF, VBPR, GradFashion and ACF through its three
-stages (stage 1 by the segmax kernel K3 on the card; VBPR and GradFashion
-factored at D = embed_k + embed_d, their frozen features loaded as
-``train_rec`` loads them; ACF at D = embed_k, every user's attentive
-profile computed at refresh), AttentiveFashion through the direct path
+port's ``RecServer``: BPRMF, VBPR, GradFashion, CompVBPR and ACF through
+its three stages (stage 1 by the segmax kernel K3 on the card; VBPR and
+GradFashion factored at D = embed_k + embed_d, CompVBPR at embed_k +
+embed_d per active family, every item's edge image encoded once at
+refresh, their frozen features loaded as ``train_rec`` loads them; ACF at
+D = embed_k, every user's attentive profile computed at refresh), AttentiveFashion through the direct path
 (the items encoded once at refresh, by the edge-tower kernel K7 on the
 card).
 

@@ -24,9 +24,13 @@ packed LazyAdam engine (``--moment_dtype``, ``--row_align``,
 honoured); ``acf`` (the per-item spatial CNN maps under
 ``cnn_features_split_dir``, ``--max_user_pos``, ``--acf_exact_eval``,
 ``--acf_exact_train`` on the generic path, ``--compute_dtype``; factored at
-D = embed_k).  ``--rec comp_vbpr``, ``--streamed``, ``--compute_dtype
-bfloat16`` for attentive_fashion and a mesh raise ``NotImplementedError``
-naming their ROADMAP item by heading.
+D = embed_k); and ``comp_vbpr`` (the families of ``--activated_components``
+mixed by ``--weight_components``: the CNN features of ``--cnn_model`` /
+``--output_layer``, the color histograms, the edge tiffs at ``--edge_hw``
+through the trainable CNN, the texture features of ``--cnn_model``;
+factored at D = embed_k + embed_d per active family).  ``--streamed``,
+``--compute_dtype bfloat16`` for attentive_fashion and comp_vbpr and a
+mesh raise ``NotImplementedError`` naming their ROADMAP item by heading.
 
 Usage:
   python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
@@ -37,12 +41,6 @@ from __future__ import annotations
 
 import argparse
 import os
-
-# models of later slices, by the heading of the ROADMAP item that ports them
-_LATER_MODELS = {
-    "comp_vbpr": "CNN and CompVBPR",
-}
-
 
 def _bool_flag(s: str) -> bool:
     """Strict 0/1/true/false parser — a typo like 'no' or 'off' must be a
@@ -106,15 +104,18 @@ def build_parser(description="Run train of the Recommender Model."):
                    default="float32",
                    help="compute dtype for the trainable encoder towers "
                         "(attentive_fashion / comp_vbpr: only float32 "
-                        "runs so far; bfloat16: ROADMAP: bf16 encoder towers) "
-                        "and acf's attention einsums (both run)")
+                        "runs so far, in full f32 on the card; bfloat16: "
+                        "ROADMAP: bf16 encoder towers) and acf's attention "
+                        "einsums (both run)")
     p.add_argument("--edge_tower", choices=["auto", "fused", "xla", "s2d"],
                    default="auto",
                    help="attentive_fashion conv->pool->GAP tower impl: "
                         "fused = the CUDA edge-tower kernel "
-                        "(ops/edge_tower.py), xla and s2d = the plain "
-                        "PyTorch tower, auto = the kernel on the card for "
-                        "even image sizes")
+                        "(ops/edge_tower.py), xla = the plain PyTorch "
+                        "tower, s2d = the same function on a "
+                        "space-to-depth layout (ops/s2d_conv.py, plain "
+                        "PyTorch), auto = the kernel on the card for even "
+                        "image sizes")
     p.add_argument("--streaming_eval", action="store_true",
                    help="use the blocked streaming evaluator (factored models)")
     p.add_argument("--streamed", action="store_true",
@@ -136,7 +137,8 @@ def build_parser(description="Run train of the Recommender Model."):
                         "attentive_fashion on one device, and vbpr, "
                         "grad_fashion and acf with their frozen features in the "
                         "item rows (--fused_frozen; acf's positive sets as "
-                        "extra item rows); the port has no mesh.  Not faster on the port so far: on an NVIDIA "
+                        "extra item rows), comp_vbpr with its CNN as a dense "
+                        "group; the port has no mesh.  Not faster on the port so far: on an NVIDIA "
                         "H100 80GB HBM3 at 700 W a packed attentive_fashion "
                         "step took 27.1 ms against 14.8 ms generic "
                         "(PERF.md)")
@@ -255,14 +257,9 @@ def validate_args(args):
 def check_ported(args) -> None:
     """Raise NotImplementedError for the options of later slices, before any
     data loads."""
-    if args.rec in _LATER_MODELS:
-        raise NotImplementedError(
-            f"--rec {args.rec} is not ported yet "
-            f"(ROADMAP: {_LATER_MODELS[args.rec]})"
-        )
     if args.streamed:
         raise NotImplementedError("--streamed is not ported yet (ROADMAP: The streamed trainer)")
-    if args.rec == "attentive_fashion" and args.compute_dtype == "bfloat16":
+    if args.rec in ("attentive_fashion", "comp_vbpr") and args.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "--compute_dtype bfloat16 (bf16 towers and a bf16 edge-tower "
             "kernel) is not ported yet (ROADMAP: bf16 encoder towers)"
@@ -275,8 +272,8 @@ def check_ported(args) -> None:
 
 def build_model(args, data, cfg):
     """Model registry (reference train_rec.py:75-86): ``bprmf``, ``vbpr``,
-    ``grad_fashion``, ``attentive_fashion`` and ``acf`` on ``args.device``;
-    ``check_ported`` names the ROADMAP items of the rest."""
+    ``grad_fashion``, ``attentive_fashion``, ``comp_vbpr`` and ``acf`` on
+    ``args.device``."""
     from fashionvisualexpl_tpu_torch.data import features as F
 
     paths, ds = cfg.paths, args.dataset
@@ -318,6 +315,23 @@ def build_model(args, data, cfg):
             # reference consumes it at AttentiveFashion.py:338-343)
             batch_eval=args.batch_eval, edge_tower=args.edge_tower,
             device=args.device,
+        )
+    if args.rec == "comp_vbpr":
+        from fashionvisualexpl_tpu_torch.data.pipeline import load_edge_image_stack
+        from fashionvisualexpl_tpu_torch.models.comp_vbpr import CompVBPR
+
+        act = tuple(bool(a) for a in args.activated_components)
+        sem = (F.load_cnn_features(paths, ds, args.cnn_model, args.output_layer)
+               if act[0] else None)
+        color = F.load_color_histograms(paths, ds) if act[1] else None
+        edges = (load_edge_image_stack(paths.edges_dir(ds), data.num_items,
+                                       hw=tuple(args.edge_hw)) if act[2] else None)
+        tex = F.load_texture_features(paths, ds, args.cnn_model) if act[3] else None
+        return CompVBPR(
+            data.num_users, data.num_items, sem, color, edges, tex, embed_k=args.embed_k,
+            embed_d=args.embed_d, activated_components=act,
+            weight_components=tuple(args.weight_components),
+            compute_dtype=args.compute_dtype, device=args.device,
         )
     if args.rec == "acf":
         from fashionvisualexpl_tpu_torch.data.pipeline import load_spatial_feature_stack

@@ -9,6 +9,9 @@ buffers on their device.
 
 from __future__ import annotations
 
+import os
+from typing import Tuple
+
 import numpy as np
 
 from fashionvisualexpl_tpu_torch.core.config import Paths
@@ -49,6 +52,17 @@ def load_edge_features(
     return maxabs_normalize(
         np.load(paths.edge_features(dataset, cnn_model, output_layer))
     )
+
+
+def load_texture_features(paths: Paths, dataset: str, cnn_model: str) -> np.ndarray:
+    """[num_items, dim] Gram-matrix texture feature matrix, maxabs-normalized
+    (OLD_visual_loader_mixin.py:35-42, the loader CompVBPR depends on)."""
+    return maxabs_normalize(np.load(paths.texture_features(dataset, cnn_model)))
+
+
+def feature_dim_probe(path_dir: str, item: int = 0) -> Tuple[int, ...]:
+    """Per-item feature shape probe (mixin:33-49)."""
+    return np.load(os.path.join(path_dir, f"{item}.npy")).shape
 
 
 def synthetic_features(

@@ -43,7 +43,7 @@ ROADMAP: bf16 encoder towers), ``host_features`` with ``loss_streamed``
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,46 +56,21 @@ from fashionvisualexpl_tpu_torch.core.precision import (
     resolve_compute_dtype,
 )
 from fashionvisualexpl_tpu_torch.models.base import (
+    Dropout,
+    MaskDraw,
     PackedSpec,
     RecommenderModel,
     bpr_pairwise_loss,
+    dropout,
     glorot_uniform,
+    keep_masks,
     l2_loss,
     param_group,
 )
 from fashionvisualexpl_tpu_torch.ops.edge_tower import edge_tower_gap, edge_tower_gap_plain
+from fashionvisualexpl_tpu_torch.ops.s2d_conv import edge_tower_s2d_gap
 
-Dropout = Union[None, torch.Generator, Sequence[torch.Tensor]]
-MaskDraw = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
 EDGE_TOWERS = ("auto", "fused", "xla", "s2d")
-
-
-def keep_masks(rng: Dropout, keep: float) -> Optional[MaskDraw]:
-    """A draw ``(shape, device) -> bool keep-mask`` from ``rng``: a
-    ``torch.Generator`` (keep with probability ``keep``) or a sequence of
-    precomputed masks handed out in order; None for no dropout."""
-    if rng is None:
-        return None
-    if isinstance(rng, torch.Generator):
-        return lambda shape, device: (
-            torch.rand(shape, generator=rng, device=device) < keep
-        )
-    masks = iter(rng)
-
-    def take(shape, device):
-        mask = torch.as_tensor(next(masks), device=device)
-        if tuple(mask.shape) != tuple(shape):
-            raise ValueError(f"dropout mask {tuple(mask.shape)}, expected {tuple(shape)}")
-        return mask.to(torch.bool)
-
-    return take
-
-
-def _dropout(x: torch.Tensor, rate: float, draw: Optional[MaskDraw]) -> torch.Tensor:
-    if draw is None or rate <= 0.0:
-        return x
-    keep = 1.0 - rate
-    return torch.where(draw(tuple(x.shape), x.device), x / keep, 0.0)
 
 
 class AttentiveFashion(RecommenderModel):
@@ -107,14 +82,14 @@ class AttentiveFashion(RecommenderModel):
     with 0 on that device).
 
     ``edge_tower`` picks the conv -> pool -> GAP implementation, settled
-    here and readable as ``tower_route`` ("kernel" or "plain"):
+    here and readable as ``tower_route`` ("kernel", "plain" or "s2d"):
     "fused" is K7 (``ops/edge_tower.py::edge_tower_gap``; on the CPU its
     plain version) and needs even H, W; "auto" is K7 on the CUDA card at
     even H, W and the plain tower otherwise (on the CPU, or at odd H or W,
     which the kernel does not take); "xla" is
-    the plain tower; "s2d" computes the same function through the plain
-    tower (the JAX package's ``ops/s2d_conv.py`` is an XLA re-expression,
-    not a kernel) and needs even H, W.  ``tower_batch_tile`` is accepted
+    the plain tower; "s2d" computes the same function on a space-to-depth
+    layout (``ops/s2d_conv.py``, plain PyTorch: in the JAX package an XLA
+    re-expression, not a kernel) and needs even H, W.  ``tower_batch_tile`` is accepted
     and ignored: the CUDA kernel picks its own grid."""
 
     name = "attentive_fashion"
@@ -182,7 +157,8 @@ class AttentiveFashion(RecommenderModel):
         self.edge_tower = edge_tower
         self.tower_batch_tile = tower_batch_tile
         self.tower_route = (
-            "kernel" if edge_tower == "fused"
+            "s2d" if edge_tower == "s2d"
+            else "kernel" if edge_tower == "fused"
             or (edge_tower == "auto" and even and dev.type == "cuda")
             else "plain"
         )
@@ -249,16 +225,17 @@ class AttentiveFashion(RecommenderModel):
         cd = self.compute_dtype
         h = torch.relu(cast_compute(x, cd) @ cast_compute(enc["W1"], cd)
                        + cast_compute(enc["b1"], cd))
-        h = _dropout(h, self.dropout_rate, draw)
+        h = dropout(h, self.dropout_rate, draw)
         return cast_f32(h @ cast_compute(enc["W2"], cd))
 
     def _edges_encode(self, enc, images, draw):
         """Conv(5x5, same, relu) -> MaxPool(2x2, same) -> GAP -> Dropout ->
         Dense (AttentiveFashion.py:57-64); the first three by the route
         settled at construction."""
-        tower = edge_tower_gap if self.tower_route == "kernel" else edge_tower_gap_plain
+        tower = {"kernel": edge_tower_gap, "plain": edge_tower_gap_plain,
+                 "s2d": edge_tower_s2d_gap}[self.tower_route]
         y = tower(images, enc["conv_W"], enc["conv_b"])  # [B, filters] f32
-        y = _dropout(y, self.dropout_rate, draw)
+        y = dropout(y, self.dropout_rate, draw)
         cd = self.compute_dtype
         return cast_f32(cast_compute(y, cd) @ cast_compute(enc["W2"], cd))
 

@@ -17,13 +17,46 @@ with ``packed_spec`` and ``packed_loss``; the base versions raise.
 from __future__ import annotations
 
 import math
-from typing import Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 Features = Union[np.ndarray, torch.Tensor]
+# a dropout source: a generator, or precomputed keep-masks in order
+Dropout = Union[None, torch.Generator, Sequence[torch.Tensor]]
+MaskDraw = Callable[[Tuple[int, ...], torch.device], torch.Tensor]
+
+
+def keep_masks(rng: Dropout, keep: float) -> Optional[MaskDraw]:
+    """A draw ``(shape, device) -> bool keep-mask`` from ``rng``: a
+    ``torch.Generator`` (keep with probability ``keep``) or a sequence of
+    precomputed masks handed out in order; None for no dropout."""
+    if rng is None:
+        return None
+    if isinstance(rng, torch.Generator):
+        return lambda shape, device: (
+            torch.rand(shape, generator=rng, device=device) < keep
+        )
+    masks = iter(rng)
+
+    def take(shape, device):
+        mask = torch.as_tensor(next(masks), device=device)
+        if tuple(mask.shape) != tuple(shape):
+            raise ValueError(f"dropout mask {tuple(mask.shape)}, expected {tuple(shape)}")
+        return mask.to(torch.bool)
+
+    return take
+
+
+def dropout(x: torch.Tensor, rate: float, draw: Optional[MaskDraw]) -> torch.Tensor:
+    """Train-mode dropout (JAX's ``_dropout``): keep where ``draw`` says,
+    dividing by the keep rate; ``x`` as it is without a draw."""
+    if draw is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(draw(tuple(x.shape), x.device), x / keep, 0.0)
 
 
 class PackedSpec(NamedTuple):

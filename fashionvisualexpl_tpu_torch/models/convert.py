@@ -23,6 +23,7 @@ from fashionvisualexpl_tpu_torch.models.acf import ACF
 from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
 from fashionvisualexpl_tpu_torch.models.base import Features
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+from fashionvisualexpl_tpu_torch.models.comp_vbpr import USER_TABLES, CompVBPR
 from fashionvisualexpl_tpu_torch.models.grad_fashion import GradFashion
 from fashionvisualexpl_tpu_torch.models.vbpr import VBPR
 
@@ -149,6 +150,29 @@ def acf_from_jax(params, spatial: Features, data=None, device: DeviceLike = None
     model = ACF(gu.shape[0], spatial.shape[0], spatial, data, embed_k=gu.shape[1],
                 layers_component=layers("comp"), layers_item=layers("item"), device=device,
                 **kw)
+    _copy_into(model, flat)
+    return model
+
+
+def comp_vbpr_from_jax(params, semantic: Optional[Features] = None,
+                       color: Optional[Features] = None, edges: Optional[Features] = None,
+                       texture: Optional[Features] = None, device: DeviceLike = None,
+                       **kw) -> CompVBPR:
+    """A ``CompVBPR`` holding exactly the JAX CompVBPR's params (numpy; the
+    nested ``params["cnn"]`` of HWIO convs becomes ``"cnn.conv1_W"`` ...,
+    the layout the port keeps) over the frozen features and edge images,
+    taken as given.  The active families are those whose ``Tu*`` the
+    params hold (features of the others are ignored); K and d are read
+    from the params' shapes; ``kw`` (``weight_components``,
+    ``eval_encode_block``) are ``CompVBPR``'s, as the JAX model was built
+    with them."""
+    flat = flatten_params(params)
+    gu = _f32(flat, "Gu", 2)
+    act = tuple(t in flat for t in USER_TABLES)
+    d = next((flat[t].shape[1] for t in USER_TABLES if t in flat), 20)
+    feats = [f if a else None for f, a in zip((semantic, color, edges, texture), act)]
+    model = CompVBPR(gu.shape[0], flat["Gi"].shape[0], *feats, embed_k=gu.shape[1],
+                     embed_d=d, activated_components=act, device=device, **kw)
     _copy_into(model, flat)
     return model
 

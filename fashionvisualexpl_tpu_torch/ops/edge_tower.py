@@ -33,19 +33,20 @@ runs.
   counterpart) and ``edge_tower_gap_plain_backward`` its gradient by
   autograd; PyTorch's max-pool backward takes the first maximum of each
   window, as XLA's select-and-scatter does.  Its conv runs in f32 both ways
-  (``fp32_convs``: cuDNN may round f32 convs to TF32 by default), as the
-  kernels do; nothing outside it changes.
+  (``core/precision.py::conv2d_f32``: cuDNN may round f32 convs to TF32
+  by default), as the kernels do; nothing outside it changes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from contextlib import contextmanager
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from fashionvisualexpl_tpu_torch.core.precision import conv2d_f32, fp32_math
 
 K = 5  # kernel size of the reference tower (AttentiveFashion.py:57)
 TILE_ROWS = 16  # pooled rows of a tile, both kernels
@@ -105,45 +106,13 @@ def bwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
     return rp, cw, -(-hp // rp) * -(-wp // cw)
 
 
-@contextmanager
-def fp32_convs():
-    """cuDNN convolutions within run in full f32 (no TF32)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
-class _Conv5x5(torch.autograd.Function):
-    """SAME 5x5 conv [B, 1, H, W] x [C, 1, 5, 5] -> [B, C, H, W], forward
-    and backward under ``fp32_convs``."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        with fp32_convs():
-            return F.conv2d(x, w, padding=2)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        with fp32_convs():
-            dx = (torch.nn.grad.conv2d_input(x.shape, w, dy, padding=2)
-                  if ctx.needs_input_grad[0] else None)
-            dw = (torch.nn.grad.conv2d_weight(x, w.shape, dy, padding=2)
-                  if ctx.needs_input_grad[1] else None)
-        return dx, dw
-
-
 def edge_tower_gap_plain(images, conv_w, conv_b) -> torch.Tensor:
     """Plain PyTorch tower, ``edge_tower_gap_xla``'s counterpart: SAME conv
     (padding 2, f32), + b, ReLU, SAME 2x2 max-pool (``ceil_mode`` pads odd
     sizes at the end, where -inf never wins), mean over H, W in f32.  Any
     H, W."""
     x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
-    y = _Conv5x5.apply(x, conv_w.permute(3, 2, 0, 1))  # [B, C, H, W]
+    y = conv2d_f32(x, conv_w.permute(3, 2, 0, 1), padding=2)  # [B, C, H, W]
     y = torch.relu(y + conv_b[None, :, None, None])
     y = F.max_pool2d(y, 2, 2, ceil_mode=True)
     return y.to(torch.float32).mean(dim=(2, 3))
@@ -279,7 +248,7 @@ def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
     g = dout / ((H/2)(W/2)).  Even H, W."""
     B, H, W, C = check_geometry(images, conv_w, conv_b)
     x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
-    with fp32_convs():
+    with fp32_math():
         z = F.conv2d(x, conv_w.permute(3, 2, 0, 1), padding=2)  # [B, C, H, W], pre-bias
     even = z[..., 0::2] >= z[..., 1::2]  # the even column wins ties
     zh = torch.where(even, z[..., 0::2], z[..., 1::2])

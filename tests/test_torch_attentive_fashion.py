@@ -174,9 +174,11 @@ def test_construction_rules():
     assert AttentiveFashion(U, I, color, edges, cls, edge_tower="fused", **kw).tower_route == "kernel"
     assert AttentiveFashion(U, I, color, edges, cls, edge_tower="fused", conv_filters=300,
                             **kw).tower_route == "kernel"  # any filter count
-    for tower in ("auto", "xla", "s2d"):
+    for tower in ("auto", "xla"):
         assert AttentiveFashion(U, I, color, edges, cls, edge_tower=tower,
                                 **kw).tower_route == "plain"
+    assert AttentiveFashion(U, I, color, edges, cls, edge_tower="s2d",
+                            **kw).tower_route == "s2d"
     assert AttentiveFashion(U, I, color, odd, cls, **kw).tower_route == "plain"
     for tower in ("fused", "s2d"):
         with pytest.raises(ValueError, match="even"):

@@ -17,6 +17,9 @@ GradFashion dump (the JAX CLI's rows); so does ``--rec acf`` over
 per-item [H, W, C] spatial maps (generic with ``--acf_exact_eval
 --acf_exact_train``, packed with the maps fused or read by id; the JAX
 run's file set, ``serve_rec`` giving the best dump's recommendations);
+so does ``--rec comp_vbpr`` with every family (the CNN on the edge tiffs)
+and ablated to semantic + texture on the packed engine (the JAX run's
+file set, ``serve_rec`` giving the best dump's recommendations);
 ``validate_args`` gives the JAX parser's messages; the options of later
 slices raise; without ``--device`` and without a card the CLI raises."""
 
@@ -226,7 +229,6 @@ def test_packed_help_says_what_the_port_runs():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--rec", "comp_vbpr"), "CNN and CompVBPR"),
     (("--train_path", "packed", "--mesh_data", "2"), "Multi-device"),
     (("--rec", "attentive_fashion", "--streamed"), "The streamed trainer"),
     (("--mesh_data", "2"), "Multi-device"),
@@ -410,3 +412,71 @@ def test_cli_acf_writes_the_jax_file_set(acf_dataset, jax_acf_run, run):
     serve(argv + ["--ckpt", ckpt, "--users", "all", "--output", out])
     served, dumped = _check_tsv(out, U * K_TOP), _check_tsv(best, U * K_TOP)
     assert [r.split("\t")[:2] for r in served] == [r.split("\t")[:2] for r in dumped]
+
+
+# --- CompVBPR ---------------------------------------------------------------
+
+COMP_RUNS = {"all-families": ("--activated_components", "1", "1", "1", "1",
+                              "--weight_components", "0.4", "0.2", "0.2", "0.2",
+                              "--streaming_eval"),
+             "ablated-packed": ("--activated_components", "1", "0", "0", "1",
+                                "--train_path", "packed")}
+
+
+@pytest.fixture(scope="module")
+def comp_dataset(tmp_path_factory):
+    """The reference layout with every family CompVBPR reads: vgg19 fc2
+    features, color histograms, 16x16 edge tiffs, texture features."""
+    root = str(tmp_path_factory.mktemp("comp"))
+    make_synthetic_dataset_on_disk(root, num_users=U, num_items=24, interactions_per_user=6,
+                                   cnn_dim=16, edge_hw=(16, 16), with_images=True)
+    return root
+
+
+def _comp_argv(root, results, extra, device=True):
+    return _argv(root, results, ("--embed_d", "3", "--edge_hw", "12", "12", *extra),
+                 device) + ["--rec", "comp_vbpr"]
+
+
+@pytest.fixture(scope="module")
+def jax_comp_run(comp_dataset):
+    """The JAX CLI's file set for --rec comp_vbpr (the ablated run: the
+    families change no file name)."""
+    jcli.train(_comp_argv(comp_dataset, "jax-comp", COMP_RUNS["ablated-packed"][:5],
+                          device=False))
+    return _files(comp_dataset, "jax-comp")
+
+
+@pytest.mark.parametrize("run", list(COMP_RUNS))
+def test_cli_comp_vbpr_writes_the_jax_file_set(comp_dataset, jax_comp_run, run):
+    """``--rec comp_vbpr`` with every family (the CNN on 12x12 edges,
+    streaming evaluation) and ablated to semantic + texture on the packed
+    engine: the JAX run's file set, dumps of U x k rows, metrics in [0, 1];
+    ``serve_rec`` from the checkpoint gives the best dump's
+    recommendations."""
+    results = f"comp-{run}"
+    argv = _comp_argv(comp_dataset, results, COMP_RUNS[run])
+    pcli.train(argv)
+    port = _files(comp_dataset, results)
+    assert sorted(port) == sorted(jax_comp_run)
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            _check_tsv(path, U * K_TOP)
+        elif name.endswith(".jsonl"):
+            got = [json.loads(line) for line in open(path)]
+            assert len(got) == 2
+            assert all(0.0 <= r[m] <= 1.0 for r in got for m in r if m[-2:] in ("_v", "_t"))
+    base = os.path.join(comp_dataset, results)
+    (ckpt,) = [p for n, p in port.items() if "ckpt-" in n]
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "comp_vbpr",
+                                     "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(argv + ["--ckpt", ckpt, "--users", "all", "--output", out])
+    served, dumped = _check_tsv(out, U * K_TOP), _check_tsv(best, U * K_TOP)
+    assert [r.split("\t")[:2] for r in served] == [r.split("\t")[:2] for r in dumped]
+
+
+def test_cli_comp_vbpr_bf16_raises(comp_dataset):
+    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
+        pcli.train(_comp_argv(comp_dataset, "never-bf16", ("--compute_dtype", "bfloat16")))
+    assert not os.path.exists(os.path.join(comp_dataset, "never-bf16"))

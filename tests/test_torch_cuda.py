@@ -40,7 +40,10 @@ K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
 takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).
 ACF's packed rows (769 / 513 / 385 floats, 25857 / 25601 / 25473 with
 its 7x7x512 spatial maps fused) through K4 on the route each plan names
-and through K5, bit-equal.
+and through K5, bit-equal.  CompVBPR's factored D = 208 through K2 and
+K3 (``segmax_mma_kernel``), and its packed user rows (625 / 417 / 313
+floats, 640 / 512 / 384 at row_align 128) through K4 and K5 on every
+route, forced.
 The packed step on the card against the same step on CPU copies: 4
 K4 + 2 K5 launches a step (ACF: 5 K4, the extra item rows among them);
 losses rtol 1e-5; tau columns and untouched rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
@@ -117,6 +120,8 @@ FALLBACK_GEOMETRIES = [(B, D, seg, n) for D in (150, 164)
     (8, 64, 32, 70), (100, 16, 32, 70), (100, 72, 16, 90), (8, 72, 8, 90),
     (8, 200, 32, 10), (8, 148, 32, 70), (100, 148, 32, 70), (4097, 148, 32, 20),
     (8, 150, 32, 50), (100, 150, 16, 40),
+    (8, 208, 32, 70), (64, 208, 32, 70), (100, 208, 16, 40), (4097, 208, 32, 20),
+    (1024, 208, 1024, 3),
 ] + WIDE_GEOMETRIES + FALLBACK_GEOMETRIES)
 def test_kernel_geometries_match_plain_version_on_card(cuda_device, dtype, B, D, seg, n_seg):
     """The tensor-core kernels' paths (D up to 160 in 8- or 16-byte rows
@@ -166,6 +171,7 @@ def test_kernel_takes_8_byte_aligned_rows_on_card(cuda_device, B):
     (128, 8, 160, 8, True), (150, 16, 160, 4, False), (164, 16, 176, 8, False),
     (152, 8, 160, 8, True),
     (148, 4, 160, 4, False), (148, 2, 160, 2, False), (33, 16, 48, 2, False),
+    (208, 16, 208, 16, False), (208, 8, 208, 8, False),
 ])
 def test_route_takes_wide_rows_to_the_register_and_warpgroup_kernels_on_card(
         cuda_device, D, align, Dp, copy_bytes, wide):
@@ -397,6 +403,7 @@ def _counts_inputs(dev, B, I, D, T, Pb, seed):
     (257, 4099, 33, 2, 21, 256), (1, 17, 8, 1, 1, 2048),
     (100, 5000, 148, 3, 9, 2048), (257, 4099, 148, 1, 21, 256), (4100, 3000, 148, 1, 2, 2048),
     (257, 4099, 150, 2, 21, 256), (300, 5000, 256, 1, 4, 256), (64, 2000, 272, 3, 4, 256),
+    (100, 5000, 208, 3, 9, 2048), (4100, 3000, 208, 1, 2, 2048), (257, 4099, 208, 2, 21, 256),
     (100, 3000, 1024, 3, 9, 2048),
 ])
 def test_counts_kernel_matches_plain_version_on_card(cuda_device, B, I, D, T, Pb,
@@ -848,9 +855,9 @@ def _gather_ids(dev, R, B, seed):
 # widths on both sides of the bulk threshold (2048-byte rows) at every
 # W % 4, rows of one trip and of several a lane, and every width the
 # packed paths gather
-GATHER_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 127, 128, 129, 130, 193, 195, 257, 259, 297, 385, 388,
-                 445, 508, 509, 510, 511, 512, 513, 514, 515, 1023, 1024, 4355, 4484, 4867,
-                 4996)
+GATHER_WIDTHS = (1, 2, 3, 4, 5, 6, 7, 127, 128, 129, 130, 193, 195, 257, 259, 297, 313, 384,
+                 385, 388, 417, 445, 508, 509, 510, 511, 512, 513, 514, 515, 625, 640, 1023,
+                 1024, 4355, 4484, 4867, 4996)
 
 
 @pytest.mark.cuda
@@ -876,6 +883,35 @@ def test_gather_forced_routes_on_card(cuda_device, route, width, offset):
     tiny rows included."""
     table = _bit_table(cuda_device, 777, width, seed=width + 5, offset=offset)
     plan = _gather_checked(table, _gather_ids(cuda_device, 777, 301, width), route)
+    assert plan.route.startswith(route)
+
+
+# CompVBPR's packed user rows (Gu and the four Tu*, Wu = 208: fp32 /
+# bf16 / fp8 moments, and at row_align 128)
+COMP_VBPR_USER_WIDTHS = (625, 417, 313, 640, 512, 384)
+
+
+def test_comp_vbpr_widths_are_the_packed_specs():
+    from fashionvisualexpl_tpu_torch.models.comp_vbpr import CompVBPR
+
+    rng = np.random.default_rng(0)
+    model = CompVBPR(6, 8, rng.random((8, 16), np.float32), rng.random((8, 512), np.float32),
+                     rng.random((8, 8, 8, 1), np.float32), rng.random((8, 32), np.float32),
+                     device="cpu")
+    params = dict(model.named_parameters())
+    widths = [PG.pack_generic_state(model, params, moment_dtype=md, row_align=a).user_pmv
+              .shape[1] for a in (1, 128) for md in ("float32", "bfloat16", "float8")]
+    assert tuple(widths) == COMP_VBPR_USER_WIDTHS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned16", "aligned4"])
+@pytest.mark.parametrize("route", ["lanes", "bulk"])
+@pytest.mark.parametrize("width", COMP_VBPR_USER_WIDTHS)
+def test_gather_forced_routes_at_comp_vbpr_widths_on_card(cuda_device, width, route, offset):
+    """K4 at CompVBPR's user rows on each kind of route, forced: bit-equal."""
+    table = _bit_table(cuda_device, 1000, width, seed=width + 7, offset=offset)
+    plan = _gather_checked(table, _gather_ids(cuda_device, 1000, 300, width), route)
     assert plan.route.startswith(route)
 
 
@@ -1015,8 +1051,9 @@ def _scatter_ids(dev, R, B, seed):
 
 # every width the packed paths write, tiny rows and both sides of the
 # lanes / bulk thresholds (LANES_MAX_BYTES: 256 words of 4 or 16 bytes)
-SCATTER_WIDTHS = (1, 2, 3, 4, 5, 193, 195, 255, 256, 257, 259, 297, 384, 385, 388, 445, 513,
-                  769, 1023, 1024, 1025, 1028, 4355, 4484, 4867, 4996, 25473, 25601, 25857)
+SCATTER_WIDTHS = (1, 2, 3, 4, 5, 193, 195, 255, 256, 257, 259, 297, 313, 384, 385, 388, 417,
+                  445, 512, 513, 625, 640, 769, 1023, 1024, 1025, 1028, 4355, 4484, 4867, 4996,
+                  25473, 25601, 25857)
 
 
 def _scatter_route(width, vec):
