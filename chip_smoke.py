@@ -161,8 +161,8 @@ Phases, each of which raises on a failure (nothing is swallowed):
    P=20: the packed step (fp32 and fp8 moments) and the generic Trainer
    step on the card against the CPU on a 4096 x 4096 catalog (2 steps at
    batch 256, each from the CPU route's state, dropout masks shared); a
-   packed epoch of 50 steps at batch 8192 (4 K4 + 2 K5 a step, the user
-   rows 625 floats) and 20 generic steps, each with a 5-step profile (the
+   packed epoch of 20 steps at batch 8192 (4 K4 + 2 K5 a step, the user
+   rows 625 floats) and 10 generic steps, each with a 5-step profile (the
    idle share, K4's, K5's, the convolutions' and the GEMMs' shares, no
    TF32 kernel); ``FactoredEvaluator(counts_impl="kernel").evaluate``
    through K2 at D=208 (245 launches); ``RecServer`` through K3 at the
@@ -174,7 +174,36 @@ Phases, each of which raises on a failure (nothing is swallowed):
    and timed forward and backward beside the f32 bound; ``train_rec --rec
    comp_vbpr`` at ``--edge_hw 224 224``: generic with the streaming
    evaluator on 1024 users x 16,384 items, packed with the dense one and
-   ``serve_rec`` from its checkpoint on 1024 x 1024, both written here.
+   ``serve_rec`` from its checkpoint on 1024 x 1024, both written here;
+21. (run right after the build) the native host data plane
+   (``data/native.py``, built with ``g++`` on the card's host; its path and
+   build seconds printed): ``read_split_tsv``
+   natively and in Python on a 2,000,000-row split TSV written here (equal
+   pairs, both timed), ``write_recs_tsv`` on 1M users x 20 (its ids
+   parsed back equal) and, against the Python writer, on the first 100k
+   of them (both dumps parsed back equal), each timed; the CLI phase's dumps
+   (phase 11) go through the native writer, by its call counter;
+22. the streamed trainer: AttentiveFashion at the JAX CLI's full width
+   (K=128, attention (64, 1), hidden 256, 64 filters, dropout 0.5, 224x224
+   edges, batch 256), ``host_features=True``, over 1M users x 32,768
+   items, 20 positives a user; the edge stack a 6.58 GB ``.npy`` written
+   here chunk by chunk (k/255 edge maps) and read as a memmap.  3 steps of
+   ``run_streamed_steps`` against the resident ``Trainer.run_steps`` from
+   one state with the same triples and step seeds, both on K7 (losses and
+   params within the AttentiveFashion phase's route tolerances; the
+   largest difference printed); ``precompute_eval`` in host blocks of 128
+   against the resident one (rtol 1e-6, atol 1e-7), both timed; 50 steps
+   through the prefetcher (depth 2) with ms a step, triples/s, peak
+   memory against the resident model's, every batch's rows through the
+   native gather (its counter); a 5-step profile (idle share, K7's share);
+   one batch's host gather by the native gather, numpy ``src[ids]`` and
+   ``torch.index_select`` on the memmapped tensor, and its copy to the
+   card, each in GB/s (the page cache warm);
+23. the streamed CLI: ``train_rec --rec attentive_fashion --streamed
+   --edge_hw 224 224`` on a 2,048 x 2,048 dataset with 224x224 edge tiffs
+   written here (the stack built by ``build_edge_stack_npy``), 2 epochs
+   with dense evaluation: the JAX CLI's file set, ``--resume`` to a third
+   epoch from its checkpoint, then ``serve_rec --streamed``.
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -283,6 +312,21 @@ AF_ROUTE_DRIFT = 2 * AF_LR * AF_ROUTE_STEPS
 # the AttentiveFashion path through the CLI: the CLI phase's dataset with
 # color histograms, class one-hots and 32x32 edge tiffs
 AF_CLI_CLASSES, AF_CLI_BATCH_EVAL, AF_SERVE_BUCKETS = 10, 128, (8, 64, 1024)
+# the native host data plane: a split TSV and a recommendation dump at the
+# scaled configuration's sizes (rows; users x k); the Python writer, at
+# ~60 s for the full dump on the card's host, writes its first 100k users
+NATIVE_TSV_ROWS, NATIVE_DUMP_U, NATIVE_DUMP_K = 2_000_000, 1_000_000, 20
+NATIVE_PY_DUMP_U = 100_000
+NATIVE_DIR = ROOT / "build" / "chip_smoke_native"
+# the streamed trainer: AttentiveFashion at the JAX CLI's full width
+# (cli/train_rec.py: K=128, attention (64, 1), hidden 256, 64 filters,
+# dropout 0.5, --edge_hw 224 224, --batch_size 256) over 1M users x 32,768
+# items, 20 positives a user: a 6.58 GB edge stack read as a memmap; the
+# prefetcher's depth and the evaluation's encoding block (--batch_eval)
+SAF_U, SAF_I, SAF_POS, SAF_HW, SAF_B = 1_000_000, 32_768, 20, 224, 256
+SAF_ROUTE_STEPS, SAF_STEPS, SAF_PROFILE_STEPS = 3, 50, 5
+SAF_DEPTH, SAF_BATCH_EVAL, SAF_CLI_N = 2, 128, 2048
+SAF_DIR = ROOT / "build" / "chip_smoke_streamed"
 # the row kernels K4 and K5: the packed rows' widths (fp32 / bf16 / fp8
 # moments at K=128, users then items; 512 a 128-aligned row) at the packed
 # step's unique-row counts over a 1M-row table; timed at the JAX benches'
@@ -373,7 +417,7 @@ ACF_DEV = "cuda"
 # images through the trainable CNN at 32x32x1; factored D = K + 4 d = 208.
 # The JAX package's own CompVBPR scale (scripts/scaled_bench.py:189-202,
 # SPEED.md:89): 1M users x 200k items, P=20, batch 8192.  Cut only in depth
-# (50 packed and 20 generic steps, 5-step profiles).  Route checks on a
+# (20 packed and 10 generic steps, 5-step profiles).  Route checks on a
 # 4096 x 4096 catalog at batch 256, 2 steps each (the CPU route runs the
 # CNN on 512 images a step).  The CNN also at the reference's 224x224 (B =
 # 256), and the CLI at its default --edge_hw 224 224, generic on 1024 users
@@ -383,7 +427,9 @@ ACF_DEV = "cuda"
 COMP_U, COMP_I, COMP_P, COMP_B, COMP_HW = 1_000_000, 200_000, 20, 8192, 32
 COMP_EMBED_D, COMP_DIM_S, COMP_DIM_C, COMP_DIM_T = 20, 4096, 512, 1024
 COMP_D = EMBED_K + 4 * COMP_EMBED_D
-COMP_STEPS, COMP_GENERIC_STEPS, COMP_PROFILE_STEPS = 50, 20, 5
+# (the packed epoch cut from 50 steps and the generic run from 20 when the
+# streamed phases came: ~263 ms a step)
+COMP_STEPS, COMP_GENERIC_STEPS, COMP_PROFILE_STEPS = 20, 10, 5
 COMP_ROUTE_N, COMP_ROUTE_B, COMP_ROUTE_STEPS = 4096, 256, 2
 COMP_CNN_B, COMP_CLI_U, COMP_CLI_I, COMP_CLI_B = 256, 1024, 16_384, 1024
 # the packed user rows (Gu and the four Tu*, 208 floats): fp32 / bf16 / fp8
@@ -1601,11 +1647,16 @@ def cli_phase(torch, np, counts, segmax):
               "--top_k", str(CLI_K)]
     served = CLI_DIR / "served.tsv"
     users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    from fashionvisualexpl_tpu_torch.data.native import write_recs_tsv
+
+    write_recs_tsv.calls = 0
     counts.counts_kernel.launches = 0
     segmax.segmax_scores.launches = 0  # main path starts here
     t0 = time.perf_counter()
     train(common + ["--streaming_eval", "--epochs", "2", "--verbose", "1"])
     train_s = time.perf_counter() - t0
+    if write_recs_tsv.calls != 2:
+        fail(f"the CLI's two dumps took the native writer {write_recs_tsv.calls} times")
     (ckpt,) = glob.glob(str(results / "rec_model_weights" / "cli" / "bprmf" / "ckpt-*"))
     t0 = time.perf_counter()
     serve(common + ["--ckpt", ckpt, "--users", users, "--output", str(served)])
@@ -1634,7 +1685,8 @@ def cli_phase(torch, np, counts, segmax):
             np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
         fail(f"CLI metrics not finite in [0, 1] for epochs 1, 2: {per_epoch}")
     print(f"cli: dataset write {write_s!r} s, train_rec {train_s!r} s, serve_rec "
-          f"{serve_s!r} s; launches {launches}; rows {rows}, served {n_served}")
+          f"{serve_s!r} s; launches {launches}; rows {rows}, served {n_served}; "
+          f"dumps through the native writer: {write_recs_tsv.calls}")
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     return launches, dict(write_s=write_s, train_s=train_s, serve_s=serve_s,
                           metrics=per_epoch[2])
@@ -2064,21 +2116,22 @@ def af_train_phase(torch, np, E):
     return launches, summary
 
 
-def write_af_features(np, d: Path):
-    """The AttentiveFashion inputs in the reference's layout under data
-    directory ``d``: color histograms, class one-hots and 32x32 edge
-    tiffs (L mode).  Returns the edge stack as ``load_edge_image_stack``
-    reads it back ([I, H, W, 1], the 8-bit values / 255)."""
+def write_af_features(np, d: Path, n: int = CLI_I, hw: int = AF_HW):
+    """The AttentiveFashion inputs of ``n`` items in the reference's layout
+    under data directory ``d``: color histograms, class one-hots and hw x hw
+    edge tiffs (L mode).  Returns the edge stack as
+    ``load_edge_image_stack`` reads it back ([I, H, W, 1], the 8-bit
+    values / 255)."""
     from PIL import Image
 
     rng = np.random.default_rng(13)
     feats = d / "original" / "features"
     (feats / "edges").mkdir(parents=True, exist_ok=True)
-    np.save(feats / "histograms.npy", rng.integers(0, 100, (CLI_I, 512)).astype(np.int32))
+    np.save(feats / "histograms.npy", rng.integers(0, 100, (n, 512)).astype(np.int32))
     np.save(feats / "one_hot_enc.npy", np.eye(AF_CLI_CLASSES, dtype=np.float32)[
-        rng.integers(0, AF_CLI_CLASSES, CLI_I)])
-    imgs = (rng.random((CLI_I, AF_HW, AF_HW)) * 255).astype(np.uint8)
-    for i in range(CLI_I):
+        rng.integers(0, AF_CLI_CLASSES, n)])
+    imgs = (rng.random((n, hw, hw)) * 255).astype(np.uint8)
+    for i in range(n):
         Image.fromarray(imgs[i], mode="L").save(feats / "edges" / f"{i}.tiff")
     return (imgs.astype(np.float32) / 255.0)[..., None]
 
@@ -2234,6 +2287,386 @@ def af_path_phase(torch, np, E):
     return launches, dict(write_s=write_s, train_s=train_s, serve_s=serve_s,
                           refresh_s=refresh_s, serving=serving, metrics=per_epoch[2],
                           eval_launches=evals.deltas)
+
+
+def native_phase(np):
+    """The native host data plane, built with g++ here: the split-TSV parse
+    and the dump writer against their Python paths at full size."""
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.data import native as N
+    from fashionvisualexpl_tpu_torch.data.interactions import read_split_tsv
+
+    t0 = time.perf_counter()
+    if N.load_library() is None:
+        fail("the native host library did not build: g++ missing or failed")
+    load_s = time.perf_counter() - t0
+    built = "built before" if N.build_seconds is None else f"g++ {N.build_seconds!r} s"
+    print(f"native library {N.library_path()}: {built} (load {load_s!r} s)")
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    NATIVE_DIR.mkdir(parents=True)
+    rng = np.random.default_rng(21)
+    u = rng.integers(0, SAF_U, NATIVE_TSV_ROWS).tolist()
+    i = rng.integers(0, 500_000, NATIVE_TSV_ROWS).tolist()
+    tsv = NATIVE_DIR / "trainingset.tsv"
+    tsv.write_text("".join(f"{a}\t{b}\t0\t1.0\n" for a, b in zip(u, i)))
+    calls = N.parse_interactions_tsv.calls
+    t0 = time.perf_counter()
+    native_pairs = read_split_tsv(str(tsv))
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python_pairs = read_split_tsv(str(tsv), use_native=False)
+    parse_py_s = time.perf_counter() - t0
+    if N.parse_interactions_tsv.calls != calls + 1:
+        fail("read_split_tsv did not take the native parser")
+    if native_pairs != python_pairs or native_pairs != list(zip(u, i)):
+        fail("read_split_tsv: the native and Python parses differ")
+    del native_pairs, python_pairs, u, i
+
+    U, K, Up = NATIVE_DUMP_U, NATIVE_DUMP_K, NATIVE_PY_DUMP_U
+    users = np.arange(U, dtype=np.int32)
+    ids = rng.integers(0, 500_000, (U, K)).astype(np.int32)
+    vals = (rng.standard_normal((U, K)) * 5).astype(np.float32)
+    dumps = {"native": NATIVE_DIR / "recs-native.tsv",
+             "native_part": NATIVE_DIR / "recs-native-part.tsv",
+             "python_part": NATIVE_DIR / "recs-python-part.tsv"}
+    write_s = {}
+    for label, n in (("native", U), ("native_part", Up)):
+        t0 = time.perf_counter()
+        if not N.write_recs_tsv(str(dumps[label]), users[:n], ids[:n], vals[:n]):
+            fail("write_recs_tsv did not take the native writer")
+        write_s[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(dumps["python_part"], "w") as out:  # eval/factored.py's fallback
+        out.writelines(f"{a}\t{ids[r, j]}\t{vals[r, j]}\n"
+                       for r, a in enumerate(users[:Up]) for j in range(K))
+    write_s["python_part"] = time.perf_counter() - t0
+    # the ids of every dump by the native parser; the scores of the two
+    # 100k-user dumps in full (one writer wrote both native dumps; parsing
+    # the full one's 20M floats takes ~10 s)
+    for label, path in dumps.items():
+        n = U if label == "native" else Up
+        pu, pi, _ = N.parse_interactions_tsv(str(path))
+        ok = np.array_equal(pu, np.repeat(users[:n], K)) and np.array_equal(
+            pi, ids[:n].reshape(-1))
+        if label != "native":
+            with open(path) as f:
+                scores = np.fromstring(f.read(), dtype=np.float64, sep=" ")[2::3]
+            ok = ok and np.array_equal(scores.astype(np.float32), vals[:n].reshape(-1))
+        if not ok:
+            fail(f"{path.name} does not parse back to the dumped rows")
+    out = dict(build_s=N.build_seconds, library=str(N.library_path()),
+               tsv_rows=NATIVE_TSV_ROWS, tsv_bytes=tsv.stat().st_size, parse_s=parse_s,
+               parse_python_s=parse_py_s, dump_rows=U * K, part_rows=Up * K,
+               dump_bytes=dumps["native"].stat().st_size,
+               **{f"write_{k}_s": v for k, v in write_s.items()})
+    print(f"native plane: read_split_tsv {NATIVE_TSV_ROWS} rows native {parse_s!r} s, "
+          f"Python {parse_py_s!r} s; write_recs_tsv {U} x {K} native {write_s['native']!r} "
+          f"s; {Up} x {K} native {write_s['native_part']!r} s, Python "
+          f"{write_s['python_part']!r} s; parsed back equal")
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    return out
+
+
+def write_edge_stack(np, path: Path, n: int, hw: int, seed: int):
+    """[n, hw, hw, 1] float32 k/255 edge maps (k uniform in 0..255, numpy
+    seed ``seed``) written into a .npy through ``open_memmap`` a chunk of
+    1024 items at a time."""
+    from numpy.lib.format import open_memmap
+
+    rng = np.random.default_rng(seed)
+    out = open_memmap(str(path), mode="w+", dtype=np.float32, shape=(n, hw, hw, 1))
+    for s in range(0, n, 1024):
+        e = min(s + 1024, n)
+        out[s:e] = rng.integers(0, 256, (e - s, hw, hw, 1), dtype=np.uint8) / np.float32(255)
+    out.flush()
+    del out
+
+
+def gather_rates(torch, np, store, ring, pos, neg):
+    """One batch's host gather in GB/s by the native gather into a pinned
+    slot, numpy ``src[ids]`` and ``torch.index_select`` on the memmapped
+    tensors (median of 3 each), then the slot's copy to the card, and the
+    native gather's time for one row (its fixed cost a call)."""
+    import warnings
+
+    nbytes = sum(4 * int(np.prod(s)) for s in store.shapes(len(pos)).values())
+    srcs = (store.color, store.edges, store.cls)
+    with warnings.catch_warnings():  # the memmap is read-only; nothing writes it
+        warnings.simplefilter("ignore", UserWarning)
+        tensors = [torch.from_numpy(a) for a in srcs]
+    ids = [torch.from_numpy(x.astype(np.int64)) for x in (pos, neg)]
+    i = ring.acquire()
+
+    def med(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    rates = dict(
+        bytes=nbytes,
+        native_gbs=nbytes / med(lambda: store.gather(pos, neg, out=ring.views[i])) / 1e9,
+        numpy_gbs=nbytes / med(lambda: [a[x] for x in (pos, neg) for a in srcs]) / 1e9,
+        index_select_gbs=nbytes / med(lambda: [torch.index_select(t, 0, x) for x in ids
+                                               for t in tensors]) / 1e9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring.to_device(i)
+    torch.cuda.synchronize()
+    rates["h2d_gbs"] = nbytes / (time.perf_counter() - t0) / 1e9
+    # the native gather's fixed cost a call (it starts and joins its threads)
+    from fashionvisualexpl_tpu_torch.data.native import gather_rows_native
+
+    row = np.empty((1,) + store.cls.shape[1:], np.float32)
+    rates["native_call_us"] = 1e6 * med(lambda: gather_rows_native(store.cls, pos[:1], out=row))
+    return rates
+
+
+def streamed_phase(torch, np, E):
+    """AttentiveFashion with host features through the streamed trainer at
+    full width from a memmapped 224x224 edge stack: held to the resident
+    Trainer, timed, profiled; the host-blocked evaluation held to the
+    resident one."""
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data import native as N
+    from fashionvisualexpl_tpu_torch.data.features import synthetic_features
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+    from fashionvisualexpl_tpu_torch.train.streamed import (
+        STEP_SEED_BASE,
+        ArrayFeatureStore,
+        StreamedTrainer,
+    )
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer, fold_in
+
+    base = phase_start(torch)
+    shutil.rmtree(SAF_DIR, ignore_errors=True)
+    SAF_DIR.mkdir(parents=True)
+    stack = SAF_DIR / "edges_stack.npy"
+    t0 = time.perf_counter()
+    write_edge_stack(np, stack, SAF_I, SAF_HW, seed=2)
+    stack_s = time.perf_counter() - t0
+    edges = np.load(str(stack), mmap_mode="r")
+    color = synthetic_features(SAF_I, 512, seed=1)
+    cls = synthetic_features(SAF_I, 100, seed=3)
+    store = ArrayFeatureStore(color, edges, cls)
+    pairs, items, counts = make_scaled_arrays(SAF_U, SAF_I, SAF_POS, seed=0)
+    data = types.SimpleNamespace(
+        num_items=SAF_I, num_train=len(pairs), train_pairs=pairs, padded_pos=items,
+        pos_counts=counts, steps_per_epoch=lambda b: len(pairs) // b)
+    cfg = TrainConfig(batch_size=SAF_B, lr=AF_LR, reg=AF_REG)
+
+    def model(host):
+        return AttentiveFashion(
+            SAF_U, SAF_I, color, edges, cls, embed_k=EMBED_K, attention_layers=(64, 1),
+            encoder_hidden=256, dropout_rate=0.5, conv_filters=64, batch_eval=SAF_BATCH_EVAL,
+            host_features=host, generator=torch.Generator(device="cuda").manual_seed(4))
+
+    torch.cuda.reset_peak_memory_stats()
+    host = model(True)
+    if host.tower_route != "kernel" or dict(host.named_buffers()):
+        fail(f"streamed AttentiveFashion: route {host.tower_route}, buffers "
+             f"{sorted(dict(host.named_buffers()))}")
+    strainer = StreamedTrainer(host, data, cfg, store, prefetch_depth=SAF_DEPTH)
+    sstate, _ = strainer.init_state()
+    tabs = (strainer._train_pairs, strainer._padded_pos, strainer._pos_counts)
+    triples = sample_triplets(1, *tabs, SAF_I, SAF_ROUTE_STEPS, SAF_B)
+    s_losses = []
+    for s in range(SAF_ROUTE_STEPS):
+        sstate, loss = strainer.run_streamed_steps(
+            sstate, tuple(t[s:s + 1] for t in triples), store, 100 + s)
+        s_losses.append(float(loss))
+    streamed_peak = torch.cuda.max_memory_allocated() - base
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resident = model(False)
+    torch.cuda.synchronize()
+    resident_build_s = time.perf_counter() - t0
+    rtrainer = Trainer(resident, data, cfg)
+    rstate, frozen = rtrainer.init_state()
+    r_losses = []
+    for s in range(SAF_ROUTE_STEPS):
+        rstate, loss = rtrainer.run_steps(rstate, frozen, tuple(t[s:s + 1] for t in triples),
+                                          step_key=100 + s)
+        r_losses.append(float(loss))
+    resident_peak = torch.cuda.max_memory_allocated() - before
+    for s, (a, b) in enumerate(zip(s_losses, r_losses)):
+        if not (np.isfinite(a) and abs(a - b) <= 1e-5 * abs(b)):
+            fail(f"streamed route check step {s}: loss {a!r} (streamed) vs {b!r} (resident)")
+    route_err, exempt = route_check(torch, "streamed route check", sstate, rstate,
+                                    SAF_ROUTE_STEPS, AF_ROUTE_DRIFT)
+    bit_equal = s_losses == r_losses and all(
+        torch.equal(p, rstate.params[k]) for k, p in sstate.params.items())
+    print(f"streamed route check: {SAF_ROUTE_STEPS} steps at {SAF_B} x {SAF_HW}x{SAF_HW}, "
+          f"streamed vs resident, same triples and step seeds: losses {s_losses} vs "
+          f"{r_losses}; params/m/v max_abs_err={route_err!r}, {exempt} exempt; bit-equal "
+          f"{bit_equal}; resident build {resident_build_s!r} s")
+
+    # the host-blocked evaluation against the resident one
+    fwd = E.edge_tower_fwd.launches
+    t0 = time.perf_counter()
+    ctx_host = host.precompute_eval()
+    torch.cuda.synchronize()
+    eval_host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx_resident = resident.precompute_eval()
+    torch.cuda.synchronize()
+    eval_resident_s = time.perf_counter() - t0
+    blocks = -(-SAF_I // SAF_BATCH_EVAL)
+    if E.edge_tower_fwd.launches - fwd != 2 * blocks:
+        fail(f"precompute_eval launched K7 {E.edge_tower_fwd.launches - fwd} times, "
+             f"expected {blocks} each")
+    eval_err = worst(torch, "streamed precompute_eval", ctx_host, ctx_resident, 1e-6, 1e-7)
+    print(f"streamed precompute_eval over {SAF_I} items in {blocks} blocks: host "
+          f"{eval_host_s!r} s, resident {eval_resident_s!r} s, max_abs_err {eval_err!r}")
+    del resident, rtrainer, rstate, frozen, ctx_host, ctx_resident
+    phase_start(torch)  # collects the resident model
+
+    # the main path: 50 steps as an epoch of fit_streamed runs them
+    triples = sample_triplets(2, *tabs, SAF_I, SAF_STEPS, SAF_B)
+    rngs = [torch.Generator(device="cuda").manual_seed(fold_in(2, STEP_SEED_BASE + s))
+            for s in range(SAF_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    N.gather_rows_native.calls = 0
+    E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    sstate, loss = strainer.run_streamed_steps(sstate, triples, store, rngs)
+    loss = float(loss)  # waits for the steps
+    dt = time.perf_counter() - t0
+    launches = {"edge_tower_fwd": E.edge_tower_fwd.launches,
+                "edge_tower_bwd": E.edge_tower_bwd.launches}  # main path ends here
+    gathers = N.gather_rows_native.calls
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {"edge_tower_fwd": 2 * SAF_STEPS, "edge_tower_bwd": 2 * SAF_STEPS}
+    if launches != want:
+        fail(f"streamed main path launched {launches}, expected {want}")
+    if gathers != 3 * SAF_STEPS:
+        fail(f"streamed main path: {gathers} native gathers, expected 3 a batch "
+             f"({3 * SAF_STEPS}): a batch went around the native gather")
+    if not np.isfinite(loss):
+        fail(f"streamed main path loss {loss!r}")
+    stack_bytes = edges.nbytes
+    if not peak + stack_bytes // 2 < resident_peak:
+        fail(f"streamed peak {peak} B is not well under the resident model's "
+             f"{resident_peak} B (the stack is {stack_bytes} B)")
+    summary = dict(steps=SAF_STEPS, s=dt, ms_per_step=1e3 * dt / SAF_STEPS,
+                   triples_per_s=SAF_STEPS * SAF_B / dt, peak_gib=peak / 2**30,
+                   streamed_route_peak_gib=streamed_peak / 2**30,
+                   resident_peak_gib=resident_peak / 2**30, stack_bytes=stack_bytes,
+                   stack_write_s=stack_s, mean_loss=loss / SAF_STEPS, native_gathers=gathers,
+                   route_max_abs_err=route_err, route_exempt=exempt, route_bit_equal=bit_equal,
+                   eval_host_s=eval_host_s, eval_resident_s=eval_resident_s,
+                   eval_max_abs_err=eval_err)
+    print(f"streamed main path: {SAF_STEPS} steps in {dt!r} s, ms_per_step="
+          f"{summary['ms_per_step']!r} triples_per_s={summary['triples_per_s']!r}, peak "
+          f"{peak / 2**30!r} GiB (resident {resident_peak / 2**30!r} GiB), launches "
+          f"{launches}, native gathers {gathers}, mean loss {loss / SAF_STEPS!r}")
+
+    triples = sample_triplets(3, *tabs, SAF_I, SAF_PROFILE_STEPS, SAF_B)
+    summary["profile"] = step_profile(
+        torch, "streamed", lambda t: strainer.run_streamed_steps(sstate, t, store, 300),
+        triples, SAF_PROFILE_STEPS)
+    pos, neg = (t[0].cpu().numpy() for t in triples[1:])
+    summary["gather"] = gather_rates(torch, np, store, strainer._staging(store, SAF_B),
+                                     pos, neg)
+    print(f"streamed host gather of one batch ({summary['gather']['bytes']} B, page cache "
+          f"warm): {summary['gather']}")
+    del strainer, host, sstate, store, edges, triples, tabs
+    torch.cuda.empty_cache()
+    shutil.rmtree(SAF_DIR, ignore_errors=True)
+    return launches, summary
+
+
+def streamed_cli_phase(torch, np, E):
+    """train_rec --rec attentive_fashion --streamed --edge_hw 224 224 on a
+    2048 x 2048 dataset with 224x224 edge tiffs, --resume to a third epoch,
+    then serve_rec --streamed, in process."""
+    import glob
+    import pickle
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+    from fashionvisualexpl_tpu_torch.data import native as N
+
+    root = SAF_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_reference_dataset(np, root / "cli", SAF_CLI_N, SAF_CLI_N)
+    write_af_features(np, root / "cli", SAF_CLI_N, SAF_HW)
+    write_s = time.perf_counter() - t0
+    results = root / "results"
+    common = ["--rec", "attentive_fashion", "--dataset", "cli", "--data_root", str(root),
+              "--results_root", str(results), "--embed_k", str(EMBED_K), "--top_k",
+              str(CLI_K), "--edge_hw", str(SAF_HW), str(SAF_HW), "--batch_eval",
+              str(SAF_BATCH_EVAL), "--batch_size", str(SAF_B), "--streamed"]
+    N.gather_rows_native.calls = 0
+    E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0
+    t0 = time.perf_counter()
+    train(common + ["--epochs", "2", "--verbose", "1"])
+    train_s = time.perf_counter() - t0
+    launches = {"edge_tower_fwd": E.edge_tower_fwd.launches,
+                "edge_tower_bwd": E.edge_tower_bwd.launches}
+    stack = np.load(str(root / "cli" / "original" / "features" / "edges_stack.npy"),
+                    mmap_mode="r")
+    if stack.shape != (SAF_CLI_N, SAF_HW, SAF_HW, 1):
+        fail(f"the CLI's edge stack is {stack.shape}")
+    steps = 2 * ((SAF_CLI_N * (CLI_PER_USER - 2)) // SAF_B)
+    if launches["edge_tower_bwd"] != 2 * steps or N.gather_rows_native.calls < 3 * steps:
+        fail(f"streamed CLI: {launches} K7 launches, {N.gather_rows_native.calls} native "
+             f"gathers over {steps} steps")
+    rdir = results / "rec_results" / "cli" / "attentive_fashion"
+    wdir = results / "rec_model_weights" / "cli" / "attentive_fashion"
+    names = sorted(os.path.basename(p) for p in glob.glob(str(rdir / "*")))
+    patterns = ("recs-2-", "best-recs-", "att-recs-2-", "best-att-recs-", "results-metrics-",
+                "log-")
+    if len(names) != len(patterns) or not all(
+            any(n.startswith(p) for n in names) for p in patterns):
+        fail(f"streamed CLI wrote {names}, not the JAX CLI's file set")
+    rows = {}
+    for name in names:
+        if name.endswith(".tsv"):
+            table = read_tsv(np, rdir / name, 6 if name.startswith(("att", "best-att")) else 3)
+            rows[name] = len(table)
+            if len(table) != SAF_CLI_N * CLI_K:
+                fail(f"{name}: {len(table)} rows, expected {SAF_CLI_N * CLI_K}")
+    (ckpt,) = glob.glob(str(wdir / "ckpt-*"))
+    if sorted(os.listdir(ckpt)) != ["1", "2", "best-state"]:
+        fail(f"streamed CLI checkpoints {sorted(os.listdir(ckpt))}")
+    t0 = time.perf_counter()
+    train(common + ["--epochs", "3", "--verbose", "1", "--resume"])
+    resume_s = time.perf_counter() - t0
+    (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+    with open(pkl, "rb") as f:
+        per_epoch = pickle.load(f)
+    vals = np.array([v for m in per_epoch.values() for v in m.values()])
+    if sorted(per_epoch) != [3] or "3" not in os.listdir(ckpt) or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"streamed CLI --resume: epochs {sorted(per_epoch)}, checkpoints "
+             f"{sorted(os.listdir(ckpt))}, metrics {per_epoch}")
+    served = root / "served.tsv"
+    users = ",".join(str(u * (SAF_CLI_N // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    t0 = time.perf_counter()
+    serve(common + ["--ckpt", ckpt, "--users", users, "--output", str(served)])
+    serve_s = time.perf_counter() - t0
+    n_served = len(read_tsv(np, served, 3))
+    if n_served != CLI_SERVE_USERS * CLI_K:
+        fail(f"serve_rec --streamed wrote {n_served} rows, expected {CLI_SERVE_USERS * CLI_K}")
+    launches = {"edge_tower_fwd": E.edge_tower_fwd.launches,
+                "edge_tower_bwd": E.edge_tower_bwd.launches}
+    print(f"streamed cli: dataset write {write_s!r} s, train_rec (stack build included) "
+          f"{train_s!r} s, --resume {resume_s!r} s, serve_rec {serve_s!r} s; K7 launches "
+          f"{launches}; rows {rows}; served {n_served}; metrics at epoch 3 {per_epoch[3]}")
+    shutil.rmtree(SAF_DIR, ignore_errors=True)
+    return launches, dict(write_s=write_s, train_s=train_s, resume_s=resume_s,
+                          serve_s=serve_s, stack_bytes=stack.nbytes, metrics=per_epoch[3])
 
 
 def rows_bound(B: int, W: int):
@@ -4122,8 +4555,8 @@ def comp_generic_check(torch, label, kern, plain, steps):
 
 
 def comp_full_phase(torch, np, G, S, CompVBPR, feats, data, start):
-    """The packed epoch (50 steps at batch 8192, fp32 moments) through K4
-    and K5 and 20 generic Trainer steps, each timed with its peak memory
+    """The packed epoch (20 steps at batch 8192, fp32 moments) through K4
+    and K5 and 10 generic Trainer steps, each timed with its peak memory
     above ``start`` and profiled (5 steps): the idle share and the shares
     of K4, K5, the convs and the GEMMs."""
     from fashionvisualexpl_tpu_torch.core.config import TrainConfig
@@ -4638,6 +5071,7 @@ def main() -> int:
             if "warning" in line:
                 print(f"  nvcc {name}: {line.strip()}")
 
+    native = native_phase(np)
     rows = kernel_phase(torch, segmax)
     rows["build_s"] = cuda_build.build_seconds.get("segmax")
     rows["ptxas"] = ptxas["segmax"]
@@ -4657,6 +5091,8 @@ def main() -> int:
     tower_rows = tower_kernel_phase(torch, E)
     af_launches, af_train = af_train_phase(torch, np, E)
     af_cli_launches, af_cli = af_path_phase(torch, np, E)
+    streamed_launches, streamed = streamed_phase(torch, np, E)
+    streamed_cli_launches, streamed_cli = streamed_cli_phase(torch, np, E)
     row_rows = row_kernel_phase(torch, G, S)
     packed_launches, packed = packed_train_phase(torch, np, G, S)
     af_packed_launches, af_packed = af_packed_phase(torch, np, G, S, E)
@@ -4721,6 +5157,8 @@ def main() -> int:
             "replaces": f"fashionvisualexpl_tpu/ops/edge_tower.py:{line}",
             "launches": af_launches[name], **tower_rows[name],
             "cli_launches": af_cli_launches[name],
+            "streamed_launches": streamed_launches[name],
+            "streamed_cli_launches": streamed_cli_launches[name],
         })
     for name, source, line in (("gather_rows", "gather.cu", "gather.py:22"),
                                ("scatter_rows_set", "row_scatter.cu", "row_scatter.py:29")):
@@ -4762,6 +5200,7 @@ def main() -> int:
     print(json.dumps({"train": train, "fit": fitted}))
     print(json.dumps({"eval": evaluated, "cli": cli}))
     print(json.dumps({"af_train": af_train, "af_cli": af_cli}))
+    print(json.dumps({"native": native, "streamed": streamed, "streamed_cli": streamed_cli}))
     print(json.dumps({"packed": packed, "af_packed": af_packed, "packed_cli": packed_cli}))
     print(json.dumps({"vbpr": vbpr, "visual_cli": vis_cli}))
     print(json.dumps({"acf": acf}))

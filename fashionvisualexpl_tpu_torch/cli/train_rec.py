@@ -28,7 +28,12 @@ D = embed_k); and ``comp_vbpr`` (the families of ``--activated_components``
 mixed by ``--weight_components``: the CNN features of ``--cnn_model`` /
 ``--output_layer``, the color histograms, the edge tiffs at ``--edge_hw``
 through the trainable CNN, the texture features of ``--cnn_model``;
-factored at D = embed_k + embed_d per active family).  ``--streamed``,
+factored at D = embed_k + embed_d per active family).  ``--streamed``
+(attentive_fashion only) keeps the modality inputs on the host: the edge
+tiffs become one ``edges_stack.npy`` beside them (built by
+``build_edge_stack_npy`` when missing), read as a memmap, and
+``fit_streamed`` (``train/streamed.py``) streams each batch's rows to the
+card; evaluation and the dumps encode the catalog in host blocks.
 ``--compute_dtype bfloat16`` for attentive_fashion and comp_vbpr and a
 mesh raise ``NotImplementedError`` naming their ROADMAP item by heading.
 
@@ -119,12 +124,14 @@ def build_parser(description="Run train of the Recommender Model."):
     p.add_argument("--streaming_eval", action="store_true",
                    help="use the blocked streaming evaluator (factored models)")
     p.add_argument("--streamed", action="store_true",
-                   help="attentive_fashion only: keep the modality tensors "
-                        "on HOST (memmap) and stream per-batch feature "
-                        "gathers through a double-buffered prefetcher "
-                        "(train/streamed.py) — for catalogs whose edge "
-                        "stack exceeds HBM.  Builds/loads the single-file "
-                        "edges_stack.npy next to the edge tiffs")
+                   help="attentive_fashion only: keep the modality inputs "
+                        "on the host (the edge stack as a memmap) and "
+                        "stream each batch's rows to the card through a "
+                        "prefetch thread, the native row gather and pinned "
+                        "buffers (train/streamed.py) — for catalogs whose "
+                        "edge stack outgrows the card.  Builds or reads "
+                        "the single-file edges_stack.npy next to the edge "
+                        "tiffs")
     p.add_argument("--fused_frozen", type=_bool_flag, default=True,
                    help="packed path: fold frozen per-item feature columns "
                         "into the packed item rows (halves row gathers per "
@@ -257,8 +264,6 @@ def validate_args(args):
 def check_ported(args) -> None:
     """Raise NotImplementedError for the options of later slices, before any
     data loads."""
-    if args.streamed:
-        raise NotImplementedError("--streamed is not ported yet (ROADMAP: The streamed trainer)")
     if args.rec in ("attentive_fashion", "comp_vbpr") and args.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "--compute_dtype bfloat16 (bf16 towers and a bf16 edge-tower "
@@ -268,6 +273,24 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             "--mesh_data / --mesh_model are not ported yet (ROADMAP: Multi-device)"
         )
+
+
+def open_edge_stack(paths, ds: str, num_items: int, hw):
+    """The read-only memmap of ``paths.edges_stack(ds)``, written from the
+    edge tiffs first when it is missing; a stack of another shape
+    raises."""
+    import numpy as np
+
+    from fashionvisualexpl_tpu_torch.data.pipeline import build_edge_stack_npy
+
+    stack = paths.edges_stack(ds)
+    if not os.path.exists(stack):
+        build_edge_stack_npy(paths.edges_dir(ds), stack, num_items, hw=hw)
+    edges = np.load(stack, mmap_mode="r")
+    if edges.shape != (num_items, *hw, 1) or edges.dtype != np.float32:
+        raise ValueError(f"{stack} holds {edges.dtype}{edges.shape}, expected float32"
+                         f"{(num_items, *hw, 1)}: remove it to rebuild it at --edge_hw")
+    return edges
 
 
 def build_model(args, data, cfg):
@@ -298,19 +321,22 @@ def build_model(args, data, cfg):
             embed_edges=args.embed_edges, device=args.device,
         )
     if args.rec == "attentive_fashion":
-        from fashionvisualexpl_tpu_torch.data.pipeline import load_edge_image_stack
         from fashionvisualexpl_tpu_torch.models.attentive_fashion import (
             AttentiveFashion,
         )
 
-        edges = load_edge_image_stack(
-            paths.edges_dir(ds), data.num_items, hw=tuple(args.edge_hw)
-        )
+        hw = tuple(args.edge_hw)
+        if args.streamed:
+            edges = open_edge_stack(paths, ds, data.num_items, hw)
+        else:
+            from fashionvisualexpl_tpu_torch.data.pipeline import load_edge_image_stack
+
+            edges = load_edge_image_stack(paths.edges_dir(ds), data.num_items, hw=hw)
         return AttentiveFashion(
             data.num_users, data.num_items, F.load_color_histograms(paths, ds),
             edges, F.load_class_onehot(paths, ds), embed_k=args.embed_k,
             attention_layers=tuple(args.attention_layers),
-            compute_dtype=args.compute_dtype,
+            compute_dtype=args.compute_dtype, host_features=args.streamed,
             # --batch_eval: eval-time item-image encoding batch (the
             # reference consumes it at AttentiveFashion.py:338-343)
             batch_eval=args.batch_eval, edge_tower=args.edge_tower,
@@ -414,11 +440,20 @@ def train(argv=None):
             f"batch_{cfg.batch_size}-K_{args.embed_k}-lr_{cfg.lr}-reg_{cfg.reg}"
         )
         logger = JsonlLogger(os.path.join(results_dir, f"log-{run_tag}.jsonl"))
-        state, frozen, results, extra = fit(
-            model, data, cfg, evaluator=evaluator, log=logger.log,
-            ckpt_dir=os.path.join(weight_dir, f"ckpt-{run_tag}"),
-            resume=args.resume,
-        )
+        run_kw = dict(evaluator=evaluator, log=logger.log,
+                      ckpt_dir=os.path.join(weight_dir, f"ckpt-{run_tag}"),
+                      resume=args.resume)
+        if args.streamed:
+            # rec, train_path and mesh already checked by validate_args
+            from fashionvisualexpl_tpu_torch.train.streamed import (
+                ArrayFeatureStore,
+                fit_streamed,
+            )
+
+            store = ArrayFeatureStore(model._color, model._edges, model._class)
+            state, frozen, results, extra = fit_streamed(model, data, cfg, store, **run_kw)
+        else:
+            state, frozen, results, extra = fit(model, data, cfg, **run_kw)
         logger.close()
 
         # dumps in the reference layout (BPRMF.py:167-184); the best params

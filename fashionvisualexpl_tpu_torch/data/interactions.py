@@ -12,8 +12,9 @@ package's (``tests/test_torch_interactions.py``):
 - ``padded_pos`` / ``pos_counts``: per-user sorted positive items padded to a
   common width with strictly-increasing out-of-range sentinels.
 
-Not ported yet: the native (ctypes, multithreaded) TSV parser — this module
-always takes the pure-Python parser path.
+``read_split_tsv`` parses through the native host library
+(``data/native.py``: mmap'd, multithreaded) when it is available, and
+through the pure-Python loop otherwise; both give the same pairs.
 """
 
 from __future__ import annotations
@@ -28,8 +29,20 @@ import numpy as np
 from fashionvisualexpl_tpu_torch.core.config import TrainConfig
 
 
-def read_split_tsv(path: str) -> List[Tuple[int, int]]:
-    """Read (user, item) pairs from a reference-format split TSV."""
+def read_split_tsv(path: str, use_native: bool = True) -> List[Tuple[int, int]]:
+    """Read (user, item) pairs from a reference-format split TSV, through
+    the native parser when ``use_native`` and the library is available
+    (the Python loop takes minutes at 10^7+ rows), else in Python."""
+    if use_native:
+        from fashionvisualexpl_tpu_torch.data.native import parse_interactions_tsv
+
+        try:
+            parsed = parse_interactions_tsv(path)
+        except (OSError, RuntimeError):
+            parsed = None  # the Python loop raises the error, if any
+        if parsed is not None:
+            users, items, _ = parsed
+            return list(zip(users.tolist(), items.tolist()))
     pairs: List[Tuple[int, int]] = []
     with open(path) as f:
         for line in f:

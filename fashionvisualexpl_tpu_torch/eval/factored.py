@@ -13,9 +13,7 @@ Models opt in by implementing ``factored_eval(params) -> (user_factors
 [U, D], item_factors [I, D], item_bias [I] | None)``.
 
 Not ported yet: the ``mesh`` (sharded) path with ``sharded_streaming_counts``
-and ``sharded_streaming_topk_and_counts`` (ROADMAP: Multi-device), and the native
-TSV writer of ``data/native.py`` (dumps use the JAX package's Python
-writer's format).
+and ``sharded_streaming_topk_and_counts`` (ROADMAP: Multi-device).
 """
 
 from __future__ import annotations
@@ -227,14 +225,19 @@ class FactoredEvaluator:
         segment-max pipeline (``RecServer``, kernel K3).  ``exact=True``
         scores stage 1 in fp32 (the dumped ranking is then the true fp32
         top-k); the default bf16 stage 1 relies on the fp32 rescore and the
-        ``oversample=4`` segment margin."""
+        ``oversample=4`` segment margin.  The rows go through the native
+        parallel writer (``data/native.py::write_recs_tsv``, scores as
+        %.9g) when the host library is available, else through Python."""
+        from fashionvisualexpl_tpu_torch.data.native import write_recs_tsv
+
         users, ids, vals = self._topk_rows(params, frozen, exact=exact)
-        with open(path, "w") as out:
-            out.writelines(
-                f"{u}\t{ids[r, j]}\t{vals[r, j]}\n"
-                for r, u in enumerate(users)
-                for j in range(self.k)
-            )
+        if not write_recs_tsv(path, users, ids, vals):
+            with open(path, "w") as out:
+                out.writelines(
+                    f"{u}\t{ids[r, j]}\t{vals[r, j]}\n"
+                    for r, u in enumerate(users)
+                    for j in range(self.k)
+                )
 
     def _topk_rows(self, params, frozen, exact: bool = False):
         """Top-k (users [U], ids [U, k], vals [U, k]) numpy arrays for every

@@ -21,9 +21,16 @@ cached [I, 3, K] encodings, as in the JAX package.
 Parameters are the module's own: ``Gu``, ``Gi`` and the ``ParameterDict``s
 ``color_enc``, ``class_enc``, ``edges_enc`` and ``attention`` (named
 ``"color_enc.W1"`` and so on); the modality inputs ``Fc``, ``Fe_img`` and
-``Fcls`` are buffers (JAX's ``frozen``).  ``conv_W`` keeps JAX's HWIO
-layout [5, 5, 1, C].  The scoring methods take a ``params`` mapping (name ->
-tensor) in place of the module's own, like BPRMF's.
+``Fcls`` are buffers (JAX's ``frozen``).  With ``host_features=True`` they
+stay on the host instead, as the numpy arrays (or read-only memmaps)
+``_color``, ``_edges`` and ``_class``, and the model has no buffers (JAX's
+empty ``frozen``): the streamed trainer (``train/streamed.py``) feeds
+``loss_streamed`` each batch's rows, ``precompute_eval`` copies fixed-size
+``batch_eval`` blocks (``item_block`` without it) to the device through
+pinned staging buffers, and the other methods copy the rows they read.
+``conv_W`` keeps JAX's HWIO layout [5, 5, 1, C].  The scoring methods take
+a ``params`` mapping (name -> tensor) in place of the module's own, like
+BPRMF's.
 
 Dropout keeps with probability 1 - rate and divides by the keep rate, as
 JAX's ``_dropout``.  ``loss`` and ``encode_items`` take ``rng``: a
@@ -37,8 +44,7 @@ engine (Gu and Gi in the packed rows, the encoders and the attention as
 dense groups).
 
 Not ported yet: ``compute_dtype="bfloat16"`` (bf16 towers and a bf16 K7,
-ROADMAP: bf16 encoder towers), ``host_features`` with ``loss_streamed``
-(ROADMAP: The streamed trainer); each raises ``NotImplementedError``.
+ROADMAP: bf16 encoder towers); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from fashionvisualexpl_tpu_torch.core.precision import (
     cast_f32,
     resolve_compute_dtype,
 )
+from fashionvisualexpl_tpu_torch.data.pipeline import StagingRing, take_rows
 from fashionvisualexpl_tpu_torch.models.base import (
     Dropout,
     MaskDraw,
@@ -78,8 +85,9 @@ class AttentiveFashion(RecommenderModel):
     normalized), ``edge_images`` [I, H, W, 1] in [0, 1] and
     ``class_features`` [I, num_classes] are numpy arrays; they and the
     parameters live on ``device`` (``None`` = the CUDA card; raises without
-    one).  ``generator`` draws the init (``None``: a fresh generator seeded
-    with 0 on that device).
+    one), the arrays on the host with ``host_features=True`` (pass float32
+    memmaps: they stay views).  ``generator`` draws the init (``None``: a
+    fresh generator seeded with 0 on that device).
 
     ``edge_tower`` picks the conv -> pool -> GAP implementation, settled
     here and readable as ``tower_route`` ("kernel", "plain" or "s2d"):
@@ -130,11 +138,6 @@ class AttentiveFashion(RecommenderModel):
         self.dropout_rate = dropout_rate
         self.conv_filters = conv_filters
         self.item_block = item_block
-        if host_features:
-            raise NotImplementedError(
-                "host_features (the streamed trainer) is not ported yet "
-                "(ROADMAP: The streamed trainer)"
-            )
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         if self.compute_dtype != torch.float32:
             raise NotImplementedError(
@@ -163,12 +166,20 @@ class AttentiveFashion(RecommenderModel):
             else "plain"
         )
 
-        def buf(a):
-            return torch.from_numpy(np.require(a, np.float32, ["C", "W"])).to(dev)
+        self.host_features = host_features
+        if host_features:
+            # float32 memmaps stay no-copy views
+            self._color = np.asarray(color_features, np.float32)
+            self._edges = np.asarray(edge_images, np.float32)
+            self._class = np.asarray(class_features, np.float32)
+            self._eval_ring = None  # pinned staging for precompute_eval
+        else:
+            def buf(a):
+                return torch.from_numpy(np.require(a, np.float32, ["C", "W"])).to(dev)
 
-        self.register_buffer("Fc", buf(color_features))
-        self.register_buffer("Fe_img", buf(edge_images))
-        self.register_buffer("Fcls", buf(class_features))
+            self.register_buffer("Fc", buf(color_features))
+            self.register_buffer("Fe_img", buf(edge_images))
+            self.register_buffer("Fcls", buf(class_features))
         self.dim_c = int(color_features.shape[1])
         self.dim_cls = int(class_features.shape[1])
 
@@ -247,11 +258,22 @@ class AttentiveFashion(RecommenderModel):
         class_e = self._mlp_encode(param_group(p, "class_enc"), cls, draw)
         return torch.stack([color_e, edges_e, class_e], dim=-2)
 
+    def _rows(self, item_ids):
+        """(color, edges, class) inputs of ``item_ids`` (all items when
+        None) on the model's device; host features are copied there."""
+        if not self.host_features:
+            if item_ids is None:
+                return self.Fc, self.Fe_img, self.Fcls
+            return self.Fc[item_ids], self.Fe_img[item_ids], self.Fcls[item_ids]
+        srcs = (self._color, self._edges, self._class)
+        if item_ids is not None:
+            ids = torch.as_tensor(item_ids).cpu().numpy()
+            srcs = tuple(take_rows(a, ids, np.empty((len(ids),) + a.shape[1:], np.float32))
+                         for a in srcs)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in srcs)
+
     def _encode_ids(self, p, item_ids, draw):
-        if item_ids is None:
-            return self._encode(p, self.Fc, self.Fe_img, self.Fcls, draw)
-        return self._encode(p, self.Fc[item_ids], self.Fe_img[item_ids],
-                            self.Fcls[item_ids], draw)
+        return self._encode(p, *self._rows(item_ids), draw)
 
     def _draw(self, rng: Dropout) -> Optional[MaskDraw]:
         return keep_masks(rng, 1.0 - self.dropout_rate) if self.dropout_rate > 0 else None
@@ -291,15 +313,30 @@ class AttentiveFashion(RecommenderModel):
         ``rng``: a generator or the six keep-masks (module docstring)."""
         p = dict(self.named_parameters())
         return self._bpr_loss(p, self.Gu[users], self.Gi[pos], self.Gi[neg],
-                              pos, neg, reg, rng)
+                              self._rows(pos), self._rows(neg), reg, rng)
 
-    def _bpr_loss(self, p, gamma_u, gamma_pos, gamma_neg, pos, neg, reg,
+    def loss_streamed(self, users, pos, neg, feats, reg: float,
+                      rng: Dropout = None) -> torch.Tensor:
+        """``loss`` with the modality inputs of the batch given in ``feats``
+        (``col_pos``, ``img_pos``, ``cls_pos``, ``col_neg``, ``img_neg``,
+        ``cls_neg``: [B, ...] tensors on the model's device), the streamed
+        trainer's step.  Dropout is drawn as ``loss`` draws it, so the same
+        rows and the same generator give the same loss."""
+        p = dict(self.named_parameters())
+        return self._bpr_loss(
+            p, self.Gu[users], self.Gi[pos], self.Gi[neg],
+            (feats["col_pos"], feats["img_pos"], feats["cls_pos"]),
+            (feats["col_neg"], feats["img_neg"], feats["cls_neg"]), reg, rng)
+
+    def _bpr_loss(self, p, gamma_u, gamma_pos, gamma_neg, pos_in, neg_in, reg,
                   rng: Dropout) -> torch.Tensor:
-        """The loss from the batch rows and the encoder / attention params
-        ``p`` (dotted names); shared by ``loss`` and ``packed_loss``."""
+        """The loss from the batch rows, the positives' and negatives'
+        (color, edges, class) inputs and the encoder / attention params
+        ``p`` (dotted names); shared by ``loss``, ``loss_streamed`` and
+        ``packed_loss``."""
         draw = self._draw(rng)
-        e_pos = self._encode_ids(p, pos, draw)  # [B, 3, K]
-        e_neg = self._encode_ids(p, neg, draw)
+        e_pos = self._encode(p, *pos_in, draw)  # [B, 3, K]
+        e_neg = self._encode(p, *neg_in, draw)
         att = param_group(p, "attention")
         x_pos = self._score_from_encoded(att, gamma_u, gamma_pos, e_pos)
         x_neg = self._score_from_encoded(att, gamma_u, gamma_neg, e_neg)
@@ -338,7 +375,7 @@ class AttentiveFashion(RecommenderModel):
         (the model reads its own buffers)."""
         _, pos, neg = ids
         return self._bpr_loss(dense, user_vw["Gu"], pos_vw["Gi"], neg_vw["Gi"],
-                              pos, neg, reg, rng)
+                              self._rows(pos), self._rows(neg), reg, rng)
 
     # --- inference ---
 
@@ -354,8 +391,13 @@ class AttentiveFashion(RecommenderModel):
         With ``batch_eval`` (the reference's --batch_eval,
         AttentiveFashion.py:338-343) in blocks of that many items, the last
         one padded to a full block, as in the JAX package: one tower call
-        per block."""
+        per block.  With host features, blocks of ``batch_eval`` (else
+        ``item_block``) items go through two pinned staging buffers per
+        modality: one block's rows are copied on the host while the device
+        encodes the one before."""
         p = self.params_or_own(params)
+        if self.host_features:
+            return self._precompute_eval_host(p)
         I, blk = self.num_items, self.batch_eval
         if blk is None or blk >= I:
             return self._encode_ids(p, None, None)
@@ -366,6 +408,27 @@ class AttentiveFashion(RecommenderModel):
             if n < blk:
                 parts = [torch.cat([a, a.new_zeros((blk - n,) + a.shape[1:])]) for a in parts]
             out.append(self._encode(p, *parts, None)[:n])
+        return torch.cat(out)
+
+    def _precompute_eval_host(self, p) -> torch.Tensor:
+        I = self.num_items
+        blk = min(self.item_block if self.batch_eval is None else self.batch_eval, I)
+        srcs = {"col": self._color, "img": self._edges, "cls": self._class}
+        ring = self._eval_ring
+        if ring is None or ring.slots[0]["col"].shape[0] != blk \
+                or ring.device != self.device:
+            ring = self._eval_ring = StagingRing(
+                2, {k: (blk,) + a.shape[1:] for k, a in srcs.items()}, self.device)
+        out = []
+        for s in range(0, I, blk):
+            n = min(blk, I - s)
+            i = ring.acquire()
+            for k, a in srcs.items():
+                view = ring.views[i][k]
+                take_rows(a, np.arange(s, s + n, dtype=np.int32), view[:n])
+                view[n:] = 0.0  # the last block padded to a full one
+            x = ring.to_device(i)
+            out.append(self._encode(p, x["col"], x["img"], x["cls"], None)[:n])
         return torch.cat(out)
 
     def _scores_against_all(self, att, gamma_u, e_items, Gi):

@@ -88,11 +88,17 @@ def attentive_fashion_from_jax(
     params and modality inputs.  ``jax_model`` is the JAX model object
     (its configuration is read from its attributes, nothing is imported);
     ``params`` its nested params and ``frozen`` its ``Fc``, ``Fe_img``,
-    ``Fcls``, all as numpy.  ``conv_W`` keeps JAX's HWIO [5, 5, 1, C]."""
-    frozen = {k: np.asarray(frozen[k], np.float32) for k in ("Fc", "Fe_img", "Fcls")}
+    ``Fcls``, all as numpy.  A ``host_features`` model has an empty
+    ``frozen``: its host arrays ``_color``, ``_edges``, ``_class`` are taken
+    as they are (memmaps stay memmaps).  ``conv_W`` keeps JAX's HWIO [5, 5,
+    1, C]."""
+    host = bool(getattr(jax_model, "host_features", False))
+    if host:
+        inputs = (jax_model._color, jax_model._edges, jax_model._class)
+    else:
+        inputs = tuple(np.asarray(frozen[k], np.float32) for k in ("Fc", "Fe_img", "Fcls"))
     model = AttentiveFashion(
-        jax_model.num_users, jax_model.num_items,
-        frozen["Fc"], frozen["Fe_img"], frozen["Fcls"],
+        jax_model.num_users, jax_model.num_items, *inputs, host_features=host,
         embed_k=jax_model.embed_k, attention_layers=jax_model.attention_layers,
         encoder_hidden=jax_model.encoder_hidden, dropout_rate=jax_model.dropout_rate,
         conv_filters=jax_model.conv_filters, item_block=jax_model.item_block,

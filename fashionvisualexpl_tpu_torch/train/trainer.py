@@ -240,9 +240,27 @@ def fit(
     latest checkpoint and continues from the next epoch.  The epoch seeds
     depend only on (seed, epoch), so a resumed run continues exactly as the
     uninterrupted one would."""
-    trainer = Trainer(model, data, cfg)
-    seed = cfg.seed if seed is None else seed
-    init_seed, epoch_seed = split_seed(seed)
+    init_seed, epoch_seed = split_seed(cfg.seed if seed is None else seed)
+    return run_fit(Trainer(model, data, cfg), init_seed, epoch_seed, evaluator=evaluator,
+                   log=log, ckpt_dir=ckpt_dir, resume=resume)
+
+
+def run_fit(
+    trainer,
+    init_seed: int,
+    epoch_seed: int,
+    evaluator=None,
+    log: Optional[Callable[[Dict[str, Any]], None]] = None,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+) -> Tuple[TrainState, Any, Dict[int, Dict[str, float]], Dict[str, Any]]:
+    """``fit``'s run structure over ``trainer`` (a ``Trainer``, or the
+    streamed trainer of ``train/streamed.py``): the state from
+    ``trainer.init_state(init_seed)``, epoch e run by
+    ``trainer.run_epoch(state, frozen, fold_in(epoch_seed, e))``; the
+    evaluation cadence, best params, checkpoints and log records as
+    ``fit`` documents them."""
+    cfg = trainer.cfg
     state, frozen = trainer.init_state(init_seed)
 
     ckpt = None

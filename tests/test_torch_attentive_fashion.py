@@ -192,8 +192,13 @@ def test_construction_rules():
         AttentiveFashion(U, I + 1, color, edges, cls, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
         AttentiveFashion(U, I, color, edges, cls, compute_dtype="bfloat16", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP: The streamed trainer"):
-        AttentiveFashion(U, I, color, edges, cls, host_features=True, **kw)
+    # host_features: no buffers (JAX's empty frozen); the host arrays kept
+    host = AttentiveFashion(U, I, color, edges, cls, host_features=True, **kw)
+    assert host.host_features and dict(host.named_buffers()) == {}
+    for got, want in ((host._color, color), (host._edges, edges), (host._class, cls)):
+        assert isinstance(got, np.ndarray) and np.shares_memory(got, want)
+    assert sorted(dict(host.named_parameters())) == sorted(dict(
+        AttentiveFashion(U, I, color, edges, cls, **kw).named_parameters()))
 
 
 def test_init_draws_the_jax_shapes_and_scales():

@@ -230,13 +230,57 @@ def test_packed_help_says_what_the_port_runs():
 
 @pytest.mark.parametrize("extra,item", [
     (("--train_path", "packed", "--mesh_data", "2"), "Multi-device"),
-    (("--rec", "attentive_fashion", "--streamed"), "The streamed trainer"),
     (("--mesh_data", "2"), "Multi-device"),
 ])
 def test_options_of_later_slices_raise(dataset_dir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
         pcli.train(_argv(dataset_dir, "never", ()) + list(extra))
     assert not os.path.exists(os.path.join(dataset_dir, "never"))
+
+
+def test_streamed_run_writes_the_resident_file_set_over_one_edge_stack(tmp_path):
+    """``train_rec --rec attentive_fashion --streamed`` (8x8 edges): the
+    file set of the resident run (its plain and attention dumps, metrics,
+    log and checkpoints; ``--streamed`` changes only how the steps read
+    their inputs; ``test_torch_cli_attentive.py`` holds that set to the JAX
+    CLI's), the edge stack written once beside the tiffs and read as a
+    memmap (a second run reuses it, with the same metrics), and a stack of
+    another shape refused."""
+    from fashionvisualexpl_tpu_torch.core.config import Paths
+
+    root = str(tmp_path)
+    make_synthetic_dataset_on_disk(root, num_users=12, num_items=14, interactions_per_user=4,
+                                   cnn_dim=16, edge_hw=(12, 12), with_images=True)
+    argv = ["--rec", "attentive_fashion", "--dataset", "synthetic", "--data_root", root,
+            "--epochs", "2", "--batch_size", "8", "--top_k", "3", "--embed_k", "4",
+            "--attention_layers", "4", "1", "--edge_hw", "8", "8", "--eval_user_block", "8",
+            "--verbose", "1", "--device", "cpu"]
+    pcli.train(argv + ["--results_root", os.path.join(root, "resident")])
+    pcli.train(argv + ["--streamed", "--results_root", os.path.join(root, "port")])
+    stack = Paths(root=root).edges_stack("synthetic")
+    mtime = os.path.getmtime(stack)
+    assert np.load(stack, mmap_mode="r").shape == (14, 8, 8, 1)
+    port = _files(root, "port")
+    want = {re.sub(r"best-att-recs-\d+-", "best-att-recs-E-", n)
+            for n in _files(root, "resident")}
+    assert {re.sub(r"best-att-recs-\d+-", "best-att-recs-E-", n) for n in port} == want
+    assert sum("att-recs" in n for n in port) == 2
+    pcli.train(argv + ["--streamed", "--results_root", os.path.join(root, "again")])
+    assert os.path.getmtime(stack) == mtime
+
+    def metrics(results):
+        (pkl,) = glob.glob(os.path.join(root, results, "rec_results", "synthetic",
+                                        "attentive_fashion", "results-metrics-*.pkl"))
+        return pickle.load(open(pkl, "rb"))
+
+    a, b = metrics("port"), metrics("again")
+    assert sorted(a) == sorted(metrics("resident")) == [1, 2]
+    for e in a:
+        for k in a[e]:
+            np.testing.assert_allclose(b[e][k], a[e][k], rtol=1e-6, err_msg=k)
+    with pytest.raises(ValueError, match="remove it to rebuild"):
+        pcli.train(argv + ["--streamed", "--edge_hw", "4", "4",
+                           "--results_root", os.path.join(root, "other")])
 
 
 def test_no_device_without_a_card_raises(dataset_dir, monkeypatch):

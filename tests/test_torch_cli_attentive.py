@@ -8,8 +8,11 @@ dumps included, U x k rows each, six columns whose weights sum to 1);
 (``tests/test_cli.py::test_cli_batch_eval_honored``); ``serve_rec`` serves
 the best params through the direct path, with the best dump's scores
 (also after ``--train_path packed``, whose run writes the same file set);
-``--compute_dtype bfloat16`` and ``--streamed`` raise naming their ROADMAP
-items."""
+``--streamed`` (the edge stack built as a memmap beside the tiffs, the
+streamed trainer) writes the same file set, its metrics those of
+``fit_streamed`` over the tiffs' stack in memory (rtol 1e-6), and
+``serve_rec --streamed`` serves its best dump; ``--compute_dtype bfloat16``
+raises naming its ROADMAP item."""
 
 import glob
 import os
@@ -69,10 +72,15 @@ def _metrics(root, results):
     return pickle.load(open(pkl, "rb"))
 
 
-def test_cli_writes_the_jax_file_set(dataset_dir):
+@pytest.fixture(scope="module")
+def jax_run(dataset_dir):
     jcli.train(_argv(dataset_dir, "jax", ("--streaming_eval",), device=False))
+    return _files(dataset_dir, "jax")
+
+
+def test_cli_writes_the_jax_file_set(dataset_dir, jax_run):
     pcli.train(_argv(dataset_dir, "port", ("--streaming_eval",)))
-    port, jax_run = _files(dataset_dir, "port"), _files(dataset_dir, "jax")
+    port = _files(dataset_dir, "port")
     assert sorted(port) == sorted(jax_run)
     assert sum("att-recs" in n for n in port) == 2
     for name, path in port.items():
@@ -117,9 +125,68 @@ def test_cli_serve_from_checkpoint(dataset_dir):
                                [float(r[2]) for r in dumped], rtol=1e-5, atol=1e-7)
 
 
+def test_cli_streamed_writes_the_jax_file_set_and_serves(dataset_dir, jax_run):
+    """``--streamed``: the JAX CLI's file set (which ``--streamed`` leaves
+    as it is) and both attention dumps; the edge stack built beside the
+    tiffs; the metrics of ``fit_streamed`` on the same config over the
+    tiffs' stack in memory; ``serve_rec --streamed`` from the checkpoint
+    serves the best dump's recommendations."""
+    from fashionvisualexpl_tpu_torch.core.config import Paths, TrainConfig
+    from fashionvisualexpl_tpu_torch.data.features import (
+        load_class_onehot,
+        load_color_histograms,
+    )
+    from fashionvisualexpl_tpu_torch.data.interactions import Interactions
+    from fashionvisualexpl_tpu_torch.data.pipeline import load_edge_image_stack
+    from fashionvisualexpl_tpu_torch.eval.evaluator import Evaluator
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+    from fashionvisualexpl_tpu_torch.train.streamed import ArrayFeatureStore, fit_streamed
+
+    argv = _argv(dataset_dir, "streamed", ("--streamed",))
+    pcli.train(argv)
+    paths = Paths(root=dataset_dir)
+    stack = np.load(paths.edges_stack("synthetic"), mmap_mode="r")
+    edges = load_edge_image_stack(paths.edges_dir("synthetic"), 20, hw=(8, 8))
+    np.testing.assert_array_equal(stack, edges)
+    port = _files(dataset_dir, "streamed")
+    assert sorted(port) == sorted(jax_run)
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            rows = _rows(path, 6 if "att-recs" in name else 3)
+            if "att-recs" in name:
+                alphas = np.asarray([[float(x) for x in r[3:]] for r in rows])
+                np.testing.assert_allclose(alphas.sum(1), 1.0, rtol=1e-5)
+    # the same run in process, the edge stack in memory
+    cfg = TrainConfig(dataset="synthetic", batch_size=16, epochs=2, top_k=K_TOP, verbose=1,
+                      lr=0.001, reg=0.0, paths=paths)
+    data = Interactions.load(cfg)
+    inputs = (load_color_histograms(paths, "synthetic"), edges,
+              load_class_onehot(paths, "synthetic"))
+    model = AttentiveFashion(U, 20, *inputs, embed_k=8, attention_layers=(4, 1),
+                             batch_eval=128, host_features=True, device="cpu")
+    _, _, want, _ = fit_streamed(model, data, cfg, ArrayFeatureStore(*inputs),
+                                 evaluator=Evaluator(model, data, k=K_TOP, user_block=8))
+    got = _metrics(dataset_dir, "streamed")
+    assert sorted(got) == sorted(want) == [1, 2]
+    for e in got:
+        assert sorted(got[e]) == sorted(want[e])
+        for k in got[e]:
+            np.testing.assert_allclose(got[e][k], want[e][k], rtol=1e-6, err_msg=k)
+    base = os.path.join(dataset_dir, "streamed")
+    (ckpt,) = glob.glob(os.path.join(base, "rec_model_weights", "synthetic",
+                                     "attentive_fashion", "ckpt-*"))
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "attentive_fashion",
+                                     "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(argv + ["--ckpt", ckpt, "--users", "all", "--output", out])
+    served, dumped = _rows(out, 3), _rows(best, 3)
+    assert [r[:2] for r in served] == [r[:2] for r in dumped]
+    np.testing.assert_allclose([float(r[2]) for r in served],
+                               [float(r[2]) for r in dumped], rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize("extra,item", [
     (("--compute_dtype", "bfloat16"), "bf16 encoder towers"),
-    (("--streamed",), "The streamed trainer"),
 ])
 def test_options_of_later_slices_raise(dataset_dir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):

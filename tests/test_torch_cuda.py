@@ -1435,3 +1435,93 @@ def test_acf_packed_step_on_card(cuda_device, moment_dtype, fused):
                                             states[1].dense[name][2].values())):
             live = torch.sqrt(v_c / bc2) >= 10 * 1e-7
             torch.testing.assert_close(p_k.cpu()[live], p_c[live], rtol=2e-4, atol=1e-5)
+
+
+def _streamed_pair(dev, U, I, H, seed):
+    """A resident AttentiveFashion and a host_features one on the same
+    weights (K7 on the card), the data and the store of the host one."""
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+    from fashionvisualexpl_tpu_torch.train.streamed import ArrayFeatureStore
+
+    rng = np.random.default_rng(seed)
+    inputs = (rng.random((I, 12)).astype(np.float32),
+              (rng.integers(0, 256, (I, H, H, 1)) / 255.0).astype(np.float32),
+              np.eye(5, dtype=np.float32)[rng.integers(0, 5, I)])
+    models = [AttentiveFashion(U, I, *inputs, embed_k=16, attention_layers=(8, 1),
+                               encoder_hidden=32, conv_filters=64, host_features=host,
+                               device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+              for host in (False, True)]
+    assert [m.tower_route for m in models] == ["kernel", "kernel"]
+    data = synthetic_interactions(U, I, interactions_per_user=6, seed=seed)
+    return models, data, ArrayFeatureStore(*inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(4, 32), (2, 224)], ids=["4x32x32", "2x224x224"])
+def test_streamed_step_equals_resident_step_on_card(cuda_device, B, H):
+    """Two steps of ``run_streamed_steps`` (rows from the host store through
+    pinned buffers) and of the resident ``Trainer.run_steps`` from one
+    state, the same triples and step seeds, both on K7 (2 + 2 launches a
+    step): the same losses and params, bit for bit."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data import native as N
+    from fashionvisualexpl_tpu_torch.train.streamed import StreamedTrainer
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    (resident, host), data, store = _streamed_pair(cuda_device, 30, 24, H, seed=B)
+    cfg = TrainConfig(batch_size=B, lr=0.01, reg=0.001)
+    trainers = [Trainer(resident, data, cfg), StreamedTrainer(host, data, cfg, store)]
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    triples = tuple(torch.randint(0, hi, (2, B), generator=g, device=cuda_device)
+                    for hi in (30, 24, 24))
+    runs = []
+    for tr in trainers:
+        state, frozen = tr.init_state()
+        before = (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches,
+                  N.gather_rows_native.calls)
+        if isinstance(tr, StreamedTrainer):
+            state, loss = tr.run_streamed_steps(state, triples, store, 11)
+        else:
+            state, loss = tr.run_steps(state, frozen, triples, 11)
+        torch.cuda.synchronize()
+        launched = (K7.edge_tower_fwd.launches - before[0],
+                    K7.edge_tower_bwd.launches - before[1])
+        assert launched == (4, 4)
+        runs.append((state, loss, N.gather_rows_native.calls - before[2]))
+    (rs, rl, _), (ss, sl, gathers) = runs
+    assert gathers == (6 if N.load_library() is not None else 0)  # 3 a batch
+    assert torch.equal(sl, rl), (float(sl), float(rl))
+    for k, p in rs.params.items():
+        assert torch.equal(ss.params[k], p), (k, float((ss.params[k] - p).abs().max()))
+
+
+@pytest.mark.cuda
+def test_staging_ring_never_refills_a_buffer_in_flight_on_card(cuda_device):
+    """The prefetcher gathers ahead into a ring of pinned buffers while the
+    copies out of them wait behind a long kernel on the stream: every batch
+    that reaches the card equals ``src[ids]`` (a buffer refilled before its
+    copy ran would give the next batch's rows)."""
+    from fashionvisualexpl_tpu_torch.data.pipeline import HostPrefetcher, StagingRing
+    from fashionvisualexpl_tpu_torch.train.streamed import ArrayFeatureStore
+
+    R, B, steps, depth = 64, 8, 24, 2
+    rows = np.arange(R, dtype=np.float32)[:, None, None, None]
+    store = ArrayFeatureStore(np.repeat(rows[:, :, 0, 0], 3, 1),
+                              np.ascontiguousarray(np.broadcast_to(rows, (R, 64, 64, 1))),
+                              np.repeat(rows[:, :, 0, 0], 2, 1))
+    ids = np.random.default_rng(0).integers(0, R, (steps, 2, B)).astype(np.int32)
+    ring = StagingRing(depth + 2, store.shapes(B), cuda_device)
+
+    def gather(s):
+        i = ring.acquire()
+        store.gather(ids[s, 0], ids[s, 1], out=ring.views[i])
+        return i
+
+    got = []
+    for s, i in HostPrefetcher(iter(range(steps)), gather, depth=depth):
+        torch.cuda._sleep(20_000_000)  # ~10 ms: the copy below waits behind it
+        got.append(store.split(ring.to_device(i)))
+    torch.cuda.synchronize()
+    for s, feats in enumerate(got):
+        for key, want in store.gather(ids[s, 0], ids[s, 1]).items():
+            assert torch.equal(feats[key].cpu(), torch.from_numpy(want)), (s, key)
