@@ -143,9 +143,9 @@ Phases, each of which raises on a failure (nothing is swallowed):
    rows and moments within the route tolerances, the fused Fspat columns,
    tau and untouched rows bit-equal, the last step's extra rows stamped)
    and 3 generic ``Trainer`` steps likewise; the chunked profile (``pos_chunk`` 8) against the
-   one-shot one within 2e-6; a packed epoch of 50 steps at batch 8192 (the
-   maps read by id; 5 K4 + 2 K5 a step) and 20 fused steps at batch 2048
-   (cut for memory), each with a 10-step profile; 20 generic steps;
+   one-shot one within 2e-6; a packed epoch of 25 steps at batch 8192 (the
+   maps read by id; 5 K4 + 2 K5 a step) and 10 fused steps at batch 2048
+   (cut for memory), each with a 10-step profile; 10 generic steps;
    ``precompute_eval`` over 1M users and the test split through K2 (245
    launches); ``RecServer`` through K3 at the buckets, 64 users against a
    full-catalog fp32 oracle; ``train_rec --rec acf`` (generic, packed) and
@@ -161,8 +161,8 @@ Phases, each of which raises on a failure (nothing is swallowed):
    P=20: the packed step (fp32 and fp8 moments) and the generic Trainer
    step on the card against the CPU on a 4096 x 4096 catalog (2 steps at
    batch 256, each from the CPU route's state, dropout masks shared); a
-   packed epoch of 20 steps at batch 8192 (4 K4 + 2 K5 a step, the user
-   rows 625 floats) and 10 generic steps, each with a 5-step profile (the
+   packed epoch of 10 steps at batch 8192 (4 K4 + 2 K5 a step, the user
+   rows 625 floats) and 5 generic steps, each with a 5-step profile (the
    idle share, K4's, K5's, the convolutions' and the GEMMs' shares, no
    TF32 kernel); ``FactoredEvaluator(counts_impl="kernel").evaluate``
    through K2 at D=208 (245 launches); ``RecServer`` through K3 at the
@@ -204,6 +204,28 @@ Phases, each of which raises on a failure (nothing is swallowed):
    written here (the stack built by ``build_edge_stack_npy``), 2 epochs
    with dense evaluation: the JAX CLI's file set, ``--resume`` to a third
    epoch from its checkpoint, then ``serve_rec --streamed``.
+
+24. (run last) multi-device: ranks of this
+   script (``--mesh-rank``) sharing the one card over gloo, each forming
+   its group with ``parallel/multihost.py::initialize_from_env``, after the
+   parent built the kernels.  ``RecServer(mesh)`` over a (1, 2) mesh at
+   phase 4's size and seeds (K3 on every rank; the ids of every bucket
+   equal to one device's server on the same weights, B=64 to the fp32
+   oracle; p50 per bucket, "2 ranks sharing one H100", not a multi-card
+   figure); ``FactoredEvaluator(mesh, counts_impl="kernel")`` at phase
+   10's size, on its Interactions pickled by the parent (K2 490 times on
+   each rank; the metrics equal to phase 10's, the first block's per-user
+   values to one device's); BPRMF at 1M x 500k, batch 8192,
+   over a (2, 2) mesh, 3 generic steps and 3 packed steps with fp32 and
+   with bf16 moments (4 K4 + 2 K5 launches a step on every rank), held
+   against one device's steps from the same state and triples by
+   ``route_check`` / ``packed_route_check``; ``torchrun --nproc_per_node=4
+   ... train_rec --mesh_data 2 --mesh_model 2`` on a 20k x 20k dataset
+   written as phase 11's, at batch 8192, against ``train_rec`` on one
+   device with the same flags (the file set and, within
+   ``tests/test_golden.py``'s tolerances, the metrics; ``serve_rec`` on one
+   device from the mesh run's checkpoint equal to its best dump); one rank
+   on nccl answering through the sharded server.
 
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -341,6 +363,10 @@ GATHER_SHAPE, SCATTER_SHAPE = (1_000_000, 128, 24576), (1_000_000, 384, 24576)
 # call before, as the packed step's dedupe gather finds them)
 GATHER_B = 16_384
 GATHER_NARROW = (385, 388, 257, 259, 193, 195, 445, 297)
+# calls a row-kernel timing averages (K4, K5 and their library calls; the
+# plain versions half of it): 20 before the multi-device phase came, cut
+# for its time
+ROW_ITERS = 10
 GATHER_WIDE = (4355, 4867, 4484, 4996)
 # packed training: the fast path's BPRMF configuration (scripts/scaled_bench.py
 # --packed --packed_engine generic), one epoch cut to 200 steps; the
@@ -394,14 +420,15 @@ VIS_CLI_B, VIS_CLI_REVIEWS, VIS_TOP_N = 1024, 5, 50
 # --cnn_model), at the JAX package's own ACF scale (SPEED.md:145): 1M users
 # x 200k items, P=20 positives a user (make_scaled_arrays, the array path);
 # Fspat [200k, 49, 512] (20.07 GB) made on the card from a seed on the 1/64
-# grid.  Cut in depth (50 packed and 20 generic steps) and, fused, in batch
+# grid.  Cut in depth (25 packed, 10 fused and 10 generic steps since the
+# multi-device phase came; 50, 20, 20 before) and, fused, in batch
 # (2048: at 8192 the fused item table, the extra rows and the deduped rows
 # do not fit beside Fspat).  Route checks on a 4096 x 4096 catalog at batch
 # 256 (the CPU route's attention over B x P x S x C), the chunked profile
 # over 4096 users, the CLI on a 2048 x 2048 dataset with 7x7x512 .npy maps
 ACF_U, ACF_I, ACF_P, ACF_S, ACF_C = 1_000_000, 200_000, 20, 49, 512
-ACF_B, ACF_STEPS, ACF_FUSED_B, ACF_FUSED_STEPS = 8192, 50, 2048, 20
-ACF_GENERIC_STEPS, ACF_PROFILE_STEPS, ACF_CHUNK, ACF_CHUNK_USERS = 20, 10, 8, 4096
+ACF_B, ACF_STEPS, ACF_FUSED_B, ACF_FUSED_STEPS = 8192, 25, 2048, 10
+ACF_GENERIC_STEPS, ACF_PROFILE_STEPS, ACF_CHUNK, ACF_CHUNK_USERS = 10, 10, 8, 4096
 ACF_ROUTE_N, ACF_ROUTE_B, ACF_ROUTE_STEPS = 4096, 256, 3
 ACF_CLI_N, ACF_CLI_B = 2048, 1024
 # the chunked profile against the one-shot one (tests/test_acf.py:105)
@@ -409,6 +436,9 @@ ACF_CHUNK_TOL = 2e-6
 # K4 and K5 timed at ACF's item rows over the 200k catalog: at the B*P =
 # 163,840 extra rows of a batch-8192 step and at the packed item batch
 ACF_ROW_B = (ACF_B * ACF_P, GATHER_B)
+# the fused widths (the maps in the item rows) at GATHER_B rows only (cut
+# for the multi-device phase's time)
+ACF_FUSED_ROW_B = (GATHER_B,)
 ACF_DEV = "cuda"
 # CompVBPR at the JAX CLI's default widths (fashionvisualexpl_tpu/cli/
 # train_rec.py:57-74: K=128, d=20, every family on at weight 0.25): semantic
@@ -417,7 +447,7 @@ ACF_DEV = "cuda"
 # images through the trainable CNN at 32x32x1; factored D = K + 4 d = 208.
 # The JAX package's own CompVBPR scale (scripts/scaled_bench.py:189-202,
 # SPEED.md:89): 1M users x 200k items, P=20, batch 8192.  Cut only in depth
-# (20 packed and 10 generic steps, 5-step profiles).  Route checks on a
+# (10 packed and 5 generic steps, 5-step profiles).  Route checks on a
 # 4096 x 4096 catalog at batch 256, 2 steps each (the CPU route runs the
 # CNN on 512 images a step).  The CNN also at the reference's 224x224 (B =
 # 256), and the CLI at its default --edge_hw 224 224, generic on 1024 users
@@ -428,8 +458,9 @@ COMP_U, COMP_I, COMP_P, COMP_B, COMP_HW = 1_000_000, 200_000, 20, 8192, 32
 COMP_EMBED_D, COMP_DIM_S, COMP_DIM_C, COMP_DIM_T = 20, 4096, 512, 1024
 COMP_D = EMBED_K + 4 * COMP_EMBED_D
 # (the packed epoch cut from 50 steps and the generic run from 20 when the
-# streamed phases came: ~263 ms a step)
-COMP_STEPS, COMP_GENERIC_STEPS, COMP_PROFILE_STEPS = 20, 10, 5
+# streamed phases came, to 10 and 5 when the multi-device phase came: ~263
+# ms a step)
+COMP_STEPS, COMP_GENERIC_STEPS, COMP_PROFILE_STEPS = 10, 5, 5
 COMP_ROUTE_N, COMP_ROUTE_B, COMP_ROUTE_STEPS = 4096, 256, 2
 COMP_CNN_B, COMP_CLI_U, COMP_CLI_I, COMP_CLI_B = 256, 1024, 16_384, 1024
 # the packed user rows (Gu and the four Tu*, 208 floats): fp32 / bf16 / fp8
@@ -2716,10 +2747,11 @@ def gather_timed(torch, G, label, table, ids, flush, warm=False):
     run = lambda: G.gather_rows(table, ids)  # noqa: E731
     lib = lambda: torch.index_select(table, 0, ids)  # noqa: E731
     b, by = rows_bound(B, W)
-    ms, call_ms, _ = kernel_times(torch, f"gather_rows {label}", run, 20, flush, b)
+    ms, call_ms, _ = kernel_times(torch, f"gather_rows {label}", run, ROW_ITERS, flush, b)
     plain_ms, _, _ = kernel_times(torch, f"gather_rows plain {label}",
-                                  lambda: G.gather_rows_reference(table, ids), 10, flush)
-    lib_ms, _, _ = kernel_times(torch, f"gather_rows library {label}", lib, 20, flush)
+                                  lambda: G.gather_rows_reference(table, ids), ROW_ITERS // 2,
+                                  flush)
+    lib_ms, _, _ = kernel_times(torch, f"gather_rows library {label}", lib, ROW_ITERS, flush)
     check_bound(f"gather_rows {label}", ms, b)
     row = dict(route=plan.route, param=plan.param, piece_bytes=plan.piece_bytes,
                resident_blocks=G.gather_residency(W, plan)[0], max_abs_err=0.0, ms=ms,
@@ -2727,10 +2759,10 @@ def gather_timed(torch, G, label, table, ids, flush, warm=False):
                library_ms=lib_ms, bound_share=b / ms, beats_library=ms < lib_ms,
                shape=f"R={R} W={W} B={B} f32, cold L2", library="torch.index_select")
     if warm:  # the flushes shrunk to one marker kernel of 256 floats
-        row["warm_ms"], _, _ = kernel_times(torch, f"gather_rows warm {label}", run, 20,
-                                            flush[:256])
+        row["warm_ms"], _, _ = kernel_times(torch, f"gather_rows warm {label}", run,
+                                            ROW_ITERS, flush[:256])
         row["warm_library_ms"], _, _ = kernel_times(
-            torch, f"gather_rows library warm {label}", lib, 20, flush[:256])
+            torch, f"gather_rows library warm {label}", lib, ROW_ITERS, flush[:256])
     print(f"kernel time gather_rows {row['shape']} ({plan.route}, param {plan.param}, "
           f"piece {plan.piece_bytes}, {row['resident_blocks']} blocks an SM): ms={ms!r} "
           f"call_ms={call_ms!r} plain_ms={plain_ms!r} library_ms(torch.index_select)="
@@ -2823,9 +2855,9 @@ def row_kernel_phase(torch, G, S):
     out = {}
     route = {"gather_rows": "lanes16", "scatter_rows_set": splan.route}
     for name, (err, (run, plain, lib), (b, by), shape, library) in rows.items():
-        ms, call_ms, _ = kernel_times(torch, name, run, 20, flush, b)
-        plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, 10, flush)
-        lib_ms, _, _ = kernel_times(torch, f"{name} library", lib, 20, flush)
+        ms, call_ms, _ = kernel_times(torch, name, run, ROW_ITERS, flush, b)
+        plain_ms, _, _ = kernel_times(torch, f"{name} plain", plain, ROW_ITERS // 2, flush)
+        lib_ms, _, _ = kernel_times(torch, f"{name} library", lib, ROW_ITERS, flush)
         check_bound(name, ms, b)
         out[name] = dict(route=route[name], max_abs_err=err, ms=ms, call_ms=call_ms,
                          plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms,
@@ -2951,9 +2983,10 @@ def fused_row_phase(torch, G, S, bits, flush):
                     fail(f"scatter at W={W} B={B} left {plan.route}: "
                          f"{dict(S.scatter_rows_set.routes)}")
             b, by = rows_bound(B, W)
-            ms, call_ms, _ = kernel_times(torch, f"{name} W={W}", run, 20, flush, b)
-            plain_ms, _, _ = kernel_times(torch, f"{name} plain W={W}", plain, 10, flush)
-            lib_ms, _, _ = kernel_times(torch, f"{name} library W={W}", lib, 20, flush)
+            ms, call_ms, _ = kernel_times(torch, f"{name} W={W}", run, ROW_ITERS, flush, b)
+            plain_ms, _, _ = kernel_times(torch, f"{name} plain W={W}", plain, ROW_ITERS // 2,
+                                          flush)
+            lib_ms, _, _ = kernel_times(torch, f"{name} library W={W}", lib, ROW_ITERS, flush)
             check_bound(f"{name} W={W}", ms, b)
             shape = f"R={R} W={W} ({label}) B={B} f32, cold L2"
             route = "bulk_store" if name == "gather_rows" else plan.route
@@ -4270,12 +4303,13 @@ def scatter_timed(torch, S, label, table, sids64, vals, flush):
     del before
     b, by = rows_bound(B, W)
     ms, call_ms, _ = kernel_times(torch, f"scatter_rows_set {label}",
-                                  lambda: S.scatter_rows_set(table, sids, vals), 20, flush, b)
+                                  lambda: S.scatter_rows_set(table, sids, vals), ROW_ITERS,
+                                  flush, b)
     plain_ms, _, _ = kernel_times(torch, f"scatter_rows_set plain {label}",
-                                  lambda: S.scatter_rows_set_reference(table, sids, vals), 10,
-                                  flush)
+                                  lambda: S.scatter_rows_set_reference(table, sids, vals),
+                                  ROW_ITERS // 2, flush)
     lib_ms, _, _ = kernel_times(torch, f"scatter_rows_set library {label}",
-                                lambda: table.index_copy_(0, sids64, vals), 20, flush)
+                                lambda: table.index_copy_(0, sids64, vals), ROW_ITERS, flush)
     row = dict(route=plan.route, param=plan.param, piece_bytes=plan.piece_bytes,
                resident_blocks=S.scatter_residency(W, plan)[0], max_abs_err=0.0, ms=ms,
                call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
@@ -4291,9 +4325,9 @@ def scatter_timed(torch, S, label, table, sids64, vals, flush):
 
 
 def acf_row_phase(torch, G, S):
-    """K4 and K5 at ACF's item rows over the 200k catalog (769 / 513 floats,
-    25,857 / 25,601 / 25,473 with the maps fused) at 163,840 and 16,384
-    rows, K4 on the route its plan names; K5 also at every narrow width the
+    """K4 and K5 at ACF's item rows over the 200k catalog (769 / 513 floats
+    at 163,840 and 16,384 rows, 25,857 / 25,601 / 25,473 with the maps fused
+    at 16,384), K4 on the route its plan names; K5 also at every narrow width the
     packed paths scatter (385 ... 297) at 16,384 unique rows of 1M-row
     tables.  Each bit-equal, timed with the L2 flushed beside the library
     call and its bound."""
@@ -4307,7 +4341,7 @@ def acf_row_phase(torch, G, S):
     out = {"gather_rows": {}, "scatter_rows_set": {}}
     for W in (769, 513, 25857, 25601, 25473):
         table = torch.randn(ACF_I, W, device=dev, generator=g)
-        for B in ACF_ROW_B:
+        for B in (ACF_ROW_B if W < 1024 else ACF_FUSED_ROW_B):
             ids = torch.randint(0, ACF_I, (B,), device=dev, generator=g, dtype=torch.int32)
             key = f"W={W} B={B}"
             out["gather_rows"][key] = gather_timed(
@@ -5027,6 +5061,448 @@ def comp_vbpr_phase(torch, np, counts, segmax, topk, G, S):
     return cli_launches, summary
 
 
+# --- multi-device: ranks sharing the one card ------------------------------
+
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+MESH_STEPS = 3  # training steps compared against one device
+MESH_CLI_B = 8192  # the CLI runs' batch (cut: phase 11 trains at 256)
+MESH_NCCL_N = 100_000  # the nccl rank's catalog, at full width (cut)
+MESH_SERVE_REPS = {8: 10, 64: 10, 1024: 3, 4096: 2}
+MESH_TIMEOUT_S = {"serve_eval": 240, "train": 240, "cli": 300, "nccl": 120}
+
+
+def mesh_eval_data(data) -> None:
+    """The evaluation phase's Interactions, pickled for the evaluating
+    ranks (building them takes the host ~35 s; loading them a few)."""
+    import pickle
+    import shutil
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    with open(MESH_DIR / "eval_data.pkl", "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+    print(f"mesh: the evaluation Interactions pickled in {time.perf_counter() - t0!r} s")
+
+
+def mesh_spawn(job: str, world: int, backend: str = "gloo"):
+    """Run ``job`` on ``world`` ranks of this script (``--mesh-rank``), all
+    on cuda:0; each rank forms its group over a file in MESH_DIR and writes
+    MESH_DIR/<job>.r<rank>.json.  Every rank is killed at the job's time
+    limit; a rank that fails fails the phase.  Returns the ranks' outputs."""
+    rdv = MESH_DIR / f"{job}.rdv"
+    rdv.unlink(missing_ok=True)
+    logs = [MESH_DIR / f"{job}.r{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", job, str(r),
+                 str(world), backend], stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    t0 = time.perf_counter()
+    deadline = t0 + MESH_TIMEOUT_S[job]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        text = log.read_text()
+        for line in text.splitlines():
+            print(f"  [{job} rank {r}] {line}")
+        if p.returncode:
+            fail(f"mesh {job}: rank {r} exited {p.returncode}")
+    print(f"mesh {job}: {world} ranks on one card, {time.perf_counter() - t0!r} s")
+    return [json.loads((MESH_DIR / f"{job}.r{r}.json").read_text()) for r in range(world)]
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of a multi-device job (``mesh_spawn``)."""
+    job, rank, world, backend = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    rdv = f"file://{MESH_DIR / f'{job}.rdv'}"
+    if world > 1:
+        from fashionvisualexpl_tpu_torch.parallel.multihost import initialize_from_env
+
+        initialize_from_env(rdv, world, rank, backend=backend, timeout_s=180)
+    else:  # a one-rank group: the collectives still run (nccl)
+        import datetime
+
+        dist.init_process_group(backend, init_method=rdv, world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=120))
+    out = {"serve_eval": mesh_serve_eval_rank, "train": mesh_train_rank,
+           "nccl": mesh_nccl_rank}[job](torch, np, rank)
+    from fashionvisualexpl_tpu_torch.core.mesh import staged_bytes
+
+    out["staged_bytes"] = dict(staged_bytes)
+    (MESH_DIR / f"{job}.r{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_serve_setup(torch, np, n=U_FULL):
+    """serve_phase's model, history and query batches (the same seeds) over
+    n users x n items."""
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model = BPRMF(n, n, embed_k=EMBED_K, generator=g)
+    with torch.no_grad():
+        model.Bi.normal_(0.0, 2e-5, generator=g)
+    rng = np.random.default_rng(0)
+    padded = rng.integers(0, n, (n, HIST_P), dtype=np.int32)
+    counts = rng.integers(0, HIST_P + 1, n).astype(np.int32)
+    batches = {B: rng.choice(n, B, replace=False) for B in BUCKETS}
+    data = types.SimpleNamespace(num_users=n, num_items=n)
+    return model, data, (padded, counts), batches
+
+
+def mesh_serve_eval_rank(torch, np, rank):
+    """RecServer over a (1, 2) mesh at serve_phase's size, then
+    FactoredEvaluator over it at eval_phase's; rank 0 also answers on one
+    device and checks."""
+    from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+    from fashionvisualexpl_tpu_torch.ops import counts as K2
+    from fashionvisualexpl_tpu_torch.ops import segmax as K3
+    from fashionvisualexpl_tpu_torch.serve import RecServer
+
+    mesh = make_mesh(1, 2)
+    model, data, history, batches = mesh_serve_setup(torch, np)
+    kw = dict(k=K_TOP, seg=SEG, oversample=OVERSAMPLE, item_block=ITEM_BLOCK, history=history)
+    srv = RecServer(model, data, mesh=mesh, **kw)
+    t0 = time.perf_counter()
+    srv.refresh()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    serving, served, launches, routes = serve_buckets(np, K3, srv, batches, MESH_SERVE_REPS,
+                                                      f"mesh serve rank {rank}")
+    out = {"serve": {str(B): r for B, r in serving.items()}, "k3_launches": launches,
+           "k3_routes": routes, "refresh_s": refresh_s,
+           "local_items": srv._local_padded}
+    del srv
+    torch.cuda.empty_cache()
+    if rank == 0:  # one device on the same weights, and the fp32 oracle
+        one = RecServer(model, data, **kw)
+        one.refresh()
+        for B, users in batches.items():
+            ids, vals = one.query(users)
+            if not np.array_equal(served[B][0], ids):
+                fail(f"mesh serve B={B}: ids differ from the single-device server")
+            if not np.allclose(served[B][1], vals, rtol=1e-6, atol=0.0):
+                fail(f"mesh serve B={B}: values differ from the single-device server")
+        want = oracle_topk(torch, model, batches[64], *history, K_TOP)
+        check_served(np, "mesh serve B=64 (2 ranks) vs the fp32 oracle", *served[64], *want)
+        del one
+    del model
+    torch.cuda.empty_cache()
+
+    import pickle
+
+    t0 = time.perf_counter()
+    with open(MESH_DIR / "eval_data.pkl", "rb") as f:
+        edata = pickle.load(f)
+    host_s = time.perf_counter() - t0
+    model = quantized_bprmf(torch, EVAL_U, EVAL_I, seed=10)
+    ev = FactoredEvaluator(model, edata, k=EVAL_K, user_block=EVAL_BLOCK, counts_impl="kernel",
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    K2.counts_kernel.launches = 0  # the sharded evaluation starts here
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(None, None)
+    evaluate_s = time.perf_counter() - t0
+    k2 = K2.counts_kernel.launches  # ... and ends here
+    want_launches = 2 * -(-EVAL_U // EVAL_BLOCK)
+    if k2 != want_launches:
+        fail(f"mesh eval rank {rank}: {k2} K2 launches, expected {want_launches}")
+    # the first user block's per-user metrics, sharded and whole
+    uf, iv, ib = ev._factors(None)
+    ids = torch.arange(EVAL_BLOCK, device="cuda")
+    blk = ev._eval_block("test", uf[ids], iv, ib, ids, ev._shard(iv, ib))
+    out["eval"] = dict(metrics=metrics, evaluate_s=evaluate_s, host_s=host_s,
+                       k2_launches=k2, bucket_widths=ev._bucket_w)
+    if rank == 0:  # against the evaluation phase's metrics
+        one = FactoredEvaluator(model, edata, k=EVAL_K, user_block=EVAL_BLOCK,
+                                counts_impl="kernel")
+        want = json.loads((MESH_DIR / "eval_ref.json").read_text())
+        if json.loads(json.dumps(metrics)) != want:
+            fail(f"mesh eval: metrics {metrics} differ from one device's {want}")
+        whole = one._eval_block("test", uf[ids], iv, ib, ids)
+        if not all(torch.equal(a, b) for a, b in zip(blk, whole)):
+            fail("mesh eval: the first block's per-user metrics differ from one device")
+        print(f"mesh eval: metrics equal to one device's {metrics}")
+    return out
+
+
+def mesh_train_rank(torch, np, rank):
+    """BPRMF at 1M x 500k, batch 8192, over a (2, 2) mesh: MESH_STEPS
+    generic steps and packed steps (fp32 and bf16 moments); rank 0 also
+    runs them on one device from the same state and triples and checks."""
+    from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
+    from fashionvisualexpl_tpu_torch.core.train_state import (
+        apply_gradients,
+        create_train_state,
+        tf_parity_adam,
+    )
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+    from fashionvisualexpl_tpu_torch.ops import gather as G
+    from fashionvisualexpl_tpu_torch.ops import row_scatter as S
+    from fashionvisualexpl_tpu_torch.parallel import fast_spmd, spmd
+    from fashionvisualexpl_tpu_torch.train import packed_generic as PG
+
+    mesh = make_mesh(2, 2)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    triples = [torch.randint(n, (MESH_STEPS, TRAIN_B), device="cuda", generator=g)
+               for n in (TRAIN_U, TRAIN_I, TRAIN_I)]
+
+    def model_():
+        return BPRMF(TRAIN_U, TRAIN_I, embed_k=EMBED_K,
+                     generator=torch.Generator(device="cuda").manual_seed(7))
+
+    checker = mesh.axis_index("data") == 0  # data row 0 gathers for rank 0's checks
+
+    def whole(model, tensors, rows):
+        return {k: spmd.unshard_rows(v, mesh, rows[k]) for k, v in tensors.items()}
+
+    out = {}
+    # generic: collective lookup, data-summed grads, local Adam
+    model = model_()
+    rows = {k: v.shape[0] for k, v in model.named_parameters()}
+    sp, _ = spmd.shard_params(model, dict(model.named_parameters()), {}, mesh)
+    spmd.load_tensors(model, sp)
+    tx = tf_parity_adam(TRAIN_LR)
+    state = create_train_state(dict(model.named_parameters()), tx)
+    step = spmd.make_spmd_train_step(model, mesh, tx, TRAIN_REG)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(MESH_STEPS):
+        state, loss = step(state, None, *(t[s] for t in triples))
+        losses.append(float(loss))
+    out["generic"] = dict(losses=losses, ms_per_step=1e3 * (time.perf_counter() - t0)
+                          / MESH_STEPS)
+    sharded = checker and types.SimpleNamespace(
+        params=whole(model, state.params, rows),
+        opt_state=types.SimpleNamespace(mu=whole(model, state.opt_state.mu, rows),
+                                        nu=whole(model, state.opt_state.nu, rows)))
+    del model, state, sp
+    if rank == 0:
+        ref = model_()
+        rstate = create_train_state(dict(ref.named_parameters()), tx)
+        for s in range(MESH_STEPS):
+            u, p, n = (t[s] for t in triples)
+            with torch.enable_grad():
+                loss = ref.loss(u, p, n, TRAIN_REG)
+                grads = torch.autograd.grad(loss, list(rstate.params.values()))
+            rstate = apply_gradients(rstate, dict(zip(rstate.params, grads)), tx)
+            if not abs(float(loss) - losses[s]) <= 1e-5 * abs(float(loss)):
+                fail(f"mesh train generic step {s}: loss {losses[s]!r} vs one device "
+                     f"{float(loss)!r}")
+        err, amplified = route_check(torch, "mesh train generic (2, 2) vs one device",
+                                     sharded, rstate, MESH_STEPS, 2 * TRAIN_LR * MESH_STEPS)
+        out["generic"].update(max_abs_err=err, amplified=amplified)
+        del ref, rstate
+    del sharded
+    torch.cuda.empty_cache()
+
+    # packed: K4 row reads and K5 row writes on every rank
+    for md, catchup in (("float32", False), ("bfloat16", True)):
+        model = model_()
+        packed = PG.pack_generic_state(model, dict(model.named_parameters()), moment_dtype=md)
+        st = fast_spmd.shard_generic_packed_state(packed, mesh)
+        step = fast_spmd.make_generic_packed_spmd_step(model, mesh, TRAIN_LR, TRAIN_REG,
+                                                       moment_dtype=md, lazy_catchup=catchup)
+        losses = []
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0  # sharded steps start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(MESH_STEPS):
+            st, loss = step(st, ({}, tuple(t[s] for t in triples), None))
+            losses.append(float(loss))
+        ms = 1e3 * (time.perf_counter() - t0) / MESH_STEPS
+        k4, k5 = G.gather_rows.launches, S.scatter_rows_set.launches  # ... and end
+        if k4 != 4 * MESH_STEPS or k5 != 2 * MESH_STEPS:
+            fail(f"mesh train packed {md} rank {rank}: {k4} K4 and {k5} K5 launches, "
+                 f"expected {4 * MESH_STEPS} and {2 * MESH_STEPS}")
+        out[md] = dict(losses=losses, ms_per_step=ms, k4_launches=k4, k5_launches=k5,
+                       shard_rows=[st.user_pmv.shape[0], st.item_pmv.shape[0]])
+        got = checker and fast_spmd.unshard_generic_packed_state(st, mesh, TRAIN_U, TRAIN_I)
+        del st
+        if rank == 0:
+            one = PG.make_generic_packed_step(model, TRAIN_LR, TRAIN_REG, moment_dtype=md,
+                                              lazy_catchup=catchup)
+            for s in range(MESH_STEPS):
+                packed, loss = one(packed, ({}, tuple(t[s] for t in triples), None))
+                if not abs(float(loss) - losses[s]) <= 1e-5 * abs(float(loss)):
+                    fail(f"mesh train packed {md} step {s}: loss {losses[s]!r} vs one "
+                         f"device {float(loss)!r}")
+            err, beyond = packed_route_check(torch, PG, f"mesh train packed {md} (2, 2)",
+                                             got, packed, model.packed_spec(), md,
+                                             MESH_STEPS, TRAIN_LR)
+            out[md].update(max_abs_err=err, beyond=beyond)
+        del model, packed, got
+        torch.cuda.empty_cache()
+    print(f"mesh train rank {rank}: {out}")
+    return out
+
+
+def mesh_nccl_rank(torch, np, rank):
+    """One rank on nccl: the sharded server's query over MESH_NCCL_N users
+    and items at K=128, its all-gather through a one-rank nccl
+    communicator, against one device."""
+    from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
+    from fashionvisualexpl_tpu_torch.ops import segmax as K3
+    from fashionvisualexpl_tpu_torch.serve import RecServer
+
+    mesh = make_mesh(1, 1)
+    if mesh.backend != "nccl":
+        fail(f"mesh nccl: the group's backend is {mesh.backend}")
+    model, data, history, batches = mesh_serve_setup(torch, np, MESH_NCCL_N)
+    kw = dict(k=K_TOP, seg=SEG, oversample=OVERSAMPLE, item_block=ITEM_BLOCK, history=history)
+    srv = RecServer(model, data, mesh=mesh, **kw)
+    srv.refresh()
+    K3.segmax_scores.launches = 0
+    got = {B: srv.query(batches[B]) for B in (8, 64)}
+    launches = K3.segmax_scores.launches
+    del srv
+    one = RecServer(model, data, **kw)
+    one.refresh()
+    for B, (ids, vals) in got.items():
+        want = one.query(batches[B])
+        if not (np.array_equal(ids, want[0]) and np.array_equal(vals, want[1])):
+            fail(f"mesh nccl B={B}: the nccl mesh's answer differs from one device")
+    return {"k3_launches": launches, "backend": mesh.backend}
+
+
+def mesh_cli(np):
+    """``torchrun --nproc_per_node=4 ... train_rec --mesh_data 2 --mesh_model
+    2`` on cli_phase's dataset, against cli_phase's single-device run: the
+    file set, the metrics, and serve_rec on one device from the primary's
+    checkpoint."""
+    import glob
+    import pickle
+    import re
+
+    from fashionvisualexpl_tpu_torch.cli.serve_rec import serve
+
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+
+    write_reference_dataset(np, MESH_DIR / "cli")
+    results = MESH_DIR / "mesh_results"
+    common = ["--rec", "bprmf", "--dataset", "cli", "--data_root", str(MESH_DIR),
+              "--embed_k", str(EMBED_K), "--top_k", str(CLI_K)]
+    flags = ["--streaming_eval", "--epochs", "2", "--verbose", "1",
+             "--batch_size", str(MESH_CLI_B)]
+    t0 = time.perf_counter()
+    train(common + flags + ["--results_root", str(MESH_DIR / "results")])
+    one_s = time.perf_counter() - t0
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=4",
+         "-m", "fashionvisualexpl_tpu_torch.cli.train_rec", *common, *flags,
+         "--results_root", str(results), "--mesh_data", "2", "--mesh_model", "2"],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=MESH_TIMEOUT_S["cli"])
+    train_s = time.perf_counter() - t0
+    (MESH_DIR / "cli.log").write_text(run.stdout + run.stderr)
+    if run.returncode:
+        print(run.stdout[-3000:] + run.stderr[-3000:])
+        fail(f"mesh cli: torchrun exited {run.returncode}")
+
+    def files(base):
+        out = {}
+        for path in glob.glob(str(base / "**" / "*"), recursive=True):
+            rel = os.path.relpath(path, base)
+            if os.path.isfile(path) and "rec_model_weights" not in rel:
+                out[re.sub(r"best-recs-\d+-", "best-recs-E-", rel)] = path
+        for path in glob.glob(str(base / "rec_model_weights" / "*" / "*" / "*" / "*")):
+            out[os.path.relpath(path, base)] = path
+        return out
+
+    mesh_files, one_files = files(results), files(MESH_DIR / "results")
+    if sorted(mesh_files) != sorted(one_files):
+        fail(f"mesh cli: files {sorted(mesh_files)} != one device's {sorted(one_files)}")
+    (got,) = [p for n, p in mesh_files.items() if n.endswith(".pkl")]
+    (want,) = [p for n, p in one_files.items() if n.endswith(".pkl")]
+    got, want = (pickle.load(open(p, "rb")) for p in (got, want))
+    if sorted(got) != sorted(want) != [1, 2]:
+        fail(f"mesh cli: metric epochs {sorted(got)} vs {sorted(want)}")
+    for e in want:
+        for k, v in want[e].items():
+            if not abs(got[e][k] - v) <= 2e-4 + 2e-3 * abs(v):  # tests/test_golden.py's
+                fail(f"mesh cli epoch {e} {k}: {got[e][k]!r} vs one device {v!r}")
+    (ckpt,) = glob.glob(str(results / "rec_model_weights" / "cli" / "bprmf" / "ckpt-*"))
+    (best,) = glob.glob(str(results / "rec_results" / "cli" / "bprmf" / "best-recs-*"))
+    users = [u * (CLI_U // CLI_SERVE_USERS) for u in range(CLI_SERVE_USERS)]
+    served = MESH_DIR / "served.tsv"
+    serve(common + ["--results_root", str(results), "--ckpt", ckpt, "--users",
+                    ",".join(map(str, users)), "--output", str(served)])
+    dumped = {}
+    with open(best) as f:
+        for line in f:
+            u, i, _ = line.split("\t")
+            dumped.setdefault(int(u), []).append(int(i))
+    rows = [line.split("\t") for line in served.read_text().strip().split("\n")]
+    for u in users:
+        if [int(r[1]) for r in rows if int(r[0]) == u] != dumped[u]:
+            fail(f"mesh cli: serve_rec on one device from the mesh checkpoint differs from "
+                 f"the best dump for user {u}")
+    print(f"mesh cli: torchrun 4 ranks {train_s!r} s (one device {one_s!r} s); the "
+          f"single-device file set; metrics {got[2]}; serve_rec from its checkpoint on one "
+          f"device equals the best dump")
+    return dict(train_s=train_s, one_device_s=one_s, metrics=got[2])
+
+
+def mesh_phase(torch, np, eval_metrics):
+    """The multi-device phase: every rank on the one card (gloo; the ranks
+    share it, so no time here is a multi-card figure).  ``eval_metrics``:
+    the evaluation phase's, which the sharded evaluation must equal."""
+    import shutil
+
+    (MESH_DIR / "eval_ref.json").write_text(json.dumps(eval_metrics))
+    phase_start(torch)  # the card's memory to the ranks
+    t0 = time.perf_counter()
+    serve_eval = mesh_spawn("serve_eval", 2)
+    train = mesh_spawn("train", 4)
+    cli = mesh_cli(np)
+    nccl = mesh_spawn("nccl", 1, backend="nccl")
+    out = {
+        "layout": "ranks sharing one H100 over gloo (nccl: one rank)",
+        "serve_2_ranks": {r: o["serve"] for r, o in enumerate(serve_eval)},
+        "eval_2_ranks": serve_eval[0]["eval"],
+        "train_4_ranks": {md: {k: v for k, v in train[0][md].items()}
+                          for md in ("generic", "float32", "bfloat16")},
+        "cli_4_ranks": cli,
+        "staged_bytes": {job: [o["staged_bytes"] for o in outs] for job, outs in
+                         (("serve_eval", serve_eval), ("train", train), ("nccl", nccl))},
+        "phase_s": time.perf_counter() - t0,
+    }
+    launches = {
+        "segmax_scores": [o["k3_launches"] for o in serve_eval],
+        "segmax_scores_nccl": nccl[0]["k3_launches"],
+        "counts": [o["eval"]["k2_launches"] for o in serve_eval],
+        "gather_rows": {md: [o[md]["k4_launches"] for o in train]
+                        for md in ("float32", "bfloat16")},
+        "scatter_rows_set": {md: [o[md]["k5_launches"] for o in train]
+                             for md in ("float32", "bfloat16")},
+    }
+    if not all(launches["segmax_scores"]) or not all(launches["counts"]):
+        fail(f"mesh: a rank launched no K3 or K2: {launches}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    print(f"mesh phase: {out['phase_s']!r} s")
+    return launches, out
+
+
 def main() -> int:
     if not (PKG / "ops" / "csrc" / "segmax.cu").is_file():
         print("chip_smoke: run from a checkout of the repository "
@@ -5083,6 +5559,7 @@ def main() -> int:
     counts_row = eval_kernel_phase(torch, np, counts, topk, eval_items)
     eval_data, host_s = eval_interactions(np, eval_items)
     del eval_items
+    mesh_eval_data(eval_data)
     eval_launches, evaluated = eval_phase(torch, np, counts, eval_data, host_s)
     vbpr_launches, vbpr = vbpr_phase(torch, np, counts, segmax, G, S, eval_data)
     del eval_data
@@ -5099,6 +5576,7 @@ def main() -> int:
     packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
     acf_cli_launches, acf, acf_rows = acf_phase(torch, np, counts, segmax, G, S)
     comp_cli_launches, comp = comp_vbpr_phase(torch, np, counts, segmax, topk, G, S)
+    mesh_launches, mesh = mesh_phase(torch, np, evaluated["metrics"])
 
     main_row = rows[4096]
     kernels = [{
@@ -5123,6 +5601,8 @@ def main() -> int:
         "comp_vbpr_launches": comp["serve"]["launches"],
         "comp_vbpr_routes": comp["serve"]["routes"],
         "comp_vbpr_cli_launches": {k: v["segmax_scores"] for k, v in comp_cli_launches.items()},
+        "mesh_launches_by_rank": mesh_launches["segmax_scores"],
+        "mesh_nccl_launches": mesh_launches["segmax_scores_nccl"],
         "build_s": rows["build_s"],
         "ptxas": rows["ptxas"],
     }]
@@ -5149,6 +5629,7 @@ def main() -> int:
         "d208": comp["kernels"]["counts"],
         "comp_vbpr_launches": comp["launches"],
         "comp_vbpr_cli_launches": {k: v["counts"] for k, v in comp_cli_launches.items()},
+        "mesh_launches_by_rank": mesh_launches["counts"],
     })
     for name, line in (("edge_tower_fwd", 114), ("edge_tower_bwd", 127)):
         kernels.append({
@@ -5179,6 +5660,7 @@ def main() -> int:
             "comp_vbpr_launches": comp["packed"]["launches"][name],
             "comp_vbpr_grid": comp["kernels"][name],
             "comp_vbpr_cli_launches": {k: v[name] for k, v in comp_cli_launches.items()},
+            "mesh_launches_by_rank": mesh_launches[name],
         })
     for kernel, kind, tag in ((kernels[-2], "gather", "k4"), (kernels[-1], "scatter", "k5")):
         kernel.update(
@@ -5205,6 +5687,7 @@ def main() -> int:
     print(json.dumps({"vbpr": vbpr, "visual_cli": vis_cli}))
     print(json.dumps({"acf": acf}))
     print(json.dumps({"comp_vbpr": comp}))
+    print(json.dumps({"mesh": mesh}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5215,4 +5698,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

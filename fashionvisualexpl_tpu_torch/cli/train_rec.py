@@ -34,12 +34,24 @@ tiffs become one ``edges_stack.npy`` beside them (built by
 ``build_edge_stack_npy`` when missing), read as a memmap, and
 ``fit_streamed`` (``train/streamed.py``) streams each batch's rows to the
 card; evaluation and the dumps encode the catalog in host blocks.
-``--compute_dtype bfloat16`` for attentive_fashion and comp_vbpr and a
-mesh raise ``NotImplementedError`` naming their ROADMAP item by heading.
+``--compute_dtype bfloat16`` for attentive_fashion and comp_vbpr raises
+``NotImplementedError`` naming its ROADMAP item by heading.
+
+``--mesh_data D --mesh_model M`` trains over a (data, model) mesh of D * M
+ranks launched by ``torchrun`` (``parallel/multihost.py``; nccl when each
+rank has a card of its own, gloo when they share one): the tables
+row-sharded over ``model``, the batch over ``data`` (``Trainer``'s mesh
+paths).  The evaluator is built without a mesh, as in the JAX package: the
+primary evaluates the gathered tables.  Only the primary (rank 0) writes
+the logs, checkpoints (single-device layout: ``serve_rec`` restores them
+on one device), metrics and dumps, so the file set is the single-device
+run's.
 
 Usage:
   python -m fashionvisualexpl_tpu_torch.cli.train_rec --rec bprmf \
       --dataset amazon_baby --epochs 200 --streaming_eval
+  torchrun --nproc_per_node=4 -m fashionvisualexpl_tpu_torch.cli.train_rec \
+      --rec bprmf --streaming_eval --mesh_data 2 --mesh_model 2
 """
 
 from __future__ import annotations
@@ -145,7 +157,8 @@ def build_parser(description="Run train of the Recommender Model."):
                         "grad_fashion and acf with their frozen features in the "
                         "item rows (--fused_frozen; acf's positive sets as "
                         "extra item rows), comp_vbpr with its CNN as a dense "
-                        "group; the port has no mesh.  Not faster on the port so far: on an NVIDIA "
+                        "group; the same engine runs sharded on a mesh "
+                        "(--mesh_data / --mesh_model).  Not faster on the port so far: on an NVIDIA "
                         "H100 80GB HBM3 at 700 W a packed attentive_fashion "
                         "step took 27.1 ms against 14.8 ms generic "
                         "(PERF.md)")
@@ -158,7 +171,7 @@ def build_parser(description="Run train of the Recommender Model."):
                         "~8-bit moment mantissas).  float8 packs m and "
                         "sqrt(v) as four e5m2 codes per column — rows "
                         "shrink to ~1.5W+1 (~2-bit moment mantissas).  "
-                        "Both on one device (the port has no mesh)")
+                        "bfloat16 also on a mesh; float8 on one device only")
     p.add_argument("--row_align", type=int, default=1,
                    help="packed path capacity mode: pad packed-row widths "
                         "to this multiple (the JAX package's capacity "
@@ -269,10 +282,6 @@ def check_ported(args) -> None:
             "--compute_dtype bfloat16 (bf16 towers and a bf16 edge-tower "
             "kernel) is not ported yet (ROADMAP: bf16 encoder towers)"
         )
-    if args.mesh_data * args.mesh_model > 1:
-        raise NotImplementedError(
-            "--mesh_data / --mesh_model are not ported yet (ROADMAP: Multi-device)"
-        )
 
 
 def open_edge_stack(paths, ds: str, num_items: int, hw):
@@ -377,10 +386,40 @@ def build_model(args, data, cfg):
     raise NotImplementedError("Not implemented or unknown Recommender Model.")
 
 
+def init_mesh_ranks(args) -> bool:
+    """Join the torchrun process group when a mesh is asked for (True when
+    this call formed it); refuse a mesh that is not the world size."""
+    if args.mesh_data * args.mesh_model <= 1:
+        return False
+    import torch.distributed as dist
+
+    from fashionvisualexpl_tpu_torch.parallel.multihost import initialize_from_env
+
+    formed = not dist.is_initialized() and initialize_from_env()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != args.mesh_data * args.mesh_model:
+        raise SystemExit(
+            f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model} needs "
+            f"{args.mesh_data * args.mesh_model} ranks, the process group has {world}: "
+            f"launch with torchrun --nproc_per_node={args.mesh_data * args.mesh_model}")
+    return formed
+
+
 def train(argv=None):
     args = parse_args(argv)
     validate_args(args)
     check_ported(args)
+    formed = init_mesh_ranks(args)
+    try:
+        _train(args)
+    finally:
+        if formed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args):
 
     from fashionvisualexpl_tpu_torch.core.config import (
         MeshConfig,
@@ -390,9 +429,11 @@ def train(argv=None):
     from fashionvisualexpl_tpu_torch.data.interactions import Interactions
     from fashionvisualexpl_tpu_torch.eval.evaluator import Evaluator
     from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+    from fashionvisualexpl_tpu_torch.parallel.multihost import is_primary
     from fashionvisualexpl_tpu_torch.train.trainer import fit
     from fashionvisualexpl_tpu_torch.utils.io import JsonlLogger, ensure_dir, save_obj
 
+    primary = is_primary()  # over a mesh rank 0 alone writes files and prints
     paths = Paths(root=args.data_root, results_root=args.results_root)
     results_dir = ensure_dir(paths.results_dir(args.dataset, args.rec))
     weight_dir = ensure_dir(paths.weight_dir(args.dataset, args.rec))
@@ -418,10 +459,11 @@ def train(argv=None):
         data = Interactions.load(cfg)
 
         print(f"Training {args.rec} on {args.dataset}")
-        print("Parameters:")
-        for k, v in sorted(vars(args).items()):
-            print(f"\t- {k} = {v}")
-        print()
+        if primary:
+            print("Parameters:")
+            for k, v in sorted(vars(args).items()):
+                print(f"\t- {k} = {v}")
+            print()
 
         model = build_model(args, data, cfg)
         if args.streaming_eval and hasattr(model, "factored_eval"):
@@ -439,8 +481,9 @@ def train(argv=None):
         run_tag = (
             f"batch_{cfg.batch_size}-K_{args.embed_k}-lr_{cfg.lr}-reg_{cfg.reg}"
         )
-        logger = JsonlLogger(os.path.join(results_dir, f"log-{run_tag}.jsonl"))
-        run_kw = dict(evaluator=evaluator, log=logger.log,
+        logger = (JsonlLogger(os.path.join(results_dir, f"log-{run_tag}.jsonl"))
+                  if primary else None)
+        run_kw = dict(evaluator=evaluator, log=logger.log if primary else None,
                       ckpt_dir=os.path.join(weight_dir, f"ckpt-{run_tag}"),
                       resume=args.resume)
         if args.streamed:
@@ -454,6 +497,8 @@ def train(argv=None):
             state, frozen, results, extra = fit_streamed(model, data, cfg, store, **run_kw)
         else:
             state, frozen, results, extra = fit(model, data, cfg, **run_kw)
+        if not primary:  # the mesh's model and state are whole on every rank
+            continue
         logger.close()
 
         # dumps in the reference layout (BPRMF.py:167-184); the best params

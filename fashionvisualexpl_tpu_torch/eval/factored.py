@@ -12,13 +12,17 @@ where the dense matrix is ~2 TB.
 Models opt in by implementing ``factored_eval(params) -> (user_factors
 [U, D], item_factors [I, D], item_bias [I] | None)``.
 
-Not ported yet: the ``mesh`` (sharded) path with ``sharded_streaming_counts``
-and ``sharded_streaming_topk_and_counts`` (ROADMAP: Multi-device).
+With a ``mesh`` (``core/mesh.py``; every rank of the model axis calls
+``evaluate`` with the same whole params) the catalog pads to the model-axis
+multiple with -inf bias and each model rank counts over its own item rows
+(``sharded_streaming_counts``: K2 per shard on the kernel engine), the
+counts summed over ``model``; the top-k dumps merge each shard's list by an
+all-gather and one small top-k (``sharded_streaming_topk_and_counts``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -41,11 +45,77 @@ from fashionvisualexpl_tpu_torch.ops.metrics import (
 from fashionvisualexpl_tpu_torch.ops.topk import (
     banned_bucket_width,
     bucket_banned_ids_device,
+    filter_items_topk,
     streaming_counts,
     streaming_counts_bucketed,
+    streaming_topk_and_counts,
 )
 
 COUNTS_IMPLS = ("auto", "mask", "bucketed", "kernel")
+
+
+def _shard_offset(mesh, item_factors):
+    from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS
+
+    return mesh.axis_index(MODEL_AXIS) * item_factors.shape[0]
+
+
+def sharded_streaming_counts(
+    mesh, uf, item_factors, item_bias, ref_scores, banned_ids, item_block,
+    impl: str = "mask", bucket_width: Optional[int] = None,
+):
+    """Distributed counts-only pass on one rank: ``item_factors`` /
+    ``item_bias`` are this model rank's rows of the padded catalog (pad
+    rows with -inf bias), ``uf``, ``ref_scores`` and ``banned_ids``
+    (global ids, -1 pads) the whole user block.  Each rank counts over its
+    rows; the >=-position counts are summed over ``model``.
+
+    ``impl``: "mask" (id-mask scan at the rank's global offset), or
+    "bucketed" / "kernel" (K2), which re-bucket the banned ids in
+    SHARD-LOCAL coordinates (``banned - shard * rows``: other shards' ids
+    and the pads fall outside [0, rows) and drop), so K2 itself takes no
+    offset.  ``bucket_width`` must then be a host-probed width valid for
+    every shard (``FactoredEvaluator`` probes it once)."""
+    from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS, psum
+
+    rows = item_factors.shape[0]
+    offset = _shard_offset(mesh, item_factors)
+    if impl == "mask":
+        counts = streaming_counts(uf, item_factors, item_bias, ref_scores=ref_scores,
+                                  banned_ids=banned_ids, item_block=item_block,
+                                  item_offset=offset)
+    else:
+        if bucket_width is None:
+            raise ValueError(f"impl {impl!r} needs a host-probed bucket_width")
+        loc, msk = bucket_banned_ids_device(banned_ids.to(torch.int64) - offset, rows,
+                                            item_block, bucket_width)
+        engine = streaming_counts_kernel if impl == "kernel" else streaming_counts_bucketed
+        counts = engine(uf, item_factors, item_bias, ref_scores=ref_scores,
+                        banned_local=loc, banned_valid=msk, item_block=item_block)
+    return psum(counts, mesh, MODEL_AXIS)
+
+
+def sharded_streaming_topk_and_counts(
+    mesh, uf, item_factors, item_bias, k, ref_scores, banned_ids, item_block,
+):
+    """Distributed streaming pass on one rank (arguments as for
+    ``sharded_streaming_counts``): the rank's top-k over its rows with its
+    global offset, the [m, Bu, k] lists all-gathered over ``model`` and
+    merged by one top-k over [Bu, m * k], the counts summed.  Returns
+    (vals [Bu, k], ids [Bu, k], counts or None)."""
+    from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS, all_gather, psum
+
+    tv, ti, counts = streaming_topk_and_counts(
+        uf, item_factors, item_bias, k, ref_scores=ref_scores, banned_ids=banned_ids,
+        item_block=item_block, item_offset=_shard_offset(mesh, item_factors))
+    Bu = tv.shape[0]
+    all_tv = all_gather(tv, mesh, MODEL_AXIS).transpose(0, 1).reshape(Bu, -1)
+    all_ti = all_gather(ti, mesh, MODEL_AXIS).transpose(0, 1).reshape(Bu, -1)
+    merged_v, pos = torch.topk(all_tv, k, dim=1)
+    merged_i = torch.take_along_dim(all_ti, pos, dim=1)
+    if counts is not None:
+        counts = psum(counts, mesh, MODEL_AXIS)
+    return merged_v, merged_i, counts
 
 
 def _masked(items, counts):
@@ -76,12 +146,9 @@ class FactoredEvaluator:
           CUDA and the catalog has 16,384 items or more, else "bucketed".
 
         All produce identical counts on data whose scores are exact in
-        f32.  ``mesh`` is not ported yet (ROADMAP: Multi-device)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded streaming evaluator (mesh) is not ported yet "
-                "(ROADMAP: Multi-device)"
-            )
+        f32, over a ``mesh`` too (the module docstring; each shard
+        re-buckets the banned ids in its own coordinates, with one probed
+        bucket width for every shard)."""
         if counts_impl not in COUNTS_IMPLS:
             raise ValueError(
                 f"counts_impl {counts_impl!r} not in "
@@ -102,6 +169,12 @@ class FactoredEvaluator:
         self.counts_impl = counts_impl
         # the kernel's item tile (the JAX package's measured best Pallas tile)
         self._counts_tile = 2048 if counts_impl == "kernel" else item_block
+        self.mesh = mesh
+        if self.mesh is not None:
+            from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS
+
+            self._m = self.mesh.shape[MODEL_AXIS]
+            self._mesh_rows = -(-data.num_items // self._m)  # rows per shard
 
         dev = self.device
         train_padded, train_counts = pad_lists(data.training_list, pad_value=0)
@@ -117,6 +190,7 @@ class FactoredEvaluator:
         else:
             self._val_items = None
             self._val_counts = None
+        self._bucket_w = {}
 
         if counts_impl != "mask":
             # the banned set (train + split eval items) is static, so the
@@ -128,14 +202,25 @@ class FactoredEvaluator:
             if data.has_validation:
                 banned_np["val"] = np.concatenate(
                     [tr, _masked(val_padded, val_counts)], axis=1)
-            self._bucket_w = {
-                split: banned_bucket_width(b, data.num_items, self._counts_tile)
-                for split, b in banned_np.items()
-            }
+            if self.mesh is None:
+                self._bucket_w = {
+                    split: banned_bucket_width(b, data.num_items, self._counts_tile)
+                    for split, b in banned_np.items()
+                }
+            else:  # one width for every shard's shard-local ids
+                rows = self._mesh_rows
+                self._bucket_w = {
+                    split: max(banned_bucket_width(b - s * rows, rows, self._counts_tile)
+                               for s in range(self._m))
+                    for split, b in banned_np.items()
+                }
 
     @torch.no_grad()
-    def _eval_block(self, split, uf, item_factors, item_bias, user_ids) -> PerUserMetrics:
-        """Per-user metrics for one user block, streaming over items."""
+    def _eval_block(self, split, uf, item_factors, item_bias, user_ids,
+                    shard=None) -> PerUserMetrics:
+        """Per-user metrics for one user block, streaming over items (over
+        a mesh: this rank's ``shard`` = (item rows, bias) of the padded
+        catalog; the whole tables score the eval items)."""
         I = item_factors.shape[0]
         train_items = self._train_items[user_ids]
         train_counts = self._train_counts[user_ids]
@@ -162,7 +247,12 @@ class FactoredEvaluator:
              torch.where(t_valid, ev_items, -1)],
             dim=1,
         )  # [Bu, P+T]
-        if self.counts_impl in ("kernel", "bucketed"):
+        if shard is not None:
+            position_t = sharded_streaming_counts(
+                self.mesh, uf, shard[0], shard[1], s_eval, banned,
+                self.item_block if self.counts_impl == "mask" else self._counts_tile,
+                impl=self.counts_impl, bucket_width=self._bucket_w.get(split))
+        elif self.counts_impl in ("kernel", "bucketed"):
             loc, msk = bucket_banned_ids_device(
                 banned, I, self._counts_tile, self._bucket_w[split]
             )
@@ -181,13 +271,13 @@ class FactoredEvaluator:
         num_neg = self.data.num_items - train_counts - ev_counts
         return metrics_from_positions(position_t, s_eval, ev_counts, num_neg, self.k)
 
-    def _eval_split(self, split, uf_all, item_factors, item_bias) -> MeanMetrics:
+    def _eval_split(self, split, uf_all, item_factors, item_bias, shard=None) -> MeanMetrics:
         U = self.data.num_users
         per_user = []
         for start in range(0, U, self.user_block):
             idx, in_range = block_ids(start, self.user_block, U)
             ids = torch.as_tensor(idx, device=self.device)
-            m = self._eval_block(split, uf_all[ids], item_factors, item_bias, ids)
+            m = self._eval_block(split, uf_all[ids], item_factors, item_bias, ids, shard)
             m = m._replace(valid=m.valid & torch.as_tensor(in_range, device=self.device))
             per_user.append(m)
         return mean_metrics(concat_metrics(per_user))
@@ -209,10 +299,26 @@ class FactoredEvaluator:
         own parameters."""
         del frozen
         uf, item_factors, item_bias = self._factors(params)
-        t = self._eval_split("test", uf, item_factors, item_bias)
-        v = (self._eval_split("val", uf, item_factors, item_bias)
+        shard = self._shard(item_factors, item_bias) if self.mesh is not None else None
+        t = self._eval_split("test", uf, item_factors, item_bias, shard)
+        v = (self._eval_split("val", uf, item_factors, item_bias, shard)
              if self._val_items is not None else None)
         return split_record(t, v)
+
+    def _shard(self, item_factors, item_bias):
+        """This model rank's (rows, bias) of the catalog padded to the
+        axis multiple, the pad rows with -inf bias: they score -inf, so
+        they never satisfy a >= count nor enter a top-k."""
+        from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS
+
+        rows, I = self._mesh_rows, self.data.num_items
+        pad = rows * self._m - I
+        ib = (item_bias if item_bias is not None
+              else torch.zeros(I, dtype=item_factors.dtype, device=item_factors.device))
+        iv = torch.nn.functional.pad(item_factors, (0, 0, 0, pad))
+        ib = torch.nn.functional.pad(ib, (0, pad), value=float("-inf"))
+        lo = self.mesh.axis_index(MODEL_AXIS) * rows
+        return iv[lo:lo + rows].contiguous(), ib[lo:lo + rows].contiguous()
 
     def print_epoch(self, epoch, total_epochs, mean_loss, rec) -> None:
         print_epoch_block(self.k, epoch, total_epochs, mean_loss, rec)
@@ -231,6 +337,8 @@ class FactoredEvaluator:
         from fashionvisualexpl_tpu_torch.data.native import write_recs_tsv
 
         users, ids, vals = self._topk_rows(params, frozen, exact=exact)
+        if self.mesh is not None and not self.mesh.is_primary:
+            return  # every rank computes (collectives); the primary writes
         if not write_recs_tsv(path, users, ids, vals):
             with open(path, "w") as out:
                 out.writelines(
@@ -242,7 +350,10 @@ class FactoredEvaluator:
     def _topk_rows(self, params, frozen, exact: bool = False):
         """Top-k (users [U], ids [U, k], vals [U, k]) numpy arrays for every
         user, served by ``RecServer`` from ``params`` without writing them
-        into the model."""
+        into the model; over a mesh by the distributed streaming pass
+        (``sharded_streaming_topk_and_counts``, train items filtered)."""
+        if self.mesh is not None:
+            return self._sharded_topk_rows(params)
         from fashionvisualexpl_tpu_torch.serve import RecServer
 
         srv = RecServer(
@@ -265,6 +376,26 @@ class FactoredEvaluator:
             all_ids.append(ids)
             all_vals.append(vals)
         return (np.concatenate(all_users), np.concatenate(all_ids),
+                np.concatenate(all_vals))
+
+    @torch.no_grad()
+    def _sharded_topk_rows(self, params):
+        uf_all, item_factors, item_bias = self._factors(params)
+        iv, ib = self._shard(item_factors, item_bias)
+        U = self.data.num_users
+        k_big = self.k + self._train_items.shape[1]
+        all_ids, all_vals = [], []
+        for start in range(0, U, self.user_block):
+            idx, _ = block_ids(start, self.user_block, U)
+            ids = torch.as_tensor(idx, device=self.device)
+            tv, ti, _ = sharded_streaming_topk_and_counts(
+                self.mesh, uf_all[ids], iv, ib, k_big, None, None, self.item_block)
+            vals, top = filter_items_topk(tv, ti, self._train_items[ids],
+                                          self._train_counts[ids], self.k)
+            n = min(self.user_block, U - start)
+            all_ids.append(top[:n].cpu().numpy())
+            all_vals.append(vals[:n].cpu().numpy())
+        return (np.arange(U, dtype=np.int32), np.concatenate(all_ids),
                 np.concatenate(all_vals))
 
     def store_recommendation_attention(self, params, frozen, path: str,

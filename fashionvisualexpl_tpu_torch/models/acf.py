@@ -256,8 +256,8 @@ class ACF(RecommenderModel):
         def window(m, s, acc, ids, off):
             flat = ids.reshape(-1)
             f = self.Fspat[ids]  # [B, W, S, C]
-            g_i = p["Gi"][flat].reshape(B, W, -1)
-            p_i = p["Pi"][flat].reshape(B, W, -1)
+            g_i = self.take("Gi", p["Gi"], flat).reshape(B, W, -1)
+            p_i = self.take("Pi", p["Pi"], flat).reshape(B, W, -1)
             logits = self._item_logits(comp, item, g_u, f, g_i, p_i)
             valid = (off + ar)[None, :] < cnt[:, None]
             logits = torch.where(valid, logits, NEG_BIG)
@@ -289,12 +289,13 @@ class ACF(RecommenderModel):
         pos_t, cnt_t = ((self.pos_train, self.cnt_train) if train_only
                         else (self.pos_eval, self.cnt_eval))
         pos, cnt = pos_t[users], cnt_t[users]
-        g_u = p["Gu"][users]
+        g_u = self.take("Gu", p["Gu"], users)
         if self.exact_train if train_only else self.exact_eval:
             return self._attentive_profile_chunked(p, g_u, pos, cnt)
         pos = pos.long()
         return self._attentive_profile(param_group(p, "comp"), param_group(p, "item"), g_u,
-                                       self.Fspat[pos], p["Gi"][pos], p["Pi"][pos], cnt)
+                                       self.Fspat[pos], self.take("Gi", p["Gi"], pos),
+                                       self.take("Pi", p["Pi"], pos), cnt)
 
     # --- scoring / training ---
 
@@ -317,13 +318,18 @@ class ACF(RecommenderModel):
                    + l2_loss(p_pos) + l2_loss(p_neg)) * 2.0
             + self.global_reg_scale * reg * att_l2 * 2.0)
 
+    def row_sharded_params(self):
+        return ("Gu", "Gi", "Pi")
+
     def loss(self, users, pos, neg, reg: float, rng=None) -> torch.Tensor:
         """``rng`` is unused: ACF has no stochastic layer."""
         del rng
         p = dict(self.named_parameters())
         users, pos, neg = users.long(), pos.long(), neg.long()
-        return self._bpr_loss(p, self.user_profile(users, True, p), p["Gu"][users],
-                              p["Gi"][pos], p["Gi"][neg], p["Pi"][pos], p["Pi"][neg], reg)
+        t = self.take
+        return self._bpr_loss(p, self.user_profile(users, True, p), t("Gu", p["Gu"], users),
+                              t("Gi", p["Gi"], pos), t("Gi", p["Gi"], neg),
+                              t("Pi", p["Pi"], pos), t("Pi", p["Pi"], neg), reg)
 
     # --- packed LazyAdam engine (train/packed_generic.py) ---
 

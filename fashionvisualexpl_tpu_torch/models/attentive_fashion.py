@@ -307,13 +307,17 @@ class AttentiveFashion(RecommenderModel):
 
     # --- training ---
 
+    def row_sharded_params(self):
+        return ("Gu", "Gi")
+
     def loss(self, users, pos, neg, reg: float, rng: Dropout = None) -> torch.Tensor:
         """Summed BPR loss plus the reference's L2 terms (batch embeddings,
         encoder outputs after dropout, attention matrices; each times 2).
         ``rng``: a generator or the six keep-masks (module docstring)."""
         p = dict(self.named_parameters())
-        return self._bpr_loss(p, self.Gu[users], self.Gi[pos], self.Gi[neg],
-                              self._rows(pos), self._rows(neg), reg, rng)
+        t = self.take
+        return self._bpr_loss(p, t("Gu", self.Gu, users), t("Gi", self.Gi, pos),
+                              t("Gi", self.Gi, neg), self._rows(pos), self._rows(neg), reg, rng)
 
     def loss_streamed(self, users, pos, neg, feats, reg: float,
                       rng: Dropout = None) -> torch.Tensor:

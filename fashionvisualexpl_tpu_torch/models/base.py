@@ -173,6 +173,19 @@ class RecommenderModel(nn.Module):
     def predict_all(self) -> torch.Tensor:
         raise NotImplementedError
 
+    def take(self, name: str, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """A table lookup inside ``loss`` / ``packed_loss`` (JAX
+        ``self.take``): the plain row gather; ``name`` lets the SPMD engine
+        (``parallel/spmd.py``) swap in the collective lookup for the
+        row-sharded tables."""
+        del name
+        return table[ids]
+
+    def row_sharded_params(self) -> tuple:
+        """Names (parameters or buffers) of the tables row-sharded over the
+        ``model`` mesh axis."""
+        return ()
+
     def params_or_own(
         self, params: Optional[Mapping[str, torch.Tensor]]
     ) -> Mapping[str, torch.Tensor]:

@@ -65,6 +65,9 @@ class BPRMF(RecommenderModel):
     def score(self, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
         return self.Bi[items] + (self.Gu[users] * self.Gi[items]).sum(dim=1)
 
+    def row_sharded_params(self):
+        return ("Bi", "Gu", "Gi")
+
     def loss(
         self,
         users: torch.Tensor,
@@ -79,11 +82,11 @@ class BPRMF(RecommenderModel):
         trainer's per-step dropout generator) is unused: BPRMF has no
         stochastic layer."""
         del rng
-        gamma_u = self.Gu[users]
-        beta_pos = self.Bi[pos]
-        gamma_pos = self.Gi[pos]
-        beta_neg = self.Bi[neg]
-        gamma_neg = self.Gi[neg]
+        gamma_u = self.take("Gu", self.Gu, users)
+        beta_pos = self.take("Bi", self.Bi, pos)
+        gamma_pos = self.take("Gi", self.Gi, pos)
+        beta_neg = self.take("Bi", self.Bi, neg)
+        gamma_neg = self.take("Gi", self.Gi, neg)
 
         x_pos = beta_pos + torch.sum(gamma_u * gamma_pos, dim=1)
         x_neg = beta_neg + torch.sum(gamma_u * gamma_neg, dim=1)

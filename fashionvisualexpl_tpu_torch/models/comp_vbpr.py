@@ -186,11 +186,11 @@ class CompVBPR(RecommenderModel):
         x = 0.0
         for j in self.active():
             if PROJ[j] is None:
-                theta_i = self.cnn.encode_drawn(self.Fe_img[item_ids], draw,
-                                                params=param_group(p, "cnn"))
+                theta_i = self.cnn.encode_drawn(self.take("Fe_img", self.Fe_img, item_ids),
+                                                draw, params=param_group(p, "cnn"))
                 bias = (theta_i @ p[BIAS[j]])[:, 0]
             else:
-                f_i = getattr(self, FROZEN[j])[item_ids]
+                f_i = self.take(FROZEN[j], getattr(self, FROZEN[j]), item_ids)
                 theta_i = f_i @ p[PROJ[j]]
                 bias = (f_i @ p[BIAS[j]])[:, 0]
             x = x + self.weights[j] * (torch.sum(theta_u[j] * theta_i, dim=-1) + bias)
@@ -227,13 +227,22 @@ class CompVBPR(RecommenderModel):
                                 if not k.endswith("_b"))
         return loss + reg_loss + self.global_reg_scale * reg * whole * 2.0
 
+    def row_sharded_params(self):
+        """Bi, Gu, Gi, and the active families' user profiles and frozen
+        tables (the JAX model's names)."""
+        act = self.active()
+        return (("Bi", "Gu", "Gi") + tuple(USER_TABLES[j] for j in act)
+                + tuple(FROZEN[j] for j in act))
+
     def loss(self, users, pos, neg, reg: float, rng: Dropout = None) -> torch.Tensor:
         """Summed BPR loss plus the reference's L2 terms (module docstring);
         ``rng``: a generator or the CNN's four keep-masks."""
         p = dict(self.named_parameters())
-        theta_u = {j: p[USER_TABLES[j]][users] for j in self.active()}
-        return self._bpr_loss(p, p["Gu"][users], theta_u, p["Gi"][pos], p["Gi"][neg],
-                              p["Bi"][pos], p["Bi"][neg], pos, neg, reg, rng)
+        t = self.take
+        theta_u = {j: t(USER_TABLES[j], p[USER_TABLES[j]], users) for j in self.active()}
+        return self._bpr_loss(p, t("Gu", p["Gu"], users), theta_u, t("Gi", p["Gi"], pos),
+                              t("Gi", p["Gi"], neg), t("Bi", p["Bi"], pos),
+                              t("Bi", p["Bi"], neg), pos, neg, reg, rng)
 
     # --- packed LazyAdam engine (train/packed_generic.py) ---
 

@@ -131,13 +131,18 @@ class GradFashion(ProjectedItemScores, RecommenderModel):
             * 2.0
         )
 
+    def row_sharded_params(self):
+        return ("Bi", "Gu", "Gi", "Tu", "Fc", "Fe")
+
     def loss(self, users, pos, neg, reg: float, rng=None) -> torch.Tensor:
         """``rng`` is unused: GradFashion has no stochastic layer."""
         del rng
+        t = self.take
         return self._bpr_loss(
-            dict(self.named_parameters()), self.Gu[users], self.Tu[users], self.Gi[pos],
-            self.Gi[neg], self.Bi[pos], self.Bi[neg], self.Fc[pos], self.Fc[neg],
-            self.Fe[pos], self.Fe[neg], reg)
+            dict(self.named_parameters()), t("Gu", self.Gu, users), t("Tu", self.Tu, users),
+            t("Gi", self.Gi, pos), t("Gi", self.Gi, neg), t("Bi", self.Bi, pos),
+            t("Bi", self.Bi, neg), t("Fc", self.Fc, pos), t("Fc", self.Fc, neg),
+            t("Fe", self.Fe, pos), t("Fe", self.Fe, neg), reg)
 
     # --- packed LazyAdam engine (train/packed_generic.py) ---
 
@@ -158,8 +163,9 @@ class GradFashion(ProjectedItemScores, RecommenderModel):
             cp, cn = frozen_vw["pos"]["Fc"], frozen_vw["neg"]["Fc"]
             ep, en = frozen_vw["pos"]["Fe"], frozen_vw["neg"]["Fe"]
         else:
-            cp, cn = frozen["Fc"][p_ids], frozen["Fc"][n_ids]
-            ep, en = frozen["Fe"][p_ids], frozen["Fe"][n_ids]
+            t = self.take
+            cp, cn = t("Fc", frozen["Fc"], p_ids), t("Fc", frozen["Fc"], n_ids)
+            ep, en = t("Fe", frozen["Fe"], p_ids), t("Fe", frozen["Fe"], n_ids)
         return self._bpr_loss(dense, user_vw["Gu"], user_vw["Tu"], pos_vw["Gi"],
                               neg_vw["Gi"], pos_vw["Bi"], neg_vw["Bi"], cp, cn, ep, en, reg)
 

@@ -147,12 +147,17 @@ class VBPR(ProjectedItemScores, RecommenderModel):
             + self.global_reg_scale * reg * (l2_loss(E) + l2_loss(Bp)) * 2.0
         )
 
+    def row_sharded_params(self):
+        return ("Bi", "Gu", "Gi", "Tu", "F")
+
     def loss(self, users, pos, neg, reg: float, rng=None) -> torch.Tensor:
         """``rng`` is unused: VBPR has no stochastic layer."""
         del rng
-        return self._bpr_loss(self.Gu[users], self.Tu[users], self.Gi[pos], self.Gi[neg],
-                              self.Bi[pos], self.Bi[neg], self.F[pos], self.F[neg],
-                              self.E, self.Bp, reg)
+        t = self.take
+        return self._bpr_loss(t("Gu", self.Gu, users), t("Tu", self.Tu, users),
+                              t("Gi", self.Gi, pos), t("Gi", self.Gi, neg),
+                              t("Bi", self.Bi, pos), t("Bi", self.Bi, neg),
+                              t("F", self.F, pos), t("F", self.F, neg), self.E, self.Bp, reg)
 
     # --- packed LazyAdam engine (train/packed_generic.py) ---
 
@@ -174,7 +179,7 @@ class VBPR(ProjectedItemScores, RecommenderModel):
         if frozen_vw is not None:
             fp, fn = frozen_vw["pos"]["F"], frozen_vw["neg"]["F"]
         else:
-            fp, fn = frozen["F"][p_ids], frozen["F"][n_ids]
+            fp, fn = self.take("F", frozen["F"], p_ids), self.take("F", frozen["F"], n_ids)
         return self._bpr_loss(user_vw["Gu"], user_vw["Tu"], pos_vw["Gi"], neg_vw["Gi"],
                               pos_vw["Bi"], neg_vw["Bi"], fp, fn, dense["E"], dense["Bp"],
                               reg)

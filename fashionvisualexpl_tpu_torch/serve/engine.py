@@ -29,8 +29,16 @@ Batches pad to power-of-two buckets from 8, as in the JAX package, so both
 serve the same shapes.  ``approx_max_k(recall_target=1.0)`` there is exact,
 and is ``torch.topk`` here.
 
-Not ported yet: the ``mesh`` (sharded) path and the TPU-only
-``segmax_kernel`` / ``segmax_transposed`` knobs (Mosaic layout matters).
+With a ``mesh`` (``core/mesh.py``; factored models only) the catalog is
+row-sharded over the ``model`` axis: each model rank's index holds its item
+slice of the padded catalog, a query runs the three stages over that slice
+(global ids through the slice's offset, ``shard * local_padded``; the bf16
+stage 1 through the kernel on every rank), and the per-shard top-k lists
+merge by an all-gather over ``model`` and one small final top-k
+(``_sharded_query``).  Every model rank answers the same query batch.
+
+Not ported: the TPU-only ``segmax_kernel`` / ``segmax_transposed`` knobs
+(Mosaic layout matters).
 """
 
 from __future__ import annotations
@@ -105,6 +113,8 @@ class RecServer:
         oversample margin and the fp32 rescore) or "fp32" (exact candidates).
     device : where the index lives and queries run; ``None`` is the CUDA
         card (raises without one).
+    mesh : a ``core/mesh.py`` mesh whose ``model`` axis shards the catalog
+        (module docstring); ``device`` should be the mesh's.
     """
 
     def __init__(
@@ -122,8 +132,10 @@ class RecServer:
         history: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         stage1_dtype: str = "bf16",
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         if stage1_dtype not in ("bf16", "fp32"):
             raise ValueError(f"stage1_dtype must be bf16|fp32, got {stage1_dtype}")
         self._factored = hasattr(model, "factored_eval")
@@ -132,6 +144,8 @@ class RecServer:
                 "RecServer serves factored models (factored_eval) or models "
                 "with predict_user_block"
             )
+        if self.mesh is not None and not self._factored:
+            raise ValueError("mesh serving requires a factored model (factored_eval)")
         self._stage1_dtype = (
             torch.bfloat16 if stage1_dtype == "bf16" else torch.float32
         )
@@ -159,14 +173,24 @@ class RecServer:
         self._P = int(train_padded.shape[1])
         if k > data.num_items:
             raise ValueError(f"k={k} exceeds catalog size {data.num_items}")
-        # static block geometry: the catalog pads (at refresh) to a whole
-        # number of blocks, each a whole number of segments
+        # static block geometry, per shard: each shard's item slice pads (at
+        # refresh) to a whole number of blocks, each a whole number of
+        # segments; a single device is one shard
+        from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS
+
         I = data.num_items
-        self._blk = min(self.item_block, _pad_to(I, self.seg))
-        self._padded_items = _pad_to(I, self._blk)
-        segments = self._padded_items // self.seg
+        m = 1 if self.mesh is None else self.mesh.shape[MODEL_AXIS]
+        local_span = -(-I // m)
+        self._blk = min(self.item_block, _pad_to(local_span, self.seg))
+        self._local_padded = _pad_to(local_span, self._blk)
+        self._padded_items = self._local_padded * m
+        self._offset = (0 if self.mesh is None
+                        else self.mesh.axis_index(MODEL_AXIS) * self._local_padded)
+        # cover k from this shard's slice where possible; a shard holding
+        # fewer than k items pads its list to k with -inf (_filtered_topk)
         self._k_seg = min(
-            segments, max(self.oversample * (k + self._P), -(-k // self.seg))
+            self._local_padded // self.seg,
+            max(self.oversample * (k + self._P), -(-k // self.seg)),
         )
         # rescore chunking splits power-of-two batch buckets evenly
         self.rescore_chunk = 1 << (max(1, rescore_chunk) - 1).bit_length()
@@ -200,9 +224,11 @@ class RecServer:
         iv = iv[:I].detach().to(dev, torch.float32)
         ib = None if ib is None else ib[:I].detach().to(dev, torch.float32)
         seg, D = self.seg, iv.shape[1]
-        Ip = self._padded_items
-        S = Ip // seg
-        iv_pad = F.pad(iv, (0, 0, 0, Ip - I))
+        # this shard's slice [lo, lo + Lp) of the padded catalog (all of it
+        # on one device)
+        lo, Lp = self._offset, self._local_padded
+        S = Lp // seg
+        iv_pad = F.pad(iv, (0, 0, 0, self._padded_items - I))[lo:lo + Lp].contiguous()
         index = {
             "banned": self._train_items,
             "banned_counts": self._train_counts,
@@ -213,45 +239,50 @@ class RecServer:
         }
         if not self.quantized:
             index["iv_cand"] = iv_pad.to(self._stage1_dtype)
-        ib_pad = None if ib is None else F.pad(ib, (0, Ip - I))
+        ib_pad = (None if ib is None
+                  else F.pad(ib, (0, self._padded_items - I))[lo:lo + Lp].contiguous())
         index["ib_pad"] = ib_pad
         index["ib_seg"] = None if ib_pad is None else ib_pad.reshape(S, seg)
         # bias + validity folded into one vector: pad items carry a large
         # negative so the fused segmax kernel stays branch-free
-        valid = torch.arange(Ip, device=dev) < I
+        valid = torch.arange(lo, lo + Lp, device=dev) < I
         index["ib_cand"] = torch.where(
             valid,
-            ib_pad if ib_pad is not None else torch.zeros(Ip, device=dev),
+            ib_pad if ib_pad is not None else torch.zeros(Lp, device=dev),
             -1e30,
         )
         if self.quantized:
             q_items, s_items = quantize_rows(iv)
             # rows pad to the block geometry and, for torch._int_mm, each
             # block's rows and D to multiples of 8 (exact zeros)
-            n_blocks, blk = Ip // self._blk, self._blk
-            q = F.pad(q_items, (0, _pad_to(D, 8) - D, 0, Ip - I))
+            n_blocks, blk = Lp // self._blk, self._blk
+            pad_i = self._padded_items - I
+            q = F.pad(q_items, (0, _pad_to(D, 8) - D, 0, pad_i))[lo:lo + Lp]
             q = q.reshape(n_blocks, blk, -1)
             index["q_items"] = F.pad(q, (0, 0, 0, _pad_to(blk, 8) - blk))
-            index["s_items"] = F.pad(s_items, (0, Ip - I))
+            index["s_items"] = F.pad(s_items, (0, pad_i))[lo:lo + Lp]
         self._index = index
 
     # --- query stages ----------------------------------------------------
 
-    def _candidates(self, index, uf):
+    def _candidates(self, index, uf, item_offset: int = 0):
         """Stage 1: candidate ids [B, k_seg*seg] and segment ids [B, k_seg]
-        via segment-max streaming."""
+        via segment-max streaming over the index's item slice.
+        ``item_offset`` is the slice's global base (0 on one device): the
+        candidate ids are global, the segment ids local (stage 2 gathers
+        from this slice's segment-major copy)."""
         I = self.data.num_items
-        seg, blk, Ip = self.seg, self._blk, self._padded_items
+        seg, blk, Ip = self.seg, self._blk, self._local_padded
         n_blocks = Ip // blk
         if not self.quantized and self._stage1_dtype == torch.bfloat16:
             segmax = segmax_scores(
                 uf.to(torch.bfloat16), index["iv_cand"], index["ib_cand"], seg
             )
-            return self._ids_from_segments(segmax, seg, I)
+            return self._ids_from_segments(segmax, seg, I, item_offset)
 
         B = uf.shape[0]
         ib_pad = index["ib_pad"]
-        valid = torch.arange(Ip, device=uf.device) < I
+        valid = torch.arange(item_offset, item_offset + Ip, device=uf.device) < I
         if self.quantized:
             qu, su = quantize_rows(uf)
         parts = []
@@ -266,15 +297,15 @@ class RecServer:
                 s = s + ib_pad[None, lo:hi]
             s = torch.where(valid[None, lo:hi], s, _NEG_INF)
             parts.append(s.view(B, blk // seg, seg).amax(dim=2))
-        return self._ids_from_segments(torch.cat(parts, dim=1), seg, I)
+        return self._ids_from_segments(torch.cat(parts, dim=1), seg, I, item_offset)
 
-    def _ids_from_segments(self, segmax, seg, I):
+    def _ids_from_segments(self, segmax, seg, I, item_offset: int = 0):
         B = segmax.shape[0]
-        seg_ids = self._select_segments(segmax)  # [B, k_seg]
+        seg_ids = self._select_segments(segmax)  # [B, k_seg] local
         cand = (
             seg_ids[:, :, None] * seg
             + torch.arange(seg, device=segmax.device)[None, None, :]
-        ).reshape(B, -1)  # [B, k_seg*seg]
+        ).reshape(B, -1) + item_offset  # [B, k_seg*seg] global
         return torch.where(cand < I, cand, OUT_OF_RANGE_ID), seg_ids
 
     def _select_segments(self, segmax):
@@ -360,12 +391,30 @@ class RecServer:
         index = self._index
         if not self._factored:
             return self._direct_query(index, dev_ids)
+        if self.mesh is not None:
+            return self._sharded_query(index, dev_ids)
+        return self._factored_query(index, dev_ids)
+
+    def _factored_query(self, index, dev_ids, item_offset: int = 0):
         uf = index["uf"][dev_ids]
-        ti, seg_ids = self._candidates(index, uf)
+        ti, seg_ids = self._candidates(index, uf, item_offset)
         s = self._rescore(index, uf, ti, seg_ids)
         return self._filtered_topk(
             s, ti, index["banned"][dev_ids], index["banned_counts"][dev_ids]
         )
+
+    def _sharded_query(self, index, dev_ids):
+        """Each shard's three stages over its item slice (global ids by
+        its offset), then the per-shard top-k lists [m, B, k] all-gathered
+        over ``model`` and merged by one top-k over [B, m * k]."""
+        from fashionvisualexpl_tpu_torch.core.mesh import MODEL_AXIS, all_gather
+
+        vals, ids = self._factored_query(index, dev_ids, self._offset)
+        B = vals.shape[0]
+        all_v = all_gather(vals, self.mesh, MODEL_AXIS).transpose(0, 1).reshape(B, -1)
+        all_i = all_gather(ids, self.mesh, MODEL_AXIS).transpose(0, 1).reshape(B, -1)
+        mv, pos = torch.topk(all_v, self.k, dim=1)
+        return mv, torch.take_along_dim(all_i, pos, dim=1)
 
     # --- public query surface --------------------------------------------
 

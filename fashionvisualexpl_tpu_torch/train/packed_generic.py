@@ -43,10 +43,8 @@ must not be used here: it would turn a pad into a duplicate of a real id.
 
 The step updates ``user_pmv`` and ``item_pmv`` in place (JAX donates them)
 and returns a new ``GenericPackedState`` holding them, the new step and the
-new dense params.
-
-Not ported here: ``_moment_cols`` and the sharded engine wait for
-Multi-device.
+new dense params.  The sharded form of the engine is
+``parallel/fast_spmd.py``.
 """
 
 from __future__ import annotations
@@ -95,6 +93,21 @@ def moment_dtype_name(moment_dtype) -> str:
     if moment_dtype in MOMENT_DTYPES:
         return moment_dtype
     raise ValueError(f"moment_dtype {moment_dtype!r} not float32/bfloat16/float8")
+
+
+def _moment_cols(moment_dtype) -> int:
+    """Columns per logical parameter column: 3 ([p | m | v] float32) or 2
+    ([p | mv], the bf16 pair).  float8 moments have no uniform per-column
+    width (four codes share one column): the sharded engine
+    (``parallel/fast_spmd.py``), built on this helper, refuses them."""
+    md = moment_dtype_name(moment_dtype)
+    if md == "float8":
+        raise ValueError(
+            "moment_dtype 'float8' is single-device only (the sharded packed "
+            "engine's column groups assume a uniform per-column moment width) "
+            "— use 'bfloat16' over a mesh"
+        )
+    return 3 if md == "float32" else 2
 
 
 def _offsets(tables):

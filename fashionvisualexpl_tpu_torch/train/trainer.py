@@ -26,12 +26,24 @@ epochs and at epoch 1 and the best params at the end
 (``core/checkpoint.py``); ``resume=True`` restores the latest checkpoint
 and continues from the next epoch.
 
-Not ported yet: the ``mesh`` paths (ROADMAP: Multi-device), generic or packed;
-they raise ``NotImplementedError``.
+With ``cfg.mesh`` larger than one device the trainer is one rank of a
+(data, model) mesh (``core/mesh.py``; every rank of the
+``torch.distributed`` group builds it alike): ``init_state`` draws the
+whole init, then keeps this rank's row shards (the model's own parameters
+and buffers hold them, ``parallel/spmd.py::load_tensors``); the generic
+path steps through ``parallel/spmd.py``, the packed one through
+``parallel/fast_spmd.py`` (frozen tables read by id, float8 moments
+refused).  ``fit`` over a mesh gathers the rows whole for evaluation (the
+primary evaluates, every rank gets its metrics, so all pick the same best
+epoch), writes checkpoints, logs and the best params from the primary in
+the single-device layout (a mesh-trained run restores on one device;
+``resume`` shards what it restores), and ends with the model and the
+returned state whole, in the single-device layout, on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -90,13 +102,20 @@ class Trainer:
             raise ValueError(
                 f"batch_size {cfg.batch_size} > {data.num_train} interactions"
             )
-        if cfg.mesh.num_devices > 1:
-            raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP: Multi-device)"
-            )
         if cfg.train_path not in ("generic", "packed"):
             raise ValueError(f"unknown train_path {cfg.train_path!r}")
         self.device = resolve_device(model.device)
+        # multi-device: tables row-sharded over `model`, batch over `data`
+        self.mesh = None
+        if cfg.mesh.num_devices > 1:
+            from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
+
+            self.mesh = make_mesh(data=cfg.mesh.data, model=cfg.mesh.model,
+                                  device=self.device)
+            if cfg.batch_size % cfg.mesh.data:
+                raise ValueError(f"batch {cfg.batch_size} not divisible by data axis "
+                                 f"{cfg.mesh.data}")
+        self._rows: Dict[str, int] = {}  # whole row counts of the sharded tables
         self._packed_step = None  # the packed engine's step when it is on
         if cfg.train_path == "packed":
             self._packed_step = self._build_packed_step()
@@ -114,6 +133,11 @@ class Trainer:
             self._train_pairs = to_dev(data.train_pairs)
         self._padded_pos = to_dev(data.padded_pos)
         self._pos_counts = to_dev(data.pos_counts)
+        self._spmd_step = None
+        if self.mesh is not None and self._packed_step is None:
+            from fashionvisualexpl_tpu_torch.parallel.spmd import make_spmd_train_step
+
+            self._spmd_step = make_spmd_train_step(model, self.mesh, self.tx, cfg.reg)
         self._epoch_fn = self._build_epoch_fn()
 
     def _build_epoch_fn(self) -> Callable:
@@ -147,6 +171,14 @@ class Trainer:
                 f"train_path='packed' requires packed_spec/packed_loss; "
                 f"{model.name} does not implement them"
             ) from e
+        if self.mesh is not None:
+            from fashionvisualexpl_tpu_torch.parallel.fast_spmd import (
+                make_generic_packed_spmd_step,
+            )
+
+            return make_generic_packed_spmd_step(
+                model, self.mesh, cfg.lr, cfg.reg, moment_dtype=cfg.moment_dtype,
+                lazy_catchup=cfg.lazy_catchup)
         return make_generic_packed_step(
             model, cfg.lr, cfg.reg, fused_frozen=cfg.fused_frozen,
             moment_dtype=cfg.moment_dtype, lazy_catchup=cfg.lazy_catchup,
@@ -163,6 +195,10 @@ class Trainer:
             inner, loss = run_packed_steps(self._packed_step, state.inner, frozen,
                                            triples, step_key)
             return state.with_inner(inner), loss
+        if self._spmd_step is not None:  # no dropout key, as in the JAX package
+            from fashionvisualexpl_tpu_torch.parallel.spmd import run_spmd_steps
+
+            return run_spmd_steps(self._spmd_step, state, frozen, triples)
         del frozen  # the model reads its own buffers
         users, pos, neg = (t.long() for t in triples)
         reg = self.cfg.reg
@@ -191,6 +227,8 @@ class Trainer:
             self.model.reset_parameters(gen)
         params = dict(self.model.named_parameters())
         frozen = dict(self.model.named_buffers())
+        if self.mesh is not None:
+            return self._init_sharded(params, frozen)
         if self._packed_step is not None:
             from fashionvisualexpl_tpu_torch.train.packed_generic import (
                 GenericPackedTrainState,
@@ -205,6 +243,118 @@ class Trainer:
             return GenericPackedTrainState(packed, self.model.packed_spec(),
                                            self.cfg.moment_dtype), frozen
         return create_train_state(params, self.tx), frozen
+
+    # --- the mesh paths: this rank's shards and the whole tables ---
+
+    def _sharded(self, name: str) -> bool:
+        return name in self._rows
+
+    def _init_sharded(self, params, frozen):
+        """Pack (the packed path) from the whole tables, then keep this
+        rank's shards: the model's params and buffers hold them."""
+        from fashionvisualexpl_tpu_torch.parallel.spmd import load_tensors, shard_params
+
+        packed = None
+        if self._packed_step is not None:
+            from fashionvisualexpl_tpu_torch.parallel.fast_spmd import (
+                shard_generic_packed_state,
+            )
+            from fashionvisualexpl_tpu_torch.train.packed_generic import (
+                GenericPackedTrainState,
+                pack_generic_state,
+            )
+
+            whole = pack_generic_state(self.model, params, moment_dtype=self.cfg.moment_dtype,
+                                       row_align=self.cfg.row_align)
+            packed = GenericPackedTrainState(shard_generic_packed_state(whole, self.mesh),
+                                             self.model.packed_spec(), self.cfg.moment_dtype)
+        sharded = set(self.model.row_sharded_params())
+        self._rows = {k: int(v.shape[0]) for k, v in {**params, **frozen}.items()
+                      if k in sharded}
+        sp, sf = shard_params(self.model, params, frozen, self.mesh)
+        load_tensors(self.model, {**sp, **sf})
+        frozen = dict(self.model.named_buffers())
+        if packed is not None:
+            return packed, frozen
+        return create_train_state(dict(self.model.named_parameters()), self.tx), frozen
+
+    def _whole(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The whole tables from this rank's shards (a collective over
+        ``model``); replicated entries copied."""
+        from fashionvisualexpl_tpu_torch.parallel.spmd import unshard_rows
+
+        return {k: unshard_rows(v.detach(), self.mesh, self._rows[k]) if self._sharded(k)
+                else v.detach().clone() for k, v in tensors.items()}
+
+    def gather_state(self, state):
+        """The whole state in the single-device layout (a collective)."""
+        if self._packed_step is not None:
+            from fashionvisualexpl_tpu_torch.parallel.fast_spmd import (
+                unshard_generic_packed_state,
+            )
+
+            return state.with_inner(unshard_generic_packed_state(
+                state.inner, self.mesh, self.data.num_users, self.data.num_items))
+        opt = state.opt_state
+        return TrainState(state.step.clone(), self._whole(state.params),
+                          type(opt)(opt.count.clone(), self._whole(opt.mu),
+                                    self._whole(opt.nu)))
+
+    def gather_params(self, state) -> Dict[str, torch.Tensor]:
+        """The whole params mapping (a collective)."""
+        if self._packed_step is not None:
+            return self.gather_state(state).params
+        return self._whole(state.params)
+
+    def shard_state(self, whole):
+        """This rank's state from a whole one (no collective); the model
+        takes the params' shards."""
+        from fashionvisualexpl_tpu_torch.parallel.spmd import load_tensors, row_shard
+
+        if self._packed_step is not None:
+            from fashionvisualexpl_tpu_torch.parallel.fast_spmd import (
+                shard_generic_packed_state,
+            )
+
+            return whole.with_inner(shard_generic_packed_state(whole.inner, self.mesh))
+
+        def cut(tree):
+            return {k: row_shard(v, self.mesh) if self._sharded(k)
+                    else v.detach().to(self.device, copy=True) for k, v in tree.items()}
+
+        load_tensors(self.model, cut(whole.params))
+        opt = whole.opt_state
+        return TrainState(whole.step.to(self.device, copy=True),
+                          dict(self.model.named_parameters()),
+                          type(opt)(opt.count.to(self.device, copy=True), cut(opt.mu),
+                                    cut(opt.nu)))
+
+    @contextlib.contextmanager
+    def whole_model(self, params: Dict[str, torch.Tensor]):
+        """The model holding the whole ``params`` and its whole buffers (a
+        collective gathers them) for the duration; its shards after."""
+        from fashionvisualexpl_tpu_torch.parallel.spmd import load_tensors
+
+        shards = {**{k: v.data for k, v in self.model.named_parameters()},
+                  **dict(self.model.named_buffers())}
+        load_tensors(self.model, {**params, **self._whole(dict(self.model.named_buffers()))})
+        try:
+            yield self.model
+        finally:
+            load_tensors(self.model, shards)
+
+    def finish(self, state):
+        """(state, frozen) in the single-device layout, the model holding
+        the whole tables from here on (a collective)."""
+        from fashionvisualexpl_tpu_torch.parallel.spmd import load_tensors
+
+        whole = self.gather_state(state)
+        load_tensors(self.model, {**whole.params, **self._whole(dict(self.model.named_buffers()))})
+        self._rows = {}
+        if self._packed_step is not None:
+            return whole, dict(self.model.named_buffers())
+        return (whole._replace(params=dict(self.model.named_parameters())),
+                dict(self.model.named_buffers()))
 
     def run_epoch(self, state: TrainState, frozen, key: int):
         """Run one full epoch (sampling + all optimizer steps) on device."""
@@ -261,7 +411,14 @@ def run_fit(
     evaluation cadence, best params, checkpoints and log records as
     ``fit`` documents them."""
     cfg = trainer.cfg
+    mesh = getattr(trainer, "mesh", None)
+    primary = mesh is None or mesh.is_primary
     state, frozen = trainer.init_state(init_seed)
+
+    def whole_params():  # over a mesh a collective: every rank calls it
+        if mesh is None:
+            return {k: v.detach().clone() for k, v in state.params.items()}
+        return trainer.gather_params(state)
 
     ckpt = None
     start_epoch = 1
@@ -270,13 +427,16 @@ def run_fit(
 
         ckpt = CheckpointManager(ckpt_dir)
         if resume and ckpt.latest_step() is not None:
-            state = ckpt.restore(state)  # in place (generic: the model's own params)
+            if mesh is None:
+                state = ckpt.restore(state)  # in place (generic: the model's own params)
+            else:  # the single-device layout, then this rank's shards
+                state = trainer.shard_state(ckpt.restore(trainer.gather_state(state)))
             start_epoch = int(ckpt.latest_step()) + 1
 
     results: Dict[int, Dict[str, float]] = {}
     history: List[EpochResult] = []
     # a copy: the steps update state.params in place
-    best_params = {k: v.detach().clone() for k, v in state.params.items()}
+    best_params = whole_params()
     best_epoch = 0
     best_value = -float("inf")
     metric_key = cfg.best_metric + "_v"
@@ -290,24 +450,38 @@ def run_fit(
         rec = EpochResult(epoch=epoch, loss=loss, train_time_s=train_time)
         if evaluator is not None and epoch % cfg.eval_every == 0:
             t1 = time.time()
-            metrics = evaluator.evaluate(state.params, frozen)
+            if mesh is None:
+                params, metrics = state.params, evaluator.evaluate(state.params, frozen)
+            else:  # the primary evaluates the whole tables; all get its metrics
+                from fashionvisualexpl_tpu_torch.core.mesh import broadcast_object
+
+                params, metrics = whole_params(), None
+                with trainer.whole_model(params) as m:
+                    if primary:
+                        metrics = evaluator.evaluate(params, dict(m.named_buffers()))
+                metrics = broadcast_object(metrics, mesh)
             rec.eval_time_s = time.time() - t1
             rec.metrics = metrics
             results[epoch] = metrics
-            evaluator.print_epoch(
-                epoch, cfg.epochs, loss / trainer.steps_per_epoch, rec
-            )
+            if primary:
+                evaluator.print_epoch(
+                    epoch, cfg.epochs, loss / trainer.steps_per_epoch, rec
+                )
             if metrics.get(metric_key, -float("inf")) >= best_value:
                 best_value = metrics[metric_key]
                 best_epoch = epoch
-                best_params = {k: v.detach().clone()
-                               for k, v in state.params.items()}
+                best_params = {k: v.detach().clone() for k, v in params.items()}
         history.append(rec)
         if ckpt is not None and cfg.verbose > 0 and (
             epoch % cfg.verbose == 0 or epoch == 1
         ):
-            ckpt.save(epoch, state)
-        if log is not None:
+            if mesh is None:
+                ckpt.save(epoch, state)
+            else:
+                whole = trainer.gather_state(state)
+                if primary:
+                    ckpt.save(epoch, whole)
+        if log is not None and primary:
             log(
                 {
                     "epoch": epoch,
@@ -319,8 +493,11 @@ def run_fit(
             )
 
     if ckpt is not None:
-        ckpt.save_best(best_params)
+        if primary:
+            ckpt.save_best(best_params)
         ckpt.close()
+    if mesh is not None:
+        state, frozen = trainer.finish(state)
 
     return state, frozen, results, {
         "history": history,

@@ -228,12 +228,16 @@ def test_packed_help_says_what_the_port_runs():
     assert "27.1 ms against 14.8 ms" in train_path
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--train_path", "packed", "--mesh_data", "2"), "Multi-device"),
-    (("--mesh_data", "2"), "Multi-device"),
+@pytest.mark.parametrize("extra,msg", [
+    (("--train_path", "packed", "--mesh_data", "2", "--moment_dtype", "float8"),
+     "float8 is single-device only"),
+    (("--mesh_data", "2"), "needs 2 ranks, the process group has 1"),
 ])
-def test_options_of_later_slices_raise(dataset_dir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
+def test_options_of_later_slices_raise(dataset_dir, extra, msg):
+    """The mesh runs under torchrun (``tests/test_torch_multihost.py``); the
+    refusals JAX has stay: float8 moments over a mesh, and a mesh that is
+    not the world size."""
+    with pytest.raises(SystemExit, match=msg):
         pcli.train(_argv(dataset_dir, "never", ()) + list(extra))
     assert not os.path.exists(os.path.join(dataset_dir, "never"))
 

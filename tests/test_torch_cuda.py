@@ -1525,3 +1525,64 @@ def test_staging_ring_never_refills_a_buffer_in_flight_on_card(cuda_device):
     for s, feats in enumerate(got):
         for key, want in store.gather(ids[s, 0], ids[s, 1]).items():
             assert torch.equal(feats[key].cpu(), torch.from_numpy(want)), (s, key)
+
+
+# --- the mesh's collectives with ranks sharing one card ---------------------
+
+_GLOO_RANK = r"""
+import datetime, json, sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+from fashionvisualexpl_tpu_torch.core import mesh as M
+
+rank, world, rdv = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = M.make_mesh(1, world, device="cuda")
+x = torch.arange(6, dtype=torch.float32, device="cuda") + 10 * rank
+c = torch.arange(3, dtype=torch.int32, device="cuda") + rank
+s, g, i = M.psum(x, mesh, "model"), M.all_gather(x, mesh, "model"), M.psum(c, mesh, "model")
+torch.cuda.synchronize()
+print(json.dumps({"devices": [str(t.device) for t in (s, g, i)], "sum": s.tolist(),
+                  "gather": g.tolist(), "isum": i.tolist(), "dtype": str(i.dtype),
+                  "staged": dict(M.staged_bytes)}))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_mesh_collectives_of_gloo_ranks_sharing_the_card(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0: ``psum`` (float32 and int32) and
+    ``all_gather`` take and return CUDA tensors; gloo's CUDA all_reduce runs
+    as it is, its all_gather (which gloo lacks for CUDA tensors) is staged
+    through pinned host memory, its bytes counted: 24 B to the host and
+    48 B back per rank."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(_GLOO_RANK)
+    rdv = str(tmp_path / "rdv")
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), "2", rdv, repo],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    for r, (out, _) in enumerate(outs):
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got["devices"] == ["cuda:0"] * 3
+        assert got["sum"] == [10.0 + 2 * j for j in range(6)]
+        assert got["gather"] == [[float(j) for j in range(6)], [10.0 + j for j in range(6)]]
+        assert got["isum"] == [1, 3, 5] and got["dtype"] == "torch.int32"
+        assert got["staged"] == {"all_gather": 24 + 48}, got["staged"]

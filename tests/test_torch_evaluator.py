@@ -36,6 +36,7 @@ from fashionvisualexpl_tpu.train.trainer import fit as jfit
 from fashionvisualexpl_tpu_torch.core.config import TrainConfig
 from fashionvisualexpl_tpu_torch.data.interactions import synthetic_interactions
 from fashionvisualexpl_tpu_torch.eval.evaluator import Evaluator, print_epoch_block
+from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
 from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
 from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
 from fashionvisualexpl_tpu_torch.models.convert import bprmf_from_jax
@@ -113,8 +114,8 @@ def test_counts_impl_choice_and_errors():
     assert FactoredEvaluator(model, data).counts_impl == "bucketed"  # CPU: auto
     with pytest.raises(ValueError, match="counts_impl"):
         FactoredEvaluator(model, data, counts_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP: Multi-device"):
-        FactoredEvaluator(model, data, mesh=object())
+    with pytest.raises(ValueError, match="mesh 1x2 != 1 devices"):  # not the world size
+        FactoredEvaluator(model, data, mesh=make_mesh(1, 2, device="cpu"))
     with pytest.raises(NotImplementedError, match="factored attention dump"):
         FactoredEvaluator(model, data).store_recommendation_attention(None, None, "x", None)
 

@@ -784,7 +784,16 @@ def test_unported_branches_raise_naming_their_items():
     tpg.make_generic_packed_step(BPRMF(4, 4, embed_k=2, device="cpu"), 0.01, 0.0,
                                  fused_frozen=True)
     assert isinstance(BPRMF(4, 4, embed_k=2, device="cpu").packed_spec(), PackedSpec)
-    with pytest.raises(NotImplementedError, match="ROADMAP: Multi-device"):
+    # over a mesh: float8 moments are refused, as in the JAX package (the
+    # sharded engine's parity: tests/test_torch_fast_spmd.py)
+    from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
+    from fashionvisualexpl_tpu_torch.parallel.fast_spmd import make_generic_packed_spmd_step
+
+    with pytest.raises(ValueError, match="'float8' is single-device only"):
+        make_generic_packed_spmd_step(BPRMF(4, 4, embed_k=2, device="cpu"),
+                                      make_mesh(device="cpu"), 0.01, 0.0,
+                                      moment_dtype="float8")
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):  # not the world size
         Trainer(BPRMF(4, 4, embed_k=2, device="cpu"), data,
                 TrainConfig(batch_size=2, train_path="packed",
                             mesh=TrainConfig().mesh.__class__(data=2)))

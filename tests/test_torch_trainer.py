@@ -160,10 +160,12 @@ def test_fit_keeps_the_run_structure():
 
 @pytest.mark.parametrize("what", ["packed", "mesh"])
 def test_options_of_later_slices_raise(what):
+    """Both engines train over a mesh (``tests/test_torch_spmd.py``,
+    ``tests/test_torch_fast_spmd.py``); a mesh that is not the world size
+    (here one process) is refused, with the JAX package's message."""
     model, data, cfg = _small_run()
-    # the packed engine runs on one device; over a mesh it is a later slice
     cfg = dataclasses.replace(cfg, mesh=MeshConfig(data=2, model=1))
     if what == "packed":
         cfg = dataclasses.replace(cfg, train_path="packed")
-    with pytest.raises(NotImplementedError, match="ROADMAP: Multi-device"):
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
         fit(model, data, cfg)
