@@ -227,6 +227,22 @@ Phases, each of which raises on a failure (nothing is swallowed):
    device from the mesh run's checkpoint equal to its best dump); one rank
    on nccl answering through the sharded server.
 
+25. (run before the multi-device phase) vision: ResNet-50 (``avg_pool``
+   and ``spatial_features``), ResNet-152 (``avg_pool``) and VGG19 (``fc2``
+   and ``block5_pool``) at 224x224 under ``fp32_math``, random weights from
+   a seed, at B = 64 and 256 from preprocessed images made on the card: ms
+   a batch, images/s, peak memory, the share of the f32 peak (operations
+   counted from the layer shapes: 8.17, 23.02 and 39.26 GFLOP an image),
+   each output held against the CPU route on 2 images; then
+   ``extract_features --cnn_model VGG19 --output_layer fc2 --batch 64
+   --resize 224 --skip_low`` on 2,048 JPEG item images of 256x256 written
+   here (wall seconds, the host's share against the card's two passes a
+   batch; the file set; two rows against the CPU route on a copy of the
+   CLI's weights) and ``train_rec --rec vbpr --cnn_model VGG19
+   --output_layer fc2`` for one epoch on what it extracted, over a 2,048 x
+   2,048 interaction set written beside the images (K3 in its dumps; the
+   catalog is under the 16,384 items from which the evaluator takes K2).
+
 The line before the last is a JSON object of the kernels with their
 numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -235,6 +251,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -331,9 +348,13 @@ AF_U, AF_I, AF_POS, AF_HW, AF_B = 1_000_000, 200_000, 20, 32, 8192
 AF_ROUTE_STEPS, AF_STEPS, AF_PROFILE_STEPS = 3, 50, 5
 AF_LR, AF_REG = 0.001, 0.001
 AF_ROUTE_DRIFT = 2 * AF_LR * AF_ROUTE_STEPS
-# the AttentiveFashion path through the CLI: the CLI phase's dataset with
-# color histograms, class one-hots and 32x32 edge tiffs
+# the AttentiveFashion path through the CLI: a dataset written as the CLI
+# phase's with color histograms, class one-hots and 32x32 edge tiffs, of
+# AF_CLI_N users x AF_CLI_N items (the CLI phase's 20k x 20k until the
+# vision phase came: ~135 s of host work, mostly the dense evaluation and
+# the attention dumps, cut to ~1/6 of the user-item pairs)
 AF_CLI_CLASSES, AF_CLI_BATCH_EVAL, AF_SERVE_BUCKETS = 10, 128, (8, 64, 1024)
+AF_CLI_N = 8192
 # the native host data plane: a split TSV and a recommendation dump at the
 # scaled configuration's sizes (rows; users x k); the Python writer, at
 # ~60 s for the full dump on the card's host, writes its first 100k users
@@ -473,6 +494,21 @@ COMP_F64_RTOL = 1e-4
 # within this share of their norm (a ReLU at its rounding moves a few
 # terms of the gradient sums)
 COMP_CNN_NORM = 0.05
+# the vision phase: the extraction CLI's three backbones (ResNet-50,
+# ResNet-152, VGG19) at the reference's 224x224 (the JAX CLI's --resize),
+# at its default --batch 64 and at 256, random weights from a seed, from
+# preprocessed images made on the card; each output held against the
+# port's CPU route on VISION_CHECK images (f32 on both sides, summed in
+# other orders): |card - cpu| <= VISION_RTOL * (|cpu| + max |cpu|)
+VISION_HW, VISION_BATCHES, VISION_CHECK, VISION_RTOL = 224, (64, 256), 2, 1e-4
+# then the extraction CLI on VISION_IMAGES item images of VISION_IMG_HW
+# square (JPEG, written here with PIL): VGG19 fc2 (train_rec's default
+# --cnn_model / --output_layer), --batch 64, --resize 224, --skip_low (cv2
+# and sklearn are not known to be on the card's machine); and train_rec
+# --rec vbpr for one epoch on those features over a VISION_IMAGES x
+# VISION_IMAGES interaction set written beside the images
+VISION_IMAGES, VISION_IMG_HW, VISION_CLI_B = 2048, 256, 64
+VISION_DIR = ROOT / "build" / "chip_smoke_vision"
 
 
 def fail(msg: str) -> None:
@@ -2198,9 +2234,9 @@ class launch_deltas:
 
 
 def af_path_phase(torch, np, E):
-    """train_rec --rec attentive_fashion then serve_rec, in process, on the
-    CLI phase's dataset with edge tiffs; then direct serving timed per
-    bucket and checked against an oracle on the card."""
+    """train_rec --rec attentive_fashion then serve_rec, in process, on an
+    AF_CLI_N x AF_CLI_N dataset with edge tiffs; then direct serving timed
+    per bucket and checked against an oracle on the card."""
     import glob
     import pickle
     import shutil
@@ -2220,8 +2256,8 @@ def af_path_phase(torch, np, E):
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    write_reference_dataset(np, CLI_DIR / "cli")
-    edges = write_af_features(np, CLI_DIR / "cli")
+    write_reference_dataset(np, CLI_DIR / "cli", AF_CLI_N, AF_CLI_N)
+    edges = write_af_features(np, CLI_DIR / "cli", AF_CLI_N)
     write_s = time.perf_counter() - t0
     results = CLI_DIR / "results"
     common = ["--rec", "attentive_fashion", "--dataset", "cli", "--data_root", str(CLI_DIR),
@@ -2229,8 +2265,8 @@ def af_path_phase(torch, np, E):
               str(CLI_K), "--edge_hw", str(AF_HW), str(AF_HW), "--batch_eval",
               str(AF_CLI_BATCH_EVAL)]
     served = CLI_DIR / "served.tsv"
-    users = ",".join(str(u * (CLI_U // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
-    per_pass = -(-CLI_I // AF_CLI_BATCH_EVAL)
+    users = ",".join(str(u * (AF_CLI_N // CLI_SERVE_USERS)) for u in range(CLI_SERVE_USERS))
+    per_pass = -(-AF_CLI_N // AF_CLI_BATCH_EVAL)
     E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0
     with launch_deltas(Evaluator, "evaluate", E) as evals, \
             launch_deltas(RecServer, "refresh", E) as refreshes:
@@ -2254,8 +2290,8 @@ def af_path_phase(torch, np, E):
         (path,) = glob.glob(str(rdir / pattern))
         table = read_tsv(np, path, 6 if "att" in pattern else 3)
         rows[pattern] = len(table)
-        if len(table) != CLI_U * CLI_K:
-            fail(f"{pattern}: {len(table)} rows, expected {CLI_U * CLI_K}")
+        if len(table) != AF_CLI_N * CLI_K:
+            fail(f"{pattern}: {len(table)} rows, expected {AF_CLI_N * CLI_K}")
         if "att" in pattern and not np.allclose(table[:, 3:].sum(1), 1.0, rtol=0, atol=1e-5):
             fail(f"{pattern}: attention weights do not sum to 1 within 1e-5")
     n_served = len(read_tsv(np, served, 3))
@@ -2274,11 +2310,11 @@ def af_path_phase(torch, np, E):
 
     # direct serving of the best params, timed per bucket; the model as
     # build_model makes it, from the edge stack in memory (the tiffs hold
-    # the same values; reading 20k of them again costs seconds of host time)
+    # the same values; reading them again costs seconds of host time)
     paths = Paths(root=str(CLI_DIR), results_root=str(results))
     data = Interactions.load(TrainConfig(dataset="cli", paths=paths))
     model = AttentiveFashion(
-        CLI_U, CLI_I, load_color_histograms(paths, "cli"), edges,
+        AF_CLI_N, AF_CLI_N, load_color_histograms(paths, "cli"), edges,
         load_class_onehot(paths, "cli"), embed_k=EMBED_K, attention_layers=(64, 1),
         batch_eval=AF_CLI_BATCH_EVAL)
     params = CheckpointManager(ckpt).restore_best(dict(model.named_parameters()))
@@ -2290,7 +2326,7 @@ def af_path_phase(torch, np, E):
     rng = np.random.default_rng(14)
     serving = {}
     for B in AF_SERVE_BUCKETS:
-        batch = rng.choice(CLI_U, B, replace=False)
+        batch = rng.choice(AF_CLI_N, B, replace=False)
         ids, vals = srv.query(batch)
         times = []
         for _ in range(10 if B < 1024 else 5):
@@ -5071,6 +5107,263 @@ MESH_SERVE_REPS = {8: 10, 64: 10, 1024: 3, 4096: 2}
 MESH_TIMEOUT_S = {"serve_eval": 240, "train": 240, "cli": 300, "nccl": 120}
 
 
+def resnet_flops(blocks, hw: int, with_head: bool = False) -> float:
+    """Operations of one hw x hw image through the ResNet (2 a multiply-add):
+    every conv at its output size; the fc head's product ``with_head``."""
+    h = (hw - 1) // 2 + 1  # the stem, 7x7 / 2, pad 3
+    ops = 2.0 * h * h * 64 * 3 * 49
+    h = (h - 1) // 2 + 1  # max pool 3x3 / 2, pad 1
+    in_c = 64
+    for s, (n_blocks, out_c) in enumerate(zip(blocks, (256, 512, 1024, 2048))):
+        mid = out_c // 4
+        for b in range(n_blocks):
+            stride = 2 if (b == 0 and s > 0) else 1
+            ho = (h - 1) // stride + 1
+            ops += 2.0 * (h * h * in_c * mid + ho * ho * (mid * mid * 9 + mid * out_c))
+            if b == 0:
+                ops += 2.0 * ho * ho * in_c * out_c  # the projection
+            h, in_c = ho, out_c
+    return ops + (2.0 * 2048 * 1000 if with_head else 0.0)
+
+
+def vgg19_flops(hw: int, output_layer: str) -> float:
+    """Operations of one hw x hw image through VGG19 up to output_layer."""
+    from fashionvisualexpl_tpu_torch.vision.backbones import VGG19_CFG
+
+    h, in_c, ops = hw, 3, 0.0
+    for s, stage in enumerate(VGG19_CFG):
+        for c in stage:
+            ops += 2.0 * h * h * in_c * c * 9
+            in_c = c
+        h = -(-h // 2)
+        if output_layer == f"block{s + 1}_pool":
+            return ops
+    for name, fan_in, fan_out in (("fc1", h * h * 512, 4096), ("fc2", 4096, 4096),
+                                  ("predictions", 4096, 1000)):
+        ops += 2.0 * fan_in * fan_out
+        if output_layer == name:
+            break
+    return ops
+
+
+def vision_close(torch, label, got, want) -> float:
+    """Max |got - want| relative to max |want|, after failing beyond
+    VISION_RTOL * (|want| + max |want|)."""
+    got, want = got.double().cpu(), want.double()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if not bool((err <= VISION_RTOL * (want.abs() + scale)).all()):
+        fail(f"{label}: the card's output leaves the CPU route's by "
+             f"{float(err.max()) / scale!r} of its largest value")
+    return float(err.max()) / scale
+
+
+def vision_backbone_phase(torch):
+    """The three backbones at 224x224 on the card, f32 under fp32_math, at
+    the CLI's batches: ms a batch, images/s, peak memory, the share of the
+    f32 peak (operations counted from the layer shapes), each output held
+    against the CPU route on VISION_CHECK images."""
+    from fashionvisualexpl_tpu_torch.vision.backbones import (
+        RESNET50_BLOCKS,
+        RESNET152_BLOCKS,
+        VGG19,
+        ResNet,
+    )
+    from fashionvisualexpl_tpu_torch.vision.extractors import IMAGENET_MEAN, IMAGENET_STD
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51)
+    mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
+    std = torch.as_tensor(IMAGENET_STD, device=dev)
+    hw = VISION_HW
+    specs = (
+        ("ResNet50", lambda **kw: ResNet(RESNET50_BLOCKS, **kw), (
+            ("avg_pool", lambda n, x: n.apply(x), resnet_flops(RESNET50_BLOCKS, hw), (2048,)),
+            ("spatial_features", lambda n, x: n.spatial_features(x),
+             resnet_flops(RESNET50_BLOCKS, hw), (7, 7, 2048)))),
+        ("ResNet152", lambda **kw: ResNet(RESNET152_BLOCKS, **kw), (
+            ("avg_pool", lambda n, x: n.apply(x), resnet_flops(RESNET152_BLOCKS, hw), (2048,)),)),
+        ("VGG19", lambda **kw: VGG19(input_hw=(hw, hw), **kw), (
+            ("fc2", lambda n, x: n.apply(x, output_layer="fc2"), vgg19_flops(hw, "fc2"),
+             (4096,)),
+            ("block5_pool", lambda n, x: n.apply(x, output_layer="block5_pool"),
+             vgg19_flops(hw, "block5_pool"), (7, 7, 512)))),
+    )
+    rows = {}
+    for name, build, outputs in specs:
+        net = build(device=dev, generator=g)
+        cpu = build(device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+        weight_bytes = sum(v.numel() * 4 for v in net.state_dict().values())
+        for B in VISION_BATCHES:
+            x = (torch.rand(B, hw, hw, 3, device=dev, generator=g) - mean) / std
+            for label, fn, ops, shape in outputs:
+                key = f"{name} {label} B={B}"
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    out = fn(net, x)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated()
+                    if tuple(out.shape) != (B, *shape) or not bool(torch.isfinite(out).all()):
+                        fail(f"{key}: output {tuple(out.shape)}, expected {(B, *shape)} finite")
+                    rel = None
+                    if B == VISION_BATCHES[0]:
+                        rel = vision_close(torch, key, out[:VISION_CHECK],
+                                           fn(cpu, x[:VISION_CHECK].cpu()))
+                    del out
+                    ms = cuda_ms(torch, lambda: fn(net, x), 3 if B > 64 else 5)
+                bytes_ = x.numel() * 4 + weight_bytes + B * math.prod(shape) * 4
+                bound, by = bound_ms(bytes_, ops * B, PEAK_F32_FLOPS)
+                rows[key] = dict(
+                    ms=ms, images_per_s=B * 1e3 / ms, gflop_per_image=ops / 1e9,
+                    tflops=ops * B / ms / 1e9, bound_ms=bound, bound_by=by,
+                    peak_share=bound / ms, peak_gib=peak / 2**30,
+                    peak_above_gib=(peak - base) / 2**30, cpu_rel_err=rel)
+                r = rows[key]
+                print(f"vision {key}: {ms!r} ms a batch, {r['images_per_s']!r} images/s, "
+                      f"{r['tflops']!r} TFLOP/s ({r['gflop_per_image']!r} GFLOP an image; "
+                      f"{r['peak_share']!r} of the f32 peak, bound {bound!r} ms), peak "
+                      f"{r['peak_gib']!r} GiB ({r['peak_above_gib']!r} above the weights "
+                      f"and input)" + ("" if rel is None else
+                                       f"; the CPU route on {VISION_CHECK} images within "
+                                       f"{rel!r} of its largest value"))
+            del x
+        del net, cpu
+        torch.cuda.empty_cache()
+    return rows
+
+
+def write_item_images(np, d: Path, n: int, hw: int, seed: int) -> None:
+    """n item images ``0.jpg`` ... of hw x hw: smooth colour fields (an 8x8
+    random grid upsampled) under a little noise, JPEG quality 90."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        grid = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+        img = np.asarray(grid.resize((hw, hw), Image.BILINEAR), np.int16)
+        img = img + rng.integers(-8, 9, img.shape, dtype=np.int16)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(d / f"{i}.jpg", quality=90)
+
+
+def vision_phase(torch, np, counts, segmax):
+    """(a) the backbones at full width; (b) ``extract_features`` from the
+    command line on VISION_IMAGES images written here; (c) ``train_rec
+    --rec vbpr`` on the features it extracted."""
+    import csv
+    import glob
+    import pickle
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.extract_features import extract
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+    from fashionvisualexpl_tpu_torch.core.config import Paths
+    from fashionvisualexpl_tpu_torch.vision.backbones import VGG19
+    from fashionvisualexpl_tpu_torch.vision.dataset import ImageFolderDataset
+    from fashionvisualexpl_tpu_torch.vision.extractors import CnnFeatureExtractor, preprocess
+
+    phase_t0 = time.perf_counter()
+    print(f"vision: card {card_line()}")
+    backbones = vision_backbone_phase(torch)
+    backbone_s = time.perf_counter() - phase_t0
+
+    shutil.rmtree(VISION_DIR, ignore_errors=True)
+    ds, n = "vision", VISION_IMAGES
+    paths = Paths(root=str(VISION_DIR), results_root=str(VISION_DIR / "results"))
+    t0 = time.perf_counter()
+    write_item_images(np, Path(paths.images(ds)), n, VISION_IMG_HW, seed=23)
+    write_reference_dataset(np, Path(paths.data_dir(ds)), n, n)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timing = extract(["--dataset", ds, "--data_root", str(VISION_DIR), "--cnn_model", "VGG19",
+                      "--output_layer", "fc2", "--batch", str(VISION_CLI_B), "--resize",
+                      str(VISION_HW), "--skip_low"])
+    extract_s = time.perf_counter() - t0
+    phases = {k: v["total_s"] for k, v in timing.items()}
+    host_s = phases["decode"] + phases["preprocess"] + phases["write"]
+    card_s = phases["extract_feature"] + phases["classify"]
+    feats = np.load(paths.cnn_features(ds, "VGG19", "fc2"))
+    split = sorted(os.listdir(paths.cnn_features_split_dir(ds, "VGG19", "fc2")))
+    with open(paths.classes_csv(ds, "VGG19"), newline="") as f:
+        table = list(csv.reader(f))
+    onehot = np.load(paths.class_features(ds))
+    per_item = os.listdir(paths.class_features_dir(ds))
+    if (feats.shape != (n, 4096) or not np.isfinite(feats).all() or len(split) != n
+            or table[0] != ["ImageID", "ClassStr", "ClassNum", "Prob"] or len(table) != n + 1
+            or [r[0] for r in table[1:]] != [str(i) for i in range(n)]
+            or onehot.shape[0] != n or onehot.dtype != np.int64
+            or not (onehot.sum(axis=1) == 1).all() or len(per_item) != n):
+        fail(f"extract_features: features {feats.shape}, {len(split)} split files, CSV "
+             f"{len(table)} rows, one-hots {onehot.shape} {onehot.dtype}, {len(per_item)} "
+             f"per item")
+    # the CLI's weights are the extractor's default draw (seed 0 on the
+    # card): two images through the CPU route on a copy of them
+    ref = CnnFeatureExtractor(output_layer="fc2", model_name="VGG19")
+    cpu = VGG19(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in ref.net.state_dict().items()})
+    del ref
+    images = ImageFolderDataset(paths.images(ds), resize=(VISION_HW, VISION_HW))
+    x = torch.from_numpy(preprocess(np.stack([images[i][0] for i in range(VISION_CHECK)])))
+    with torch.inference_mode():
+        want = cpu.apply(x, output_layer="fc2")
+        logits = cpu.apply(x, output_layer="predictions")
+    rel = vision_close(torch, "extract_features", torch.from_numpy(feats[:VISION_CHECK]), want)
+    if [int(r[2]) for r in table[1:VISION_CHECK + 1]] != logits.argmax(dim=1).tolist():
+        fail("extract_features: the CSV's classes are not the CPU route's")
+    del cpu
+    cli = dict(images=n, image_hw=VISION_IMG_HW, batch=VISION_CLI_B, write_s=write_s,
+               wall_s=extract_s, phases_s=phases, host_s=host_s, card_s=card_s,
+               host_share=host_s / extract_s, card_share=card_s / extract_s,
+               images_per_s=n / extract_s, classes=int(onehot.shape[1]), cpu_rel_err=rel)
+    print(f"extract_features VGG19 fc2 on {n} images of {VISION_IMG_HW}x{VISION_IMG_HW}, "
+          f"--batch {VISION_CLI_B}: {extract_s!r} s wall ({n / extract_s!r} images/s); by "
+          f"phase {phases}; the host (decode + resize, preprocess, writes) {host_s!r} s = "
+          f"{host_s / extract_s!r}, the card's two passes a batch {card_s!r} s = "
+          f"{card_s / extract_s!r}; {onehot.shape[1]} classes; rows 0-1 within {rel!r} of "
+          f"the CPU route (card {card_line()})")
+
+    # (c) train_rec --rec vbpr on what was extracted: the main path's K3
+    # launches are the dumps'
+    results = VISION_DIR / "results"
+    counts.counts_kernel.launches = 0
+    segmax.segmax_scores.launches = 0  # main path starts here
+    t0 = time.perf_counter()
+    train(["--rec", "vbpr", "--dataset", ds, "--data_root", str(VISION_DIR),
+           "--results_root", str(results), "--cnn_model", "VGG19", "--output_layer", "fc2",
+           "--epochs", "1", "--streaming_eval", "--top_k", str(CLI_K)])
+    train_s = time.perf_counter() - t0
+    launches = {"counts": counts.counts_kernel.launches,
+                "segmax_scores": segmax.segmax_scores.launches}  # main path ends here
+    if not launches["segmax_scores"]:
+        fail(f"train_rec --rec vbpr on the extracted features did not launch K3: {launches}")
+    rdir = results / "rec_results" / ds / "vbpr"
+    rows = {}
+    for pattern in ("recs-1-*.tsv", "best-recs-*.tsv"):
+        (path,) = glob.glob(str(rdir / pattern))
+        rows[pattern] = len(read_tsv(np, path, 3))
+        if rows[pattern] != n * CLI_K:
+            fail(f"vision train_rec {pattern}: {rows[pattern]} rows, expected {n * CLI_K}")
+    (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+    with open(pkl, "rb") as f:
+        per_epoch = pickle.load(f)
+    vals = np.array([v for m in per_epoch.values() for v in m.values()])
+    if sorted(per_epoch) != [1] or not (
+            np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+        fail(f"vision train_rec: metrics not finite in [0, 1] for epoch 1: {per_epoch}")
+    trained = dict(train_s=train_s, launches=launches, rows=rows, metrics=per_epoch[1])
+    total_s = time.perf_counter() - phase_t0
+    print(f"train_rec --rec vbpr --cnn_model VGG19 --output_layer fc2 on the extracted "
+          f"features ({n} x {n}, 1 epoch): {train_s!r} s; launches {launches} (K2 takes "
+          f"catalogs from 16,384 items); rows {rows}; metrics {per_epoch[1]}; vision phase "
+          f"{total_s!r} s (backbones {backbone_s!r} s)")
+    shutil.rmtree(VISION_DIR, ignore_errors=True)
+    return launches, dict(backbones=backbones, extract_features=cli, train_rec=trained,
+                          backbone_s=backbone_s, s=total_s)
+
+
 def mesh_eval_data(data) -> None:
     """The evaluation phase's Interactions, pickled for the evaluating
     ranks (building them takes the host ~35 s; loading them a few)."""
@@ -5576,6 +5869,7 @@ def main() -> int:
     packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
     acf_cli_launches, acf, acf_rows = acf_phase(torch, np, counts, segmax, G, S)
     comp_cli_launches, comp = comp_vbpr_phase(torch, np, counts, segmax, topk, G, S)
+    vision_launches, vision = vision_phase(torch, np, counts, segmax)
     mesh_launches, mesh = mesh_phase(torch, np, evaluated["metrics"])
 
     main_row = rows[4096]
@@ -5603,6 +5897,7 @@ def main() -> int:
         "comp_vbpr_cli_launches": {k: v["segmax_scores"] for k, v in comp_cli_launches.items()},
         "mesh_launches_by_rank": mesh_launches["segmax_scores"],
         "mesh_nccl_launches": mesh_launches["segmax_scores_nccl"],
+        "vision_cli_launches": vision_launches["segmax_scores"],
         "build_s": rows["build_s"],
         "ptxas": rows["ptxas"],
     }]
@@ -5630,6 +5925,7 @@ def main() -> int:
         "comp_vbpr_launches": comp["launches"],
         "comp_vbpr_cli_launches": {k: v["counts"] for k, v in comp_cli_launches.items()},
         "mesh_launches_by_rank": mesh_launches["counts"],
+        "vision_cli_launches": vision_launches["counts"],
     })
     for name, line in (("edge_tower_fwd", 114), ("edge_tower_bwd", 127)):
         kernels.append({
@@ -5688,6 +5984,7 @@ def main() -> int:
     print(json.dumps({"acf": acf}))
     print(json.dumps({"comp_vbpr": comp}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"vision": vision}))
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ AttentiveFashion, CompVBPR and ACF with the generic ``Trainer`` / ``fit``, the f
 BPRMF and VBPR steps and the packed LazyAdam engine (frozen feature columns
 fused into the item rows, ACF's extra item rows), dense and streaming evaluation with the dumps,
 GradFashion's explanations (``explain/grads.py``), checkpoints and the
-``train_rec`` / ``serve_rec`` / ``get_explanations`` CLI, on one device.  Every Pallas
+``train_rec`` / ``serve_rec`` / ``get_explanations`` CLI, on one device and
+over a mesh; the vision stack (ResNet-50/152 and VGG19 backbones, the
+extractors, ``extract_features``) and the offline tools (the dataset
+writer, profiling, ``split_dataset``, ``build_amazon``, ``logs_to_table``).  Every Pallas
 kernel of the JAX package has a hand-written CUDA C++ counterpart under
 ``ops/csrc/``.  The top-level names below resolve lazily, as in the JAX
 package.

@@ -6,24 +6,19 @@ blocks (reference src/recommender/models/GradFashion.py:269-302 +
 src/recommender/Evaluator.py:261-275), plus the review-join analysis of
 src/get_explanations.py.
 
-No pandas: a table is a mapping column name -> numpy column, in column
-order.  ``join_reviews`` reproduces pandas' inner merge on (USER_ID,
-ITEM_ID) (left rows in order, each with its right matches in order;
-clashing non-key columns suffixed ``_x`` / ``_y``) and ``sort_values``'s
-order, ties included: pandas sorts one column with numpy's unstable
-quicksort over the reversed column for a descending sort
-(``pandas.core.sorting.nargsort``), and so does ``_sort_order``.
+No pandas: a table is ``utils/frames.py``'s, a mapping column name ->
+numpy column, in column order.  ``join_reviews`` reproduces pandas' inner
+merge on (USER_ID, ITEM_ID) (left rows in order, each with its right
+matches in order; clashing non-key columns suffixed ``_x`` / ``_y``) and
+``sort_values``'s order, ties included (``frames.nargsort``: numpy's
+unstable quicksort over the reversed column for a descending sort).
 ``read_tsv`` / ``write_tsv`` stand in for ``read_csv`` / ``to_csv``
-(tab-separated, a header row, floats written as numpy prints them, the
-minimal quoting of the ``csv`` module); ``read_tsv`` infers a column's type
-as int64, else float64 (empty fields NaN), else str, and parses floats
-correctly rounded (Python's ``float``), where pandas' default C parser
-may land one ulp away (it reads 0.30000000000000004 as 0.3).
+(tab-separated, a header row; ``frames.read_csv`` / ``frames.write_csv``
+for the types, the missing values and the quoting).
 """
 
 from __future__ import annotations
 
-import csv
 import itertools
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -31,6 +26,7 @@ import numpy as np
 import torch
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
+from fashionvisualexpl_tpu_torch.utils import frames as fr
 
 Table = Dict[str, np.ndarray]
 COLUMNS = ("USER_ID", "ITEM_ID", "COLOR", "EDGES")
@@ -180,55 +176,6 @@ def explanation_table(model, params, frozen, data, batched: bool = True) -> Tabl
             "COLOR": g[:, 0].copy(), "EDGES": g[:, 1].copy()}
 
 
-def _rows_of(table: Mapping[str, np.ndarray]) -> int:
-    return len(next(iter(table.values()))) if table else 0
-
-
-def take_rows(table: Mapping[str, np.ndarray], idx: np.ndarray) -> Table:
-    return {k: np.asarray(v)[idx] for k, v in table.items()}
-
-
-def merge_inner(left: Mapping[str, np.ndarray], right: Mapping[str, np.ndarray],
-                on: Sequence[str] = KEYS) -> Table:
-    """pandas' ``merge(left, right, on=on, how="inner")``: the left rows in
-    order, each followed by its matches' right rows in order; the left
-    columns, then the right ones without the keys; a non-key name in both
-    becomes ``name_x`` and ``name_y``."""
-    matches: Dict[tuple, List[int]] = {}
-    for j, key in enumerate(zip(*(np.asarray(right[c]).tolist() for c in on))):
-        matches.setdefault(key, []).append(j)
-    li, ri = [], []
-    for i, key in enumerate(zip(*(np.asarray(left[c]).tolist() for c in on))):
-        for j in matches.get(key, ()):
-            li.append(i)
-            ri.append(j)
-    li, ri = np.asarray(li, np.int64), np.asarray(ri, np.int64)
-    both = (set(left) & set(right)) - set(on)
-    out: Table = {}
-    for k, v in left.items():
-        out[k + "_x" if k in both else k] = np.asarray(v)[li]
-    for k, v in right.items():
-        if k not in on:
-            out[k + "_y" if k in both else k] = np.asarray(v)[ri]
-    return out
-
-
-def _sort_order(values: np.ndarray, ascending: bool) -> np.ndarray:
-    """``DataFrame.sort_values(col, ascending)``'s row order for one
-    float column (``pandas.core.sorting.nargsort`` with quicksort, NaNs
-    last)."""
-    values = np.asarray(values, np.float64)
-    mask = np.isnan(values)
-    idx = np.arange(len(values))
-    non_nans, non_nan_idx = values[~mask], idx[~mask]
-    if not ascending:
-        non_nans, non_nan_idx = non_nans[::-1], non_nan_idx[::-1]
-    order = non_nan_idx[non_nans.argsort(kind="quicksort")]
-    if not ascending:
-        order = order[::-1]
-    return np.concatenate([order, np.nonzero(mask)[0]])
-
-
 def join_reviews(grads: Mapping[str, np.ndarray], reviews: Mapping[str, np.ndarray],
                  top_n: int = 50) -> Tuple[Table, Table]:
     """The get_explanations.py analysis (get_explanations.py:17-37): join the
@@ -236,42 +183,23 @@ def join_reviews(grads: Mapping[str, np.ndarray], reviews: Mapping[str, np.ndarr
     ASIN, TIME and CATEGORY where present, add DIFF = COLOR - EDGES, and
     return the top-N color-driven (DIFF descending) and edge-driven (DIFF
     ascending) rows."""
-    merged = merge_inner(grads, reviews)
+    merged = fr.merge_inner(grads, reviews, on=KEYS)
     for col in ("USER", "ASIN", "TIME", "CATEGORY"):
         merged.pop(col, None)
     merged["DIFF"] = merged["COLOR"] - merged["EDGES"]
-    color_driven = take_rows(merged, _sort_order(merged["DIFF"], False)[:top_n])
-    edge_driven = take_rows(merged, _sort_order(merged["DIFF"], True)[:top_n])
+    color_driven = fr.take(merged, fr.nargsort(merged["DIFF"], False)[:top_n])
+    edge_driven = fr.take(merged, fr.nargsort(merged["DIFF"], True)[:top_n])
     return color_driven, edge_driven
-
-
-def _column(cells: List[str]) -> np.ndarray:
-    for kind in (int, float):
-        try:
-            return np.asarray([kind(c) if c != "" else float("nan") for c in cells],
-                              np.int64 if kind is int else np.float64)
-        except (ValueError, TypeError):
-            pass
-    return np.asarray(cells, dtype=object)
 
 
 def read_tsv(path: str, names: Optional[Sequence[str]] = None) -> Table:
     """A tab-separated file as columns: the first row is the header unless
-    ``names`` are given (module docstring for the types)."""
-    with open(path, newline="") as f:
-        rows = list(csv.reader(f, delimiter="\t"))
+    ``names`` are given."""
     if names is None:
-        names, rows = rows[0], rows[1:]
-    return {name: _column([r[j] for r in rows]) for j, name in enumerate(names)}
+        return fr.read_csv(path, sep="\t")
+    return dict(zip(names, fr.read_csv(path, sep="\t", header=False).values()))
 
 
 def write_tsv(table: Mapping[str, np.ndarray], path: str) -> None:
     """``to_csv(path, sep="\\t", index=False)`` of a table."""
-    cols = [np.asarray(v) for v in table.values()]
-    text = [np.where(np.isnan(c), "", c.astype(str)) if c.dtype.kind == "f"
-            else c.astype(str) for c in cols]
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, delimiter="\t", lineterminator="\n")
-        w.writerow(list(table))
-        for r in range(_rows_of(table)):
-            w.writerow([c[r] for c in text])
+    fr.write_csv(table, path, sep="\t")

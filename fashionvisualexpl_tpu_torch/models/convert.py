@@ -8,12 +8,14 @@ needs no JAX.  Nested groups become the port's dotted parameter names
 (``params["color_enc"]["W1"]`` -> ``"color_enc.W1"``).  The copy is exact,
 so both packages then compute on the same weights, and a mid-run optimizer
 state (step, moments, last-touch steps, packed rows with their bit-packed
-moment columns) carries across as well.
+moment columns) carries across as well.  The vision backbones' params
+(``resnet_from_jax``, ``vgg19_from_jax``) carry across with their conv
+kernels transposed from JAX's HWIO to the port's OIHW.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +183,46 @@ def comp_vbpr_from_jax(params, semantic: Optional[Features] = None,
                      embed_d=d, activated_components=act, device=device, **kw)
     _copy_into(model, flat)
     return model
+
+
+def _copy_backbone(model, params):
+    """Copy the JAX backbone params (nested, numpy) into ``model``'s
+    parameters and buffers (the same names once flattened; the batch-norm
+    statistics are buffers here), conv kernels HWIO -> OIHW."""
+    flat = flatten_params(params)
+    own = dict(model.named_parameters())
+    own.update(model.named_buffers())
+    if set(flat) != set(own):
+        raise ValueError(f"JAX params {sorted(flat)} != the port's {sorted(own)}")
+    with torch.no_grad():
+        for name, t in own.items():
+            arr = _f32(flat, name, t.dim())
+            if t.dim() == 4:
+                arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+            if arr.shape != tuple(t.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != the port's {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(arr))
+    return model
+
+
+def resnet_from_jax(params, blocks: Tuple[int, ...], device: DeviceLike = None):
+    """A ``vision.backbones.ResNet`` of ``blocks`` holding exactly the JAX
+    ResNet's params (numpy; HWIO convs, ``fc_W`` [2048, classes])."""
+    from fashionvisualexpl_tpu_torch.vision.backbones import ResNet
+
+    num_classes = np.asarray(params["fc_W"]).shape[1]
+    return _copy_backbone(ResNet(blocks, num_classes=num_classes, device=device), params)
+
+
+def vgg19_from_jax(params, input_hw: Tuple[int, int] = (224, 224), device: DeviceLike = None):
+    """A ``vision.backbones.VGG19`` at ``input_hw`` holding exactly the JAX
+    VGG19's params (numpy; HWIO convs, ``fc1_W`` with rows in HWC order,
+    kept so)."""
+    from fashionvisualexpl_tpu_torch.vision.backbones import VGG19
+
+    num_classes = np.asarray(params["fc3_W"]).shape[1]
+    model = VGG19(num_classes=num_classes, input_hw=input_hw, device=device)
+    return _copy_backbone(model, params)
 
 
 def _tensors(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

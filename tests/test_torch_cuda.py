@@ -1586,3 +1586,50 @@ def test_mesh_collectives_of_gloo_ranks_sharing_the_card(cuda_device, tmp_path):
         assert got["gather"] == [[float(j) for j in range(6)], [10.0 + j for j in range(6)]]
         assert got["isum"] == [1, 3, 5] and got["dtype"] == "torch.int32"
         assert got["staged"] == {"all_gather": 24 + 48}, got["staged"]
+
+
+# the vision stack's backbones (cuDNN convs and cuBLAS products in f32 under
+# fp32_math: no TF32) on the card against the same weights on the CPU, at
+# 32x32, B = 2: |card - cpu| <= 1e-4 * (|cpu| + max |cpu|), as chip_smoke.py
+# holds them at 224x224
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ResNet50", "ResNet152", "VGG19"])
+def test_backbones_match_cpu_route_on_card(cuda_device, name):
+    from fashionvisualexpl_tpu_torch.vision import backbones as B
+
+    build = {"ResNet50": lambda **kw: B.ResNet(B.RESNET50_BLOCKS, **kw),
+             "ResNet152": lambda **kw: B.ResNet(B.RESNET152_BLOCKS, **kw),
+             "VGG19": lambda **kw: B.VGG19(input_hw=(32, 32), **kw)}[name]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    net = build(device=cuda_device, generator=g)
+    cpu = build(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    x = torch.randn(2, 32, 32, 3, device=cuda_device, generator=g)
+    if name == "VGG19":
+        outs = [lambda n, t, layer=layer: n.apply(t, output_layer=layer)
+                for layer in ("fc2", "block5_pool", "predictions")]
+    else:
+        outs = [lambda n, t: n.apply(t), lambda n, t: n.apply(t, with_head=True),
+                lambda n, t: n.spatial_features(t)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    with torch.inference_mode():
+        for fn in outs:
+            got, want = fn(net, x).double().cpu(), fn(cpu, x.cpu()).double()
+            assert got.shape == want.shape
+            scale = float(want.abs().max())
+            assert bool(((got - want).abs() <= 1e-4 * (want.abs() + scale)).all())
+    # fp32_math restores the global switches
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == tf32
+
+
+def test_extractor_on_cuda_raises_without_a_card(monkeypatch):
+    """``CnnFeatureExtractor(device="cuda")`` and the default device raise
+    where there is no card; ``device="cpu"`` runs.  Runs everywhere."""
+    from fashionvisualexpl_tpu_torch.vision.extractors import CnnFeatureExtractor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in ("cuda", None):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            CnnFeatureExtractor(model_name="ResNet50", device=device)
+    ex = CnnFeatureExtractor(model_name="ResNet50", device="cpu")
+    assert ex.device.type == "cpu" and ex.net.device.type == "cpu"
