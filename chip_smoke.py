@@ -73,7 +73,7 @@ Phases, each of which raises on a failure (nothing is swallowed):
    engine, and the per-user metrics must be equal;
 11. cli: ``train_rec.train`` in process (``--rec bprmf --streaming_eval
    --embed_k 128 --epochs 2 --verbose 1``) on a reference-layout dataset
-   written here (20k users x 20k items, 20 interactions per user), then
+   written here (4,096 users x 20k items, 20 interactions per user), then
    ``serve_rec.serve`` from its checkpoint for 64 users: K2 and K3 must
    launch, the dumps hold U x k rows, the metrics are finite and in [0, 1].
 
@@ -86,8 +86,8 @@ Phases, each of which raises on a failure (nothing is swallowed):
    JAX benches' shapes beside their bounds, plain versions and
    ``torch.index_select`` / ``Tensor.index_copy_``, each on the route its
    plan names (``gather_plan`` / ``scatter_plan``); K4 also at 16,384 rows
-   of every narrow width the packed paths gather (BPRMF's 385 ... 195,
-   VBPR's and GradFashion's user rows 445 and 297) over 1M-row tables,
+   of the narrow widths of fp32 moments the packed paths gather (BPRMF's
+   385 and 388, VBPR's and GradFashion's user rows 445) over 1M-row tables,
    cold and warm, each on the route its plan names (a lanes route),
    bit-equal and beside ``index_select``; ``bench_gather`` and
    ``bench_scatter`` once;
@@ -149,10 +149,10 @@ Phases, each of which raises on a failure (nothing is swallowed):
    ``precompute_eval`` over 1M users and the test split through K2 (245
    launches); ``RecServer`` through K3 at the buckets, 64 users against a
    full-catalog fp32 oracle; ``train_rec --rec acf`` (generic, packed) and
-   ``serve_rec`` on a 2048 x 2048 dataset with 7x7x512 ``.npy`` maps
-   written here; K4 and K5 at ACF's item rows (769, 513, 25,857, 25,601,
-   25,473 floats over 200k rows, at 163,840 and 16,384 rows) and K5 at
-   every narrow packed width, each on the route its plan names, beside
+   ``serve_rec`` on a 1024 x 1024 dataset with 7x7x512 ``.npy`` maps
+   written here; K4 and K5 at ACF's item rows (769, 513 and, fused,
+   25,857 floats over 200k rows, at 163,840 and 16,384 rows) and K5 at
+   K4's narrow widths, each on the route its plan names, beside
    ``index_select`` / ``index_copy_`` and their bounds; the rows where K5
    trails ``index_copy_`` or reaches under half its bound are printed;
 20. CompVBPR at the JAX CLI's default widths (K=128, d=20, semantic 4096,
@@ -168,13 +168,13 @@ Phases, each of which raises on a failure (nothing is swallowed):
    through K2 at D=208 (245 launches); ``RecServer`` through K3 at the
    buckets, every launch on ``segmax_mma_kernel``, 64 users against a
    full-catalog fp32 oracle; K3 and K2 alone at D=208 and K4 and K5 at the
-   user rows (625 / 417 / 313, 640 / 512 / 384 floats over 1M rows, batch
+   user rows (625 and, at row_align 128, 640 floats over 1M rows, batch
    8192), each checked against its plain version and timed beside its
    bound and the library call; the CNN at 224x224 (B=256) against float64
    and timed forward and backward beside the f32 bound; ``train_rec --rec
    comp_vbpr`` at ``--edge_hw 224 224``: generic with the streaming
-   evaluator on 1024 users x 16,384 items, packed with the dense one and
-   ``serve_rec`` from its checkpoint on 1024 x 1024, both written here;
+   evaluator on 512 users x 16,384 items, packed with the dense one and
+   ``serve_rec`` from its checkpoint on 512 x 512, both written here;
 21. (run right after the build) the native host data plane
    (``data/native.py``, built with ``g++`` on the card's host; its path and
    build seconds printed): ``read_split_tsv``
@@ -200,7 +200,7 @@ Phases, each of which raises on a failure (nothing is swallowed):
    ``torch.index_select`` on the memmapped tensor, and its copy to the
    card, each in GB/s (the page cache warm);
 23. the streamed CLI: ``train_rec --rec attentive_fashion --streamed
-   --edge_hw 224 224`` on a 2,048 x 2,048 dataset with 224x224 edge tiffs
+   --edge_hw 224 224`` on a 1,024 x 1,024 dataset with 224x224 edge tiffs
    written here (the stack built by ``build_edge_stack_npy``), 2 epochs
    with dense evaluation: the JAX CLI's file set, ``--resume`` to a third
    epoch from its checkpoint, then ``serve_rec --streamed``.
@@ -220,12 +220,37 @@ Phases, each of which raises on a failure (nothing is swallowed):
    with bf16 moments (4 K4 + 2 K5 launches a step on every rank), held
    against one device's steps from the same state and triples by
    ``route_check`` / ``packed_route_check``; ``torchrun --nproc_per_node=4
-   ... train_rec --mesh_data 2 --mesh_model 2`` on a 20k x 20k dataset
+   ... train_rec --mesh_data 2 --mesh_model 2`` on a 4,096 x 20k dataset
    written as phase 11's, at batch 8192, against ``train_rec`` on one
    device with the same flags (the file set and, within
    ``tests/test_golden.py``'s tolerances, the metrics; ``serve_rec`` on one
    device from the mesh run's checkpoint equal to its best dump); one rank
    on nccl answering through the sharded server.
+
+26. (run after CompVBPR, before the vision phase) the bf16 towers
+   (``compute_dtype="bfloat16"``): K7's bf16 forward and backward (the
+   weights rounded to bf16, one exact bf16 piece a pixel, f32 sums)
+   against their plain version ``edge_tower_gap_bf16_plain`` at the tower
+   phase's geometries, ties and edge maps and at ragged tiles of odd
+   counts, with the f32 kernels' tolerances, two runs bit-equal, the
+   float64 witness on one seed of edge maps, the bf16 backward's ptxas
+   registers and spills (no more spills than the f32 one's), timed at
+   8192 x 32x32 x 64 and 256 x 224x224 x 64 beside the f32 kernels' times
+   of phase 12, cuDNN's bf16 conv alone and the bound (the operations at
+   the bf16 rate, or the bytes with 2-byte images); then in bf16
+   AttentiveFashion's generic step at 1M x 200k (the bf16 kernels' main
+   path: 2 + 2 bf16 launches a step, no f32 ones), its packed step, the
+   streamed step at 256 x 224x224 from phase 22's stack and CompVBPR's
+   packed and generic steps at phase 20's shape, each beside its f32
+   figure of this run (AttentiveFashion's also in f32 on the same model
+   just before and after) with a profile (idle share, K7's or the convs'
+   share), peak memory and every param f32; the bf16 CNN at 224x224
+   (B=256) against the f32 CNN on the same weights and timed beside the
+   bf16 bound; CompVBPR's generic step at 224x224, batch 1024, over 1M x
+   32,768, in bf16 and in f32 on the same model; ``train_rec
+   --compute_dtype bfloat16`` for ``attentive_fashion`` (``--edge_hw 32
+   32``) and ``comp_vbpr`` (its default 224x224) on 2,048 x 2,048
+   datasets, one epoch: the JAX CLI's file set.
 
 25. (run before the multi-device phase) vision: ResNet-50 (``avg_pool``
    and ``spatial_features``), ResNet-152 (``avg_pool``) and VGG19 (``fc2``
@@ -235,12 +260,12 @@ Phases, each of which raises on a failure (nothing is swallowed):
    counted from the layer shapes: 8.17, 23.02 and 39.26 GFLOP an image),
    each output held against the CPU route on 2 images; then
    ``extract_features --cnn_model VGG19 --output_layer fc2 --batch 64
-   --resize 224 --skip_low`` on 2,048 JPEG item images of 256x256 written
+   --resize 224 --skip_low`` on 1,024 JPEG item images of 256x256 written
    here (wall seconds, the host's share against the card's two passes a
    batch; the file set; two rows against the CPU route on a copy of the
    CLI's weights) and ``train_rec --rec vbpr --cnn_model VGG19
-   --output_layer fc2`` for one epoch on what it extracted, over a 2,048 x
-   2,048 interaction set written beside the images (K3 in its dumps; the
+   --output_layer fc2`` for one epoch on what it extracted, over a 1,024 x
+   1,024 interaction set written beside the images (K3 in its dumps; the
    catalog is under the 16,384 items from which the evaluator takes K2).
 
 The line before the last is a JSON object of the kernels with their
@@ -309,8 +334,10 @@ ROUTE_DRIFT = 2 * TRAIN_LR * ROUTE_STEPS
 # leave-one-out split: 20 train + 1 validation + 1 test item per user)
 EVAL_U, EVAL_I, EVAL_TRAIN, EVAL_K = 1_000_000, 500_000, 20, 20
 EVAL_BLOCK, EVAL_TILE, EVAL_CHECK_BLOCKS = 4096, 2048, 2
-# the CLI phase: a reference-layout dataset written by this script
-CLI_U = CLI_I = 20_000
+# the CLI phase: a reference-layout dataset written by this script (20k
+# users until the bf16 phase came, 4,096 since; the items stay at 20k,
+# above the 16,384 from which FactoredEvaluator sends a catalog to K2)
+CLI_U, CLI_I = 4_096, 20_000
 CLI_PER_USER, CLI_K, CLI_SERVE_USERS = 20, 20, 64
 CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 # the edge-tower kernel K7: the JAX test geometries, two groups of
@@ -352,9 +379,10 @@ AF_ROUTE_DRIFT = 2 * AF_LR * AF_ROUTE_STEPS
 # phase's with color histograms, class one-hots and 32x32 edge tiffs, of
 # AF_CLI_N users x AF_CLI_N items (the CLI phase's 20k x 20k until the
 # vision phase came: ~135 s of host work, mostly the dense evaluation and
-# the attention dumps, cut to ~1/6 of the user-item pairs)
+# the attention dumps, cut to ~1/6 of the user-item pairs; 8192 x 8192
+# until the bf16 phase came, ~41 s, cut to 1/16 of the pairs)
 AF_CLI_CLASSES, AF_CLI_BATCH_EVAL, AF_SERVE_BUCKETS = 10, 128, (8, 64, 1024)
-AF_CLI_N = 8192
+AF_CLI_N = 2048
 # the native host data plane: a split TSV and a recommendation dump at the
 # scaled configuration's sizes (rows; users x k); the Python writer, at
 # ~60 s for the full dump on the card's host, writes its first 100k users
@@ -368,7 +396,7 @@ NATIVE_DIR = ROOT / "build" / "chip_smoke_native"
 # prefetcher's depth and the evaluation's encoding block (--batch_eval)
 SAF_U, SAF_I, SAF_POS, SAF_HW, SAF_B = 1_000_000, 32_768, 20, 224, 256
 SAF_ROUTE_STEPS, SAF_STEPS, SAF_PROFILE_STEPS = 3, 50, 5
-SAF_DEPTH, SAF_BATCH_EVAL, SAF_CLI_N = 2, 128, 2048
+SAF_DEPTH, SAF_BATCH_EVAL, SAF_CLI_N = 2, 128, 1024  # the CLI's 2048 cut (bf16 phase)
 SAF_DIR = ROOT / "build" / "chip_smoke_streamed"
 # the row kernels K4 and K5: the packed rows' widths (fp32 / bf16 / fp8
 # moments at K=128, users then items; 512 a 128-aligned row) at the packed
@@ -376,14 +404,16 @@ SAF_DIR = ROOT / "build" / "chip_smoke_streamed"
 # shapes (rows, width, batch)
 ROW_WIDTHS, ROW_TABLE, ROW_BATCHES = (385, 388, 257, 259, 193, 195, 512), 1_000_000, (8192, 16384)
 GATHER_SHAPE, SCATTER_SHAPE = (1_000_000, 128, 24576), (1_000_000, 384, 24576)
-# K4 timed at every width the packed paths gather, at the packed step's
-# item batch: BPRMF rows (fp32 / bf16 / fp8 moments) and VBPR's and
-# GradFashion's user rows (445 fp32, 297 bf16) over 1M-row tables, their
-# item rows (4355 / 4867 bf16, 4484 / 4996 fp32) over the 500k-row catalog
-# (phase 16); the narrow ones also warm (their rows left in the L2 by the
-# call before, as the packed step's dedupe gather finds them)
+# K4 timed at the widths the packed paths gather, at the packed step's
+# item batch: BPRMF rows with fp32 moments (users, items) and VBPR's and
+# GradFashion's user rows (445 fp32) over 1M-row tables, their item rows
+# (4355 / 4867 bf16, 4484 / 4996 fp32) over the 500k-row catalog (phase
+# 16); the narrow ones also warm (their rows left in the L2 by the call
+# before, as the packed step's dedupe gather finds them).  The narrow
+# widths of bf16 and fp8 moments (257, 259, 193, 195; VBPR's 297) were cut
+# from this grid and from K5's (acf_row_phase) when the bf16 phase came
 GATHER_B = 16_384
-GATHER_NARROW = (385, 388, 257, 259, 193, 195, 445, 297)
+GATHER_NARROW = (385, 388, 445)
 # calls a row-kernel timing averages (K4, K5 and their library calls; the
 # plain versions half of it): 20 before the multi-device phase came, cut
 # for its time
@@ -451,15 +481,17 @@ ACF_U, ACF_I, ACF_P, ACF_S, ACF_C = 1_000_000, 200_000, 20, 49, 512
 ACF_B, ACF_STEPS, ACF_FUSED_B, ACF_FUSED_STEPS = 8192, 25, 2048, 10
 ACF_GENERIC_STEPS, ACF_PROFILE_STEPS, ACF_CHUNK, ACF_CHUNK_USERS = 10, 10, 8, 4096
 ACF_ROUTE_N, ACF_ROUTE_B, ACF_ROUTE_STEPS = 4096, 256, 3
-ACF_CLI_N, ACF_CLI_B = 2048, 1024
+ACF_CLI_N, ACF_CLI_B = 1024, 1024  # the CLI's 2048 cut when the bf16 phase came
 # the chunked profile against the one-shot one (tests/test_acf.py:105)
 ACF_CHUNK_TOL = 2e-6
 # K4 and K5 timed at ACF's item rows over the 200k catalog: at the B*P =
 # 163,840 extra rows of a batch-8192 step and at the packed item batch
 ACF_ROW_B = (ACF_B * ACF_P, GATHER_B)
 # the fused widths (the maps in the item rows) at GATHER_B rows only (cut
-# for the multi-device phase's time)
+# for the multi-device phase's time), fp32 moments' 25,857 only (bf16's
+# 25,601 and fp8's 25,473 cut when the bf16 phase came)
 ACF_FUSED_ROW_B = (GATHER_B,)
+ACF_ROW_WIDTHS = (769, 513, 25857)
 ACF_DEV = "cuda"
 # CompVBPR at the JAX CLI's default widths (fashionvisualexpl_tpu/cli/
 # train_rec.py:57-74: K=128, d=20, every family on at weight 0.25): semantic
@@ -471,10 +503,11 @@ ACF_DEV = "cuda"
 # (10 packed and 5 generic steps, 5-step profiles).  Route checks on a
 # 4096 x 4096 catalog at batch 256, 2 steps each (the CPU route runs the
 # CNN on 512 images a step).  The CNN also at the reference's 224x224 (B =
-# 256), and the CLI at its default --edge_hw 224 224, generic on 1024 users
+# 256), and the CLI at its default --edge_hw 224 224, generic on 512 users
 # x 16,384 items (the smallest catalog FactoredEvaluator sends to K2 by
-# default), packed and serve_rec on 1024 x 1024, at batch 1024 (the
-# default 256 would take four times the steps)
+# default), packed and serve_rec on 512 x 512 (1024 users until the bf16
+# phase came), at batch 1024 (the default 256 would take four times the
+# steps)
 COMP_U, COMP_I, COMP_P, COMP_B, COMP_HW = 1_000_000, 200_000, 20, 8192, 32
 COMP_EMBED_D, COMP_DIM_S, COMP_DIM_C, COMP_DIM_T = 20, 4096, 512, 1024
 COMP_D = EMBED_K + 4 * COMP_EMBED_D
@@ -483,10 +516,11 @@ COMP_D = EMBED_K + 4 * COMP_EMBED_D
 # ms a step)
 COMP_STEPS, COMP_GENERIC_STEPS, COMP_PROFILE_STEPS = 10, 5, 5
 COMP_ROUTE_N, COMP_ROUTE_B, COMP_ROUTE_STEPS = 4096, 256, 2
-COMP_CNN_B, COMP_CLI_U, COMP_CLI_I, COMP_CLI_B = 256, 1024, 16_384, 1024
-# the packed user rows (Gu and the four Tu*, 208 floats): fp32 / bf16 / fp8
-# moments, then at row_align 128
-COMP_USER_WIDTHS = (625, 417, 313, 640, 512, 384)
+COMP_CNN_B, COMP_CLI_U, COMP_CLI_I, COMP_CLI_B = 256, 512, 16_384, 1024
+# the packed user rows (Gu and the four Tu*, 208 floats) with fp32 moments,
+# then at row_align 128 (bf16 / fp8 moments' 417 / 313, 512 / 384 cut when
+# the bf16 phase came)
+COMP_USER_WIDTHS = (625, 640)
 # the CNN's f32 forward on the card against float64, relative to its
 # largest output: f32 rounding accumulates to ~1e-6, TF32 to ~1e-3
 COMP_F64_RTOL = 1e-4
@@ -507,7 +541,7 @@ VISION_HW, VISION_BATCHES, VISION_CHECK, VISION_RTOL = 224, (64, 256), 2, 1e-4
 # and sklearn are not known to be on the card's machine); and train_rec
 # --rec vbpr for one epoch on those features over a VISION_IMAGES x
 # VISION_IMAGES interaction set written beside the images
-VISION_IMAGES, VISION_IMG_HW, VISION_CLI_B = 2048, 256, 64
+VISION_IMAGES, VISION_IMG_HW, VISION_CLI_B = 1024, 256, 64  # 2048 until the bf16 phase
 VISION_DIR = ROOT / "build" / "chip_smoke_vision"
 
 
@@ -1778,7 +1812,7 @@ def tower_fwd_issued(E, B, H, W, C):
     return 2.0 * 64 * -(-C // 64) * 64 * 16 * FWD_K16_STEPS * n_tiles
 
 
-def tower_bounds(torch, E, x, w, b):
+def tower_bounds(torch, E, x, w, b, bf16=False):
     """K7's forward and backward bounds on this run's inputs: images x
     [B, H, W, 1], filters w [5, 5, 1, C], bias b [C].  The conv: one FMA (2
     operations) for each tap inside the image at every conv output,
@@ -1794,8 +1828,12 @@ def tower_bounds(torch, E, x, w, b):
     backward: one FMA per dW tap, one add per db), the convention before.
     The winners are found by the kernel's tie rule on the plain conv's
     values.  Bytes: the images, weights and bias read once, [B, C] written
-    (forward) or read (backward), dW and db written.  Returns (fwd, bwd,
-    fwd at f32, bwd at f32)."""
+    (forward) or read (backward), dW and db written.  With ``bf16`` (the
+    bf16 kernels; x and w hold the bf16 values, as f32) the images are 2
+    bytes a pixel and every operation is on bf16 operands: the conv and one
+    product per tap sum (dW) and per live window (db), each at the bf16
+    rate, the backward's bound the conv's and the tap sums' operations
+    together.  Returns (fwd, bwd, fwd at f32, bwd at f32)."""
     from fashionvisualexpl_tpu_torch.core.precision import fp32_math
 
     B, H, W, _ = x.shape
@@ -1819,13 +1857,17 @@ def tower_bounds(torch, E, x, w, b):
     n_live = int(live.sum())
     del top, live, col_even, taps
     params = 4 * 26 * C
-    fwd_bytes = 4 * B * H * W + params + 4 * B * C
+    pixel = 2 if bf16 else 4
+    fwd_bytes = pixel * B * H * W + params + 4 * B * C
     fwd = bound_ms(fwd_bytes, conv, PEAK_BF16_FLOPS)
     fwd_f32 = bound_ms(fwd_bytes, conv, PEAK_F32_FLOPS)
-    bwd_bytes = 4 * B * H * W + params + 4 * B * C + params
-    tc = bound_ms(bwd_bytes, 3 * 2.0 * (dw_fmas + n_live), PEAK_BF16_FLOPS)
-    cuda_cores = bound_ms(bwd_bytes, conv, PEAK_F32_FLOPS)
-    bwd = max(tc, cuda_cores)
+    bwd_bytes = pixel * B * H * W + params + 4 * B * C + params
+    if bf16:
+        bwd = bound_ms(bwd_bytes, conv + 2.0 * (dw_fmas + n_live), PEAK_BF16_FLOPS)
+    else:
+        tc = bound_ms(bwd_bytes, 3 * 2.0 * (dw_fmas + n_live), PEAK_BF16_FLOPS)
+        cuda_cores = bound_ms(bwd_bytes, conv, PEAK_F32_FLOPS)
+        bwd = max(tc, cuda_cores)
     bwd_f32 = bound_ms(bwd_bytes, conv + 2.0 * dw_fmas + n_live, PEAK_F32_FLOPS)
     return fwd, bwd, fwd_f32, bwd_f32
 
@@ -1848,7 +1890,7 @@ def tower_winners(torch, z, b):
     return m
 
 
-def tower_f64_witness(torch, E, seed):
+def tower_f64_witness(torch, E, seed, bf16=False):
     """Edge maps at TOWER_WITNESS: which pool windows' winners the kernel's
     f32 chain and cuDNN's f32 conv decide unlike a float64 conv, and each
     gradient's excess over the check's tolerance against the gradient of the
@@ -1856,7 +1898,11 @@ def tower_f64_witness(torch, E, seed):
     its conv2x2 chain replayed here: fmaf(w, x, z) over the taps in its
     order, each product exact in float64 and the sum rounded to f32.  Prints
     the readings; fails if a gradient is not finite or if the kernel's
-    leaves the tolerance against the gradient of its replayed decisions."""
+    leaves the tolerance against the gradient of its replayed decisions.
+    With ``bf16`` the bf16 kernels on the maps' bf16 values (k/255 rounded)
+    and the weights rounded to bf16, against the bf16 plain version; the
+    dW sums take g = dout * (1/n) rounded to bf16, db the f32 g, as the
+    kernels do."""
     from fashionvisualexpl_tpu_torch.core.precision import fp32_math
 
     F = torch.nn.functional
@@ -1870,9 +1916,18 @@ def tower_f64_witness(torch, E, seed):
     w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
     b = torch.randn(C, device=dev, generator=g) * 0.1
     dout = torch.randn(B, C, device=dev, generator=g)
-    got = E.edge_tower_bwd(x, w, b, dout)
-    plain = E.edge_tower_gap_plain_backward(x, w, b, dout)
-    wt = w.reshape(25, C)
+    if bf16:
+        xk = x.bfloat16()
+        got = E.edge_tower_bwd(xk, w, b, dout)
+        plain = E.edge_tower_gap_bf16_plain_backward(xk, w, b, dout)
+        x, wt = xk.float(), w.bfloat16().float().reshape(25, C)
+        g32 = dout * (torch.ones((), device=dev) / ((H // 2) * (W // 2)))
+        g_w, g_b = g32.bfloat16().double(), g32.double()
+    else:
+        got = E.edge_tower_bwd(x, w, b, dout)
+        plain = E.edge_tower_gap_plain_backward(x, w, b, dout)
+        wt = w.reshape(25, C)
+        g_w = g_b = dout.double() / ((H // 2) * (W // 2))
     flips = {"kernel/f64": 0, "cudnn/f64": 0, "kernel/cudnn": 0}
     sums = {key: torch.zeros(26, C, dtype=torch.float64, device=dev)
             for key in ("f64", "f64_abs", "kernel_replay")}
@@ -1882,7 +1937,7 @@ def tower_f64_witness(torch, E, seed):
         cols = F.unfold(xs.double(), 5, padding=2)  # [n, 25, H*W], exact
         z64 = torch.einsum("jc,njp->ncp", wt.double(), cols).reshape(n, C, H, W)
         with fp32_math():
-            z_cudnn = F.conv2d(xs, w.permute(3, 2, 0, 1), padding=2)
+            z_cudnn = F.conv2d(xs, wt.reshape(5, 5, 1, C).permute(3, 2, 0, 1), padding=2)
         xp = F.pad(xs, (2, 2, 2, 2))
         z_k = torch.zeros(n, C, H, W, device=dev)
         for j in range(25):
@@ -1898,11 +1953,13 @@ def tower_f64_witness(torch, E, seed):
             u, v = pair.split("/")
             flips[pair] += int((windows[u] != windows[v]).any(dim=(3, 5)).sum())
         cols = torch.cat([cols, torch.ones_like(cols[:, :1])], dim=1).transpose(1, 2)
-        gs = dout[lo:lo + n].double() / ((H // 2) * (W // 2))
-        for key, m, gg in (("f64", masks["f64"], gs), ("f64_abs", masks["f64"], gs.abs()),
-                           ("kernel_replay", masks["kernel"], gs)):
+        gw, gb = g_w[lo:lo + n], g_b[lo:lo + n]
+        for key, m, ww, bb in (("f64", masks["f64"], gw, gb),
+                               ("f64_abs", masks["f64"], gw.abs(), gb.abs()),
+                               ("kernel_replay", masks["kernel"], gw, gb)):
             taps = torch.bmm(m.reshape(n, C, H * W).double(), cols)  # [n, C, 26]
-            sums[key] += torch.einsum("nc,ncj->jc", gg, taps)
+            sums[key][:25] += torch.einsum("nc,ncj->jc", ww, taps[:, :, :25])
+            sums[key][25] += torch.einsum("nc,nc->c", bb, taps[:, :, 25])
         del masks, windows, cols, taps
     ref, s = sums["f64"], sums["f64_abs"]
     tol = TOWER_GRAD_RTOL * ref.abs() + TOWER_GRAD_ATOL + TOWER_SUM_ATOL * s
@@ -1916,7 +1973,8 @@ def tower_f64_witness(torch, E, seed):
     readings = {name: float(((v - r).abs() - tol).max()) for name, v, r in (
         ("kernel-f64", kernel, ref), ("cudnn-f64", cudnn, ref), ("kernel-cudnn", kernel, cudnn),
         ("kernel-replay", kernel, sums["kernel_replay"]))}
-    print(f"tower witness B={B} H={H} W={W} C={C} edge maps seed {seed}: windows whose "
+    print(f"tower witness B={B} H={H} W={W} C={C} edge maps{' bf16' if bf16 else ''} seed "
+          f"{seed}: windows whose "
           f"winner differs {flips} of {B * C * (H // 2) * (W // 2)}; max excess of "
           f"|a - b| over the check's tolerance (<= 0 passes) {readings}; "
           f"{time.perf_counter() - t0!r} s")
@@ -2069,7 +2127,7 @@ def route_check(torch, label, kern, plain, steps, drift):
     return err_max, amplified
 
 
-def af_model(torch, np, edge_tower, seed):
+def af_model(torch, np, edge_tower, seed, compute_dtype="float32"):
     """AttentiveFashion at the scaled configuration on the card, random
     weights from ``seed``; its inputs from numpy seeds 1, 2, 3."""
     from fashionvisualexpl_tpu_torch.data.features import synthetic_features
@@ -2080,7 +2138,7 @@ def af_model(torch, np, edge_tower, seed):
         AF_U, AF_I, synthetic_features(AF_I, 512, seed=1), edges,
         synthetic_features(AF_I, 100, seed=3), embed_k=EMBED_K, attention_layers=(64, 1),
         encoder_hidden=256, dropout_rate=0.5, conv_filters=64, edge_tower=edge_tower,
-        generator=torch.Generator(device="cuda").manual_seed(seed))
+        compute_dtype=compute_dtype, generator=torch.Generator(device="cuda").manual_seed(seed))
 
 
 def af_train_phase(torch, np, E):
@@ -2646,14 +2704,13 @@ def streamed_phase(torch, np, E):
     print(f"streamed host gather of one batch ({summary['gather']['bytes']} B, page cache "
           f"warm): {summary['gather']}")
     del strainer, host, sstate, store, edges, triples, tabs
-    torch.cuda.empty_cache()
-    shutil.rmtree(SAF_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()  # the stack stays for the bf16 phase, which removes it
     return launches, summary
 
 
 def streamed_cli_phase(torch, np, E):
     """train_rec --rec attentive_fashion --streamed --edge_hw 224 224 on a
-    2048 x 2048 dataset with 224x224 edge tiffs, --resume to a third epoch,
+    1024 x 1024 dataset with 224x224 edge tiffs, --resume to a third epoch,
     then serve_rec --streamed, in process."""
     import glob
     import pickle
@@ -2731,7 +2788,7 @@ def streamed_cli_phase(torch, np, E):
     print(f"streamed cli: dataset write {write_s!r} s, train_rec (stack build included) "
           f"{train_s!r} s, --resume {resume_s!r} s, serve_rec {serve_s!r} s; K7 launches "
           f"{launches}; rows {rows}; served {n_served}; metrics at epoch 3 {per_epoch[3]}")
-    shutil.rmtree(SAF_DIR, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
     return launches, dict(write_s=write_s, train_s=train_s, resume_s=resume_s,
                           serve_s=serve_s, stack_bytes=stack.nbytes, metrics=per_epoch[3])
 
@@ -4251,7 +4308,7 @@ def write_acf_maps(np, d: Path, num_items: int):
 
 def acf_cli_phase(torch, np, counts, segmax, G, S):
     """``train_rec --rec acf`` (generic, then ``--train_path packed`` with the
-    maps fused) and ``serve_rec`` on a 2048 x 2048 dataset with per-item
+    maps fused) and ``serve_rec`` on a 1024 x 1024 dataset with per-item
     7x7x512 .npy maps written here: the file set, row counts and metrics."""
     import glob
     import shutil
@@ -4362,11 +4419,10 @@ def scatter_timed(torch, S, label, table, sids64, vals, flush):
 
 def acf_row_phase(torch, G, S):
     """K4 and K5 at ACF's item rows over the 200k catalog (769 / 513 floats
-    at 163,840 and 16,384 rows, 25,857 / 25,601 / 25,473 with the maps fused
-    at 16,384), K4 on the route its plan names; K5 also at every narrow width the
-    packed paths scatter (385 ... 297) at 16,384 unique rows of 1M-row
-    tables.  Each bit-equal, timed with the L2 flushed beside the library
-    call and its bound."""
+    at 163,840 and 16,384 rows, 25,857 with the maps fused at 16,384), K4
+    on the route its plan names; K5 also at the narrow widths GATHER_NARROW
+    at 16,384 unique rows of 1M-row tables.  Each bit-equal, timed with the
+    L2 flushed beside the library call and its bound."""
     dev = torch.device(ACF_DEV)
     g = torch.Generator(device=dev).manual_seed(34)
     t0 = time.perf_counter()
@@ -4375,7 +4431,7 @@ def acf_row_phase(torch, G, S):
     # their bound
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     out = {"gather_rows": {}, "scatter_rows_set": {}}
-    for W in (769, 513, 25857, 25601, 25473):
+    for W in ACF_ROW_WIDTHS:
         table = torch.randn(ACF_I, W, device=dev, generator=g)
         for B in (ACF_ROW_B if W < 1024 else ACF_FUSED_ROW_B):
             ids = torch.randint(0, ACF_I, (B,), device=dev, generator=g, dtype=torch.int32)
@@ -4440,23 +4496,25 @@ def acf_phase(torch, np, counts, segmax, G, S):
     return cli_launches, summary, rows
 
 
-def comp_features(torch, n_items, g):
+def comp_features(torch, n_items, g, hw=COMP_HW):
     """CompVBPR's frozen inputs made on the card from ``g``: semantic (vgg19
     fc2, 4096), color (8x8x8 histograms, 512) and texture (one layer of the
     32x32 gram grid, 1024) maxabs-normalized non-negative features on the
-    1/64 grid, and edge images [I, 32, 32, 1] in [0, 1]."""
+    1/64 grid, and edge images [I, hw, hw, 1] in [0, 1]."""
     dev = g.device
     feats = [torch.rand(n_items, dim, device=dev, generator=g).mul_(64).round_().div_(64)
              for dim in (COMP_DIM_S, COMP_DIM_C, COMP_DIM_T)]
-    edges = torch.rand(n_items, COMP_HW, COMP_HW, 1, device=dev, generator=g)
+    edges = torch.rand(n_items, hw, hw, 1, device=dev, generator=g)
     return feats[0], feats[1], edges, feats[2]
 
 
-def comp_model(torch, CompVBPR, n_users, n_items, feats, device, seed):
+def comp_model(torch, CompVBPR, n_users, n_items, feats, device, seed,
+               compute_dtype="float32"):
     """CompVBPR at the JAX CLI's widths (K=128, d=20, every family at
     weight 0.25) over ``feats``, random weights from ``seed``."""
     return CompVBPR(n_users, n_items, *feats, embed_k=EMBED_K, embed_d=COMP_EMBED_D,
-                    device=device, generator=torch.Generator(device=device).manual_seed(seed))
+                    compute_dtype=compute_dtype, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
 
 
 def comp_masks(torch, B, g):
@@ -4994,10 +5052,10 @@ def write_comp_features(np, d: Path, n: int):
 
 def comp_cli_phase(torch, np, counts, segmax, G, S):
     """``train_rec --rec comp_vbpr`` at its default ``--edge_hw 224 224``:
-    generic with ``--streaming_eval`` on 1024 users x 16,384 items (the
+    generic with ``--streaming_eval`` on 512 users x 16,384 items (the
     smallest catalog the streaming evaluator sends to K2 by default; K3 in
     its dumps), then ``--train_path packed`` with the dense evaluator (K4,
-    K5) and ``serve_rec`` from its checkpoint (K3) on 1024 x 1024; both
+    K5) and ``serve_rec`` from its checkpoint (K3) on 512 x 512; both
     datasets written here.  The file sets, row counts, metrics and each
     run's launches.  Each run reads its catalog's tiffs anew (16,384: ~25 s
     on the card's host), so only the generic run takes the large one."""
@@ -5095,6 +5153,580 @@ def comp_vbpr_phase(torch, np, counts, segmax, topk, G, S):
     summary["s"] = time.perf_counter() - phase_t0
     print(f"comp_vbpr phase: {summary['s']!r} s")
     return cli_launches, summary
+
+
+# --- the bf16 towers (compute_dtype="bfloat16") ------------------------------
+
+# K7 on bf16 images against its bf16 plain version
+# (ops/edge_tower.py::edge_tower_gap_bf16_plain: the f32 tower over the
+# images' bf16 values and the weights rounded to bf16) at the tower phase's
+# geometries, ties and edge maps and at ragged tiles of odd counts, with the
+# f32 kernels' tolerances (TOWER_RTOL ...): every conv product of bf16
+# operands is exact in f32, so kernel and plain version differ only in the
+# order of f32 sums, as the f32 kernels do (and less: no dropped pieces);
+# the float64 witness on one seed of edge maps; timed at TOWER_TIMED beside
+# the f32 times of the tower phase.  Then AttentiveFashion's generic,
+# packed and streamed steps and CompVBPR's at their phases' shapes in bf16,
+# cut in depth to BF16_STEPS (CompVBPR: BF16_COMP_STEPS) timed steps and a
+# profile of BF16_PROFILE_STEPS each, and the CLI for both models with
+# --compute_dtype bfloat16 on BF16_CLI_N x BF16_CLI_N datasets, one epoch
+# (AttentiveFashion's tiffs at 32x32, CompVBPR's at its default
+# --edge_hw 224 224)
+BF16_ODD = ((5, 34, 36, 130), (3, 18, 200, 100))
+BF16_STEPS, BF16_COMP_STEPS, BF16_PROFILE_STEPS = 10, 3, 3
+BF16_CLI_N = 2048
+# CompVBPR at the reference's 224x224 in bf16: the CNN alone at
+# COMP_CNN_B images against the f32 CNN on the same weights, within JAX's
+# 5e-2 of the largest output (tests/test_precision.py's bf16 CNN check),
+# timed beside the bf16 operations bound; then the generic step at batch
+# BF16_224_B (2 x 1024 images through the CNN) over 1M users x BF16_224_I
+# items, in bf16 and in f32 on the same model (the catalog cut from 200k:
+# a 224x224 edge image is 200 KB in f32, 40 GB for 200k items)
+BF16_CNN_TOL, BF16_224_B, BF16_224_I, BF16_224_STEPS = 5e-2, 1024, 32_768, 3
+
+
+def ptxas_rows(kernel_prefix: str):
+    """The ptxas rows of edge_tower.cu's kernels whose names start with
+    ``kernel_prefix``, by name."""
+    from fashionvisualexpl_tpu_torch.ops import cuda_build
+
+    return {r["kernel"]: r for r in cuda_build.ptxas_report(cuda_build.build_logs["edge_tower"])
+            if r["kernel"].startswith(kernel_prefix)}
+
+
+def tower_bf16_phase(torch, E, f32_rows):
+    """K7's bf16 kernels against their plain version, two backward runs
+    bit-equal, the witness, the bf16 backward's registers against the f32
+    one's, then timed beside cuDNN's bf16 conv and the bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(52)
+    errs = {"edge_tower_fwd": 0.0, "edge_tower_bwd": 0.0}
+    regs = ptxas_rows("edge_")
+    f32_bwd, bf16_bwd = regs["edge_bwd_kernel<float>"], regs["edge_bwd_kernel<__nv_bfloat16>"]
+    print(f"edge_tower bf16 ptxas: {regs['edge_fwd_kernel<__nv_bfloat16>']}, {bf16_bwd} "
+          f"(f32: {regs['edge_fwd_kernel<float>']}, {f32_bwd})")
+    if bf16_bwd["spill_stores"] > f32_bwd["spill_stores"] \
+            or bf16_bwd["spill_loads"] > f32_bwd["spill_loads"]:
+        fail(f"the bf16 backward spills more than the f32 one: {bf16_bwd} vs {f32_bwd}")
+
+    def inputs(B, H, W, C, value=None, edges=False):
+        if value is not None:
+            x = torch.full((B, H, W, 1), value, device=dev)
+        elif edges:
+            k = torch.randint(1, 256, (B, H, W, 1), device=dev, generator=g)
+            keep = torch.rand(B, H, W, 1, device=dev, generator=g) < 0.15
+            x = torch.where(keep, k, 0).float() / 255
+        else:
+            x = torch.rand(B, H, W, 1, device=dev, generator=g)
+        w = torch.randn(5, 5, 1, C, device=dev, generator=g) * 0.1
+        b = torch.randn(C, device=dev, generator=g) * 0.1
+        return x.bfloat16(), w, b, torch.randn(B, C, device=dev, generator=g)
+
+    def check(label, x, w, b, dout):
+        out, out2 = E.edge_tower_fwd(x, w, b), E.edge_tower_fwd(x, w, b)
+        dw, db = E.edge_tower_bwd(x, w, b, dout)
+        dw2, db2 = E.edge_tower_bwd(x, w, b, dout)
+        torch.cuda.synchronize()
+        e_f = worst(torch, f"edge_tower_fwd bf16 {label}", out,
+                    E.edge_tower_gap_bf16_plain(x, w, b), TOWER_RTOL, TOWER_ATOL)
+        want = E.edge_tower_gap_bf16_plain_backward(x, w, b, dout)
+        sums = E.edge_tower_gap_bf16_plain_backward(x, w, b, dout.abs())
+        e_b = 0.0
+        for name, got, ref, s in zip(("dconv_w", "dconv_b"), (dw, db), want, sums):
+            e_b = max(e_b, worst(torch, f"edge_tower_bwd bf16 {label} {name}", got, ref,
+                                 TOWER_GRAD_RTOL, TOWER_GRAD_ATOL + TOWER_SUM_ATOL * s))
+        if not (torch.equal(out, out2) and torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"edge_tower bf16 {label}: two runs differ")
+        print(f"kernel check edge_tower bf16 {label}: fwd max_abs_err={e_f!r} bwd "
+              f"max_abs_err={e_b!r} (max |dW| {float(want[0].abs().max())!r}); two forward "
+              f"and two backward runs bit-equal ok")
+        errs["edge_tower_fwd"] = max(errs["edge_tower_fwd"], e_f)
+        errs["edge_tower_bwd"] = max(errs["edge_tower_bwd"], e_b)
+
+    for B, H, W, C in TOWER_GEOMS + BF16_ODD:
+        check(f"B={B} H={H} W={W} C={C}", *inputs(B, H, W, C))
+        torch.cuda.empty_cache()
+    for B, H, W, C, v in TOWER_TIES:
+        check(f"B={B} H={H} W={W} C={C} constant {v}", *inputs(B, H, W, C, v))
+    for B, H, W, C in TOWER_EDGES:
+        check(f"B={B} H={H} W={W} C={C} edge maps k/255", *inputs(B, H, W, C, edges=True))
+    flips, readings = tower_f64_witness(torch, E, TOWER_WITNESS_SEEDS[0], bf16=True)
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(64 * 2**20 // 4, device=dev)
+    conv = torch.nn.functional.conv2d
+    rows = {}
+    for B, H, W, C in TOWER_TIMED:
+        x, w, b, dout = inputs(B, H, W, C)
+        xc, wc = x.permute(0, 3, 1, 2), w.bfloat16().permute(3, 2, 0, 1)
+        lib_ms, _, _ = kernel_times(torch, "conv2d bf16", lambda: conv(xc, wc, padding=2), 5,
+                                    flush)
+        bounds = tower_bounds(torch, E, x.float(), w.bfloat16().float(), b, bf16=True)
+        torch.cuda.empty_cache()
+        shape = f"B={B} H={H} W={W} C={C} bf16, cold L2"
+        for name, run, plain, (bnd, by) in (
+            ("edge_tower_fwd", lambda: E.edge_tower_fwd(x, w, b),
+             lambda: E.edge_tower_gap_bf16_plain(x, w, b), bounds[0]),
+            ("edge_tower_bwd", lambda: E.edge_tower_bwd(x, w, b, dout),
+             lambda: E.edge_tower_gap_bf16_plain_backward(x, w, b, dout), bounds[1]),
+        ):
+            ms, call_ms, _ = kernel_times(torch, f"{name} bf16", run, 10, flush, bnd)
+            plain_ms, _, _ = kernel_times(torch, f"{name} bf16 plain", plain, 5, flush)
+            check_bound(f"{name} {shape}", ms, bnd)
+            f32 = f32_rows[name] if (H, W) == (AF_HW, AF_HW) else f32_rows[name]["at_224"]
+            rows.setdefault(name, {})[(H, W)] = dict(
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms, shape=shape, f32_ms=f32["ms"])
+            print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
+                  f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}) library_ms(conv2d bf16, "
+                  f"conv only)={lib_ms!r}; the f32 kernel in this run {f32['ms']!r} ms")
+        del x, w, b, dout, xc, wc
+        torch.cuda.empty_cache()
+    out = {}
+    for name, by_shape in rows.items():
+        main, ref = by_shape[(AF_HW, AF_HW)], by_shape[(224, 224)]
+        reg = bf16_bwd if name == "edge_tower_bwd" else regs["edge_fwd_kernel<__nv_bfloat16>"]
+        out[name] = dict(max_abs_err=errs[name], **main, at_224=ref, ptxas=reg,
+                         library="torch.nn.functional.conv2d bf16 (conv only)")
+    out["edge_tower_bwd"].update(witness_flips=flips, witness_readings=readings)
+    return out
+
+
+def bf16_counts(E, G=None, S=None):
+    """The launch counts a bf16 path reads: K7's by dtype, and K4 and K5."""
+    out = {"edge_tower_fwd_bf16": E.edge_tower_fwd.launches_bf16,
+           "edge_tower_bwd_bf16": E.edge_tower_bwd.launches_bf16,
+           "edge_tower_fwd": E.edge_tower_fwd.launches,
+           "edge_tower_bwd": E.edge_tower_bwd.launches}
+    if G is not None:
+        out.update(gather_rows=G.gather_rows.launches, scatter_rows_set=S.scatter_rows_set.launches)
+    return out
+
+
+def zero_counts(E, G=None, S=None):
+    """Sets the counts ``bf16_counts`` reads to 0."""
+    E.edge_tower_fwd.launches = E.edge_tower_bwd.launches = 0
+    E.edge_tower_fwd.launches_bf16 = E.edge_tower_bwd.launches_bf16 = 0
+    if G is not None:
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0
+
+
+def timed_steps(torch, np, label, run, first, triples, n, start, counts, want, params):
+    """One untimed step over ``first``, then ``n`` timed steps: ms a step,
+    peak memory above ``start``, the launch counts (``counts``: a reset and
+    a read, the counts set to 0 just before and read just after) against
+    ``want``, every param f32."""
+    reset, read = counts
+    run(first)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()  # this path starts here
+    t0 = time.perf_counter()
+    loss = float(run(triples))
+    dt = time.perf_counter() - t0
+    launches = read()  # ... and ends here
+    if launches != want:
+        fail(f"{label}: launched {launches}, expected {want}")
+    if not np.isfinite(loss):
+        fail(f"{label}: loss {loss!r}")
+    bad = [k for k, p in params().items() if p.dtype != torch.float32]
+    if bad:
+        fail(f"{label}: params left f32: {bad}")
+    return dict(steps=n, ms_per_step=1e3 * dt / n, mean_loss=loss / n, launches=launches,
+                peak_gib=(torch.cuda.max_memory_allocated() - start) / 2**30)
+
+
+def bf16_train_phase(torch, np, E, G, S, f32):
+    """AttentiveFashion's generic, packed and streamed steps and CompVBPR's
+    packed and generic steps with compute_dtype="bfloat16" at their phases'
+    shapes: ms a step beside the f32 figure of the same run (AttentiveFashion's
+    steps also in f32 on the same model just before and after their bf16
+    steps), the idle share and K7's or the convs' share, peak memory, every
+    param f32.  The generic AttentiveFashion step is the bf16
+    kernels' main path."""
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.features import synthetic_features
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+    from fashionvisualexpl_tpu_torch.models.comp_vbpr import CompVBPR
+    from fashionvisualexpl_tpu_torch.train.streamed import (
+        STEP_SEED_BASE,
+        ArrayFeatureStore,
+        StreamedTrainer,
+    )
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer, fold_in
+
+    out = {}
+    n = BF16_STEPS
+    start = phase_start(torch)
+    pairs, items, counts = make_scaled_arrays(AF_U, AF_I, AF_POS, seed=0)
+    data = types.SimpleNamespace(
+        num_items=AF_I, num_train=len(pairs), train_pairs=pairs, padded_pos=items,
+        pos_counts=counts, steps_per_epoch=lambda b: len(pairs) // b)
+    model = af_model(torch, np, "auto", seed=4, compute_dtype="bfloat16")
+    if model.tower_route != "kernel":
+        fail(f"bf16 AttentiveFashion on the card took {model.tower_route}")
+    for path, f32_row in (("generic", f32["af_train"]), ("packed", f32["af_packed"])):
+        label = f"af bf16 {path}"
+        trainer = Trainer(model, data, TrainConfig(batch_size=AF_B, lr=AF_LR, reg=AF_REG,
+                                                   train_path=path))
+        tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+        state, frozen = trainer.init_state()
+        triples = sample_triplets(2, *tabs, AF_I, n + 1, AF_B)
+        packed = path == "packed"
+        rows = (G, S) if packed else (None, None)
+
+        def run(tr, key=[200]):
+            nonlocal state
+            key[0] += 1
+            state, loss = trainer.run_steps(state, frozen, tr, step_key=key[0])
+            return loss
+
+        def timed(dtype):
+            model.compute_dtype = dtype
+            k7 = 2 * n if dtype == torch.bfloat16 else 0
+            want = {"edge_tower_fwd_bf16": k7, "edge_tower_bwd_bf16": k7,
+                    "edge_tower_fwd": 2 * n - k7, "edge_tower_bwd": 2 * n - k7}
+            if packed:
+                want.update(gather_rows=4 * n, scatter_rows_set=2 * n)
+            return timed_steps(torch, np, f"{label} {dtype}", run, tuple(t[:1] for t in triples),
+                               tuple(t[1:] for t in triples), n, start,
+                               (lambda: zero_counts(E, *rows), lambda: bf16_counts(E, *rows)),
+                               want, lambda: state.params)
+
+        # the step also in f32 on the same model, before and after: the
+        # host's state at this point of the run is the same for both
+        before = timed(torch.float32)["ms_per_step"]
+        row = timed(torch.bfloat16)
+        row["f32_same_model_ms_per_step"] = [before, timed(torch.float32)["ms_per_step"]]
+        model.compute_dtype = torch.bfloat16
+        row["profile"] = step_profile(torch, label, run, sample_triplets(
+            3, *tabs, AF_I, BF16_PROFILE_STEPS, AF_B), BF16_PROFILE_STEPS)
+        row["f32_ms_per_step"] = f32_row["ms_per_step"]
+        print(f"{label}: {row['ms_per_step']!r} ms a step (f32 in this run "
+              f"{f32_row['ms_per_step']!r}; on this model here "
+              f"{row['f32_same_model_ms_per_step']}), idle "
+              f"{row['profile']['idle_share']!r}, K7 "
+              f"{row['profile']['k7_share']!r} of the device time, peak {row['peak_gib']!r} "
+              f"GiB, launches {row['launches']}")
+        out[f"af_{path}"] = row
+        del trainer, state, frozen, triples, tabs
+        torch.cuda.empty_cache()
+    del model
+    phase_start(torch)
+
+    # the streamed step from the streamed phase's stack (written again if gone)
+    stack = SAF_DIR / "edges_stack.npy"
+    if not stack.exists():
+        SAF_DIR.mkdir(parents=True, exist_ok=True)
+        write_edge_stack(np, stack, SAF_I, SAF_HW, seed=2)
+    edges = np.load(str(stack), mmap_mode="r")
+    store = ArrayFeatureStore(synthetic_features(SAF_I, 512, seed=1), edges,
+                              synthetic_features(SAF_I, 100, seed=3))
+    pairs, items, counts = make_scaled_arrays(SAF_U, SAF_I, SAF_POS, seed=0)
+    data = types.SimpleNamespace(
+        num_items=SAF_I, num_train=len(pairs), train_pairs=pairs, padded_pos=items,
+        pos_counts=counts, steps_per_epoch=lambda b: len(pairs) // b)
+    host = AttentiveFashion(
+        SAF_U, SAF_I, store.color, edges, store.cls, embed_k=EMBED_K, attention_layers=(64, 1),
+        encoder_hidden=256, dropout_rate=0.5, conv_filters=64, batch_eval=SAF_BATCH_EVAL,
+        host_features=True, compute_dtype="bfloat16",
+        generator=torch.Generator(device="cuda").manual_seed(4))
+    strainer = StreamedTrainer(host, data, TrainConfig(batch_size=SAF_B, lr=AF_LR, reg=AF_REG),
+                               store, prefetch_depth=SAF_DEPTH)
+    sstate, _ = strainer.init_state()
+    tabs = (strainer._train_pairs, strainer._padded_pos, strainer._pos_counts)
+    triples = sample_triplets(2, *tabs, SAF_I, n + 1, SAF_B)
+
+    def srun(tr):
+        nonlocal sstate
+        steps = tr[0].shape[0]
+        rngs = [torch.Generator(device="cuda").manual_seed(fold_in(2, STEP_SEED_BASE + s))
+                for s in range(steps)]
+        sstate, loss = strainer.run_streamed_steps(sstate, tr, store, rngs)
+        return loss
+
+    def stimed(dtype):
+        host.compute_dtype = dtype
+        k7 = 2 * n if dtype == torch.bfloat16 else 0
+        want = {"edge_tower_fwd_bf16": k7, "edge_tower_bwd_bf16": k7,
+                "edge_tower_fwd": 2 * n - k7, "edge_tower_bwd": 2 * n - k7}
+        return timed_steps(torch, np, f"streamed {dtype}", srun, tuple(t[:1] for t in triples),
+                           tuple(t[1:] for t in triples), n, start,
+                           (lambda: zero_counts(E), lambda: bf16_counts(E)), want,
+                           lambda: sstate.params)
+
+    before = stimed(torch.float32)["ms_per_step"]  # f32 on the same model, as above
+    row = stimed(torch.bfloat16)
+    row["f32_same_model_ms_per_step"] = [before, stimed(torch.float32)["ms_per_step"]]
+    host.compute_dtype = torch.bfloat16
+    row["profile"] = step_profile(torch, "streamed bf16", srun, sample_triplets(
+        3, *tabs, SAF_I, BF16_PROFILE_STEPS, SAF_B), BF16_PROFILE_STEPS)
+    row["f32_ms_per_step"] = f32["streamed"]["ms_per_step"]
+    print(f"streamed bf16: {row['ms_per_step']!r} ms a step (f32 in this run "
+          f"{row['f32_ms_per_step']!r}; on this model here "
+          f"{row['f32_same_model_ms_per_step']}), idle {row['profile']['idle_share']!r}, K7 "
+          f"{row['profile']['k7_share']!r}, peak {row['peak_gib']!r} GiB, launches "
+          f"{row['launches']}")
+    out["streamed"] = row
+    del strainer, host, sstate, store, edges, triples, tabs
+    torch.cuda.empty_cache()
+    shutil.rmtree(SAF_DIR, ignore_errors=True)
+    phase_start(torch)
+
+    # CompVBPR at the comp_vbpr phase's training shape
+    feats = comp_features(torch, COMP_I, torch.Generator(device="cuda").manual_seed(47))
+    pairs, items, cnt = make_scaled_arrays(COMP_U, COMP_I, COMP_P, seed=0)
+    data = types.SimpleNamespace(num_items=COMP_I, num_train=len(pairs), train_pairs=pairs,
+                                 padded_pos=items, pos_counts=cnt,
+                                 steps_per_epoch=lambda b: len(pairs) // b)
+    model = comp_model(torch, CompVBPR, COMP_U, COMP_I, feats, "cuda", 42,
+                       compute_dtype="bfloat16")
+    m = BF16_COMP_STEPS
+    for path, key in (("packed", 150), ("generic", 160)):
+        label = f"comp_vbpr bf16 {path}"
+        trainer = Trainer(model, data, TrainConfig(batch_size=COMP_B, lr=TRAIN_LR,
+                                                   reg=TRAIN_REG, train_path=path))
+        tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+        state, frozen = trainer.init_state()
+        triples = sample_triplets(key, *tabs, COMP_I, m + 1, COMP_B, device="cuda")
+
+        def run(tr, k=[key]):
+            nonlocal state
+            k[0] += 1
+            state, loss = trainer.run_steps(state, frozen, tr, step_key=k[0])
+            return loss
+
+        packed = path == "packed"
+        want = dict(gather_rows=4 * m if packed else 0, scatter_rows_set=2 * m if packed else 0,
+                    edge_tower_fwd_bf16=0, edge_tower_bwd_bf16=0, edge_tower_fwd=0,
+                    edge_tower_bwd=0)
+        row = timed_steps(torch, np, label, run, tuple(t[:1] for t in triples),
+                          tuple(t[1:] for t in triples), m, start,
+                          (lambda: zero_counts(E, G, S), lambda: bf16_counts(E, G, S)), want,
+                          lambda: state.params)
+        row["profile"] = step_profile(torch, label, run, sample_triplets(
+            key + 4, *tabs, COMP_I, BF16_PROFILE_STEPS, COMP_B, device="cuda"),
+            BF16_PROFILE_STEPS)
+        if row["profile"]["tf32_share"] or not row["profile"]["conv_share"]:
+            fail(f"{label}: TF32 kernels in the step, or no convolution: {row['profile']}")
+        row["f32_ms_per_step"] = f32["comp"][path]["ms_per_step"]
+        print(f"{label}: {row['ms_per_step']!r} ms a step (f32 in this run "
+              f"{row['f32_ms_per_step']!r}), idle {row['profile']['idle_share']!r}, convs "
+              f"{row['profile']['conv_share']!r}, GEMMs {row['profile']['gemm_share']!r}, "
+              f"peak {row['peak_gib']!r} GiB")
+        out[f"comp_{path}"] = row
+        del trainer, state, frozen, triples, tabs
+        torch.cuda.empty_cache()
+    del model, feats
+    phase_start(torch)
+    out["cnn_224"] = bf16_cnn_224(torch)
+    out["comp_224"] = bf16_comp_224(torch, np, E, phase_start(torch))
+    return out
+
+
+def bf16_cnn_224(torch):
+    """The bf16 CNN at 224x224, COMP_CNN_B images: its output against the
+    f32 CNN's on the same weights (BF16_CNN_TOL of the largest), forward
+    and forward + backward timed with CUDA events beside the bound at the
+    bf16 rate, every gradient f32."""
+    from fashionvisualexpl_tpu_torch.models.cnn import CNN
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(53)
+    cnn = CNN(COMP_EMBED_D, in_channels=1, input_hw=(224, 224), compute_dtype="bfloat16",
+              device=dev, generator=g)
+    x = torch.rand(COMP_CNN_B, 224, 224, 1, device=dev, generator=g)
+    f32 = CNN(COMP_EMBED_D, in_channels=1, input_hw=(224, 224), device=dev)
+    f32.load_state_dict(cnn.state_dict())
+    with torch.no_grad():
+        got, want = cnn.encode(x), f32.encode(x)
+    del f32
+    if got.dtype != torch.float32 or not bool(torch.isfinite(got).all()):
+        fail(f"bf16 CNN at 224x224: output {got.dtype}, finite "
+             f"{bool(torch.isfinite(got).all())}")
+    rel = float((got - want).abs().max() / want.abs().max())
+    if rel > BF16_CNN_TOL:
+        fail(f"bf16 CNN at 224x224: {rel!r} of the largest f32 output")
+    w = torch.randn(COMP_CNN_B, COMP_EMBED_D, device=dev, generator=g)
+    params = list(cnn.parameters())
+
+    def fwd():
+        with torch.no_grad():
+            cnn.encode(x)
+
+    def fwd_bwd():
+        return torch.autograd.grad(torch.sum(cnn.encode(x) * w), params)
+
+    bad = [p.shape for p, gr in zip(params, fwd_bwd())
+           if p.dtype != torch.float32 or gr.dtype != torch.float32]
+    if bad:
+        fail(f"bf16 CNN at 224x224: params or gradients left f32: {bad}")
+    fwd_ms, step_ms = cuda_ms(torch, fwd, 5), cuda_ms(torch, fwd_bwd, 5)
+    f_ops, b_ops = cnn_flops(COMP_CNN_B, 224, 224)
+    f_bound, b_bound = (bound_ms(0, ops, PEAK_BF16_FLOPS)[0] for ops in (f_ops, f_ops + b_ops))
+    out = dict(batch=COMP_CNN_B, rel_to_f32=rel, fwd_ms=fwd_ms, fwd_bwd_ms=step_ms,
+               fwd_bound_ms=f_bound, fwd_bwd_bound_ms=b_bound, fwd_tflops=f_ops / fwd_ms / 1e9,
+               fwd_bwd_tflops=(f_ops + b_ops) / step_ms / 1e9)
+    print(f"CNN 224x224 B={COMP_CNN_B} bf16 ({rel!r} of the largest f32 output): forward "
+          f"{fwd_ms!r} ms (bound {f_bound!r} ms at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+          f"{out['fwd_tflops']!r} TFLOP/s), forward + backward {step_ms!r} ms (bound "
+          f"{b_bound!r} ms, {out['fwd_bwd_tflops']!r} TFLOP/s)")
+    del cnn, x, w, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_comp_224(torch, np, E, start):
+    """CompVBPR's generic step at 224x224, batch BF16_224_B, over 1M users
+    x BF16_224_I items, in bf16 and then in f32 on the same model: ms a
+    step, peak memory, every param f32; the bf16 step's profile (idle
+    share, the convolutions' and GEMMs' shares, no TF32)."""
+    from fashionvisualexpl_tpu_torch.core.config import TrainConfig
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.comp_vbpr import CompVBPR
+    from fashionvisualexpl_tpu_torch.train.trainer import Trainer
+
+    n_items, B, m = BF16_224_I, BF16_224_B, BF16_224_STEPS
+    feats = comp_features(torch, n_items, torch.Generator(device="cuda").manual_seed(54),
+                          hw=224)
+    pairs, items, cnt = make_scaled_arrays(COMP_U, n_items, COMP_P, seed=0)
+    data = types.SimpleNamespace(num_items=n_items, num_train=len(pairs), train_pairs=pairs,
+                                 padded_pos=items, pos_counts=cnt,
+                                 steps_per_epoch=lambda b: len(pairs) // b)
+    model = comp_model(torch, CompVBPR, COMP_U, n_items, feats, "cuda", 55,
+                       compute_dtype="bfloat16")
+    trainer = Trainer(model, data, TrainConfig(batch_size=B, lr=TRAIN_LR, reg=TRAIN_REG))
+    tabs = (trainer._train_pairs, trainer._padded_pos, trainer._pos_counts)
+    state, frozen = trainer.init_state()
+    triples = sample_triplets(170, *tabs, n_items, m + 1, B, device="cuda")
+
+    def run(tr, k=[170]):
+        nonlocal state
+        k[0] += 1
+        state, loss = trainer.run_steps(state, frozen, tr, step_key=k[0])
+        return loss
+
+    none = dict.fromkeys(("edge_tower_fwd_bf16", "edge_tower_bwd_bf16", "edge_tower_fwd",
+                          "edge_tower_bwd"), 0)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model.compute_dtype = model.cnn.compute_dtype = dtype
+        rows[str(dtype)] = timed_steps(
+            torch, np, f"comp_vbpr 224x224 {dtype}", run, tuple(t[:1] for t in triples),
+            tuple(t[1:] for t in triples), m, start,
+            (lambda: zero_counts(E), lambda: bf16_counts(E)), none, lambda: state.params)
+    model.compute_dtype = model.cnn.compute_dtype = torch.bfloat16
+    row = rows["torch.bfloat16"]
+    row["f32_same_model_ms_per_step"] = rows["torch.float32"]["ms_per_step"]
+    row["f32_peak_gib"] = rows["torch.float32"]["peak_gib"]
+    row["profile"] = step_profile(torch, "comp_vbpr 224x224 bf16", run, sample_triplets(
+        174, *tabs, n_items, BF16_PROFILE_STEPS, B, device="cuda"), BF16_PROFILE_STEPS)
+    if row["profile"]["tf32_share"] or not row["profile"]["conv_share"]:
+        fail(f"comp_vbpr 224x224 bf16: TF32 kernels in the step, or no convolution: "
+             f"{row['profile']}")
+    row.update(batch=B, items=n_items, hw=224)
+    print(f"comp_vbpr bf16 generic 224x224 batch {B} (1M x {n_items}): {row['ms_per_step']!r} "
+          f"ms a step (f32 on this model {row['f32_same_model_ms_per_step']!r}), idle "
+          f"{row['profile']['idle_share']!r}, convs {row['profile']['conv_share']!r}, GEMMs "
+          f"{row['profile']['gemm_share']!r}, peak {row['peak_gib']!r} GiB (f32 "
+          f"{row['f32_peak_gib']!r})")
+    del trainer, state, frozen, triples, tabs, model, feats
+    torch.cuda.empty_cache()
+    return row
+
+
+def bf16_cli_phase(torch, np, E):
+    """``train_rec --compute_dtype bfloat16`` for attentive_fashion (32x32
+    edge tiffs, --edge_hw 32 32) and comp_vbpr (224x224 tiffs at its default
+    --edge_hw 224 224) on BF16_CLI_N x BF16_CLI_N datasets, one epoch: the
+    JAX CLI's file set (recs, best recs, metrics, log; attentive_fashion's
+    two attention dumps), BF16_CLI_N x CLI_K rows a dump, metrics finite in [0, 1], K7's bf16
+    kernels and no f32 ones in the attentive_fashion run."""
+    import glob
+    import pickle
+    import shutil
+
+    from fashionvisualexpl_tpu_torch.cli.train_rec import train
+
+    root = CLI_DIR / "bf16"
+    shutil.rmtree(root, ignore_errors=True)
+    N = BF16_CLI_N
+    t0 = time.perf_counter()
+    write_reference_dataset(np, root / "af", N, N)
+    write_af_features(np, root / "af", N, AF_HW)
+    write_reference_dataset(np, root / "comp", N, N)
+    write_comp_features(np, root / "comp", N)
+    out = dict(write_s=time.perf_counter() - t0)
+    launches = {}
+    for rec, dataset, extra, patterns in (
+        ("attentive_fashion", "af", ("--batch_eval", str(AF_CLI_BATCH_EVAL), "--edge_hw",
+                                     str(AF_HW), str(AF_HW)),
+         ("recs-1-*.tsv", "best-recs-*.tsv", "att-recs-1-*.tsv", "best-att-recs-*.tsv")),
+        ("comp_vbpr", "comp", ("--embed_d", str(COMP_EMBED_D)),
+         ("recs-1-*.tsv", "best-recs-*.tsv")),
+    ):
+        results = root / f"results-{rec}"
+        zero_counts(E)  # this run starts here
+        t1 = time.perf_counter()
+        train(["--rec", rec, "--dataset", dataset, "--data_root", str(root), "--results_root",
+               str(results), "--embed_k", str(EMBED_K), "--top_k", str(CLI_K),
+               "--compute_dtype", "bfloat16", "--epochs", "1",
+               "--batch_size", "1024", *extra])
+        train_s = time.perf_counter() - t1
+        run = bf16_counts(E)  # ... and ends here
+        if rec == "attentive_fashion" and not (
+                run["edge_tower_fwd_bf16"] and run["edge_tower_bwd_bf16"]
+                and not run["edge_tower_fwd"] and not run["edge_tower_bwd"]):
+            fail(f"{rec} bf16 cli: K7 launches {run}")
+        rdir = results / "rec_results" / dataset / rec
+        files = sorted(os.path.basename(p) for p in glob.glob(str(rdir / "*")))
+        for pattern in patterns:
+            paths = glob.glob(str(rdir / pattern))
+            if len(paths) != 1:
+                fail(f"{rec} bf16 cli: {pattern} matched {paths}")
+            table = read_tsv(np, paths[0], 6 if "att" in pattern else 3)
+            if len(table) != N * CLI_K:
+                fail(f"{rec} bf16 cli {pattern}: {len(table)} rows, expected {N * CLI_K}")
+        kinds = sorted({f.split("-")[0] for f in files})
+        want_kinds = ["att", "best", "log", "recs", "results"] if rec == "attentive_fashion" \
+            else ["best", "log", "recs", "results"]
+        if kinds != want_kinds or len(files) != len(patterns) + 2:
+            fail(f"{rec} bf16 cli: wrote {files}")
+        (pkl,) = glob.glob(str(rdir / "results-metrics-*.pkl"))
+        with open(pkl, "rb") as f:
+            per_epoch = pickle.load(f)
+        vals = np.array([v for m in per_epoch.values() for v in m.values()])
+        if sorted(per_epoch) != [1] or not (
+                np.isfinite(vals).all() and (vals >= 0).all() and (vals <= 1).all()):
+            fail(f"{rec} bf16 cli: metrics not finite in [0, 1]: {per_epoch}")
+        launches[rec] = run
+        out[rec] = dict(train_s=train_s, files=files, metrics=per_epoch[1])
+        print(f"{rec} bf16 cli ({N} x {N}): train_rec {train_s!r} s; launches {run}; files "
+              f"{files}; metrics {per_epoch[1]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
+def bf16_phase(torch, np, E, G, S, tower_rows, f32):
+    """The bf16 towers: K7's bf16 kernels, the steps, the CLI (above).
+    Returns (the main path's launches, summary)."""
+    phase_t0 = time.perf_counter()
+    rows = tower_bf16_phase(torch, E, tower_rows)
+    t1 = time.perf_counter()
+    steps = bf16_train_phase(torch, np, E, G, S, f32)
+    t2 = time.perf_counter()
+    cli_launches, cli = bf16_cli_phase(torch, np, E)
+    t3 = time.perf_counter()
+    summary = dict(kernels=rows, steps=steps, cli=cli, s=t3 - phase_t0, kernels_s=t1 - phase_t0,
+                   steps_s=t2 - t1, cli_s=t3 - t2)
+    print(f"bf16 phase: {summary['s']!r} s (kernels {summary['kernels_s']!r}, steps "
+          f"{summary['steps_s']!r}, cli {summary['cli_s']!r})")
+    launches = dict(steps["af_generic"]["launches"], packed=steps["af_packed"]["launches"],
+                    streamed=steps["streamed"]["launches"], cli=cli_launches)
+    return launches, summary
 
 
 # --- multi-device: ranks sharing the one card ------------------------------
@@ -5869,6 +6501,8 @@ def main() -> int:
     packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
     acf_cli_launches, acf, acf_rows = acf_phase(torch, np, counts, segmax, G, S)
     comp_cli_launches, comp = comp_vbpr_phase(torch, np, counts, segmax, topk, G, S)
+    bf16_launches, bf16 = bf16_phase(torch, np, E, G, S, tower_rows, dict(
+        af_train=af_train, af_packed=af_packed, streamed=streamed, comp=comp))
     vision_launches, vision = vision_phase(torch, np, counts, segmax)
     mesh_launches, mesh = mesh_phase(torch, np, evaluated["metrics"])
 
@@ -5937,6 +6571,16 @@ def main() -> int:
             "streamed_launches": streamed_launches[name],
             "streamed_cli_launches": streamed_cli_launches[name],
         })
+    for name, line in (("edge_tower_fwd", 114), ("edge_tower_bwd", 127)):
+        kernels.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": "fashionvisualexpl_tpu_torch/ops/csrc/edge_tower.cu",
+            "replaces": f"fashionvisualexpl_tpu/ops/edge_tower.py:{line}",
+            "launches": bf16_launches[f"{name}_bf16"], **bf16["kernels"][name],
+            "packed_launches": bf16_launches["packed"][f"{name}_bf16"],
+            "streamed_launches": bf16_launches["streamed"][f"{name}_bf16"],
+            "cli_launches": bf16_launches["cli"]["attentive_fashion"][f"{name}_bf16"],
+        })
     for name, source, line in (("gather_rows", "gather.cu", "gather.py:22"),
                                ("scatter_rows_set", "row_scatter.cu", "row_scatter.py:29")):
         kernels.append({
@@ -5983,6 +6627,7 @@ def main() -> int:
     print(json.dumps({"vbpr": vbpr, "visual_cli": vis_cli}))
     print(json.dumps({"acf": acf}))
     print(json.dumps({"comp_vbpr": comp}))
+    print(json.dumps({"bf16": bf16}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"vision": vision}))
     print(f"card: {card_line()}")

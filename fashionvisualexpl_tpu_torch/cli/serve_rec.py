@@ -69,13 +69,12 @@ def _user_ids(spec: str, num_users: int):
 def serve(argv=None):
     args = parse_args(argv)
 
-    from fashionvisualexpl_tpu_torch.cli.train_rec import build_model, check_ported
+    from fashionvisualexpl_tpu_torch.cli.train_rec import build_model
     from fashionvisualexpl_tpu_torch.core.checkpoint import CheckpointManager
     from fashionvisualexpl_tpu_torch.core.config import MeshConfig, Paths, TrainConfig
     from fashionvisualexpl_tpu_torch.data.interactions import Interactions
     from fashionvisualexpl_tpu_torch.serve import RecServer
 
-    check_ported(args)
     paths = Paths(root=args.data_root, results_root=args.results_root)
     cfg = TrainConfig(
         dataset=args.dataset, rec=args.rec, batch_size=args.batch_size,

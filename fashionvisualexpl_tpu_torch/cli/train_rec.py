@@ -34,8 +34,9 @@ tiffs become one ``edges_stack.npy`` beside them (built by
 ``build_edge_stack_npy`` when missing), read as a memmap, and
 ``fit_streamed`` (``train/streamed.py``) streams each batch's rows to the
 card; evaluation and the dumps encode the catalog in host blocks.
-``--compute_dtype bfloat16`` for attentive_fashion and comp_vbpr raises
-``NotImplementedError`` naming its ROADMAP item by heading.
+``--compute_dtype bfloat16`` runs attentive_fashion's encoders and edge
+tower (K7's bf16 kernels on the card) and comp_vbpr's CNN in bf16, params,
+loss and scores in f32, on every path above.
 
 ``--mesh_data D --mesh_model M`` trains over a (data, model) mesh of D * M
 ranks launched by ``torchrun`` (``parallel/multihost.py``; nccl when each
@@ -120,10 +121,10 @@ def build_parser(description="Run train of the Recommender Model."):
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="compute dtype for the trainable encoder towers "
-                        "(attentive_fashion / comp_vbpr: only float32 "
-                        "runs so far, in full f32 on the card; bfloat16: "
-                        "ROADMAP: bf16 encoder towers) and acf's attention "
-                        "einsums (both run)")
+                        "(attentive_fashion's encoders and edge tower, "
+                        "comp_vbpr's CNN; float32 runs in full f32 on the "
+                        "card) and acf's attention einsums; params, loss "
+                        "and scores stay float32")
     p.add_argument("--edge_tower", choices=["auto", "fused", "xla", "s2d"],
                    default="auto",
                    help="attentive_fashion conv->pool->GAP tower impl: "
@@ -274,16 +275,6 @@ def validate_args(args):
         raise SystemExit("invalid flags:\n  - " + "\n  - ".join(errors))
 
 
-def check_ported(args) -> None:
-    """Raise NotImplementedError for the options of later slices, before any
-    data loads."""
-    if args.rec in ("attentive_fashion", "comp_vbpr") and args.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--compute_dtype bfloat16 (bf16 towers and a bf16 edge-tower "
-            "kernel) is not ported yet (ROADMAP: bf16 encoder towers)"
-        )
-
-
 def open_edge_stack(paths, ds: str, num_items: int, hw):
     """The read-only memmap of ``paths.edges_stack(ds)``, written from the
     edge tiffs first when it is missing; a stack of another shape
@@ -408,7 +399,6 @@ def init_mesh_ranks(args) -> bool:
 def train(argv=None):
     args = parse_args(argv)
     validate_args(args)
-    check_ported(args)
     formed = init_mesh_ranks(args)
     try:
         _train(args)

@@ -1,13 +1,18 @@
 """Compute-dtype policy for the encoder towers (port of
 ``fashionvisualexpl_tpu/core/precision.py``).
 
-The JAX package lets the FLOP-heavy trainable towers opt into bfloat16
-compute (``compute_dtype``) while params, loss and long reductions stay
-float32.  The port names the same two dtypes and keeps the same casts; only
-float32 runs so far: a bfloat16 tower needs a bfloat16 edge-tower kernel,
-and ``AttentiveFashion(compute_dtype="bfloat16")`` and
-``CompVBPR(compute_dtype="bfloat16")`` raise naming their ROADMAP item
-(bf16 encoder towers).
+The FLOP-heavy trainable towers (AttentiveFashion's modality encoders and
+edge tower, CompVBPR's AlexNet-style CNN) opt into bfloat16 compute with
+the per-model ``compute_dtype``, as in the JAX package, while
+
+- master params stay f32 (the optimizer never sees bf16),
+- loss, regularisation and score accumulation stay f32,
+- long reductions (the global average pool) stay f32,
+- every tower output is cast back to f32 (``cast_f32``).
+
+Both dtypes run: a bfloat16 AttentiveFashion on the card takes the
+edge-tower kernel's bf16 instantiation (``ops/edge_tower.py``), the bf16
+convs and matmuls run on cuDNN's and cuBLAS's bf16 routes.
 
 A float32 tower on the card computes in full f32: cuDNN rounds f32
 convolutions to TF32 by default, so ``conv2d_f32`` and ``linear_f32`` (the

@@ -43,8 +43,14 @@ which is how the parity tests feed in JAX's draws.
 engine (Gu and Gi in the packed rows, the encoders and the attention as
 dense groups).
 
-Not ported yet: ``compute_dtype="bfloat16"`` (bf16 towers and a bf16 K7,
-ROADMAP: bf16 encoder towers); it raises ``NotImplementedError``.
+``compute_dtype="bfloat16"`` runs the towers in bf16 as the JAX package's
+``core/precision.py`` policy says: the MLP encoders' and the attention's
+matmuls in bf16, the edge images cast to bf16 before the tower route (K7's
+bf16 kernels, ``edge_tower_gap_plain``'s bf16 route, or the s2d tower in
+bf16, each with f32 ``conv_W`` / ``conv_b`` passed in), every tower output
+cast back to f32; params, loss, regularisation, the attention softmax and
+the score sums stay f32.  Host features ship as f32 rows and are cast on
+the device.
 """
 
 from __future__ import annotations
@@ -139,11 +145,6 @@ class AttentiveFashion(RecommenderModel):
         self.conv_filters = conv_filters
         self.item_block = item_block
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
-        if self.compute_dtype != torch.float32:
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' (bf16 towers and a bf16 edge-tower "
-                "kernel) is not ported yet (ROADMAP: bf16 encoder towers)"
-            )
         self.batch_eval = None if batch_eval is None else int(batch_eval)
         if edge_tower not in EDGE_TOWERS:
             raise ValueError(f"edge_tower {edge_tower!r} not in auto/fused/xla/s2d")
@@ -242,12 +243,12 @@ class AttentiveFashion(RecommenderModel):
     def _edges_encode(self, enc, images, draw):
         """Conv(5x5, same, relu) -> MaxPool(2x2, same) -> GAP -> Dropout ->
         Dense (AttentiveFashion.py:57-64); the first three by the route
-        settled at construction."""
+        settled at construction, on the images cast to the compute dtype."""
         tower = {"kernel": edge_tower_gap, "plain": edge_tower_gap_plain,
                  "s2d": edge_tower_s2d_gap}[self.tower_route]
-        y = tower(images, enc["conv_W"], enc["conv_b"])  # [B, filters] f32
-        y = dropout(y, self.dropout_rate, draw)
         cd = self.compute_dtype
+        y = tower(cast_compute(images, cd), enc["conv_W"], enc["conv_b"])  # [B, filters] f32
+        y = dropout(y, self.dropout_rate, draw)
         return cast_f32(cast_compute(y, cd) @ cast_compute(enc["W2"], cd))
 
     def _encode(self, p, col, img, cls, draw):

@@ -21,10 +21,12 @@ ReLU after every conv and the first two FCs.  As in the JAX package:
   kept with probability 1 - rate and divided by the keep rate.
 
 The convs and FCs run in full f32 on the card (``core/precision.py``:
-``conv2d_f32`` / ``linear_f32``, TF32 off forward and backward).  It has
-no kernel of its own: in JAX it is ``lax.conv_general_dilated`` and
-matmuls, not Pallas.  ``compute_dtype="bfloat16"`` raises (ROADMAP: bf16
-encoder towers).
+``conv2d_f32`` / ``linear_f32``, TF32 off forward and backward).  With
+``compute_dtype="bfloat16"`` (JAX's ``CNN.apply``) every parameter and the
+images are cast to bf16, the convs, FCs, biases, pools and dropout run in
+bf16 (cuDNN's and cuBLAS's bf16 routes on the card) and the output is cast
+back to f32; the parameters stay f32.  It has no kernel of its own: in
+JAX it is ``lax.conv_general_dilated`` and matmuls, not Pallas.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from torch import nn
 
 from fashionvisualexpl_tpu_torch.core.device import DeviceLike, resolve_device
 from fashionvisualexpl_tpu_torch.core.precision import (
+    cast_compute,
+    cast_f32,
     conv2d_f32,
     linear_f32,
     resolve_compute_dtype,
@@ -65,13 +69,19 @@ def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
 
 def conv_same(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor, stride: int) -> torch.Tensor:
     """SAME conv of x [B, Cin, H, W] with W in HWIO [kh, kw, Cin, Cout], plus
-    b, in full f32."""
+    b: in full f32 for f32 operands, else in their dtype."""
     kh, kw = W.shape[:2]
     top, bottom = same_pads(x.shape[2], kh, stride)
     left, right = same_pads(x.shape[3], kw, stride)
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom))
-    return conv2d_f32(x, W.permute(3, 2, 0, 1), stride) + b[:, None, None]
+    conv = conv2d_f32 if x.dtype == torch.float32 else F.conv2d
+    return conv(x, W.permute(3, 2, 0, 1), stride=stride) + b[:, None, None]
+
+
+def linear(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x @ W + b: in full f32 for f32 operands, else in their dtype."""
+    return linear_f32(x, W, b) if x.dtype == torch.float32 else x @ W + b
 
 
 def maxpool_same(x: torch.Tensor) -> torch.Tensor:
@@ -103,11 +113,7 @@ class CNN(nn.Module):
         self.in_channels = in_channels
         self.input_hw = tuple(input_hw)
         self.dropout_rate = dropout_rate
-        if resolve_compute_dtype(compute_dtype) != torch.float32:
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' (bf16 encoder towers) is not ported yet "
-                "(ROADMAP: bf16 encoder towers)"
-            )
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         # spatial size after the stride-4 conv and three 2x2 SAME pools
         h, w = input_hw
         h, w = -(-h // 4), -(-w // 4)
@@ -158,14 +164,16 @@ class CNN(nn.Module):
     def encode_drawn(self, images: torch.Tensor, draw: Optional[MaskDraw],
                      params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         """``encode`` with the dropout masks taken from ``draw``."""
+        cd = self.compute_dtype
         p = dict(self.named_parameters()) if params is None else params
-        x = images.permute(0, 3, 1, 2)
+        p = {k: cast_compute(v, cd) for k, v in p.items()}
+        x = cast_compute(images, cd).permute(0, 3, 1, 2)
         for name, _, _, stride in CONVS:
             x = torch.relu(conv_same(x, p[f"{name}_W"], p[f"{name}_b"], stride))
             if name in POOL_AFTER:
                 x = maxpool_same(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order, as JAX's
         for name in ("fc6", "fc7"):
-            x = dropout(torch.relu(linear_f32(x, p[f"{name}_W"], p[f"{name}_b"])),
+            x = dropout(torch.relu(linear(x, p[f"{name}_W"], p[f"{name}_b"])),
                         self.dropout_rate, draw)
-        return linear_f32(x, p["fc8_W"], p["fc8_b"])
+        return cast_f32(linear(x, p["fc8_W"], p["fc8_b"]))

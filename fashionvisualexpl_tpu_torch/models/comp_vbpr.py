@@ -39,8 +39,9 @@ biases.
 and the active ``Tu*`` in the user rows, Gi and Bi in the item rows, the
 projections, the visual biases and the ``cnn`` group as dense params.
 
-Not ported yet: ``compute_dtype="bfloat16"`` (ROADMAP: bf16 encoder
-towers), which raises.
+``compute_dtype="bfloat16"`` runs the CNN in bf16 (``models/cnn.py``),
+as JAX's CompVBPR passes it to its CNN; nothing else changes dtype: the
+projections, the score and the loss stay f32.
 """
 
 from __future__ import annotations
@@ -117,11 +118,7 @@ class CompVBPR(RecommenderModel):
                 raise ValueError(f"{fam} component activated but no features")
             if act and f.shape[0] != num_items:
                 raise ValueError(f"{fam} features rows != num_items")
-        if resolve_compute_dtype(compute_dtype) != torch.float32:
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' (bf16 encoder towers) is not ported yet "
-                "(ROADMAP: bf16 encoder towers)"
-            )
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.activated = activated_components
         self.weights = tuple(float(w) for w in weight_components)
         self.embed_k = embed_k
@@ -140,7 +137,8 @@ class CompVBPR(RecommenderModel):
             self.register_buffer(FROZEN[j], frozen_buffer(feats[j], dev), persistent=False)
             if PROJ[j] is None:  # edges: the trainable tower
                 h, w, c = feats[j].shape[1:]
-                self.cnn = CNN(embed_d, in_channels=c, input_hw=(h, w), device=dev)
+                self.cnn = CNN(embed_d, in_channels=c, input_hw=(h, w),
+                               compute_dtype=compute_dtype, device=dev)
                 setattr(self, BIAS[j], empty(embed_d, 1))
             else:
                 dim = int(feats[j].shape[1])

@@ -93,7 +93,7 @@ def attentive_fashion_from_jax(
     ``Fcls``, all as numpy.  A ``host_features`` model has an empty
     ``frozen``: its host arrays ``_color``, ``_edges``, ``_class`` are taken
     as they are (memmaps stay memmaps).  ``conv_W`` keeps JAX's HWIO [5, 5,
-    1, C]."""
+    1, C]; the compute dtype is the JAX model's (``compute_dtype.name``)."""
     host = bool(getattr(jax_model, "host_features", False))
     if host:
         inputs = (jax_model._color, jax_model._edges, jax_model._class)
@@ -105,7 +105,7 @@ def attentive_fashion_from_jax(
         encoder_hidden=jax_model.encoder_hidden, dropout_rate=jax_model.dropout_rate,
         conv_filters=jax_model.conv_filters, item_block=jax_model.item_block,
         batch_eval=jax_model.batch_eval, edge_tower=jax_model.edge_tower,
-        device=device,
+        compute_dtype=jax_model.compute_dtype.name, device=device,
     )
     _copy_into(model, flatten_params(params))
     return model
@@ -172,8 +172,9 @@ def comp_vbpr_from_jax(params, semantic: Optional[Features] = None,
     taken as given.  The active families are those whose ``Tu*`` the
     params hold (features of the others are ignored); K and d are read
     from the params' shapes; ``kw`` (``weight_components``,
-    ``eval_encode_block``) are ``CompVBPR``'s, as the JAX model was built
-    with them."""
+    ``eval_encode_block``, ``compute_dtype``) are ``CompVBPR``'s, as the JAX
+    model was built with them (the JAX CompVBPR hands its compute dtype to
+    its CNN: ``jax_model.cnn.compute_dtype.name``)."""
     flat = flatten_params(params)
     gu = _f32(flat, "Gu", 2)
     act = tuple(t in flat for t in USER_TABLES)

@@ -138,9 +138,27 @@
 // reduces its row groups in order into per-block partials, and a second
 // kernel sums the blocks in order.  No float atomics: two runs give the
 // same bits.  Nothing of the activation's or the winners' size is written.
+//
+// bf16 images (the JAX kernel's bf16 mode: _weights(..., images.dtype) bands
+// the weights in the images' dtype and the backward casts the routed
+// gradient to it before the dW products).  Both kernels are templates on
+// the image type T; T = float is the f32 tower above, unchanged.  With T =
+// __nv_bfloat16 the weights are rounded to bf16 (nearest, even) and each
+// pixel is one exact bf16 piece, so every conv product is exact in f32 and
+// only the f32 sums round:
+// * Forward: the wh.xh product alone, 2 k16 steps a tile (not 12), one
+//   staged plane read from the image as 2-byte words, a 4 KB im2col tile
+//   (not 12 KB); + bias, ReLU, the 2x2 max and the mean in f32 as above.
+// * Backward: the conv recomputed in f32 from the rounded weights and the
+//   bf16 pixels, the same tie rule; one tap-sum product a B fragment (not
+//   three); dW scaled by g rounded to bf16 and db by the f32 g, with g =
+//   dout * (1 / ((H/2)(W/2))) as the JAX kernel's Sel product gives it.
+// Bounds at the bf16 rate with 2-byte images are in chip_smoke.py.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -155,7 +173,15 @@ constexpr int kFwdThreads = 128;  // one warpgroup
 constexpr int kFwdChannels = 64;  // channels of one forward block: the wgmma M tile
 constexpr int kFwdChunk = 16;     // pooled columns of one N tile: 64 conv pixels
 constexpr int kPieceK = 32;       // K of one image piece: taps 0..24, zero to 32
-constexpr int kTileBytes = 64 * 3 * kPieceK * 2;  // one im2col tile: 64 pixels x 96 bf16
+
+// f32 images split into three bf16 pieces; bf16 images are one
+template <typename T>
+constexpr bool kSplit = std::is_same<T, float>::value;
+template <typename T>
+constexpr int kPieces = kSplit<T> ? 3 : 1;
+// one im2col tile: 64 pixels x 32 bf16 a piece (12 KB for f32 images, 4 KB for bf16)
+template <typename T>
+constexpr int kTileBytes = 64 * kPieces<T> * kPieceK * 2;
 
 constexpr int kBwdWarps = 4;
 constexpr int kBwdGroupChannels = 16 * kBwdWarps;  // channels of one backward block
@@ -219,16 +245,17 @@ __host__ __device__ inline int plane_stride(int Cw) {
   return ps;
 }
 
-// The kH-th half (k-groups 6 kH .. 6 kH + 5 of the 12) of one pixel's row
-// of the im2col tile: k-group kg holds taps 8 (kg % 4) .. + 7 of piece kg / 4
-// (hi, mid, lo), zero past tap 24.  `win` is the pixel's 5x5 window (its
-// top-left entry) in the hi plane; `n` the pixel's row of the tile.
-template <int kH>
+// The kH-th half (k-groups kG/2 kH .. of the kG) of one pixel's row of the
+// im2col tile: k-group kg holds taps 8 (kg % 4) .. + 7 of piece kg / 4 (hi,
+// mid, lo; kG = 12 for f32 images, 4 for bf16 ones), zero past tap 24.
+// `win` is the pixel's 5x5 window (its top-left entry) in the hi plane; `n`
+// the pixel's row of the tile.
+template <int kH, int kG>
 __device__ __forceinline__ void write_im2col(uint4* tile, const uint16_t* win, int plane,
                                              int ps, int n) {
 #pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    const int kg = 6 * kH + q;
+  for (int q = 0; q < kG / 2; ++q) {
+    const int kg = kG / 2 * kH + q;
     const uint16_t* p = win + (kg / 4) * plane;
     uint32_t v[4];
 #pragma unroll
@@ -248,13 +275,15 @@ __device__ __forceinline__ uint64_t im2col_desc(uint32_t base, int piece, int s)
   return fvx::wgmma_desc(base + (4 * piece + 2 * s) * 1024, 1024, 128);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kFwdThreads, 3)
-edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+edge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ partial,
                 int H, int W, int C, int Rp, int Cw, int Sr, int Sc) {
+  constexpr int kTile = kTileBytes<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   uint4* tiles = reinterpret_cast<uint4*>(smem);  // two im2col tiles
-  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 2 * kTileBytes);
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 2 * kTile);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int Hp = H / 2, Wp = W / 2;
@@ -285,15 +314,21 @@ edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         float2 v = make_float2(0.0f, 0.0f);
         if (c < C && k < kTaps) v.x = w[k * C + c];
         if (c < C && k + 1 < kTaps) v.y = w[(k + 1) * C + c];
-        fvx::split3_bf16x2(v, ah[st][h + 2 * q], am[st][h + 2 * q], al[st][h + 2 * q]);
+        if constexpr (kSplit<T>) {
+          fvx::split3_bf16x2(v, ah[st][h + 2 * q], am[st][h + 2 * q], al[st][h + 2 * q]);
+        } else {  // the weights rounded to bf16, nearest even
+          const __nv_bfloat162 r = __floats2bfloat162_rn(v.x, v.y);
+          ah[st][h + 2 * q] = *reinterpret_cast<const uint32_t*>(&r);
+        }
       }
     }
   }
 
   // the tile's input rows 2 r0 - 2 .. and columns 2 q0 - 2 .., zero
-  // outside the image, as three planes of bf16 pieces
+  // outside the image, as three planes of bf16 pieces (bf16 images: one
+  // plane, the pixels' own bits)
   {
-    const float* img = x + b * H * W;
+    const T* img = x + b * H * W;
     const int half = ps / 2;
     const int n = (2 * Rp + 4) * half;
     for (int i = tid; i < n; i += kFwdThreads) {
@@ -301,17 +336,28 @@ edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int cx = 2 * (i - ry * half);
       const int y = 2 * r0 - 2 + ry;
       const int xx = 2 * q0 - 2 + cx;  // even, as W is: both columns in or out
-      float2 v = make_float2(0.0f, 0.0f);
-      if (y >= 0 && y < H && xx >= 0 && xx < W) {
-        const float* row = img + static_cast<long long>(y) * W + xx;
-        v = make_float2(row[0], row[1]);
-      }
-      uint32_t hi, mid, lo;
-      fvx::split3_bf16x2(v, hi, mid, lo);
+      const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
       const int o = ry * half + cx / 2;
-      planes[o] = hi;
-      planes[plane / 2 + o] = mid;
-      planes[plane + o] = lo;
+      if constexpr (kSplit<T>) {
+        float2 v = make_float2(0.0f, 0.0f);
+        if (in) {
+          const float* row = img + static_cast<long long>(y) * W + xx;
+          v = make_float2(row[0], row[1]);
+        }
+        uint32_t hi, mid, lo;
+        fvx::split3_bf16x2(v, hi, mid, lo);
+        planes[o] = hi;
+        planes[plane / 2 + o] = mid;
+        planes[plane + o] = lo;
+      } else {
+        uint32_t v = 0u;
+        if (in) {
+          const uint16_t* row =
+              reinterpret_cast<const uint16_t*>(img) + static_cast<long long>(y) * W + xx;
+          v = row[0] | static_cast<uint32_t>(row[1]) << 16;
+        }
+        planes[o] = v;
+      }
     }
   }
 
@@ -325,9 +371,9 @@ edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   auto write_tile = [&](int nt) {
     const int prl = nt / nchunks, ch = nt % nchunks;
     const uint16_t* win = hi_plane + (2 * prl + wrow) * ps + 2 * kFwdChunk * ch + wcol;
-    uint4* tile = tiles + (nt % 2) * (kTileBytes / 16);
-    if (tid < 64) write_im2col<0>(tile, win, plane, ps, n);
-    else write_im2col<1>(tile, win, plane, ps, n);
+    uint4* tile = tiles + (nt % 2) * (kTile / 16);
+    if (tid < 64) write_im2col<0, 4 * kPieces<T>>(tile, win, plane, ps, n);
+    else write_im2col<1, 4 * kPieces<T>>(tile, win, plane, ps, n);
   };
 
   __syncthreads();  // the planes are staged
@@ -337,26 +383,31 @@ edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   float sum[2] = {0.0f, 0.0f};
   for (int nt = 0; nt < n_tiles; ++nt) {
-    const uint32_t base = fvx::smem_u32(tiles + (nt % 2) * (kTileBytes / 16));
+    const uint32_t base = fvx::smem_u32(tiles + (nt % 2) * (kTile / 16));
     float dh[32], dx[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      dh[i] = dx[i] = 0.0f;
+      dh[i] = 0.0f;
       fvx::reg_fence(dh[i]);
-      fvx::reg_fence(dx[i]);
+      if constexpr (kSplit<T>) {
+        dx[i] = 0.0f;
+        fvx::reg_fence(dx[i]);
+      }
     }
     fvx::wgmma_fence();
     // every product unconditional: a product under a branch makes ptxas
     // put a warpgroup.arrive before each one
 #pragma unroll
     for (int st = 0; st < 2; ++st) fvx::wgmma_m64n64k16_bf16(dh, ah[st], im2col_desc(base, 0, st));
+    if constexpr (kSplit<T>) {
 #pragma unroll
-    for (int st = 0; st < 2; ++st) {
-      fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 0, st));
-      fvx::wgmma_m64n64k16_bf16(dx, al[st], im2col_desc(base, 0, st));
-      fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 1, st));
-      fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 1, st));
-      fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 2, st));
+      for (int st = 0; st < 2; ++st) {
+        fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 0, st));
+        fvx::wgmma_m64n64k16_bf16(dx, al[st], im2col_desc(base, 0, st));
+        fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 1, st));
+        fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 1, st));
+        fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 2, st));
+      }
     }
     fvx::wgmma_commit();
     // the next tile on the CUDA cores while the tensor cores take this one
@@ -365,8 +416,14 @@ edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       fvx::reg_fence(dh[i]);
-      fvx::reg_fence(dx[i]);
+      if constexpr (kSplit<T>) fvx::reg_fence(dx[i]);
     }
+    // conv output i of this thread's accumulator: hi x hi plus the cross
+    // products (f32 images), or the one product's sum (bf16)
+    auto z = [&](int i) {
+      if constexpr (kSplit<T>) return dh[i] + dx[i];
+      else return dh[i];
+    };
 
     // pool in registers: columns 16 j + 2t (+1) of the top row and 16 j + 8
     // + 2t (+1) of the bottom row are window 4 j + t's four conv outputs
@@ -377,8 +434,8 @@ edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int o = 8 * j + 2 * h;
-        const float z00 = dh[o] + dx[o], z01 = dh[o + 1] + dx[o + 1];
-        const float z10 = dh[o + 4] + dx[o + 4], z11 = dh[o + 5] + dx[o + 5];
+        const float z00 = z(o), z01 = z(o + 1);
+        const float z10 = z(o + 4), z11 = z(o + 5);
         const float v = fmaxf(fmaxf(fmaxf(z00, z01), fmaxf(z10, z11)) + bc[h], 0.0f);
         sum[h] += ok ? v : 0.0f;
       }
@@ -412,25 +469,36 @@ edge_fwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ ou
 // One entry of the backward's staged tile: the three bf16 pieces of the
 // pixel pair (x[cx], x[cx + 1]) as bf16x2 fragment registers, and x[cx].
 // A B fragment of the tap sums is two such pairs, the top and the bottom
-// row of a pool window at the tap's offset.
-__device__ __forceinline__ void stage_tile(uint4* s, const float* __restrict__ img, int H,
-                                           int W, int y0, int x0, int rows, int cols,
-                                           int ws) {
+// row of a pool window at the tap's offset.  bf16 images: the pair's own
+// bits (one exact piece; the other two words unused), and x[cx] in f32.
+template <typename T>
+__device__ __forceinline__ void stage_tile(uint4* s, const T* __restrict__ img, int H, int W,
+                                           int y0, int x0, int rows, int cols, int ws) {
   const int n = rows * cols;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int ry = i / cols;
     const int cx = i - ry * cols;
     const int y = y0 + ry;
     const int xx = x0 + cx;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (y >= 0 && y < H) {
-      const float* row = img + static_cast<long long>(y) * W;
-      if (xx >= 0 && xx < W) v.x = row[xx];
-      if (xx + 1 >= 0 && xx + 1 < W) v.y = row[xx + 1];
-    }
     uint4 e;
-    fvx::split3_bf16x2(v, e.x, e.y, e.z);
-    e.w = __float_as_uint(v.x);
+    if constexpr (kSplit<T>) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (y >= 0 && y < H) {
+        const float* row = img + static_cast<long long>(y) * W;
+        if (xx >= 0 && xx < W) v.x = row[xx];
+        if (xx + 1 >= 0 && xx + 1 < W) v.y = row[xx + 1];
+      }
+      fvx::split3_bf16x2(v, e.x, e.y, e.z);
+      e.w = __float_as_uint(v.x);
+    } else {
+      uint32_t lo = 0u, hi = 0u;
+      if (y >= 0 && y < H) {
+        const uint16_t* row = reinterpret_cast<const uint16_t*>(img) + static_cast<long long>(y) * W;
+        if (xx >= 0 && xx < W) lo = row[xx];
+        if (xx + 1 >= 0 && xx + 1 < W) hi = row[xx + 1];
+      }
+      e = make_uint4(lo | hi << 16, 0u, 0u, lo << 16);
+    }
     s[ry * ws + cx] = e;
   }
 }
@@ -466,22 +534,29 @@ __device__ __forceinline__ void winner_mask(const float (&win)[6][6], const floa
 }
 
 // acc += g * T for the two channels of this lane (rows g and g + 8 of the
-// m-tile), then T = 0
+// m-tile), then T = 0.  The dW columns take gh: g itself for f32 images, g
+// rounded to bf16 for bf16 ones (the JAX kernel's dze.astype(bf16)); the
+// odd columns of n-tile 3, db (25) and the zero columns 27, 29, 31, take g
 __device__ __forceinline__ void flush_taps(float (&acc)[4][4], float (&tsum)[4][4], float g0,
-                                           float g1) {
+                                           float g1, float gh0, float gh1) {
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
-    acc[nt][0] = fmaf(g0, tsum[nt][0], acc[nt][0]);
-    acc[nt][1] = fmaf(g0, tsum[nt][1], acc[nt][1]);
-    acc[nt][2] = fmaf(g1, tsum[nt][2], acc[nt][2]);
-    acc[nt][3] = fmaf(g1, tsum[nt][3], acc[nt][3]);
+    acc[nt][0] = fmaf(gh0, tsum[nt][0], acc[nt][0]);
+    acc[nt][1] = fmaf(nt == 3 ? g0 : gh0, tsum[nt][1], acc[nt][1]);
+    acc[nt][2] = fmaf(gh1, tsum[nt][2], acc[nt][2]);
+    acc[nt][3] = fmaf(nt == 3 ? g1 : gh1, tsum[nt][3], acc[nt][3]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) tsum[nt][i] = 0.0f;
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(32 * kBwdWarps, 3)
-edge_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+edge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ dout,
                 float* __restrict__ partial, int H, int W, int C, int Rp, int Cw, int Sr,
                 int Sc, long long n_items, float n) {
@@ -503,6 +578,10 @@ edge_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int k = 0; k < kTaps; ++k) {
     w0[k] = act0 ? w[k * C + c0] : 0.0f;
     w1[k] = act1 ? w[k * C + c1] : 0.0f;
+    if constexpr (!kSplit<T>) {  // the forward's weights: rounded to bf16
+      w0[k] = round_bf16(w0[k]);
+      w1[k] = round_bf16(w1[k]);
+    }
   }
   const float bc0 = act0 ? bias[c0] : 0.0f;
   const float bc1 = act1 ? bias[c1] : 0.0f;
@@ -537,8 +616,17 @@ edge_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();  // every warp is done with the previous tile
     stage_tile(tile, x + b * H * W, H, W, 2 * r0 - 2, 2 * q0 - 2, 2 * Rp + 4, 2 * Cw + 4, ws);
     __syncthreads();
-    const float g0 = act0 ? dout[b * C + c0] / n : 0.0f;
-    const float g1 = act1 ? dout[b * C + c1] / n : 0.0f;
+    float g0, g1, gh0, gh1;
+    if constexpr (kSplit<T>) {
+      g0 = gh0 = act0 ? dout[b * C + c0] / n : 0.0f;
+      g1 = gh1 = act1 ? dout[b * C + c1] / n : 0.0f;
+    } else {  // dout times the f32 reciprocal, as the JAX kernel's Sel product
+      const float inv = 1.0f / n;
+      g0 = act0 ? dout[b * C + c0] * inv : 0.0f;
+      g1 = act1 ? dout[b * C + c1] * inv : 0.0f;
+      gh0 = round_bf16(g0);
+      gh1 = round_bf16(g1);
+    }
     int slabs = 0;
     for (int sr = rg; sr < Rp / 4; sr += l.nrg) {
       const int prl = 4 * sr + t;  // lane t takes window t of the slab: pooled row prl
@@ -554,26 +642,34 @@ edge_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         winner_mask(win, w1, bc1, ok, a[1], a[3]);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          uint4 u = rows[2 * pc + boff[nt]];
-          uint4 v = rows[2 * pc + boff[nt] + ws];
-          if (nt == 3 && 8 * 3 + g >= kTaps) {
-            u = v = make_uint4(col3, 0u, 0u, 0u);
+          if constexpr (kSplit<T>) {
+            uint4 u = rows[2 * pc + boff[nt]];
+            uint4 v = rows[2 * pc + boff[nt] + ws];
+            if (nt == 3 && 8 * 3 + g >= kTaps) {
+              u = v = make_uint4(col3, 0u, 0u, 0u);
+            }
+            const uint32_t bh[2] = {u.x, v.x};
+            const uint32_t bm[2] = {u.y, v.y};
+            const uint32_t bl[2] = {u.z, v.z};
+            fvx::mma_bf16_16816(tsum[nt], a, bh);
+            fvx::mma_bf16_16816(tsum[nt], a, bm);
+            fvx::mma_bf16_16816(tsum[nt], a, bl);
+          } else {  // the pair's one piece: the first word of each entry
+            const uint32_t* words = reinterpret_cast<const uint32_t*>(rows);
+            uint32_t bh[2] = {words[4 * (2 * pc + boff[nt])],
+                              words[4 * (2 * pc + boff[nt] + ws)]};
+            if (nt == 3 && 8 * 3 + g >= kTaps) bh[0] = bh[1] = col3;
+            fvx::mma_bf16_16816(tsum[nt], a, bh);
           }
-          const uint32_t bh[2] = {u.x, v.x};
-          const uint32_t bm[2] = {u.y, v.y};
-          const uint32_t bl[2] = {u.z, v.z};
-          fvx::mma_bf16_16816(tsum[nt], a, bh);
-          fvx::mma_bf16_16816(tsum[nt], a, bm);
-          fvx::mma_bf16_16816(tsum[nt], a, bl);
         }
         shift_window(win);
         if (++slabs == kFlushSlabs) {
-          flush_taps(acc, tsum, g0, g1);
+          flush_taps(acc, tsum, g0, g1, gh0, gh1);
           slabs = 0;
         }
       }
     }
-    flush_taps(acc, tsum, g0, g1);
+    flush_taps(acc, tsum, g0, g1, gh0, gh1);
   }
 
   __syncthreads();  // the last tile is read; its memory now holds the row groups' sums
@@ -622,10 +718,12 @@ int check_fwd_tile(long long Rp, long long Cw) {
   return 0;
 }
 
-// the forward's bytes: two im2col tiles and three staged planes
+// the forward's bytes: two im2col tiles and the staged planes (three for
+// f32 images, one for bf16)
+template <typename T>
 size_t fwd_smem_bytes(long long Rp, long long Cw) {
-  return 2 * static_cast<size_t>(kTileBytes) +
-         3 * 2 * static_cast<size_t>(2 * Rp + 4) * plane_stride(static_cast<int>(Cw));
+  return 2 * static_cast<size_t>(kTileBytes<T>) +
+         kPieces<T> * 2 * static_cast<size_t>(2 * Rp + 4) * plane_stride(static_cast<int>(Cw));
 }
 
 int check_bwd_tile(long long Rp, long long Cw) {
@@ -652,35 +750,24 @@ int allow_smem(Kernel kernel, size_t bytes) {
   return 0;
 }
 
-}  // namespace
-
-// Plain C interface for ctypes.  All arrays f32, contiguous, on the current
-// device: x [B, H, W], w [25, C] (HWIO [5, 5, 1, C]), bias [C], out [B, C],
-// dout [B, C], dwb [26, C] (dW rows 0..24, db row 25).  Each returns the
-// cudaError_t of its launches (0 = launched).
-//
-// The forward over tiles of Rp pooled rows (1..64) by Cw pooled columns (a
-// multiple of 16 up to 256): S = ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles an
-// image, grid B*S by the groups of 64 channels; `partial` is scratch of
-// B*S*C floats.
-extern "C" int fvx_edge_tower_fwd(const void* x, const void* w, const void* bias,
-                                  void* partial, void* out, long long B, long long H,
-                                  long long W, long long C, long long Rp, long long Cw,
-                                  void* stream) {
+template <typename T>
+int tower_fwd(const void* x, const void* w, const void* bias, void* partial, void* out,
+              long long B, long long H, long long W, long long C, long long Rp, long long Cw,
+              void* stream) {
   int err = check_geometry(B, H, W, C, Rp);
   if (!err) err = check_fwd_tile(Rp, Cw);
   if (err) return err;
   const long long Sr = (H / 2 + Rp - 1) / Rp;
   const long long Sc = (W / 2 + Cw - 1) / Cw;
   if (B * Sr * Sc > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = fwd_smem_bytes(Rp, Cw);
-  err = allow_smem(edge_fwd_kernel, bytes);
+  const size_t bytes = fwd_smem_bytes<T>(Rp, Cw);
+  err = allow_smem(edge_fwd_kernel<T>, bytes);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(B * Sr * Sc),
                   static_cast<unsigned>((C + kFwdChannels - 1) / kFwdChannels));
-  edge_fwd_kernel<<<grid, kFwdThreads, bytes, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  edge_fwd_kernel<T><<<grid, kFwdThreads, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(partial), static_cast<int>(H),
       static_cast<int>(W), static_cast<int>(C), static_cast<int>(Rp), static_cast<int>(Cw),
       static_cast<int>(Sr), static_cast<int>(Sc));
@@ -694,36 +781,29 @@ extern "C" int fvx_edge_tower_fwd(const void* x, const void* w, const void* bias
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's grid: the blocks of one channel group that the card holds
-// at once (its SMs times the blocks an SM holds) for tiles of Rp pooled rows
-// (a multiple of 4) by Cw pooled columns; written to *blocks.
-extern "C" int fvx_edge_tower_bwd_blocks(long long C, long long Rp, long long Cw,
-                                         long long* blocks) {
+template <typename T>
+int tower_bwd_blocks(long long C, long long Rp, long long Cw, long long* blocks) {
   int err = check_bwd_tile(Rp, Cw);
   if (err) return err;
   const size_t bytes = bwd_smem_bytes(C, Rp, Cw);
-  err = allow_smem(edge_bwd_kernel, bytes);
+  err = allow_smem(edge_bwd_kernel<T>, bytes);
   if (err) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, edge_bwd_kernel, bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads,
-        bytes);
+        &per_sm, edge_bwd_kernel<T>,
+        bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   *blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   return 0;
 }
 
-// The backward over tiles of Rp pooled rows (a multiple of 4) by Cw pooled
-// columns: n_items = B * ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles, grid
-// n_blocks (1 <= n_blocks <= n_items) by the groups of 64 channels;
-// `partial` is scratch of n_blocks*26*C floats.
-extern "C" int fvx_edge_tower_bwd(const void* x, const void* w, const void* bias,
-                                  const void* dout, void* partial, long long n_blocks,
-                                  void* dwb, long long B, long long H, long long W,
-                                  long long C, long long Rp, long long Cw, void* stream) {
+template <typename T>
+int tower_bwd(const void* x, const void* w, const void* bias, const void* dout, void* partial,
+              long long n_blocks, void* dwb, long long B, long long H, long long W,
+              long long C, long long Rp, long long Cw, void* stream) {
   int err = check_geometry(B, H, W, C, Rp);
   if (!err) err = check_bwd_tile(Rp, Cw);
   if (err) return err;
@@ -732,14 +812,14 @@ extern "C" int fvx_edge_tower_bwd(const void* x, const void* w, const void* bias
   if (n_blocks < 1 || n_blocks > B * Sr * Sc || n_blocks > (1LL << 30) || Sr * Sc > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = bwd_smem_bytes(C, Rp, Cw);
-  err = allow_smem(edge_bwd_kernel, bytes);
+  err = allow_smem(edge_bwd_kernel<T>, bytes);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks),
                   static_cast<unsigned>((C + kBwdGroupChannels - 1) / kBwdGroupChannels));
-  edge_bwd_kernel<<<grid, bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads, bytes,
-                    st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
+  edge_bwd_kernel<T><<<grid, bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads,
+                       bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(dout),
       static_cast<float*>(partial), static_cast<int>(H), static_cast<int>(W),
       static_cast<int>(C), static_cast<int>(Rp), static_cast<int>(Cw), static_cast<int>(Sr),
@@ -751,4 +831,59 @@ extern "C" int fvx_edge_tower_bwd(const void* x, const void* w, const void* bias
                            st>>>(static_cast<const float*>(partial), static_cast<float*>(dwb),
                                  static_cast<int>(n_blocks), static_cast<int>(C));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface for ctypes.  Arrays contiguous, on the current device:
+// x [B, H, W] f32 (the _bf16 entry points: bf16), w [25, C] f32 (HWIO [5,
+// 5, 1, C]), bias [C] f32, out [B, C] f32, dout [B, C] f32, dwb [26, C] f32
+// (dW rows 0..24, db row 25).  Each returns the cudaError_t of its launches
+// (0 = launched).
+//
+// The forward over tiles of Rp pooled rows (1..64) by Cw pooled columns (a
+// multiple of 16 up to 256): S = ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles an
+// image, grid B*S by the groups of 64 channels; `partial` is scratch of
+// B*S*C floats.
+extern "C" int fvx_edge_tower_fwd(const void* x, const void* w, const void* bias,
+                                  void* partial, void* out, long long B, long long H,
+                                  long long W, long long C, long long Rp, long long Cw,
+                                  void* stream) {
+  return tower_fwd<float>(x, w, bias, partial, out, B, H, W, C, Rp, Cw, stream);
+}
+extern "C" int fvx_edge_tower_fwd_bf16(const void* x, const void* w, const void* bias,
+                                       void* partial, void* out, long long B, long long H,
+                                       long long W, long long C, long long Rp, long long Cw,
+                                       void* stream) {
+  return tower_fwd<__nv_bfloat16>(x, w, bias, partial, out, B, H, W, C, Rp, Cw, stream);
+}
+
+// The backward's grid: the blocks of one channel group that the card holds
+// at once (its SMs times the blocks an SM holds) for tiles of Rp pooled rows
+// (a multiple of 4) by Cw pooled columns; written to *blocks.
+extern "C" int fvx_edge_tower_bwd_blocks(long long C, long long Rp, long long Cw,
+                                         long long* blocks) {
+  return tower_bwd_blocks<float>(C, Rp, Cw, blocks);
+}
+extern "C" int fvx_edge_tower_bwd_blocks_bf16(long long C, long long Rp, long long Cw,
+                                              long long* blocks) {
+  return tower_bwd_blocks<__nv_bfloat16>(C, Rp, Cw, blocks);
+}
+
+// The backward over tiles of Rp pooled rows (a multiple of 4) by Cw pooled
+// columns: n_items = B * ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles, grid
+// n_blocks (1 <= n_blocks <= n_items) by the groups of 64 channels;
+// `partial` is scratch of n_blocks*26*C floats.
+extern "C" int fvx_edge_tower_bwd(const void* x, const void* w, const void* bias,
+                                  const void* dout, void* partial, long long n_blocks,
+                                  void* dwb, long long B, long long H, long long W,
+                                  long long C, long long Rp, long long Cw, void* stream) {
+  return tower_bwd<float>(x, w, bias, dout, partial, n_blocks, dwb, B, H, W, C, Rp, Cw, stream);
+}
+extern "C" int fvx_edge_tower_bwd_bf16(const void* x, const void* w, const void* bias,
+                                       const void* dout, void* partial, long long n_blocks,
+                                       void* dwb, long long B, long long H, long long W,
+                                       long long C, long long Rp, long long Cw, void* stream) {
+  return tower_bwd<__nv_bfloat16>(x, w, bias, dout, partial, n_blocks, dwb, B, H, W, C, Rp, Cw,
+                                  stream);
 }

@@ -15,9 +15,17 @@ runs.
 
 - ``edge_tower_fwd`` / ``edge_tower_bwd`` launch the forward and backward
   kernels for CUDA tensors and raise for any other; ``.launches`` counts
-  their launches.  The backward recomputes the conv from the images and
-  routes each pooled gradient with the TPU kernel's tie rule (even column
-  on the pre-bias value, top row on the ReLU'd value, only where pre > 0).
+  their launches on float32 images, ``.launches_bf16`` on bfloat16 ones.
+  The backward recomputes the conv from the images and routes each pooled
+  gradient with the TPU kernel's tie rule (even column on the pre-bias
+  value, top row on the ReLU'd value, only where pre > 0).
+- bfloat16 images (the JAX kernel's bf16 mode, ``_weights(...,
+  images.dtype)``) take f32 ``conv_w`` and ``conv_b``: the kernels round
+  the weights to bf16, so every conv product is exact and the sums, the
+  bias, ReLU, pool and mean run in f32; the backward scales dW by g =
+  dout times the f32 reciprocal of (H/2)(W/2), rounded to bf16 (JAX's
+  ``dze.astype(cd)``), and db by the f32 g.  ``edge_tower_gap_bf16_plain`` and
+  ``edge_tower_gap_bf16_plain_backward`` are that in plain PyTorch.
 - ``edge_tower_gap_split_forward`` and ``edge_tower_fwd_error_bound`` are
   the forward kernel's arithmetic in plain PyTorch and its error bound;
   ``edge_tower_gap_factored_backward`` and ``split_bf16x3`` the backward
@@ -26,15 +34,20 @@ runs.
   They are held against JAX on the CPU; nothing on the main path calls
   them.
 - ``edge_tower_gap`` binds the two in a ``torch.autograd.Function``
-  (gradients for ``conv_w`` and ``conv_b``; the images are frozen features
-  and get none, JAX's zero-gradient contract).  For CPU tensors it computes
-  the plain version.
+  (gradients for ``conv_w`` and ``conv_b``, f32 for bf16 images too:
+  straight through the weights' rounding, as JAX's ``dw.astype``; the
+  images are frozen features and get none, JAX's zero-gradient contract).
+  For CPU tensors it computes the plain version of its dtype.
 - ``edge_tower_gap_plain`` is the plain version (``edge_tower_gap_xla``'s
   counterpart) and ``edge_tower_gap_plain_backward`` its gradient by
   autograd; PyTorch's max-pool backward takes the first maximum of each
   window, as XLA's select-and-scatter does.  Its conv runs in f32 both ways
   (``core/precision.py::conv2d_f32``: cuDNN may round f32 convs to TF32
-  by default), as the kernels do; nothing outside it changes.
+  by default), as the kernels do; nothing outside it changes.  On bfloat16
+  images it is ``edge_tower_gap_xla``'s bf16 route instead: the conv with
+  ``conv_w`` cast to bf16 and a bf16 output, the bias (cast), ReLU and
+  pool in bf16, the mean in f32.  It and the bf16 kernels differ by the
+  bf16 rounding of the conv outputs, as JAX's two routes do.
 """
 
 from __future__ import annotations
@@ -58,7 +71,8 @@ BWD_TILE_COLS = 64  # the backward's tile: pooled columns at most
 def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
     """(B, H, W, C) of the tower's inputs; raises ValueError unless images
     are [B, H, W, 1] with B >= 1 and H, W even, conv_w [5, 5, 1, C], conv_b
-    [C], all float32 on one device."""
+    [C], on one device, images float32 or bfloat16 and the weights
+    float32."""
     if images.dim() != 4 or images.shape[3] != 1:
         raise ValueError(
             f"edge tower: images must be [B, H, W, 1], got {tuple(images.shape)}"
@@ -75,9 +89,11 @@ def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
         raise ValueError("edge tower: needs at least one image and one filter")
     if H % 2 or W % 2:
         raise ValueError(f"edge tower: H and W must be even, got {H}x{W}")
+    if images.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"edge tower takes float32 or bfloat16 images, got {images.dtype}")
     for name, t in (("images", images), ("conv_w", conv_w), ("conv_b", conv_b)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"edge tower takes float32, {name} is {t.dtype}")
+        if name != "images" and t.dtype != torch.float32:
+            raise ValueError(f"edge tower takes float32 conv_w and conv_b, {name} is {t.dtype}")
         if t.device != images.device:
             raise ValueError("edge tower inputs must be on one device")
     return B, H, W, C
@@ -106,16 +122,25 @@ def bwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
     return rp, cw, -(-hp // rp) * -(-wp // cw)
 
 
+def _pooled(images, conv_w, conv_b) -> torch.Tensor:
+    """[B, C, ceil(H/2), ceil(W/2)]: SAME conv (padding 2), + b, ReLU, SAME
+    2x2 max-pool (``ceil_mode`` pads odd sizes at the end, where -inf never
+    wins), in the images' dtype: f32 in full f32, bf16 with ``conv_w`` and
+    ``conv_b`` cast to bf16 (f32 sums inside the conv, a bf16 output)."""
+    x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
+    if images.dtype == torch.float32:
+        y = conv2d_f32(x, conv_w.permute(3, 2, 0, 1), padding=2)  # [B, C, H, W]
+    else:
+        y = F.conv2d(x, conv_w.to(images.dtype).permute(3, 2, 0, 1), padding=2)
+    y = torch.relu(y + conv_b.to(images.dtype)[None, :, None, None])
+    return F.max_pool2d(y, 2, 2, ceil_mode=True)
+
+
 def edge_tower_gap_plain(images, conv_w, conv_b) -> torch.Tensor:
     """Plain PyTorch tower, ``edge_tower_gap_xla``'s counterpart: SAME conv
-    (padding 2, f32), + b, ReLU, SAME 2x2 max-pool (``ceil_mode`` pads odd
-    sizes at the end, where -inf never wins), mean over H, W in f32.  Any
-    H, W."""
-    x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
-    y = conv2d_f32(x, conv_w.permute(3, 2, 0, 1), padding=2)  # [B, C, H, W]
-    y = torch.relu(y + conv_b[None, :, None, None])
-    y = F.max_pool2d(y, 2, 2, ceil_mode=True)
-    return y.to(torch.float32).mean(dim=(2, 3))
+    (padding 2), + b, ReLU, SAME 2x2 max-pool in the images' dtype (f32, or
+    bf16 with the weights cast), the mean over H, W in f32.  Any H, W."""
+    return _pooled(images, conv_w, conv_b).to(torch.float32).mean(dim=(2, 3))
 
 
 def edge_tower_gap_plain_backward(images, conv_w, conv_b, dout):
@@ -127,6 +152,54 @@ def edge_tower_gap_plain_backward(images, conv_w, conv_b, dout):
         out = edge_tower_gap_plain(images.detach(), w, b)
         dw, db = torch.autograd.grad(out, (w, b), dout)
     return dw, db
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to the nearest bf16 value (even on ties), in f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def edge_tower_gap_bf16_plain(images, conv_w, conv_b) -> torch.Tensor:
+    """[B, C] f32: the bf16 kernels' forward in plain PyTorch, JAX's
+    ``edge_tower_gap`` on bf16 images: the f32 tower over the images' bf16
+    values and ``conv_w`` rounded to bf16 (every product exact), the f32
+    bias, ReLU, pool and mean.  Any H, W."""
+    return edge_tower_gap_plain(images.to(torch.float32), _round_bf16(conv_w), conv_b)
+
+
+def edge_tower_gap_bf16_plain_backward(images, conv_w, conv_b, dout):
+    """(dconv_w [5, 5, 1, C], dconv_b [C]) f32 of the bf16 kernels for
+    upstream gradient ``dout`` [B, C]: the pooled gradient g = dout * (1 /
+    ((H/2)(W/2))) (the f32 reciprocal, as the JAX kernel's Sel product)
+    routed by the f32 tower's first-max rule over the forward's operands; dW
+    from g rounded to bf16 (JAX's ``dze.astype(bf16)``) times the bf16
+    pixels, summed in f32, db from the f32 g; straight through the weights'
+    rounding."""
+    H, W = images.shape[1:3]
+    n = ((H + 1) // 2) * ((W + 1) // 2)
+    g = dout.to(torch.float32) * (torch.ones((), device=dout.device) / n)
+    with torch.enable_grad():
+        w = _round_bf16(conv_w.detach()).requires_grad_(True)
+        b = conv_b.detach().requires_grad_(True)
+        pooled = _pooled(images.detach().to(torch.float32), w, b).sum(dim=(2, 3))
+        (dw,) = torch.autograd.grad(pooled, w, _round_bf16(g), retain_graph=True)
+        (db,) = torch.autograd.grad(pooled, b, g)
+    return dw, db
+
+
+class _Bf16PlainTower(torch.autograd.Function):
+    """``edge_tower_gap_bf16_plain`` with its backward (the CPU route of bf16
+    images).  The images get no gradient."""
+
+    @staticmethod
+    def forward(ctx, images, conv_w, conv_b):
+        ctx.save_for_backward(images, conv_w, conv_b)
+        return edge_tower_gap_bf16_plain(images, conv_w, conv_b)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dw, db = edge_tower_gap_bf16_plain_backward(*ctx.saved_tensors, dout)
+        return None, dw, db
 
 
 def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -270,29 +343,47 @@ def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
     return dwb[: K * K].reshape(K, K, 1, C), dwb[K * K]
 
 
+def type_entries(lib: ctypes.CDLL, suffixes=("", "_bf16")) -> ctypes.CDLL:
+    """Sets the argument and return types of the entry points of ``lib``, a
+    build of ``csrc/edge_tower.cu``, for each dtype ``suffixes`` names;
+    returns ``lib``."""
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    for suffix in suffixes:
+        fwd = getattr(lib, f"fvx_edge_tower_fwd{suffix}")
+        bwd = getattr(lib, f"fvx_edge_tower_bwd{suffix}")
+        blocks = getattr(lib, f"fvx_edge_tower_bwd_blocks{suffix}")
+        fwd.argtypes = [ptr] * 5 + [i64] * 6 + [ptr]
+        bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
+        blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
+        for fn in (fwd, bwd, blocks):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library("edge_tower")
     if not getattr(lib, "_fvx_typed", False):
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.fvx_edge_tower_fwd.argtypes = [ptr] * 5 + [i64] * 6 + [ptr]
-        lib.fvx_edge_tower_bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
-        lib.fvx_edge_tower_bwd_blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
-        for fn in (lib.fvx_edge_tower_fwd, lib.fvx_edge_tower_bwd,
-                   lib.fvx_edge_tower_bwd_blocks):
-            fn.restype = ctypes.c_int
+        type_entries(lib)
         lib._fvx_typed = True
     return lib
 
 
+def _suffix(images) -> str:
+    """The entry points' suffix for the images' dtype."""
+    return "_bf16" if images.dtype == torch.bfloat16 else ""
+
+
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device: int, c: int, rp: int, cw: int) -> int:
-    """Blocks of the backward kernel that the card ``device`` holds at once
-    for C = ``c`` and tiles of ``rp`` x ``cw`` pooled pixels (its grid)."""
+def _resident_blocks(device: int, c: int, rp: int, cw: int, suffix: str) -> int:
+    """Blocks of the backward kernel (of the images' dtype, ``suffix``) that
+    the card ``device`` holds at once for C = ``c`` and tiles of ``rp`` x
+    ``cw`` pooled pixels (its grid)."""
     resident = ctypes.c_longlong(0)
+    blocks = getattr(_library(), f"fvx_edge_tower_bwd_blocks{suffix}")
     with torch.cuda.device(device):
-        rc = _library().fvx_edge_tower_bwd_blocks(c, rp, cw, ctypes.byref(resident))
+        rc = blocks(c, rp, cw, ctypes.byref(resident))
     if rc != 0:
         raise RuntimeError(f"edge tower backward kernel setup failed: cudaError {rc}")
     return resident.value
@@ -312,7 +403,8 @@ def _kernel_inputs(images, conv_w, conv_b):
 
 
 def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
-    """[B, C] f32 tower output by the forward kernel (CUDA tensors only)."""
+    """[B, C] f32 tower output by the forward kernel of the images' dtype
+    (CUDA tensors only)."""
     B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
     rp, cw, tiles = fwd_tiles(H, W)
     dev = images.device
@@ -320,18 +412,22 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
         partial = torch.empty(B * tiles * C, dtype=torch.float32, device=dev)
         out = torch.empty(B, C, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().fvx_edge_tower_fwd(
+        rc = getattr(_library(), f"fvx_edge_tower_fwd{_suffix(images)}")(
             images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
             partial.data_ptr(), out.data_ptr(), B, H, W, C, rp, cw, stream)
     if rc != 0:
         raise RuntimeError(f"edge tower forward kernel launch failed: cudaError {rc}")
-    edge_tower_fwd.launches += 1
+    if images.dtype == torch.bfloat16:
+        edge_tower_fwd.launches_bf16 += 1
+    else:
+        edge_tower_fwd.launches += 1
     return out
 
 
 def edge_tower_bwd(images, conv_w, conv_b, dout):
-    """(dconv_w [5, 5, 1, C], dconv_b [C]) by the backward kernel for
-    upstream gradient ``dout`` [B, C] (CUDA tensors only)."""
+    """(dconv_w [5, 5, 1, C], dconv_b [C]) f32 by the backward kernel of the
+    images' dtype for upstream gradient ``dout`` [B, C] f32 (CUDA tensors
+    only)."""
     B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
     if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
             or dout.device != images.device:
@@ -343,22 +439,25 @@ def edge_tower_bwd(images, conv_w, conv_b, dout):
         raise ValueError("edge tower kernel: dout must be contiguous")
     dev = images.device
     rp, cw, tiles = bwd_tiles(H, W)
-    n_blocks = min(B * tiles, _resident_blocks(dev.index, C, rp, cw))
+    n_blocks = min(B * tiles, _resident_blocks(dev.index, C, rp, cw, _suffix(images)))
     with torch.cuda.device(dev):
         partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
         dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().fvx_edge_tower_bwd(
+        rc = getattr(_library(), f"fvx_edge_tower_bwd{_suffix(images)}")(
             images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dout.data_ptr(),
             partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, rp, cw, stream)
     if rc != 0:
         raise RuntimeError(f"edge tower backward kernel launch failed: cudaError {rc}")
-    edge_tower_bwd.launches += 1
+    if images.dtype == torch.bfloat16:
+        edge_tower_bwd.launches_bf16 += 1
+    else:
+        edge_tower_bwd.launches += 1
     return dwb[: K * K].view(K, K, 1, C), dwb[K * K]
 
 
-edge_tower_fwd.launches = 0
-edge_tower_bwd.launches = 0
+edge_tower_fwd.launches = edge_tower_fwd.launches_bf16 = 0
+edge_tower_bwd.launches = edge_tower_bwd.launches_bf16 = 0
 
 
 class EdgeTowerGap(torch.autograd.Function):
@@ -380,10 +479,13 @@ class EdgeTowerGap(torch.autograd.Function):
 def edge_tower_gap(images, conv_w, conv_b) -> torch.Tensor:
     """GAP(MaxPool2x2(ReLU(Conv5x5_SAME(images) + b))) -> [B, C] f32.
 
-    images [B, H, W, 1] (H, W even); conv_w [5, 5, 1, C]; conv_b [C].
-    Differentiable in conv_w and conv_b only.  CUDA tensors go through the
-    kernels; CPU tensors through the plain version."""
+    images [B, H, W, 1] (H, W even) float32 or bfloat16; conv_w [5, 5, 1,
+    C] and conv_b [C] float32.  Differentiable in conv_w and conv_b only.
+    CUDA tensors go through the kernels of the images' dtype; CPU tensors
+    through the plain version (bf16: ``edge_tower_gap_bf16_plain``)."""
     check_geometry(images, conv_w, conv_b)
     if images.device.type == "cpu":
+        if images.dtype == torch.bfloat16:
+            return _Bf16PlainTower.apply(images.detach(), conv_w, conv_b)
         return edge_tower_gap_plain(images.detach(), conv_w, conv_b)
     return EdgeTowerGap.apply(images, conv_w, conv_b)

@@ -17,8 +17,11 @@ The same taps and the same adds as the direct conv; it needs even H, W.
 The kernel re-pack is a gather, so gradients flow to ``conv_W`` and
 ``conv_b`` through the same map.  In the JAX package this is an XLA
 re-expression, not a Pallas kernel, and here it stays a plain op with no
-kernel: ``AttentiveFashion(edge_tower="s2d")`` runs it, its conv in full
-f32 (``core/precision.py::conv2d_f32``).
+kernel: ``AttentiveFashion(edge_tower="s2d")`` runs it in the images' dtype,
+as JAX does: on float32 images its conv in full f32
+(``core/precision.py::conv2d_f32``); on bfloat16 images the packed kernel,
+the conv (cuDNN's bf16 conv on the card), the bias, ReLU and pool in bf16,
+the mean in f32.
 """
 
 from __future__ import annotations
@@ -79,15 +82,18 @@ def edge_tower_s2d_gap(images: torch.Tensor, conv_W: torch.Tensor,
                        conv_b: torch.Tensor) -> torch.Tensor:
     """conv(5x5, SAME) -> +b -> relu -> maxpool(2x2, s2, SAME) -> GAP on the
     2x2 space-to-depth layout: images [B, H, W, 1] (H, W even) -> [B, F]
-    float32."""
+    float32.  The conv, bias, ReLU and max run in the images' dtype
+    (``conv_W`` and ``conv_b`` cast to it), the mean in f32."""
     B, H, W, _ = images.shape
     if H % 2 or W % 2:
         raise ValueError("space-to-depth tower requires even H, W")
     n_f = conv_W.shape[-1]
-    x = space_to_depth(images, 2).permute(0, 3, 1, 2)  # [B, 4, H/2, W/2]
-    w = pack_kernel_s2d(conv_W, 2).permute(3, 2, 0, 1)  # [4F, 4, 3, 3]
-    y = conv2d_f32(F.pad(x, (1, 1, 1, 1)), w)  # [B, 4F, H/2, W/2], o = (di, dj, f)
-    y = torch.relu(y + conv_b.repeat(4)[:, None, None])
+    cd = images.dtype
+    x = F.pad(space_to_depth(images, 2).permute(0, 3, 1, 2), (1, 1, 1, 1))  # [B, 4, ., .]
+    w = pack_kernel_s2d(conv_W.to(cd), 2).permute(3, 2, 0, 1)  # [4F, 4, 3, 3]
+    # [B, 4F, H/2, W/2], channel o = (di, dj, f)
+    y = conv2d_f32(x, w) if cd == torch.float32 else F.conv2d(x, w)
+    y = torch.relu(y + conv_b.to(cd).repeat(4)[:, None, None])
     # the pool: a max over the (di, dj) group of 4
     y = y.reshape(B, 4, n_f, H // 2, W // 2).amax(dim=1)
-    return torch.mean(y, dim=(2, 3))  # [B, F]
+    return torch.mean(y.to(torch.float32), dim=(2, 3))  # [B, F]

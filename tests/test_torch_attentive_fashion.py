@@ -190,8 +190,14 @@ def test_construction_rules():
                          device="cpu")
     with pytest.raises(ValueError, match="rows != num_items"):
         AttentiveFashion(U, I + 1, color, edges, cls, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
-        AttentiveFashion(U, I, color, edges, cls, compute_dtype="bfloat16", **kw)
+    for tower in ("fused", "xla", "s2d"):  # bf16 runs on every route
+        bf16 = AttentiveFashion(U, I, color, edges, cls, compute_dtype="bfloat16",
+                                edge_tower=tower, **kw)
+        assert bf16.compute_dtype == torch.bfloat16
+        assert bf16.encode_items().dtype == torch.float32
+        assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    with pytest.raises(ValueError, match="compute_dtype must be one of"):
+        AttentiveFashion(U, I, color, edges, cls, compute_dtype="float16", **kw)
     # host_features: no buffers (JAX's empty frozen); the host arrays kept
     host = AttentiveFashion(U, I, color, edges, cls, host_features=True, **kw)
     assert host.host_features and dict(host.named_buffers()) == {}

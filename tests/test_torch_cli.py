@@ -468,7 +468,8 @@ COMP_RUNS = {"all-families": ("--activated_components", "1", "1", "1", "1",
                               "--weight_components", "0.4", "0.2", "0.2", "0.2",
                               "--streaming_eval"),
              "ablated-packed": ("--activated_components", "1", "0", "0", "1",
-                                "--train_path", "packed")}
+                                "--train_path", "packed"),
+             "bf16-packed": ("--compute_dtype", "bfloat16", "--train_path", "packed")}
 
 
 @pytest.fixture(scope="module")
@@ -498,8 +499,10 @@ def jax_comp_run(comp_dataset):
 @pytest.mark.parametrize("run", list(COMP_RUNS))
 def test_cli_comp_vbpr_writes_the_jax_file_set(comp_dataset, jax_comp_run, run):
     """``--rec comp_vbpr`` with every family (the CNN on 12x12 edges,
-    streaming evaluation) and ablated to semantic + texture on the packed
-    engine: the JAX run's file set, dumps of U x k rows, metrics in [0, 1];
+    streaming evaluation), ablated to semantic + texture on the packed
+    engine, and with the CNN in bf16 (``--compute_dtype bfloat16``, packed;
+    the generic bf16 step is ``test_torch_bf16_comp_vbpr.py``'s): the JAX
+    run's file set, dumps of U x k rows, metrics in [0, 1];
     ``serve_rec`` from the checkpoint gives the best dump's
     recommendations."""
     results = f"comp-{run}"
@@ -523,8 +526,3 @@ def test_cli_comp_vbpr_writes_the_jax_file_set(comp_dataset, jax_comp_run, run):
     served, dumped = _check_tsv(out, U * K_TOP), _check_tsv(best, U * K_TOP)
     assert [r.split("\t")[:2] for r in served] == [r.split("\t")[:2] for r in dumped]
 
-
-def test_cli_comp_vbpr_bf16_raises(comp_dataset):
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
-        pcli.train(_comp_argv(comp_dataset, "never-bf16", ("--compute_dtype", "bfloat16")))
-    assert not os.path.exists(os.path.join(comp_dataset, "never-bf16"))

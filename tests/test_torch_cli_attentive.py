@@ -12,7 +12,8 @@ the best params through the direct path, with the best dump's scores
 streamed trainer) writes the same file set, its metrics those of
 ``fit_streamed`` over the tiffs' stack in memory (rtol 1e-6), and
 ``serve_rec --streamed`` serves its best dump; ``--compute_dtype bfloat16``
-raises naming its ROADMAP item."""
+on the generic, packed and streamed paths writes the same file set and
+serves its best dump."""
 
 import glob
 import os
@@ -185,13 +186,40 @@ def test_cli_streamed_writes_the_jax_file_set_and_serves(dataset_dir, jax_run):
                                [float(r[2]) for r in dumped], rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--compute_dtype", "bfloat16"), "bf16 encoder towers"),
-])
-def test_options_of_later_slices_raise(dataset_dir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP: {item}"):
-        pcli.train(_argv(dataset_dir, "never", extra))
-    assert not os.path.exists(os.path.join(dataset_dir, "never"))
+@pytest.mark.parametrize("extra", [(), ("--train_path", "packed"), ("--streamed",)],
+                         ids=["generic", "packed", "streamed"])
+def test_cli_bf16_writes_the_jax_file_set_and_serves(dataset_dir, jax_run, extra):
+    """``--compute_dtype bfloat16`` on the generic, packed and streamed
+    paths: the JAX CLI's file set (the dtype names no file), both attention
+    dumps, metrics in [0, 1], and ``serve_rec`` from the checkpoint gives
+    the best dump's recommendations."""
+    results = "bf16-" + "-".join(a.strip("-") for a in extra)
+    argv = _argv(dataset_dir, results, ("--compute_dtype", "bfloat16", "--streaming_eval",
+                                        *extra))
+    pcli.train(argv)
+    port = _files(dataset_dir, results)
+    assert sorted(port) == sorted(jax_run)
+    for name, path in port.items():
+        if name.endswith(".tsv"):
+            rows = _rows(path, 6 if "att-recs" in name else 3)
+            if "att-recs" in name:
+                alphas = np.asarray([[float(x) for x in r[3:]] for r in rows])
+                np.testing.assert_allclose(alphas.sum(1), 1.0, rtol=1e-5)
+    metrics = _metrics(dataset_dir, results)
+    assert sorted(metrics) == [1, 2]
+    assert all(np.isfinite(v) and 0.0 <= v <= 1.0 for m in metrics.values()
+               for v in m.values())
+    base = os.path.join(dataset_dir, results)
+    (ckpt,) = glob.glob(os.path.join(base, "rec_model_weights", "synthetic",
+                                     "attentive_fashion", "ckpt-*"))
+    (best,) = glob.glob(os.path.join(base, "rec_results", "synthetic", "attentive_fashion",
+                                     "best-recs-*"))
+    out = os.path.join(base, "served.tsv")
+    serve(argv + ["--ckpt", ckpt, "--users", "all", "--output", out])
+    served, dumped = _rows(out, 3), _rows(best, 3)
+    assert [r[:2] for r in served] == [r[:2] for r in dumped]
+    np.testing.assert_allclose([float(r[2]) for r in served],
+                               [float(r[2]) for r in dumped], rtol=1e-5, atol=1e-7)
 
 
 def test_cli_packed_path_writes_the_file_set_and_serves(dataset_dir):

@@ -120,7 +120,7 @@ def test_dropout_behavior():
     assert not torch.allclose(t1, t2)
 
 
-def test_init_draws_glorot_and_bf16_raises():
+def test_init_draws_glorot_and_bf16_runs():
     cnn = CNN(8, in_channels=1, input_hw=(16, 16), device="cpu",
               generator=torch.Generator().manual_seed(2))
     for name, p in cnn.named_parameters():
@@ -131,5 +131,14 @@ def test_init_draws_glorot_and_bf16_raises():
         recept = int(np.prod(x.shape[:-2]))
         lim = np.sqrt(6.0 / ((x.shape[-2] + x.shape[-1]) * recept))
         assert float(x.abs().max()) <= lim and float(x.std()) > lim / 4, name
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
-        CNN(8, compute_dtype="bfloat16", device="cpu")
+    bf16 = CNN(8, in_channels=1, input_hw=(16, 16), compute_dtype="bfloat16", device="cpu")
+    bf16.load_state_dict(cnn.state_dict())
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    x = torch.rand(3, 16, 16, 1, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        y16, y32 = bf16.encode(x), cnn.encode(x)
+    assert y16.dtype == torch.float32 and y16.shape == (3, 8)
+    np.testing.assert_allclose(y16.numpy(), y32.numpy(), rtol=0,
+                               atol=5e-2 * float(y32.abs().max()))
+    with pytest.raises(ValueError, match="compute_dtype must be one of"):
+        CNN(8, compute_dtype="float16", device="cpu")

@@ -301,8 +301,13 @@ def test_buffers_params_and_spec():
         CompVBPR(U, I, activated_components=(False, False, True, False), device="cpu")
     with pytest.raises(ValueError, match="color features rows"):
         CompVBPR(U, I + 1, color_features=families()[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 encoder towers"):
-        CompVBPR(U, I, color_features=families()[1], compute_dtype="bfloat16", device="cpu")
+    bf16 = CompVBPR(U, I, *families(), embed_k=K, embed_d=D, compute_dtype="bfloat16",
+                    device="cpu")
+    assert bf16.compute_dtype == bf16.cnn.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    assert bf16.predict_all().dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype must be one of"):
+        CompVBPR(U, I, color_features=families()[1], compute_dtype="float16", device="cpu")
 
 
 def test_reset_parameters_draws_glorot_in_jax_order():

@@ -19,7 +19,12 @@ edge tower): forward rtol 1e-5, atol 1e-6 (25 taps and the pooled values
 summed in another order; the forward's exact bf16 pieces on the tensor
 cores, also on worst-case splits), two forward runs bit-equal; gradients rtol 1e-4, atol 1e-5 + 1e-6 * S, S the
 sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
-backward runs bit-equal (no float atomics).  K4 (row gather) and K5 (row
+backward runs bit-equal (no float atomics).  K7 on bfloat16 images
+against its bf16 plain version (``edge_tower_gap_bf16_plain``: every conv
+product exact, so the same tolerances), its launches counted apart; the
+bf16 AttentiveFashion on K7 against its plain route (bf16 conv outputs)
+and the bf16 CNN against its CPU route, at the JAX package's bf16
+tolerances (3e-2 / 5e-2 of max).  K4 (row gather) and K5 (row
 scatter-set): bit-equal to their plain versions (compared as int32) at the
 packed rows' widths (VBPR's and GradFashion's with their frozen columns
 fused too), aligned and not, with out-of-range, negative and pad ids; K4
@@ -621,6 +626,121 @@ def test_edge_tower_kernels_reject_what_they_do_not_take_on_card(cuda_device):
         K7.edge_tower_bwd(x, w, b, dout.T.contiguous().T)
     with pytest.raises(ValueError, match="even"):
         K7.edge_tower_gap(x[:, :7], w, b)
+
+
+def _check_tower_bf16(x, w, b, dout):
+    """K7 on bf16 images against the bf16 plain version, two runs of each
+    bit-equal, its launches counted as bf16 only."""
+    x = x.bfloat16()
+    before = (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches,
+              K7.edge_tower_fwd.launches_bf16, K7.edge_tower_bwd.launches_bf16)
+    out = K7.edge_tower_fwd(x, w, b)
+    out2 = K7.edge_tower_fwd(x, w, b)
+    dw, db = K7.edge_tower_bwd(x, w, b, dout)
+    dw2, db2 = K7.edge_tower_bwd(x, w, b, dout)
+    torch.cuda.synchronize()
+    assert (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches,
+            K7.edge_tower_fwd.launches_bf16, K7.edge_tower_bwd.launches_bf16) == (
+        before[0], before[1], before[2] + 2, before[3] + 2)
+    assert out.dtype == dw.dtype == db.dtype == torch.float32
+    torch.testing.assert_close(out, K7.edge_tower_gap_bf16_plain(x, w, b), rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, out2)
+    want = K7.edge_tower_gap_bf16_plain_backward(x, w, b, dout)
+    sums = K7.edge_tower_gap_bf16_plain_backward(x, w, b, dout.abs())
+    for got, ref, s in zip((dw, db), want, sums):
+        assert bool(((got - ref).abs() <= 1e-5 + 1e-6 * s + 1e-4 * ref.abs()).all())
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [
+    (5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8),  # the JAX test geometries
+    (64, 32, 32, 64), (2, 224, 224, 64),  # the training step's and the reference's
+    (3, 14, 14, 256), (2, 64, 4092, 8), (2, 32, 32, 600),  # 4+ groups, W >> 64
+    (3, 18, 200, 100), (2, 2, 2, 1), (5, 34, 36, 130),  # ragged tiles, odd tile counts
+])
+def test_edge_tower_bf16_kernels_match_plain_version_on_card(cuda_device, B, H, W, C):
+    _check_tower_bf16(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [0.5, 0.0])
+def test_edge_tower_bf16_kernels_route_ties_like_the_plain_version_on_card(cuda_device, value):
+    _check_tower_bf16(*_tower_inputs(cuda_device, 16, 32, 32, 64, value=value))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [(64, 32, 32, 64), (2, 224, 224, 64)])
+def test_edge_tower_bf16_kernels_match_plain_version_on_edge_maps_on_card(
+        cuda_device, B, H, W, C):
+    _check_tower_bf16(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C, edges=True))
+
+
+@pytest.mark.cuda
+def test_edge_tower_kernels_reject_bf16_weights_on_card(cuda_device):
+    x, w, b, dout = _tower_inputs(cuda_device, 2, 8, 8, 4)
+    with pytest.raises(ValueError, match="float32 conv_w"):
+        K7.edge_tower_fwd(x.bfloat16(), w.bfloat16(), b)
+    with pytest.raises(ValueError, match="float32 or bfloat16 images"):
+        K7.edge_tower_bwd(x.half(), w, b, dout)
+
+
+@pytest.mark.cuda
+def test_attentive_fashion_bf16_kernel_route_matches_plain_route_on_card(cuda_device):
+    """compute_dtype='bfloat16' on K7 (bf16 launches only) against the plain
+    route, whose conv outputs round to bf16: loss and encodings within the
+    JAX package's bf16 tolerance; every param and gradient stays f32."""
+    from fashionvisualexpl_tpu_torch.models.attentive_fashion import AttentiveFashion
+
+    U, I = 40, 30
+    rng = np.random.default_rng(0)
+    inputs = (rng.random((I, 12)).astype(np.float32),
+              rng.random((I, 16, 16, 1)).astype(np.float32),
+              np.eye(5, dtype=np.float32)[rng.integers(0, 5, I)])
+    models = [AttentiveFashion(U, I, *inputs, embed_k=16, attention_layers=(8, 1),
+                               encoder_hidden=32, conv_filters=64, edge_tower=t,
+                               compute_dtype="bfloat16", device=cuda_device)
+              for t in ("auto", "xla")]
+    assert [m.tower_route for m in models] == ["kernel", "plain"]
+    u, p, n = (torch.as_tensor(rng.integers(0, hi, 64), device=cuda_device)
+               for hi in (U, I, I))
+    before = (K7.edge_tower_fwd.launches, K7.edge_tower_bwd.launches,
+              K7.edge_tower_fwd.launches_bf16, K7.edge_tower_bwd.launches_bf16)
+    results = []
+    for m in models:
+        loss = m.loss(u, p, n, 0.01, rng=torch.Generator(device=cuda_device).manual_seed(3))
+        results.append((loss, torch.autograd.grad(loss, list(m.parameters()))))
+    torch.cuda.synchronize()
+    assert (K7.edge_tower_fwd.launches - before[0], K7.edge_tower_bwd.launches - before[1],
+            K7.edge_tower_fwd.launches_bf16 - before[2],
+            K7.edge_tower_bwd.launches_bf16 - before[3]) == (0, 0, 2, 2)
+    (lk, gk), (lp, gp) = results
+    assert lk.dtype == torch.float32 and bool(torch.isfinite(lk))
+    torch.testing.assert_close(lk, lp, rtol=3e-2, atol=0)
+    for a, b, prm in zip(gk, gp, models[0].parameters()):
+        assert a.dtype == prm.dtype == torch.float32 and bool(torch.isfinite(a).all())
+    ek, ep = models[0].encode_items(), models[1].encode_items()
+    assert ek.dtype == torch.float32
+    torch.testing.assert_close(ek, ep, rtol=0, atol=3e-2 * float(ep.detach().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, hw", [(8, 64), (4, 224)])
+def test_cnn_bf16_matches_its_cpu_route_on_card(cuda_device, B, hw):
+    """CompVBPR's CNN in bf16 (cuDNN's and cuBLAS's bf16 routes) against the
+    same weights on the CPU, at the JAX package's CNN tolerance (5e-2 of
+    max), also at the reference's 224x224; the output is f32."""
+    from fashionvisualexpl_tpu_torch.models.cnn import CNN
+
+    cnns = [CNN(20, in_channels=1, input_hw=(hw, hw), compute_dtype="bfloat16", device=d)
+            for d in ("cpu", cuda_device)]
+    cnns[1].load_state_dict(cnns[0].state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).random((B, hw, hw, 1), np.float32))
+    with torch.no_grad():
+        want = cnns[0].encode(x)
+        got = cnns[1].encode(x.to(cuda_device)).cpu()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-2 * float(want.abs().max()))
 
 
 @pytest.mark.cuda

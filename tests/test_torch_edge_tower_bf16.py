@@ -1,0 +1,208 @@
+"""The edge tower (K7) on bfloat16 images vs the JAX package's, on the CPU.
+
+JAX's ``edge_tower_gap`` on bf16 images (Pallas, interpret mode) rounds the
+weights to bf16 (``_weights(..., images.dtype)``), sums the exact products
+in f32 and routes the backward's gradient through ``dze.astype(bf16)`` for
+dW and the f32 g for db.  The port's two plain versions are held against
+JAX's two bf16 routes:
+
+- (a) ``edge_tower_gap_bf16_plain`` and its backward (the bf16 kernels'
+  semantics, and the CPU route of ``edge_tower_gap`` on bf16 images)
+  against JAX's ``edge_tower_gap(bf16, interpret=True)`` and its VJP at the
+  f32 tests' tolerances (forward rtol 1e-5, atol 1e-6; gradients rtol
+  1e-4, atol 1e-5): every conv product is exact, so only f32 sums differ;
+- (b) ``edge_tower_gap_plain`` on bf16 images (a bf16 conv output, the
+  bias, ReLU and pool in bf16, the mean in f32) against
+  ``edge_tower_gap_xla`` in bf16, and the bf16 space-to-depth tower against
+  JAX's: outputs within 4e-3 of their largest value (one bf16 rounding of
+  a conv output), dconv_w within 1e-2 of its largest (bf16 sums of the
+  backward in another order).  dconv_b is held within 1e-2 of JAX's
+  f32-summed bias gradient (``edge_tower_gap_xla`` in f32 over the bf16
+  values, which sends every live window's gradient to the same bias
+  whichever pixel wins): XLA sums the bias gradient of a bf16 conv output
+  over B*H*W pixels in bf16, and parts from that by up to 28% here, where
+  the port's sum (f32 inside PyTorch's bf16 reduction) stays within the
+  tolerance.
+
+Over the JAX test geometries, odd pooled sizes, constant images (ties in
+every window and, at 0, at every ReLU boundary) and k/255 edge maps.  The
+kernel entry points raise for CPU tensors of either dtype, and mixed
+dtypes are refused."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fashionvisualexpl_tpu.ops.edge_tower import edge_tower_gap as jgap
+from fashionvisualexpl_tpu.ops.edge_tower import edge_tower_gap_xla as jxla
+from fashionvisualexpl_tpu.ops.s2d_conv import edge_tower_s2d_gap as js2d
+from fashionvisualexpl_tpu_torch.ops import edge_tower as E
+from fashionvisualexpl_tpu_torch.ops.s2d_conv import edge_tower_s2d_gap
+from tests.test_torch_edge_tower import FWD, GRAD, GEOMETRIES, _edge_images, _inputs
+
+BF16_OUT, BF16_GRAD = 4e-3, 1e-2  # shares of the largest value (routes b and s2d)
+
+
+def _cases():
+    for B, H, W, C in GEOMETRIES + [(4, 14, 18, 5)]:  # 7 x 9 pooled: odd both ways
+        yield f"random-{B}x{H}x{W}x{C}", _inputs(B, H, W, C, seed=7 * B + C)
+    _, cw, cb = _inputs(C=4, seed=21)
+    for v in (0.5, 0.0):
+        yield f"constant-{v}", (np.full((4, 8, 12, 1), v, np.float32), cw, cb)
+    _, cw, cb = _inputs(C=6, seed=22)
+    yield "edges-k/255", (_edge_images(6, 12, 16, seed=23), cw, cb)
+
+
+CASES = list(_cases())
+
+
+def _torch(imgs, cw, cb):
+    return torch.from_numpy(imgs).bfloat16(), torch.from_numpy(cw), torch.from_numpy(cb)
+
+
+def _jax_bf16(imgs):
+    return jnp.asarray(imgs).astype(jnp.bfloat16)
+
+
+def _f32_bias_vjp(imgs, cw, cb, dout):
+    """JAX's bias gradient of the tower over the bf16 values of the images
+    and weights, summed in f32."""
+    x32 = _jax_bf16(imgs).astype(jnp.float32)
+    w32 = jnp.asarray(cw).astype(jnp.bfloat16).astype(jnp.float32)
+    _, vjp = jax.vjp(lambda b_: jxla(x32, w32, b_), jnp.asarray(cb))
+    return vjp(jnp.asarray(dout))[0]
+
+
+def _dout(imgs, cw):
+    return np.random.default_rng(imgs.shape[0]).standard_normal(
+        (imgs.shape[0], cw.shape[3])).astype(np.float32)
+
+
+def _close_to_max(got, want, share, msg=""):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=share * np.abs(want).max(), err_msg=msg)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
+def test_bf16_plain_matches_jax_kernel_forward_and_vjp(case):
+    """(a) against JAX's bf16 kernel (interpret mode), forward and VJP; the
+    CPU route of ``edge_tower_gap`` on bf16 images is (a), gradients by
+    autograd included, and the images get none."""
+    _, (imgs, cw, cb) = case
+    x, w, b = _torch(imgs, cw, cb)
+    xj = _jax_bf16(imgs)
+    want = np.asarray(jgap(xj, jnp.asarray(cw), jnp.asarray(cb), 4, True))
+    got = E.edge_tower_gap_bf16_plain(x, w, b)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **FWD)
+    dout = _dout(imgs, cw)
+    _, vjp = jax.vjp(lambda w_, b_: jgap(xj, w_, b_, 4, True), jnp.asarray(cw), jnp.asarray(cb))
+    jw, jb = vjp(jnp.asarray(dout))
+    dw, db = E.edge_tower_gap_bf16_plain_backward(x, w, b, torch.from_numpy(dout))
+    assert dw.dtype == db.dtype == torch.float32 and dw.shape == w.shape
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jw), **GRAD)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jb), **GRAD)
+    wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    out = E.edge_tower_gap(xr, wr, br)
+    assert torch.equal(out.detach(), got)
+    out.backward(torch.from_numpy(dout))
+    assert xr.grad is None
+    assert torch.equal(wr.grad, dw) and torch.equal(br.grad, db)
+
+
+def test_bf16_kernel_semantics_round_the_weights_and_g():
+    """(a) is the f32 tower over the bf16 values of the images and weights
+    (not over the f32 weights), and its dW takes g rounded to bf16 while
+    db takes the f32 g."""
+    imgs, cw, cb = _inputs(3, 8, 10, 4, seed=31)
+    x, w, b = _torch(imgs, cw, cb)
+    got = E.edge_tower_gap_bf16_plain(x, w, b)
+    assert torch.equal(got, E.edge_tower_gap_plain(x.float(), w.bfloat16().float(), b))
+    assert not torch.equal(got, E.edge_tower_gap_plain(x.float(), w, b))
+    dout = torch.from_numpy(_dout(imgs, cw)) * 1.001
+    dw, db = E.edge_tower_gap_bf16_plain_backward(x, w, b, dout)
+    n = torch.ones(()) / 20  # (H/2)(W/2) = 20: not a power of two
+    g = dout * n
+    f_dw, f_db = E.edge_tower_gap_plain_backward(x.float(), w.bfloat16().float(), b, dout)
+    np.testing.assert_allclose(db.numpy(), f_db.numpy(), rtol=1e-6, atol=1e-7)
+    assert not torch.equal(dw, f_dw)  # g rounded to bf16 for dW
+    gh_dw, _ = E.edge_tower_gap_plain_backward(
+        x.float(), w.bfloat16().float(), b, g.bfloat16().float() * 20)
+    np.testing.assert_allclose(dw.numpy(), gh_dw.numpy(), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
+def test_bf16_plain_route_matches_jax_xla_route(case):
+    """(b) against ``edge_tower_gap_xla`` on bf16 images, forward and VJP."""
+    _, (imgs, cw, cb) = case
+    x, w, b = _torch(imgs, cw, cb)
+    xj = _jax_bf16(imgs)
+    got = E.edge_tower_gap_plain(x, w, b)
+    assert got.dtype == torch.float32
+    _close_to_max(got, jxla(xj, jnp.asarray(cw), jnp.asarray(cb)), BF16_OUT)
+    dout = _dout(imgs, cw)
+    _, vjp = jax.vjp(lambda w_, b_: jxla(xj, w_, b_), jnp.asarray(cw), jnp.asarray(cb))
+    jw, jb = vjp(jnp.asarray(dout))
+    dw, db = E.edge_tower_gap_plain_backward(x, w, b, torch.from_numpy(dout))
+    assert dw.dtype == db.dtype == torch.float32
+    _close_to_max(dw, jw, BF16_GRAD, "dconv_w")
+    _close_to_max(db, _f32_bias_vjp(imgs, cw, cb, dout), BF16_GRAD, "dconv_b")
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
+def test_bf16_routes_differ_by_the_conv_outputs_rounding(case):
+    """(a) and (b) compute one function; (b) rounds each conv output (and
+    the bias add) to bf16, so they part by about a bf16 rounding."""
+    _, (imgs, cw, cb) = case
+    x, w, b = _torch(imgs, cw, cb)
+    a = E.edge_tower_gap_bf16_plain(x, w, b)
+    _close_to_max(E.edge_tower_gap_plain(x, w, b), a, BF16_OUT)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
+def test_bf16_s2d_tower_matches_jax(case):
+    """The space-to-depth tower in bf16 (even H, W) against JAX's, forward
+    and the gradients of a sum(sin(.)) loss."""
+    _, (imgs, cw, cb) = case
+    x, w, b = _torch(imgs, cw, cb)
+    xj = _jax_bf16(imgs)
+    wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    got = edge_tower_s2d_gap(x, wr, br)
+    assert got.dtype == torch.float32
+    _close_to_max(got.detach(), js2d(xj, jnp.asarray(cw), jnp.asarray(cb)), BF16_OUT)
+    torch.sin(got).sum().backward()
+    jw, jb = jax.grad(lambda w_, b_: jnp.sum(jnp.sin(js2d(xj, w_, b_))), argnums=(0, 1))(
+        jnp.asarray(cw), jnp.asarray(cb))
+    assert wr.grad.dtype == torch.float32
+    _close_to_max(wr.grad, jw, BF16_GRAD, "dconv_w")
+    dsin = np.cos(got.detach().numpy())  # d sum(sin(out)) / d out
+    _close_to_max(br.grad, _f32_bias_vjp(imgs, cw, cb, dsin), BF16_GRAD, "dconv_b")
+
+
+def test_bf16_kernel_entry_points_raise_on_cpu_tensors():
+    x, w, b = _torch(*_inputs())
+    before = (E.edge_tower_fwd.launches, E.edge_tower_bwd.launches,
+              E.edge_tower_fwd.launches_bf16, E.edge_tower_bwd.launches_bf16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.edge_tower_fwd(x, w, b)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.edge_tower_bwd(x, w, b, torch.zeros(5, 4))
+    assert (E.edge_tower_fwd.launches, E.edge_tower_bwd.launches,
+            E.edge_tower_fwd.launches_bf16, E.edge_tower_bwd.launches_bf16) == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(conv_w=torch.zeros(5, 5, 1, 4, dtype=torch.bfloat16)), "float32 conv_w"),
+    (dict(conv_b=torch.zeros(4, dtype=torch.bfloat16)), "float32 conv_w and conv_b"),
+    (dict(images=torch.zeros(2, 8, 8, 1, dtype=torch.float16)), "float32 or bfloat16 images"),
+])
+def test_bf16_dtype_mixes_are_refused(bad, match):
+    args = dict(images=torch.zeros(2, 8, 8, 1, dtype=torch.bfloat16),
+                conv_w=torch.zeros(5, 5, 1, 4), conv_b=torch.zeros(4))
+    args.update(bad)
+    with pytest.raises(ValueError, match=match):
+        E.edge_tower_gap(**args)

@@ -24,6 +24,16 @@ items (padded rows on the 4-way model axis):
   single-device packed steps on the same triples: losses rtol 1e-5, the
   row tables rtol 2e-4, atol 1e-6 (the JAX sharded CompVBPR test is a
   slow one);
+- AttentiveFashion with ``compute_dtype="bfloat16"`` (K7's bf16 plain
+  version) over the (1, 2) mesh against the port's single-device packed
+  epoch on the same triples: losses rtol 1e-5, every param f32, the row
+  tables rtol 2e-4, atol 1e-6, the encoders' and the attention's within
+  0.01 lr a step (their bf16 gradients sum in another order over the
+  mesh: one of conv_W's 1600 entries parts by 2.8e-5 after an epoch);
+- CompVBPR with ``compute_dtype="bfloat16"`` (the bf16 CNN as a dense
+  group, dropout off) over the (1, 2) mesh against the port's
+  single-device packed epoch: losses rtol 1e-5, every param f32 and
+  within rtol 2e-4, atol 1e-6, the CNN's included;
 - ``make_generic_packed_spmd_epoch_fn`` with the pair list and derived
   from ``padded_pos``: bit-equal;
 - ``fit(train_path="packed")`` of VBPR over the mesh against the port's
@@ -40,6 +50,7 @@ import pytest
 import torch
 
 import torch_mesh_ranks as ranks
+import torch_mesh_scenarios as scenarios
 from fashionvisualexpl_tpu.core.mesh import make_mesh as jmake_mesh
 from fashionvisualexpl_tpu.data import sampler as jsampler
 from fashionvisualexpl_tpu.data.features import synthetic_features
@@ -167,6 +178,12 @@ def _inputs(shape, wd):
     ranks.write_inputs(wd, "refusals", dict(fn="packed_refusals", model="bprmf", data=DATA),
                        **{f"p.{k}": v for k, v in bparams.items()})
     names += ["pairs", "derived", "refusals"]
+    if shape == BF16_MESH:
+        cfg, arrays = _bf16_case()
+        ranks.write_inputs(wd, "attentive_fashion_bf16", cfg, **arrays)
+        cfg, arrays = _bf16_comp_case()
+        ranks.write_inputs(wd, "comp_vbpr_bf16", cfg, **arrays)
+        names += ["attentive_fashion_bf16", "comp_vbpr_bf16"]
     if shape in HEAVY_MESHES:
         jm, feats = _comp_model()
         params = _flat(jm.init(jax.random.PRNGKey(1))[0])
@@ -181,6 +198,33 @@ def _inputs(shape, wd):
                            **{f"p.{k}": v for k, v in vparams.items()}, **{"f.F": feats_v})
         names += ["comp_vbpr", "fit_vbpr"]
     return names
+
+
+BF16_MESH = (1, 2)
+
+
+def _bf16_case():
+    """(config, arrays) of the bf16 AttentiveFashion packed epoch: JAX's
+    init (its compute dtype carried by ``model_kw``), JAX's triples."""
+    tri = {f"t0.{k}": v for k, v in _triples(KEY, STEPS).items()}
+    train = dict(batch_size=B, lr=LR, reg=REG, train_path="packed")
+    jm, frozen, kw = _jax_model("attentive_fashion")
+    arrays = {f"p.{k}": v for k, v in _flat(jm.init(jax.random.PRNGKey(1))[0]).items()}
+    arrays.update({f"f.{k}": v for k, v in frozen.items()}, **tri)
+    return dict(fn="trainer_steps", model="attentive_fashion", epochs=1, data=DATA,
+                train=train, model_kw=dict(kw, compute_dtype="bfloat16")), arrays
+
+
+def _bf16_comp_case():
+    """(config, arrays) of the bf16 CompVBPR packed epoch (the CNN's
+    dropout off): JAX's f32 init, JAX's triples."""
+    jm, feats = _comp_model()
+    arrays = {f"p.{k}": v for k, v in _flat(jm.init(jax.random.PRNGKey(1))[0]).items()}
+    arrays.update({f"f.{k}": v for k, v in feats.items()},
+                  **{f"t0.{k}": v for k, v in _triples(KEY, STEPS).items()})
+    return dict(fn="trainer_steps", model="comp_vbpr", epochs=1, data=DATA, cnn_dropout=0.0,
+                train=dict(batch_size=B, lr=LR, reg=REG, train_path="packed"),
+                model_kw=dict(compute_dtype="bfloat16")), arrays
 
 
 def _run(shape, tmp_path_factory):
@@ -300,6 +344,51 @@ def test_comp_vbpr_packed_over_mesh_matches_single_device(heavy_run):
     for k, v in params.items():
         if v.ndim and v.shape[0] in (U, I):
             np.testing.assert_allclose(got[f"p.{k}"], v, err_msg=k, **STATE_TOL)
+
+
+def test_bf16_attentive_fashion_over_mesh_matches_single_device(tmp_path_factory):
+    _, _, out = _run(BF16_MESH, tmp_path_factory)
+    got = out["attentive_fashion_bf16"][0]
+    for r in out["attentive_fashion_bf16"][1:]:
+        np.testing.assert_array_equal(r["losses"], got["losses"])
+    cfg, arrays = _bf16_case()
+    model = scenarios.build_model(cfg, arrays)
+    assert model.compute_dtype == torch.bfloat16
+    trainer = Trainer(model, synthetic_interactions(U, I, interactions_per_user=8, seed=0),
+                      TrainConfig(**cfg["train"]))
+    state, frozen = trainer.init_state()
+    state, loss = trainer.run_steps(state, frozen, tuple(torch.tensor(arrays[f"t0.{k}"])
+                                                         for k in ("users", "pos", "neg")),
+                                    step_key=0)
+    np.testing.assert_allclose(got["losses"][0], float(loss), rtol=1e-5)
+    for k, v in state.params.items():
+        assert v.dtype == torch.float32, k
+        if "." in k:  # see the module docstring
+            np.testing.assert_allclose(got[f"p.{k}"], v.numpy(), rtol=0,
+                                       atol=0.01 * LR * STEPS, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[f"p.{k}"], v.numpy(), err_msg=k, **STATE_TOL)
+
+
+def test_bf16_comp_vbpr_over_mesh_matches_single_device(tmp_path_factory):
+    _, _, out = _run(BF16_MESH, tmp_path_factory)
+    got = out["comp_vbpr_bf16"][0]
+    for r in out["comp_vbpr_bf16"][1:]:
+        np.testing.assert_array_equal(r["losses"], got["losses"])
+    cfg, arrays = _bf16_comp_case()
+    model = scenarios.build_model(cfg, arrays)
+    model.cnn.dropout_rate = 0.0
+    assert model.compute_dtype == torch.bfloat16
+    trainer = Trainer(model, synthetic_interactions(U, I, interactions_per_user=8, seed=0),
+                      TrainConfig(**cfg["train"]))
+    state, frozen = trainer.init_state()
+    state, loss = trainer.run_steps(state, frozen, tuple(torch.tensor(arrays[f"t0.{k}"])
+                                                         for k in ("users", "pos", "neg")),
+                                    step_key=0)
+    np.testing.assert_allclose(got["losses"][0], float(loss), rtol=1e-5)
+    for k, v in state.params.items():
+        assert v.dtype == torch.float32, k
+        np.testing.assert_allclose(got[f"p.{k}"], v.numpy(), err_msg=k, **STATE_TOL)
 
 
 def test_derived_pairs_equal_materialized_pairs_over_mesh(run):

@@ -58,7 +58,9 @@ def build_model(cfg, inp):
     if kind == "acf":
         return convert.acf_from_jax(params, f["Fspat"], _data(cfg), device="cpu", **kw)
     if kind == "attentive_fashion":
-        jm = SimpleNamespace(host_features=False, **kw)
+        kw = dict(kw)
+        cd = SimpleNamespace(name=kw.pop("compute_dtype", "float32"))
+        jm = SimpleNamespace(host_features=False, compute_dtype=cd, **kw)
         return convert.attentive_fashion_from_jax(jm, params, f, device="cpu")
     if kind == "comp_vbpr":
         return convert.comp_vbpr_from_jax(params, f.get("Fs"), f.get("Fc"), f.get("Fe_img"),
