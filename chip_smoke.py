@@ -70,7 +70,12 @@ Phases, each of which raises on a failure (nothing is swallowed):
    quantized random weights), both splits: ms per split, user-item scores
    per second, peak memory; K2 must launch 2 * ceil(U / 4096) times; the
    first two user blocks of each split also run through the "bucketed"
-   engine, and the per-user metrics must be equal;
+   engine, and the per-user metrics must be equal; then
+   ``store_recommendation_attention`` over the first 4,096 users of the
+   configuration (BPRMF K=128, 500k items, k=20, blocks of 128 users) with
+   an attention function of a seed: the top-k through K3 (launches
+   counted), the rows held against ``store_recommendation``'s dump and the
+   weights against the function;
 11. cli: ``train_rec.train`` in process (``--rec bprmf --streaming_eval
    --embed_k 128 --epochs 2 --verbose 1``) on a reference-layout dataset
    written here (4,096 users x 20k items, 20 interactions per user), then
@@ -102,6 +107,20 @@ Phases, each of which raises on a failure (nothing is swallowed):
    AttentiveFashion at its training configuration (1M x 200k): 2 steps
    against the CPU route at batch 1024 (the CPU's plain tower at 8192
    would take minutes), then 20 steps at batch 8192 through K4, K5 and K7;
+14b. (run right after the packed BPRMF phase) the specialized packed
+   steps (``train/packed.py``, 1-D tau arrays): BPRMF at the same
+   configuration, 3 steps on the card against CPU copies and against the
+   generic engine's 3 steps on the card from the same params (both within
+   the packed route check, tau, pads and untouched rows bit-equal), then
+   ``make_packed_epoch_fn`` and the generic engine's epoch, 200 steps each
+   on the same arrays and seed, timed in turns (specialized, generic,
+   generic, specialized), 4 K4 + 2 K5 launches a specialized step and
+   their routes; VBPR and GradFashion at the CLI's widths over the same
+   arrays (4096-wide features, GradFashion's 512-wide colors and families
+   of 32), 3 steps on a 20k x 20k catalog, each on the card and on a CPU
+   copy of the card's state before it (dense E, Bp, Ec, Ee within their
+   summation slack), then 200-step epochs beside the
+   generic engine's, the frozen features read by id in both;
 15. packed CLI: ``train_rec --train_path packed`` on the CLI dataset, then
    ``serve_rec`` from its checkpoint;
 16. VBPR's and GradFashion's shapes (the JAX CLI's default widths: K=128,
@@ -225,7 +244,12 @@ Phases, each of which raises on a failure (nothing is swallowed):
    device with the same flags (the file set and, within
    ``tests/test_golden.py``'s tolerances, the metrics; ``serve_rec`` on one
    device from the mesh run's checkpoint equal to its best dump); one rank
-   on nccl answering through the sharded server.
+   on nccl answering through the sharded server.  The train job also runs
+   BPRMF's specialized sharded steps 3 times each: the sparse one
+   (``make_fast_spmd_step``, 3 K6 sweeps a step on every rank) against one
+   device's fast step with ``fused_adam=True`` (``route_check``), the
+   packed one with 1-D tau (4 K4 + 2 K5 a step) against one device's
+   ``make_packed_bprmf_step`` (``packed_route_check``).
 
 26. (run after CompVBPR, before the vision phase) the bf16 towers
    (``compute_dtype="bfloat16"``): K7's bf16 forward and backward (the
@@ -334,6 +358,10 @@ ROUTE_DRIFT = 2 * TRAIN_LR * ROUTE_STEPS
 # leave-one-out split: 20 train + 1 validation + 1 test item per user)
 EVAL_U, EVAL_I, EVAL_TRAIN, EVAL_K = 1_000_000, 500_000, 20, 20
 EVAL_BLOCK, EVAL_TILE, EVAL_CHECK_BLOCKS = 4096, 2048, 2
+# the factored attention dump: the evaluation configuration's first ATT_U
+# users (cut: each user block's weights are [ATT_BLOCK, 500k, 3] floats)
+ATT_U, ATT_BLOCK = 4096, 128
+ATT_DIR = ROOT / "build" / "chip_smoke_attention"
 # the CLI phase: a reference-layout dataset written by this script (20k
 # users until the bf16 phase came, 4,096 since; the items stay at 20k,
 # above the 16,384 from which FactoredEvaluator sends a catalog to K2)
@@ -1709,6 +1737,67 @@ def eval_phase(torch, np, counts, data, host_s):
     torch.cuda.empty_cache()
     return launches, dict(metrics=metrics, per_split=per_split, evaluate_s=total_s,
                           peak_gib=peak / 2**30, host_s=host_s, setup_s=setup_s)
+
+
+def attention_dump_phase(torch, np, segmax, eval_items):
+    """``FactoredEvaluator.store_recommendation_attention`` at the
+    evaluation configuration's widths (BPRMF K=128 over the 500k catalog,
+    k=20) for its first ATT_U users (``eval_items``' rows), with an
+    attention function of the seed: the top-k through K3 (its launches
+    counted), the weights per user block.  The rows are checked against
+    ``store_recommendation``'s dump of the same evaluator (ids equal,
+    scores rtol 1e-6) and the attention function itself."""
+    from fashionvisualexpl_tpu_torch.data.interactions import Interactions
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+
+    t0 = time.perf_counter()
+    data = Interactions.from_lists(eval_items[:, :EVAL_TRAIN].tolist(),
+                                   eval_items[:, -1:].tolist(), EVAL_I,
+                                   eval_items[:, EVAL_TRAIN:-1].tolist())
+    model = quantized_bprmf(torch, ATT_U, EVAL_I, seed=12)
+    coef = torch.randn(3, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(13))
+
+    def weights(u, i):
+        """Softmax weights [..., 3] of (user, item) pairs (float tensors)."""
+        return torch.softmax(torch.sin(coef[0] * (u * 1e-3) + coef[1] * (i * 1e-5) + coef[2]),
+                             dim=-1)
+
+    def attention(params, frozen, users, ctx):
+        """[B, I, 3]: the weights of every item for each of ``users``."""
+        i = torch.arange(EVAL_I, dtype=torch.float32, device=users.device)
+        return weights(users.to(torch.float32)[:, None, None], i[None, :, None])
+
+    ev = FactoredEvaluator(model, data, k=EVAL_K, user_block=ATT_BLOCK)
+    ATT_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    segmax.segmax_scores.launches = 0  # main path starts here
+    t1 = time.perf_counter()
+    ev.store_recommendation_attention(None, None, str(ATT_DIR / "att.tsv"), attention)
+    dump_s = time.perf_counter() - t1
+    launches = segmax.segmax_scores.launches  # main path ends here
+    if not launches:
+        fail("the factored attention dump launched no K3")
+    rows = np.loadtxt(ATT_DIR / "att.tsv", delimiter="\t", dtype=np.float64)
+    ev.store_recommendation(None, None, str(ATT_DIR / "recs.tsv"))
+    recs = np.loadtxt(ATT_DIR / "recs.tsv", delimiter="\t", dtype=np.float64)
+    if rows.shape != (ATT_U * EVAL_K, 6) or not np.isfinite(rows).all():
+        fail(f"attention dump: {rows.shape} rows, expected {(ATT_U * EVAL_K, 6)}, finite")
+    if not (np.array_equal(rows[:, :2], recs[:, :2])
+            and np.allclose(rows[:, 2], recs[:, 2], rtol=1e-6, atol=0.0)):
+        fail("attention dump: its top-k differs from store_recommendation's")
+    u, i = (torch.as_tensor(rows[:, c:c + 1], dtype=torch.float32, device="cuda")
+            for c in (0, 1))
+    if not np.allclose(rows[:, 3:], weights(u, i).cpu().numpy(), rtol=1e-6, atol=0.0):
+        fail("attention dump: its weights differ from the attention function's")
+    out = dict(users=ATT_U, items=EVAL_I, k=EVAL_K, user_block=ATT_BLOCK, dump_s=dump_s,
+               rows=int(rows.shape[0]), k3_launches=launches, s=time.perf_counter() - t0)
+    print(f"factored attention dump: {out}")
+    import shutil
+
+    shutil.rmtree(ATT_DIR, ignore_errors=True)
+    del ev, model
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def write_reference_dataset(np, d: Path, num_users: int = CLI_U, num_items: int = CLI_I):
@@ -3396,6 +3485,244 @@ def packed_train_phase(torch, np, G, S):
         PACKED_PROFILE_STEPS)
     del trainer, model, state, inner, tabs
     torch.cuda.empty_cache()
+    return launches, summary
+
+
+def as_generic(torch, PG, st):
+    """A specialized packed state (``train/packed.py``) in the generic
+    engine's layout, tau as a last float32 column, for
+    ``packed_route_check``."""
+    return PG.GenericPackedState(
+        st.step, torch.cat([st.user_pmv, st.tau_u.to(torch.float32)[:, None]], dim=1),
+        torch.cat([st.item_pmv, st.tau_i.to(torch.float32)[:, None]], dim=1),
+        st.dense)
+
+
+def spec_dense_slack(torch, kind, st, batch, frozen, slack):
+    """``dense_sum_slack`` for a specialized VBPR or GradFashion step on
+    ``batch`` from state ``st``: each dense gradient entry's bound on its
+    sum of |terms| over the 2B item rows (|sigmoid| <= 1); ``frozen`` the
+    model's buffers.  VBPR: Bp's terms F_ij, E's F_ij Tu_d (vbpr_phase's).
+    GradFashion, vf = [Fc Ec | Fe Ee]: Bp's |vf_ij|, E's |vf_ij| |Tu_d|,
+    Ec's and Ee's |F_ij| times the largest |d score / d vf_k| = |Tu|
+    |E_k|^T + |Bp_k|."""
+    D = VIS_EMBED_D
+    ii = torch.cat(batch[1:]).long()
+    tu = st.user_pmv[batch[0].long(), EMBED_K:EMBED_K + D].abs()
+    if kind == "vbpr":
+        f_sum = frozen["F"][ii].sum(0)
+        S = {"Bp": f_sum[:, None], "E": f_sum[:, None] * tu.amax(0)[None, :]}
+    else:
+        Fc, Fe = frozen["Fc"], frozen["Fe"]
+        dense = {n: x[0].abs() for n, x in st.dense.items()}
+        c, e = Fc[ii].abs(), Fe[ii].abs()
+        vf_sum = torch.cat([c @ dense["Ec"], e @ dense["Ee"]], dim=1).sum(0)
+        g_vf = (tu @ dense["E"].T + dense["Bp"][:, 0]).amax(0)
+        ec = dense["Ec"].shape[1]
+        S = {"Bp": vf_sum[:, None], "E": vf_sum[:, None] * tu.amax(0)[None, :],
+             "Ec": c.sum(0)[:, None] * g_vf[None, :ec], "Ee": e.sum(0)[:, None] * g_vf[None, ec:]}
+    return dense_sum_slack(slack, S, 2 * TRAIN_B)
+
+
+def specialized_epochs(torch, np, G, S, label, runs, steps, extra):
+    """The specialized and the generic packed epochs of one model on the
+    same arrays and seed, timed in turns (specialized, generic, generic,
+    specialized), each from a fresh state.  ``runs`` maps "specialized" /
+    "generic" to (fresh state, epoch(state) -> (state, loss)).  K4's and
+    K5's launches are counted over the first specialized epoch, the main
+    path (4 and 2 a step).  ``extra`` joins the summary.  Returns
+    (launches, summary)."""
+    out = {"specialized": [], "generic": []}
+    launches = routes = scatter = None
+    for engine in ("specialized", "generic", "generic", "specialized"):
+        make_state, epoch = runs[engine]
+        state = make_state()
+        torch.cuda.synchronize()
+        main = engine == "specialized" and launches is None
+        if main:
+            G.gather_rows.launches = S.scatter_rows_set.launches = 0
+            S.scatter_rows_set.routes.clear()
+            G.gather_rows.routes.clear()  # the specialized main path starts here
+        t0 = time.perf_counter()
+        state, loss = epoch(state)
+        loss = float(loss)  # waits for the epoch
+        dt = time.perf_counter() - t0
+        if main:
+            launches = {"gather_rows": G.gather_rows.launches,
+                        "scatter_rows_set": S.scatter_rows_set.launches}  # ... ends here
+            routes = dict(G.gather_rows.routes)
+            scatter = scatter_routes(S, f"{label} specialized epoch",
+                                     launches["scatter_rows_set"], steps,
+                                     (state.user_pmv, state.item_pmv))
+            want = {"gather_rows": 4 * steps, "scatter_rows_set": 2 * steps}
+            if launches != want:
+                fail(f"{label} specialized epoch launched {launches}, expected {want}")
+        if not np.isfinite(loss) or int(state.step) != steps:
+            fail(f"{label} {engine} epoch: loss {loss!r}, step {int(state.step)}")
+        out[engine].append(dict(ms_per_step=1e3 * dt / steps, mean_loss=loss / steps))
+        del state
+        torch.cuda.empty_cache()
+    summary = {e: dict(ms_per_step=[r["ms_per_step"] for r in rs],
+                       mean_loss=rs[0]["mean_loss"]) for e, rs in out.items()}
+    summary.update(steps=steps, batch=TRAIN_B, gather_routes=routes, scatter_routes=scatter,
+                   **extra)
+    print(f"{label} epochs of {steps} steps, specialized vs generic (in turns s, g, g, s): "
+          f"{summary}; K4 routes {routes}, K5 routes {scatter}, launches {launches}")
+    return launches, summary
+
+
+def specialized_phase(torch, np, G, S):
+    """The specialized packed steps (``train/packed.py``) at full width:
+    BPRMF at the packed phase's configuration (3 steps on the card against
+    CPU copies, and against the generic engine's 3 steps from the same
+    params; a 200-step epoch beside the generic engine's), then VBPR and
+    GradFashion at the CLI's widths over the same arrays (3 steps on a
+    20k x 20k catalog against CPU copies; a 200-step epoch each beside the
+    generic engine's, the frozen features read by id in both)."""
+    from fashionvisualexpl_tpu_torch.data.sampler import sample_triplets
+    from fashionvisualexpl_tpu_torch.models.bprmf import BPRMF
+    from fashionvisualexpl_tpu_torch.models.grad_fashion import GradFashion
+    from fashionvisualexpl_tpu_torch.models.vbpr import VBPR
+    from fashionvisualexpl_tpu_torch.train import packed as P
+    from fashionvisualexpl_tpu_torch.train import packed_generic as PG
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    start = phase_start(torch)
+    torch.cuda.reset_peak_memory_stats()
+    pairs, items, counts = make_scaled_arrays(TRAIN_U, TRAIN_I, TRAIN_POS, seed=0)
+    tabs = tuple(torch.as_tensor(x, device=dev) for x in (pairs, items, counts))
+    del pairs, items, counts
+    g = torch.Generator(device=dev).manual_seed(23)
+    launches, summary = {}, {}
+
+    # BPRMF: the route (card vs CPU copies) and the generic engine's steps
+    model = BPRMF(TRAIN_U, TRAIN_I, embed_k=EMBED_K, generator=g)
+    params = dict(model.named_parameters())
+    triples = sample_triplets(7, *tabs, TRAIN_I, PACKED_ROUTE_STEPS, TRAIN_B)
+    kern = P.pack_bprmf_state(params)
+    plain = state_on(torch, kern)
+    gen = PG.pack_generic_state(model, params)
+    step = P.make_packed_step(model, TRAIN_LR, TRAIN_REG)
+    gstep = PG.make_generic_packed_step(model, TRAIN_LR, TRAIN_REG)
+    losses = []
+    for s in range(PACKED_ROUTE_STEPS):
+        batch = tuple(t[s] for t in triples)
+        kern, lk = step(kern, batch)
+        plain, lp = step(plain, tuple(x.cpu() for x in batch))
+        gen, lg = gstep(gen, (None, batch, None))
+        lk, lp, lg = float(lk), float(lp), float(lg)
+        if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)
+                and abs(lk - lg) <= 1e-5 * abs(lg)):
+            fail(f"bprmf specialized step {s}: loss {lk!r} (card) vs {lp!r} (CPU) vs "
+                 f"{lg!r} (generic engine)")
+        losses.append((lk, lp, lg))
+    spec = model.packed_spec()
+    err, beyond = packed_route_check(torch, PG, "bprmf specialized route",
+                                     as_generic(torch, PG, kern), as_generic(torch, PG, plain),
+                                     spec, "float32", PACKED_ROUTE_STEPS, TRAIN_LR)
+    gerr, gbeyond = packed_route_check(torch, PG, "bprmf specialized vs generic", gen,
+                                       as_generic(torch, PG, kern), spec, "float32",
+                                       PACKED_ROUTE_STEPS, TRAIN_LR)
+    summary["bprmf"] = dict(route=dict(max_abs_err=err, beyond=beyond),
+                            vs_generic=dict(max_abs_err=gerr, beyond=gbeyond),
+                            widths=[kern.user_pmv.shape[1], kern.item_pmv.shape[1]])
+    print(f"bprmf specialized: {PACKED_ROUTE_STEPS} full-width steps, losses (card, CPU, "
+          f"generic) {losses}; card vs CPU max_abs_err={err!r} ({beyond} values one drift "
+          f"apart), vs the generic engine on the card max_abs_err={gerr!r} ({gbeyond}); tau, "
+          f"pads and untouched rows bit-equal ok")
+    del kern, plain, gen
+    torch.cuda.empty_cache()
+
+    sepoch = P.make_packed_epoch_fn(model, TRAIN_LR, TRAIN_REG, TRAIN_I, PACKED_STEPS,
+                                    TRAIN_B)
+    gepoch = PG.make_generic_packed_epoch_fn(model, TRAIN_LR, TRAIN_REG, TRAIN_I,
+                                             PACKED_STEPS, TRAIN_B)
+    launches["bprmf"], epochs = specialized_epochs(
+        torch, np, G, S, "bprmf", {
+            "specialized": (lambda: P.pack_bprmf_state(params),
+                            lambda st: sepoch(st, 110, *tabs)),
+            "generic": (lambda: PG.pack_generic_state(model, params),
+                        lambda st: gepoch(st, None, 110, *tabs))},
+        PACKED_STEPS, {})
+    summary["bprmf"].update(epochs)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # VBPR and GradFashion at the CLI's widths over the same arrays
+    for kind in ("vbpr", "grad_fashion"):
+        t0 = time.perf_counter()
+        # maxabs-normalized non-negative features on the 1/64 grid, made on the card
+        feats = [torch.rand(TRAIN_I, w, device=dev, generator=g).mul_(64).round_().div_(64)
+                 for w in ((VIS_DIM_F,) if kind == "vbpr" else (VIS_DIM_C, VIS_DIM_F))]
+
+        def make(n, feats=feats, kind=kind):
+            if kind == "vbpr":
+                return VBPR(n[0], n[1], feats[0][:n[1]], embed_k=EMBED_K, embed_d=VIS_EMBED_D,
+                            generator=g)
+            return GradFashion(n[0], n[1], feats[0][:n[1]], feats[1][:n[1]], embed_k=EMBED_K,
+                               embed_d=VIS_EMBED_D, embed_color=VIS_EMBED_FAMILY,
+                               embed_edges=VIS_EMBED_FAMILY, generator=g)
+
+        pack = P.pack_vbpr_state if kind == "vbpr" else P.pack_grad_fashion_state
+
+        # the route: 3 steps on a 20k x 20k catalog, each on the card and on
+        # a CPU copy of the card's state before it.  Carried over steps, the
+        # routes would part by more than a step's rounding: Adam's first
+        # steps move a dense entry whose gradient sums to about 0 by about
+        # lr either way, and the dense E, Bp (Ec, Ee) then feed every row's
+        # next gradient
+        small = make((VIS_ROUTE_N, VIS_ROUTE_N))
+        kern = pack(dict(small.named_parameters()))
+        step = P.make_packed_step(small, TRAIN_LR, TRAIN_REG)
+        fr = dict(small.named_buffers())
+        fr_cpu = {k: v.cpu() for k, v in fr.items()}
+        losses, err, beyond = [], 0.0, 0
+        for s in range(VIS_ROUTE_STEPS):
+            batch = tuple(torch.randint(0, VIS_ROUTE_N, (TRAIN_B,), device=dev, generator=g,
+                                        dtype=torch.int32) for _ in range(3))
+            plain = state_on(torch, kern)
+            slack = spec_dense_slack(torch, kind, kern, batch, fr, {})
+            kern, lk = step(kern, batch, frozen=fr)
+            plain, lp = step(plain, tuple(x.cpu() for x in batch), frozen=fr_cpu)
+            lk, lp = float(lk), float(lp)
+            if not (np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)):
+                fail(f"{kind} specialized step {s}: loss {lk!r} (card) vs {lp!r} (CPU)")
+            losses.append((lk, lp))
+            e, n = packed_route_check(torch, PG, f"{kind} specialized route step {s}",
+                                      as_generic(torch, PG, kern),
+                                      as_generic(torch, PG, plain), small.packed_spec(),
+                                      "float32", s + 1, TRAIN_LR, dense_slack=slack)
+            err, beyond = max(err, e), beyond + n
+        summary[kind] = dict(route=dict(max_abs_err=err, beyond=beyond),
+                             widths=[kern.user_pmv.shape[1], kern.item_pmv.shape[1]])
+        print(f"{kind} specialized: {VIS_ROUTE_STEPS} steps at batch {TRAIN_B} on a "
+              f"{VIS_ROUTE_N} x {VIS_ROUTE_N} catalog, each on the card and on a CPU copy "
+              f"of the card's state, losses {losses}; "
+              f"max_abs_err={err!r}, {beyond} values drift apart; tau, pads and untouched "
+              f"rows bit-equal ok")
+        del small, kern, plain, step, fr, fr_cpu
+
+        # the epochs at full size, the frozen features read by id in both engines
+        model = make((TRAIN_U, TRAIN_I))
+        params, frozen = dict(model.named_parameters()), dict(model.named_buffers())
+        sepoch = P.make_packed_epoch_fn(model, TRAIN_LR, TRAIN_REG, TRAIN_I, VIS_STEPS,
+                                        TRAIN_B)
+        gepoch = PG.make_generic_packed_epoch_fn(model, TRAIN_LR, TRAIN_REG, TRAIN_I,
+                                                 VIS_STEPS, TRAIN_B)
+        launches[kind], epochs = specialized_epochs(
+            torch, np, G, S, kind, {
+                "specialized": (lambda: pack(params),
+                                lambda st: sepoch(st, 111, *tabs, frozen=frozen)),
+                "generic": (lambda: PG.pack_generic_state(model, params),
+                            lambda st: gepoch(st, frozen, 111, *tabs))},
+            VIS_STEPS, dict(setup_and_route_s=time.perf_counter() - t0))
+        summary[kind].update(epochs)
+        del model, params, frozen, feats, sepoch, gepoch
+        torch.cuda.empty_cache()
+    summary["peak_gib"] = (torch.cuda.max_memory_allocated() - start) / 2**30
+    summary["phase_s"] = time.perf_counter() - phase_t0
+    print(f"specialized phase: {summary['phase_s']!r} s")
     return launches, summary
 
 
@@ -5736,7 +6063,7 @@ MESH_STEPS = 3  # training steps compared against one device
 MESH_CLI_B = 8192  # the CLI runs' batch (cut: phase 11 trains at 256)
 MESH_NCCL_N = 100_000  # the nccl rank's catalog, at full width (cut)
 MESH_SERVE_REPS = {8: 10, 64: 10, 1024: 3, 4096: 2}
-MESH_TIMEOUT_S = {"serve_eval": 240, "train": 240, "cli": 300, "nccl": 120}
+MESH_TIMEOUT_S = {"serve_eval": 240, "train": 300, "cli": 300, "nccl": 120}
 
 
 def resnet_flops(blocks, hw: int, with_head: bool = False) -> float:
@@ -6171,8 +6498,11 @@ def mesh_serve_eval_rank(torch, np, rank):
 
 def mesh_train_rank(torch, np, rank):
     """BPRMF at 1M x 500k, batch 8192, over a (2, 2) mesh: MESH_STEPS
-    generic steps and packed steps (fp32 and bf16 moments); rank 0 also
-    runs them on one device from the same state and triples and checks."""
+    generic steps, packed steps (fp32 and bf16 moments) and the steps of
+    BPRMF's specialized engines (the sparse one through K6, the packed one
+    with 1-D tau through K4 and K5), each rank's launches counted; rank 0
+    also runs them on one device from the same state and triples and
+    checks."""
     from fashionvisualexpl_tpu_torch.core.mesh import make_mesh
     from fashionvisualexpl_tpu_torch.core.train_state import (
         apply_gradients,
@@ -6276,6 +6606,64 @@ def mesh_train_rank(torch, np, rank):
                                              MESH_STEPS, TRAIN_LR)
             out[md].update(max_abs_err=err, beyond=beyond)
         del model, packed, got
+        torch.cuda.empty_cache()
+
+    # BPRMF's specialized engines: the sparse step (K6 sweeps) and the
+    # packed step with 1-D tau (K4 reads, K5 writes)
+    from fashionvisualexpl_tpu_torch.ops import adam as A
+    from fashionvisualexpl_tpu_torch.train import fast as FT
+    from fashionvisualexpl_tpu_torch.train import packed as P
+
+    engines = {
+        "fast": (FT.init_fast_state, fast_spmd.shard_fast_state, fast_spmd.unshard_fast_state,
+                 fast_spmd.make_fast_spmd_step,
+                 lambda m: FT.make_fast_bprmf_step(m, TRAIN_LR, TRAIN_REG, fused_adam=True)),
+        "specialized": (P.pack_bprmf_state, fast_spmd.shard_packed_state,
+                        fast_spmd.unshard_packed_state, fast_spmd.make_packed_spmd_step,
+                        lambda m: P.make_packed_step(m, TRAIN_LR, TRAIN_REG))}
+    for engine, (init, shard, unshard, make_step, make_one) in engines.items():
+        model = model_()
+        whole = init({k: v.detach() for k, v in model.named_parameters()})
+        st = shard(whole, mesh)
+        step = make_step(model, mesh, TRAIN_LR, TRAIN_REG)
+        losses = []
+        A.fused_adam_sweep.launches = 0
+        G.gather_rows.launches = S.scatter_rows_set.launches = 0  # sharded steps start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(MESH_STEPS):
+            st, loss = step(st, tuple(t[s] for t in triples))
+            losses.append(float(loss))
+        ms = 1e3 * (time.perf_counter() - t0) / MESH_STEPS
+        counted = dict(k4_launches=G.gather_rows.launches,
+                       k5_launches=S.scatter_rows_set.launches,
+                       k6_launches=A.fused_adam_sweep.launches)  # ... and end
+        want = (dict(k4_launches=0, k5_launches=0, k6_launches=3 * MESH_STEPS)
+                if engine == "fast" else
+                dict(k4_launches=4 * MESH_STEPS, k5_launches=2 * MESH_STEPS, k6_launches=0))
+        if counted != want:
+            fail(f"mesh train {engine} rank {rank}: launches {counted}, expected {want}")
+        out[engine] = dict(losses=losses, ms_per_step=ms, **counted)
+        got = checker and unshard(st, mesh)
+        del st
+        if rank == 0:
+            one = make_one(model)
+            for s in range(MESH_STEPS):
+                whole, loss = one(whole, tuple(t[s] for t in triples))
+                if not abs(float(loss) - losses[s]) <= 1e-5 * abs(float(loss)):
+                    fail(f"mesh train {engine} step {s}: loss {losses[s]!r} vs one device "
+                         f"{float(loss)!r}")
+            label = f"mesh train {engine} (2, 2) vs one device"
+            if engine == "fast":
+                err, n = route_check(torch, label, *(types.SimpleNamespace(
+                    params=x.params, opt_state=types.SimpleNamespace(mu=x.mu, nu=x.nu))
+                    for x in (got, whole)), MESH_STEPS, 2 * TRAIN_LR * MESH_STEPS)
+            else:
+                err, n = packed_route_check(torch, PG, label, as_generic(torch, PG, got),
+                                            as_generic(torch, PG, whole), model.packed_spec(),
+                                            "float32", MESH_STEPS, TRAIN_LR)
+            out[engine].update(max_abs_err=err, beyond=n)
+        del model, whole, got
         torch.cuda.empty_cache()
     print(f"mesh train rank {rank}: {out}")
     return out
@@ -6406,7 +6794,7 @@ def mesh_phase(torch, np, eval_metrics):
         "serve_2_ranks": {r: o["serve"] for r, o in enumerate(serve_eval)},
         "eval_2_ranks": serve_eval[0]["eval"],
         "train_4_ranks": {md: {k: v for k, v in train[0][md].items()}
-                          for md in ("generic", "float32", "bfloat16")},
+                          for md in ("generic", "float32", "bfloat16", "fast", "specialized")},
         "cli_4_ranks": cli,
         "staged_bytes": {job: [o["staged_bytes"] for o in outs] for job, outs in
                          (("serve_eval", serve_eval), ("train", train), ("nccl", nccl))},
@@ -6417,9 +6805,10 @@ def mesh_phase(torch, np, eval_metrics):
         "segmax_scores_nccl": nccl[0]["k3_launches"],
         "counts": [o["eval"]["k2_launches"] for o in serve_eval],
         "gather_rows": {md: [o[md]["k4_launches"] for o in train]
-                        for md in ("float32", "bfloat16")},
+                        for md in ("float32", "bfloat16", "specialized")},
         "scatter_rows_set": {md: [o[md]["k5_launches"] for o in train]
-                             for md in ("float32", "bfloat16")},
+                             for md in ("float32", "bfloat16", "specialized")},
+        "adam_sweep": [o["fast"]["k6_launches"] for o in train],
     }
     if not all(launches["segmax_scores"]) or not all(launches["counts"]):
         fail(f"mesh: a rank launched no K3 or K2: {launches}")
@@ -6483,9 +6872,11 @@ def main() -> int:
     eval_items = make_eval_items(np, EVAL_U, EVAL_I, EVAL_TRAIN + 2, seed=0)
     counts_row = eval_kernel_phase(torch, np, counts, topk, eval_items)
     eval_data, host_s = eval_interactions(np, eval_items)
+    att_items = eval_items[:ATT_U].copy()
     del eval_items
     mesh_eval_data(eval_data)
     eval_launches, evaluated = eval_phase(torch, np, counts, eval_data, host_s)
+    att_launches, att = attention_dump_phase(torch, np, segmax, att_items)
     vbpr_launches, vbpr = vbpr_phase(torch, np, counts, segmax, G, S, eval_data)
     del eval_data
     vis_cli_launches, vis_cli = visual_cli_phase(torch, np, counts, segmax, G, S)
@@ -6497,6 +6888,7 @@ def main() -> int:
     streamed_cli_launches, streamed_cli = streamed_cli_phase(torch, np, E)
     row_rows = row_kernel_phase(torch, G, S)
     packed_launches, packed = packed_train_phase(torch, np, G, S)
+    spec_launches, specialized = specialized_phase(torch, np, G, S)
     af_packed_launches, af_packed = af_packed_phase(torch, np, G, S, E)
     packed_cli_launches, packed_cli = packed_cli_phase(torch, np, counts, segmax, G, S)
     acf_cli_launches, acf, acf_rows = acf_phase(torch, np, counts, segmax, G, S)
@@ -6531,6 +6923,7 @@ def main() -> int:
         "comp_vbpr_cli_launches": {k: v["segmax_scores"] for k, v in comp_cli_launches.items()},
         "mesh_launches_by_rank": mesh_launches["segmax_scores"],
         "mesh_nccl_launches": mesh_launches["segmax_scores_nccl"],
+        "attention_dump_launches": att_launches,
         "vision_cli_launches": vision_launches["segmax_scores"],
         "build_s": rows["build_s"],
         "ptxas": rows["ptxas"],
@@ -6546,6 +6939,7 @@ def main() -> int:
             "replaces": replaces, "launches": train_launches[name],
             **train_rows[name],
         })
+    kernels[-1]["mesh_fast_launches_by_rank"] = mesh_launches["adam_sweep"]
     kernels.append({
         "name": "counts", "route": "cuda",
         "source": "fashionvisualexpl_tpu_torch/ops/csrc/counts.cu",
@@ -6601,6 +6995,7 @@ def main() -> int:
             "comp_vbpr_grid": comp["kernels"][name],
             "comp_vbpr_cli_launches": {k: v[name] for k, v in comp_cli_launches.items()},
             "mesh_launches_by_rank": mesh_launches[name],
+            "specialized_launches": {k: v[name] for k, v in spec_launches.items()},
         })
     for kernel, kind, tag in ((kernels[-2], "gather", "k4"), (kernels[-1], "scatter", "k5")):
         kernel.update(
@@ -6611,6 +7006,8 @@ def main() -> int:
             acf_routes=acf["packed"][f"{kind}_routes"],
             acf_fused_routes=acf["fused"][f"{kind}_routes"],
             comp_vbpr_routes=comp["packed"][f"{kind}_routes"],
+            specialized_routes={k: specialized[k][f"{kind}_routes"]
+                                for k in ("bprmf", "vbpr", "grad_fashion")},
             step_share={k: p["profile"][f"{tag}_share"] for k, p in (
                 ("packed", packed), ("af_packed", af_packed), ("vbpr_packed", vbpr["packed"]),
                 ("acf_packed", acf["packed"]), ("acf_fused", acf["fused"]),
@@ -6624,6 +7021,7 @@ def main() -> int:
     print(json.dumps({"af_train": af_train, "af_cli": af_cli}))
     print(json.dumps({"native": native, "streamed": streamed, "streamed_cli": streamed_cli}))
     print(json.dumps({"packed": packed, "af_packed": af_packed, "packed_cli": packed_cli}))
+    print(json.dumps({"specialized": specialized, "attention_dump": att}))
     print(json.dumps({"vbpr": vbpr, "visual_cli": vis_cli}))
     print(json.dumps({"acf": acf}))
     print(json.dumps({"comp_vbpr": comp}))

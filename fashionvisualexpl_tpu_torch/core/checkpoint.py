@@ -20,7 +20,9 @@ the model's state too.  The packed engine's ``GenericPackedTrainState``
 saves its step, packed user and item rows and dense (p, m, v), bit for
 bit, and its ``moment_dtype`` as a string leaf, which a restore must find
 equal to the template's (a row_align-padded layout cannot be read under
-another moment layout).
+another moment layout).  The specialized engines' ``PackedTrainState``
+(``train/packed.py``) saves its packed state (rows, tau arrays, dense
+(p, m, v)) bit for bit and its ``kind`` likewise.
 """
 
 from __future__ import annotations

@@ -165,8 +165,10 @@ def triplets_from_draws(
         users = users.to(torch.int32)
         return users.reshape(shape), pos.reshape(shape), neg.reshape(shape)
     pairs = train_pairs[idx]
-    users = pairs[:, 0]
-    pos = pairs[:, 1]
+    # contiguous columns: the packed engines hand each step's ids to the
+    # row gather K4, which takes contiguous ids only
+    users = pairs[:, 0].contiguous()
+    pos = pairs[:, 1].contiguous()
     neg = sample_negatives(u01, users, padded_pos, pos_counts, num_items)
     return users.reshape(shape), pos.reshape(shape), neg.reshape(shape)
 

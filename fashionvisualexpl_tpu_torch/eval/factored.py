@@ -400,11 +400,31 @@ class FactoredEvaluator:
 
     def store_recommendation_attention(self, params, frozen, path: str,
                                        attention_fn) -> None:
-        raise NotImplementedError(
-            "the factored attention dump is not ported: AttentiveFashion, the "
-            "one model with attention dumps, has no factored_eval and dumps "
-            "through the dense Evaluator"
-        )
+        """Attention-augmented top-k TSV (Evaluator.py:241-259):
+        `user\titem\tscore\talpha_color\talpha_edges\talpha_class`,
+        without the [U, I] score matrix: the top-k comes from the serving
+        engine (``_topk_rows``: ``RecServer``, K3), then the attention
+        weights per user block from ``attention_fn(params, frozen,
+        user_ids, ctx) -> [B, I, 3]``, the dense ``Evaluator``'s contract,
+        with ``ctx`` the model's ``precompute_eval`` (computed once).
+        Memory is [user_block, I, 3] a block.  Over a mesh every rank
+        computes and the primary writes."""
+        users, ids, vals = self._topk_rows(params, frozen)
+        ctx = self.model.precompute_eval(params)
+        if self.mesh is not None and not self.mesh.is_primary:
+            return
+        with open(path, "w") as out:
+            for start in range(0, len(users), self.user_block):
+                rows = slice(start, start + self.user_block)
+                user_ids = torch.as_tensor(users[rows], device=self.device).long()
+                top = torch.as_tensor(ids[rows], device=self.device).long()
+                att = torch.take_along_dim(attention_fn(params, frozen, user_ids, ctx),
+                                           top[:, :, None], dim=1).cpu().numpy()
+                out.writelines(
+                    f"{u}\t{i}\t{s}\t{a[0]}\t{a[1]}\t{a[2]}\n"
+                    for u, row_ids, row_vals, row_att in zip(users[rows], ids[rows],
+                                                             vals[rows], att)
+                    for i, s, a in zip(row_ids, row_vals, row_att))
 
     def store_recommendation_grads(self, params, frozen, path: str,
                                    grads_fn=None, batch_grads_fn=None) -> None:

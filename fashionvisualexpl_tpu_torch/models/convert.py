@@ -308,3 +308,21 @@ def generic_packed_state_from_jax(jax_state, spec, device: DeviceLike = None):
     dense = {name: tuple(entry(x) for x in jax_state.dense[name]) for name in spec.dense}
     return GenericPackedState(_count(jax_state.step, dev), tensor(jax_state.user_pmv),
                               tensor(jax_state.item_pmv), dense)
+
+
+def packed_state_from_jax(jax_state, device: DeviceLike = None):
+    """The port's specialized packed state (``train/packed.py``) holding
+    exactly a JAX ``PackedLazyState``, ``PackedVbprState`` or
+    ``PackedGradFashionState`` handed over as numpy
+    (``jax.tree.map(np.asarray, state)``): the step, the packed user and
+    item rows and both tau arrays bit for bit and, for VBPR and
+    GradFashion, each dense (p, m, v)."""
+    from fashionvisualexpl_tpu_torch.train.packed import PackedLazyState
+
+    dev = resolve_device(device)
+    t = _tensors({k: getattr(jax_state, k) for k in ("user_pmv", "item_pmv", "tau_u", "tau_i")},
+                 dev)
+    dense = {name: tuple(_tensors(dict(zip("pmv", pmv)), dev).values())
+             for name, pmv in getattr(jax_state, "dense", {}).items()}
+    return PackedLazyState(_count(jax_state.step, dev), t["user_pmv"], t["item_pmv"],
+                           t["tau_u"], t["tau_i"], dense)

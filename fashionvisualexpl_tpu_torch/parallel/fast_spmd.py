@@ -1,37 +1,46 @@
-"""The generic packed engine over a (data, model) mesh (port of the generic
-part of ``fashionvisualexpl_tpu/parallel/fast_spmd.py``).
+"""Sharded fast paths over a (data, model) mesh (port of
+``fashionvisualexpl_tpu/parallel/fast_spmd.py``): the generic packed
+engine, and BPRMF's specialized sparse and packed engines.
 
-The packed rows of ``train/packed_generic.py`` are row-sharded over
-``model`` (padded to the axis multiple, ``shard_generic_packed_state``),
-the dense params replicated, the batch sliced over ``data``.  Per step and
-rank:
+The tables (packed rows, or params and their moments) are row-sharded
+over ``model``, the batch sliced over ``data``.  Per step and rank:
 
-- the forward rows: a local read of the owned rows through K4
-  (``ops/gather.py::gather_rows``; a non-owned id reads row 0 and is masked
-  to zero), then one ``psum`` over ``model`` of the parameter columns only
-  (the moment columns never travel): ``_packed_forward_take`` /
-  ``_packed_forward_take_cols``;
-- the loss and its gradients with respect to the gathered views, the
-  model's own table reads (frozen tables by id) through
-  ``parallel/spmd.py::collective_take``; loss and dense grads summed over
-  ``data`` in one collective;
+- the forward rows: for packed rows a local read of the owned rows
+  through K4 (``ops/gather.py::gather_rows``; a non-owned id reads row 0
+  and is masked to zero), then one ``psum`` over ``model`` of the
+  parameter columns only (the moment columns never travel):
+  ``_packed_forward_take`` / ``_packed_forward_take_cols``; for the sparse
+  engine's params the collective lookup ``parallel/spmd.py::collective_take``;
+- the loss (``model.packed_loss``, in every engine) and its gradients
+  with respect to the gathered views (``train/packed.py::_loss_grads``),
+  the model's own table reads (frozen tables by id) through
+  ``collective_take``; loss and dense grads summed over ``data`` in one
+  collective;
 - the row ids and row grads all-gathered over ``data`` (ids ride the grads
   as float32 bit patterns: one gather a table), deduped once
-  (``compact_row_grads``), and every model rank applies LazyAdam to the
-  unique rows it owns: the owned-row read through K4, the write-back
-  through K5 (``ops/row_scatter.py::scatter_rows_set``), which drops the
-  non-owned ids, routed out of range (``_sharded_packed_lazy_apply_taucol``).
-  Pad rows and ``row_align`` pad columns pass through untouched.
+  (``compact_row_grads``), and every model rank updates the unique rows it
+  owns, nothing else:
 
-Dropout differs per data shard and is identical across model shards: the
-step's generator seed is folded with the rank's data index.  float8
-moments are refused (``_moment_cols``), as in the JAX package.
+  - packed LazyAdam: the owned-row read through K4, the write-back through
+    K5 (``ops/row_scatter.py::scatter_rows_set``), which drops the
+    non-owned ids, routed out of range; tau rides the rows
+    (``_sharded_packed_lazy_apply_taucol``, the generic engine) or lives
+    in 1-D arrays (``_sharded_packed_lazy_apply``, ``PackedLazyState``),
+    whose write drops those ids by a mask;
+  - sparse Adam (``make_fast_spmd_step``): the pre-scaled gradient
+    scatter into the owned rows of m and v, the non-owned ids and the
+    dedupe's pads (2**30) masked out, then one sweep over the local shard
+    through K6 (``ops/adam.py::fused_adam_sweep``; its plain version on
+    CPU tensors), the kernel the JAX package gives the same sweep.
 
-Not ported here: ``make_fast_spmd_epoch_fn``, ``make_packed_spmd_epoch_fn``
-and ``shard_packed_state`` (BPRMF's sparse and ``PackedLazyState``
-engines, ROADMAP queue 1, item 5); no ``Trainer`` path reaches them.
+Pad rows and ``row_align`` pad columns pass through untouched.  Dropout
+differs per data shard and is identical across model shards: the step's
+generator seed is folded with the rank's data index.  float8 moments are
+refused (``_moment_cols``), as in the JAX package.  The specialized
+engines' tables must divide the model axis (``shard_fast_state`` and
+``shard_packed_state`` raise otherwise, as JAX's placement does); the
+generic engine pads them.
 """
-
 from __future__ import annotations
 
 import functools
@@ -57,14 +66,23 @@ from fashionvisualexpl_tpu_torch.parallel.spmd import (
     spmd_model,
     unshard_rows,
 )
-from fashionvisualexpl_tpu_torch.train.fast import compact_row_grads, dense_adam
-from fashionvisualexpl_tpu_torch.train.packed import _lazy_rows
+from fashionvisualexpl_tpu_torch.ops.adam import adam_scalars, fused_adam_sweep
+from fashionvisualexpl_tpu_torch.train.fast import B1, B2, FastState, compact_row_grads, dense_adam
+from fashionvisualexpl_tpu_torch.train.packed import (
+    PackedLazyState,
+    _lazy_rows,
+    _lazy_update,
+    _loss_grads,
+    _offsets,
+    _row_grads,
+    _row_layout,
+    run_specialized_steps,
+)
 from fashionvisualexpl_tpu_torch.train.packed_generic import (
     GenericPackedState,
     _flat_dense,
     _lazy_rows_bf16,
     _moment_cols,
-    _offsets,
     run_packed_steps,
 )
 from fashionvisualexpl_tpu_torch.train.trainer import fold_in, split_seed
@@ -179,19 +197,10 @@ def make_generic_packed_spmd_step(model, mesh: Mesh, lr: float, reg: float,
             rng_l = torch.Generator(device=rng.device).manual_seed(
                 fold_in(rng.initial_seed(), mesh.axis_index(DATA_AXIS)))
 
-        groups = (user_vw, pos_vw, neg_vw, extra_vw, dense_p)
-        keys = [(i, k) for i, grp in enumerate(groups) for k in grp]
-        kw = {"extra_vw": extra_vw} if E else {}
-        with spmd_model(model, take, 1.0 / d), torch.enable_grad():
-            for i, k in keys:
-                groups[i][k] = groups[i][k].detach().requires_grad_()
-            loss = model.packed_loss(user_vw, pos_vw, neg_vw, dense_p, frozen, ids, reg,
-                                     rng_l, **kw)
-            grads = torch.autograd.grad(loss, [groups[i][k] for i, k in keys],
-                                        allow_unused=True)
-        gU, gP, gN, gX, gD = ({}, {}, {}, {}, {})
-        for (i, k), g in zip(keys, grads):
-            (gU, gP, gN, gX, gD)[i][k] = g if g is not None else torch.zeros_like(groups[i][k])
+        with spmd_model(model, take, 1.0 / d):
+            loss, (gU, gP, gN, gD, gX) = _loss_grads(
+                model, user_vw, pos_vw, neg_vw, dense_p, frozen, ids, reg, rng_l,
+                extra_vw=extra_vw if E else None)
         dnames = list(gD)
         loss, *dg = psum_flat([loss.detach().reshape(1)] + [gD[k] for k in dnames],
                               mesh, DATA_AXIS)
@@ -284,3 +293,195 @@ def unshard_generic_packed_state(state: GenericPackedState, mesh: Mesh,
                               unshard_rows(state.item_pmv, mesh, num_items),
                               _dense_map(copy, state.dense))
 
+
+
+# --- BPRMF's specialized engines ------------------------------------------
+
+
+def _bprmf_spec(model):
+    spec = model.packed_spec()
+    if spec.dense or spec.frozen_item_tables or spec.extra_items:
+        raise ValueError(f"the specialized sharded steps take BPRMF's layout, not "
+                         f"{model.name}'s: use make_generic_packed_spmd_step")
+    return spec
+
+
+def _sharded_row_grads(model, spec, u, ii, user_p, item_p, item_s, reg, mesh: Mesh):
+    """(loss summed over ``data``, (user ids, user row grads) and (item ids,
+    item row grads) of every ``data`` rank): ``_row_grads`` over this
+    rank's slice of the batch, ``u`` and ``ii`` its ids."""
+    b = u.shape[0]
+    ids = (u.long(), ii[:b].long(), ii[b:].long())
+    loss, gu, gi, _ = _row_grads(model, spec, user_p, item_p, item_s, {}, None, ids, reg)
+    return (psum(loss.reshape(1), mesh, DATA_AXIS).reshape(()),
+            _gather_rows_with_ids(u, gu, mesh), _gather_rows_with_ids(ii, gi, mesh))
+
+
+def _sharded_sparse_adam(p, m, v, uids, g, scal, mesh: Mesh) -> None:
+    """Sparse-apply Adam on this rank's row shard, in place: the
+    pre-scaled gradients of the owned ``uids`` (global ids) added into m
+    and v, the non-owned ids and the pads masked to zero adds (torch's
+    ``index_add_`` takes no out-of-range id), so that the uniform decay of
+    the one local sweep (K6 on the card) completes the exact Adam update
+    on them.  ``scal`` = ``adam_scalars(lr, t)``."""
+    local, ok = _owned(uids, p.shape[0], mesh)
+    idx = torch.where(ok, local, 0)
+    mask = ok if g.dim() == 1 else ok[:, None]
+    m.index_add_(0, idx, torch.where(mask, (1.0 - B1) / B1 * g, 0.0))
+    v.index_add_(0, idx, torch.where(mask, (1.0 - B2) / B2 * torch.square(g), 0.0))
+    fused_adam_sweep(p, m, v, scal)
+
+
+def make_fast_spmd_step(model, mesh: Mesh, lr: float, reg: float) -> Callable:
+    """``step(state, (users, pos, neg)) -> (state, loss)`` on this rank:
+    BPRMF's sparse fast step (``train/fast.py``) with ``state`` a
+    ``FastState`` of this rank's row shards (``shard_fast_state``), the
+    triples the GLOBAL batch.  The forward rows through ``collective_take``,
+    the loss ``model.packed_loss``; per table one sparse Adam update of the
+    owned rows and one K6 sweep (three a step).  In place."""
+    spec = _bprmf_spec(model)
+    take = collective_take(("Gu", "Gi", "Bi"), mesh)
+
+    @torch.no_grad()
+    def step(state: FastState, triples):
+        u, p_ids, n_ids = data_slice(mesh, *(x.to(torch.int32) for x in triples))
+        ii = torch.cat([p_ids, n_ids])
+        P = state.params
+        loss, (u_all, gu), (ii_all, gi) = _sharded_row_grads(
+            model, spec, u, ii, take("Gu", P["Gu"], u), take("Gi", P["Gi"], ii),
+            take("Bi", P["Bi"], ii)[:, None], reg, mesh)
+        scal = adam_scalars(lr, (state.step + 1).to(torch.float32))
+        uids, g = compact_row_grads(u_all, gu, u_all.shape[0])
+        _sharded_sparse_adam(P["Gu"], state.mu["Gu"], state.nu["Gu"], uids, g, scal, mesh)
+        # the embedding and the bias grads share one dedupe of the item ids
+        iids, g = compact_row_grads(ii_all, gi, ii_all.shape[0])
+        K = P["Gi"].shape[1]
+        _sharded_sparse_adam(P["Gi"], state.mu["Gi"], state.nu["Gi"], iids, g[:, :K], scal,
+                             mesh)
+        _sharded_sparse_adam(P["Bi"], state.mu["Bi"], state.nu["Bi"], iids, g[:, K], scal,
+                             mesh)
+        return state._replace(step=state.step + 1), loss
+
+    return step
+
+
+def _sharded_packed_lazy_apply(pmv: torch.Tensor, tau: torch.Tensor, uids: torch.Tensor,
+                               g: torch.Tensor, lr: float, t: torch.Tensor, groups,
+                               mesh: Mesh) -> None:
+    """``_sharded_packed_lazy_apply_taucol`` for rows whose tau lives in
+    the 1-D int32 ``tau`` (``PackedLazyState``), in place: the owned rows
+    of the unique ``uids`` (global ids, pads 2**30) through
+    ``train/packed.py::_lazy_update`` (K4 reads, K5 writes), the non-owned
+    ids and the pads routed out of range, so that K5 and the tau stamp drop
+    them."""
+    local, ok = _owned(uids, pmv.shape[0], mesh)
+    _lazy_update(pmv, tau, torch.where(ok, local, 0).to(torch.int32),
+                 torch.where(ok, local, pmv.shape[0]).to(torch.int32), g, t, lr, groups)
+
+
+def make_packed_spmd_step(model, mesh: Mesh, lr: float, reg: float) -> Callable:
+    """``step(state, (users, pos, neg)) -> (state, loss)`` on this rank:
+    BPRMF's specialized packed step (``train/packed.py``) with ``state`` a
+    ``PackedLazyState`` of this rank's row shards (``shard_packed_state``),
+    the triples the GLOBAL batch.  Four K4 reads (the forward user and
+    item rows, the owned unique user and item rows) and two K5 writes a
+    step, as on one device.  In place."""
+    spec = _bprmf_spec(model)
+    Wu, Wi, sc, user_groups, item_groups = _row_layout(spec)
+
+    @torch.no_grad()
+    def step(state: PackedLazyState, triples):
+        u, p_ids, n_ids = data_slice(mesh, *(x.to(torch.int32) for x in triples))
+        ii = torch.cat([p_ids, n_ids])
+        item_p, item_s = _packed_forward_take_cols(state.item_pmv, ii, Wi, sc, mesh)
+        loss, (u_all, gu), (ii_all, gi) = _sharded_row_grads(
+            model, spec, u, ii, _packed_forward_take(state.user_pmv, u, Wu, mesh), item_p,
+            item_s, reg, mesh)
+        t = (state.step + 1).to(torch.float32)
+        uids, cg = compact_row_grads(u_all, gu, u_all.shape[0])
+        _sharded_packed_lazy_apply(state.user_pmv, state.tau_u, uids, cg, lr, t, user_groups,
+                                   mesh)
+        iids, cgi = compact_row_grads(ii_all, gi, ii_all.shape[0])
+        _sharded_packed_lazy_apply(state.item_pmv, state.tau_i, iids, cgi, lr, t, item_groups,
+                                   mesh)
+        return state._replace(step=state.step + 1), loss
+
+    return step
+
+
+def _specialized_epoch_fn(step_fn, mesh, num_items, steps, batch, with_replacement):
+    if batch % mesh.shape[DATA_AXIS]:
+        raise ValueError(f"batch {batch} not divisible by data axis "
+                         f"{mesh.shape[DATA_AXIS]}")
+
+    def epoch(state, key: int, train_pairs, padded_pos, pos_counts):
+        sample_key, _ = split_seed(key)
+        triples = sample_triplets(sample_key, train_pairs, padded_pos, pos_counts,
+                                  num_items, steps, batch,
+                                  with_replacement=with_replacement, device=mesh.device)
+        return run_specialized_steps(step_fn, state, triples)
+
+    return epoch
+
+
+def make_fast_spmd_epoch_fn(model, mesh: Mesh, lr: float, reg: float, num_items: int,
+                            steps: int, batch: int, with_replacement=False) -> Callable:
+    """``epoch(state, key, train_pairs, padded_pos, pos_counts) -> (state,
+    summed loss)``: the global triples drawn on the mesh's device from
+    ``split_seed(key)``'s first seed (as the JAX epoch splits its key),
+    then ``make_fast_spmd_step``'s steps."""
+    return _specialized_epoch_fn(make_fast_spmd_step(model, mesh, lr, reg), mesh, num_items,
+                                 steps, batch, with_replacement)
+
+
+def make_packed_spmd_epoch_fn(model, mesh: Mesh, lr: float, reg: float, num_items: int,
+                              steps: int, batch: int, with_replacement=False) -> Callable:
+    """As ``make_fast_spmd_epoch_fn``, with ``make_packed_spmd_step``'s
+    steps over a sharded ``PackedLazyState``."""
+    return _specialized_epoch_fn(make_packed_spmd_step(model, mesh, lr, reg), mesh,
+                                 num_items, steps, batch, with_replacement)
+
+
+def _divided_row_shard(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    m = mesh.shape[MODEL_AXIS]
+    if x.shape[0] % m:
+        raise ValueError(f"{x.shape[0]} rows do not divide the model axis {m} "
+                         "(pad upstream)")
+    return row_shard(x, mesh)
+
+
+def shard_fast_state(state: FastState, mesh: Mesh) -> FastState:
+    """This rank's shard of a whole ``FastState``: every table and its
+    moments cut to the rank's rows, on the mesh's device.  The rows must
+    divide the model axis."""
+    def place(tree):
+        return {k: _divided_row_shard(v, mesh) for k, v in tree.items()}
+
+    return FastState(state.step.detach().to(mesh.device, copy=True), place(state.params),
+                     place(state.mu), place(state.nu))
+
+
+def unshard_fast_state(state: FastState, mesh: Mesh) -> FastState:
+    """The whole ``FastState`` from every model rank's shard (a collective
+    over ``model``)."""
+    def whole(tree):
+        return {k: unshard_rows(v, mesh) for k, v in tree.items()}
+
+    return FastState(state.step.clone(), whole(state.params), whole(state.mu),
+                     whole(state.nu))
+
+
+def shard_packed_state(state: PackedLazyState, mesh: Mesh) -> PackedLazyState:
+    """This rank's shard of a whole ``PackedLazyState``: the packed rows and
+    tau arrays cut to its rows, on the mesh's device.  The rows must divide
+    the model axis; the state is BPRMF's (no dense params)."""
+    if state.dense:
+        raise ValueError("shard_packed_state takes BPRMF's state, which has no dense params")
+    return PackedLazyState(state.step.detach().to(mesh.device, copy=True),
+                           *(_divided_row_shard(x, mesh) for x in state[1:5]))
+
+
+def unshard_packed_state(state: PackedLazyState, mesh: Mesh) -> PackedLazyState:
+    """The whole ``PackedLazyState`` from every model rank's shard (a
+    collective over ``model``)."""
+    return PackedLazyState(state.step.clone(), *(unshard_rows(x, mesh) for x in state[1:5]))

@@ -69,7 +69,9 @@ from fashionvisualexpl_tpu_torch.train.fast import (
 )
 from fashionvisualexpl_tpu_torch.train.packed import (
     _lazy_rows,
+    _loss_grads,
     _momentum_catchup,
+    _offsets,
     ieee_sqrt,
 )
 from fashionvisualexpl_tpu_torch.train.trainer import fold_in, split_seed
@@ -108,14 +110,6 @@ def _moment_cols(moment_dtype) -> int:
             "— use 'bfloat16' over a mesh"
         )
     return 3 if md == "float32" else 2
-
-
-def _offsets(tables):
-    offs, off = [], 0
-    for name, w in tables:
-        offs.append((name, off, w))
-        off += w
-    return offs, off
 
 
 def _mom_width(moment_dtype, w: int) -> int:
@@ -453,22 +447,9 @@ def make_generic_packed_step(model, lr: float, reg: float, fused_frozen: bool = 
                        for n, off, w in f_offs}
                 for side, rows, lead in sides}
 
-        # differentiate with respect to the gathered views (leaves), not
-        # through the gathers: no table-shaped gradient exists
-        groups = (user_vw, pos_vw, neg_vw, extra_vw, dense_p)
-        keys = [(i, k) for i, d in enumerate(groups) for k in d]
-        with torch.enable_grad():
-            for i, k in keys:
-                groups[i][k] = groups[i][k].detach().requires_grad_()
-            if E:
-                kw["extra_vw"] = extra_vw
-            loss = model.packed_loss(user_vw, pos_vw, neg_vw, dense_p, frozen, ids, reg,
-                                     rng, **kw)
-            grads = torch.autograd.grad(loss, [groups[i][k] for i, k in keys],
-                                        allow_unused=True)
-        gU, gP, gN, gX, gD = ({}, {}, {}, {}, {})
-        for (i, k), g in zip(keys, grads):
-            (gU, gP, gN, gX, gD)[i][k] = g if g is not None else torch.zeros_like(groups[i][k])
+        loss, (gU, gP, gN, gD, gX) = _loss_grads(
+            model, user_vw, pos_vw, neg_vw, dense_p, frozen, ids, reg, rng,
+            extra_vw=extra_vw if E else None, **kw)
         t = (state.step + 1).to(torch.float32)
 
         # users: all user tables share one packed row and one dedupe; the

@@ -54,7 +54,10 @@ K4 + 2 K5 launches a step (ACF: 5 K4, the extra item rows among them);
 losses rtol 1e-5; tau columns and untouched rows bit-equal; touched rows rtol 2e-4, atol 1e-6, where at most 0.1% of
 the values may sit one stored moment code apart (``index_add_`` sums a
 row's duplicate gradients with atomics, in no fixed order, so a value at a
-bf16 or e5m2 rounding boundary may round the other way)."""
+bf16 or e5m2 rounding boundary may round the other way); the specialized
+BPRMF and VBPR steps (``train/packed.py``, 1-D tau arrays) likewise, their
+tau arrays bit-equal.  The factored attention dump on the card (top-k
+through K3) against the CPU route: ids equal, scores rtol 1e-5."""
 
 import numpy as np
 import pytest
@@ -1555,6 +1558,133 @@ def test_acf_packed_step_on_card(cuda_device, moment_dtype, fused):
                                             states[1].dense[name][2].values())):
             live = torch.sqrt(v_c / bc2) >= 10 * 1e-7
             torch.testing.assert_close(p_k.cpu()[live], p_c[live], rtol=2e-4, atol=1e-5)
+
+
+def _on(x, dev):
+    """A copy of a specialized packed state (tensors, dicts, tuples) on dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True)
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    return type(x)(*(_on(v, dev) for v in x)) if hasattr(x, "_fields") else tuple(
+        _on(v, dev) for v in x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bprmf", "vbpr"])
+def test_specialized_packed_step_on_card(cuda_device, kind):
+    """The specialized packed step (``train/packed.py``) on the card runs
+    4 K4 and 2 K5 a step and matches the same step on CPU copies: losses
+    rtol 1e-5; tau arrays and untouched rows bit-equal; touched rows as
+    the generic packed card test holds fp32 moments; VBPR's dense E and Bp
+    rtol 2e-4, atol 1e-6."""
+    from fashionvisualexpl_tpu_torch.models.vbpr import VBPR
+    from fashionvisualexpl_tpu_torch.train import packed as P
+
+    U, I, K, D, B, lr, steps = 500, 1000, 32, 4, 256, 0.01, 4
+    g = torch.Generator().manual_seed(3)
+    if kind == "bprmf":
+        model = BPRMF(U, I, embed_k=K, device="cpu", generator=g)
+        plain, W = P.pack_bprmf_state(dict(model.named_parameters())), K
+    else:
+        F = np.random.default_rng(4).normal(size=(I, 24)).astype(np.float32)
+        model = VBPR(U, I, F, embed_k=K, embed_d=D, device="cpu", generator=g)
+        plain, W = P.pack_vbpr_state(dict(model.named_parameters())), K + D
+    step = P.make_packed_step(model, lr, 0.01)
+    frozen = dict(model.named_buffers())
+    frozen_on_card = {k: v.to(cuda_device) for k, v in frozen.items()}
+    kern = _on(plain, cuda_device)
+    before = (K4.gather_rows.launches, K5.scatter_rows_set.launches)
+    for _ in range(steps):
+        ids = tuple(torch.randint(0, hi, (B,), generator=g, dtype=torch.int32)
+                    for hi in (U, I, I))
+        on_card = tuple(x.to(cuda_device) for x in ids)
+        kern, lk = step(kern, on_card, frozen=frozen_on_card)
+        plain, lp = step(plain, ids, frozen=frozen)
+        torch.testing.assert_close(lk.cpu(), lp, rtol=1e-5, atol=0.0)
+    torch.cuda.synchronize()
+    assert (K4.gather_rows.launches - before[0],
+            K5.scatter_rows_set.launches - before[1]) == (4 * steps, 2 * steps)
+    for name, tau, w in (("user_pmv", "tau_u", W), ("item_pmv", "tau_i", K)):
+        a, b = getattr(kern, name).cpu(), getattr(plain, name)
+        assert torch.equal(getattr(kern, tau).cpu(), getattr(plain, tau))
+        untouched = getattr(plain, tau) == 0
+        assert untouched.any() and torch.equal(_bits(a[untouched]), _bits(b[untouched]))
+        for x, y, drift in zip((a[:, :w], a[:, w:]), (b[:, :w], b[:, w:]),
+                               (2 * lr * steps, 0.0)):
+            err = (x - y).abs()
+            beyond = ~(err <= 1e-6 + 2e-4 * y.abs())
+            assert int(beyond.sum()) <= 1e-3 * y.numel(), name
+            assert bool((err[beyond] <= drift + 1e-6).all()), name
+    for name, pmv in plain.dense.items():
+        for x, y in zip(kern.dense[name], pmv):
+            torch.testing.assert_close(x.cpu(), y, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["pair_perm", "bootstrap"])
+def test_packed_epochs_of_pair_sampling_on_card(cuda_device, scheme):
+    """The generic and the specialized packed epochs draw their triples by
+    the pair_perm and bootstrap schemes on the card: each step's ids reach
+    K4 contiguous (4 K4 + 2 K5 launches a step)."""
+    from fashionvisualexpl_tpu_torch.train import packed as P
+
+    U, I, steps, B = 300, 400, 3, 64
+    data = synthetic_interactions(U, I, interactions_per_user=8, seed=1)
+    tabs = [torch.as_tensor(a, device=cuda_device)
+            for a in (data.train_pairs, data.padded_pos, data.pos_counts)]
+    model = BPRMF(U, I, embed_k=16, device=cuda_device)
+    params = dict(model.named_parameters())
+    generic = PG.make_generic_packed_epoch_fn(model, 0.01, 0.01, I, steps, B,
+                                              with_replacement=scheme)
+    specialized = P.make_packed_epoch_fn(model, 0.01, 0.01, I, steps, B,
+                                         with_replacement=scheme)
+    for state, epoch in (
+            (PG.pack_generic_state(model, params), lambda st: generic(st, None, 5, *tabs)),
+            (P.pack_bprmf_state(params), lambda st: specialized(st, 5, *tabs))):
+        before = (K4.gather_rows.launches, K5.scatter_rows_set.launches)
+        state, loss = epoch(state)
+        assert np.isfinite(float(loss)) and int(state.step) == steps
+        assert (K4.gather_rows.launches - before[0],
+                K5.scatter_rows_set.launches - before[1]) == (4 * steps, 2 * steps)
+
+
+@pytest.mark.cuda
+def test_factored_attention_dump_on_card(cuda_device, tmp_path):
+    """``FactoredEvaluator.store_recommendation_attention`` on the card
+    (the top-k through K3) writes the rows the CPU route writes: ids
+    equal, scores rtol 1e-5, the attention weights rtol 1e-6."""
+    from fashionvisualexpl_tpu_torch.eval.factored import FactoredEvaluator
+
+    U, I, K = 70, 600, 16
+    data = synthetic_interactions(U, I, interactions_per_user=6, seed=2)
+
+    def attention(params, frozen, users, ctx):
+        u = users.to(torch.float32)[:, None, None]
+        i = torch.arange(I, dtype=torch.float32, device=users.device)[None, :, None]
+        c = torch.arange(3, dtype=torch.float32, device=users.device)[None, None, :]
+        return torch.softmax(torch.sin(0.37 * u + 0.11 * i + 1.3 * c), dim=2)
+
+    card = BPRMF(U, I, embed_k=K, device=cuda_device,
+                 generator=torch.Generator(device=cuda_device).manual_seed(9))
+    cpu = BPRMF(U, I, embed_k=K, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            b.copy_(a.cpu())
+    rows = {}
+    for tag, model in (("card", card), ("cpu", cpu)):
+        before = S.segmax_scores.launches
+        FactoredEvaluator(model, data, k=10, user_block=32).store_recommendation_attention(
+            None, None, str(tmp_path / f"{tag}.tsv"), attention)
+        assert (S.segmax_scores.launches > before) == (tag == "card")
+        rows[tag] = [r.split("\t") for r in open(tmp_path / f"{tag}.tsv").read().splitlines()]
+    got, want = rows["card"], rows["cpu"]
+    assert len(got) == U * 10
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    np.testing.assert_allclose(np.array([r[2] for r in got], float),
+                               np.array([r[2] for r in want], float), rtol=1e-5)
+    np.testing.assert_allclose(np.array([r[3:] for r in got], float),
+                               np.array([r[3:] for r in want], float), rtol=1e-6)
 
 
 def _streamed_pair(dev, U, I, H, seed):

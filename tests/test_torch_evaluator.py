@@ -9,7 +9,10 @@ JAX package's, from the same carried weights.
   kernel engine takes its plain version on CPU tensors); on Gaussian
   weights within the golden tolerances (rtol 2e-3, atol 2e-4).
 - ``print_epoch``: the same text.
-- Dumps: ids equal on tie-free data, scores at rtol 1e-6.
+- Dumps: ids equal on tie-free data, scores at rtol 1e-6; the factored
+  attention dump (``store_recommendation_attention``) with one numpy
+  attention function in both packages: ids equal, scores and weights
+  within the golden tolerances.
 - ``fit`` with the streaming evaluator from JAX's init and JAX's sampler
   draws: per-epoch metrics within the golden tolerances and the same
   ``best_epoch``; ``tests/test_golden.py``'s pinned run, the same way
@@ -116,8 +119,6 @@ def test_counts_impl_choice_and_errors():
         FactoredEvaluator(model, data, counts_impl="pallas")
     with pytest.raises(ValueError, match="mesh 1x2 != 1 devices"):  # not the world size
         FactoredEvaluator(model, data, mesh=make_mesh(1, 2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="factored attention dump"):
-        FactoredEvaluator(model, data).store_recommendation_attention(None, None, "x", None)
 
 
 def test_print_epoch_text_equals_jax(capsys):
@@ -157,6 +158,45 @@ def test_dumps_match_jax(kind, tmp_path):
     np.testing.assert_allclose(vals, jvals, rtol=1e-6)
     for (u, i) in ids:
         assert i not in data.training_list[u]
+
+
+def _attention(users):
+    """[B, I, 3] deterministic attention weights (softmax over the three
+    columns) of the users ``users``, in numpy."""
+    u = np.asarray(users, np.float32)[:, None, None]
+    i = np.arange(I, dtype=np.float32)[None, :, None]
+    c = np.arange(3, dtype=np.float32)[None, None, :]
+    a = np.exp(np.sin(0.37 * u + 0.11 * i + 1.3 * c))
+    return (a / a.sum(axis=2, keepdims=True)).astype(np.float32)
+
+
+def test_factored_attention_dump_matches_jax(tmp_path):
+    jdata, data = _data(3)
+    jmodel, params, frozen, model = _weights(5, quantized=False)  # tie-free
+    ev = FactoredEvaluator(model, data, k=5, user_block=16, item_block=16)
+    jev = JFactored(jmodel, jdata, k=5, user_block=16, item_block=16)
+    seen = []
+
+    def port_fn(p, f, users, ctx):
+        seen.append((users.dtype, tuple(users.shape), ctx))
+        return torch.from_numpy(_attention(users.numpy()))
+
+    ev.store_recommendation_attention(None, None, str(tmp_path / "port.tsv"), port_fn)
+    jev.store_recommendation_attention(params, frozen, str(tmp_path / "jax.tsv"),
+                                       lambda p, f, users, ctx: jnp.asarray(_attention(users)))
+    rows, jrows = ([line.split("\t") for line in open(tmp_path / f).read().splitlines()]
+                   for f in ("port.tsv", "jax.tsv"))
+    assert len(rows) == U * 5 and {len(r) for r in rows} == {6}
+    np.testing.assert_array_equal(np.array([r[:2] for r in rows], int),
+                                  np.array([r[:2] for r in jrows], int))
+    np.testing.assert_allclose(np.array([r[2:] for r in rows], float),
+                               np.array([r[2:] for r in jrows], float), **GOLDEN)
+    # one call a user block, the model's precompute_eval as ctx (BPRMF: None)
+    assert seen == [(torch.int64, (16,), None)] * 2 + [(torch.int64, (U - 32,), None)]
+    for u, i, _, *att in rows:
+        np.testing.assert_allclose(np.array(att, float), _attention([int(u)])[0, int(i)],
+                                   rtol=1e-6)
+        assert int(i) not in data.training_list[int(u)]
 
 
 def _fit_on_jax_draws(monkeypatch, data, kw, make_evaluator):

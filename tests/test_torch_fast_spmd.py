@@ -39,7 +39,17 @@ items (padded rows on the 4-way model axis):
 - ``fit(train_path="packed")`` of VBPR over the mesh against the port's
   single-device packed ``fit`` (frozen F read by id): losses, metrics,
   params;
-- float8 moments and a batch that does not split over ``data`` refused."""
+- float8 moments and a batch that does not split over ``data`` refused;
+- BPRMF's specialized engines (``make_fast_spmd_step``: sparse Adam, one
+  K6 sweep a table, plain on the CPU; ``make_packed_spmd_step``: 1-D tau)
+  over every mesh, on 32 items (their rows must divide the model axis):
+  fed JAX's triples against JAX's ``make_fast_spmd_epoch_fn`` /
+  ``make_packed_spmd_epoch_fn`` on the same mesh, and their own epochs
+  against the port's single-device epochs (``make_fast_epoch_fn`` with
+  ``fused_adam=True``, ``make_packed_epoch_fn``) on the same draws:
+  losses rtol 1e-5, tables (and moments) rtol 2e-4, atol 1e-6, tau
+  bit-equal; a batch off the data axis and rows off the model axis
+  refused."""
 
 import functools
 
@@ -124,12 +134,12 @@ def _flat(params, prefix=""):
     return out
 
 
-def _triples(epoch_key, steps):
-    jdata = jsynth(U, I, interactions_per_user=8, seed=0)
+def _triples(epoch_key, steps, n_items=I):
+    jdata = jsynth(U, n_items, interactions_per_user=8, seed=0)
     sample_key, _ = jax.random.split(epoch_key)
     t = jsampler.sample_triplets(sample_key, jnp.asarray(jdata.train_pairs),
                                  jnp.asarray(jdata.padded_pos), jnp.asarray(jdata.pos_counts),
-                                 I, steps, B, with_replacement=False)
+                                 n_items, steps, B, with_replacement=False)
     return dict(zip(("users", "pos", "neg"), map(np.asarray, t)))
 
 
@@ -144,6 +154,11 @@ def _comp_model():
 
 
 STEPS = jsynth(U, I, interactions_per_user=8, seed=0).steps_per_epoch(B)
+# BPRMF's specialized engines shard without padding: 32 items divide every
+# model axis
+SPEC_I, SPEC_KEY = 32, 100
+SPEC_DATA = dict(DATA, I=SPEC_I)
+SPEC_STEPS = jsynth(U, SPEC_I, interactions_per_user=8, seed=0).steps_per_epoch(B)
 KEY = jax.random.PRNGKey(0)
 # the model cases on every mesh cost the most: BPRMF runs on all four, the
 # others on the two meshes with a 2- and a 4-way model axis
@@ -178,6 +193,12 @@ def _inputs(shape, wd):
     ranks.write_inputs(wd, "refusals", dict(fn="packed_refusals", model="bprmf", data=DATA),
                        **{f"p.{k}": v for k, v in bparams.items()})
     names += ["pairs", "derived", "refusals"]
+    sparams = _flat(JBPRMF(U, SPEC_I, embed_k=K).init(jax.random.PRNGKey(1))[0])
+    ranks.write_inputs(wd, "specialized", dict(
+        fn="specialized_engines", model="bprmf", data=SPEC_DATA, lr=LR, reg=REG, batch=B,
+        key=SPEC_KEY), **{f"p.{k}": v for k, v in sparams.items()},
+        **{f"t0.{k}": v for k, v in _triples(KEY, SPEC_STEPS, SPEC_I).items()})
+    names.append("specialized")
     if shape == BF16_MESH:
         cfg, arrays = _bf16_case()
         ranks.write_inputs(wd, "attentive_fashion_bf16", cfg, **arrays)
@@ -439,3 +460,105 @@ def test_fit_packed_over_mesh_matches_single_device(heavy_run, tmp_path_factory)
         np.testing.assert_allclose(got[f"{tag}.metrics"], metrics, **METRIC_TOL)
         for k, v in params.items():
             np.testing.assert_allclose(got[f"{tag}.p.{k}"], v, err_msg=k, **STATE_TOL)
+
+
+# --- BPRMF's specialized engines (sparse and packed) -----------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_specialized(shape, engine):
+    """(loss, whole state as numpy) of JAX's sharded ``engine`` epoch
+    ("fast": ``make_fast_spmd_epoch_fn``, "packed":
+    ``make_packed_spmd_epoch_fn``) on the mesh ``shape`` from key KEY."""
+    from fashionvisualexpl_tpu.train.fast import init_fast_state
+    from fashionvisualexpl_tpu.train.packed import pack_bprmf_state
+
+    jdata = jsynth(U, SPEC_I, interactions_per_user=8, seed=0)
+    args = (jnp.asarray(jdata.train_pairs), jnp.asarray(jdata.padded_pos),
+            jnp.asarray(jdata.pos_counts))
+    jm = JBPRMF(U, SPEC_I, embed_k=K)
+    params = jm.init(jax.random.PRNGKey(1))[0]
+    mesh = _jmesh(shape)
+    if engine == "fast":
+        ep = jfs.make_fast_spmd_epoch_fn(jm, mesh, LR, REG, SPEC_I, SPEC_STEPS, B)
+        state = jfs.shard_fast_state(init_fast_state(params), mesh)
+    else:
+        ep = jfs.make_packed_spmd_epoch_fn(jm, mesh, LR, REG, SPEC_I, SPEC_STEPS, B)
+        state = jfs.shard_packed_state(pack_bprmf_state(params), mesh)
+    state, loss = ep(state, KEY, *args)
+    return float(loss), _np(state)
+
+
+@functools.lru_cache(maxsize=None)
+def _single_specialized(engine):
+    """(loss, state) of the port's single-device epoch of ``engine`` (the
+    sparse one through the K6 sweep, as the sharded one) on the triples the
+    sharded epoch draws: seed ``split_seed(SPEC_KEY)``'s first, without
+    replacement."""
+    from fashionvisualexpl_tpu_torch.models.convert import bprmf_from_jax
+    from fashionvisualexpl_tpu_torch.train import fast as tfast
+    from fashionvisualexpl_tpu_torch.train import packed as tpacked
+    from fashionvisualexpl_tpu_torch.train.trainer import split_seed
+
+    params = _flat(JBPRMF(U, SPEC_I, embed_k=K).init(jax.random.PRNGKey(1))[0])
+    model = bprmf_from_jax(params, device="cpu")
+    data = synthetic_interactions(U, SPEC_I, interactions_per_user=8, seed=0)
+    tabs = tuple(torch.as_tensor(x) for x in (data.train_pairs, data.padded_pos,
+                                             data.pos_counts))
+    if engine == "fast":
+        ep = tfast.make_fast_epoch_fn(model, LR, REG, SPEC_I, SPEC_STEPS, B, fused_adam=True,
+                                      device="cpu")
+        state = tfast.init_fast_state(dict(model.named_parameters()))
+    else:
+        ep = tpacked.make_packed_epoch_fn(model, LR, REG, SPEC_I, SPEC_STEPS, B,
+                                          with_replacement=False, device="cpu")
+        state = tpacked.pack_bprmf_state(dict(model.named_parameters()))
+    state, loss = ep(state, split_seed(SPEC_KEY)[0], *tabs)
+    return float(loss), state
+
+
+def _spec_tables(engine):
+    if engine == "fast":
+        return [(f"{tree}.{k}", lambda st, tree=tree, k=k: getattr(st, tree)[k])
+                for tree in ("params", "mu", "nu") for k in ("Gu", "Gi", "Bi")]
+    return [(f, lambda st, f=f: getattr(st, f)) for f in ("user_pmv", "item_pmv")]
+
+
+@pytest.mark.parametrize("engine", ["fast", "packed"])
+def test_specialized_engines_over_mesh_match_jax(run, engine):
+    _, _, out = run
+    got = out["specialized"][0]
+    for r in out["specialized"][1:]:
+        for k, v in got.items():
+            np.testing.assert_array_equal(r[k], v, err_msg=k)
+    loss, want = _jax_specialized(run[0], engine)
+    np.testing.assert_allclose(got[f"{engine}.fed.loss"], loss, rtol=1e-5)
+    assert int(got[f"{engine}.fed.step"]) == SPEC_STEPS
+    for name, field in _spec_tables(engine):
+        np.testing.assert_allclose(got[f"{engine}.fed.{name}"], np.asarray(field(want)),
+                                   err_msg=name, **STATE_TOL)
+    if engine == "packed":
+        for tau in ("tau_u", "tau_i"):
+            np.testing.assert_array_equal(got[f"packed.fed.{tau}"], getattr(want, tau))
+
+
+@pytest.mark.parametrize("engine", ["fast", "packed"])
+def test_specialized_epochs_over_mesh_match_single_device(run, engine):
+    _, _, out = run
+    got = out["specialized"][0]
+    loss, want = _single_specialized(engine)
+    np.testing.assert_allclose(got[f"{engine}.epoch.loss"], loss, rtol=1e-5)
+    for name, field in _spec_tables(engine):
+        np.testing.assert_allclose(got[f"{engine}.epoch.{name}"], field(want).numpy(),
+                                   err_msg=name, **STATE_TOL)
+    if engine == "packed":
+        for tau in ("tau_u", "tau_i"):
+            np.testing.assert_array_equal(got[f"packed.epoch.{tau}"],
+                                          getattr(want, tau).numpy())
+
+
+def test_specialized_engines_refuse_undivided_batches_and_rows(run):
+    _, _, out = run
+    for r in out["specialized"]:
+        for engine in ("fast", "packed"):
+            assert bool(r[f"{engine}.batch_refused"]) and bool(r[f"{engine}.rows_refused"])

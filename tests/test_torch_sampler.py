@@ -1,7 +1,10 @@
 """Port sampler vs the JAX sampler: fed JAX's own ``split(key)`` draws, the
 core ``triplets_from_draws`` must give JAX's ``sample_triplets`` triples
 bit for bit, for every scheme, materialised and derived, on uniform and
-ragged data, for partial and full epochs."""
+ragged data, for partial and full epochs; and each step's batch of the
+triples is contiguous (the row gather K4 takes contiguous ids: the
+pair_perm and bootstrap schemes once returned strided columns of the
+sampled pairs, which the packed engines handed to K4 on the card)."""
 
 import jax
 import jax.numpy as jnp
@@ -129,3 +132,16 @@ def test_wrapper_draws_valid_triples(scheme):
     with pytest.raises(ValueError, match="unknown sampling scheme"):
         tsampler.sample_triplets(7, *tabs, NUM_ITEMS, 5, 16,
                                  with_replacement="nope", device="cpu")
+
+
+@pytest.mark.parametrize("scheme", ["user_perm", "pair_perm", "bootstrap"])
+@pytest.mark.parametrize("data_name,derived", [
+    ("uniform_sorted", False), ("uniform_sorted", True), ("ragged", False),
+])
+def test_each_steps_batch_is_contiguous(scheme, data_name, derived):
+    pairs, padded, counts = DATA[data_name]()
+    tabs = [None if derived else torch.from_numpy(pairs), torch.from_numpy(padded),
+            torch.from_numpy(counts)]
+    for t in tsampler.sample_triplets(3, *tabs, NUM_ITEMS, 4, 8, with_replacement=scheme,
+                                      device="cpu"):
+        assert t.is_contiguous() and all(t[s].is_contiguous() for s in range(4))

@@ -223,6 +223,59 @@ def packed_epochs(mesh, inp, cfg, wd):
             "item_pmv": whole.item_pmv}
 
 
+def specialized_engines(mesh, inp, cfg, wd):
+    """BPRMF's specialized sharded engines, the sparse one
+    (``make_fast_spmd_step``) and the packed one (``make_packed_spmd_step``),
+    from ``shard_fast_state`` / ``shard_packed_state``: fed the given global
+    triples, then one epoch (``make_*_spmd_epoch_fn``) with the port's own
+    draws from seed ``cfg["key"]``; the whole states and the summed losses.
+    Then the refusals: a batch that does not split over ``data``, tables
+    whose rows do not divide ``model``."""
+    from fashionvisualexpl_tpu_torch.train.fast import init_fast_state
+    from fashionvisualexpl_tpu_torch.train.packed import pack_bprmf_state, run_specialized_steps
+
+    model = build_model(cfg, inp)
+    data = _data(cfg)
+    params = dict(model.named_parameters())
+    triples = tuple(_t(inp[f"t0.{k}"]) for k in ("users", "pos", "neg"))
+    tabs = tuple(torch.as_tensor(x) for x in (data.train_pairs, data.padded_pos,
+                                              data.pos_counts))
+    engines = {
+        "fast": (init_fast_state, fast_spmd.shard_fast_state, fast_spmd.unshard_fast_state,
+                 fast_spmd.make_fast_spmd_step, fast_spmd.make_fast_spmd_epoch_fn),
+        "packed": (pack_bprmf_state, fast_spmd.shard_packed_state,
+                   fast_spmd.unshard_packed_state, fast_spmd.make_packed_spmd_step,
+                   fast_spmd.make_packed_spmd_epoch_fn)}
+    out = {}
+    for tag, (init, shard, unshard, make_step, make_epoch) in engines.items():
+        state, loss = run_specialized_steps(make_step(model, mesh, cfg["lr"], cfg["reg"]),
+                                            shard(init(params), mesh), triples)
+        epoch = make_epoch(model, mesh, cfg["lr"], cfg["reg"], data.num_items,
+                           data.steps_per_epoch(cfg["batch"]), cfg["batch"])
+        estate, eloss = epoch(shard(init(params), mesh), cfg["key"], *tabs)
+        for run, st, l_ in (("fed", state, loss), ("epoch", estate, eloss)):
+            whole = unshard(st, mesh)
+            out[f"{tag}.{run}.loss"] = l_
+            out[f"{tag}.{run}.step"] = whole.step
+            for field, x in zip(whole._fields[1:], whole[1:]):
+                for k, v in (x.items() if isinstance(x, dict) else [("", x)]):
+                    out[f"{tag}.{run}.{field}{'.' + k if k else ''}"] = v
+        d, m = mesh.shape["data"], mesh.shape["model"]
+        try:
+            make_epoch(model, mesh, 0.01, 0.0, 8, 1, 4 * d + 1)
+            out[f"{tag}.batch_refused"] = np.array(d == 1)
+        except ValueError as e:
+            out[f"{tag}.batch_refused"] = np.array("not divisible by data axis" in str(e))
+        odd = {"Gu": torch.zeros(4 * m, 2), "Gi": torch.zeros(4 * m + 1, 2),
+               "Bi": torch.zeros(4 * m + 1)}
+        try:
+            shard(init(odd), mesh)
+            out[f"{tag}.rows_refused"] = np.array(m == 1)
+        except ValueError as e:
+            out[f"{tag}.rows_refused"] = np.array("do not divide the model axis" in str(e))
+    return out
+
+
 # --- eval/factored.py and serve/engine.py ----------------------------------
 
 
