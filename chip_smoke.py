@@ -15,8 +15,9 @@ Phases, each of which raises on a failure (nothing is swallowed):
 3. kernel: ``segmax_scores`` (the CUDA kernel: tensor cores for bf16)
    against its plain PyTorch version on the card over many geometries
    (seg 8 ... 1024, B not a multiple of 8 or 16, D = 16, 33, 64, 128, both
-   dtypes; D = 148, 152, 160 on the register and warpgroup kernels, 150 and
-   164 on ``segmax_mma_kernel``, each launch's route asserted; each
+   dtypes; D = 148, 152, 160 on the register and warpgroup kernels, 164,
+   208 and 256 on the register and wide warpgroup kernels, 150 and 264 on
+   ``segmax_mma_kernel``, each launch's route asserted; each
    kernel's ptxas registers and spills, and segmax.cu's build time, go
    into the ``kernels`` line), then its time, the plain
    version's time, one ``torch.matmul`` of the same bf16 operands (a
@@ -185,8 +186,10 @@ Phases, each of which raises on a failure (nothing is swallowed):
    idle share, K4's, K5's, the convolutions' and the GEMMs' shares, no
    TF32 kernel); ``FactoredEvaluator(counts_impl="kernel").evaluate``
    through K2 at D=208 (245 launches); ``RecServer`` through K3 at the
-   buckets, every launch on ``segmax_mma_kernel``, 64 users against a
-   full-catalog fp32 oracle; K3 and K2 alone at D=208 and K4 and K5 at the
+   buckets, every launch on the register kernel (B <= 64) or
+   ``segmax_wgmma_wide_kernel``, 64 users against a full-catalog fp32
+   oracle; K3 (with its D=208 instantiations' ptxas registers and spills)
+   and K2 alone at D=208 and K4 and K5 at the
    user rows (625 and, at row_align 128, 640 floats over 1M rows, batch
    8192), each checked against its plain version and timed beside its
    bound and the library call; the CNN at 224x224 (B=256) against float64
@@ -609,6 +612,13 @@ def segmax_bound_ms(B: int, Ip: int, D: int, seg: int, elt: int, peak: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def wide_kernel(B: int, D: int) -> str:
+    """K3's kernel for B users x D in 8- or 16-byte rows, D <= 256."""
+    if B <= 64:
+        return "segmax_mma_regs_kernel"
+    return "segmax_wgmma_kernel" if D <= 160 else "segmax_wgmma_wide_kernel"
+
+
 def kernel_phase(torch, segmax):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -668,19 +678,22 @@ def kernel_phase(torch, segmax):
             Ip = 32 * 1001
             check(f"seg=32 D={D} B={B} {names[dtype]} Ip={Ip} pads=500",
                   *inputs(B, Ip, D, dtype, n_pad=500), 32)
-    # D up to 160 in 8- or 16-byte rows (VBPR's and GradFashion's 148, 152,
-    # 160) on the register kernel (B <= 64) and the warpgroup kernel, at
-    # every epilogue (seg 12: the score tile; 1024: walked in sub-tiles),
-    # ragged catalogs with pads; D = 150 (4-byte rows) and 164 on
-    # segmax_mma_kernel; iv 8-byte aligned only (the view big[1:])
-    for D in (VIS_D, 152, 160):
+    # D up to 256 in 8- or 16-byte rows (VBPR's and GradFashion's 148, 152,
+    # 160; 164, CompVBPR's 208, 256) on the register kernel (B <= 64) and a
+    # warpgroup kernel (up to 160 segmax_wgmma_kernel, above it
+    # segmax_wgmma_wide_kernel), at every epilogue (seg 12: the score tile,
+    # or the merge in shared memory; 64: above 160 a thread's items; 1024:
+    # walked in sub-tiles), ragged catalogs with pads; D = 150 (4-byte
+    # rows) and 264 on segmax_mma_kernel; iv 8-byte aligned only (the view
+    # big[1:])
+    for D in (VIS_D, 152, 160, 164, COMP_D, 256):
         for B in (8, 64, 65, 100, 4097):
-            kernel = "segmax_wgmma_kernel" if B > 64 else "segmax_mma_regs_kernel"
+            kernel = wide_kernel(B, D)
             for seg in (8, 12, 16, 32, 64, 1024):
                 Ip = seg * (3 if seg > 256 else 2400 // seg + 1)
                 check(f"seg={seg} D={D} B={B} bf16 Ip={Ip} pads={seg + 3}",
                       *inputs(B, Ip, D, torch.bfloat16, n_pad=seg + 3), seg, kernel)
-    for D in (VIS_D_OTHER, 164):
+    for D in (VIS_D_OTHER, 264):
         for B in (8, 100, 4097):
             check(f"seg=32 D={D} B={B} bf16 Ip=2432 pads=35",
                   *inputs(B, 2432, D, torch.bfloat16, n_pad=35), 32, "segmax_mma_kernel")
@@ -689,7 +702,14 @@ def kernel_phase(torch, segmax):
         if segmax.operand_align(uf, big[1:]) != 8:
             fail("the view big[1:] of a D=148 bf16 tensor is not 8-byte aligned only")
         check(f"seg=32 D={VIS_D} B={B} bf16 Ip=2432 iv=big[1:]", uf, big[1:], ib[1:], 32,
-              "segmax_wgmma_kernel" if B > 64 else "segmax_mma_regs_kernel")
+              wide_kernel(B, VIS_D))
+        # D=208 rows (416 bytes) keep a 16-byte base: a view 4 elements in
+        uf, big, ib = inputs(B, 2433, COMP_D, torch.bfloat16)
+        iv = big.view(-1)[4:4 + 2432 * COMP_D].view(2432, COMP_D)
+        if segmax.operand_align(uf, iv) != 8:
+            fail("a D=208 bf16 view 4 elements in is not 8-byte aligned only")
+        check(f"seg=32 D={COMP_D} B={B} bf16 Ip=2432 iv 8-byte aligned", uf, iv, ib[1:], 32,
+              wide_kernel(B, COMP_D))
     print(f"segmax checks: {len(checked)} geometries in {time.perf_counter() - t0!r} s")
 
     # times at the serving shapes: 1M items padded to the 65536 block
@@ -5086,7 +5106,8 @@ def comp_eval_serve_phase(torch, np, counts, segmax, model, items, cnt):
     at D=208 (the test split over 1M users: one item per user outside its
     20 positives), the first user blocks again through the bucketed engine;
     then ``RecServer`` through K3 at the serving buckets (every launch on
-    ``segmax_mma_kernel``), 64 users against a full-catalog fp32 oracle
+    the register kernel at B <= 64 and on ``segmax_wgmma_wide_kernel``
+    above), 64 users against a full-catalog fp32 oracle
     (the evaluator's factors, so the CNN encodes the catalog three times,
     not four)."""
     from fashionvisualexpl_tpu_torch.eval.evaluator import concat_metrics
@@ -5152,7 +5173,7 @@ def comp_eval_serve_phase(torch, np, counts, segmax, model, items, cnt):
     batches = {B: rng.choice(COMP_U, B, replace=False) for B in BUCKETS}
     serving, served, serve_launches, serve_routes = serve_buckets(
         np, segmax, srv, batches, SERVE_REPS, f"comp_vbpr serving D={COMP_D}",
-        {"segmax_mma_kernel"})
+        {"segmax_mma_regs_kernel", "segmax_wgmma_wide_kernel"})
     with torch.no_grad():  # the oracle: full-catalog fp32 scores of the factors
         u64 = torch.as_tensor(batches[64], device="cuda").long()
         s = uf[u64] @ iv.T + ib
@@ -5173,11 +5194,19 @@ def comp_kernel_phase(torch, np, counts, segmax, topk, G, S, items):
     """K3 and K2 alone at D=208 and K4 and K5 at CompVBPR's user rows, each
     checked against its plain version (K3 within its tolerance on its
     asserted route, K2 bit-equal on 1/64-grid data, K4 and K5 bit-equal)
-    and timed with the L2 flushed beside its bound and the library call."""
+    and timed with the L2 flushed beside its bound and the library call;
+    the ptxas registers and spills of K3's D=208 instantiations."""
+    from fashionvisualexpl_tpu_torch.ops import cuda_build
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(44)
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     out = {"segmax_scores": {}, "gather_rows": {}, "scatter_rows_set": {}}
+    out["segmax_ptxas"] = [r for r in cuda_build.ptxas_report(cuda_build.build_logs["segmax"])
+                           if r["kernel"].startswith(("segmax_mma_regs_kernel<16,",
+                                                      "segmax_wgmma_wide_kernel"))]
+    for row in out["segmax_ptxas"]:
+        print(f"segmax D={COMP_D} instantiation ptxas: {row}")
     t0 = time.perf_counter()
     # K3 over the 200k catalog padded to the serving block, at the buckets
     Ip, D = -(-COMP_I // ITEM_BLOCK) * ITEM_BLOCK, COMP_D
@@ -5193,7 +5222,8 @@ def comp_kernel_phase(torch, np, counts, segmax, topk, G, S, items):
         took = segmax.segmax_scores.routes - before
         want = segmax.segmax_scores_reference(uf, iv, ib, SEG)
         err = float((got - want).abs().max())
-        if route["kernel"] != "segmax_mma_kernel" or set(took) != {"segmax_mma_kernel"} or \
+        kernel = wide_kernel(B, D)
+        if route["kernel"] != kernel or set(took) != {kernel} or \
                 not bool(((got - want).abs() <= K_ATOL + K_RTOL * want.abs()).all()):
             fail(f"segmax at D={D} B={B}: planned {route}, took {dict(took)}, "
                  f"max_abs_err={err!r}")
@@ -5439,7 +5469,8 @@ def comp_cli_phase(torch, np, counts, segmax, G, S):
         kinds = sorted({f.split("-")[0] for f in files})
         ckpts = sorted(os.listdir(ckpt))
         if kinds != ["best", "log", "recs", "results"] or len(files) != 4 \
-                or ckpts != ["best-state"] or set(run["segmax_routes"]) != {"segmax_mma_kernel"}:
+                or ckpts != ["best-state"] or not set(run["segmax_routes"]) <= {
+                    "segmax_mma_regs_kernel", "segmax_wgmma_wide_kernel"}:
             fail(f"{label} cli: wrote {files}, checkpoints {ckpts}, K3 {run['segmax_routes']}")
         launches[label] = run
         out[label] = dict(dataset=dataset, train_s=train_s, serve_s=serve_s, metrics=metrics,

@@ -1,12 +1,12 @@
 // Inline-PTX helpers for the tensor-core kernels (segmax.cu, counts.cu,
 // edge_tower.cu) on Hopper, sm_90a: asynchronous 16-, 8- and 4-byte copies
 // into shared memory, ldmatrix fragment loads, the warp-level bf16 mma.sync
-// product, the warpgroup products and the bf16x2 and bf16x3 splits of f32
-// values.  Fragment layouts are those of the PTX ISA's "Matrix Fragments
-// for mma.m16n8k16" section: with
-// g = lane / 4 and t = lane % 4, an accumulator holds rows g and g + 8 of
-// the 16-row tile, columns 2t and 2t + 1 of the 8-column tile (c[0], c[1]
-// row g; c[2], c[3] row g + 8).
+// product, the warpgroup products, named barriers, 1-D bulk copies on
+// mbarriers and the bf16x2 and bf16x3 splits of f32 values.  Fragment
+// layouts are those of the PTX ISA's "Matrix Fragments for mma.m16n8k16"
+// section: with g = lane / 4 and t = lane % 4, an accumulator holds rows g
+// and g + 8 of the 16-row tile, columns 2t and 2t + 1 of the 8-column tile
+// (c[0], c[1] row g; c[2], c[3] row g + 8).
 #pragma once
 
 #include <cstdint>
@@ -176,6 +176,115 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_ss(float (&d)[32], uint64_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d (+)= a . b over a 64 x 256 x 16 tile: a the warp's 16 rows x 16 k of A
+// in the mma.m16n8k16 A layout (registers), b the K-major B tile's
+// descriptor; scale_d = 0 ignores d's old values.  d is the 64 x 256 f32
+// accumulator (per 8 columns i: d[4i..4i+3] as an m16n8 accumulator of the
+// warp's 16 rows).
+__device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], const uint32_t (&a)[4],
+                                                      uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// named barrier id (1 .. 15; 0 is __syncthreads') over threads threads (a
+// multiple of 32): bar_sync waits for all of them, bar_arrive counts the
+// caller's warp in without waiting
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 1-D bulk asynchronous copies (the Tensor Memory Accelerator) completing on
+// an mbarrier in shared memory: init with one arrival a phase; a phase
+// completes when its arrival (with the bytes it expects) and all those
+// bytes have landed.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global src
+// to shared dst, completing on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// wait for bar's phase of the given parity to complete; a wait that
+// outlasts ~10 s of clock (a copy that never lands) traps, so that the
+// launch fails instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1LL << 34)) asm volatile("trap;");
+  }
+}
+
+// keeps the compiler from moving accesses to v across the asynchronous
+// product that reads it (an A fragment register)
+__device__ __forceinline__ void reg_fence(uint32_t& v) {
+  asm volatile("" : "+r"(v)::"memory");
 }
 
 }  // namespace fvx

@@ -17,14 +17,16 @@ padded to the 65536 block), D=128 is 1.10 TFLOP, ~1.11 ms at 989 TFLOP/s
 bf16, against ~0.81 GB of traffic (iv 268 MB + out 537 MB), ~0.24 ms at
 3.35 TB/s.  At B=8 the 268 MB item read alone bounds it: ~0.08 ms.  The
 bf16 kernel runs on the tensor cores, each block holding a tile of items
-while the users stream past it.  For D up to 160 in rows that take 8- or
+while the users stream past it.  For D up to 256 in rows that take 8- or
 16-byte copies (D a multiple of 4 and operands 8-byte aligned, as VBPR's
-and GradFashion's D=148) it runs ``wgmma`` warpgroup products for B > 64
-and ``mma.sync`` with the items in registers for B <= 64, D zero-padded to
-128 or 160; at any other D ``mma.sync`` from shared memory.
-``segmax_route`` says which for a geometry, without launching.  The f32
-entry, on no main path, keeps the first CUDA-core design.  Measured times
-are in PERF.md.
+and GradFashion's D=148 and CompVBPR's 208) it runs ``mma.sync`` with the
+items in registers for B <= 64 (D zero-padded to 128, 160 or 256) and
+``wgmma`` warpgroup products for B > 64: up to D = 160 with the items on
+M (Dp 128 or 160), above it ``segmax_wgmma_wide_kernel`` with the items on
+N in an order that gives each thread whole segments (Dp 208 or 256); at
+any other D ``mma.sync`` from shared memory.  ``segmax_route`` says which
+for a geometry, without launching.  The f32 entry, on no main path, keeps
+the first CUDA-core design.  Measured times are in PERF.md.
 
 ``segmax_scores`` launches the kernel for a CUDA tensor (or raises) and takes
 the plain version ``segmax_scores_reference`` for a CPU tensor only.
@@ -44,7 +46,9 @@ _LAUNCH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_
 _ROUTE_ARGS = [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
 # the kernels of csrc/segmax.cu, by the route number its entries report
 ROUTES = ("segmax_simt_kernel", "segmax_mma_kernel", "segmax_mma_regs_kernel",
-          "segmax_wgmma_kernel")
+          "segmax_wgmma_kernel", "segmax_wgmma_wide_kernel")
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_entries = {}  # C entry name -> bound ctypes function
 
 
 def segmax_scores_reference(
@@ -101,10 +105,13 @@ def segmax_scores(
     Ip = iv.shape[0]
     out = torch.empty((B, Ip // seg), dtype=torch.float32, device=uf.device)
     route = ctypes.c_int(-1)
-    with torch.cuda.device(uf.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(uf.data_ptr(), iv.data_ptr(), ib_cand.data_ptr(),
-                out.data_ptr(), B, Ip, D, seg, stream, ctypes.byref(route))
+    args = (uf.data_ptr(), iv.data_ptr(), ib_cand.data_ptr(), out.data_ptr(), B, Ip, D, seg)
+    index = uf.device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, _stream(index), ctypes.byref(route))
+    else:
+        with torch.cuda.device(uf.device):
+            rc = fn(*args, _stream(index), ctypes.byref(route))
     if rc != 0:
         raise RuntimeError(f"segmax kernel launch failed: cudaError {rc}")
     segmax_scores.launches += 1
@@ -116,12 +123,21 @@ segmax_scores.launches = 0
 segmax_scores.routes = Counter()
 
 
-def _entry(name: str, argtypes):
-    from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
-    fn = getattr(load_library("segmax"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+
+def _entry(name: str, argtypes):
+    fn = _entries.get(name)
+    if fn is None:
+        from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
+
+        fn = getattr(load_library("segmax"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
     return fn
 
 
@@ -140,12 +156,15 @@ def segmax_route(B: int, D: int, seg: int, align: int = 16) -> dict:
     to ``align`` bytes (``operand_align``), without launching: ``kernel``
     (one of ``ROUTES``), ``Dp`` (D zero-padded), ``ld`` (shared row stride,
     bf16), ``copy_bytes``, ``group_rows`` (rows reduced in registers; 0:
-    through a score tile) and ``smem`` (bytes a block).  Needs the built
-    library, so a card's toolkit."""
-    info = (ctypes.c_longlong * 5)()
+    through a score tile; ``segmax_wgmma_wide_kernel``: seg where it
+    divides 64, each thread's segments reduced in its registers, else 0,
+    merged in shared memory), ``smem`` (bytes a block), ``block_items``
+    (items a block holds) and ``stages`` (user-tile ring slots a block).
+    Needs the built library, so a card's toolkit."""
+    info = (ctypes.c_longlong * 7)()
     route = _entry("fvx_segmax_route", _ROUTE_ARGS)(B, D, seg, align, info)
     if route < 0:
         raise ValueError(f"segmax_route: bad geometry B={B} D={D} seg={seg} align={align}")
-    ks, ld, cw, kg, smem = info
+    ks, ld, cw, kg, smem, mt, stages = info
     return dict(kernel=ROUTES[route], Dp=16 * ks, ld=ld, copy_bytes=cw, group_rows=kg,
-                smem=smem)
+                smem=smem, block_items=mt, stages=stages)

@@ -1,9 +1,10 @@
 """Time K3 (``ops/csrc/segmax.cu``) of this tree against K3 of other
 checkouts, in turns in one process on one card, with the L2 flushed
 before each call:
-at BPRMF's serving shape (Ip=1,048,576 items, D=128, B = 8 and 4096) and at
-VBPR's and GradFashion's (Ip=524,288, D=148, B = 8, 64, 1024 and 4096),
-seg 32, bf16, in the order others, this, this, others reversed;
+at BPRMF's serving shape (Ip=1,048,576 items, D=128, B = 8 and 4096), at
+VBPR's and GradFashion's (Ip=524,288, D=148, B = 8, 64, 1024 and 4096) and
+at CompVBPR's (Ip=262,144, D=208, the same buckets), seg 32, bf16, in the
+order others, this, this, others reversed;
 ``torch.matmul`` of the same operands once.
 Every library's output is first held against the plain version
 (``chip_smoke.K_ATOL`` / ``K_RTOL``).
@@ -13,7 +14,11 @@ Every library's output is first held against the plain version
 
 Prints each build's ptxas registers and spills for the segmax kernels, one
 line per timing and a JSON summary last; the times are torch.profiler's
-kernel durations of ``chip_smoke.kernel_times``."""
+kernel durations of ``chip_smoke.kernel_times``.  Then the wrapper's host
+cost: microseconds a call of ``segmax.segmax_scores`` against the same call
+made as the wrapper made it before it skipped ``torch.cuda.device`` on the
+current device and bound its C entry once (a tiny geometry, so that the
+host sets the pace), in turns."""
 
 import argparse
 import ctypes
@@ -32,14 +37,15 @@ import chip_smoke as C  # noqa: E402
 from fashionvisualexpl_tpu_torch.ops import cuda_build, segmax  # noqa: E402
 
 SHAPES = ((C.EMBED_K, 16 * C.ITEM_BLOCK, (8, 4096)),
-          (C.VIS_D, 8 * C.ITEM_BLOCK, (8, 64, 1024, 4096)))
+          (C.VIS_D, 8 * C.ITEM_BLOCK, (8, 64, 1024, 4096)),
+          (C.COMP_D, -(-C.COMP_I // C.ITEM_BLOCK) * C.ITEM_BLOCK, (8, 64, 1024, 4096)))
 OUT = ROOT / "build" / "k3_ab"
 
 
 def build_all(jobs):
     """{label: (fvx_segmax_bf16, takes a route pointer, build seconds,
-    ptxas report)} for jobs of (label, source), each built with this
-    tree's flags, all nvcc processes started together."""
+    ptxas report, warning lines)} for jobs of (label, source), each built
+    with this tree's flags, all nvcc processes started together."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = []
     for n, (label, src) in enumerate(jobs):
@@ -59,7 +65,8 @@ def build_all(jobs):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
                        + [ctypes.c_void_p] * (2 if routed else 1))
         fn.restype = ctypes.c_int
-        libs[label] = (fn, routed, seconds, cuda_build.ptxas_report(log))
+        libs[label] = (fn, routed, seconds, cuda_build.ptxas_report(log),
+                       [line.strip() for line in log.splitlines() if "warning" in line])
     return libs
 
 
@@ -75,10 +82,12 @@ def main() -> int:
     print(f"card: {C.card_line()}")
     rel = Path("fashionvisualexpl_tpu_torch") / "ops" / "csrc" / "segmax.cu"
     libs = build_all([(str(c), c / rel) for c in args.other] + [("this", ROOT / rel)])
-    for label, (_, _, seconds, report) in libs.items():
+    for label, (_, _, seconds, report, warnings) in libs.items():
         print(f"build {label}: {seconds!r} s")
         for row in report:
             print(f"  ptxas {label}: {row}")
+        for line in warnings:
+            print(f"  nvcc {label}: {line}")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -101,7 +110,7 @@ def main() -> int:
                     raise RuntimeError(f"segmax launch failed: cudaError {rc}")
 
             runs = {label: (lambda f=fn, r=routed: call(f, r))
-                    for label, (fn, routed, _, _) in libs.items()}
+                    for label, (fn, routed, *_) in libs.items()}
             for label, run in runs.items():
                 run()
                 torch.cuda.synchronize()
@@ -130,9 +139,51 @@ def main() -> int:
             summary[f"D{D}_B{B}"] = times
             del uf, iv, ib, want, out
             torch.cuda.empty_cache()
-    print(json.dumps({"card": C.card_line(), "k3_ab": summary,
+    wrapper = wrapper_us(dev, g)
+    print(f"wrapper host us a call (B=8 D={C.COMP_D} Ip=2048): {wrapper}")
+    print(json.dumps({"card": C.card_line(), "k3_ab": summary, "wrapper_us": wrapper,
                       "build_s": {k: v[2] for k, v in libs.items()}}))
     return 0
+
+
+def wrapper_us(dev, g, calls=2000, rounds=2):
+    """{"this": [...], "before": [...]}: host microseconds a call, this
+    tree's ``segmax_scores`` and the former wrapper's body (entry bound on
+    every call, the launch inside ``torch.cuda.device``), in turns."""
+    from fashionvisualexpl_tpu_torch.ops.cuda_build import load_library
+
+    B, D, Ip = 8, C.COMP_D, 2048
+    uf = torch.randn(B, D, device=dev, generator=g).bfloat16()
+    iv = torch.randn(Ip, D, device=dev, generator=g).bfloat16()
+    ib = torch.randn(Ip, device=dev, generator=g)
+
+    def before():
+        segmax._check(uf, iv, ib, C.SEG)
+        fn = load_library("segmax").fvx_segmax_bf16
+        fn.argtypes = segmax._LAUNCH_ARGS
+        fn.restype = ctypes.c_int
+        out = torch.empty((B, Ip // C.SEG), dtype=torch.float32, device=dev)
+        route = ctypes.c_int(-1)
+        with torch.cuda.device(uf.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(uf.data_ptr(), iv.data_ptr(), ib.data_ptr(), out.data_ptr(), B, Ip, D,
+                    C.SEG, stream, ctypes.byref(route))
+        if rc:
+            raise RuntimeError(f"segmax launch failed: cudaError {rc}")
+        return out
+
+    runs = {"this": lambda: segmax.segmax_scores(uf, iv, ib, C.SEG), "before": before}
+    if not torch.equal(runs["this"](), runs["before"]()):
+        raise RuntimeError("the two wrappers disagree")
+    out = {}
+    for label in ["this", "before"] * rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            runs[label]()
+        torch.cuda.synchronize()
+        out.setdefault(label, []).append(1e6 * (time.perf_counter() - t0) / calls)
+    return out
 
 
 if __name__ == "__main__":

@@ -41,12 +41,14 @@ and the first and last words of each written row's neighbours unchanged,
 a vals view whose first and last rows' 16-byte spans leave its buffer,
 the A/B script's plans, batches off its rings, and its refusals.
 K2 and K3 also at VBPR's and GradFashion's factored D = 148 (K3 at 150, 152,
-160 and 164 too, its iv 8-byte aligned only, and the route each geometry
-takes; K2 at 150, 256, 272 and 1024 too, in two to eleven chunks of D).
+160 and 164 to 256 too, its iv 8-byte aligned only at D = 148 and 208, and
+the route each geometry takes; K2 at 150, 256, 272 and 1024 too, in two to
+eleven chunks of D).
 ACF's packed rows (769 / 513 / 385 floats, 25857 / 25601 / 25473 with
 its 7x7x512 spatial maps fused) through K4 on the route each plan names
 and through K5, bit-equal.  CompVBPR's factored D = 208 through K2 and
-K3 (``segmax_mma_kernel``), and its packed user rows (625 / 417 / 313
+K3 (the register kernel at B <= 64, ``segmax_wgmma_wide_kernel`` above),
+and its packed user rows (625 / 417 / 313
 floats, 640 / 512 / 384 at row_align 128) through K4 and K5 on every
 route, forced.
 The packed step on the card against the same step on CPU copies: 4
@@ -105,17 +107,27 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, seg):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
-# D in (128, 160] in rows of 8- or 16-byte copies (VBPR's and GradFashion's
-# 148, 152, 160) on the register (B <= 64) and warpgroup kernels, at every
-# epilogue: seg a multiple of 8, 16 or 32, none (12: the score tile), and
-# above the 256-item tile (one segment walked in sub-tiles); ragged
-# catalogs (seg x n_seg), trailing pads.  D = 150 (4-byte rows) and 164 on
+# D in (128, 256] in rows of 8- or 16-byte copies (VBPR's and GradFashion's
+# 148, 152, 160; 164 to 256, CompVBPR's 208 among them) on the register
+# (B <= 64) and warpgroup kernels, at every epilogue: seg a multiple of 8,
+# 16 or 32, none (12: the score tile, or above 160 the merge in shared
+# memory), 64 (above 160: a thread's 64 items), and above the 256-item tile
+# (one segment walked in sub-tiles); ragged catalogs (seg x n_seg),
+# trailing pads.  D = 150 (4-byte rows) and 264 (above 256) on
 # segmax_mma_kernel.
 WIDE_SEGS = {8: 150, 12: 100, 16: 75, 32: 37, 64: 19, 1024: 3}
-WIDE_GEOMETRIES = [(B, D, seg, n) for D in (148, 152, 160) for B in (8, 64, 65, 100, 4097)
-                   for seg, n in WIDE_SEGS.items()]
-FALLBACK_GEOMETRIES = [(B, D, seg, n) for D in (150, 164)
+WIDE_GEOMETRIES = [(B, D, seg, n) for D in (148, 152, 160, 164, 176, 192, 208, 256)
+                   for B in (8, 64, 65, 100, 4097) for seg, n in WIDE_SEGS.items()]
+FALLBACK_GEOMETRIES = [(B, D, seg, n) for D in (150, 264)
                        for B, seg, n in ((8, 32, 37), (100, 16, 75), (4097, 32, 37))]
+
+
+def _wide_kernel(B, D):
+    """The kernel a bf16 launch at B users x D (8- or 16-byte rows, D <= 256)
+    takes."""
+    if B <= 64:
+        return "segmax_mma_regs_kernel"
+    return "segmax_wgmma_kernel" if D <= 160 else "segmax_wgmma_wide_kernel"
 
 
 @pytest.mark.cuda
@@ -132,20 +144,24 @@ FALLBACK_GEOMETRIES = [(B, D, seg, n) for D in (150, 164)
     (1024, 208, 1024, 3),
 ] + WIDE_GEOMETRIES + FALLBACK_GEOMETRIES)
 def test_kernel_geometries_match_plain_version_on_card(cuda_device, dtype, B, D, seg, n_seg):
-    """The tensor-core kernels' paths (D up to 160 in 8- or 16-byte rows
-    with the items' fragments in registers, any other D from shared
+    """The tensor-core kernels' paths (D up to 256 in 8- or 16-byte rows
+    on the register and warpgroup kernels, any other D from shared
     memory, seg a multiple of 32, 16 or 8 or none, seg
     above the block's item tile, B not a multiple of 8 or 16) and the
-    CUDA-core body (f32, D = 600); VBPR's and GradFashion's D = 148 and
-    its neighbours (WIDE_GEOMETRIES, FALLBACK_GEOMETRIES)."""
+    CUDA-core body (f32, D = 600); VBPR's and GradFashion's D = 148,
+    CompVBPR's 208 and their neighbours (WIDE_GEOMETRIES, each bf16 launch's
+    kernel asserted, and FALLBACK_GEOMETRIES)."""
     g = torch.Generator(device=cuda_device).manual_seed(B + D + seg)
     Ip = seg * n_seg
     uf = (torch.randn(B, D, device=cuda_device, generator=g) * (3 / D**0.5)).to(dtype)
     iv = torch.randn(Ip, D, device=cuda_device, generator=g).to(dtype)
     ib = torch.randn(Ip, device=cuda_device, generator=g) * 0.1
     ib[-seg - 3:] = -1e30
+    before = S.segmax_scores.routes.copy()
     got = S.segmax_scores(uf, iv, ib, seg)
     torch.cuda.synchronize()
+    if dtype == torch.bfloat16 and (B, D, seg, n_seg) in WIDE_GEOMETRIES:
+        assert S.segmax_scores.routes - before == {_wide_kernel(B, D): 1}
     want = S.segmax_scores_reference(uf, iv, ib, seg)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
@@ -176,29 +192,69 @@ def test_kernel_takes_8_byte_aligned_rows_on_card(cuda_device, B):
 @pytest.mark.parametrize("D,align,Dp,copy_bytes,wide", [
     (148, 16, 160, 8, True), (148, 8, 160, 8, True), (152, 16, 160, 16, True),
     (160, 16, 160, 16, True), (128, 16, 128, 16, True), (100, 8, 160, 8, True),
-    (128, 8, 160, 8, True), (150, 16, 160, 4, False), (164, 16, 176, 8, False),
+    (128, 8, 160, 8, True), (150, 16, 160, 4, False), (164, 16, (256, 208), 8, True),
     (152, 8, 160, 8, True),
     (148, 4, 160, 4, False), (148, 2, 160, 2, False), (33, 16, 48, 2, False),
-    (208, 16, 208, 16, False), (208, 8, 208, 8, False),
+    (208, 16, (256, 208), 16, True), (208, 8, (256, 208), 8, True),
+    (176, 16, (256, 208), 16, True), (216, 16, (256, 256), 16, True),
+    (256, 8, (256, 256), 8, True), (208, 4, 208, 4, False), (264, 16, 272, 16, False),
 ])
 def test_route_takes_wide_rows_to_the_register_and_warpgroup_kernels_on_card(
         cuda_device, D, align, Dp, copy_bytes, wide):
-    """fvx_segmax_route: D up to 160 in rows of 8- or 16-byte copies goes
-    to the register kernel at B <= 64 and to the warpgroup kernel above;
-    D = 150 (4-byte rows), 164 and rows aligned to 4 or 2 bytes go to
-    segmax_mma_kernel.  D is zero-padded to 128 for 16-byte rows up to
-    128, else to 160.  The register kernel's shared rows are 160 bf16
-    apart (64 bytes mod 128) at both Dp."""
+    """fvx_segmax_route: D up to 256 in rows of 8- or 16-byte copies goes
+    to the register kernel at B <= 64 and to a warpgroup kernel above (up
+    to D = 160 segmax_wgmma_kernel, above it segmax_wgmma_wide_kernel);
+    D = 150 (4-byte rows), rows aligned to 4 or 2 bytes and D above 256 go
+    to segmax_mma_kernel.  Up to 160 D is zero-padded to 128 for 16-byte
+    rows up to 128, else to 160; above 160 (Dp given as register kernel,
+    warpgroup kernel) to 256 in the register kernel, to 208 (D <= 208) or
+    256 in the wide kernel.  The register kernel's shared rows are 64 bytes
+    apart mod 128: 160 bf16 at Dp 128 and 160, 288 at 256; it holds 256
+    items a block up to 160, 128 above.  The wide kernel holds 256 items a
+    block and a user-tile slot for each of its two warpgroups; at Dp 256 its
+    merge of seg 3 would outgrow shared memory, so that goes to
+    segmax_mma_kernel."""
     for B, large in ((1, False), (64, False), (65, True), (4096, True)):
         r = S.segmax_route(B, D, 32, align)
-        want = ("segmax_wgmma_kernel" if large else "segmax_mma_regs_kernel") if wide \
-            else "segmax_mma_kernel"
-        assert (r["kernel"], r["Dp"], r["copy_bytes"]) == (want, Dp, copy_bytes), (B, r)
+        want = _wide_kernel(B, D) if wide else "segmax_mma_kernel"
+        want_dp = Dp[large] if isinstance(Dp, tuple) else Dp
+        assert (r["kernel"], r["Dp"], r["copy_bytes"]) == (want, want_dp, copy_bytes), (B, r)
         if r["kernel"] == "segmax_mma_regs_kernel":
-            assert r["ld"] == 160
+            assert (r["ld"], r["block_items"]) == ((160, 256) if D <= 160 else (288, 128))
+        if r["kernel"] == "segmax_wgmma_wide_kernel":
+            assert (r["block_items"], r["stages"], r["group_rows"]) == (256, 2, 32)
         assert r["smem"] <= 232448
+    if 160 < D <= 256 and copy_bytes >= 8:
+        for seg, kernel in ((3, "segmax_mma_kernel" if D > 208 else "segmax_wgmma_wide_kernel"),
+                            (12, "segmax_wgmma_wide_kernel"), (1, "segmax_wgmma_wide_kernel")):
+            r = S.segmax_route(4096, D, seg, align)
+            assert r["kernel"] == kernel and r["smem"] <= 232448, (seg, r)
     with pytest.raises(ValueError, match="bad geometry"):
         S.segmax_route(0, D, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 64, 100, 4097])
+def test_kernel_takes_8_byte_aligned_wide_rows_on_card(cuda_device, B):
+    """iv a [Ip, 208] view 4 elements into a flat tensor (CompVBPR's
+    width; its 416-byte rows keep a 16-byte aligned base 16-byte aligned):
+    8-byte aligned, not 16.  The register and wide warpgroup kernels take
+    it with 8-byte copies."""
+    seg, D, Ip = 32, 208, 32 * 37
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    uf = (torch.randn(B, D, device=cuda_device, generator=g) * (3 / D**0.5)).bfloat16()
+    flat = torch.randn(Ip * D + 4, device=cuda_device, generator=g).bfloat16()
+    iv = flat[4:].view(Ip, D)
+    assert iv.is_contiguous() and S.operand_align(uf, iv) == 8
+    assert S.segmax_route(B, D, seg, 8)["copy_bytes"] == 8
+    ib = torch.randn(Ip, device=cuda_device, generator=g) * 0.1
+    ib[-seg - 3:] = -1e30
+    before = S.segmax_scores.routes.copy()
+    got = S.segmax_scores(uf, iv, ib, seg)
+    torch.cuda.synchronize()
+    assert S.segmax_scores.routes - before == {_wide_kernel(B, D): 1}
+    torch.testing.assert_close(got, S.segmax_scores_reference(uf, iv, ib, seg),
+                               atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ def _inputs(D, seed):
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("seg", [4, 8, 32])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("D", [16, 128, 148, 150, 160])
+@pytest.mark.parametrize("D", [16, 128, 148, 150, 160, 176, 208, 256])
 def test_plain_version_matches_jax_interpret(D, dtype, seg, transposed):
     uf, iv, ib = _inputs(D, seed=seg + D)
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
