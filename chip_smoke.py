@@ -260,8 +260,12 @@ Phases, each of which raises on a failure (nothing is swallowed):
    against their plain version ``edge_tower_gap_bf16_plain`` at the tower
    phase's geometries, ties and edge maps and at ragged tiles of odd
    counts, with the f32 kernels' tolerances, two runs bit-equal, the
-   float64 witness on one seed of edge maps, the bf16 backward's ptxas
-   registers and spills (no more spills than the f32 one's), timed at
+   float64 witness on one seed of edge maps (the bf16 backward's decisions
+   replayed by the tensor cores' measured rounding, its near-tie band by
+   the f32 chain), the tensor-core probes (``tensor_core_probes``: the
+   measured rounding model against wgmma and mma.sync on crafted operands,
+   the transposed tap-sum product against torch.matmul), the bf16
+   backward's ptxas registers and spills (none), timed at
    8192 x 32x32 x 64 and 256 x 224x224 x 64 beside the f32 kernels' times
    of phase 12, cuDNN's bf16 conv alone and the bound (the operations at
    the bf16 rate, or the bytes with 2-byte images); then in bf16
@@ -1999,6 +2003,39 @@ def tower_winners(torch, z, b):
     return m
 
 
+def tower_band(torch, z, s, wmax, b):
+    """[B, C, H/2, W/2] bool: the pool windows that the bf16 backward
+    recomputes by the f32 chain (``edge_tower.cu::near_tie``), from its
+    wgmma conv values z [B, C, H, W] (f32), the sums S_p [B, 1, H, W] of
+    |x| over each pixel's 25 taps, the largest |w| of each channel wmax [C]
+    and the bias b [C]: a row's two values within the band of their
+    pixels' larger S, the rows' pre-activations within that of their
+    winners' larger S, or one's sign within that of its winner's (no band
+    where that S is 0)."""
+    B, C, H, W = z.shape
+    zw = z.reshape(B, C, H // 2, 2, W // 2, 2)
+    z00, z01 = zw[:, :, :, 0, :, 0], zw[:, :, :, 0, :, 1]
+    z10, z11 = zw[:, :, :, 1, :, 0], zw[:, :, :, 1, :, 1]
+    sw = s.reshape(B, 1, H // 2, 2, W // 2, 2)
+    s00, s01, s10, s11 = sw[:, :, :, 0, :, 0], sw[:, :, :, 0, :, 1], sw[:, :, :, 1, :, 0], \
+        sw[:, :, :, 1, :, 1]
+    bc = b[None, :, None, None]
+    even_t, even_b = z00 >= z01, z10 >= z11
+    pt = torch.where(even_t, z00, z01) + bc
+    pb = torch.where(even_b, z10, z11) + bc
+    swt, swb = torch.where(even_t, s00, s01), torch.where(even_b, s10, s11)
+    wm = wmax[None, :, None, None]
+
+    def band(sv):
+        return torch.where((sv > 0) & (wm > 0),
+                           (1.5 * 2.0**-18 + 2.0**-21) * wm * sv + 2.0**-21 * bc.abs(), -1.0)
+
+    return (((z00 - z01).abs() <= band(torch.maximum(s00, s01)))
+            | ((z10 - z11).abs() <= band(torch.maximum(s10, s11)))
+            | ((pt - pb).abs() <= band(torch.maximum(swt, swb)))
+            | (pt.abs() <= band(swt)) | (pb.abs() <= band(swb)))
+
+
 def tower_f64_witness(torch, E, seed, bf16=False):
     """Edge maps at TOWER_WITNESS: which pool windows' winners the kernel's
     f32 chain and cuDNN's f32 conv decide unlike a float64 conv, and each
@@ -2011,8 +2048,13 @@ def tower_f64_witness(torch, E, seed, bf16=False):
     With ``bf16`` the bf16 kernels on the maps' bf16 values (k/255 rounded)
     and the weights rounded to bf16, against the bf16 plain version; the
     dW sums take g = dout * (1/n) rounded to bf16, db the f32 g, as the
-    kernels do."""
+    kernels do.  The bf16 backward decides on its wgmma sums, replayed by
+    the tensor cores' measured rounding (``ops/tc_rounding.py::conv_sums``:
+    "tc"), except in the windows of its near-tie band (``tower_band``),
+    where it takes the f32 chain's values: its replay ("kernel") is the
+    one, or in the band the other, window by window."""
     from fashionvisualexpl_tpu_torch.core.precision import fp32_math
+    from fashionvisualexpl_tpu_torch.ops import tc_rounding
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -2032,12 +2074,15 @@ def tower_f64_witness(torch, E, seed, bf16=False):
         x, wt = xk.float(), w.bfloat16().float().reshape(25, C)
         g32 = dout * (torch.ones((), device=dev) / ((H // 2) * (W // 2)))
         g_w, g_b = g32.bfloat16().double(), g32.double()
+        wmax = wt.abs().amax(dim=0)
     else:
         got = E.edge_tower_bwd(x, w, b, dout)
         plain = E.edge_tower_gap_plain_backward(x, w, b, dout)
         wt = w.reshape(25, C)
         g_w = g_b = dout.double() / ((H // 2) * (W // 2))
     flips = {"kernel/f64": 0, "cudnn/f64": 0, "kernel/cudnn": 0}
+    if bf16:
+        flips.update({"tc/f64": 0, "tc/cudnn": 0, "band": 0})
     sums = {key: torch.zeros(26, C, dtype=torch.float64, device=dev)
             for key in ("f64", "f64_abs", "kernel_replay")}
     for lo in range(0, B, TOWER_WITNESS_CHUNK):
@@ -2056,9 +2101,19 @@ def tower_f64_witness(torch, E, seed, bf16=False):
         masks = {"f64": tower_winners(torch, z64, b.double()),
                  "cudnn": tower_winners(torch, z_cudnn, b),
                  "kernel": tower_winners(torch, z_k, b)}
+        if bf16:
+            z_tc = tc_rounding.conv_sums(xs, wt)
+            s_p = F.conv2d(xs.abs().double(), xs.new_ones(1, 1, 5, 5, dtype=torch.float64),
+                           padding=2).float()
+            band = tower_band(torch, z_tc, s_p, wmax, b)
+            flips["band"] += int(band.sum())
+            masks["tc"] = tower_winners(torch, z_tc, b)
+            in_band = band[:, :, :, None, :, None].expand(-1, -1, -1, 2, -1, 2).reshape(n, C, H, W)
+            masks["kernel"] = torch.where(in_band, masks["kernel"], masks["tc"])
+            del z_tc, s_p, band, in_band
         del z64, z_cudnn, z_k, prod, xp
         windows = {key: m.reshape(n, C, H // 2, 2, W // 2, 2) for key, m in masks.items()}
-        for pair in flips:
+        for pair in [p for p in flips if "/" in p]:
             u, v = pair.split("/")
             flips[pair] += int((windows[u] != windows[v]).any(dim=(3, 5)).sum())
         cols = torch.cat([cols, torch.ones_like(cols[:, :1])], dim=1).transpose(1, 2)
@@ -2082,14 +2137,18 @@ def tower_f64_witness(torch, E, seed, bf16=False):
     readings = {name: float(((v - r).abs() - tol).max()) for name, v, r in (
         ("kernel-f64", kernel, ref), ("cudnn-f64", cudnn, ref), ("kernel-cudnn", kernel, cudnn),
         ("kernel-replay", kernel, sums["kernel_replay"]))}
+    band = flips.pop("band", None)
     print(f"tower witness B={B} H={H} W={W} C={C} edge maps{' bf16' if bf16 else ''} seed "
           f"{seed}: windows whose "
-          f"winner differs {flips} of {B * C * (H // 2) * (W // 2)}; max excess of "
+          f"winner differs {flips} of {B * C * (H // 2) * (W // 2)}"
+          f"{'' if band is None else f', in the near-tie band {band}'}; max excess of "
           f"|a - b| over the check's tolerance (<= 0 passes) {readings}; "
           f"{time.perf_counter() - t0!r} s")
     if readings["kernel-replay"] > 0:
         fail(f"tower witness seed {seed}: the backward leaves the tolerance against "
              f"its own replayed decisions ({readings['kernel-replay']!r})")
+    if band is not None:
+        flips["band"] = band
     return flips, readings
 
 
@@ -5530,7 +5589,9 @@ def comp_vbpr_phase(torch, np, counts, segmax, topk, G, S):
 # --compute_dtype bfloat16 on BF16_CLI_N x BF16_CLI_N datasets, one epoch
 # (AttentiveFashion's tiffs at 32x32, CompVBPR's at its default
 # --edge_hw 224 224)
-BF16_ODD = ((5, 34, 36, 130), (3, 18, 200, 100))
+BF16_ODD = ((5, 34, 36, 130), (3, 18, 200, 100), (1, 32, 32, 300))
+# the tensor-core probes' seeds (ops/tc_rounding.py::probe_operands)
+TC_PROBE_SEEDS = (0, 1)
 BF16_STEPS, BF16_COMP_STEPS, BF16_PROFILE_STEPS = 10, 3, 3
 BF16_CLI_N = 2048
 # CompVBPR at the reference's 224x224 in bf16: the CNN alone at
@@ -5552,6 +5613,50 @@ def ptxas_rows(kernel_prefix: str):
             if r["kernel"].startswith(kernel_prefix)}
 
 
+def tensor_core_probes(torch):
+    """How the tensor cores round their f32 sums, on the card
+    (``ops/tc_rounding.py``): ``wgmma.m64n64k16`` and ``mma.sync.m16n8k16``
+    on every crafted operand kind and TC_PROBE_SEEDS, each model of the
+    family scored by the outputs it gets wrong; fails unless
+    ``tc_rounding.MEASURED`` gets every output of both right.  Then the bf16
+    backward's tap-sum product (the im2col tile read transposed) on 0/1 x
+    integer operands, whose sums are exact: equal to ``torch.matmul`` with
+    the kernel's byte offsets, unequal with them swapped."""
+    from fashionvisualexpl_tpu_torch.core.precision import fp32_math
+    from fashionvisualexpl_tpu_torch.ops import tc_rounding as R
+
+    dev = torch.device("cuda")
+    runs = {"wgmma": [], "mma.sync": []}
+    for kind in R.KINDS:
+        for seed in TC_PROBE_SEEDS:
+            a, b, c = (t.to(dev) for t in R.probe_operands(kind, seed))
+            for op in runs:
+                runs[op].append((a, b, c, R.probe_sums(a, b, c, use_mma=op == "mma.sync")))
+    out = {}
+    for op, rs in runs.items():
+        wrong = R.fit(rs)
+        ranked = sorted(wrong.items(), key=lambda kv: kv[1])
+        out[op] = {R.name(m): n for m, n in ranked[:3]}
+        print(f"tensor-core sums {op}: {64 * 64 * len(rs)} outputs of {len(R.KINDS)} crafted "
+              f"kinds; {len(wrong)} models, the best three and the outputs each gets wrong: "
+              f"{out[op]}")
+        if wrong[R.MEASURED]:
+            fail(f"tensor-core sums {op}: the measured model ({R.name(R.MEASURED)}) gets "
+                 f"{wrong[R.MEASURED]} outputs wrong")
+    g = torch.Generator().manual_seed(3)
+    a = torch.randint(0, 2, (64, 64), generator=g).bfloat16().to(dev)
+    x = torch.randint(-128, 128, (64, 32), generator=g).bfloat16().to(dev)
+    with fp32_math():
+        want = torch.matmul(a.float(), x.float())
+    got, swapped = R.probe_tap_sums(a, x), R.probe_tap_sums(a, x, swap=True)
+    if not torch.equal(got, want) or torch.equal(swapped, want):
+        fail(f"tap sums through the transposed descriptors: equal to torch.matmul "
+             f"{torch.equal(got, want)}, with lbo and sbo swapped {torch.equal(swapped, want)}")
+    out["tap_sums_transposed"] = "equal to torch.matmul; with lbo and sbo swapped unequal"
+    print(f"tap sums through the transposed descriptors: {out['tap_sums_transposed']}")
+    return out
+
+
 def tower_bf16_phase(torch, E, f32_rows):
     """K7's bf16 kernels against their plain version, two backward runs
     bit-equal, the witness, the bf16 backward's registers against the f32
@@ -5560,12 +5665,12 @@ def tower_bf16_phase(torch, E, f32_rows):
     g = torch.Generator(device=dev).manual_seed(52)
     errs = {"edge_tower_fwd": 0.0, "edge_tower_bwd": 0.0}
     regs = ptxas_rows("edge_")
-    f32_bwd, bf16_bwd = regs["edge_bwd_kernel<float>"], regs["edge_bwd_kernel<__nv_bfloat16>"]
+    f32_bwd, bf16_bwd = regs["edge_bwd_kernel"], regs["edge_bwd_wgmma_kernel"]
     print(f"edge_tower bf16 ptxas: {regs['edge_fwd_kernel<__nv_bfloat16>']}, {bf16_bwd} "
           f"(f32: {regs['edge_fwd_kernel<float>']}, {f32_bwd})")
-    if bf16_bwd["spill_stores"] > f32_bwd["spill_stores"] \
-            or bf16_bwd["spill_loads"] > f32_bwd["spill_loads"]:
-        fail(f"the bf16 backward spills more than the f32 one: {bf16_bwd} vs {f32_bwd}")
+    if bf16_bwd["spill_stores"] or bf16_bwd["spill_loads"]:
+        fail(f"the bf16 backward spills: {bf16_bwd}")
+    probes = tensor_core_probes(torch)
 
     def inputs(B, H, W, C, value=None, edges=False):
         if value is not None:
@@ -5646,7 +5751,8 @@ def tower_bf16_phase(torch, E, f32_rows):
         reg = bf16_bwd if name == "edge_tower_bwd" else regs["edge_fwd_kernel<__nv_bfloat16>"]
         out[name] = dict(max_abs_err=errs[name], **main, at_224=ref, ptxas=reg,
                          library="torch.nn.functional.conv2d bf16 (conv only)")
-    out["edge_tower_bwd"].update(witness_flips=flips, witness_readings=readings)
+    out["edge_tower_bwd"].update(witness_flips=flips, witness_readings=readings,
+                                 tensor_core_probes=probes)
     return out
 
 

@@ -27,7 +27,7 @@
 // 0.025 ms at 989 TFLOP/s bf16 (0.37 ms at the 67 TFLOP/s f32 rate of the
 // CUDA cores, which bounded the first design); it issues 12 k16 steps per
 // 64 channels and 64 conv pixels, 206 GFLOP at that shape (0.21 ms at
-// peak).  The backward recomputes the conv in f32 FMAs on the CUDA cores
+// peak).  The f32 backward recomputes the conv in f32 FMAs on the CUDA cores
 // (0.37 ms) and adds one FMA per valid tap of each winning conv output
 // whose pre-activation is > 0 (dW), which it runs on the tensor cores as
 // three exact bf16 products (0.014 ms at that shape): the recomputed conv
@@ -100,12 +100,17 @@
 //   whose terms share one sign (the CPU tests assert both), but not on
 //   uniform images with N(0, 0.1) weights (A ~ 1, |out| ~ 0.2), where 25
 //   truncations of a sum of size A would all have to err the same way.
-//   If the tensor cores truncate once per k16 step rather than per
-//   addition, the hh term falls to 2.02 * 2^-23 A.  What decides is the
-//   card: chip_smoke.py holds the kernel to the plain version at that
-//   tolerance on uniform, constant, k/255 and worst-case-split data.
-//   The forward makes no decision that anything reads: the backward
-//   decides winners itself with the f32 conv2x2 chain.
+//   The card's tensor cores (ops/tc_rounding.py::MEASURED, held against
+//   wgmma on crafted operands) cut each term of a k16 step toward zero 2
+//   bits below the f32 ulp of the step's largest exponent, then the exact
+//   sum once, toward zero: the hh sum's 2 steps (16 terms, then the
+//   running sum and 9) err by under (26 2^-25 + 2 2^-23) A = 8.5 * 2^-23
+//   A, inside the assumption above.
+//   chip_smoke.py holds the kernel to the plain version at that tolerance
+//   on uniform, constant, k/255 and worst-case-split data.
+//   The forward makes no decision that anything reads: the f32 backward
+//   decides winners itself with the f32 conv2x2 chain, the bf16 one on the
+//   bf16 forward's own sums.
 //
 // Backward (the tap sums on the tensor cores).  With g[b, c] = dout[b, c] /
 // ((H/2)(W/2)), constant over an image, and M_b[c, p] = 1 where conv pixel
@@ -141,20 +146,59 @@
 //
 // bf16 images (the JAX kernel's bf16 mode: _weights(..., images.dtype) bands
 // the weights in the images' dtype and the backward casts the routed
-// gradient to it before the dW products).  Both kernels are templates on
+// gradient to it before the dW products).  The forward is a template on
 // the image type T; T = float is the f32 tower above, unchanged.  With T =
 // __nv_bfloat16 the weights are rounded to bf16 (nearest, even) and each
 // pixel is one exact bf16 piece, so every conv product is exact in f32 and
-// only the f32 sums round:
-// * Forward: the wh.xh product alone, 2 k16 steps a tile (not 12), one
-//   staged plane read from the image as 2-byte words, a 4 KB im2col tile
-//   (not 12 KB); + bias, ReLU, the 2x2 max and the mean in f32 as above.
-// * Backward: the conv recomputed in f32 from the rounded weights and the
-//   bf16 pixels, the same tie rule; one tap-sum product a B fragment (not
-//   three); dW scaled by g rounded to bf16 and db by the f32 g, with g =
-//   dout * (1 / ((H/2)(W/2))) as the JAX kernel's Sel product gives it.
-// Bounds at the bf16 rate with 2-byte images are in chip_smoke.py.
-
+// only the f32 sums round: the wh.xh product alone, 2 k16 steps a tile
+// (not 12), one staged plane read from the image as 2-byte words, a 4 KB
+// im2col tile (not 12 KB); + bias, ReLU, the 2x2 max and the mean in f32
+// as above.
+//
+// bf16 backward (edge_bwd_wgmma_kernel): the conv and the tap sums both on
+// the tensor cores, the winners decided in registers.  With bf16 images
+// the conv's products are exact, so the f32 conv2x2 chain above has no
+// reason left to run on the CUDA cores (0.37 ms at 8192 x 32x32 x 64).
+// * Tiles: the forward's (fwd_tiles): a block (one warpgroup, 64 channels,
+//   blockIdx.y the group) walks a fixed share of the items over a grid of
+//   the blocks the card holds at once (the wrapper makes it coprime with
+//   the items of an image, so that every block takes ragged items too),
+//   stages each item's plane, its max |x| and the group's rounded weights,
+//   and walks its N tiles of 64 conv pixels as the forward does,
+//   double-buffered.
+// * Conv: the forward's 2 k16 steps on the forward's im2col tile, in its K
+//   order and with its weights, so the conv values are the forward's own
+//   sums.  One change to the tile: tap column 25 holds bf16 1.0 in every
+//   pixel row (the weights are zero there, so the conv is unchanged).
+// * Winners in registers: the forward's pixel order gives each thread
+//   whole pool windows (z(o), z(o + 1), z(o + 4), z(o + 5), o = 8j + 2h:
+//   window 4j + t of channel row g + 8h); the tie rule of window_mask
+//   decides them on the wgmma sums and writes the 0/1 masks as bf16 pairs
+//   straight into A fragments: accumulator block 8i + 2t (+1) of rows g,
+//   g + 8 is the A layout of k16 step i / 2 of the next product, so no
+//   shuffle is needed.  The wgmma sums truncate, so a window whose
+//   decisions are near a tie is recomputed by the f32 chain (the band
+//   below, two screens); the decisions are then the f32 chain's, as the
+//   plain version's cuDNN conv makes them (one window decided otherwise
+//   leaves the gradient tolerance at 8192 images).  About 0.03% of the
+//   window-channels of uniform images and 0.013% of k/255 edge maps are
+//   recomputed (H100).
+// * Tap sums: T[c, j] = sum_p M[c, p] X[p, j] as 4 k16 steps of
+//   wgmma.m64n32k16 (K the N tile's 64 pixels, N the 32 columns: 25 taps,
+//   the ones column, zeros), A the masks in registers, B the same im2col
+//   tile read with the transpose bit: its rows are pixels with taps
+//   contiguous, MN-major for this product (tap_sums; lbo 128, sbo 1024).
+//   Each N tile's sums (at most 16 winners of 0/1 x bf16) are folded into
+//   16 persistent f32 sums with one FMA each: dW columns by g rounded to
+//   bf16, db by the f32 g (g = dout * (1 / ((H/2)(W/2)))).
+// * Per-block partials [26, C], summed in block order by
+//   edge_bwd_reduce_kernel: no float atomics, two runs give the same bits;
+//   nothing of the activation's or the masks' size is written.
+// * What bounds it: operations, the conv and the tap sums at the bf16 rate
+//   (chip_smoke.py::tower_bounds); it issues 2 k16 steps of n64 and 4 of
+//   n32 a tile, twice the forward's tensor work.  The CUDA cores' share
+//   (the im2col writes, the decisions and their screens) is what it waits
+//   on.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,6 +217,16 @@ constexpr int kFwdThreads = 128;  // one warpgroup
 constexpr int kFwdChannels = 64;  // channels of one forward block: the wgmma M tile
 constexpr int kFwdChunk = 16;     // pooled columns of one N tile: 64 conv pixels
 constexpr int kPieceK = 32;       // K of one image piece: taps 0..24, zero to 32
+constexpr uint32_t kBf16One = 0x3F80u;
+// the im2col tile read transposed (MN-major, a pixel row's 8 taps of a
+// k-group contiguous): core matrices adjacent along K (8 pixel rows) 128
+// bytes apart, along N (k-groups of 8 taps) 1024
+constexpr uint32_t kTnspLbo = 128, kTnspSbo = 1024;
+constexpr int kBwdWgmmaMinBlocks = 4;  // edge_bwd_wgmma_kernel's blocks an SM, at least
+constexpr int kBwdBufs = 2;  // its im2col tiles: one read by the products while the other is written
+constexpr int kBwdSumBytes = kBwdBufs * 128 * 4;  // their S_p halves
+// its rounded weights [25, 64] and four warps' max |x|
+constexpr int kBwdWeightBytes = kTaps * 64 * 4 + 16;
 
 // f32 images split into three bf16 pieces; bf16 images are one
 template <typename T>
@@ -186,7 +240,6 @@ constexpr int kTileBytes = 64 * kPieces<T> * kPieceK * 2;
 constexpr int kBwdWarps = 4;
 constexpr int kBwdGroupChannels = 16 * kBwdWarps;  // channels of one backward block
 constexpr int kFlushSlabs = 8;  // slabs summed on the tensor cores between two scalings by g
-constexpr uint32_t kBf16One = 0x3F80u;
 
 struct BwdLayout {
   int mt;   // warps across the block's channels (one m-tile of 16 channels each)
@@ -245,14 +298,20 @@ __host__ __device__ inline int plane_stride(int Cw) {
   return ps;
 }
 
+// bf16 bits (the low 16 of b) as f32
+__device__ __forceinline__ float bf16_bits(uint32_t b) { return __uint_as_float(b << 16); }
+
 // The kH-th half (k-groups kG/2 kH .. of the kG) of one pixel's row of the
 // im2col tile: k-group kg holds taps 8 (kg % 4) .. + 7 of piece kg / 4 (hi,
 // mid, lo; kG = 12 for f32 images, 4 for bf16 ones), zero past tap 24.
-// `win` is the pixel's 5x5 window (its top-left entry) in the hi plane; `n`
-// the pixel's row of the tile.
-template <int kH, int kG>
-__device__ __forceinline__ void write_im2col(uint4* tile, const uint16_t* win, int plane,
-                                             int ps, int n) {
+// With kBwd (the bf16 backward) tap 25 holds bf16 1.0 (db's column) and the
+// sum of |x| over the half's taps is returned (else 0).  `win` is the
+// pixel's 5x5 window (its top-left entry) in the hi plane; `n` the pixel's
+// row of the tile.
+template <int kH, int kG, bool kBwd = false>
+__device__ __forceinline__ float write_im2col(uint4* tile, const uint16_t* win, int plane,
+                                              int ps, int n) {
+  float sum = 0.0f;
 #pragma unroll
   for (int q = 0; q < kG / 2; ++q) {
     const int kg = kG / 2 * kH + q;
@@ -263,16 +322,117 @@ __device__ __forceinline__ void write_im2col(uint4* tile, const uint16_t* win, i
       const int j0 = 8 * (kg % 4) + 2 * e;
       const int j1 = j0 + 1;
       const uint32_t lo = j0 < kTaps ? p[(j0 / 5) * ps + j0 % 5] : 0u;
-      const uint32_t hi = j1 < kTaps ? p[(j1 / 5) * ps + j1 % 5] : 0u;
+      const uint32_t hi = j1 < kTaps ? p[(j1 / 5) * ps + j1 % 5]
+                          : kBwd && j1 == kTaps ? kBf16One : 0u;
       v[e] = lo | hi << 16;
+      if constexpr (kBwd) {  // the pair's words as f32: lo shifted up, hi in place
+        sum += fabsf(__uint_as_float(v[e] << 16));
+        if (j1 < kTaps) sum += fabsf(__uint_as_float(v[e] & 0xFFFF0000u));
+      }
     }
     tile[kg * 64 + n] = make_uint4(v[0], v[1], v[2], v[3]);
   }
+  return sum;
 }
 
 // the descriptor of k16 step s of piece `piece` of an im2col tile at `base`
 __device__ __forceinline__ uint64_t im2col_desc(uint32_t base, int piece, int s) {
   return fvx::wgmma_desc(base + (4 * piece + 2 * s) * 1024, 1024, 128);
+}
+
+// The weights as the conv's A operand, in registers for a block's life:
+// rows g and g + 8 (channels c0, c0 + 8) of a warp's 16 channels, taps 16 st
+// + 2t (+1) and + 8; each split into its three bf16 pieces (f32 images) or
+// rounded to bf16, nearest even (bf16 images: ah only); and the two
+// channels' bias.  Channels past C are zero.
+template <typename T>
+__device__ __forceinline__ void conv_weights(const float* __restrict__ w,
+                                             const float* __restrict__ bias, int C, int c0,
+                                             int t, uint32_t (&ah)[2][4], uint32_t (&am)[2][4],
+                                             uint32_t (&al)[2][4], float (&bc)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + 8 * h;
+    bc[h] = c < C ? bias[c] : 0.0f;
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = 16 * st + 8 * q + 2 * t;
+        float2 v = make_float2(0.0f, 0.0f);
+        if (c < C && k < kTaps) v.x = w[k * C + c];
+        if (c < C && k + 1 < kTaps) v.y = w[(k + 1) * C + c];
+        if constexpr (kSplit<T>) {
+          fvx::split3_bf16x2(v, ah[st][h + 2 * q], am[st][h + 2 * q], al[st][h + 2 * q]);
+        } else {  // the weights rounded to bf16, nearest even
+          const __nv_bfloat162 r = __floats2bfloat162_rn(v.x, v.y);
+          ah[st][h + 2 * q] = *reinterpret_cast<const uint32_t*>(&r);
+        }
+      }
+    }
+  }
+}
+
+// An item's input rows 2 r0 - 2 .. and columns 2 q0 - 2 .. of image img,
+// zero outside the image, as three planes of bf16 pieces (bf16 images: one
+// plane, the pixels' own bits), rows ps bf16 apart, `plane` bf16 a piece;
+// all kFwdThreads threads of the block take part.
+template <typename T>
+__device__ __forceinline__ void stage_planes(uint32_t* planes, const T* __restrict__ img, int H,
+                                             int W, int Rp, int r0, int q0, int ps, int plane) {
+  const int half = ps / 2;
+  const int n = (2 * Rp + 4) * half;
+  for (int i = threadIdx.x; i < n; i += kFwdThreads) {
+    const int ry = i / half;
+    const int cx = 2 * (i - ry * half);
+    const int y = 2 * r0 - 2 + ry;
+    const int xx = 2 * q0 - 2 + cx;  // even, as W is: both columns in or out
+    const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
+    const int o = ry * half + cx / 2;
+    if constexpr (kSplit<T>) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (in) {
+        const float* row = img + static_cast<long long>(y) * W + xx;
+        v = make_float2(row[0], row[1]);
+      }
+      uint32_t hi, mid, lo;
+      fvx::split3_bf16x2(v, hi, mid, lo);
+      planes[o] = hi;
+      planes[plane / 2 + o] = mid;
+      planes[plane + o] = lo;
+    } else {
+      uint32_t v = 0u;
+      if (in) {
+        const uint16_t* row =
+            reinterpret_cast<const uint16_t*>(img) + static_cast<long long>(y) * W + xx;
+        v = row[0] | static_cast<uint32_t>(row[1]) << 16;
+      }
+      planes[o] = v;
+    }
+  }
+}
+
+// This thread's row of the im2col tile of pooled row prl, chunk ch of an
+// item, in buffer buf: pixel n = tid % 64 = 16 j + 8 r + 2
+// t' + e is column 2 t' + e of pool window 4 j + t' (of the N tile's 16), in
+// its top (r = 0) or bottom row; threads 0..63 write the first half of its
+// k-groups, 64..127 the second.  With kBwd (the bf16 backward) each half's
+// sum of |x| goes to sums[128 buf + 2 n + half]: a pixel's S_p is the sum
+// of its two entries.
+template <typename T, bool kBwd = false>
+__device__ __forceinline__ void write_tile(uint4* tiles, const uint16_t* hi_plane, int plane,
+                                           int ps, int prl, int ch, int buf,
+                                           float* sums = nullptr) {
+  const int tid = threadIdx.x;
+  const int n = tid % 64;
+  const int wrow = (n / 8) % 2;
+  const int wcol = 8 * (n / 16) + n % 8;  // conv column in the N tile's 32
+  const uint16_t* win = hi_plane + (2 * prl + wrow) * ps + 2 * kFwdChunk * ch + wcol;
+  uint4* tile = tiles + buf * (kTileBytes<T> / 16);
+  float s;
+  if (tid < 64) s = write_im2col<0, 4 * kPieces<T>, kBwd>(tile, win, plane, ps, n);
+  else s = write_im2col<1, 4 * kPieces<T>, kBwd>(tile, win, plane, ps, n);
+  if constexpr (kBwd) sums[128 * buf + 2 * n + tid / 64] = s;
 }
 
 template <typename T>
@@ -297,87 +457,15 @@ edge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const int ps = plane_stride(Cw);
   const int plane = (2 * Rp + 4) * ps;  // bf16 of one piece's plane
 
-  // the weights as the A operand, in registers for the block's life: rows
-  // g and g + 8 of the warp's 16 channels, taps 16 s + 2t (+1) and + 8
   uint32_t ah[2][4], am[2][4], al[2][4];
-  const int cw0 = blockIdx.y * kFwdChannels + warp * 16 + g;
   float bc[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = cw0 + 8 * h;
-    bc[h] = c < C ? bias[c] : 0.0f;
-#pragma unroll
-    for (int st = 0; st < 2; ++st) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int k = 16 * st + 8 * q + 2 * t;
-        float2 v = make_float2(0.0f, 0.0f);
-        if (c < C && k < kTaps) v.x = w[k * C + c];
-        if (c < C && k + 1 < kTaps) v.y = w[(k + 1) * C + c];
-        if constexpr (kSplit<T>) {
-          fvx::split3_bf16x2(v, ah[st][h + 2 * q], am[st][h + 2 * q], al[st][h + 2 * q]);
-        } else {  // the weights rounded to bf16, nearest even
-          const __nv_bfloat162 r = __floats2bfloat162_rn(v.x, v.y);
-          ah[st][h + 2 * q] = *reinterpret_cast<const uint32_t*>(&r);
-        }
-      }
-    }
-  }
-
-  // the tile's input rows 2 r0 - 2 .. and columns 2 q0 - 2 .., zero
-  // outside the image, as three planes of bf16 pieces (bf16 images: one
-  // plane, the pixels' own bits)
-  {
-    const T* img = x + b * H * W;
-    const int half = ps / 2;
-    const int n = (2 * Rp + 4) * half;
-    for (int i = tid; i < n; i += kFwdThreads) {
-      const int ry = i / half;
-      const int cx = 2 * (i - ry * half);
-      const int y = 2 * r0 - 2 + ry;
-      const int xx = 2 * q0 - 2 + cx;  // even, as W is: both columns in or out
-      const bool in = y >= 0 && y < H && xx >= 0 && xx < W;
-      const int o = ry * half + cx / 2;
-      if constexpr (kSplit<T>) {
-        float2 v = make_float2(0.0f, 0.0f);
-        if (in) {
-          const float* row = img + static_cast<long long>(y) * W + xx;
-          v = make_float2(row[0], row[1]);
-        }
-        uint32_t hi, mid, lo;
-        fvx::split3_bf16x2(v, hi, mid, lo);
-        planes[o] = hi;
-        planes[plane / 2 + o] = mid;
-        planes[plane + o] = lo;
-      } else {
-        uint32_t v = 0u;
-        if (in) {
-          const uint16_t* row =
-              reinterpret_cast<const uint16_t*>(img) + static_cast<long long>(y) * W + xx;
-          v = row[0] | static_cast<uint32_t>(row[1]) << 16;
-        }
-        planes[o] = v;
-      }
-    }
-  }
-
-  // this thread writes row n of each im2col tile: pixel n = 16 j + 8 r + 2 t'
-  // + e is column 2 t' + e of pool window 4 j + t' (of the N tile's 16), in
-  // its top (r = 0) or bottom row; half kH of its k-groups
-  const int n = tid % 64;
-  const int wrow = (n / 8) % 2;
-  const int wcol = 8 * (n / 16) + n % 8;  // conv column in the N tile's 32
+  const int cw0 = blockIdx.y * kFwdChannels + warp * 16 + g;
+  conv_weights<T>(w, bias, C, cw0, t, ah, am, al, bc);
+  stage_planes<T>(planes, x + b * H * W, H, W, Rp, r0, q0, ps, plane);
   const uint16_t* hi_plane = reinterpret_cast<const uint16_t*>(planes);
-  auto write_tile = [&](int nt) {
-    const int prl = nt / nchunks, ch = nt % nchunks;
-    const uint16_t* win = hi_plane + (2 * prl + wrow) * ps + 2 * kFwdChunk * ch + wcol;
-    uint4* tile = tiles + (nt % 2) * (kTile / 16);
-    if (tid < 64) write_im2col<0, 4 * kPieces<T>>(tile, win, plane, ps, n);
-    else write_im2col<1, 4 * kPieces<T>>(tile, win, plane, ps, n);
-  };
 
   __syncthreads();  // the planes are staged
-  write_tile(0);
+  write_tile<T>(tiles, hi_plane, plane, ps, 0, 0, 0);
   fvx::fence_proxy_async();
   __syncthreads();
 
@@ -411,7 +499,8 @@ edge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     }
     fvx::wgmma_commit();
     // the next tile on the CUDA cores while the tensor cores take this one
-    if (nt + 1 < n_tiles) write_tile(nt + 1);
+    if (nt + 1 < n_tiles)
+      write_tile<T>(tiles, hi_plane, plane, ps, (nt + 1) / nchunks, (nt + 1) % nchunks, (nt + 1) % 2);
     fvx::wgmma_wait0();
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -466,13 +555,11 @@ edge_fwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ ou
   out[i] = s / n;
 }
 
-// One entry of the backward's staged tile: the three bf16 pieces of the
-// pixel pair (x[cx], x[cx + 1]) as bf16x2 fragment registers, and x[cx].
-// A B fragment of the tap sums is two such pairs, the top and the bottom
-// row of a pool window at the tap's offset.  bf16 images: the pair's own
-// bits (one exact piece; the other two words unused), and x[cx] in f32.
-template <typename T>
-__device__ __forceinline__ void stage_tile(uint4* s, const T* __restrict__ img, int H, int W,
+// One entry of the f32 backward's staged tile: the three bf16 pieces of
+// the pixel pair (x[cx], x[cx + 1]) as bf16x2 fragment registers, and
+// x[cx].  A B fragment of the tap sums is two such pairs, the top and the
+// bottom row of a pool window at the tap's offset.
+__device__ __forceinline__ void stage_tile(uint4* s, const float* __restrict__ img, int H, int W,
                                            int y0, int x0, int rows, int cols, int ws) {
   const int n = rows * cols;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -481,24 +568,14 @@ __device__ __forceinline__ void stage_tile(uint4* s, const T* __restrict__ img, 
     const int y = y0 + ry;
     const int xx = x0 + cx;
     uint4 e;
-    if constexpr (kSplit<T>) {
-      float2 v = make_float2(0.0f, 0.0f);
-      if (y >= 0 && y < H) {
-        const float* row = img + static_cast<long long>(y) * W;
-        if (xx >= 0 && xx < W) v.x = row[xx];
-        if (xx + 1 >= 0 && xx + 1 < W) v.y = row[xx + 1];
-      }
-      fvx::split3_bf16x2(v, e.x, e.y, e.z);
-      e.w = __float_as_uint(v.x);
-    } else {
-      uint32_t lo = 0u, hi = 0u;
-      if (y >= 0 && y < H) {
-        const uint16_t* row = reinterpret_cast<const uint16_t*>(img) + static_cast<long long>(y) * W;
-        if (xx >= 0 && xx < W) lo = row[xx];
-        if (xx + 1 >= 0 && xx + 1 < W) hi = row[xx + 1];
-      }
-      e = make_uint4(lo | hi << 16, 0u, 0u, lo << 16);
+    float2 v = make_float2(0.0f, 0.0f);
+    if (y >= 0 && y < H) {
+      const float* row = img + static_cast<long long>(y) * W;
+      if (xx >= 0 && xx < W) v.x = row[xx];
+      if (xx + 1 >= 0 && xx + 1 < W) v.y = row[xx + 1];
     }
+    fvx::split3_bf16x2(v, e.x, e.y, e.z);
+    e.w = __float_as_uint(v.x);
     s[ry * ws + cx] = e;
   }
 }
@@ -514,13 +591,12 @@ __device__ __forceinline__ void load_cols_w(float (&win)[6][6], const uint4* row
   }
 }
 
-// The winner of one pool window for one channel, by the f32 conv2x2 chain
-// and the tie rule, as the window's two rows of the 0/1 mask operand: a
-// bf16x2 of (left, right) for the top row and for the bottom row.
-__device__ __forceinline__ void winner_mask(const float (&win)[6][6], const float (&wr)[kTaps],
+// The winner of one pool window for one channel from its four pre-bias
+// conv values (z00, z01 its top row), by the tie rule, as the window's two
+// rows of the 0/1 mask operand: a bf16x2 of (left, right) for the top row
+// and for the bottom row; 0 unless ok.
+__device__ __forceinline__ void window_mask(float z00, float z01, float z10, float z11,
                                             float bc, bool ok, uint32_t& top, uint32_t& bot) {
-  float z00, z01, z10, z11;
-  conv2x2(win, wr, z00, z01, z10, z11);
   const bool even_t = z00 >= z01;
   const bool even_b = z10 >= z11;
   const float pre_t = (even_t ? z00 : z01) + bc;
@@ -533,18 +609,24 @@ __device__ __forceinline__ void winner_mask(const float (&win)[6][6], const floa
   bot = top_w ? 0u : one;
 }
 
+// the same, the window's conv values by the f32 conv2x2 chain
+__device__ __forceinline__ void winner_mask(const float (&win)[6][6], const float (&wr)[kTaps],
+                                            float bc, bool ok, uint32_t& top, uint32_t& bot) {
+  float z00, z01, z10, z11;
+  conv2x2(win, wr, z00, z01, z10, z11);
+  window_mask(z00, z01, z10, z11, bc, ok, top, bot);
+}
+
 // acc += g * T for the two channels of this lane (rows g and g + 8 of the
-// m-tile), then T = 0.  The dW columns take gh: g itself for f32 images, g
-// rounded to bf16 for bf16 ones (the JAX kernel's dze.astype(bf16)); the
-// odd columns of n-tile 3, db (25) and the zero columns 27, 29, 31, take g
+// m-tile), then T = 0
 __device__ __forceinline__ void flush_taps(float (&acc)[4][4], float (&tsum)[4][4], float g0,
-                                           float g1, float gh0, float gh1) {
+                                           float g1) {
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
-    acc[nt][0] = fmaf(gh0, tsum[nt][0], acc[nt][0]);
-    acc[nt][1] = fmaf(nt == 3 ? g0 : gh0, tsum[nt][1], acc[nt][1]);
-    acc[nt][2] = fmaf(gh1, tsum[nt][2], acc[nt][2]);
-    acc[nt][3] = fmaf(nt == 3 ? g1 : gh1, tsum[nt][3], acc[nt][3]);
+    acc[nt][0] = fmaf(g0, tsum[nt][0], acc[nt][0]);
+    acc[nt][1] = fmaf(g0, tsum[nt][1], acc[nt][1]);
+    acc[nt][2] = fmaf(g1, tsum[nt][2], acc[nt][2]);
+    acc[nt][3] = fmaf(g1, tsum[nt][3], acc[nt][3]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) tsum[nt][i] = 0.0f;
   }
@@ -554,9 +636,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(32 * kBwdWarps, 3)
-edge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+edge_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ dout,
                 float* __restrict__ partial, int H, int W, int C, int Rp, int Cw, int Sr,
                 int Sc, long long n_items, float n) {
@@ -578,10 +659,6 @@ edge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   for (int k = 0; k < kTaps; ++k) {
     w0[k] = act0 ? w[k * C + c0] : 0.0f;
     w1[k] = act1 ? w[k * C + c1] : 0.0f;
-    if constexpr (!kSplit<T>) {  // the forward's weights: rounded to bf16
-      w0[k] = round_bf16(w0[k]);
-      w1[k] = round_bf16(w1[k]);
-    }
   }
   const float bc0 = act0 ? bias[c0] : 0.0f;
   const float bc1 = act1 ? bias[c1] : 0.0f;
@@ -616,17 +693,8 @@ edge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     __syncthreads();  // every warp is done with the previous tile
     stage_tile(tile, x + b * H * W, H, W, 2 * r0 - 2, 2 * q0 - 2, 2 * Rp + 4, 2 * Cw + 4, ws);
     __syncthreads();
-    float g0, g1, gh0, gh1;
-    if constexpr (kSplit<T>) {
-      g0 = gh0 = act0 ? dout[b * C + c0] / n : 0.0f;
-      g1 = gh1 = act1 ? dout[b * C + c1] / n : 0.0f;
-    } else {  // dout times the f32 reciprocal, as the JAX kernel's Sel product
-      const float inv = 1.0f / n;
-      g0 = act0 ? dout[b * C + c0] * inv : 0.0f;
-      g1 = act1 ? dout[b * C + c1] * inv : 0.0f;
-      gh0 = round_bf16(g0);
-      gh1 = round_bf16(g1);
-    }
+    const float g0 = act0 ? dout[b * C + c0] / n : 0.0f;
+    const float g1 = act1 ? dout[b * C + c1] / n : 0.0f;
     int slabs = 0;
     for (int sr = rg; sr < Rp / 4; sr += l.nrg) {
       const int prl = 4 * sr + t;  // lane t takes window t of the slab: pooled row prl
@@ -642,34 +710,26 @@ edge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
         winner_mask(win, w1, bc1, ok, a[1], a[3]);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
-          if constexpr (kSplit<T>) {
-            uint4 u = rows[2 * pc + boff[nt]];
-            uint4 v = rows[2 * pc + boff[nt] + ws];
-            if (nt == 3 && 8 * 3 + g >= kTaps) {
-              u = v = make_uint4(col3, 0u, 0u, 0u);
-            }
-            const uint32_t bh[2] = {u.x, v.x};
-            const uint32_t bm[2] = {u.y, v.y};
-            const uint32_t bl[2] = {u.z, v.z};
-            fvx::mma_bf16_16816(tsum[nt], a, bh);
-            fvx::mma_bf16_16816(tsum[nt], a, bm);
-            fvx::mma_bf16_16816(tsum[nt], a, bl);
-          } else {  // the pair's one piece: the first word of each entry
-            const uint32_t* words = reinterpret_cast<const uint32_t*>(rows);
-            uint32_t bh[2] = {words[4 * (2 * pc + boff[nt])],
-                              words[4 * (2 * pc + boff[nt] + ws)]};
-            if (nt == 3 && 8 * 3 + g >= kTaps) bh[0] = bh[1] = col3;
-            fvx::mma_bf16_16816(tsum[nt], a, bh);
+          uint4 u = rows[2 * pc + boff[nt]];
+          uint4 v = rows[2 * pc + boff[nt] + ws];
+          if (nt == 3 && 8 * 3 + g >= kTaps) {
+            u = v = make_uint4(col3, 0u, 0u, 0u);
           }
+          const uint32_t bh[2] = {u.x, v.x};
+          const uint32_t bm[2] = {u.y, v.y};
+          const uint32_t bl[2] = {u.z, v.z};
+          fvx::mma_bf16_16816(tsum[nt], a, bh);
+          fvx::mma_bf16_16816(tsum[nt], a, bm);
+          fvx::mma_bf16_16816(tsum[nt], a, bl);
         }
         shift_window(win);
         if (++slabs == kFlushSlabs) {
-          flush_taps(acc, tsum, g0, g1, gh0, gh1);
+          flush_taps(acc, tsum, g0, g1);
           slabs = 0;
         }
       }
     }
-    flush_taps(acc, tsum, g0, g1, gh0, gh1);
+    flush_taps(acc, tsum, g0, g1);
   }
 
   __syncthreads();  // the last tile is read; its memory now holds the row groups' sums
@@ -694,6 +754,319 @@ edge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// Near ties.  The wgmma sums truncate (ops/tc_rounding.py::MEASURED: each
+// k16 step's terms cut toward zero 2 bits below the f32 ulp of their
+// largest unnormalized exponent, the exact sum cut toward zero to f32), so
+// a conv value z with A = sum_j |w_j x_j| errs by less than (26 2^-25 + 2
+// 2^-23) A = 8.5 2^-23 A; the f32 conv2x2 chain (the f32 backward's) by
+// at most 25 2^-24 A.  A window whose
+// decisions (each row's column, the two rows' pre-activations and their
+// signs) are all apart by more than the two bounds twice over, plus four
+// f32 ulps of |z| + |b| for the bias add, decides as the f32 chain does; a
+// window within that band is recomputed by the chain.  With A and |z| <=
+// max_j |w_j| S, S the sum of |x| over a pixel's 25 taps, the band of two
+// values is band(S) = (kBand + 2^-21) max|w| S + 2^-21 |b| with S the
+// larger of their pixels'; kBand = 48 2^-23 > 2 (8.5 + 12.5) 2^-23.  A
+// value whose S is 0 is exactly 0 both ways (every product 0), so it needs
+// no band.  Two screens: every window against band(25 max|x| of the item)
+// (window_mask_near), then those within it against the band of the pixels
+// compared (near_tie: S_p from write_im2col).
+constexpr float kBand = 0x1.8p-18f;
+constexpr float kBandUlps = 0x1p-21f;
+
+// The four conv values of the pool window whose 6x6 input window starts at
+// word (row0, col0) of the staged bf16 plane (words: pixel pairs, `half`
+// to a row), for the channel of rounded weights wc[64 k], by the conv2x2
+// chain: fmaf over the taps in its order
+__device__ __forceinline__ void chain_window(const uint32_t* words, int half, int row0, int col0,
+                                             const float* wc, float& z00, float& z01,
+                                             float& z10, float& z11) {
+  z00 = z01 = z10 = z11 = 0.0f;
+#pragma unroll 1
+  for (int ky = 0; ky < 5; ++ky) {
+    const uint32_t* r0 = words + (row0 + ky) * half + col0;
+    const uint32_t* r1 = r0 + half;
+    float a[6], b[6];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      a[2 * i] = bf16_bits(r0[i]);
+      a[2 * i + 1] = __uint_as_float(r0[i] & 0xFFFF0000u);
+      b[2 * i] = bf16_bits(r1[i]);
+      b[2 * i + 1] = __uint_as_float(r1[i] & 0xFFFF0000u);
+    }
+#pragma unroll
+    for (int kx = 0; kx < 5; ++kx) {
+      const float wt = wc[64 * (ky * 5 + kx)];
+      z00 = fmaf(wt, a[kx], z00);
+      z01 = fmaf(wt, a[kx + 1], z01);
+      z10 = fmaf(wt, b[kx], z10);
+      z11 = fmaf(wt, b[kx + 1], z11);
+    }
+  }
+}
+
+// window_mask on a window's wgmma sums (the same decisions, written for
+// values and selects rather than predicates), and whether any of its
+// decisions lies within `band` (the first screen)
+__device__ __forceinline__ bool window_mask_near(float z00, float z01, float z10, float z11,
+                                                 float bc, bool ok, float band, uint32_t& top,
+                                                 uint32_t& bot) {
+  const float dt = z00 - z01, db = z10 - z11;  // >= 0 exactly where z00 >= z01 (z10 >= z11)
+  const uint32_t ct = dt >= 0.0f ? kBf16One : kBf16One << 16;
+  const uint32_t cb = db >= 0.0f ? kBf16One : kBf16One << 16;
+  const float pt = fmaxf(z00, z01) + bc, pb = fmaxf(z10, z11) + bc;
+  const bool top_w = fmaxf(pt, 0.0f) >= fmaxf(pb, 0.0f);
+  const uint32_t one = ok && (top_w ? pt : pb) > 0.0f ? (top_w ? ct : cb) : 0u;
+  top = top_w ? one : 0u;
+  bot = top_w ? 0u : one;
+  return fminf(fminf(fabsf(dt), fabsf(db)), fminf(fabsf(pt - pb), fminf(fabsf(pt), fabsf(pb)))) <=
+         band;
+}
+
+// Whether the wgmma sums of a window may decide otherwise than the f32
+// chain (the second screen): s00 .. s11 the pixels' S, -inf where 0; the
+// band of S is fmaf(wband, S, bband) (-inf or NaN for -inf: no band).
+// Written with other operations than the first screen's, so that the
+// compiler recomputes them here rather than keep the first screen's
+// values across the branch.
+__device__ __forceinline__ bool near_tie(float z00, float z01, float z10, float z11, float bc,
+                                         float s00, float s01, float s10, float s11, float wband,
+                                         float bband) {
+  const bool even_t = z00 >= z01, even_b = z10 >= z11;
+  const float pt = (even_t ? z00 : z01) + bc, pb = (even_b ? z10 : z11) + bc;
+  const float swt = even_t ? s00 : s01, swb = even_b ? s10 : s11;  // the winners'
+  return fabsf(z00 - z01) <= fmaf(wband, fmaxf(s00, s01), bband) ||
+         fabsf(z10 - z11) <= fmaf(wband, fmaxf(s10, s11), bband) ||
+         fabsf(pt - pb) <= fmaf(wband, fmaxf(swt, swb), bband) ||
+         fabsf(pt) <= fmaf(wband, swt, bband) || fabsf(pb) <= fmaf(wband, swb, bband);
+}
+
+// ts = m . X over the im2col tile at `base`: 4 k16 steps of
+// wgmma.m64n32k16, K the tile's 64 pixel rows (step s: pixels 16 s ..),
+// N its 32 columns read transposed through descriptors of byte offsets
+// lbo, sbo; m[s] the A fragment of step s (the warp's 16 rows)
+__device__ __forceinline__ void tap_sums(float (&ts)[16], const uint32_t (&m)[4][4],
+                                         uint32_t base, uint32_t lbo, uint32_t sbo) {
+#pragma unroll
+  fvx::wgmma_m64n32k16_bf16_tnsp<true>(ts, m[0], fvx::wgmma_desc(base, lbo, sbo));
+#pragma unroll
+  for (int s = 1; s < 4; ++s)
+    fvx::wgmma_m64n32k16_bf16_tnsp<false>(ts, m[s], fvx::wgmma_desc(base + 256 * s, lbo, sbo));
+}
+
+// The bf16 backward (design in the header): the conv on the tensor cores
+// over the forward's tiles, the winners decided in registers, the tap sums
+// on the tensor cores from the same im2col tile; per-block partials
+// [26, C] of dW (rows 0..24) and db (row 25).
+__global__ void __launch_bounds__(kFwdThreads, kBwdWgmmaMinBlocks)
+edge_bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, const float* __restrict__ dout,
+                      float* __restrict__ partial, int H, int W, int C, int Rp, int Cw, int Sr,
+                      int Sc, long long n_items, float n) {
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint4* tiles = reinterpret_cast<uint4*>(smem);  // kBwdBufs im2col tiles
+  float* sums = reinterpret_cast<float*>(smem + kBwdBufs * kTileBytes<T>);  // their S_p halves
+  float* ws = sums + kBwdBufs * 128;  // the group's rounded weights, ws[64 k + channel]
+  uint32_t* xmax_warp = reinterpret_cast<uint32_t*>(ws + kTaps * 64);  // max |x| bits a warp
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + kBwdBufs * kTileBytes<T> + kBwdSumBytes +
+                                                 kBwdWeightBytes);
+  const uint16_t* hi_plane = reinterpret_cast<const uint16_t*>(planes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int Hp = H / 2, Wp = W / 2;
+  const int ps = plane_stride(Cw);
+  const int plane = (2 * Rp + 4) * ps;
+
+  uint32_t ah[2][4], am[2][4], al[2][4];  // am, al unused: one exact piece
+  float bc[2];
+  const int cw0 = blockIdx.y * kFwdChannels + warp * 16 + g;
+  conv_weights<T>(w, bias, C, cw0, t, ah, am, al, bc);
+  const float inv = 1.0f / n;  // dout times the f32 reciprocal, as the JAX kernel's Sel product
+  for (int i = threadIdx.x; i < kTaps * 64; i += kFwdThreads) {
+    const int c = blockIdx.y * kFwdChannels + i % 64;
+    ws[i] = c < C ? round_bf16(w[(i / 64) * C + c]) : 0.0f;
+  }
+  // the near-tie band of channel cw0 + 8h is fmaf(wband[h], S, bband[h]);
+  // a channel whose weights are all 0 (or past C) never is near a tie
+  float wband[2], bband[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = cw0 + 8 * h;
+    float wmax = 0.0f;  // max_j |w_j|, rounded to bf16
+    if (c < C) {
+#pragma unroll 1
+      for (int k = 0; k < kTaps; ++k) wmax = fmaxf(wmax, fabsf(round_bf16(w[k * C + c])));
+    }
+    wband[h] = (kBand + kBandUlps) * wmax;
+    bband[h] = wmax > 0.0f ? kBandUlps * fabsf(bc[h]) : -1.0f;
+  }
+
+  // dW and db of this thread's channels cw0 + 8h (h = 0, 1) and columns
+  // 8i + 2t + e: acc[4i + 2h + e], the m64n32 accumulator's layout
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const long long b = item / (Sr * Sc);
+    const int s = static_cast<int>(item % (Sr * Sc));
+    const int r0 = (s / Sc) * Rp, q0 = (s % Sc) * Cw;
+    const int nrows = min(Rp, Hp - r0);
+    const int nchunks = (min(Cw, Wp - q0) + kFwdChunk - 1) / kFwdChunk;
+    const int n_tiles = nrows * nchunks;
+    float gf[2], gh[2];  // g in f32 (db) and rounded to bf16 (dW: JAX's dze.astype(bf16))
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = cw0 + 8 * h;
+      gf[h] = c < C ? dout[b * C + c] * inv : 0.0f;
+      gh[h] = round_bf16(gf[h]);
+    }
+    // the previous item's last N tile ended in __syncthreads: its planes
+    // and tiles are read
+    stage_planes<T>(planes, x + b * H * W, H, W, Rp, r0, q0, ps, plane);
+    __syncthreads();
+    write_tile<T, true>(tiles, hi_plane, plane, ps, 0, 0, 0, sums);
+    {  // the item's max |x| (bf16 bits of non-negative values order as they do)
+      uint32_t mx = 0u;
+      for (int i = threadIdx.x; i < (2 * Rp + 4) * (ps / 2); i += kFwdThreads) {
+        const uint32_t v = planes[i];
+        mx = max(mx, max(v & 0x7FFFu, (v >> 16) & 0x7FFFu));
+      }
+      mx = __reduce_max_sync(0xffffffffu, mx);
+      if (lane == 0) xmax_warp[warp] = mx;
+    }
+    fvx::fence_proxy_async();
+    __syncthreads();
+    // the first screen's band of the item: S <= 25 max|x|
+    const float smax_item = kTaps * bf16_bits(max(max(xmax_warp[0], xmax_warp[1]),
+                                                  max(xmax_warp[2], xmax_warp[3])));
+    const float coarse[2] = {smax_item > 0.0f ? fmaf(wband[0], smax_item, bband[0]) : -1.0f,
+                             smax_item > 0.0f ? fmaf(wband[1], smax_item, bband[1]) : -1.0f};
+
+    for (int nt = 0, prl = 0, ch = 0; nt < n_tiles; ++nt) {  // tile nt: pooled row prl, chunk ch
+      const int buf = nt % kBwdBufs;
+      const bool wrap = ch + 1 == nchunks;  // tile nt + 1's row and chunk
+      const int prl1 = wrap ? prl + 1 : prl, ch1 = wrap ? 0 : ch + 1;
+      const uint32_t base = fvx::smem_u32(tiles + buf * (kTileBytes<T> / 16));
+      // the conv: the forward's 2 k16 steps, unconditional (a product under
+      // a branch makes ptxas put a warpgroup.arrive before each one)
+      float z[32];
+      fvx::wgmma_fence();
+      fvx::wgmma_m64n64k16_bf16_first(z, ah[0], im2col_desc(base, 0, 0));
+      fvx::wgmma_m64n64k16_bf16(z, ah[1], im2col_desc(base, 0, 1));
+      fvx::wgmma_commit();
+      // the next tile on the CUDA cores while the tensor cores take this one
+      if (nt + 1 < n_tiles)
+        write_tile<T, true>(tiles, hi_plane, plane, ps, prl1, ch1, (nt + 1) % kBwdBufs, sums);
+      fvx::wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fvx::reg_fence(z[i]);
+
+      // the winners: window 4j + t of channel cw0 + 8h from z(o), z(o + 1)
+      // (its top row) and z(o + 4), z(o + 5), o = 8j + 2h; its masks are the
+      // A fragment of k16 step j of the tap sums (rows g: registers 0 and
+      // 2, the top and bottom pairs; rows g + 8: 1 and 3).  Bit 2j + h of
+      // `near`: within the first screen, then within the second; such a
+      // window takes the f32 chain's values.
+      uint32_t m[4][4];
+      unsigned near = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = q0 + kFwdChunk * ch + 4 * j + t < Wp;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = 8 * j + 2 * h;
+          if (window_mask_near(z[o], z[o + 1], z[o + 4], z[o + 5], bc[h], ok, coarse[h],
+                               m[j][h], m[j][h + 2]) && ok)
+            near |= 1u << (2 * j + h);
+        }
+      }
+      if (near) {  // the second screen, on S_p of pixels 16j + 2t (+1) and + 8
+        const float4* sp = reinterpret_cast<const float4*>(sums + 128 * buf);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!(near >> (2 * j) & 3u)) continue;
+          const float4 top = sp[8 * j + t], bot = sp[8 * j + 4 + t];
+          float sv[4] = {top.x + top.y, top.z + top.w, bot.x + bot.y, bot.z + bot.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sv[i] = sv[i] > 0.0f ? sv[i] : -INFINITY;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int o = 8 * j + 2 * h;
+            if ((near >> (2 * j + h) & 1u) &&
+                !near_tie(z[o], z[o + 1], z[o + 4], z[o + 5], bc[h], sv[0], sv[1], sv[2], sv[3],
+                          wband[h], bband[h]))
+              near &= ~(1u << (2 * j + h));
+          }
+        }
+      }
+      while (near) {  // rare: the windows near a tie, by the f32 chain
+        const int f = __ffs(near) - 1;
+        near &= near - 1;
+        float z00, z01, z10, z11;
+        chain_window(planes, ps / 2, 2 * prl, kFwdChunk * ch + 4 * (f >> 1) + t,
+                     ws + warp * 16 + g + 8 * (f & 1), z00, z01, z10, z11);
+        uint32_t top, bot;
+        window_mask(z00, z01, z10, z11, f & 1 ? bc[1] : bc[0], true, top, bot);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (f == 2 * j + h) {
+              m[j][h] = top;
+              m[j][h + 2] = bot;
+            }
+          }
+        }
+      }
+
+      float ts[16];
+      fvx::wgmma_fence();
+      tap_sums(ts, m, base, kTnspLbo, kTnspSbo);
+      fvx::wgmma_commit();
+      fvx::wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) fvx::reg_fence(ts[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) fvx::reg_fence(m[j][r]);
+      }
+      // one FMA a column: the dW columns by gh; column 25 (db; i = 3, t =
+      // 0, e = 1) by gf, as the zero columns 27, 29, 31 are
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 4 * i + 2 * h + e;
+            acc[r] = fmaf(i == 3 && e == 1 ? gf[h] : gh[h], ts[r], acc[r]);
+          }
+        }
+      }
+      fvx::fence_proxy_async();  // tile nt + 1 written; tile nt read
+      __syncthreads();
+      prl = prl1;
+      ch = ch1;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * i + 2 * t + e;
+        const int c = cw0 + 8 * h;
+        if (j < kAcc && c < C)
+          partial[(static_cast<long long>(blockIdx.x) * kAcc + j) * C + c] = acc[4 * i + 2 * h + e];
+      }
+    }
+  }
+}
+
 // dwb[t, c] = sum_k partial[k, t, c], blocks in order
 __global__ void __launch_bounds__(kReduceThreads)
 edge_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dwb,
@@ -703,6 +1076,106 @@ edge_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw
   float s = 0.0f;
   for (int k = 0; k < n_blocks; ++k) s += partial[static_cast<long long>(k) * kAcc * C + i];
   dwb[i] = s;
+}
+
+// Probes of the tensor cores (card tests and chip_smoke.py; nothing on the
+// main path launches them).  One block of one warpgroup each.
+//
+// d = c + a . b over one 64 x 64 x 16 product: a [64, 16] bf16 row-major,
+// b [64, 16] bf16 (row n holds column n's 16 k), c and d [64, 64] f32
+// row-major; by wgmma.m64n64k16 (A in registers, B K-major in shared memory,
+// as the forward's conv) or, with use_mma, by mma.sync.m16n8k16 (warp w rows
+// 16w .., eight n-tiles), so that crafted operands show how each rounds its
+// f32 sums.
+__global__ void __launch_bounds__(kFwdThreads)
+probe_sums_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
+                  const float* __restrict__ c, float* __restrict__ d, int use_mma) {
+  __shared__ __align__(128) uint4 tile[2 * 64];  // k-group q of row n at q * 64 + n
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  tile[threadIdx.x] = reinterpret_cast<const uint4*>(b)[2 * (threadIdx.x % 64) + threadIdx.x / 64];
+  const int r0 = 16 * warp + g;
+  auto pair = [](const uint16_t* m, int row, int k) {
+    return *reinterpret_cast<const uint32_t*>(m + row * 16 + k);
+  };
+  const uint32_t af[4] = {pair(a, r0, 2 * t), pair(a, r0 + 8, 2 * t), pair(a, r0, 2 * t + 8),
+                          pair(a, r0 + 8, 2 * t + 8)};
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      acc[4 * i + r] = c[(r0 + 8 * (r / 2)) * 64 + 8 * i + 2 * t + r % 2];
+  }
+  fvx::fence_proxy_async();
+  __syncthreads();
+  if (use_mma) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t bf[2] = {pair(b, 8 * i + g, 2 * t), pair(b, 8 * i + g, 2 * t + 8)};
+      float cf[4] = {acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]};
+      fvx::mma_bf16_16816(cf, af, bf);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[4 * i + r] = cf[r];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fvx::reg_fence(acc[i]);
+    fvx::wgmma_fence();
+    fvx::wgmma_m64n64k16_bf16(acc, af, fvx::wgmma_desc(fvx::smem_u32(tile), 1024, 128));
+    fvx::wgmma_commit();
+    fvx::wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fvx::reg_fence(acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      d[(r0 + 8 * (r / 2)) * 64 + 8 * i + 2 * t + r % 2] = acc[4 * i + r];
+  }
+}
+
+// d = a . X as the bf16 backward takes its tap sums (tap_sums): a [64, 64]
+// bf16 row-major (64 rows x 64 k), X [64, 32] bf16 row-major (64 k x 32
+// columns) laid out in shared memory as the im2col tile, d [64, 32] f32
+// row-major; with swap the descriptors' lbo and sbo exchanged.
+__global__ void __launch_bounds__(kFwdThreads)
+probe_tnsp_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ xs,
+                  float* __restrict__ d, int swap) {
+  __shared__ __align__(128) uint4 tile[4 * 64];  // k-group q (columns 8q ..) of row k at q * 64 + k
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int i = threadIdx.x; i < 4 * 64; i += kFwdThreads)
+    tile[i] = reinterpret_cast<const uint4*>(xs)[4 * (i % 64) + i / 64];
+  const int r0 = 16 * warp + g;
+  auto pair = [&](int row, int k) { return *reinterpret_cast<const uint32_t*>(a + row * 64 + k); };
+  uint32_t m[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int k = 16 * s + 2 * t;
+    m[s][0] = pair(r0, k);
+    m[s][1] = pair(r0 + 8, k);
+    m[s][2] = pair(r0, k + 8);
+    m[s][3] = pair(r0 + 8, k + 8);
+  }
+  fvx::fence_proxy_async();
+  __syncthreads();
+  float ts[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    ts[i] = 0.0f;
+    fvx::reg_fence(ts[i]);
+  }
+  fvx::wgmma_fence();
+  tap_sums(ts, m, fvx::smem_u32(tile), swap ? kTnspSbo : kTnspLbo, swap ? kTnspLbo : kTnspSbo);
+  fvx::wgmma_commit();
+  fvx::wgmma_wait0();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) fvx::reg_fence(ts[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) d[(r0 + 8 * (r / 2)) * 32 + 8 * i + 2 * t + r % 2] = ts[4 * i + r];
+  }
 }
 
 int check_geometry(long long B, long long H, long long W, long long C, long long R) {
@@ -781,20 +1254,43 @@ int tower_fwd(const void* x, const void* w, const void* bias, void* partial, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward of image type T: its kernel, tile check, block size and
+// shared memory (f32 images: edge_bwd_kernel over bwd_tiles; bf16 ones:
+// edge_bwd_wgmma_kernel over the forward's tiles)
+template <typename T>
+struct Bwd;
+template <>
+struct Bwd<float> {
+  static constexpr auto kernel = edge_bwd_kernel;
+  static int check(long long Rp, long long Cw) { return check_bwd_tile(Rp, Cw); }
+  static int threads(long long C, long long Rp) {
+    return bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads;
+  }
+  static size_t bytes(long long C, long long Rp, long long Cw) { return bwd_smem_bytes(C, Rp, Cw); }
+};
+template <>
+struct Bwd<__nv_bfloat16> {
+  static constexpr auto kernel = edge_bwd_wgmma_kernel;
+  static int check(long long Rp, long long Cw) { return check_fwd_tile(Rp, Cw); }
+  static int threads(long long, long long) { return kFwdThreads; }
+  static size_t bytes(long long, long long Rp, long long Cw) {
+    return fwd_smem_bytes<__nv_bfloat16>(Rp, Cw) + kBwdSumBytes + kBwdWeightBytes;
+  }
+};
+
 template <typename T>
 int tower_bwd_blocks(long long C, long long Rp, long long Cw, long long* blocks) {
-  int err = check_bwd_tile(Rp, Cw);
+  int err = Bwd<T>::check(Rp, Cw);
   if (err) return err;
-  const size_t bytes = bwd_smem_bytes(C, Rp, Cw);
-  err = allow_smem(edge_bwd_kernel<T>, bytes);
+  const size_t bytes = Bwd<T>::bytes(C, Rp, Cw);
+  err = allow_smem(Bwd<T>::kernel, bytes);
   if (err) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, edge_bwd_kernel<T>,
-        bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads, bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Bwd<T>::kernel,
+                                                      Bwd<T>::threads(C, Rp), bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   *blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   return 0;
@@ -805,20 +1301,20 @@ int tower_bwd(const void* x, const void* w, const void* bias, const void* dout, 
               long long n_blocks, void* dwb, long long B, long long H, long long W,
               long long C, long long Rp, long long Cw, void* stream) {
   int err = check_geometry(B, H, W, C, Rp);
-  if (!err) err = check_bwd_tile(Rp, Cw);
+  if (!err) err = Bwd<T>::check(Rp, Cw);
   if (err) return err;
   const long long Sr = (H / 2 + Rp - 1) / Rp;
   const long long Sc = (W / 2 + Cw - 1) / Cw;
   if (n_blocks < 1 || n_blocks > B * Sr * Sc || n_blocks > (1LL << 30) || Sr * Sc > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = bwd_smem_bytes(C, Rp, Cw);
-  err = allow_smem(edge_bwd_kernel<T>, bytes);
+  const size_t bytes = Bwd<T>::bytes(C, Rp, Cw);
+  err = allow_smem(Bwd<T>::kernel, bytes);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_blocks),
                   static_cast<unsigned>((C + kBwdGroupChannels - 1) / kBwdGroupChannels));
-  edge_bwd_kernel<T><<<grid, bwd_layout(static_cast<int>(C), static_cast<int>(Rp)).threads,
-                       bytes, st>>>(
+  const auto kernel = Bwd<T>::kernel;
+  kernel<<<grid, Bwd<T>::threads(C, Rp), bytes, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(dout),
       static_cast<float*>(partial), static_cast<int>(H), static_cast<int>(W),
@@ -860,7 +1356,8 @@ extern "C" int fvx_edge_tower_fwd_bf16(const void* x, const void* w, const void*
 
 // The backward's grid: the blocks of one channel group that the card holds
 // at once (its SMs times the blocks an SM holds) for tiles of Rp pooled rows
-// (a multiple of 4) by Cw pooled columns; written to *blocks.
+// by Cw pooled columns (f32 images: Rp a multiple of 4; bf16 images: the
+// forward's tiles); written to *blocks.
 extern "C" int fvx_edge_tower_bwd_blocks(long long C, long long Rp, long long Cw,
                                          long long* blocks) {
   return tower_bwd_blocks<float>(C, Rp, Cw, blocks);
@@ -870,10 +1367,11 @@ extern "C" int fvx_edge_tower_bwd_blocks_bf16(long long C, long long Rp, long lo
   return tower_bwd_blocks<__nv_bfloat16>(C, Rp, Cw, blocks);
 }
 
-// The backward over tiles of Rp pooled rows (a multiple of 4) by Cw pooled
-// columns: n_items = B * ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles, grid
-// n_blocks (1 <= n_blocks <= n_items) by the groups of 64 channels;
-// `partial` is scratch of n_blocks*26*C floats.
+// The backward over tiles of Rp pooled rows by Cw pooled columns (f32
+// images: Rp a multiple of 4; bf16 images: the forward's tiles): n_items = B
+// * ceil((H/2) / Rp) * ceil((W/2) / Cw) tiles, grid n_blocks (1 <= n_blocks
+// <= n_items) by the groups of 64 channels; `partial` is scratch of
+// n_blocks*26*C floats.
 extern "C" int fvx_edge_tower_bwd(const void* x, const void* w, const void* bias,
                                   const void* dout, void* partial, long long n_blocks,
                                   void* dwb, long long B, long long H, long long W,
@@ -886,4 +1384,21 @@ extern "C" int fvx_edge_tower_bwd_bf16(const void* x, const void* w, const void*
                                        long long C, long long Rp, long long Cw, void* stream) {
   return tower_bwd<__nv_bfloat16>(x, w, bias, dout, partial, n_blocks, dwb, B, H, W, C, Rp, Cw,
                                   stream);
+}
+
+// The probes (probe_sums_kernel, probe_tnsp_kernel), one block each on the
+// current stream; for tests only.
+extern "C" int fvx_edge_tower_probe_sums(const void* a, const void* b, const void* c, void* d,
+                                         int use_mma, void* stream) {
+  probe_sums_kernel<<<1, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
+      static_cast<const float*>(c), static_cast<float*>(d), use_mma);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int fvx_edge_tower_probe_tnsp(const void* a, const void* x, void* d, int swap,
+                                         void* stream) {
+  probe_tnsp_kernel<<<1, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(x), static_cast<float*>(d),
+      swap);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -107,9 +107,11 @@ __device__ __forceinline__ void split3_bf16x2(float2 x, uint32_t& hi, uint32_t& 
 // 64-row tile asynchronously, A from registers, B read from shared memory
 // by the tensor cores through a matrix descriptor.
 
-// The descriptor of a K-major bf16 B tile with no swizzle: 8x8 "core
-// matrices" of 128 contiguous bytes (8 rows of 16 bytes); lbo is the byte
-// distance between core matrices adjacent along K, sbo along N.
+// The descriptor of a bf16 B tile with no swizzle: 8x8 "core matrices" of
+// 128 contiguous bytes (8 rows of 16 bytes).  K-major (each row 8 k of one
+// n): lbo is the byte distance between core matrices adjacent along K, sbo
+// along N.  MN-major (read with the transpose bit; each row 8 n of one k):
+// lbo along K, sbo along N too (CUTLASS's canonical INTERLEAVE layouts).
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr, uint32_t lbo,
                                                uint32_t sbo) {
   return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
@@ -157,6 +159,59 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d = a . b over a 64 x 64 x 16 tile (d's old values neither read nor
+// kept: the first product of a sum)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_first(float (&d)[32], const uint32_t (&a)[4],
+                                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+// d (+)= a . b over a 64 x 32 x 16 tile with B MN-major (the transpose bit
+// set): a the warp's 16 rows x 16 k of A in the mma.m16n8k16 A layout, b
+// the descriptor of a B tile whose core matrices' rows are 8 contiguous n
+// of one k, d the 64 x 32 f32 accumulator (per 8 columns i: d[4i..4i+3] as
+// an m16n8 accumulator of the warp's 16 rows); with kFirst d = a . b (d's
+// old values neither read nor kept)
+template <bool kFirst>
+__device__ __forceinline__ void wgmma_m64n32k16_bf16_tnsp(float (&d)[16], const uint32_t (&a)[4],
+                                                          uint64_t b) {
+  if constexpr (kFirst) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+          "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
 }
 
 // the same with A read by the tensor cores too, from a K-major tile in

@@ -5,13 +5,14 @@ single-channel images [B, H, W, 1] (H, W even), filters ``conv_w`` in JAX's
 HWIO layout [5, 5, 1, C] and bias ``conv_b`` [C], as the hand-written CUDA
 kernels of ``csrc/edge_tower.cu``: the forward's conv as ``wgmma`` products
 of the weights' and the image's exact bf16 pieces over an im2col tile,
-pooled in registers, never writing the [B, H, W, C] activation; the
-backward's tap sums on the tensor cores, its conv recomputed in f32 (design
-and bounds in the source).  The TPU kernel's banded matmuls, batch tiles
-and VMEM budget (``auto_batch_tile``, ``kernel_vmem_bytes``) are Mosaic
-matters that stay behind: the CUDA kernels stage tiles of image rows and
-columns in shared memory (``fwd_tiles``, ``bwd_tiles``), so any even H, W
-runs.
+pooled in registers, never writing the [B, H, W, C] activation; the f32
+backward's tap sums on the tensor cores, its conv recomputed in f32; the
+bf16 backward's conv and tap sums both by ``wgmma`` on the forward's im2col
+tile, the winners decided in registers (design and bounds in the source).
+The TPU kernel's banded matmuls, batch tiles and VMEM budget
+(``auto_batch_tile``, ``kernel_vmem_bytes``) are Mosaic matters that stay
+behind: the CUDA kernels stage tiles of image rows and columns in shared
+memory (``fwd_tiles``, ``bwd_tiles``), so any even H, W runs.
 
 - ``edge_tower_fwd`` / ``edge_tower_bwd`` launch the forward and backward
   kernels for CUDA tensors and raise for any other; ``.launches`` counts
@@ -25,7 +26,11 @@ runs.
   bias, ReLU, pool and mean run in f32; the backward scales dW by g =
   dout times the f32 reciprocal of (H/2)(W/2), rounded to bf16 (JAX's
   ``dze.astype(cd)``), and db by the f32 g.  ``edge_tower_gap_bf16_plain`` and
-  ``edge_tower_gap_bf16_plain_backward`` are that in plain PyTorch.
+  ``edge_tower_gap_bf16_plain_backward`` are that in plain PyTorch;
+  ``edge_tower_gap_bf16_mask_backward`` is the bf16 backward kernel's
+  algebra (the conv as an im2col product, 0/1 winner masks times the
+  im2col columns and a ones column), held against JAX on the CPU; nothing
+  on the main path calls it.
 - ``edge_tower_gap_split_forward`` and ``edge_tower_fwd_error_bound`` are
   the forward kernel's arithmetic in plain PyTorch and its error bound;
   ``edge_tower_gap_factored_backward`` and ``split_bf16x3`` the backward
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -311,6 +317,25 @@ def edge_tower_fwd_error_bound(images, conv_w, conv_b) -> torch.Tensor:
     return epool.mean(dim=(2, 3)) + (chain + 1) * 2.0**-24 * out
 
 
+def _winner_masks(z: torch.Tensor, conv_b: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] f32 0/1: the winning conv pixel of each 2x2 window of
+    the pre-bias conv values z [B, C, H, W] whose pre-activation is > 0, by
+    the kernels' tie rule (the even column on z, the top row on ReLU(z +
+    b))."""
+    even = z[..., 0::2] >= z[..., 1::2]  # the even column wins ties
+    zh = torch.where(even, z[..., 0::2], z[..., 1::2])
+    bias = conv_b[None, :, None, None]
+    pre_t, pre_b = zh[:, :, 0::2] + bias, zh[:, :, 1::2] + bias
+    top = torch.relu(pre_t) >= torch.relu(pre_b)  # the top row wins ties
+    live = torch.where(top, pre_t, pre_b) > 0
+    m = torch.zeros_like(z)
+    for dy, row in ((0, top), (1, ~top)):
+        win_even = even[:, :, dy::2]
+        m[:, :, dy::2, 0::2] = (live & row & win_even).float()
+        m[:, :, dy::2, 1::2] = (live & row & ~win_even).float()
+    return m
+
+
 def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) as the backward kernel factors
     them, in plain PyTorch: the 0/1 mask M_b[c, p] of the winning conv
@@ -323,17 +348,7 @@ def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
     x = images.permute(0, 3, 1, 2)  # [B, 1, H, W]
     with fp32_math():
         z = F.conv2d(x, conv_w.permute(3, 2, 0, 1), padding=2)  # [B, C, H, W], pre-bias
-    even = z[..., 0::2] >= z[..., 1::2]  # the even column wins ties
-    zh = torch.where(even, z[..., 0::2], z[..., 1::2])
-    bias = conv_b[None, :, None, None]
-    pre_t, pre_b = zh[:, :, 0::2] + bias, zh[:, :, 1::2] + bias
-    top = torch.relu(pre_t) >= torch.relu(pre_b)  # the top row wins ties
-    live = torch.where(top, pre_t, pre_b) > 0
-    m = torch.zeros_like(z)
-    for dy, row in ((0, top), (1, ~top)):
-        win_even = even[:, :, dy::2]
-        m[:, :, dy::2, 0::2] = (live & row & win_even).float()
-        m[:, :, dy::2, 1::2] = (live & row & ~win_even).float()
+    m = _winner_masks(z, conv_b)
     cols = F.unfold(x, K, padding=2)  # [B, 25, H*W], tap ky*5+kx
     cols = torch.cat([cols, torch.ones_like(cols[:, :1])], dim=1)  # [B, 26, H*W]
     m = m.reshape(B, C, H * W)
@@ -341,6 +356,29 @@ def edge_tower_gap_factored_backward(images, conv_w, conv_b, dout):
     g = dout / float((H // 2) * (W // 2))
     dwb = torch.einsum("bc,bcj->jc", g, taps)
     return dwb[: K * K].reshape(K, K, 1, C), dwb[K * K]
+
+
+def edge_tower_gap_bf16_mask_backward(images, conv_w, conv_b, dout):
+    """(dconv_w [5, 5, 1, C], dconv_b [C]) f32 of bf16 ``images`` as the
+    bf16 backward kernel factors them, in plain PyTorch: the conv as an
+    im2col product of the images' bf16 values and ``conv_w`` rounded to
+    bf16, in f32; the 0/1 mask M_b[c, p] of the winning pixels with pre > 0
+    by the tie rule on those values; the tap sums T_b = M_b [X_b | 1] (X_b
+    [H*W, 25] the image's 5x5 windows, ``unfold``, and a ones column); dW =
+    sum_b gh_b T_b[:, :25] with gh = g rounded to bf16, db = sum_b g_b
+    T_b[:, 25], g = dout * (1 / ((H/2)(W/2))).  Even H, W."""
+    B, H, W, C = check_geometry(images, conv_w, conv_b)
+    cols = F.unfold(images.permute(0, 3, 1, 2).to(torch.float32), K, padding=2)  # [B, 25, H*W]
+    with fp32_math():
+        z = torch.einsum("jc,bjp->bcp", _round_bf16(conv_w.reshape(K * K, C)), cols)
+    m = _winner_masks(z.reshape(B, C, H, W), conv_b).reshape(B, C, H * W)
+    cols = torch.cat([cols, torch.ones_like(cols[:, :1])], dim=1)  # [B, 26, H*W]
+    with fp32_math():
+        taps = torch.bmm(m, cols.transpose(1, 2))  # [B, C, 26]
+    g = dout.to(torch.float32) * (torch.ones((), device=dout.device) / ((H // 2) * (W // 2)))
+    dw = torch.einsum("bc,bcj->jc", _round_bf16(g), taps[:, :, : K * K])
+    db = torch.einsum("bc,bc->c", g, taps[:, :, K * K])
+    return dw.reshape(K, K, 1, C), db
 
 
 def type_entries(lib: ctypes.CDLL, suffixes=("", "_bf16")) -> ctypes.CDLL:
@@ -370,6 +408,33 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _entry(name: str):
+    """The typed entry point ``name`` of the built library, looked up once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_library(), name)
+    return fn
+
+
+_entries: dict = {}
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(fn, index: int, *args) -> int:
+    """fn(*args, stream) on card ``index``'s current stream, entering its
+    device only when it is not the current one."""
+    if index == torch.cuda.current_device():
+        return fn(*args, _stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _stream(index))
+
+
 def _suffix(images) -> str:
     """The entry points' suffix for the images' dtype."""
     return "_bf16" if images.dtype == torch.bfloat16 else ""
@@ -381,7 +446,7 @@ def _resident_blocks(device: int, c: int, rp: int, cw: int, suffix: str) -> int:
     the card ``device`` holds at once for C = ``c`` and tiles of ``rp`` x
     ``cw`` pooled pixels (its grid)."""
     resident = ctypes.c_longlong(0)
-    blocks = getattr(_library(), f"fvx_edge_tower_bwd_blocks{suffix}")
+    blocks = _entry(f"fvx_edge_tower_bwd_blocks{suffix}")
     with torch.cuda.device(device):
         rc = blocks(c, rp, cw, ctypes.byref(resident))
     if rc != 0:
@@ -408,13 +473,11 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
     B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
     rp, cw, tiles = fwd_tiles(H, W)
     dev = images.device
-    with torch.cuda.device(dev):
-        partial = torch.empty(B * tiles * C, dtype=torch.float32, device=dev)
-        out = torch.empty(B, C, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_library(), f"fvx_edge_tower_fwd{_suffix(images)}")(
-            images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, H, W, C, rp, cw, stream)
+    partial = torch.empty(B * tiles * C, dtype=torch.float32, device=dev)
+    out = torch.empty(B, C, dtype=torch.float32, device=dev)
+    rc = _launch(_entry(f"fvx_edge_tower_fwd{_suffix(images)}"), dev.index,
+                 images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), B, H, W, C, rp, cw)
     if rc != 0:
         raise RuntimeError(f"edge tower forward kernel launch failed: cudaError {rc}")
     if images.dtype == torch.bfloat16:
@@ -427,7 +490,8 @@ def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
 def edge_tower_bwd(images, conv_w, conv_b, dout):
     """(dconv_w [5, 5, 1, C], dconv_b [C]) f32 by the backward kernel of the
     images' dtype for upstream gradient ``dout`` [B, C] f32 (CUDA tensors
-    only)."""
+    only): f32 images over ``bwd_tiles``, bf16 ones over the forward's
+    ``fwd_tiles``."""
     B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
     if tuple(dout.shape) != (B, C) or dout.dtype != torch.float32 \
             or dout.device != images.device:
@@ -438,15 +502,20 @@ def edge_tower_bwd(images, conv_w, conv_b, dout):
     if not dout.is_contiguous():
         raise ValueError("edge tower kernel: dout must be contiguous")
     dev = images.device
-    rp, cw, tiles = bwd_tiles(H, W)
-    n_blocks = min(B * tiles, _resident_blocks(dev.index, C, rp, cw, _suffix(images)))
-    with torch.cuda.device(dev):
-        partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
-        dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_library(), f"fvx_edge_tower_bwd{_suffix(images)}")(
-            images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dout.data_ptr(),
-            partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, rp, cw, stream)
+    suffix = _suffix(images)
+    rp, cw, tiles = fwd_tiles(H, W) if suffix else bwd_tiles(H, W)
+    n_blocks = min(B * tiles, _resident_blocks(dev.index, C, rp, cw, suffix))
+    if suffix and n_blocks < B * tiles:
+        # a grid coprime with the tiles of an image, so that each block of
+        # the bf16 kernel walks tiles of every size (the last row and column
+        # of tiles are ragged)
+        while math.gcd(n_blocks, tiles) > 1:
+            n_blocks -= 1
+    partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
+    dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
+    rc = _launch(_entry(f"fvx_edge_tower_bwd{suffix}"), dev.index,
+                 images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dout.data_ptr(),
+                 partial.data_ptr(), n_blocks, dwb.data_ptr(), B, H, W, C, rp, cw)
     if rc != 0:
         raise RuntimeError(f"edge tower backward kernel launch failed: cudaError {rc}")
     if images.dtype == torch.bfloat16:

@@ -21,7 +21,11 @@ cores, also on worst-case splits), two forward runs bit-equal; gradients rtol 1e
 sum of |terms| (the plain backward of |dout|), as in ``chip_smoke.py``; two
 backward runs bit-equal (no float atomics).  K7 on bfloat16 images
 against its bf16 plain version (``edge_tower_gap_bf16_plain``: every conv
-product exact, so the same tolerances), its launches counted apart; the
+product exact, so the same tolerances), its launches counted apart, also at
+the training step's shape on uniform images, whose near ties the backward
+recomputes by the f32 chain; the tensor cores' f32 sums against the
+measured model (``ops/tc_rounding.py``) and the backward's transposed
+tap-sum product against ``torch.matmul``, exactly; the
 bf16 AttentiveFashion on K7 against its plain route (bf16 conv outputs)
 and the bf16 CNN against its CPU route, at the JAX package's bf16
 tolerances (3e-2 / 5e-2 of max).  K4 (row gather) and K5 (row
@@ -717,9 +721,58 @@ def _check_tower_bf16(x, w, b, dout):
     (64, 32, 32, 64), (2, 224, 224, 64),  # the training step's and the reference's
     (3, 14, 14, 256), (2, 64, 4092, 8), (2, 32, 32, 600),  # 4+ groups, W >> 64
     (3, 18, 200, 100), (2, 2, 2, 1), (5, 34, 36, 130),  # ragged tiles, odd tile counts
+    (1, 32, 32, 64), (4, 10, 12, 300), (1, 34, 36, 300),  # one image, C = 300
 ])
 def test_edge_tower_bf16_kernels_match_plain_version_on_card(cuda_device, B, H, W, C):
     _check_tower_bf16(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_edge_tower_bf16_backward_decides_near_ties_as_the_f32_chain_on_card(cuda_device, seed):
+    """Uniform images at the training step's shape hold a few windows whose
+    wgmma sums decide otherwise than an f32 chain (on an H100, 3 in 134M
+    in one such batch), and one such window leaves the gradient tolerance: the bf16
+    backward recomputes its near-tie band by the chain."""
+    _check_tower_bf16(*_tower_inputs(cuda_device, 8192, 32, 32, 64, seed=seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mma", [False, True], ids=["wgmma", "mma.sync"])
+def test_tensor_core_sums_follow_the_measured_rounding_on_card(cuda_device, use_mma):
+    """``tc_rounding.MEASURED`` reproduces every output of one 64 x 64 x 16
+    product on the probe's crafted operands; each rival one feature apart
+    (to nearest, one rounding per addition, normalized product exponents,
+    1 or 3 extra bits) gets some wrong."""
+    from fashionvisualexpl_tpu_torch.ops import tc_rounding as R
+
+    runs = []
+    for kind in R.KINDS:
+        for seed in (2, 3):
+            a, b, c = (t.to(cuda_device) for t in R.probe_operands(kind, seed))
+            runs.append((a, b, c, R.probe_sums(a, b, c, use_mma=use_mma)))
+    rivals = [(16, 2, False, True), (1, 2, True, True), (16, 2, True, False),
+              (16, 1, True, True), (16, 3, True, True)]
+    wrong = R.fit(runs, [R.MEASURED, *rivals])
+    assert wrong[R.MEASURED] == 0
+    assert all(wrong[m] > 0 for m in rivals), wrong
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [3, 4])
+def test_tap_sums_read_the_im2col_tile_transposed_on_card(cuda_device, seed):
+    """The bf16 backward's tap-sum product (4 k16 steps of
+    wgmma.m64n32k16, B the im2col tile through MN-major descriptors) on 0/1
+    masks x integers, whose sums are exact: equal to torch.matmul, and not
+    with the descriptors' byte offsets swapped."""
+    from fashionvisualexpl_tpu_torch.ops import tc_rounding as R
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(0, 2, (64, 64), generator=g).bfloat16().to(cuda_device)
+    x = torch.randint(-128, 128, (64, 32), generator=g).bfloat16().to(cuda_device)
+    want = torch.matmul(a.float(), x.float())  # f32, exact on these integers
+    assert torch.equal(R.probe_tap_sums(a, x), want)
+    assert not torch.equal(R.probe_tap_sums(a, x, swap=True), want)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,11 @@ JAX's two bf16 routes:
 Over the JAX test geometries, odd pooled sizes, constant images (ties in
 every window and, at 0, at every ReLU boundary) and k/255 edge maps.  The
 kernel entry points raise for CPU tensors of either dtype, and mixed
-dtypes are refused."""
+dtypes are refused.  The bf16 backward kernel's algebra
+(``edge_tower_gap_bf16_mask_backward``) is held against JAX's bf16 kernel
+VJP at the gradient tolerance, also at C = 70 (two groups of channels)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +60,10 @@ def _cases():
 
 
 CASES = list(_cases())
+# the bf16 backward kernel's algebra also where the channels fill more than
+# one group of 64
+_, _CW70, _CB70 = _inputs(C=70, seed=24)
+MASK_CASES = CASES + [("random-2x8x12x70", (_inputs(2, 8, 12, 70, seed=25)[0], _CW70, _CB70))]
 
 
 def _torch(imgs, cw, cb):
@@ -80,6 +88,18 @@ def _dout(imgs, cw):
         (imgs.shape[0], cw.shape[3])).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_kernel_vjp(case_id):
+    """JAX's bf16 kernel (interpret mode) on the case: (forward, dconv_w,
+    dconv_b) for ``_dout``, computed once a case for the tests that read
+    it."""
+    imgs, cw, cb = dict(MASK_CASES)[case_id]
+    xj = _jax_bf16(imgs)
+    out, vjp = jax.vjp(lambda w_, b_: jgap(xj, w_, b_, 4, True), jnp.asarray(cw), jnp.asarray(cb))
+    jw, jb = vjp(jnp.asarray(_dout(imgs, cw)))
+    return np.asarray(out), np.asarray(jw), np.asarray(jb)
+
+
 def _close_to_max(got, want, share, msg=""):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
@@ -91,20 +111,17 @@ def test_bf16_plain_matches_jax_kernel_forward_and_vjp(case):
     """(a) against JAX's bf16 kernel (interpret mode), forward and VJP; the
     CPU route of ``edge_tower_gap`` on bf16 images is (a), gradients by
     autograd included, and the images get none."""
-    _, (imgs, cw, cb) = case
+    case_id, (imgs, cw, cb) = case
     x, w, b = _torch(imgs, cw, cb)
-    xj = _jax_bf16(imgs)
-    want = np.asarray(jgap(xj, jnp.asarray(cw), jnp.asarray(cb), 4, True))
+    want, jw, jb = _jax_kernel_vjp(case_id)
     got = E.edge_tower_gap_bf16_plain(x, w, b)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **FWD)
     dout = _dout(imgs, cw)
-    _, vjp = jax.vjp(lambda w_, b_: jgap(xj, w_, b_, 4, True), jnp.asarray(cw), jnp.asarray(cb))
-    jw, jb = vjp(jnp.asarray(dout))
     dw, db = E.edge_tower_gap_bf16_plain_backward(x, w, b, torch.from_numpy(dout))
     assert dw.dtype == db.dtype == torch.float32 and dw.shape == w.shape
-    np.testing.assert_allclose(dw.numpy(), np.asarray(jw), **GRAD)
-    np.testing.assert_allclose(db.numpy(), np.asarray(jb), **GRAD)
+    np.testing.assert_allclose(dw.numpy(), jw, **GRAD)
+    np.testing.assert_allclose(db.numpy(), jb, **GRAD)
     wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
     xr = x.clone().requires_grad_(True)
     out = E.edge_tower_gap(xr, wr, br)
@@ -112,6 +129,21 @@ def test_bf16_plain_matches_jax_kernel_forward_and_vjp(case):
     out.backward(torch.from_numpy(dout))
     assert xr.grad is None
     assert torch.equal(wr.grad, dw) and torch.equal(br.grad, db)
+
+
+@pytest.mark.parametrize("case", MASK_CASES, ids=lambda c: c[0])
+def test_bf16_mask_backward_matches_jax_kernel_vjp(case):
+    """The bf16 backward kernel's algebra in plain PyTorch (the conv as an
+    im2col product of bf16 values, the winners' 0/1 masks times the im2col
+    columns and a ones column, dW by g rounded to bf16 and db by the f32 g)
+    against the VJP of JAX's bf16 kernel (interpret mode)."""
+    case_id, (imgs, cw, cb) = case
+    _, jw, jb = _jax_kernel_vjp(case_id)
+    dw, db = E.edge_tower_gap_bf16_mask_backward(
+        *_torch(imgs, cw, cb), torch.from_numpy(_dout(imgs, cw)))
+    assert dw.dtype == db.dtype == torch.float32 and dw.shape == cw.shape
+    np.testing.assert_allclose(dw.numpy(), jw, **GRAD)
+    np.testing.assert_allclose(db.numpy(), jb, **GRAD)
 
 
 def test_bf16_kernel_semantics_round_the_weights_and_g():
