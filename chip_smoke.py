@@ -258,24 +258,28 @@ Phases, each of which raises on a failure (nothing is swallowed):
    (``compute_dtype="bfloat16"``): K7's bf16 forward and backward (the
    weights rounded to bf16, one exact bf16 piece a pixel, f32 sums)
    against their plain version ``edge_tower_gap_bf16_plain`` at the tower
-   phase's geometries, ties and edge maps and at ragged tiles of odd
-   counts, with the f32 kernels' tolerances, two runs bit-equal, the
+   phase's geometries, ties and edge maps, at ragged tiles of odd counts
+   and at the evaluator's block (128 x 32x32 x 64), with the f32 kernels'
+   tolerances, two runs bit-equal, the
    float64 witness on one seed of edge maps (the bf16 backward's decisions
    replayed by the tensor cores' measured rounding, its near-tie band by
    the f32 chain), the tensor-core probes (``tensor_core_probes``: the
    measured rounding model against wgmma and mma.sync on crafted operands,
    the transposed tap-sum product against torch.matmul), the bf16
-   backward's ptxas registers and spills (none), timed at
-   8192 x 32x32 x 64 and 256 x 224x224 x 64 beside the f32 kernels' times
-   of phase 12, cuDNN's bf16 conv alone and the bound (the operations at
-   the bf16 rate, or the bytes with 2-byte images); then in bf16
+   forward's and backward's ptxas registers and spills (none), timed at
+   8192 x 32x32 x 64, 256 x 224x224 x 64 and 128 x 32x32 x 64 beside the
+   f32 kernels' times of phase 12, cuDNN's bf16 conv alone, the bound (the
+   operations at the bf16 rate, or the bytes with 2-byte images) and the
+   forward's issued tensor work; then in bf16
    AttentiveFashion's generic step at 1M x 200k (the bf16 kernels' main
    path: 2 + 2 bf16 launches a step, no f32 ones), its packed step, the
    streamed step at 256 x 224x224 from phase 22's stack and CompVBPR's
    packed and generic steps at phase 20's shape, each beside its f32
    figure of this run (AttentiveFashion's also in f32 on the same model
    just before and after) with a profile (idle share, K7's or the convs'
-   share), peak memory and every param f32; the bf16 CNN at 224x224
+   share), peak memory and every param f32; AttentiveFashion's
+   ``precompute_eval`` over the 200k items at --batch_eval 128 (one bf16
+   forward a block: ms, launches, idle and K7 share); the bf16 CNN at 224x224
    (B=256) against the f32 CNN on the same weights and timed beside the
    bf16 bound; CompVBPR's generic step at 224x224, batch 1024, over 1M x
    32,768, in bf16 and in f32 on the same model; ``train_rec
@@ -380,6 +384,9 @@ CLI_DIR = ROOT / "build" / "chip_smoke_cli"
 # W, C; the last two are timed); constant images tie every pool window
 # (0.5) and every ReLU boundary too (0.0)
 TOWER_TIMED = ((8192, 32, 32, 64), (256, 224, 224, 64))
+# the evaluator's block: precompute_eval's tower call a --batch_eval 128
+# block (the bf16 forward is checked and timed there too)
+TOWER_EVAL = (128, 32, 32, 64)
 TOWER_GEOMS = ((5, 8, 16, 4), (8, 6, 10, 3), (3, 12, 8, 8), (4, 10, 12, 300)) + TOWER_TIMED
 TOWER_TIES = ((4, 8, 12, 4, 0.5), (16, 32, 32, 64, 0.5), (16, 32, 32, 64, 0.0))
 # edge maps as the model's stack holds them (data/pipeline.py: tiff / 255):
@@ -389,8 +396,9 @@ TOWER_EDGES = ((64, 32, 32, 64), (2, 224, 224, 64))
 # most its bf16 pieces can, all terms of one sign) at the training shape
 TOWER_WORST = (8192, 32, 32, 64)
 # the forward kernel's wgmma k16 steps per 64 channels and 64 conv pixels
-# (csrc/edge_tower.cu: hi x hi in 2, the five cross products in 10)
-FWD_K16_STEPS = 12
+# (csrc/edge_tower.cu: hi x hi in 2, the five cross products in 10; the
+# bf16 forward's 2)
+FWD_K16_STEPS, FWD_BF16_K16_STEPS = 12, 2
 # the float64 witness: edge maps at the training step's batch, where the
 # backward and its plain version (cuDNN's f32 conv) may decide near ties
 # differently; a float64 conv decides them (seeds of the edge maps)
@@ -1913,13 +1921,23 @@ def tower_taps(torch, n: int, device):
     return sum(((pos + k - 2 >= 0) & (pos + k - 2 < n)).long() for k in range(5))
 
 
-def tower_fwd_issued(E, B, H, W, C):
+def tower_fwd_issued(E, B, H, W, C, bf16=False):
     """Tensor-core operations the forward kernel issues: FWD_K16_STEPS
     products of 64 channels x 64 conv pixels x 16 a step, for every group
     of 64 channels and every N tile of 16 pooled columns of a pooled row
-    (``E.fwd_tiles``: a tile's ragged last N tile counts whole)."""
-    _, cw, _ = E.fwd_tiles(H, W)
+    (``E.fwd_tiles``: a tile's ragged last N tile counts whole).  With
+    ``bf16``, the bf16 forward's: FWD_BF16_K16_STEPS products of 64 pixels x
+    64 channels x 16 for each of the two M tiles of a window group (2
+    pooled rows x 16 pooled columns of a tile of ``E.fwd_tiles_bf16``; a
+    ragged group counts whole)."""
     wp = W // 2
+    if bf16:
+        rp, cw, _ = E.fwd_tiles_bf16(H, W)
+        hp = H // 2
+        rows = sum(-(-min(rp, hp - r) // 2) for r in range(0, hp, rp))
+        chunks = sum(-(-min(cw, wp - q) // E.FWD_CHUNK) for q in range(0, wp, cw))
+        return 2.0 * 64 * -(-C // 64) * 64 * 16 * FWD_BF16_K16_STEPS * 2 * B * rows * chunks
+    _, cw, _ = E.fwd_tiles(H, W)
     chunks = sum(-(-min(cw, wp - q) // E.FWD_CHUNK) for q in range(0, wp, cw))
     n_tiles = B * (H // 2) * chunks
     return 2.0 * 64 * -(-C // 64) * 64 * 16 * FWD_K16_STEPS * n_tiles
@@ -5658,18 +5676,22 @@ def tensor_core_probes(torch):
 
 
 def tower_bf16_phase(torch, E, f32_rows):
-    """K7's bf16 kernels against their plain version, two backward runs
-    bit-equal, the witness, the bf16 backward's registers against the f32
-    one's, then timed beside cuDNN's bf16 conv and the bound."""
+    """K7's bf16 kernels against their plain version (also at the
+    evaluator's block, TOWER_EVAL), two forward and two backward runs
+    bit-equal, the witness, the bf16 kernels' registers against the f32
+    ones', then timed beside cuDNN's bf16 conv and the bound at TOWER_TIMED
+    and TOWER_EVAL."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(52)
     errs = {"edge_tower_fwd": 0.0, "edge_tower_bwd": 0.0}
     regs = ptxas_rows("edge_")
     f32_bwd, bf16_bwd = regs["edge_bwd_kernel"], regs["edge_bwd_wgmma_kernel"]
-    print(f"edge_tower bf16 ptxas: {regs['edge_fwd_kernel<__nv_bfloat16>']}, {bf16_bwd} "
-          f"(f32: {regs['edge_fwd_kernel<float>']}, {f32_bwd})")
-    if bf16_bwd["spill_stores"] or bf16_bwd["spill_loads"]:
-        fail(f"the bf16 backward spills: {bf16_bwd}")
+    bf16_fwd = regs["edge_fwd_bf16_kernel"]
+    print(f"edge_tower bf16 ptxas: {bf16_fwd}, {bf16_bwd} "
+          f"(f32: {regs['edge_fwd_kernel']}, {f32_bwd})")
+    for name, row in (("forward", bf16_fwd), ("backward", bf16_bwd)):
+        if row["spill_stores"] or row["spill_loads"]:
+            fail(f"the bf16 {name} spills: {row}")
     probes = tensor_core_probes(torch)
 
     def inputs(B, H, W, C, value=None, edges=False):
@@ -5706,7 +5728,7 @@ def tower_bf16_phase(torch, E, f32_rows):
         errs["edge_tower_fwd"] = max(errs["edge_tower_fwd"], e_f)
         errs["edge_tower_bwd"] = max(errs["edge_tower_bwd"], e_b)
 
-    for B, H, W, C in TOWER_GEOMS + BF16_ODD:
+    for B, H, W, C in TOWER_GEOMS + BF16_ODD + (TOWER_EVAL,):
         check(f"B={B} H={H} W={W} C={C}", *inputs(B, H, W, C))
         torch.cuda.empty_cache()
     for B, H, W, C, v in TOWER_TIES:
@@ -5719,12 +5741,15 @@ def tower_bf16_phase(torch, E, f32_rows):
     flush = torch.empty(64 * 2**20 // 4, device=dev)
     conv = torch.nn.functional.conv2d
     rows = {}
-    for B, H, W, C in TOWER_TIMED:
+    for B, H, W, C in TOWER_TIMED + (TOWER_EVAL,):
         x, w, b, dout = inputs(B, H, W, C)
         xc, wc = x.permute(0, 3, 1, 2), w.bfloat16().permute(3, 2, 0, 1)
         lib_ms, _, _ = kernel_times(torch, "conv2d bf16", lambda: conv(xc, wc, padding=2), 5,
                                     flush)
         bounds = tower_bounds(torch, E, x.float(), w.bfloat16().float(), b, bf16=True)
+        issued = tower_fwd_issued(E, B, H, W, C, bf16=True)
+        print(f"edge_tower_fwd bf16 B={B} H={H} W={W} C={C}: issued on the tensor cores "
+              f"{issued!r} operations, {issued / PEAK_BF16_FLOPS * 1e3!r} ms at peak")
         torch.cuda.empty_cache()
         shape = f"B={B} H={H} W={W} C={C} bf16, cold L2"
         for name, run, plain, (bnd, by) in (
@@ -5736,20 +5761,23 @@ def tower_bf16_phase(torch, E, f32_rows):
             ms, call_ms, _ = kernel_times(torch, f"{name} bf16", run, 10, flush, bnd)
             plain_ms, _, _ = kernel_times(torch, f"{name} bf16 plain", plain, 5, flush)
             check_bound(f"{name} {shape}", ms, bnd)
-            f32 = f32_rows[name] if (H, W) == (AF_HW, AF_HW) else f32_rows[name]["at_224"]
-            rows.setdefault(name, {})[(H, W)] = dict(
+            f32 = (None if B == TOWER_EVAL[0] else f32_rows[name] if (H, W) == (AF_HW, AF_HW)
+                   else f32_rows[name]["at_224"])
+            f32_ms = None if f32 is None else f32["ms"]
+            rows.setdefault(name, {})[(B, H, W)] = dict(
                 ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms, shape=shape, f32_ms=f32["ms"])
+                library_ms=lib_ms, shape=shape, f32_ms=f32_ms)
             print(f"kernel time {name} {shape}: ms={ms!r} call_ms={call_ms!r} "
                   f"plain_ms={plain_ms!r} bound_ms={bnd!r} ({by}) library_ms(conv2d bf16, "
-                  f"conv only)={lib_ms!r}; the f32 kernel in this run {f32['ms']!r} ms")
+                  f"conv only)={lib_ms!r}; the f32 kernel in this run {f32_ms!r} ms")
         del x, w, b, dout, xc, wc
         torch.cuda.empty_cache()
     out = {}
     for name, by_shape in rows.items():
-        main, ref = by_shape[(AF_HW, AF_HW)], by_shape[(224, 224)]
-        reg = bf16_bwd if name == "edge_tower_bwd" else regs["edge_fwd_kernel<__nv_bfloat16>"]
-        out[name] = dict(max_abs_err=errs[name], **main, at_224=ref, ptxas=reg,
+        main, ref = by_shape[TOWER_TIMED[0][:3]], by_shape[TOWER_TIMED[1][:3]]
+        reg = bf16_bwd if name == "edge_tower_bwd" else bf16_fwd
+        out[name] = dict(max_abs_err=errs[name], **main, at_224=ref,
+                         at_eval_block=by_shape[TOWER_EVAL[:3]], ptxas=reg,
                          library="torch.nn.functional.conv2d bf16 (conv only)")
     out["edge_tower_bwd"].update(witness_flips=flips, witness_readings=readings,
                                  tensor_core_probes=probes)
@@ -5773,6 +5801,40 @@ def zero_counts(E, G=None, S=None):
     E.edge_tower_fwd.launches_bf16 = E.edge_tower_bwd.launches_bf16 = 0
     if G is not None:
         G.gather_rows.launches = S.scatter_rows_set.launches = 0
+
+
+def af_precompute_eval(torch, E, model, label: str, batch_eval: int = AF_CLI_BATCH_EVAL):
+    """``model.precompute_eval()`` in blocks of ``batch_eval`` items (the
+    CLI's default --batch_eval: one K7 forward a block) after one untimed
+    run: ms (host clock, ended by a synchronize), the K7 launches of the
+    timed run (counts set to 0 just before, read just after; checked
+    against one a block), the encodings' shape and finiteness, and one
+    profile (idle share, K7 share)."""
+    saved, model.batch_eval = model.batch_eval, batch_eval
+    try:
+        model.precompute_eval()
+        torch.cuda.synchronize()
+        zero_counts(E)
+        t0 = time.perf_counter()
+        enc = model.precompute_eval()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = bf16_counts(E)
+        blocks = -(-model.num_items // batch_eval)
+        key = "edge_tower_fwd_bf16" if model.compute_dtype == torch.bfloat16 else "edge_tower_fwd"
+        if launches[key] != blocks or enc.shape[0] != model.num_items \
+                or not bool(torch.isfinite(enc).all()):
+            fail(f"{label} precompute_eval: {launches} launches (expected {blocks} of {key}), "
+                 f"encodings {tuple(enc.shape)}, finite {bool(torch.isfinite(enc).all())}")
+        del enc
+        profile = step_profile(torch, f"{label} precompute_eval", lambda _: model.precompute_eval(),
+                               None, 1)
+    finally:
+        model.batch_eval = saved
+    print(f"{label} precompute_eval over {model.num_items} items, batch_eval {batch_eval}: "
+          f"{ms!r} ms, launches {launches}, idle {profile['idle_share']!r}, K7 "
+          f"{profile['k7_share']!r}")
+    return dict(ms=ms, batch_eval=batch_eval, blocks=blocks, launches=launches, profile=profile)
 
 
 def timed_steps(torch, np, label, run, first, triples, n, start, counts, want, params):
@@ -5806,8 +5868,8 @@ def bf16_train_phase(torch, np, E, G, S, f32):
     shapes: ms a step beside the f32 figure of the same run (AttentiveFashion's
     steps also in f32 on the same model just before and after their bf16
     steps), the idle share and K7's or the convs' share, peak memory, every
-    param f32.  The generic AttentiveFashion step is the bf16
-    kernels' main path."""
+    param f32; AttentiveFashion's ``precompute_eval`` at --batch_eval 128.
+    The generic AttentiveFashion step is the bf16 kernels' main path."""
     import shutil
 
     from fashionvisualexpl_tpu_torch.core.config import TrainConfig
@@ -5878,6 +5940,9 @@ def bf16_train_phase(torch, np, E, G, S, f32):
         out[f"af_{path}"] = row
         del trainer, state, frozen, triples, tabs
         torch.cuda.empty_cache()
+    # the evaluation's encodings at the CLI's --batch_eval: one bf16 forward
+    # a block of 128 items
+    out["af_precompute_eval"] = af_precompute_eval(torch, E, model, "af bf16")
     del model
     phase_start(torch)
 

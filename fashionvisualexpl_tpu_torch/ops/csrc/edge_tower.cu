@@ -55,8 +55,9 @@
 //   the three products that read xh and the two that read xm share its
 //   columns, so the tile is 12 KB and not 20 and the weights take 24
 //   registers and not 40, for 12 k16 steps instead of 10.
-// * Tiles.  A block (one warpgroup) takes an item: one image's tile of up
-//   to 16 pooled rows by Cw pooled columns (a multiple of 16, at most 64),
+// * Tiles (the f32 forward's; the bf16 backward walks them too).  A block
+//   (one warpgroup) takes an item: one image's tile of up to 16 pooled
+//   rows by Cw pooled columns (a multiple of 16, at most 64),
 //   so any even W runs.  It stages the tile's input rows with a halo of 2
 //   (zero outside the image) as three bf16 planes, rows padded to 16..48
 //   mod 64 entries so a warp's reads fall on distinct banks, then walks its
@@ -146,14 +147,62 @@
 //
 // bf16 images (the JAX kernel's bf16 mode: _weights(..., images.dtype) bands
 // the weights in the images' dtype and the backward casts the routed
-// gradient to it before the dW products).  The forward is a template on
-// the image type T; T = float is the f32 tower above, unchanged.  With T =
-// __nv_bfloat16 the weights are rounded to bf16 (nearest, even) and each
-// pixel is one exact bf16 piece, so every conv product is exact in f32 and
-// only the f32 sums round: the wh.xh product alone, 2 k16 steps a tile
-// (not 12), one staged plane read from the image as 2-byte words, a 4 KB
-// im2col tile (not 12 KB); + bias, ReLU, the 2x2 max and the mean in f32
-// as above.
+// gradient to it before the dW products).  The weights are rounded to bf16
+// (nearest, even) and each pixel is one exact bf16 piece, so every conv
+// product is exact in f32 and only the f32 sums round; + bias, ReLU, the 2x2
+// max and the mean in f32 as above.
+//
+// bf16 forward (edge_fwd_bf16_kernel): the f32 forward's roles swapped.
+// * Arithmetic: the f32 forward's hi x hi product alone, in its K order
+//   (taps 0..15, then 16..24 zero-padded to 32: 2 k16 steps).  A k16
+//   step's sum depends only on its 16 products and the running sum
+//   (ops/tc_rounding.py::MEASURED), so every conv value has the bits that
+//   the f32 design's hi x hi product gives on bf16 operands; only the mean
+//   adds in another order.
+// * Roles: M = 64 conv pixels, A from registers; N = the block's 64
+//   channels, B = the rounded weights, 4 KB in shared memory for the
+//   block's life (K-major: the f32 forward's im2col layout, channels for
+//   pixels).
+// * Window groups: 2 pooled rows x 16 pooled columns, 32 windows.  M tile
+//   A holds their left (even) conv columns, M tile B the right ones; row g
+//   of a warp is window 8 (warp % 2) + g's top pixel, row g + 8 the one
+//   below.  A thread's accumulators then hold all four conv values of one
+//   window for its 16 channels (8i + 2t, + 1): 3 fmaxf, + bias and a ReLU
+//   each, no shuffle.
+// * Operands: the item's rows stand twice in shared memory, as a plane and
+//   as a copy shifted by one column, so the word (p[c], p[c + 1]) exists
+//   for any column c.  Of a lane's four k pairs, one of a row is one 4-byte
+//   load; taps 4, 5 and 14, 15 span two rows (two loads and a byte
+//   permute); pair 24 is tap 24 masked (lane t = 0) or zero, as the f32
+//   forward's padding.  Rows 12 mod 32 words apart and the copy 0 mod 32
+//   words on put a warp's loads on distinct banks.  No im2col store, no
+//   proxy fence and no barrier a group.
+// * Schedule: a group's fragments, then its 4 products (2 k16 steps of
+//   each M tile) as one commit group, its accumulators read after
+//   wait_group 0.  ptxas serializes every product of the kernel when an
+//   instruction writes a register that a product in flight reads (C7513),
+//   or reads an accumulator while any product is in flight (C7514): so a
+//   group's pooling cannot overlap the next group's products inside one
+//   warpgroup; the 3 blocks of an SM overlap them.
+// * Grid and items: persistent, the blocks the card holds (made coprime
+//   with an image's items by the wrapper), each walking items by carries
+//   (no division an item).  Items are tiles of up to 16 pooled rows x 96
+//   columns (fwd_tiles_bf16): a 32x32 image is one.  An item's plane
+//   arrives by cp.async copies of 16 bytes (of 4 where W % 8 or the images
+//   are not on 16 bytes; zero outside the image) into one of two plane
+//   sets while the block computes the item before; the threads then write
+//   its shifted copy.
+// * Sums: each lane adds its window's pooled values over the item's
+//   groups; a butterfly over the 8 windows of a warp (14 shuffles) and the
+//   4 warps in order give the item's channel sums.  One item an image:
+//   the kernel writes the mean itself, no scratch, no second launch; else
+//   partial [items, C] and edge_fwd_reduce_kernel.  No float atomics: two
+//   runs give the same bits; nothing of the activation's size is written.
+// * What bounds it: operations, the conv at the bf16 rate (0.025 ms at
+//   8192 x 32x32 x 64); it issues 4 m64n64k16 products a group (0.035 ms
+//   at peak).  The pooling (4 fmaxf and 2 adds a window and channel), the
+//   operand loads (12 KB a group) and the products' own time each take a
+//   share; no single unit bounds it (PERF.md).
 //
 // bf16 backward (edge_bwd_wgmma_kernel): the conv and the tap sums both on
 // the tensor cores, the winners decided in registers.  With bf16 images
@@ -435,12 +484,11 @@ __device__ __forceinline__ void write_tile(uint4* tiles, const uint16_t* hi_plan
   if constexpr (kBwd) sums[128 * buf + 2 * n + tid / 64] = s;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kFwdThreads, 3)
-edge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+edge_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ partial,
                 int H, int W, int C, int Rp, int Cw, int Sr, int Sc) {
-  constexpr int kTile = kTileBytes<T>;
+  constexpr int kTile = kTileBytes<float>;
   extern __shared__ __align__(128) unsigned char smem[];
   uint4* tiles = reinterpret_cast<uint4*>(smem);  // two im2col tiles
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem + 2 * kTile);
@@ -460,12 +508,12 @@ edge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   uint32_t ah[2][4], am[2][4], al[2][4];
   float bc[2];
   const int cw0 = blockIdx.y * kFwdChannels + warp * 16 + g;
-  conv_weights<T>(w, bias, C, cw0, t, ah, am, al, bc);
-  stage_planes<T>(planes, x + b * H * W, H, W, Rp, r0, q0, ps, plane);
+  conv_weights<float>(w, bias, C, cw0, t, ah, am, al, bc);
+  stage_planes<float>(planes, x + b * H * W, H, W, Rp, r0, q0, ps, plane);
   const uint16_t* hi_plane = reinterpret_cast<const uint16_t*>(planes);
 
   __syncthreads();  // the planes are staged
-  write_tile<T>(tiles, hi_plane, plane, ps, 0, 0, 0);
+  write_tile<float>(tiles, hi_plane, plane, ps, 0, 0, 0);
   fvx::fence_proxy_async();
   __syncthreads();
 
@@ -477,42 +525,34 @@ edge_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     for (int i = 0; i < 32; ++i) {
       dh[i] = 0.0f;
       fvx::reg_fence(dh[i]);
-      if constexpr (kSplit<T>) {
-        dx[i] = 0.0f;
-        fvx::reg_fence(dx[i]);
-      }
+      dx[i] = 0.0f;
+      fvx::reg_fence(dx[i]);
     }
     fvx::wgmma_fence();
     // every product unconditional: a product under a branch makes ptxas
     // put a warpgroup.arrive before each one
 #pragma unroll
     for (int st = 0; st < 2; ++st) fvx::wgmma_m64n64k16_bf16(dh, ah[st], im2col_desc(base, 0, st));
-    if constexpr (kSplit<T>) {
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 0, st));
-        fvx::wgmma_m64n64k16_bf16(dx, al[st], im2col_desc(base, 0, st));
-        fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 1, st));
-        fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 1, st));
-        fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 2, st));
-      }
+    for (int st = 0; st < 2; ++st) {
+      fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 0, st));
+      fvx::wgmma_m64n64k16_bf16(dx, al[st], im2col_desc(base, 0, st));
+      fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 1, st));
+      fvx::wgmma_m64n64k16_bf16(dx, am[st], im2col_desc(base, 1, st));
+      fvx::wgmma_m64n64k16_bf16(dx, ah[st], im2col_desc(base, 2, st));
     }
     fvx::wgmma_commit();
     // the next tile on the CUDA cores while the tensor cores take this one
     if (nt + 1 < n_tiles)
-      write_tile<T>(tiles, hi_plane, plane, ps, (nt + 1) / nchunks, (nt + 1) % nchunks, (nt + 1) % 2);
+      write_tile<float>(tiles, hi_plane, plane, ps, (nt + 1) / nchunks, (nt + 1) % nchunks, (nt + 1) % 2);
     fvx::wgmma_wait0();
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       fvx::reg_fence(dh[i]);
-      if constexpr (kSplit<T>) fvx::reg_fence(dx[i]);
+      fvx::reg_fence(dx[i]);
     }
-    // conv output i of this thread's accumulator: hi x hi plus the cross
-    // products (f32 images), or the one product's sum (bf16)
-    auto z = [&](int i) {
-      if constexpr (kSplit<T>) return dh[i] + dx[i];
-      else return dh[i];
-    };
+    // conv output i of this thread's accumulator: hi x hi plus the cross products
+    auto z = [&](int i) { return dh[i] + dx[i]; };
 
     // pool in registers: columns 16 j + 2t (+1) of the top row and 16 j + 8
     // + 2t (+1) of the bottom row are window 4 j + t's four conv outputs
@@ -553,6 +593,289 @@ edge_fwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ ou
   float s = 0.0f;
   for (int k = 0; k < S; ++k) s += partial[(b * S + k) * C + c];
   out[i] = s / n;
+}
+
+// --- the bf16 forward (edge_fwd_bf16_kernel; design in the header) ---------
+
+constexpr int kBf16MinBlocks = 3;    // edge_fwd_bf16_kernel's blocks an SM, at least
+constexpr int kBf16WeightBytes = 4 * 64 * 16;  // the B operand: 4 k-groups x 64 channels
+constexpr int kBf16RedBytes = 2 * 4 * 64 * 4;  // two items' per-warp channel sums
+constexpr int kBf16PlaneAt = kBf16WeightBytes + kBf16RedBytes;  // on 128 bytes
+constexpr int kPlaneMargin = 8;  // plane columns left of an item's first conv column
+constexpr int kBf16TileCols = 96;  // pooled columns of a tile at most: 3 blocks' planes an SM
+
+// Words a row of the bf16 forward's staged planes for items of Cw pooled
+// columns: the 2 Cw + 12 columns the taps read (kPlaneMargin on the left,
+// 4 on the right), then to 12 mod 32: the operand loads of a warp then fall
+// on distinct banks (with the shifted copy 0 mod 32 words past the plane)
+__host__ __device__ inline int bf16_plane_half(int Cw) {
+  int h = Cw + 6;
+  while (h % 32 != 12) ++h;
+  return h;
+}
+// rows of a plane: the item's pooled rows rounded up to even, doubled, and a halo of 2 a side
+__host__ __device__ inline int bf16_plane_rows(int Rp) { return 2 * (Rp + (Rp & 1)) + 4; }
+// words from a plane to its copy shifted by one column (the plane and a
+// word past it, which the copy reads, rounded up to 128 bytes), and from
+// one set of the two to the next
+__host__ __device__ inline int bf16_plane_shift(int Rp, int Cw) {
+  return (bf16_plane_rows(Rp) * bf16_plane_half(Cw) + 32) / 32 * 32;
+}
+__host__ __device__ inline int bf16_plane_set(int Rp, int Cw) { return 2 * bf16_plane_shift(Rp, Cw); }
+
+// Byte offset, from the word of a pool window's top-left pixel (X = 2 cc),
+// of the staged word whose low half is tap j of the window's pixel in
+// column X + par: the plane's word (p[c], p[c + 1]) for an even column c,
+// the shifted copy's (p[c], p[c + 1]) for an odd one.
+__device__ __forceinline__ int tap_word(int par, int j, int half, int pw) {
+  const int c = par + j % 5 + kPlaneMargin - 2;
+  return 4 * ((c & 1 ? pw : 0) + (j / 5) * half + (c >> 1));
+}
+
+// The A fragments (2 k16 steps) of one M tile's pixels, rows g (the window's
+// top pixel, whose taps are at the bytes `addr` of the planes, shifted by
+// the group's `top`) and g + 8 (the row below): pair k = 2t.. of step 0
+// from two staged words (taps 2t, 2t + 1 may lie on two rows), k = 2t + 8..
+// likewise, k = 16 + 2t.. one word (taps of one row), k = 24 + 2t.. one
+// word masked to tap 24 (lane t = 0) or to zero.
+__device__ __forceinline__ void bf16_fragments(uint32_t (&f)[2][4], const unsigned char* planes,
+                                               int top, int row_bytes, const int (&addr)[6],
+                                               uint32_t mask) {
+#pragma unroll
+  for (int px = 0; px < 2; ++px) {
+    const unsigned char* p = planes + top + px * row_bytes;
+    auto word = [&](int o) { return *reinterpret_cast<const uint32_t*>(p + o); };
+    f[0][px] = __byte_perm(word(addr[0]), word(addr[1]), 0x5410);
+    f[0][2 + px] = __byte_perm(word(addr[2]), word(addr[3]), 0x5410);
+    f[1][px] = word(addr[4]);
+    f[1][2 + px] = word(addr[5]) & mask;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fvx::reg_fence(d[i]);
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&f)[2][4]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fvx::reg_fence(f[s][r]);
+  }
+}
+
+// One M tile's conv: 2 k16 steps of wgmma.m64n64k16, A the pixels'
+// fragments, B the block's rounded weights (descriptors b0, b1).
+__device__ __forceinline__ void bf16_conv(float (&d)[32], const uint32_t (&f)[2][4], uint64_t b0,
+                                          uint64_t b1) {
+  fvx::wgmma_m64n64k16_bf16_first(d, f[0], b0);
+  fvx::wgmma_m64n64k16_bf16(d, f[1], b1);
+}
+
+// An item's plane: image rows 2 r0 - 2 .. and columns 2 q0 - kPlaneMargin ..
+// of img, zero outside the image, rows half words apart, into shared memory
+// at dst by cp.async copies of 8 pixels (16 bytes; `wide`) or of 2: a copy
+// lies inside the image or outside it whole, since its first column and W
+// are multiples of its pixels (and the images on as many bytes: the caller's).
+__device__ __forceinline__ void stage_plane(uint32_t dst, const uint16_t* img, int H, int W,
+                                            int r0, int q0, int prow, int half, bool wide) {
+  const int px = wide ? 8 : 2;
+  const int per_row = 2 * half / px;
+  for (int i = threadIdx.x; i < prow * per_row; i += kFwdThreads) {
+    const int r = i / per_row;
+    const int y = 2 * r0 - 2 + r, xc = 2 * q0 - kPlaneMargin + px * (i - r * per_row);
+    const bool in = y >= 0 && y < H && xc >= 0 && xc < W;
+    const uint16_t* src = in ? img + static_cast<long long>(y) * W + xc : img;
+    if (wide) fvx::cp_async16(dst + 16 * i, src, in ? 16 : 0);
+    else fvx::cp_async4(dst + 4 * i, src, in ? 4 : 0);
+  }
+}
+
+// The bf16 forward: persistent blocks over (image, tile) items; pixels as
+// M, from registers; the 64 channels as N, from the rounded weights in
+// shared memory; pooled in registers.  Each item's plane arrives by
+// cp.async copies (16 bytes with `wide`, else 4) into one of two plane sets
+// while the block computes the item before; the threads then write its
+// copy shifted by one column.
+// Writes out [B, C] (S = 1 item an image) or partial [items, C].
+__global__ void __launch_bounds__(kFwdThreads, kBf16MinBlocks)
+edge_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ partial,
+                     float* __restrict__ out, int H, int W, int C, int Rp, int Cw, int Sr, int Sc,
+                     int n_items, float n, int wide) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint4* wtile = reinterpret_cast<uint4*>(smem);  // k-group kg of channel n at kg * 64 + n
+  float* red = reinterpret_cast<float*>(smem + kBf16WeightBytes);
+  unsigned char* planes = smem + kBf16PlaneAt;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int Hp = H / 2, Wp = W / 2;
+  const int half = bf16_plane_half(Cw), prow = bf16_plane_rows(Rp);
+  const int pw = bf16_plane_shift(Rp, Cw), set_bytes = 4 * bf16_plane_set(Rp, Cw);
+  const int cg = blockIdx.y * kFwdChannels;
+  const uint16_t* images = reinterpret_cast<const uint16_t*>(x);
+
+  // item = b S + sr Sc + sc, walked by gridDim.x with carries (no division an item)
+  const int S = Sr * Sc;
+  const int db_ = gridDim.x / S, ds_ = gridDim.x - db_ * S;
+  const int dsr = ds_ / Sc, dsc = ds_ - dsr * Sc;
+  auto step = [&](int& b, int& sr, int& sc) {
+    b += db_;
+    sr += dsr;
+    sc += dsc;
+    if (sc >= Sc) {
+      sc -= Sc;
+      ++sr;
+    }
+    if (sr >= Sr) {
+      sr -= Sr;
+      ++b;
+    }
+  };
+  // item (sb, sr, sc)'s plane into plane set `set`, as one cp.async group
+  auto stage = [&](int set, int sb, int sr, int sc) {
+    stage_plane(fvx::smem_u32(planes + set * set_bytes), images + static_cast<long long>(sb) * H * W,
+                H, W, sr * Rp, sc * Cw, prow, half, wide);
+    fvx::cp_async_commit();
+  };
+  int ib = blockIdx.x / S, isr = (blockIdx.x - ib * S) / Sc, isc = blockIdx.x - ib * S - isr * Sc;
+  stage(0, ib, isr, isc);  // the block's first item (gridDim.x <= n_items)
+  // B: the group's weights rounded to bf16 (nearest even), taps 8 kg .. of
+  // k-group kg, zero past tap 24 and channel C
+  for (int i = tid; i < 4 * 64; i += kFwdThreads) {
+    const int kg = i / 64, c = cg + i % 64;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 8 * kg + 2 * e;
+      float2 f = make_float2(0.0f, 0.0f);
+      if (c < C && k < kTaps) f.x = w[k * C + c];
+      if (c < C && k + 1 < kTaps) f.y = w[(k + 1) * C + c];
+      const __nv_bfloat162 r = __floats2bfloat162_rn(f.x, f.y);
+      v[e] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+    wtile[i] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  fvx::fence_proxy_async();  // for the tensor cores, after the first item's barrier
+  const uint32_t wbase = fvx::smem_u32(wtile);
+  const uint64_t b0 = fvx::wgmma_desc(wbase, 1024, 128);
+  const uint64_t b1 = fvx::wgmma_desc(wbase + 2048, 1024, 128);
+
+  // this thread's channels cg + 8i + 2t + e (k = 2i + e: accumulator
+  // entries 4i + e, rows g, and 4i + 2 + e, rows g + 8) and their bias
+  float bc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int c = cg + 8 * (k / 2) + 2 * t + k % 2;
+    bc[k] = c < C ? bias[c] : 0.0f;
+  }
+  // window (rr, cc) of a group of 2 pooled rows x 16 pooled columns: its
+  // top-left pixel is row g of both M tiles, the pixel below it row g + 8.
+  // The lane's taps (pairs k = 2t and 2t + 8: two words each; 16 + 2t; 24)
+  // by the M tile's column parity (its pixels at X, X + 1), as bytes of a
+  // plane set from a group's first window
+  const int rr = warp >> 1, cc = 8 * (warp & 1) + g;
+  int addr[2][6];
+#pragma unroll
+  for (int par = 0; par < 2; ++par) {
+    const int js[6] = {2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9, 16 + 2 * t, 24};
+#pragma unroll
+    for (int q = 0; q < 6; ++q)
+      addr[par][q] = 4 * (2 * rr * half + cc) + tap_word(par, js[q], half, pw);
+  }
+  const uint32_t mask = t == 0 ? 0xFFFFu : 0u;  // k = 24: tap 24 and a zero; else two zeros
+  const int row_bytes = 4 * half;
+
+  for (int item = blockIdx.x, k = 0; item < n_items; item += gridDim.x, ++k) {
+    const int b = ib, r0 = isr * Rp, q0 = isc * Cw;
+    step(ib, isr, isc);
+    const int r_end = min(r0 + Rp, Hp), c_end = min(q0 + Cw, Wp);
+    const int nchunks = (c_end - q0 + kFwdChunk - 1) / kFwdChunk;
+    const int groups = (r_end - r0 + 1) / 2 * nchunks;
+    const int set = k & 1;
+    // the next item's plane into the other set (read by the item before,
+    // whose last barrier has passed) while this one is computed
+    if (item + static_cast<int>(gridDim.x) < n_items) stage(set ^ 1, ib, isr, isc);
+    else fvx::cp_async_commit();  // an empty group
+    fvx::cp_async_wait<1>();
+    __syncthreads();  // this item's plane, every thread's copies
+    uint32_t* p0 = reinterpret_cast<uint32_t*>(planes + set * set_bytes);
+    for (int i = tid; i < prow * half / 4; i += kFwdThreads) {  // its shifted copy
+      const uint4 a = reinterpret_cast<const uint4*>(p0)[i];
+      const uint32_t e = p0[4 * i + 4];
+      reinterpret_cast<uint4*>(p0 + pw)[i] =
+          make_uint4(__byte_perm(a.x, a.y, 0x5432), __byte_perm(a.y, a.z, 0x5432),
+                     __byte_perm(a.z, a.w, 0x5432), __byte_perm(a.w, e, 0x5432));
+    }
+    __syncthreads();
+    const int base = set * set_bytes;
+
+    float sums[16];
+#pragma unroll
+    for (int k2 = 0; k2 < 16; ++k2) sums[k2] = 0.0f;
+    // group gi: pooled rows r0 + 2 grow .., columns q0 + 16 chunk ..; M
+    // tile A its windows' even conv columns, B the odd ones; the
+    // accumulators are read after wait_group 0
+    float da[32], db[32];
+    uint32_t fa[2][4], fb[2][4];
+    for (int gi = 0, grow = 0, chunk = 0; gi < groups; ++gi) {
+      const int top = base + 4 * (4 * grow * half + kFwdChunk * chunk);
+      const bool ok = r0 + 2 * grow + rr < r_end && q0 + kFwdChunk * chunk + cc < c_end;
+      bf16_fragments(fa, planes, top, row_bytes, addr[0], mask);
+      bf16_fragments(fb, planes, top, row_bytes, addr[1], mask);
+      fence_regs(fa);
+      fence_regs(fb);
+      fvx::wgmma_fence();
+      bf16_conv(da, fa, b0, b1);
+      bf16_conv(db, fb, b0, b1);
+      fvx::wgmma_commit();
+      fvx::wgmma_wait0();
+      fence_regs(da);
+      fence_regs(db);
+      fence_regs(fa);
+      fence_regs(fb);
+      if (ok) {
+#pragma unroll
+        for (int k2 = 0; k2 < 16; ++k2) {
+          const float m = fmaxf(fmaxf(da[4 * (k2 / 2) + k2 % 2], da[4 * (k2 / 2) + 2 + k2 % 2]),
+                                fmaxf(db[4 * (k2 / 2) + k2 % 2], db[4 * (k2 / 2) + 2 + k2 % 2]));
+          sums[k2] += fmaxf(m + bc[k2], 0.0f);
+        }
+      }
+      if (++chunk == nchunks) {
+        chunk = 0;
+        ++grow;
+      }
+    }
+
+    // the item's sum of each channel: the 8 windows of a warp (lanes g) by a
+    // butterfly in which each lane keeps half of its values a step (lane bit
+    // 4, then 3, then 2 of g picks the half), then the 4 warps in order
+#pragma unroll
+    for (int h = 8; h >= 2; h /= 2) {
+      const bool up = lane & (2 * h);  // lane bits 4, 3, 2 for h = 8, 4, 2
+#pragma unroll
+      for (int k2 = 0; k2 < h; ++k2) {
+        const float give = up ? sums[k2] : sums[k2 + h];
+        const float keep = up ? sums[k2 + h] : sums[k2];
+        sums[k2] = keep + __shfl_xor_sync(0xffffffffu, give, 2 * h);
+      }
+    }
+    float* r = red + 256 * set;
+    {  // sums[0], sums[1]: values k = 8 b4 + 4 b3 + 2 b2 (+1) of the lane's bits
+      const int kk = 8 * (lane >> 4 & 1) + 4 * (lane >> 3 & 1) + 2 * (lane >> 2 & 1);
+      const int c = 8 * (kk / 2) + 2 * t;
+      r[warp * 64 + c] = sums[0];
+      r[warp * 64 + c + 1] = sums[1];
+    }
+    __syncthreads();  // the sums written; this plane set read
+    if (tid < 64 && cg + tid < C) {
+      const float v = r[tid] + r[64 + tid] + r[128 + tid] + r[192 + tid];
+      if (S == 1) out[static_cast<long long>(b) * C + cg + tid] = v / n;
+      else partial[static_cast<long long>(item) * C + cg + tid] = v;
+    }
+  }
 }
 
 // One entry of the f32 backward's staged tile: the three bf16 pieces of
@@ -1223,7 +1546,6 @@ int allow_smem(Kernel kernel, size_t bytes) {
   return 0;
 }
 
-template <typename T>
 int tower_fwd(const void* x, const void* w, const void* bias, void* partial, void* out,
               long long B, long long H, long long W, long long C, long long Rp, long long Cw,
               void* stream) {
@@ -1233,14 +1555,14 @@ int tower_fwd(const void* x, const void* w, const void* bias, void* partial, voi
   const long long Sr = (H / 2 + Rp - 1) / Rp;
   const long long Sc = (W / 2 + Cw - 1) / Cw;
   if (B * Sr * Sc > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = fwd_smem_bytes<T>(Rp, Cw);
-  err = allow_smem(edge_fwd_kernel<T>, bytes);
+  const size_t bytes = fwd_smem_bytes<float>(Rp, Cw);
+  err = allow_smem(edge_fwd_kernel, bytes);
   if (err) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(B * Sr * Sc),
                   static_cast<unsigned>((C + kFwdChannels - 1) / kFwdChannels));
-  edge_fwd_kernel<T><<<grid, kFwdThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
+  edge_fwd_kernel<<<grid, kFwdThreads, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(partial), static_cast<int>(H),
       static_cast<int>(W), static_cast<int>(C), static_cast<int>(Rp), static_cast<int>(Cw),
       static_cast<int>(Sr), static_cast<int>(Sc));
@@ -1251,6 +1573,74 @@ int tower_fwd(const void* x, const void* w, const void* bias, void* partial, voi
                            kReduceThreads, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), B, static_cast<int>(C),
       static_cast<int>(Sr * Sc), static_cast<float>((H / 2) * (W / 2)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int check_fwd_bf16_tile(long long Rp, long long Cw) {
+  if (Rp < 1 || Rp > 64 || Cw < kFwdChunk || Cw % kFwdChunk || Cw > kBf16TileCols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// the bf16 forward's bytes: the weights, the sums and two
+// plane sets (a plane and its shifted copy each)
+size_t fwd_bf16_smem_bytes(long long Rp, long long Cw) {
+  return kBf16PlaneAt +
+         8 * static_cast<size_t>(bf16_plane_set(static_cast<int>(Rp), static_cast<int>(Cw)));
+}
+
+// the blocks of edge_fwd_bf16_kernel that the card holds at once
+int tower_fwd_bf16_blocks(long long Rp, long long Cw, long long* blocks) {
+  int err = check_fwd_bf16_tile(Rp, Cw);
+  if (err) return err;
+  const size_t bytes = fwd_bf16_smem_bytes(Rp, Cw);
+  err = allow_smem(edge_fwd_bf16_kernel, bytes);
+  if (err) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_fwd_bf16_kernel, kFwdThreads,
+                                                      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return 0;
+}
+
+int tower_fwd_bf16(const void* x, const void* w, const void* bias, void* partial, void* out,
+                   long long n_blocks, long long B, long long H, long long W, long long C,
+                   long long Rp, long long Cw, void* stream) {
+  int err = check_geometry(B, H, W, C, Rp);
+  if (!err) err = check_fwd_bf16_tile(Rp, Cw);
+  if (err) return err;
+  const long long Sr = (H / 2 + Rp - 1) / Rp;
+  const long long Sc = (W / 2 + Cw - 1) / Cw;
+  const long long n_items = B * Sr * Sc;
+  if (n_blocks < 1 || n_blocks > n_items || n_items > (1LL << 30) ||
+      reinterpret_cast<uintptr_t>(x) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = fwd_bf16_smem_bytes(Rp, Cw);
+  err = allow_smem(edge_fwd_bf16_kernel, bytes);
+  if (err) return err;
+  // 16-byte copies where every image row starts on 16 bytes
+  const int wide = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_blocks),
+                  static_cast<unsigned>((C + kFwdChannels - 1) / kFwdChannels));
+  const float n = static_cast<float>((H / 2) * (W / 2));
+  edge_fwd_bf16_kernel<<<grid, kFwdThreads, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(partial), static_cast<float*>(out),
+      static_cast<int>(H), static_cast<int>(W), static_cast<int>(C), static_cast<int>(Rp),
+      static_cast<int>(Cw), static_cast<int>(Sr), static_cast<int>(Sc),
+      static_cast<int>(n_items), n, wide);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || Sr * Sc == 1) return static_cast<int>(e);
+  const long long n_out = B * C;
+  edge_fwd_reduce_kernel<<<static_cast<unsigned>((n_out + kReduceThreads - 1) / kReduceThreads),
+                           kReduceThreads, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), B, static_cast<int>(C),
+      static_cast<int>(Sr * Sc), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1345,13 +1735,25 @@ extern "C" int fvx_edge_tower_fwd(const void* x, const void* w, const void* bias
                                   void* partial, void* out, long long B, long long H,
                                   long long W, long long C, long long Rp, long long Cw,
                                   void* stream) {
-  return tower_fwd<float>(x, w, bias, partial, out, B, H, W, C, Rp, Cw, stream);
+  return tower_fwd(x, w, bias, partial, out, B, H, W, C, Rp, Cw, stream);
 }
+
+// The bf16 forward's grid: the blocks of one channel group that the card
+// holds at once for tiles of Rp pooled rows (1..64) by Cw pooled columns (a
+// multiple of 16 up to 96); written to *blocks.
+extern "C" int fvx_edge_tower_fwd_blocks_bf16(long long Rp, long long Cw, long long* blocks) {
+  return tower_fwd_bf16_blocks(Rp, Cw, blocks);
+}
+
+// The bf16 forward over those tiles: n_items = B * S tiles (S as above),
+// grid n_blocks (1 <= n_blocks <= n_items) by the groups of 64 channels;
+// with S = 1 it writes out itself, else `partial` (scratch of B*S*C floats)
+// and a second kernel sums each image's tiles in order.  x on 4 bytes.
 extern "C" int fvx_edge_tower_fwd_bf16(const void* x, const void* w, const void* bias,
-                                       void* partial, void* out, long long B, long long H,
-                                       long long W, long long C, long long Rp, long long Cw,
-                                       void* stream) {
-  return tower_fwd<__nv_bfloat16>(x, w, bias, partial, out, B, H, W, C, Rp, Cw, stream);
+                                       void* partial, void* out, long long n_blocks,
+                                       long long B, long long H, long long W, long long C,
+                                       long long Rp, long long Cw, void* stream) {
+  return tower_fwd_bf16(x, w, bias, partial, out, n_blocks, B, H, W, C, Rp, Cw, stream);
 }
 
 // The backward's grid: the blocks of one channel group that the card holds

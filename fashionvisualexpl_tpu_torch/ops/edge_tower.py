@@ -5,14 +5,16 @@ single-channel images [B, H, W, 1] (H, W even), filters ``conv_w`` in JAX's
 HWIO layout [5, 5, 1, C] and bias ``conv_b`` [C], as the hand-written CUDA
 kernels of ``csrc/edge_tower.cu``: the forward's conv as ``wgmma`` products
 of the weights' and the image's exact bf16 pieces over an im2col tile,
-pooled in registers, never writing the [B, H, W, C] activation; the f32
-backward's tap sums on the tensor cores, its conv recomputed in f32; the
-bf16 backward's conv and tap sums both by ``wgmma`` on the forward's im2col
-tile, the winners decided in registers (design and bounds in the source).
-The TPU kernel's banded matmuls, batch tiles and VMEM budget
-(``auto_batch_tile``, ``kernel_vmem_bytes``) are Mosaic matters that stay
-behind: the CUDA kernels stage tiles of image rows and columns in shared
-memory (``fwd_tiles``, ``bwd_tiles``), so any even H, W runs.
+pooled in registers, never writing the [B, H, W, C] activation; the bf16
+forward's with the pixels as the product's rows, built in registers from
+the staged image, on a persistent grid; the f32 backward's tap sums on the
+tensor cores, its conv recomputed in f32; the bf16 backward's conv and tap
+sums both by ``wgmma`` on the f32 forward's im2col tile, the winners
+decided in registers (design and bounds in the source).  The TPU kernel's
+banded matmuls, batch tiles and VMEM budget (``auto_batch_tile``,
+``kernel_vmem_bytes``) are Mosaic matters that stay behind: the CUDA
+kernels stage tiles of image rows and columns in shared memory
+(``fwd_tiles``, ``fwd_tiles_bf16``, ``bwd_tiles``), so any even H, W runs.
 
 - ``edge_tower_fwd`` / ``edge_tower_bwd`` launch the forward and backward
   kernels for CUDA tensors and raise for any other; ``.launches`` counts
@@ -72,6 +74,7 @@ TILE_ROWS = 16  # pooled rows of a tile, both kernels
 FWD_CHUNK = 16  # pooled columns of one of the forward's N tiles (64 conv pixels)
 FWD_TILE_COLS = 64  # the forward's tile: pooled columns at most
 BWD_TILE_COLS = 64  # the backward's tile: pooled columns at most
+FWD_BF16_TILE_COLS = 96  # the bf16 forward's tile: pooled columns at most (3 blocks an SM)
 
 
 def check_geometry(images, conv_w, conv_b) -> Tuple[int, int, int, int]:
@@ -115,6 +118,18 @@ def fwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
     nc = -(-chunks // (FWD_TILE_COLS // FWD_CHUNK))
     cw = FWD_CHUNK * -(-chunks // nc)
     return rp, cw, -(-hp // rp) * -(-wp // cw)
+
+
+def fwd_tiles_bf16(h: int, w: int) -> Tuple[int, int, int]:
+    """(Rp, Cw, S) of the bf16 forward kernel: tiles of Rp pooled rows (at
+    most TILE_ROWS) by Cw pooled columns (a multiple of FWD_CHUNK, at most
+    FWD_BF16_TILE_COLS, the chunks shared evenly), S tiles an image."""
+    hp, wp = h // 2, w // 2
+    chunks = -(-wp // FWD_CHUNK)
+    nc = -(-chunks // (FWD_BF16_TILE_COLS // FWD_CHUNK))
+    cw = FWD_CHUNK * -(-chunks // nc)
+    rp = min(TILE_ROWS, hp)
+    return rp, cw, -(-hp // rp) * nc
 
 
 def bwd_tiles(h: int, w: int) -> Tuple[int, int, int]:
@@ -390,10 +405,17 @@ def type_entries(lib: ctypes.CDLL, suffixes=("", "_bf16")) -> ctypes.CDLL:
         fwd = getattr(lib, f"fvx_edge_tower_fwd{suffix}")
         bwd = getattr(lib, f"fvx_edge_tower_bwd{suffix}")
         blocks = getattr(lib, f"fvx_edge_tower_bwd_blocks{suffix}")
-        fwd.argtypes = [ptr] * 5 + [i64] * 6 + [ptr]
+        fns = [fwd, bwd, blocks]
+        if suffix:  # the bf16 forward takes its grid, from its own blocks entry
+            fwd.argtypes = [ptr] * 5 + [i64] * 7 + [ptr]
+            fwd_blocks = getattr(lib, f"fvx_edge_tower_fwd_blocks{suffix}")
+            fwd_blocks.argtypes = [i64] * 2 + [ctypes.POINTER(i64)]
+            fns.append(fwd_blocks)
+        else:
+            fwd.argtypes = [ptr] * 5 + [i64] * 6 + [ptr]
         bwd.argtypes = [ptr] * 5 + [i64, ptr] + [i64] * 6 + [ptr]
         blocks.argtypes = [i64] * 3 + [ctypes.POINTER(i64)]
-        for fn in (fwd, bwd, blocks):
+        for fn in fns:
             fn.restype = ctypes.c_int
     return lib
 
@@ -441,17 +463,29 @@ def _suffix(images) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device: int, c: int, rp: int, cw: int, suffix: str) -> int:
-    """Blocks of the backward kernel (of the images' dtype, ``suffix``) that
-    the card ``device`` holds at once for C = ``c`` and tiles of ``rp`` x
-    ``cw`` pooled pixels (its grid)."""
+def _resident_blocks(device: int, entry: str, *args: int) -> int:
+    """Blocks of a kernel that the card ``device`` holds at once (its grid),
+    by its blocks ``entry`` (``fvx_edge_tower_{bwd,fwd}_blocks*``) for the
+    kernel's ``args`` (C and the tiles' pooled rows and columns; the bf16
+    forward's, the tiles only)."""
     resident = ctypes.c_longlong(0)
-    blocks = _entry(f"fvx_edge_tower_bwd_blocks{suffix}")
     with torch.cuda.device(device):
-        rc = blocks(c, rp, cw, ctypes.byref(resident))
+        rc = _entry(entry)(*args, ctypes.byref(resident))
     if rc != 0:
-        raise RuntimeError(f"edge tower backward kernel setup failed: cudaError {rc}")
+        raise RuntimeError(f"edge tower kernel setup ({entry}) failed: cudaError {rc}")
     return resident.value
+
+
+def _coprime_grid(n_items: int, resident: int, tiles: int) -> int:
+    """A persistent grid of at most ``resident`` blocks over ``n_items``
+    items, coprime with the ``tiles`` items of an image when it is smaller,
+    so that each block walks items of every size (the last row and column
+    of tiles are ragged)."""
+    n_blocks = min(n_items, resident)
+    if n_blocks < n_items:
+        while math.gcd(n_blocks, tiles) > 1:
+            n_blocks -= 1
+    return n_blocks
 
 
 def _kernel_inputs(images, conv_w, conv_b):
@@ -469,15 +503,27 @@ def _kernel_inputs(images, conv_w, conv_b):
 
 def edge_tower_fwd(images, conv_w, conv_b) -> torch.Tensor:
     """[B, C] f32 tower output by the forward kernel of the images' dtype
-    (CUDA tensors only)."""
+    (CUDA tensors only): f32 images over ``fwd_tiles``, one block an item;
+    bf16 ones over ``fwd_tiles_bf16`` on a persistent grid (no scratch when
+    one tile covers an image)."""
     B, H, W, C = _kernel_inputs(images, conv_w, conv_b)
-    rp, cw, tiles = fwd_tiles(H, W)
     dev = images.device
-    partial = torch.empty(B * tiles * C, dtype=torch.float32, device=dev)
     out = torch.empty(B, C, dtype=torch.float32, device=dev)
+    if images.dtype == torch.bfloat16:
+        if images.data_ptr() % 4:  # the kernel copies 4-byte words: a view on an odd bf16
+            images = images.clone()
+        rp, cw, tiles = fwd_tiles_bf16(H, W)
+        n_blocks = _coprime_grid(B * tiles, _resident_blocks(
+            dev.index, "fvx_edge_tower_fwd_blocks_bf16", rp, cw), tiles)
+        partial = torch.empty(B * tiles * C if tiles > 1 else 0, dtype=torch.float32, device=dev)
+        args = (partial.data_ptr(), out.data_ptr(), n_blocks)
+    else:
+        rp, cw, tiles = fwd_tiles(H, W)
+        partial = torch.empty(B * tiles * C, dtype=torch.float32, device=dev)
+        args = (partial.data_ptr(), out.data_ptr())
     rc = _launch(_entry(f"fvx_edge_tower_fwd{_suffix(images)}"), dev.index,
-                 images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), B, H, W, C, rp, cw)
+                 images.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), *args,
+                 B, H, W, C, rp, cw)
     if rc != 0:
         raise RuntimeError(f"edge tower forward kernel launch failed: cudaError {rc}")
     if images.dtype == torch.bfloat16:
@@ -504,13 +550,8 @@ def edge_tower_bwd(images, conv_w, conv_b, dout):
     dev = images.device
     suffix = _suffix(images)
     rp, cw, tiles = fwd_tiles(H, W) if suffix else bwd_tiles(H, W)
-    n_blocks = min(B * tiles, _resident_blocks(dev.index, C, rp, cw, suffix))
-    if suffix and n_blocks < B * tiles:
-        # a grid coprime with the tiles of an image, so that each block of
-        # the bf16 kernel walks tiles of every size (the last row and column
-        # of tiles are ragged)
-        while math.gcd(n_blocks, tiles) > 1:
-            n_blocks -= 1
+    resident = _resident_blocks(dev.index, f"fvx_edge_tower_bwd_blocks{suffix}", C, rp, cw)
+    n_blocks = _coprime_grid(B * tiles, resident, tiles) if suffix else min(B * tiles, resident)
     partial = torch.empty(n_blocks * (K * K + 1) * C, dtype=torch.float32, device=dev)
     dwb = torch.empty(K * K + 1, C, dtype=torch.float32, device=dev)
     rc = _launch(_entry(f"fvx_edge_tower_bwd{suffix}"), dev.index,

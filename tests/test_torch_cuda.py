@@ -722,9 +722,24 @@ def _check_tower_bf16(x, w, b, dout):
     (3, 14, 14, 256), (2, 64, 4092, 8), (2, 32, 32, 600),  # 4+ groups, W >> 64
     (3, 18, 200, 100), (2, 2, 2, 1), (5, 34, 36, 130),  # ragged tiles, odd tile counts
     (1, 32, 32, 64), (4, 10, 12, 300), (1, 34, 36, 300),  # one image, C = 300
+    (128, 32, 32, 64), (1, 224, 224, 64),  # the evaluator's block; one image of 14 tiles
 ])
 def test_edge_tower_bf16_kernels_match_plain_version_on_card(cuda_device, B, H, W, C):
     _check_tower_bf16(*_tower_inputs(cuda_device, B, H, W, C, seed=B + C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 8])
+def test_edge_tower_bf16_kernels_take_views_at_any_offset_on_card(cuda_device, offset):
+    """bf16 images that start 2, 4 or 16 bytes into their buffer: the
+    forward's 16-byte copies want rows on 16 bytes, its 4-byte ones on 4,
+    and a batch on an odd bf16 is copied before the launch."""
+    x, w, b, dout = _tower_inputs(cuda_device, 6, 32, 40, 70, seed=offset)
+    buf = torch.zeros(x.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    view = buf[offset:offset + x.numel()].view(x.shape)
+    view.copy_(x.bfloat16())
+    assert view.data_ptr() % 16 == 2 * offset % 16
+    _check_tower_bf16(view, w, b, dout)
 
 
 @pytest.mark.cuda

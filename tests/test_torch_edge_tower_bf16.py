@@ -238,3 +238,85 @@ def test_bf16_dtype_mixes_are_refused(bad, match):
     args.update(bad)
     with pytest.raises(ValueError, match=match):
         E.edge_tower_gap(**args)
+
+
+# The bf16 forward kernel's tiles (``fwd_tiles_bf16``) as the kernel walks
+# them: items (image, row band, column band), window groups of 2 pooled
+# rows x 16 pooled columns, windows (rr, cc) of a group; a window past the
+# tile's end adds nothing.  ``_plane`` copies the staged plane's sizes from
+# ``csrc/edge_tower.cu`` (bf16_plane_half / _rows / _shift), which cannot be
+# built here: these tests pin that copy (every tap a window group reads
+# lies inside the plane; the planes of 3 blocks fit an SM), and the card
+# tests (``tests/test_torch_cuda.py``) hold the kernel itself.
+TILE_SHAPES = sorted({(h, w) for (_, h, w, _) in GEOMETRIES} | {
+    (14, 18), (2, 2), (32, 32), (224, 224), (64, 4092), (34, 36), (18, 200), (10, 12)})
+
+
+def _plane(rp, cw):
+    """(half, rows, shift) words of the kernel's staged planes (a copy)."""
+    half = cw + 6
+    while half % 32 != 12:
+        half += 1
+    rows = 2 * (rp + rp % 2) + 4
+    return half, rows, (rows * half + 32) // 32 * 32
+
+
+def _walk_windows(h, w):
+    """[h/2, w/2] counts of the pooled pixels an image's windows add."""
+    rp, cw, tiles = E.fwd_tiles_bf16(h, w)
+    hp, wp = h // 2, w // 2
+    sr, sc = -(-hp // rp), -(-wp // cw)
+    assert tiles == sr * sc
+    half, rows, _ = _plane(rp, cw)
+    counts = np.zeros((hp, wp), np.int64)
+    for r0 in range(0, sr * rp, rp):
+        for q0 in range(0, sc * cw, cw):
+            r_end, c_end = min(r0 + rp, hp), min(q0 + cw, wp)
+            nchunks = -(-(c_end - q0) // E.FWD_CHUNK)
+            for grow in range((r_end - r0 + 1) // 2):
+                for chunk in range(nchunks):
+                    for rr in range(2):
+                        for cc in range(16):
+                            # the window's taps: conv rows Y, Y + 1 and
+                            # columns X, X + 1 of the tile, 5 x 5 each
+                            y, x = 2 * (2 * grow + rr), 2 * (E.FWD_CHUNK * chunk + cc)
+                            assert y + 1 + 4 < rows and x + 1 + 4 + 6 + 1 < 2 * half
+                            if r0 + 2 * grow + rr < r_end and q0 + 16 * chunk + cc < c_end:
+                                counts[r0 + 2 * grow + rr, q0 + 16 * chunk + cc] += 1
+    return counts
+
+
+@pytest.mark.parametrize("h,w", TILE_SHAPES, ids=lambda v: str(v))
+def test_bf16_fwd_tiles_cover_every_pooled_pixel_once(h, w):
+    assert (_walk_windows(h, w) == 1).all()
+
+
+@pytest.mark.parametrize("h,w", TILE_SHAPES, ids=lambda v: str(v))
+def test_bf16_fwd_tiles_fit_three_blocks_an_sm(h, w):
+    """A plane row is a whole number of 16-byte copies, its shifted copy
+    starts on 128 bytes, and two plane sets with the weights and sums leave
+    room for 3 blocks on an SM of an H100 (228 KB, 1 KB of it a block)."""
+    rp, cw, _ = E.fwd_tiles_bf16(h, w)
+    assert 1 <= rp <= E.TILE_ROWS and cw % E.FWD_CHUNK == 0 and cw <= E.FWD_BF16_TILE_COLS
+    half, rows, shift = _plane(rp, cw)
+    assert (4 * half) % 16 == 0 and shift % 32 == 0
+    assert 3 * (4096 + 2048 + 2 * 2 * 4 * shift + 1024) <= 228 * 1024
+
+
+def test_bf16_fwd_tiles_take_whole_32x32_images():
+    """One item a 32x32 image (the kernel writes the mean itself: no
+    second launch); larger images in tiles of 16 pooled rows by up to 96
+    columns, the columns shared evenly."""
+    assert E.fwd_tiles_bf16(32, 32) == (16, 16, 1)
+    assert E.fwd_tiles_bf16(224, 224) == (16, 64, 14)
+    assert E.fwd_tiles_bf16(64, 4092) == (16, 96, 44)
+    assert E.fwd_tiles_bf16(18, 200) == (9, 64, 2)
+    assert E.fwd_tiles_bf16(2, 2) == (1, 16, 1)
+
+
+def test_f32_fwd_tiles_are_unchanged():
+    """The f32 forward and the bf16 backward keep ``fwd_tiles``."""
+    assert [E.fwd_tiles(h, w) for h, w in ((32, 32), (224, 224), (6, 10), (64, 4092), (2, 2),
+                                            (34, 36), (18, 200), (8, 16))] == [
+        (16, 16, 1), (16, 64, 14), (3, 16, 1), (16, 64, 64), (1, 16, 1), (16, 32, 2),
+        (9, 64, 2), (4, 16, 1)]
